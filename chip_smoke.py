@@ -21,7 +21,23 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      launch counts, batched rows against solo calls, waveform against the
      plain path, bucket exactness, bf16 against f32, latency and
      throughput.
-  5. a `kernels` JSON line, the card's name and power limit, and last the
+  5. trainable layer: wn_layer_trainable (the kernel forward, the torch
+     backward) at C=256, B=12, T=2,000 groups (the training segment), every
+     dilation and the last layer, f32 and bf16: its forward (the kernel)
+     against wn_layer_plain, its six gradients against autograd through
+     wn_layer_plain; times of the kernel forward, the torch backward, plain
+     autograd and a library yardstick beside the bound.
+  6. train: train() at full width (12 x 8 x 256, batch 12, segment 16,000)
+     on wav files cut from tests/fixtures/audio.wav, in f32 and bf16: six
+     steps with saves at steps 1, 3 and 6, launch counts (each step's
+     forward and its remat recompute), resume from the step-3 checkpoint
+     against the straight run, one step's loss and grads through the kernel
+     against the plain route (and two wrong routes, which that check must
+     flag: the plain route in the other dtype, and the kernel with the last
+     rows of every sequence left at zero), the loss falling over 5 steps on one repeated
+     batch, step time, audio-seconds per second, peak memory and a profiler
+     breakdown of one step.
+  7. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -31,10 +47,11 @@ Imports nothing of jax and nothing of the JAX package. Details go to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
-import sys
 import tempfile
 import time
 from pathlib import Path
@@ -42,15 +59,22 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.io import wavfile
 
+from waveglow_tpu_torch.checkpointing.from_jax import (
+    trainable_params_from_numpy, tree_leaves)
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
-from waveglow_tpu_torch.hparams import HParams
+from waveglow_tpu_torch.dsp.mel import MelSTFT
+from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
 from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 from waveglow_tpu_torch.kernels import wn_layer as kl
 from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
                                                 infer, infer_noise_shapes,
                                                 init_params)
+from waveglow_tpu_torch.training import step as train_lib
+from waveglow_tpu_torch.training.data import SegmentDataset, load_dataset
+from waveglow_tpu_torch.training.loop import train
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
 # the CUDA cores, bf16 on the tensor cores.
@@ -72,7 +96,45 @@ KERNEL_TOL_BF16_REL = 2e-2
 # differences.
 SLICE_TOL_REL = {"f32": 1e-3, "bf16": 5e-2}
 
+# Training: batch 12 as in the train_config of NVIDIA's published WaveGlow
+# config.json, HParams' segment of 16,000 samples (2,000 groups), 24 files
+# so an epoch is 2 batches, saves every 3 steps and none at epoch ends.
+FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "audio.wav"
+B_TRAIN = 12
+T_TRAIN = 2_000
+N_WAVS = 24
+TRAIN_STEPS = 6
+RESUME_FROM = 3
+TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "3",
+                 "epochs_per_checkpoint": "0"}
+# Tolerances of the training phases, stated before the run.
+# Trainable layer: its forward against the plain layer at the bounds of
+# KERNEL_TOL_F32 / KERNEL_TOL_BF16_REL; each gradient against autograd
+# through the plain layer, relative to that gradient's max |value|. The backward never reads the
+# kernel's outputs, so f32 differs only by sums in other orders; in bf16 the
+# plain layer differentiates its bf16-rounded acts where the backward uses
+# the f32 acts (2^-8 relative in dw_rs).
+GRAD_TOL_REL = {"f32": 1e-4, "bf16": 2e-2}
+# One full train step, kernel route against plain route on the same params
+# and batch: the loss (absolute) and each leaf's gradient (relative to the
+# leaf's max |grad|). Set between the sound routes' largest readings on an
+# H100 (f32: loss 3.7e-9, grads 1.1e-6; bf16: loss 5.3e-7, grads 6.4e-3)
+# and what the check must flag: the f32/bf16 loss gap on the same batch is
+# 1.4e-4, and the two wrong routes of WRONG_ROUTES are checked to fall
+# outside these bounds in every run.
+STEP_LOSS_TOL = {"f32": 1e-7, "bf16": 1e-5}
+STEP_GRAD_TOL_REL = {"f32": 1e-5, "bf16": 2e-2}
+# Wrong routes for that check: the plain route in the other compute dtype,
+# and the kernel leaving the last ROWS_OFF rows of every sequence at zero
+# in every layer.
+WRONG_ROUTES = ("other_dtype", "rows_off")
+ROWS_OFF = 8
+# Resumed run against the straight run, loss at step 6: the same program on
+# the same exactly stored state and batches, so equal is expected.
+RESUME_LOSS_TOL = 1e-5
+
 MODES = {"f32": None, "bf16": torch.bfloat16}
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -290,17 +352,21 @@ def phase_kernel(seed: int) -> dict:
 
 # -- phase 4 ---------------------------------------------------------------
 
-def full_width_checkpoint(seed: int, path: Path) -> CheckpointWaveglow:
+def full_width_params(seed: int) -> dict:
   """12 x 256 model from the seed, every ``end`` randomised small (a zero
   end conv makes each coupling the identity and hides the kernel)."""
-  hp = HParams()
-  params = init_params(WaveGlowConfig.from_hparams(hp), seed=seed)
+  params = init_params(WaveGlowConfig.from_hparams(HParams()), seed=seed)
   rng = np.random.default_rng(seed + 1)
   for flow in params["flows"]:
     end = flow["wn"]["end"]
     end["w"] = (rng.standard_normal(end["w"].shape) * 0.02).astype(np.float32)
     end["b"] = (rng.standard_normal(end["b"].shape) * 0.02).astype(np.float32)
-  CheckpointWaveglow.from_params(params, hp, iteration=1).save(path)
+  return params
+
+
+def full_width_checkpoint(seed: int, path: Path) -> CheckpointWaveglow:
+  CheckpointWaveglow.from_params(full_width_params(seed), HParams(),
+                                 iteration=1).save(path)
   return CheckpointWaveglow.load(path)
 
 
@@ -456,6 +522,426 @@ def profile_request(synth: Synthesizer, mel: np.ndarray, seed: int) -> dict:
                           for ms, n, k in top[:8]]}
 
 
+# -- phase 5 ---------------------------------------------------------------
+
+GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
+
+
+def trainable_inputs(last: bool, dtype, seed: int):
+  """The six inputs (requiring grad) of one training layer at the training
+  segment's shape, as the model feeds it, and two output cotangents."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+
+  def rand(*shape, scale):
+    return torch.randn(*shape, generator=g, device="cuda") * scale
+
+  rs = C if last else 2 * C
+  args = (rand(B_TRAIN, T_TRAIN, C, scale=0.5),
+          rand(B_TRAIN, T_TRAIN, 2, C, scale=0.5).to(dtype),
+          rand(3, C, 2 * C, scale=(3 * C) ** -0.5).to(dtype),
+          rand(2 * C, scale=0.1),
+          rand(C, rs, scale=C ** -0.5).to(dtype),
+          rand(rs, scale=0.1))
+  cot = (rand(B_TRAIN, T_TRAIN, C, scale=1.0),
+         rand(B_TRAIN, T_TRAIN, C, scale=1.0))
+  return [a.requires_grad_() for a in args], cot
+
+
+def trainable_cost(last: bool, mode: str) -> dict:
+  """Least work of one training layer: the forward (the kernel's work) and
+  the six gradients (without recomputing the forward), each input read
+  once and each output written once. Forward products take their operands
+  in the compute dtype; backward products take the f32 cotangents, so they
+  count at the f32 rate in both modes."""
+  esize = 2 if mode == "bf16" else 4
+  rs = C if last else 2 * C
+  rows = B_TRAIN * T_TRAIN
+  weights = (3 * C * 2 * C + C * rs) * esize
+  biases = (2 * C + rs) * 4
+  fwd_bytes = (rows * C * 4 + rows * 2 * C * esize + weights + biases
+               + 2 * rows * C * 4)             # x, cond in; x', skip out
+  grad_bytes = (2 * rows * C * 4                # the two cotangents in
+                + rows * C * 4 + rows * 2 * C * esize + weights + biases)
+  all_bytes = fwd_bytes + grad_bytes
+  # the backward alone reads the saved inputs again
+  bwd_bytes = (grad_bytes + rows * C * 4 + rows * 2 * C * esize + weights
+               + biases)
+  fwd_flops = 2 * rows * C * (3 * 2 * C + rs)
+  # dacts and dw_rs, then dw_in and the taps' adjoint
+  bwd_flops = 2 * rows * (2 * C * rs + 2 * 3 * C * 2 * C)
+  t_ops = fwd_flops / PEAK_FLOPS[mode] + bwd_flops / PEAK_FLOPS["f32"]
+  t_bytes = all_bytes / HBM_BYTES_PER_S
+  return {"bytes": all_bytes, "fwd_flops": fwd_flops, "bwd_flops": bwd_flops,
+          "fwd_bound_ms": max(fwd_bytes / HBM_BYTES_PER_S,
+                              fwd_flops / PEAK_FLOPS[mode]) * 1e3,
+          "bwd_bound_ms": max(bwd_bytes / HBM_BYTES_PER_S,
+                              bwd_flops / PEAK_FLOPS["f32"]) * 1e3,
+          "bound_ms": max(t_bytes, t_ops) * 1e3,
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_trainable(seed: int) -> dict:
+  results, timed = [], {}
+  for mode, cdt in MODES.items():
+    dtype = cdt or torch.float32
+    for i in range(N_LAYERS + 1):
+      last = i == N_LAYERS
+      dilation = 2 ** min(i, N_LAYERS - 1)
+      args, cot = trainable_inputs(last, dtype, seed + i)
+      detached = [a.detach() for a in args]
+      out = kl.wn_layer_trainable(*args, dilation, compute_dtype=cdt)
+      plain_out = kl.wn_layer_plain(*args, dilation, compute_dtype=cdt)
+      torch.cuda.synchronize()
+      fwd_err = max((a - b).abs().max().item()
+                    for a, b in zip(out, plain_out))
+      fwd_scale = max(b.abs().max().item() for b in plain_out)
+      fwd_bound = (KERNEL_TOL_F32 if mode == "f32"
+                   else KERNEL_TOL_BF16_REL * fwd_scale)
+      rec = {"mode": mode, "B": B_TRAIN, "T": T_TRAIN, "dilation": dilation,
+             "last": last, "forward_max_abs_err": fwd_err,
+             "forward_ref_max_abs": fwd_scale, "forward_bound": fwd_bound,
+             "grads": {}}
+      if not all(torch.isfinite(o).all() for o in out) or fwd_err > fwd_bound:
+        fail(f"trainable forward (the kernel) disagrees with the plain "
+             f"layer: {rec}")
+      fused = kl.wn_layer_fused(*detached, dilation, compute_dtype=cdt)
+      if not all(torch.equal(a, b) for a, b in zip(out, fused)):
+        fail(f"trainable forward differs from wn_layer_fused ({mode}, "
+             f"d={dilation}, last={last})")
+      del fused
+      grads = torch.autograd.grad(out, args, cot)
+      plain = torch.autograd.grad(plain_out, args, cot)
+      del plain_out
+      for name, got, ref in zip(GRAD_NAMES, grads, plain):
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+          fail(f"grad {name}: {got.dtype} {tuple(got.shape)}, plain "
+               f"{ref.dtype} {tuple(ref.shape)}")
+        if not torch.isfinite(got).all():
+          fail(f"grad {name} not finite ({mode}, d={dilation})")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rec["grads"][name] = {"max_abs_err": err, "ref_max_abs": scale,
+                              "bound": GRAD_TOL_REL[mode] * scale}
+        if err > GRAD_TOL_REL[mode] * scale:
+          fail(f"trainable grad {name} disagrees with plain autograd: {rec}")
+      rec["grad_max_abs_err"] = max(g["max_abs_err"]
+                                    for g in rec["grads"].values())
+      rec["max_err_of_scale"] = max(g["max_abs_err"] / g["ref_max_abs"]
+                                    for g in rec["grads"].values()
+                                    if g["ref_max_abs"] > 0)
+      if dilation == 1 or last:
+        saved = tuple(detached)
+        rec["forward_ms"] = cuda_ms(lambda: kl.wn_layer_fused(
+            *detached, dilation, compute_dtype=cdt))
+        rec["backward_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
+            saved, cot[0], cot[1], dilation, None, cdt))
+        rec["ms"] = rec["forward_ms"] + rec["backward_ms"]
+        rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            kl.wn_layer_plain(*args, dilation, compute_dtype=cdt), args, cot))
+        rec["plain_forward_ms"] = cuda_ms(lambda: kl.wn_layer_plain(
+            *detached, dilation, compute_dtype=cdt))
+        plain_out = kl.wn_layer_plain(*args, dilation, compute_dtype=cdt)
+        rec["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, args, cot, retain_graph=True))
+        del plain_out
+        x, cond, w_in, b_in, w_rs, _ = detached
+        lib_in = (x.to(dtype).transpose(1, 2).contiguous().requires_grad_(),
+                  cond.reshape(B_TRAIN, T_TRAIN, 2 * C).clone()
+                  .requires_grad_(),
+                  w_in.permute(2, 1, 0).contiguous().requires_grad_(),
+                  b_in.to(dtype).clone().requires_grad_(),
+                  w_rs.clone().requires_grad_())
+        cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(dtype)
+        rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            library_layer(*lib_in, None, dilation, dtype), lib_in, cot_rs))
+        rec.update(trainable_cost(last, mode))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        timed[(mode, last)] = rec
+      log("trainable " + json.dumps(rec))
+      results.append(rec)
+      del args, detached, cot, out, grads, plain
+  torch.cuda.empty_cache()
+  return {"cases": results, "timed": timed}
+
+
+# -- phase 6 ---------------------------------------------------------------
+
+GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|cublas", re.I)
+
+
+def write_wavs(folder: Path, seed: int) -> list:
+  """N_WAVS cuts of the speech fixture, 1.0-1.8 s each, at spread offsets."""
+  sr, wav = wavfile.read(FIXTURE)
+  rng = np.random.default_rng(seed)
+  folder.mkdir(parents=True, exist_ok=True)
+  for i in range(N_WAVS):
+    length = int(rng.integers(22_050, 40_000))
+    start = int(rng.integers(0, len(wav) - length))
+    wavfile.write(folder / f"{i:02d}.wav", sr, wav[start:start + length])
+  return load_dataset(folder)
+
+
+def read_metrics(logdir: Path) -> list:
+  return [json.loads(line) for line in
+          (logdir / "metrics.jsonl").read_text().splitlines()]
+
+
+def device_kernels(prof) -> list:
+  """(name, ms) of every kernel and copy the device ran, without the per-op
+  spans the profiler also records on the device's timeline."""
+  out = []
+  for ev in prof.events():
+    if (ev.device_type != torch.autograd.DeviceType.CUDA
+        or getattr(ev, "is_user_annotation", False)
+        or ev.name.startswith("aten::")):
+      continue
+    out.append((ev.name, (ev.time_range.end - ev.time_range.start) / 1e3))
+  return out
+
+
+def profile_train_step(step_fn, params, batch, cond_width: int) -> dict:
+  """One train step under torch.profiler: wall, device busy and idle share,
+  the host's CUDA runtime calls and which ops made a synchronising one;
+  then a second step, with input shapes recorded, whose kernels are
+  attributed to the ops that launched them: the WN kernel by name, the WN
+  layer's backward by its autograd node, the cond GEMMs by their
+  ``cond_width``-wide operand."""
+  from torch.profiler import ProfilerActivity, profile
+  activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+  torch.cuda.synchronize()
+  with profile(activities=activities) as prof:
+    t0 = time.perf_counter()
+    float(step_fn(params, batch))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  busy_ms = sum(ms for _, ms in device_kernels(prof))
+  # the host's calls into the CUDA runtime: a synchronising call makes the
+  # host wait for the device, and the op that made it is named
+  runtime, syncs = {}, {}
+  for ev in prof.events():
+    if (ev.device_type != torch.autograd.DeviceType.CPU
+        or not ev.name.startswith("cuda")):
+      continue
+    runtime[ev.name] = runtime.get(ev.name, 0) + 1
+    if "Synchronize" in ev.name or ev.name == "cudaMemcpy":
+      chain, e = [], ev.cpu_parent
+      while e is not None and len(chain) < 3:
+        chain.append(e.name)
+        e = e.cpu_parent
+      key = " < ".join(chain) or "(no op)"
+      syncs[key] = syncs.get(key, 0) + 1
+
+  with profile(activities=activities, record_shapes=True) as prof:
+    float(step_fn(params, batch))
+    torch.cuda.synchronize()
+  wn_key = "WN kernel (forward and remat recompute)"
+  families = dict.fromkeys(
+      (wn_key, "WN backward: GEMMs", "WN backward: elementwise",
+       "cond GEMMs (forward, recompute, backward)",
+       "other GEMMs (upsample, 1x1, STFT, mel)",
+       "other elementwise, copies, reductions, Adam"), 0.0)
+  kernels = device_kernels(prof)
+  families[wn_key] = sum(ms for name, ms in kernels
+                         if "wn_layer_kernel" in name)
+  for ev in prof.events():
+    if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+      continue
+    chain, e = [], ev
+    while e is not None:
+      chain.append(e)
+      e = e.cpu_parent
+    in_bwd = any("WNLayerTrainableBackward" in e.name for e in chain)
+    is_cond = any(isinstance(dims, (list, tuple)) and cond_width in dims
+                  for e in chain for dims in (e.input_shapes or ()))
+    for k in ev.kernels:
+      if "wn_layer_kernel" in k.name:
+        continue
+      gemm = bool(GEMM.search(k.name))
+      if in_bwd:
+        key = "WN backward: GEMMs" if gemm else "WN backward: elementwise"
+      elif gemm:
+        key = ("cond GEMMs (forward, recompute, backward)" if is_cond
+               else "other GEMMs (upsample, 1x1, STFT, mel)")
+      else:
+        key = "other elementwise, copies, reductions, Adam"
+      families[key] += k.duration / 1e3
+  attributed_busy = sum(ms for _, ms in kernels)
+  families["not attributed"] = attributed_busy - sum(families.values())
+  return {"wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if busy_ms else "not measured",
+          "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
+          "attributed_step_busy_ms": attributed_busy,
+          "by_family_ms": families,
+          "cuda_runtime_calls": runtime, "host_syncs_by_op": syncs}
+
+
+def phase_train(mode: str, seed: int, tmp: Path) -> dict:
+  custom = dict(TRAIN_HPARAMS, seed=str(seed),
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  hp = overwrite_custom_hparams(HParams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  entries = write_wavs(tmp / "wavs", seed)
+  per_forward = config.n_flows * config.n_layers
+  per_step = 2 * per_forward if hp.remat else per_forward
+  audio_per_step = B_TRAIN * hp.segment_length / hp.sampling_rate
+
+  # -- the main path: train() from the seed's initialisation
+  torch.cuda.reset_peak_memory_stats()
+  kl.LAUNCHES = 0
+  t0 = time.perf_counter()
+  train(custom, tmp / "logs", entries, entries, tmp / "ck",
+        max_iterations=TRAIN_STEPS, device=DEVICE)
+  train_s = time.perf_counter() - t0
+  launches = kl.LAUNCHES
+  peak = torch.cuda.max_memory_allocated()
+  records = read_metrics(tmp / "logs")
+  steps = [r for r in records if r["event"] == "train_step"]
+  saves = [r["iteration"] for r in records if r["event"] == "validation"]
+  val_batches = -(-len(entries) // B_TRAIN)
+  expected = per_step * len(steps) + per_forward * val_batches * len(saves)
+  if len(steps) != TRAIN_STEPS or saves != [1, RESUME_FROM, TRAIN_STEPS]:
+    fail(f"{mode}: train() ran {len(steps)} steps, validated at {saves}")
+  if launches != expected:
+    fail(f"{mode}: train() launched the kernel {launches} times, expected "
+         f"{expected} ({per_step} per step, {per_forward} per validation "
+         "batch)")
+  losses = [r["loss"] for r in steps]
+  if not np.isfinite(losses).all():
+    fail(f"{mode}: non-finite loss {losses}")
+  step_s = [r["duration_s"] for r in steps[1:]]
+
+  # -- resume from the step-3 checkpoint: the straight run's losses
+  train(None, tmp / "logs_resumed", entries, entries, tmp / "ck_resumed",
+        checkpoint=CheckpointWaveglow.load(tmp / "ck" / f"{RESUME_FROM}.npz"),
+        max_iterations=TRAIN_STEPS, device=DEVICE)
+  resumed = {r["iteration"]: r["loss"]
+             for r in read_metrics(tmp / "logs_resumed")
+             if r["event"] == "train_step"}
+  if sorted(resumed) != list(range(RESUME_FROM + 1, TRAIN_STEPS + 1)):
+    fail(f"{mode}: the resumed run took steps {sorted(resumed)}")
+  resume_err = max(abs(resumed[it] - losses[it - 1]) for it in resumed)
+  if resume_err > RESUME_LOSS_TOL:
+    fail(f"{mode}: resumed losses {resumed} differ from the straight run "
+         f"{losses} by {resume_err}")
+  for ck in ("ck", "ck_resumed"):   # about 1 GB a checkpoint
+    shutil.rmtree(tmp / ck)
+
+  # -- one step through the kernel against the plain route
+  params_np = full_width_params(seed)
+  mel_op = MelSTFT(hp, DEVICE)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(B_TRAIN), 0)).to(DEVICE)
+  other_hp = dataclasses.replace(
+      hp, compute_dtype="float32" if mode == "bf16" else "bfloat16")
+  cut = torch.full((batch.shape[0],),
+                   hp.segment_length // config.n_group - ROWS_OFF,
+                   dtype=torch.int32, device=DEVICE)
+
+  def rows_off(*args, compute_dtype=None):
+    return kl.wn_layer_trainable(*args, valid_t=cut,
+                                 compute_dtype=compute_dtype)
+
+  routes = {}
+  for route, route_hp, layer in (
+      ("kernel", hp, kl.wn_layer_trainable), ("plain", hp, kl.wn_layer_plain),
+      ("other_dtype", other_hp, kl.wn_layer_plain),
+      ("rows_off", hp, rows_off)):
+    params = trainable_params_from_numpy(params_np, DEVICE)
+    loss = train_lib.compute_grads(
+        train_lib.make_loss_fn(config, route_hp, mel_op, layer), params,
+        batch)
+    routes[route] = (float(loss), [p.grad for p in tree_leaves(params)])
+    del params
+  loss_p, grads_p = routes.pop("plain")
+  against_plain = {}
+  for route, (loss_r, grads_r) in routes.items():
+    rel = [(got - ref).abs().max().item() / ref.abs().max().item()
+           if ref.abs().max().item() else (got - ref).abs().max().item()
+           for got, ref in zip(grads_r, grads_p)]
+    against_plain[route] = {
+        "loss": loss_r, "loss_err": abs(loss_r - loss_p),
+        "grad_max_rel": max(rel),
+        "finite": all(bool(torch.isfinite(g).all()) for g in grads_r)}
+  zero_leaves = sum(ref.abs().max().item() == 0 for ref in grads_p)
+  del routes, grads_p
+  log(f"train_step_check {mode} " + json.dumps(
+      {"plain_loss": loss_p, "against_plain": against_plain,
+       "loss_bound": STEP_LOSS_TOL[mode],
+       "grad_bound_rel": STEP_GRAD_TOL_REL[mode]}))
+  kernel_gap = against_plain["kernel"]
+  if (not kernel_gap["finite"]
+      or kernel_gap["grad_max_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"{mode}: a leaf's grad through the kernel differs from the plain "
+         f"route by {kernel_gap['grad_max_rel']} of its scale")
+  if kernel_gap["loss_err"] > STEP_LOSS_TOL[mode]:
+    fail(f"{mode}: loss through the kernel {kernel_gap['loss']}, plain route "
+         f"{loss_p}")
+  for route in WRONG_ROUTES:
+    gap = against_plain[route]
+    if (gap["loss_err"] <= STEP_LOSS_TOL[mode]
+        and gap["grad_max_rel"] <= STEP_GRAD_TOL_REL[mode]):
+      fail(f"{mode}: the wrong route {route} passes the kernel-vs-plain "
+           f"check ({gap}): its bounds cannot tell a wrong kernel")
+
+  # -- from the seed's initialisation (zero ends, as train() starts), the
+  # loss falls over 5 steps on one repeated batch; then 5 more steps timed,
+  # with the host's enqueue time (the step returns before the device ends)
+  params = trainable_params_from_numpy(
+      init_params(config, seed=seed), DEVICE)
+  optimizer = train_lib.make_optimizer(params, hp.learning_rate)
+  step_fn = train_lib.make_train_step(config, hp, mel_op, optimizer)
+  repeated, per_call, step_times, enqueue_times = [], [], [], []
+  for i in range(10):
+    before = kl.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = step_fn(params, batch)
+    t1 = time.perf_counter()
+    repeated.append(float(loss))
+    if i >= 5:
+      step_times.append(time.perf_counter() - t0)
+      enqueue_times.append(t1 - t0)
+    per_call.append(kl.LAUNCHES - before)
+  if per_call != [per_step] * len(per_call):
+    fail(f"{mode}: kernel launches per step {per_call}, expected {per_step}")
+  if not repeated[4] < repeated[0]:
+    fail(f"{mode}: loss did not fall over 5 steps on one batch: {repeated}")
+  profile = profile_train_step(step_fn, params, batch,
+                               config.n_mel_channels * config.n_group)
+  del params, optimizer, step_fn, batch, loss
+  torch.cuda.empty_cache()
+
+  median_s = float(np.median(step_s))
+  steady_s = float(np.median(step_times))
+  busy_ms = profile["device_busy_ms"]
+  info = {"mode": mode, "launches": launches, "expected_launches": expected,
+          "launches_per_step": per_call[0], "train_s": train_s,
+          "losses": losses, "resumed_losses": resumed,
+          "resume_max_abs_err": resume_err,
+          "step_s": step_s, "median_step_s": median_s,
+          "audio_s_per_step": audio_per_step,
+          "audio_s_per_s": audio_per_step / median_s,
+          "max_memory_allocated_bytes": peak,
+          "kernel_vs_plain_loss": [kernel_gap["loss"], loss_p],
+          "kernel_vs_plain_loss_err": kernel_gap["loss_err"],
+          "kernel_vs_plain_grad_max_rel": kernel_gap["grad_max_rel"],
+          "step_check_against_plain": against_plain,
+          "zero_grad_leaves": zero_leaves,
+          "repeated_batch_losses": repeated,
+          "steady_step_s": step_times,
+          "steady_median_step_s": steady_s,
+          "steady_median_enqueue_s": float(np.median(enqueue_times)),
+          "steady_audio_s_per_s": audio_per_step / steady_s,
+          # the profiled step runs slower (the profiler's own host cost), so
+          # its busy time is also set against the unprofiled median step
+          "idle_share_vs_steady_step": (1 - busy_ms / 1e3 / steady_s
+                                        if busy_ms != "not measured"
+                                        else busy_ms),
+          "profile_step": profile}
+  log("train " + json.dumps(info))
+  return info
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -480,6 +966,11 @@ def main() -> None:
   if not bf16_vs_f32 > 0:
     fail("bf16 serving gave the f32 waveform: bf16 did not run")
   slices["bf16"]["vs_f32_max_abs"] = bf16_vs_f32
+  trainable = phase_trainable(args.seed)
+  trains = {}
+  for mode in MODES:
+    with tempfile.TemporaryDirectory() as tmp:
+      trains[mode] = phase_train(mode, args.seed, Path(tmp))
 
   kernels = []
   for mode in MODES:
@@ -498,10 +989,39 @@ def main() -> None:
         "ptxas": (build["ptxas"].get(variant(mode, False))
                   if build["built_in_this_run"] else build["ptxas"]),
         "loaded_build": build["attributes"][variant(mode, False)]})
+  for mode in MODES:
+    rec = trainable["timed"][(mode, False)]
+    cases = [c for c in trainable["cases"] if c["mode"] == mode]
+    # ms is the layer's forward (the kernel) plus its torch backward, the
+    # work the autograd Function does; the bound is that of both.
+    # max_abs_err is the forward's (the kernel's outputs against the plain
+    # layer's), over every dilation and the last layer
+    kernels.append({
+        "name": f"wn_layer_trainable[{mode}]", "route": "cuda",
+        "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:174",
+        "launches": trains[mode]["launches"],
+        "max_abs_err": max(c["forward_max_abs_err"] for c in cases),
+        "forward_bound_max": max(c["forward_bound"] for c in cases),
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "forward_ms": rec["forward_ms"], "backward_ms": rec["backward_ms"],
+        "forward_bound_ms": rec["fwd_bound_ms"],
+        "backward_bound_ms": rec["bwd_bound_ms"],
+        "plain_backward_ms": rec["plain_backward_ms"],
+        # the six gradients against plain autograd: in gradient units
+        # (dw_in reaches a few hundred), and over each gradient's max |value|
+        "grad_max_abs_err": max(c["grad_max_abs_err"] for c in cases),
+        "grad_max_err_of_scale": max(c["max_err_of_scale"] for c in cases),
+        "grad_tolerance_of_scale": GRAD_TOL_REL[mode],
+        "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},d=1",
+        "launches_per_step": trains[mode]["launches_per_step"]})
 
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
+            "trainable_cases": trainable["cases"], "train": trains,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))

@@ -103,3 +103,95 @@ def test_kernel_info_reads_the_loaded_build(cuda, bf16, last):
   assert 0 < info["registers"] <= 255
   assert info["dynamic_smem_bytes"] > 48 * 1024  # needs the opt-in
   assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
+
+
+@pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
+                                           (2, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_trainable_grads_match_plain(cuda, dilation, last, bf16):
+  """wn_layer_trainable on the card: the forward is one kernel launch equal
+  to wn_layer_fused, and the six gradients (with a per-row valid_t) match
+  autograd through wn_layer_plain. Each gradient within 1e-4 (f32) or 2e-2
+  (bf16) of its own max |value|: the backward never reads the kernel's
+  outputs, so f32 differs only by sums in other orders, and in bf16 the
+  plain layer differentiates its bf16-rounded acts."""
+  batch, t, c = 2, 300, kl.CHANNELS
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  args = list(layer_inputs(cuda, batch, t, c, last, dtype, seed=3))
+  valid = torch.tensor([t, t - 77], dtype=torch.int32, device=cuda)
+  args[0] = args[0] * (torch.arange(t, device=cuda)[None, :, None]
+                       < valid[:, None, None])
+  args = [a.detach().clone().requires_grad_() for a in args]
+  gen = torch.Generator(device=cuda).manual_seed(4)
+  cot = [torch.randn(batch, t, c, generator=gen, device=cuda)
+         for _ in range(2)]
+  before = kl.LAUNCHES
+  out = kl.wn_layer_trainable(*args, dilation, valid_t=valid,
+                              compute_dtype=cdt)
+  assert kl.LAUNCHES == before + 1
+  fused = kl.wn_layer_fused(*[a.detach() for a in args], dilation,
+                            valid_t=valid, compute_dtype=cdt)
+  assert all(torch.equal(a, b) for a, b in zip(out, fused))
+  grads = torch.autograd.grad(out, args, cot)
+  plain = torch.autograd.grad(
+      kl.wn_layer_plain(*args, dilation, valid_t=valid, compute_dtype=cdt),
+      args, cot)
+  tol = 2e-2 if bf16 else 1e-4
+  for got, ref, arg in zip(grads, plain, args):
+    assert got.dtype == arg.dtype and got.shape == arg.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_trainable_raises_on_bad_inputs(cuda):
+  x, cond, w_in, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 64, kl.CHANNELS,
+                                                 False, torch.float32)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_trainable(x, cond, w_in, b_in, w_rs, b_rs, 1,
+                          compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_kernel_route_matches_plain(cuda, compute_dtype):
+  """One train step of a 2-flow, 2-layer, 256-channel model (ends
+  randomised): loss and every leaf's gradient through the kernel against
+  the plain route, loss 1e-5 (f32) / 1e-3 (bf16) abs, grads 1e-3 / 5e-2
+  of each leaf's max |grad|; the step launches the kernel twice per layer
+  (the forward and its remat recompute)."""
+  from waveglow_tpu_torch.checkpointing.from_jax import (
+      trainable_params_from_numpy, tree_leaves)
+  from waveglow_tpu_torch.dsp.mel import MelSTFT
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, init_params
+  from waveglow_tpu_torch.training import step
+
+  hp = overwrite_custom_hparams(HParams(), {
+      "n_flows": "2", "n_layers": "2", "segment_length": "2048",
+      "compute_dtype": compute_dtype})
+  config = WaveGlowConfig.from_hparams(hp)
+  params_np = init_params(config, seed=0)
+  rng = np.random.default_rng(1)
+  for flow in params_np["flows"]:
+    for k in ("w", "b"):
+      flow["wn"]["end"][k] = (rng.standard_normal(
+          flow["wn"]["end"][k].shape) * 0.02).astype(np.float32)
+  audio = torch.from_numpy(
+      rng.uniform(-0.5, 0.5, (2, 2048)).astype(np.float32)).to(cuda)
+  mel = MelSTFT(hp, cuda)
+  results = []
+  for layer in (kl.wn_layer_trainable, kl.wn_layer_plain):
+    params = trainable_params_from_numpy(params_np, cuda)
+    before = kl.LAUNCHES
+    loss = step.compute_grads(step.make_loss_fn(config, hp, mel, layer),
+                              params, audio)
+    results.append((float(loss), [p.grad for p in tree_leaves(params)],
+                    kl.LAUNCHES - before))
+  (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = results
+  assert launches_k == 2 * 2 * 2 and launches_p == 0
+  bf16 = compute_dtype == "bfloat16"
+  assert abs(loss_k - loss_p) <= (1e-3 if bf16 else 1e-5)
+  for got, ref in zip(grads_k, grads_p):
+    scale = ref.abs().max().item()
+    assert scale > 0
+    assert (got - ref).abs().max().item() <= (5e-2 if bf16 else 1e-3) * scale

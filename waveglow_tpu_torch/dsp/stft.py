@@ -55,6 +55,13 @@ def _bases(filter_length: int, hop_length: int, win_length: int,
   return forward.T.astype(np.float32), inverse.astype(np.float32)
 
 
+def frame_signal(x: torch.Tensor, frame_length: int,
+                 hop_length: int) -> torch.Tensor:
+  """Frame [B, T] into [B, n_frames, frame_length] at stride ``hop_length``
+  (a view; ``n_frames = (T - frame_length) // hop_length + 1``)."""
+  return x.unfold(-1, frame_length, hop_length)
+
+
 class STFT:
   """STFT operator with its bases as float32 tensors on ``device``."""
 
@@ -74,19 +81,32 @@ class STFT:
     self.cutoff = filter_length // 2 + 1
     self._inv_env: Dict[int, torch.Tensor] = {}
 
-  def transform(self, audio: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, T] -> (magnitude, phase), each [B, cutoff, n_frames]."""
+  def _spectrum(self, audio: torch.Tensor) -> torch.Tensor:
+    """[B, T] -> [B, n_frames, 2*cutoff] (Re, then Im): reflect pad, then
+    one DFT matmul over the frames."""
     half = self.filter_length // 2
     padded = F.pad(audio.float()[:, None, :], (half, half),
                    mode="reflect")[:, 0]
-    frames = padded.unfold(-1, self.filter_length, self.hop_length)
-    spec = torch.matmul(frames, self.forward_basis)   # [B, N, 2*cutoff]
+    frames = frame_signal(padded, self.filter_length, self.hop_length)
+    return torch.matmul(frames, self.forward_basis)
+
+  def transform(self, audio: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T] -> (magnitude, phase), each [B, cutoff, n_frames]."""
+    spec = self._spectrum(audio)
     real = spec[..., :self.cutoff]
     imag = spec[..., self.cutoff:]
     magnitude = torch.sqrt(real * real + imag * imag)
     phase = torch.atan2(imag, real)
     return magnitude.transpose(1, 2), phase.transpose(1, 2)
+
+  def transform_mag2(self, audio: torch.Tensor) -> torch.Tensor:
+    """[B, T] -> squared magnitude [B, n_frames, cutoff] (channels-last),
+    the mel front end's input."""
+    spec = self._spectrum(audio)
+    real = spec[..., :self.cutoff]
+    imag = spec[..., self.cutoff:]
+    return real * real + imag * imag
 
   def _envelope(self, n_frames: int) -> torch.Tensor:
     """1 / window-sum-square where it exceeds float32 tiny, else 1, times

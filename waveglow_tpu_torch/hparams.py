@@ -81,11 +81,13 @@ class TpuHParams:
   # the WN body (keeps coupling/1x1 residuals, recomputes just the stack).
   remat_scope: str = "flow"
   # Trace one flow body per same-shape group (lax.scan) instead of
-  # unrolling all flows: identical numerics, ~4x faster XLA compiles.
+  # unrolling all flows: identical numerics, ~4x faster XLA compiles. The
+  # JAX package's tracing choice only; kept for checkpoint compatibility,
+  # no effect in the port (which traces nothing).
   scan_flows: bool = True
-  # Route WN layers through the fused Pallas kernel in the TRAINING step
-  # (differentiable via wn_layer_trainable's custom VJP). Off by default:
-  # XLA's cross-layer fusion wins at stack level (docs/PERFORMANCE.md).
+  # Route WN layers through the fused Pallas kernel in the JAX package's
+  # TRAINING step. Kept for checkpoint compatibility; the port always runs
+  # every WN layer through its CUDA kernel.
   use_pallas: bool = False
   # Checkpoint save backend: "npz" (reference-parity single file; sharded
   # states are all-gathered to host first) or "orbax" (per-shard distributed

@@ -35,6 +35,7 @@ from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
                                                 fuse_for_inference, infer,
                                                 params_for_compute)
+from waveglow_tpu_torch.ops.conv import compute_dtype_from_name
 
 logger = logging.getLogger(__name__)
 
@@ -101,12 +102,9 @@ class Synthesizer:
                                        custom_hparams)
     if compute_dtype is not None:
       hparams.compute_dtype = compute_dtype
-    if hparams.compute_dtype not in ("float32", "bfloat16"):
-      raise ValueError(f"unsupported compute_dtype {hparams.compute_dtype!r}")
+    self._cdt = compute_dtype_from_name(hparams.compute_dtype)
     self.hparams = hparams
     self.config = WaveGlowConfig.from_hparams(hparams)
-    self._cdt = (torch.bfloat16 if hparams.compute_dtype == "bfloat16"
-                 else None)
     params = params_from_numpy(checkpoint.state_dict, self.device)
     self.denoiser = Denoiser(params, self.config, hparams, self.device)
     self.params = params_for_compute(params, self._cdt)

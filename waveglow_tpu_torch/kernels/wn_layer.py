@@ -19,6 +19,13 @@ the skip is added into that buffer in place and the buffer returned.
 ``wn_layer_fused`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; on a CUDA tensor it launches the kernel or raises, never falls
 back. ``LAUNCHES`` counts kernel launches.
+
+``wn_layer_trainable`` is the differentiable layer (counterpart of the JAX
+package's custom-VJP ``wn_layer_trainable``): its forward is
+``wn_layer_fused`` without ``skip_acc`` (the kernel on the card), its
+backward the closed-form adjoints of ``_wn_layer_trainable_bwd`` in torch
+ops, recomputing taps, gates and acts in f32. The JAX package has no
+backward kernel, and neither has the port.
 """
 
 from __future__ import annotations
@@ -93,9 +100,8 @@ def wn_layer_plain(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     x_next, skip = x.to(f32), rs
   else:
     x_next, skip = x.to(f32) + rs[..., :c], rs[..., c:]
-  if valid_t is not None:
-    valid = torch.as_tensor(valid_t, device=x.device).reshape(-1, 1)
-    keep = (torch.arange(t, device=x.device)[None, :] < valid)[..., None]
+  keep = _row_mask(valid_t, t, x.device)
+  if keep is not None:
     x_next = torch.where(keep, x_next, torch.zeros((), device=x.device))
   if skip_acc is not None:
     skip = skip_acc.add_(skip)
@@ -249,3 +255,114 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     raise RuntimeError(f"wn_layer kernel launch failed: cudaError {err}")
   LAUNCHES += 1
   return x_out, skip
+
+
+def _row_mask(valid_t: ValidT, t: int,
+              device: torch.device) -> Optional[torch.Tensor]:
+  """[B, T, 1] bool, True at rows < valid_t (None when nothing is masked)."""
+  if valid_t is None:
+    return None
+  valid = torch.as_tensor(valid_t, device=device).reshape(-1, 1)
+  return (torch.arange(t, device=device)[None, :] < valid)[..., None]
+
+
+def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
+                      dx_next: Optional[torch.Tensor],
+                      dskip: Optional[torch.Tensor], dilation: int,
+                      valid_t: ValidT = None, compute_dtype=None
+                      ) -> Tuple[torch.Tensor, ...]:
+  """Gradients of (x, cond, w_in, b_in, w_rs, b_rs) of one layer, from the
+  saved inputs and the output cotangents (None means zero); the torch-ops
+  counterpart of ``_wn_layer_trainable_bwd``.
+
+  Taps, gates and acts are recomputed in f32 from the inputs (the taps
+  rounded to ``compute_dtype`` first, as the forward's product operands
+  are), every product runs in f32, and each gradient is cast to its input's
+  dtype and shape.
+  """
+  x, cond, w_in, b_in, w_rs, b_rs = saved
+  batch, t, c = x.shape
+  f32 = torch.float32
+  last = w_rs.numel() == c * c
+  n_rs = c if last else 2 * c
+  xm = x.float() if compute_dtype is None else x.to(compute_dtype).float()
+  taps = torch.cat([shift_time(xm, (tap - 1) * dilation) for tap in range(3)],
+                   dim=-1).reshape(-1, 3 * c)                    # [R, 3C]
+  w_in_f = w_in.to(f32).reshape(3 * c, 2 * c)
+  gates = (torch.matmul(taps, w_in_f) + b_in.to(f32).reshape(-1)
+           + cond.to(f32).reshape(-1, 2 * c))                    # [R, 2C]
+  t_act = torch.tanh(gates[:, :c])
+  s_act = torch.sigmoid(gates[:, c:])
+  acts = t_act * s_act
+
+  def cotangent(g):
+    if g is None:
+      return torch.zeros((batch * t, c), dtype=f32, device=x.device)
+    return g.to(f32).reshape(-1, c)
+
+  dx_next, dskip = cotangent(dx_next), cotangent(dskip)
+  keep = _row_mask(valid_t, t, x.device)
+  if keep is not None:
+    # the forward zeroes x' rows >= valid_t: no gradient flows back there
+    dx_next = torch.where(keep.reshape(-1, 1), dx_next,
+                          torch.zeros((), device=x.device))
+  drs = dskip if last else torch.cat([dx_next, dskip], dim=-1)  # [R, n_rs]
+
+  w_rs_f = w_rs.to(f32).reshape(c, n_rs)
+  dacts = torch.matmul(drs, w_rs_f.T)
+  dw_rs = torch.matmul(acts.T, drs)
+  db_rs = drs.sum(0)
+  dgates = torch.cat([dacts * s_act * (1.0 - t_act * t_act),
+                      dacts * t_act * s_act * (1.0 - s_act)], dim=-1)
+  db_in = dgates.sum(0)
+  dw_in = torch.matmul(taps.T, dgates)
+  # adjoint of the 3-tap dilated conv: shift_time's adjoint is shift_time
+  # with the negated offset
+  g_w = torch.matmul(dgates, w_in_f.T).reshape(batch, t, 3 * c)
+  dx = dx_next.reshape(batch, t, c)
+  for tap in range(3):
+    dx = dx + shift_time(g_w[..., tap * c:(tap + 1) * c], -(tap - 1) * dilation)
+
+  def like(g, ref):
+    return g.reshape(ref.shape).to(ref.dtype)
+
+  return (like(dx, x), like(dgates, cond), like(dw_in, w_in),
+          like(db_in, b_in), like(dw_rs, w_rs), like(db_rs, b_rs))
+
+
+class WNLayerTrainable(torch.autograd.Function):
+  """Forward: :func:`wn_layer_fused` without ``skip_acc``; backward:
+  :func:`wn_layer_backward`. Saves the six inputs, as the JAX custom VJP
+  does (nothing of the kernel's intermediates)."""
+
+  @staticmethod
+  def forward(ctx, x, cond, w_in, b_in, w_rs, b_rs, dilation, valid_t,
+              compute_dtype):
+    ctx.set_materialize_grads(False)
+    ctx.dilation = dilation
+    ctx.valid_t = valid_t
+    ctx.compute_dtype = compute_dtype
+    ctx.save_for_backward(x, cond, w_in, b_in, w_rs, b_rs)
+    return wn_layer_fused(x, cond, w_in, b_in, w_rs, b_rs, dilation,
+                          valid_t=valid_t, compute_dtype=compute_dtype)
+
+  @staticmethod
+  def backward(ctx, dx_next, dskip):
+    grads = wn_layer_backward(ctx.saved_tensors, dx_next, dskip,
+                              ctx.dilation, ctx.valid_t, ctx.compute_dtype)
+    return grads + (None, None, None)
+
+
+def wn_layer_trainable(x: torch.Tensor, cond: torch.Tensor,
+                       w_in: torch.Tensor, b_in: torch.Tensor,
+                       w_rs: torch.Tensor, b_rs: torch.Tensor, dilation: int,
+                       valid_t: ValidT = None, compute_dtype=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Differentiable fused WN layer: ``(x', skip)`` as
+  :func:`wn_layer_fused` without ``skip_acc``, with gradients for all six
+  tensor inputs. On CUDA tensors the forward is the kernel (inputs as
+  ``wn_layer_fused`` takes them, or it raises); on CPU tensors the plain
+  version. Its plain counterpart is ``torch.autograd`` through
+  :func:`wn_layer_plain`."""
+  return WNLayerTrainable.apply(x, cond, w_in, b_in, w_rs, b_rs, dilation,
+                                valid_t, compute_dtype)

@@ -1,5 +1,6 @@
-"""WaveGlow synthesis: upsample, unfold, 12 reverse flows, early noise
-(counterpart of ``waveglow_tpu/models/waveglow.py``, inference direction).
+"""WaveGlow: upsample, unfold, 12 flows, early outputs (counterpart of
+``waveglow_tpu/models/waveglow.py``). :func:`forward` is the training
+direction over trainable leaves; :func:`infer` is synthesis over fused ones.
 
 Tensors are channels-last ``[B, T_groups, C]``. Host-side functions
 (:func:`init_params`, :func:`fuse_for_inference`) work on numpy pytrees in
@@ -17,12 +18,15 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from waveglow_tpu_torch.device import resolve_device
 from waveglow_tpu_torch.hparams import HParams
-from waveglow_tpu_torch.kernels.wn_layer import wn_layer_fused
+from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
+                                                 wn_layer_trainable)
 from waveglow_tpu_torch.models import weightnorm
-from waveglow_tpu_torch.models.wn import LayerFn, init_wn_params, wn_forward
+from waveglow_tpu_torch.models.wn import (LayerFn, init_wn_params, wn_forward,
+                                          wn_forward_train)
 from waveglow_tpu_torch.ops import inv1x1
 from waveglow_tpu_torch.ops.conv import conv_transpose1d
 
@@ -178,6 +182,75 @@ def unfold_groups(upsampled: torch.Tensor, n_group: int) -> torch.Tensor:
   grouped = upsampled.reshape(batch, t // n_group, n_group, n_mels)
   return grouped.permute(0, 1, 3, 2).reshape(batch, t // n_group,
                                              n_mels * n_group)
+
+
+def forward(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
+            audio: torch.Tensor, compute_dtype=None, remat: bool = False,
+            remat_scope: str = "flow", layer: LayerFn = wn_layer_trainable
+            ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+  """Training-direction flow over trainable leaves (``params`` from
+  ``checkpointing.from_jax.trainable_params_from_numpy``).
+
+  ``spect`` [B, n_mels, frames] is upsampled, trimmed to the audio length
+  and unfolded; ``audio`` [B, T] (T a multiple of n_group) runs through the
+  flows, each an invertible 1x1 mix then the affine coupling
+  ``exp(log_s) * a1 + b``; every ``n_early_every`` flows ``n_early_size``
+  channels go to z. ``remat`` recomputes in the backward either each whole
+  flow step (``remat_scope="flow"``) or only its WN stack (``"wn"``),
+  through ``torch.utils.checkpoint``. The JAX package's ``scan_flows`` only
+  changes how its program is traced, not its numbers, so it has no
+  counterpart here. Returns ``(z [B, T/n_group, n_group], log_s_list,
+  log_det_w_list)``.
+  """
+  if remat_scope not in ("flow", "wn"):
+    raise ValueError(f"remat_scope must be 'flow' or 'wn', got {remat_scope!r}")
+  batch, t_audio = audio.shape
+  up = upsample_mel(params, spect, compute_dtype)
+  if up.shape[1] < t_audio:
+    raise ValueError(f"upsampled mel ({up.shape[1]} samples) is shorter than "
+                     f"the audio ({t_audio})")
+  spect_g = unfold_groups(up[:, :t_audio, :], config.n_group)
+  audio_g = audio.float().reshape(batch, t_audio // config.n_group,
+                                  config.n_group)
+
+  def wn_call(wn_params, audio_0):
+    return wn_forward_train(wn_params, audio_0, spect_g, config.n_channels,
+                            config.n_layers, config.kernel_size,
+                            compute_dtype=compute_dtype, layer=layer)
+
+  def flow_step(flow, audio_g, channels):
+    audio_g, log_det_w = inv1x1.forward(audio_g, flow["inv1x1"]["w"])
+    n_half = channels // 2
+    audio_0 = audio_g[..., :n_half]
+    audio_1 = audio_g[..., n_half:]
+    if remat and remat_scope == "wn":
+      wn_out = checkpoint(wn_call, flow["wn"], audio_0, use_reentrant=False,
+                          preserve_rng_state=False)
+    else:
+      wn_out = wn_call(flow["wn"], audio_0)
+    b = wn_out[..., :n_half]
+    log_s = wn_out[..., n_half:]
+    audio_1 = torch.exp(log_s) * audio_1 + b
+    return torch.cat([audio_0, audio_1], dim=-1), log_s, log_det_w
+
+  output_chunks: List[torch.Tensor] = []
+  log_s_list: List[torch.Tensor] = []
+  log_det_w_list: List[torch.Tensor] = []
+  for k, channels in enumerate(config.flow_channel_counts()):
+    if k % config.n_early_every == 0 and k > 0:
+      output_chunks.append(audio_g[..., :config.n_early_size])
+      audio_g = audio_g[..., config.n_early_size:]
+    if remat and remat_scope == "flow":
+      audio_g, log_s, log_det_w = checkpoint(
+          flow_step, params["flows"][k], audio_g, channels,
+          use_reentrant=False, preserve_rng_state=False)
+    else:
+      audio_g, log_s, log_det_w = flow_step(params["flows"][k], audio_g,
+                                            channels)
+    log_s_list.append(log_s)
+    log_det_w_list.append(log_det_w)
+  output_chunks.append(audio_g)
+  return torch.cat(output_chunks, dim=-1), log_s_list, log_det_w_list
 
 
 def infer_noise_shapes(config: WaveGlowConfig, batch: int,

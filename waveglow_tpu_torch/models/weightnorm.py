@@ -1,5 +1,6 @@
-"""Weight-norm fold ``w = g * v / ||v||`` on the host (counterpart of
-``waveglow_tpu/models/weightnorm.py::fuse``).
+"""Weight-norm ``w = g * v / ||v||`` (counterpart of
+``waveglow_tpu/models/weightnorm.py``): ``materialize`` differentiably on
+torch tensors (training), ``fuse`` folded once on the host (inference).
 
 A weight-normed conv is a dict ``{"g", "v", "b"}``; a fused conv is
 ``{"w", "b"}``. Norms are per output channel, i.e. over the LEADING
@@ -11,6 +12,18 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
+
+
+def materialize(conv: Dict) -> torch.Tensor:
+  """Effective weight of a (possibly weight-normed) conv of torch tensors,
+  differentiable in ``g`` and ``v``."""
+  if "w" in conv:
+    return conv["w"]
+  v, g = conv["v"], conv["g"]
+  dims = tuple(range(v.dim() - g.dim()))
+  norm = torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True))
+  return g * v / norm
 
 
 def fuse(conv: Dict) -> Dict:

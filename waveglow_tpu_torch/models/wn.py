@@ -1,5 +1,6 @@
-"""The WN stack of one coupling, inference direction (counterpart of
-``waveglow_tpu/models/wn.py``).
+"""The WN stack of one coupling (counterpart of ``waveglow_tpu/models/wn.py``):
+``wn_forward`` over fused weights (synthesis), ``wn_forward_train`` over
+trainable weight-norm leaves (training).
 
 Parameter layout is the JAX package's (channels-last, explicit gate and
 res/skip pair axes), so one checkpoint feeds both:
@@ -14,18 +15,20 @@ res/skip pair axes), so one checkpoint feeds both:
 Every layer body runs through the fused WN-layer kernel wrapper (CUDA kernel
 on the card, plain torch on the CPU); the per-layer conditioning product
 stays ``torch.matmul``. The residual stream and the skip sum are float32 in
-both modes; the skip sum is accumulated inside the kernel.
+both modes; in synthesis the skip sum is accumulated inside the kernel, in
+training outside it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from waveglow_tpu_torch.kernels.wn_layer import wn_layer_fused
-from waveglow_tpu_torch.models.weightnorm import init_weightnorm
+from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
+                                                 wn_layer_trainable)
+from waveglow_tpu_torch.models.weightnorm import init_weightnorm, materialize
 from waveglow_tpu_torch.ops.conv import _mm, conv1x1
 
 
@@ -111,4 +114,45 @@ def wn_forward(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
         2 ** i, valid_t=valid_t, skip_acc=skip_acc,
         compute_dtype=compute_dtype)
   return conv1x1(skip_acc, params["end"]["w"], params["end"]["b"],
+                 compute_dtype=compute_dtype, out_dtype=torch.float32)
+
+
+def wn_forward_train(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
+                     n_channels: int, n_layers: int, kernel_size: int,
+                     compute_dtype=None,
+                     layer: LayerFn = wn_layer_trainable) -> torch.Tensor:
+  """Differentiable WN stack over trainable leaves (``{"g", "v", "b"}``
+  convs; the counterpart of the JAX package's ``_wn_forward_pallas``).
+
+  Weights are materialised from (g, v) per call and cast to the compute
+  dtype; the per-layer cond GEMM stays ``torch.matmul``; each layer runs
+  through ``layer`` (:func:`wn_layer_trainable`: the kernel forward and its
+  torch backward; ``wn_layer_plain`` is the plain autograd counterpart);
+  the skip sum is added in f32 outside the kernel. The residual stream
+  stays f32 in both modes, because the kernel takes f32 x: that matches
+  the JAX XLA route (``wn_forward``), while the JAX Pallas route keeps x in
+  the compute dtype.
+  """
+  if kernel_size != 3:
+    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  dtype = compute_dtype or torch.float32
+  c = n_channels
+  x = conv1x1(audio0, materialize(params["start"]), params["start"]["b"],
+              compute_dtype=compute_dtype, out_dtype=torch.float32)
+  spect = spect.to(dtype)
+  w_cond = materialize(params["cond"])          # [M, L, 2, C]
+  b_cond = params["cond"]["b"]                  # [L, 2, C]
+  output = None
+  for i in range(n_layers):
+    in_layer = params["in_layers"][i]
+    res_skip = params["res_skip"][i]
+    w_in = materialize(in_layer).reshape(3, c, 2 * c).to(dtype)
+    w_rs = materialize(res_skip).reshape(c, -1).to(dtype)
+    cond_i = _mm(spect, w_cond[:, i].reshape(-1, 2 * c), compute_dtype)
+    cond_i = cond_i + b_cond[i].reshape(-1).to(cond_i.dtype)
+    x, skip = layer(x, cond_i, w_in, in_layer["b"].float().reshape(-1), w_rs,
+                    res_skip["b"].float().reshape(-1), 2 ** i,
+                    compute_dtype=compute_dtype)
+    output = skip if output is None else output + skip
+  return conv1x1(output, params["end"]["w"], params["end"]["b"],
                  compute_dtype=compute_dtype, out_dtype=torch.float32)

@@ -23,6 +23,17 @@ import torch
 import torch.nn.functional as F
 
 
+def compute_dtype_from_name(name: str) -> Optional[torch.dtype]:
+  """``hparams.compute_dtype`` -> the ``compute_dtype`` argument of these
+  functions: None for "float32" (parity), torch.bfloat16 for "bfloat16"."""
+  if name == "float32":
+    return None
+  if name == "bfloat16":
+    return torch.bfloat16
+  raise ValueError(f"unsupported compute_dtype {name!r} (expected 'float32' "
+                   "or 'bfloat16')")
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, compute_dtype,
         out_dtype=None) -> torch.Tensor:
   if compute_dtype is None:
