@@ -4,15 +4,17 @@
 
 Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
-  2. build: the fused WN-layer kernel is compiled from
+  2. build: the fused WN-layer kernels are compiled from
      waveglow_tpu_torch/csrc/wn_layer.cu; build seconds and ptxas facts
      (when this run built it), and what the loaded build uses as the CUDA
-     runtime reports it (registers, local bytes, shared memory).
+     runtime reports it (registers, local bytes, shared memory). The
+     library's SASS (cuobjdump -sass) must show tensor-core instructions
+     (HMMA/HGMMA) in both bf16 variants and none in the f32 ones.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
      times of kernel, plain version and a library yardstick beside the
-     bound.
+     bound, at d=1, d=128 and the last layer.
   4. slice: the full-width 12-flow x 256-channel model from random weights
      (seeded; the zero-initialised end convs randomised) saved and loaded as
      an npz checkpoint, served through Synthesizer.infer_serving and
@@ -136,6 +138,14 @@ RESUME_LOSS_TOL = 1e-5
 MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
 
+# Phase 3 times these dilations (the narrowest and the widest halo) and the
+# last layer.
+TIMED_DILATIONS = (1, 128)
+# What each mode's kernel is.
+DESIGN = {"f32": "f32 FMAs on CUDA cores, 32-row tile, K chunks of 16",
+          "bf16": "wgmma m64n128k16 bf16 from swizzled shared memory, f32 "
+                  "accumulators, 64-row tile, 4-stage cp.async weight ring"}
+
 
 def log(msg: str) -> None:
   print(msg, flush=True)
@@ -190,6 +200,17 @@ def variant(mode: str, last: bool) -> str:
   return f"{mode},{'last' if last else 'layer'}"
 
 
+def kernel_variant(mangled: str) -> str:
+  """The variant a kernel's mangled symbol instantiates: the f32 kernel
+  ``wn_layer_kernel_f32<kLast>`` or the bf16 tensor-core kernel
+  ``wn_layer_kernel_mma<kLast>``; other symbols are returned as they are."""
+  inst = re.search(r"wn_layer_kernel_(f32|mma)ILb([01])E", mangled)
+  if not inst:
+    return mangled
+  return variant("f32" if inst.group(1) == "f32" else "bf16",
+                 inst.group(2) == "1")
+
+
 def parse_ptxas(build_log: str) -> dict:
   """ptxas facts per kernel variant: registers, spills, static smem."""
   facts = {}
@@ -197,11 +218,7 @@ def parse_ptxas(build_log: str) -> dict:
   for line in build_log.splitlines():
     m = re.search(r"Compiling entry function '(\S+)'", line)
     if m:
-      mangled = m.group(1)
-      inst = re.search(r"wn_layer_kernelI(f|13__nv_bfloat16)Lb[01]ELb([01])E",
-                       mangled)
-      name = variant("f32" if inst.group(1) == "f" else "bf16",
-                     inst.group(2) == "1") if inst else mangled
+      name = kernel_variant(m.group(1))
       facts[name] = {}
       continue
     if name is None:
@@ -218,24 +235,73 @@ def parse_ptxas(build_log: str) -> dict:
   return facts
 
 
+def find_cuobjdump() -> Path:
+  """cuobjdump beside nvcc, else the copy Triton's package carries."""
+  candidates = [Path(kl._nvcc()).resolve().parent / "cuobjdump"]
+  try:
+    import triton
+    candidates.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                      / "bin" / "cuobjdump")
+  except ImportError:
+    pass
+  for path in candidates:
+    if path.is_file():
+      return path
+  fail(f"cuobjdump not found (looked at {[str(p) for p in candidates]}): "
+       "the tensor-core check of the bf16 kernels cannot run")
+
+
+def count_mma(sass: str) -> dict:
+  """Tensor-core instructions (HMMA, HGMMA) per kernel variant in the
+  output of ``cuobjdump -sass``."""
+  counts, name = {}, None
+  for line in sass.splitlines():
+    m = re.search(r"Function : (\S+)", line)
+    if m:
+      name = kernel_variant(m.group(1))
+      counts[name] = 0
+    elif name is not None and re.search(r"\bH(G)?MMA\.", line):
+      counts[name] += 1
+  return counts
+
+
+def check_tensor_cores(mma: dict, variants) -> None:
+  """Fail unless every bf16 variant runs on the tensor cores and no f32
+  variant does (parity mode must never slip into TF32)."""
+  for name in variants:
+    if name not in mma:
+      fail(f"no SASS found for the {name} kernel")
+    if name.startswith("bf16") and mma[name] == 0:
+      fail(f"the {name} kernel has no HMMA/HGMMA instruction")
+    if name.startswith("f32") and mma[name] != 0:
+      fail(f"the {name} kernel has {mma[name]} tensor-core instructions")
+
+
 def phase_build() -> dict:
   start = time.perf_counter()
-  kl.build_library()
+  lib = kl.build_library()
   kl._library()
   seconds = time.perf_counter() - start
   built = kl.BUILD_SECONDS is not None
   attributes = {variant(mode, last): kl.kernel_info(mode == "bf16", last)
                 for mode in MODES for last in (False, True)}
+  sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
+                        capture_output=True, text=True, check=False)
+  if sass.returncode != 0:
+    fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
+  mma = count_mma(sass.stdout)
   info = {"built_in_this_run": built,
           "build_s": kl.BUILD_SECONDS if built else "cached",
           "build_and_load_s": seconds,
           "ptxas": (parse_ptxas(kl.BUILD_LOG) if built
                     else "cached: built by an earlier process"),
-          "attributes": attributes}
+          "attributes": attributes,
+          "sass_tensor_core_instructions": mma}
   log("build " + json.dumps(info))
   if built and set(info["ptxas"]) != set(attributes):
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
+  check_tensor_cores(mma, attributes)
   return info
 
 
@@ -322,7 +388,7 @@ def phase_kernel(seed: int) -> dict:
                "max_abs_err": err, "bound": bound, "ref_max_abs": scale}
         if err > bound:
           fail(f"kernel disagrees with plain: {rec}")
-        if dilation == 1 or last:
+        if dilation in TIMED_DILATIONS or last:
           nbytes, flops, bound_ms, bound_by = layer_cost(batch, T_KERNEL,
                                                          last, mode)
           skip = acc.clone()
@@ -342,7 +408,7 @@ def phase_kernel(seed: int) -> dict:
           rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
                      bound_by=bound_by,
                      share_of_bound=bound_ms / rec["kernel_ms"])
-          timed[(mode, batch, last)] = rec
+          timed[(mode, batch, last, dilation)] = rec
         log("kernel " + json.dumps(rec))
         results.append(rec)
         del args, acc, xk, sk, xp, sp
@@ -974,7 +1040,8 @@ def main() -> None:
 
   kernels = []
   for mode in MODES:
-    rec = kernel["timed"][(mode, 1, False)]
+    rec = kernel["timed"][(mode, 1, False, 1)]
+    wide = kernel["timed"][(mode, 1, False, 128)]
     errs = [c["max_abs_err"] for c in kernel["cases"] if c["mode"] == mode]
     kernels.append({
         "name": f"wn_layer_fused[{mode}]", "route": "cuda",
@@ -984,7 +1051,10 @@ def main() -> None:
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "design": DESIGN[mode],
         "shape": f"B=1,T={T_KERNEL},C={C},d=1",
+        "ms_d128": wide["kernel_ms"], "plain_ms_d128": wide["plain_ms"],
+        "library_ms_d128": wide["library_ms"],
         "launches_per_synthesis": slices[mode]["launches_per_synthesis"][0],
         "ptxas": (build["ptxas"].get(variant(mode, False))
                   if build["built_in_this_run"] else build["ptxas"]),

@@ -72,6 +72,95 @@ def test_kernel_matches_plain(cuda, dilation, last, bf16):
   assert (xk[1, t - 77:] == 0).all()
 
 
+ROW_TILE = 64  # time rows per block of the bf16 tensor-core kernel
+
+
+def check_against_plain(device, batch, t, dilation, last, bf16, valid,
+                        seed):
+  """One launch with ``skip_acc`` and a per-row ``valid_t`` against
+  wn_layer_plain, at the bounds of test_kernel_matches_plain; rows at and
+  past valid_t must come out zero."""
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  x, *rest = layer_inputs(device, batch, t, kl.CHANNELS, last, dtype, seed)
+  valid = torch.tensor(valid, dtype=torch.int32, device=device)
+  x = x * (torch.arange(t, device=device)[None, :, None]
+           < valid[:, None, None])
+  acc = torch.randn(batch, t, kl.CHANNELS,
+                    generator=torch.Generator().manual_seed(seed)).to(device)
+  xk, sk = kl.wn_layer_fused(x, *rest, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  torch.cuda.synchronize()
+  xp, sp = kl.wn_layer_plain(x, *rest, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  for got, ref in ((xk, xp), (sk, sp)):
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    bound = 2e-2 * ref.abs().max().item() if bf16 else 1e-4
+    assert err <= bound, (err, bound)
+  for row, v in enumerate(valid.tolist()):
+    assert (xk[row, v:] == 0).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("t", [17, ROW_TILE + 1])
+def test_kernel_short_and_ragged_tiles(cuda, t, bf16):
+  """T shorter than one row tile, and one tile plus one row."""
+  check_against_plain(cuda, 2, t, 2, False, bf16, [t, t - 5], seed=5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_widest_halo(cuda, bf16):
+  """d=128 at T=300: the taps reach past both ends of the sequence."""
+  check_against_plain(cuda, 2, 300, 128, False, bf16, [300, 250], seed=6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_batch_with_one_valid_row(cuda, bf16):
+  """B=8 with one row kept at valid_t=1."""
+  valid = [300, 1, 299, 170, 64, 65, 300, 2]
+  check_against_plain(cuda, 8, 300, 8, False, bf16, valid, seed=7)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dilation", [1, 128])
+def test_kernel_last_layer(cuda, dilation, bf16):
+  """The last-layer variant ([C, C] res/skip, x' = x)."""
+  check_against_plain(cuda, 2, 200, dilation, True, bf16, [200, 133],
+                      seed=8)
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_bf16_kernel_is_deterministic(cuda, last):
+  """Two launches of the bf16 kernel on the same inputs give the same
+  bits (no atomics, no split K)."""
+  args = layer_inputs(cuda, 2, 1000, kl.CHANNELS, last, torch.bfloat16,
+                      seed=9)
+  acc = torch.randn(2, 1000, kl.CHANNELS,
+                    generator=torch.Generator().manual_seed(9)).to(cuda)
+  runs = [kl.wn_layer_fused(*args, 16, skip_acc=acc.clone(),
+                            compute_dtype=torch.bfloat16) for _ in range(2)]
+  assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dilation", [1, 128])
+def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation):
+  """Many launches at B=1, T=26,432 (826 frames, 413 row tiles) give the
+  bits of the first: a rarely corrupted tile (shared memory reused before
+  the tensor cores are done with it) would show as a differing launch."""
+  t = 26_432
+  args = layer_inputs(cuda, 1, t, kl.CHANNELS, False, torch.bfloat16,
+                      seed=10)
+  acc = torch.randn(1, t, kl.CHANNELS,
+                    generator=torch.Generator().manual_seed(10)).to(cuda)
+  first = kl.wn_layer_fused(*args, dilation, skip_acc=acc.clone(),
+                            compute_dtype=torch.bfloat16)
+  for _ in range(64):
+    again = kl.wn_layer_fused(*args, dilation, skip_acc=acc.clone(),
+                              compute_dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_kernel_without_accumulator(cuda):
   args = layer_inputs(cuda, 1, 333, kl.CHANNELS, False, torch.float32,
                       seed=2)
@@ -178,7 +267,7 @@ def test_train_step_kernel_route_matches_plain(cuda, compute_dtype):
           flow["wn"]["end"][k].shape) * 0.02).astype(np.float32)
   audio = torch.from_numpy(
       rng.uniform(-0.5, 0.5, (2, 2048)).astype(np.float32)).to(cuda)
-  mel = MelSTFT(hp, cuda)
+  mel = MelSTFT(hp, device=cuda)
   results = []
   for layer in (kl.wn_layer_trainable, kl.wn_layer_plain):
     params = trainable_params_from_numpy(params_np, cuda)

@@ -12,6 +12,7 @@ from waveglow_tpu.models import weightnorm as jax_weightnorm
 from waveglow_tpu.ops import conv as jax_conv
 from waveglow_tpu.ops import inv1x1 as jax_inv1x1
 from waveglow_tpu_torch.dsp import stft as port_stft
+from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.models import weightnorm as port_weightnorm
 from waveglow_tpu_torch.ops import conv as port_conv
 from waveglow_tpu_torch.ops import inv1x1 as port_inv1x1
@@ -92,10 +93,22 @@ def test_weightnorm_fuse(shape, out_ndim):
     np.testing.assert_array_equal(out[k], ref[k])
 
 
+@pytest.mark.parametrize("make", [MelSTFT, port_stft.STFT],
+                         ids=["MelSTFT", "STFT"])
+def test_mel_and_stft_default_to_the_card(make):
+  """With no device they go to the card, and raise naming device='cpu'
+  where there is none."""
+  if torch.cuda.is_available():
+    assert make().device.type == "cuda"
+  else:
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
+
+
 def test_stft_transform_and_inverse():
   audio = rand(2, 4096) * 0.3
   ref_op = jax_stft.STFT(1024, 256, 1024, "hann")
-  op = port_stft.STFT(1024, 256, 1024, "hann")
+  op = port_stft.STFT(1024, 256, 1024, "hann", device="cpu")
   mag_r, ph_r = ref_op.transform(jnp.asarray(audio))
   mag, ph = op.transform(t(audio))
   np.testing.assert_allclose(mag.numpy(), np.asarray(mag_r), atol=2e-4)

@@ -105,14 +105,15 @@ def test_mel_spectrogram_matches_jax():
   _, cuts = fixture_segments(2, 8192, seed=3)
   audio = np.stack(cuts).astype(np.float32) / 32768.0
   ref = np.asarray(JaxMel(JaxHParams()).mel_spectrogram(jnp.asarray(audio)))
-  got = MelSTFT(HParams()).mel_spectrogram(torch.from_numpy(audio)).numpy()
+  got = MelSTFT(HParams(), device="cpu").mel_spectrogram(
+      torch.from_numpy(audio)).numpy()
   assert got.shape == ref.shape == (2, 80, 33)
   np.testing.assert_allclose(got, ref, atol=2e-3)
   assert ref.max() - ref.min() > 5  # speech, not silence at the clamp
 
 
 def test_get_wav_from_file_raises_on_bad_input(tmp_path):
-  mel = MelSTFT(HParams())
+  mel = MelSTFT(HParams(), device="cpu")
   sr, (cut,) = fixture_segments(1, 4000)
   wavfile.write(tmp_path / "ok.wav", sr, cut)
   np.testing.assert_array_equal(mel.get_wav_from_file(tmp_path / "ok.wav"),
@@ -148,7 +149,7 @@ def port_step(params, audio, custom):
   tparams = trainable_params_from_numpy(params, "cpu")
   optimizer = step.make_optimizer(tparams, hp.learning_rate)
   train_step = step.make_train_step(WaveGlowConfig.from_hparams(hp), hp,
-                                    MelSTFT(hp), optimizer)
+                                    MelSTFT(hp, device="cpu"), optimizer)
   loss = float(train_step(tparams, torch.from_numpy(audio)))
   leaves = tree_leaves(tparams)
   return (loss, [p.grad.numpy().copy() for p in leaves],

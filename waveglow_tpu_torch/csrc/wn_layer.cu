@@ -12,7 +12,9 @@
 //   x'   = x + rs[:C], skip = rs[C:]                 (last layer: x' = x, skip = rs)
 //   skip_acc += skip in place (when accumulating), x' rows >= valid_t[b] = 0
 //
-// Built for the model's width only, C = 256 channels.
+// Built for the model's width only, C = 256 channels. Global layouts, both
+// modes: x, x', skip [B, T, C], cond [B, T, 2C], w_in [3C, 2C], w_rs [C, 2C]
+// (last layer [C, C]), all row-major.
 //
 // x, x', b_in, b_rs and the skip sum are float32 in both modes. cond, w_in and
 // w_rs are float32 (parity mode) or bfloat16 (fast mode). In fast mode every
@@ -28,32 +30,68 @@
 //     are T*C*(4*4 + 2*2) = 135 MB / 3.35 TB/s = 0.040 ms, against 0.028 ms
 //     of tensor-core time.
 //
-// Design (simple first; made fast in a later change): one block of 256
-// threads per (batch row, tile of 32 time rows). Each warp owns 4 rows; lane
-// l owns the 8 channels {4l..4l+3} and {128+4l..128+4l+3} of BOTH gate
-// halves, so the gate is computed in registers. The 3C-deep conv product
-// streams K in chunks of 16 through shared memory (tap rows outside [0, T)
-// read as zero); acts are staged in shared memory and feed the res/skip
-// product; the epilogue adds the residual, masks rows >= valid_t and
-// accumulates the skip. Both modes run f32 FMAs on the CUDA cores (no TF32,
-// so parity mode stays exact f32); bf16 operands are widened when staged.
-// No tensor cores, TMA or pipelining yet.
+// Two kernels, one per mode.
+//
+// wn_layer_kernel_f32 (parity mode): true f32, no TF32, so no tensor cores.
+// One block of 256 threads per (batch row, tile of 32 time rows). Each warp
+// owns 4 rows; lane l owns the 8 channels {4l..4l+3} and {128+4l..128+4l+3}
+// of BOTH gate halves, so the gate is computed in registers. The 3C-deep
+// conv product streams K in chunks of 16 through shared memory (tap rows
+// outside [0, T) read as zero); acts are staged in shared memory and feed
+// the res/skip product; f32 FMAs on the CUDA cores.
+//
+// wn_layer_kernel_mma (fast mode): both products on the tensor cores, as
+// wgmma (m64n128k16, bf16 operands from shared memory, f32 accumulators in
+// registers). One block of two warpgroups per (batch row, tile of 64 time
+// rows), one block per SM (229,376 bytes of shared memory):
+//   * Taps: three windows of 64 rows, window k holding x[t0 + r + (k-1)*d]
+//     rounded to bf16 (zero outside [0, T)), staged once per tile in wgmma's
+//     K-major layout with the 128-byte swizzle; the 3C-deep K runs tap by
+//     tap, so each window is done with after a third of the first product.
+//   * Weights: w_in then w_rs stream as one sequence of 32-row K chunks (24
+//     then 8) through a 4-stage ring filled by cp.async, into wgmma's N-major
+//     layout with the 128-byte swizzle (read in their global [K, N] layout,
+//     never repacked on the host). Two chunks load ahead; each warpgroup
+//     leaves one chunk's wgmmas running across the next step's
+//     __syncthreads.
+//   * Prefetch into the freed windows, with the weight chunks: cond's tanh and
+//     sigmoid halves (bf16) into windows 0 and 1 while the first product is
+//     on taps 1 and 2 (each one step after its tap's last chunk, when the
+//     ring's barrier proves that chunk's wgmmas done), and the skip sum to
+//     add (f32) into windows 0-1 during the second product. The gate and the
+//     epilogue then wait on global memory only for the residual's x rows.
+//   * Gate on the accumulators: the block holds all 2C pre-activations of its
+//     64 rows in registers (128 f32 a thread). Warpgroup w owns tanh columns
+//     [128w, 128w+128) and sigmoid columns [C+128w, C+128w+128) as two
+//     m64n128 products, so a thread holds the tanh and the sigmoid
+//     accumulators of the same channels: cond and b_in are added in f32, the
+//     gate is f32, and the acts are rounded to bf16 into window 2 as the
+//     second product's A operand.
+//   * The res/skip product pairs the same way (warpgroup w: residual columns
+//     [128w, 128w+128), skip columns [C+128w, C+128w+128)); the epilogue adds
+//     b_rs, the residual and the skip sum in f32, masks rows >= valid_t and
+//     writes rows < T only (the ragged last tile).
+// No atomics, no split K: the sums run in one fixed order, so two launches
+// give the same bits.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, at the
-// shape above (d=1): f32 1.00 ms against the 0.41 ms bound (41%), with both
-// TF32 switches off; bf16 0.97 ms against the 0.041 ms bound (4%), held by
-// the same CUDA-core FMAs. ptxas: 116 (f32) / 113 (bf16) registers, no
-// spills, no static shared memory; 67,584 bytes (kSmemBytes) of dynamic
-// shared memory per block. wn_layer_kernel_info reports what the loaded
-// build uses.
+// shape above (d=1): the f32 kernel 1.00 ms against the 0.41 ms bound (41%),
+// the bf16 kernel 0.17 ms against the 0.041 ms bound (24%). PERF.md keeps
+// the times; wn_layer_kernel_info reports the registers, spills and shared
+// memory of the loaded build.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kC = 256;                                      // channels
+
+// ---- the f32 kernel ------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;
 constexpr int kTileRows = (kThreads / 32) * kRowsPerThread;  // 32
@@ -64,10 +102,6 @@ constexpr int kHalf = kC / 2;    // offset of a lane's second block of 4
 // [kTileRows][C], all f32
 constexpr int kSmemBytes =
     sizeof(float) * (kTileRows * kChunk + kChunk * 2 * kC + kTileRows * kC);
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // 4 contiguous floats from a 16-byte-aligned address.
 __device__ __forceinline__ void load4(float* dst, const float* src) {
@@ -90,56 +124,25 @@ __device__ __forceinline__ void store8(float* row, int c, const float* src) {
   store4(row + c + kHalf, src + 4);
 }
 
-// The same 8 channels of a float or bf16 global row, widened to f32.
-template <typename T>
-__device__ __forceinline__ void load8_global(float* dst, const T* row, int c) {
-  if constexpr (sizeof(T) == 4) {
-    load8(dst, reinterpret_cast<const float*>(row), c);
-  } else {
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      dst[h] = __bfloat162float(row[c + h]);
-      dst[4 + h] = __bfloat162float(row[c + kHalf + h]);
-    }
-  }
+// Copy rows [k0, k0 + kChunk) of a [K, N] f32 weight into shared memory.
+__device__ __forceinline__ void stage_weights(float* dst, const float* w,
+                                              int k0, int n) {
+  const float4* s4 = reinterpret_cast<const float4*>(
+      w + static_cast<int64_t>(k0) * n);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < kChunk * n / 4; i += kThreads) d4[i] = s4[i];
 }
 
-// Copy rows [k0, k0 + kChunk) of a [K, N] weight (float or bf16) into
-// shared memory as f32 [kChunk][N].
-template <typename T>
-__device__ __forceinline__ void stage_weights(float* dst, const T* w, int k0,
-                                              int n) {
-  const int total = kChunk * n;
-  const T* src = w + static_cast<int64_t>(k0) * n;
-  if constexpr (sizeof(T) == 4) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < total / 4; i += kThreads) d4[i] = s4[i];
-  } else {
-    // 8 bf16 (16 bytes) per load
-    const uint4* s8 = reinterpret_cast<const uint4*>(src);
-    for (int i = threadIdx.x; i < total / 8; i += kThreads) {
-      uint4 raw = s8[i];
-      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      float4* d4 = reinterpret_cast<float4*>(dst + i * 8);
-      d4[0] = make_float4(__bfloat162float(b[0]), __bfloat162float(b[1]),
-                          __bfloat162float(b[2]), __bfloat162float(b[3]));
-      d4[1] = make_float4(__bfloat162float(b[4]), __bfloat162float(b[5]),
-                          __bfloat162float(b[6]), __bfloat162float(b[7]));
-    }
-  }
-}
-
-// W is the operand type (float or bf16) of cond, w_in and w_rs; kBf16 rounds
-// the taps and acts to bf16; kLast selects the [C, C] res/skip of the last
-// layer.
-template <typename W, bool kBf16, bool kLast>
+// kLast selects the [C, C] res/skip of the last layer.
+template <bool kLast>
 __global__ void __launch_bounds__(kThreads)
-wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
-                const W* __restrict__ w_in, const float* __restrict__ b_in,
-                const W* __restrict__ w_rs, const float* __restrict__ b_rs,
-                const int* __restrict__ valid_t, float* __restrict__ x_out,
-                float* skip_out, int accumulate, int T, int dilation) {
+wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
+                    const float* __restrict__ w_in,
+                    const float* __restrict__ b_in,
+                    const float* __restrict__ w_rs,
+                    const float* __restrict__ b_rs,
+                    const int* __restrict__ valid_t, float* __restrict__ x_out,
+                    float* skip_out, int accumulate, int T, int dilation) {
   constexpr int C = kC;
   constexpr int N_IN = 2 * C;                 // gate pre-activations
   constexpr int N_RS = kLast ? C : 2 * C;     // res/skip outputs
@@ -180,14 +183,10 @@ wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
       if (t >= 0 && t < T) {
         v = *reinterpret_cast<const float4*>(
             xb + static_cast<int64_t>(t) * C + ci0 + q * 4);
-        if constexpr (kBf16) {
-          v.x = round_bf16(v.x); v.y = round_bf16(v.y);
-          v.z = round_bf16(v.z); v.w = round_bf16(v.w);
-        }
       }
       *reinterpret_cast<float4*>(a_tile + r * kChunk + q * 4) = v;
     }
-    stage_weights<W>(w_tile, w_in, k0, N_IN);
+    stage_weights(w_tile, w_in, k0, N_IN);
     __syncthreads();
 
 #pragma unroll
@@ -224,9 +223,9 @@ wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
       const int t = t0 + r0 + i;
       float ct[kPerLane], cs[kPerLane];
       if (t < T) {
-        const W* crow = cond + (static_cast<int64_t>(b) * T + t) * N_IN;
-        load8_global<W>(ct, crow, cl);
-        load8_global<W>(cs, crow + C, cl);
+        const float* crow = cond + (static_cast<int64_t>(b) * T + t) * N_IN;
+        load8(ct, crow, cl);
+        load8(cs, crow + C, cl);
       } else {
 #pragma unroll
         for (int j = 0; j < kPerLane; ++j) ct[j] = cs[j] = 0.f;
@@ -236,9 +235,7 @@ wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
       for (int j = 0; j < kPerLane; ++j) {
         const float gt = acc_t[i][j] + bt[j] + ct[j];
         const float gs = acc_s[i][j] + bs[j] + cs[j];
-        float v = tanhf(gt) * (1.f / (1.f + expf(-gs)));
-        if constexpr (kBf16) v = round_bf16(v);
-        out[j] = v;
+        out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
       }
       store8(acts + (r0 + i) * C, cl, out);
     }
@@ -253,7 +250,7 @@ wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
     for (int j = 0; j < kPerLane; ++j) acc_t[i][j] = acc_s[i][j] = 0.f;
 
   for (int k0 = 0; k0 < C; k0 += kChunk) {
-    stage_weights<W>(w_tile, w_rs, k0, N_RS);
+    stage_weights(w_tile, w_rs, k0, N_RS);
     __syncthreads();  // also orders the acts writes before the first reads
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 4) {
@@ -321,34 +318,508 @@ wn_layer_kernel(const float* __restrict__ x, const W* __restrict__ cond,
   }
 }
 
-template <typename W, bool kBf16, bool kLast>
+// ---- the bf16 tensor-core kernel ------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 256;             // two warpgroups
+constexpr int kMmaRows = 64;                 // time rows per block
+constexpr int kGroupCols = kC / 2;           // 128 columns of each half a warpgroup owns
+constexpr int kAcc = kGroupCols / 2;         // 64 f32 a thread per m64n128 product
+constexpr int kKChunk = 32;                  // K rows per weight stage (two k16 steps)
+constexpr int kStages = 4;                   // weight ring depth
+constexpr int kAhead = kStages - 2;          // chunks in flight under the mma
+constexpr int kInChunks = 3 * kC / kKChunk;  // 24: w_in
+constexpr int kRsChunks = kC / kKChunk;      // 8: w_rs
+constexpr int kChunksPerTap = kC / kKChunk;
+// Windows: [64 rows][C] bf16 in wgmma's K-major layout with the 128-byte
+// swizzle (see tile_off); 64-channel blocks of kKBlockBytes.
+constexpr int kKBlockBytes = kMmaRows * 128;                      // 8,192
+constexpr int kWindowBytes = kC / 64 * kKBlockBytes;              // 32,768
+constexpr int kTapBytes = 3 * kWindowBytes;                       // 98,304
+// Ring slot: the chunk's 32 K rows in wgmma's N-major layout with the
+// 128-byte swizzle: column block n (64 columns) at n * kBlockBytes, K row r
+// at r * 128 within it, 16-byte piece q of that row at (q ^ (r % 8)) * 16.
+constexpr int kBlockBytes = kKChunk * 128;                        // 4,096
+constexpr int kStageBytes = 2 * kC / 64 * kBlockBytes;            // 32,768
+constexpr int kMmaSmemBytes = kTapBytes + kStages * kStageBytes;  // 229,376
+static_assert(kMmaSmemBytes <= 232448, "over the 227 KB a block may use");
+static_assert(kTapBytes % 1024 == 0, "swizzled slots need 1024-byte alignment");
+static_assert(kMmaRows * kC * 4 <= 2 * kWindowBytes,
+              "the skip sum fits windows 0 and 1");
+
+// Byte offset of (row, ch) in a window: K-major with the 128-byte swizzle,
+// so channel block ch / 64 at (ch / 64) * kKBlockBytes, rows 128 bytes
+// apart in it, and 16-byte piece p of a row at p ^ (row % 8). The 8 rows
+// that one access pattern reads land in 8 different bank quads.
+__device__ __forceinline__ int tile_off(int row, int ch) {
+  return (ch / 64) * kKBlockBytes + row * 128 +
+         ((((ch % 64) / 8) ^ (row % 8)) * 16) + (ch % 8) * 2;
+}
+
+// Byte offset of (row, ch) in the f32 skip sum held in windows 0-1: rows of
+// 1 KB, 16-byte piece p of a row at p ^ (row % 8).
+__device__ __forceinline__ int skip_off(int row, int ch) {
+  return row * kC * 4 + (((ch / 4) ^ (row % 8)) * 16) + (ch % 4) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (stores,
+// cp.async) visible to the async proxy, where wgmma reads its operands.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma ordering: the fence before the first wgmma on freshly written
+// accumulators, the commit of the wgmmas started so far as one group, and the
+// wait until at most kPending groups are in flight.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Pins the accumulators at this point of the program: the compiler may not
+// move their reads above a wait, nor copy them between wgmmas.
+__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of A: 64 rows x 16 K of a window from `addr` (K-major, 128-byte
+// swizzle, groups of 8 rows 1024 bytes apart; the leading offset is unused
+// when K fits one swizzle row).
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of B: 16 K x 128 columns of a ring slot from `addr` (N-major,
+// 128-byte swizzle, column blocks kBlockBytes apart, groups of 8 K rows
+// 1024 bytes apart).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kBlockBytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += A @ B, one m64n128k16 product of the warpgroup on the tensor cores,
+// both operands from shared memory (A K-major, B N-major); bf16 operands,
+// f32 accumulators.
+__device__ __forceinline__ void wgmma_n128(float (&d)[kAcc], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo at the lower address
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// cp.async the kKChunk rows of a [K, kN] bf16 weight at `src` into `slot`,
+// in the ring layout above.
+template <int kN>
+__device__ __forceinline__ void copy_chunk(uint32_t slot, const bf16* src) {
+  constexpr int kPerRow = kN / 8;  // 16-byte pieces
+  static_assert(kKChunk * kPerRow % kMmaThreads == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < kKChunk * kPerRow / kMmaThreads; ++i) {
+    const int p = threadIdx.x + i * kMmaThreads;
+    const int r = p / kPerRow, q = p % kPerRow;
+    cp_async16(slot + (q / 8) * kBlockBytes + r * 128 + ((q % 8) ^ (r % 8)) * 16,
+               src + r * kN + q * 8);
+  }
+}
+
+// Start the cp.async copies of K chunk `chunk` of the weight sequence (w_in
+// rows for chunk < kInChunks, then w_rs rows) into its ring slot.
+template <bool kLast>
+__device__ __forceinline__ void load_chunk(uint32_t ring, int chunk,
+                                            const bf16* w_in,
+                                            const bf16* w_rs) {
+  constexpr int N_RS = kLast ? kC : 2 * kC;
+  const uint32_t slot = ring + (chunk % kStages) * kStageBytes;
+  if (chunk < kInChunks)
+    copy_chunk<2 * kC>(slot, w_in + chunk * kKChunk * 2 * kC);
+  else
+    copy_chunk<N_RS>(slot, w_rs + (chunk - kInChunks) * kKChunk * N_RS);
+}
+
+// cp.async the tile's first `rows` rows of cond's half `half` (C bf16 from
+// rows 2C apart) into a window, in the window layout.
+__device__ __forceinline__ void copy_cond_half(uint32_t window,
+                                               const bf16* cond_rows, int half,
+                                               int rows) {
+  constexpr int kPerRow = kC / 8;
+#pragma unroll
+  for (int i = 0; i < kMmaRows * kPerRow / kMmaThreads; ++i) {
+    const int p = threadIdx.x + i * kMmaThreads;
+    const int r = p / kPerRow, q = p % kPerRow;
+    if (r < rows)
+      cp_async16(window + tile_off(r, q * 8),
+                 cond_rows + static_cast<int64_t>(r) * 2 * kC + half * kC + q * 8);
+  }
+}
+
+// cp.async the tile's first `rows` rows of the skip sum (f32) into windows
+// 0-1, in the skip_off layout.
+__device__ __forceinline__ void copy_skip(uint32_t dst, const float* skip_rows,
+                                          int rows) {
+  constexpr int kPerRow = kC / 4;
+#pragma unroll
+  for (int i = 0; i < kMmaRows * kPerRow / kMmaThreads; ++i) {
+    const int p = threadIdx.x + i * kMmaThreads;
+    const int r = p / kPerRow, q = p % kPerRow;
+    if (r < rows)
+      cp_async16(dst + skip_off(r, q * 4),
+                 skip_rows + static_cast<int64_t>(r) * kC + q * 4);
+  }
+}
+
+// One step of the weight ring, at chunk `chunk`: wait for this thread's
+// copies of it, hand its shared-memory writes to the async proxy, and make
+// them block-wide. Each warpgroup leaves at most the wgmmas of one chunk in
+// flight at the end of a step, so past this barrier those of chunk - 2 are
+// done and its slot is free: start chunk + kAhead there. One commit group
+// per step (empty past the last chunk), so the wait count stays kAhead - 1.
+template <bool kLast>
+__device__ __forceinline__ void ring_step(uint32_t ring, int chunk,
+                                          const bf16* w_in, const bf16* w_rs) {
+  cp_async_wait<kAhead - 1>();
+  fence_proxy_async();
+  __syncthreads();
+  if (chunk + kAhead < kInChunks + kRsChunks)
+    load_chunk<kLast>(ring, chunk + kAhead, w_in, w_rs);
+}
+
+template <bool kLast>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
+                    const bf16* __restrict__ w_in,
+                    const float* __restrict__ b_in,
+                    const bf16* __restrict__ w_rs,
+                    const float* __restrict__ b_rs,
+                    const int* __restrict__ valid_t, float* __restrict__ x_out,
+                    float* skip_out, int accumulate, int T, int dilation) {
+  constexpr int C = kC;
+  constexpr int kChunks = kInChunks + kRsChunks;
+  extern __shared__ __align__(1024) uint4 smem_mma[];
+  // Three windows of [kMmaRows][C] bf16, one per tap of x. Each is reused
+  // once the first product is past it: window 0 takes cond's tanh half,
+  // window 1 its sigmoid half, window 2 the acts; during the second product
+  // windows 0-1 take the skip sum to add (f32).
+  char* win = reinterpret_cast<char*>(smem_mma);
+  const uint32_t win_s = smem_u32(win);
+  const uint32_t ring_s = win_s + kTapBytes;  // kStages slots
+  char* acts = win + 2 * kWindowBytes;
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kMmaRows;
+  const int rows = min(kMmaRows, T - t0);         // rows < T in this tile
+  const int64_t row0 = static_cast<int64_t>(b) * T + t0;  // first global row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;           // warpgroup: its column block of each half
+  const int r16 = (warp % 4) * 16;   // the warp's 16 rows of the accumulators
+  const int g = lane / 4;    // accumulator rows r16 + g and r16 + g + 8
+  const int tig = lane % 4;  // accumulator columns 2*tig, 2*tig + 1 of an n8
+  const int col0 = wg * kGroupCols;  // the warpgroup's first column of each half
+
+  // ---- prologue: the first weight chunks load while the taps are staged ---
+  for (int c = 0; c < kAhead; ++c) {
+    load_chunk<kLast>(ring_s, c, w_in, w_rs);
+    cp_async_commit();
+  }
+  {
+    // window k, row r <- x[t0 + r + (k-1)*d], rounded to bf16; zero outside
+    // [0, T)
+    constexpr int kQ = C / 4;   // float4 per row
+    constexpr int kUnroll = 8;  // loads in flight per thread
+    constexpr int kTotal = 3 * kMmaRows * kQ;
+    static_assert(kTotal % (kUnroll * kMmaThreads) == 0, "whole rounds");
+    const float* xb = x + static_cast<int64_t>(b) * T * C;
+#pragma unroll 1
+    for (int p0 = threadIdx.x; p0 < kTotal; p0 += kUnroll * kMmaThreads) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * kMmaThreads;
+        const int i = p / kQ;
+        const int t = t0 + i % kMmaRows + (i / kMmaRows - 1) * dilation;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t >= 0 && t < T)
+          v[u] = *reinterpret_cast<const float4*>(
+              xb + static_cast<int64_t>(t) * C + (p % kQ) * 4);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * kMmaThreads;
+        const int i = p / kQ;
+        *reinterpret_cast<uint2*>(win + (i / kMmaRows) * kWindowBytes +
+                                  tile_off(i % kMmaRows, (p % kQ) * 4)) =
+            make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
+      }
+    }
+  }
+
+  // ---- first product: pre[64, 2C] = taps[64, 3C] @ w_in[3C, 2C] -----------
+  // The warpgroup's tanh columns [col0, col0+128) accumulate in acc_a, its
+  // sigmoid columns [C+col0, C+col0+128) in acc_b: element 4j + 2h + e of
+  // either is row r16 + g + 8h, column 8j + 2 tig + e of the block, so a
+  // thread holds both halves of the same channels.
+  float acc_a[kAcc], acc_b[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+
+  const bf16* cond_rows = cond + row0 * 2 * C;
+  const uint32_t b_a = (col0 / 64) * kBlockBytes;        // tanh / residual
+  const uint32_t b_b = ((C + col0) / 64) * kBlockBytes;  // sigmoid / skip
+#pragma unroll 1
+  for (int chunk = 0; chunk < kInChunks; ++chunk) {
+    ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    // window `half` is free once tap `half`'s wgmmas are done: its last
+    // chunk, (half + 1) * kChunksPerTap - 1, may still run past the next
+    // step's barrier and is known done past the one after it (chunk - 2),
+    // so cond's half goes there one step after the tap ends
+    for (int half = 0; half < 2; ++half)
+      if (chunk == (half + 1) * kChunksPerTap + 1)
+        copy_cond_half(win_s + half * kWindowBytes, cond_rows, half, rows);
+    cp_async_commit();
+    const int tap = chunk / kChunksPerTap;
+    const int ci0 = (chunk % kChunksPerTap) * kKChunk;
+    const uint32_t a0 = win_s + tap * kWindowBytes + (ci0 / 64) * kKBlockBytes +
+                        (ci0 % 64) * 2;
+    const uint32_t slot = ring_s + (chunk % kStages) * kStageBytes;
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKChunk / 16; ++k) {  // k16 steps: 32 bytes of A, 16 B rows
+      const uint64_t da = a_desc(a0 + k * 32);
+      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
+      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc_a);
+  fence_acc(acc_b);
+
+  // ---- gate on the accumulators (f32), acts to window 2 as bf16 -----------
+  // cond arrived in windows 0-1 with the weight chunks of the first product
+  // (rows >= T hold stale values; their acts feed rows that are not stored)
+  __syncthreads();  // every wgmma is done with window 2's taps
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    const int ch = col0 + 8 * j + 2 * tig;
+    const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+    const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r16 + g + 8 * h;
+      const int off = tile_off(row, ch);
+      const float2 ct = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(win + off));
+      const float2 cs = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(win + kWindowBytes + off));
+      const float gt0 = acc_a[4 * j + 2 * h] + bt.x + ct.x;
+      const float gt1 = acc_a[4 * j + 2 * h + 1] + bt.y + ct.y;
+      const float gs0 = acc_b[4 * j + 2 * h] + bs.x + cs.x;
+      const float gs1 = acc_b[4 * j + 2 * h + 1] + bs.y + cs.y;
+      const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
+      const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
+      *reinterpret_cast<uint32_t*>(acts + off) = pack_bf16(v0, v1);
+    }
+  }
+
+  // ---- second product: rs[64, N_RS] = acts[64, C] @ w_rs[C, N_RS] ---------
+  // acc_a: the residual (last layer: skip) columns [col0, col0+128); acc_b:
+  // the skip columns [C+col0, C+col0+128), paired as in the first product
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+
+#pragma unroll 1
+  for (int chunk = kInChunks; chunk < kChunks; ++chunk) {
+    // also hands the acts to the async proxy and orders them
+    ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    if (chunk == kInChunks && accumulate)
+      copy_skip(win_s, skip_out + row0 * C, rows);
+    cp_async_commit();
+    const int k0 = (chunk - kInChunks) * kKChunk;
+    const uint32_t a0 = win_s + 2 * kWindowBytes + (k0 / 64) * kKBlockBytes +
+                        (k0 % 64) * 2;
+    const uint32_t slot = ring_s + (chunk % kStages) * kStageBytes;
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKChunk / 16; ++k) {
+      const uint64_t da = a_desc(a0 + k * 32);
+      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
+      if constexpr (!kLast) wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc_a);
+  fence_acc(acc_b);
+  cp_async_wait<0>();
+  __syncthreads();  // the skip sum is in windows 0-1 for every thread
+
+  // ---- epilogue: residual, valid_t mask, skip accumulation (f32) ----------
+  // The x rows of kBatch n8 blocks are loaded before any is used (one wait on
+  // global memory per batch); the skip sum to add is in windows 0-1.
+  const int valid = valid_t != nullptr ? valid_t[b] : T;
+  constexpr int kBatch = 4;
+#pragma unroll
+  for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+    float2 xv[kBatch][2];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r16 + g + 8 * h;
+        xv[j][h] = make_float2(0.f, 0.f);
+        if (row < rows)
+          xv[j][h] = *reinterpret_cast<const float2*>(
+              x + (row0 + row) * C + col0 + 8 * (j0 + j) + 2 * tig);
+      }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = 4 * (j0 + j);  // the n8 block's first accumulator
+      const int ch = col0 + 8 * (j0 + j) + 2 * tig;
+      const float2 br = *reinterpret_cast<const float2*>(b_rs + ch);
+      float2 bk = make_float2(0.f, 0.f);
+      if constexpr (!kLast) bk = *reinterpret_cast<const float2*>(b_rs + C + ch);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r16 + g + 8 * h;
+        if (row >= rows) continue;
+        const int64_t off = (row0 + row) * C + ch;
+        float2 xo = xv[j][h];
+        float2 skip;
+        if constexpr (kLast) {
+          skip = make_float2(acc_a[i + 2 * h] + br.x, acc_a[i + 2 * h + 1] + br.y);
+        } else {
+          xo.x += acc_a[i + 2 * h] + br.x;
+          xo.y += acc_a[i + 2 * h + 1] + br.y;
+          skip = make_float2(acc_b[i + 2 * h] + bk.x, acc_b[i + 2 * h + 1] + bk.y);
+        }
+        if (t0 + row >= valid) xo = make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(x_out + off) = xo;
+        if (accumulate) {
+          const float2 prev =
+              *reinterpret_cast<const float2*>(win + skip_off(row, ch));
+          skip.x += prev.x;
+          skip.y += prev.y;
+        }
+        *reinterpret_cast<float2*>(skip_out + off) = skip;
+      }
+    }
+  }
+}
+
+// ---- launch ---------------------------------------------------------------
+
+// The opt-in to more than 48 KB of dynamic shared memory, made once per
+// kernel and device (bit `device` of `*done`), not on every launch.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = 1u << (device & 31);
+  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <bool kBf16, bool kLast>
 cudaError_t launch(const float* x, const void* cond, const void* w_in,
                    const float* b_in, const void* w_rs, const float* b_rs,
                    const int* valid_t, float* x_out, float* skip_out,
                    int accumulate, int batch, int T, int dilation,
                    cudaStream_t stream) {
-  auto kernel = wn_layer_kernel<W, kBf16, kLast>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + kTileRows - 1) / kTileRows, batch);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      x, static_cast<const W*>(cond), static_cast<const W*>(w_in), b_in,
-      static_cast<const W*>(w_rs), b_rs, valid_t, x_out, skip_out, accumulate,
-      T, dilation);
+  static std::atomic<uint32_t> opted_in{0};
+  if constexpr (kBf16) {
+    auto kernel = wn_layer_kernel_mma<kLast>;
+    cudaError_t err = opt_in_smem(kernel, kMmaSmemBytes, &opted_in);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T + kMmaRows - 1) / kMmaRows, batch);
+    kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
+        x, static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in), b_in,
+        static_cast<const bf16*>(w_rs), b_rs, valid_t, x_out, skip_out,
+        accumulate, T, dilation);
+  } else {
+    auto kernel = wn_layer_kernel_f32<kLast>;
+    cudaError_t err = opt_in_smem(kernel, kSmemBytes, &opted_in);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T + kTileRows - 1) / kTileRows, batch);
+    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+        x, static_cast<const float*>(cond), static_cast<const float*>(w_in),
+        b_in, static_cast<const float*>(w_rs), b_rs, valid_t, x_out, skip_out,
+        accumulate, T, dilation);
+  }
   return cudaGetLastError();
 }
 
-// The kernel instantiation for (bf16, last), as a function pointer.
-const void* kernel_for(int bf16, int last) {
-  if (bf16) {
-    return last ? reinterpret_cast<const void*>(
-                      wn_layer_kernel<__nv_bfloat16, true, true>)
-                : reinterpret_cast<const void*>(
-                      wn_layer_kernel<__nv_bfloat16, true, false>);
+// The kernel instantiation for (bf16, last), as a function pointer, and the
+// dynamic shared bytes its launcher passes.
+const void* kernel_for(int bf16_mode, int last, int* smem_bytes) {
+  *smem_bytes = bf16_mode ? kMmaSmemBytes : kSmemBytes;
+  if (bf16_mode) {
+    return last ? reinterpret_cast<const void*>(wn_layer_kernel_mma<true>)
+                : reinterpret_cast<const void*>(wn_layer_kernel_mma<false>);
   }
-  return last ? reinterpret_cast<const void*>(wn_layer_kernel<float, false, true>)
-              : reinterpret_cast<const void*>(wn_layer_kernel<float, false, false>);
+  return last ? reinterpret_cast<const void*>(wn_layer_kernel_f32<true>)
+              : reinterpret_cast<const void*>(wn_layer_kernel_f32<false>);
 }
 
 }  // namespace
@@ -370,31 +841,31 @@ cudaError_t wn_layer_forward(const float* x, const void* cond,
                              cudaStream_t stream) {
   if (C != kC || T <= 0 || batch <= 0 || batch > 65535)
     return cudaErrorInvalidValue;
-#define WN_LAUNCH(W, BF, LAST)                                                \
-  return launch<W, BF, LAST>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, \
-                             skip_out, accumulate, batch, T, dilation, stream)
+#define WN_LAUNCH(BF, LAST)                                                 \
+  return launch<BF, LAST>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, \
+                          skip_out, accumulate, batch, T, dilation, stream)
   if (bf16) {
-    if (last) WN_LAUNCH(__nv_bfloat16, true, true);
-    WN_LAUNCH(__nv_bfloat16, true, false);
+    if (last) WN_LAUNCH(true, true);
+    WN_LAUNCH(true, false);
   }
-  if (last) WN_LAUNCH(float, false, true);
-  WN_LAUNCH(float, false, false);
+  if (last) WN_LAUNCH(false, true);
+  WN_LAUNCH(false, false);
 #undef WN_LAUNCH
 }
 
 // What the loaded build of the (bf16, last) kernel uses, read from the CUDA
 // runtime: registers per thread, local (spill) bytes per thread, static
-// shared bytes, and the dynamic shared bytes the launcher passes.
+// shared bytes, and the dynamic shared bytes its launcher passes.
 cudaError_t wn_layer_kernel_info(int bf16, int last, int* registers,
                                  int* local_bytes, int* static_smem_bytes,
                                  int* dynamic_smem_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel_for(bf16, last));
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, kernel_for(bf16, last, dynamic_smem_bytes));
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
-  *dynamic_smem_bytes = kSmemBytes;
   return cudaSuccess;
 }
 

@@ -10,11 +10,12 @@ file-loading path (:meth:`MelSTFT.get_wav_from_file`).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from waveglow_tpu_torch.device import resolve_device
 from waveglow_tpu_torch.dsp import audio_io
 from waveglow_tpu_torch.dsp.mel_filters import mel_filterbank
 from waveglow_tpu_torch.dsp.stft import STFT
@@ -26,15 +27,16 @@ CLIP_VAL = 1e-5
 
 
 class MelSTFT:
-  """wav -> mel operator with its bases as float32 tensors on ``device``."""
+  """wav -> mel operator with its bases as float32 tensors on ``device``:
+  the card by default (raises without one); ``device="cpu"`` for the CPU."""
 
   def __init__(self, hparams: TSTFTHParams = None,
-               device: Union[str, torch.device] = "cpu"):
+               device: Optional[Union[str, torch.device]] = None):
     hparams = hparams or TSTFTHParams()
     self.hparams = hparams
     self.n_mel_channels = hparams.n_mel_channels
     self.sampling_rate = hparams.sampling_rate
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
     self.stft = STFT(hparams.filter_length, hparams.hop_length,
                      hparams.win_length, hparams.window, device=self.device)
     basis = mel_filterbank(hparams.sampling_rate, hparams.filter_length,

@@ -10,12 +10,14 @@ overlap-adds them, divides out the squared-window envelope, rescales by
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy.signal import get_window
+
+from waveglow_tpu_torch.device import resolve_device
 
 
 def window_sumsquare_np(window: str, n_frames: int, hop_length: int,
@@ -63,18 +65,19 @@ def frame_signal(x: torch.Tensor, frame_length: int,
 
 
 class STFT:
-  """STFT operator with its bases as float32 tensors on ``device``."""
+  """STFT operator with its bases as float32 tensors on ``device``: the
+  card by default (raises without one); ``device="cpu"`` for the CPU."""
 
   def __init__(self, filter_length: int = 1024, hop_length: int = 256,
                win_length: int = 1024, window: Optional[str] = "hann",
-               device: torch.device = torch.device("cpu")):
+               device: Optional[Union[str, torch.device]] = None):
     if filter_length % hop_length:
       raise ValueError("hop_length must divide filter_length")
     self.filter_length = filter_length
     self.hop_length = hop_length
     self.win_length = win_length
     self.window = window
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
     fwd, inv = _bases(filter_length, hop_length, win_length, window)
     self.forward_basis = torch.from_numpy(fwd).to(self.device)
     self.inverse_basis = torch.from_numpy(inv).to(self.device)

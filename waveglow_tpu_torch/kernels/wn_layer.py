@@ -1,10 +1,11 @@
 """Fused WN layer forward: CUDA kernel wrapper and its plain PyTorch version.
 
 Replaces ``waveglow_tpu/kernels/wn_layer.py::_wn_layer_fused`` (Pallas, TPU).
-The kernel is ``csrc/wn_layer.cu`` (see the note at its top for what bounds
-it on an H100 and how it is laid out), compiled with nvcc for ``sm_90a`` at
-first use into ``waveglow_tpu_torch/build/`` (keyed by a hash of the source
-and flags) and bound with ctypes.
+The kernels are in ``csrc/wn_layer.cu``: f32 FMAs on the CUDA cores for f32
+(parity) and wgmma on the tensor cores for bf16; the note at its top says
+what bounds each on an H100 and how it is laid out. It is compiled with
+nvcc for ``sm_90a`` at first use into ``waveglow_tpu_torch/build/`` (keyed
+by a hash of the source and flags) and bound with ctypes.
 
 Math of one layer, channels-last (``C`` channels, dilation ``d``):
 
