@@ -4,12 +4,15 @@
 
 Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
-  2. build: the fused WN-layer kernels are compiled from
-     waveglow_tpu_torch/csrc/wn_layer.cu; build seconds and ptxas facts
-     (when this run built it), and what the loaded build uses as the CUDA
-     runtime reports it (registers, local bytes, shared memory). The
-     library's SASS (cuobjdump -sass) must show tensor-core instructions
-     (HMMA/HGMMA) in both bf16 variants and none in the f32 ones.
+  2. build: the WN-layer kernels are compiled from
+     waveglow_tpu_torch/csrc/wn_layer.cu (forward) and wn_layer_bwd.cu
+     (the bf16 backward), one nvcc per source, started together; build
+     seconds and ptxas facts (when this run built it), and what the loaded
+     build uses as the CUDA runtime reports it (registers, local bytes,
+     shared memory). The library's SASS (cuobjdump -sass) must show
+     tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the two
+     forward variants and the backward's rows, dx and weights kernels) and
+     none in the f32 ones; the backward's reduce kernel does no products.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
@@ -23,16 +26,20 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      launch counts, batched rows against solo calls, waveform against the
      plain path, bucket exactness, bf16 against f32, latency and
      throughput.
-  5. trainable layer: wn_layer_trainable (the kernel forward, the torch
-     backward) at C=256, B=12, T=2,000 groups (the training segment), every
-     dilation and the last layer, f32 and bf16: its forward (the kernel)
-     against wn_layer_plain, its six gradients against autograd through
-     wn_layer_plain; times of the kernel forward, the torch backward, plain
-     autograd and a library yardstick beside the bound.
+  5. trainable layer: wn_layer_trainable (the kernel forward; the bf16
+     backward kernels, or the f32 torch-ops backward) at C=256, B=12,
+     T=2,000 groups (the training segment), every dilation and the last
+     layer, f32 and bf16: its forward (the kernel) against wn_layer_plain,
+     its six gradients against autograd through wn_layer_plain, and in
+     bf16 the backward kernels against wn_layer_backward at the same
+     rounding points; times of the forward, the backward, the plain
+     backward, plain autograd, the library and the library's backward
+     alone, beside the bound.
   6. train: train() at full width (12 x 8 x 256, batch 12, segment 16,000)
      on wav files cut from tests/fixtures/audio.wav, in f32 and bf16: six
      steps with saves at steps 1, 3 and 6, launch counts (each step's
-     forward and its remat recompute), resume from the step-3 checkpoint
+     forward and its remat recompute; one backward-kernel call per layer
+     a bf16 step, none in f32), resume from the step-3 checkpoint
      against the straight run, one step's loss and grads through the kernel
      against the plain route (and two wrong routes, which that check must
      flag: the plain route in the other dtype, and the kernel with the last
@@ -114,8 +121,9 @@ TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "3",
 # KERNEL_TOL_F32 / KERNEL_TOL_BF16_REL; each gradient against autograd
 # through the plain layer, relative to that gradient's max |value|. The backward never reads the
 # kernel's outputs, so f32 differs only by sums in other orders; in bf16 the
-# plain layer differentiates its bf16-rounded acts where the backward uses
-# the f32 acts (2^-8 relative in dw_rs).
+# plain layer differentiates through its own rounding points (bf16 acts),
+# where the backward rounds drs, acts and dgates where they enter a product
+# (2^-8 relative each).
 GRAD_TOL_REL = {"f32": 1e-4, "bf16": 2e-2}
 # One full train step, kernel route against plain route on the same params
 # and batch: the loss (absolute) and each leaf's gradient (relative to the
@@ -145,6 +153,16 @@ TIMED_DILATIONS = (1, 128)
 DESIGN = {"f32": "f32 FMAs on CUDA cores, 32-row tile, K chunks of 16",
           "bf16": "wgmma m64n128k16 bf16 from swizzled shared memory, f32 "
                   "accumulators, 64-row tile, 4-stage cp.async weight ring"}
+BACKWARD_DESIGN = (
+    "4 launches, mma.sync m16n8k16 bf16 (ldmatrix from padded shared "
+    "memory, f32 accumulators, cp.async rings): rows kernel (64-row tile, "
+    "gate recompute and dacts in two 128-channel passes, the gate adjoint "
+    "on the accumulators, per-tile bias sums), dx kernel (128x128 tiles, "
+    "3-tap product over dgates, offsets negated), weights kernel (128x128 "
+    "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
+    "reduce")
+# The route of each mode's trainable backward.
+BACKWARD_ROUTE = {"f32": "torch ops", "bf16": "cuda"}
 
 
 def log(msg: str) -> None:
@@ -200,15 +218,38 @@ def variant(mode: str, last: bool) -> str:
   return f"{mode},{'last' if last else 'layer'}"
 
 
+# The bf16 backward's kernels, (name, last) as kl.bwd_kernel_info takes them:
+# the rows kernel has a last-layer variant.
+BWD_KERNELS = tuple((k, last) for k in kl.BWD_KERNELS
+                    for last in ((False, True) if k == "rows" else (False,)))
+
+
+def bwd_variant(kernel: str, last: bool = False) -> str:
+  """Variant name of a backward kernel. Those that do products start with
+  "bf16" (check_tensor_cores demands HMMA/HGMMA of them); the reduce kernel
+  does none and starts with "reduce"."""
+  if kernel == "reduce":
+    return "reduce,bwd"
+  if kernel == "rows":
+    return f"bf16,bwd-rows,{'last' if last else 'layer'}"
+  return f"bf16,bwd-{kernel}"
+
+
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
-  ``wn_layer_kernel_f32<kLast>`` or the bf16 tensor-core kernel
-  ``wn_layer_kernel_mma<kLast>``; other symbols are returned as they are."""
+  ``wn_layer_kernel_f32<kLast>``, the bf16 tensor-core kernel
+  ``wn_layer_kernel_mma<kLast>``, or a backward kernel
+  ``wn_bwd_{rows<kLast>,dx,weights,reduce}_kernel``; other symbols are
+  returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILb([01])E", mangled)
-  if not inst:
-    return mangled
-  return variant("f32" if inst.group(1) == "f32" else "bf16",
-                 inst.group(2) == "1")
+  if inst:
+    return variant("f32" if inst.group(1) == "f32" else "bf16",
+                   inst.group(2) == "1")
+  inst = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernel(?:ILb([01])E)?",
+                   mangled)
+  if inst:
+    return bwd_variant(inst.group(1), inst.group(2) == "1")
+  return mangled
 
 
 def parse_ptxas(build_log: str) -> dict:
@@ -266,8 +307,10 @@ def count_mma(sass: str) -> dict:
 
 
 def check_tensor_cores(mma: dict, variants) -> None:
-  """Fail unless every bf16 variant runs on the tensor cores and no f32
-  variant does (parity mode must never slip into TF32)."""
+  """Fail unless every bf16 variant (each kernel that does bf16 products)
+  runs on the tensor cores and no f32 variant does (parity mode must never
+  slip into TF32); other variants (the reduce kernel) are not held to
+  either."""
   for name in variants:
     if name not in mma:
       fail(f"no SASS found for the {name} kernel")
@@ -285,6 +328,8 @@ def phase_build() -> dict:
   built = kl.BUILD_SECONDS is not None
   attributes = {variant(mode, last): kl.kernel_info(mode == "bf16", last)
                 for mode in MODES for last in (False, True)}
+  attributes.update({bwd_variant(k, last): kl.bwd_kernel_info(k, last)
+                     for k, last in BWD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -616,9 +661,11 @@ def trainable_inputs(last: bool, dtype, seed: int):
 def trainable_cost(last: bool, mode: str) -> dict:
   """Least work of one training layer: the forward (the kernel's work) and
   the six gradients (without recomputing the forward), each input read
-  once and each output written once. Forward products take their operands
-  in the compute dtype; backward products take the f32 cotangents, so they
-  count at the f32 rate in both modes."""
+  once and each output written once. Every product takes its operands in
+  the compute dtype and counts at that dtype's rate: in bf16 the backward's
+  operands (drs, acts, dgates, the taps) are rounded to bf16 (the rounding
+  points of wn_layer_backward), so its products count at the tensor cores'
+  bf16 rate; in f32 they count at the f32 rate."""
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = B_TRAIN * T_TRAIN
@@ -635,15 +682,35 @@ def trainable_cost(last: bool, mode: str) -> dict:
   fwd_flops = 2 * rows * C * (3 * 2 * C + rs)
   # dacts and dw_rs, then dw_in and the taps' adjoint
   bwd_flops = 2 * rows * (2 * C * rs + 2 * 3 * C * 2 * C)
-  t_ops = fwd_flops / PEAK_FLOPS[mode] + bwd_flops / PEAK_FLOPS["f32"]
+  t_ops = fwd_flops / PEAK_FLOPS[mode] + bwd_flops / PEAK_FLOPS[mode]
   t_bytes = all_bytes / HBM_BYTES_PER_S
   return {"bytes": all_bytes, "fwd_flops": fwd_flops, "bwd_flops": bwd_flops,
           "fwd_bound_ms": max(fwd_bytes / HBM_BYTES_PER_S,
                               fwd_flops / PEAK_FLOPS[mode]) * 1e3,
           "bwd_bound_ms": max(bwd_bytes / HBM_BYTES_PER_S,
-                              bwd_flops / PEAK_FLOPS["f32"]) * 1e3,
+                              bwd_flops / PEAK_FLOPS[mode]) * 1e3,
+          "bwd_bound_by": ("bytes" if bwd_bytes / HBM_BYTES_PER_S
+                           >= bwd_flops / PEAK_FLOPS[mode] else "operations"),
           "bound_ms": max(t_bytes, t_ops) * 1e3,
           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def backward_kernel_ms(saved, cot, dilation: int, reps: int = 10) -> dict:
+  """Device milliseconds of each bf16 backward kernel in one call, the mean
+  over ``reps`` calls under torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  kl.wn_layer_backward_fused(saved, *cot, dilation)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      kl.wn_layer_backward_fused(saved, *cot, dilation)
+    torch.cuda.synchronize()
+  out = {}
+  for name, ms in device_kernels(prof):
+    kernel = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernel", name)
+    if kernel:
+      out[kernel.group(1)] = out.get(kernel.group(1), 0.0) + ms / reps
+  return out if out else "not measured"
 
 
 def phase_trainable(seed: int) -> dict:
@@ -690,17 +757,50 @@ def phase_trainable(seed: int) -> dict:
                               "bound": GRAD_TOL_REL[mode] * scale}
         if err > GRAD_TOL_REL[mode] * scale:
           fail(f"trainable grad {name} disagrees with plain autograd: {rec}")
+      saved = tuple(detached)
+      if mode == "bf16":
+        # the backward kernels against the plain backward at the same
+        # rounding points; autograd handed back exactly the kernels' output
+        kernel_grads = kl.wn_layer_backward_fused(saved, *cot, dilation)
+        if not all(torch.equal(a, b) for a, b in zip(grads, kernel_grads)):
+          fail(f"trainable backward differs from wn_layer_backward_fused "
+               f"(d={dilation}, last={last})")
+        plain_bwd = kl.wn_layer_backward(saved, *cot, dilation, None, cdt)
+        rec["backward_vs_plain"] = {}
+        for name, got, ref in zip(GRAD_NAMES, kernel_grads, plain_bwd):
+          err = (got.float() - ref.float()).abs().max().item()
+          scale = ref.float().abs().max().item()
+          rec["backward_vs_plain"][name] = {
+              "max_abs_err": err, "ref_max_abs": scale,
+              "bound": KERNEL_TOL_BF16_REL * scale}
+          if err > KERNEL_TOL_BF16_REL * scale:
+            fail(f"backward kernel {name} disagrees with wn_layer_backward: "
+                 f"{rec['backward_vs_plain']}")
+        rec["backward_max_err_of_scale"] = max(
+            g["max_abs_err"] / g["ref_max_abs"]
+            for g in rec["backward_vs_plain"].values() if g["ref_max_abs"] > 0)
+        rec["backward_max_abs_err"] = max(
+            g["max_abs_err"] for g in rec["backward_vs_plain"].values())
+        del kernel_grads, plain_bwd
       rec["grad_max_abs_err"] = max(g["max_abs_err"]
                                     for g in rec["grads"].values())
       rec["max_err_of_scale"] = max(g["max_abs_err"] / g["ref_max_abs"]
                                     for g in rec["grads"].values()
                                     if g["ref_max_abs"] > 0)
       if dilation == 1 or last:
-        saved = tuple(detached)
         rec["forward_ms"] = cuda_ms(lambda: kl.wn_layer_fused(
             *detached, dilation, compute_dtype=cdt))
-        rec["backward_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
+        # the backward as WNLayerTrainable runs it in this mode (the bf16
+        # kernels, the f32 torch ops), and its plain version, which is the
+        # torch-ops route the bf16 backward took before its kernels
+        rec["torch_backward_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
             saved, cot[0], cot[1], dilation, None, cdt))
+        if mode == "bf16":
+          rec["backward_ms"] = cuda_ms(lambda: kl.wn_layer_backward_fused(
+              saved, cot[0], cot[1], dilation))
+          rec["backward_kernels_ms"] = backward_kernel_ms(saved, cot, dilation)
+        else:
+          rec["backward_ms"] = rec["torch_backward_ms"]
         rec["ms"] = rec["forward_ms"] + rec["backward_ms"]
         rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
             kl.wn_layer_plain(*args, dilation, compute_dtype=cdt), args, cot))
@@ -720,8 +820,16 @@ def phase_trainable(seed: int) -> dict:
         cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(dtype)
         rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             library_layer(*lib_in, None, dilation, dtype), lib_in, cot_rs))
+        # the library's backward alone: its forward built once, outside the
+        # timed region
+        lib_out = library_layer(*lib_in, None, dilation, dtype)
+        rec["library_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, cot_rs, retain_graph=True))
+        del lib_out
         rec.update(trainable_cost(last, mode))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["backward_share_of_bound"] = (rec["bwd_bound_ms"]
+                                          / rec["backward_ms"])
         timed[(mode, last)] = rec
       log("trainable " + json.dumps(rec))
       results.append(rec)
@@ -801,14 +909,16 @@ def profile_train_step(step_fn, params, batch, cond_width: int) -> dict:
     float(step_fn(params, batch))
     torch.cuda.synchronize()
   wn_key = "WN kernel (forward and remat recompute)"
+  bwd_key = "WN backward kernels (rows, dx, weights, reduce)"
   families = dict.fromkeys(
-      (wn_key, "WN backward: GEMMs", "WN backward: elementwise",
+      (wn_key, bwd_key, "WN backward: GEMMs", "WN backward: elementwise",
        "cond GEMMs (forward, recompute, backward)",
        "other GEMMs (upsample, 1x1, STFT, mel)",
        "other elementwise, copies, reductions, Adam"), 0.0)
   kernels = device_kernels(prof)
   families[wn_key] = sum(ms for name, ms in kernels
                          if "wn_layer_kernel" in name)
+  families[bwd_key] = sum(ms for name, ms in kernels if "wn_bwd_" in name)
   for ev in prof.events():
     if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
       continue
@@ -820,7 +930,7 @@ def profile_train_step(step_fn, params, batch, cond_width: int) -> dict:
     is_cond = any(isinstance(dims, (list, tuple)) and cond_width in dims
                   for e in chain for dims in (e.input_shapes or ()))
     for k in ev.kernels:
-      if "wn_layer_kernel" in k.name:
+      if "wn_layer_kernel" in k.name or "wn_bwd_" in k.name:
         continue
       gemm = bool(GEMM.search(k.name))
       if in_bwd:
@@ -849,16 +959,18 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   entries = write_wavs(tmp / "wavs", seed)
   per_forward = config.n_flows * config.n_layers
   per_step = 2 * per_forward if hp.remat else per_forward
+  # one call of the backward kernels per layer a bf16 step, none in f32
+  bwd_per_step = per_forward if mode == "bf16" else 0
   audio_per_step = B_TRAIN * hp.segment_length / hp.sampling_rate
 
   # -- the main path: train() from the seed's initialisation
   torch.cuda.reset_peak_memory_stats()
-  kl.LAUNCHES = 0
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
   t0 = time.perf_counter()
   train(custom, tmp / "logs", entries, entries, tmp / "ck",
         max_iterations=TRAIN_STEPS, device=DEVICE)
   train_s = time.perf_counter() - t0
-  launches = kl.LAUNCHES
+  launches, bwd_launches = kl.LAUNCHES, kl.BWD_LAUNCHES
   peak = torch.cuda.max_memory_allocated()
   records = read_metrics(tmp / "logs")
   steps = [r for r in records if r["event"] == "train_step"]
@@ -871,6 +983,10 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
     fail(f"{mode}: train() launched the kernel {launches} times, expected "
          f"{expected} ({per_step} per step, {per_forward} per validation "
          "batch)")
+  if bwd_launches != bwd_per_step * len(steps):
+    fail(f"{mode}: train() called the backward kernels {bwd_launches} "
+         f"times, expected {bwd_per_step * len(steps)} ({bwd_per_step} per "
+         "step)")
   losses = [r["loss"] for r in steps]
   if not np.isfinite(losses).all():
     fail(f"{mode}: non-finite loss {losses}")
@@ -957,8 +1073,9 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   optimizer = train_lib.make_optimizer(params, hp.learning_rate)
   step_fn = train_lib.make_train_step(config, hp, mel_op, optimizer)
   repeated, per_call, step_times, enqueue_times = [], [], [], []
+  bwd_per_call = []
   for i in range(10):
-    before = kl.LAUNCHES
+    before, bwd_before = kl.LAUNCHES, kl.BWD_LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = step_fn(params, batch)
@@ -968,8 +1085,12 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
       step_times.append(time.perf_counter() - t0)
       enqueue_times.append(t1 - t0)
     per_call.append(kl.LAUNCHES - before)
+    bwd_per_call.append(kl.BWD_LAUNCHES - bwd_before)
   if per_call != [per_step] * len(per_call):
     fail(f"{mode}: kernel launches per step {per_call}, expected {per_step}")
+  if bwd_per_call != [bwd_per_step] * len(bwd_per_call):
+    fail(f"{mode}: backward kernel calls per step {bwd_per_call}, expected "
+         f"{bwd_per_step}")
   if not repeated[4] < repeated[0]:
     fail(f"{mode}: loss did not fall over 5 steps on one batch: {repeated}")
   profile = profile_train_step(step_fn, params, batch,
@@ -981,7 +1102,9 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   steady_s = float(np.median(step_times))
   busy_ms = profile["device_busy_ms"]
   info = {"mode": mode, "launches": launches, "expected_launches": expected,
-          "launches_per_step": per_call[0], "train_s": train_s,
+          "launches_per_step": per_call[0],
+          "backward_launches": bwd_launches,
+          "backward_launches_per_step": bwd_per_call[0], "train_s": train_s,
           "losses": losses, "resumed_losses": resumed,
           "resume_max_abs_err": resume_err,
           "step_s": step_s, "median_step_s": median_s,
@@ -1062,10 +1185,20 @@ def main() -> None:
   for mode in MODES:
     rec = trainable["timed"][(mode, False)]
     cases = [c for c in trainable["cases"] if c["mode"] == mode]
-    # ms is the layer's forward (the kernel) plus its torch backward, the
-    # work the autograd Function does; the bound is that of both.
-    # max_abs_err is the forward's (the kernel's outputs against the plain
-    # layer's), over every dilation and the last layer
+    # ms is the layer's forward (the kernel) plus its backward (the bf16
+    # kernels, or the f32 torch ops), the work the autograd Function does;
+    # the bound is that of both. max_abs_err is the forward's (the kernel's
+    # outputs against the plain layer's), over every dilation and the last
+    # layer
+    backward = {"backward_route": BACKWARD_ROUTE[mode]}
+    if mode == "bf16":
+      # backward_earlier_ms: the torch-ops route the bf16 backward took
+      # before its kernels, timed in this run (its plain version)
+      backward.update(backward_design=BACKWARD_DESIGN,
+                      backward_earlier_ms=rec["torch_backward_ms"],
+                      library_backward_ms=rec["library_backward_ms"],
+                      backward_launches_per_step=trains[mode][
+                          "backward_launches_per_step"])
     kernels.append({
         "name": f"wn_layer_trainable[{mode}]", "route": "cuda",
         "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
@@ -1086,7 +1219,36 @@ def main() -> None:
         "grad_max_err_of_scale": max(c["max_err_of_scale"] for c in cases),
         "grad_tolerance_of_scale": GRAD_TOL_REL[mode],
         "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},d=1",
-        "launches_per_step": trains[mode]["launches_per_step"]})
+        "launches_per_step": trains[mode]["launches_per_step"], **backward})
+  rec = trainable["timed"][("bf16", False)]
+  last = trainable["timed"][("bf16", True)]
+  cases = [c for c in trainable["cases"] if c["mode"] == "bf16"]
+  # the bf16 backward kernels (one call: rows, dx, weights, reduce) against
+  # wn_layer_backward at the same rounding points, every dilation and the
+  # last layer; timed at d=1 and on the last layer
+  kernels.append({
+      "name": "wn_layer_backward_fused[bf16]", "route": "cuda",
+      "source": "waveglow_tpu_torch/csrc/wn_layer_bwd.cu",
+      "replaces": "waveglow_tpu/kernels/wn_layer.py:198",
+      "launches": trains["bf16"]["backward_launches"],
+      "max_abs_err": max(c["backward_max_abs_err"] for c in cases),
+      "max_err_of_scale": max(c["backward_max_err_of_scale"] for c in cases),
+      "tolerance_of_scale": KERNEL_TOL_BF16_REL,
+      "ms": rec["backward_ms"], "plain_ms": rec["torch_backward_ms"],
+      "bound_ms": rec["bwd_bound_ms"], "bound_by": rec["bwd_bound_by"],
+      "library_ms": rec["library_backward_ms"],
+      "design": BACKWARD_DESIGN,
+      "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},d=1",
+      "ms_last": last["backward_ms"],
+      "plain_ms_last": last["torch_backward_ms"],
+      "bound_ms_last": last["bwd_bound_ms"],
+      "library_ms_last": last["library_backward_ms"],
+      "launches_per_step": trains["bf16"]["backward_launches_per_step"],
+      "ptxas": ({bwd_variant(k, l): build["ptxas"].get(bwd_variant(k, l))
+                 for k, l in BWD_KERNELS}
+                if build["built_in_this_run"] else build["ptxas"]),
+      "loaded_build": {bwd_variant(k, l): build["attributes"][bwd_variant(k, l)]
+                       for k, l in BWD_KERNELS}})
 
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,

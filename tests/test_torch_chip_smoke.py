@@ -29,6 +29,23 @@ F32_LAST = F32_LAYER.replace("ILb0EE", "ILb1EE")
 MMA_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_mmaILb0EEEvPKfPK13"
              "__nv_bfloat16S5_S2_S5_S2_PKiPfS8_iii")
 MMA_LAST = MMA_LAYER.replace("ILb0EE", "ILb1EE")
+# The same forward kernel compiled on its own into an object file (the
+# anonymous namespace then carries the file's name and a hash), and the
+# bf16 backward's kernels, as nvcc names them in that build.
+F32_LAYER_OBJ = ("_ZN44_GLOBAL__N__dd736113_11_wn_layer_cu_ad47388519"
+                 "wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_iii")
+_BWD = "_ZN48_GLOBAL__N__c526ef15_15_wn_layer_bwd_cu_16bb117d"
+BWD_ROWS_LAYER = (_BWD + "18wn_bwd_rows_kernelILb0EEEvPKfPK13__nv_bfloat16"
+                  "S5_S2_S5_S2_S2_PKiPS3_S8_S8_S8_Pfii")
+BWD_ROWS_LAST = BWD_ROWS_LAYER.replace("ILb0EE", "ILb1EE")
+BWD_DX = (_BWD + "16wn_bwd_dx_kernelEPK13__nv_bfloat16S2_PKfPKiPfii")
+BWD_WEIGHTS = (_BWD + "21wn_bwd_weights_kernelEPK13__nv_bfloat16S2_S2_S2_"
+               "Pfiiiii")
+BWD_REDUCE = (_BWD + "20wn_bwd_reduce_kernelEPKfiS1_iiP13__nv_bfloat16S3_"
+              "PfS4_")
+BWD = {BWD_ROWS_LAYER: "bf16,bwd-rows,layer",
+       BWD_ROWS_LAST: "bf16,bwd-rows,last", BWD_DX: "bf16,bwd-dx",
+       BWD_WEIGHTS: "bf16,bwd-weights", BWD_REDUCE: "reduce,bwd"}
 
 
 def test_layer_cost_at_the_kernel_phase_shape(smoke):
@@ -57,6 +74,7 @@ def test_layer_cost_at_the_kernel_phase_shape(smoke):
 @pytest.mark.parametrize("mangled,name", [
     (F32_LAYER, "f32,layer"), (F32_LAST, "f32,last"),
     (MMA_LAYER, "bf16,layer"), (MMA_LAST, "bf16,last"),
+    (F32_LAYER_OBJ, "f32,layer"), *BWD.items(),
     ("_Z5otherv", "_Z5otherv")])
 def test_kernel_variant_from_mangled_name(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
@@ -120,3 +138,98 @@ def test_check_tensor_cores_fails(smoke, fault):
     del counts["f32,last"]
   with pytest.raises(SystemExit, match="chip_smoke FAILED"):
     smoke.check_tensor_cores(counts, variants)
+
+
+def test_backward_variants_are_the_runtime_queries(smoke):
+  """The variants phase 2 asks the runtime about are the ones the SASS and
+  ptxas carry, so its ``set(ptxas) == set(attributes)`` check holds."""
+  assert {smoke.bwd_variant(k, last) for k, last in smoke.BWD_KERNELS} == set(
+      BWD.values())
+
+
+def ptxas_log(names):
+  log = []
+  for i, mangled in enumerate(names):
+    log += [f"ptxas info    : Compiling entry function '{mangled}' for "
+            "'sm_90a'",
+            f"ptxas info    : Function properties for {mangled}",
+            f"    0 bytes stack frame, {4 * i} bytes spill stores, "
+            f"{8 * i} bytes spill loads",
+            f"ptxas info    : Used {100 + i} registers, used 1 barriers"]
+  return "\n".join(log)
+
+
+def test_parse_ptxas_reads_the_backward_kernels(smoke):
+  """One log of both sources, each compiled on its own (nvcc -c)."""
+  names = (F32_LAYER_OBJ, MMA_LAYER, *BWD)
+  facts = smoke.parse_ptxas(ptxas_log(names))
+  assert sorted(facts) == sorted(["f32,layer", "bf16,layer", *BWD.values()])
+  assert facts["bf16,bwd-dx"] == {"spill_store_bytes": 16,
+                                  "spill_load_bytes": 32, "registers": 104,
+                                  "static_smem_bytes": 0}
+
+
+def bwd_sass(mma):
+  """SASS of the backward kernels, ``mma[variant]`` tensor-core
+  instructions in each."""
+  lines = ["\tcode for sm_90a"]
+  for mangled, name in BWD.items():
+    lines.append(f"\t\tFunction : {mangled}")
+    lines.append("        /*0000*/                   LDC R1, c[0x0][0x28] ;")
+    lines += ["        /*0a50*/                   HMMA.16816.F32.BF16 R24, "
+              "R4, R8, R24 ;"] * mma.get(name, 0)
+  return "\n".join(lines)
+
+
+def test_backward_kernels_pass_the_tensor_core_check(smoke):
+  """Every backward kernel that does products has HMMA; the reduce kernel
+  has none and is not asked for any."""
+  counts = smoke.count_mma(SASS + bwd_sass({
+      "bf16,bwd-rows,layer": 3, "bf16,bwd-rows,last": 3, "bf16,bwd-dx": 2,
+      "bf16,bwd-weights": 4}))
+  assert counts["reduce,bwd"] == 0 and counts["bf16,bwd-dx"] == 2
+  assert len(counts) == 9
+  smoke.check_tensor_cores(counts, counts)  # passes
+
+
+@pytest.mark.parametrize("without", ["bf16,bwd-rows,layer",
+                                     "bf16,bwd-rows,last", "bf16,bwd-dx",
+                                     "bf16,bwd-weights"])
+def test_check_tensor_cores_fails_for_a_backward_kernel_without_mma(
+    smoke, without):
+  mma = {name: 2 for name in BWD.values() if name != "reduce,bwd"}
+  mma[without] = 0
+  counts = smoke.count_mma(SASS + bwd_sass(mma))
+  with pytest.raises(SystemExit, match=without):
+    smoke.check_tensor_cores(counts, counts)
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_trainable_cost_bills_the_bf16_backward_at_the_bf16_rate(smoke,
+                                                                 last):
+  """B=12, T=2,000, C=256. Non-last: the gradients' products are 50.3
+  GFLOP (dacts and dw_rs, 2 x 12.6 of them with K or N = 2C, then dw_in
+  and the taps' adjoint): 0.0509 ms at 989 TFLOP/s in bf16, above the
+  0.0446 ms of the backward's 149.6 MB, and 0.7512 ms at 67 TFLOP/s in
+  f32, as before. The whole bf16 layer: 75.5 GFLOP, 0.0763 ms (was
+  0.7767 when the backward was billed at the f32 rate). Last layer
+  (n_rs = C): 44.0 GFLOP, byte-bound in bf16."""
+  assert (smoke.B_TRAIN, smoke.T_TRAIN, smoke.C) == (12, 2000, 256)
+  rows = 24_000
+  rs = 256 if last else 512
+  flops = 2 * rows * (2 * 256 * rs + 2 * 768 * 512)
+  bf16 = smoke.trainable_cost(last, "bf16")
+  f32 = smoke.trainable_cost(last, "f32")
+  assert bf16["bwd_flops"] == f32["bwd_flops"] == flops
+  assert f32["bwd_bound_ms"] == pytest.approx(flops / 67e12 * 1e3, rel=1e-12)
+  assert f32["bound_by"] == f32["bwd_bound_by"] == "operations"
+  if last:
+    assert bf16["bwd_bound_by"] == "bytes"
+    assert bf16["bwd_bound_ms"] == pytest.approx(0.044566, rel=1e-4)
+  else:
+    assert flops == 50_331_648_000
+    assert bf16["bwd_bound_by"] == "operations"
+    assert bf16["bwd_bound_ms"] == pytest.approx(0.050891, rel=1e-4)
+    assert f32["bwd_bound_ms"] == pytest.approx(0.751219, rel=1e-4)
+    assert bf16["bound_ms"] == pytest.approx(0.076337, rel=1e-4)
+    assert f32["bound_ms"] == pytest.approx(1.126828, rel=1e-4)

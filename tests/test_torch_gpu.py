@@ -284,3 +284,126 @@ def test_train_step_kernel_route_matches_plain(cuda, compute_dtype):
     scale = ref.abs().max().item()
     assert scale > 0
     assert (got - ref).abs().max().item() <= (5e-2 if bf16 else 1e-3) * scale
+
+
+# -- the bf16 backward kernels (csrc/wn_layer_bwd.cu) ------------------------
+
+GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
+
+
+def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None):
+  """The saved inputs of a bf16 layer (x zero at rows >= valid_t), the two
+  cotangents (``drop`` of them None) and valid_t as the kernel takes it."""
+  x, *rest = layer_inputs(device, batch, t, kl.CHANNELS, last,
+                          torch.bfloat16, seed)
+  valid_t = None
+  if valid is not None:
+    valid_t = torch.tensor(valid, dtype=torch.int32, device=device)
+    x = x * (torch.arange(t, device=device)[None, :, None]
+             < valid_t[:, None, None])
+  rng = np.random.default_rng(seed + 100)
+  cots = [torch.from_numpy(rng.standard_normal((batch, t, kl.CHANNELS))
+                           .astype(np.float32)).to(device) for _ in range(2)]
+  if drop is not None:
+    cots[drop] = None
+  return (x, *rest), cots, valid_t
+
+
+def check_bwd_against_plain(device, batch, t, dilation, last, valid, seed,
+                            drop=None):
+  """One call of the backward kernels (one count in BWD_LAUNCHES) against
+  wn_layer_backward at the same rounding points: each gradient within 2e-2
+  of its own max |value| (f32 sums in another order can flip one bf16
+  rounding of a dgate or an act), in its input's dtype and shape."""
+  saved, cots, valid_t = bwd_inputs(device, batch, t, dilation, last, valid,
+                                    seed, drop)
+  before = kl.BWD_LAUNCHES
+  got = kl.wn_layer_backward_fused(saved, *cots, dilation, valid_t)
+  torch.cuda.synchronize()
+  assert kl.BWD_LAUNCHES == before + 1
+  ref = kl.wn_layer_backward(saved, *cots, dilation, valid_t, torch.bfloat16)
+  for name, g, r, arg in zip(GRAD_NAMES, got, ref, saved):
+    assert g.dtype == arg.dtype and g.shape == arg.shape, name
+    assert torch.isfinite(g).all(), name
+    err = (g.float() - r.float()).abs().max().item()
+    assert err <= 2e-2 * r.float().abs().max().item(), (name, err)
+  return got
+
+
+@pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
+                                           (128, False), (1, True),
+                                           (128, True)])
+def test_bwd_kernel_matches_plain(cuda, dilation, last):
+  """Every dilation's halo (d=128 reaches past both ends at T=300) and the
+  last layer, with a per-row valid_t."""
+  check_bwd_against_plain(cuda, 2, 300, dilation, last, [300, 223], seed=11)
+
+
+@pytest.mark.parametrize("t", [17, ROW_TILE + 1])
+def test_bwd_kernel_short_and_ragged_tiles(cuda, t):
+  """T shorter than one row tile, and one tile plus one row."""
+  check_bwd_against_plain(cuda, 2, t, 2, False, [t, t - 5], seed=12)
+
+
+def test_bwd_kernel_batch_with_one_valid_row(cuda):
+  """B=8 with one row kept at valid_t=1."""
+  valid = [300, 1, 299, 170, 64, 65, 300, 2]
+  check_bwd_against_plain(cuda, 8, 300, 8, False, valid, seed=13)
+
+
+@pytest.mark.parametrize("drop,last", [(0, False), (1, False), (0, True),
+                                       (1, True)])
+def test_bwd_kernel_none_cotangents(cuda, drop, last):
+  """A None dx_next or dskip is zero (the last layer with dskip None has
+  zero gradients but dx)."""
+  check_bwd_against_plain(cuda, 2, 200, 4, last, None, seed=14, drop=drop)
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_bwd_kernel_repeats_bitwise(cuda, last):
+  """Two calls at the training shape (B=12, T=2,000) give the same bits:
+  no atomics, every sum in a fixed order."""
+  saved, cots, _ = bwd_inputs(cuda, 12, 2000, 1, last, None, seed=15)
+  first = kl.wn_layer_backward_fused(saved, *cots, 1)
+  again = kl.wn_layer_backward_fused(saved, *cots, 1)
+  assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bwd_kernel_rejects_bad_inputs(cuda):
+  saved, cots, _ = bwd_inputs(cuda, 1, 64, 1, False, None, seed=16)
+  x, cond, w_in, b_in, w_rs, b_rs = saved
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_backward_fused((x, cond, w_in.float(), b_in, w_rs, b_rs),
+                               *cots, 1)
+  with pytest.raises(ValueError, match="shape"):
+    kl.wn_layer_backward_fused(saved, cots[0][:, :32], cots[1], 1)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_backward_fused(saved, cots[0].to(torch.bfloat16), cots[1], 1)
+  with pytest.raises(ValueError, match="valid_t"):
+    kl.wn_layer_backward_fused(saved, *cots, 1, valid_t=10)
+  with pytest.raises(ValueError, match="C = 256"):
+    kl.wn_layer_backward_fused((x[..., :128].contiguous(), *saved[1:]),
+                               *cots, 1)
+
+
+@pytest.mark.parametrize("kernel,last", [("rows", False), ("rows", True),
+                                         ("dx", False), ("weights", False),
+                                         ("reduce", False)])
+def test_bwd_kernel_info_reads_the_loaded_build(cuda, kernel, last):
+  info = kl.bwd_kernel_info(kernel, last)
+  assert 0 < info["registers"] <= 255
+  assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
+  assert (info["dynamic_smem_bytes"] > 48 * 1024) == (kernel != "reduce")
+
+
+def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
+  """wn_layer_trainable's backward in bf16 on the card is one call of the
+  backward kernels; in f32 it is the torch-ops route (no call)."""
+  for cdt, calls in ((torch.bfloat16, 1), (None, 0)):
+    dtype = cdt or torch.float32
+    args = [a.requires_grad_() for a in
+            layer_inputs(cuda, 2, 100, kl.CHANNELS, False, dtype, seed=17)]
+    out = kl.wn_layer_trainable(*args, 2, compute_dtype=cdt)
+    before = kl.BWD_LAUNCHES
+    torch.autograd.grad(out, args, [torch.ones_like(o) for o in out])
+    assert kl.BWD_LAUNCHES == before + calls

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``waveglow_tpu_torch`` and not
-``chip_smoke.py`` imports jax or anything of the JAX package."""
+"""The port stands alone: no module of ``waveglow_tpu_torch`` and neither
+``chip_smoke.py`` nor ``bwd_ablation.py`` imports jax or anything of the
+JAX package."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "waveglow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bwd_ablation.py"]
 
 
 def imported_modules(path: Path):
@@ -30,7 +31,8 @@ def forbidden(name: str) -> bool:
 
 def test_sources_found():
   assert len(SOURCES) > 10
-  assert (ROOT / "waveglow_tpu_torch" / "csrc" / "wn_layer.cu").is_file()
+  for name in ("wn_layer.cu", "wn_layer_bwd.cu"):
+    assert (ROOT / "waveglow_tpu_torch" / "csrc" / name).is_file()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

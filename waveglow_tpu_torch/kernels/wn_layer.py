@@ -1,11 +1,14 @@
-"""Fused WN layer forward: CUDA kernel wrapper and its plain PyTorch version.
+"""Fused WN layer, forward and bf16 backward: CUDA kernel wrappers and
+their plain PyTorch versions.
 
 Replaces ``waveglow_tpu/kernels/wn_layer.py::_wn_layer_fused`` (Pallas, TPU).
-The kernels are in ``csrc/wn_layer.cu``: f32 FMAs on the CUDA cores for f32
-(parity) and wgmma on the tensor cores for bf16; the note at its top says
-what bounds each on an H100 and how it is laid out. It is compiled with
-nvcc for ``sm_90a`` at first use into ``waveglow_tpu_torch/build/`` (keyed
-by a hash of the source and flags) and bound with ctypes.
+The forward kernels are in ``csrc/wn_layer.cu``: f32 FMAs on the CUDA cores
+for f32 (parity) and wgmma on the tensor cores for bf16; the bf16
+backward's four kernels are in ``csrc/wn_layer_bwd.cu``. The note at the
+top of each says what bounds it on an H100 and how it is laid out. Both
+are compiled with nvcc for ``sm_90a`` at first use into one library in
+``waveglow_tpu_torch/build/`` (keyed by a hash of the sources and flags)
+and bound with ctypes.
 
 Math of one layer, channels-last (``C`` channels, dilation ``d``):
 
@@ -23,10 +26,13 @@ back. ``LAUNCHES`` counts kernel launches.
 
 ``wn_layer_trainable`` is the differentiable layer (counterpart of the JAX
 package's custom-VJP ``wn_layer_trainable``): its forward is
-``wn_layer_fused`` without ``skip_acc`` (the kernel on the card), its
-backward the closed-form adjoints of ``_wn_layer_trainable_bwd`` in torch
-ops, recomputing taps, gates and acts in f32. The JAX package has no
-backward kernel, and neither has the port.
+``wn_layer_fused`` without ``skip_acc`` (the kernel on the card). Its
+backward computes the closed-form adjoints of ``_wn_layer_trainable_bwd``,
+recomputing taps, gates and acts: in bf16 on the card by the four kernels
+of ``csrc/wn_layer_bwd.cu`` (``wn_layer_backward_fused``, counted in
+``BWD_LAUNCHES``), in f32 on the card by torch ops (``wn_layer_backward``,
+the designated parity-mode route: its products must stay true f32), and on
+the CPU by ``wn_layer_backward``, which is also the bf16 kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ import torch
 from waveglow_tpu_torch.ops.conv import shift_time
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "wn_layer.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CHANNELS = 256  # the width the kernel is built for
 
 _LIB = None
@@ -117,33 +125,42 @@ def _nvcc() -> str:
   if default.is_file():
     return str(default)
   raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                     f"{SOURCE.name}")
+                     + ", ".join(s.name for s in SOURCES))
 
 
 def build_library() -> Path:
-  """Compile ``csrc/wn_layer.cu`` (once per source/flags hash); returns the
-  path of the shared library. Raises with nvcc's output on failure."""
+  """Compile ``csrc/*.cu`` into one shared library (once per hash of the
+  sources and flags): one nvcc per source, all started together, then one
+  link. Returns the library's path; raises with nvcc's output on failure."""
   global BUILD_LOG, BUILD_SECONDS
-  src = SOURCE.read_bytes()
-  key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  lib = BUILD_DIR / f"wn_layer_{key}.so"
+  digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  for src in SOURCES:
+    digest.update(src.read_bytes())
+  lib = BUILD_DIR / f"wn_layer_{digest.hexdigest()[:16]}.so"
   if lib.is_file():
     return lib
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-  os.close(fd)
-  try:
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
     start = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    for src, proc, log in zip(SOURCES, procs, logs):
+      if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+    out = Path(tmp) / "lib.so"
+    link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS, "-o", str(out),
+                           *map(str, objs)], capture_output=True, text=True,
+                          check=False)
+    if link.returncode != 0:
+      raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stderr}")
     BUILD_SECONDS = time.perf_counter() - start
-    BUILD_LOG = proc.stdout + proc.stderr
-    os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
-  finally:
-    if os.path.exists(tmp):
-      os.remove(tmp)
+    BUILD_LOG = "".join(logs)
+    os.replace(out, lib)  # atomic: concurrent builds race harmlessly
   return lib
 
 
@@ -155,25 +172,43 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    info = lib.wn_layer_kernel_info
-    info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
-    info.restype = ctypes.c_int
+    bwd = lib.wn_layer_backward_bf16
+    bwd.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+                    + [ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    for info in (lib.wn_layer_kernel_info, lib.wn_layer_bwd_kernel_info):
+      info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
+      info.restype = ctypes.c_int
     _LIB = lib
   return _LIB
 
 
-def kernel_info(bf16: bool, last: bool) -> dict:
-  """What the loaded build of one kernel variant uses, from the CUDA runtime
-  (cudaFuncGetAttributes): registers and local (spill) bytes per thread,
-  static shared bytes, and the dynamic shared bytes its launcher passes."""
+def _info(fn, *args) -> dict:
   vals = [ctypes.c_int() for _ in range(4)]
-  err = _library().wn_layer_kernel_info(int(bf16), int(last),
-                                        *[ctypes.byref(v) for v in vals])
+  err = fn(*args, *[ctypes.byref(v) for v in vals])
   if err != 0:
     raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
   keys = ("registers", "local_bytes", "static_smem_bytes",
           "dynamic_smem_bytes")
   return dict(zip(keys, (v.value for v in vals)))
+
+
+def kernel_info(bf16: bool, last: bool) -> dict:
+  """What the loaded build of one forward kernel variant uses, from the
+  CUDA runtime (cudaFuncGetAttributes): registers and local (spill) bytes
+  per thread, static shared bytes, and the dynamic shared bytes its
+  launcher passes."""
+  return _info(_library().wn_layer_kernel_info, int(bf16), int(last))
+
+
+# The bf16 backward's kernels, in launch order (``last`` only for "rows").
+BWD_KERNELS = ("rows", "dx", "weights", "reduce")
+
+
+def bwd_kernel_info(kernel: str, last: bool = False) -> dict:
+  """:func:`kernel_info` for one backward kernel of ``BWD_KERNELS``."""
+  return _info(_library().wn_layer_bwd_kernel_info,
+               BWD_KERNELS.index(kernel), int(last))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -274,18 +309,38 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
                       ) -> Tuple[torch.Tensor, ...]:
   """Gradients of (x, cond, w_in, b_in, w_rs, b_rs) of one layer, from the
   saved inputs and the output cotangents (None means zero); the torch-ops
-  counterpart of ``_wn_layer_trainable_bwd``.
+  counterpart of ``_wn_layer_trainable_bwd``, and the yardstick of the bf16
+  backward kernel (:func:`wn_layer_backward_fused`).
 
-  Taps, gates and acts are recomputed in f32 from the inputs (the taps
-  rounded to ``compute_dtype`` first, as the forward's product operands
-  are), every product runs in f32, and each gradient is cast to its input's
-  dtype and shape.
+  Taps, gates and acts are recomputed in f32 from the inputs, and each
+  gradient is cast to its input's dtype and shape. With
+  ``compute_dtype=None`` every product runs in f32 on f32 operands.
+
+  With ``compute_dtype=torch.bfloat16`` these are the rounding points (the
+  kernel's): the taps of x are rounded to bf16 (as the forward's are), and
+  w_in, w_rs are bf16 already; gates accumulate in f32, then b_in and cond
+  are added in f32; t_act, s_act and acts stay f32. The product operands
+  acts, drs (masked dx_next | dskip, or dskip on the last layer) and dgates
+  are each rounded to bf16 where they enter a product, and every product
+  accumulates in f32. The gate adjoint is f32; dcond is bf16(dgates), cond's
+  dtype. db_in and db_rs sum the f32 dgates and drs, not their roundings;
+  dx is the masked dx_next plus the shifted taps' adjoint in f32; dw_in and
+  dw_rs are summed in f32, then cast to the weights' dtype. bf16 operands
+  are faithful to the JAX package: none of its backward's dots passes
+  ``precision=``, and on its chip such an f32 dot runs as one bf16 pass with
+  f32 accumulation.
   """
   x, cond, w_in, b_in, w_rs, b_rs = saved
   batch, t, c = x.shape
   f32 = torch.float32
   last = w_rs.numel() == c * c
   n_rs = c if last else 2 * c
+  if compute_dtype is None:
+    def operand(v):
+      return v
+  else:
+    def operand(v):
+      return v.to(compute_dtype).float()
   xm = x.float() if compute_dtype is None else x.to(compute_dtype).float()
   taps = torch.cat([shift_time(xm, (tap - 1) * dilation) for tap in range(3)],
                    dim=-1).reshape(-1, 3 * c)                    # [R, 3C]
@@ -310,16 +365,18 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
   drs = dskip if last else torch.cat([dx_next, dskip], dim=-1)  # [R, n_rs]
 
   w_rs_f = w_rs.to(f32).reshape(c, n_rs)
-  dacts = torch.matmul(drs, w_rs_f.T)
-  dw_rs = torch.matmul(acts.T, drs)
+  drs_op = operand(drs)
+  dacts = torch.matmul(drs_op, w_rs_f.T)
+  dw_rs = torch.matmul(operand(acts).T, drs_op)
   db_rs = drs.sum(0)
   dgates = torch.cat([dacts * s_act * (1.0 - t_act * t_act),
                       dacts * t_act * s_act * (1.0 - s_act)], dim=-1)
   db_in = dgates.sum(0)
-  dw_in = torch.matmul(taps.T, dgates)
+  dgates_op = operand(dgates)
+  dw_in = torch.matmul(taps.T, dgates_op)
   # adjoint of the 3-tap dilated conv: shift_time's adjoint is shift_time
   # with the negated offset
-  g_w = torch.matmul(dgates, w_in_f.T).reshape(batch, t, 3 * c)
+  g_w = torch.matmul(dgates_op, w_in_f.T).reshape(batch, t, 3 * c)
   dx = dx_next.reshape(batch, t, c)
   for tap in range(3):
     dx = dx + shift_time(g_w[..., tap * c:(tap + 1) * c], -(tap - 1) * dilation)
@@ -331,8 +388,92 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
           like(db_in, b_in), like(dw_rs, w_rs), like(db_rs, b_rs))
 
 
+# Rows of one range of the weights kernel's split (a multiple of its 32-row
+# chunk): one range per batch row at the training segment (T=2,000), 32 x B
+# blocks. Finer splits were slower on an H100 (bwd_ablation.py): the reduce
+# kernel's reads grow faster than the weights kernel gains.
+SPLIT_ROWS = 2048
+
+
+def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
+                            dx_next: Optional[torch.Tensor],
+                            dskip: Optional[torch.Tensor], dilation: int,
+                            valid_t: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+  """:func:`wn_layer_backward` with ``compute_dtype=torch.bfloat16`` on the
+  card: the four kernels of ``csrc/wn_layer_bwd.cu`` (one call, counted
+  once in ``BWD_LAUNCHES``). Inputs as :func:`wn_layer_fused` takes them in
+  bf16 (x, b_in, b_rs f32; cond, w_in, w_rs bf16; C = 256; valid_t None or
+  an int32 [B] tensor on the card); the cotangents f32 [B, T, C] or None
+  (zero, never materialised). Anything else raises."""
+  global BWD_LAUNCHES
+  x, cond, w_in, b_in, w_rs, b_rs = saved
+  if x.device.type != "cuda":
+    raise ValueError(f"the backward kernel needs CUDA tensors, got {x.device}")
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  dev = x.device
+  batch, t, c = x.shape
+  if c != CHANNELS:
+    raise ValueError(f"kernel supports C = {CHANNELS}, got {c}")
+  last = w_rs.numel() == c * c
+  n_rs = c if last else 2 * c
+  bf16 = torch.bfloat16
+  _check("x", x, torch.float32, (batch, t, c), dev)
+  _check("cond", cond, bf16, (batch, t, 2 * c), dev)
+  _check("w_in", w_in, bf16, (3 * c, 2 * c), dev)
+  _check("b_in", b_in, torch.float32, (2 * c,), dev)
+  _check("w_rs", w_rs, bf16, (c * n_rs,), dev)
+  _check("b_rs", b_rs, torch.float32, (n_rs,), dev)
+  if valid_t is not None:
+    if not isinstance(valid_t, torch.Tensor):
+      raise ValueError("valid_t must be an int32 [B] tensor on the card")
+    _check("valid_t", valid_t, torch.int32, (batch,), dev)
+  cots = []
+  for name, g in (("dx_next", dx_next), ("dskip", dskip)):
+    if g is not None:
+      g = g.contiguous()  # autograd may hand an expanded view
+      _check(name, g, torch.float32, (batch, t, c), dev)
+    cots.append(g)
+
+  def empty(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+  rows = batch * t
+  n_splits_t = -(-t // SPLIT_ROWS)
+  dx = empty(x.shape, torch.float32)
+  dcond = empty(cond.shape, bf16)
+  dw_in = empty(w_in.shape, bf16)
+  db_in = empty(b_in.shape, torch.float32)
+  dw_rs = empty(w_rs.shape, bf16)
+  db_rs = empty(b_rs.shape, torch.float32)
+  acts = empty((rows, c), bf16)
+  x_bf = empty((rows, c), bf16)
+  drs = empty((rows, n_rs), bf16)
+  part_bias = empty((batch * -(-t // 64), 2 * c + n_rs), torch.float32)
+  ws = empty((batch * n_splits_t, 3 * c * 2 * c + c * n_rs), torch.float32)
+
+  def ptr(v):
+    return v.data_ptr() if v is not None else None
+
+  err = _library().wn_layer_backward_bf16(
+      x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+      w_rs.data_ptr(), ptr(cots[0]), ptr(cots[1]), ptr(valid_t),
+      dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
+      dw_rs.data_ptr(), db_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(),
+      drs.data_ptr(), part_bias.data_ptr(), ws.data_ptr(), batch, t, c,
+      int(dilation), int(last), n_splits_t, SPLIT_ROWS,
+      torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer backward kernels failed to launch: "
+                       f"cudaError {err}")
+  BWD_LAUNCHES += 1
+  return dx, dcond, dw_in, db_in, dw_rs, db_rs
+
+
 class WNLayerTrainable(torch.autograd.Function):
   """Forward: :func:`wn_layer_fused` without ``skip_acc``; backward:
+  :func:`wn_layer_backward_fused` for bf16 on the card, else
   :func:`wn_layer_backward`. Saves the six inputs, as the JAX custom VJP
   does (nothing of the kernel's intermediates)."""
 
@@ -349,8 +490,14 @@ class WNLayerTrainable(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, dx_next, dskip):
-    grads = wn_layer_backward(ctx.saved_tensors, dx_next, dskip,
-                              ctx.dilation, ctx.valid_t, ctx.compute_dtype)
+    saved = ctx.saved_tensors
+    if saved[0].device.type == "cuda" and ctx.compute_dtype is not None:
+      grads = wn_layer_backward_fused(saved, dx_next, dskip, ctx.dilation,
+                                      ctx.valid_t)
+    else:
+      # CPU tensors, and f32 on the card (parity mode's torch-ops route)
+      grads = wn_layer_backward(saved, dx_next, dskip, ctx.dilation,
+                                ctx.valid_t, ctx.compute_dtype)
     return grads + (None, None, None)
 
 
