@@ -13,6 +13,8 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the two
      forward variants and the backward's rows, dx and weights kernels) and
      none in the f32 ones; the backward's reduce kernel does no products.
+     The f32 kernel's registers, shared memory, blocks an SM and grid at
+     B=1 and B=8 are printed, and any spill of an f32 variant fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
@@ -147,10 +149,14 @@ MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
 
 # Phase 3 times these dilations (the narrowest and the widest halo) and the
-# last layer.
+# last layer, whose dilation is the widest.
 TIMED_DILATIONS = (1, 128)
+LAST_DILATION = 2 ** (N_LAYERS - 1)
 # What each mode's kernel is.
-DESIGN = {"f32": "f32 FMAs on CUDA cores, 32-row tile, K chunks of 16",
+DESIGN = {"f32": "f32 FFMA on the CUDA cores: one wave of 384-thread blocks, "
+                 "each walking an equal share of the B*T rows in 48-row "
+                 "tiles; 8 rows x (4 tanh + 4 sigmoid) channels a thread; "
+                 "16-row K chunks through a 4-stage cp.async ring",
           "bf16": "wgmma m64n128k16 bf16 from swizzled shared memory, f32 "
                   "accumulators, 64-row tile, 4-stage cp.async weight ring"}
 BACKWARD_DESIGN = (
@@ -161,6 +167,9 @@ BACKWARD_DESIGN = (
     "3-tap product over dgates, offsets negated), weights kernel (128x128 "
     "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
     "reduce")
+# Shapes at which phase 2 reports the f32 kernel's grid: phase 3's two batch
+# sizes and the training segment.
+F32_GRID_SHAPES = ((1, T_KERNEL), (8, T_KERNEL), (B_TRAIN, T_TRAIN))
 # The route of each mode's trainable backward.
 BACKWARD_ROUTE = {"f32": "torch ops", "bf16": "cuda"}
 
@@ -320,6 +329,35 @@ def check_tensor_cores(mma: dict, variants) -> None:
       fail(f"the {name} kernel has {mma[name]} tensor-core instructions")
 
 
+def check_no_spills(ptxas, attributes) -> None:
+  """Fail if an f32 kernel variant spills: local bytes in the loaded build,
+  or spill stores or loads in ptxas's report (``ptxas`` is None when the
+  library was built by an earlier process)."""
+  for name, attr in attributes.items():
+    if not name.startswith("f32"):
+      continue
+    facts = (ptxas or {}).get(name, {})
+    spills = (attr["local_bytes"], facts.get("spill_store_bytes", 0),
+              facts.get("spill_load_bytes", 0))
+    if any(spills):
+      fail(f"the {name} kernel spills: {attr['local_bytes']} local bytes, "
+           f"ptxas {facts}")
+
+
+def f32_grid(attributes) -> dict:
+  """The f32 kernel's registers, spills and shared memory (the loaded
+  build), and at each of F32_GRID_SHAPES its grid: blocks an SM, blocks,
+  waves, rows and tiles a block, and the rows of the busiest block against
+  an equal share of B*T over the device's blocks (1.0: no tail)."""
+  info = {"kernel": attributes[variant("f32", False)]}
+  for batch, t in F32_GRID_SHAPES:
+    grid = kl.f32_schedule(batch, t)
+    slots = grid["sms"] * grid["blocks_per_sm"]
+    grid["share_of_busiest"] = batch * t / slots / grid["rows_per_block"]
+    info[f"B={batch},T={t}"] = grid
+  return info
+
+
 def phase_build() -> dict:
   start = time.perf_counter()
   lib = kl.build_library()
@@ -341,12 +379,15 @@ def phase_build() -> dict:
           "ptxas": (parse_ptxas(kl.BUILD_LOG) if built
                     else "cached: built by an earlier process"),
           "attributes": attributes,
-          "sass_tensor_core_instructions": mma}
+          "sass_tensor_core_instructions": mma,
+          "f32_grid": f32_grid(attributes)}
   log("build " + json.dumps(info))
+  log("f32 kernel " + json.dumps(info["f32_grid"]))
   if built and set(info["ptxas"]) != set(attributes):
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
   check_tensor_cores(mma, attributes)
+  check_no_spills(info["ptxas"] if built else None, attributes)
   return info
 
 
@@ -1179,6 +1220,11 @@ def main() -> None:
         "ms_d128": wide["kernel_ms"], "plain_ms_d128": wide["plain_ms"],
         "library_ms_d128": wide["library_ms"],
         "launches_per_synthesis": slices[mode]["launches_per_synthesis"][0],
+        # the last layer and B=8, each with its library yardstick
+        **{f"{key}_{case}": kernel["timed"][shape][key]
+           for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
+                               ("B8", (mode, 8, False, 1)))
+           for key in ("kernel_ms", "library_ms", "bound_ms")},
         "ptxas": (build["ptxas"].get(variant(mode, False))
                   if build["built_in_this_run"] else build["ptxas"]),
         "loaded_build": build["attributes"][variant(mode, False)]})

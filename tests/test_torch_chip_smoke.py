@@ -24,7 +24,7 @@ def smoke():
 
 # Mangled names of the four kernel instantiations (C=256 build).
 F32_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_"
-             "S2_PKiPfS5_iii")
+             "S2_PKiPfS5_iiiii")
 F32_LAST = F32_LAYER.replace("ILb0EE", "ILb1EE")
 MMA_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_mmaILb0EEEvPKfPK13"
              "__nv_bfloat16S5_S2_S5_S2_PKiPfS8_iii")
@@ -33,7 +33,7 @@ MMA_LAST = MMA_LAYER.replace("ILb0EE", "ILb1EE")
 # anonymous namespace then carries the file's name and a hash), and the
 # bf16 backward's kernels, as nvcc names them in that build.
 F32_LAYER_OBJ = ("_ZN44_GLOBAL__N__dd736113_11_wn_layer_cu_ad47388519"
-                 "wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_iii")
+                 "wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_iiiii")
 _BWD = "_ZN48_GLOBAL__N__c526ef15_15_wn_layer_bwd_cu_16bb117d"
 BWD_ROWS_LAYER = (_BWD + "18wn_bwd_rows_kernelILb0EEEvPKfPK13__nv_bfloat16"
                   "S5_S2_S5_S2_S2_PKiPS3_S8_S8_S8_Pfii")
@@ -233,3 +233,46 @@ def test_trainable_cost_bills_the_bf16_backward_at_the_bf16_rate(smoke,
     assert f32["bwd_bound_ms"] == pytest.approx(0.751219, rel=1e-4)
     assert bf16["bound_ms"] == pytest.approx(0.076337, rel=1e-4)
     assert f32["bound_ms"] == pytest.approx(1.126828, rel=1e-4)
+
+
+def attributes(local_bytes):
+  return {"f32,layer": {"registers": 167, "local_bytes": local_bytes,
+                        "static_smem_bytes": 0,
+                        "dynamic_smem_bytes": 193_280},
+          "bf16,layer": {"registers": 255, "local_bytes": 8,
+                         "static_smem_bytes": 0,
+                         "dynamic_smem_bytes": 229_376}}
+
+
+@pytest.mark.parametrize("fault", [None, "local bytes", "ptxas spills"])
+def test_check_no_spills_holds_the_f32_kernels(smoke, fault):
+  """An f32 variant fails on local bytes in the loaded build or on spills
+  in ptxas's report; other variants (the bf16 kernel's 8 local bytes) are
+  not held to it, and a cached build (no ptxas report) is read from the
+  runtime alone."""
+  ptxas = {"f32,layer": {"spill_store_bytes": 0, "spill_load_bytes": 0},
+           "bf16,layer": {"spill_store_bytes": 8, "spill_load_bytes": 8}}
+  attrs = attributes(4 if fault == "local bytes" else 0)
+  if fault == "ptxas spills":
+    ptxas["f32,layer"]["spill_load_bytes"] = 16
+  if fault is None:
+    smoke.check_no_spills(ptxas, attrs)
+    smoke.check_no_spills(None, attrs)
+    return
+  with pytest.raises(SystemExit, match="f32,layer kernel spills"):
+    smoke.check_no_spills(ptxas, attrs)
+
+
+def test_f32_grid_reads_each_shape(smoke, monkeypatch):
+  """Phase 2's report of the f32 grid: the share of the busiest block is
+  an equal share of B*T over SMs x blocks an SM, against its rows."""
+  def schedule(batch, t, last=False):
+    return {"sms": 132, "blocks_per_sm": 1, "blocks": 128,
+            "rows_per_block": 208, "tiles_per_block": 5, "waves": 128 / 132}
+  monkeypatch.setattr(smoke.kl, "f32_schedule", schedule)
+  info = smoke.f32_grid(attributes(0))
+  assert info["kernel"]["registers"] == 167
+  assert sorted(info) == sorted(["kernel", "B=1,T=26432", "B=8,T=26432",
+                                 "B=12,T=2000"])
+  assert info["B=1,T=26432"]["share_of_busiest"] == pytest.approx(
+      26_432 / 132 / 208)

@@ -72,7 +72,12 @@ def test_kernel_matches_plain(cuda, dilation, last, bf16):
   assert (xk[1, t - 77:] == 0).all()
 
 
-ROW_TILE = 64  # time rows per block of the bf16 tensor-core kernel
+# Time rows per tile of each forward kernel: the bf16 tensor-core kernel's
+# block, and the f32 kernel's tile (its blocks take whole shares of the B*T
+# rows in such tiles, the last one short). The bf16 backward's rows kernel
+# also works in 64-row tiles.
+ROW_TILE = {"bf16": 64, "f32": kl.F32_TILE_ROWS}
+BWD_ROW_TILE = 64
 
 
 def check_against_plain(device, batch, t, dilation, last, bf16, valid,
@@ -102,17 +107,29 @@ def check_against_plain(device, batch, t, dilation, last, bf16, valid,
     assert (xk[row, v:] == 0).all()
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("t", [17, ROW_TILE + 1])
+@pytest.mark.parametrize("t,bf16", [
+    (17, False), (17, True), (ROW_TILE["bf16"] + 1, False),
+    (ROW_TILE["bf16"] + 1, True), (ROW_TILE["f32"] - 1, False),
+    (ROW_TILE["f32"], False), (ROW_TILE["f32"] + 1, False), (5000, False)])
 def test_kernel_short_and_ragged_tiles(cuda, t, bf16):
-  """T shorter than one row tile, and one tile plus one row."""
+  """T shorter than one row tile, one tile less one row, one tile, one tile
+  plus one row; and f32 at T=5,000, where each block of the f32 kernel takes
+  a full tile and a short one, and a tile holds the end of one sequence and
+  the start of the next."""
   check_against_plain(cuda, 2, t, 2, False, bf16, [t, t - 5], seed=5)
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_widest_halo(cuda, bf16):
-  """d=128 at T=300: the taps reach past both ends of the sequence."""
-  check_against_plain(cuda, 2, 300, 128, False, bf16, [300, 250], seed=6)
+@pytest.mark.parametrize("t,bf16", [
+    pytest.param(300, False, id="False"), pytest.param(300, True, id="True"),
+    pytest.param(ROW_TILE["f32"] * 2 + 1, False,
+                 id=f"f32-{ROW_TILE['f32'] * 2 + 1}"),
+    pytest.param(5000, False, id="f32-5000")])
+def test_kernel_widest_halo(cuda, t, bf16):
+  """d=128: at T=300 and at two f32 tiles plus one row the taps reach past
+  both ends of the sequence; the halo is wider than two f32 tiles, so a
+  tile's taps come from other blocks' rows and the other sequence's rows
+  read as zero; T=5,000 has blocks of two tiles."""
+  check_against_plain(cuda, 2, t, 128, False, bf16, [t, t - 50], seed=6)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -130,34 +147,47 @@ def test_kernel_last_layer(cuda, dilation, bf16):
                       seed=8)
 
 
-@pytest.mark.parametrize("last", [False, True])
-def test_bf16_kernel_is_deterministic(cuda, last):
-  """Two launches of the bf16 kernel on the same inputs give the same
-  bits (no atomics, no split K)."""
-  args = layer_inputs(cuda, 2, 1000, kl.CHANNELS, last, torch.bfloat16,
-                      seed=9)
+MODE_CASES = {"bf16": torch.bfloat16, "f32": None}
+
+
+@pytest.mark.parametrize("last,mode", [
+    pytest.param(False, "bf16", id="False"),
+    pytest.param(True, "bf16", id="True"),
+    pytest.param(False, "f32", id="f32-False"),
+    pytest.param(True, "f32", id="f32-True")])
+def test_bf16_kernel_is_deterministic(cuda, last, mode):
+  """Two launches of the kernel of each mode on the same inputs give the
+  same bits (no atomics, no split K)."""
+  cdt = MODE_CASES[mode]
+  args = layer_inputs(cuda, 2, 1000, kl.CHANNELS, last,
+                      cdt or torch.float32, seed=9)
   acc = torch.randn(2, 1000, kl.CHANNELS,
                     generator=torch.Generator().manual_seed(9)).to(cuda)
   runs = [kl.wn_layer_fused(*args, 16, skip_acc=acc.clone(),
-                            compute_dtype=torch.bfloat16) for _ in range(2)]
+                            compute_dtype=cdt) for _ in range(2)]
   assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("dilation", [1, 128])
-def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation):
-  """Many launches at B=1, T=26,432 (826 frames, 413 row tiles) give the
-  bits of the first: a rarely corrupted tile (shared memory reused before
-  the tensor cores are done with it) would show as a differing launch."""
+@pytest.mark.parametrize("dilation,mode", [
+    pytest.param(1, "bf16", id="1"), pytest.param(128, "bf16", id="128"),
+    pytest.param(1, "f32", id="f32-1"), pytest.param(128, "f32", id="f32-128")])
+def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation, mode):
+  """Many launches at B=1, T=26,432 (826 frames: 413 bf16 row tiles; f32
+  blocks of four full tiles and a short one) give the bits of the first: a
+  rarely corrupted tile (a ring slot or shared memory reused before every
+  thread, or the tensor cores, are done with it) would show as a differing
+  launch."""
   t = 26_432
-  args = layer_inputs(cuda, 1, t, kl.CHANNELS, False, torch.bfloat16,
+  cdt = MODE_CASES[mode]
+  args = layer_inputs(cuda, 1, t, kl.CHANNELS, False, cdt or torch.float32,
                       seed=10)
   acc = torch.randn(1, t, kl.CHANNELS,
                     generator=torch.Generator().manual_seed(10)).to(cuda)
   first = kl.wn_layer_fused(*args, dilation, skip_acc=acc.clone(),
-                            compute_dtype=torch.bfloat16)
+                            compute_dtype=cdt)
   for _ in range(64):
     again = kl.wn_layer_fused(*args, dilation, skip_acc=acc.clone(),
-                              compute_dtype=torch.bfloat16)
+                              compute_dtype=cdt)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -192,6 +222,15 @@ def test_kernel_info_reads_the_loaded_build(cuda, bf16, last):
   assert 0 < info["registers"] <= 255
   assert info["dynamic_smem_bytes"] > 48 * 1024  # needs the opt-in
   assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
+  if not bf16:
+    # one wave of blocks, each a whole number of 16-row quanta, covering
+    # B*T rows at the kernel phase's shapes
+    for batch, t in ((1, 26_432), (8, 26_432), (12, 2_000), (2, 17)):
+      grid = kl.f32_schedule(batch, t, last)
+      assert grid["blocks_per_sm"] >= 1 and grid["waves"] <= 1
+      assert grid["rows_per_block"] % 16 == 0
+      assert ((grid["blocks"] - 1) * grid["rows_per_block"] < batch * t
+              <= grid["blocks"] * grid["rows_per_block"])
 
 
 @pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
@@ -339,7 +378,7 @@ def test_bwd_kernel_matches_plain(cuda, dilation, last):
   check_bwd_against_plain(cuda, 2, 300, dilation, last, [300, 223], seed=11)
 
 
-@pytest.mark.parametrize("t", [17, ROW_TILE + 1])
+@pytest.mark.parametrize("t", [17, BWD_ROW_TILE + 1])
 def test_bwd_kernel_short_and_ragged_tiles(cuda, t):
   """T shorter than one row tile, and one tile plus one row."""
   check_bwd_against_plain(cuda, 2, t, 2, False, [t, t - 5], seed=12)

@@ -32,13 +32,28 @@
 //
 // Two kernels, one per mode.
 //
-// wn_layer_kernel_f32 (parity mode): true f32, no TF32, so no tensor cores.
-// One block of 256 threads per (batch row, tile of 32 time rows). Each warp
-// owns 4 rows; lane l owns the 8 channels {4l..4l+3} and {128+4l..128+4l+3}
-// of BOTH gate halves, so the gate is computed in registers. The 3C-deep
-// conv product streams K in chunks of 16 through shared memory (tap rows
-// outside [0, T) read as zero); acts are staged in shared memory and feed
-// the res/skip product; f32 FMAs on the CUDA cores.
+// wn_layer_kernel_f32 (parity mode): true f32 FMAs on the CUDA cores, no
+// TF32, so no tensor cores. One wave of blocks of 384 threads (12 warps),
+// one block an SM: the B*T rows, taken as one flat [B*T, C] sequence, are
+// cut into an equal share a block (a multiple of 16 rows), which the block
+// walks in tiles of 48 rows, the last one short. There is no wave tail, and
+// a short tile runs only the warps that have rows: one warp on each
+// scheduler for each 16 rows, a third of a full tile's time.
+//   * Register tile: a thread holds 8 rows x 4 channels of the tanh half and
+//     the same 4 channels of the sigmoid half, 64 f32 accumulators, so the
+//     gate runs on them. A weight value read from shared memory feeds 8 rows
+//     of FMAs; the 16 lanes of a half warp read one 256-byte piece of a
+//     weight row, which the other half warp shares, and one tap row.
+//   * Ring: the 3C-deep first product and the C-deep second one stream as one
+//     sequence of 16-row K chunks (48 of w_in, each with the tile's 48 tap
+//     rows of those 16 channels, then 16 of w_rs) through a 4-stage ring
+//     filled by cp.async, three chunks ahead of the FMAs, one barrier a
+//     chunk. Tap rows outside [0, T) of their own sequence are zero-filled.
+//     The ring runs on across tiles, so the next tile's first chunks load
+//     during this tile's second product and epilogue.
+//   * The acts are staged once a tile in shared memory for the second
+//     product; cond's rows, then the residual's x rows and the skip sum, are
+//     prefetched into L2 before the gate and the epilogue read them.
 //
 // wn_layer_kernel_mma (fast mode): both products on the tensor cores, as
 // wgmma (m64n128k16, bf16 operands from shared memory, f32 accumulators in
@@ -75,10 +90,12 @@
 // give the same bits.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, at the
-// shape above (d=1): the f32 kernel 1.00 ms against the 0.41 ms bound (41%),
-// the bf16 kernel 0.17 ms against the 0.041 ms bound (24%). PERF.md keeps
-// the times; wn_layer_kernel_info reports the registers, spills and shared
-// memory of the loaded build.
+// shape above (d=1): the f32 kernel 0.75 ms against the 0.41 ms bound (55%;
+// 1.01 ms for the 32-row design it replaced, in the same run), with 167
+// registers, 193,280 bytes of shared memory and no spills; the bf16 kernel
+// 0.17 ms against the 0.041 ms bound (24%). PERF.md keeps the times;
+// wn_layer_kernel_info reports the registers, spills and shared memory of
+// the loaded build.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,18 +107,65 @@ namespace {
 
 constexpr int kC = 256;                                      // channels
 
+// ---- cp.async, shared by both kernels ------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 // ---- the f32 kernel ------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
-constexpr int kTileRows = (kThreads / 32) * kRowsPerThread;  // 32
-constexpr int kChunk = 16;                                   // K per stage
-constexpr int kPerLane = 8;      // channels per gate half a lane owns
-constexpr int kHalf = kC / 2;    // offset of a lane's second block of 4
-// taps chunk [kTileRows][kChunk], weight chunk [kChunk][2C], acts
-// [kTileRows][C], all f32
+constexpr int kThreads = 384;                  // 12 warps
+constexpr int kColWarps = 4;                   // warps across the C channels
+constexpr int kRowPairs = 3;                   // warps down the tile's rows
+constexpr int kTileRows = 16 * kRowPairs;      // 48 time rows per tile
+constexpr int kRowsPerThread = 8;              // rows 2i + lane / 16 of a 16
+constexpr int kPerLane = 4;                    // channels of each gate half
+constexpr int kChunk = 16;                     // K rows per ring stage
+constexpr int kF32Stages = 4;                  // ring depth
+constexpr int kF32Ahead = kF32Stages - 1;      // chunks in flight under the FMAs
+constexpr int kF32InChunks = 3 * kC / kChunk;  // 48: w_in and the taps
+constexpr int kF32Chunks = kF32InChunks + kC / kChunk;  // + 16 of w_rs: 64
+constexpr int kF32ChunksPerTap = kC / kChunk;  // 16
+// A block's rows are a multiple of this: a tile of 16 rows runs one warp on
+// each scheduler and costs a third of a full tile.
+constexpr int kRowQuantum = 16;
+constexpr int kActsStride = kC + 4;            // padded: rows 4 banks apart
+// Ring slot: the chunk's taps [kTileRows][kChunk], then its weight rows
+// [kChunk][2C] (w_rs: [kChunk][N_RS]); acts [kTileRows][kActsStride]; f32.
+constexpr int kTapFloats = kTileRows * kChunk;                // 768
+constexpr int kSlotFloats = kTapFloats + kChunk * 2 * kC;     // 8,960
 constexpr int kSmemBytes =
-    sizeof(float) * (kTileRows * kChunk + kChunk * 2 * kC + kTileRows * kC);
+    sizeof(float) * (kF32Stages * kSlotFloats + kTileRows * kActsStride);
+static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+static_assert(kTileRows * kChunk / 4 <= kThreads, "one tap piece a thread");
+static_assert(kThreads == 32 * kColWarps * kRowPairs, "warp grid");
+static_assert(kC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
 
 // 4 contiguous floats from a 16-byte-aligned address.
 __device__ __forceinline__ void load4(float* dst, const float* src) {
@@ -113,209 +177,291 @@ __device__ __forceinline__ void store4(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
 }
 
-// A lane's 8 channels {c, .., c+3} and {c+kHalf, .., c+kHalf+3} of a row.
-__device__ __forceinline__ void load8(float* dst, const float* row, int c) {
-  load4(dst, row + c);
-  load4(dst + 4, row + c + kHalf);
+// cp.async kChunk rows of a [K, kN] f32 weight from `src` (contiguous) to
+// `dst`, 16 bytes a copy.
+template <int kN>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src) {
+  constexpr int kPieces = kChunk * kN / 4;
+#pragma unroll
+  for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    if (kPieces % kThreads == 0 || p < kPieces)
+      cp_async16(dst + p * 16, src + p * 4);
+  }
 }
 
-__device__ __forceinline__ void store8(float* row, int c, const float* src) {
-  store4(row + c, src);
-  store4(row + c + kHalf, src + 4);
-}
-
-// Copy rows [k0, k0 + kChunk) of a [K, N] f32 weight into shared memory.
-__device__ __forceinline__ void stage_weights(float* dst, const float* w,
-                                              int k0, int n) {
-  const float4* s4 = reinterpret_cast<const float4*>(
-      w + static_cast<int64_t>(k0) * n);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < kChunk * n / 4; i += kThreads) d4[i] = s4[i];
-}
-
-// kLast selects the [C, C] res/skip of the last layer.
+// Start the cp.async copies of chunk `chunk` of the block's sequence into its
+// ring slot. Each tile of the block's rows takes kF32Chunks chunks: 48 of
+// w_in (16 K rows each) with the matching taps, then 16 of w_rs. Taps are
+// rows of the flat [B*T, C] x: tile row r is flat row R = b*T + t, and its
+// tap reads row t + (tap-1)*d of the same sequence, zero outside [0, T) and
+// past the block's last row.
 template <bool kLast>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void f32_load_chunk(
+    uint32_t ring, int chunk, int row_begin, int row_end, const float* x,
+    const float* w_in, const float* w_rs, int T, int dilation) {
+  constexpr int N_RS = kLast ? kC : 2 * kC;
+  const int tile = chunk / kF32Chunks;
+  const int local = chunk % kF32Chunks;
+  const uint32_t slot = ring + (chunk % kF32Stages) * kSlotFloats * 4;
+  const uint32_t wslot = slot + kTapFloats * 4;
+  if (local >= kF32InChunks) {
+    copy_rows<N_RS>(wslot, w_rs + static_cast<int64_t>(local - kF32InChunks) *
+                                      kChunk * N_RS);
+    return;
+  }
+  const int r = threadIdx.x / (kChunk / 4);  // tap row, 16-byte piece q
+  const int q = threadIdx.x % (kChunk / 4);
+  if (r < kTileRows) {
+    const int row = row_begin + tile * kTileRows + r;
+    const float* src = x;
+    bool valid = false;
+    if (row < row_end) {
+      const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
+      const int t = row - b * T + (local / kF32ChunksPerTap - 1) * dilation;
+      if (t >= 0 && t < T) {
+        valid = true;
+        src = x + (static_cast<int64_t>(b) * T + t) * kC +
+              (local % kF32ChunksPerTap) * kChunk + q * 4;
+      }
+    }
+    cp_async16_zfill(slot + (r * kChunk + q * 4) * 4, src, valid);
+  }
+  copy_rows<2 * kC>(wslot, w_in + static_cast<int64_t>(local) * kChunk * 2 * kC);
+}
+
+// One step of the ring, at chunk `chunk`: wait for this thread's copies of
+// it and make them block-wide. Past the barrier every thread is done with
+// chunk - 1, so its slot takes chunk + kF32Ahead. One commit group a step
+// (empty past the last chunk), so the wait count stays kF32Ahead - 1.
+template <bool kLast>
+__device__ __forceinline__ void f32_ring_step(
+    uint32_t ring, int chunk, int n_chunks, int row_begin, int row_end,
+    const float* x, const float* w_in, const float* w_rs, int T,
+    int dilation) {
+  cp_async_wait<kF32Ahead - 1>();
+  __syncthreads();
+  if (chunk + kF32Ahead < n_chunks)
+    f32_load_chunk<kLast>(ring, chunk + kF32Ahead, row_begin, row_end, x,
+                          w_in, w_rs, T, dilation);
+  cp_async_commit();
+}
+
+// One ring slot's kChunk k: acc_a[i][j] += a[row 2i][k] * w[k][j], and when
+// kPaired acc_b[i][j] += a[row 2i][k] * w[k][C + j]. `a` points at the
+// thread's first row (rows 2 * kStride floats apart), `w` at its first
+// column (rows kN floats apart). The row operand loads 4 k at a time.
+template <bool kPaired, int kStride, int kN>
+__device__ __forceinline__ void f32_chunk_fma(
+    float (&acc_a)[kRowsPerThread][kPerLane],
+    float (&acc_b)[kRowsPerThread][kPerLane], const float* a,
+    const float* w) {
+#pragma unroll
+  for (int kk = 0; kk < kChunk; kk += 4) {
+    float av[kRowsPerThread][4];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+      load4(av[i], a + 2 * i * kStride + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float wa[kPerLane], wb[kPerLane];
+      load4(wa, w + (kk + u) * kN);
+      if constexpr (kPaired) load4(wb, w + (kk + u) * kN + kC);
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) {
+          acc_a[i][j] = fmaf(av[i][u], wa[j], acc_a[i][j]);
+          if constexpr (kPaired)
+            acc_b[i][j] = fmaf(av[i][u], wb[j], acc_b[i][j]);
+        }
+    }
+  }
+}
+
+// kLast selects the [C, C] res/skip of the last layer. Block i takes flat
+// rows [i * rows_per_block, (i + 1) * rows_per_block) of the B*T rows, in
+// tiles of kTileRows (the last one short).
+template <bool kLast>
+__global__ void __launch_bounds__(kThreads, 1)
 wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
                     const float* __restrict__ w_in,
                     const float* __restrict__ b_in,
                     const float* __restrict__ w_rs,
                     const float* __restrict__ b_rs,
                     const int* __restrict__ valid_t, float* __restrict__ x_out,
-                    float* skip_out, int accumulate, int T, int dilation) {
+                    float* skip_out, int accumulate, int T, int dilation,
+                    int rows, int rows_per_block) {
   constexpr int C = kC;
   constexpr int N_IN = 2 * C;                 // gate pre-activations
   constexpr int N_RS = kLast ? C : 2 * C;     // res/skip outputs
 
+  const int row_begin = blockIdx.x * rows_per_block;
+  const int row_end = min(rows, row_begin + rows_per_block);
+  if (row_begin >= row_end) return;
+  const int n_chunks =
+      (row_end - row_begin + kTileRows - 1) / kTileRows * kF32Chunks;
+
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* a_tile = smem;                                  // [kTileRows][kChunk]
-  float* w_tile = a_tile + kTileRows * kChunk;           // [kChunk][2C]
-  float* acts = w_tile + kChunk * N_IN;                  // [kTileRows][C]
+  const uint32_t ring = smem_u32(smem);
+  float* acts = smem + kF32Stages * kSlotFloats;  // [kTileRows][kActsStride]
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTileRows;
+  // Warp w: rows [16 (w/4), +16) of the tile and channels [64 (w%4), +64)
+  // of each gate half; lane l: rows 16 (w/4) + 2i + l/16 and channels
+  // c0..c0+3, c0 = 64 (w%4) + 4 (l%16). The 16 lanes of a half warp read
+  // one 256-byte piece of a weight row (the other half reads the same
+  // bytes), and all of them the same tap row.
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * kRowsPerThread;                  // first local row
-  const int cl = lane * 4;                               // lane's channels
+  const int pair = warp / kColWarps;
+  const int r0 = 16 * pair + lane / 16;                  // first tile row
+  const int c0 = 64 * (warp % kColWarps) + 4 * (lane % 16);
 
-  const float* xb = x + static_cast<int64_t>(b) * T * C;
+  for (int c = 0; c < kF32Ahead; ++c) {
+    if (c < n_chunks)
+      f32_load_chunk<kLast>(ring, c, row_begin, row_end, x, w_in, w_rs, T,
+                            dilation);
+    cp_async_commit();
+  }
 
-  // ---- stage 1: pre[rows, 2C] = taps[rows, 3C] @ w_in[3C, 2C] ------------
-  float acc_t[kRowsPerThread][kPerLane];  // tanh half
-  float acc_s[kRowsPerThread][kPerLane];  // sigmoid half
+  float acc_a[kRowsPerThread][kPerLane];  // tanh, then residual (last: skip)
+  float acc_b[kRowsPerThread][kPerLane];  // sigmoid, then skip
+  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += kF32Chunks) {
+    const int t0 = row_begin + chunk0 / kF32Chunks * kTileRows;  // flat row
+    const int tile_rows = min(kTileRows, row_end - t0);
+    // the warps of a pair of 16 rows all past the block's end do no FMAs
+    const bool busy = 16 * pair < tile_rows;
+
+    // ---- first product: pre[rows, 2C] = taps[rows, 3C] @ w_in[3C, 2C] -----
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
+    for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) acc_t[i][j] = acc_s[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < 3 * C; k0 += kChunk) {
-    const int tap = k0 / C;
-    const int ci0 = k0 % C;
-    const int off = (tap - 1) * dilation;
-    // taps chunk: kTileRows x kChunk floats, one float4 per thread (128 used)
-    if (threadIdx.x < kTileRows * kChunk / 4) {
-      const int r = threadIdx.x / (kChunk / 4);
-      const int q = threadIdx.x % (kChunk / 4);
-      const int t = t0 + r + off;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t >= 0 && t < T) {
-        v = *reinterpret_cast<const float4*>(
-            xb + static_cast<int64_t>(t) * C + ci0 + q * 4);
+      for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+    for (int local = 0; local < kF32InChunks; ++local) {
+      f32_ring_step<kLast>(ring, chunk0 + local, n_chunks, row_begin, row_end,
+                           x, w_in, w_rs, T, dilation);
+      if (local == kF32InChunks - 16) {
+        // cond's rows of the tile into L2, for the gate
+        const float* src = cond + static_cast<int64_t>(t0) * N_IN;
+        for (int p = threadIdx.x; p < tile_rows * N_IN / 32; p += kThreads)
+          prefetch_l2(src + p * 32);
       }
-      *reinterpret_cast<float4*>(a_tile + r * kChunk + q * 4) = v;
+      if (busy) {
+        const float* slot = smem + ((chunk0 + local) % kF32Stages) * kSlotFloats;
+        f32_chunk_fma<true, kChunk, N_IN>(acc_a, acc_b, slot + r0 * kChunk,
+                                          slot + kTapFloats + c0);
+      }
     }
-    stage_weights(w_tile, w_in, k0, N_IN);
-    __syncthreads();
 
+    // ---- gate (f32) on the accumulators, acts to shared memory -----------
+    // the previous tile's acts were last read before this tile's barriers
+    if (busy) {
+      float bt[kPerLane], bs[kPerLane];
+      load4(bt, b_in + c0);
+      load4(bs, b_in + C + c0);
 #pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 4) {
-      float a[kRowsPerThread][4];
+      for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+        float ct[2][kPerLane], cs[2][kPerLane];  // 2 rows' loads in flight
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        load4(a[i], a_tile + (r0 + i) * kChunk + kk);
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 2 * (i0 + h);
+          if (r < tile_rows) {
+            const float* crow = cond + static_cast<int64_t>(t0 + r) * N_IN;
+            load4(ct[h], crow + c0);
+            load4(cs[h], crow + C + c0);
+          } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* wrow = w_tile + (kk + u) * N_IN;
-        float wt[kPerLane], ws[kPerLane];
-        load8(wt, wrow, cl);
-        load8(ws, wrow + C, cl);
+            for (int j = 0; j < kPerLane; ++j) ct[h][j] = cs[h][j] = 0.f;
+          }
+        }
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i)
+        for (int h = 0; h < 2; ++h) {
+          float out[kPerLane];
 #pragma unroll
           for (int j = 0; j < kPerLane; ++j) {
-            acc_t[i][j] = fmaf(a[i][u], wt[j], acc_t[i][j]);
-            acc_s[i][j] = fmaf(a[i][u], ws[j], acc_s[i][j]);
+            const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
+            const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
+            out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
           }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- gate (f32), acts staged in shared memory --------------------------
-  {
-    float bt[kPerLane], bs[kPerLane];
-    load8(bt, b_in, cl);
-    load8(bs, b_in + C, cl);
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int t = t0 + r0 + i;
-      float ct[kPerLane], cs[kPerLane];
-      if (t < T) {
-        const float* crow = cond + (static_cast<int64_t>(b) * T + t) * N_IN;
-        load8(ct, crow, cl);
-        load8(cs, crow + C, cl);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) ct[j] = cs[j] = 0.f;
-      }
-      float out[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const float gt = acc_t[i][j] + bt[j] + ct[j];
-        const float gs = acc_s[i][j] + bs[j] + cs[j];
-        out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
-      }
-      store8(acts + (r0 + i) * C, cl, out);
-    }
-  }
-
-  // ---- stage 2: rs[rows, N_RS] = acts[rows, C] @ w_rs[C, N_RS] -----------
-  // acc_t is reused for the residual half (or the last layer's skip), acc_s
-  // for the skip half.
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) acc_t[i][j] = acc_s[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += kChunk) {
-    stage_weights(w_tile, w_rs, k0, N_RS);
-    __syncthreads();  // also orders the acts writes before the first reads
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 4) {
-      float a[kRowsPerThread][4];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        load4(a[i], acts + (r0 + i) * C + k0 + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* wrow = w_tile + (kk + u) * N_RS;
-        float wr[kPerLane];
-        load8(wr, wrow, cl);
-        if constexpr (kLast) {
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j)
-              acc_t[i][j] = fmaf(a[i][u], wr[j], acc_t[i][j]);
-        } else {
-          float wk[kPerLane];
-          load8(wk, wrow + C, cl);
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j) {
-              acc_t[i][j] = fmaf(a[i][u], wr[j], acc_t[i][j]);
-              acc_s[i][j] = fmaf(a[i][u], wk[j], acc_s[i][j]);
-            }
+          store4(acts + (r0 + 2 * (i0 + h)) * kActsStride + c0, out);
         }
       }
     }
-    __syncthreads();
-  }
 
-  // ---- epilogue: residual, valid_t mask, skip accumulation ---------------
-  const int valid = valid_t != nullptr ? valid_t[b] : T;
-  float br[kPerLane], bk[kPerLane];
-  load8(br, b_rs, cl);
-  if constexpr (!kLast) load8(bk, b_rs + C, cl);
+    // ---- second product: rs[rows, N_RS] = acts[rows, C] @ w_rs[C, N_RS] --
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int t = t0 + r0 + i;
-    if (t >= T) continue;
-    const int64_t row = (static_cast<int64_t>(b) * T + t) * C;
-    float xv[kPerLane], skip[kPerLane];
-    load8(xv, x + row, cl);
+    for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      if constexpr (kLast) {
-        skip[j] = acc_t[i][j] + br[j];
-      } else {
-        xv[j] += acc_t[i][j] + br[j];
-        skip[j] = acc_s[i][j] + bk[j];
+      for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+    for (int local = kF32InChunks; local < kF32Chunks; ++local) {
+      // the first step's barrier also orders the acts writes before the reads
+      f32_ring_step<kLast>(ring, chunk0 + local, n_chunks, row_begin, row_end,
+                           x, w_in, w_rs, T, dilation);
+      if (local == kF32Chunks - 8) {
+        // the residual's x rows and the skip sum into L2, for the epilogue
+        const int64_t off = static_cast<int64_t>(t0) * C;
+        for (int p = threadIdx.x; p < tile_rows * C / 32; p += kThreads) {
+          prefetch_l2(x + off + p * 32);
+          if (accumulate) prefetch_l2(skip_out + off + p * 32);
+        }
       }
-      if (t >= valid) xv[j] = 0.f;
+      if (busy) {
+        const float* slot = smem + ((chunk0 + local) % kF32Stages) * kSlotFloats;
+        f32_chunk_fma<!kLast, kActsStride, N_RS>(
+            acc_a, acc_b,
+            acts + r0 * kActsStride + (local - kF32InChunks) * kChunk,
+            slot + kTapFloats + c0);
+      }
     }
-    store8(x_out + row, cl, xv);
-    if (accumulate) {
-      float prev[kPerLane];
-      load8(prev, skip_out + row, cl);
+
+    // ---- epilogue: residual, valid_t mask, skip accumulation -------------
+    if (busy) {
+      float br[kPerLane], bk[kPerLane];
+      load4(br, b_rs + c0);
+      if constexpr (!kLast) load4(bk, b_rs + C + c0);
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) skip[j] += prev[j];
+      for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+        float xv[2][kPerLane], prev[2][kPerLane];  // 2 rows' loads in flight
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 2 * (i0 + h);
+          if (r >= tile_rows) continue;
+          const int64_t off = static_cast<int64_t>(t0 + r) * C + c0;
+          load4(xv[h], x + off);
+          if (accumulate) load4(prev[h], skip_out + off);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + h;
+          const int r = r0 + 2 * i;
+          if (r >= tile_rows) continue;
+          const int row = t0 + r;
+          const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
+          const int valid = valid_t != nullptr ? valid_t[b] : T;
+          const bool keep = row - b * T < valid;
+          float skip[kPerLane];
+#pragma unroll
+          for (int j = 0; j < kPerLane; ++j) {
+            if constexpr (kLast) {
+              skip[j] = acc_a[i][j] + br[j];
+            } else {
+              xv[h][j] += acc_a[i][j] + br[j];
+              skip[j] = acc_b[i][j] + bk[j];
+            }
+            if (!keep) xv[h][j] = 0.f;
+            if (accumulate) skip[j] += prev[h][j];
+          }
+          const int64_t off = static_cast<int64_t>(row) * C + c0;
+          store4(x_out + off, xv[h]);
+          store4(skip_out + off, skip);
+        }
+      }
     }
-    store8(skip_out + row, cl, skip);
   }
+  cp_async_wait<0>();
 }
 
 // ---- the bf16 tensor-core kernel ------------------------------------------
@@ -361,24 +507,6 @@ __device__ __forceinline__ int tile_off(int row, int ch) {
 // 1 KB, 16-byte piece p of a row at p ^ (row % 8).
 __device__ __forceinline__ int skip_off(int row, int ch) {
   return row * kC * 4 + (((ch / 4) ^ (row % 8)) * 16) + (ch % 4) * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Makes this thread's generic-proxy writes to shared memory (stores,
@@ -781,14 +909,51 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
   return err;
 }
 
+// Blocks of the f32 kernel the device holds at once, as SMs and blocks an
+// SM (the occupancy API, after the shared-memory opt-in); read once per
+// variant and device.
+template <bool kLast>
+cudaError_t f32_slots(int* sms, int* per_sm) {
+  static std::atomic<int> cache[32];  // sms * 256 + per_sm; 0 until read
+  static std::atomic<uint32_t> opted_in{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int v = cache[device & 31].load(std::memory_order_acquire);
+  if (v == 0) {
+    err = opt_in_smem(wn_layer_kernel_f32<kLast>, kSmemBytes, &opted_in);
+    if (err != cudaSuccess) return err;
+    int n = 0, k = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &k, wn_layer_kernel_f32<kLast>, kThreads, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (n < 1 || k < 1 || k > 255) return cudaErrorInvalidConfiguration;
+    v = n * 256 + k;
+    cache[device & 31].store(v, std::memory_order_release);
+  }
+  *sms = v / 256;
+  *per_sm = v % 256;
+  return cudaSuccess;
+}
+
+// Rows each block of the f32 kernel takes: an equal share of the B*T rows
+// over the blocks the device holds at once, rounded up to kRowQuantum, so
+// the grid is one wave and no SM runs more than one short tile.
+int f32_rows_per_block(int rows, int slots) {
+  const int share = (rows + slots - 1) / slots;
+  return (share + kRowQuantum - 1) / kRowQuantum * kRowQuantum;
+}
+
 template <bool kBf16, bool kLast>
 cudaError_t launch(const float* x, const void* cond, const void* w_in,
                    const float* b_in, const void* w_rs, const float* b_rs,
                    const int* valid_t, float* x_out, float* skip_out,
                    int accumulate, int batch, int T, int dilation,
                    cudaStream_t stream) {
-  static std::atomic<uint32_t> opted_in{0};
   if constexpr (kBf16) {
+    static std::atomic<uint32_t> opted_in{0};
     auto kernel = wn_layer_kernel_mma<kLast>;
     cudaError_t err = opt_in_smem(kernel, kMmaSmemBytes, &opted_in);
     if (err != cudaSuccess) return err;
@@ -798,14 +963,16 @@ cudaError_t launch(const float* x, const void* cond, const void* w_in,
         static_cast<const bf16*>(w_rs), b_rs, valid_t, x_out, skip_out,
         accumulate, T, dilation);
   } else {
-    auto kernel = wn_layer_kernel_f32<kLast>;
-    cudaError_t err = opt_in_smem(kernel, kSmemBytes, &opted_in);
+    int sms = 0, per_sm = 0;
+    cudaError_t err = f32_slots<kLast>(&sms, &per_sm);  // also opts in
     if (err != cudaSuccess) return err;
-    dim3 grid((T + kTileRows - 1) / kTileRows, batch);
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+    const int rows = batch * T;
+    const int per_block = f32_rows_per_block(rows, sms * per_sm);
+    wn_layer_kernel_f32<kLast><<<(rows + per_block - 1) / per_block, kThreads,
+                                 kSmemBytes, stream>>>(
         x, static_cast<const float*>(cond), static_cast<const float*>(w_in),
         b_in, static_cast<const float*>(w_rs), b_rs, valid_t, x_out, skip_out,
-        accumulate, T, dilation);
+        accumulate, T, dilation, rows, per_block);
   }
   return cudaGetLastError();
 }
@@ -839,7 +1006,8 @@ cudaError_t wn_layer_forward(const float* x, const void* cond,
                              float* skip_out, int accumulate, int batch,
                              int T, int C, int dilation, int bf16, int last,
                              cudaStream_t stream) {
-  if (C != kC || T <= 0 || batch <= 0 || batch > 65535)
+  if (C != kC || T <= 0 || batch <= 0 || batch > 65535 ||
+      static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
 #define WN_LAUNCH(BF, LAST)                                                 \
   return launch<BF, LAST>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, \
@@ -866,6 +1034,22 @@ cudaError_t wn_layer_kernel_info(int bf16, int last, int* registers,
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
+// The f32 kernel's grid for `batch` x T rows, as its launcher picks it:
+// SMs, blocks an SM (occupancy API), blocks launched, rows a block takes.
+cudaError_t wn_layer_f32_schedule(int batch, int T, int last, int* sms,
+                                  int* blocks_per_sm, int* blocks,
+                                  int* rows_per_block) {
+  if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t err = last ? f32_slots<true>(sms, blocks_per_sm)
+                         : f32_slots<false>(sms, blocks_per_sm);
+  if (err != cudaSuccess) return err;
+  const int rows = batch * T;
+  *rows_per_block = f32_rows_per_block(rows, *sms * *blocks_per_sm);
+  *blocks = (rows + *rows_per_block - 1) / *rows_per_block;
   return cudaSuccess;
 }
 

@@ -179,6 +179,9 @@ def _library():
     for info in (lib.wn_layer_kernel_info, lib.wn_layer_bwd_kernel_info):
       info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
       info.restype = ctypes.c_int
+    sched = lib.wn_layer_f32_schedule
+    sched.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    sched.restype = ctypes.c_int
     _LIB = lib
   return _LIB
 
@@ -199,6 +202,27 @@ def kernel_info(bf16: bool, last: bool) -> dict:
   per thread, static shared bytes, and the dynamic shared bytes its
   launcher passes."""
   return _info(_library().wn_layer_kernel_info, int(bf16), int(last))
+
+
+# Time rows of one tile of the f32 kernel (kTileRows in csrc/wn_layer.cu).
+F32_TILE_ROWS = 48
+
+
+def f32_schedule(batch: int, t: int, last: bool = False) -> dict:
+  """The f32 kernel's grid for ``batch`` x ``t`` rows, as its launcher picks
+  it: one wave of blocks (SMs x blocks an SM, from the occupancy API), each
+  taking ``rows_per_block`` of the B*T rows in tiles of ``F32_TILE_ROWS``,
+  the last of them short."""
+  vals = [ctypes.c_int() for _ in range(4)]
+  err = _library().wn_layer_f32_schedule(batch, t, int(last),
+                                         *[ctypes.byref(v) for v in vals])
+  if err != 0:
+    raise RuntimeError(f"wn_layer_f32_schedule failed: cudaError {err}")
+  sms, per_sm, blocks, rows_per_block = (v.value for v in vals)
+  return {"sms": sms, "blocks_per_sm": per_sm, "blocks": blocks,
+          "rows_per_block": rows_per_block,
+          "tiles_per_block": -(-rows_per_block // F32_TILE_ROWS),
+          "waves": blocks / (sms * per_sm)}
 
 
 # The bf16 backward's kernels, in launch order (``last`` only for "rows").
