@@ -2,13 +2,16 @@
 
 ``layer_cost`` sets the bound every kernel time in PERF.md is read against;
 ``parse_ptxas``, ``count_mma`` and ``check_tensor_cores`` read the build's
-ptxas log and SASS and must know each kernel variant's mangled name.
+ptxas log and SASS and must know each kernel variant's mangled name;
+``leaf_norm_rel_errors`` is the train-step check's gradient metric.
 """
 
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -276,3 +279,27 @@ def test_f32_grid_reads_each_shape(smoke, monkeypatch):
                                  "B=12,T=2000"])
   assert info["B=1,T=26432"]["share_of_busiest"] == pytest.approx(
       26_432 / 132 / 208)
+
+
+def test_step_grad_metric_flags_a_perturbed_leaf(smoke):
+  """Phase 6's train-step check compares each leaf's gradient norm-wise.
+  A shift of 0.2 in every row of a leaf whose max |value| is 100 is 2e-3
+  of that max, inside the bf16 bound by the max-elementwise metric the
+  check used before; norm-wise it is about 0.14 of the leaf, flagged. The
+  other leaves stay at zero error, and a zero reference gives the absolute
+  norm."""
+  rng = np.random.default_rng(0)
+  refs = [torch.from_numpy(rng.standard_normal((100, 100)).astype(np.float32))
+          for _ in range(3)] + [torch.zeros(4)]
+  refs[1][0, 0] = 100.0
+  grads = [r.clone() for r in refs]
+  grads[1] += 0.2
+  grads[3][0] = 2.0
+  old = (grads[1] - refs[1]).abs().max() / refs[1].abs().max()
+  assert old <= smoke.STEP_GRAD_TOL_REL["bf16"]
+  rel = smoke.leaf_norm_rel_errors(grads, refs)
+  assert rel[0] == rel[2] == 0.0 and rel[3] == 2.0
+  assert rel[1] == pytest.approx(20.0 / np.linalg.norm(refs[1].numpy()),
+                                 rel=1e-6)
+  assert rel[1] > 0.1 > smoke.STEP_GRAD_TOL_REL["bf16"]
+  assert max(smoke.STEP_GRAD_TOL_REL.values()) < 2e-2  # tighter than before

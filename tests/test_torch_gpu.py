@@ -446,3 +446,48 @@ def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
     before = kl.BWD_LAUNCHES
     torch.autograd.grad(out, args, [torch.ones_like(o) for o in out])
     assert kl.BWD_LAUNCHES == before + calls
+
+
+# Streamed synthesis against one-call synthesis on the card at the kernel's
+# width (2 flows x 4 layers x 256 channels, a 5-frame halo), relative to
+# max |wav|.
+STREAM_TOL_REL = {None: 1e-6, torch.bfloat16: 1e-6}
+
+
+@pytest.fixture(scope="module")
+def stream_model():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from waveglow_tpu_torch.checkpointing.from_jax import params_from_numpy
+  from waveglow_tpu_torch.models import waveglow as wg
+  cfg = wg.WaveGlowConfig(n_flows=2, n_layers=4, n_channels=kl.CHANNELS)
+  params = wg.init_params(cfg, seed=0)
+  rng = np.random.default_rng(1)
+  for flow in params["flows"]:
+    end = flow["wn"]["end"]
+    end["w"] = (rng.standard_normal(end["w"].shape) * 0.05).astype(np.float32)
+    end["b"] = (rng.standard_normal(end["b"].shape) * 0.05).astype(np.float32)
+  fused = params_from_numpy(params, "cuda")
+  return cfg, {None: fused,
+               torch.bfloat16: wg.params_for_compute(fused, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("frames,windows", [(70, 5), (12, 1)],
+                         ids=["5-windows", "padded-window"])
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_stream_matches_one_call_on_the_card(cuda, stream_model, frames,
+                                             windows, cdt):
+  from waveglow_tpu_torch.inference import streaming
+  from waveglow_tpu_torch.models.waveglow import infer
+  cfg, params = stream_model
+  mel = np.random.default_rng(frames).uniform(
+      -11.0, 1.0, (1, 80, frames)).astype(np.float32)
+  ref = infer(params[cdt], cfg, mel, seed=3, compute_dtype=cdt).cpu().numpy()
+  before = kl.LAUNCHES
+  pieces = list(streaming.stream_chunks(params[cdt], cfg, mel, seed=3,
+                                        chunk_frames=16, compute_dtype=cdt))
+  assert kl.LAUNCHES - before == windows * cfg.n_flows * cfg.n_layers
+  out = torch.cat([p for _, p in pieces], dim=1).cpu().numpy()
+  assert out.shape == ref.shape == (1, frames * 256)
+  assert np.isfinite(out).all()
+  assert np.abs(out - ref).max() <= STREAM_TOL_REL[cdt] * np.abs(ref).max()

@@ -127,3 +127,50 @@ def test_window_sumsquare_matches():
   np.testing.assert_array_equal(
       port_stft.window_sumsquare_np("hann", 9, 256, 1024, 1024),
       jax_stft.window_sumsquare_np("hann", 9, 256, 1024, 1024))
+
+
+def test_inverse_envelope_cache_is_bounded():
+  """Forty distinct frame counts keep at most ``ENV_CACHE_SIZE`` envelopes
+  on the device, and a reused STFT inverts as a fresh one does."""
+  op = port_stft.STFT(1024, 256, 1024, "hann", device="cpu")
+  for n_frames in range(3, 43):
+    spec = t(np.abs(rand(1, 513, n_frames)))
+    phase = t(rand(1, 513, n_frames))
+    out = op.inverse(spec, phase)
+    assert len(op._inv_env) <= port_stft.ENV_CACHE_SIZE
+    fresh = port_stft.STFT(1024, 256, 1024, "hann", device="cpu")
+    assert torch.equal(out, fresh.inverse(spec, phase))
+  assert len(op._inv_env) == port_stft.ENV_CACHE_SIZE
+  assert list(op._inv_env) == list(range(43 - port_stft.ENV_CACHE_SIZE, 43))
+
+
+def test_overlap_add_matches_jax():
+  frames = rand(2, 7, 1024)
+  np.testing.assert_array_equal(
+      port_stft.overlap_add(t(frames), 256).numpy(),
+      np.asarray(jax_stft.overlap_add(jnp.asarray(frames), 256)))
+  with pytest.raises(ValueError, match="multiple of the hop"):
+    port_stft.overlap_add(t(rand(1, 3, 1000)), 256)
+
+
+@pytest.mark.parametrize("n", [1, 2, 256, 512, 513, 3000])
+def test_reflect_pad_matches_numpy(n):
+  audio = rand(2, n)
+  np.testing.assert_array_equal(
+      port_stft.reflect_pad(t(audio), 512).numpy(),
+      np.pad(audio, ((0, 0), (512, 512)), mode="reflect"))
+
+
+def test_stft_of_audio_shorter_than_half_a_window():
+  """256 samples (one mel frame): the reflect pad repeats, as the JAX
+  package's ``jnp.pad`` does."""
+  audio = rand(1, 256) * 0.3
+  ref_op = jax_stft.STFT(1024, 256, 1024, "hann")
+  op = port_stft.STFT(1024, 256, 1024, "hann", device="cpu")
+  mag_r, ph_r = ref_op.transform(jnp.asarray(audio))
+  mag, ph = op.transform(t(audio))
+  np.testing.assert_allclose(mag.numpy(), np.asarray(mag_r), atol=2e-4)
+  inv = op.inverse(mag, ph)
+  assert inv.shape == (1, 256)
+  np.testing.assert_allclose(inv.numpy(), np.asarray(
+      ref_op.inverse(mag_r, ph_r)), atol=1e-4)

@@ -18,7 +18,7 @@ from waveglow_tpu.models.waveglow import infer_noise_shapes
 from waveglow_tpu.models.waveglow import init_params as jax_init
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
 from waveglow_tpu_torch.checkpointing.store import flatten_tree
-from waveglow_tpu_torch.inference.synthesizer import Synthesizer
+from waveglow_tpu_torch.inference.synthesizer import Synthesizer, row_seeds
 from waveglow_tpu_torch.models.waveglow import infer as port_infer
 
 TINY = {"n_flows": "5", "n_layers": "3", "n_channels": "32"}
@@ -155,6 +155,36 @@ def test_serving_many_rows_match_solo_calls(synth):
     np.testing.assert_allclose(res.samples, solo.samples, atol=1e-5)
   with pytest.raises(ValueError, match="seeds"):
     synth.infer_serving_many(mels, seeds=[1])
+
+
+def test_infer_synthesizes_every_row_of_a_batch(synth):
+  """[B, n_mels, F] gives [B, T]: rows of one mel draw distinct noise, and
+  row b equals the solo call with ``row_seeds(seed, B)[b]``."""
+  mel = rand_mel(5, seed=7)
+  batch = np.stack([mel, mel, rand_mel(5, seed=8)])
+  out = synth.infer(batch, seed=3, denoiser_strength=0.01)
+  assert out.wav.shape == out.wav_denoised.shape == (3, 5 * 256)
+  assert np.abs(out.wav[0] - out.wav[1]).max() > 1e-3
+  assert row_seeds(3, 3) == [3, 3 + 2 ** 32, 3 + 2 ** 33]
+  for b, seed in enumerate(row_seeds(3, 3)):
+    solo = synth.infer(batch[b], seed=seed, denoiser_strength=0.01)
+    assert solo.wav.shape == (5 * 256,)
+    np.testing.assert_allclose(out.wav[b], solo.wav, atol=1e-5)
+    np.testing.assert_allclose(out.wav_denoised[b], solo.wav_denoised,
+                               atol=1e-5)
+  np.testing.assert_array_equal(
+      synth.infer(batch[:1], seed=3, denoiser_strength=0.01).wav,
+      synth.infer(mel, seed=3, denoiser_strength=0.01).wav)
+
+
+def test_serving_rejects_a_batch(synth):
+  batch = np.stack([rand_mel(5), rand_mel(5, seed=1)])
+  with pytest.raises(ValueError, match="infer_serving_many"):
+    synth.infer_serving(batch)
+  with pytest.raises(ValueError, match="infer_serving_many"):
+    synth.serving_dispatch(batch)
+  with pytest.raises(ValueError, match="infer_serving_many"):
+    synth.infer_serving_many([rand_mel(5), batch])
 
 
 def test_update_params(ckpt_path, synth, tmp_path):

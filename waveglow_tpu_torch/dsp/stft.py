@@ -10,7 +10,8 @@ overlap-adds them, divides out the squared-window envelope, rescales by
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple, Union
+from collections import OrderedDict
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,6 +19,10 @@ import torch.nn.functional as F
 from scipy.signal import get_window
 
 from waveglow_tpu_torch.device import resolve_device
+
+# Envelopes an STFT keeps on its device, one a frame count, least recently
+# used dropped first: a folder of distinct lengths keeps at most this many.
+ENV_CACHE_SIZE = 4
 
 
 def window_sumsquare_np(window: str, n_frames: int, hop_length: int,
@@ -33,6 +38,15 @@ def window_sumsquare_np(window: str, n_frames: int, hop_length: int,
     sample = i * hop_length
     x[sample:min(n, sample + n_fft)] += win_sq[:max(0, min(n_fft, n - sample))]
   return x
+
+
+def inverse_envelope(wss: np.ndarray, scale: float) -> np.ndarray:
+  """float32 ``scale / wss`` where the window-sum-square exceeds float32
+  tiny, else ``scale``: the iSTFT's normalisation and hop-ratio rescale as
+  one factor a position."""
+  tiny = np.finfo(np.float32).tiny
+  inv = np.where(wss > tiny, 1.0 / np.maximum(wss, tiny), 1.0)
+  return inv.astype(np.float32) * np.float32(scale)
 
 
 @functools.lru_cache(maxsize=8)
@@ -57,11 +71,45 @@ def _bases(filter_length: int, hop_length: int, win_length: int,
   return forward.T.astype(np.float32), inverse.astype(np.float32)
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+  """[B, T] -> [B, T + 2 * pad], reflected at both ends without repeating
+  the edge sample, as ``np.pad(mode="reflect")``: where ``pad`` is not
+  shorter than T, the reflection repeats (period ``2 * (T - 1)``)."""
+  t = x.shape[-1]
+  if pad < t:
+    return F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
+  pos = torch.arange(-pad, t + pad, device=x.device)
+  if t == 1:
+    return x[:, torch.zeros_like(pos)]
+  period = 2 * (t - 1)
+  pos = torch.remainder(pos, period)
+  return x[:, torch.where(pos < t, pos, period - pos)]
+
+
 def frame_signal(x: torch.Tensor, frame_length: int,
                  hop_length: int) -> torch.Tensor:
   """Frame [B, T] into [B, n_frames, frame_length] at stride ``hop_length``
   (a view; ``n_frames = (T - frame_length) // hop_length + 1``)."""
   return x.unfold(-1, frame_length, hop_length)
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+  """Overlap-add [B, n_frames, L] at stride ``hop_length`` ->
+  [B, (n_frames - 1) * hop_length + L]; ``L`` must be a multiple of the
+  hop. Positions sum their frames in increasing frame order."""
+  batch, n_frames, length = frames.shape
+  if length % hop_length:
+    raise ValueError(f"frame length {length} is not a multiple of the hop "
+                     f"{hop_length}")
+  ratio = length // hop_length
+  chunks = frames.reshape(batch, n_frames, ratio, hop_length)
+  signal = torch.zeros((batch, (n_frames + ratio - 1) * hop_length),
+                       dtype=frames.dtype, device=frames.device)
+  body = n_frames * hop_length
+  for j in range(ratio):
+    signal[:, j * hop_length:j * hop_length + body] += chunks[
+        :, :, j, :].reshape(batch, body)
+  return signal
 
 
 class STFT:
@@ -82,68 +130,70 @@ class STFT:
     self.forward_basis = torch.from_numpy(fwd).to(self.device)
     self.inverse_basis = torch.from_numpy(inv).to(self.device)
     self.cutoff = filter_length // 2 + 1
-    self._inv_env: Dict[int, torch.Tensor] = {}
+    self._inv_env: "OrderedDict[int, torch.Tensor]" = OrderedDict()
 
-  def _spectrum(self, audio: torch.Tensor) -> torch.Tensor:
-    """[B, T] -> [B, n_frames, 2*cutoff] (Re, then Im): reflect pad, then
-    one DFT matmul over the frames."""
-    half = self.filter_length // 2
-    padded = F.pad(audio.float()[:, None, :], (half, half),
-                   mode="reflect")[:, 0]
+  def _spectrum(self, padded: torch.Tensor) -> torch.Tensor:
+    """Padded [B, W] -> [B, n_frames, 2*cutoff] (Re, then Im): one DFT
+    matmul over the frames at stride ``hop``."""
     frames = frame_signal(padded, self.filter_length, self.hop_length)
     return torch.matmul(frames, self.forward_basis)
+
+  def polar(self, padded: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Padded [B, W] -> (magnitude, phase), each [B, n_frames, cutoff]
+    (channels-last, no reflect pad)."""
+    spec = self._spectrum(padded)
+    real = spec[..., :self.cutoff]
+    imag = spec[..., self.cutoff:]
+    return torch.sqrt(real * real + imag * imag), torch.atan2(imag, real)
 
   def transform(self, audio: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, T] -> (magnitude, phase), each [B, cutoff, n_frames]."""
-    spec = self._spectrum(audio)
-    real = spec[..., :self.cutoff]
-    imag = spec[..., self.cutoff:]
-    magnitude = torch.sqrt(real * real + imag * imag)
-    phase = torch.atan2(imag, real)
+    magnitude, phase = self.polar(
+        reflect_pad(audio.float(), self.filter_length // 2))
     return magnitude.transpose(1, 2), phase.transpose(1, 2)
 
   def transform_mag2(self, audio: torch.Tensor) -> torch.Tensor:
     """[B, T] -> squared magnitude [B, n_frames, cutoff] (channels-last),
     the mel front end's input."""
-    spec = self._spectrum(audio)
+    spec = self._spectrum(reflect_pad(audio.float(), self.filter_length // 2))
     real = spec[..., :self.cutoff]
     imag = spec[..., self.cutoff:]
     return real * real + imag * imag
 
-  def _envelope(self, n_frames: int) -> torch.Tensor:
-    """1 / window-sum-square where it exceeds float32 tiny, else 1, times
-    the hop-ratio rescale (cached per frame count)."""
+  def overlap_frames(self, magnitude: torch.Tensor,
+                     phase: torch.Tensor) -> torch.Tensor:
+    """(magnitude, phase) [B, n_frames, cutoff] -> the overlap-added
+    [B, (n_frames - 1) * hop + filter_length] before the envelope and the
+    trim: the inverse basis applied to each frame."""
+    recombined = torch.cat([magnitude * torch.cos(phase),
+                            magnitude * torch.sin(phase)], dim=-1)
+    return overlap_add(torch.matmul(recombined, self.inverse_basis),
+                       self.hop_length)
+
+  def envelope(self, n_frames: int) -> torch.Tensor:
+    """:func:`inverse_envelope` of ``n_frames`` frames on the device; the
+    last ``ENV_CACHE_SIZE`` frame counts used are kept."""
     env = self._inv_env.get(n_frames)
     if env is None:
       wss = window_sumsquare_np(self.window, n_frames, self.hop_length,
                                 self.win_length, self.filter_length)
-      tiny = np.finfo(np.float32).tiny
-      inv = np.where(wss > tiny, 1.0 / np.maximum(wss, tiny), 1.0)
-      inv = inv.astype(np.float32) * np.float32(
-          float(self.filter_length) / self.hop_length)
-      env = torch.from_numpy(inv.astype(np.float32)).to(self.device)
+      env = torch.from_numpy(inverse_envelope(
+          wss, float(self.filter_length) / self.hop_length)).to(self.device)
       self._inv_env[n_frames] = env
+      if len(self._inv_env) > ENV_CACHE_SIZE:
+        self._inv_env.popitem(last=False)
+    else:
+      self._inv_env.move_to_end(n_frames)
     return env
 
   def inverse(self, magnitude: torch.Tensor,
               phase: torch.Tensor) -> torch.Tensor:
     """(mag, phase) [B, cutoff, n_frames] -> audio [B, T]."""
-    batch, _, n_frames = magnitude.shape
-    recombined = torch.cat([magnitude * torch.cos(phase),
-                            magnitude * torch.sin(phase)],
-                           dim=1).transpose(1, 2)        # [B, N, 2*cutoff]
-    frames = torch.matmul(recombined, self.inverse_basis)  # [B, N, n_fft]
-    hop = self.hop_length
-    ratio = self.filter_length // hop
-    chunks = frames.reshape(batch, n_frames, ratio, hop)
-    signal = torch.zeros((batch, (n_frames + ratio - 1) * hop),
-                         dtype=frames.dtype, device=frames.device)
-    body = n_frames * hop
-    for j in range(ratio):
-      signal[:, j * hop:j * hop + body] += chunks[:, :, j, :].reshape(
-          batch, body)
+    signal = self.overlap_frames(magnitude.transpose(1, 2),
+                                 phase.transpose(1, 2))
     if self.window is not None:
-      signal = signal * self._envelope(n_frames)[None, :]
+      signal = signal * self.envelope(magnitude.shape[-1])[None, :]
     half = self.filter_length // 2
     return signal[:, half:-half]

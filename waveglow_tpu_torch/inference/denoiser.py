@@ -1,7 +1,7 @@
 """Bias removal by spectral subtraction (counterpart of
 ``waveglow_tpu/inference/denoiser.py``).
 
-At construction the model synthesizes an 88-frame zeros mel at sigma 0
+At construction the model synthesizes an 88-frame zero mel at sigma 0
 (through the WN kernel on the card) and keeps the first STFT frame of the
 result as ``bias_spec``; a call subtracts ``strength * bias_spec`` from the
 audio's magnitude spectrogram, clamps at 0 and inverts with the original
@@ -10,15 +10,31 @@ phases. It runs in float32 whatever the serving compute dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
-from waveglow_tpu_torch.dsp.stft import STFT
+from waveglow_tpu_torch.dsp.stft import STFT, reflect_pad
 from waveglow_tpu_torch.hparams import TSTFTHParams
 from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, infer
 
 BIAS_MEL_LENGTH = 88
+
+
+def denoise_window(stft: STFT, padded: torch.Tensor, bias: torch.Tensor,
+                   strength: Union[float, torch.Tensor],
+                   inv_env: Optional[torch.Tensor]) -> torch.Tensor:
+  """Spectral subtraction over reflect-padded audio, without the trim:
+  [B, W] -> [B, W]. Frames at stride ``hop`` (:meth:`STFT.polar`),
+  ``bias * strength`` subtracted from the magnitude and clamped at 0, the
+  inverse basis and overlap-add (:meth:`STFT.overlap_frames`), then the
+  envelope ``inv_env`` [W] (None: no window, so none). ``bias`` is
+  [1, 1, cutoff]; ``strength`` a float or a per-row [B, 1, 1] tensor.
+  """
+  magnitude, phase = stft.polar(padded)
+  magnitude = torch.clamp(magnitude - bias * strength, min=0.0)
+  signal = stft.overlap_frames(magnitude, phase)
+  return signal if inv_env is None else signal * inv_env[None, :]
 
 
 class Denoiser:
@@ -38,6 +54,11 @@ class Denoiser:
                strength: Union[float, torch.Tensor]) -> torch.Tensor:
     """[B, T] -> denoised [B, T'] (the iSTFT trims to a frame-aligned
     length). ``strength`` is a float or a per-row [B, 1, 1] tensor."""
-    audio_spec, audio_angles = self.stft.transform(audio)
-    denoised = torch.clamp(audio_spec - self.bias_spec * strength, min=0.0)
-    return self.stft.inverse(denoised, audio_angles)
+    stft = self.stft
+    half = stft.filter_length // 2
+    padded = reflect_pad(audio.float(), half)
+    n_frames = (padded.shape[-1] - stft.filter_length) // stft.hop_length + 1
+    inv_env = None if stft.window is None else stft.envelope(n_frames)
+    out = denoise_window(stft, padded, self.bias_spec.transpose(1, 2),
+                         strength, inv_env)
+    return out[:, half:-half]

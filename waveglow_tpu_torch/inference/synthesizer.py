@@ -3,11 +3,14 @@
 
 Construction loads the model from a checkpoint (with hparam overrides),
 folds weight-norm, moves the weights onto the device once (the matrices in
-the compute dtype) and captures the denoiser bias. ``infer`` returns raw and denoised waveforms with per-phase
-durations; ``infer_serving`` runs synthesis, denoise, PCM16 and the masked
-overamp max as one dispatch and fetches one buffer; ``infer_serving_many``
-micro-batches requests with per-row seeds, sigmas, strengths and true
-lengths. Every WN layer runs through the fused CUDA kernel on the card.
+the compute dtype) and captures the denoiser bias. ``infer`` returns raw and
+denoised waveforms with per-phase durations, in one call or in fixed mel
+windows (``chunk_frames``); ``stream`` yields the waveform, raw or
+denoised, piece by piece as its windows finish; ``infer_serving`` runs
+synthesis, denoise, PCM16 and the masked overamp max as one dispatch and
+fetches one buffer; ``infer_serving_many`` micro-batches requests with
+per-row seeds, sigmas, strengths and true lengths. Every WN layer runs
+through the fused CUDA kernel on the card.
 
 ``compute_dtype='bfloat16'`` selects the fast path; the default float32 is
 the parity mode (no TF32). The denoiser stays float32 in both.
@@ -19,7 +22,7 @@ import datetime
 import logging
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +33,10 @@ from waveglow_tpu_torch.device import resolve_device
 from waveglow_tpu_torch.dsp.mel import CLIP_VAL
 from waveglow_tpu_torch.hparams import overwrite_custom_hparams
 from waveglow_tpu_torch.inference.denoiser import Denoiser
-from waveglow_tpu_torch.inference.streaming import pcm16_on_device
+from waveglow_tpu_torch.inference.stream_denoise import StreamingDenoiser
+from waveglow_tpu_torch.inference.streaming import (infer_chunked,
+                                                    pcm16_on_device,
+                                                    stream_chunks)
 from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
                                                 fuse_for_inference, infer,
@@ -87,6 +93,13 @@ def _leaf_shapes(tree, prefix: str = "") -> Dict[str, tuple]:
   for k, v in items:
     out.update(_leaf_shapes(v, f"{prefix}/{k}" if prefix else str(k)))
   return out
+
+
+def row_seeds(seed: int, batch: int) -> List[int]:
+  """Noise seeds of a batch of ``batch`` utterances given one ``seed``: row
+  b gets ``seed + b * 2**32`` (b in the seed's high 32 bits), so row 0 is
+  the solo call's seed and every row draws distinct noise."""
+  return [int(seed) + (b << 32) for b in range(batch)]
 
 
 class Synthesizer:
@@ -152,16 +165,15 @@ class Synthesizer:
     return checkpoint.iteration
 
   def _prepare_mel(self, mel, bucket_frames: Optional[int]):
-    """Validate to [1, n_mels, frames]; bucket-pad with the log-clamp
+    """Validate to [B, n_mels, frames]; bucket-pad with the log-clamp
     silence floor. Returns (numpy mel, true sample count)."""
     mel = np.asarray(mel, dtype=np.float32)
     if mel.ndim == 2:
       mel = mel[None]
-    if mel.ndim != 3 or mel.shape[0] != 1 or (
-        mel.shape[1] != self.config.n_mel_channels):
+    if mel.ndim != 3 or mel.shape[1] != self.config.n_mel_channels:
       raise ValueError(
           f"expected mel of shape [{self.config.n_mel_channels}, frames] "
-          f"(or [1, {self.config.n_mel_channels}, frames]), got "
+          f"(or [B, {self.config.n_mel_channels}, frames]), got "
           f"{tuple(np.shape(mel))}")
     frames = mel.shape[-1]
     true_samples = frames * UPSAMPLE_STRIDE
@@ -172,6 +184,13 @@ class Synthesizer:
                      constant_values=float(np.log(CLIP_VAL)))
     return mel, true_samples
 
+  @staticmethod
+  def _one_utterance(mel: np.ndarray, where: str) -> None:
+    if mel.shape[0] != 1:
+      raise ValueError(
+          f"{where} takes one utterance, got a batch of {mel.shape[0]}; "
+          "send a batch to infer_serving_many as one mel per request")
+
   def _to_device(self, mel: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(mel)).to(self.device)
 
@@ -179,25 +198,45 @@ class Synthesizer:
   def infer(self, mel: np.ndarray, *, sigma: float = 1.0,
             denoiser_strength: float = 0.0005, seed: int = 0,
             noise: Optional[Sequence[np.ndarray]] = None,
+            chunk_frames: Optional[int] = None,
             bucket_frames: Optional[int] = None) -> InferenceResult:
-    """mel [n_mels, frames] (or [1, n_mels, frames]) -> InferenceResult.
+    """mel [n_mels, frames] or [B, n_mels, frames] -> InferenceResult, whose
+    waveforms are [T] for one utterance and [B, T] for B > 1.
 
     ``noise``: injected standard-normal tensors in the draw order of
     ``models.waveglow.infer_noise_shapes`` (parity harnesses); otherwise
-    noise is drawn from ``seed``. ``bucket_frames`` pads the mel's frame
-    count up to a multiple of it with the silence floor (ignored with
-    injected noise) and trims the waveform back; kept samples equal the
-    unpadded call's (position-keyed noise, masked WN residual rows).
+    noise is drawn from ``seed``: row b of a batch from
+    ``row_seeds(seed, B)[b]``, which is ``seed + b * 2**32``, so row b
+    equals a solo call with that seed (up to the rounding of differently
+    shaped matrix products). ``chunk_frames``: synthesize in mel windows of
+    this many frames plus the receptive-field halo
+    (``inference.streaming``), at the activation memory of one window; the
+    samples equal the one-call path's up to that rounding.
+    ``bucket_frames`` pads the mel's frame count up to a multiple of it
+    with the silence floor (ignored with injected noise) and trims the
+    waveform back; kept samples equal the unpadded call's (position-keyed
+    noise, masked WN residual rows). It composes with ``chunk_frames``.
     """
     timepoint = datetime.datetime.now()
     mel, true_samples = self._prepare_mel(
         mel, bucket_frames if noise is None else None)
     mel_t = self._to_device(mel)
-    true_frames = None if noise is not None else true_samples // UPSAMPLE_STRIDE
+    seeds = row_seeds(seed, mel.shape[0])
+    true_frames = true_samples // UPSAMPLE_STRIDE
     start = time.perf_counter()
-    wav = infer(self.params, self.config, mel_t, sigma=sigma, noise=noise,
-                seed=seed, compute_dtype=self._cdt, true_frames=true_frames,
-                device=self.device)
+    if noise is not None:
+      wav = infer(self.params, self.config, mel_t, sigma=sigma, noise=noise,
+                  compute_dtype=self._cdt, device=self.device)
+    elif chunk_frames is not None:
+      wav = infer_chunked(
+          self.params, self.config, mel_t, sigma=sigma, seed=seeds,
+          chunk_frames=chunk_frames, compute_dtype=self._cdt,
+          true_frames=true_frames if mel.shape[-1] != true_frames else None,
+          device=self.device)
+    else:
+      wav = infer(self.params, self.config, mel_t, sigma=sigma, seed=seeds,
+                  compute_dtype=self._cdt, true_frames=true_frames,
+                  device=self.device)
     self._sync()
     inference_duration_s = time.perf_counter() - start
 
@@ -218,6 +257,57 @@ class Synthesizer:
         inference_duration_s=inference_duration_s,
         denoising_duration_s=denoising_duration_s,
         was_overamplified=was_overamplified, timepoint=timepoint)
+
+  def stream(self, mel: np.ndarray, *, sigma: float = 1.0, seed: int = 0,
+             chunk_frames: int = 256, pcm16: bool = False,
+             denoiser_strength: float = 0.0
+             ) -> Iterator[Tuple[int, np.ndarray]]:
+    """An iterator of numpy ``(start_sample, piece)`` pairs of one
+    utterance's waveform as its windows finish: playback can start after
+    the first window (``inference.streaming.stream_chunks``). The raw
+    pieces reassemble to ``infer(mel, seed=seed, chunk_frames=...)``'s
+    ``wav``. ``pcm16`` converts pieces to int16 on the device.
+
+    ``denoiser_strength > 0`` feeds the raw pieces to a
+    :class:`StreamingDenoiser` with one denoise block a window, whose
+    pieces reassemble to ``infer``'s ``wav_denoised`` trimmed to
+    ``floor(T / hop) * hop`` samples; the denoised stream lags the raw one
+    by less than ``filter_length`` samples. The mel is checked and placed
+    on the device when this is called.
+    """
+    mel, _ = self._prepare_mel(mel, None)
+    self._one_utterance(mel, "stream()")
+    denoise = denoiser_strength > 0
+    pieces = stream_chunks(
+        self.params, self.config, self._to_device(mel), sigma=sigma,
+        seed=seed, chunk_frames=chunk_frames, compute_dtype=self._cdt,
+        pcm16=pcm16 and not denoise, device=self.device)
+    if not denoise:
+      return self._fetch_pieces(pieces)
+    stft = self.denoiser.stft
+    edge = stft.filter_length - stft.hop_length
+    # one denoise block a synthesis window: block 0's window is clamped to
+    # position 0 and needs block + 2 * edge - filter_length / 2 raw
+    # samples, so the first denoised block is ready with the first piece
+    block = max(stft.hop_length,
+                (chunk_frames * UPSAMPLE_STRIDE - 2 * edge
+                 + stft.filter_length // 2)
+                // stft.hop_length * stft.hop_length)
+    sd = StreamingDenoiser(self.denoiser, denoiser_strength,
+                           block_samples=block, pcm16=pcm16)
+    return self._denoise_pieces(pieces, sd)
+
+  @torch.inference_mode()
+  def _fetch_pieces(self, pieces) -> Iterator[Tuple[int, np.ndarray]]:
+    for start, piece in pieces:
+      yield start, piece[0].cpu().numpy()
+
+  @torch.inference_mode()
+  def _denoise_pieces(self, pieces, sd: StreamingDenoiser
+                      ) -> Iterator[Tuple[int, np.ndarray]]:
+    for _, piece in pieces:
+      yield from sd.push(piece[0].cpu().numpy())
+    yield from sd.flush()
 
   @torch.inference_mode()
   def _serve_rows(self, mel: np.ndarray, sigmas: np.ndarray,
@@ -264,6 +354,7 @@ class Synthesizer:
     nothing. Returns a record for :meth:`serving_finalize`."""
     timepoint = datetime.datetime.now()
     mel, true_samples = self._prepare_mel(mel, bucket_frames)
+    self._one_utterance(mel, "infer_serving")
     start = time.perf_counter()
     strengths = (np.float32([denoiser_strength]) if denoiser_strength > 0
                  else None)
@@ -318,6 +409,8 @@ class Synthesizer:
     sigmas = _per_request(sigma, n, "sigma")
     strengths = _per_request(denoiser_strength, n, "denoiser_strength")
     prepared = [self._prepare_mel(m, bucket_frames) for m in mels]
+    for mel, _ in prepared:
+      self._one_utterance(mel, "each request of infer_serving_many")
 
     groups: Dict[tuple, List[int]] = {}
     for i, (mel, _) in enumerate(prepared):
