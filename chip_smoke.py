@@ -59,7 +59,26 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      the one-call 3,304-frame peak); first-audio latency, raw and
      denoised, at chunks 256 and 128; per-window device time and streamed
      against one-call audio-s/s.
-  8. a `kernels` JSON line, the card's name and power limit, and last the
+  8. serve: the HTTP daemon at full width in f32 and bf16,
+     SynthesisService(max_batch=8, bucket_frames=64) behind make_server on
+     127.0.0.1, driven only through SynthesisClient: /healthz and /stats;
+     the four requests solo (npy) against Synthesizer.infer_serving bit for
+     bit; a burst of 16 concurrent requests (4 each of 200, 230, 517 and
+     826 frames, distinct seeds, arriving while the device lock is held)
+     against their solo calls at phase 4's bound, with micro-batches
+     formed; /stream raw and denoised against Synthesizer.stream at phase
+     7's bounds; 413 for a mel over max_frames; one 503 from two concurrent
+     requests at max_queue=1, then service again; /reload of other weights
+     changes the output and serving goes on; 96 kernel launches a dispatch
+     or a stream window; a closed loop of 1, 4 and 8 clients, 6 requests
+     of 826 frames each (p50 and p99 from /stats, audio-s/s, rows a
+     dispatch, the stage decomposition, peak memory; the 8-client loop
+     once more under torch.profiler for the device's idle share); and the
+     C9 check: a solo 200-frame request dispatched, then an 8-row batch of
+     826-frame requests dispatched from another thread, and the solo one
+     finalized before the batch's event completes and within 1.5x of its
+     solo time.
+  9. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -69,13 +88,16 @@ Imports nothing of jax and nothing of the JAX package. Details go to
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +110,8 @@ from waveglow_tpu_torch.checkpointing.from_jax import (
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
 from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+from waveglow_tpu_torch.inference.client import SynthesisClient
+from waveglow_tpu_torch.inference.server import SynthesisService, make_server
 from waveglow_tpu_torch.inference.streaming import receptive_halo_frames
 from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 from waveglow_tpu_torch.kernels import wn_layer as kl
@@ -187,6 +211,28 @@ STREAM_TOL_REL = {"raw": 1e-6, "denoised": 1e-5}
 # 3,304-frame mel over the streamed 826-frame request's: the windows are
 # the same size, so the same peak; whatever a window leaves behind adds up.
 STREAM_MEMORY_RATIO = 1.1
+
+# Serving daemon (phase 8). Micro-batches of up to 8 rows in 64-frame
+# buckets; the burst is SERVE_BURST requests of each of FRAMES; the closed
+# loop is SERVE_CLIENTS clients each sending SERVE_REQUESTS requests of
+# 826 frames one after another. Its streams use the daemon's default chunk
+# (128 frames: 328-frame windows). Every HTTP call and wait carries
+# SERVE_TIMEOUT_S.
+SERVE_MAX_BATCH = 8
+SERVE_BURST = 4
+SERVE_CLIENTS = (1, 4, 8)
+SERVE_REQUESTS = 6
+SERVE_STREAM_CHUNK = 128
+SERVE_TIMEOUT_S = 120
+# C9: a solo request's dispatch-to-result time, with an 8-row batch of
+# 826-frame requests dispatched behind it from another thread (median of
+# C9_ROUNDS rounds after a warm-up one), within this factor of its solo
+# time (median of C9_REPS); the batch's event still pending when the solo
+# result is in, in every round.
+C9_FRAMES = 200
+C9_RATIO = 1.5
+C9_REPS = 5
+C9_ROUNDS = 3
 
 MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
@@ -591,7 +637,7 @@ def phase_slice(ckpt: CheckpointWaveglow, mode: str, seed: int):
   many = synth.serving_many_finalize(dispatched)
   many_launches = kl.LAUNCHES - before
   launches = kl.LAUNCHES
-  batch_rows = [len(rows) for rows, _, _ in dispatched[0]]
+  batch_rows = [len(rows) for rows, _, _ in dispatched.batches]
   per_synthesis = synth.config.n_flows * synth.config.n_layers
   if per_call != [per_synthesis] * len(mels):
     fail(f"{mode}: launches per infer_serving {per_call}, expected "
@@ -694,8 +740,11 @@ def profile_call(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-  families, top = {}, []
+  families, top, syncs = {}, [], {}
   for ev in prof.key_averages():
+    if (ev.device_type == torch.autograd.DeviceType.CPU
+        and ("Synchronize" in ev.key or ev.key == "cudaMemcpy")):
+      syncs[ev.key] = ev.count
     # Host ops, and the device-timeline spans the profiler records for each
     # of them (named after the op), would count their kernels twice.
     if (ev.device_type != torch.autograd.DeviceType.CUDA
@@ -714,6 +763,7 @@ def profile_call(fn) -> dict:
           "device_busy_ms": busy_ms if busy_ms else "not measured",
           "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
           "by_family_ms": families,
+          "host_sync_calls": syncs,
           "top_kernels": [{"ms": ms, "count": n, "name": k}
                           for ms, n, k in top[:8]]}
 
@@ -1231,6 +1281,12 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
 
 # -- phase 7 ---------------------------------------------------------------
 
+def stream_windows(frames: int, chunk: int, halo: int) -> int:
+  """Windows a stream of ``frames`` runs at ``chunk``: one padded window
+  when the mel fits in ``chunk + 2 * halo`` frames, else one a chunk."""
+  return -(-frames // chunk) if frames > chunk + 2 * halo else 1
+
+
 def first_audio_s(synth: Synthesizer, mel: np.ndarray, seed: int,
                   chunk: int, strength: float) -> float:
   """Host seconds from the call of stream() to its first piece (fetched to
@@ -1280,8 +1336,7 @@ def phase_stream(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
         mel, seed=seed, chunk_frames=STREAM_CHUNK,
         denoiser_strength=STREAM_STRENGTH)])
   launches = kl.LAUNCHES
-  windows = {f: -(-f // STREAM_CHUNK) if f > STREAM_CHUNK + 2 * halo else 1
-             for f in mels}
+  windows = {f: stream_windows(f, STREAM_CHUNK, halo) for f in mels}
   for f in mels:
     if window_launches[f] != [per_window] * windows[f]:
       fail(f"{mode}: launches per window of the {f}-frame stream "
@@ -1380,6 +1435,384 @@ def phase_stream(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
   return info
 
 
+# -- phase 8 ---------------------------------------------------------------
+
+def latency_summary(seconds) -> dict:
+  """Count, mean, p50 and p99 of latencies in seconds, by the quantile
+  rule the daemon's /stats uses (``np.quantile``, linear)."""
+  q = np.quantile(seconds, [0.5, 0.99])
+  return {"n": len(seconds), "mean": float(np.mean(seconds)),
+          "p50": float(q[0]), "p99": float(q[1])}
+
+
+def expected_launches(dispatch_rows, others, per_synthesis: int) -> int:
+  """WN launches of a run of serving dispatches (one entry of
+  ``dispatch_rows`` each, whatever its rows) and ``others`` further
+  syntheses (stream windows, a reload's denoiser bias capture): one
+  synthesis, ``per_synthesis`` layers, each."""
+  return per_synthesis * (len(dispatch_rows) + sum(others))
+
+
+def c9_failures(result_s: float, solo_s: float, batch_done: bool) -> list:
+  """What the C9 check found wrong, if anything: a solo request finalized
+  with an 8-row batch dispatched behind it must have its result before the
+  batch's event completes, within C9_RATIO of its solo time."""
+  out = []
+  if batch_done:
+    out.append("the batch dispatched after the solo request had finished "
+               "when the solo result came back: the fetch waited for it")
+  if result_s > C9_RATIO * solo_s:
+    out.append(f"the solo result took {result_s:.4f} s, over {C9_RATIO} x "
+               f"its solo time {solo_s:.4f} s")
+  return out
+
+
+def count_dispatches(synth: Synthesizer) -> list:
+  """Record the rows of every serving dispatch ``synth`` makes (one
+  synthesis each, whatever its rows) into the returned list."""
+  rows = []
+  serve_rows = synth._serve_rows
+
+  def counted(mel, *args, **kwargs):
+    rows.append(mel.shape[0])
+    return serve_rows(mel, *args, **kwargs)
+
+  synth._serve_rows = counted
+  return rows
+
+
+def reset_windows(service: SynthesisService) -> None:
+  """Empty the daemon's latency and stage windows, so /stats reads the
+  next loop alone."""
+  with service._stats_lock:
+    service._latencies.clear()
+    service._stages.clear()
+
+
+def closed_loop(client: SynthesisClient, mel: np.ndarray, clients: int,
+                requests: int, seed: int, sr: int) -> dict:
+  """``clients`` threads, each sending ``requests`` requests one after
+  another; wall, served audio-s/s and the clients' latencies."""
+  def one_client(c):
+    lat = []
+    for r in range(requests):
+      t0 = time.perf_counter()
+      wav = client.synthesize(mel, seed=seed + 1000 * c + r)
+      lat.append(time.perf_counter() - t0)
+      if wav.shape != (mel.shape[-1] * UPSAMPLE_STRIDE,):
+        fail(f"closed loop: response of shape {wav.shape}")
+    return lat
+
+  with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+    t0 = time.perf_counter()
+    lats = [x for lat in pool.map(one_client, range(clients)) for x in lat]
+    wall = time.perf_counter() - t0
+  audio_s = clients * requests * mel.shape[-1] * UPSAMPLE_STRIDE / sr
+  return {"clients": clients, "requests": len(lats), "wall_s": wall,
+          "audio_s_per_s": audio_s / wall,
+          "client_latency_s": latency_summary(lats)}
+
+
+def wait_until(predicate, what: str) -> None:
+  deadline = time.monotonic() + SERVE_TIMEOUT_S
+  while not predicate():
+    if time.monotonic() > deadline:
+      fail(f"serve: timed out waiting for {what}")
+    time.sleep(0.002)
+
+
+def c9_check(synth: Synthesizer, solo_mel: np.ndarray, batch_mel: np.ndarray,
+             seed: int) -> dict:
+  """Dispatch a solo request, then, from one other thread (as the daemon's
+  dispatcher does while its finisher fetches), an 8-row batch; finalize the
+  solo one. Its result must not wait for the batch: one warm-up round,
+  then the median of C9_ROUNDS rounds against the median solo call."""
+  def solo_call():
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = synth.infer_serving(solo_mel, seed=seed, bucket_frames=BUCKET)
+    return time.perf_counter() - t0, res
+
+  def dispatch_batch(started):
+    started.set()
+    return synth.serving_many_dispatch(
+        [batch_mel] * SERVE_MAX_BATCH, seeds=list(range(SERVE_MAX_BATCH)),
+        bucket_frames=BUCKET, max_batch=SERVE_MAX_BATCH)
+
+  def one_round(pool):
+    started = threading.Event()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = synth.serving_dispatch(solo_mel, seed=seed, bucket_frames=BUCKET)
+    t_dispatched = time.perf_counter() - t0
+    future = pool.submit(dispatch_batch, started)
+    if not started.wait(SERVE_TIMEOUT_S):
+      fail("C9: the batch thread did not start")
+    res = synth.serving_finalize(solo)
+    result_s = time.perf_counter() - t0
+    batch = future.result(timeout=SERVE_TIMEOUT_S)
+    batch_done = batch.event.query()
+    t_batch = time.perf_counter()
+    rows = synth.serving_many_finalize(batch)
+    if len(rows) != SERVE_MAX_BATCH:
+      fail(f"C9: the batch gave {len(rows)} results")
+    if not np.array_equal(res.samples, reps[0][1].samples):
+      fail("C9: the solo result differs from its solo call")
+    return {"result_s": result_s, "solo_dispatch_s": t_dispatched,
+            "batch_event_done_at_result": batch_done,
+            "batch_finalize_wait_s": time.perf_counter() - t_batch}
+
+  solo_call()
+  reps = [solo_call() for _ in range(C9_REPS)]
+  solo_s = float(np.median([t for t, _ in reps]))
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    warm = one_round(pool)
+    rounds = [one_round(pool) for _ in range(C9_ROUNDS)]
+  result_s = float(np.median([r["result_s"] for r in rounds]))
+  batch_done = any(r["batch_event_done_at_result"] for r in rounds)
+  # the route C9 repaired, as it waited: a blocking fetch made at finalize
+  # time is enqueued at the stream's tail and waits for the stream, so
+  # after the batch's enqueue it waits for the batch; the check must say so
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  solo = synth.serving_dispatch(solo_mel, seed=seed, bucket_frames=BUCKET)
+  behind = synth.serving_many_dispatch(
+      [batch_mel] * SERVE_MAX_BATCH, seeds=list(range(SERVE_MAX_BATCH)),
+      bucket_frames=BUCKET, max_batch=SERVE_MAX_BATCH)
+  torch.cuda.current_stream().synchronize()
+  synth.serving_finalize(solo)
+  blocking_s = time.perf_counter() - t0
+  blocking = c9_failures(blocking_s, solo_s, behind.event.query())
+  synth.serving_many_finalize(behind)
+  if not blocking:
+    fail(f"C9: the check passed a blocking fetch ({blocking_s:.4f} s, solo "
+         f"{solo_s:.4f} s)")
+  info = {"solo_s": solo_s, "solo_reps_s": [t for t, _ in reps],
+          "result_s": result_s, "ratio": result_s / solo_s,
+          "bound_ratio": C9_RATIO, "batch_event_done_at_result": batch_done,
+          "rounds": rounds, "warm_up_round": warm,
+          "blocking_fetch_result_s": blocking_s,
+          "blocking_fetch_flagged": blocking}
+  problems = c9_failures(result_s, solo_s, batch_done)
+  if problems:
+    fail(f"C9: {'; '.join(problems)} ({info})")
+  return info
+
+
+def phase_serve(ckpt: CheckpointWaveglow, paths: dict, mode: str,
+                seed: int) -> dict:
+  """The HTTP daemon in ``mode``, driven through SynthesisClient."""
+  service = SynthesisService(
+      ckpt, custom_hparams={"compute_dtype": "bfloat16" if mode == "bf16"
+                            else "float32"},
+      max_batch=SERVE_MAX_BATCH, bucket_frames=BUCKET, device=DEVICE)
+  synth = service.synth
+  sr = synth.hparams.sampling_rate
+  per_synthesis = synth.config.n_flows * synth.config.n_layers
+  halo = receptive_halo_frames(synth.config)
+  rng = np.random.default_rng(seed + 8)
+  mels = {f: rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+          for f in FRAMES}
+  long_mel = mels[max(FRAMES)]
+  solo_seeds = {f: seed + i for i, f in enumerate(FRAMES)}
+  burst = [(f, seed + 100 + SERVE_BURST * i + k)
+           for i, f in enumerate(FRAMES) for k in range(SERVE_BURST)]
+  t_setup = time.perf_counter()
+  warm = service.warmup([max(FRAMES)])
+
+  # -- references, by the Synthesizer itself, before the counted run
+  solo_ref = {f: synth.infer_serving(mels[f], seed=s, bucket_frames=BUCKET)
+              for f, s in solo_seeds.items()}
+  burst_ref = [synth.infer_serving(mels[f], seed=s, bucket_frames=BUCKET)
+               for f, s in burst]
+  stream_ref = {kind: np.concatenate([p for _, p in synth.stream(
+      long_mel, seed=seed, chunk_frames=SERVE_STREAM_CHUNK, pcm16=True,
+      denoiser_strength=strength)])
+                for kind, strength in (("raw", 0.0),
+                                       ("denoised", STREAM_STRENGTH))}
+  dispatch_rows = count_dispatches(synth)
+  httpd = make_server(service, "127.0.0.1", 0)
+  server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+  server_thread.start()
+  url = f"http://127.0.0.1:{httpd.server_port}"
+  client = SynthesisClient(url, timeout_s=SERVE_TIMEOUT_S)
+  setup_s = time.perf_counter() - t_setup
+  info = {"mode": mode, "card": nvidia_smi_line(), "warmup": warm,
+          "setup_s": setup_s}
+  try:
+    # -- the main path: every request through the daemon, with the launch
+    # count read around it
+    kl.LAUNCHES = 0
+    health = client.health()
+    if health["status"] != "ok" or health["model"]["compute_dtype"] != (
+        "bfloat16" if mode == "bf16" else "float32"):
+      fail(f"serve {mode}: /healthz {health}")
+    if "requests" not in client.stats():
+      fail(f"serve {mode}: /stats has no request count")
+
+    # solo requests, npy, against infer_serving
+    solo_errs = {}
+    for f, s in solo_seeds.items():
+      got = client.synthesize(mels[f], seed=s)
+      solo_errs[f] = float(np.abs(got - solo_ref[f].samples).max())
+      if not np.array_equal(got, solo_ref[f].samples):
+        fail(f"serve {mode}: the solo {f}-frame response differs from "
+             f"infer_serving by {solo_errs[f]}")
+    if dispatch_rows != [1] * len(FRAMES):
+      fail(f"serve {mode}: solo requests dispatched as {dispatch_rows}")
+
+    # a burst of concurrent requests, arriving while the device is busy
+    before = client.stats()
+    n_before, launches_before = len(dispatch_rows), kl.LAUNCHES
+    with concurrent.futures.ThreadPoolExecutor(len(burst)) as pool:
+      with service._device_lock:
+        futs = [pool.submit(client.synthesize, mels[f], seed=s)
+                for f, s in burst]
+        wait_until(lambda: service.in_flight() == len(burst),
+                   "the burst to arrive")
+      outs = [fut.result(timeout=SERVE_TIMEOUT_S) for fut in futs]
+    after = client.stats()
+    burst_rows = dispatch_rows[n_before:]
+    burst_launches = kl.LAUNCHES - launches_before
+    scale = max(float(np.abs(r.samples).max()) for r in burst_ref)
+    burst_errs = [float(np.abs(o - r.samples).max())
+                  for o, r in zip(outs, burst_ref)]
+    bound = SLICE_TOL_REL[mode] * scale
+    if after["batches"] - before["batches"] < 1:
+      fail(f"serve {mode}: the burst formed no micro-batch: {burst_rows}")
+    if max(burst_errs) > bound:
+      fail(f"serve {mode}: burst responses differ from their solo calls "
+           f"by {max(burst_errs)} > {bound}")
+    if burst_launches != expected_launches(burst_rows, [], per_synthesis):
+      fail(f"serve {mode}: the burst launched {burst_launches}, expected "
+           f"{per_synthesis} x {len(burst_rows)} dispatches")
+    info["burst"] = {"dispatch_rows": burst_rows, "launches": burst_launches,
+                     "max_abs_vs_solo": max(burst_errs), "bound": bound,
+                     "batches": after["batches"] - before["batches"],
+                     "batched_requests": (after["batched_requests"]
+                                          - before["batched_requests"])}
+
+    # streams, raw and denoised
+    stream_errs = {}
+    for kind, strength in (("raw", 0.0), ("denoised", STREAM_STRENGTH)):
+      got = np.concatenate(list(client.stream(
+          long_mel, seed=seed, denoiser_strength=strength)))
+      want = stream_ref[kind].astype(np.float32) / 32768.0
+      if got.shape != want.shape:
+        fail(f"serve {mode}: {kind} stream of {got.shape}, expected "
+             f"{want.shape}")
+      err = float(np.abs(got - want).max())
+      bound = STREAM_TOL_REL[kind] * float(np.abs(want).max())
+      stream_errs[kind] = {"max_abs": err, "bound": bound}
+      if err > bound:
+        fail(f"serve {mode}: {kind} stream differs from Synthesizer.stream "
+             f"by {err} > {bound}")
+    windows = [stream_windows(max(FRAMES), SERVE_STREAM_CHUNK, halo)] * 2
+    info["stream"] = {"against_synthesizer": stream_errs,
+                      "windows": windows}
+
+    # admission: a mel over max_frames, then max_queue=1
+    try:
+      client.synthesize(np.zeros((80, service.max_frames + 1), np.float32))
+      fail(f"serve {mode}: a mel over max_frames was served")
+    except urllib.error.HTTPError as e:
+      e.close()
+      if e.code != 413:
+        fail(f"serve {mode}: an oversize mel got {e.code}, not 413")
+    nowait = SynthesisClient(url, timeout_s=SERVE_TIMEOUT_S, retries_503=0)
+    max_queue, service.max_queue = service.max_queue, 1
+    shed = []
+    try:
+      with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        with service._device_lock:
+          first = pool.submit(nowait.synthesize, mels[200], seed=seed)
+          wait_until(lambda: service.in_flight() == 1, "the first request")
+          try:
+            nowait.synthesize(mels[200], seed=seed + 1)
+          except urllib.error.HTTPError as e:
+            e.close()
+            shed.append(e.code)
+        first_wav = first.result(timeout=SERVE_TIMEOUT_S)
+      recovered = nowait.synthesize(mels[200], seed=seed + 2)
+    finally:
+      service.max_queue = max_queue
+    if shed != [503] or first_wav.shape != recovered.shape:
+      fail(f"serve {mode}: two requests at max_queue=1 gave {shed}")
+
+    # reload other weights, then the first ones back
+    before_reload = client.synthesize(mels[200], seed=seed)
+    client.reload(paths["other"])
+    swapped = client.synthesize(mels[200], seed=seed)
+    client.reload(paths["first"])
+    restored = client.synthesize(mels[200], seed=seed)
+    reload_change = float(np.abs(swapped - before_reload).max())
+    if not reload_change > 0 or not np.array_equal(restored, before_reload):
+      fail(f"serve {mode}: reload changed the output by {reload_change}, "
+           "or the first weights did not come back")
+    info["reload"] = {"max_abs_change": reload_change,
+                      "reloads": client.stats()["reloads"]}
+
+    # the closed loops
+    loops = {}
+    for clients in SERVE_CLIENTS:
+      reset_windows(service)
+      n_before, launches_before = len(dispatch_rows), kl.LAUNCHES
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      baseline = torch.cuda.memory_allocated()
+      rec = closed_loop(client, long_mel, clients, SERVE_REQUESTS, seed, sr)
+      stats = client.stats()
+      rows = dispatch_rows[n_before:]
+      launches = kl.LAUNCHES - launches_before
+      if launches != expected_launches(rows, [], per_synthesis):
+        fail(f"serve {mode}: {clients} clients launched {launches} for "
+             f"{len(rows)} dispatches")
+      rec.update(p50_s=stats["latency_s"]["p50"],
+                 p99_s=stats["latency_s"]["p99"],
+                 stats_latency_s=stats["latency_s"],
+                 stages_ms=stats["stages_ms"], dispatches=len(rows),
+                 mean_rows_a_dispatch=float(np.mean(rows)),
+                 dispatch_rows=rows, launches=launches,
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 activation_peak_bytes=(torch.cuda.max_memory_allocated()
+                                        - baseline))
+      loops[clients] = rec
+      log(f"serve {mode} closed loop "
+          + json.dumps(dict(rec, card=info["card"])))
+    clients = max(SERVE_CLIENTS)
+    profile = profile_call(lambda: closed_loop(
+        client, long_mel, clients, SERVE_REQUESTS, seed, sr))
+    busy = profile["device_busy_ms"]
+    profile["idle_share_vs_unprofiled_loop"] = (
+        1 - busy / 1e3 / loops[clients]["wall_s"]
+        if busy != "not measured" else busy)
+    launches = kl.LAUNCHES
+    # a reload captures the new weights' denoiser bias: one synthesis
+    expected = expected_launches(dispatch_rows, windows + [1, 1],
+                                 per_synthesis)
+    if launches != expected or launches == 0:
+      fail(f"serve {mode}: the daemon launched {launches}, expected "
+           f"{expected} ({len(dispatch_rows)} dispatches, {windows} "
+           "stream windows, 2 reloads)")
+    info.update(launches=launches, dispatches=len(dispatch_rows),
+                solo_max_abs=solo_errs, closed_loop=loops,
+                profile_8_clients=profile, final_stats=client.stats())
+  finally:
+    httpd.shutdown()
+    httpd.server_close()
+    service._batcher.close()
+    server_thread.join(SERVE_TIMEOUT_S)
+  if server_thread.is_alive():
+    fail(f"serve {mode}: the server thread did not stop")
+
+  info["c9"] = c9_check(synth, mels[C9_FRAMES], long_mel, seed)
+  log("serve " + json.dumps({k: v for k, v in info.items()
+                             if k != "closed_loop"}))
+  del service, synth
+  torch.cuda.empty_cache()
+  return info
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -1390,26 +1823,33 @@ def main() -> None:
   build = phase_build()
   kernel = phase_kernel(args.seed)
   with tempfile.TemporaryDirectory() as tmp:
+    # phase 8 reloads these two npz files; they are kept to the end
+    paths = {"first": Path(tmp) / "1.npz", "other": Path(tmp) / "2.npz"}
     t0 = time.perf_counter()
-    ckpt = full_width_checkpoint(args.seed, Path(tmp) / "1.npz")
+    ckpt = full_width_checkpoint(args.seed, paths["first"])
     log(f"checkpoint 12x256 written and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-  slices, first = {}, {}
-  for mode in MODES:
-    slices[mode], first[mode] = phase_slice(ckpt, mode, args.seed)
-  # bf16 really ran: the same request (same seed) differs from f32
-  bf16_vs_f32 = float(np.abs(first["bf16"] - first["f32"]).max())
-  scale = float(np.abs(first["f32"]).max())
-  log(f"bf16 vs f32, first request: max abs {bf16_vs_f32} (scale {scale})")
-  if not bf16_vs_f32 > 0:
-    fail("bf16 serving gave the f32 waveform: bf16 did not run")
-  slices["bf16"]["vs_f32_max_abs"] = bf16_vs_f32
-  trainable = phase_trainable(args.seed)
-  trains = {}
-  for mode in MODES:
-    with tempfile.TemporaryDirectory() as tmp:
-      trains[mode] = phase_train(mode, args.seed, Path(tmp))
-  streams = {mode: phase_stream(ckpt, mode, args.seed) for mode in MODES}
+    slices, first = {}, {}
+    for mode in MODES:
+      slices[mode], first[mode] = phase_slice(ckpt, mode, args.seed)
+    # bf16 really ran: the same request (same seed) differs from f32
+    bf16_vs_f32 = float(np.abs(first["bf16"] - first["f32"]).max())
+    scale = float(np.abs(first["f32"]).max())
+    log(f"bf16 vs f32, first request: max abs {bf16_vs_f32} (scale {scale})")
+    if not bf16_vs_f32 > 0:
+      fail("bf16 serving gave the f32 waveform: bf16 did not run")
+    slices["bf16"]["vs_f32_max_abs"] = bf16_vs_f32
+    trainable = phase_trainable(args.seed)
+    trains = {}
+    for mode in MODES:
+      with tempfile.TemporaryDirectory() as train_tmp:
+        trains[mode] = phase_train(mode, args.seed, Path(train_tmp))
+    streams = {mode: phase_stream(ckpt, mode, args.seed) for mode in MODES}
+    CheckpointWaveglow.from_params(full_width_params(args.seed + 1),
+                                   HParams(), iteration=2).save(
+                                       paths["other"])
+    serves = {mode: phase_serve(ckpt, paths, mode, args.seed)
+              for mode in MODES}
 
   kernels = []
   for mode in MODES:
@@ -1420,7 +1860,8 @@ def main() -> None:
         "name": f"wn_layer_fused[{mode}]", "route": "cuda",
         "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
         "replaces": "waveglow_tpu/kernels/wn_layer.py:259",
-        "launches": slices[mode]["launches"] + streams[mode]["launches"],
+        "launches": (slices[mode]["launches"] + streams[mode]["launches"]
+                     + serves[mode]["launches"]),
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1432,6 +1873,8 @@ def main() -> None:
         "serving_launches": slices[mode]["launches"],
         "stream_launches": streams[mode]["launches"],
         "stream_launches_per_window": streams[mode]["launches_per_window"],
+        "daemon_launches": serves[mode]["launches"],
+        "daemon_dispatches": serves[mode]["dispatches"],
         # the last layer and B=8, each with its library yardstick
         **{f"{key}_{case}": kernel["timed"][shape][key]
            for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
@@ -1511,7 +1954,7 @@ def main() -> None:
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
-            "streams": streams,
+            "streams": streams, "serves": serves,
             "trainable_cases": trainable["cases"], "train": trains,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -3,7 +3,10 @@
 ``layer_cost`` sets the bound every kernel time in PERF.md is read against;
 ``parse_ptxas``, ``count_mma`` and ``check_tensor_cores`` read the build's
 ptxas log and SASS and must know each kernel variant's mangled name;
-``leaf_norm_rel_errors`` is the train-step check's gradient metric.
+``leaf_norm_rel_errors`` is the train-step check's gradient metric;
+``latency_summary``, ``stream_windows``, ``expected_launches``,
+``count_dispatches`` and ``c9_failures`` are the serving phase's
+percentiles, launch accounting and C9 timing predicate.
 """
 
 import importlib.util
@@ -303,3 +306,58 @@ def test_step_grad_metric_flags_a_perturbed_leaf(smoke):
                                  rel=1e-6)
   assert rel[1] > 0.1 > smoke.STEP_GRAD_TOL_REL["bf16"]
   assert max(smoke.STEP_GRAD_TOL_REL.values()) < 2e-2  # tighter than before
+
+
+def test_latency_summary_uses_the_daemons_quantile_rule(smoke):
+  """p50 and p99 by linear interpolation, as the daemon's /stats
+  (``np.quantile``): of 1..100 ms, p50 50.5 ms and p99 99.01 ms."""
+  seconds = [i / 1e3 for i in range(1, 101)]
+  got = smoke.latency_summary(seconds)
+  assert got["n"] == 100
+  assert got["mean"] == pytest.approx(0.0505)
+  assert got["p50"] == pytest.approx(0.0505)
+  assert got["p99"] == pytest.approx(0.09901)
+  assert smoke.latency_summary([0.2])["p99"] == pytest.approx(0.2)
+
+
+def test_stream_windows_and_expected_launches(smoke):
+  """The serving phase's launch accounting at full width: 96 layers a
+  synthesis; an 826-frame stream at the daemon's chunk of 128 (100-frame
+  halo) runs 7 windows, a 200-frame one a single padded window; a
+  dispatch is one synthesis whatever its rows; a reload captures the
+  denoiser bias with one more."""
+  assert smoke.stream_windows(826, 128, 100) == 7
+  assert smoke.stream_windows(826, 256, 100) == 4   # phase 7's chunk
+  assert smoke.stream_windows(200, 128, 100) == 1
+  assert smoke.stream_windows(329, 128, 100) == 3
+  rows = [1, 1, 1, 1, 8, 4, 4]
+  assert smoke.expected_launches(rows, [], 96) == 7 * 96
+  assert smoke.expected_launches(rows, [7, 7, 1, 1], 96) == 23 * 96
+
+
+def test_count_dispatches_records_rows_and_passes_through(smoke):
+  calls = []
+
+  class Synth:
+    def _serve_rows(self, mel, *args, **kwargs):
+      calls.append((mel.shape, args, kwargs))
+      return "out"
+
+  synth = Synth()
+  rows = smoke.count_dispatches(synth)
+  assert synth._serve_rows(np.zeros((8, 80, 64)), 1, pcm16=True) == "out"
+  assert synth._serve_rows(np.zeros((1, 80, 64))) == "out"
+  assert rows == [8, 1]
+  assert calls[0] == ((8, 80, 64), (1,), {"pcm16": True})
+
+
+@pytest.mark.parametrize("result_s,batch_done,flags", [
+    (0.030, False, 0),    # within 1.5x of a 0.025 s solo call, batch pending
+    (0.0375, False, 0),   # at the bound
+    (0.040, False, 1),    # over 1.5x
+    (0.030, True, 1),     # the batch finished first: the fetch waited
+    (0.210, True, 2),     # a blocking fetch behind a 0.18 s batch
+])
+def test_c9_predicate(smoke, result_s, batch_done, flags):
+  assert smoke.C9_RATIO == 1.5
+  assert len(smoke.c9_failures(result_s, 0.025, batch_done)) == flags

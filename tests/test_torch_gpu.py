@@ -491,3 +491,62 @@ def test_stream_matches_one_call_on_the_card(cuda, stream_model, frames,
   assert out.shape == ref.shape == (1, frames * 256)
   assert np.isfinite(out).all()
   assert np.abs(out - ref).max() <= STREAM_TOL_REL[cdt] * np.abs(ref).max()
+
+
+# -- serving fetches and copies that wait for nothing else (C9, C10) ---------
+
+SLEEP_CYCLES = 300_000_000  # ~0.15-0.2 s of device time at H100 clocks
+
+
+def test_to_device_copies_without_waiting(cuda):
+  """A blocking host-to-device copy waits for the work enqueued before it;
+  ``device.to_device`` does not, and lands the same values."""
+  from waveglow_tpu_torch.device import to_device
+  host = np.arange(1000, dtype=np.float32)
+  busy = torch.cuda.Event()
+  torch.cuda._sleep(SLEEP_CYCLES)
+  busy.record()
+  got = to_device(host, cuda)
+  assert not busy.query()
+  torch.cuda.synchronize()
+  np.testing.assert_array_equal(got.cpu().numpy(), host)
+  torch.cuda._sleep(SLEEP_CYCLES)
+  busy.record()
+  torch.as_tensor(host, device=cuda)  # the blocking copy, for contrast
+  assert busy.query()
+
+
+@pytest.fixture(scope="module")
+def serving_synth(stream_model):
+  from waveglow_tpu_torch.checkpointing.from_jax import params_to_numpy
+  from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.inference.synthesizer import Synthesizer
+  cfg, params = stream_model
+  hp = overwrite_custom_hparams(HParams(), {
+      "n_flows": str(cfg.n_flows), "n_layers": str(cfg.n_layers)})
+  ckpt = CheckpointWaveglow.from_params(params_to_numpy(params[None]), hp)
+  return Synthesizer(ckpt, device="cuda")
+
+
+def test_serving_dispatch_and_fetch_wait_for_nothing_else(cuda,
+                                                          serving_synth):
+  """``serving_dispatch`` returns with the device still busy before it (no
+  blocking copy inside), and ``serving_finalize`` returns with the device
+  busy after it (its fetch was enqueued at dispatch); the result equals
+  ``infer_serving``'s."""
+  mel = np.random.default_rng(4).uniform(-11.0, 1.0, (80, 60)).astype(
+      np.float32)
+  ref = serving_synth.infer_serving(mel, seed=2)
+  before = torch.cuda.Event()
+  torch.cuda._sleep(SLEEP_CYCLES)
+  before.record()
+  solo = serving_synth.serving_dispatch(mel, seed=2)
+  assert not before.query()
+  after = torch.cuda.Event()
+  torch.cuda._sleep(SLEEP_CYCLES)
+  after.record()
+  res = serving_synth.serving_finalize(solo)
+  assert not after.query()
+  np.testing.assert_array_equal(res.samples, ref.samples)
+  torch.cuda.synchronize()

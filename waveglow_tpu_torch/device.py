@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -27,3 +28,21 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
   elif dev.type != "cpu":
     raise ValueError(f"unsupported device {dev}")
   return dev
+
+
+def to_device(value, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+  """``torch.as_tensor(value, dtype, device)`` without a wait: host data
+  bound for a CUDA device is copied into pinned memory and from there with
+  ``non_blocking=True``. A blocking host-to-device copy synchronises the
+  stream, so the host would wait for all work enqueued before it; this
+  copy waits for nothing and lands in stream order. Device tensors are
+  only moved or cast."""
+  if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+    return value.to(device=device, dtype=dtype)
+  if isinstance(value, np.ndarray):
+    value = np.ascontiguousarray(value)
+  host = torch.as_tensor(value, dtype=dtype)
+  if device.type != "cuda":
+    return host
+  return host.pin_memory().to(device, non_blocking=True)

@@ -15,7 +15,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from waveglow_tpu_torch.device import resolve_device
+from waveglow_tpu_torch.device import resolve_device, to_device
 from waveglow_tpu_torch.dsp import audio_io
 from waveglow_tpu_torch.dsp.mel_filters import mel_filterbank
 from waveglow_tpu_torch.dsp.stft import STFT
@@ -50,6 +50,12 @@ class MelSTFT:
                                        min=0.0))
     mel = torch.matmul(magnitude, self.mel_basis_t)      # [B, N, n_mels]
     return torch.log(torch.clamp(mel, min=CLIP_VAL)).transpose(1, 2)
+
+  def get_mel(self, audio: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+    """One utterance [T] (numpy or tensor) -> log-mel [n_mels, n_frames]
+    on the device."""
+    audio = to_device(audio, self.device, torch.float32)
+    return self.mel_spectrogram(audio[None, :])[0]
 
   def get_wav_from_file(self, wav_path: Union[str, Path]) -> np.ndarray:
     """float32 samples of a wav file; raises ``ValueError`` on a sampling

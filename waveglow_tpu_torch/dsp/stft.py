@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from scipy.signal import get_window
 
-from waveglow_tpu_torch.device import resolve_device
+from waveglow_tpu_torch.device import resolve_device, to_device
 
 # Envelopes an STFT keeps on its device, one a frame count, least recently
 # used dropped first: a folder of distinct lengths keeps at most this many.
@@ -179,8 +179,8 @@ class STFT:
     if env is None:
       wss = window_sumsquare_np(self.window, n_frames, self.hop_length,
                                 self.win_length, self.filter_length)
-      env = torch.from_numpy(inverse_envelope(
-          wss, float(self.filter_length) / self.hop_length)).to(self.device)
+      env = to_device(inverse_envelope(
+          wss, float(self.filter_length) / self.hop_length), self.device)
       self._inv_env[n_frames] = env
       if len(self._inv_env) > ENV_CACHE_SIZE:
         self._inv_env.popitem(last=False)

@@ -27,7 +27,7 @@ from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
-from waveglow_tpu_torch.device import resolve_device
+from waveglow_tpu_torch.device import resolve_device, to_device
 from waveglow_tpu_torch.dsp.mel import CLIP_VAL
 from waveglow_tpu_torch.kernels.wn_layer import wn_layer_fused
 from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_KERNEL,
@@ -91,7 +91,7 @@ def stream_chunks(params, config: WaveGlowConfig, mel, *,
   if chunk_frames < 1:
     raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
   device = resolve_device(device)
-  mel = torch.as_tensor(mel, dtype=torch.float32, device=device)
+  mel = to_device(mel, device, torch.float32)
   seeds = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)
   if seeds.numel() == 1:
     seeds = seeds.expand(mel.shape[0])

@@ -22,14 +22,15 @@ import datetime
 import logging
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from waveglow_tpu_torch.checkpointing.from_jax import params_from_numpy
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
-from waveglow_tpu_torch.device import resolve_device
+from waveglow_tpu_torch.device import resolve_device, to_device
 from waveglow_tpu_torch.dsp.mel import CLIP_VAL
 from waveglow_tpu_torch.hparams import overwrite_custom_hparams
 from waveglow_tpu_torch.inference.denoiser import Denoiser
@@ -67,6 +68,38 @@ class ServingResult:
   duration_s: float
   was_overamplified: bool
   timepoint: datetime.datetime
+
+
+class ServingDispatch(NamedTuple):
+  """Serving work enqueued on the device: per dispatched batch, the request
+  indices of its rows and host buffers of its samples and per-row
+  max|wav|, filled by copies enqueued with it; ``event`` follows those
+  copies (None on the CPU, where the buffers are ready)."""
+  batches: List[Tuple[List[int], np.ndarray, np.ndarray]]
+  true_samples: List[int]
+  start: float
+  timepoint: datetime.datetime
+  event: Optional["torch.cuda.Event"]
+
+
+def enqueue_fetch(tensors: Sequence[torch.Tensor]
+                  ) -> Tuple[List[np.ndarray], Optional["torch.cuda.Event"]]:
+  """Device-to-host copies of ``tensors``, enqueued now behind the work that
+  makes them, into pinned host buffers (``non_blocking``), and an event
+  recorded after them. Waiting on the event waits for that work alone; a
+  blocking ``.cpu()`` made later is enqueued, and waits, behind whatever
+  other threads enqueued in between. Read the arrays only after
+  ``event.synchronize()``. CPU tensors are their own host arrays (event
+  None)."""
+  if not tensors or tensors[0].device.type != "cuda":
+    return [t.numpy() for t in tensors], None
+  host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+          for t in tensors]
+  for dst, src in zip(host, tensors):
+    dst.copy_(src, non_blocking=True)
+  event = torch.cuda.Event()
+  event.record()
+  return [h.numpy() for h in host], event
 
 
 def _per_request(value, n: int, name: str) -> np.ndarray:
@@ -192,7 +225,7 @@ class Synthesizer:
           "send a batch to infer_serving_many as one mel per request")
 
   def _to_device(self, mel: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(mel)).to(self.device)
+    return to_device(mel, self.device, torch.float32)
 
   @torch.inference_mode()
   def infer(self, mel: np.ndarray, *, sigma: float = 1.0,
@@ -315,18 +348,22 @@ class Synthesizer:
                   true_ns: np.ndarray, pcm16: bool):
     """Enqueue one fused serving batch: synthesis (per-row sigma, seed and
     true length), masked max|wav| per row, optional per-row-strength
-    denoise, optional PCM16. Returns device tensors (samples, max_abs)."""
-    true_t = torch.as_tensor(true_ns, dtype=torch.int64, device=self.device)
+    denoise, optional PCM16. Returns device tensors (samples, max_abs).
+    Nothing here waits for the device: the host inputs go over first, as
+    non-blocking copies (``device.to_device``)."""
+    true_t = to_device(true_ns, self.device, torch.int64)
+    strength = (None if strengths is None
+                else to_device(strengths, self.device, torch.float32))
     wav = infer(self.params, self.config, self._to_device(mel),
-                sigma=torch.as_tensor(sigmas, device=self.device),
-                seed=list(seeds), compute_dtype=self._cdt,
+                sigma=to_device(sigmas, self.device, torch.float32),
+                seed=to_device(np.asarray(seeds, np.int64), self.device),
+                compute_dtype=self._cdt,
                 true_frames=true_t // UPSAMPLE_STRIDE, device=self.device)
     n = wav.shape[-1]
     mask = torch.arange(n, device=self.device)[None, :] < true_t[:, None]
     max_abs = torch.amax(wav.abs() * mask, dim=-1)
     out = wav
-    if strengths is not None:
-      strength = torch.as_tensor(strengths, device=self.device)
+    if strength is not None:
       dn = self.denoiser(wav, strength.reshape(-1, 1, 1))
       if dn.shape[-1] < n:  # the iSTFT is frame-aligned: restore the length
         dn = torch.nn.functional.pad(dn, (0, n - dn.shape[-1]))
@@ -334,6 +371,18 @@ class Synthesizer:
     if pcm16:
       out = pcm16_on_device(out)
     return out, max_abs
+
+  def _dispatched(self, batches, true_samples: List[int], start: float,
+                  timepoint: datetime.datetime) -> ServingDispatch:
+    """The record of dispatched ``batches`` (each ``(request indices,
+    samples, max_abs)`` on the device), their fetch enqueued now
+    (:func:`enqueue_fetch`)."""
+    host, event = enqueue_fetch([t for _, samples, max_abs in batches
+                                 for t in (samples, max_abs)])
+    return ServingDispatch(
+        [(rows, host[2 * k], host[2 * k + 1])
+         for k, (rows, _, _) in enumerate(batches)],
+        true_samples, start, timepoint, event)
 
   def infer_serving(self, mel: np.ndarray, *, sigma: float = 1.0,
                     denoiser_strength: float = 0.0005, seed: int = 0,
@@ -349,9 +398,10 @@ class Synthesizer:
   def serving_dispatch(self, mel: np.ndarray, *, sigma: float = 1.0,
                        denoiser_strength: float = 0.0005, seed: int = 0,
                        bucket_frames: Optional[int] = 64,
-                       pcm16: bool = False):
-    """Enqueue one :meth:`infer_serving` request on the device; fetch
-    nothing. Returns a record for :meth:`serving_finalize`."""
+                       pcm16: bool = False) -> ServingDispatch:
+    """Enqueue one :meth:`infer_serving` request and its fetch on the
+    device; wait for nothing. Returns the record for
+    :meth:`serving_finalize`."""
     timepoint = datetime.datetime.now()
     mel, true_samples = self._prepare_mel(mel, bucket_frames)
     self._one_utterance(mel, "infer_serving")
@@ -361,17 +411,13 @@ class Synthesizer:
     samples, max_abs = self._serve_rows(
         mel, np.float32([sigma]), [seed], strengths,
         np.int64([true_samples]), pcm16)
-    return samples, max_abs, true_samples, start, timepoint
+    return self._dispatched([([0], samples, max_abs)], [true_samples],
+                            start, timepoint)
 
-  def serving_finalize(self, dispatched) -> ServingResult:
-    """Fetch a :meth:`serving_dispatch` record into a ServingResult."""
-    samples_dev, max_abs_dev, true_samples, start, timepoint = dispatched
-    samples = samples_dev[0, :true_samples].cpu().numpy()
-    was_overamplified = bool(max_abs_dev.cpu().numpy()[0] > 1.0)
-    return ServingResult(
-        samples=samples, sampling_rate=self.hparams.sampling_rate,
-        duration_s=time.perf_counter() - start,
-        was_overamplified=was_overamplified, timepoint=timepoint)
+  def serving_finalize(self, dispatched: ServingDispatch) -> ServingResult:
+    """Wait for a :meth:`serving_dispatch` record's fetch; its
+    ServingResult."""
+    return self.serving_many_finalize(dispatched)[0]
 
   def infer_serving_many(self, mels: Sequence[np.ndarray], *, sigma=1.0,
                          denoiser_strength=0.0005,
@@ -397,8 +443,10 @@ class Synthesizer:
                             denoiser_strength=0.0005,
                             seeds: Optional[Sequence[int]] = None,
                             bucket_frames: Optional[int] = 64,
-                            pcm16: bool = False, max_batch: int = 8):
-    """Enqueue the micro-batches on the device; fetch nothing."""
+                            pcm16: bool = False, max_batch: int = 8
+                            ) -> ServingDispatch:
+    """Enqueue the micro-batches and their fetch on the device; wait for
+    nothing."""
     timepoint = datetime.datetime.now()
     n = len(mels)
     seeds = [0] * n if seeds is None else list(seeds)
@@ -417,7 +465,7 @@ class Synthesizer:
       groups.setdefault((mel.shape[-1], bool(strengths[i] > 0)), []).append(i)
 
     start = time.perf_counter()
-    pending = []
+    batches = []
     for padded_f, denoise in sorted(groups):
       idxs = groups[(padded_f, denoise)]
       pos = 0
@@ -433,22 +481,24 @@ class Synthesizer:
             strengths[rows] if denoise else None,
             np.asarray([prepared[i][1] for i in rows], dtype=np.int64),
             pcm16)
-        pending.append((rows, samples, max_abs))
-    return pending, prepared, n, start, timepoint
+        batches.append((rows, samples, max_abs))
+    return self._dispatched(batches, [true for _, true in prepared], start,
+                            timepoint)
 
-  def serving_many_finalize(self, dispatched) -> List[ServingResult]:
-    """Fetch a :meth:`serving_many_dispatch` record into ServingResults."""
-    pending, prepared, n, start, timepoint = dispatched
-    out: List[Optional[ServingResult]] = [None] * n
-    for rows, samples_dev, max_abs_dev in pending:
-      samples = samples_dev.cpu().numpy()
-      max_abs = max_abs_dev.cpu().numpy()
-      duration_s = time.perf_counter() - start
+  def serving_many_finalize(self, dispatched: ServingDispatch
+                            ) -> List[ServingResult]:
+    """Wait for a dispatch record's fetch (its event alone); its
+    ServingResults, in request order."""
+    if dispatched.event is not None:
+      dispatched.event.synchronize()
+    duration_s = time.perf_counter() - dispatched.start
+    out: List[Optional[ServingResult]] = [None] * len(dispatched.true_samples)
+    for rows, samples, max_abs in dispatched.batches:
       for row, i in enumerate(rows):
         out[i] = ServingResult(
-            samples=samples[row, :prepared[i][1]],
+            samples=samples[row, :dispatched.true_samples[i]],
             sampling_rate=self.hparams.sampling_rate,
             duration_s=duration_s,
             was_overamplified=bool(max_abs[row] > 1.0),
-            timepoint=timepoint)
+            timepoint=dispatched.timepoint)
     return out  # type: ignore[return-value]

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from waveglow_tpu_torch.device import resolve_device
+from waveglow_tpu_torch.device import resolve_device, to_device
 from waveglow_tpu_torch.hparams import HParams
 from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
                                                  wn_layer_trainable)
@@ -297,8 +297,7 @@ def block_noise(seeds: Union[int, Sequence[int], torch.Tensor],
   same values at the same positions, and a row's noise does not depend on
   what it is batched with.
   """
-  seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
-  seeds = seeds.reshape(-1)
+  seeds = to_device(seeds, device, torch.int64).reshape(-1)
   batch = seeds.numel()
   seed_key = _hash32(_hash32(seeds & _MASK32) ^ ((seeds >> 32) & _MASK32))
   groups = torch.arange(start_group, start_group + n_groups,
@@ -338,7 +337,7 @@ def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
   zeroed, so kept samples equal the unpadded call's.
   """
   device = resolve_device(device)
-  spect = torch.as_tensor(spect, dtype=torch.float32, device=device)
+  spect = to_device(spect, device, torch.float32)
   up = upsample_mel(params, spect, compute_dtype)
   up = up[:, :-(UPSAMPLE_KERNEL - UPSAMPLE_STRIDE), :]
   batch = up.shape[0]
@@ -361,13 +360,13 @@ def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
         raise ValueError(f"noise shape {tuple(n.shape)} != expected {s}")
     noise = [torch.as_tensor(n, dtype=torch.float32, device=device)
              for n in noise]
-  sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+  sigma = to_device(sigma, device, torch.float32)
   if sigma.ndim:
     sigma = sigma.reshape(-1, 1, 1)
 
   valid_t = None
   if true_frames is not None:
-    frames = torch.as_tensor(true_frames, dtype=torch.int32, device=device)
+    frames = to_device(true_frames, device, torch.int32)
     valid_t = (frames.reshape(-1) * config.groups_per_frame).expand(
         batch).contiguous()
 
