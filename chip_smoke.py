@@ -78,7 +78,22 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      826-frame requests dispatched from another thread, and the solo one
      finalized before the batch's event completes and within 1.5x of its
      solo time.
-  9. a `kernels` JSON line, the card's name and power limit, and last the
+  9. cli: the command line at full width in f32 and bf16. The reference
+     `.pt` (export_torch_checkpoint) and NVIDIA's raw form (legacy
+     weight_g/weight_v names in the "model" slot) are written with torch;
+     `download` fetches the raw form from a server on 127.0.0.1 and
+     converts it, bit for bit the params, 12 x 8 x 256 derived from its
+     shapes; `synthesize` of phase 4's four requests from the .pt and from
+     the npz, --batch 1 and 4, every file bit for bit normalize_wav + int16
+     of Synthesizer.infer (infer_serving_many for --batch 4) in this
+     process, the .pt's files equal the npz's, WN launches at the count the
+     dispatch rule gives; `synthesize-wav` of two cuts of the speech
+     fixture against MelSTFT.get_mel_from_file + infer; `serve` as a
+     subprocess (`python -m waveglow_tpu_torch serve <pt>`): /healthz, one
+     body against this process's infer_serving, /reload of the .pt
+     refused and of the npz taken, SIGTERM drains and it exits 0 within
+     30 s.
+ 10. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -90,10 +105,15 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import functools
+import http.server
 import json
 import re
 import shutil
+import signal
+import socket
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -105,9 +125,17 @@ import torch
 import torch.nn.functional as F
 from scipy.io import wavfile
 
+from waveglow_tpu_torch.checkpointing import download, load_checkpoint_any
+from waveglow_tpu_torch.checkpointing.export_torch import (
+    export_torch_checkpoint, params_to_state_dict)
 from waveglow_tpu_torch.checkpointing.from_jax import (
     trainable_params_from_numpy, tree_leaves)
-from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+from waveglow_tpu_torch.checkpointing.import_torch import \
+    derive_hparams_from_state_dict
+from waveglow_tpu_torch.checkpointing.store import (CheckpointWaveglow,
+                                                    flatten_tree)
+from waveglow_tpu_torch.cli import main as cli_main
+from waveglow_tpu_torch.dsp.audio_io import convert_wav, normalize_wav
 from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
 from waveglow_tpu_torch.inference.client import SynthesisClient
@@ -146,7 +174,8 @@ SLICE_TOL_REL = {"f32": 1e-3, "bf16": 5e-2}
 # Training: batch 12 as in the train_config of NVIDIA's published WaveGlow
 # config.json, HParams' segment of 16,000 samples (2,000 groups), 24 files
 # so an epoch is 2 batches, saves every 3 steps and none at epoch ends.
-FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "audio.wav"
+ROOT = Path(__file__).resolve().parent
+FIXTURE = ROOT / "tests" / "fixtures" / "audio.wav"
 B_TRAIN = 12
 T_TRAIN = 2_000
 N_WAVS = 24
@@ -233,6 +262,11 @@ C9_FRAMES = 200
 C9_RATIO = 1.5
 C9_REPS = 5
 C9_ROUNDS = 3
+
+# The CLI (phase 9): synthesize's --batch, and the (start, length) in samples
+# of the two cuts of the speech fixture that synthesize-wav reads.
+CLI_BATCH = 4
+CLI_WAV_CUTS = ((22_050, 30_000), (120_000, 41_000))
 
 MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
@@ -1813,6 +1847,351 @@ def phase_serve(ckpt: CheckpointWaveglow, paths: dict, mode: str,
   return info
 
 
+# -- phase 9 ---------------------------------------------------------------
+
+def cli_dispatch_rows(frames, bucket: int, batch: int) -> list:
+  """Rows of each synthesis dispatch a ``synthesize`` run makes for files
+  of these frame counts, in file order. ``--batch 1``: one a file. Else the
+  files go in slices of 8 x batch, each slice grouped by padded length
+  (``bucket``, 0 for none), each group split into power-of-two batches of
+  at most ``batch`` rows, largest first (``serving_many_dispatch``)."""
+  if batch == 1:
+    return [1] * len(frames)
+  rows = []
+  for s in range(0, len(frames), 8 * batch):
+    groups = {}
+    for f in frames[s:s + 8 * batch]:
+      padded = -(-f // bucket) * bucket if bucket else f
+      groups[padded] = groups.get(padded, 0) + 1
+    for padded in sorted(groups):
+      left = groups[padded]
+      while left:
+        b = 1
+        while b * 2 <= min(left, batch):
+          b *= 2
+        rows.append(b)
+        left -= b
+  return rows
+
+
+def expected_cli_launches(frames, bucket: int, batch: int,
+                          per_synthesis: int) -> int:
+  """WN launches of one ``synthesize`` or ``synthesize-wav`` run: the
+  Synthesizer's denoiser-bias capture (one synthesis) and one synthesis a
+  dispatch."""
+  return expected_launches(cli_dispatch_rows(frames, bucket, batch), [1],
+                           per_synthesis)
+
+
+def expected_pcm(wav: np.ndarray) -> np.ndarray:
+  """What the synthesis commands write for a waveform: peak-normalized,
+  int16."""
+  return convert_wav(normalize_wav(np.asarray(wav)), np.int16)
+
+
+def pcm_mismatch(path: Path, want: np.ndarray, sr: int):
+  """None if the wav file at ``path`` holds exactly ``want`` (int16 at
+  ``sr`` Hz), else what differs."""
+  rate, got = wavfile.read(path)
+  if rate != sr or got.dtype != want.dtype or got.shape != want.shape:
+    return (f"{path.name}: {rate} Hz {got.dtype} {got.shape}, expected "
+            f"{sr} Hz {want.dtype} {want.shape}")
+  diff = np.flatnonzero(got != want)
+  if diff.size:
+    return (f"{path.name}: {diff.size} samples differ, first at {diff[0]}, "
+            f"max |diff| {int(np.abs(got.astype(int) - want).max())}")
+  return None
+
+
+def legacy_state_dict(params: dict) -> dict:
+  """The params as NVIDIA's state dicts name them (legacy
+  ``weight_g``/``weight_v``)."""
+  return {k.replace(".parametrizations.weight.original0", ".weight_g")
+          .replace(".parametrizations.weight.original1", ".weight_v"): v
+          for k, v in params_to_state_dict(params).items()}
+
+
+def free_port() -> int:
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    return sock.getsockname()[1]
+
+
+def run_cli(args, log_path: Path) -> dict:
+  """``waveglow-tpu-torch <args>`` in this process: its wall seconds and,
+  where it builds a Synthesizer, the seconds after that (the file loop). A
+  nonzero exit fails the run."""
+  built = []
+  init = Synthesizer.__init__
+
+  def timed_init(self, *a, **k):
+    init(self, *a, **k)
+    built.append(time.perf_counter())
+
+  Synthesizer.__init__ = timed_init
+  t0 = time.perf_counter()
+  try:
+    rc = cli_main.run([*map(str, args), "--log", str(log_path)])
+  finally:
+    Synthesizer.__init__ = init
+  t1 = time.perf_counter()
+  if rc != 0:
+    fail(f"cli {args[0]} exited {rc}; log {log_path}:\n"
+         + log_path.read_text()[-3000:])
+  return {"wall_s": t1 - t0, "after_model_s": t1 - built[0] if built else None}
+
+
+def cli_download(params: dict, hparams: HParams, tmp: Path) -> dict:
+  """``download`` of NVIDIA's raw form from a server on 127.0.0.1, then
+  the converted npz against the params, bit for bit."""
+  srv = tmp / "srv"
+  srv.mkdir()
+  sd = legacy_state_dict(params)
+  raw = srv / "waveglow_256channels_ljs_v3.pt"
+  t0 = time.perf_counter()
+  torch.save({"model": sd, "iteration": 580000}, str(raw))
+  write_s = time.perf_counter() - t0
+  hp = derive_hparams_from_state_dict(sd)
+  arch = (hp.n_flows, hp.n_layers, hp.n_channels, hp.n_group,
+          hp.n_early_every, hp.n_early_size)
+  want_arch = (hparams.n_flows, hparams.n_layers, hparams.n_channels,
+               hparams.n_group, hparams.n_early_every, hparams.n_early_size)
+  if arch != want_arch:
+    fail(f"cli: derived architecture {arch}, expected {want_arch}")
+  handler = type("Quiet", (http.server.SimpleHTTPRequestHandler,),
+                 {"log_message": lambda self, *a: None})
+  httpd = http.server.ThreadingHTTPServer(
+      ("127.0.0.1", 0), functools.partial(handler, directory=str(srv)))
+  thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+  thread.start()
+  real_download = download.download_pretrained_model
+  timed = {}
+
+  def timed_download(*args, **kwargs):
+    t = time.perf_counter()
+    real_download(*args, **kwargs)
+    timed["download_s"] = time.perf_counter() - t
+
+  url, download._NGC_URLS[3] = download._NGC_URLS[3], (
+      f"http://127.0.0.1:{httpd.server_port}/{raw.name}")
+  download.download_pretrained_model = timed_download
+  dest = tmp / "downloaded" / "waveglow.pt"
+  try:
+    wall = run_cli(["download", dest, "--ver", 3],
+                   tmp / "download.log")["wall_s"]
+  finally:
+    download._NGC_URLS[3] = url
+    download.download_pretrained_model = real_download
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(SERVE_TIMEOUT_S)
+  converted = CheckpointWaveglow.load(dest)
+  want, got = flatten_tree(params), flatten_tree(converted.state_dict)
+  bad = sorted(k for k in want.keys() | got.keys()
+               if k not in want or k not in got
+               or got[k].dtype != want[k].dtype
+               or not np.array_equal(got[k], want[k]))
+  if bad or converted.iteration != 580000:
+    fail(f"cli: the converted npz differs from the params at {bad[:5]} "
+         f"(iteration {converted.iteration})")
+  info = {"raw_pt_bytes": raw.stat().st_size, "npz_bytes": dest.stat().st_size,
+          "raw_pt_write_s": write_s, "download_s": timed["download_s"],
+          "convert_s": wall - timed["download_s"], "command_s": wall,
+          "architecture": arch, "params_bit_exact": True, "path": dest}
+  log("cli download " + json.dumps({k: v for k, v in info.items()
+                                    if k != "path"}))
+  return info
+
+
+def serve_subprocess(pt: Path, npz: Path, mode: str, mel: np.ndarray,
+                     seed: int, tmp: Path) -> dict:
+  """``python -m waveglow_tpu_torch serve <pt>`` in its own process:
+  /healthz, one /synthesize body against this process's infer_serving of
+  the same checkpoint, /reload of the .pt refused and of the npz taken,
+  then SIGTERM, which must drain and exit 0 within 30 s."""
+  dtype = "bfloat16" if mode == "bf16" else "float32"
+  port = free_port()
+  log_path = tmp / f"serve_{mode}.log"
+  ref_synth = Synthesizer(load_checkpoint_any(pt), compute_dtype=dtype,
+                          device=DEVICE)
+  want = ref_synth.infer_serving(mel, seed=seed, bucket_frames=BUCKET)
+  del ref_synth
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  with open(log_path, "w") as out:
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "waveglow_tpu_torch", "serve", str(pt),
+         "--port", str(port), "--compute-dtype", dtype,
+         "--log", str(tmp / f"serve_{mode}.cli.log")],
+        cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+  info = {"mode": mode}
+  try:
+    client = SynthesisClient(f"http://127.0.0.1:{port}",
+                             timeout_s=SERVE_TIMEOUT_S)
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    while True:
+      if proc.poll() is not None:
+        fail(f"cli serve {mode} exited {proc.returncode} before answering:\n"
+             + log_path.read_text()[-3000:])
+      try:
+        health = client.health()
+        break
+      except OSError:
+        if time.monotonic() > deadline:
+          fail(f"cli serve {mode}: no /healthz within {SERVE_TIMEOUT_S} s")
+        time.sleep(0.2)
+    info["ready_s"] = time.perf_counter() - t0
+    if health["status"] != "ok" or health["model"]["compute_dtype"] != dtype:
+      fail(f"cli serve {mode}: /healthz {health}")
+    got = client.synthesize(mel, seed=seed)
+    if got.shape != want.samples.shape:
+      fail(f"cli serve {mode}: body of {got.shape}, expected "
+           f"{want.samples.shape}")
+    err = float(np.abs(got - want.samples).max())
+    bound = SLICE_TOL_REL[mode] * float(np.abs(want.samples).max())
+    info.update(bitwise=bool(np.array_equal(got, want.samples)),
+                max_abs_vs_in_process=err, bound=bound)
+    if err > bound:
+      fail(f"cli serve {mode}: the daemon's body differs from infer_serving "
+           f"in this process by {err} > {bound}")
+    try:
+      client.reload(pt)
+      fail(f"cli serve {mode}: /reload of a .pt was accepted without "
+           "--allow-torch-reload")
+    except urllib.error.HTTPError as e:
+      refusal = json.loads(e.read()).get("error", "")
+      e.close()
+      if e.code != 400 or "refusing to hot-swap" not in refusal:
+        fail(f"cli serve {mode}: /reload of a .pt got {e.code} {refusal}")
+    reloaded = client.reload(npz)
+    if reloaded.get("status") != "reloaded" or (
+        reloaded.get("iteration") != 580000):
+      fail(f"cli serve {mode}: /reload of the npz gave {reloaded}")
+    info["reload"] = {"pt": "refused (400)", "npz": reloaded}
+    t_term = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+      rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+      fail(f"cli serve {mode}: still running 30 s after SIGTERM")
+    info.update(sigterm_exit_s=time.perf_counter() - t_term, exit_code=rc)
+    if rc != 0:
+      fail(f"cli serve {mode}: exited {rc} after SIGTERM:\n"
+           + log_path.read_text()[-3000:])
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
+  return info
+
+
+def phase_cli(params: dict, hparams: HParams, seed: int, tmp: Path) -> dict:
+  """The CLI on the card at full width: ``download`` of NVIDIA's raw form;
+  ``synthesize`` from the reference ``.pt`` and the converted npz,
+  ``--batch 1`` and ``4``; ``synthesize-wav``; ``serve`` as a subprocess;
+  in f32 and bf16. Every file bit for bit against in-process synthesis,
+  launches against the count derived from the code."""
+  per_synthesis = hparams.n_flows * hparams.n_layers
+  sr = hparams.sampling_rate
+  pt = tmp / "reference.pt"
+  t0 = time.perf_counter()
+  export_torch_checkpoint(
+      CheckpointWaveglow.from_params(params, hparams, iteration=1), pt)
+  info = {"reference_pt_bytes": pt.stat().st_size,
+          "reference_pt_write_s": time.perf_counter() - t0}
+  dl = cli_download(params, hparams, tmp)
+  npz = dl.pop("path")
+  info["download"] = dl
+
+  rng = np.random.default_rng(seed)   # phase 4's requests
+  mels = [rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32) for f in FRAMES]
+  mel_dir = tmp / "mels"
+  mel_dir.mkdir()
+  names = [f"{i}_{f}" for i, f in enumerate(FRAMES)]
+  for name, mel in zip(names, mels):
+    np.save(mel_dir / f"{name}.npy", mel)
+  audio_s = sum(FRAMES) * UPSAMPLE_STRIDE / sr
+  sr_fixture, speech = wavfile.read(FIXTURE)
+  cuts = [speech[a:a + n] for a, n in CLI_WAV_CUTS]
+  cut_frames = [len(c) // UPSAMPLE_STRIDE + 1 for c in cuts]
+  info["modes"] = {}
+  for mode in MODES:
+    dtype = "bfloat16" if mode == "bf16" else "float32"
+    t0 = time.perf_counter()
+    synth = Synthesizer(load_checkpoint_any(pt), compute_dtype=dtype,
+                        device=DEVICE)
+    load_s = time.perf_counter() - t0
+    solo = [synth.infer(m, seed=seed, bucket_frames=BUCKET).wav_denoised
+            for m in mels]
+    many = [r.samples for r in synth.infer_serving_many(
+        mels, seeds=[seed] * len(mels), bucket_frames=BUCKET,
+        max_batch=CLI_BATCH)]
+    rec = {"load_and_construct_s": load_s, "runs": {}}
+    launches = 0
+    for batch, refs in ((1, solo), (CLI_BATCH, many)):
+      expected = expected_cli_launches(FRAMES, BUCKET, batch, per_synthesis)
+      outs = {}
+      for source, ckpt_path in (("pt", pt), ("npz", npz)):
+        out = tmp / f"out_{mode}_{source}_b{batch}"
+        kl.LAUNCHES = 0
+        times = run_cli(["synthesize", ckpt_path, mel_dir, "--custom-seed",
+                         seed, "--batch", batch, "--compute-dtype", dtype,
+                         "-out", out], tmp / "synthesize.log")
+        got = kl.LAUNCHES
+        launches += got
+        if got != expected:
+          fail(f"cli synthesize {mode} --batch {batch} from the {source}: "
+               f"{got} WN launches, expected {expected}")
+        for name, ref in zip(names, refs):
+          bad = pcm_mismatch(out / f"{name}.wav", expected_pcm(ref), sr)
+          if bad:
+            fail(f"cli synthesize {mode} --batch {batch} from the {source}: "
+                 f"{bad}")
+        outs[source] = out
+        rec["runs"][f"{source}_batch{batch}"] = {
+            **times, "audio_s_per_s": audio_s / times["wall_s"],
+            "file_loop_audio_s_per_s": audio_s / times["after_model_s"],
+            "launches": got, "expected_launches": expected,
+            "dispatch_rows": cli_dispatch_rows(FRAMES, BUCKET, batch)}
+      for name in names:
+        if ((outs["pt"] / f"{name}.wav").read_bytes()
+            != (outs["npz"] / f"{name}.wav").read_bytes()):
+          fail(f"cli synthesize {mode} --batch {batch}: {name}.wav from the "
+               ".pt and from the npz differ")
+    # copy synthesis: two cuts of the speech fixture, outputs beside them
+    wav_dir = tmp / f"wavs_{mode}"
+    wav_dir.mkdir()
+    for i, cut in enumerate(cuts):
+      wavfile.write(wav_dir / f"cut{i}.wav", sr_fixture, cut)
+    expected = expected_cli_launches(cut_frames, BUCKET, 1, per_synthesis)
+    kl.LAUNCHES = 0
+    times = run_cli(["synthesize-wav", npz, wav_dir, "--custom-seed", seed,
+                     "--compute-dtype", dtype], tmp / "synthesize_wav.log")
+    got = kl.LAUNCHES
+    launches += got
+    if got != expected:
+      fail(f"cli synthesize-wav {mode}: {got} WN launches, expected "
+           f"{expected}")
+    mel_op = MelSTFT(synth.hparams, device=DEVICE)
+    for i in range(len(cuts)):
+      mel = mel_op.get_mel_from_file(wav_dir / f"cut{i}.wav").cpu().numpy()
+      want = expected_pcm(synth.infer(mel, seed=seed,
+                                      bucket_frames=BUCKET).wav_denoised)
+      bad = pcm_mismatch(wav_dir / f"cut{i}.synthesized.wav", want, sr)
+      if bad:
+        fail(f"cli synthesize-wav {mode}: {bad}")
+    rec["synthesize_wav"] = {**times, "launches": got,
+                             "expected_launches": expected,
+                             "frames": cut_frames}
+    rec["launches"] = launches
+    del synth, mel_op
+    torch.cuda.empty_cache()
+    rec["serve"] = serve_subprocess(pt, npz, mode, mels[-1], seed, tmp)
+    log(f"cli {mode} " + json.dumps(dict(rec, card=nvidia_smi_line())))
+    info["modes"][mode] = rec
+  return info
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -1850,6 +2229,7 @@ def main() -> None:
                                        paths["other"])
     serves = {mode: phase_serve(ckpt, paths, mode, args.seed)
               for mode in MODES}
+    clis = phase_cli(ckpt.state_dict, HParams(), args.seed, Path(tmp))
 
   kernels = []
   for mode in MODES:
@@ -1861,7 +2241,8 @@ def main() -> None:
         "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
         "replaces": "waveglow_tpu/kernels/wn_layer.py:259",
         "launches": (slices[mode]["launches"] + streams[mode]["launches"]
-                     + serves[mode]["launches"]),
+                     + serves[mode]["launches"]
+                     + clis["modes"][mode]["launches"]),
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1875,6 +2256,7 @@ def main() -> None:
         "stream_launches_per_window": streams[mode]["launches_per_window"],
         "daemon_launches": serves[mode]["launches"],
         "daemon_dispatches": serves[mode]["dispatches"],
+        "cli_launches": clis["modes"][mode]["launches"],
         # the last layer and B=8, each with its library yardstick
         **{f"{key}_{case}": kernel["timed"][shape][key]
            for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
@@ -1954,7 +2336,7 @@ def main() -> None:
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
-            "streams": streams, "serves": serves,
+            "streams": streams, "serves": serves, "cli": clis,
             "trainable_cases": trainable["cases"], "train": trains,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -6,7 +6,9 @@ ptxas log and SASS and must know each kernel variant's mangled name;
 ``leaf_norm_rel_errors`` is the train-step check's gradient metric;
 ``latency_summary``, ``stream_windows``, ``expected_launches``,
 ``count_dispatches`` and ``c9_failures`` are the serving phase's
-percentiles, launch accounting and C9 timing predicate.
+percentiles, launch accounting and C9 timing predicate;
+``cli_dispatch_rows``, ``expected_cli_launches`` and ``pcm_mismatch`` are
+the CLI phase's launch accounting and its file-for-file comparison.
 """
 
 import importlib.util
@@ -361,3 +363,60 @@ def test_count_dispatches_records_rows_and_passes_through(smoke):
 def test_c9_predicate(smoke, result_s, batch_done, flags):
   assert smoke.C9_RATIO == 1.5
   assert len(smoke.c9_failures(result_s, 0.025, batch_done)) == flags
+
+
+def test_cli_dispatch_rows_follow_the_synthesizer(smoke):
+  """``synthesize --batch`` dispatches as ``serving_many_dispatch`` groups
+  a slice of files (read off a tiny CPU Synthesizer); one synthesis a file
+  at ``--batch 1``."""
+  from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.inference.synthesizer import Synthesizer
+  from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, init_params
+  hp = overwrite_custom_hparams(HParams(), {
+      "n_flows": "2", "n_early_every": "1", "n_layers": "1",
+      "n_channels": "8"})
+  synth = Synthesizer(CheckpointWaveglow.from_params(
+      init_params(WaveGlowConfig.from_hparams(hp), seed=0), hp),
+                      device="cpu")
+  rows = smoke.count_dispatches(synth)
+  frames = [10, 12, 23, 14, 9, 30, 5]
+  mels = [np.zeros((80, f), np.float32) for f in frames]
+  synth.infer_serving_many(mels, bucket_frames=16, max_batch=4)
+  assert rows == smoke.cli_dispatch_rows(frames, 16, 4) == [4, 1, 2]
+  assert smoke.cli_dispatch_rows(frames, 16, 1) == [1] * 7
+  assert smoke.cli_dispatch_rows(frames, 0, 4) == [1] * 7  # all distinct
+  assert smoke.cli_dispatch_rows([7] * 33, 16, 4) == [4] * 8 + [1]  # slices
+
+
+def test_expected_cli_launches_flags_a_wrong_route(smoke):
+  """Phase 9's four requests at full width: the bias capture and 4 files
+  (480 launches) at ``--batch 1``; the bias capture and 3 dispatches
+  (200 and 230 frames share a 256-frame bucket) at ``--batch 4`` (384). A
+  run that did not batch, or ran a synthesis more, is flagged."""
+  frames = smoke.FRAMES
+  assert smoke.expected_cli_launches(frames, 64, 1, 96) == 480
+  assert smoke.expected_cli_launches(frames, 64, 4, 96) == 384
+  assert smoke.expected_cli_launches(frames, 16, 4, 96) == 480
+  assert 480 != smoke.expected_cli_launches(frames, 64, 4, 96)
+  assert 480 + 96 != smoke.expected_cli_launches(frames, 64, 1, 96)
+
+
+def test_pcm_mismatch_flags_each_difference(smoke, tmp_path):
+  """None for the exact file; a message for one sample off, a sample
+  rate, a length and a sample format that differ."""
+  from scipy.io import wavfile
+  wav = np.sin(np.linspace(0, 50, 999)).astype(np.float32) * 0.3
+  want = smoke.expected_pcm(wav)
+  assert want.dtype == np.int16 and np.abs(want).max() == 32767
+  path = tmp_path / "a.wav"
+  wavfile.write(path, 22050, want)
+  assert smoke.pcm_mismatch(path, want, 22050) is None
+  off = want.copy()
+  off[500] += 1
+  assert "1 samples differ, first at 500" in smoke.pcm_mismatch(path, off,
+                                                                22050)
+  assert smoke.pcm_mismatch(path, want, 16000) is not None
+  assert smoke.pcm_mismatch(path, want[:-1], 22050) is not None
+  wavfile.write(path, 22050, wav)  # float32 samples
+  assert smoke.pcm_mismatch(path, want, 22050) is not None

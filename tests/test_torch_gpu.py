@@ -550,3 +550,41 @@ def test_serving_dispatch_and_fetch_wait_for_nothing_else(cuda,
   assert not after.query()
   np.testing.assert_array_equal(res.samples, ref.samples)
   torch.cuda.synchronize()
+
+
+# -- checkpoint interop on the card ------------------------------------------
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pt_import_synthesizes_like_the_npz(cuda, tmp_path, compute_dtype):
+  """A reference ``.pt`` imported and synthesized at full width (12 x 8 x
+  256) on the card equals the npz route bit for bit, 96 kernel launches a
+  synthesis."""
+  from waveglow_tpu_torch.checkpointing import load_checkpoint_any
+  from waveglow_tpu_torch.checkpointing.export_torch import \
+      export_torch_checkpoint
+  from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+  from waveglow_tpu_torch.hparams import HParams
+  from waveglow_tpu_torch.inference.synthesizer import Synthesizer
+  from waveglow_tpu_torch.models import waveglow as wg
+  hp = HParams()
+  params = wg.init_params(wg.WaveGlowConfig.from_hparams(hp), seed=0)
+  rng = np.random.default_rng(1)
+  for flow in params["flows"]:
+    end = flow["wn"]["end"]
+    end["w"] = (rng.standard_normal(end["w"].shape) * 0.02).astype(np.float32)
+    end["b"] = (rng.standard_normal(end["b"].shape) * 0.02).astype(np.float32)
+  ckpt = CheckpointWaveglow.from_params(params, hp, iteration=3)
+  ckpt.save(tmp_path / "c.npz")
+  export_torch_checkpoint(ckpt, tmp_path / "c.pt")
+  mel = rng.uniform(-11.0, 1.0, (80, 60)).astype(np.float32)
+  outs = {}
+  for name in ("c.npz", "c.pt"):
+    synth = Synthesizer(load_checkpoint_any(tmp_path / name),
+                        compute_dtype=compute_dtype, device="cuda")
+    before = kl.LAUNCHES
+    outs[name] = synth.infer(mel, seed=4).wav_denoised
+    assert kl.LAUNCHES - before == hp.n_flows * hp.n_layers == 96
+    del synth
+  assert outs["c.pt"].shape == (60 * 256,)
+  assert np.isfinite(outs["c.pt"]).all()
+  np.testing.assert_array_equal(outs["c.pt"], outs["c.npz"])

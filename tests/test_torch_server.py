@@ -531,7 +531,9 @@ def test_reload_swaps_npz_weights_and_refuses_torch(client, service,
   with pytest.raises(urllib.error.HTTPError) as e:
     client.reload(pt)
   assert e.value.code == 400
-  assert "no torch importer" in json.loads(e.value.read())["error"]
+  # refused by the pickle gate before anything is read
+  assert "refusing to hot-swap a torch-format checkpoint" in json.loads(
+      e.value.read())["error"]
   e.value.close()
   wide = tiny_checkpoint(n_channels="16")
   wide.save(tmp_path / "wide.npz")
@@ -577,9 +579,9 @@ def test_sniff_and_load_checkpoint_as(tmp_path):
   assert sniff_checkpoint_format(tmp_path / "legacy.pt") == "torch"
   assert sniff_checkpoint_format(tmp_path / "ckpt.orbax") == "orbax"
   assert load_checkpoint_as(tmp_path / "c.npz", "npz").iteration == 12
-  with pytest.raises(ValueError, match="no torch importer"):
+  with pytest.raises(ValueError, match="unrecognized torch checkpoint"):
     load_checkpoint_as(tmp_path / "zip.pt", "torch")
-  with pytest.raises(ValueError, match="no orbax importer"):
+  with pytest.raises(ValueError, match="reads no orbax checkpoint"):
     load_checkpoint_as(tmp_path / "ckpt.orbax", "orbax")
   with pytest.raises(ValueError, match="unknown checkpoint format"):
     load_checkpoint_as(tmp_path / "c.npz", "exotic")

@@ -4,7 +4,8 @@ Both packages share one parameter layout, so this is a fold (weight-norm and
 1x1 inverses, on the host in numpy, for synthesis) or a plain move (trainable
 ``(g, v)`` leaves, for training) onto the device — no layout transform
 exists. :func:`tree_leaves` lists leaves in ``jax.tree_util``'s order
-(dict keys sorted, lists in order), the order optax lays its state out in.
+(dict keys sorted, lists in order), the order optax lays its state out in;
+:func:`tree_unflatten` puts such a list back into a tree's shape.
 """
 
 from __future__ import annotations
@@ -56,3 +57,23 @@ def tree_leaves(tree: Any) -> List[Any]:
   if isinstance(tree, (list, tuple)):
     return [leaf for v in tree for leaf in tree_leaves(v)]
   return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
+  """A tree shaped like ``tree`` whose leaves are ``leaves``, taken in
+  :func:`tree_leaves` order (the inverse of ``tree_leaves``); raises
+  ``ValueError`` when the counts differ."""
+  it = iter(leaves)
+
+  def build(node):
+    if isinstance(node, dict):
+      built = {k: build(node[k]) for k in sorted(node)}
+      return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+      return type(node)(build(v) for v in node)
+    return next(it)
+
+  n = len(tree_leaves(tree))
+  if len(leaves) != n:
+    raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+  return build(tree)

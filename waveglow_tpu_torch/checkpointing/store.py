@@ -6,7 +6,8 @@ params pytree (nested dicts/lists of numpy arrays) is flattened to
 ``'/'``-joined ``params/`` keys, optimizer leaves ride positionally under
 ``__opt__/<i>`` (passed through as numpy, untouched), and the metadata
 (learning rate, iteration, hparams) is a JSON entry ``__meta__``. Saves are
-atomic (tmp file + rename).
+atomic (tmp file + rename). The directory helpers list and pick saves
+by iteration.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import tempfile
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -136,3 +137,86 @@ class CheckpointWaveglow:
     return cls(state_dict=unflatten_tree(params_flat), optimizer=optimizer,
                learning_rate=meta["learning_rate"],
                iteration=meta["iteration"], hparams=meta["hparams"])
+
+
+# -- checkpoint directories ---------------------------------------------------
+# One ``<iteration>.npz`` file per save; the JAX package's orbax backend
+# writes ``<iteration>.orbax`` directories beside them. The port reads no
+# orbax checkpoint, but it lists them, so a directory whose newest save is
+# an orbax one is never mistaken for one that ends at an older npz.
+
+ORBAX_SUFFIX = ".orbax"
+_ORBAX_STATE_ITEM = "state"
+
+
+def get_checkpoint_filename(iteration: int) -> str:
+  return f"{iteration}{CKPT_EXT}"
+
+
+def get_all_checkpoint_iterations(checkpoint_dir: Path) -> List[int]:
+  checkpoint_dir = Path(checkpoint_dir)
+  if not checkpoint_dir.is_dir():
+    return []
+  return sorted(int(p.stem) for p in checkpoint_dir.iterdir()
+                if p.suffix == CKPT_EXT and p.stem.isdigit())
+
+
+def get_last_checkpoint(checkpoint_dir: Path) -> Tuple[Path, int]:
+  its = get_all_checkpoint_iterations(checkpoint_dir)
+  if not its:
+    raise FileNotFoundError(f"No checkpoint found in {checkpoint_dir}")
+  last = max(its)
+  return Path(checkpoint_dir) / get_checkpoint_filename(last), last
+
+
+def get_checkpoint(checkpoint_dir: Path, iteration: int) -> Path:
+  path = Path(checkpoint_dir) / get_checkpoint_filename(iteration)
+  if not path.is_file():
+    raise FileNotFoundError(
+        f"Checkpoint with iteration {iteration} not found in {checkpoint_dir}")
+  return path
+
+
+def get_custom_or_last_checkpoint(
+    checkpoint_dir: Path, custom_iteration: Optional[int]) -> Tuple[Path, int]:
+  if custom_iteration is not None:
+    return get_checkpoint(checkpoint_dir, custom_iteration), custom_iteration
+  return get_last_checkpoint(checkpoint_dir)
+
+
+def filter_checkpoints(iterations: List[int], select: Optional[int] = None,
+                       min_it: Optional[int] = None,
+                       max_it: Optional[int] = None) -> List[int]:
+  """Iterations in ``[min_it, max_it]`` (defaults 0 and the largest) that
+  are multiples of ``select`` (0 or None keeps all)."""
+  select = select or 0
+  min_it = min_it or 0
+  if max_it is None and iterations:
+    max_it = max(iterations)
+  result = [it for it in iterations
+            if min_it <= it <= (max_it if max_it is not None else it)]
+  if select > 0:
+    result = [it for it in result if it % select == 0]
+  return result
+
+
+def orbax_checkpoint_path(checkpoints_dir: Union[str, Path],
+                          iteration: int) -> Path:
+  """Where the JAX package's orbax backend saves ``iteration`` (resolved,
+  as orbax requires absolute paths)."""
+  return Path(checkpoints_dir).resolve() / f"{iteration}{ORBAX_SUFFIX}"
+
+
+def is_orbax_checkpoint(path: Union[str, Path]) -> bool:
+  """An orbax checkpoint is a directory holding its ``state`` item."""
+  path = Path(path)
+  return path.is_dir() and (path / _ORBAX_STATE_ITEM).exists()
+
+
+def get_all_orbax_iterations(checkpoints_dir: Union[str, Path]) -> List[int]:
+  checkpoints_dir = Path(checkpoints_dir)
+  if not checkpoints_dir.is_dir():
+    return []
+  return sorted(int(p.stem) for p in checkpoints_dir.iterdir()
+                if p.suffix == ORBAX_SUFFIX and p.stem.isdigit()
+                and is_orbax_checkpoint(p))

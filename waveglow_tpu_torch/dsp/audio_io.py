@@ -1,6 +1,7 @@
-"""Host-side wav IO in numpy (the port's own copy of what its data path needs
-from ``waveglow_tpu/dsp/audio_io.py``): sample-format conversion scales by
-``-min(src)`` -> ``max(dst)`` and rounds for integer targets."""
+"""Host-side wav IO in numpy (the port's own copy of what its data path and
+its CLI need from ``waveglow_tpu/dsp/audio_io.py``): sample-format
+conversion scales by ``-min(src)`` -> ``max(dst)`` and rounds for integer
+targets; peak normalization scales to full scale."""
 
 from __future__ import annotations
 
@@ -45,6 +46,26 @@ def convert_wav(wav: np.ndarray, to_dtype) -> np.ndarray:
 def is_overamp(wav: np.ndarray) -> bool:
   return bool(np.min(wav) < get_min_value(wav.dtype) or
               np.max(wav) > get_max_value(wav.dtype))
+
+
+def normalize_wav(wav: np.ndarray) -> np.ndarray:
+  """Peak-normalize to full scale (mono or stereo); integer input that
+  already reaches its minimum is returned as it is."""
+  if wav.dtype in (np.int16, np.int32) and np.min(wav) == get_min_value(
+      wav.dtype):
+    return wav
+  max_val = np.max(np.abs(wav))
+  max_possible = get_max_value(wav.dtype)
+  if max_val != 0 and max_val != max_possible:
+    orig_dtype = wav.dtype
+    wav_float = wav.astype(np.float32) * max_possible / max_val
+    if orig_dtype in (np.int16, np.int32):
+      wav_float = np.round(wav_float, 0)
+    wav = wav_float.astype(orig_dtype)
+  if np.max(np.abs(wav)) not in (max_possible, 0) or is_overamp(wav):
+    raise ValueError(f"normalization left a peak of {np.max(np.abs(wav))}, "
+                     f"not {max_possible}")
+  return wav
 
 
 def wav_to_float32(path: Union[str, Path]) -> Tuple[np.ndarray, int]:

@@ -4,7 +4,8 @@
 ``mel = log(clamp(mel_basis @ |STFT|, min=1e-5))`` with an 80-bin slaney
 filterbank over 0-8000 Hz. Training computes it from the raw audio segment
 inside the step, on the card; the overamplification check lives on the host
-file-loading path (:meth:`MelSTFT.get_wav_from_file`).
+file-loading path (:meth:`MelSTFT.get_wav_from_file`, and
+:meth:`MelSTFT.get_mel_from_file`, which copy synthesis calls).
 """
 
 from __future__ import annotations
@@ -70,3 +71,8 @@ class MelSTFT:
           f"{wav_path}: samples outside [-1, 1] (overamplified input; "
           "normalize the file first)")
     return wav
+
+  def get_mel_from_file(self, wav_path: Union[str, Path]) -> torch.Tensor:
+    """Log-mel [n_mels, n_frames] of a wav file, on the device (the checks
+    of :meth:`get_wav_from_file` first)."""
+    return self.get_mel(self.get_wav_from_file(wav_path))

@@ -22,8 +22,8 @@ on the device across requests:
     413); /stats reports latency percentiles, in-flight depth, the shed
     count and a per-stage decomposition.
 
-The JAX daemon's mesh modes (data, model and time axes) and torch-format
-or orbax reloads are not ported yet.
+The JAX daemon's mesh modes (data, model and time axes) and orbax reloads
+are not ported yet; a torch-format reload needs ``allow_torch_reload``.
 
 Endpoints (JSON errors, application/json):
 
@@ -32,8 +32,9 @@ Endpoints (JSON errors, application/json):
                               decomposition (stages_ms), in-flight
   GET  /metrics               -> the same in Prometheus text format
   POST /reload                body: JSON {"checkpoint": "<daemon-side
-                              npz path>"}; weight hot-swap (same
-                              architecture only)
+                              path>"}; weight hot-swap (same architecture
+                              only; a torch .pt only with
+                              allow_torch_reload)
   POST /synthesize            body: .npy mel [n_mels, frames] (float32)
   POST /synthesize-wav        body: .wav file (copy synthesis)
   POST /stream                body: .npy mel; response: PCM16 pieces
@@ -148,15 +149,19 @@ class _MicroBatcher:
     self._finish_q: "queue.SimpleQueue" = queue.SimpleQueue()
     self._started = False
     self._start_lock = threading.Lock()
+    self._threads: List[threading.Thread] = []
 
   def submit(self, mel, sigma, strength, seed, pcm16) -> ServingResult:
     """Enqueue one request and block until its result is ready."""
     with self._start_lock:
       if not self._started:
-        threading.Thread(target=self._loop, daemon=True,
-                         name="waveglow-microbatch").start()
-        threading.Thread(target=self._finish_loop, daemon=True,
-                         name="waveglow-microbatch-finish").start()
+        self._threads = [
+            threading.Thread(target=self._loop, daemon=True,
+                             name="waveglow-microbatch"),
+            threading.Thread(target=self._finish_loop, daemon=True,
+                             name="waveglow-microbatch-finish")]
+        for t in self._threads:
+          t.start()
         self._started = True
     req = _BatchRequest(mel, sigma, strength, seed, pcm16)
     self._q.put(req)
@@ -170,9 +175,16 @@ class _MicroBatcher:
       raise req.error
     return req.result
 
-  def close(self):
-    if self._started:
-      self._q.put(None)
+  def close(self, timeout_s: Optional[float] = None) -> None:
+    """Dispatch what is queued, stop both threads and wait for them (each
+    up to ``timeout_s``). A daemon thread still running when the
+    interpreter exits is stopped wherever it is; inside torch's
+    deallocators that aborts the process."""
+    with self._start_lock:
+      if self._started:
+        self._q.put(None)
+    for t in self._threads:
+      t.join(timeout_s)
 
   def _loop(self):
     while True:
@@ -282,6 +294,7 @@ class SynthesisService:
                sigma: float = 1.0, denoiser_strength: float = 0.0005,
                max_batch: int = 8, batch_window_ms: float = 5.0,
                max_queue: int = 64, max_frames: int = 8192,
+               allow_torch_reload: bool = False,
                device: Optional[str] = "cuda"):
     self.synth = Synthesizer(checkpoint, custom_hparams=custom_hparams,
                              device=device)
@@ -306,6 +319,9 @@ class SynthesisService:
     # a mel over max_frames frames gets 413; 0 disables. 8192 frames is
     # about 95 s of audio at hop 256
     self.max_frames = max_frames
+    # /reload of a torch-format path reaches torch.load (arbitrary pickle
+    # code); off by default, for trusted networks only
+    self.allow_torch_reload = allow_torch_reload
     self._inflight = 0
     self._inflight_lock = threading.Lock()
     self._draining = False
@@ -479,9 +495,21 @@ class SynthesisService:
     The swap runs under the device lock: requests dispatched before it
     finish on the old tensors (it builds new ones and mutates nothing),
     later ones use the new, and an open stream keeps the weights it began
-    with. Only npz checkpoints load; a torch-format path (a pickle) or an
-    orbax directory raises before anything is read."""
+    with.
+
+    A torch-format path is refused, before anything is read, unless the
+    service was built with ``allow_torch_reload``: the torch importer
+    unpickles (``torch.load(weights_only=False)``, which NVIDIA's
+    full-module files need), so a client-supplied path would run code for
+    anyone who can reach the port and place a file. npz checkpoints carry
+    no code and always reload; an orbax directory raises."""
     fmt = sniff_checkpoint_format(checkpoint_path)
+    if fmt == "torch" and not self.allow_torch_reload:
+      raise ValueError(
+          "refusing to hot-swap a torch-format checkpoint: the torch "
+          "importer deserializes arbitrary pickles. Convert it to the "
+          "native format first (waveglow-tpu-torch download / export), or "
+          "start the daemon with --allow-torch-reload on a trusted network")
     # load through the same sniff result: sniffing again inside the loader
     # would let a file swapped between the checks past the gate
     checkpoint = load_checkpoint_as(checkpoint_path, fmt)
@@ -923,7 +951,8 @@ def serve_forever(service: SynthesisService, host: str, port: int, *,
   ``warmup_frames``: run the serving calls for these mel lengths before
   binding the port (:meth:`SynthesisService.warmup`). SIGTERM drains: new
   requests get 503s, in-flight ones finish (up to ``drain_timeout_s``),
-  then the listener closes.
+  then the listener closes. On return the micro-batcher's and the drain's
+  threads have ended and the previous SIGTERM handler is back.
   """
   import signal
 
@@ -940,14 +969,18 @@ def serve_forever(service: SynthesisService, host: str, port: int, *,
       time.sleep(0.1)
     httpd.shutdown()
 
+  drains: List[threading.Thread] = []
+
   def _on_sigterm(signum, frame):  # noqa: ARG001
     logger.info("SIGTERM: draining %d in-flight requests, then stopping",
                 service.in_flight())
-    threading.Thread(target=_drain_then_stop, daemon=True,
-                     name="waveglow-drain").start()
+    drains.append(threading.Thread(target=_drain_then_stop, daemon=True,
+                                   name="waveglow-drain"))
+    drains[-1].start()
 
+  previous = None
   try:
-    signal.signal(signal.SIGTERM, _on_sigterm)
+    previous = signal.signal(signal.SIGTERM, _on_sigterm)
   except ValueError:
     pass  # not the main thread: no signal hook
   device = service.synth.device
@@ -962,4 +995,8 @@ def serve_forever(service: SynthesisService, host: str, port: int, *,
   finally:
     httpd.server_close()
     if service._batcher is not None:
-      service._batcher.close()
+      service._batcher.close(drain_timeout_s)
+    for t in drains:
+      t.join(drain_timeout_s)
+    if previous is not None:
+      signal.signal(signal.SIGTERM, previous)

@@ -96,10 +96,10 @@ def _check_supported(hp: HParams) -> None:
   if hp.mesh_data * hp.mesh_model > 1:
     raise ValueError(
         f"mesh_data={hp.mesh_data} x mesh_model={hp.mesh_model}: multi-card "
-        "training is not ported yet (ROADMAP.md queue 4, Parallelism)")
+        "training is not ported yet (ROADMAP.md queue A.6, Parallelism)")
   if hp.checkpoint_backend == "orbax":
     raise ValueError(
-        "checkpoint_backend='orbax' is not ported yet (ROADMAP.md queue 3, "
+        "checkpoint_backend='orbax' is not ported yet (ROADMAP.md queue A.4, "
         "Checkpoint interop); use 'npz'")
   if hp.checkpoint_backend != "npz":
     raise ValueError(f"unknown checkpoint_backend {hp.checkpoint_backend!r} "
@@ -107,7 +107,7 @@ def _check_supported(hp: HParams) -> None:
   if hp.checkpoint_async:
     raise ValueError(
         "checkpoint_async=true needs the orbax backend, which is not ported "
-        "yet (ROADMAP.md queue 3, Checkpoint interop)")
+        "yet (ROADMAP.md queue A.4, Checkpoint interop)")
 
 
 def validate_model(eval_loss: Callable, params: Dict, val_loader: BatchLoader,
