@@ -93,7 +93,25 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      body against this process's infer_serving, /reload of the .pt
      refused and of the npz taken, SIGTERM drains and it exits 0 within
      30 s.
- 10. a `kernels` JSON line, the card's name and power limit, and last the
+ 10. cli train and validate: the training and validation commands at full
+     width in f32 and bf16. `train` of phase 6's 24 cuts (batch 12, a
+     checkpoint every step: steps and checkpoints 1 and 2) with
+     --profile-dir, whose trace must name the WN kernel; the same command
+     again refused (exit 1, the checkpoints untouched); `continue-train` to
+     epoch 2 (steps 3 and 4, four train_step events in the metrics file);
+     checkpoint 4 bit for bit a train(max_iterations=4) of the same
+     settings in this process; `validate --full-run` of the newest
+     checkpoint and `--select 2` over all of them on the whole fixture
+     (826 frames), its first half and two cuts: the iteration folders
+     filter_checkpoints gives, every inferred_denoised.wav bit for bit
+     normalize_wav + int16 of Synthesizer.infer in this process, every
+     total.csv row equal to the metric functions on the saved mels;
+     `synthesize --include-stats` of phase 9's mels, its wavs bit for bit
+     phase 9's and a stats.csv row a file; forward, backward and WN
+     launches at the counts the code gives; the wall of each command and
+     validate's split on the 826-frame entry (synthesis, mel, MCD with DTW
+     and without, cosine, renders, SSIM, file writes).
+ 11. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -104,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import csv
 import dataclasses
 import functools
 import http.server
@@ -132,12 +151,20 @@ from waveglow_tpu_torch.checkpointing.from_jax import (
     trainable_params_from_numpy, tree_leaves)
 from waveglow_tpu_torch.checkpointing.import_torch import \
     derive_hparams_from_state_dict
-from waveglow_tpu_torch.checkpointing.store import (CheckpointWaveglow,
-                                                    flatten_tree)
+from waveglow_tpu_torch.checkpointing.store import (
+    CheckpointWaveglow, filter_checkpoints, flatten_tree,
+    get_all_checkpoint_iterations)
 from waveglow_tpu_torch.cli import main as cli_main
-from waveglow_tpu_torch.dsp.audio_io import convert_wav, normalize_wav
+from waveglow_tpu_torch.cli.synthesis_cmd import InferenceEntry
+from waveglow_tpu_torch.dsp.audio_io import (convert_wav, float_to_wav,
+                                             normalize_wav)
 from waveglow_tpu_torch.dsp.mel import MelSTFT
-from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+from waveglow_tpu_torch.eval import metrics as eval_metrics
+from waveglow_tpu_torch.eval.plots import (make_same_width_by_filling_white,
+                                           plot_melspec_np, save_image,
+                                           stack_images_vertically)
+from waveglow_tpu_torch.hparams import (HParams, overwrite_custom_hparams,
+                                        parse_custom_hparams)
 from waveglow_tpu_torch.inference.client import SynthesisClient
 from waveglow_tpu_torch.inference.server import SynthesisService, make_server
 from waveglow_tpu_torch.inference.streaming import receptive_halo_frames
@@ -268,6 +295,14 @@ C9_ROUNDS = 3
 CLI_BATCH = 4
 CLI_WAV_CUTS = ((22_050, 30_000), (120_000, 41_000))
 
+# The training and validation commands (phase 10): `train` takes epoch 1
+# of phase 6's 24 cuts at batch 12 (2 steps), `continue-train` epoch 2 (2
+# more), a checkpoint every step; `validate` scores the whole speech
+# fixture, its first half and phase 9's two cuts, on the newest checkpoint
+# and then on every CLI_SELECT-th one
+CLI_TRAIN_HPARAMS = (f"epochs={{epochs}},batch_size={B_TRAIN},"
+                     "iters_per_checkpoint=1,epochs_per_checkpoint=0")
+CLI_SELECT = 2
 MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
 
@@ -1917,10 +1952,10 @@ def free_port() -> int:
     return sock.getsockname()[1]
 
 
-def run_cli(args, log_path: Path) -> dict:
+def run_cli(args, log_path: Path, expect_rc: int = 0) -> dict:
   """``waveglow-tpu-torch <args>`` in this process: its wall seconds and,
-  where it builds a Synthesizer, the seconds after that (the file loop). A
-  nonzero exit fails the run."""
+  where it builds a Synthesizer, the seconds after the first build (the
+  file loop). An exit code other than ``expect_rc`` fails the run."""
   built = []
   init = Synthesizer.__init__
 
@@ -1935,8 +1970,8 @@ def run_cli(args, log_path: Path) -> dict:
   finally:
     Synthesizer.__init__ = init
   t1 = time.perf_counter()
-  if rc != 0:
-    fail(f"cli {args[0]} exited {rc}; log {log_path}:\n"
+  if rc != expect_rc:
+    fail(f"cli {args[0]} exited {rc}, expected {expect_rc}; log {log_path}:\n"
          + log_path.read_text()[-3000:])
   return {"wall_s": t1 - t0, "after_model_s": t1 - built[0] if built else None}
 
@@ -2189,6 +2224,358 @@ def phase_cli(params: dict, hparams: HParams, seed: int, tmp: Path) -> dict:
     rec["serve"] = serve_subprocess(pt, npz, mode, mels[-1], seed, tmp)
     log(f"cli {mode} " + json.dumps(dict(rec, card=nvidia_smi_line())))
     info["modes"][mode] = rec
+  # phase 10's `synthesize --include-stats` reruns the npz --batch 1 run
+  info["files"] = {"mels": str(mel_dir), "npz": str(npz),
+                   "npz_batch1": {mode: str(tmp / f"out_{mode}_npz_b1")
+                                  for mode in MODES}}
+  return info
+
+
+# -- phase 10 --------------------------------------------------------------
+
+def expected_train_launches(per_forward: int, remat: bool, steps: int,
+                            saves: int, val_batches: int,
+                            backward_kernels: bool):
+  """(forward kernel launches, backward kernel calls) of a training run:
+  each step's forward and, with remat, its recompute; one forward a
+  validation batch at every save; one backward-kernel call a layer a step
+  where the backward runs on the kernels (bf16)."""
+  forward = ((2 if remat else 1) * per_forward * steps
+             + per_forward * val_batches * saves)
+  return forward, per_forward * steps if backward_kernels else 0
+
+
+def expected_validate_launches(per_synthesis: int, entries: int,
+                               checkpoints: int) -> int:
+  """WN launches of a ``validate`` run: each checkpoint's Synthesizer
+  captures the denoiser bias (one synthesis), then synthesizes each
+  entry once."""
+  return per_synthesis * (1 + entries) * checkpoints
+
+
+def validation_dirs_mismatch(out: Path, available, select=None, min_it=None,
+                             max_it=None):
+  """None if the iteration folders under a ``validate`` output are the
+  ones ``filter_checkpoints`` gives for the available iterations (the
+  newest alone without a filter), else what differs."""
+  if select or min_it is not None or max_it is not None:
+    want = filter_checkpoints(list(available), select=select, min_it=min_it,
+                              max_it=max_it)
+  else:
+    want = [max(available)]
+  got = sorted(int(p.name) for p in out.iterdir() if p.is_dir())
+  return None if got == want else f"iteration folders {got}, expected {want}"
+
+
+def read_tsv(path: Path) -> list:
+  with open(path, newline="") as f:
+    return list(csv.DictReader(f, delimiter="\t"))
+
+
+def validation_metrics(orig: np.ndarray, inferred: np.ndarray):
+  """The metric columns of a ``total.csv`` row, as written, computed by the
+  port's metric functions from the two mels; the seconds each function
+  took; and the two labeled renders."""
+  seconds = {}
+
+  def timed_as(name, fn, *args, **kwargs):
+    out, seconds[name] = timed(fn, *args, **kwargs)
+    return out
+
+  mcd_dtw, pen_dtw, frames_dtw = timed_as(
+      "mcd_dtw_s", eval_metrics.get_metrics_mels, orig, inferred)
+  mcd, pen, frames = timed_as("mcd_s", eval_metrics.get_metrics_mels, orig,
+                              inferred, use_dtw=False)
+  cosine = timed_as("cosine_s", eval_metrics.cosine_dist_mels, orig,
+                    inferred)
+  renders = timed_as("render_s", lambda: (plot_melspec_np(orig),
+                                          plot_melspec_np(inferred)))
+  raw = make_same_width_by_filling_white([r[0] for r in renders])
+  ssim, _ = timed_as("ssim_s",
+                     eval_metrics.calculate_structural_similarity_np, *raw)
+  row = {"# Difference frames": str(inferred.shape[1] - orig.shape[1]),
+         "MFCC DTW MCD": repr(mcd_dtw), "MFCC DTW PEN": repr(pen_dtw),
+         "# MFCC DTW frames": str(frames_dtw), "MCD": repr(mcd),
+         "PEN": repr(pen), "# Frames": str(frames),
+         "Cosine Similarity (Padded)": repr(cosine),
+         "Structural Similarity (Padded)": repr(ssim)}
+  return row, seconds, [r[1] for r in renders]
+
+
+def state_mismatch(ckpt: CheckpointWaveglow, state: dict,
+                   hparams: HParams) -> list:
+  """What of a saved checkpoint differs from ``train()``'s returned state
+  (params and Adam leaves in dtype, shape or any bit; the iteration) or
+  from the settings ``hparams`` (as the checkpoint stores them)."""
+  def leaves(tree):
+    return (flatten_tree(tree) if isinstance(tree, dict)
+            else dict(enumerate(tree)))
+
+  bad = []
+  for name, got, want in (("params", ckpt.state_dict, state["params"]),
+                          ("optimizer", ckpt.optimizer or [],
+                           state["opt_state"])):
+    got, want = leaves(got), leaves(want)
+    bad += [f"{name}/{k}" for k in sorted(set(got) | set(want), key=str)
+            if k not in got or k not in want
+            or np.asarray(got[k]).dtype != np.asarray(want[k]).dtype
+            or np.shape(got[k]) != np.shape(want[k])
+            or np.asarray(got[k]).tobytes() != np.asarray(want[k]).tobytes()]
+  if ckpt.iteration != state["step"]:
+    bad.append(f"iteration {ckpt.iteration} != {state['step']}")
+  if ckpt.hparams != json.loads(json.dumps(dataclasses.asdict(hparams))):
+    bad.append("hparams")
+  return bad
+
+
+def write_val_wavs(folder: Path) -> list:
+  """The validation set: the whole speech fixture, its first half and
+  phase 9's two cuts."""
+  sr, speech = wavfile.read(FIXTURE)
+  folder.mkdir(parents=True)
+  wavfile.write(folder / "whole.wav", sr, speech)
+  wavfile.write(folder / "half.wav", sr, speech[:len(speech) // 2])
+  for i, (start, n) in enumerate(CLI_WAV_CUTS):
+    wavfile.write(folder / f"cut{i}.wav", sr, speech[start:start + n])
+  return load_dataset(folder)
+
+
+def timed(fn, *args, **kwargs):
+  t0 = time.perf_counter()
+  out = fn(*args, **kwargs)
+  return out, time.perf_counter() - t0
+
+
+def time_entry_writes(mel_op: MelSTFT, wav_path: Path, wav: np.ndarray,
+                      orig: np.ndarray, inferred: np.ndarray, labeled,
+                      scratch: Path) -> float:
+  """Seconds of one ``validate`` entry's file writes (two wavs, two mels,
+  four PNGs), made again into ``scratch``."""
+  t0 = time.perf_counter()
+  scratch.mkdir(parents=True, exist_ok=True)
+  float_to_wav(mel_op.get_wav_from_file(wav_path), scratch / "o.wav")
+  float_to_wav(wav, scratch / "i.wav")
+  np.save(scratch / "o.mel.npy", orig)
+  np.save(scratch / "i.mel.npy", inferred)
+  diff = eval_metrics.abs_diff_image(*make_same_width_by_filling_white(
+      labeled))
+  for name, img in (("o", labeled[0]), ("i", labeled[1]), ("d", diff)):
+    save_image(scratch / f"{name}.png", img)
+  save_image(scratch / "c.png", stack_images_vertically([*labeled, diff]))
+  return time.perf_counter() - t0
+
+
+def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
+  """``train``, ``continue-train``, ``validate`` and ``synthesize
+  --include-stats`` from the command line at full width. The checkpoints
+  against an in-process ``train()`` bit for bit, the validation wavs
+  against in-process synthesis bit for bit, every report row against the
+  metric functions on the saved mels, launches against the counts the code
+  gives."""
+  t_start = time.perf_counter()
+  dtype = "bfloat16" if mode == "bf16" else "float32"
+  # what continue-train ends with, and one train() call takes at once
+  custom = dict(parse_custom_hparams(CLI_TRAIN_HPARAMS.format(epochs=2)),
+                compute_dtype=dtype)
+  hp = overwrite_custom_hparams(HParams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  per_forward = config.n_flows * config.n_layers
+  sr = hp.sampling_rate
+  work = tmp / f"cli_train_{mode}"
+  train_dir, val_dir, ckpts = work / "train", work / "val", work / "ckpts"
+  logs = work / "logs"
+  entries = write_wavs(train_dir, seed)
+  val_entries = write_val_wavs(val_dir)
+  steps = N_WAVS // hp.batch_size       # a step and a save each, an epoch
+  val_batches = -(-len(val_entries) // hp.batch_size)
+  want_train = expected_train_launches(per_forward, hp.remat, steps, steps,
+                                       val_batches, mode == "bf16")
+  info = {"mode": mode, "walls_s": {}, "launches": {}, "seconds": {}}
+  last = [t_start]
+
+  def lap(name):
+    """Seconds since the previous lap, recorded under ``name``."""
+    now = time.perf_counter()
+    info["seconds"][name] = now - last[0]
+    last[0] = now
+
+  def train_cmd(command, epochs, *extra):
+    return [command, train_dir, val_dir, ckpts, "--custom-hparams",
+            CLI_TRAIN_HPARAMS.format(epochs=epochs), "--compute-dtype", dtype,
+            "--tl-dir", logs, *extra]
+
+  def command(name, args, expected, expect_rc=0):
+    """Run a command with the counts at 0; its wall and its launches,
+    (forward, backward) against ``expected``."""
+    kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+    wall = run_cli(args, work / f"{name}.log", expect_rc)["wall_s"]
+    got = (kl.LAUNCHES, kl.BWD_LAUNCHES)
+    if got != expected:
+      fail(f"cli {name} {mode}: (forward, backward) launches {got}, "
+           f"expected {expected}")
+    info["walls_s"][name] = wall
+    info["launches"][name] = got
+    return wall
+
+  lap("data")
+  # -- train: epoch 1, traced
+  command("train", train_cmd("train", 1, "--profile-dir", work / "trace"),
+          want_train)
+  if get_all_checkpoint_iterations(ckpts) != [1, 2]:
+    fail(f"cli train {mode}: checkpoints "
+         f"{get_all_checkpoint_iterations(ckpts)}, expected [1, 2]")
+  lap("train")
+  trace_path = work / "trace" / "trace.json"
+  trace = trace_path.read_bytes()
+  wn_events = trace.count(b"wn_layer_kernel")
+  info["trace"] = {"bytes": len(trace),
+                   "wn_kernel_name_occurrences": wn_events}
+  if not trace.lstrip().startswith(b"{") or not wn_events:
+    fail(f"cli train {mode}: the --profile-dir trace names no WN kernel")
+  del trace
+  shutil.rmtree(work / "trace")
+  lap("trace_check")
+  # -- train again without --auto-resume: refused, checkpoints untouched
+  before = {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in ckpts.iterdir()}
+  command("train_refused", train_cmd("train", 1), (0, 0), expect_rc=1)
+  if {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+      for p in ckpts.iterdir()} != before:
+    fail(f"cli train {mode}: the refused run touched the checkpoints")
+  lap("train_refused")
+  # -- continue-train: epoch 2
+  command("continue_train", train_cmd("continue-train", 2), want_train)
+  lap("continue_train")
+  available = get_all_checkpoint_iterations(ckpts)
+  step_its = [r["iteration"] for r in read_metrics(logs)
+              if r["event"] == "train_step"]
+  if available != [1, 2, 3, 4] or step_its != [1, 2, 3, 4]:
+    fail(f"cli continue-train {mode}: checkpoints {available}, train_step "
+         f"events {step_its}, expected [1, 2, 3, 4] both")
+  # -- the same settings in one train() call: checkpoint 4 bit for bit
+  state = train(custom, None, entries, val_entries, work / "ref_ck",
+                max_iterations=4, device=DEVICE)
+  shutil.rmtree(work / "ref_ck")
+  lap("reference_train")
+  loaded = {4: CheckpointWaveglow.load(ckpts / "4.npz")}
+  bad = state_mismatch(loaded[4], state, hp)
+  if bad:
+    fail(f"cli train {mode}: checkpoint 4 differs from train() in this "
+         f"process at {bad[:5]} ({len(bad)} leaves)")
+  info["checkpoint_4_bit_exact"] = True
+  del state
+  torch.cuda.empty_cache()
+  lap("checkpoint_compare")
+
+  # -- validate: the newest checkpoint, then every CLI_SELECT-th
+  runs = {"validate": ([], 1), "validate_select": (
+      ["--select", CLI_SELECT], len(filter_checkpoints(available,
+                                                       select=CLI_SELECT)))}
+  for name, (extra, n_ckpts) in runs.items():
+    command(name, ["validate", ckpts, work / name, val_dir, "--full-run",
+                   "--custom-seed", seed, "--compute-dtype", dtype, *extra],
+            (expected_validate_launches(per_forward, len(val_entries),
+                                        n_ckpts), 0))
+    bad = validation_dirs_mismatch(work / name, available,
+                                   select=CLI_SELECT if extra else None)
+    if bad:
+      fail(f"cli {name} {mode}: {bad}")
+    lap(name)
+  want_metrics, rows_checked, split = {}, 0, {}
+  for it in sorted({int(p.name) for name in runs
+                    for p in (work / name).iterdir() if p.is_dir()},
+                   reverse=True):
+    ckpt = loaded.pop(it, None) or load_checkpoint_any(ckpts / f"{it}.npz")
+    synth = Synthesizer(ckpt, compute_dtype=dtype, device=DEVICE)
+    del ckpt
+    mel_op = MelSTFT(synth.hparams, device=DEVICE)
+    pcm = {}
+    for entry in val_entries:
+      mel = mel_op.get_mel(mel_op.get_wav_from_file(
+          entry.wav_absolute_path)).cpu().numpy()
+      result, synth_s = timed(synth.infer, mel, seed=seed)
+      wav = normalize_wav(result.wav_denoised)
+      _, mel_s = timed(lambda: mel_op.get_mel(wav).cpu().numpy())
+      pcm[entry.stem] = convert_wav(wav, np.int16)
+      if it == max(available) and entry.stem == "whole":
+        # validate's steps for this entry, timed one by one: synthesis
+        # (infer waits for the card) and the wav's mel back on the host
+        # here, the metrics on its saved mels below
+        split.update(frames=mel.shape[1], synthesis_s=synth_s, mel_s=mel_s,
+                     wav=wav)
+    for name in runs:
+      if not (work / name / str(it)).is_dir():
+        continue
+      rows = read_tsv(work / name / str(it) / "total.csv")
+      if sorted(r["Subpath"] for r in rows) != sorted(pcm):
+        fail(f"cli {name} {mode}: iteration {it} rows {rows}")
+      for row in rows:
+        dest = work / name / str(it) / row["Subpath"]
+        bad = pcm_mismatch(dest / "inferred_denoised.wav", pcm[row["Subpath"]],
+                           sr)
+        if bad:
+          fail(f"cli {name} {mode}: iteration {it}: {bad}")
+        key = (it, row["Subpath"])
+        if key not in want_metrics:
+          orig = np.load(dest / "original.mel.npy")
+          inferred = np.load(dest / "inferred_denoised.mel.npy")
+          want_metrics[key], seconds, labeled = validation_metrics(orig,
+                                                                   inferred)
+          if "wav" in split and key == (max(available), "whole"):
+            split.update(seconds, file_writes_s=time_entry_writes(
+                mel_op, next(e.wav_absolute_path for e in val_entries
+                             if e.stem == "whole"), split.pop("wav"), orig,
+                inferred, labeled, work / "split"))
+        got = {k: row[k] for k in want_metrics[key]}
+        if got != want_metrics[key] or row["Iteration"] != str(it):
+          fail(f"cli {name} {mode}: iteration {it} {row['Subpath']}: row "
+               f"{got}, the metric functions give {want_metrics[key]}")
+        rows_checked += 1
+    del synth, mel_op
+    torch.cuda.empty_cache()
+  for name in runs:
+    per_it = [r for p in sorted((p for p in (work / name).iterdir()
+                                 if p.is_dir()), key=lambda p: int(p.name))
+              for r in read_tsv(p / "total.csv")]
+    if read_tsv(work / name / "total.csv") != per_it:
+      fail(f"cli {name} {mode}: the top-level total.csv is not the "
+           "iterations' rows in order")
+  split["sum_s"] = sum(v for k, v in split.items() if k.endswith("_s"))
+  info["validate_split_826"] = split
+  info["rows_checked"] = rows_checked
+  info["rows_recomputed"] = len(want_metrics)
+  shutil.rmtree(ckpts)   # about 1 GB a checkpoint
+  lap("validate_checks")   # the split on the 826-frame entry included
+
+  # -- synthesize --include-stats: phase 9's npz --batch 1 run, with stats
+  out = work / "stats"
+  command("synthesize_stats",
+          ["synthesize", files["npz"], files["mels"], "--custom-seed", seed,
+           "--compute-dtype", dtype, "--include-stats", "-out", out],
+          (expected_cli_launches(FRAMES, BUCKET, 1, per_forward), 0))
+  ref = Path(files["npz_batch1"][mode])
+  for wav in sorted(ref.glob("*.wav")):
+    if (out / wav.name).read_bytes() != wav.read_bytes():
+      fail(f"cli synthesize --include-stats {mode}: {wav.name} differs "
+           "from phase 9's")
+  rows = read_tsv(out / "stats.csv")
+  want_cols = [f.name for f in dataclasses.fields(InferenceEntry)]
+  if (len(rows) != len(FRAMES) or list(rows[0]) != want_cols
+      or sorted(Path(r["mel_path"]).name for r in rows)
+      != sorted(p.name for p in Path(files["mels"]).glob("*.npy"))):
+    fail(f"cli synthesize --include-stats {mode}: stats.csv has "
+         f"{len(rows)} rows, columns {list(rows[0]) if rows else None}")
+  info["stats_rows"] = len(rows)
+  lap("synthesize_stats")
+  info["phase_s"] = time.perf_counter() - t_start
+  info["forward_launches"] = sum(info["launches"][k][0] for k in
+                                 ("train", "continue_train"))
+  info["backward_launches"] = sum(info["launches"][k][1] for k in
+                                  ("train", "continue_train"))
+  info["synthesis_launches"] = sum(info["launches"][k][0] for k in
+                                   ("validate", "validate_select",
+                                    "synthesize_stats"))
+  log(f"cli_train {mode} " + json.dumps(dict(info, card=nvidia_smi_line())))
   return info
 
 
@@ -2230,6 +2617,9 @@ def main() -> None:
     serves = {mode: phase_serve(ckpt, paths, mode, args.seed)
               for mode in MODES}
     clis = phase_cli(ckpt.state_dict, HParams(), args.seed, Path(tmp))
+    cli_trains = {mode: phase_cli_train(mode, args.seed, Path(tmp),
+                                        clis["files"])
+                  for mode in MODES}
 
   kernels = []
   for mode in MODES:
@@ -2242,7 +2632,8 @@ def main() -> None:
         "replaces": "waveglow_tpu/kernels/wn_layer.py:259",
         "launches": (slices[mode]["launches"] + streams[mode]["launches"]
                      + serves[mode]["launches"]
-                     + clis["modes"][mode]["launches"]),
+                     + clis["modes"][mode]["launches"]
+                     + cli_trains[mode]["synthesis_launches"]),
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2257,6 +2648,7 @@ def main() -> None:
         "daemon_launches": serves[mode]["launches"],
         "daemon_dispatches": serves[mode]["dispatches"],
         "cli_launches": clis["modes"][mode]["launches"],
+        "cli_validate_launches": cli_trains[mode]["synthesis_launches"],
         # the last layer and B=8, each with its library yardstick
         **{f"{key}_{case}": kernel["timed"][shape][key]
            for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
@@ -2286,7 +2678,10 @@ def main() -> None:
         "name": f"wn_layer_trainable[{mode}]", "route": "cuda",
         "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
         "replaces": "waveglow_tpu/kernels/wn_layer.py:174",
-        "launches": trains[mode]["launches"],
+        "launches": (trains[mode]["launches"]
+                     + cli_trains[mode]["forward_launches"]),
+        "train_launches": trains[mode]["launches"],
+        "cli_train_launches": cli_trains[mode]["forward_launches"],
         "max_abs_err": max(c["forward_max_abs_err"] for c in cases),
         "forward_bound_max": max(c["forward_bound"] for c in cases),
         "ms": rec["ms"],
@@ -2313,7 +2708,10 @@ def main() -> None:
       "name": "wn_layer_backward_fused[bf16]", "route": "cuda",
       "source": "waveglow_tpu_torch/csrc/wn_layer_bwd.cu",
       "replaces": "waveglow_tpu/kernels/wn_layer.py:198",
-      "launches": trains["bf16"]["backward_launches"],
+      "launches": (trains["bf16"]["backward_launches"]
+                   + cli_trains["bf16"]["backward_launches"]),
+      "train_launches": trains["bf16"]["backward_launches"],
+      "cli_train_launches": cli_trains["bf16"]["backward_launches"],
       "max_abs_err": max(c["backward_max_abs_err"] for c in cases),
       "max_err_of_scale": max(c["backward_max_err_of_scale"] for c in cases),
       "tolerance_of_scale": KERNEL_TOL_BF16_REL,
@@ -2337,6 +2735,7 @@ def main() -> None:
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
             "streams": streams, "serves": serves, "cli": clis,
+            "cli_train": cli_trains,
             "trainable_cases": trainable["cases"], "train": trains,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

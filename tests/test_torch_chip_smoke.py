@@ -8,7 +8,11 @@ ptxas log and SASS and must know each kernel variant's mangled name;
 ``count_dispatches`` and ``c9_failures`` are the serving phase's
 percentiles, launch accounting and C9 timing predicate;
 ``cli_dispatch_rows``, ``expected_cli_launches`` and ``pcm_mismatch`` are
-the CLI phase's launch accounting and its file-for-file comparison.
+the CLI phase's launch accounting and its file-for-file comparison;
+``expected_train_launches``, ``expected_validate_launches``,
+``validation_dirs_mismatch``, ``validation_metrics`` and ``state_mismatch``
+are the training and validation commands' launch accounting, their
+iteration folders, report rows and checkpoint comparison.
 """
 
 import importlib.util
@@ -420,3 +424,102 @@ def test_pcm_mismatch_flags_each_difference(smoke, tmp_path):
   assert smoke.pcm_mismatch(path, want[:-1], 22050) is not None
   wavfile.write(path, 22050, wav)  # float32 samples
   assert smoke.pcm_mismatch(path, want, 22050) is not None
+
+
+def test_expected_train_launches(smoke):
+  """Phase 10's ``train`` at full width: 2 steps of 96 layers, each with
+  its remat recompute, and a validation batch at each of 2 saves: 576
+  forward launches; in bf16 one backward-kernel call a layer a step (192),
+  none in f32. A route without remat, or a save more, is flagged."""
+  assert smoke.expected_train_launches(96, True, 2, 2, 1, True) == (576, 192)
+  assert smoke.expected_train_launches(96, True, 2, 2, 1, False) == (576, 0)
+  assert smoke.expected_train_launches(96, False, 2, 2, 1, False)[0] == 384
+  assert smoke.expected_train_launches(96, True, 2, 3, 1, False)[0] == 672
+  # phase 6's straight run: 6 steps, saves at 1, 3 and 6, 2 val batches
+  assert smoke.expected_train_launches(96, True, 6, 3, 2, True) == (
+      2 * 96 * 6 + 96 * 2 * 3, 96 * 6)
+
+
+def test_expected_validate_launches(smoke):
+  """A validated checkpoint costs its Synthesizer's bias capture and one
+  synthesis an entry: 96 x 5 for phase 10's four entries; ``--select 2``
+  over checkpoints 1-4 validates two."""
+  assert smoke.expected_validate_launches(96, 4, 1) == 480
+  assert smoke.expected_validate_launches(96, 4, 2) == 960
+  assert smoke.expected_validate_launches(96, 4, 2) != 96 * 4 * 2
+
+
+def test_validation_dirs_mismatch(smoke, tmp_path):
+  """The iteration folders of a ``validate`` run against
+  ``filter_checkpoints``: the newest alone without a filter, every second
+  with ``--select 2``; a missing or extra folder is flagged, files are
+  not folders."""
+  out = tmp_path / "out"
+  for it in (2, 4):
+    (out / str(it)).mkdir(parents=True)
+  (out / "total.csv").write_text("")
+  assert smoke.validation_dirs_mismatch(out, [1, 2, 3, 4], select=2) is None
+  assert smoke.validation_dirs_mismatch(out, [1, 2, 3, 4, 6],
+                                        select=2) is not None
+  assert smoke.validation_dirs_mismatch(out, [1, 2, 3, 4]) is not None
+  assert smoke.validation_dirs_mismatch(out, [1, 2, 3, 4], min_it=2,
+                                        max_it=4, select=2) is None
+  last = tmp_path / "last"
+  (last / "4").mkdir(parents=True)
+  assert smoke.validation_dirs_mismatch(last, [1, 2, 3, 4]) is None
+  assert smoke.validation_dirs_mismatch(last, [1, 2, 3, 5]) is not None
+
+
+def test_validation_metrics_read_back_from_a_report(smoke, tmp_path):
+  """The row check reads ``total.csv`` as written by ``write_tsv``: the
+  metric columns of a report equal ``validation_metrics`` of its mels, and
+  a mel off in one value changes them."""
+  from waveglow_tpu_torch.eval.validation import write_tsv
+  rng = np.random.default_rng(0)
+  orig = rng.uniform(-11.0, 1.0, (80, 40)).astype(np.float32)
+  inferred = (orig[:, :39] + rng.normal(0, 0.5, (80, 39))).astype(np.float32)
+  want, seconds, labeled = smoke.validation_metrics(orig, inferred)
+  from waveglow_tpu_torch.eval import metrics
+  mcd_dtw, pen, frames = metrics.get_metrics_mels(orig, inferred)
+  row = {"Iteration": 4, "# Difference frames": -1, "MFCC DTW MCD": mcd_dtw,
+         "MFCC DTW PEN": pen, "# MFCC DTW frames": frames}
+  row.update(zip(("MCD", "PEN", "# Frames"), metrics.get_metrics_mels(
+      orig, inferred, use_dtw=False)))
+  row["Cosine Similarity (Padded)"] = metrics.cosine_dist_mels(orig, inferred)
+  row["Structural Similarity (Padded)"] = float(want[
+      "Structural Similarity (Padded)"])
+  write_tsv(tmp_path / "total.csv", [row])
+  (got,) = smoke.read_tsv(tmp_path / "total.csv")
+  assert {k: got[k] for k in want} == want
+  assert sorted(seconds) == ["cosine_s", "mcd_dtw_s", "mcd_s", "render_s",
+                             "ssim_s"]
+  assert [img.shape for img in labeled] == [(500, 64, 3), (500, 62, 3)]
+  inferred[3, 7] += 1.0
+  assert smoke.validation_metrics(orig, inferred)[0] != want
+
+
+def test_state_mismatch_names_each_difference(smoke, tmp_path):
+  """A checkpoint saved by ``train()`` and read back equals its returned
+  state; one bit of a param or an Adam leaf, the iteration and the
+  settings are each flagged."""
+  from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  hp = overwrite_custom_hparams(HParams(), {"epochs": "2"})
+  params = {"a": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
+            "b": [np.ones(2, np.float32)]}
+  opt = [np.array(4, np.int32), np.full(3, 0.5, np.float32)]
+  from dataclasses import asdict
+  CheckpointWaveglow(state_dict=params, optimizer=opt,
+                     learning_rate=hp.learning_rate, iteration=4,
+                     hparams=asdict(hp)).save(tmp_path / "4.npz")
+  ckpt = CheckpointWaveglow.load(tmp_path / "4.npz")
+  state = {"params": params, "opt_state": opt, "step": 4}
+  assert smoke.state_mismatch(ckpt, state, hp) == []
+  w = params["a"]["w"].copy()
+  w[1, 2] = np.nextafter(w[1, 2], np.float32(10))   # one bit
+  moved = [opt[0], opt[1].astype(np.float64)]
+  assert smoke.state_mismatch(
+      ckpt, {"params": {"a": {"w": w}, "b": params["b"]},
+             "opt_state": moved, "step": 5},
+      overwrite_custom_hparams(hp, {"epochs": "3"})) == [
+      "params/a/w", "optimizer/1", "iteration 4 != 5", "hparams"]

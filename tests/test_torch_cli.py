@@ -126,7 +126,8 @@ def out_path(ws, out, mel_path):
 
 def test_subcommands_registered():
   text = cli.build_parser().format_help()
-  for cmd in ("download", "synthesize", "synthesize-wav", "serve"):
+  for cmd in ("download", "train", "continue-train", "validate", "synthesize",
+              "synthesize-wav", "serve"):
     assert cmd in text
 
 
@@ -272,14 +273,6 @@ def test_synthesize_wav_copy_synthesis(ws, synth):
   assert cli_run(ws, *args, "-o") == 0
   assert sorted(p.name for p in folder.iterdir()) == [
       "cut0.synthesized.wav", "cut0.wav", "cut1.synthesized.wav", "cut1.wav"]
-
-
-def test_include_stats_is_refused_before_any_work(ws):
-  out = ws / "stats"
-  assert cli_run(ws, "synthesize", ws / "model.npz", ws / "mels",
-                 "--include-stats", "--device", "cpu", "-out", out) == 1
-  assert not out.exists()
-  assert "--include-stats is not available" in (ws / "cli.log").read_text()
 
 
 @pytest.mark.parametrize("cmd", ["synthesize", "synthesize-wav", "serve"])

@@ -7,6 +7,8 @@ the repo's jax-configuring conftest:
   python -m pytest tests/test_torch_gpu.py -m gpu -p no:cacheprovider --noconftest
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -588,3 +590,101 @@ def test_pt_import_synthesizes_like_the_npz(cuda, tmp_path, compute_dtype):
   assert outs["c.pt"].shape == (60 * 256,)
   assert np.isfinite(outs["c.pt"]).all()
   np.testing.assert_array_equal(outs["c.pt"], outs["c.npz"])
+
+
+# -- validation and the training command on the card -------------------------
+
+FIXTURE = Path(__file__).resolve().parent / "fixtures" / "audio.wav"
+SMALL = {"n_flows": "2", "n_layers": "4", "n_channels": str(kl.CHANNELS)}
+
+
+def write_cuts(folder, cuts):
+  from scipy.io import wavfile
+  sr, speech = wavfile.read(FIXTURE)
+  folder.mkdir(parents=True)
+  for i, (start, n) in enumerate(cuts):
+    wavfile.write(folder / f"cut{i}.wav", sr, speech[start:start + n])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_validate_on_the_card(cuda, tmp_path, compute_dtype):
+  """``validate(device="cuda")`` of two speech cuts: 8 WN launches for the
+  bias capture and 8 an entry, each output wav the normalized
+  ``Synthesizer.infer`` of the same mel and seed bit for bit, finite
+  metrics."""
+  from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
+  from waveglow_tpu_torch.dsp.audio_io import normalize_wav
+  from waveglow_tpu_torch.dsp.mel import MelSTFT
+  from waveglow_tpu_torch.eval.validation import get_rows, validate
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.inference.synthesizer import Synthesizer
+  from waveglow_tpu_torch.models import waveglow as wg
+  from waveglow_tpu_torch.training.data import load_dataset
+  hp = overwrite_custom_hparams(HParams(), SMALL)
+  params = wg.init_params(wg.WaveGlowConfig.from_hparams(hp), seed=0)
+  rng = np.random.default_rng(1)
+  for flow in params["flows"]:
+    end = flow["wn"]["end"]
+    end["w"] = (rng.standard_normal(end["w"].shape) * 0.05).astype(np.float32)
+    end["b"] = (rng.standard_normal(end["b"].shape) * 0.05).astype(np.float32)
+  ckpt = CheckpointWaveglow.from_params(params, hp, iteration=9)
+  write_cuts(tmp_path / "wavs", ((22_050, 9_000), (60_000, 20_000)))
+  data = load_dataset(tmp_path / "wavs")
+  outputs = {}
+  before = kl.LAUNCHES
+  rows = get_rows(validate(
+      ckpt, data, {"compute_dtype": compute_dtype}, 0.0005, 1.0, set(), True,
+      lambda entry, out: outputs.__setitem__(entry.stem, out), seed=3,
+      device="cuda"))
+  per_synthesis = hp.n_flows * hp.n_layers
+  assert kl.LAUNCHES - before == per_synthesis * (1 + len(data))
+  synth = Synthesizer(ckpt, compute_dtype=compute_dtype, device="cuda")
+  mel_op = MelSTFT(synth.hparams, device="cuda")
+  for row, entry in zip(rows, data):
+    mel = mel_op.get_mel(mel_op.get_wav_from_file(
+        entry.wav_absolute_path)).cpu().numpy()
+    want = normalize_wav(synth.infer(mel, seed=3).wav_denoised)
+    np.testing.assert_array_equal(outputs[entry.stem].wav_inferred_denoised,
+                                  want)
+    for col in ("MFCC DTW MCD", "MCD", "Cosine Similarity (Padded)",
+                "Structural Similarity (Padded)"):
+      assert np.isfinite(row[col]), col
+    assert row["Iteration"] == 9
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_command_on_the_card(cuda, tmp_path, compute_dtype):
+  """``train`` from the command line at width 256: 2 steps and checkpoints
+  1 and 2, forward and backward launches at the count the code gives, and
+  checkpoint 2 bit for bit a ``train(max_iterations=2)`` in this
+  process."""
+  from waveglow_tpu_torch.cli import main as cli
+  from waveglow_tpu_torch.training.data import load_dataset
+  from waveglow_tpu_torch.training.loop import train
+  custom = dict(SMALL, segment_length="4096", batch_size="2", epochs="1",
+                iters_per_checkpoint="1", epochs_per_checkpoint="0",
+                compute_dtype=compute_dtype)
+  write_cuts(tmp_path / "train", [(20_000 * i, 9_000) for i in range(4)])
+  write_cuts(tmp_path / "val", [(150_000, 9_000)])
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  assert cli.run([
+      "train", str(tmp_path / "train"), str(tmp_path / "val"),
+      str(tmp_path / "ck"), "--custom-hparams",
+      ",".join(f"{k}={v}" for k, v in custom.items()),
+      "--tl-dir", str(tmp_path / "logs"), "--log",
+      str(tmp_path / "cli.log")]) == 0
+  per_forward = int(SMALL["n_flows"]) * int(SMALL["n_layers"])
+  # 2 steps with their remat recompute, one validation batch at 2 saves
+  assert kl.LAUNCHES == 2 * 2 * per_forward + 2 * per_forward
+  assert kl.BWD_LAUNCHES == (2 * per_forward
+                             if compute_dtype == "bfloat16" else 0)
+  assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+      "1.npz", "2.npz"]
+  train(custom, None, load_dataset(tmp_path / "train"),
+        load_dataset(tmp_path / "val"), tmp_path / "ref", max_iterations=2,
+        device="cuda")
+  with np.load(tmp_path / "ck" / "2.npz") as a, \
+      np.load(tmp_path / "ref" / "2.npz") as b:
+    assert sorted(a.files) == sorted(b.files)
+    for key in a.files:
+      assert a[key].tobytes() == b[key].tobytes(), key

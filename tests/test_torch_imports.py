@@ -1,6 +1,9 @@
 """The port stands alone: no module of ``waveglow_tpu_torch`` and neither
 ``chip_smoke.py`` nor ``bwd_ablation.py`` imports jax or anything of the
-JAX package."""
+JAX package, nor a package that the card's machine does not have (it has
+torch, numpy and scipy, not matplotlib, pandas, Pillow or tensorstore).
+``torch.utils.tensorboard`` stays allowed: the training loop imports it
+lazily and raises a clear error without it."""
 
 import ast
 from pathlib import Path
@@ -24,9 +27,18 @@ def imported_modules(path: Path):
         yield f"{node.module}.{alias.name}"
 
 
+# not installed where the port runs
+MISSING_ON_THE_CARD = ("matplotlib", "pandas", "PIL", "imageio", "skimage",
+                       "librosa", "tensorstore", "orbax")
+
+
 def forbidden(name: str) -> bool:
   top = name.split(".")[0]
   return top in ("jax", "jaxlib", "flax", "optax", "waveglow_tpu")
+
+
+def missing_on_the_card(name: str) -> bool:
+  return name.split(".")[0] in MISSING_ON_THE_CARD
 
 
 def test_sources_found():
@@ -47,3 +59,19 @@ def test_scan_catches_a_forbidden_import(tmp_path):
                    "def f():\n  import jax.numpy as jnp\n")
   assert sorted(m for m in imported_modules(probe) if forbidden(m)) == [
       "jax.numpy", "waveglow_tpu.hparams", "waveglow_tpu.hparams.HParams"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_a_package_the_card_lacks(path):
+  bad = sorted({m for m in imported_modules(path) if missing_on_the_card(m)})
+  assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_catches_a_package_the_card_lacks(tmp_path):
+  probe = tmp_path / "probe.py"
+  probe.write_text("import numpy\nfrom matplotlib import pyplot as plt\n"
+                   "def f():\n  import pandas as pd\n  from PIL import Image\n"
+                   "  from torch.utils.tensorboard import SummaryWriter\n")
+  assert sorted(m for m in imported_modules(probe)
+                if missing_on_the_card(m)) == [
+      "PIL", "PIL.Image", "matplotlib", "matplotlib.pyplot", "pandas"]

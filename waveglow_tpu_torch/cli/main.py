@@ -1,11 +1,13 @@
-"""CLI dispatcher: waveglow-tpu-torch {download,synthesize,synthesize-wav,
-serve} (counterpart of ``waveglow_tpu/cli/main.py``).
+"""CLI dispatcher: waveglow-tpu-torch {download,train,continue-train,
+validate,synthesize,synthesize-wav,serve} (counterpart of
+``waveglow_tpu/cli/main.py``).
 
 Each subcommand's init function configures its parser and returns the
 handler; the run wrapper sets up logging, logs a platform banner to the
 file logger, times the handler and prints a success or failure banner.
 Exit codes: 0 success (and a bare invocation, which prints help), 1
-failure, 130 interrupted.
+failure, 130 interrupted. The JAX CLI's ``benchmark`` is not offered: it
+runs the JAX package's bench, and the port has no bench yet.
 """
 
 from __future__ import annotations
@@ -54,9 +56,16 @@ def _subcommands():
   from waveglow_tpu_torch.cli.serve_cmd import init_serve_parser
   from waveglow_tpu_torch.cli.synthesis_cmd import (init_synthesis_parser,
                                                     init_synthesis_wav_parser)
+  from waveglow_tpu_torch.cli.training_cmd import (
+      init_continue_training_parser, init_training_parser)
+  from waveglow_tpu_torch.cli.validation_cmd import init_validation_parser
   return (
       ("download", "download pre-trained checkpoints from Nvidia",
        _init_download_parser),
+      ("train", "start training", init_training_parser),
+      ("continue-train", "continue training from a checkpoint",
+       init_continue_training_parser),
+      ("validate", "validate checkpoint(s)", init_validation_parser),
       ("synthesize", "synthesize mel-spectrograms into an audio signal",
        init_synthesis_parser),
       ("synthesize-wav", "synthesize audio files sample-wise "

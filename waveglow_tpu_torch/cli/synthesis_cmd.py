@@ -7,8 +7,11 @@ normalize and write ``<stem>.wav`` (``<stem>.synthesized.wav`` beside a wav
 input), mirroring the subfolder tree. Existing outputs are skipped unless
 ``-o``; ``*.synthesized.wav`` files are never read back as inputs.
 ``--batch N`` synthesizes up to N same-bucket files a dispatch through
-``Synthesizer.infer_serving_many``. ``--include-stats`` (quality metrics
-and plots) is refused: its metrics come with the ``validate`` command.
+``Synthesizer.infer_serving_many``. ``--include-stats`` scores each output
+against its input mel (MCD with and without DTW, cosine, SSIM), writes
+``<stem>.orig.png``, ``<stem>.inferred.png`` and ``<stem>.comparison.png``
+beside the wav (labeled renders without text, ``eval.plots``) and a
+tab-separated ``stats.csv`` of one row a file in the output directory.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import logging
 import random
 import time
 from argparse import ArgumentParser, Namespace
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import List
 
 import numpy as np
 
@@ -32,6 +38,30 @@ logger = logging.getLogger(__name__)
 SYNTHESIZED_SUFFIX = ".synthesized.wav"
 
 
+@dataclass
+class InferenceEntry:
+  """One row of ``stats.csv`` (the JAX command's columns, in its order)."""
+  mel_path: Path = None
+  seed: int = None
+  iteration: int = None
+  inferred_duration_s: float = None
+  inference_duration_s: float = None
+  denoising_duration_s: float = None
+  was_overamplified: bool = None
+  mel_original_frames: int = None
+  mel_inferred_frames: int = None
+  mcd_dtw: float = None
+  mcd_dtw_penalty: float = None
+  mcd_dtw_frames: int = None
+  mcd: float = None
+  mcd_penalty: float = None
+  mcd_frames: int = None
+  structural_similarity: float = None
+  cosine_similarity: float = None
+  denoiser_strength: float = None
+  sigma: float = None
+
+
 def _add_common(parser: ArgumentParser) -> None:
   add_denoiser_and_sigma_arguments(parser)
   add_hparams_argument(parser)
@@ -41,8 +71,9 @@ def _add_common(parser: ArgumentParser) -> None:
                       default=None, help="custom seed used for synthesis; "
                       "random if unset")
   parser.add_argument("--include-stats", action="store_true",
-                      help="quality statistics: not available in this "
-                           "package yet (refused before any work)")
+                      help="compute quality statistics (slower): MCD, "
+                           "cosine and SSIM a file into stats.csv, and "
+                           "mel plots without text beside each wav")
   parser.add_argument("--chunk-frames",
                       type=get_optional(parse_positive_integer),
                       default=None,
@@ -118,11 +149,6 @@ def _run(ns: Namespace, source: str) -> bool:
   from waveglow_tpu_torch.dsp.mel import MelSTFT
   from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 
-  if ns.include_stats:
-    logger.error("--include-stats is not available in waveglow-tpu-torch "
-                 "yet: its metrics and plots come with the validate "
-                 "command. Run without it.")
-    return False
   device = resolve_device(ns.device)  # no card, no work
   output_directory = ns.output_directory or ns.folder
   if output_directory.is_file():
@@ -176,7 +202,9 @@ def _run(ns: Namespace, source: str) -> bool:
       return np.load(path)
     return mel_op.get_mel_from_file(path).cpu().numpy()
 
-  def write(item, wav_denoised, infer_s, denoise_s, overamp, note=""):
+  entries: List[InferenceEntry] = []
+
+  def write(item, mel, wav_denoised, infer_s, denoise_s, overamp, note=""):
     path, stem_key, wav_out = item
     wav_norm = normalize_wav(wav_denoised)
     wav_out.parent.mkdir(parents=True, exist_ok=True)
@@ -187,6 +215,19 @@ def _run(ns: Namespace, source: str) -> bool:
         "Synthesized %s -> %s: %.2fs audio, infer %.3fs%s, denoise %.3fs, "
         "overamplified=%s", path.name, wav_out, len(wav_norm) / sr, infer_s,
         note, denoise_s, overamp)
+    if ns.include_stats:
+      entry = InferenceEntry(
+          mel_path=path, seed=seed, iteration=checkpoint.iteration,
+          inferred_duration_s=len(wav_norm) / sr,
+          inference_duration_s=infer_s, denoising_duration_s=denoise_s,
+          was_overamplified=overamp, denoiser_strength=ns.denoiser_strength,
+          sigma=ns.sigma)
+      score_output(entry, mel, mel_op.get_mel(wav_norm).cpu().numpy(),
+                   wav_out.parent, path.stem)
+      entries.append(entry)
+      get_file_stem_logger(stem_key).info(
+          "Stats: MCD-DTW %.4f, cosine %.4f, SSIM %.4f", entry.mcd_dtw,
+          entry.cosine_similarity, entry.structural_similarity)
 
   if ns.batch > 1 and not ns.chunk_frames:
     # same-bucket files share a dispatch; each row draws the seed's noise
@@ -204,16 +245,50 @@ def _run(ns: Namespace, source: str) -> bool:
       # inside the dispatch, so no separate denoise time)
       per_file_s = (time.perf_counter() - t0) / len(chunk)
       note = f" amortized over {len(chunk)}-file batch"
-      for item, r in zip(chunk, results):
-        write(item, r.samples, per_file_s, 0.0, r.was_overamplified, note)
+      for item, mel, r in zip(chunk, mels, results):
+        write(item, mel, r.samples, per_file_s, 0.0, r.was_overamplified,
+              note)
   else:
     for item in work:
-      result = synth.infer(load_mel(item[0]), sigma=ns.sigma,
+      mel = load_mel(item[0])
+      result = synth.infer(mel, sigma=ns.sigma,
                            denoiser_strength=ns.denoiser_strength, seed=seed,
                            chunk_frames=ns.chunk_frames,
                            bucket_frames=ns.bucket_frames or None)
-      write(item, result.wav_denoised, result.inference_duration_s,
+      write(item, mel, result.wav_denoised, result.inference_duration_s,
             result.denoising_duration_s, result.was_overamplified)
 
   flush_file_stem_loggers(stem_queues)
+  if entries:
+    from waveglow_tpu_torch.eval.validation import write_tsv
+    csv_path = output_directory / "stats.csv"
+    write_tsv(csv_path, [asdict(e) for e in entries])
+    logger.info("Wrote statistics to %s", csv_path)
   return True
+
+
+def score_output(entry: InferenceEntry, mel_orig: np.ndarray,
+                 mel_inferred: np.ndarray, dest_dir: Path,
+                 out_stem: str) -> None:
+  """Fill ``entry``'s metrics of the synthesized mel against the input mel
+  and write ``<out_stem>.orig.png``, ``.inferred.png`` and
+  ``.comparison.png`` (the labeled renders over the raw renders'
+  difference) into ``dest_dir``."""
+  from waveglow_tpu_torch.eval.plots import save_image, stack_images_vertically
+  from waveglow_tpu_torch.eval.validation import score_mels
+
+  scores = score_mels(mel_orig, mel_inferred)
+  entry.mel_original_frames = mel_orig.shape[1]
+  entry.mel_inferred_frames = mel_inferred.shape[1]
+  entry.mcd_dtw, entry.mcd_dtw_penalty, entry.mcd_dtw_frames = scores.mcd_dtw
+  entry.mcd, entry.mcd_penalty, entry.mcd_frames = scores.mcd
+  entry.cosine_similarity = scores.cosine_similarity
+  entry.structural_similarity = scores.structural_similarity
+  orig_img, inf_img = scores.labeled
+  save_image(dest_dir / f"{out_stem}.orig.png", orig_img)
+  save_image(dest_dir / f"{out_stem}.inferred.png", inf_img)
+  save_image(dest_dir / f"{out_stem}.comparison.png",
+             stack_images_vertically([orig_img, inf_img, scores.raw_diff]))
+  logger.info("MCD DTW: %.4f | MCD: %.4f | SSIM: %.4f | Cosine: %.4f",
+              entry.mcd_dtw, entry.mcd, entry.structural_similarity,
+              entry.cosine_similarity)

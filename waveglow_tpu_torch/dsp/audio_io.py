@@ -1,12 +1,13 @@
-"""Host-side wav IO in numpy (the port's own copy of what its data path and
-its CLI need from ``waveglow_tpu/dsp/audio_io.py``): sample-format
-conversion scales by ``-min(src)`` -> ``max(dst)`` and rounds for integer
-targets; peak normalization scales to full scale."""
+"""Host-side wav IO in numpy (the port's own copy of
+``waveglow_tpu/dsp/audio_io.py``): sample-format conversion scales by
+``-min(src)`` -> ``max(dst)`` and rounds for integer targets; peak
+normalization scales to full scale; durations, sample counts, random
+segment crops and concatenation with pauses."""
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 from scipy.io import wavfile
@@ -80,3 +81,45 @@ def wav_to_float32(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
 def float_to_wav(wav: np.ndarray, path: Union[str, Path], dtype=np.int16,
                  sample_rate: int = 22050) -> None:
   wavfile.write(str(path), sample_rate, convert_wav(np.asarray(wav), dtype))
+
+
+def get_duration_s(wav: np.ndarray, sampling_rate: int) -> float:
+  return len(wav) / sampling_rate
+
+
+def get_duration_s_file(path: Union[str, Path]) -> float:
+  sampling_rate, wav = wavfile.read(str(path))
+  return get_duration_s(wav, sampling_rate)
+
+
+def get_sample_count(sampling_rate: int, duration_s: float) -> int:
+  return int(round(sampling_rate * duration_s, 0))
+
+
+def get_wav_segment(wav: np.ndarray, segment_length: int,
+                    rng: np.random.Generator) -> np.ndarray:
+  """Random fixed-length crop, or trailing zero-pad when too short."""
+  if len(wav) >= segment_length:
+    start = int(rng.integers(0, len(wav) - segment_length + 1))
+    return wav[start:start + segment_length]
+  return np.pad(wav, (0, segment_length - len(wav)))
+
+
+def concatenate_audios(audios: Sequence[np.ndarray], pause_s: float,
+                       sampling_rate: int) -> np.ndarray:
+  """The audios joined along the last axis with ``pause_s`` of silence
+  between each two. The pause has the inputs' dtype, so int16 samples stay
+  int16 (a float64 pause would promote them, and a later float-to-int16
+  conversion would wrap them)."""
+  pause_samples = get_sample_count(sampling_rate, pause_s)
+  if len(audios) == 1:
+    return np.array(audios[0])
+  pause_shape = list(audios[0].shape)
+  pause_shape[-1] = pause_samples
+  pause = np.zeros(tuple(pause_shape), dtype=np.result_type(*audios))
+  parts: List[np.ndarray] = []
+  for audio in audios[:-1]:
+    parts.append(audio)
+    parts.append(pause)
+  parts.append(audios[-1])
+  return np.concatenate(parts, axis=-1)

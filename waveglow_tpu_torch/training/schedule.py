@@ -10,6 +10,7 @@ floor((iteration-1) / batch_iterations).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -63,3 +64,16 @@ def check_save_it(epoch: int, iteration: int,
         and (epoch + 1) % settings.epochs_per_checkpoint == 0):
       return True
   return False
+
+
+def get_next_save_it(iteration: int,
+                     settings: SaveIterationSettings) -> Optional[int]:
+  """The first iteration at or after ``iteration`` that saves, or None when
+  none is left before the last one."""
+  result = iteration
+  while result <= settings.epochs * settings.batch_iterations:
+    epoch = iteration_to_epoch(result, settings.batch_iterations)
+    if check_save_it(epoch, result, settings):
+      return result
+    result += 1
+  return None

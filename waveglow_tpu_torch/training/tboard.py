@@ -36,6 +36,9 @@ class TensorBoardLogger:
   def log_validation(self, iteration: int, loss: float) -> None:
     self._writer.add_scalar("validation/loss", loss, iteration)
 
+  def flush(self) -> None:
+    self._writer.flush()
+
   def close(self) -> None:
     self._writer.close()
 
