@@ -111,7 +111,29 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      launches at the counts the code gives; the wall of each command and
      validate's split on the 826-frame entry (synthesis, mel, MCD with DTW
      and without, cosine, renders, SSIM, file writes).
- 11. a `kernels` JSON line, the card's name and power limit, and last the
+ 11. mesh: sharded serving on logical meshes that list cuda:0 once a
+     shard, in f32 and bf16 at full width (the shards run one after
+     another: the numbers are checked, no speedup is shown). The shard
+     kernel (csrc/wn_layer_shard.cu) against wn_layer_shard_plain at C' =
+     128, 64 and 32, d=1, d=128 and the last layer, and the ranks'
+     partials summed against the unsharded kernel, timed at d=1 beside its
+     bound, plain version and library yardstick; BatchSynthesizer on data
+     = 2 and 4 (8 x 826 frames: each device's rows bit for bit an
+     unsharded call on them, the batch within the slice bound of the
+     8-row call; infer_many of 7 lengths padded and trimmed); infer_long
+     on time = 2 and 4 at 3,304 and 3,301 frames, bit for bit the
+     unsharded call, 96 WN launches a span; Synthesizer on model = 2, 4
+     and (data 2, model 2): phase 4's 826-frame request and a 4-row
+     micro-batch within the slice bound of the unsharded Synthesizer, 96 x
+     model shard launches a dispatch and no WN-kernel launch, stream() on
+     model = 2; the daemon on a (2, 2) mesh (/healthz, phase 8's solo
+     bodies bit for bit the in-process mesh Synthesizer's, /reload
+     re-shards) and on time = 2 (a 3,304-frame body bit for bit the
+     unsharded call); each path's wall, device busy and host enqueue, and
+     the reduce's device time in a model = 2 dispatch. Then `serve
+     --mesh-data <cards + 1>` as a process must exit nonzero naming the
+     cards it needs.
+ 12. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -122,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import csv
 import dataclasses
 import functools
@@ -167,6 +190,7 @@ from waveglow_tpu_torch.hparams import (HParams, overwrite_custom_hparams,
                                         parse_custom_hparams)
 from waveglow_tpu_torch.inference.client import SynthesisClient
 from waveglow_tpu_torch.inference.server import SynthesisService, make_server
+from waveglow_tpu_torch.inference.serving import BatchSynthesizer
 from waveglow_tpu_torch.inference.streaming import receptive_halo_frames
 from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 from waveglow_tpu_torch.kernels import wn_layer as kl
@@ -174,6 +198,8 @@ from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
                                                 infer, infer_noise_shapes,
                                                 init_params)
+from waveglow_tpu_torch.parallel.mesh import make_mesh, make_time_mesh
+from waveglow_tpu_torch.parallel.time_shard import span_windows
 from waveglow_tpu_torch.training import step as train_lib
 from waveglow_tpu_torch.training.data import SegmentDataset, load_dataset
 from waveglow_tpu_torch.training.loop import train
@@ -303,6 +329,14 @@ CLI_WAV_CUTS = ((22_050, 30_000), (120_000, 41_000))
 CLI_TRAIN_HPARAMS = (f"epochs={{epochs}},batch_size={B_TRAIN},"
                      "iters_per_checkpoint=1,epochs_per_checkpoint=0")
 CLI_SELECT = 2
+# Sharded serving on logical meshes of the one card (phase 11): a batch of
+# MESH_BATCH rows of phase 4's longest request length, infer_many of
+# MESH_MANY lengths on data = 4, infer_long of MESH_LONG frames (4 x 826,
+# and 3 fewer, which no time size divides), a micro-batch of MESH_MICRO.
+MESH_BATCH = 8
+MESH_MANY = (826, 517, 230, 200, 826, 517, 300)
+MESH_LONG = (LONG_FRAMES, LONG_FRAMES - 3)
+MESH_MICRO = (826, 800, 780, 826)
 MODES = {"f32": None, "bf16": torch.bfloat16}
 DEVICE = "cuda"
 
@@ -325,6 +359,11 @@ BACKWARD_DESIGN = (
     "3-tap product over dgates, offsets negated), weights kernel (128x128 "
     "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
     "reduce")
+SHARD_DESIGN = ("FFMA (bf16 operands converted, f32 accumulation in bf16 "
+                "mode): 256-thread blocks of 32 time rows, the tap rows of x "
+                "staged in shared memory a tap at a time, 2 tanh + 2 sigmoid "
+                "channels a thread, weights through L1, acts in shared "
+                "memory for the partial res/skip product")
 # Shapes at which phase 2 reports the f32 kernel's grid: phase 3's two batch
 # sizes and the training segment.
 F32_GRID_SHAPES = ((1, T_KERNEL), (8, T_KERNEL), (B_TRAIN, T_TRAIN))
@@ -402,12 +441,26 @@ def bwd_variant(kernel: str, last: bool = False) -> str:
   return f"bf16,bwd-{kernel}"
 
 
+def shard_variant(channels: int, bf16: bool, last: bool) -> str:
+  """Variant name of a shard kernel (``C'`` gate channels a rank): starts
+  with "shard-", so the f32 and bf16 rules of the forward kernels do not
+  apply; ``check_tensor_cores`` holds the f32 ones to no tensor-core
+  instruction."""
+  return (f"shard-{'bf16' if bf16 else 'f32'},C'={channels},"
+          f"{'last' if last else 'layer'}")
+
+
+SHARD_KERNELS = tuple((cp, bf16, last) for cp in kl.SHARD_CHANNELS
+                      for bf16 in (False, True) for last in (False, True))
+
+
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kLast>``, the bf16 tensor-core kernel
-  ``wn_layer_kernel_mma<kLast>``, or a backward kernel
-  ``wn_bwd_{rows<kLast>,dx,weights,reduce}_kernel``; other symbols are
-  returned as they are."""
+  ``wn_layer_kernel_mma<kLast>``, a backward kernel
+  ``wn_bwd_{rows<kLast>,dx,weights,reduce}_kernel`` or a shard kernel
+  ``wn_shard_kernel<kCP, kBf16, kLast>``; other symbols are returned as
+  they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILb([01])E", mangled)
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
@@ -416,6 +469,10 @@ def kernel_variant(mangled: str) -> str:
                    mangled)
   if inst:
     return bwd_variant(inst.group(1), inst.group(2) == "1")
+  inst = re.search(r"wn_shard_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+  if inst:
+    return shard_variant(int(inst.group(1)), inst.group(2) == "1",
+                         inst.group(3) == "1")
   return mangled
 
 
@@ -483,7 +540,7 @@ def check_tensor_cores(mma: dict, variants) -> None:
       fail(f"no SASS found for the {name} kernel")
     if name.startswith("bf16") and mma[name] == 0:
       fail(f"the {name} kernel has no HMMA/HGMMA instruction")
-    if name.startswith("f32") and mma[name] != 0:
+    if name.startswith(("f32", "shard-f32")) and mma[name] != 0:
       fail(f"the {name} kernel has {mma[name]} tensor-core instructions")
 
 
@@ -526,6 +583,8 @@ def phase_build() -> dict:
                 for mode in MODES for last in (False, True)}
   attributes.update({bwd_variant(k, last): kl.bwd_kernel_info(k, last)
                      for k, last in BWD_KERNELS})
+  attributes.update({shard_variant(*v): kl.shard_kernel_info(*v)
+                     for v in SHARD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -597,7 +656,7 @@ def library_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation, dtype):
   them. Inputs are given channels-first where conv1d wants them."""
   x_cf, w_conv = x, w_in
   pre = F.conv1d(x_cf, w_conv, b_in, padding=dilation, dilation=dilation)
-  c = w_conv.shape[1]
+  c = w_conv.shape[0] // 2   # the gate channels (C' for a rank's shard)
   gates = pre.transpose(1, 2) + cond
   acts = torch.tanh(gates[..., :c]) * torch.sigmoid(gates[..., c:])
   return torch.matmul(acts.to(dtype), w_rs)
@@ -793,6 +852,8 @@ def phase_slice(ckpt: CheckpointWaveglow, mode: str, seed: int):
 def kernel_family(name: str) -> str:
   if "wn_layer_kernel" in name:
     return "wn_layer kernel"
+  if "wn_shard_kernel" in name:
+    return "wn shard kernel"
   if re.search(r"gemm|xmma|nvjet|cutlass|cublas", name, re.I):
     return "cuBLAS matmul (cond, upsample, 1x1, STFT)"
   return "elementwise, copies and reductions"
@@ -2579,6 +2640,518 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   return info
 
 
+# -- phase 11 --------------------------------------------------------------
+
+def shard_cost(batch: int, t: int, cp: int, last: bool, mode: str):
+  """(bytes, flops, bound_ms, bound_by) of one shard-kernel call holding
+  ``cp`` of the C gate channels: x, cond_s and the weights read once, the
+  partial written once; flops of its two products,
+  2 * B * T * (3C * 2C' + C' * n_rs)."""
+  esize = 2 if mode == "bf16" else 4
+  rs = C if last else 2 * C
+  rows = batch * t
+  nbytes = (rows * C * 4                          # x
+            + rows * 2 * cp * esize               # cond_s
+            + (3 * C * 2 * cp + cp * rs) * esize  # w_in_s, w_rs_s
+            + 2 * cp * 4                          # b_in_s
+            + rows * rs * 4)                      # the partial written
+  flops = 2 * rows * (3 * C * 2 * cp + cp * rs)
+  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS[mode] * 1e3
+  return nbytes, flops, max(t_bytes, t_ops), (
+      "bytes" if t_bytes >= t_ops else "operations")
+
+
+def shard_slices(args, model: int, rank: int):
+  """Rank ``rank``'s (cond_s, w_in_s, b_in_s, w_rs_s) of a full layer's
+  inputs, cut as ``parallel.sharding.shard_params`` cuts the params."""
+  _, cond, w_in, b_in, w_rs, _ = args
+  cp = C // model
+  cols = slice(rank * cp, (rank + 1) * cp)
+  lead = cond.shape[:2]
+  return (cond.reshape(*lead, 2, C)[..., cols].reshape(*lead, 2 * cp)
+          .contiguous(),
+          w_in.reshape(3, C, 2, C)[..., cols].reshape(3, C, 2 * cp)
+          .contiguous(),
+          b_in.reshape(2, C)[:, cols].reshape(-1).contiguous(),
+          w_rs.reshape(C, -1)[cols].contiguous())
+
+
+def expected_mesh_launches(axis: str, size: int, rows: int, frames: int,
+                           per_synthesis: int) -> dict:
+  """WN launches of one synthesis of ``rows`` rows and ``frames`` frames
+  on a mesh axis of ``size``: "fused" (the WN kernel) and "shard" (the
+  shard kernel). Data: one synthesis a row group (``size`` groups when the
+  rows divide, else one); time: one a non-empty span; model: the shard
+  kernel once a rank and layer, the WN kernel never."""
+  if axis == "data":
+    groups = size if rows % size == 0 else 1
+    return {"fused": per_synthesis * groups, "shard": 0}
+  if axis == "time":
+    return {"fused": per_synthesis * min(size, frames), "shard": 0}
+  if axis == "model":
+    return {"fused": 0, "shard": per_synthesis * size}
+  raise ValueError(f"unknown mesh axis {axis!r}")
+
+
+def stitch_faults(windows, frames: int, halo: int) -> list:
+  """What is wrong with a time split's ``(start, end, lo, hi)`` windows
+  (``parallel.time_shard.span_windows``), if anything: the spans must
+  cover [0, frames) in order without gap or overlap, each within one frame
+  of the others, and each window must hold its span with ``halo`` frames a
+  side, clipped to the utterance."""
+  out, pos = [], 0
+  lengths = []
+  for start, end, lo, hi in windows:
+    if start != pos:
+      out.append(f"span at {start}, expected {pos}")
+    if end <= start:
+      out.append(f"empty span at {start}")
+    if lo != max(0, start - halo) or hi != min(frames, end + halo):
+      out.append(f"window [{lo}, {hi}) of span [{start}, {end})")
+    lengths.append(end - start)
+    pos = end
+  if pos != frames:
+    out.append(f"spans end at {pos}, expected {frames}")
+  if lengths and max(lengths) - min(lengths) > 1:
+    out.append(f"span lengths {lengths} differ by more than one")
+  return out
+
+
+def shard_kernel_check(mode: str, seed: int) -> dict:
+  """The shard kernel against its plain version at every C' (d=1, d=128,
+  the last layer) and the ranks' partials summed against the unsharded
+  kernel's res/skip; times at d=1 beside the bound, the plain version and
+  the library's sharded layer (cuDNN conv1d, the gate, cuBLAS matmul)."""
+  cdt = MODES[mode]
+  dtype = cdt or torch.float32
+  cases, timed = [], {}
+  for i, (dilation, last) in enumerate(((1, False), (128, False),
+                                        (LAST_DILATION, True))):
+    args, _, _ = layer_inputs(1, T_KERNEL, last, dtype, seed + 50 + i)
+    xk, sk = kl.wn_layer_fused(*args, dilation, compute_dtype=cdt)
+    full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
+    full_scale = full.abs().max().item()
+    for cp in kl.SHARD_CHANNELS:
+      model = C // cp
+      total, err, scale = None, 0.0, 0.0
+      for rank in range(model):
+        sl = shard_slices(args, model, rank)
+        got = kl.wn_layer_shard(args[0], *sl, dilation, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        ref = kl.wn_layer_shard_plain(args[0], *sl, dilation,
+                                      compute_dtype=cdt)
+        if not torch.isfinite(got).all():
+          fail(f"mesh {mode}: shard kernel output not finite (C'={cp})")
+        err = max(err, (got - ref).abs().max().item())
+        scale = max(scale, ref.abs().max().item())
+        total = got if total is None else total + got
+      bound = KERNEL_TOL_F32 if mode == "f32" else KERNEL_TOL_BF16_REL * scale
+      sum_err = (total + args[5] - full).abs().max().item()
+      sum_bound = (KERNEL_TOL_F32 if mode == "f32"
+                   else KERNEL_TOL_BF16_REL * full_scale)
+      rec = {"mode": mode, "C'": cp, "dilation": dilation, "last": last,
+             "max_abs_err": err, "bound": bound, "ref_max_abs": scale,
+             "summed_vs_fused_max_abs": sum_err,
+             "summed_bound": sum_bound}
+      if err > bound or sum_err > sum_bound:
+        fail(f"mesh {mode}: shard kernel disagrees: {rec}")
+      if dilation == 1:
+        sl = shard_slices(args, model, 0)
+        nbytes, flops, bound_ms, bound_by = shard_cost(1, T_KERNEL, cp,
+                                                       last, mode)
+        rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_shard(
+            args[0], *sl, 1, compute_dtype=cdt))
+        rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_shard_plain(
+            args[0], *sl, 1, compute_dtype=cdt))
+        x_cf = args[0].to(dtype).transpose(1, 2).contiguous()
+        w_conv = sl[1].permute(2, 1, 0).contiguous()   # [2C', C, 3]
+        b_lib = sl[2].to(dtype)
+        rec["library_ms"] = cuda_ms(lambda: library_layer(
+            x_cf, sl[0], w_conv, b_lib, sl[3], None, 1, dtype))
+        rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   share_of_bound=bound_ms / rec["kernel_ms"])
+        timed[cp] = rec
+      log("shard kernel " + json.dumps(rec))
+      cases.append(rec)
+    del args, xk, sk, full
+  torch.cuda.empty_cache()
+  return {"cases": cases, "timed": timed}
+
+
+def annotate_reduce():
+  """Wrap the model axis's reduce in a profiler range named
+  ``reduce_partials``, so a profile can read its device time; returns the
+  undo."""
+  from waveglow_tpu_torch.models import wn as wn_module
+  original = wn_module.reduce_partials
+
+  def annotated(partials):
+    with torch.profiler.record_function("reduce_partials"):
+      return original(partials)
+
+  wn_module.reduce_partials = annotated
+
+  def undo():
+    wn_module.reduce_partials = original
+  return undo
+
+
+def range_device_ms(fn, name: str) -> dict:
+  """:func:`profile_call` of ``fn``, plus the device time of the kernels
+  launched inside the profiler ranges called ``name`` ("not measured" when
+  the profiler reports none)."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  ms = sum(ev.device_time_total for ev in prof.key_averages()
+           if ev.key == name
+           and ev.device_type == torch.autograd.DeviceType.CPU) / 1e3
+  return ms if ms > 0 else "not measured"
+
+
+def host_enqueue_s(synth: Synthesizer, mel: np.ndarray, seed: int) -> dict:
+  """Host seconds to enqueue one serving dispatch (the call returns
+  without waiting), then to its result."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  dispatched = synth.serving_dispatch(mel, seed=seed, bucket_frames=BUCKET)
+  enqueue = time.perf_counter() - t0
+  synth.serving_finalize(dispatched)
+  return {"enqueue_s": enqueue, "result_s": time.perf_counter() - t0}
+
+
+def logical_devices(n: int) -> list:
+  """``cuda:0`` listed ``n`` times: a mesh that runs every sharded path
+  on the one card, its shards one after another."""
+  return [torch.device("cuda", 0)] * n
+
+
+def phase_mesh(ckpt: CheckpointWaveglow, paths: dict, mode: str,
+               seed: int) -> dict:
+  """Sharded serving on logical meshes of the one card (phase 11)."""
+  dtype_name = "bfloat16" if mode == "bf16" else "float32"
+  t_phase = time.perf_counter()
+  kernel = shard_kernel_check(mode, seed)
+  tol = SLICE_TOL_REL[mode]
+  rng = np.random.default_rng(seed + 11)
+  config = WaveGlowConfig.from_hparams(ckpt.get_hparams())
+  per_synthesis = config.n_flows * config.n_layers
+  frames = max(FRAMES)
+  rng4 = np.random.default_rng(seed)   # phase 4's requests
+  req = [rng4.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+         for f in FRAMES][-1]
+  info = {"mode": mode, "card": nvidia_smi_line(), "shard_kernel": kernel,
+          "note": "logical meshes of one card: shards run one after "
+                  "another, so these times check paths, not speedups"}
+  counts = {"fused": 0, "shard": 0}
+
+  def counted(fn):
+    """Run ``fn`` with both launch counts set to 0 just before; add what
+    it launched to the phase's counts and return them with its result."""
+    kl.LAUNCHES = kl.SHARD_LAUNCHES = 0
+    out = fn()
+    got = {"fused": kl.LAUNCHES, "shard": kl.SHARD_LAUNCHES}
+    for k in counts:
+      counts[k] += got[k]
+    return out, got
+
+  # -- data: MESH_BATCH rows of the longest request over data = 2 and 4
+  plain = BatchSynthesizer(ckpt, compute_dtype=dtype_name, device=DEVICE)
+  mels8 = rng.uniform(-11.0, 1.0, (MESH_BATCH, 80, frames)).astype(
+      np.float32)
+  seeds8 = [seed + (b << 32) for b in range(MESH_BATCH)]
+  ref8 = plain._infer(mels8, 1.0, seeds8)
+  scale8 = float(np.abs(ref8).max())
+  data = {}
+  for d in (2, 4):
+    synth = BatchSynthesizer(ckpt, compute_dtype=dtype_name,
+                             mesh=make_mesh(data=d,
+                                            devices=logical_devices(d)))
+    if d == 4:
+      data_synth = synth   # kept for infer_many
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav, got = counted(lambda: synth.infer_batch(mels8, seed=seed))
+    wall = time.perf_counter() - t0
+    want = expected_mesh_launches("data", d, MESH_BATCH, frames,
+                                  per_synthesis)
+    if got != want:
+      fail(f"mesh {mode}: data={d} launched {got}, expected {want}")
+    n = MESH_BATCH // d
+    for g in range(d):
+      rows = slice(g * n, (g + 1) * n)
+      if not np.array_equal(wav[rows], plain._infer(mels8[rows], 1.0,
+                                                     seeds8[rows])):
+        fail(f"mesh {mode}: data={d} rows {rows} differ from an unsharded "
+             "call on the same rows")
+    err = float(np.abs(wav - ref8).max())
+    if not np.isfinite(wav).all() or err > tol * scale8:
+      fail(f"mesh {mode}: data={d} batch vs the 8-row call {err} > "
+           f"{tol * scale8}")
+    data[d] = {"launches": got, "wall_s": wall, "vs_8_row_max_abs": err,
+               "bound": tol * scale8}
+    del synth
+  lengths = MESH_MANY
+  many = [rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+          for f in lengths]
+  outs, _ = counted(lambda: data_synth.infer_many(many, seed=seed,
+                                                  bucket_frames=BUCKET))
+  refs = plain.infer_many(many, seed=seed, bucket_frames=BUCKET)
+  # a bucket's rows run in groups of another size than unsharded: the same
+  # numbers up to the rounding of differently shaped products
+  many_scale = max(float(np.abs(r).max()) for r in refs)
+  many_err = 0.0
+  for f, out, ref in zip(lengths, outs, refs):
+    if out.shape != (f * UPSAMPLE_STRIDE,) or not np.isfinite(out).all():
+      fail(f"mesh {mode}: infer_many on data=4 gave the {f}-frame row "
+           f"shape {out.shape}")
+    many_err = max(many_err, float(np.abs(out - ref).max()))
+  if many_err > tol * many_scale:
+    fail(f"mesh {mode}: infer_many on data=4 vs unsharded {many_err} > "
+         f"{tol * many_scale}")
+  data["infer_many"] = {"lengths": list(lengths),
+                        "vs_unsharded_max_abs": many_err,
+                        "bound": tol * many_scale}
+  del data_synth
+  info["data"] = data
+
+  # -- time: infer_long over time = 2 and 4, at MESH_LONG frames
+  long = rng.uniform(-11.0, 1.0, (80, max(MESH_LONG))).astype(np.float32)
+  halo = receptive_halo_frames(config)
+  time_info = {}
+  refs = {n_frames: plain.infer_batch(long[None, :, :n_frames], seed=seed)[0]
+          for n_frames in MESH_LONG}
+  for n in (2, 4):
+    synth = BatchSynthesizer(ckpt, compute_dtype=dtype_name,
+                             mesh=make_time_mesh(n,
+                                                 devices=logical_devices(n)))
+    for n_frames in MESH_LONG:
+      mel, ref = long[:, :n_frames], refs[n_frames]
+      faults = stitch_faults(span_windows(n_frames, n, halo), n_frames,
+                             halo)
+      if faults:
+        fail(f"mesh {mode}: time split of {n_frames} over {n}: {faults}")
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      wav, got = counted(lambda: synth.infer_long(mel, seed=seed))
+      wall = time.perf_counter() - t0
+      want = expected_mesh_launches("time", n, 1, n_frames, per_synthesis)
+      if got != want:
+        fail(f"mesh {mode}: time={n} launched {got}, expected {want}")
+      if not np.array_equal(wav, ref):
+        fail(f"mesh {mode}: infer_long of {n_frames} frames over time={n} "
+             f"differs from the unsharded call by "
+             f"{float(np.abs(wav - ref).max())}")
+      time_info[f"{n_frames}x{n}"] = {"launches": got, "wall_s": wall,
+                                      "bit_for_bit": True}
+    del synth
+  info["time"] = time_info
+  del plain
+  torch.cuda.empty_cache()
+
+  # -- model: Synthesizer over model = 2, 4 and (data 2, model 2)
+  unsharded = Synthesizer(ckpt, compute_dtype=dtype_name, device=DEVICE)
+  micro = [rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+           for f in MESH_MICRO]
+  micro_seeds = [seed + 20 + i for i in range(4)]
+  ref_req = unsharded.infer_serving(req, seed=seed, bucket_frames=BUCKET)
+  ref_micro = unsharded.infer_serving_many(micro, seeds=micro_seeds,
+                                           bucket_frames=BUCKET)
+  ref_stream = np.concatenate([p for _, p in unsharded.stream(
+      req, seed=seed, chunk_frames=STREAM_CHUNK)])
+  paths_info = {"unsharded": {
+      "profile": profile_call(lambda: unsharded.infer_serving(
+          req, seed=seed, bucket_frames=BUCKET)),
+      "enqueue": host_enqueue_s(unsharded, req, seed)}}
+  model_info = {}
+  for d, m in ((1, 2), (1, 4), (2, 2)):
+    synth = Synthesizer(ckpt, compute_dtype=dtype_name,
+                        mesh=make_mesh(data=d, model=m,
+                                       devices=logical_devices(d * m)))
+    synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
+    res, got = counted(lambda: synth.infer_serving(req, seed=seed,
+                                                   bucket_frames=BUCKET))
+    want = expected_mesh_launches("model", m, 1, frames, per_synthesis)
+    if got != want:
+      fail(f"mesh {mode}: model={m} dispatch launched {got}, expected {want}")
+    scale = float(np.abs(ref_req.samples).max())
+    err = float(np.abs(res.samples - ref_req.samples).max())
+    if not np.isfinite(res.samples).all() or err > tol * scale:
+      fail(f"mesh {mode}: ({d}, {m}) {frames}-frame request vs unsharded "
+           f"{err} > {tol * scale}")
+    rows = count_dispatches(synth)
+    outs, got_micro = counted(lambda: synth.infer_serving_many(
+        micro, seeds=micro_seeds, bucket_frames=BUCKET))
+    rows = list(rows)
+    want_micro = {"fused": 0, "shard": sum(
+        expected_mesh_launches("data", d, r, frames, per_synthesis)["fused"]
+        for r in rows) * m}
+    if got_micro != want_micro:
+      fail(f"mesh {mode}: ({d}, {m}) micro-batch launched {got_micro}, "
+           f"expected {want_micro}")
+    micro_err = max(float(np.abs(o.samples - r.samples).max())
+                    for o, r in zip(outs, ref_micro))
+    micro_scale = max(float(np.abs(r.samples).max()) for r in ref_micro)
+    if micro_err > tol * micro_scale:
+      fail(f"mesh {mode}: ({d}, {m}) micro-batch vs unsharded {micro_err}")
+    rec = {"launches": got, "micro_launches": got_micro,
+           "micro_dispatch_rows": list(rows),
+           "vs_unsharded_max_abs": err, "bound": tol * scale,
+           "micro_vs_unsharded_max_abs": micro_err}
+    if (d, m) == (1, 2):
+      stream, got_stream = counted(lambda: np.concatenate(
+          [p for _, p in synth.stream(req, seed=seed,
+                                      chunk_frames=STREAM_CHUNK)]))
+      windows = stream_windows(frames, STREAM_CHUNK, halo)
+      if got_stream != {"fused": 0, "shard": per_synthesis * m * windows}:
+        fail(f"mesh {mode}: model=2 stream launched {got_stream}")
+      stream_err = float(np.abs(stream - ref_stream).max())
+      stream_scale = float(np.abs(ref_stream).max())
+      if stream.shape != ref_stream.shape or stream_err > tol * stream_scale:
+        fail(f"mesh {mode}: model=2 stream vs unsharded {stream_err}")
+      rec.update(stream_launches=got_stream, stream_vs_unsharded=stream_err)
+      undo = annotate_reduce()
+      try:
+        rec["reduce_device_ms"] = range_device_ms(
+            lambda: synth.infer_serving(req, seed=seed,
+                                        bucket_frames=BUCKET),
+            "reduce_partials")
+      finally:
+        undo()
+    rec["profile"] = profile_call(lambda: synth.infer_serving(
+        req, seed=seed, bucket_frames=BUCKET))
+    rec["enqueue"] = host_enqueue_s(synth, req, seed)
+    busy = rec["profile"]["device_busy_ms"]
+    if (d, m) == (1, 2) and busy != "not measured" and (
+        rec["reduce_device_ms"] != "not measured"):
+      rec["reduce_share_of_busy"] = rec["reduce_device_ms"] / busy
+    model_info[f"{d}x{m}"] = rec
+    log(f"mesh {mode} model {d}x{m} " + json.dumps(
+        {k: v for k, v in rec.items() if k != "profile"}))
+    del synth
+  info["model"] = model_info
+  torch.cuda.empty_cache()
+
+  # -- the paths' wall, device busy and host enqueue, one dispatch each
+  for name, mesh in (("data2", make_mesh(data=2,
+                                          devices=logical_devices(2))),
+                     ("time2", make_time_mesh(2,
+                                              devices=logical_devices(2)))):
+    synth = Synthesizer(ckpt, compute_dtype=dtype_name, mesh=mesh)
+    synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
+    paths_info[name] = {
+        "profile": profile_call(lambda: synth.infer_serving(
+            req, seed=seed, bucket_frames=BUCKET)),
+        "enqueue": host_enqueue_s(synth, req, seed)}
+    del synth
+  paths_info["model2"] = {k: model_info["1x2"][k]
+                          for k in ("profile", "enqueue")}
+  info["paths"] = paths_info
+
+  # -- the daemon over HTTP: (data 2, model 2), then time 2
+  rng_serve = np.random.default_rng(seed + 8)   # phase 8's requests
+  solo = {f: rng_serve.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+          for f in FRAMES}
+  service = SynthesisService(
+      ckpt, custom_hparams={"compute_dtype": dtype_name},
+      max_batch=SERVE_MAX_BATCH, bucket_frames=BUCKET,
+      mesh=make_mesh(data=2, model=2, devices=logical_devices(4)))
+  daemon = {}
+  with serving(service) as client:
+    health = client.health()
+    if health["mesh"] != {"data": 2, "model": 2}:
+      fail(f"mesh {mode}: /healthz mesh {health['mesh']}")
+    for i, (f, mel) in enumerate(solo.items()):
+      got = client.synthesize(mel, seed=seed + i)
+      want = service.synth.infer_serving(mel, seed=seed + i,
+                                         bucket_frames=BUCKET).samples
+      if not np.array_equal(got, want):
+        fail(f"mesh {mode}: the (2, 2) daemon's {f}-frame body differs from "
+             "the in-process mesh Synthesizer's")
+    before = client.synthesize(solo[frames], seed=seed)
+    status = client.reload(str(paths["other"]))
+    after = client.synthesize(solo[frames], seed=seed)
+    other = Synthesizer(CheckpointWaveglow.load(paths["other"]),
+                        compute_dtype=dtype_name, device=DEVICE)
+    want = other.infer_serving(solo[frames], seed=seed,
+                               bucket_frames=BUCKET).samples
+    reload_err = float(np.abs(after - want).max())
+    if (np.array_equal(after, before)
+        or reload_err > tol * float(np.abs(want).max())
+        or any(len(g) != 2 for g in service.synth._place.groups)):
+      fail(f"mesh {mode}: /reload did not re-shard the new weights "
+           f"({reload_err} from them)")
+    del other
+    daemon["data2_model2"] = {"health_mesh": health["mesh"],
+                              "reload": status, "reload_vs_new": reload_err}
+  service = SynthesisService(
+      ckpt, custom_hparams={"compute_dtype": dtype_name}, max_batch=1,
+      bucket_frames=BUCKET,
+      mesh=make_time_mesh(2, devices=logical_devices(2)))
+  with serving(service) as client:
+    health = client.health()
+    got = client.synthesize(long[:, :MESH_LONG[0]], seed=seed)
+    want = unsharded.infer_serving(long[:, :MESH_LONG[0]], seed=seed,
+                                   bucket_frames=BUCKET).samples
+    if health["mesh"] != {"time": 2} or not np.array_equal(got, want):
+      fail(f"mesh {mode}: the time-2 daemon's {MESH_LONG[0]}-frame body is "
+           f"not the unsharded call's ({health['mesh']})")
+    daemon["time2"] = {"health_mesh": health["mesh"], "bit_for_bit": True}
+  info["daemon"] = daemon
+  del unsharded
+  torch.cuda.empty_cache()
+  info["launches"] = counts
+  info["phase_s"] = time.perf_counter() - t_phase
+  log("mesh " + json.dumps({k: v for k, v in info.items()
+                            if k not in ("shard_kernel", "model", "paths")}))
+  return info
+
+
+@contextlib.contextmanager
+def serving(service: SynthesisService):
+  """``service`` behind a daemon on 127.0.0.1 for the body of the block;
+  yields a client and shuts every thread down after."""
+  httpd = make_server(service, "127.0.0.1", 0)
+  thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+  thread.start()
+  try:
+    yield SynthesisClient(f"http://127.0.0.1:{httpd.server_port}",
+                          timeout_s=SERVE_TIMEOUT_S)
+  finally:
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(SERVE_TIMEOUT_S)
+    if service._batcher is not None:
+      service._batcher.close(SERVE_TIMEOUT_S)
+
+
+def serve_refuses_missing_cards(npz: Path, tmp: Path) -> dict:
+  """``serve --mesh-data <cards + 1>`` as a process must exit nonzero
+  with the message that names the cards it needs: a refusal, not a
+  fallback."""
+  need = torch.cuda.device_count() + 1
+  log_path = tmp / "serve_mesh.log"
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-m", "waveglow_tpu_torch", "serve", str(npz),
+       "--port", str(free_port()), "--mesh-data", str(need), "--log",
+       str(log_path)], cwd=ROOT, capture_output=True, text=True,
+      timeout=SERVE_TIMEOUT_S, check=False)
+  wall = time.perf_counter() - t0
+  text = proc.stdout + proc.stderr
+  message = f"needs {need} CUDA devices (cards), have {need - 1}"
+  if proc.returncode == 0 or message not in text:
+    fail(f"serve --mesh-data {need} on {need - 1} card(s) exited "
+         f"{proc.returncode} without '{message}':\n{text[-2000:]}")
+  return {"mesh_data": need, "returncode": proc.returncode,
+          "message": message, "wall_s": wall}
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -2620,6 +3193,11 @@ def main() -> None:
     cli_trains = {mode: phase_cli_train(mode, args.seed, Path(tmp),
                                         clis["files"])
                   for mode in MODES}
+    meshes = {mode: phase_mesh(ckpt, paths, mode, args.seed)
+              for mode in MODES}
+    meshes["serve_refusal"] = serve_refuses_missing_cards(paths["first"],
+                                                          Path(tmp))
+    log("mesh serve refusal " + json.dumps(meshes["serve_refusal"]))
 
   kernels = []
   for mode in MODES:
@@ -2633,7 +3211,8 @@ def main() -> None:
         "launches": (slices[mode]["launches"] + streams[mode]["launches"]
                      + serves[mode]["launches"]
                      + clis["modes"][mode]["launches"]
-                     + cli_trains[mode]["synthesis_launches"]),
+                     + cli_trains[mode]["synthesis_launches"]
+                     + meshes[mode]["launches"]["fused"]),
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2649,6 +3228,7 @@ def main() -> None:
         "daemon_dispatches": serves[mode]["dispatches"],
         "cli_launches": clis["modes"][mode]["launches"],
         "cli_validate_launches": cli_trains[mode]["synthesis_launches"],
+        "mesh_launches": meshes[mode]["launches"]["fused"],
         # the last layer and B=8, each with its library yardstick
         **{f"{key}_{case}": kernel["timed"][shape][key]
            for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
@@ -2731,11 +3311,32 @@ def main() -> None:
       "loaded_build": {bwd_variant(k, l): build["attributes"][bwd_variant(k, l)]
                        for k, l in BWD_KERNELS}})
 
+  for mode in MODES:
+    shard = meshes[mode]["shard_kernel"]
+    rec = shard["timed"][128]
+    kernels.append({
+        "name": f"wn_layer_shard[{mode}]", "route": "cuda",
+        "source": "waveglow_tpu_torch/csrc/wn_layer_shard.cu",
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
+                    "shard, waveglow_tpu/parallel/sharding.py:44)",
+        "launches": meshes[mode]["launches"]["shard"],
+        "max_abs_err": max(c["max_abs_err"] for c in shard["cases"]),
+        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"], "design": SHARD_DESIGN,
+        "shape": f"B=1,T={T_KERNEL},C={C},C'=128,d=1",
+        **{f"{key}_C'{cp}": shard["timed"][cp][key]
+           for cp in (64, 32)
+           for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+        "loaded_build": {f"C'={cp}": kl.shard_kernel_info(cp, mode == "bf16",
+                                                          False)
+                         for cp in kl.SHARD_CHANNELS}})
+
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
             "streams": streams, "serves": serves, "cli": clis,
-            "cli_train": cli_trains,
+            "cli_train": cli_trains, "mesh": meshes,
             "trainable_cases": trainable["cases"], "train": trains,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -523,3 +523,88 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
              "opt_state": moved, "step": 5},
       overwrite_custom_hparams(hp, {"epochs": "3"})) == [
       "params/a/w", "optimizer/1", "iteration 4 != 5", "hparams"]
+
+
+# -- phase 11: sharded serving --------------------------------------------------
+
+SHARD_128 = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463615wn_shard_"
+             "kernelILi128ELb0ELb0EEEvPKfPKNSt11conditionalIXT0_E13__nv_"
+             "bfloat16fE4typeES8_S2_S8_Pfii")
+
+
+@pytest.mark.parametrize("mangled,name", [
+    (SHARD_128, "shard-f32,C'=128,layer"),
+    (SHARD_128.replace("ILi128ELb0ELb0E", "ILi32ELb1ELb1E"),
+     "shard-bf16,C'=32,last")])
+def test_shard_kernel_variant_names(smoke, mangled, name):
+  assert smoke.kernel_variant(mangled) == name
+  assert name in {smoke.shard_variant(*v) for v in smoke.SHARD_KERNELS}
+
+
+def test_check_tensor_cores_holds_the_f32_shard_kernel(smoke):
+  smoke.check_tensor_cores({"shard-bf16,C'=64,layer": 0,
+                            "shard-f32,C'=64,layer": 0},
+                           ["shard-bf16,C'=64,layer", "shard-f32,C'=64,layer"])
+  with pytest.raises(SystemExit, match="tensor-core"):
+    smoke.check_tensor_cores({"shard-f32,C'=64,layer": 3},
+                             ["shard-f32,C'=64,layer"])
+
+
+@pytest.mark.parametrize("cp", [128, 64, 32])
+def test_shard_cost_at_the_kernel_phase_shape(smoke, cp):
+  """FLOPs 2 * B * T * (768 * 2C' + C' * 512); bytes x, cond_s, the
+  weights and the partial once each; f32 operation-bound at C' = 128."""
+  t = smoke.T_KERNEL
+  nbytes, flops, bound_ms, bound_by = smoke.shard_cost(1, t, cp, False,
+                                                       "f32")
+  assert flops == 2 * t * (768 * 2 * cp + cp * 512)
+  assert nbytes == (t * 256 * 4 + t * 2 * cp * 4
+                    + (768 * 2 * cp + cp * 512) * 4 + 2 * cp * 4
+                    + t * 512 * 4)
+  assert bound_ms == pytest.approx(max(nbytes / 3.35e9, flops / 67e9))
+  if cp == 128:
+    assert bound_by == "operations"
+  _, _, bf16_ms, bf16_by = smoke.shard_cost(1, t, cp, False, "bf16")
+  assert bf16_by == "bytes" and bf16_ms < bound_ms
+  _, last_flops, _, _ = smoke.shard_cost(1, t, cp, True, "f32")
+  assert last_flops == 2 * t * (768 * 2 * cp + cp * 256)
+
+
+def test_expected_mesh_launches_per_axis(smoke):
+  """96 layers a synthesis: a data axis runs one synthesis a row group
+  (the first device alone when the rows do not divide), a time axis one a
+  non-empty span, a model axis the shard kernel once a rank and layer."""
+  assert smoke.expected_mesh_launches("data", 4, 8, 826, 96) == {
+      "fused": 384, "shard": 0}
+  assert smoke.expected_mesh_launches("data", 4, 1, 826, 96) == {
+      "fused": 96, "shard": 0}
+  assert smoke.expected_mesh_launches("time", 4, 1, 3301, 96) == {
+      "fused": 384, "shard": 0}
+  assert smoke.expected_mesh_launches("time", 4, 1, 3, 96) == {
+      "fused": 288, "shard": 0}
+  assert smoke.expected_mesh_launches("model", 2, 4, 826, 96) == {
+      "fused": 0, "shard": 192}
+  with pytest.raises(ValueError, match="axis"):
+    smoke.expected_mesh_launches("pipeline", 2, 1, 826, 96)
+
+
+@pytest.mark.parametrize("frames,n", [(3304, 2), (3304, 4), (3301, 4),
+                                      (3301, 2), (3, 4)])
+def test_time_split_and_stitch(smoke, frames, n):
+  """The spans and halo windows phase 11 runs at full width (100-frame
+  halo) pass the stitch predicate; a gap, an overlap, a short halo and an
+  uneven split are each flagged."""
+  from waveglow_tpu_torch.parallel.time_shard import span_windows
+  windows = span_windows(frames, n, 100)
+  assert smoke.stitch_faults(windows, frames, 100) == []
+  if frames > n:
+    (s0, e0, lo0, hi0), *rest = windows
+    gap = [(s0, e0 - 1, lo0, min(frames, e0 - 1 + 100))] + rest
+    assert any("expected" in f for f in smoke.stitch_faults(gap, frames,
+                                                            100))
+    short = [(s0, e0, lo0, hi0 - 1)] + rest
+    assert smoke.stitch_faults(short, frames, 100)
+  uneven = [(0, frames - 1, 0, frames), (frames - 1, frames, 0, frames)]
+  if frames > 3:
+    assert any("differ" in f for f in smoke.stitch_faults(uneven, frames,
+                                                          frames))

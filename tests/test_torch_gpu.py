@@ -688,3 +688,126 @@ def test_train_command_on_the_card(cuda, tmp_path, compute_dtype):
     assert sorted(a.files) == sorted(b.files)
     for key in a.files:
       assert a[key].tobytes() == b[key].tobytes(), key
+
+
+# -- the tensor-parallel shard kernel (model mesh axis) ----------------------
+
+def shard_slices(args, model, rank):
+  """Rank ``rank``'s slices of a full layer's (cond, w_in, b_in, w_rs), as
+  ``parallel.sharding.shard_params`` cuts them."""
+  _, cond, w_in, b_in, w_rs, _ = args
+  c = kl.CHANNELS
+  cp = c // model
+  cols = slice(rank * cp, (rank + 1) * cp)
+  return (cond.reshape(*cond.shape[:2], 2, c)[..., cols].reshape(
+              *cond.shape[:2], 2 * cp).contiguous(),
+          w_in.reshape(3, c, 2, c)[..., cols].reshape(3, c, 2 * cp)
+          .contiguous(),
+          b_in.reshape(2, c)[:, cols].reshape(-1).contiguous(),
+          w_rs.reshape(c, -1)[cols].contiguous())
+
+
+@pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
+                                           (2, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("model", [2, 4, 8])
+def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last):
+  """Each rank's partial against ``wn_layer_shard_plain``, and the ranks'
+  partials summed against the unsharded kernel's ``rs`` (x' - x and the
+  skip, less b_rs) at the bounds of the full kernel."""
+  batch, t, c = 2, 300, kl.CHANNELS  # a ragged last tile
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  args = layer_inputs(cuda, batch, t, c, last, dtype, seed=model)
+  x = args[0]
+  before = kl.SHARD_LAUNCHES
+  total = None
+  for rank in range(model):
+    cond_s, w_in_s, b_in_s, w_rs_s = shard_slices(args, model, rank)
+    got = kl.wn_layer_shard(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+                            compute_dtype=cdt)
+    torch.cuda.synchronize()
+    ref = kl.wn_layer_shard_plain(x, cond_s, w_in_s, b_in_s, w_rs_s,
+                                  dilation, compute_dtype=cdt)
+    assert got.shape == ref.shape == (batch, t, c if last else 2 * c)
+    bound = 2e-2 * ref.abs().max().item() if bf16 else 1e-4
+    assert (got - ref).abs().max().item() <= bound
+    total = got if total is None else total + got
+  assert kl.SHARD_LAUNCHES == before + model
+  xk, sk = kl.wn_layer_fused(*args, dilation, compute_dtype=cdt)
+  b_rs = args[5]
+  full = sk if last else torch.cat([xk - x, sk], dim=-1)
+  summed = total + b_rs
+  bound = 2e-2 * full.abs().max().item() if bf16 else 1e-4
+  assert (summed - full).abs().max().item() <= bound
+
+
+def test_shard_kernel_repeats_bitwise_and_refuses(cuda):
+  args = layer_inputs(cuda, 1, 1000, kl.CHANNELS, False, torch.bfloat16)
+  sl = shard_slices(args, 2, 1)
+  one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+  two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+  assert torch.equal(one, two)
+  with pytest.raises(ValueError, match="C' in"):
+    kl.wn_layer_shard(args[0], *shard_slices(args, 16, 0), 4,
+                      compute_dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_shard(args[0], *sl, 4)
+
+
+@pytest.mark.parametrize("cp", kl.SHARD_CHANNELS)
+def test_shard_kernel_info_reads_the_loaded_build(cuda, cp):
+  for bf16 in (False, True):
+    for last in (False, True):
+      info = kl.shard_kernel_info(cp, bf16, last)
+      assert 0 < info["registers"] <= 255
+      assert info["static_smem_bytes"] > 0
+
+
+@pytest.mark.parametrize("frames,n", [(400, 4), (397, 4), (3, 4), (251, 2)])
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_time_sharded_is_bit_for_bit_on_the_card(cuda, stream_model, frames,
+                                                 n, cdt):
+  """``infer_time_sharded`` over a logical time mesh of the card equals
+  one-call ``infer`` bit for bit, at frame counts that ``n`` divides and
+  does not (and fewer frames than devices), with the WN kernel launched
+  once a layer and non-empty span. Bit for bit needs each window's
+  matrix products to round as the one call's do, which cuBLAS does not
+  promise for a small row count: windows of 34 frames gave other bits on
+  an H100. Every window here holds over 100 frames (3,200 rows a batch
+  row), as every window of the full-width model does (its halo is 100
+  frames a side)."""
+  from waveglow_tpu_torch.models.waveglow import infer
+  from waveglow_tpu_torch.parallel.time_shard import infer_time_sharded
+  cfg, params = stream_model
+  mel = np.random.default_rng(frames).uniform(
+      -11.0, 1.0, (2, 80, frames)).astype(np.float32)
+  ref = infer(params[cdt], cfg, mel, seed=[3, 4], compute_dtype=cdt)
+  before = kl.LAUNCHES
+  out = infer_time_sharded([params[cdt]] * n, cfg, mel, seed=[3, 4],
+                           compute_dtype=cdt)
+  assert kl.LAUNCHES - before == min(n, frames) * cfg.n_flows * cfg.n_layers
+  assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_model_mesh_synthesis_on_the_card(cuda, stream_model, model):
+  """``infer`` over a tensor-parallel group on a logical model mesh of
+  the card: every WN layer through the shard kernel, none through the
+  full one, close to the unsharded synthesis (f32)."""
+  from waveglow_tpu_torch.checkpointing.from_jax import params_to_numpy
+  from waveglow_tpu_torch.models.waveglow import infer
+  from waveglow_tpu_torch.parallel.mesh import make_mesh
+  from waveglow_tpu_torch.parallel.sharding import shard_params
+  cfg, params = stream_model
+  mesh = make_mesh(model=model, devices=[cuda] * model)
+  group = shard_params(params_to_numpy(params[None]), mesh)[0]
+  mel = np.random.default_rng(5).uniform(-11.0, 1.0, (1, 80, 40)).astype(
+      np.float32)
+  ref = infer(params[None], cfg, mel, seed=1).cpu().numpy()
+  before, shard_before = kl.LAUNCHES, kl.SHARD_LAUNCHES
+  out = infer(group, cfg, mel, seed=1).cpu().numpy()
+  assert kl.LAUNCHES == before
+  assert kl.SHARD_LAUNCHES - shard_before == (
+      model * cfg.n_flows * cfg.n_layers)
+  assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -2,8 +2,11 @@
 ``waveglow_tpu/cli/serve_cmd.py``).
 
 A long-lived service keeps the model on the card across requests; see
-:mod:`waveglow_tpu_torch.inference.server` for the endpoints. The JAX
-command's ``--mesh-*`` flags (sharded serving) are not ported.
+:mod:`waveglow_tpu_torch.inference.server` for the endpoints.
+``--mesh-data``/``--mesh-model``/``--mesh-time`` serve over several cards
+(``parallel.mesh``): ``cuda:0 .. cuda:n-1`` with ``--device cuda``, n
+copies of the CPU with ``--device cpu``. A host with fewer cards than the
+mesh needs is refused.
 """
 
 from __future__ import annotations
@@ -56,6 +59,21 @@ def init_serve_parser(parser: ArgumentParser):
                       help="admission limit: reject requests with HTTP 503 "
                            "once this many are in flight (queued + "
                            "executing; 0 = never shed)")
+  parser.add_argument("--mesh-data", type=parse_positive_integer, default=1,
+                      help="shard micro-batched request rows over this many "
+                           "cards (data parallelism; each card synthesizes "
+                           "its rows independently)")
+  parser.add_argument("--mesh-model", type=parse_positive_integer, default=1,
+                      help="tensor-shard the WN hidden channels over this "
+                           "many cards (2, 4 or 8: Megatron column/row "
+                           "split, one reduce of the partial res/skip sums "
+                           "per WN layer)")
+  parser.add_argument("--mesh-time", type=parse_positive_integer, default=1,
+                      help="shard each utterance's mel frames over this many "
+                           "cards (long-utterance synthesis; each card "
+                           "recomputes the receptive-field halo of its "
+                           "span). Mutually exclusive with "
+                           "--mesh-data/--mesh-model")
   parser.add_argument("--max-frames", type=parse_non_negative_integer,
                       default=8192,
                       help="size limit: reject request mels over this many "
@@ -77,6 +95,26 @@ def init_serve_parser(parser: ArgumentParser):
   return _run
 
 
+def build_mesh(ns: Namespace):
+  """The mesh the ``--mesh-*`` flags ask for (None for one device): over
+  ``cuda:0 .. cuda:n-1``, or n copies of the CPU with ``--device cpu``.
+  Raises ``ValueError`` when ``--mesh-time`` is combined with the other
+  two, or when the host has fewer cards than the mesh needs."""
+  from waveglow_tpu_torch.parallel.mesh import make_mesh, make_time_mesh
+
+  n = max(ns.mesh_data * ns.mesh_model, ns.mesh_time)
+  devices = ["cpu"] * n if ns.device.startswith("cpu") else None
+  if ns.mesh_time > 1:
+    if ns.mesh_data > 1 or ns.mesh_model > 1:
+      raise ValueError("--mesh-time is mutually exclusive with "
+                       "--mesh-data/--mesh-model")
+    return make_time_mesh(ns.mesh_time, devices=devices)
+  if ns.mesh_data > 1 or ns.mesh_model > 1:
+    return make_mesh(data=ns.mesh_data, model=ns.mesh_model,
+                     devices=devices)
+  return None
+
+
 def _run(ns: Namespace) -> bool:
   from waveglow_tpu_torch.checkpointing import load_checkpoint_any
   from waveglow_tpu_torch.device import resolve_device
@@ -84,6 +122,7 @@ def _run(ns: Namespace) -> bool:
                                                    serve_forever)
 
   device = resolve_device(ns.device)  # no card, no work
+  mesh = build_mesh(ns)
   custom_hparams = parse_custom_hparams(ns.custom_hparams)
   if ns.compute_dtype is not None:
     custom_hparams["compute_dtype"] = ns.compute_dtype
@@ -94,7 +133,10 @@ def _run(ns: Namespace) -> bool:
       sigma=ns.sigma, denoiser_strength=ns.denoiser_strength,
       max_batch=ns.max_batch, batch_window_ms=ns.batch_window_ms,
       max_queue=ns.max_queue, max_frames=ns.max_frames,
-      allow_torch_reload=ns.allow_torch_reload, device=device)
+      allow_torch_reload=ns.allow_torch_reload,
+      device=None if mesh is not None else device, mesh=mesh)
+  if mesh is not None:
+    logger.info("Serving over a device mesh: %s", mesh.shape)
   warmup_frames = ([int(f) for f in ns.warmup_frames.split(",") if f]
                    if ns.warmup_frames else None)
   logger.info("Model ready; binding %s:%d", ns.host, ns.port)

@@ -5,12 +5,15 @@ At construction the model synthesizes an 88-frame zero mel at sigma 0
 (through the WN kernel on the card) and keeps the first STFT frame of the
 result as ``bias_spec``; a call subtracts ``strength * bias_spec`` from the
 audio's magnitude spectrogram, clamps at 0 and inverts with the original
-phases. It runs in float32 whatever the serving compute dtype.
+phases. It runs in float32 whatever the serving compute dtype. On a
+tensor-parallel group (a list of model ranks' params) the bias is captured
+through the group.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import copy
+from typing import Optional, Union
 
 import torch
 
@@ -40,7 +43,7 @@ def denoise_window(stft: STFT, padded: torch.Tensor, bias: torch.Tensor,
 class Denoiser:
   """Removes model bias from audio produced with WaveGlow."""
 
-  def __init__(self, params: Dict, config: WaveGlowConfig,
+  def __init__(self, params, config: WaveGlowConfig,
                hparams: TSTFTHParams, device: torch.device):
     self.stft = STFT(hparams.filter_length, hparams.hop_length,
                      hparams.win_length, hparams.window, device=device)
@@ -49,6 +52,18 @@ class Denoiser:
     bias_audio = infer(params, config, mel, sigma=0.0, seed=0, device=device)
     bias_spec, _ = self.stft.transform(bias_audio)
     self.bias_spec = bias_spec[:, :, 0:1]  # [1, cutoff, 1], first frame
+
+  def to(self, device: torch.device) -> "Denoiser":
+    """This denoiser on ``device``: the same bias, copied there (itself
+    when it is there already)."""
+    if device == self.stft.device:
+      return self
+    other = copy.copy(self)
+    stft = self.stft
+    other.stft = STFT(stft.filter_length, stft.hop_length, stft.win_length,
+                      stft.window, device=device)
+    other.bias_spec = self.bias_spec.to(device)
+    return other
 
   def __call__(self, audio: torch.Tensor,
                strength: Union[float, torch.Tensor]) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""HTTP serving daemon: mel->wav synthesis over the network on one card
-(counterpart of ``waveglow_tpu/inference/server.py``).
+"""HTTP serving daemon: mel->wav synthesis over the network on one card or
+a device mesh (counterpart of ``waveglow_tpu/inference/server.py``).
 
 :class:`SynthesisService` wraps a :class:`Synthesizer` whose weights stay
 on the device across requests:
@@ -22,12 +22,16 @@ on the device across requests:
     413); /stats reports latency percentiles, in-flight depth, the shed
     count and a per-stage decomposition.
 
-The JAX daemon's mesh modes (data, model and time axes) and orbax reloads
-are not ported yet; a torch-format reload needs ``allow_torch_reload``.
+With ``mesh=`` the daemon is a sharded synthesis service
+(``Synthesizer(mesh=)``): a ``data`` axis spreads micro-batch rows over the
+devices, a ``model`` axis cuts the WN hidden channels over them, a ``time``
+axis splits each request's frames; ``/healthz`` reports the mesh's shape
+and ``/reload`` re-shards. Orbax reloads are not ported; a torch-format
+reload needs ``allow_torch_reload``.
 
 Endpoints (JSON errors, application/json):
 
-  GET  /healthz               -> {"status": "ok", model/serving summary}
+  GET  /healthz               -> {"status": "ok", model/serving/mesh summary}
   GET  /stats                 -> counters, latency percentiles, per-stage
                               decomposition (stages_ms), in-flight
   GET  /metrics               -> the same in Prometheus text format
@@ -78,6 +82,7 @@ from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.inference.synthesizer import (ServingResult,
                                                       Synthesizer,
                                                       enqueue_fetch)
+from waveglow_tpu_torch.parallel.mesh import Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -285,8 +290,9 @@ class _MicroBatcher:
 
 
 class SynthesisService:
-  """Transport-agnostic serving core around one model on one device: the
-  card by default (raises without one), the CPU with ``device="cpu"``."""
+  """Transport-agnostic serving core around one model on one device (the
+  card by default, raises without one; the CPU with ``device="cpu"``) or
+  on ``mesh`` (``parallel.mesh``)."""
 
   def __init__(self, checkpoint: CheckpointWaveglow, *,
                custom_hparams: Optional[Dict[str, str]] = None,
@@ -295,9 +301,9 @@ class SynthesisService:
                max_batch: int = 8, batch_window_ms: float = 5.0,
                max_queue: int = 64, max_frames: int = 8192,
                allow_torch_reload: bool = False,
-               device: Optional[str] = "cuda"):
+               device: Optional[str] = None, mesh: Optional[Mesh] = None):
     self.synth = Synthesizer(checkpoint, custom_hparams=custom_hparams,
-                             device=device)
+                             device=device, mesh=mesh)
     # kept for /reload: update_params must apply the same serve-time
     # overrides, or every hot-swap would read as an architecture change
     self.custom_hparams = custom_hparams
@@ -631,7 +637,8 @@ class SynthesisService:
                     "max_batch": self.max_batch,
                     "max_queue": self.max_queue,
                     "max_frames": self.max_frames},
-        "mesh": None,
+        "mesh": (dict(self.synth.mesh.shape) if self.synth.mesh is not None
+                 else None),
     }
 
   def snapshot_stats(self) -> Dict:

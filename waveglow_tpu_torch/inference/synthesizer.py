@@ -12,6 +12,16 @@ fetches one buffer; ``infer_serving_many`` micro-batches requests with
 per-row seeds, sigmas, strengths and true lengths. Every WN layer runs
 through the fused CUDA kernel on the card.
 
+``mesh=`` (``parallel.mesh``) serves over several devices with the JAX
+synthesizer's placement rules (``parallel.placement``): a ``data`` axis
+splits a batch's rows when they divide evenly (else the batch runs on the
+first device), a ``model`` axis cuts every WN layer's hidden channels over
+the ranks (the shard kernel), and a ``time`` axis splits every synthesis
+over the devices in frame spans, stitched bit for bit. The denoiser,
+PCM16 and the overamp max run on the device that holds each row group
+(after the stitch on a time mesh); ``stream`` and chunked ``infer`` run on
+the first group (through the ranks on a model mesh).
+
 ``compute_dtype='bfloat16'`` selects the fast path; the default float32 is
 the parity mode (no TF32). The denoiser stays float32 in both.
 """
@@ -28,9 +38,8 @@ from typing import (Dict, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from waveglow_tpu_torch.checkpointing.from_jax import params_from_numpy
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
-from waveglow_tpu_torch.device import resolve_device, to_device
+from waveglow_tpu_torch.device import to_device
 from waveglow_tpu_torch.dsp.mel import CLIP_VAL
 from waveglow_tpu_torch.hparams import overwrite_custom_hparams
 from waveglow_tpu_torch.inference.denoiser import Denoiser
@@ -40,9 +49,10 @@ from waveglow_tpu_torch.inference.streaming import (infer_chunked,
                                                     stream_chunks)
 from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
-                                                fuse_for_inference, infer,
-                                                params_for_compute)
+                                                fuse_for_inference)
 from waveglow_tpu_torch.ops.conv import compute_dtype_from_name
+from waveglow_tpu_torch.parallel.mesh import Mesh
+from waveglow_tpu_torch.parallel.placement import Placement
 
 logger = logging.getLogger(__name__)
 
@@ -71,10 +81,11 @@ class ServingResult:
 
 
 class ServingDispatch(NamedTuple):
-  """Serving work enqueued on the device: per dispatched batch, the request
-  indices of its rows and host buffers of its samples and per-row
-  max|wav|, filled by copies enqueued with it; ``event`` follows those
-  copies (None on the CPU, where the buffers are ready)."""
+  """Serving work enqueued on the device: per dispatched batch (per row
+  group of a batch on a data mesh), the request indices of its rows and
+  host buffers of its samples and per-row max|wav|, filled by copies
+  enqueued with it; ``event`` follows those copies (None on the CPU, where
+  the buffers are ready)."""
   batches: List[Tuple[List[int], np.ndarray, np.ndarray]]
   true_samples: List[int]
   start: float
@@ -82,24 +93,43 @@ class ServingDispatch(NamedTuple):
   event: Optional["torch.cuda.Event"]
 
 
+class DeviceEvents:
+  """Events recorded on several devices, waited for and queried as one."""
+
+  def __init__(self, events: Sequence["torch.cuda.Event"]):
+    self.events = list(events)
+
+  def synchronize(self) -> None:
+    for event in self.events:
+      event.synchronize()
+
+  def query(self) -> bool:
+    return all(event.query() for event in self.events)
+
+
 def enqueue_fetch(tensors: Sequence[torch.Tensor]
                   ) -> Tuple[List[np.ndarray], Optional["torch.cuda.Event"]]:
   """Device-to-host copies of ``tensors``, enqueued now behind the work that
   makes them, into pinned host buffers (``non_blocking``), and an event
-  recorded after them. Waiting on the event waits for that work alone; a
-  blocking ``.cpu()`` made later is enqueued, and waits, behind whatever
-  other threads enqueued in between. Read the arrays only after
-  ``event.synchronize()``. CPU tensors are their own host arrays (event
-  None)."""
+  recorded after them on each device that holds one of them (one
+  ``torch.cuda.Event``, or a :class:`DeviceEvents` over several devices).
+  Waiting on the event waits for that work alone; a blocking ``.cpu()``
+  made later is enqueued, and waits, behind whatever other threads
+  enqueued in between. Read the arrays only after ``event.synchronize()``.
+  CPU tensors are their own host arrays (event None)."""
   if not tensors or tensors[0].device.type != "cuda":
     return [t.numpy() for t in tensors], None
   host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
           for t in tensors]
   for dst, src in zip(host, tensors):
     dst.copy_(src, non_blocking=True)
-  event = torch.cuda.Event()
-  event.record()
-  return [h.numpy() for h in host], event
+  events = []
+  for index in dict.fromkeys(t.device.index for t in tensors):
+    with torch.cuda.device(index):
+      events.append(torch.cuda.Event())
+      events[-1].record()
+  return ([h.numpy() for h in host],
+          events[0] if len(events) == 1 else DeviceEvents(events))
 
 
 def _per_request(value, n: int, name: str) -> np.ndarray:
@@ -140,10 +170,14 @@ class Synthesizer:
   def __init__(self, checkpoint: CheckpointWaveglow, *,
                custom_hparams: Optional[Dict[str, str]] = None,
                compute_dtype: Optional[str] = None,
-               device: Optional[str] = "cuda"):
+               device: Optional[str] = None, mesh: Optional[Mesh] = None):
     """``device``: ``"cuda"`` (the default, also for None) raises without a
-    card; pass ``"cpu"`` to run the plain PyTorch path on the CPU."""
-    self.device = resolve_device(device)
+    card; pass ``"cpu"`` to run the plain PyTorch path on the CPU.
+    ``mesh``: serve over its devices (module docstring); ``device``, when
+    also given, must be the mesh's first device."""
+    self._place = Placement(mesh, device)
+    self.device = self._place.device
+    self.mesh = mesh
     hparams = overwrite_custom_hparams(checkpoint.get_hparams(),
                                        custom_hparams)
     if compute_dtype is not None:
@@ -151,14 +185,26 @@ class Synthesizer:
     self._cdt = compute_dtype_from_name(hparams.compute_dtype)
     self.hparams = hparams
     self.config = WaveGlowConfig.from_hparams(hparams)
-    params = params_from_numpy(checkpoint.state_dict, self.device)
-    self.denoiser = Denoiser(params, self.config, hparams, self.device)
-    self.params = params_for_compute(params, self._cdt)
+    self._put(checkpoint)
     self.iteration = checkpoint.iteration
 
+  def _put(self, checkpoint: CheckpointWaveglow) -> None:
+    """Place the checkpoint's weights (sharded on a mesh) and capture the
+    denoiser bias through the first group, copied to every group's
+    device."""
+    fused = fuse_for_inference(checkpoint.state_dict)
+    self._shapes = _leaf_shapes(fused)
+    f32 = self._place.put(fused, self._cdt)
+    self.denoiser = Denoiser(f32[0], self.config, self.hparams, self.device)
+    self._denoisers = {str(d): self.denoiser.to(d)
+                       for d in self._place.devices}
+    # the first group's params: a tree, or a tensor-parallel list of trees
+    self.params = self._place.groups[0]
+
   def _sync(self) -> None:
-    if self.device.type == "cuda":
-      torch.cuda.synchronize(self.device)
+    for device in self._place.all_devices():
+      if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
   def update_params(self, checkpoint: CheckpointWaveglow, *,
                     custom_hparams: Optional[Dict[str, str]] = None) -> int:
@@ -183,16 +229,13 @@ class Synthesizer:
           "checkpoint audio/STFT hparams do not match the serving model "
           f"(serving vs checkpoint): {mismatched}; hot-swap is "
           "weights-only — restart to change the audio pipeline")
-    old_shapes = _leaf_shapes(self.params)
+    old_shapes = self._shapes
     new_shapes = _leaf_shapes(fuse_for_inference(checkpoint.state_dict))
     if new_shapes != old_shapes:
       bad = sorted(k for k in old_shapes.keys() | new_shapes.keys()
                    if old_shapes.get(k) != new_shapes.get(k))
       raise ValueError(f"params differ from the serving model at {bad}")
-    new_params = params_from_numpy(checkpoint.state_dict, self.device)
-    self.denoiser = Denoiser(new_params, self.config, self.hparams,
-                             self.device)
-    self.params = params_for_compute(new_params, self._cdt)
+    self._put(checkpoint)  # re-shards on a mesh
     self.iteration = checkpoint.iteration
     logger.info("Swapped weights to iteration %s", checkpoint.iteration)
     return checkpoint.iteration
@@ -253,36 +296,37 @@ class Synthesizer:
     timepoint = datetime.datetime.now()
     mel, true_samples = self._prepare_mel(
         mel, bucket_frames if noise is None else None)
-    mel_t = self._to_device(mel)
     seeds = row_seeds(seed, mel.shape[0])
     true_frames = true_samples // UPSAMPLE_STRIDE
     start = time.perf_counter()
-    if noise is not None:
-      wav = infer(self.params, self.config, mel_t, sigma=sigma, noise=noise,
-                  compute_dtype=self._cdt, device=self.device)
-    elif chunk_frames is not None:
-      wav = infer_chunked(
-          self.params, self.config, mel_t, sigma=sigma, seed=seeds,
-          chunk_frames=chunk_frames, compute_dtype=self._cdt,
+    if chunk_frames is not None and noise is None:
+      groups = [(slice(None), infer_chunked(
+          self.params, self.config, self._to_device(mel), sigma=sigma,
+          seed=seeds, chunk_frames=chunk_frames, compute_dtype=self._cdt,
           true_frames=true_frames if mel.shape[-1] != true_frames else None,
-          device=self.device)
+          device=self.device))]
     else:
-      wav = infer(self.params, self.config, mel_t, sigma=sigma, seed=seeds,
-                  compute_dtype=self._cdt, true_frames=true_frames,
-                  device=self.device)
+      groups = self._place.synthesize(
+          self.config, mel, sigma=sigma, seeds=seeds,
+          compute_dtype=self._cdt, noise=noise,
+          true_frames=None if noise is not None else true_frames)
     self._sync()
     inference_duration_s = time.perf_counter() - start
 
     denoising_duration_s = 0.0
-    wav_denoised = wav
+    denoised = groups
     if denoiser_strength > 0:
       start_dn = time.perf_counter()
-      wav_denoised = self.denoiser(wav, denoiser_strength)
+      denoised = [(rows, self._denoisers[str(wav.device)](
+          wav, denoiser_strength)) for rows, wav in groups]
       self._sync()
       denoising_duration_s = time.perf_counter() - start_dn
 
-    wav_np = wav[..., :true_samples].cpu().numpy().squeeze()
-    wav_denoised_np = wav_denoised[..., :true_samples].cpu().numpy().squeeze()
+    def host(parts):
+      return np.concatenate([w[..., :true_samples].cpu().numpy()
+                             for _, w in parts], axis=0).squeeze()
+
+    wav_np, wav_denoised_np = host(groups), host(denoised)
     was_overamplified = bool(np.abs(wav_np).max() > 1.0)
     return InferenceResult(
         wav=wav_np, wav_denoised=wav_denoised_np,
@@ -348,29 +392,30 @@ class Synthesizer:
                   true_ns: np.ndarray, pcm16: bool):
     """Enqueue one fused serving batch: synthesis (per-row sigma, seed and
     true length), masked max|wav| per row, optional per-row-strength
-    denoise, optional PCM16. Returns device tensors (samples, max_abs).
-    Nothing here waits for the device: the host inputs go over first, as
-    non-blocking copies (``device.to_device``)."""
-    true_t = to_device(true_ns, self.device, torch.int64)
-    strength = (None if strengths is None
-                else to_device(strengths, self.device, torch.float32))
-    wav = infer(self.params, self.config, self._to_device(mel),
-                sigma=to_device(sigmas, self.device, torch.float32),
-                seed=to_device(np.asarray(seeds, np.int64), self.device),
-                compute_dtype=self._cdt,
-                true_frames=true_t // UPSAMPLE_STRIDE, device=self.device)
-    n = wav.shape[-1]
-    mask = torch.arange(n, device=self.device)[None, :] < true_t[:, None]
-    max_abs = torch.amax(wav.abs() * mask, dim=-1)
-    out = wav
-    if strength is not None:
-      dn = self.denoiser(wav, strength.reshape(-1, 1, 1))
-      if dn.shape[-1] < n:  # the iSTFT is frame-aligned: restore the length
-        dn = torch.nn.functional.pad(dn, (0, n - dn.shape[-1]))
-      out = dn[..., :n]
-    if pcm16:
-      out = pcm16_on_device(out)
-    return out, max_abs
+    denoise, optional PCM16, each on the device that holds its rows.
+    Returns ``(rows, samples, max_abs)`` device tensors per row group (one
+    group off a data mesh). Nothing here waits for the device: the host
+    inputs go over as non-blocking copies (``device.to_device``)."""
+    out = []
+    for rows, wav in self._place.synthesize(
+        self.config, mel, sigma=sigmas, seeds=seeds, compute_dtype=self._cdt,
+        true_frames=true_ns // UPSAMPLE_STRIDE):
+      device = wav.device
+      true_t = to_device(true_ns[rows], device, torch.int64)
+      n = wav.shape[-1]
+      mask = torch.arange(n, device=device)[None, :] < true_t[:, None]
+      max_abs = torch.amax(wav.abs() * mask, dim=-1)
+      samples = wav
+      if strengths is not None:
+        strength = to_device(strengths[rows], device, torch.float32)
+        dn = self._denoisers[str(device)](wav, strength.reshape(-1, 1, 1))
+        if dn.shape[-1] < n:  # the iSTFT is frame-aligned: restore the length
+          dn = torch.nn.functional.pad(dn, (0, n - dn.shape[-1]))
+        samples = dn[..., :n]
+      if pcm16:
+        samples = pcm16_on_device(samples)
+      out.append((rows, samples, max_abs))
+    return out
 
   def _dispatched(self, batches, true_samples: List[int], start: float,
                   timepoint: datetime.datetime) -> ServingDispatch:
@@ -408,11 +453,10 @@ class Synthesizer:
     start = time.perf_counter()
     strengths = (np.float32([denoiser_strength]) if denoiser_strength > 0
                  else None)
-    samples, max_abs = self._serve_rows(
-        mel, np.float32([sigma]), [seed], strengths,
-        np.int64([true_samples]), pcm16)
-    return self._dispatched([([0], samples, max_abs)], [true_samples],
-                            start, timepoint)
+    batches = [([0], samples, max_abs) for _, samples, max_abs in
+               self._serve_rows(mel, np.float32([sigma]), [seed], strengths,
+                                np.int64([true_samples]), pcm16)]
+    return self._dispatched(batches, [true_samples], start, timepoint)
 
   def serving_finalize(self, dispatched: ServingDispatch) -> ServingResult:
     """Wait for a :meth:`serving_dispatch` record's fetch; its
@@ -476,12 +520,12 @@ class Synthesizer:
         rows = idxs[pos:pos + b]
         pos += b
         mel_batch = np.concatenate([prepared[i][0] for i in rows], axis=0)
-        samples, max_abs = self._serve_rows(
+        for part, samples, max_abs in self._serve_rows(
             mel_batch, sigmas[rows], [seeds[i] for i in rows],
             strengths[rows] if denoise else None,
             np.asarray([prepared[i][1] for i in rows], dtype=np.int64),
-            pcm16)
-        batches.append((rows, samples, max_abs))
+            pcm16):
+          batches.append((rows[part], samples, max_abs))
     return self._dispatched(batches, [true for _, true in prepared], start,
                             timepoint)
 

@@ -24,6 +24,14 @@ the skip is added into that buffer in place and the buffer returned.
 CUDA tensors; on a CUDA tensor it launches the kernel or raises, never falls
 back. ``LAUNCHES`` counts kernel launches.
 
+``wn_layer_shard`` is one model rank's share of a layer on a ``model``
+mesh axis (``csrc/wn_layer_shard.cu``, built into the same library): the
+same conv, gate and res/skip product over C' = C / model of the gate
+channels, giving the rank's partial res/skip sum without b_rs and the
+residual, which ``models.wn.wn_forward_tp`` adds after the ranks' reduce.
+It runs ``wn_layer_shard_plain`` for CPU tensors and the kernel, or
+raises, for CUDA tensors; ``SHARD_LAUNCHES`` counts its launches.
+
 ``wn_layer_trainable`` is the differentiable layer (counterpart of the JAX
 package's custom-VJP ``wn_layer_trainable``): its forward is
 ``wn_layer_fused`` without ``skip_acc`` (the kernel on the card). Its
@@ -53,13 +61,18 @@ from waveglow_tpu_torch.ops.conv import shift_time
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+SHARD_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu")
+SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
+           CSRC / "wn_layer_shard.cu")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CHANNELS = 256  # the width the kernel is built for
+# The gate channels a model rank may hold that the shard kernel is built
+# for: C / model for model in (2, 4, 8).
+SHARD_CHANNELS = (128, 64, 32)
 
 _LIB = None
 # nvcc/ptxas output and seconds of a build this process ran; empty and None
@@ -179,6 +192,14 @@ def _library():
     for info in (lib.wn_layer_kernel_info, lib.wn_layer_bwd_kernel_info):
       info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
       info.restype = ctypes.c_int
+    shard = lib.wn_layer_shard_forward
+    shard.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+    shard.restype = ctypes.c_int
+    shard_info = lib.wn_layer_shard_kernel_info
+    shard_info.argtypes = ([ctypes.c_int] * 3
+                           + [ctypes.POINTER(ctypes.c_int)] * 4)
+    shard_info.restype = ctypes.c_int
     sched = lib.wn_layer_f32_schedule
     sched.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
     sched.restype = ctypes.c_int
@@ -202,6 +223,13 @@ def kernel_info(bf16: bool, last: bool) -> dict:
   per thread, static shared bytes, and the dynamic shared bytes its
   launcher passes."""
   return _info(_library().wn_layer_kernel_info, int(bf16), int(last))
+
+
+def shard_kernel_info(channels: int, bf16: bool, last: bool) -> dict:
+  """:func:`kernel_info` for the shard kernel holding ``channels`` gate
+  channels (one of ``SHARD_CHANNELS``)."""
+  return _info(_library().wn_layer_shard_kernel_info, channels, int(bf16),
+               int(last))
 
 
 # Time rows of one tile of the f32 kernel (kTileRows in csrc/wn_layer.cu).
@@ -303,18 +331,107 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   x_out = torch.empty_like(x)
 
   lib = _library()
-  err = lib.wn_layer_forward(
-      x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-      w_rs.data_ptr(), b_rs.data_ptr(),
-      valid_t.data_ptr() if valid_t is not None else None,
-      x_out.data_ptr(), skip.data_ptr(),
-      int(skip_acc is not None), batch, t, c, int(dilation),
-      int(wdt == torch.bfloat16), int(last),
-      torch.cuda.current_stream(dev).cuda_stream)
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_forward(
+        x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+        w_rs.data_ptr(), b_rs.data_ptr(),
+        valid_t.data_ptr() if valid_t is not None else None,
+        x_out.data_ptr(), skip.data_ptr(),
+        int(skip_acc is not None), batch, t, c, int(dilation),
+        int(wdt == torch.bfloat16), int(last),
+        torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer kernel launch failed: cudaError {err}")
   LAUNCHES += 1
   return x_out, skip
+
+
+def wn_layer_shard_plain(x: torch.Tensor, cond_s: torch.Tensor,
+                         w_in_s: torch.Tensor, b_in_s: torch.Tensor,
+                         w_rs_s: torch.Tensor, dilation: int,
+                         compute_dtype=None) -> torch.Tensor:
+  """One model rank's share of a layer in plain torch ops: the CPU path and
+  the shard kernel's yardstick.
+
+  x [B, T, C] f32 (every input channel); cond_s [B, T, 2C'] (bias added);
+  w_in_s [3, C, 2C'] (or [3, C, 2, C']), tanh columns of the rank's C'
+  channels then sigmoid columns; b_in_s [2C']; w_rs_s [C', 2C] or [C', C]
+  (last layer). Returns the f32 partial ``acts @ w_rs_s`` [B, T, 2C] (or
+  [B, T, C]): no ``b_rs``, no residual, no row mask; summed over the ranks
+  it is the full layer's ``rs - b_rs``. ``compute_dtype=torch.bfloat16``
+  rounds the same operands as :func:`wn_layer_plain` does.
+  """
+  batch, t, c = x.shape
+  cp = b_in_s.numel() // 2
+
+  def operand(v):
+    return v.float() if compute_dtype is None else v.to(compute_dtype).float()
+
+  xm = operand(x)
+  w_in_s = operand(w_in_s).reshape(3, c, 2 * cp)
+  pre = None
+  for tap in range(3):
+    term = torch.matmul(shift_time(xm, (tap - 1) * dilation), w_in_s[tap])
+    pre = term if pre is None else pre + term
+  gates = (pre + b_in_s.reshape(-1).float()
+           + operand(cond_s).reshape(batch, t, 2 * cp))
+  acts = operand(torch.tanh(gates[..., :cp]) * torch.sigmoid(gates[..., cp:]))
+  return torch.matmul(acts, operand(w_rs_s).reshape(cp, -1))
+
+
+def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
+                   w_in_s: torch.Tensor, b_in_s: torch.Tensor,
+                   w_rs_s: torch.Tensor, dilation: int,
+                   compute_dtype=None) -> torch.Tensor:
+  """One model rank's share of a layer; same contract as
+  :func:`wn_layer_shard_plain`.
+
+  CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
+  shard kernel (``csrc/wn_layer_shard.cu``), which takes: x f32 [B, T, C]
+  with C = 256; cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when
+  None); b_in_s f32; C' one of ``SHARD_CHANNELS``. Anything else raises;
+  it never falls back to the plain version. ``SHARD_LAUNCHES`` counts the
+  launches.
+  """
+  global SHARD_LAUNCHES
+  if x.device.type == "cpu":
+    return wn_layer_shard_plain(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+                                compute_dtype=compute_dtype)
+  if x.device.type != "cuda":
+    raise ValueError(f"unsupported device {x.device}")
+  dev = x.device
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  batch, t, c = x.shape
+  if c != CHANNELS:
+    raise ValueError(f"kernel supports C = {CHANNELS}, got {c}")
+  cp = b_in_s.numel() // 2
+  if cp not in SHARD_CHANNELS:
+    raise ValueError(
+        f"the shard kernel is built for C' in {SHARD_CHANNELS} gate channels "
+        f"a rank (model axis {[c // n for n in SHARD_CHANNELS]}), got C' = "
+        f"{cp}")
+  last = w_rs_s.numel() == cp * c
+  n_rs = c if last else 2 * c
+  wdt = compute_dtype or torch.float32
+  if wdt not in (torch.float32, torch.bfloat16):
+    raise ValueError(f"unsupported compute dtype {wdt}")
+  _check("x", x, torch.float32, (batch, t, c), dev)
+  _check("cond_s", cond_s, wdt, (batch, t, 2 * cp), dev)
+  _check("w_in_s", w_in_s, wdt, (3 * c, 2 * cp), dev)
+  _check("b_in_s", b_in_s, torch.float32, (2 * cp,), dev)
+  _check("w_rs_s", w_rs_s, wdt, (cp * n_rs,), dev)
+  out = torch.empty((batch, t, n_rs), dtype=torch.float32, device=dev)
+  with torch.cuda.device(dev):  # the launch goes to this device's stream
+    err = _library().wn_layer_shard_forward(
+        x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+        b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, cp,
+        int(dilation), int(wdt == torch.bfloat16), int(last),
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer shard kernel launch failed: cudaError {err}")
+  SHARD_LAUNCHES += 1
+  return out
 
 
 def _row_mask(valid_t: ValidT, t: int,

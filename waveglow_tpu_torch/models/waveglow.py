@@ -26,7 +26,7 @@ from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
                                                  wn_layer_trainable)
 from waveglow_tpu_torch.models import weightnorm
 from waveglow_tpu_torch.models.wn import (LayerFn, init_wn_params, wn_forward,
-                                          wn_forward_train)
+                                          wn_forward_tp, wn_forward_train)
 from waveglow_tpu_torch.ops import inv1x1
 from waveglow_tpu_torch.ops.conv import conv_transpose1d
 
@@ -165,6 +165,14 @@ def params_for_compute(params: Dict, compute_dtype=None) -> Dict:
         "end": cast(wn["end"]),
     }})
   return {"upsample": cast(params["upsample"]), "flows": flows}
+
+
+def params_device(params) -> torch.device:
+  """The device of a fused params tree, or of rank 0's tree of a
+  tensor-parallel group (a list of trees, ``parallel.sharding``)."""
+  if isinstance(params, (list, tuple)):
+    params = params[0]
+  return params["upsample"]["w"].device
 
 
 def upsample_mel(params: Dict, spect: torch.Tensor,
@@ -316,7 +324,7 @@ def block_noise(seeds: Union[int, Sequence[int], torch.Tensor],
   return noise
 
 
-def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
+def infer(params, config: WaveGlowConfig, spect: torch.Tensor,
           sigma: Union[float, torch.Tensor] = 1.0,
           noise: Optional[Sequence[torch.Tensor]] = None,
           seed: Union[int, Sequence[int]] = 0, compute_dtype=None,
@@ -335,8 +343,16 @@ def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
   tensor). ``true_frames`` (int or per-row [B]): the count of real frames
   when the mel carries bucket-pad frames; WN residual rows past it are
   zeroed, so kept samples equal the unpadded call's.
+
+  ``params`` may also be a tensor-parallel group: a list of model ranks'
+  trees (``parallel.sharding.shard_params``), rank 0's on ``device``. Then
+  every WN stack runs :func:`models.wn.wn_forward_tp` over the ranks
+  (``layer`` is not used) and everything else runs on rank 0's device.
   """
   device = resolve_device(device)
+  shards = None
+  if isinstance(params, (list, tuple)):
+    shards, params = params, params[0]
   spect = to_device(spect, device, torch.float32)
   up = upsample_mel(params, spect, compute_dtype)
   up = up[:, :-(UPSAMPLE_KERNEL - UPSAMPLE_STRIDE), :]
@@ -370,6 +386,12 @@ def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
     valid_t = (frames.reshape(-1) * config.groups_per_frame).expand(
         batch).contiguous()
 
+  if shards is not None:
+    devices = [params_device(shard) for shard in shards]
+    spects = [spect_g if d == device else spect_g.to(d) for d in devices]
+    valid_ts = (None if valid_t is None else
+                [valid_t if d == device else valid_t.to(d) for d in devices])
+
   audio_g = sigma * noise[0]
   noise_idx = 1
   channel_counts = config.flow_channel_counts()
@@ -378,10 +400,16 @@ def infer(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
     n_half = channel_counts[k] // 2
     audio_0 = audio_g[..., :n_half]
     audio_1 = audio_g[..., n_half:]
-    wn_out = wn_forward(flow["wn"], audio_0, spect_g, config.n_channels,
-                        config.n_layers, config.kernel_size,
-                        compute_dtype=compute_dtype, valid_t=valid_t,
-                        layer=layer)
+    if shards is None:
+      wn_out = wn_forward(flow["wn"], audio_0, spect_g, config.n_channels,
+                          config.n_layers, config.kernel_size,
+                          compute_dtype=compute_dtype, valid_t=valid_t,
+                          layer=layer)
+    else:
+      wn_out = wn_forward_tp([shard["flows"][k]["wn"] for shard in shards],
+                             audio_0, spects, config.n_channels,
+                             config.n_layers, config.kernel_size,
+                             compute_dtype=compute_dtype, valid_ts=valid_ts)
     b = wn_out[..., :n_half]
     s = wn_out[..., n_half:]
     audio_1 = (audio_1 - b) * torch.exp(-s)

@@ -17,19 +17,27 @@ on the card, plain torch on the CPU); the per-layer conditioning product
 stays ``torch.matmul``. The residual stream and the skip sum are float32 in
 both modes; in synthesis the skip sum is accumulated inside the kernel, in
 training outside it.
+
+``wn_forward_tp`` is the stack on a ``model`` mesh axis (the JAX package's
+tensor-parallel contract, ``waveglow_tpu/models/wn.py``): each rank holds a
+slice of the gate channels (``parallel.sharding``), runs its share of each
+layer through the shard kernel, and the ranks' partial res/skip sums are
+reduced once a layer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
+                                                 wn_layer_shard,
                                                  wn_layer_trainable)
 from waveglow_tpu_torch.models.weightnorm import init_weightnorm, materialize
 from waveglow_tpu_torch.ops.conv import _mm, conv1x1
+from waveglow_tpu_torch.parallel.mesh import reduce_partials
 
 
 def init_wn_params(rng: np.random.Generator, n_in_channels: int,
@@ -114,6 +122,71 @@ def wn_forward(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
         2 ** i, valid_t=valid_t, skip_acc=skip_acc,
         compute_dtype=compute_dtype)
   return conv1x1(skip_acc, params["end"]["w"], params["end"]["b"],
+                 compute_dtype=compute_dtype, out_dtype=torch.float32)
+
+
+def _row_keep(valid_t: torch.Tensor, t: int) -> torch.Tensor:
+  return (torch.arange(t, device=valid_t.device)[None, :]
+          < valid_t.reshape(-1, 1))[..., None]
+
+
+def wn_forward_tp(shards: Sequence[Dict], audio0: torch.Tensor,
+                  spects: Sequence[torch.Tensor], n_channels: int,
+                  n_layers: int, kernel_size: int, compute_dtype=None,
+                  valid_ts: Optional[Sequence[torch.Tensor]] = None
+                  ) -> torch.Tensor:
+  """:func:`wn_forward` over a tensor-parallel group: the same output, the
+  WN hidden channels cut over the ranks.
+
+  ``shards``: one fused WN params dict per model rank
+  (``parallel.sharding.shard_params``), rank r's on its device;
+  ``spects`` and ``valid_ts``: the conditioning [B, T, n_mels*n_group]
+  and the per-row valid lengths, one copy on each rank's device; ``audio0``
+  on rank 0's device, where the start and end convs and the skip sum run.
+  Per layer each rank computes its slice of the conditioning product
+  ([B, T, 2C'], its own GEMM) and its partial through the shard kernel
+  (:func:`kernels.wn_layer.wn_layer_shard`); the partials are
+  summed in rank order and every rank gets the same bits
+  (``parallel.mesh.reduce_partials``); then b_rs, the residual add and the
+  ``valid_t`` row mask run on each rank (the same bits on each) and the
+  skip is added to the sum once. The work of every rank is enqueued
+  before any is waited for.
+  """
+  if kernel_size != 3:
+    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  c = n_channels
+  batch, t, _ = audio0.shape
+  x = conv1x1(audio0, shards[0]["start"]["w"], shards[0]["start"]["b"],
+              compute_dtype=compute_dtype, out_dtype=torch.float32)
+  if valid_ts is not None:
+    x = torch.where(_row_keep(valid_ts[0], t), x,
+                    torch.zeros((), device=x.device))
+  xs = [x if s.device == x.device else x.to(s.device) for s in spects]
+  skip_acc = torch.zeros((batch, t, c), dtype=torch.float32, device=x.device)
+  for i in range(n_layers):
+    last = i == n_layers - 1
+    partials = []
+    for shard, x_r, spect in zip(shards, xs, spects):
+      w_cond = shard["cond"]["w"]               # [M, L, 2, C']
+      cp = w_cond.shape[-1]
+      cond_i = _mm(spect, w_cond[:, i].reshape(-1, 2 * cp), compute_dtype)
+      cond_i = cond_i + shard["cond"]["b"][i].reshape(-1).to(cond_i.dtype)
+      in_layer = shard["in_layers"][i]
+      partials.append(wn_layer_shard(
+          x_r, cond_i, in_layer["w"].reshape(3, c, 2 * cp),
+          in_layer["b"].reshape(-1), shard["res_skip"][i]["w"].reshape(cp, -1),
+          2 ** i, compute_dtype=compute_dtype))
+    sums = reduce_partials(partials)
+    rs = [total + shard["res_skip"][i]["b"].reshape(-1).float()
+          for total, shard in zip(sums, shards)]
+    skip_acc = skip_acc + (rs[0] if last else rs[0][..., c:])
+    if not last:
+      xs = [x_r + rs_r[..., :c] for x_r, rs_r in zip(xs, rs)]
+      if valid_ts is not None:
+        xs = [torch.where(_row_keep(v, t), x_r,
+                          torch.zeros((), device=x_r.device))
+              for x_r, v in zip(xs, valid_ts)]
+  return conv1x1(skip_acc, shards[0]["end"]["w"], shards[0]["end"]["b"],
                  compute_dtype=compute_dtype, out_dtype=torch.float32)
 
 
