@@ -5,16 +5,19 @@
 Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
   2. build: the WN-layer kernels are compiled from
-     waveglow_tpu_torch/csrc/wn_layer.cu (forward) and wn_layer_bwd.cu
-     (the bf16 backward), one nvcc per source, started together; build
-     seconds and ptxas facts (when this run built it), and what the loaded
-     build uses as the CUDA runtime reports it (registers, local bytes,
-     shared memory). The library's SASS (cuobjdump -sass) must show
-     tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the two
-     forward variants and the backward's rows, dx and weights kernels) and
-     none in the f32 ones; the backward's reduce kernel does no products.
-     The f32 kernel's registers, shared memory, blocks an SM and grid at
-     B=1 and B=8 are printed, and any spill of an f32 variant fails.
+     waveglow_tpu_torch/csrc/wn_layer.cu (forward), wn_layer_bwd.cu (the
+     bf16 backward) and wn_layer_shard.cu (a model rank's share), one nvcc
+     per source, started together, every width instance (C = 128, 256,
+     512; the shard kernel at C' = C/2, C/4, C/8); build seconds and
+     ptxas facts (when this run built it), and what the loaded build uses
+     as the CUDA runtime reports it (registers, local bytes, shared
+     memory). The library's SASS (cuobjdump -sass) must show
+     tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the
+     forward variants, the backward's rows, dx and weights kernels, and the
+     bf16 shard kernels) and none in the f32 ones; the backward's reduce
+     kernel does no products. The f32 kernel's registers, shared memory,
+     blocks an SM and grid at B=1 and B=8 are printed (at each width), and
+     any spill of an f32 forward variant fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
@@ -114,8 +117,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
  11. mesh: sharded serving on logical meshes that list cuda:0 once a
      shard, in f32 and bf16 at full width (the shards run one after
      another: the numbers are checked, no speedup is shown). The shard
-     kernel (csrc/wn_layer_shard.cu) against wn_layer_shard_plain at C' =
-     128, 64 and 32, d=1, d=128 and the last layer, and the ranks'
+     kernel (csrc/wn_layer_shard.cu: FFMA in f32, the tensor cores in
+     bf16) against wn_layer_shard_plain at C' = 128, 64 and 32, d=1,
+     d=128 and the last layer, and the ranks'
      partials summed against the unsharded kernel, timed at d=1 beside its
      bound, plain version and library yardstick; BatchSynthesizer on data
      = 2 and 4 (8 x 826 frames: each device's rows bit for bit an
@@ -133,7 +137,21 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      the reduce's device time in a model = 2 dispatch. Then `serve
      --mesh-data <cards + 1>` as a process must exit nonzero naming the
      cards it needs.
- 12. a `kernels` JSON line, the card's name and power limit, and last the
+ 12. widths: every built width beside 256 (128, and 512, the WaveGlow
+     paper's). At each: the forward kernels (f32, bf16) and every shard
+     pair against their plain versions at d=1, d=128 and the last layer
+     (B=1, T=26,432), the bf16 backward against wn_layer_backward (B=12,
+     T=2,000), each timed beside its bound, plain and library times; a
+     full-depth model (12 x
+     8, random weights from the seed, ends randomised) served through
+     Synthesizer.infer_serving in f32 and bf16 (96 launches; phase 4's
+     826-frame request against the plain path at phase 4's bounds; wall,
+     device busy, peak memory), on a model = 2 logical mesh (192 shard
+     launches, against unsharded at phase 11's bounds), and one train()
+     step a mode (192 WN launches with remat, 96 backward-kernel calls in
+     bf16) with one step's gradients against the plain route at phase 5's
+     bounds.
+ 13. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -359,11 +377,17 @@ BACKWARD_DESIGN = (
     "3-tap product over dgates, offsets negated), weights kernel (128x128 "
     "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
     "reduce")
-SHARD_DESIGN = ("FFMA (bf16 operands converted, f32 accumulation in bf16 "
-                "mode): 256-thread blocks of 32 time rows, the tap rows of x "
-                "staged in shared memory a tap at a time, 2 tanh + 2 sigmoid "
-                "channels a thread, weights through L1, acts in shared "
-                "memory for the partial res/skip product")
+SHARD_DESIGN = {
+    "f32": "FFMA: 256-thread blocks of 32 time rows, the tap rows of x staged "
+           "in shared memory a tap at a time, 2 tanh + 2 sigmoid channels a "
+           "thread, weights through L1, acts in shared memory for the "
+           "partial res/skip product",
+    "bf16": "mma.sync m16n8k16 bf16 (ldmatrix from padded shared memory, f32 "
+            "accumulators): 256-thread blocks of 64 time rows, both products "
+            "as one sequence of K chunks through a 4-stage ring (w_in and "
+            "w_rs by cp.async, x taps by registers rounded to bf16), the gate "
+            "on the paired tanh/sigmoid accumulators, the partial written "
+            "from the accumulators in 16-byte stores"}
 # Shapes at which phase 2 reports the f32 kernel's grid: phase 3's two batch
 # sizes and the training segment.
 F32_GRID_SHAPES = ((1, T_KERNEL), (8, T_KERNEL), (B_TRAIN, T_TRAIN))
@@ -420,59 +444,67 @@ def phase_device() -> dict:
 
 # -- phase 2 ---------------------------------------------------------------
 
-def variant(mode: str, last: bool) -> str:
-  return f"{mode},{'last' if last else 'layer'}"
+def variant(mode: str, last: bool, width: int = C) -> str:
+  return f"{mode},C={width},{'last' if last else 'layer'}"
 
 
-# The bf16 backward's kernels, (name, last) as kl.bwd_kernel_info takes them:
-# the rows kernel has a last-layer variant.
-BWD_KERNELS = tuple((k, last) for k in kl.BWD_KERNELS
+# Every forward kernel variant, (mode, last, width) as variant takes them.
+FORWARD_KERNELS = tuple((mode, last, width) for width in kl.kernel_widths()
+                        for mode in MODES for last in (False, True))
+
+# The bf16 backward's kernels, (name, last, width) as kl.bwd_kernel_info
+# takes them: the rows kernel has a last-layer variant.
+BWD_KERNELS = tuple((k, last, width)
+                    for width in kl.kernel_widths()
+                    for k in kl.BWD_KERNELS
                     for last in ((False, True) if k == "rows" else (False,)))
 
 
-def bwd_variant(kernel: str, last: bool = False) -> str:
+def bwd_variant(kernel: str, last: bool = False, width: int = C) -> str:
   """Variant name of a backward kernel. Those that do products start with
   "bf16" (check_tensor_cores demands HMMA/HGMMA of them); the reduce kernel
   does none and starts with "reduce"."""
   if kernel == "reduce":
-    return "reduce,bwd"
+    return f"reduce,C={width},bwd"
   if kernel == "rows":
-    return f"bf16,bwd-rows,{'last' if last else 'layer'}"
-  return f"bf16,bwd-{kernel}"
+    return f"bf16,C={width},bwd-rows,{'last' if last else 'layer'}"
+  return f"bf16,C={width},bwd-{kernel}"
 
 
-def shard_variant(channels: int, bf16: bool, last: bool) -> str:
-  """Variant name of a shard kernel (``C'`` gate channels a rank): starts
-  with "shard-", so the f32 and bf16 rules of the forward kernels do not
-  apply; ``check_tensor_cores`` holds the f32 ones to no tensor-core
-  instruction."""
-  return (f"shard-{'bf16' if bf16 else 'f32'},C'={channels},"
+def shard_variant(width: int, channels: int, bf16: bool, last: bool) -> str:
+  """Variant name of a shard kernel (width ``C``, ``C'`` gate channels a
+  rank): starts with "shard-", so the spill rule of the f32 forward does
+  not apply; ``check_tensor_cores`` holds the f32 ones to no tensor-core
+  instruction and the bf16 ones to some."""
+  return (f"shard-{'bf16' if bf16 else 'f32'},C={width},C'={channels},"
           f"{'last' if last else 'layer'}")
 
 
-SHARD_KERNELS = tuple((cp, bf16, last) for cp in kl.SHARD_CHANNELS
+SHARD_KERNELS = tuple((c, cp, bf16, last) for c, cp in kl.shard_pairs()
                       for bf16 in (False, True) for last in (False, True))
 
 
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
-  ``wn_layer_kernel_f32<kLast>``, the bf16 tensor-core kernel
-  ``wn_layer_kernel_mma<kLast>``, a backward kernel
-  ``wn_bwd_{rows<kLast>,dx,weights,reduce}_kernel`` or a shard kernel
-  ``wn_shard_kernel<kCP, kBf16, kLast>``; other symbols are returned as
-  they are."""
-  inst = re.search(r"wn_layer_kernel_(f32|mma)ILb([01])E", mangled)
+  ``wn_layer_kernel_f32<kC, kLast>``, the bf16 tensor-core kernel
+  ``wn_layer_kernel_mma<kC, kLast>``, a backward kernel
+  ``wn_bwd_{rows<kC, kLast>,dx<kC>,weights<kC>,reduce<kC>}_kernel`` or a
+  shard kernel ``wn_shard_kernel[_mma]<kC, kCP, kLast>`` (FFMA in f32, the
+  tensor cores in bf16); other symbols are returned as they are."""
+  inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
-                   inst.group(2) == "1")
-  inst = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernel(?:ILb([01])E)?",
+                   inst.group(3) == "1", int(inst.group(2)))
+  inst = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernelILi(\d+)E"
+                   r"(?:Lb([01])E)?", mangled)
+  if inst:
+    return bwd_variant(inst.group(1), inst.group(3) == "1",
+                       int(inst.group(2)))
+  inst = re.search(r"wn_shard_kernel(_mma)?ILi(\d+)ELi(\d+)ELb([01])E",
                    mangled)
   if inst:
-    return bwd_variant(inst.group(1), inst.group(2) == "1")
-  inst = re.search(r"wn_shard_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
-  if inst:
-    return shard_variant(int(inst.group(1)), inst.group(2) == "1",
-                         inst.group(3) == "1")
+    return shard_variant(int(inst.group(2)), int(inst.group(3)),
+                         inst.group(1) is not None, inst.group(4) == "1")
   return mangled
 
 
@@ -538,7 +570,7 @@ def check_tensor_cores(mma: dict, variants) -> None:
   for name in variants:
     if name not in mma:
       fail(f"no SASS found for the {name} kernel")
-    if name.startswith("bf16") and mma[name] == 0:
+    if name.startswith(("bf16", "shard-bf16")) and mma[name] == 0:
       fail(f"the {name} kernel has no HMMA/HGMMA instruction")
     if name.startswith(("f32", "shard-f32")) and mma[name] != 0:
       fail(f"the {name} kernel has {mma[name]} tensor-core instructions")
@@ -566,10 +598,12 @@ def f32_grid(attributes) -> dict:
   an equal share of B*T over the device's blocks (1.0: no tail)."""
   info = {"kernel": attributes[variant("f32", False)]}
   for batch, t in F32_GRID_SHAPES:
-    grid = kl.f32_schedule(batch, t)
-    slots = grid["sms"] * grid["blocks_per_sm"]
-    grid["share_of_busiest"] = batch * t / slots / grid["rows_per_block"]
-    info[f"B={batch},T={t}"] = grid
+    for width in kl.kernel_widths():
+      grid = kl.f32_schedule(batch, t, channels=width)
+      slots = grid["sms"] * grid["blocks_per_sm"]
+      grid["share_of_busiest"] = batch * t / slots / grid["rows_per_block"]
+      key = f"B={batch},T={t}" + ("" if width == C else f",C={width}")
+      info[key] = grid
   return info
 
 
@@ -579,10 +613,12 @@ def phase_build() -> dict:
   kl._library()
   seconds = time.perf_counter() - start
   built = kl.BUILD_SECONDS is not None
-  attributes = {variant(mode, last): kl.kernel_info(mode == "bf16", last)
-                for mode in MODES for last in (False, True)}
-  attributes.update({bwd_variant(k, last): kl.bwd_kernel_info(k, last)
-                     for k, last in BWD_KERNELS})
+  attributes = {variant(mode, last, width):
+                kl.kernel_info(width, mode == "bf16", last)
+                for mode, last, width in FORWARD_KERNELS}
+  attributes.update({bwd_variant(k, last, width):
+                     kl.bwd_kernel_info(k, last, width)
+                     for k, last, width in BWD_KERNELS})
   attributes.update({shard_variant(*v): kl.shard_kernel_info(*v)
                      for v in SHARD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
@@ -610,8 +646,11 @@ def phase_build() -> dict:
 
 # -- phase 3 ---------------------------------------------------------------
 
-def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int):
-  """Inputs at the scale the model feeds the layer, on the card."""
+def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int,
+                 width: int = C):
+  """Inputs at the scale the model feeds the layer (``width`` channels), on
+  the card."""
+  C = width
   g = torch.Generator(device="cuda").manual_seed(seed)
 
   def rand(*shape, scale):
@@ -631,9 +670,11 @@ def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int):
   return (x, cond, w_in, b_in, w_rs, b_rs), valid, acc
 
 
-def layer_cost(batch: int, t: int, last: bool, mode: str):
-  """(bytes, flops, bound_ms, bound_by) of one layer call: every input read
-  once, every output written once; flops of the two products."""
+def layer_cost(batch: int, t: int, last: bool, mode: str, width: int):
+  """(bytes, flops, bound_ms, bound_by) of one layer call at ``width``
+  channels: every input read once, every output written once; flops of the
+  two products."""
+  C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = batch * t
@@ -662,69 +703,90 @@ def library_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation, dtype):
   return torch.matmul(acts.to(dtype), w_rs)
 
 
+def kernel_case(mode: str, batch: int, i: int, seed: int, width: int = C,
+                time_it: bool = False) -> dict:
+  """Layer ``i`` of a flow (``i == N_LAYERS``: the last layer) at
+  ``width`` channels, B = ``batch``, T = T_KERNEL: the kernel against its
+  plain version (per-row valid_t, skip_acc on); with ``time_it``, the
+  kernel's, the plain version's and the library's times beside the bound."""
+  cdt = MODES[mode]
+  dtype = cdt or torch.float32
+  last = i == N_LAYERS
+  dilation = 2 ** min(i, N_LAYERS - 1)
+  args, valid, acc = layer_inputs(batch, T_KERNEL, last, dtype, seed + i,
+                                  width)
+  xk, sk = kl.wn_layer_fused(*args, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  torch.cuda.synchronize()
+  xp, sp = kl.wn_layer_plain(*args, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  err = max((xk - xp).abs().max().item(), (sk - sp).abs().max().item())
+  scale = max(xp.abs().max().item(), sp.abs().max().item())
+  bound = (KERNEL_TOL_F32 if mode == "f32"
+           else KERNEL_TOL_BF16_REL * scale)
+  if not (torch.isfinite(xk).all() and torch.isfinite(sk).all()):
+    fail(f"kernel output not finite ({mode}, C={width}, B={batch}, "
+         f"d={dilation})")
+  for row, v in enumerate(valid.tolist()):
+    if v < T_KERNEL and xk[row, v:].abs().max().item() != 0:
+      fail(f"kernel left rows >= valid_t nonzero ({mode}, C={width}, "
+           f"B={batch})")
+  rec = {"mode": mode, "C": width, "B": batch, "dilation": dilation,
+         "last": last, "max_abs_err": err, "bound": bound,
+         "ref_max_abs": scale}
+  if err > bound:
+    fail(f"kernel disagrees with plain: {rec}")
+  del xk, sk, xp, sp
+  if time_it:
+    nbytes, flops, bound_ms, bound_by = layer_cost(batch, T_KERNEL, last,
+                                                   mode, width)
+    skip = acc.clone()
+    rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_fused(
+        *args, dilation, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+    rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_plain(
+        *args, dilation, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+    x, cond, w_in, b_in, w_rs, b_rs = args
+    x_cf = x.to(dtype).transpose(1, 2).contiguous()
+    w_conv = w_in.permute(2, 1, 0).contiguous()   # [2C, C, 3]
+    cond_flat = cond.reshape(batch, T_KERNEL, 2 * width)
+    b_lib = b_in.to(dtype)
+    rec["library_ms"] = cuda_ms(lambda: library_layer(
+        x_cf, cond_flat, w_conv, b_lib, w_rs, b_rs, dilation, dtype))
+    rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / rec["kernel_ms"])
+  log("kernel " + json.dumps(rec))
+  return rec
+
+
 def phase_kernel(seed: int) -> dict:
   results = []
   timed = {}
-  for mode, cdt in MODES.items():
-    dtype = cdt or torch.float32
+  for mode in MODES:
     for batch in (1, 8):
       for i in range(N_LAYERS + 1):
         last = i == N_LAYERS
         dilation = 2 ** min(i, N_LAYERS - 1)
-        args, valid, acc = layer_inputs(batch, T_KERNEL, last, dtype,
-                                        seed + i)
-        xk, sk = kl.wn_layer_fused(*args, dilation, valid_t=valid,
-                                   skip_acc=acc.clone(), compute_dtype=cdt)
-        torch.cuda.synchronize()
-        xp, sp = kl.wn_layer_plain(*args, dilation, valid_t=valid,
-                                   skip_acc=acc.clone(), compute_dtype=cdt)
-        err = max((xk - xp).abs().max().item(), (sk - sp).abs().max().item())
-        scale = max(xp.abs().max().item(), sp.abs().max().item())
-        bound = (KERNEL_TOL_F32 if mode == "f32"
-                 else KERNEL_TOL_BF16_REL * scale)
-        if not (torch.isfinite(xk).all() and torch.isfinite(sk).all()):
-          fail(f"kernel output not finite ({mode}, B={batch}, d={dilation})")
-        for row, v in enumerate(valid.tolist()):
-          if v < T_KERNEL and xk[row, v:].abs().max().item() != 0:
-            fail(f"kernel left rows >= valid_t nonzero ({mode}, B={batch})")
-        rec = {"mode": mode, "B": batch, "dilation": dilation, "last": last,
-               "max_abs_err": err, "bound": bound, "ref_max_abs": scale}
-        if err > bound:
-          fail(f"kernel disagrees with plain: {rec}")
-        if dilation in TIMED_DILATIONS or last:
-          nbytes, flops, bound_ms, bound_by = layer_cost(batch, T_KERNEL,
-                                                         last, mode)
-          skip = acc.clone()
-          rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_fused(
-              *args, dilation, valid_t=valid, skip_acc=skip,
-              compute_dtype=cdt))
-          rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_plain(
-              *args, dilation, valid_t=valid, skip_acc=skip,
-              compute_dtype=cdt))
-          x, cond, w_in, b_in, w_rs, b_rs = args
-          x_cf = x.to(dtype).transpose(1, 2).contiguous()
-          w_conv = w_in.permute(2, 1, 0).contiguous()   # [2C, C, 3]
-          cond_flat = cond.reshape(batch, T_KERNEL, 2 * C)
-          b_lib = b_in.to(dtype)
-          rec["library_ms"] = cuda_ms(lambda: library_layer(
-              x_cf, cond_flat, w_conv, b_lib, w_rs, b_rs, dilation, dtype))
-          rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                     bound_by=bound_by,
-                     share_of_bound=bound_ms / rec["kernel_ms"])
+        rec = kernel_case(mode, batch, i, seed,
+                          time_it=dilation in TIMED_DILATIONS or last)
+        if "kernel_ms" in rec:
           timed[(mode, batch, last, dilation)] = rec
-        log("kernel " + json.dumps(rec))
         results.append(rec)
-        del args, acc, xk, sk, xp, sp
   torch.cuda.empty_cache()
   return {"cases": results, "timed": timed}
 
 
 # -- phase 4 ---------------------------------------------------------------
 
-def full_width_params(seed: int) -> dict:
-  """12 x 256 model from the seed, every ``end`` randomised small (a zero
-  end conv makes each coupling the identity and hides the kernel)."""
-  params = init_params(WaveGlowConfig.from_hparams(HParams()), seed=seed)
+def width_hparams(width: int = C) -> HParams:
+  """The model's hparams (12 flows x 8 layers) at ``width`` channels."""
+  return dataclasses.replace(HParams(), n_channels=width)
+
+
+def full_width_params(seed: int, width: int = C) -> dict:
+  """12 x ``width`` model from the seed, every ``end`` randomised small (a
+  zero end conv makes each coupling the identity and hides the kernel)."""
+  params = init_params(WaveGlowConfig.from_hparams(width_hparams(width)),
+                       seed=seed)
   rng = np.random.default_rng(seed + 1)
   for flow in params["flows"]:
     end = flow["wn"]["end"]
@@ -733,9 +795,10 @@ def full_width_params(seed: int) -> dict:
   return params
 
 
-def full_width_checkpoint(seed: int, path: Path) -> CheckpointWaveglow:
-  CheckpointWaveglow.from_params(full_width_params(seed), HParams(),
-                                 iteration=1).save(path)
+def full_width_checkpoint(seed: int, path: Path,
+                          width: int = C) -> CheckpointWaveglow:
+  CheckpointWaveglow.from_params(full_width_params(seed, width),
+                                 width_hparams(width), iteration=1).save(path)
   return CheckpointWaveglow.load(path)
 
 
@@ -903,9 +966,11 @@ def profile_call(fn) -> dict:
 GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
 
 
-def trainable_inputs(last: bool, dtype, seed: int):
-  """The six inputs (requiring grad) of one training layer at the training
-  segment's shape, as the model feeds it, and two output cotangents."""
+def trainable_inputs(last: bool, dtype, seed: int, width: int = C):
+  """The six inputs (requiring grad) of one training layer (``width``
+  channels) at the training segment's shape, as the model feeds it, and two
+  output cotangents."""
+  C = width
   g = torch.Generator(device="cuda").manual_seed(seed)
 
   def rand(*shape, scale):
@@ -923,14 +988,15 @@ def trainable_inputs(last: bool, dtype, seed: int):
   return [a.requires_grad_() for a in args], cot
 
 
-def trainable_cost(last: bool, mode: str) -> dict:
+def trainable_cost(last: bool, mode: str, width: int) -> dict:
   """Least work of one training layer: the forward (the kernel's work) and
   the six gradients (without recomputing the forward), each input read
   once and each output written once. Every product takes its operands in
   the compute dtype and counts at that dtype's rate: in bf16 the backward's
   operands (drs, acts, dgates, the taps) are rounded to bf16 (the rounding
   points of wn_layer_backward), so its products count at the tensor cores'
-  bf16 rate; in f32 they count at the f32 rate."""
+  bf16 rate; in f32 they count at the f32 rate. ``width``: the channels."""
+  C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = B_TRAIN * T_TRAIN
@@ -1091,7 +1157,7 @@ def phase_trainable(seed: int) -> dict:
         rec["library_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
             lib_out, lib_in, cot_rs, retain_graph=True))
         del lib_out
-        rec.update(trainable_cost(last, mode))
+        rec.update(trainable_cost(last, mode, C))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["backward_share_of_bound"] = (rec["bwd_bound_ms"]
                                           / rec["backward_ms"])
@@ -2642,11 +2708,13 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
 
 # -- phase 11 --------------------------------------------------------------
 
-def shard_cost(batch: int, t: int, cp: int, last: bool, mode: str):
+def shard_cost(batch: int, t: int, cp: int, last: bool, mode: str,
+               width: int):
   """(bytes, flops, bound_ms, bound_by) of one shard-kernel call holding
-  ``cp`` of the C gate channels: x, cond_s and the weights read once, the
-  partial written once; flops of its two products,
+  ``cp`` of the C = ``width`` gate channels: x, cond_s and the weights read
+  once, the partial written once; flops of its two products,
   2 * B * T * (3C * 2C' + C' * n_rs)."""
+  C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = batch * t
@@ -2666,6 +2734,7 @@ def shard_slices(args, model: int, rank: int):
   """Rank ``rank``'s (cond_s, w_in_s, b_in_s, w_rs_s) of a full layer's
   inputs, cut as ``parallel.sharding.shard_params`` cuts the params."""
   _, cond, w_in, b_in, w_rs, _ = args
+  C = args[0].shape[-1]
   cp = C // model
   cols = slice(rank * cp, (rank + 1) * cp)
   lead = cond.shape[:2]
@@ -2718,22 +2787,25 @@ def stitch_faults(windows, frames: int, halo: int) -> list:
   return out
 
 
-def shard_kernel_check(mode: str, seed: int) -> dict:
-  """The shard kernel against its plain version at every C' (d=1, d=128,
-  the last layer) and the ranks' partials summed against the unsharded
-  kernel's res/skip; times at d=1 beside the bound, the plain version and
-  the library's sharded layer (cuDNN conv1d, the gate, cuBLAS matmul)."""
+def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
+  """The shard kernel against its plain version at every C' of ``width``
+  (d=1, d=128, the last layer) and the ranks' partials summed against the
+  unsharded kernel's res/skip; times at d=1 beside the bound, the plain
+  version and the library's sharded layer (cuDNN conv1d, the gate, cuBLAS
+  matmul)."""
   cdt = MODES[mode]
   dtype = cdt or torch.float32
   cases, timed = [], {}
   for i, (dilation, last) in enumerate(((1, False), (128, False),
                                         (LAST_DILATION, True))):
-    args, _, _ = layer_inputs(1, T_KERNEL, last, dtype, seed + 50 + i)
+    args, _, _ = layer_inputs(1, T_KERNEL, last, dtype, seed + 50 + i, width)
     xk, sk = kl.wn_layer_fused(*args, dilation, compute_dtype=cdt)
     full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
     full_scale = full.abs().max().item()
-    for cp in kl.SHARD_CHANNELS:
-      model = C // cp
+    for c, cp in kl.shard_pairs():
+      if c != width:
+        continue
+      model = width // cp
       total, err, scale = None, 0.0, 0.0
       for rank in range(model):
         sl = shard_slices(args, model, rank)
@@ -2750,7 +2822,8 @@ def shard_kernel_check(mode: str, seed: int) -> dict:
       sum_err = (total + args[5] - full).abs().max().item()
       sum_bound = (KERNEL_TOL_F32 if mode == "f32"
                    else KERNEL_TOL_BF16_REL * full_scale)
-      rec = {"mode": mode, "C'": cp, "dilation": dilation, "last": last,
+      rec = {"mode": mode, "C": width, "C'": cp, "dilation": dilation,
+             "last": last,
              "max_abs_err": err, "bound": bound, "ref_max_abs": scale,
              "summed_vs_fused_max_abs": sum_err,
              "summed_bound": sum_bound}
@@ -2759,7 +2832,7 @@ def shard_kernel_check(mode: str, seed: int) -> dict:
       if dilation == 1:
         sl = shard_slices(args, model, 0)
         nbytes, flops, bound_ms, bound_by = shard_cost(1, T_KERNEL, cp,
-                                                       last, mode)
+                                                       last, mode, width)
         rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_shard(
             args[0], *sl, 1, compute_dtype=cdt))
         rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_shard_plain(
@@ -3152,6 +3225,263 @@ def serve_refuses_missing_cards(npz: Path, tmp: Path) -> dict:
           "message": message, "wall_s": wall}
 
 
+# -- phase 12 --------------------------------------------------------------
+
+# Every built width beside the one phases 3-11 drive.
+WIDE_WIDTHS = tuple(w for w in kl.kernel_widths() if w != C)
+# The one train() step of phase 12 at each width: phase 6's data and
+# segment, batch 4; resumed from an iteration-1 checkpoint of the served
+# model with a fresh optimizer, so the step saves nothing (a 512-channel
+# checkpoint with Adam state is over 3 GB).
+WIDTH_TRAIN_BATCH = 4
+WIDTH_TRAIN_HPARAMS = {"batch_size": str(WIDTH_TRAIN_BATCH),
+                       "iters_per_checkpoint": "1000",
+                       "epochs_per_checkpoint": "0"}
+WIDTH_DESIGN = {
+    128: "the C = 256 kernels with one warpgroup (wgmma) and a 192-thread "
+         "f32 warp grid",
+    512: "wgmma with the taps streamed: 64x64 bf16 tap blocks through a "
+         "3-block ring one block ahead, gate and res/skip products in two "
+         "256-channel passes, acts resident; f32: the C = 256 warp grid in "
+         "two passes of each product, a 3-stage ring"}
+
+
+def backward_kernel_case(i: int, seed: int, width: int,
+                         time_it: bool) -> dict:
+  """The bf16 backward kernels against ``wn_layer_backward`` at the same
+  rounding points (layer ``i`` of a flow, B_TRAIN x T_TRAIN, ``width``
+  channels), each gradient within KERNEL_TOL_BF16_REL of its max |value|;
+  with ``time_it``, the kernels', the plain backward's and the library's
+  backward times beside the bound."""
+  cdt = torch.bfloat16
+  last = i == N_LAYERS
+  dilation = 2 ** min(i, N_LAYERS - 1)
+  args, cot = trainable_inputs(last, cdt, seed + i, width)
+  saved = tuple(a.detach() for a in args)
+  got = kl.wn_layer_backward_fused(saved, *cot, dilation)
+  torch.cuda.synchronize()
+  ref = kl.wn_layer_backward(saved, *cot, dilation, None, cdt)
+  rec = {"C": width, "dilation": dilation, "last": last, "grads": {}}
+  for name, g, r in zip(GRAD_NAMES, got, ref):
+    err = (g.float() - r.float()).abs().max().item()
+    scale = r.float().abs().max().item()
+    rec["grads"][name] = {"max_abs_err": err, "ref_max_abs": scale}
+    if not torch.isfinite(g).all() or err > KERNEL_TOL_BF16_REL * scale:
+      fail(f"backward kernel {name} at C={width} disagrees with "
+           f"wn_layer_backward: {rec}")
+  rec["max_abs_err"] = max(v["max_abs_err"] for v in rec["grads"].values())
+  rec["max_err_of_scale"] = max(v["max_abs_err"] / v["ref_max_abs"]
+                                for v in rec["grads"].values()
+                                if v["ref_max_abs"] > 0)
+  del got, ref
+  if time_it:
+    rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_backward_fused(
+        saved, *cot, dilation))
+    rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
+        saved, *cot, dilation, None, cdt))
+    x, cond, w_in, b_in, w_rs, _ = saved
+    lib_in = (x.to(cdt).transpose(1, 2).contiguous().requires_grad_(),
+              cond.reshape(B_TRAIN, T_TRAIN, 2 * width).clone()
+              .requires_grad_(),
+              w_in.permute(2, 1, 0).contiguous().requires_grad_(),
+              b_in.to(cdt).clone().requires_grad_(),
+              w_rs.clone().requires_grad_())
+    cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(cdt)
+    lib_out = library_layer(*lib_in, None, dilation, cdt)
+    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, cot_rs, retain_graph=True))
+    del lib_out
+    cost = trainable_cost(last, "bf16", width)
+    rec.update(bound_ms=cost["bwd_bound_ms"], bound_by=cost["bwd_bound_by"])
+  log("width backward kernel " + json.dumps(rec))
+  return rec
+
+
+def width_kernels(width: int, seed: int) -> dict:
+  """Phase 12's kernels at ``width``: the forward (f32, bf16) and each
+  shard pair at d=1, d=128 and the last layer (B=1, T=T_KERNEL), the bf16
+  backward at B_TRAIN x T_TRAIN, each against its plain version and timed
+  beside its bound, plain and library times."""
+  out = {"forward": {}, "shard": {}}
+  for mode in MODES:
+    out["forward"][mode] = [kernel_case(mode, 1, i, seed, width,
+                                        time_it=True)
+                            for i in (0, N_LAYERS - 1, N_LAYERS)]
+    out["shard"][mode] = shard_kernel_check(mode, seed, width)
+  out["backward"] = [backward_kernel_case(i, seed, width, time_it=i == 0)
+                     for i in (0, N_LAYERS - 1, N_LAYERS)]
+  torch.cuda.empty_cache()
+  return out
+
+
+def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
+  """Phase 4's 826-frame request through Synthesizer.infer_serving (96
+  launches), the kernel path against the plain path on injected noise, wall,
+  device busy and peak memory; then a model = 2 logical mesh dispatch (192
+  shard launches, no WN-kernel launch) against the unsharded one."""
+  dtype_name = "bfloat16" if mode == "bf16" else "float32"
+  tol = SLICE_TOL_REL[mode]
+  rng = np.random.default_rng(seed)   # phase 4's requests
+  req = [rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+         for f in FRAMES][-1]
+  synth = Synthesizer(ckpt, compute_dtype=dtype_name, device=DEVICE)
+  per_synthesis = synth.config.n_flows * synth.config.n_layers
+  synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kl.LAUNCHES = kl.SHARD_LAUNCHES = 0
+  t0 = time.perf_counter()
+  res = synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)
+  wall = time.perf_counter() - t0
+  launches = kl.LAUNCHES
+  peak = torch.cuda.max_memory_allocated()
+  if launches != per_synthesis or kl.SHARD_LAUNCHES:
+    fail(f"C={synth.config.n_channels} {mode}: infer_serving launched "
+         f"{launches} (shard {kl.SHARD_LAUNCHES}), expected {per_synthesis}")
+  if (res.samples.shape != (req.shape[-1] * UPSAMPLE_STRIDE,)
+      or not np.isfinite(res.samples).all()):
+    fail(f"C={synth.config.n_channels} {mode}: output "
+         f"{res.samples.shape}, finite {np.isfinite(res.samples).all()}")
+
+  # -- the kernel path against the plain path, same weights and noise
+  n_groups = req.shape[-1] * UPSAMPLE_STRIDE // synth.config.n_group
+  noise = [rng.standard_normal(s).astype(np.float32)
+           for s in infer_noise_shapes(synth.config, 1, n_groups)]
+  wav_k = synth.infer(req, noise=noise, denoiser_strength=0.0).wav
+  with torch.inference_mode():
+    wav_p = infer(synth.params, synth.config,
+                  torch.from_numpy(req[None]).to(DEVICE), noise=noise,
+                  compute_dtype=synth._cdt, layer=kl.wn_layer_plain,
+                  device=DEVICE)[0].cpu().numpy()
+  plain_err = float(np.abs(wav_k - wav_p).max())
+  plain_bound = tol * float(np.abs(wav_p).max())
+  if not np.isfinite(wav_k).all() or plain_err > plain_bound:
+    fail(f"C={synth.config.n_channels} {mode}: kernel path vs plain path "
+         f"{plain_err} > {plain_bound}")
+  info = {"mode": mode, "launches": launches, "wall_s": wall,
+          "audio_s": req.shape[-1] * UPSAMPLE_STRIDE
+                     / synth.hparams.sampling_rate,
+          "max_memory_allocated_bytes": peak,
+          "kernel_vs_plain_max_abs": plain_err,
+          "kernel_vs_plain_bound": plain_bound,
+          "profile": profile_call(lambda: synth.infer_serving(
+              req, seed=seed, bucket_frames=BUCKET))}
+
+  # -- model = 2 on a logical mesh of the card
+  mesh = Synthesizer(ckpt, compute_dtype=dtype_name,
+                     mesh=make_mesh(data=1, model=2,
+                                    devices=logical_devices(2)))
+  mesh.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
+  kl.LAUNCHES = kl.SHARD_LAUNCHES = 0
+  got = mesh.infer_serving(req, seed=seed, bucket_frames=BUCKET)
+  mesh_launches = {"fused": kl.LAUNCHES, "shard": kl.SHARD_LAUNCHES}
+  want = expected_mesh_launches("model", 2, 1, req.shape[-1], per_synthesis)
+  if mesh_launches != want:
+    fail(f"C={synth.config.n_channels} {mode}: model=2 dispatch launched "
+         f"{mesh_launches}, expected {want}")
+  scale = float(np.abs(res.samples).max())
+  err = float(np.abs(got.samples - res.samples).max())
+  if not np.isfinite(got.samples).all() or err > tol * scale:
+    fail(f"C={synth.config.n_channels} {mode}: model=2 vs unsharded {err} "
+         f"> {tol * scale}")
+  info["mesh_model2"] = {
+      "launches": mesh_launches, "vs_unsharded_max_abs": err,
+      "bound": tol * scale,
+      "profile": profile_call(lambda: mesh.infer_serving(
+          req, seed=seed, bucket_frames=BUCKET))}
+  del synth, mesh
+  torch.cuda.empty_cache()
+  return info
+
+
+def width_train(ckpt: CheckpointWaveglow, mode: str, seed: int,
+                tmp: Path) -> dict:
+  """One train() step at the checkpoint's width (launch counts: 192 WN
+  launches with remat, 96 backward-kernel calls in bf16), then one step's
+  gradients through the kernels against the plain route on the same params
+  and batch, each leaf within GRAD_TOL_REL of its max |value|."""
+  width = ckpt.get_hparams().n_channels
+  custom = dict(WIDTH_TRAIN_HPARAMS, seed=str(seed),
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  hp = overwrite_custom_hparams(ckpt.get_hparams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  entries = write_wavs(tmp / f"wavs{width}{mode}", seed)
+  per_forward = config.n_flows * config.n_layers
+  per_step = 2 * per_forward if hp.remat else per_forward
+  bwd_per_step = per_forward if mode == "bf16" else 0
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  t0 = time.perf_counter()
+  train(custom, tmp / f"logs{width}{mode}", entries, entries,
+        tmp / f"ck{width}{mode}", checkpoint=ckpt, max_iterations=2,
+        device=DEVICE)
+  train_s = time.perf_counter() - t0
+  launches, bwd_launches = kl.LAUNCHES, kl.BWD_LAUNCHES
+  steps = [r for r in read_metrics(tmp / f"logs{width}{mode}")
+           if r["event"] == "train_step"]
+  if (len(steps) != 1 or launches != per_step
+      or bwd_launches != bwd_per_step or not np.isfinite(steps[0]["loss"])):
+    fail(f"C={width} {mode}: train() ran {len(steps)} steps with "
+         f"{launches} WN and {bwd_launches} backward launches, expected 1, "
+         f"{per_step} and {bwd_per_step}: {steps}")
+
+  mel_op = MelSTFT(hp, DEVICE)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(WIDTH_TRAIN_BATCH), 0)).to(DEVICE)
+  routes = {}
+  for route, layer in (("kernel", kl.wn_layer_trainable),
+                       ("plain", kl.wn_layer_plain)):
+    params = trainable_params_from_numpy(ckpt.state_dict, DEVICE)
+    loss = train_lib.compute_grads(
+        train_lib.make_loss_fn(config, hp, mel_op, layer), params, batch)
+    routes[route] = (float(loss), [p.grad for p in tree_leaves(params)])
+    del params
+  (loss_k, grads_k), (loss_p, grads_p) = routes["kernel"], routes["plain"]
+  worst, worst_leaf = 0.0, None
+  for n, (g, r) in enumerate(zip(grads_k, grads_p)):
+    err = (g.float() - r.float()).abs().max().item()
+    scale = r.float().abs().max().item()
+    rel = err / scale if scale else err
+    if not torch.isfinite(g).all() or rel > GRAD_TOL_REL[mode]:
+      fail(f"C={width} {mode}: leaf {n} {tuple(g.shape)}'s grad through the "
+           f"kernels differs from the plain route by {rel} of its max")
+    if rel >= worst:
+      worst, worst_leaf = rel, n
+  del routes, grads_k, grads_p, batch
+  torch.cuda.empty_cache()
+  info = {"mode": mode, "train_s": train_s, "loss": steps[0]["loss"],
+          "step_s": steps[0]["duration_s"], "launches": launches,
+          "backward_launches": bwd_launches,
+          "kernel_vs_plain_loss": [loss_k, loss_p],
+          "grad_max_err_of_scale": worst, "worst_leaf": worst_leaf,
+          "grad_bound_of_scale": GRAD_TOL_REL[mode]}
+  log(f"width train C={width} " + json.dumps(info))
+  return info
+
+
+def phase_widths(seed: int, tmp: Path) -> dict:
+  """Phase 12: every built width beside C, its kernels, a full-depth model
+  served in f32 and bf16 (alone and on a model = 2 mesh) and one train()
+  step in each mode."""
+  out = {}
+  for width in WIDE_WIDTHS:
+    t0 = time.perf_counter()
+    rec = {"card": nvidia_smi_line(),
+           "kernels": width_kernels(width, seed)}
+    ckpt = full_width_checkpoint(seed, tmp / f"w{width}.npz", width)
+    rec["serving"] = {mode: width_serving(ckpt, mode, seed) for mode in MODES}
+    for mode in MODES:
+      log(f"width serving C={width} {mode} " + json.dumps(
+          {k: v for k, v in rec["serving"][mode].items() if k != "profile"}))
+    rec["train"] = {mode: width_train(ckpt, mode, seed, tmp)
+                    for mode in MODES}
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"widths C={width}: {rec['phase_s']:.1f} s")
+    out[width] = rec
+    del ckpt
+    torch.cuda.empty_cache()
+  return out
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -3198,6 +3528,10 @@ def main() -> None:
     meshes["serve_refusal"] = serve_refuses_missing_cards(paths["first"],
                                                           Path(tmp))
     log("mesh serve refusal " + json.dumps(meshes["serve_refusal"]))
+    t0 = time.perf_counter()
+    widths = phase_widths(args.seed, Path(tmp))
+    log(f"phase 12 (widths {list(WIDE_WIDTHS)}): "
+        f"{time.perf_counter() - t0:.1f} s")
 
   kernels = []
   for mode in MODES:
@@ -3306,10 +3640,10 @@ def main() -> None:
       "library_ms_last": last["library_backward_ms"],
       "launches_per_step": trains["bf16"]["backward_launches_per_step"],
       "ptxas": ({bwd_variant(k, l): build["ptxas"].get(bwd_variant(k, l))
-                 for k, l in BWD_KERNELS}
+                 for k, l, w in BWD_KERNELS if w == C}
                 if build["built_in_this_run"] else build["ptxas"]),
       "loaded_build": {bwd_variant(k, l): build["attributes"][bwd_variant(k, l)]
-                       for k, l in BWD_KERNELS}})
+                       for k, l, w in BWD_KERNELS if w == C}})
 
   for mode in MODES:
     shard = meshes[mode]["shard_kernel"]
@@ -3323,14 +3657,66 @@ def main() -> None:
         "max_abs_err": max(c["max_abs_err"] for c in shard["cases"]),
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"], "design": SHARD_DESIGN,
+        "library_ms": rec["library_ms"], "design": SHARD_DESIGN[mode],
         "shape": f"B=1,T={T_KERNEL},C={C},C'=128,d=1",
         **{f"{key}_C'{cp}": shard["timed"][cp][key]
            for cp in (64, 32)
            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-        "loaded_build": {f"C'={cp}": kl.shard_kernel_info(cp, mode == "bf16",
-                                                          False)
-                         for cp in kl.SHARD_CHANNELS}})
+        "loaded_build": {f"C'={cp}": kl.shard_kernel_info(
+            c, cp, mode == "bf16", False)
+            for c, cp in kl.shard_pairs() if c == C}})
+
+  # phase 12: each kernel at the other widths, launched by that width's
+  # serving, mesh and train() runs
+  for width, rec in widths.items():
+    for mode in MODES:
+      fwd = rec["kernels"]["forward"][mode]
+      served = rec["serving"][mode]
+      trained = rec["train"][mode]
+      kernels.append({
+          "name": f"wn_layer_fused[{mode},C={width}]", "route": "cuda",
+          "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
+          "replaces": "waveglow_tpu/kernels/wn_layer.py:259",
+          "launches": served["launches"] + trained["launches"],
+          "serving_launches": served["launches"],
+          "train_launches": trained["launches"],
+          "max_abs_err": max(c["max_abs_err"] for c in fwd),
+          **{k: fwd[0][k] for k in ("bound_ms", "bound_by", "plain_ms",
+                                    "library_ms")},
+          "ms": fwd[0]["kernel_ms"], "design": WIDTH_DESIGN[width],
+          "shape": f"B=1,T={T_KERNEL},C={width},d=1",
+          **{f"{key}_{case}": c[key]
+             for case, c in (("d128", fwd[1]), ("last", fwd[2]))
+             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+          "loaded_build": build["attributes"][variant(mode, False, width)]})
+      shard = rec["kernels"]["shard"][mode]
+      pairs = sorted(shard["timed"], reverse=True)
+      top = shard["timed"][pairs[0]]
+      kernels.append({
+          "name": f"wn_layer_shard[{mode},C={width}]", "route": "cuda",
+          "source": "waveglow_tpu_torch/csrc/wn_layer_shard.cu",
+          "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
+                      "shard, waveglow_tpu/parallel/sharding.py:44)",
+          "launches": served["mesh_model2"]["launches"]["shard"],
+          "max_abs_err": max(c["max_abs_err"] for c in shard["cases"]),
+          "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+          "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+          "library_ms": top["library_ms"], "design": SHARD_DESIGN[mode],
+          "shape": f"B=1,T={T_KERNEL},C={width},C'={pairs[0]},d=1",
+          **{f"{key}_C'{cp}": shard["timed"][cp][key] for cp in pairs[1:]
+             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}})
+    bwd = rec["kernels"]["backward"]
+    kernels.append({
+        "name": f"wn_layer_backward_fused[bf16,C={width}]", "route": "cuda",
+        "source": "waveglow_tpu_torch/csrc/wn_layer_bwd.cu",
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:198",
+        "launches": rec["train"]["bf16"]["backward_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in bwd),
+        "max_err_of_scale": max(c["max_err_of_scale"] for c in bwd),
+        **{k: bwd[0][k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        "ms": bwd[0]["kernel_ms"], "design": BACKWARD_DESIGN,
+        "shape": f"B={B_TRAIN},T={T_TRAIN},C={width},d=1"})
 
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
@@ -3338,6 +3724,7 @@ def main() -> None:
             "streams": streams, "serves": serves, "cli": clis,
             "cli_train": cli_trains, "mesh": meshes,
             "trainable_cases": trainable["cases"], "train": trains,
+            "widths": {str(w): r for w, r in widths.items()},
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))

@@ -40,20 +40,31 @@ def edit(src: str, old: str, new: str, count: int = 1) -> str:
   return src.replace(old, new)
 
 
+def only_width(src: str, width: int) -> str:
+  """The source with every instance but ``width``'s taken out of the
+  launchers' dispatch (a variant need only fit that width)."""
+  for other in kl.kernel_widths():
+    if other != width:
+      src = edit(src, f"    case {other}: return dispatch_width<{other}>(a, "
+                      "bf16_mode, last, kernel, smem_bytes);\n", "")
+      src = edit(src, f"    case {other}: err = f32_slots_for<{other}>(last, "
+                      "sms, blocks_per_sm); break;\n", "")
+  return src
+
+
 def variants(src: str) -> dict:
+  src = only_width(src, cs.C)
   return {
       "base": src,
       "chunk32": edit(edit(src, "constexpr int kChunk = 16;",
                            "constexpr int kChunk = 32;"),
-                      "constexpr int kF32Stages = 4;",
-                      "constexpr int kF32Stages = 2;"),
-      "tile64": edit(edit(src, "constexpr int kRowPairs = 3;",
-                          "constexpr int kRowPairs = 4;"),
-                     "constexpr int kThreads = 384;",
-                     "constexpr int kThreads = 512;"),
-      "no_fma": edit(src, "      if (busy) {\n        const float* slot",
-                     "      if (false) {\n        const float* slot", 2),
-      "no_loads": edit(src, "  if (chunk + kF32Ahead < n_chunks)\n",
+                      "kStages = kC > 256 ? 3 : 4;",
+                      "kStages = kC > 256 ? 3 : 2;"),
+      "tile64": edit(src, "constexpr int kRowPairs = 3;",
+                     "constexpr int kRowPairs = 4;"),
+      "no_fma": edit(src, "        if (busy) {\n          const float* slot",
+                     "        if (false) {\n          const float* slot", 2),
+      "no_loads": edit(src, "  if (chunk + L::kAhead < n_chunks)\n",
                        "  if (false)\n")}
 
 
@@ -102,7 +113,7 @@ def main() -> None:
     args, valid, acc = cs.layer_inputs(batch, t, last, torch.float32, 7)
     ref = kl.wn_layer_plain(*args, 1, valid_t=valid, skip_acc=acc.clone())
     rec = {"B": batch, "T": t, "last": last,
-           "bound_ms": cs.layer_cost(batch, t, last, "f32")[2]}
+           "bound_ms": cs.layer_cost(batch, t, last, "f32", cs.C)[2]}
     for name, (fn, _) in libs.items():
       got = call(fn, args, 1, valid, acc.clone())
       skip = acc.clone()

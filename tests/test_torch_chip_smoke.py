@@ -34,30 +34,33 @@ def smoke():
   return module
 
 
-# Mangled names of the four kernel instantiations (C=256 build).
-F32_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_"
-             "S2_PKiPfS5_iiiii")
-F32_LAST = F32_LAYER.replace("ILb0EE", "ILb1EE")
-MMA_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_mmaILb0EEEvPKfPK13"
+# Mangled names of the four kernel instantiations at C=256 (the width is
+# the first template argument).
+F32_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_f32ILi256ELb0EEEvPKfS2_S2_"
+             "S2_S2_S2_PKiPfS5_iiiii")
+F32_LAST = F32_LAYER.replace("Lb0EE", "Lb1EE")
+MMA_LAYER = ("_ZN12_GLOBAL__N_119wn_layer_kernel_mmaILi256ELb0EEEvPKfPK13"
              "__nv_bfloat16S5_S2_S5_S2_PKiPfS8_iii")
-MMA_LAST = MMA_LAYER.replace("ILb0EE", "ILb1EE")
+MMA_LAST = MMA_LAYER.replace("Lb0EE", "Lb1EE")
 # The same forward kernel compiled on its own into an object file (the
 # anonymous namespace then carries the file's name and a hash), and the
 # bf16 backward's kernels, as nvcc names them in that build.
 F32_LAYER_OBJ = ("_ZN44_GLOBAL__N__dd736113_11_wn_layer_cu_ad47388519"
-                 "wn_layer_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_iiiii")
+                 "wn_layer_kernel_f32ILi256ELb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_"
+                 "iiiii")
 _BWD = "_ZN48_GLOBAL__N__c526ef15_15_wn_layer_bwd_cu_16bb117d"
-BWD_ROWS_LAYER = (_BWD + "18wn_bwd_rows_kernelILb0EEEvPKfPK13__nv_bfloat16"
-                  "S5_S2_S5_S2_S2_PKiPS3_S8_S8_S8_Pfii")
-BWD_ROWS_LAST = BWD_ROWS_LAYER.replace("ILb0EE", "ILb1EE")
-BWD_DX = (_BWD + "16wn_bwd_dx_kernelEPK13__nv_bfloat16S2_PKfPKiPfii")
-BWD_WEIGHTS = (_BWD + "21wn_bwd_weights_kernelEPK13__nv_bfloat16S2_S2_S2_"
-               "Pfiiiii")
-BWD_REDUCE = (_BWD + "20wn_bwd_reduce_kernelEPKfiS1_iiP13__nv_bfloat16S3_"
-              "PfS4_")
-BWD = {BWD_ROWS_LAYER: "bf16,bwd-rows,layer",
-       BWD_ROWS_LAST: "bf16,bwd-rows,last", BWD_DX: "bf16,bwd-dx",
-       BWD_WEIGHTS: "bf16,bwd-weights", BWD_REDUCE: "reduce,bwd"}
+BWD_ROWS_LAYER = (_BWD + "18wn_bwd_rows_kernelILi256ELb0EEEvPKfPK13__nv_"
+                  "bfloat16S5_S2_S5_S2_S2_PKiPS3_S8_S8_S8_Pfii")
+BWD_ROWS_LAST = BWD_ROWS_LAYER.replace("Lb0EE", "Lb1EE")
+BWD_DX = (_BWD + "16wn_bwd_dx_kernelILi256EEvPK13__nv_bfloat16S2_PKfPKiPfii")
+BWD_WEIGHTS = (_BWD + "21wn_bwd_weights_kernelILi256EEvPK13__nv_bfloat16S2_"
+               "S2_S2_Pfiiiii")
+BWD_REDUCE = (_BWD + "20wn_bwd_reduce_kernelILi256EEvPKfiS1_iiP13__nv_"
+              "bfloat16S3_PfS4_")
+BWD = {BWD_ROWS_LAYER: "bf16,C=256,bwd-rows,layer",
+       BWD_ROWS_LAST: "bf16,C=256,bwd-rows,last",
+       BWD_DX: "bf16,C=256,bwd-dx", BWD_WEIGHTS: "bf16,C=256,bwd-weights",
+       BWD_REDUCE: "reduce,C=256,bwd"}
 
 
 def test_layer_cost_at_the_kernel_phase_shape(smoke):
@@ -70,13 +73,13 @@ def test_layer_cost_at_the_kernel_phase_shape(smoke):
   flops = 2 * rows * 256 * (3 * 512 + 512)
   assert flops == 27_715_960_832
   nbytes, got_flops, bound_ms, bound_by = smoke.layer_cost(
-      1, smoke.T_KERNEL, False, "bf16")
+      1, smoke.T_KERNEL, False, "bf16", 256)
   assert got_flops == flops
   assert nbytes == 136_384_516
   assert bound_by == "bytes"
   assert bound_ms == pytest.approx(0.040712, rel=1e-4)
   nbytes32, flops32, bound32, by32 = smoke.layer_cost(
-      1, smoke.T_KERNEL, False, "f32")
+      1, smoke.T_KERNEL, False, "f32", 256)
   assert flops32 == flops
   assert nbytes32 == nbytes + rows * 512 * 2 + 524_288 * 2  # 4-byte cond, w
   assert by32 == "operations"
@@ -84,9 +87,12 @@ def test_layer_cost_at_the_kernel_phase_shape(smoke):
 
 
 @pytest.mark.parametrize("mangled,name", [
-    (F32_LAYER, "f32,layer"), (F32_LAST, "f32,last"),
-    (MMA_LAYER, "bf16,layer"), (MMA_LAST, "bf16,last"),
-    (F32_LAYER_OBJ, "f32,layer"), *BWD.items(),
+    (F32_LAYER, "f32,C=256,layer"), (F32_LAST, "f32,C=256,last"),
+    (MMA_LAYER, "bf16,C=256,layer"), (MMA_LAST, "bf16,C=256,last"),
+    (F32_LAYER_OBJ, "f32,C=256,layer"), *BWD.items(),
+    (MMA_LAYER.replace("ILi256E", "ILi512E"), "bf16,C=512,layer"),
+    (F32_LAST.replace("ILi256E", "ILi128E"), "f32,C=128,last"),
+    (BWD_DX.replace("ILi256E", "ILi128E"), "bf16,C=128,bwd-dx"),
     ("_Z5otherv", "_Z5otherv")])
 def test_kernel_variant_from_mangled_name(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
@@ -103,9 +109,9 @@ def test_parse_ptxas_reads_every_variant(smoke):
             f"ptxas info    : Used {100 + i} registers, used 1 barriers, "
             "400 bytes cmem[0]"]
   facts = smoke.parse_ptxas("\n".join(log))
-  assert sorted(facts) == ["bf16,last", "bf16,layer", "f32,last",
-                           "f32,layer"]
-  assert facts["bf16,layer"] == {"spill_store_bytes": 8,
+  assert sorted(facts) == ["bf16,C=256,last", "bf16,C=256,layer",
+                           "f32,C=256,last", "f32,C=256,layer"]
+  assert facts["bf16,C=256,layer"] == {"spill_store_bytes": 8,
                                  "spill_load_bytes": 16, "registers": 102,
                                  "static_smem_bytes": 0}
 
@@ -132,8 +138,8 @@ arch = sm_90a
 
 def test_count_mma_per_variant(smoke):
   counts = smoke.count_mma(SASS)
-  assert counts == {"bf16,layer": 2, "bf16,last": 1, "f32,layer": 0,
-                    "f32,last": 0}
+  assert counts == {"bf16,C=256,layer": 2, "bf16,C=256,last": 1,
+                    "f32,C=256,layer": 0, "f32,C=256,last": 0}
   smoke.check_tensor_cores(counts, counts)  # passes
 
 
@@ -143,11 +149,11 @@ def test_check_tensor_cores_fails(smoke, fault):
   counts = smoke.count_mma(SASS)
   variants = list(counts)
   if fault == "bf16 without mma":
-    counts["bf16,last"] = 0
+    counts["bf16,C=256,last"] = 0
   elif fault == "f32 with mma":
-    counts["f32,layer"] = 3
+    counts["f32,C=256,layer"] = 3
   else:
-    del counts["f32,last"]
+    del counts["f32,C=256,last"]
   with pytest.raises(SystemExit, match="chip_smoke FAILED"):
     smoke.check_tensor_cores(counts, variants)
 
@@ -155,8 +161,10 @@ def test_check_tensor_cores_fails(smoke, fault):
 def test_backward_variants_are_the_runtime_queries(smoke):
   """The variants phase 2 asks the runtime about are the ones the SASS and
   ptxas carry, so its ``set(ptxas) == set(attributes)`` check holds."""
-  assert {smoke.bwd_variant(k, last) for k, last in smoke.BWD_KERNELS} == set(
+  assert {smoke.bwd_variant(k, last, width)
+          for k, last, width in smoke.BWD_KERNELS if width == 256} == set(
       BWD.values())
+  assert {width for _, _, width in smoke.BWD_KERNELS} == {128, 256, 512}
 
 
 def ptxas_log(names):
@@ -175,8 +183,9 @@ def test_parse_ptxas_reads_the_backward_kernels(smoke):
   """One log of both sources, each compiled on its own (nvcc -c)."""
   names = (F32_LAYER_OBJ, MMA_LAYER, *BWD)
   facts = smoke.parse_ptxas(ptxas_log(names))
-  assert sorted(facts) == sorted(["f32,layer", "bf16,layer", *BWD.values()])
-  assert facts["bf16,bwd-dx"] == {"spill_store_bytes": 16,
+  assert sorted(facts) == sorted(["f32,C=256,layer", "bf16,C=256,layer",
+                                  *BWD.values()])
+  assert facts["bf16,C=256,bwd-dx"] == {"spill_store_bytes": 16,
                                   "spill_load_bytes": 32, "registers": 104,
                                   "static_smem_bytes": 0}
 
@@ -197,19 +206,21 @@ def test_backward_kernels_pass_the_tensor_core_check(smoke):
   """Every backward kernel that does products has HMMA; the reduce kernel
   has none and is not asked for any."""
   counts = smoke.count_mma(SASS + bwd_sass({
-      "bf16,bwd-rows,layer": 3, "bf16,bwd-rows,last": 3, "bf16,bwd-dx": 2,
-      "bf16,bwd-weights": 4}))
-  assert counts["reduce,bwd"] == 0 and counts["bf16,bwd-dx"] == 2
+      "bf16,C=256,bwd-rows,layer": 3, "bf16,C=256,bwd-rows,last": 3,
+      "bf16,C=256,bwd-dx": 2, "bf16,C=256,bwd-weights": 4}))
+  assert (counts["reduce,C=256,bwd"] == 0
+          and counts["bf16,C=256,bwd-dx"] == 2)
   assert len(counts) == 9
   smoke.check_tensor_cores(counts, counts)  # passes
 
 
-@pytest.mark.parametrize("without", ["bf16,bwd-rows,layer",
-                                     "bf16,bwd-rows,last", "bf16,bwd-dx",
-                                     "bf16,bwd-weights"])
+@pytest.mark.parametrize("without", ["bf16,C=256,bwd-rows,layer",
+                                     "bf16,C=256,bwd-rows,last",
+                                     "bf16,C=256,bwd-dx",
+                                     "bf16,C=256,bwd-weights"])
 def test_check_tensor_cores_fails_for_a_backward_kernel_without_mma(
     smoke, without):
-  mma = {name: 2 for name in BWD.values() if name != "reduce,bwd"}
+  mma = {name: 2 for name in BWD.values() if name != "reduce,C=256,bwd"}
   mma[without] = 0
   counts = smoke.count_mma(SASS + bwd_sass(mma))
   with pytest.raises(SystemExit, match=without):
@@ -230,8 +241,8 @@ def test_trainable_cost_bills_the_bf16_backward_at_the_bf16_rate(smoke,
   rows = 24_000
   rs = 256 if last else 512
   flops = 2 * rows * (2 * 256 * rs + 2 * 768 * 512)
-  bf16 = smoke.trainable_cost(last, "bf16")
-  f32 = smoke.trainable_cost(last, "f32")
+  bf16 = smoke.trainable_cost(last, "bf16", 256)
+  f32 = smoke.trainable_cost(last, "f32", 256)
   assert bf16["bwd_flops"] == f32["bwd_flops"] == flops
   assert f32["bwd_bound_ms"] == pytest.approx(flops / 67e12 * 1e3, rel=1e-12)
   assert f32["bound_by"] == f32["bwd_bound_by"] == "operations"
@@ -248,12 +259,12 @@ def test_trainable_cost_bills_the_bf16_backward_at_the_bf16_rate(smoke,
 
 
 def attributes(local_bytes):
-  return {"f32,layer": {"registers": 167, "local_bytes": local_bytes,
-                        "static_smem_bytes": 0,
-                        "dynamic_smem_bytes": 193_280},
-          "bf16,layer": {"registers": 255, "local_bytes": 8,
-                         "static_smem_bytes": 0,
-                         "dynamic_smem_bytes": 229_376}}
+  return {"f32,C=256,layer": {"registers": 167, "local_bytes": local_bytes,
+                              "static_smem_bytes": 0,
+                              "dynamic_smem_bytes": 193_280},
+          "bf16,C=256,layer": {"registers": 255, "local_bytes": 8,
+                               "static_smem_bytes": 0,
+                               "dynamic_smem_bytes": 229_376}}
 
 
 @pytest.mark.parametrize("fault", [None, "local bytes", "ptxas spills"])
@@ -262,30 +273,34 @@ def test_check_no_spills_holds_the_f32_kernels(smoke, fault):
   in ptxas's report; other variants (the bf16 kernel's 8 local bytes) are
   not held to it, and a cached build (no ptxas report) is read from the
   runtime alone."""
-  ptxas = {"f32,layer": {"spill_store_bytes": 0, "spill_load_bytes": 0},
-           "bf16,layer": {"spill_store_bytes": 8, "spill_load_bytes": 8}}
+  ptxas = {"f32,C=256,layer": {"spill_store_bytes": 0,
+                               "spill_load_bytes": 0},
+           "bf16,C=256,layer": {"spill_store_bytes": 8,
+                                "spill_load_bytes": 8}}
   attrs = attributes(4 if fault == "local bytes" else 0)
   if fault == "ptxas spills":
-    ptxas["f32,layer"]["spill_load_bytes"] = 16
+    ptxas["f32,C=256,layer"]["spill_load_bytes"] = 16
   if fault is None:
     smoke.check_no_spills(ptxas, attrs)
     smoke.check_no_spills(None, attrs)
     return
-  with pytest.raises(SystemExit, match="f32,layer kernel spills"):
+  with pytest.raises(SystemExit, match="f32,C=256,layer kernel spills"):
     smoke.check_no_spills(ptxas, attrs)
 
 
 def test_f32_grid_reads_each_shape(smoke, monkeypatch):
   """Phase 2's report of the f32 grid: the share of the busiest block is
   an equal share of B*T over SMs x blocks an SM, against its rows."""
-  def schedule(batch, t, last=False):
+  def schedule(batch, t, last=False, channels=256):
     return {"sms": 132, "blocks_per_sm": 1, "blocks": 128,
             "rows_per_block": 208, "tiles_per_block": 5, "waves": 128 / 132}
   monkeypatch.setattr(smoke.kl, "f32_schedule", schedule)
   info = smoke.f32_grid(attributes(0))
   assert info["kernel"]["registers"] == 167
-  assert sorted(info) == sorted(["kernel", "B=1,T=26432", "B=8,T=26432",
-                                 "B=12,T=2000"])
+  shapes = ["B=1,T=26432", "B=8,T=26432", "B=12,T=2000"]
+  assert sorted(info) == sorted(["kernel", *shapes,
+                                 *[f"{s},C={w}" for s in shapes
+                                   for w in (128, 512)]])
   assert info["B=1,T=26432"]["share_of_busiest"] == pytest.approx(
       26_432 / 132 / 208)
 
@@ -527,27 +542,39 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
 
 # -- phase 11: sharded serving --------------------------------------------------
 
+# As nvcc names them in the build (the f32 FFMA kernel and the bf16
+# tensor-core one, each <C, C', last>).
 SHARD_128 = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463615wn_shard_"
-             "kernelILi128ELb0ELb0EEEvPKfPKNSt11conditionalIXT0_E13__nv_"
-             "bfloat16fE4typeES8_S2_S8_Pfii")
+             "kernelILi256ELi128ELb0EEEvPKfS2_S2_S2_S2_Pfii")
+SHARD_MMA = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463619wn_shard_"
+             "kernel_mmaILi512ELi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_Pfii")
 
 
 @pytest.mark.parametrize("mangled,name", [
-    (SHARD_128, "shard-f32,C'=128,layer"),
-    (SHARD_128.replace("ILi128ELb0ELb0E", "ILi32ELb1ELb1E"),
-     "shard-bf16,C'=32,last")])
+    (SHARD_128, "shard-f32,C=256,C'=128,layer"),
+    (SHARD_128.replace("ILi256ELi128ELb0E", "ILi128ELi16ELb1E"),
+     "shard-f32,C=128,C'=16,last"),
+    (SHARD_MMA, "shard-bf16,C=512,C'=256,layer"),
+    (SHARD_MMA.replace("ILi512ELi256ELb0E", "ILi256ELi32ELb1E"),
+     "shard-bf16,C=256,C'=32,last")])
 def test_shard_kernel_variant_names(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
   assert name in {smoke.shard_variant(*v) for v in smoke.SHARD_KERNELS}
 
 
 def test_check_tensor_cores_holds_the_f32_shard_kernel(smoke):
-  smoke.check_tensor_cores({"shard-bf16,C'=64,layer": 0,
-                            "shard-f32,C'=64,layer": 0},
-                           ["shard-bf16,C'=64,layer", "shard-f32,C'=64,layer"])
+  """The f32 shard kernel (FFMA) must have no tensor-core instruction and
+  the bf16 one (mma.sync) some."""
+  smoke.check_tensor_cores({"shard-bf16,C=256,C'=64,layer": 2,
+                            "shard-f32,C=256,C'=64,layer": 0},
+                           ["shard-bf16,C=256,C'=64,layer",
+                            "shard-f32,C=256,C'=64,layer"])
   with pytest.raises(SystemExit, match="tensor-core"):
-    smoke.check_tensor_cores({"shard-f32,C'=64,layer": 3},
-                             ["shard-f32,C'=64,layer"])
+    smoke.check_tensor_cores({"shard-f32,C=256,C'=64,layer": 3},
+                             ["shard-f32,C=256,C'=64,layer"])
+  with pytest.raises(SystemExit, match="no HMMA/HGMMA"):
+    smoke.check_tensor_cores({"shard-bf16,C=256,C'=64,layer": 0},
+                             ["shard-bf16,C=256,C'=64,layer"])
 
 
 @pytest.mark.parametrize("cp", [128, 64, 32])
@@ -556,7 +583,7 @@ def test_shard_cost_at_the_kernel_phase_shape(smoke, cp):
   weights and the partial once each; f32 operation-bound at C' = 128."""
   t = smoke.T_KERNEL
   nbytes, flops, bound_ms, bound_by = smoke.shard_cost(1, t, cp, False,
-                                                       "f32")
+                                                       "f32", 256)
   assert flops == 2 * t * (768 * 2 * cp + cp * 512)
   assert nbytes == (t * 256 * 4 + t * 2 * cp * 4
                     + (768 * 2 * cp + cp * 512) * 4 + 2 * cp * 4
@@ -564,9 +591,9 @@ def test_shard_cost_at_the_kernel_phase_shape(smoke, cp):
   assert bound_ms == pytest.approx(max(nbytes / 3.35e9, flops / 67e9))
   if cp == 128:
     assert bound_by == "operations"
-  _, _, bf16_ms, bf16_by = smoke.shard_cost(1, t, cp, False, "bf16")
+  _, _, bf16_ms, bf16_by = smoke.shard_cost(1, t, cp, False, "bf16", 256)
   assert bf16_by == "bytes" and bf16_ms < bound_ms
-  _, last_flops, _, _ = smoke.shard_cost(1, t, cp, True, "f32")
+  _, last_flops, _, _ = smoke.shard_cost(1, t, cp, True, "f32", 256)
   assert last_flops == 2 * t * (768 * 2 * cp + cp * 256)
 
 
@@ -608,3 +635,43 @@ def test_time_split_and_stitch(smoke, frames, n):
   if frames > 3:
     assert any("differ" in f for f in smoke.stitch_faults(uneven, frames,
                                                           frames))
+
+
+# -- phase 12: the other widths ------------------------------------------------
+
+def test_phase_12_drives_every_other_built_width(smoke):
+  assert smoke.WIDE_WIDTHS == (128, 512)
+  assert set(smoke.WIDTH_DESIGN) == set(smoke.WIDE_WIDTHS)
+  forward = {smoke.variant(*v) for v in smoke.FORWARD_KERNELS}
+  assert len(forward) == 12 and "bf16,C=512,last" in forward
+  shard = {smoke.shard_variant(*v) for v in smoke.SHARD_KERNELS}
+  assert len(shard) == 36 and "shard-bf16,C=128,C'=16,layer" in shard
+
+
+@pytest.mark.parametrize("width", [128, 512])
+def test_layer_cost_scales_with_the_width(smoke, width):
+  """At width C: flops 2 * rows * C * (3 * 2C + 2C); bytes x, cond, the
+  weights, the biases, valid_t and skip_acc read, x' and skip written. f32
+  is bound by operations at every width; bf16 by bytes at 128 and by
+  operations at 512 (4x the flops of 256 for 2x the bytes)."""
+  rows = smoke.T_KERNEL
+  nbytes, flops, bound_ms, by = smoke.layer_cost(1, rows, False, "bf16",
+                                                 width)
+  assert flops == 2 * rows * width * 8 * width
+  assert nbytes == (rows * width * 4 + rows * 2 * width * 2
+                    + 8 * width * width * 2 + 4 * width * 4 + 4
+                    + 3 * rows * width * 4)
+  assert bound_ms == pytest.approx(max(nbytes / 3.35e9, flops / 989e9))
+  assert by == ("bytes" if width == 128 else "operations")
+  _, _, _, by32 = smoke.layer_cost(1, rows, False, "f32", width)
+  assert by32 == "operations"
+
+
+@pytest.mark.parametrize("width,cp", [(128, 16), (512, 256)])
+def test_shard_cost_at_other_widths(smoke, width, cp):
+  t = smoke.T_KERNEL
+  _, flops, _, _ = smoke.shard_cost(1, t, cp, False, "bf16", width)
+  assert flops == 2 * t * (3 * width * 2 * cp + cp * 2 * width)
+  cost = smoke.trainable_cost(False, "bf16", width)
+  assert cost["bwd_flops"] == 2 * 24_000 * (2 * width * 2 * width
+                                            + 2 * 3 * width * 2 * width)

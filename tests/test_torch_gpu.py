@@ -44,11 +44,16 @@ def layer_inputs(device, batch, t, c, last, dtype, seed=0):
   return x, cond, w_in, b_in, w_rs, b_rs
 
 
+# The widths the kernels are built for.
+WIDTHS = kl.kernel_widths()
+
+
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
                                            (2, True)])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain(cuda, dilation, last, bf16):
-  batch, t, c = 2, 300, kl.CHANNELS  # ragged last tile
+def test_kernel_matches_plain(cuda, dilation, last, bf16, c):
+  batch, t = 2, 300  # ragged last tile
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
   args = layer_inputs(cuda, batch, t, c, last, dtype)
@@ -83,17 +88,18 @@ BWD_ROW_TILE = 64
 
 
 def check_against_plain(device, batch, t, dilation, last, bf16, valid,
-                        seed):
+                        seed, c):
   """One launch with ``skip_acc`` and a per-row ``valid_t`` against
-  wn_layer_plain, at the bounds of test_kernel_matches_plain; rows at and
-  past valid_t must come out zero."""
+  wn_layer_plain at ``c`` channels, at the bounds of
+  test_kernel_matches_plain; rows at and past valid_t must come out
+  zero."""
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
-  x, *rest = layer_inputs(device, batch, t, kl.CHANNELS, last, dtype, seed)
+  x, *rest = layer_inputs(device, batch, t, c, last, dtype, seed)
   valid = torch.tensor(valid, dtype=torch.int32, device=device)
   x = x * (torch.arange(t, device=device)[None, :, None]
            < valid[:, None, None])
-  acc = torch.randn(batch, t, kl.CHANNELS,
+  acc = torch.randn(batch, t, c,
                     generator=torch.Generator().manual_seed(seed)).to(device)
   xk, sk = kl.wn_layer_fused(x, *rest, dilation, valid_t=valid,
                              skip_acc=acc.clone(), compute_dtype=cdt)
@@ -113,12 +119,13 @@ def check_against_plain(device, batch, t, dilation, last, bf16, valid,
     (17, False), (17, True), (ROW_TILE["bf16"] + 1, False),
     (ROW_TILE["bf16"] + 1, True), (ROW_TILE["f32"] - 1, False),
     (ROW_TILE["f32"], False), (ROW_TILE["f32"] + 1, False), (5000, False)])
-def test_kernel_short_and_ragged_tiles(cuda, t, bf16):
+@pytest.mark.parametrize("c", WIDTHS)
+def test_kernel_short_and_ragged_tiles(cuda, t, bf16, c):
   """T shorter than one row tile, one tile less one row, one tile, one tile
   plus one row; and f32 at T=5,000, where each block of the f32 kernel takes
   a full tile and a short one, and a tile holds the end of one sequence and
   the start of the next."""
-  check_against_plain(cuda, 2, t, 2, False, bf16, [t, t - 5], seed=5)
+  check_against_plain(cuda, 2, t, 2, False, bf16, [t, t - 5], seed=5, c=c)
 
 
 @pytest.mark.parametrize("t,bf16", [
@@ -126,27 +133,31 @@ def test_kernel_short_and_ragged_tiles(cuda, t, bf16):
     pytest.param(ROW_TILE["f32"] * 2 + 1, False,
                  id=f"f32-{ROW_TILE['f32'] * 2 + 1}"),
     pytest.param(5000, False, id="f32-5000")])
-def test_kernel_widest_halo(cuda, t, bf16):
+@pytest.mark.parametrize("c", WIDTHS)
+def test_kernel_widest_halo(cuda, t, bf16, c):
   """d=128: at T=300 and at two f32 tiles plus one row the taps reach past
   both ends of the sequence; the halo is wider than two f32 tiles, so a
   tile's taps come from other blocks' rows and the other sequence's rows
   read as zero; T=5,000 has blocks of two tiles."""
-  check_against_plain(cuda, 2, t, 128, False, bf16, [t, t - 50], seed=6)
+  check_against_plain(cuda, 2, t, 128, False, bf16, [t, t - 50], seed=6,
+                      c=c)
 
 
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_batch_with_one_valid_row(cuda, bf16):
+def test_kernel_batch_with_one_valid_row(cuda, bf16, c):
   """B=8 with one row kept at valid_t=1."""
   valid = [300, 1, 299, 170, 64, 65, 300, 2]
-  check_against_plain(cuda, 8, 300, 8, False, bf16, valid, seed=7)
+  check_against_plain(cuda, 8, 300, 8, False, bf16, valid, seed=7, c=c)
 
 
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("dilation", [1, 128])
-def test_kernel_last_layer(cuda, dilation, bf16):
+def test_kernel_last_layer(cuda, dilation, bf16, c):
   """The last-layer variant ([C, C] res/skip, x' = x)."""
   check_against_plain(cuda, 2, 200, dilation, True, bf16, [200, 133],
-                      seed=8)
+                      seed=8, c=c)
 
 
 MODE_CASES = {"bf16": torch.bfloat16, "f32": None}
@@ -157,13 +168,13 @@ MODE_CASES = {"bf16": torch.bfloat16, "f32": None}
     pytest.param(True, "bf16", id="True"),
     pytest.param(False, "f32", id="f32-False"),
     pytest.param(True, "f32", id="f32-True")])
-def test_bf16_kernel_is_deterministic(cuda, last, mode):
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bf16_kernel_is_deterministic(cuda, last, mode, c):
   """Two launches of the kernel of each mode on the same inputs give the
   same bits (no atomics, no split K)."""
   cdt = MODE_CASES[mode]
-  args = layer_inputs(cuda, 2, 1000, kl.CHANNELS, last,
-                      cdt or torch.float32, seed=9)
-  acc = torch.randn(2, 1000, kl.CHANNELS,
+  args = layer_inputs(cuda, 2, 1000, c, last, cdt or torch.float32, seed=9)
+  acc = torch.randn(2, 1000, c,
                     generator=torch.Generator().manual_seed(9)).to(cuda)
   runs = [kl.wn_layer_fused(*args, 16, skip_acc=acc.clone(),
                             compute_dtype=cdt) for _ in range(2)]
@@ -173,7 +184,8 @@ def test_bf16_kernel_is_deterministic(cuda, last, mode):
 @pytest.mark.parametrize("dilation,mode", [
     pytest.param(1, "bf16", id="1"), pytest.param(128, "bf16", id="128"),
     pytest.param(1, "f32", id="f32-1"), pytest.param(128, "f32", id="f32-128")])
-def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation, mode):
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation, mode, c):
   """Many launches at B=1, T=26,432 (826 frames: 413 bf16 row tiles; f32
   blocks of four full tiles and a short one) give the bits of the first: a
   rarely corrupted tile (a ring slot or shared memory reused before every
@@ -181,9 +193,8 @@ def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation, mode):
   launch."""
   t = 26_432
   cdt = MODE_CASES[mode]
-  args = layer_inputs(cuda, 1, t, kl.CHANNELS, False, cdt or torch.float32,
-                      seed=10)
-  acc = torch.randn(1, t, kl.CHANNELS,
+  args = layer_inputs(cuda, 1, t, c, False, cdt or torch.float32, seed=10)
+  acc = torch.randn(1, t, c,
                     generator=torch.Generator().manual_seed(10)).to(cuda)
   first = kl.wn_layer_fused(*args, dilation, skip_acc=acc.clone(),
                             compute_dtype=cdt)
@@ -194,8 +205,7 @@ def test_bf16_kernel_repeats_bitwise_at_full_length(cuda, dilation, mode):
 
 
 def test_kernel_without_accumulator(cuda):
-  args = layer_inputs(cuda, 1, 333, kl.CHANNELS, False, torch.float32,
-                      seed=2)
+  args = layer_inputs(cuda, 1, 333, 256, False, torch.float32, seed=2)
   xk, sk = kl.wn_layer_fused(*args, 4)
   xp, sp = kl.wn_layer_plain(*args, 4)
   torch.testing.assert_close(xk, xp, atol=1e-4, rtol=0)
@@ -203,7 +213,7 @@ def test_kernel_without_accumulator(cuda):
 
 
 def test_kernel_rejects_bad_inputs(cuda):
-  x, cond, w_in, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 64, kl.CHANNELS,
+  x, cond, w_in, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 64, 256,
                                                  False, torch.float32)
   with pytest.raises(ValueError, match="dtype"):
     kl.wn_layer_fused(x, cond, w_in, b_in, w_rs, b_rs, 1,
@@ -212,15 +222,16 @@ def test_kernel_rejects_bad_inputs(cuda):
     kl.wn_layer_fused(x, cond.transpose(2, 3), w_in, b_in, w_rs, b_rs, 1)
   with pytest.raises(ValueError, match="valid_t"):
     kl.wn_layer_fused(x, cond, w_in, b_in, w_rs, b_rs, 1, valid_t=10)
-  with pytest.raises(ValueError, match="C = 256"):
-    kl.wn_layer_fused(x[..., :128].contiguous(), cond, w_in, b_in, w_rs,
+  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 192"):
+    kl.wn_layer_fused(x[..., :192].contiguous(), cond, w_in, b_in, w_rs,
                       b_rs, 1)
 
 
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("last", [False, True])
-def test_kernel_info_reads_the_loaded_build(cuda, bf16, last):
-  info = kl.kernel_info(bf16, last)
+def test_kernel_info_reads_the_loaded_build(cuda, bf16, last, c):
+  info = kl.kernel_info(c, bf16, last)
   assert 0 < info["registers"] <= 255
   assert info["dynamic_smem_bytes"] > 48 * 1024  # needs the opt-in
   assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
@@ -228,7 +239,7 @@ def test_kernel_info_reads_the_loaded_build(cuda, bf16, last):
     # one wave of blocks, each a whole number of 16-row quanta, covering
     # B*T rows at the kernel phase's shapes
     for batch, t in ((1, 26_432), (8, 26_432), (12, 2_000), (2, 17)):
-      grid = kl.f32_schedule(batch, t, last)
+      grid = kl.f32_schedule(batch, t, last, channels=c)
       assert grid["blocks_per_sm"] >= 1 and grid["waves"] <= 1
       assert grid["rows_per_block"] % 16 == 0
       assert ((grid["blocks"] - 1) * grid["rows_per_block"] < batch * t
@@ -237,15 +248,16 @@ def test_kernel_info_reads_the_loaded_build(cuda, bf16, last):
 
 @pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
                                            (2, True)])
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("bf16", [False, True])
-def test_trainable_grads_match_plain(cuda, dilation, last, bf16):
+def test_trainable_grads_match_plain(cuda, dilation, last, bf16, c):
   """wn_layer_trainable on the card: the forward is one kernel launch equal
   to wn_layer_fused, and the six gradients (with a per-row valid_t) match
   autograd through wn_layer_plain. Each gradient within 1e-4 (f32) or 2e-2
   (bf16) of its own max |value|: the backward never reads the kernel's
   outputs, so f32 differs only by sums in other orders, and in bf16 the
   plain layer differentiates its bf16-rounded acts."""
-  batch, t, c = 2, 300, kl.CHANNELS
+  batch, t = 2, 300
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
   args = list(layer_inputs(cuda, batch, t, c, last, dtype, seed=3))
@@ -275,7 +287,7 @@ def test_trainable_grads_match_plain(cuda, dilation, last, bf16):
 
 
 def test_trainable_raises_on_bad_inputs(cuda):
-  x, cond, w_in, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 64, kl.CHANNELS,
+  x, cond, w_in, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 64, 256,
                                                  False, torch.float32)
   with pytest.raises(ValueError, match="dtype"):
     kl.wn_layer_trainable(x, cond, w_in, b_in, w_rs, b_rs, 1,
@@ -332,18 +344,19 @@ def test_train_step_kernel_route_matches_plain(cuda, compute_dtype):
 GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
 
 
-def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None):
-  """The saved inputs of a bf16 layer (x zero at rows >= valid_t), the two
-  cotangents (``drop`` of them None) and valid_t as the kernel takes it."""
-  x, *rest = layer_inputs(device, batch, t, kl.CHANNELS, last,
-                          torch.bfloat16, seed)
+def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None,
+               c=256):
+  """The saved inputs of a bf16 layer at ``c`` channels (x zero at rows >=
+  valid_t), the two cotangents (``drop`` of them None) and valid_t as the
+  kernel takes it."""
+  x, *rest = layer_inputs(device, batch, t, c, last, torch.bfloat16, seed)
   valid_t = None
   if valid is not None:
     valid_t = torch.tensor(valid, dtype=torch.int32, device=device)
     x = x * (torch.arange(t, device=device)[None, :, None]
              < valid_t[:, None, None])
   rng = np.random.default_rng(seed + 100)
-  cots = [torch.from_numpy(rng.standard_normal((batch, t, kl.CHANNELS))
+  cots = [torch.from_numpy(rng.standard_normal((batch, t, c))
                            .astype(np.float32)).to(device) for _ in range(2)]
   if drop is not None:
     cots[drop] = None
@@ -351,13 +364,13 @@ def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None):
 
 
 def check_bwd_against_plain(device, batch, t, dilation, last, valid, seed,
-                            drop=None):
+                            drop=None, c=256):
   """One call of the backward kernels (one count in BWD_LAUNCHES) against
   wn_layer_backward at the same rounding points: each gradient within 2e-2
   of its own max |value| (f32 sums in another order can flip one bf16
   rounding of a dgate or an act), in its input's dtype and shape."""
   saved, cots, valid_t = bwd_inputs(device, batch, t, dilation, last, valid,
-                                    seed, drop)
+                                    seed, drop, c)
   before = kl.BWD_LAUNCHES
   got = kl.wn_layer_backward_fused(saved, *cots, dilation, valid_t)
   torch.cuda.synchronize()
@@ -374,16 +387,19 @@ def check_bwd_against_plain(device, batch, t, dilation, last, valid, seed,
 @pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
                                            (128, False), (1, True),
                                            (128, True)])
-def test_bwd_kernel_matches_plain(cuda, dilation, last):
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bwd_kernel_matches_plain(cuda, dilation, last, c):
   """Every dilation's halo (d=128 reaches past both ends at T=300) and the
   last layer, with a per-row valid_t."""
-  check_bwd_against_plain(cuda, 2, 300, dilation, last, [300, 223], seed=11)
+  check_bwd_against_plain(cuda, 2, 300, dilation, last, [300, 223], seed=11,
+                          c=c)
 
 
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("t", [17, BWD_ROW_TILE + 1])
-def test_bwd_kernel_short_and_ragged_tiles(cuda, t):
+def test_bwd_kernel_short_and_ragged_tiles(cuda, t, c):
   """T shorter than one row tile, and one tile plus one row."""
-  check_bwd_against_plain(cuda, 2, t, 2, False, [t, t - 5], seed=12)
+  check_bwd_against_plain(cuda, 2, t, 2, False, [t, t - 5], seed=12, c=c)
 
 
 def test_bwd_kernel_batch_with_one_valid_row(cuda):
@@ -400,11 +416,12 @@ def test_bwd_kernel_none_cotangents(cuda, drop, last):
   check_bwd_against_plain(cuda, 2, 200, 4, last, None, seed=14, drop=drop)
 
 
+@pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("last", [False, True])
-def test_bwd_kernel_repeats_bitwise(cuda, last):
+def test_bwd_kernel_repeats_bitwise(cuda, last, c):
   """Two calls at the training shape (B=12, T=2,000) give the same bits:
   no atomics, every sum in a fixed order."""
-  saved, cots, _ = bwd_inputs(cuda, 12, 2000, 1, last, None, seed=15)
+  saved, cots, _ = bwd_inputs(cuda, 12, 2000, 1, last, None, seed=15, c=c)
   first = kl.wn_layer_backward_fused(saved, *cots, 1)
   again = kl.wn_layer_backward_fused(saved, *cots, 1)
   assert all(torch.equal(a, b) for a, b in zip(first, again))
@@ -422,16 +439,17 @@ def test_bwd_kernel_rejects_bad_inputs(cuda):
     kl.wn_layer_backward_fused(saved, cots[0].to(torch.bfloat16), cots[1], 1)
   with pytest.raises(ValueError, match="valid_t"):
     kl.wn_layer_backward_fused(saved, *cots, 1, valid_t=10)
-  with pytest.raises(ValueError, match="C = 256"):
-    kl.wn_layer_backward_fused((x[..., :128].contiguous(), *saved[1:]),
+  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 192"):
+    kl.wn_layer_backward_fused((x[..., :192].contiguous(), *saved[1:]),
                                *cots, 1)
 
 
 @pytest.mark.parametrize("kernel,last", [("rows", False), ("rows", True),
                                          ("dx", False), ("weights", False),
                                          ("reduce", False)])
-def test_bwd_kernel_info_reads_the_loaded_build(cuda, kernel, last):
-  info = kl.bwd_kernel_info(kernel, last)
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bwd_kernel_info_reads_the_loaded_build(cuda, kernel, last, c):
+  info = kl.bwd_kernel_info(kernel, last, c)
   assert 0 < info["registers"] <= 255
   assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
   assert (info["dynamic_smem_bytes"] > 48 * 1024) == (kernel != "reduce")
@@ -443,7 +461,7 @@ def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
   for cdt, calls in ((torch.bfloat16, 1), (None, 0)):
     dtype = cdt or torch.float32
     args = [a.requires_grad_() for a in
-            layer_inputs(cuda, 2, 100, kl.CHANNELS, False, dtype, seed=17)]
+            layer_inputs(cuda, 2, 100, 256, False, dtype, seed=17)]
     out = kl.wn_layer_trainable(*args, 2, compute_dtype=cdt)
     before = kl.BWD_LAUNCHES
     torch.autograd.grad(out, args, [torch.ones_like(o) for o in out])
@@ -462,7 +480,7 @@ def stream_model():
     pytest.skip("needs a CUDA card")
   from waveglow_tpu_torch.checkpointing.from_jax import params_from_numpy
   from waveglow_tpu_torch.models import waveglow as wg
-  cfg = wg.WaveGlowConfig(n_flows=2, n_layers=4, n_channels=kl.CHANNELS)
+  cfg = wg.WaveGlowConfig(n_flows=2, n_layers=4, n_channels=256)
   params = wg.init_params(cfg, seed=0)
   rng = np.random.default_rng(1)
   for flow in params["flows"]:
@@ -595,7 +613,7 @@ def test_pt_import_synthesizes_like_the_npz(cuda, tmp_path, compute_dtype):
 # -- validation and the training command on the card -------------------------
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "audio.wav"
-SMALL = {"n_flows": "2", "n_layers": "4", "n_channels": str(kl.CHANNELS)}
+SMALL = {"n_flows": "2", "n_layers": "4", "n_channels": "256"}
 
 
 def write_cuts(folder, cuts):
@@ -696,7 +714,7 @@ def shard_slices(args, model, rank):
   """Rank ``rank``'s slices of a full layer's (cond, w_in, b_in, w_rs), as
   ``parallel.sharding.shard_params`` cuts them."""
   _, cond, w_in, b_in, w_rs, _ = args
-  c = kl.CHANNELS
+  c = args[0].shape[-1]
   cp = c // model
   cols = slice(rank * cp, (rank + 1) * cp)
   return (cond.reshape(*cond.shape[:2], 2, c)[..., cols].reshape(
@@ -710,12 +728,13 @@ def shard_slices(args, model, rank):
 @pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
                                            (2, True)])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("model", [2, 4, 8])
-def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last):
+@pytest.mark.parametrize("c,model", [(c, c // cp)
+                                     for c, cp in kl.shard_pairs()])
+def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last, c):
   """Each rank's partial against ``wn_layer_shard_plain``, and the ranks'
   partials summed against the unsharded kernel's ``rs`` (x' - x and the
   skip, less b_rs) at the bounds of the full kernel."""
-  batch, t, c = 2, 300, kl.CHANNELS  # a ragged last tile
+  batch, t = 2, 300  # a ragged last tile
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
   args = layer_inputs(cuda, batch, t, c, last, dtype, seed=model)
@@ -742,26 +761,31 @@ def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last):
   assert (summed - full).abs().max().item() <= bound
 
 
-def test_shard_kernel_repeats_bitwise_and_refuses(cuda):
-  args = layer_inputs(cuda, 1, 1000, kl.CHANNELS, False, torch.bfloat16)
+@pytest.mark.parametrize("c", WIDTHS)
+def test_shard_kernel_repeats_bitwise_and_refuses(cuda, c):
+  args = layer_inputs(cuda, 1, 1000, c, False, torch.bfloat16)
   sl = shard_slices(args, 2, 1)
   one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
-  two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
-  assert torch.equal(one, two)
-  with pytest.raises(ValueError, match="C' in"):
+  for _ in range(16):
+    two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+    assert torch.equal(one, two)
+  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
     kl.wn_layer_shard(args[0], *shard_slices(args, 16, 0), 4,
                       compute_dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="dtype"):
     kl.wn_layer_shard(args[0], *sl, 4)
 
 
-@pytest.mark.parametrize("cp", kl.SHARD_CHANNELS)
-def test_shard_kernel_info_reads_the_loaded_build(cuda, cp):
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_kernel_info_reads_the_loaded_build(cuda, c, cp):
+  """Every (C, C') instance is in the loaded build; both take their shared
+  memory as dynamic (the f32 tile of 32 x (C + 4) floats is 66,048 bytes
+  at C = 512, over the 48 KB of static)."""
   for bf16 in (False, True):
     for last in (False, True):
-      info = kl.shard_kernel_info(cp, bf16, last)
+      info = kl.shard_kernel_info(c, cp, bf16, last)
       assert 0 < info["registers"] <= 255
-      assert info["static_smem_bytes"] > 0
+      assert info["dynamic_smem_bytes"] > 0
 
 
 @pytest.mark.parametrize("frames,n", [(400, 4), (397, 4), (3, 4), (251, 2)])
@@ -811,3 +835,45 @@ def test_model_mesh_synthesis_on_the_card(cuda, stream_model, model):
   assert kl.SHARD_LAUNCHES - shard_before == (
       model * cfg.n_flows * cfg.n_layers)
   assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+# -- widths outside the built set, and launches on a second card -------------
+
+def test_other_widths_are_refused_on_the_card(cuda):
+  """A CUDA tensor at a width outside the built set raises, naming the
+  set, in the forward, the backward and the shard kernel's wrappers; it
+  never falls back to the plain version."""
+  args = layer_inputs(cuda, 1, 64, 384, False, torch.float32)
+  before = kl.LAUNCHES
+  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 384"):
+    kl.wn_layer_fused(*args, 1)
+  assert kl.LAUNCHES == before
+  saved, cots, _ = bwd_inputs(cuda, 1, 64, 1, False, None, seed=18, c=384)
+  before = kl.BWD_LAUNCHES
+  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 384"):
+    kl.wn_layer_backward_fused(saved, *cots, 1)
+  assert kl.BWD_LAUNCHES == before
+  sl = shard_slices(layer_inputs(cuda, 1, 64, 256, False, torch.float32),
+                    2, 0)
+  x = torch.zeros(1, 64, 384, device=cuda)
+  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
+    kl.wn_layer_shard(x, *sl, 1)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bwd_kernel_launches_on_the_tensors_card(cuda, c):
+  """The backward launches on the card its tensors are on, whatever the
+  current device (two cards: the inputs on cuda:1, cuda:0 current), and
+  gives the bits it gives there as the current device."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip("needs 2 CUDA cards")
+  other = torch.device("cuda", 1)
+  saved, cots, _ = bwd_inputs(other, 2, 300, 4, False, None, seed=19, c=c)
+  with torch.cuda.device(other):
+    ref = kl.wn_layer_backward_fused(saved, *cots, 4)
+    torch.cuda.synchronize(other)
+  with torch.cuda.device(0):
+    got = kl.wn_layer_backward_fused(saved, *cots, 4)
+    torch.cuda.synchronize(other)
+  for g, r in zip(got, ref):
+    assert g.device == other and torch.equal(g, r)

@@ -12,9 +12,10 @@
 //   x'   = x + rs[:C], skip = rs[C:]                 (last layer: x' = x, skip = rs)
 //   skip_acc += skip in place (when accumulating), x' rows >= valid_t[b] = 0
 //
-// Built for the model's width only, C = 256 channels. Global layouts, both
-// modes: x, x', skip [B, T, C], cond [B, T, 2C], w_in [3C, 2C], w_rs [C, 2C]
-// (last layer [C, C]), all row-major.
+// Built for C in {128, 256, 512} channels (the width is a template
+// parameter; the launcher dispatches on it). Global layouts, both modes: x,
+// x', skip [B, T, C], cond [B, T, 2C], w_in [3C, 2C], w_rs [C, 2C] (last
+// layer [C, C]), all row-major.
 //
 // x, x', b_in, b_rs and the skip sum are float32 in both modes. cond, w_in and
 // w_rs are float32 (parity mode) or bfloat16 (fast mode). In fast mode every
@@ -54,6 +55,11 @@
 //   * The acts are staged once a tile in shared memory for the second
 //     product; cond's rows, then the residual's x rows and the skip sum, are
 //     prefetched into L2 before the gate and the epilogue read them.
+//   * Width: the warp grid covers 256 channels of each half (C = 128: 128
+//     with 8 warps of 192-thread blocks). At C = 512 each product runs in
+//     two passes of 256 channels: the gate's tanh and sigmoid columns of one
+//     pass, then the res/skip columns of one pass, each over the whole K;
+//     the ring has 3 stages there, so the acts [48][C] still fit.
 //
 // wn_layer_kernel_mma (fast mode): both products on the tensor cores, as
 // wgmma (m64n128k16, bf16 operands from shared memory, f32 accumulators in
@@ -86,6 +92,17 @@
 //     [128w, 128w+128), skip columns [C+128w, C+128w+128)); the epilogue adds
 //     b_rs, the residual and the skip sum in f32, masks rows >= valid_t and
 //     writes rows < T only (the ragged last tile).
+//   * C = 128 runs the same code with one warpgroup (128 threads).
+//   * C = 512 does not fit that layout (the three tap windows alone take
+//     192 KB), so it streams the taps: 64-row x 64-channel blocks of one tap,
+//     rounded to bf16 into a 3-block ring one block ahead of the wgmmas that
+//     read them (ld.global, convert, st.shared while the previous chunk's
+//     wgmmas run). Each product runs in two passes of 256 channels (the
+//     block's 128 accumulators a thread hold one pass): the first product's
+//     gate columns, then the res/skip columns (the last layer: all its C
+//     skip columns in one pass). The acts [64][C] stay resident as the
+//     second product's A operand; cond and the skip sum are read from global
+//     memory by the gate and the epilogue. 221,184 bytes of shared memory.
 // No atomics, no split K: the sums run in one fixed order, so two launches
 // give the same bits.
 //
@@ -104,8 +121,6 @@
 #include <atomic>
 
 namespace {
-
-constexpr int kC = 256;                                      // channels
 
 // ---- cp.async, shared by both kernels ------------------------------------
 
@@ -140,32 +155,42 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 
 // ---- the f32 kernel ------------------------------------------------------
 
-constexpr int kThreads = 384;                  // 12 warps
-constexpr int kColWarps = 4;                   // warps across the C channels
 constexpr int kRowPairs = 3;                   // warps down the tile's rows
 constexpr int kTileRows = 16 * kRowPairs;      // 48 time rows per tile
 constexpr int kRowsPerThread = 8;              // rows 2i + lane / 16 of a 16
 constexpr int kPerLane = 4;                    // channels of each gate half
 constexpr int kChunk = 16;                     // K rows per ring stage
-constexpr int kF32Stages = 4;                  // ring depth
-constexpr int kF32Ahead = kF32Stages - 1;      // chunks in flight under the FMAs
-constexpr int kF32InChunks = 3 * kC / kChunk;  // 48: w_in and the taps
-constexpr int kF32Chunks = kF32InChunks + kC / kChunk;  // + 16 of w_rs: 64
-constexpr int kF32ChunksPerTap = kC / kChunk;  // 16
 // A block's rows are a multiple of this: a tile of 16 rows runs one warp on
 // each scheduler and costs a third of a full tile.
 constexpr int kRowQuantum = 16;
-constexpr int kActsStride = kC + 4;            // padded: rows 4 banks apart
+constexpr int kTapFloats = kTileRows * kChunk;  // 768
+
+// The f32 kernel's layout at width kC. A pass covers kPC channels of each
+// half (the warp grid's width); C = 512 takes two passes of each product.
 // Ring slot: the chunk's taps [kTileRows][kChunk], then its weight rows
-// [kChunk][2C] (w_rs: [kChunk][N_RS]); acts [kTileRows][kActsStride]; f32.
-constexpr int kTapFloats = kTileRows * kChunk;                // 768
-constexpr int kSlotFloats = kTapFloats + kChunk * 2 * kC;     // 8,960
-constexpr int kSmemBytes =
-    sizeof(float) * (kF32Stages * kSlotFloats + kTileRows * kActsStride);
-static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
-static_assert(kTileRows * kChunk / 4 <= kThreads, "one tap piece a thread");
-static_assert(kThreads == 32 * kColWarps * kRowPairs, "warp grid");
-static_assert(kC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
+// [kChunk][2 kPC] (the last layer's w_rs: [kChunk][kPC]); acts
+// [kTileRows][kActsStride]; f32.
+template <int kC>
+struct F32 {
+  static constexpr int kPC = kC < 256 ? kC : 256;  // channels of a pass
+  static constexpr int kPasses = kC / kPC;
+  static constexpr int kColWarps = kPC / 64;       // warps across a pass
+  static constexpr int kThreads = 32 * kColWarps * kRowPairs;  // 192 / 384
+  static constexpr int kStages = kC > 256 ? 3 : 4;  // ring depth
+  static constexpr int kAhead = kStages - 1;  // chunks in flight under the FMAs
+  static constexpr int kInPerPass = 3 * kC / kChunk;  // w_in and the taps
+  static constexpr int kRsPerPass = kC / kChunk;      // w_rs
+  static constexpr int kInChunks = kPasses * kInPerPass;
+  static constexpr int kChunks = kInChunks + kPasses * kRsPerPass;  // a tile
+  static constexpr int kChunksPerTap = kC / kChunk;
+  static constexpr int kActsStride = kC + 4;  // padded: rows 4 banks apart
+  static constexpr int kSlotFloats = kTapFloats + kChunk * 2 * kPC;
+  static constexpr int kSmemBytes =
+      sizeof(float) * (kStages * kSlotFloats + kTileRows * kActsStride);
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kTileRows * kChunk / 4 <= kThreads, "one tap piece a thread");
+  static_assert(kPC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
+};
 
 // 4 contiguous floats from a 16-byte-aligned address.
 __device__ __forceinline__ void load4(float* dst, const float* src) {
@@ -177,39 +202,56 @@ __device__ __forceinline__ void store4(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
 }
 
-// cp.async kChunk rows of a [K, kN] f32 weight from `src` (contiguous) to
-// `dst`, 16 bytes a copy.
-template <int kN>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src) {
+// cp.async kChunk rows of a weight (rows `ld` floats apart from `src`) to
+// `dst` as rows of kN floats: columns [a, a + kHalf) of the source row, then
+// (when kN = 2 kHalf) columns [b, b + kHalf); 16 bytes a copy.
+template <int kThreads, int kN, int kHalf>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src,
+                                          int ld, int a, int b) {
   constexpr int kPieces = kChunk * kN / 4;
 #pragma unroll
   for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
     const int p = threadIdx.x + i * kThreads;
-    if (kPieces % kThreads == 0 || p < kPieces)
-      cp_async16(dst + p * 16, src + p * 4);
+    if (kPieces % kThreads == 0 || p < kPieces) {
+      const int r = p / (kN / 4), col = (p % (kN / 4)) * 4;
+      const int from = col < kHalf ? a + col : b + col - kHalf;
+      cp_async16(dst + p * 16, src + static_cast<int64_t>(r) * ld + from);
+    }
   }
 }
 
 // Start the cp.async copies of chunk `chunk` of the block's sequence into its
-// ring slot. Each tile of the block's rows takes kF32Chunks chunks: 48 of
-// w_in (16 K rows each) with the matching taps, then 16 of w_rs. Taps are
-// rows of the flat [B*T, C] x: tile row r is flat row R = b*T + t, and its
-// tap reads row t + (tap-1)*d of the same sequence, zero outside [0, T) and
-// past the block's last row.
-template <bool kLast>
+// ring slot. Each tile of the block's rows takes kChunks chunks: per pass p
+// of the first product, kInPerPass of w_in (16 K rows each, the pass's tanh
+// and sigmoid columns) with the matching taps; then per pass of the second,
+// kRsPerPass of w_rs (its residual and skip columns; the last layer's
+// columns of the pass). Taps are rows of the flat [B*T, C] x: tile row r is
+// flat row R = b*T + t, and its tap reads row t + (tap-1)*d of the same
+// sequence, zero outside [0, T) and past the block's last row.
+template <int kC, bool kLast>
 __device__ __forceinline__ void f32_load_chunk(
     uint32_t ring, int chunk, int row_begin, int row_end, const float* x,
     const float* w_in, const float* w_rs, int T, int dilation) {
+  using L = F32<kC>;
+  constexpr int kPC = L::kPC;
   constexpr int N_RS = kLast ? kC : 2 * kC;
-  const int tile = chunk / kF32Chunks;
-  const int local = chunk % kF32Chunks;
-  const uint32_t slot = ring + (chunk % kF32Stages) * kSlotFloats * 4;
+  const int tile = chunk / L::kChunks;
+  const int local = chunk % L::kChunks;
+  const uint32_t slot = ring + (chunk % L::kStages) * L::kSlotFloats * 4;
   const uint32_t wslot = slot + kTapFloats * 4;
-  if (local >= kF32InChunks) {
-    copy_rows<N_RS>(wslot, w_rs + static_cast<int64_t>(local - kF32InChunks) *
-                                      kChunk * N_RS);
+  if (local >= L::kInChunks) {
+    const int j = local - L::kInChunks;
+    const int pass = j / L::kRsPerPass;
+    const float* src = w_rs + static_cast<int64_t>(j % L::kRsPerPass) * kChunk * N_RS;
+    if constexpr (kLast)
+      copy_rows<L::kThreads, kPC, kPC>(wslot, src, N_RS, pass * kPC, 0);
+    else
+      copy_rows<L::kThreads, 2 * kPC, kPC>(wslot, src, N_RS, pass * kPC,
+                                           kC + pass * kPC);
     return;
   }
+  const int pass = local / L::kInPerPass;
+  const int kc = local % L::kInPerPass;
   const int r = threadIdx.x / (kChunk / 4);  // tap row, 16-byte piece q
   const int q = threadIdx.x % (kChunk / 4);
   if (r < kTileRows) {
@@ -218,40 +260,43 @@ __device__ __forceinline__ void f32_load_chunk(
     bool valid = false;
     if (row < row_end) {
       const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
-      const int t = row - b * T + (local / kF32ChunksPerTap - 1) * dilation;
+      const int t = row - b * T + (kc / L::kChunksPerTap - 1) * dilation;
       if (t >= 0 && t < T) {
         valid = true;
         src = x + (static_cast<int64_t>(b) * T + t) * kC +
-              (local % kF32ChunksPerTap) * kChunk + q * 4;
+              (kc % L::kChunksPerTap) * kChunk + q * 4;
       }
     }
     cp_async16_zfill(slot + (r * kChunk + q * 4) * 4, src, valid);
   }
-  copy_rows<2 * kC>(wslot, w_in + static_cast<int64_t>(local) * kChunk * 2 * kC);
+  copy_rows<L::kThreads, 2 * kPC, kPC>(
+      wslot, w_in + static_cast<int64_t>(kc) * kChunk * 2 * kC, 2 * kC,
+      pass * kPC, kC + pass * kPC);
 }
 
 // One step of the ring, at chunk `chunk`: wait for this thread's copies of
 // it and make them block-wide. Past the barrier every thread is done with
-// chunk - 1, so its slot takes chunk + kF32Ahead. One commit group a step
-// (empty past the last chunk), so the wait count stays kF32Ahead - 1.
-template <bool kLast>
+// chunk - 1, so its slot takes chunk + kAhead. One commit group a step
+// (empty past the last chunk), so the wait count stays kAhead - 1.
+template <int kC, bool kLast>
 __device__ __forceinline__ void f32_ring_step(
     uint32_t ring, int chunk, int n_chunks, int row_begin, int row_end,
     const float* x, const float* w_in, const float* w_rs, int T,
     int dilation) {
-  cp_async_wait<kF32Ahead - 1>();
+  using L = F32<kC>;
+  cp_async_wait<L::kAhead - 1>();
   __syncthreads();
-  if (chunk + kF32Ahead < n_chunks)
-    f32_load_chunk<kLast>(ring, chunk + kF32Ahead, row_begin, row_end, x,
-                          w_in, w_rs, T, dilation);
+  if (chunk + L::kAhead < n_chunks)
+    f32_load_chunk<kC, kLast>(ring, chunk + L::kAhead, row_begin, row_end, x,
+                              w_in, w_rs, T, dilation);
   cp_async_commit();
 }
 
 // One ring slot's kChunk k: acc_a[i][j] += a[row 2i][k] * w[k][j], and when
-// kPaired acc_b[i][j] += a[row 2i][k] * w[k][C + j]. `a` points at the
+// kPaired acc_b[i][j] += a[row 2i][k] * w[k][kBOff + j]. `a` points at the
 // thread's first row (rows 2 * kStride floats apart), `w` at its first
 // column (rows kN floats apart). The row operand loads 4 k at a time.
-template <bool kPaired, int kStride, int kN>
+template <bool kPaired, int kStride, int kN, int kBOff>
 __device__ __forceinline__ void f32_chunk_fma(
     float (&acc_a)[kRowsPerThread][kPerLane],
     float (&acc_b)[kRowsPerThread][kPerLane], const float* a,
@@ -266,7 +311,7 @@ __device__ __forceinline__ void f32_chunk_fma(
     for (int u = 0; u < 4; ++u) {
       float wa[kPerLane], wb[kPerLane];
       load4(wa, w + (kk + u) * kN);
-      if constexpr (kPaired) load4(wb, w + (kk + u) * kN + kC);
+      if constexpr (kPaired) load4(wb, w + (kk + u) * kN + kBOff);
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
@@ -282,8 +327,8 @@ __device__ __forceinline__ void f32_chunk_fma(
 // kLast selects the [C, C] res/skip of the last layer. Block i takes flat
 // rows [i * rows_per_block, (i + 1) * rows_per_block) of the B*T rows, in
 // tiles of kTileRows (the last one short).
-template <bool kLast>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kC, bool kLast>
+__global__ void __launch_bounds__(F32<kC>::kThreads, 1)
 wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
                     const float* __restrict__ w_in,
                     const float* __restrict__ b_in,
@@ -292,171 +337,192 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
                     const int* __restrict__ valid_t, float* __restrict__ x_out,
                     float* skip_out, int accumulate, int T, int dilation,
                     int rows, int rows_per_block) {
+  using L = F32<kC>;
   constexpr int C = kC;
+  constexpr int kPC = L::kPC;
   constexpr int N_IN = 2 * C;                 // gate pre-activations
   constexpr int N_RS = kLast ? C : 2 * C;     // res/skip outputs
+  constexpr int kThreads = L::kThreads;
 
   const int row_begin = blockIdx.x * rows_per_block;
   const int row_end = min(rows, row_begin + rows_per_block);
   if (row_begin >= row_end) return;
   const int n_chunks =
-      (row_end - row_begin + kTileRows - 1) / kTileRows * kF32Chunks;
+      (row_end - row_begin + kTileRows - 1) / kTileRows * L::kChunks;
 
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const uint32_t ring = smem_u32(smem);
-  float* acts = smem + kF32Stages * kSlotFloats;  // [kTileRows][kActsStride]
+  float* acts = smem + L::kStages * L::kSlotFloats;  // [kTileRows][kActsStride]
 
-  // Warp w: rows [16 (w/4), +16) of the tile and channels [64 (w%4), +64)
-  // of each gate half; lane l: rows 16 (w/4) + 2i + l/16 and channels
-  // c0..c0+3, c0 = 64 (w%4) + 4 (l%16). The 16 lanes of a half warp read
-  // one 256-byte piece of a weight row (the other half reads the same
-  // bytes), and all of them the same tap row.
+  // Warp w: rows [16 (w/kColWarps), +16) of the tile and channels
+  // [64 (w%kColWarps), +64) of each gate half of a pass; lane l: rows
+  // 16 (w/kColWarps) + 2i + l/16 and channels c0..c0+3, c0 = 64 (w%kColWarps)
+  // + 4 (l%16). The 16 lanes of a half warp read one 256-byte piece of a
+  // weight row (the other half reads the same bytes), and all of them the
+  // same tap row.
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int pair = warp / kColWarps;
+  const int pair = warp / L::kColWarps;
   const int r0 = 16 * pair + lane / 16;                  // first tile row
-  const int c0 = 64 * (warp % kColWarps) + 4 * (lane % 16);
+  const int c0 = 64 * (warp % L::kColWarps) + 4 * (lane % 16);
 
-  for (int c = 0; c < kF32Ahead; ++c) {
+  for (int c = 0; c < L::kAhead; ++c) {
     if (c < n_chunks)
-      f32_load_chunk<kLast>(ring, c, row_begin, row_end, x, w_in, w_rs, T,
-                            dilation);
+      f32_load_chunk<kC, kLast>(ring, c, row_begin, row_end, x, w_in, w_rs, T,
+                                dilation);
     cp_async_commit();
   }
 
   float acc_a[kRowsPerThread][kPerLane];  // tanh, then residual (last: skip)
   float acc_b[kRowsPerThread][kPerLane];  // sigmoid, then skip
-  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += kF32Chunks) {
-    const int t0 = row_begin + chunk0 / kF32Chunks * kTileRows;  // flat row
+  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += L::kChunks) {
+    const int t0 = row_begin + chunk0 / L::kChunks * kTileRows;  // flat row
     const int tile_rows = min(kTileRows, row_end - t0);
     // the warps of a pair of 16 rows all past the block's end do no FMAs
     const bool busy = 16 * pair < tile_rows;
 
     // ---- first product: pre[rows, 2C] = taps[rows, 3C] @ w_in[3C, 2C] -----
+    // pass p: the tanh and sigmoid columns of channels [p kPC, p kPC + kPC)
+    // (unrolled: the pass's column offsets are constants, which keeps the
+    // last-layer variant at C = 512 inside the 168 registers a thread has)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+    for (int p = 0; p < L::kPasses; ++p) {
+      const int ch = p * kPC + c0;  // this thread's channels of the pass
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
 #pragma unroll 1
-    for (int local = 0; local < kF32InChunks; ++local) {
-      f32_ring_step<kLast>(ring, chunk0 + local, n_chunks, row_begin, row_end,
-                           x, w_in, w_rs, T, dilation);
-      if (local == kF32InChunks - 16) {
-        // cond's rows of the tile into L2, for the gate
-        const float* src = cond + static_cast<int64_t>(t0) * N_IN;
-        for (int p = threadIdx.x; p < tile_rows * N_IN / 32; p += kThreads)
-          prefetch_l2(src + p * 32);
-      }
-      if (busy) {
-        const float* slot = smem + ((chunk0 + local) % kF32Stages) * kSlotFloats;
-        f32_chunk_fma<true, kChunk, N_IN>(acc_a, acc_b, slot + r0 * kChunk,
-                                          slot + kTapFloats + c0);
-      }
-    }
-
-    // ---- gate (f32) on the accumulators, acts to shared memory -----------
-    // the previous tile's acts were last read before this tile's barriers
-    if (busy) {
-      float bt[kPerLane], bs[kPerLane];
-      load4(bt, b_in + c0);
-      load4(bs, b_in + C + c0);
-#pragma unroll
-      for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
-        float ct[2][kPerLane], cs[2][kPerLane];  // 2 rows' loads in flight
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r0 + 2 * (i0 + h);
-          if (r < tile_rows) {
-            const float* crow = cond + static_cast<int64_t>(t0 + r) * N_IN;
-            load4(ct[h], crow + c0);
-            load4(cs[h], crow + C + c0);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j) ct[h][j] = cs[h][j] = 0.f;
-          }
+      for (int kc = 0; kc < L::kInPerPass; ++kc) {
+        const int local = p * L::kInPerPass + kc;
+        f32_ring_step<kC, kLast>(ring, chunk0 + local, n_chunks, row_begin,
+                                 row_end, x, w_in, w_rs, T, dilation);
+        if (kc == L::kInPerPass - 16) {
+          // cond's rows of the tile into L2, for the gate
+          const float* src = cond + static_cast<int64_t>(t0) * N_IN;
+          for (int q = threadIdx.x; q < tile_rows * N_IN / 32; q += kThreads)
+            prefetch_l2(src + q * 32);
         }
+        if (busy) {
+          const float* slot =
+              smem + ((chunk0 + local) % L::kStages) * L::kSlotFloats;
+          f32_chunk_fma<true, kChunk, 2 * kPC, kPC>(
+              acc_a, acc_b, slot + r0 * kChunk, slot + kTapFloats + c0);
+        }
+      }
+
+      // ---- gate (f32) on the accumulators, acts to shared memory ---------
+      // the previous tile's acts were last read before this tile's barriers
+      if (busy) {
+        float bt[kPerLane], bs[kPerLane];
+        load4(bt, b_in + ch);
+        load4(bs, b_in + C + ch);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float out[kPerLane];
+        for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+          float ct[2][kPerLane], cs[2][kPerLane];  // 2 rows' loads in flight
 #pragma unroll
-          for (int j = 0; j < kPerLane; ++j) {
-            const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
-            const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
-            out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            if (r < tile_rows) {
+              const float* crow = cond + static_cast<int64_t>(t0 + r) * N_IN;
+              load4(ct[h], crow + ch);
+              load4(cs[h], crow + C + ch);
+            } else {
+#pragma unroll
+              for (int j = 0; j < kPerLane; ++j) ct[h][j] = cs[h][j] = 0.f;
+            }
           }
-          store4(acts + (r0 + 2 * (i0 + h)) * kActsStride + c0, out);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float out[kPerLane];
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j) {
+              const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
+              const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
+              out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
+            }
+            store4(acts + (r0 + 2 * (i0 + h)) * L::kActsStride + ch, out);
+          }
         }
       }
     }
 
     // ---- second product: rs[rows, N_RS] = acts[rows, C] @ w_rs[C, N_RS] --
+    // pass p: residual and skip columns [p kPC, p kPC + kPC) (the last
+    // layer: skip columns)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+    for (int p = 0; p < L::kPasses; ++p) {
+      const int ch = p * kPC + c0;
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
 #pragma unroll 1
-    for (int local = kF32InChunks; local < kF32Chunks; ++local) {
-      // the first step's barrier also orders the acts writes before the reads
-      f32_ring_step<kLast>(ring, chunk0 + local, n_chunks, row_begin, row_end,
-                           x, w_in, w_rs, T, dilation);
-      if (local == kF32Chunks - 8) {
-        // the residual's x rows and the skip sum into L2, for the epilogue
-        const int64_t off = static_cast<int64_t>(t0) * C;
-        for (int p = threadIdx.x; p < tile_rows * C / 32; p += kThreads) {
-          prefetch_l2(x + off + p * 32);
-          if (accumulate) prefetch_l2(skip_out + off + p * 32);
-        }
-      }
-      if (busy) {
-        const float* slot = smem + ((chunk0 + local) % kF32Stages) * kSlotFloats;
-        f32_chunk_fma<!kLast, kActsStride, N_RS>(
-            acc_a, acc_b,
-            acts + r0 * kActsStride + (local - kF32InChunks) * kChunk,
-            slot + kTapFloats + c0);
-      }
-    }
-
-    // ---- epilogue: residual, valid_t mask, skip accumulation -------------
-    if (busy) {
-      float br[kPerLane], bk[kPerLane];
-      load4(br, b_rs + c0);
-      if constexpr (!kLast) load4(bk, b_rs + C + c0);
-#pragma unroll
-      for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
-        float xv[2][kPerLane], prev[2][kPerLane];  // 2 rows' loads in flight
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r0 + 2 * (i0 + h);
-          if (r >= tile_rows) continue;
-          const int64_t off = static_cast<int64_t>(t0 + r) * C + c0;
-          load4(xv[h], x + off);
-          if (accumulate) load4(prev[h], skip_out + off);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = i0 + h;
-          const int r = r0 + 2 * i;
-          if (r >= tile_rows) continue;
-          const int row = t0 + r;
-          const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
-          const int valid = valid_t != nullptr ? valid_t[b] : T;
-          const bool keep = row - b * T < valid;
-          float skip[kPerLane];
-#pragma unroll
-          for (int j = 0; j < kPerLane; ++j) {
-            if constexpr (kLast) {
-              skip[j] = acc_a[i][j] + br[j];
-            } else {
-              xv[h][j] += acc_a[i][j] + br[j];
-              skip[j] = acc_b[i][j] + bk[j];
-            }
-            if (!keep) xv[h][j] = 0.f;
-            if (accumulate) skip[j] += prev[h][j];
+      for (int kc = 0; kc < L::kRsPerPass; ++kc) {
+        const int local = L::kInChunks + p * L::kRsPerPass + kc;
+        // the first step's barrier also orders the acts writes before the
+        // reads
+        f32_ring_step<kC, kLast>(ring, chunk0 + local, n_chunks, row_begin,
+                                 row_end, x, w_in, w_rs, T, dilation);
+        if (kc == L::kRsPerPass - 8) {
+          // the residual's x rows and the skip sum into L2, for the epilogue
+          const int64_t off = static_cast<int64_t>(t0) * C;
+          for (int q = threadIdx.x; q < tile_rows * C / 32; q += kThreads) {
+            prefetch_l2(x + off + q * 32);
+            if (accumulate) prefetch_l2(skip_out + off + q * 32);
           }
-          const int64_t off = static_cast<int64_t>(row) * C + c0;
-          store4(x_out + off, xv[h]);
-          store4(skip_out + off, skip);
+        }
+        if (busy) {
+          const float* slot =
+              smem + ((chunk0 + local) % L::kStages) * L::kSlotFloats;
+          f32_chunk_fma<!kLast, L::kActsStride, kLast ? kPC : 2 * kPC, kPC>(
+              acc_a, acc_b, acts + r0 * L::kActsStride + kc * kChunk,
+              slot + kTapFloats + c0);
+        }
+      }
+
+      // ---- epilogue: residual, valid_t mask, skip accumulation -----------
+      if (busy) {
+        float br[kPerLane], bk[kPerLane];
+        load4(br, b_rs + ch);
+        if constexpr (!kLast) load4(bk, b_rs + C + ch);
+#pragma unroll
+        for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+          float xv[2][kPerLane], prev[2][kPerLane];  // 2 rows' loads in flight
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            if (r >= tile_rows) continue;
+            const int64_t off = static_cast<int64_t>(t0 + r) * C + ch;
+            load4(xv[h], x + off);
+            if (accumulate) load4(prev[h], skip_out + off);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + h;
+            const int r = r0 + 2 * i;
+            if (r >= tile_rows) continue;
+            const int row = t0 + r;
+            const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
+            const int valid = valid_t != nullptr ? valid_t[b] : T;
+            const bool keep = row - b * T < valid;
+            float skip[kPerLane];
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j) {
+              if constexpr (kLast) {
+                skip[j] = acc_a[i][j] + br[j];
+              } else {
+                xv[h][j] += acc_a[i][j] + br[j];
+                skip[j] = acc_b[i][j] + bk[j];
+              }
+              if (!keep) xv[h][j] = 0.f;
+              if (accumulate) skip[j] += prev[h][j];
+            }
+            const int64_t off = static_cast<int64_t>(row) * C + ch;
+            store4(x_out + off, xv[h]);
+            store4(skip_out + off, skip);
+          }
         }
       }
     }
@@ -468,31 +534,72 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMmaThreads = 256;             // two warpgroups
 constexpr int kMmaRows = 64;                 // time rows per block
-constexpr int kGroupCols = kC / 2;           // 128 columns of each half a warpgroup owns
+constexpr int kGroupCols = 128;              // columns of each half a warpgroup owns
 constexpr int kAcc = kGroupCols / 2;         // 64 f32 a thread per m64n128 product
 constexpr int kKChunk = 32;                  // K rows per weight stage (two k16 steps)
 constexpr int kStages = 4;                   // weight ring depth
 constexpr int kAhead = kStages - 2;          // chunks in flight under the mma
-constexpr int kInChunks = 3 * kC / kKChunk;  // 24: w_in
-constexpr int kRsChunks = kC / kKChunk;      // 8: w_rs
-constexpr int kChunksPerTap = kC / kKChunk;
 // Windows: [64 rows][C] bf16 in wgmma's K-major layout with the 128-byte
 // swizzle (see tile_off); 64-channel blocks of kKBlockBytes.
 constexpr int kKBlockBytes = kMmaRows * 128;                      // 8,192
-constexpr int kWindowBytes = kC / 64 * kKBlockBytes;              // 32,768
-constexpr int kTapBytes = 3 * kWindowBytes;                       // 98,304
 // Ring slot: the chunk's 32 K rows in wgmma's N-major layout with the
 // 128-byte swizzle: column block n (64 columns) at n * kBlockBytes, K row r
 // at r * 128 within it, 16-byte piece q of that row at (q ^ (r % 8)) * 16.
 constexpr int kBlockBytes = kKChunk * 128;                        // 4,096
-constexpr int kStageBytes = 2 * kC / 64 * kBlockBytes;            // 32,768
-constexpr int kMmaSmemBytes = kTapBytes + kStages * kStageBytes;  // 229,376
-static_assert(kMmaSmemBytes <= 232448, "over the 227 KB a block may use");
-static_assert(kTapBytes % 1024 == 0, "swizzled slots need 1024-byte alignment");
-static_assert(kMmaRows * kC * 4 <= 2 * kWindowBytes,
-              "the skip sum fits windows 0 and 1");
+
+// The layout at width kC with all three tap windows resident (C <= 256):
+// one warpgroup per 128 channels of each half.
+template <int kC>
+struct Mma {
+  static constexpr int kThreads = kC;                  // C / 128 warpgroups
+  static constexpr int kInChunks = 3 * kC / kKChunk;   // 24 at C = 256: w_in
+  static constexpr int kRsChunks = kC / kKChunk;       // 8: w_rs
+  static constexpr int kChunksPerTap = kC / kKChunk;
+  static constexpr int kWindowBytes = kC / 64 * kKBlockBytes;     // 32,768
+  static constexpr int kTapBytes = 3 * kWindowBytes;              // 98,304
+  static constexpr int kStageBytes = 2 * kC / 64 * kBlockBytes;   // 32,768
+  static constexpr int kSmemBytes = kTapBytes + kStages * kStageBytes;  // 229,376
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kTapBytes % 1024 == 0, "swizzled slots need 1024-byte alignment");
+  static_assert(kMmaRows * kC * 4 <= 2 * kWindowBytes,
+                "the skip sum fits windows 0 and 1");
+};
+
+// The layout at C = 512, taps streamed: two warpgroups, passes of 256
+// channels; a ring of kABlocks tap blocks [64 rows][64 channels], the
+// weight ring, and the acts window [64 rows][C].
+struct MmaWide {
+  static constexpr int kC = 512;
+  static constexpr int kThreads = 256;
+  static constexpr int kPassC = 256;                       // channels a pass
+  static constexpr int kPasses = kC / kPassC;
+  static constexpr int kInPerPass = 3 * kC / kKChunk;      // 48
+  static constexpr int kInChunks = kPasses * kInPerPass;   // 96
+  static constexpr int kRsPerPass = kC / kKChunk;          // 16
+  static constexpr int kChunksPerTap = kC / kKChunk;       // 16
+  static constexpr int kABlocks = 3;                       // tap block ring
+  static constexpr int kTapBlocks = kPasses * 3 * kC / 64;  // 48 a tile
+  static constexpr int kARingBytes = kABlocks * kKBlockBytes;      // 24,576
+  static constexpr int kStageBytes = 2 * kPassC / 64 * kBlockBytes;  // 32,768
+  static constexpr int kActsBytes = kC / 64 * kKBlockBytes;        // 65,536
+  static constexpr int kSmemBytes =
+      kARingBytes + kStages * kStageBytes + kActsBytes;            // 221,184
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kARingBytes % 1024 == 0, "swizzled slots need 1024-byte alignment");
+};
+
+template <int kC>
+constexpr int mma_threads() {
+  if constexpr (kC <= 256) return Mma<kC>::kThreads;
+  else return MmaWide::kThreads;
+}
+
+template <int kC>
+constexpr int mma_smem_bytes() {
+  if constexpr (kC <= 256) return Mma<kC>::kSmemBytes;
+  else return MmaWide::kSmemBytes;
+}
 
 // Byte offset of (row, ch) in a window: K-major with the 128-byte swizzle,
 // so channel block ch / 64 at (ch / 64) * kKBlockBytes, rows 128 bytes
@@ -504,7 +611,8 @@ __device__ __forceinline__ int tile_off(int row, int ch) {
 }
 
 // Byte offset of (row, ch) in the f32 skip sum held in windows 0-1: rows of
-// 1 KB, 16-byte piece p of a row at p ^ (row % 8).
+// 4C bytes, 16-byte piece p of a row at p ^ (row % 8).
+template <int kC>
 __device__ __forceinline__ int skip_off(int row, int ch) {
   return row * kC * 4 + (((ch / 4) ^ (row % 8)) * 16) + (ch % 4) * 4;
 }
@@ -583,44 +691,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// cp.async the kKChunk rows of a [K, kN] bf16 weight at `src` into `slot`,
-// in the ring layout above.
-template <int kN>
-__device__ __forceinline__ void copy_chunk(uint32_t slot, const bf16* src) {
+// cp.async the kKChunk rows of a bf16 weight (rows `ld` elements apart from
+// `src`) into `slot`, in the ring layout above: kN columns, the first kHalf
+// of them from column `a` of the source row, the rest from column `b`.
+template <int kThreads, int kN, int kHalf>
+__device__ __forceinline__ void copy_chunk(uint32_t slot, const bf16* src,
+                                           int ld, int a, int b) {
   constexpr int kPerRow = kN / 8;  // 16-byte pieces
-  static_assert(kKChunk * kPerRow % kMmaThreads == 0, "whole rounds");
+  static_assert(kKChunk * kPerRow % kThreads == 0, "whole rounds");
 #pragma unroll
-  for (int i = 0; i < kKChunk * kPerRow / kMmaThreads; ++i) {
-    const int p = threadIdx.x + i * kMmaThreads;
+  for (int i = 0; i < kKChunk * kPerRow / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
     const int r = p / kPerRow, q = p % kPerRow;
+    const int col = q * 8 < kHalf ? a + q * 8 : b + q * 8 - kHalf;
     cp_async16(slot + (q / 8) * kBlockBytes + r * 128 + ((q % 8) ^ (r % 8)) * 16,
-               src + r * kN + q * 8);
+               src + r * ld + col);
   }
 }
 
 // Start the cp.async copies of K chunk `chunk` of the weight sequence (w_in
 // rows for chunk < kInChunks, then w_rs rows) into its ring slot.
-template <bool kLast>
+template <int kC, bool kLast>
 __device__ __forceinline__ void load_chunk(uint32_t ring, int chunk,
                                             const bf16* w_in,
                                             const bf16* w_rs) {
+  using L = Mma<kC>;
   constexpr int N_RS = kLast ? kC : 2 * kC;
-  const uint32_t slot = ring + (chunk % kStages) * kStageBytes;
-  if (chunk < kInChunks)
-    copy_chunk<2 * kC>(slot, w_in + chunk * kKChunk * 2 * kC);
+  const uint32_t slot = ring + (chunk % kStages) * L::kStageBytes;
+  if (chunk < L::kInChunks)
+    copy_chunk<L::kThreads, 2 * kC, 2 * kC>(slot, w_in + chunk * kKChunk * 2 * kC,
+                                            2 * kC, 0, 0);
   else
-    copy_chunk<N_RS>(slot, w_rs + (chunk - kInChunks) * kKChunk * N_RS);
+    copy_chunk<L::kThreads, N_RS, N_RS>(
+        slot, w_rs + (chunk - L::kInChunks) * kKChunk * N_RS, N_RS, 0, 0);
 }
 
 // cp.async the tile's first `rows` rows of cond's half `half` (C bf16 from
 // rows 2C apart) into a window, in the window layout.
+template <int kC>
 __device__ __forceinline__ void copy_cond_half(uint32_t window,
                                                const bf16* cond_rows, int half,
                                                int rows) {
   constexpr int kPerRow = kC / 8;
+  constexpr int kThreads = Mma<kC>::kThreads;
 #pragma unroll
-  for (int i = 0; i < kMmaRows * kPerRow / kMmaThreads; ++i) {
-    const int p = threadIdx.x + i * kMmaThreads;
+  for (int i = 0; i < kMmaRows * kPerRow / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
     const int r = p / kPerRow, q = p % kPerRow;
     if (r < rows)
       cp_async16(window + tile_off(r, q * 8),
@@ -630,15 +746,17 @@ __device__ __forceinline__ void copy_cond_half(uint32_t window,
 
 // cp.async the tile's first `rows` rows of the skip sum (f32) into windows
 // 0-1, in the skip_off layout.
+template <int kC>
 __device__ __forceinline__ void copy_skip(uint32_t dst, const float* skip_rows,
                                           int rows) {
   constexpr int kPerRow = kC / 4;
+  constexpr int kThreads = Mma<kC>::kThreads;
 #pragma unroll
-  for (int i = 0; i < kMmaRows * kPerRow / kMmaThreads; ++i) {
-    const int p = threadIdx.x + i * kMmaThreads;
+  for (int i = 0; i < kMmaRows * kPerRow / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
     const int r = p / kPerRow, q = p % kPerRow;
     if (r < rows)
-      cp_async16(dst + skip_off(r, q * 4),
+      cp_async16(dst + skip_off<kC>(r, q * 4),
                  skip_rows + static_cast<int64_t>(r) * kC + q * 4);
   }
 }
@@ -649,27 +767,33 @@ __device__ __forceinline__ void copy_skip(uint32_t dst, const float* skip_rows,
 // flight at the end of a step, so past this barrier those of chunk - 2 are
 // done and its slot is free: start chunk + kAhead there. One commit group
 // per step (empty past the last chunk), so the wait count stays kAhead - 1.
-template <bool kLast>
+template <int kC, bool kLast>
 __device__ __forceinline__ void ring_step(uint32_t ring, int chunk,
                                           const bf16* w_in, const bf16* w_rs) {
+  using L = Mma<kC>;
   cp_async_wait<kAhead - 1>();
   fence_proxy_async();
   __syncthreads();
-  if (chunk + kAhead < kInChunks + kRsChunks)
-    load_chunk<kLast>(ring, chunk + kAhead, w_in, w_rs);
+  if (chunk + kAhead < L::kInChunks + L::kRsChunks)
+    load_chunk<kC, kLast>(ring, chunk + kAhead, w_in, w_rs);
 }
 
-template <bool kLast>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
-                    const bf16* __restrict__ w_in,
-                    const float* __restrict__ b_in,
-                    const bf16* __restrict__ w_rs,
-                    const float* __restrict__ b_rs,
-                    const int* __restrict__ valid_t, float* __restrict__ x_out,
-                    float* skip_out, int accumulate, int T, int dilation) {
+// The kernel at C <= 256: three tap windows resident.
+template <int kC, bool kLast>
+__device__ __forceinline__ void mma_resident(
+    const float* __restrict__ x, const bf16* __restrict__ cond,
+    const bf16* __restrict__ w_in, const float* __restrict__ b_in,
+    const bf16* __restrict__ w_rs, const float* __restrict__ b_rs,
+    const int* __restrict__ valid_t, float* __restrict__ x_out,
+    float* skip_out, int accumulate, int T, int dilation) {
+  using L = Mma<kC>;
   constexpr int C = kC;
-  constexpr int kChunks = kInChunks + kRsChunks;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kInChunks = L::kInChunks;
+  constexpr int kChunksPerTap = L::kChunksPerTap;
+  constexpr int kWindowBytes = L::kWindowBytes;
+  constexpr int kStageBytes = L::kStageBytes;
+  constexpr int kChunks = L::kInChunks + L::kRsChunks;
   extern __shared__ __align__(1024) uint4 smem_mma[];
   // Three windows of [kMmaRows][C] bf16, one per tap of x. Each is reused
   // once the first product is past it: window 0 takes cond's tanh half,
@@ -677,7 +801,7 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
   // windows 0-1 take the skip sum to add (f32).
   char* win = reinterpret_cast<char*>(smem_mma);
   const uint32_t win_s = smem_u32(win);
-  const uint32_t ring_s = win_s + kTapBytes;  // kStages slots
+  const uint32_t ring_s = win_s + L::kTapBytes;  // kStages slots
   char* acts = win + 2 * kWindowBytes;
 
   const int b = blockIdx.y;
@@ -694,7 +818,7 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
 
   // ---- prologue: the first weight chunks load while the taps are staged ---
   for (int c = 0; c < kAhead; ++c) {
-    load_chunk<kLast>(ring_s, c, w_in, w_rs);
+    load_chunk<kC, kLast>(ring_s, c, w_in, w_rs);
     cp_async_commit();
   }
   {
@@ -703,14 +827,14 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
     constexpr int kQ = C / 4;   // float4 per row
     constexpr int kUnroll = 8;  // loads in flight per thread
     constexpr int kTotal = 3 * kMmaRows * kQ;
-    static_assert(kTotal % (kUnroll * kMmaThreads) == 0, "whole rounds");
+    static_assert(kTotal % (kUnroll * kThreads) == 0, "whole rounds");
     const float* xb = x + static_cast<int64_t>(b) * T * C;
 #pragma unroll 1
-    for (int p0 = threadIdx.x; p0 < kTotal; p0 += kUnroll * kMmaThreads) {
+    for (int p0 = threadIdx.x; p0 < kTotal; p0 += kUnroll * kThreads) {
       float4 v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int p = p0 + u * kMmaThreads;
+        const int p = p0 + u * kThreads;
         const int i = p / kQ;
         const int t = t0 + i % kMmaRows + (i / kMmaRows - 1) * dilation;
         v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -720,7 +844,7 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int p = p0 + u * kMmaThreads;
+        const int p = p0 + u * kThreads;
         const int i = p / kQ;
         *reinterpret_cast<uint2*>(win + (i / kMmaRows) * kWindowBytes +
                                   tile_off(i % kMmaRows, (p % kQ) * 4)) =
@@ -743,14 +867,14 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
   const uint32_t b_b = ((C + col0) / 64) * kBlockBytes;  // sigmoid / skip
 #pragma unroll 1
   for (int chunk = 0; chunk < kInChunks; ++chunk) {
-    ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    ring_step<kC, kLast>(ring_s, chunk, w_in, w_rs);
     // window `half` is free once tap `half`'s wgmmas are done: its last
     // chunk, (half + 1) * kChunksPerTap - 1, may still run past the next
     // step's barrier and is known done past the one after it (chunk - 2),
     // so cond's half goes there one step after the tap ends
     for (int half = 0; half < 2; ++half)
       if (chunk == (half + 1) * kChunksPerTap + 1)
-        copy_cond_half(win_s + half * kWindowBytes, cond_rows, half, rows);
+        copy_cond_half<kC>(win_s + half * kWindowBytes, cond_rows, half, rows);
     cp_async_commit();
     const int tap = chunk / kChunksPerTap;
     const int ci0 = (chunk % kChunksPerTap) * kKChunk;
@@ -811,9 +935,9 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
 #pragma unroll 1
   for (int chunk = kInChunks; chunk < kChunks; ++chunk) {
     // also hands the acts to the async proxy and orders them
-    ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    ring_step<kC, kLast>(ring_s, chunk, w_in, w_rs);
     if (chunk == kInChunks && accumulate)
-      copy_skip(win_s, skip_out + row0 * C, rows);
+      copy_skip<kC>(win_s, skip_out + row0 * C, rows);
     cp_async_commit();
     const int k0 = (chunk - kInChunks) * kKChunk;
     const uint32_t a0 = win_s + 2 * kWindowBytes + (k0 / 64) * kKBlockBytes +
@@ -882,7 +1006,7 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
         *reinterpret_cast<float2*>(x_out + off) = xo;
         if (accumulate) {
           const float2 prev =
-              *reinterpret_cast<const float2*>(win + skip_off(row, ch));
+              *reinterpret_cast<const float2*>(win + skip_off<kC>(row, ch));
           skip.x += prev.x;
           skip.y += prev.y;
         }
@@ -890,6 +1014,299 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
       }
     }
   }
+}
+
+// ---- C = 512: the taps streamed ---------------------------------------------
+
+// Start the cp.async copies of chunk `chunk` of the wide kernel's weight
+// sequence into its ring slot: per pass p of the first product, w_in rows
+// [32 kc, 32 kc + 32) (kc = chunk % kInPerPass) at the pass's tanh columns
+// [256p, +256) then its sigmoid columns [C + 256p, +256); then per pass of
+// the second, w_rs rows at the pass's residual and skip columns (the last
+// layer: one pass, its skip columns [0, 256) then [256, 512)).
+template <bool kLast>
+__device__ __forceinline__ void wide_load_chunk(uint32_t ring, int chunk,
+                                                const bf16* w_in,
+                                                const bf16* w_rs) {
+  using L = MmaWide;
+  constexpr int C = L::kC;
+  constexpr int N_RS = kLast ? C : 2 * C;
+  const uint32_t slot = ring + (chunk % kStages) * L::kStageBytes;
+  if (chunk < L::kInChunks) {
+    const int p = chunk / L::kInPerPass, kc = chunk % L::kInPerPass;
+    copy_chunk<L::kThreads, 2 * L::kPassC, L::kPassC>(
+        slot, w_in + kc * kKChunk * 2 * C, 2 * C, p * L::kPassC,
+        C + p * L::kPassC);
+  } else {
+    const int j = chunk - L::kInChunks;
+    const int p = j / L::kRsPerPass, kc = j % L::kRsPerPass;
+    copy_chunk<L::kThreads, 2 * L::kPassC, L::kPassC>(
+        slot, w_rs + kc * kKChunk * N_RS, N_RS, p * L::kPassC,
+        kLast ? L::kPassC : C + p * L::kPassC);
+  }
+}
+
+// Stage tap block `blk` of the tile (pass-local block blk % 24: tap
+// (blk % 24) / 8, channels 64 ((blk % 24) % 8) + [0, 64)) into A ring slot
+// blk % kABlocks: x rows t0 + r + (tap-1)*d rounded to bf16, zero outside
+// [0, T), in the window layout; two rounds of two 16-byte loads a thread.
+__device__ __forceinline__ void wide_stage_taps(char* aring, int blk,
+                                                const float* xb, int t0, int T,
+                                                int dilation) {
+  using L = MmaWide;
+  constexpr int kQ = 64 / 4;  // float4 of a block row
+  constexpr int kRound = 2;
+  const int lb = blk % (3 * L::kC / 64);
+  const int tap = lb / (L::kC / 64);
+  const int cb = (lb % (L::kC / 64)) * 64;
+  char* dst = aring + (blk % L::kABlocks) * kKBlockBytes;
+#pragma unroll
+  for (int p0 = 0; p0 < kMmaRows * kQ / L::kThreads; p0 += kRound) {
+    float4 v[kRound];
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int p = threadIdx.x + (p0 + u) * L::kThreads;
+      const int t = t0 + p / kQ + (tap - 1) * dilation;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t >= 0 && t < T)
+        v[u] = *reinterpret_cast<const float4*>(
+            xb + static_cast<int64_t>(t) * L::kC + cb + (p % kQ) * 4);
+    }
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int p = threadIdx.x + (p0 + u) * L::kThreads;
+      *reinterpret_cast<uint2*>(dst + tile_off(p / kQ, (p % kQ) * 4)) =
+          make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
+    }
+  }
+  fence_proxy_async();
+}
+
+// One step of the wide kernel's weight ring (as ring_step).
+template <bool kLast>
+__device__ __forceinline__ void wide_ring_step(uint32_t ring, int chunk,
+                                               const bf16* w_in,
+                                               const bf16* w_rs) {
+  constexpr int kChunks = MmaWide::kInChunks +
+                          (kLast ? 1 : MmaWide::kPasses) * MmaWide::kRsPerPass;
+  cp_async_wait<kAhead - 1>();
+  fence_proxy_async();
+  __syncthreads();
+  if (chunk + kAhead < kChunks)
+    wide_load_chunk<kLast>(ring, chunk + kAhead, w_in, w_rs);
+}
+
+// The res/skip outputs of one n8 block of accumulators (columns ch, ch+1 of
+// rows r16 + g and r16 + g + 8), as the resident kernel's epilogue forms
+// them: `res` (null on the last layer) is the residual's accumulators, `skp`
+// the skip's, `bk` the skip's bias offset.
+template <bool kLast>
+__device__ __forceinline__ void wide_store(
+    const float* res, const float* skp, int ch, int bk, int r16, int g,
+    int rows, int64_t row0, int t0, int valid, const float* x,
+    const float* b_rs, float* x_out, float* skip_out, int accumulate) {
+  constexpr int C = MmaWide::kC;
+  const float2 brs = *reinterpret_cast<const float2*>(b_rs + bk + ch);
+  float2 brr = make_float2(0.f, 0.f);
+  if constexpr (!kLast) brr = *reinterpret_cast<const float2*>(b_rs + ch);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r16 + g + 8 * h;
+    if (row >= rows) continue;
+    const int64_t off = (row0 + row) * C + ch;
+    float2 xo = *reinterpret_cast<const float2*>(x + off);
+    if constexpr (!kLast) {
+      xo.x += res[2 * h] + brr.x;
+      xo.y += res[2 * h + 1] + brr.y;
+    }
+    float2 skip = make_float2(skp[2 * h] + brs.x, skp[2 * h + 1] + brs.y);
+    if (t0 + row >= valid) xo = make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(x_out + off) = xo;
+    if (accumulate) {
+      const float2 prev = *reinterpret_cast<const float2*>(skip_out + off);
+      skip.x += prev.x;
+      skip.y += prev.y;
+    }
+    *reinterpret_cast<float2*>(skip_out + off) = skip;
+  }
+}
+
+// The kernel at C = 512 (see the note at the top).
+template <bool kLast>
+__device__ __forceinline__ void mma_streamed(
+    const float* __restrict__ x, const bf16* __restrict__ cond,
+    const bf16* __restrict__ w_in, const float* __restrict__ b_in,
+    const bf16* __restrict__ w_rs, const float* __restrict__ b_rs,
+    const int* __restrict__ valid_t, float* __restrict__ x_out,
+    float* skip_out, int accumulate, int T, int dilation) {
+  using L = MmaWide;
+  constexpr int C = L::kC;
+  constexpr int kOutPasses = kLast ? 1 : L::kPasses;
+  constexpr int kChunks = L::kInChunks + kOutPasses * L::kRsPerPass;
+  extern __shared__ __align__(1024) uint4 smem_mma[];
+  char* aring = reinterpret_cast<char*>(smem_mma);
+  const uint32_t aring_s = smem_u32(aring);
+  const uint32_t ring_s = aring_s + L::kARingBytes;
+  char* acts = aring + L::kARingBytes + kStages * L::kStageBytes;
+  const uint32_t acts_s = smem_u32(acts);
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kMmaRows;
+  const int rows = min(kMmaRows, T - t0);
+  const int64_t row0 = static_cast<int64_t>(b) * T + t0;
+  const float* xb = x + static_cast<int64_t>(b) * T * C;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int r16 = (warp % 4) * 16;
+  const int g = lane / 4;
+  const int tig = lane % 4;
+  const int col0 = wg * kGroupCols;  // of the pass's 256 columns of each half
+  const uint32_t b_a = (col0 / 64) * kBlockBytes;
+  const uint32_t b_b = ((L::kPassC + col0) / 64) * kBlockBytes;
+
+  for (int c = 0; c < kAhead; ++c) {
+    wide_load_chunk<kLast>(ring_s, c, w_in, w_rs);
+    cp_async_commit();
+  }
+  wide_stage_taps(aring, 0, xb, t0, T, dilation);
+
+  float acc_a[kAcc], acc_b[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+
+  // ---- first product, two passes: acc_a the tanh columns [256p + col0,
+  // +128), acc_b the sigmoid columns [C + 256p + col0, +128); chunk c reads
+  // tap block c / 2, staged at step c - 2 (one block ahead, every 2 steps)
+#pragma unroll 1
+  for (int chunk = 0; chunk < L::kInChunks; ++chunk) {
+    wide_ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    cp_async_commit();
+    const int blk = chunk / 2;
+    const uint32_t a0 = aring_s + (blk % L::kABlocks) * kKBlockBytes +
+                        (chunk % 2) * kKChunk * 2;
+    const uint32_t slot = ring_s + (chunk % kStages) * L::kStageBytes;
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKChunk / 16; ++k) {
+      const uint64_t da = a_desc(a0 + k * 32);
+      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
+      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+    }
+    wgmma_commit();
+    // the next tap block, while this chunk's wgmmas run: its slot last held
+    // block blk - 2, whose chunks the barrier proved done
+    if (chunk % 2 == 0 && blk + 1 < L::kTapBlocks)
+      wide_stage_taps(aring, blk + 1, xb, t0, T, dilation);
+    wgmma_wait<1>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    if (chunk % L::kInPerPass != L::kInPerPass - 1) continue;
+
+    // ---- the pass's gate (f32) on the accumulators, acts as bf16 --------
+    // rows >= T have zero taps and cond; their acts feed rows not stored
+    wgmma_wait<0>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    const int pc = (chunk / L::kInPerPass) * L::kPassC + col0;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+      const int ch = pc + 8 * j + 2 * tig;
+      const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+      const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r16 + g + 8 * h;
+        float2 ct = make_float2(0.f, 0.f), cs = make_float2(0.f, 0.f);
+        if (row < rows) {
+          const bf16* cr = cond + (row0 + row) * 2 * C + ch;
+          ct = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr));
+          cs = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr + C));
+        }
+        const float gt0 = acc_a[4 * j + 2 * h] + bt.x + ct.x;
+        const float gt1 = acc_a[4 * j + 2 * h + 1] + bt.y + ct.y;
+        const float gs0 = acc_b[4 * j + 2 * h] + bs.x + cs.x;
+        const float gs1 = acc_b[4 * j + 2 * h + 1] + bs.y + cs.y;
+        const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
+        const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
+        *reinterpret_cast<uint32_t*>(acts + tile_off(row, ch)) = pack_bf16(v0, v1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+  }
+
+  // ---- second product, per pass p: acc_a the residual columns [256p +
+  // col0, +128), acc_b the skip columns [C + 256p + col0, +128) (the last
+  // layer: skip columns [col0, +128) and [256 + col0, +128))
+  const int valid = valid_t != nullptr ? valid_t[b] : T;
+#pragma unroll 1
+  for (int chunk = L::kInChunks; chunk < kChunks; ++chunk) {
+    // also hands the acts to the async proxy and orders them
+    wide_ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+    cp_async_commit();
+    const int j = chunk - L::kInChunks;
+    const int k0 = (j % L::kRsPerPass) * kKChunk;
+    const uint32_t a0 = acts_s + (k0 / 64) * kKBlockBytes + (k0 % 64) * 2;
+    const uint32_t slot = ring_s + (chunk % kStages) * L::kStageBytes;
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKChunk / 16; ++k) {
+      const uint64_t da = a_desc(a0 + k * 32);
+      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
+      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    if (j % L::kRsPerPass != L::kRsPerPass - 1) continue;
+
+    // ---- epilogue of the pass: residual, valid_t mask, skip sum (f32) ---
+    wgmma_wait<0>();
+    fence_acc(acc_a);
+    fence_acc(acc_b);
+    const int pc = (j / L::kRsPerPass) * L::kPassC + col0;
+#pragma unroll
+    for (int jj = 0; jj < kAcc / 4; ++jj) {
+      const int ch = pc + 8 * jj + 2 * tig;
+      if constexpr (kLast) {
+        wide_store<true>(nullptr, acc_a + 4 * jj, ch, 0, r16, g, rows, row0, t0,
+                         valid, x, b_rs, x_out, skip_out, accumulate);
+        wide_store<true>(nullptr, acc_b + 4 * jj, ch + L::kPassC, 0, r16, g,
+                         rows, row0, t0, valid, x, b_rs, x_out, skip_out,
+                         accumulate);
+      } else {
+        wide_store<false>(acc_a + 4 * jj, acc_b + 4 * jj, ch, C, r16, g, rows,
+                          row0, t0, valid, x, b_rs, x_out, skip_out,
+                          accumulate);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+  }
+  cp_async_wait<0>();
+}
+
+template <int kC, bool kLast>
+__global__ void __launch_bounds__(mma_threads<kC>(), 1)
+wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
+                    const bf16* __restrict__ w_in,
+                    const float* __restrict__ b_in,
+                    const bf16* __restrict__ w_rs,
+                    const float* __restrict__ b_rs,
+                    const int* __restrict__ valid_t, float* __restrict__ x_out,
+                    float* skip_out, int accumulate, int T, int dilation) {
+  if constexpr (kC <= 256)
+    mma_resident<kC, kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out,
+                            skip_out, accumulate, T, dilation);
+  else
+    mma_streamed<kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out,
+                        skip_out, accumulate, T, dilation);
 }
 
 // ---- launch ---------------------------------------------------------------
@@ -912,7 +1329,7 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
 // Blocks of the f32 kernel the device holds at once, as SMs and blocks an
 // SM (the occupancy API, after the shared-memory opt-in); read once per
 // variant and device.
-template <bool kLast>
+template <int kC, bool kLast>
 cudaError_t f32_slots(int* sms, int* per_sm) {
   static std::atomic<int> cache[32];  // sms * 256 + per_sm; 0 until read
   static std::atomic<uint32_t> opted_in{0};
@@ -921,13 +1338,15 @@ cudaError_t f32_slots(int* sms, int* per_sm) {
   if (err != cudaSuccess) return err;
   int v = cache[device & 31].load(std::memory_order_acquire);
   if (v == 0) {
-    err = opt_in_smem(wn_layer_kernel_f32<kLast>, kSmemBytes, &opted_in);
+    err = opt_in_smem(wn_layer_kernel_f32<kC, kLast>, F32<kC>::kSmemBytes,
+                      &opted_in);
     if (err != cudaSuccess) return err;
     int n = 0, k = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &k, wn_layer_kernel_f32<kLast>, kThreads, kSmemBytes);
+        &k, wn_layer_kernel_f32<kC, kLast>, F32<kC>::kThreads,
+        F32<kC>::kSmemBytes);
     if (err != cudaSuccess) return err;
     if (n < 1 || k < 1 || k > 255) return cudaErrorInvalidConfiguration;
     v = n * 256 + k;
@@ -946,47 +1365,86 @@ int f32_rows_per_block(int rows, int slots) {
   return (share + kRowQuantum - 1) / kRowQuantum * kRowQuantum;
 }
 
-template <bool kBf16, bool kLast>
-cudaError_t launch(const float* x, const void* cond, const void* w_in,
-                   const float* b_in, const void* w_rs, const float* b_rs,
-                   const int* valid_t, float* x_out, float* skip_out,
-                   int accumulate, int batch, int T, int dilation,
-                   cudaStream_t stream) {
+struct Args {
+  const float* x;
+  const void* cond;
+  const void* w_in;
+  const float* b_in;
+  const void* w_rs;
+  const float* b_rs;
+  const int* valid_t;
+  float* x_out;
+  float* skip_out;
+  int accumulate, batch, T, dilation;
+  cudaStream_t stream;
+};
+
+template <int kC, bool kBf16, bool kLast>
+cudaError_t launch(const Args& a) {
   if constexpr (kBf16) {
     static std::atomic<uint32_t> opted_in{0};
-    auto kernel = wn_layer_kernel_mma<kLast>;
-    cudaError_t err = opt_in_smem(kernel, kMmaSmemBytes, &opted_in);
+    auto kernel = wn_layer_kernel_mma<kC, kLast>;
+    constexpr int smem = mma_smem_bytes<kC>();
+    cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
     if (err != cudaSuccess) return err;
-    dim3 grid((T + kMmaRows - 1) / kMmaRows, batch);
-    kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
-        x, static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in), b_in,
-        static_cast<const bf16*>(w_rs), b_rs, valid_t, x_out, skip_out,
-        accumulate, T, dilation);
+    dim3 grid((a.T + kMmaRows - 1) / kMmaRows, a.batch);
+    kernel<<<grid, mma_threads<kC>(), smem, a.stream>>>(
+        a.x, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
+        a.b_in, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
+        a.skip_out, a.accumulate, a.T, a.dilation);
   } else {
     int sms = 0, per_sm = 0;
-    cudaError_t err = f32_slots<kLast>(&sms, &per_sm);  // also opts in
+    cudaError_t err = f32_slots<kC, kLast>(&sms, &per_sm);  // also opts in
     if (err != cudaSuccess) return err;
-    const int rows = batch * T;
+    const int rows = a.batch * a.T;
     const int per_block = f32_rows_per_block(rows, sms * per_sm);
-    wn_layer_kernel_f32<kLast><<<(rows + per_block - 1) / per_block, kThreads,
-                                 kSmemBytes, stream>>>(
-        x, static_cast<const float*>(cond), static_cast<const float*>(w_in),
-        b_in, static_cast<const float*>(w_rs), b_rs, valid_t, x_out, skip_out,
-        accumulate, T, dilation, rows, per_block);
+    wn_layer_kernel_f32<kC, kLast><<<(rows + per_block - 1) / per_block,
+                                     F32<kC>::kThreads, F32<kC>::kSmemBytes,
+                                     a.stream>>>(
+        a.x, static_cast<const float*>(a.cond),
+        static_cast<const float*>(a.w_in), a.b_in,
+        static_cast<const float*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
+        a.skip_out, a.accumulate, a.T, a.dilation, rows, per_block);
   }
   return cudaGetLastError();
 }
 
-// The kernel instantiation for (bf16, last), as a function pointer, and the
-// dynamic shared bytes its launcher passes.
-const void* kernel_for(int bf16_mode, int last, int* smem_bytes) {
-  *smem_bytes = bf16_mode ? kMmaSmemBytes : kSmemBytes;
+// The (kC, bf16, last) instance: launched with `a`, or (with `a` null) its
+// function pointer and the dynamic shared bytes its launcher passes.
+template <int kC>
+cudaError_t dispatch_width(const Args* a, int bf16_mode, int last,
+                           const void** kernel, int* smem_bytes) {
+#define WN_CASE(BF, LAST, FN, SMEM)                                \
+  if (a == nullptr) {                                              \
+    *kernel = reinterpret_cast<const void*>(FN<kC, LAST>);         \
+    *smem_bytes = SMEM;                                            \
+    return cudaSuccess;                                            \
+  }                                                                \
+  return launch<kC, BF, LAST>(*a)
   if (bf16_mode) {
-    return last ? reinterpret_cast<const void*>(wn_layer_kernel_mma<true>)
-                : reinterpret_cast<const void*>(wn_layer_kernel_mma<false>);
+    if (last) { WN_CASE(true, true, wn_layer_kernel_mma, mma_smem_bytes<kC>()); }
+    WN_CASE(true, false, wn_layer_kernel_mma, mma_smem_bytes<kC>());
   }
-  return last ? reinterpret_cast<const void*>(wn_layer_kernel_f32<true>)
-              : reinterpret_cast<const void*>(wn_layer_kernel_f32<false>);
+  if (last) { WN_CASE(false, true, wn_layer_kernel_f32, F32<kC>::kSmemBytes); }
+  WN_CASE(false, false, wn_layer_kernel_f32, F32<kC>::kSmemBytes);
+#undef WN_CASE
+}
+
+// The widths the kernels are built for.
+cudaError_t dispatch(int c, const Args* a, int bf16_mode, int last,
+                     const void** kernel, int* smem_bytes) {
+  switch (c) {
+    case 128: return dispatch_width<128>(a, bf16_mode, last, kernel, smem_bytes);
+    case 256: return dispatch_width<256>(a, bf16_mode, last, kernel, smem_bytes);
+    case 512: return dispatch_width<512>(a, bf16_mode, last, kernel, smem_bytes);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int kC>
+cudaError_t f32_slots_for(int last, int* sms, int* per_sm) {
+  return last ? f32_slots<kC, true>(sms, per_sm)
+              : f32_slots<kC, false>(sms, per_sm);
 }
 
 }  // namespace
@@ -996,9 +1454,9 @@ extern "C" {
 // Shapes: x, x_out, skip_out [batch, T, C] f32; cond [batch, T, 2C]; w_in
 // [3C, 2C]; b_in [2C] f32; w_rs [C, 2C] or [C, C] (last); b_rs likewise f32;
 // valid_t [batch] int32 or null. cond/w_in/w_rs are bf16 when bf16 != 0,
-// else f32. accumulate != 0 adds into skip_out (in place). C must be 256.
-// All pointers 16-byte aligned and contiguous. Launches on `stream`, does
-// not synchronise; returns the launch error.
+// else f32. accumulate != 0 adds into skip_out (in place). C must be 128,
+// 256 or 512. All pointers 16-byte aligned and contiguous. Launches on
+// `stream`, does not synchronise; returns the launch error.
 cudaError_t wn_layer_forward(const float* x, const void* cond,
                              const void* w_in, const float* b_in,
                              const void* w_rs, const float* b_rs,
@@ -1006,30 +1464,25 @@ cudaError_t wn_layer_forward(const float* x, const void* cond,
                              float* skip_out, int accumulate, int batch,
                              int T, int C, int dilation, int bf16, int last,
                              cudaStream_t stream) {
-  if (C != kC || T <= 0 || batch <= 0 || batch > 65535 ||
+  if (T <= 0 || batch <= 0 || batch > 65535 ||
       static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
-#define WN_LAUNCH(BF, LAST)                                                 \
-  return launch<BF, LAST>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, \
-                          skip_out, accumulate, batch, T, dilation, stream)
-  if (bf16) {
-    if (last) WN_LAUNCH(true, true);
-    WN_LAUNCH(true, false);
-  }
-  if (last) WN_LAUNCH(false, true);
-  WN_LAUNCH(false, false);
-#undef WN_LAUNCH
+  const Args a{x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, skip_out,
+               accumulate, batch, T, dilation, stream};
+  return dispatch(C, &a, bf16, last, nullptr, nullptr);
 }
 
-// What the loaded build of the (bf16, last) kernel uses, read from the CUDA
-// runtime: registers per thread, local (spill) bytes per thread, static
+// What the loaded build of the (C, bf16, last) kernel uses, read from the
+// CUDA runtime: registers per thread, local (spill) bytes per thread, static
 // shared bytes, and the dynamic shared bytes its launcher passes.
-cudaError_t wn_layer_kernel_info(int bf16, int last, int* registers,
+cudaError_t wn_layer_kernel_info(int C, int bf16, int last, int* registers,
                                  int* local_bytes, int* static_smem_bytes,
                                  int* dynamic_smem_bytes) {
+  const void* kernel = nullptr;
+  cudaError_t err = dispatch(C, nullptr, bf16, last, &kernel, dynamic_smem_bytes);
+  if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, kernel_for(bf16, last, dynamic_smem_bytes));
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -1037,15 +1490,21 @@ cudaError_t wn_layer_kernel_info(int bf16, int last, int* registers,
   return cudaSuccess;
 }
 
-// The f32 kernel's grid for `batch` x T rows, as its launcher picks it:
-// SMs, blocks an SM (occupancy API), blocks launched, rows a block takes.
-cudaError_t wn_layer_f32_schedule(int batch, int T, int last, int* sms,
+// The f32 kernel's grid at width C for `batch` x T rows, as its launcher
+// picks it: SMs, blocks an SM (occupancy API), blocks launched, rows a
+// block takes.
+cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
                                   int* blocks_per_sm, int* blocks,
                                   int* rows_per_block) {
   if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
-  cudaError_t err = last ? f32_slots<true>(sms, blocks_per_sm)
-                         : f32_slots<false>(sms, blocks_per_sm);
+  cudaError_t err;
+  switch (C) {
+    case 128: err = f32_slots_for<128>(last, sms, blocks_per_sm); break;
+    case 256: err = f32_slots_for<256>(last, sms, blocks_per_sm); break;
+    case 512: err = f32_slots_for<512>(last, sms, blocks_per_sm); break;
+    default: return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   const int rows = batch * T;
   *rows_per_block = f32_rows_per_block(rows, *sms * *blocks_per_sm);

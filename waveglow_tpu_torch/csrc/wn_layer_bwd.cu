@@ -36,7 +36,7 @@
 //
 // Four kernels, launched in order on one stream:
 //   wn_bwd_rows_kernel<last> - per 64-row time tile (one block per SM, 8
-//     warps of 32 rows x 32 channels): stages the three bf16 tap windows
+//     warps of 32 rows x 32 channels; 32 rows and 16 channels at C = 512): stages the three bf16 tap windows
 //     in shared memory and bf16(drs) into a global scratch, then in two
 //     passes over 128-channel blocks recomputes the tanh and sigmoid
 //     pre-activations (K = 3C) and dacts (K = n_rs, drs read back through
@@ -58,7 +58,11 @@
 //     same bits.
 // All operand chunks stream through cp.async rings (zero-filled rows
 // outside [0, T)): 6 stages in the rows kernel, 4 in the dx and weights
-// kernels. Built for C = 256 only, as the forward.
+// kernels. Built for C in {128, 256, 512} (the width is a template
+// parameter; the rows kernel runs C / 128 passes of 128 channels). At
+// C = 512 three 64-row tap windows would take 199,680 bytes of shared
+// memory, so the rows kernel's tile there holds 32 rows (one row warp,
+// eight column warps of 16 channels; 213,504 bytes).
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py at the
 // shape above (d=1): the four kernels 0.47 ms against the 0.051 ms bound,
@@ -78,18 +82,18 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kC = 256;                // channels
 constexpr int kThreads = 256;          // 8 warps
-constexpr int kTile = 64;              // time rows per tile (rows, dx kernels)
 constexpr int kK = 32;                 // K rows of one pipeline chunk
 constexpr int kBlockCh = 128;          // channels of one rows-kernel pass
-constexpr int kWinStride = kC + 8;     // tap window row: 528 bytes
 constexpr int kInStride = 2 * kBlockCh + 8;  // w_in chunk row (tanh|sigmoid)
 constexpr int kKStride = kK + 8;       // a [rows][32] chunk row: 80 bytes
 constexpr int kWTile = 128;            // weights kernel output tile edge
 constexpr int kWStride = kWTile + 8;   // [32][128] chunk row: 272 bytes
-constexpr int kDwIn = 3 * kC * 2 * kC;  // elements of dw_in
-constexpr int kDwInTiles = (3 * kC / kWTile) * (2 * kC / kWTile);  // 24
+// Elements of dw_in, and its output tiles (24 at C = 256).
+template <int kC>
+constexpr int kDwIn = 3 * kC * 2 * kC;
+template <int kC>
+constexpr int kDwInTiles = (3 * kC / kWTile) * (2 * kC / kWTile);
 
 // ---- PTX helpers ------------------------------------------------------------
 
@@ -167,13 +171,22 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 
 // ---- kernel 1: rows (gate recompute, dacts, gate adjoint) -----------------
 
-template <bool kLast>
+// The rows kernel's layout at width kC. A tile holds 64 time rows (two
+// row warps of 32, four column warps of 32 channels) at C <= 256; at
+// C = 512, 32 rows (one row warp, eight column warps of 16 channels), so
+// the three tap windows fit in shared memory beside the ring.
+template <int kC, bool kLast>
 struct RowsLayout {
   static constexpr int kNrs = kLast ? kC : 2 * kC;
-  static constexpr int kTapBytes = 3 * kTile * kWinStride * 2;   // 101,376
+  static constexpr int kTileRows = kC > 256 ? 32 : 64;
+  static constexpr int kRowWarps = kTileRows / 32;
+  static constexpr int kWarpCh = kBlockCh * kRowWarps / 8;  // 32 or 16
+  static constexpr int kNB = kWarpCh / 8;                   // n8 blocks
+  static constexpr int kWinStride = kC + 8;  // tap window row: 528 bytes
+  static constexpr int kTapBytes = 3 * kTileRows * kWinStride * 2;  // 101,376
   static constexpr int kInChunkBytes = kK * kInStride * 2;        // 16,896
   static constexpr int kRsChunkBytes = kBlockCh * kKStride * 2;   // 10,240
-  static constexpr int kDrsChunkBytes = kTile * kKStride * 2;     // 5,120
+  static constexpr int kDrsChunkBytes = kTileRows * kKStride * 2;  // 5,120
   static constexpr int kStageBytes =
       kInChunkBytes > kRsChunkBytes + kDrsChunkBytes
           ? kInChunkBytes : kRsChunkBytes + kDrsChunkBytes;
@@ -184,18 +197,19 @@ struct RowsLayout {
   static constexpr int kRedBytes = 2 * 2 * kC * 4;                // 4,096
   static constexpr int kQuads = kNrs / 4;           // float4 columns of drs
   static constexpr int kGroups = kThreads / kQuads;  // 2 (last: 4)
-  static constexpr int kGroupRows = kTile / kGroups;
+  static constexpr int kGroupRows = kTileRows / kGroups;
   static constexpr int kDrsSumBytes = kGroups * kNrs * 4;         // 4,096
   static constexpr int kSmem =
       kTapBytes + kStages * kStageBytes + kRedBytes + kDrsSumBytes;
   static constexpr int kInChunks = 3 * kC / kK;   // 24 K chunks of w_in
   static constexpr int kRsChunks = kNrs / kK;     // 16 (last: 8) of w_rs
   static constexpr int kPerPass = kInChunks + kRsChunks;
-  static constexpr int kChunks = 2 * kPerPass;    // two 128-channel passes
+  static constexpr int kPasses = kC / kBlockCh;   // 128-channel passes
+  static constexpr int kChunks = kPasses * kPerPass;
   static_assert(kAhead <= kInChunks,
                 "the prologue's chunks must not read the drs scratch");
+  static_assert(kSmem <= 232448, "over 227 KB");
 };
-static_assert(RowsLayout<false>::kSmem <= 232448, "over 227 KB");
 
 // Start the copies of chunk `c` of the rows kernel into ring slot `slot`:
 // in pass c / kPerPass (channel block cb), first the w_in rows [k0, k0+32)
@@ -204,12 +218,12 @@ static_assert(RowsLayout<false>::kSmem <= 232448, "over 227 KB");
 // w_rs rows [cb, cb+128), columns [k0, k0+32), as [n][k], and beside them
 // the tile's bf16 drs rows, columns [k0, k0+32), from the scratch this
 // block wrote before its first chunk (zero past T).
-template <bool kLast>
+template <int kC, bool kLast>
 __device__ __forceinline__ void rows_load(uint32_t slot, int c,
                                           const bf16* w_in, const bf16* w_rs,
                                           const bf16* drs, int64_t row0,
                                           int rows) {
-  using L = RowsLayout<kLast>;
+  using L = RowsLayout<kC, kLast>;
   const int j = c % L::kPerPass;
   const int cb = (c / L::kPerPass) * kBlockCh;
   if (j < L::kInChunks) {
@@ -231,14 +245,15 @@ __device__ __forceinline__ void rows_load(uint32_t slot, int c,
       cp_async16(slot + (n * kKStride + q * 8) * 2,
                  w_rs + (cb + n) * L::kNrs + k0 + q * 8, true);
     }
-    const int r = threadIdx.x / 4, q = threadIdx.x % 4;  // 64 rows x 4
-    cp_async16(slot + L::kRsChunkBytes + (r * kKStride + q * 8) * 2,
-               drs + (row0 + (r < rows ? r : 0)) * L::kNrs + k0 + q * 8,
-               r < rows);
+    const int r = threadIdx.x / 4, q = threadIdx.x % 4;  // tile rows x 4
+    if (r < L::kTileRows)
+      cp_async16(slot + L::kRsChunkBytes + (r * kKStride + q * 8) * 2,
+                 drs + (row0 + (r < rows ? r : 0)) * L::kNrs + k0 + q * 8,
+                 r < rows);
   }
 }
 
-template <bool kLast>
+template <int kC, bool kLast>
 __global__ void __launch_bounds__(kThreads, 1)
 wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
                    const bf16* __restrict__ w_in,
@@ -250,9 +265,12 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
                    bf16* __restrict__ acts_out, bf16* __restrict__ x_bf,
                    bf16* __restrict__ drs_out, float* __restrict__ part_bias,
                    int T, int dilation) {
-  using L = RowsLayout<kLast>;
+  using L = RowsLayout<kC, kLast>;
   constexpr int C = kC;
   constexpr int N_RS = L::kNrs;
+  constexpr int kWinStride = L::kWinStride;
+  constexpr int kTile = L::kTileRows;
+  constexpr int kNB = L::kNB;
   extern __shared__ __align__(16) uint4 smem_rows[];
   char* base = reinterpret_cast<char*>(smem_rows);
   bf16* taps = reinterpret_cast<bf16*>(base);
@@ -269,13 +287,14 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
   const int tile_id = b * gridDim.x + blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q4 = lane % 4;
-  const int wr = warp % 2, r32 = wr * 32;  // the warp's 32 rows
-  const int cw = (warp / 2) * 32;          // its 32 channels of a pass block
+  const int wr = warp % L::kRowWarps, r32 = wr * 32;  // the warp's 32 rows
+  const int cw = (warp / L::kRowWarps) * L::kWarpCh;  // its channels of a
+                                                      // pass block
 
   // the first chunks (w_in only) load while the tile is staged
   for (int c = 0; c < L::kAhead; ++c) {
-    rows_load<kLast>(ring_s + c * L::kStageBytes, c, w_in, w_rs, drs_out,
-                     row0, rows);
+    rows_load<kC, kLast>(ring_s + c * L::kStageBytes, c, w_in, w_rs, drs_out,
+                         row0, rows);
     cp_async_commit();
   }
 
@@ -283,8 +302,9 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
   // [0, T); window 1 (rows < T) also goes out as the bf16 x scratch
   {
     constexpr int kQ = C / 4;  // float4 per row
-    constexpr int kUnroll = 16;  // loads in flight per thread
     constexpr int kTotal = 3 * kTile * kQ;
+    // loads in flight per thread: 16, or 8 where 16 leave a partial round
+    constexpr int kUnroll = kTotal % (16 * kThreads) == 0 ? 16 : 8;
     static_assert(kTotal % (kUnroll * kThreads) == 0, "whole rounds");
     const float* xb = x + static_cast<int64_t>(b) * T * C;
 #pragma unroll 1
@@ -348,22 +368,22 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
     __threadfence();
   }
 
-  // ---- two passes over 128-channel blocks: acc_t / acc_s the tanh and
+  // ---- C / 128 passes over 128-channel blocks: acc_t / acc_s the tanh and
   // sigmoid pre-activations, acc_d dacts, of the same (row, channel) in
   // the same thread: m16 block mi, n8 block nb, element e is row
   // r32 + 16mi + g + 8(e/2), channel cb + cw + 8nb + 2q4 + e%2
-  float acc_t[2][4][4], acc_s[2][4][4], acc_d[2][4][4];
+  float acc_t[2][kNB][4], acc_s[2][kNB][4], acc_d[2][kNB][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc_t[mi][nb][e] = acc_s[mi][nb][e] = acc_d[mi][nb][e] = 0.f;
 
   // cond of the pass's epilogue, fetched during its dacts chunks:
   // [mi][nb][h] the tanh and sigmoid pairs of the thread's channels
-  uint32_t cond_t[2][4][2], cond_s[2][4][2];
+  uint32_t cond_t[2][kNB][2], cond_s[2][kNB][2];
 
 #pragma unroll 1
   for (int c = 0; c < L::kChunks; ++c) {
@@ -372,7 +392,7 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
     cp_async_wait<L::kAhead - 1>();
     __syncthreads();
     if (c + L::kAhead < L::kChunks)
-      rows_load<kLast>(
+      rows_load<kC, kLast>(
           ring_s + ((c + L::kAhead) % L::kStages) * L::kStageBytes,
           c + L::kAhead, w_in, w_rs, drs_out, row0, rows);
     cp_async_commit();
@@ -383,7 +403,7 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = r32 + 16 * mi + g + 8 * h;
@@ -411,7 +431,7 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
             slot + ((kk + lane % 8 + ((lane / 8) % 2) * 8) * kInStride +
                     cw + (lane / 16) * 8) * 2;
 #pragma unroll
-        for (int pb = 0; pb < 2; ++pb) {
+        for (int pb = 0; pb < kNB / 2; ++pb) {
           uint32_t bt[4], bs[4];
           ldsm_x4_t(bt, brow + pb * 16 * 2);
           ldsm_x4_t(bs, brow + (kBlockCh + pb * 16) * 2);
@@ -434,7 +454,7 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
                              ((r32 + 16 * mi + lane % 16) * kKStride + kk +
                               (lane / 16) * 8) * 2);
 #pragma unroll
-        for (int pb = 0; pb < 2; ++pb) {
+        for (int pb = 0; pb < kNB / 2; ++pb) {
           uint32_t bd[4];
           ldsm_x4(bd, slot + ((cw + pb * 16 + lane % 8 + (lane / 16) * 8) *
                                   kKStride + kk + ((lane / 8) % 2) * 8) * 2);
@@ -452,7 +472,7 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
     // Rows >= T have zero taps, cond and drs: finite gates, zero dgates.
     const int cb = (c / L::kPerPass) * kBlockCh;
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
+    for (int nb = 0; nb < kNB; ++nb) {
       const int ch = cb + cw + 8 * nb + 2 * q4;
       const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
       const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
@@ -508,18 +528,20 @@ wn_bwd_rows_kernel(const float* __restrict__ x, const bf16* __restrict__ cond,
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc_t[mi][nb][e] = acc_s[mi][nb][e] = acc_d[mi][nb][e] = 0.f;
   }
 
-  // ---- the tile's column sums: dgates over the two row warps, drs over
-  // the staging's row groups, in order
+  // ---- the tile's column sums: dgates over the row warps, drs over the
+  // staging's row groups, in order
   __syncthreads();
   float* out = part_bias + static_cast<int64_t>(tile_id) * (2 * C + N_RS);
-  for (int col = threadIdx.x; col < 2 * C; col += kThreads)
-    out[col] = red[col] + red[2 * C + col];
+  for (int col = threadIdx.x; col < 2 * C; col += kThreads) {
+    if constexpr (L::kRowWarps == 2) out[col] = red[col] + red[2 * C + col];
+    else out[col] = red[col];
+  }
   for (int col = threadIdx.x; col < N_RS; col += kThreads) {
     float sum = drs_sum[col];
 #pragma unroll
@@ -538,11 +560,13 @@ constexpr int kRingAhead = kRingStages - 1;       // chunks loading ahead
 constexpr int kDxChunkBytes = kRT * kKStride * 2;  // 10,240: [128][32]
 constexpr int kDxStage = 2 * kDxChunkBytes;       // A then B
 constexpr int kDxSmem = kRingStages * kDxStage;   // 81,920
-constexpr int kDxChunks = 3 * 2 * kC / kK;        // 48
+template <int kC>
+constexpr int kDxChunks = 3 * 2 * kC / kK;        // 48 at C = 256
 
 // Chunk c: tap c / 16, gate channels m0 = (c % 16) * 32. A: dgates rows
 // t0 + r - (tap-1)*d (zero outside [0, T)); B: w_in[tap*C + n0 + n][m0..+32)
 // as [n][k].
+template <int kC>
 __device__ __forceinline__ void dx_load(uint32_t slot, int c,
                                         const bf16* dgates, const bf16* w_in,
                                         int64_t brow0, int t0, int n0, int T,
@@ -562,6 +586,7 @@ __device__ __forceinline__ void dx_load(uint32_t slot, int c,
   }
 }
 
+template <int kC>
 __global__ void __launch_bounds__(kThreads, 2)
 wn_bwd_dx_kernel(const bf16* __restrict__ dgates, const bf16* __restrict__ w_in,
                  const float* __restrict__ dx_next,
@@ -582,8 +607,8 @@ wn_bwd_dx_kernel(const bf16* __restrict__ dgates, const bf16* __restrict__ w_in,
   const int nw = n0 + (warp / 2) * 32;   // and 32 output channels
 
   for (int c = 0; c < kRingAhead; ++c) {
-    dx_load(ring_s + c * kDxStage, c, dgates, w_in, brow0, t0, n0, T,
-            dilation);
+    dx_load<kC>(ring_s + c * kDxStage, c, dgates, w_in, brow0, t0, n0, T,
+                dilation);
     cp_async_commit();
   }
 
@@ -596,12 +621,12 @@ wn_bwd_dx_kernel(const bf16* __restrict__ dgates, const bf16* __restrict__ w_in,
       for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
 
 #pragma unroll 1
-  for (int c = 0; c < kDxChunks; ++c) {
+  for (int c = 0; c < kDxChunks<kC>; ++c) {
     // chunk c landed for every thread; chunk c-1's slot is free
     cp_async_wait<kRingAhead - 1>();
     __syncthreads();
-    if (c + kRingAhead < kDxChunks)
-      dx_load(ring_s + ((c + kRingAhead) % kRingStages) * kDxStage,
+    if (c + kRingAhead < kDxChunks<kC>)
+      dx_load<kC>(ring_s + ((c + kRingAhead) % kRingStages) * kDxStage,
               c + kRingAhead, dgates, w_in, brow0, t0, n0, T, dilation);
     cp_async_commit();
     const uint32_t slot = ring_s + (c % kRingStages) * kDxStage;
@@ -686,6 +711,7 @@ __device__ __forceinline__ void w_load(uint32_t slot, int c, const WOperands& o,
 // blockIdx.y: split s = b * n_splits_t + ts over rows t of batch row b in
 // [ts * split_rows, (ts + 1) * split_rows). Writes its f32 partial to
 // ws[s][...] (dw_in [3C][2C] then dw_rs [C][n_rs]).
+template <int kC>
 __global__ void __launch_bounds__(kThreads, 2)
 wn_bwd_weights_kernel(const bf16* __restrict__ x_bf,
                       const bf16* __restrict__ dgates,
@@ -702,21 +728,23 @@ wn_bwd_weights_kernel(const bf16* __restrict__ x_bf,
   const int tb = (split % n_splits_t) * split_rows;
   const int te = min(T, tb + split_rows);
   const int64_t brow0 = static_cast<int64_t>(b) * T;
-  const int64_t ws_stride = kDwIn + static_cast<int64_t>(C) * n_rs;
+  const int64_t ws_stride = kDwIn<C> + static_cast<int64_t>(C) * n_rs;
   WOperands o;
   float* out;
   int out_ld;
-  if (tile < kDwInTiles) {
-    const int mt = tile / 4, nt = tile % 4;
-    const int tap = mt / 2, ci0 = (mt % 2) * kWTile;
+  if (tile < kDwInTiles<C>) {
+    constexpr int kNt = 2 * C / kWTile, kCt = C / kWTile;
+    const int mt = tile / kNt, nt = tile % kNt;
+    const int tap = mt / kCt, ci0 = (mt % kCt) * kWTile;
     o = {x_bf + ci0, dgates + nt * kWTile, C, 2 * C, (tap - 1) * dilation};
     out = ws + split * ws_stride + (tap * C + ci0) * 2 * C + nt * kWTile;
     out_ld = 2 * C;
   } else {
     const int n_nt = n_rs / kWTile;
-    const int mt = (tile - kDwInTiles) / n_nt, nt = (tile - kDwInTiles) % n_nt;
+    const int mt = (tile - kDwInTiles<C>) / n_nt;
+    const int nt = (tile - kDwInTiles<C>) % n_nt;
     o = {acts + mt * kWTile, drs + nt * kWTile, C, n_rs, 0};
-    out = ws + split * ws_stride + kDwIn + mt * kWTile * n_rs + nt * kWTile;
+    out = ws + split * ws_stride + kDwIn<C> + mt * kWTile * n_rs + nt * kWTile;
     out_ld = n_rs;
   }
   const int chunks = te > tb ? (te - tb + kK - 1) / kK : 0;
@@ -790,6 +818,7 @@ wn_bwd_weights_kernel(const bf16* __restrict__ x_bf,
 // then dw_rs, summing the n_splits partials of the weights kernel in order.
 constexpr int kBiasColsPerBlock = kThreads / 32;
 
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
 wn_bwd_reduce_kernel(const float* __restrict__ ws, int n_splits,
                      const float* __restrict__ part_bias, int n_tiles, int n_rs,
@@ -811,15 +840,15 @@ wn_bwd_reduce_kernel(const float* __restrict__ ws, int n_splits,
     }
     return;
   }
-  const int64_t ws_stride = kDwIn + static_cast<int64_t>(kC) * n_rs;
+  const int64_t ws_stride = kDwIn<kC> + static_cast<int64_t>(kC) * n_rs;
   const int64_t w =
       static_cast<int64_t>(blockIdx.x - bias_blocks) * kThreads + threadIdx.x;
   if (w >= ws_stride) return;
   float s = 0.f;
   for (int i = 0; i < n_splits; ++i) s += ws[i * ws_stride + w];
   const bf16 v = __float2bfloat16(s);
-  if (w < kDwIn) dw_in[w] = v;
-  else dw_rs[w - kDwIn] = v;
+  if (w < kDwIn<kC>) dw_in[w] = v;
+  else dw_rs[w - kDwIn<kC>] = v;
 }
 
 // ---- launch ----------------------------------------------------------------
@@ -839,7 +868,7 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
   return err;
 }
 
-template <bool kLast>
+template <int kC, bool kLast>
 cudaError_t launch_rows(const float* x, const bf16* cond, const bf16* w_in,
                         const float* b_in, const bf16* w_rs,
                         const float* dx_next, const float* dskip,
@@ -847,10 +876,11 @@ cudaError_t launch_rows(const float* x, const bf16* cond, const bf16* w_in,
                         bf16* x_bf, bf16* drs, float* part_bias, int batch,
                         int T, int dilation, cudaStream_t stream) {
   static std::atomic<uint32_t> opted_in{0};
-  auto kernel = wn_bwd_rows_kernel<kLast>;
-  constexpr int smem = RowsLayout<kLast>::kSmem;
+  auto kernel = wn_bwd_rows_kernel<kC, kLast>;
+  constexpr int smem = RowsLayout<kC, kLast>::kSmem;
   cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
   if (err != cudaSuccess) return err;
+  constexpr int kTile = RowsLayout<kC, kLast>::kTileRows;
   dim3 grid((T + kTile - 1) / kTile, batch);
   kernel<<<grid, kThreads, smem, stream>>>(x, cond, w_in, b_in, w_rs, dx_next,
                                            dskip, valid_t, dcond, acts, x_bf,
@@ -859,23 +889,75 @@ cudaError_t launch_rows(const float* x, const bf16* cond, const bf16* w_in,
 }
 
 // The kernel `which` (0 rows, 1 dx, 2 weights, 3 reduce; `last` picks the
-// rows kernel's variant) as a function pointer, and its dynamic shared bytes.
+// rows kernel's variant) at width kC as a function pointer, and its dynamic
+// shared bytes.
+template <int kC>
 const void* bwd_kernel_for(int which, int last, int* smem_bytes) {
   switch (which) {
     case 0:
-      *smem_bytes = last ? RowsLayout<true>::kSmem : RowsLayout<false>::kSmem;
-      return last ? reinterpret_cast<const void*>(wn_bwd_rows_kernel<true>)
-                  : reinterpret_cast<const void*>(wn_bwd_rows_kernel<false>);
+      *smem_bytes = last ? RowsLayout<kC, true>::kSmem
+                         : RowsLayout<kC, false>::kSmem;
+      return last ? reinterpret_cast<const void*>(wn_bwd_rows_kernel<kC, true>)
+                  : reinterpret_cast<const void*>(wn_bwd_rows_kernel<kC, false>);
     case 1:
       *smem_bytes = kDxSmem;
-      return reinterpret_cast<const void*>(wn_bwd_dx_kernel);
+      return reinterpret_cast<const void*>(wn_bwd_dx_kernel<kC>);
     case 2:
       *smem_bytes = kWSmem;
-      return reinterpret_cast<const void*>(wn_bwd_weights_kernel);
+      return reinterpret_cast<const void*>(wn_bwd_weights_kernel<kC>);
     default:
       *smem_bytes = 0;
-      return reinterpret_cast<const void*>(wn_bwd_reduce_kernel);
+      return reinterpret_cast<const void*>(wn_bwd_reduce_kernel<kC>);
   }
+}
+
+template <int kC>
+cudaError_t backward(const float* x, const bf16* cond, const bf16* w_in,
+                     const float* b_in, const bf16* w_rs,
+                     const float* dx_next, const float* dskip,
+                     const int* valid_t, float* dx, bf16* dcond, bf16* dw_in,
+                     float* db_in, bf16* dw_rs, float* db_rs, bf16* acts,
+                     bf16* x_bf, bf16* drs, float* part_bias, float* ws,
+                     int batch, int T, int dilation, int last, int n_splits_t,
+                     int split_rows, cudaStream_t stream) {
+  const int n_rs = last ? kC : 2 * kC;
+  cudaError_t err =
+      last ? launch_rows<kC, true>(x, cond, w_in, b_in, w_rs, dx_next, dskip,
+                                   valid_t, dcond, acts, x_bf, drs, part_bias,
+                                   batch, T, dilation, stream)
+           : launch_rows<kC, false>(x, cond, w_in, b_in, w_rs, dx_next, dskip,
+                                    valid_t, dcond, acts, x_bf, drs, part_bias,
+                                    batch, T, dilation, stream);
+  if (err != cudaSuccess) return err;
+
+  static std::atomic<uint32_t> dx_opted{0}, w_opted{0};
+  err = opt_in_smem(wn_bwd_dx_kernel<kC>, kDxSmem, &dx_opted);
+  if (err != cudaSuccess) return err;
+  constexpr int kTile = RowsLayout<kC, false>::kTileRows;
+  const int tiles_t = (T + kTile - 1) / kTile;
+  wn_bwd_dx_kernel<kC><<<dim3((T + kRT - 1) / kRT, kC / kRT, batch), kThreads,
+                         kDxSmem, stream>>>(dcond, w_in, dx_next, valid_t, dx,
+                                            T, dilation);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = opt_in_smem(wn_bwd_weights_kernel<kC>, kWSmem, &w_opted);
+  if (err != cudaSuccess) return err;
+  const int n_tiles_w = kDwInTiles<kC> + (kC / kWTile) * (n_rs / kWTile);
+  wn_bwd_weights_kernel<kC><<<dim3(n_tiles_w, batch * n_splits_t), kThreads,
+                              kWSmem, stream>>>(x_bf, dcond, acts, drs, ws, T,
+                                                dilation, n_rs, n_splits_t,
+                                                split_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t n_w = kDwIn<kC> + static_cast<int64_t>(kC) * n_rs;
+  const int blocks = (2 * kC + n_rs) / kBiasColsPerBlock +
+                     static_cast<int>((n_w + kThreads - 1) / kThreads);
+  wn_bwd_reduce_kernel<kC><<<blocks, kThreads, 0, stream>>>(
+      ws, batch * n_splits_t, part_bias, batch * tiles_t, n_rs, dw_in, dw_rs,
+      db_in, db_rs);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -884,15 +966,16 @@ extern "C" {
 
 // The bf16 backward of one layer, four launches on `stream`, no
 // synchronisation; returns the first launch error.
-// Inputs: x [batch, T, C] f32; cond [batch, T, 2C], w_in [3C, 2C], w_rs
+// Inputs (C = 128, 256 or 512): x [batch, T, C] f32; cond [batch, T, 2C], w_in [3C, 2C], w_rs
 // [C, n_rs] bf16 (n_rs = C when last, else 2C); b_in [2C] f32; dx_next,
 // dskip [batch, T, C] f32 or null (zero); valid_t [batch] int32 or null.
 // Outputs: dx f32 like x, dcond bf16 like cond, dw_in / dw_rs bf16 like
 // the weights, db_in / db_rs f32. Scratch, from the caller: acts, x_bf
 // [batch*T, C] bf16; drs [batch*T, n_rs] bf16; part_bias [batch *
-// ceil(T/64), 2C + n_rs] f32; ws [batch * n_splits_t, 3C*2C + C*n_rs] f32.
-// The weights kernel splits each batch row's T into n_splits_t ranges of
-// split_rows rows. C must be 256; pointers 16-byte aligned, contiguous.
+// ceil(T/tile), 2C + n_rs] f32 (tile: wn_layer_bwd_tile_rows(C)); ws
+// [batch * n_splits_t, 3C*2C + C*n_rs] f32. The weights kernel splits each
+// batch row's T into n_splits_t ranges of split_rows rows. Pointers
+// 16-byte aligned, contiguous.
 cudaError_t wn_layer_backward_bf16(
     const float* x, const void* cond, const void* w_in, const float* b_in,
     const void* w_rs, const float* dx_next, const float* dskip,
@@ -900,66 +983,55 @@ cudaError_t wn_layer_backward_bf16(
     void* dw_rs, float* db_rs, void* acts, void* x_bf, void* drs,
     float* part_bias, float* ws, int batch, int T, int C, int dilation,
     int last, int n_splits_t, int split_rows, cudaStream_t stream) {
-  if (C != kC || T <= 0 || batch <= 0 || batch > 65535 || n_splits_t <= 0 ||
+  if (T <= 0 || batch <= 0 || batch > 65535 || n_splits_t <= 0 ||
       split_rows <= 0 || static_cast<int64_t>(batch) * n_splits_t > 65535 ||
       static_cast<int64_t>(n_splits_t) * split_rows < T)
     return cudaErrorInvalidValue;
-  const int n_rs = last ? kC : 2 * kC;
-  const bf16* cond_b = static_cast<const bf16*>(cond);
-  const bf16* w_in_b = static_cast<const bf16*>(w_in);
-  const bf16* w_rs_b = static_cast<const bf16*>(w_rs);
-  bf16* dcond_b = static_cast<bf16*>(dcond);
-  bf16* acts_b = static_cast<bf16*>(acts);
-  bf16* x_bf_b = static_cast<bf16*>(x_bf);
-  bf16* drs_b = static_cast<bf16*>(drs);
-  cudaError_t err =
-      last ? launch_rows<true>(x, cond_b, w_in_b, b_in, w_rs_b, dx_next, dskip,
-                               valid_t, dcond_b, acts_b, x_bf_b, drs_b,
-                               part_bias, batch, T, dilation, stream)
-           : launch_rows<false>(x, cond_b, w_in_b, b_in, w_rs_b, dx_next,
-                                dskip, valid_t, dcond_b, acts_b, x_bf_b, drs_b,
-                                part_bias, batch, T, dilation, stream);
-  if (err != cudaSuccess) return err;
+#define WN_BWD(WIDTH)                                                        \
+  return backward<WIDTH>(                                                    \
+      x, static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in),     \
+      b_in, static_cast<const bf16*>(w_rs), dx_next, dskip, valid_t, dx,     \
+      static_cast<bf16*>(dcond), static_cast<bf16*>(dw_in), db_in,           \
+      static_cast<bf16*>(dw_rs), db_rs, static_cast<bf16*>(acts),            \
+      static_cast<bf16*>(x_bf), static_cast<bf16*>(drs), part_bias, ws,      \
+      batch, T, dilation, last, n_splits_t, split_rows, stream)
+  switch (C) {
+    case 128: WN_BWD(128);
+    case 256: WN_BWD(256);
+    case 512: WN_BWD(512);
+    default: return cudaErrorInvalidValue;
+  }
+#undef WN_BWD
+}
 
-  static std::atomic<uint32_t> dx_opted{0}, w_opted{0};
-  err = opt_in_smem(wn_bwd_dx_kernel, kDxSmem, &dx_opted);
-  if (err != cudaSuccess) return err;
-  const int tiles_t = (T + kTile - 1) / kTile;
-  wn_bwd_dx_kernel<<<dim3((T + kRT - 1) / kRT, kC / kRT, batch), kThreads,
-                     kDxSmem, stream>>>(dcond_b, w_in_b, dx_next, valid_t, dx,
-                                        T, dilation);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = opt_in_smem(wn_bwd_weights_kernel, kWSmem, &w_opted);
-  if (err != cudaSuccess) return err;
-  const int n_tiles_w = kDwInTiles + (kC / kWTile) * (n_rs / kWTile);
-  wn_bwd_weights_kernel<<<dim3(n_tiles_w, batch * n_splits_t), kThreads,
-                          kWSmem, stream>>>(x_bf_b, dcond_b, acts_b, drs_b, ws,
-                                            T, dilation, n_rs, n_splits_t,
-                                            split_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int64_t n_w = kDwIn + static_cast<int64_t>(kC) * n_rs;
-  const int blocks = (2 * kC + n_rs) / kBiasColsPerBlock +
-                     static_cast<int>((n_w + kThreads - 1) / kThreads);
-  wn_bwd_reduce_kernel<<<blocks, kThreads, 0, stream>>>(
-      ws, batch * n_splits_t, part_bias, batch * tiles_t, n_rs,
-      static_cast<bf16*>(dw_in), static_cast<bf16*>(dw_rs), db_in, db_rs);
-  return cudaGetLastError();
+// Time rows of the rows kernel's tile at width C (its part_bias rows a
+// batch row are ceil(T / this)), or -1 for a width it is not built for.
+int wn_layer_bwd_tile_rows(int C) {
+  switch (C) {
+    case 128: return RowsLayout<128, false>::kTileRows;
+    case 256: return RowsLayout<256, false>::kTileRows;
+    case 512: return RowsLayout<512, false>::kTileRows;
+    default: return -1;
+  }
 }
 
 // What the loaded build of backward kernel `which` (0 rows, 1 dx, 2
-// weights, 3 reduce; `last` picks the rows variant) uses, from the CUDA
-// runtime: registers and local (spill) bytes per thread, static shared
-// bytes, and the dynamic shared bytes its launcher passes.
-cudaError_t wn_layer_bwd_kernel_info(int which, int last, int* registers,
-                                     int* local_bytes, int* static_smem_bytes,
+// weights, 3 reduce; `last` picks the rows variant) at width C uses, from
+// the CUDA runtime: registers and local (spill) bytes per thread, static
+// shared bytes, and the dynamic shared bytes its launcher passes.
+cudaError_t wn_layer_bwd_kernel_info(int C, int which, int last,
+                                     int* registers, int* local_bytes,
+                                     int* static_smem_bytes,
                                      int* dynamic_smem_bytes) {
+  const void* kernel;
+  switch (C) {
+    case 128: kernel = bwd_kernel_for<128>(which, last, dynamic_smem_bytes); break;
+    case 256: kernel = bwd_kernel_for<256>(which, last, dynamic_smem_bytes); break;
+    case 512: kernel = bwd_kernel_for<512>(which, last, dynamic_smem_bytes); break;
+    default: return cudaErrorInvalidValue;
+  }
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(
-      &attr, bwd_kernel_for(which, last, dynamic_smem_bytes));
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);

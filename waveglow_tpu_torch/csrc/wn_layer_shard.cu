@@ -13,9 +13,10 @@
 //   acts    = tanh(g[:C']) * sigmoid(g[C':])            (f32)
 //   partial = acts @ w_rs_s                             (f32 accumulation)
 //
-// over the full C = 256 input channels of x. The partial is the rank's
-// share of the res/skip sum, without b_rs and without the residual: the
-// caller sums the ranks' partials in a fixed order, then adds b_rs, the
+// over the full C input channels of x. Built for C in {128, 256, 512} and
+// C' = C / model, model in {2, 4, 8} (C' from 16 to 256). The partial is the
+// rank's share of the res/skip sum, without b_rs and without the residual:
+// the caller sums the ranks' partials in a fixed order, then adds b_rs, the
 // residual, the valid_t row mask and the skip sum once
 // (models/wn.py::wn_forward_tp).
 //
@@ -24,85 +25,88 @@
 // [2C'] f32; w_rs_s [C', 2C] ([C', C] for the last layer); partial [B, T, 2C]
 // ([B, T, C]) f32. cond_s, w_in_s and w_rs_s are f32 (parity mode) or bf16
 // (fast mode). In fast mode the taps of x and the acts are rounded to bf16
-// before they enter a product, as wn_layer_kernel_mma rounds them; every
-// product of two bf16 values is exact in f32, so FFMAs over the converted
-// operands give bf16 operands with f32 accumulation. f32 mode is true FFMA,
+// before they enter a product, as wn_layer_kernel_mma rounds them, and every
+// product accumulates in f32; the gate runs in f32. f32 mode is true FFMA,
 // no TF32.
 //
-// What bounds it on an H100 SXM: a non-last layer at B=1, T=26,432 groups
-// and C' = 128 does 2*T*(3*C*2C' + C'*2C) = 13.9 GFLOP, 0.21 ms at the 67
-// TFLOP/s f32 rate (operation-bound); in bf16 its bytes (x in, cond_s in,
-// the partial out) are T*(4C + 2*2C' + 4*2C) = 95 MB, 0.028 ms at 3.35 TB/s
-// (byte-bound, the FFMAs on converted bf16 then take the f32 rate's time).
+// What bounds it on an H100 SXM: a non-last layer at B=1, T=26,432 groups,
+// C = 256 and C' = 128 does 2*T*(3*C*2C' + C'*2C) = 13.9 GFLOP, 0.21 ms at
+// the 67 TFLOP/s f32 rate (operation-bound); in bf16 the same work is 0.014
+// ms at 989 TFLOP/s, under the 0.028 ms its bytes take at 3.35 TB/s (x in,
+// cond_s in, the f32 partial out: T*(4C + 2*2C' + 4*2C) = 95 MB), so bf16
+// is byte-bound.
 //
-// Design (simple first; making it fast is later work): one block of 256
-// threads per (batch row, tile of 32 time rows). For each tap the tile's 32
-// tap rows of x (zero outside [0, T)) are staged in shared memory; each
-// thread holds 2 tanh and the same 2 sigmoid channels of this rank for
-// 32 / (256 / (C'/2)) rows, reads its weights through the L1 cache and runs
-// the gate on its accumulators. The acts go to shared memory (over the tap
-// rows); for the second product each thread holds 4 adjacent output
-// columns for 16 (or 8) rows. No atomics and no split K: every output is
-// summed in one fixed order, so two launches give the same bits.
+// Two kernels, one per mode.
+//
+// wn_shard_kernel (f32, FFMA; simple first): one block of 256 threads per
+// (batch row, tile of 32 time rows). For each tap the tile's 32 tap rows of
+// x (zero outside [0, T)) are staged in shared memory; each thread holds 2
+// tanh and the same 2 sigmoid channels of this rank for 32 / (256 / (C'/2))
+// rows, reads its weights through the L1 cache and runs the gate on its
+// accumulators. The acts go to shared memory (over the tap rows); for the
+// second product each thread holds 4 adjacent output columns for
+// 32 / (256 / (N/4)) rows.
+//
+// wn_shard_kernel_mma (bf16, tensor cores): mma.sync m16n8k16 (bf16
+// operands, f32 accumulators) fed by ldmatrix from padded shared memory.
+// One block of 256 threads (8 warps) per (batch row, tile of 64 time rows);
+// both products run as one sequence of K chunks through a 4-stage ring:
+//   * first product, 3C/32 chunks of 32 K rows (tap = chunk / (C/32)): the
+//     chunk's w_in_s rows (all 2C' columns) by cp.async, and its 64 tap
+//     rows x 32 channels of x, loaded into registers one chunk ahead of
+//     their slot (f32 cannot be cp.async'd into bf16), rounded to bf16 and
+//     stored after the current chunk's products;
+//   * the warp grid pairs gate columns: warp (rw, cw) holds rows
+//     [rw*R, rw*R + R) and both the tanh and the sigmoid columns of the
+//     same C'/kColWarps channels, so the gate runs on the accumulators
+//     (cond_s and b_in_s added in f32), and the acts go to shared memory
+//     rounded to bf16;
+//   * second product, N/128 column blocks x C'/K2 chunks of w_rs_s (K2 =
+//     min(32, C')): each warp holds 32 rows x 32 columns of the block, and
+//     after the block's last chunk writes them straight from the
+//     accumulators: lane pairs swap halves (one shuffle), so each lane
+//     stores 4 adjacent f32 columns, 16 bytes, of one row.
+// No atomics and no split K: every output is summed in one fixed order, so
+// two launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <atomic>
 
 namespace {
 
-constexpr int kC = 256;                  // input channels (the model's width)
-constexpr int kThreads = 256;
-constexpr int kRows = 32;                // time rows a block
-constexpr int kStride = kC + 4;          // padded shared row: rows 2 apart
-                                         // fall 8 banks apart
-
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+// ---- the f32 kernel (FFMA) --------------------------------------------------
 
-template <bool kBf16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (kBf16) return __bfloat162float(__float2bfloat16(v));
-  return v;
-}
+constexpr int kThreads = 256;
+constexpr int kRows = 32;                // time rows a block
 
-// Four adjacent weights as floats (16-byte f32 or 8-byte bf16 load).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-template <int kCP, bool kBf16, bool kLast>
+template <int kC, int kCP, bool kLast>
 __global__ void __launch_bounds__(kThreads)
-wn_shard_kernel(const float* __restrict__ x,
-                const typename std::conditional<kBf16, bf16, float>::type* __restrict__ cond,
-                const typename std::conditional<kBf16, bf16, float>::type* __restrict__ w_in,
-                const float* __restrict__ b_in,
-                const typename std::conditional<kBf16, bf16, float>::type* __restrict__ w_rs,
-                float* __restrict__ out, int T, int dilation) {
+wn_shard_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+                const float* __restrict__ w_in, const float* __restrict__ b_in,
+                const float* __restrict__ w_rs, float* __restrict__ out, int T,
+                int dilation) {
+  constexpr int kStride = kC + 4;          // padded shared row: rows 2 apart
+                                           // fall 8 banks apart
   constexpr int kIn = 2 * kCP;             // gate columns of this rank
   constexpr int kN = kLast ? kC : 2 * kC;  // partial columns
-  constexpr int kPairs = kCP / 2;          // channel pairs: 64, 32, 16
+  constexpr int kPairs = kCP / 2;          // channel pairs
   constexpr int kRG1 = kThreads / kPairs;  // row groups of the gate product
-  constexpr int kR1 = kRows / kRG1;        // rows a thread: 8, 4, 2
+  constexpr int kR1 = kRows / kRG1;        // rows a thread
   constexpr int kCG2 = kN / 4;             // float4 columns of the partial
   constexpr int kRG2 = kThreads / kCG2;
-  constexpr int kR2 = kRows / kRG2;        // rows a thread: 16 or 8
+  constexpr int kR2 = kRows / kRG2;        // rows a thread
   static_assert(kThreads % kPairs == 0 && kRows % kRG1 == 0, "gate grid");
   static_assert(kThreads % kCG2 == 0 && kRows % kRG2 == 0, "partial grid");
   static_assert(kCP + 4 <= kStride, "acts fit in a tap row");
 
   // tap rows of x during the first product, then the acts [kRows][kCP]
-  __shared__ __align__(16) float tile[kRows][kStride];
+  extern __shared__ float4 shard_smem[];
+  float (*tile)[kStride] = reinterpret_cast<float (*)[kStride]>(shard_smem);
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kRows;
@@ -128,19 +132,15 @@ wn_shard_kernel(const float* __restrict__ x,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t >= 0 && t < T)
         v = __ldg(reinterpret_cast<const float4*>(xb + static_cast<int64_t>(t) * kC) + q);
-      v.x = operand<kBf16>(v.x);
-      v.y = operand<kBf16>(v.y);
-      v.z = operand<kBf16>(v.z);
-      v.w = operand<kBf16>(v.w);
       *reinterpret_cast<float4*>(&tile[r][q * 4]) = v;
     }
     __syncthreads();
-    const auto* w = w_in + static_cast<int64_t>(tap) * kC * kIn;
+    const float* w = w_in + static_cast<int64_t>(tap) * kC * kIn;
 #pragma unroll 4
     for (int k = 0; k < kC; ++k) {
-      const auto* wk = w + k * kIn;
-      const float wt0 = to_f32(wk[c0]), wt1 = to_f32(wk[c0 + 1]);
-      const float ws0 = to_f32(wk[kCP + c0]), ws1 = to_f32(wk[kCP + c0 + 1]);
+      const float* wk = w + k * kIn;
+      const float wt0 = wk[c0], wt1 = wk[c0 + 1];
+      const float ws0 = wk[kCP + c0], ws1 = wk[kCP + c0 + 1];
 #pragma unroll
       for (int r = 0; r < kR1; ++r) {
         const float xv = tile[r1 + r][k];
@@ -161,16 +161,16 @@ wn_shard_kernel(const float* __restrict__ x,
     const int t = t0 + r1 + r;
     float ct0 = 0.f, ct1 = 0.f, cs0 = 0.f, cs1 = 0.f;
     if (t < T) {
-      const auto* crow = cond + (static_cast<int64_t>(b) * T + t) * kIn;
-      ct0 = to_f32(crow[c0]);
-      ct1 = to_f32(crow[c0 + 1]);
-      cs0 = to_f32(crow[kCP + c0]);
-      cs1 = to_f32(crow[kCP + c0 + 1]);
+      const float* crow = cond + (static_cast<int64_t>(b) * T + t) * kIn;
+      ct0 = crow[c0];
+      ct1 = crow[c0 + 1];
+      cs0 = crow[kCP + c0];
+      cs1 = crow[kCP + c0 + 1];
     }
     const float g_t0 = acc[r][0] + bt0 + ct0, g_t1 = acc[r][1] + bt1 + ct1;
     const float g_s0 = acc[r][2] + bs0 + cs0, g_s1 = acc[r][3] + bs1 + cs1;
-    act[r][0] = operand<kBf16>(tanhf(g_t0) * (1.f / (1.f + expf(-g_s0))));
-    act[r][1] = operand<kBf16>(tanhf(g_t1) * (1.f / (1.f + expf(-g_s1))));
+    act[r][0] = tanhf(g_t0) * (1.f / (1.f + expf(-g_s0)));
+    act[r][1] = tanhf(g_t1) * (1.f / (1.f + expf(-g_s1)));
   }
   __syncthreads();                         // every tap row read: reuse tile
 #pragma unroll
@@ -190,7 +190,8 @@ wn_shard_kernel(const float* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc2[r][j] = 0.f;
 #pragma unroll 2
   for (int k = 0; k < kCP; ++k) {
-    const float4 w4 = load4(w_rs + static_cast<int64_t>(k) * kN + cg * 4);
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(
+        w_rs + static_cast<int64_t>(k) * kN + cg * 4));
 #pragma unroll
     for (int r = 0; r < kR2; ++r) {
       const float a = tile[r2 + r][k];
@@ -211,98 +212,519 @@ wn_shard_kernel(const float* __restrict__ x,
   }
 }
 
-template <int kCP, bool kBf16, bool kLast>
+template <int kC>
+constexpr int f32_smem_bytes() {
+  return kRows * (kC + 4) * 4;
+}
+
+// ---- the bf16 kernel (tensor cores) -----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// register i of lane l holds row l/4, columns 2(l%4), 2(l%4)+1 of matrix i
+// (of its transpose with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a @ b: one m16n8k16 product on the tensor cores, bf16 operands, f32
+// accumulators. Fragments: a (16x16, row-major) a0 = (g, 2q..2q+1), a1 =
+// (g+8, 2q..), a2 = (g, 2q+8..), a3 = (g+8, 2q+8..); b (16x8) b0 = (k
+// 2q..2q+1, n g), b1 = (k 2q+8.., n g); d d0,d1 = (g, 2q..2q+1), d2,d3 =
+// (g+8, 2q..), with g = lane/4, q = lane%4.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo at the lower address
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
+}
+
+constexpr int kMmaRows = 64;     // time rows a block
+constexpr int kK1 = 32;          // K rows of a first-product chunk
+constexpr int kNB = 128;         // columns of a second-product block
+constexpr int kMmaStages = 4;    // ring depth
+constexpr int kMmaAhead = kMmaStages - 1;  // chunks loading ahead
+
+// Shared layout of the (C, C', last) instance, in bytes. Rows are padded
+// by 16 bytes past a multiple of 128, so the 8 rows of an 8x8 ldmatrix fall
+// in different banks.
+template <int kC, int kCP, bool kLast>
+struct ShardMma {
+  static constexpr int kN = kLast ? kC : 2 * kC;   // partial columns
+  static constexpr int kK2 = kCP < 32 ? kCP : 32;   // K rows of a w_rs chunk
+  static constexpr int kColWarps = kCP / 8 < 4 ? kCP / 8 : 4;
+  static constexpr int kRowWarps = 8 / kColWarps;
+  static constexpr int kWarpRows = kMmaRows / kRowWarps;  // 32 or 16
+  static constexpr int kM = kWarpRows / 16;               // m16 blocks
+  static constexpr int kWarpCh = kCP / kColWarps;         // channels a warp
+  static constexpr int kN8 = kWarpCh / 8;                 // n8 blocks a half
+  static constexpr int kAStride = kK1 + 8;        // x chunk row (bf16)
+  static constexpr int kWStride = 2 * kCP + 8;    // w_in_s chunk row
+  static constexpr int kRStride = kNB + 8;        // w_rs_s chunk row
+  static constexpr int kActStride = kCP + 8;      // acts row
+  static constexpr int kABytes = kMmaRows * kAStride * 2;
+  static constexpr int kIn1Bytes = kABytes + kK1 * kWStride * 2;
+  static constexpr int kIn2Bytes = kK2 * kRStride * 2;
+  static constexpr int kSlotBytes = kIn1Bytes > kIn2Bytes ? kIn1Bytes : kIn2Bytes;
+  static constexpr int kActBytes = kMmaRows * kActStride * 2;
+  static constexpr int kSmem = kMmaStages * kSlotBytes + kActBytes;
+  static constexpr int kChunks1 = 3 * kC / kK1;
+  static constexpr int kChunksPerBlock = kCP / kK2;
+  static constexpr int kChunks = kChunks1 + kN / kNB * kChunksPerBlock;
+  // float4 pieces of x a thread loads for a chunk: 64 rows x 32 channels
+  static constexpr int kAPieces = kMmaRows * kK1 / 4 / kThreads;  // 2
+  static_assert(kColWarps * kRowWarps == 8 && kM >= 1 && kN8 >= 1, "warps");
+  static_assert(kN % kNB == 0 && kCP % kK2 == 0 && kK2 % 16 == 0, "shapes");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// Load, into registers, the x pieces of chunk `c` of the first product
+// (tap c / (C/32), channels (c % (C/32)) * 32 + [0, 32)) for the tile's 64
+// rows: zero outside [0, T).
+template <int kC, int kPieces>
+__device__ __forceinline__ void load_x_chunk(float4 (&v)[kPieces], int c,
+                                             const float* xb, int t0, int T,
+                                             int dilation) {
+  const int tap = c / (kC / kK1);
+  const int k0 = (c % (kC / kK1)) * kK1;
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    const int r = p / (kK1 / 4), q = p % (kK1 / 4);
+    const int t = t0 + r + (tap - 1) * dilation;
+    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t >= 0 && t < T)
+      v[i] = __ldg(reinterpret_cast<const float4*>(
+          xb + static_cast<int64_t>(t) * kC + k0 + q * 4));
+  }
+}
+
+// Round the loaded x pieces to bf16 into a slot's A area [64][kAStride].
+template <int kAStride, int kPieces>
+__device__ __forceinline__ void store_x_chunk(char* a_area,
+                                              const float4 (&v)[kPieces]) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    const int r = p / (kK1 / 4), q = p % (kK1 / 4);
+    *reinterpret_cast<uint2*>(a_area + (r * kAStride + q * 4) * 2) =
+        make_uint2(pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+  }
+}
+
+// Start the cp.async copies of chunk `c`'s weights into its slot: for the
+// first product the w_in_s rows [32c, 32c + 32) (all 2C' columns) after the
+// A area; for the second, column block (c - kChunks1) / kChunksPerBlock of
+// w_rs_s, rows of K chunk (c - kChunks1) % kChunksPerBlock.
+template <int kC, int kCP, bool kLast>
+__device__ __forceinline__ void load_w_chunk(uint32_t slot, int c,
+                                             const bf16* w_in,
+                                             const bf16* w_rs) {
+  using L = ShardMma<kC, kCP, kLast>;
+  if (c < L::kChunks1) {
+    constexpr int kPerRow = 2 * kCP / 8;  // 16-byte pieces
+    constexpr int kPieces = kK1 * kPerRow;
+    const bf16* src = w_in + static_cast<int64_t>(c) * kK1 * 2 * kCP;
+#pragma unroll
+    for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
+      const int p = threadIdx.x + i * kThreads;
+      if (kPieces % kThreads == 0 || p < kPieces) {
+        const int r = p / kPerRow, q = p % kPerRow;
+        cp_async16(slot + L::kABytes + (r * L::kWStride + q * 8) * 2,
+                   src + r * 2 * kCP + q * 8);
+      }
+    }
+  } else {
+    const int j = c - L::kChunks1;
+    const int n0 = (j / L::kChunksPerBlock) * kNB;
+    const int k0 = (j % L::kChunksPerBlock) * L::kK2;
+    constexpr int kPerRow = kNB / 8;
+    constexpr int kPieces = L::kK2 * kPerRow;
+#pragma unroll
+    for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
+      const int p = threadIdx.x + i * kThreads;
+      if (kPieces % kThreads == 0 || p < kPieces) {
+        const int r = p / kPerRow, q = p % kPerRow;
+        cp_async16(slot + (r * L::kRStride + q * 8) * 2,
+                   w_rs + static_cast<int64_t>(k0 + r) * L::kN + n0 + q * 8);
+      }
+    }
+  }
+}
+
+template <int kC, int kCP, bool kLast>
+__global__ void __launch_bounds__(kThreads, 1)
+wn_shard_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
+                    const bf16* __restrict__ w_in,
+                    const float* __restrict__ b_in,
+                    const bf16* __restrict__ w_rs, float* __restrict__ out,
+                    int T, int dilation) {
+  using L = ShardMma<kC, kCP, kLast>;
+  extern __shared__ __align__(16) uint4 shard_mma_smem[];
+  char* base = reinterpret_cast<char*>(shard_mma_smem);
+  const uint32_t ring_s = smem_u32(base);
+  char* acts = base + kMmaStages * L::kSlotBytes;  // [64][kActStride] bf16
+  const uint32_t acts_s = smem_u32(acts);
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kMmaRows;
+  const int rows = min(kMmaRows, T - t0);
+  const int64_t row0 = static_cast<int64_t>(b) * T + t0;
+  const float* xb = x + static_cast<int64_t>(b) * T * kC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q4 = lane % 4;
+
+  // ---- prologue: chunks 0 .. kMmaAhead-1 (first-product chunks) ----------
+  for (int c = 0; c < kMmaAhead; ++c) {
+    float4 v[L::kAPieces];
+    load_x_chunk<kC>(v, c, xb, t0, T, dilation);
+    store_x_chunk<L::kAStride>(base + c * L::kSlotBytes, v);
+    load_w_chunk<kC, kCP, kLast>(ring_s + c * L::kSlotBytes, c, w_in, w_rs);
+    cp_async_commit();
+  }
+
+  // ---- first product: warp (rw, cw) holds rows [rw*R, +R) and channels
+  // [cw*W, +W) of the tanh half and of the sigmoid half: m16 block mi, n8
+  // block j, element e is row rw*R + 16mi + g + 8(e/2), channel cw*W + 8j +
+  // 2q4 + e%2
+  const int rw1 = warp / L::kColWarps, cw1 = warp % L::kColWarps;
+  const int r1 = rw1 * L::kWarpRows;
+  const int ch1 = cw1 * L::kWarpCh;
+  float acc_t[L::kM][L::kN8][4], acc_s[L::kM][L::kN8][4];
+#pragma unroll
+  for (int mi = 0; mi < L::kM; ++mi)
+#pragma unroll
+    for (int j = 0; j < L::kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_t[mi][j][e] = acc_s[mi][j][e] = 0.f;
+
+  // second product: warp (rw, cw) holds rows [32rw, +32) and columns
+  // [32cw, +32) of the current 128-column block
+  const int r2 = (warp / 4) * 32;
+  const int n2 = (warp % 4) * 32;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+#pragma unroll 1
+  for (int c = 0; c < L::kChunks; ++c) {
+    // chunk c landed for every thread; chunk c-1's slot is free
+    cp_async_wait<kMmaAhead - 1>();
+    __syncthreads();
+    const int next = c + kMmaAhead;
+    const uint32_t next_slot = ring_s + (next % kMmaStages) * L::kSlotBytes;
+    float4 v[L::kAPieces];
+    const bool next_x = next < L::kChunks1;
+    if (next_x) load_x_chunk<kC>(v, next, xb, t0, T, dilation);
+    if (next < L::kChunks) load_w_chunk<kC, kCP, kLast>(next_slot, next, w_in, w_rs);
+    cp_async_commit();
+    const uint32_t slot = ring_s + (c % kMmaStages) * L::kSlotBytes;
+
+    if (c < L::kChunks1) {
+#pragma unroll
+      for (int kk = 0; kk < kK1; kk += 16) {
+        uint32_t a[L::kM][4];
+#pragma unroll
+        for (int mi = 0; mi < L::kM; ++mi)
+          ldsm_x4(a[mi], slot + ((r1 + 16 * mi + lane % 16) * L::kAStride +
+                                 kk + (lane / 16) * 8) * 2);
+        // matrices 0, 1: the tanh n8 block's k rows 0-7, 8-15; 2, 3: the
+        // sigmoid block's
+        const uint32_t brow =
+            slot + L::kABytes +
+            ((kk + lane % 8 + ((lane / 8) % 2) * 8) * L::kWStride + ch1 +
+             (lane / 16) * kCP) * 2;
+#pragma unroll
+        for (int j = 0; j < L::kN8; ++j) {
+          uint32_t bw[4];
+          ldsm_x4_t(bw, brow + j * 8 * 2);
+#pragma unroll
+          for (int mi = 0; mi < L::kM; ++mi) {
+            mma16816(acc_t[mi][j], a[mi], bw[0], bw[1]);
+            mma16816(acc_s[mi][j], a[mi], bw[2], bw[3]);
+          }
+        }
+      }
+    } else {
+      const int k0 = ((c - L::kChunks1) % L::kChunksPerBlock) * L::kK2;
+#pragma unroll
+      for (int kk = 0; kk < L::kK2; kk += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm_x4(a[mi], acts_s + ((r2 + 16 * mi + lane % 16) * L::kActStride +
+                                   k0 + kk + (lane / 16) * 8) * 2);
+#pragma unroll
+        for (int pb = 0; pb < 2; ++pb) {
+          uint32_t bw[4];
+          ldsm_x4_t(bw, slot + ((kk + lane % 8 + ((lane / 8) % 2) * 8) *
+                                    L::kRStride +
+                                n2 + pb * 16 + (lane / 16) * 8) * 2);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma16816(acc[mi][2 * pb], a[mi], bw[0], bw[1]);
+            mma16816(acc[mi][2 * pb + 1], a[mi], bw[2], bw[3]);
+          }
+        }
+      }
+    }
+    // chunk `next`'s x into its slot, now that this chunk's loads are done
+    if (next_x) store_x_chunk<L::kAStride>(base + (next % kMmaStages) * L::kSlotBytes, v);
+
+    if (c == L::kChunks1 - 1) {
+      // ---- the gate (f32) on the accumulators, acts to shared as bf16 ----
+      // Rows >= T have zero taps and cond: finite acts, never stored.
+      // The next step's barrier orders these stores before their reads.
+#pragma unroll
+      for (int j = 0; j < L::kN8; ++j) {
+        const int ch = ch1 + 8 * j + 2 * q4;
+        const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+        const float2 bs = *reinterpret_cast<const float2*>(b_in + kCP + ch);
+#pragma unroll
+        for (int mi = 0; mi < L::kM; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r1 + 16 * mi + g + 8 * h;
+            float2 ct = make_float2(0.f, 0.f), cs = make_float2(0.f, 0.f);
+            if (row < rows) {
+              const bf16* cr = cond + (row0 + row) * 2 * kCP + ch;
+              ct = unpack_bf16(*reinterpret_cast<const uint32_t*>(cr));
+              cs = unpack_bf16(*reinterpret_cast<const uint32_t*>(cr + kCP));
+            }
+            const float gt0 = acc_t[mi][j][2 * h] + bt.x + ct.x;
+            const float gt1 = acc_t[mi][j][2 * h + 1] + bt.y + ct.y;
+            const float gs0 = acc_s[mi][j][2 * h] + bs.x + cs.x;
+            const float gs1 = acc_s[mi][j][2 * h + 1] + bs.y + cs.y;
+            const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
+            const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
+            *reinterpret_cast<uint32_t*>(acts + (row * L::kActStride + ch) * 2) =
+                pack_bf16(v0, v1);
+          }
+      }
+    } else if (c >= L::kChunks1 &&
+               (c - L::kChunks1) % L::kChunksPerBlock == L::kChunksPerBlock - 1) {
+      // ---- the column block is done: write it from the accumulators ------
+      // Lanes q4 and q4^1 swap halves: the even lane then holds row g,
+      // columns 4(q4/2)..+3 of an n8 block, the odd lane row g+8.
+      const int n0 = ((c - L::kChunks1) / L::kChunksPerBlock) * kNB + n2;
+      const bool odd = q4 & 1;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* d = acc[mi][j];
+          const float s0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+          const float s1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+          const float4 o = odd ? make_float4(s0, s1, d[2], d[3])
+                               : make_float4(d[0], d[1], s0, s1);
+          const int row = r2 + 16 * mi + g + (odd ? 8 : 0);
+          if (row < rows)
+            *reinterpret_cast<float4*>(out + (row0 + row) * L::kN + n0 + 8 * j +
+                                       4 * (q4 / 2)) = o;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- launch -----------------------------------------------------------------
+
+// The opt-in to more than 48 KB of dynamic shared memory, made once per
+// kernel and device (bit `device` of `*done`), not on every launch.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = 1u << (device & 31);
+  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// The (C, C', bf16, last) instance as a function pointer, and the dynamic
+// shared bytes its launcher passes.
+template <int kC, int kCP, bool kBf16, bool kLast>
+const void* instance(int* smem_bytes) {
+  if constexpr (kBf16) {
+    *smem_bytes = ShardMma<kC, kCP, kLast>::kSmem;
+    return reinterpret_cast<const void*>(wn_shard_kernel_mma<kC, kCP, kLast>);
+  } else {
+    *smem_bytes = f32_smem_bytes<kC>();
+    return reinterpret_cast<const void*>(wn_shard_kernel<kC, kCP, kLast>);
+  }
+}
+
+template <int kC, int kCP, bool kBf16, bool kLast>
 cudaError_t launch(const float* x, const void* cond, const void* w_in,
                    const float* b_in, const void* w_rs, float* out, int batch,
                    int T, int dilation, cudaStream_t stream) {
-  using Op = typename std::conditional<kBf16, bf16, float>::type;
-  dim3 grid((T + kRows - 1) / kRows, batch);
-  wn_shard_kernel<kCP, kBf16, kLast><<<grid, kThreads, 0, stream>>>(
-      x, static_cast<const Op*>(cond), static_cast<const Op*>(w_in), b_in,
-      static_cast<const Op*>(w_rs), out, T, dilation);
+  static std::atomic<uint32_t> opted_in{0};
+  if constexpr (kBf16) {
+    constexpr int smem = ShardMma<kC, kCP, kLast>::kSmem;
+    auto kernel = wn_shard_kernel_mma<kC, kCP, kLast>;
+    cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T + kMmaRows - 1) / kMmaRows, batch);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        x, static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in), b_in,
+        static_cast<const bf16*>(w_rs), out, T, dilation);
+  } else {
+    constexpr int smem = f32_smem_bytes<kC>();
+    auto kernel = wn_shard_kernel<kC, kCP, kLast>;
+    cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T + kRows - 1) / kRows, batch);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        x, static_cast<const float*>(cond), static_cast<const float*>(w_in),
+        b_in, static_cast<const float*>(w_rs), out, T, dilation);
+  }
   return cudaGetLastError();
 }
 
-template <int kCP>
-const void* kernel_for_width(int bf16_mode, int last) {
-  if (bf16_mode)
-    return last ? reinterpret_cast<const void*>(wn_shard_kernel<kCP, true, true>)
-                : reinterpret_cast<const void*>(wn_shard_kernel<kCP, true, false>);
-  return last ? reinterpret_cast<const void*>(wn_shard_kernel<kCP, false, true>)
-              : reinterpret_cast<const void*>(wn_shard_kernel<kCP, false, false>);
-}
+struct Args {
+  const float* x;
+  const void* cond;
+  const void* w_in;
+  const float* b_in;
+  const void* w_rs;
+  float* out;
+  int batch, T, dilation;
+  cudaStream_t stream;
+};
 
-const void* kernel_for(int cp, int bf16_mode, int last) {
-  switch (cp) {
-    case 128: return kernel_for_width<128>(bf16_mode, last);
-    case 64: return kernel_for_width<64>(bf16_mode, last);
-    case 32: return kernel_for_width<32>(bf16_mode, last);
-    default: return nullptr;
-  }
-}
-
-template <int kCP>
-cudaError_t launch_width(const float* x, const void* cond, const void* w_in,
-                         const float* b_in, const void* w_rs, float* out,
-                         int batch, int T, int dilation, int bf16_mode,
-                         int last, cudaStream_t stream) {
-#define WN_SHARD_LAUNCH(BF, LAST) \
-  return launch<kCP, BF, LAST>(x, cond, w_in, b_in, w_rs, out, batch, T, \
-                               dilation, stream)
+// Launch the (C, C') instance in the mode `bf16_mode` and variant `last`,
+// or (with `a` null) return it as a function pointer and its shared bytes.
+template <int kC, int kCP>
+cudaError_t dispatch_pair(const Args* a, int bf16_mode, int last,
+                          const void** kernel, int* smem_bytes) {
+#define WN_SHARD_CASE(BF, LAST)                                              \
+  if (a == nullptr) {                                                         \
+    *kernel = instance<kC, kCP, BF, LAST>(smem_bytes);                        \
+    return cudaSuccess;                                                       \
+  }                                                                           \
+  return launch<kC, kCP, BF, LAST>(a->x, a->cond, a->w_in, a->b_in, a->w_rs, \
+                                   a->out, a->batch, a->T, a->dilation,      \
+                                   a->stream)
   if (bf16_mode) {
-    if (last) WN_SHARD_LAUNCH(true, true);
-    WN_SHARD_LAUNCH(true, false);
+    if (last) { WN_SHARD_CASE(true, true); }
+    WN_SHARD_CASE(true, false);
   }
-  if (last) WN_SHARD_LAUNCH(false, true);
-  WN_SHARD_LAUNCH(false, false);
-#undef WN_SHARD_LAUNCH
+  if (last) { WN_SHARD_CASE(false, true); }
+  WN_SHARD_CASE(false, false);
+#undef WN_SHARD_CASE
+}
+
+// The built (C, C') pairs: C' = C / model, model in {2, 4, 8}.
+template <int kC>
+cudaError_t dispatch_width(int cp, const Args* a, int bf16_mode, int last,
+                           const void** kernel, int* smem_bytes) {
+  if (cp == kC / 2)
+    return dispatch_pair<kC, kC / 2>(a, bf16_mode, last, kernel, smem_bytes);
+  if (cp == kC / 4)
+    return dispatch_pair<kC, kC / 4>(a, bf16_mode, last, kernel, smem_bytes);
+  if (cp == kC / 8)
+    return dispatch_pair<kC, kC / 8>(a, bf16_mode, last, kernel, smem_bytes);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(int c, int cp, const Args* a, int bf16_mode, int last,
+                     const void** kernel, int* smem_bytes) {
+  switch (c) {
+    case 128: return dispatch_width<128>(cp, a, bf16_mode, last, kernel, smem_bytes);
+    case 256: return dispatch_width<256>(cp, a, bf16_mode, last, kernel, smem_bytes);
+    case 512: return dispatch_width<512>(cp, a, bf16_mode, last, kernel, smem_bytes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes: x [batch, T, 256] f32; cond [batch, T, 2*cp]; w_in [3, 256, 2*cp];
-// b_in [2*cp] f32; w_rs [cp, 512] or [cp, 256] (last != 0); out [batch, T,
-// 512] or [batch, T, 256] f32. cond/w_in/w_rs are bf16 when bf16 != 0, else
-// f32. cp must be 128, 64 or 32. All pointers 16-byte aligned and
-// contiguous. Launches on `stream`, does not synchronise; returns the
-// launch error.
+// Shapes: x [batch, T, c] f32; cond [batch, T, 2*cp]; w_in [3, c, 2*cp];
+// b_in [2*cp] f32; w_rs [cp, 2c] or [cp, c] (last != 0); out [batch, T,
+// 2c] or [batch, T, c] f32. cond/w_in/w_rs are bf16 when bf16 != 0, else
+// f32. c must be 128, 256 or 512 and cp one of c/2, c/4, c/8. All pointers
+// 16-byte aligned and contiguous. Launches on `stream`, does not
+// synchronise; returns the launch error.
 cudaError_t wn_layer_shard_forward(const float* x, const void* cond,
                                    const void* w_in, const float* b_in,
                                    const void* w_rs, float* out, int batch,
-                                   int T, int cp, int dilation, int bf16,
+                                   int T, int c, int cp, int dilation, int bf16,
                                    int last, cudaStream_t stream) {
   if (T <= 0 || batch <= 0 || batch > 65535 ||
       static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
-  switch (cp) {
-    case 128: return launch_width<128>(x, cond, w_in, b_in, w_rs, out, batch,
-                                       T, dilation, bf16, last, stream);
-    case 64: return launch_width<64>(x, cond, w_in, b_in, w_rs, out, batch, T,
-                                     dilation, bf16, last, stream);
-    case 32: return launch_width<32>(x, cond, w_in, b_in, w_rs, out, batch, T,
-                                     dilation, bf16, last, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  const Args a{x, cond, w_in, b_in, w_rs, out, batch, T, dilation, stream};
+  return dispatch(c, cp, &a, bf16, last, nullptr, nullptr);
 }
 
-// What the loaded build of the (cp, bf16, last) kernel uses, read from the
-// CUDA runtime: registers per thread, local (spill) bytes per thread, static
-// shared bytes, and the dynamic shared bytes its launcher passes (none).
-cudaError_t wn_layer_shard_kernel_info(int cp, int bf16, int last,
+// What the loaded build of the (c, cp, bf16, last) kernel uses, read from
+// the CUDA runtime: registers per thread, local (spill) bytes per thread,
+// static shared bytes, and the dynamic shared bytes its launcher passes.
+cudaError_t wn_layer_shard_kernel_info(int c, int cp, int bf16, int last,
                                        int* registers, int* local_bytes,
                                        int* static_smem_bytes,
                                        int* dynamic_smem_bytes) {
-  const void* kernel = kernel_for(cp, bf16, last);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  cudaError_t err = dispatch(c, cp, nullptr, bf16, last, &kernel,
+                             dynamic_smem_bytes);
+  if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
-  *dynamic_smem_bytes = 0;
   return cudaSuccess;
 }
 

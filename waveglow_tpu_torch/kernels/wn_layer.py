@@ -22,7 +22,9 @@ the skip is added into that buffer in place and the buffer returned.
 
 ``wn_layer_fused`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; on a CUDA tensor it launches the kernel or raises, never falls
-back. ``LAUNCHES`` counts kernel launches.
+back. ``LAUNCHES`` counts kernel launches. Every kernel is built for the
+widths ``kernel_widths()`` (C = 128, 256, 512; the shard kernel for
+``shard_pairs()``), and ``check_width`` refuses any other on the card.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
 mesh axis (``csrc/wn_layer_shard.cu``, built into the same library): the
@@ -69,10 +71,11 @@ SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CHANNELS = 256  # the width the kernel is built for
-# The gate channels a model rank may hold that the shard kernel is built
-# for: C / model for model in (2, 4, 8).
-SHARD_CHANNELS = (128, 64, 32)
+# The widths C every kernel is built for (the template instances of
+# csrc/*.cu: the forward, the bf16 backward and the shard kernel).
+_WIDTHS = (128, 256, 512)
+# The shard kernel holds C' = C / model gate channels, model in this set.
+SHARD_MODELS = (2, 4, 8)
 
 _LIB = None
 # nvcc/ptxas output and seconds of a build this process ran; empty and None
@@ -81,6 +84,28 @@ BUILD_LOG = ""
 BUILD_SECONDS = None
 
 ValidT = Optional[Union[int, torch.Tensor]]
+
+
+def kernel_widths() -> Tuple[int, ...]:
+  """The widths C the kernels are built for."""
+  return _WIDTHS
+
+
+def shard_pairs() -> Tuple[Tuple[int, int], ...]:
+  """The (C, C') pairs the shard kernel is built for: C' = C / model."""
+  return tuple((c, c // m) for c in _WIDTHS for m in SHARD_MODELS)
+
+
+def check_width(c: int, cp: Optional[int] = None) -> None:
+  """Raise ``ValueError`` naming the built set unless the kernels are built
+  for width ``c`` (and, with ``cp``, the shard kernel for ``cp`` gate
+  channels a rank)."""
+  if cp is None and c not in _WIDTHS:
+    raise ValueError(f"the kernels are built for C in {_WIDTHS}, got C = {c}")
+  if cp is not None and (c, cp) not in shard_pairs():
+    raise ValueError(
+        f"the shard kernel is built for (C, C') in {list(shard_pairs())} "
+        f"(C' = C / model, model in {SHARD_MODELS}), got C = {c}, C' = {cp}")
 
 
 def wn_layer_plain(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
@@ -190,18 +215,20 @@ def _library():
                     + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     for info in (lib.wn_layer_kernel_info, lib.wn_layer_bwd_kernel_info):
-      info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
+      info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
       info.restype = ctypes.c_int
     shard = lib.wn_layer_shard_forward
-    shard.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    shard.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
     shard.restype = ctypes.c_int
     shard_info = lib.wn_layer_shard_kernel_info
-    shard_info.argtypes = ([ctypes.c_int] * 3
+    shard_info.argtypes = ([ctypes.c_int] * 4
                            + [ctypes.POINTER(ctypes.c_int)] * 4)
     shard_info.restype = ctypes.c_int
+    lib.wn_layer_bwd_tile_rows.argtypes = [ctypes.c_int]
+    lib.wn_layer_bwd_tile_rows.restype = ctypes.c_int
     sched = lib.wn_layer_f32_schedule
-    sched.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    sched.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
     sched.restype = ctypes.c_int
     _LIB = lib
   return _LIB
@@ -217,32 +244,38 @@ def _info(fn, *args) -> dict:
   return dict(zip(keys, (v.value for v in vals)))
 
 
-def kernel_info(bf16: bool, last: bool) -> dict:
-  """What the loaded build of one forward kernel variant uses, from the
-  CUDA runtime (cudaFuncGetAttributes): registers and local (spill) bytes
-  per thread, static shared bytes, and the dynamic shared bytes its
-  launcher passes."""
-  return _info(_library().wn_layer_kernel_info, int(bf16), int(last))
-
-
-def shard_kernel_info(channels: int, bf16: bool, last: bool) -> dict:
-  """:func:`kernel_info` for the shard kernel holding ``channels`` gate
-  channels (one of ``SHARD_CHANNELS``)."""
-  return _info(_library().wn_layer_shard_kernel_info, channels, int(bf16),
+def kernel_info(channels: int, bf16: bool, last: bool) -> dict:
+  """What the loaded build of one forward kernel variant (width
+  ``channels``) uses, from the CUDA runtime (cudaFuncGetAttributes):
+  registers and local (spill) bytes per thread, static shared bytes, and
+  the dynamic shared bytes its launcher passes."""
+  check_width(channels)
+  return _info(_library().wn_layer_kernel_info, channels, int(bf16),
                int(last))
+
+
+def shard_kernel_info(channels: int, cp: int, bf16: bool,
+                      last: bool) -> dict:
+  """:func:`kernel_info` for the shard kernel at width ``channels``
+  holding ``cp`` gate channels (a pair of :func:`shard_pairs`)."""
+  check_width(channels, cp)
+  return _info(_library().wn_layer_shard_kernel_info, channels, cp,
+               int(bf16), int(last))
 
 
 # Time rows of one tile of the f32 kernel (kTileRows in csrc/wn_layer.cu).
 F32_TILE_ROWS = 48
 
 
-def f32_schedule(batch: int, t: int, last: bool = False) -> dict:
-  """The f32 kernel's grid for ``batch`` x ``t`` rows, as its launcher picks
-  it: one wave of blocks (SMs x blocks an SM, from the occupancy API), each
-  taking ``rows_per_block`` of the B*T rows in tiles of ``F32_TILE_ROWS``,
-  the last of them short."""
+def f32_schedule(batch: int, t: int, last: bool = False,
+                 channels: int = 256) -> dict:
+  """The f32 kernel's grid at width ``channels`` for ``batch`` x ``t``
+  rows, as its launcher picks it: one wave of blocks (SMs x blocks an SM,
+  from the occupancy API), each taking ``rows_per_block`` of the B*T rows
+  in tiles of ``F32_TILE_ROWS``, the last of them short."""
+  check_width(channels)
   vals = [ctypes.c_int() for _ in range(4)]
-  err = _library().wn_layer_f32_schedule(batch, t, int(last),
+  err = _library().wn_layer_f32_schedule(channels, batch, t, int(last),
                                          *[ctypes.byref(v) for v in vals])
   if err != 0:
     raise RuntimeError(f"wn_layer_f32_schedule failed: cudaError {err}")
@@ -257,9 +290,12 @@ def f32_schedule(batch: int, t: int, last: bool = False) -> dict:
 BWD_KERNELS = ("rows", "dx", "weights", "reduce")
 
 
-def bwd_kernel_info(kernel: str, last: bool = False) -> dict:
-  """:func:`kernel_info` for one backward kernel of ``BWD_KERNELS``."""
-  return _info(_library().wn_layer_bwd_kernel_info,
+def bwd_kernel_info(kernel: str, last: bool = False,
+                    channels: int = 256) -> dict:
+  """:func:`kernel_info` for one backward kernel of ``BWD_KERNELS`` at
+  width ``channels``."""
+  check_width(channels)
+  return _info(_library().wn_layer_bwd_kernel_info, channels,
                BWD_KERNELS.index(kernel), int(last))
 
 
@@ -291,7 +327,8 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   """One fused WN layer; same contract as :func:`wn_layer_plain`.
 
   CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch the kernel,
-  which takes: x f32 [B, T, C] with C = 256; cond, w_in, w_rs in
+  which takes: x f32 [B, T, C] with C in ``kernel_widths()`` (another
+  width raises, naming them); cond, w_in, w_rs in
   ``compute_dtype`` (f32 when None); b_in, b_rs and skip_acc f32; valid_t
   None or an int32 [B] CUDA tensor. Anything else raises.
   """
@@ -306,8 +343,7 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   if x.dim() != 3:
     raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
   batch, t, c = x.shape
-  if c != CHANNELS:
-    raise ValueError(f"kernel supports C = {CHANNELS}, got {c}")
+  check_width(c)
   last = w_rs.numel() == c * c
   n_rs = c if last else 2 * c
   wdt = compute_dtype or torch.float32
@@ -387,11 +423,11 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   :func:`wn_layer_shard_plain`.
 
   CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
-  shard kernel (``csrc/wn_layer_shard.cu``), which takes: x f32 [B, T, C]
-  with C = 256; cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when
-  None); b_in_s f32; C' one of ``SHARD_CHANNELS``. Anything else raises;
-  it never falls back to the plain version. ``SHARD_LAUNCHES`` counts the
-  launches.
+  shard kernel (``csrc/wn_layer_shard.cu``: FFMA in f32, tensor cores in
+  bf16), which takes: x f32 [B, T, C]; cond_s, w_in_s, w_rs_s in
+  ``compute_dtype`` (f32 when None); b_in_s f32; (C, C') one of
+  ``shard_pairs()``. Anything else raises; it never falls back to the
+  plain version. ``SHARD_LAUNCHES`` counts the launches.
   """
   global SHARD_LAUNCHES
   if x.device.type == "cpu":
@@ -403,14 +439,8 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   if x.dim() != 3:
     raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
   batch, t, c = x.shape
-  if c != CHANNELS:
-    raise ValueError(f"kernel supports C = {CHANNELS}, got {c}")
   cp = b_in_s.numel() // 2
-  if cp not in SHARD_CHANNELS:
-    raise ValueError(
-        f"the shard kernel is built for C' in {SHARD_CHANNELS} gate channels "
-        f"a rank (model axis {[c // n for n in SHARD_CHANNELS]}), got C' = "
-        f"{cp}")
+  check_width(c, cp)
   last = w_rs_s.numel() == cp * c
   n_rs = c if last else 2 * c
   wdt = compute_dtype or torch.float32
@@ -425,7 +455,7 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   with torch.cuda.device(dev):  # the launch goes to this device's stream
     err = _library().wn_layer_shard_forward(
         x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
-        b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, cp,
+        b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, c, cp,
         int(dilation), int(wdt == torch.bfloat16), int(last),
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
@@ -544,9 +574,10 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
   """:func:`wn_layer_backward` with ``compute_dtype=torch.bfloat16`` on the
   card: the four kernels of ``csrc/wn_layer_bwd.cu`` (one call, counted
   once in ``BWD_LAUNCHES``). Inputs as :func:`wn_layer_fused` takes them in
-  bf16 (x, b_in, b_rs f32; cond, w_in, w_rs bf16; C = 256; valid_t None or
-  an int32 [B] tensor on the card); the cotangents f32 [B, T, C] or None
-  (zero, never materialised). Anything else raises."""
+  bf16 (x, b_in, b_rs f32; cond, w_in, w_rs bf16; C in
+  ``kernel_widths()``; valid_t None or an int32 [B] tensor on the card);
+  the cotangents f32 [B, T, C] or None (zero, never materialised).
+  Anything else raises."""
   global BWD_LAUNCHES
   x, cond, w_in, b_in, w_rs, b_rs = saved
   if x.device.type != "cuda":
@@ -555,8 +586,7 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
     raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
   dev = x.device
   batch, t, c = x.shape
-  if c != CHANNELS:
-    raise ValueError(f"kernel supports C = {CHANNELS}, got {c}")
+  check_width(c)
   last = w_rs.numel() == c * c
   n_rs = c if last else 2 * c
   bf16 = torch.bfloat16
@@ -591,20 +621,23 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
   acts = empty((rows, c), bf16)
   x_bf = empty((rows, c), bf16)
   drs = empty((rows, n_rs), bf16)
-  part_bias = empty((batch * -(-t // 64), 2 * c + n_rs), torch.float32)
+  lib = _library()
+  tile = lib.wn_layer_bwd_tile_rows(c)  # the rows kernel's time rows a tile
+  part_bias = empty((batch * -(-t // tile), 2 * c + n_rs), torch.float32)
   ws = empty((batch * n_splits_t, 3 * c * 2 * c + c * n_rs), torch.float32)
 
   def ptr(v):
     return v.data_ptr() if v is not None else None
 
-  err = _library().wn_layer_backward_bf16(
-      x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-      w_rs.data_ptr(), ptr(cots[0]), ptr(cots[1]), ptr(valid_t),
-      dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
-      dw_rs.data_ptr(), db_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(),
-      drs.data_ptr(), part_bias.data_ptr(), ws.data_ptr(), batch, t, c,
-      int(dilation), int(last), n_splits_t, SPLIT_ROWS,
-      torch.cuda.current_stream(dev).cuda_stream)
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_backward_bf16(
+        x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+        w_rs.data_ptr(), ptr(cots[0]), ptr(cots[1]), ptr(valid_t),
+        dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
+        dw_rs.data_ptr(), db_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(),
+        drs.data_ptr(), part_bias.data_ptr(), ws.data_ptr(), batch, t, c,
+        int(dilation), int(last), n_splits_t, SPLIT_ROWS,
+        torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer backward kernels failed to launch: "
                        f"cudaError {err}")
