@@ -378,10 +378,14 @@ BACKWARD_DESIGN = (
     "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
     "reduce")
 SHARD_DESIGN = {
-    "f32": "FFMA: 256-thread blocks of 32 time rows, the tap rows of x staged "
-           "in shared memory a tap at a time, 2 tanh + 2 sigmoid channels a "
-           "thread, weights through L1, acts in shared memory for the "
-           "partial res/skip product",
+    "f32": "FFMA: one wave of 384-thread (C' >= 128) or 512-thread blocks, "
+           "each walking an equal share of the B*T rows in tiles (48 rows at "
+           "C' = 256 to 512 at C' = 16); both products as one sequence of "
+           "16-row K chunks (taps and w_in_s, then w_rs_s) through a 4-stage "
+           "cp.async ring; 8 rows (4 at C' <= 64) x (4 tanh + 4 sigmoid) "
+           "channels a thread, the gate on the accumulators, acts in shared "
+           "memory, the partial in passes of 2C' columns written from the "
+           "accumulators",
     "bf16": "mma.sync m16n8k16 bf16 (ldmatrix from padded shared memory, f32 "
             "accumulators): 256-thread blocks of 64 time rows, both products "
             "as one sequence of K chunks through a 4-stage ring (w_in and "
@@ -391,6 +395,15 @@ SHARD_DESIGN = {
 # Shapes at which phase 2 reports the f32 kernel's grid: phase 3's two batch
 # sizes and the training segment.
 F32_GRID_SHAPES = ((1, T_KERNEL), (8, T_KERNEL), (B_TRAIN, T_TRAIN))
+# The f32 shard kernel's times before its redesign (a full run of this
+# script with the simple FFMA kernel on an NVIDIA H100 80GB HBM3, 700.00 W;
+# B=1, T=26,432, d=1, ms; PERF.md keeps the run), by (C, C'): printed
+# beside this run's times as a read-out, never a limit.
+SHARD_F32_EARLIER_MS = {(256, 128): 0.6284, (256, 64): 0.4664,
+                        (256, 32): 0.3597, (512, 256): 2.9262,
+                        (512, 128): 1.8521, (512, 64): 1.2882,
+                        (128, 64): 0.1776, (128, 32): 0.1136,
+                        (128, 16): 0.0902}
 # The route of each mode's trainable backward.
 BACKWARD_ROUTE = {"f32": "torch ops", "bf16": "cuda"}
 
@@ -473,9 +486,9 @@ def bwd_variant(kernel: str, last: bool = False, width: int = C) -> str:
 
 def shard_variant(width: int, channels: int, bf16: bool, last: bool) -> str:
   """Variant name of a shard kernel (width ``C``, ``C'`` gate channels a
-  rank): starts with "shard-", so the spill rule of the f32 forward does
-  not apply; ``check_tensor_cores`` holds the f32 ones to no tensor-core
-  instruction and the bf16 ones to some."""
+  rank): "shard-f32,..." or "shard-bf16,...". ``check_tensor_cores``
+  holds the f32 ones to no tensor-core instruction and the bf16 ones to
+  some; ``check_no_spills`` holds the f32 ones to no spill."""
   return (f"shard-{'bf16' if bf16 else 'f32'},C={width},C'={channels},"
           f"{'last' if last else 'layer'}")
 
@@ -577,11 +590,12 @@ def check_tensor_cores(mma: dict, variants) -> None:
 
 
 def check_no_spills(ptxas, attributes) -> None:
-  """Fail if an f32 kernel variant spills: local bytes in the loaded build,
-  or spill stores or loads in ptxas's report (``ptxas`` is None when the
-  library was built by an earlier process)."""
+  """Fail if an f32 kernel variant (the forward's or the shard's) spills:
+  local bytes in the loaded build, or spill stores or loads in ptxas's
+  report (``ptxas`` is None when the library was built by an earlier
+  process). The bf16 variants are not held to it."""
   for name, attr in attributes.items():
-    if not name.startswith("f32"):
+    if not name.startswith(("f32", "shard-f32")):
       continue
     facts = (ptxas or {}).get(name, {})
     spills = (attr["local_bytes"], facts.get("spill_store_bytes", 0),
@@ -604,6 +618,20 @@ def f32_grid(attributes) -> dict:
       grid["share_of_busiest"] = batch * t / slots / grid["rows_per_block"]
       key = f"B={batch},T={t}" + ("" if width == C else f",C={width}")
       info[key] = grid
+  return info
+
+
+def shard_f32_grid(attributes) -> dict:
+  """Each f32 shard instance's registers, local bytes and dynamic shared
+  bytes (the loaded build) and its grid at B=1, T=T_KERNEL: blocks an SM,
+  tile rows, quantum, blocks, rows a block, waves."""
+  info = {}
+  for c, cp, bf16, last in SHARD_KERNELS:
+    if bf16:
+      continue
+    name = shard_variant(c, cp, bf16, last)
+    info[name] = {**attributes[name],
+                  **kl.f32_schedule(1, T_KERNEL, last, channels=c, cp=cp)}
   return info
 
 
@@ -633,9 +661,11 @@ def phase_build() -> dict:
                     else "cached: built by an earlier process"),
           "attributes": attributes,
           "sass_tensor_core_instructions": mma,
-          "f32_grid": f32_grid(attributes)}
+          "f32_grid": f32_grid(attributes),
+          "shard_f32_grid": shard_f32_grid(attributes)}
   log("build " + json.dumps(info))
   log("f32 kernel " + json.dumps(info["f32_grid"]))
+  log("f32 shard kernel " + json.dumps(info["shard_f32_grid"]))
   if built and set(info["ptxas"]) != set(attributes):
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
@@ -2790,9 +2820,11 @@ def stitch_faults(windows, frames: int, halo: int) -> list:
 def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
   """The shard kernel against its plain version at every C' of ``width``
   (d=1, d=128, the last layer) and the ranks' partials summed against the
-  unsharded kernel's res/skip; times at d=1 beside the bound, the plain
-  version and the library's sharded layer (cuDNN conv1d, the gate, cuBLAS
-  matmul)."""
+  unsharded kernel's res/skip, and a second launch of each rank against
+  the first, bit for bit; times at d=1 beside the bound, the plain
+  version, the library's sharded layer (cuDNN conv1d, the gate, cuBLAS
+  matmul) and, in f32, the kernel's time before its redesign
+  (``SHARD_F32_EARLIER_MS``, a read-out)."""
   cdt = MODES[mode]
   dtype = cdt or torch.float32
   cases, timed = [], {}
@@ -2806,11 +2838,14 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
       if c != width:
         continue
       model = width // cp
-      total, err, scale = None, 0.0, 0.0
+      total, err, scale, repeats = None, 0.0, 0.0, True
       for rank in range(model):
         sl = shard_slices(args, model, rank)
         got = kl.wn_layer_shard(args[0], *sl, dilation, compute_dtype=cdt)
+        again = kl.wn_layer_shard(args[0], *sl, dilation, compute_dtype=cdt)
         torch.cuda.synchronize()
+        repeats = repeats and torch.equal(got, again)
+        del again
         ref = kl.wn_layer_shard_plain(args[0], *sl, dilation,
                                       compute_dtype=cdt)
         if not torch.isfinite(got).all():
@@ -2826,9 +2861,11 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
              "last": last,
              "max_abs_err": err, "bound": bound, "ref_max_abs": scale,
              "summed_vs_fused_max_abs": sum_err,
-             "summed_bound": sum_bound}
+             "summed_bound": sum_bound, "repeat_bitwise": repeats}
       if err > bound or sum_err > sum_bound:
         fail(f"mesh {mode}: shard kernel disagrees: {rec}")
+      if not repeats:
+        fail(f"mesh {mode}: two shard kernel launches differ: {rec}")
       if dilation == 1:
         sl = shard_slices(args, model, 0)
         nbytes, flops, bound_ms, bound_by = shard_cost(1, T_KERNEL, cp,
@@ -2845,12 +2882,23 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
         rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
                    bound_by=bound_by,
                    share_of_bound=bound_ms / rec["kernel_ms"])
+        if mode == "f32":
+          rec["earlier_ms"] = SHARD_F32_EARLIER_MS[(width, cp)]
         timed[cp] = rec
       log("shard kernel " + json.dumps(rec))
       cases.append(rec)
     del args, xk, sk, full
   torch.cuda.empty_cache()
   return {"cases": cases, "timed": timed}
+
+
+def shard_extra_keys(timed: dict, top: int) -> dict:
+  """The ``kernels`` line's keys of a shard entry beside its ``top`` C':
+  each other C''s times and bound, all of this run (never the earlier
+  times of ``SHARD_F32_EARLIER_MS``, which only the shard check prints)."""
+  return {f"{key}_C'{cp}": timed[cp][key]
+          for cp in sorted(timed, reverse=True) if cp != top
+          for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
 
 
 def annotate_reduce():
@@ -3659,9 +3707,7 @@ def main() -> None:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "design": SHARD_DESIGN[mode],
         "shape": f"B=1,T={T_KERNEL},C={C},C'=128,d=1",
-        **{f"{key}_C'{cp}": shard["timed"][cp][key]
-           for cp in (64, 32)
-           for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+        **shard_extra_keys(shard["timed"], 128),
         "loaded_build": {f"C'={cp}": kl.shard_kernel_info(
             c, cp, mode == "bf16", False)
             for c, cp in kl.shard_pairs() if c == C}})
@@ -3703,8 +3749,7 @@ def main() -> None:
           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
           "library_ms": top["library_ms"], "design": SHARD_DESIGN[mode],
           "shape": f"B=1,T={T_KERNEL},C={width},C'={pairs[0]},d=1",
-          **{f"{key}_C'{cp}": shard["timed"][cp][key] for cp in pairs[1:]
-             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}})
+          **shard_extra_keys(shard["timed"], pairs[0])})
     bwd = rec["kernels"]["backward"]
     kernels.append({
         "name": f"wn_layer_backward_fused[bf16,C={width}]", "route": "cuda",

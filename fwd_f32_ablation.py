@@ -64,8 +64,8 @@ def variants(src: str) -> dict:
                      "constexpr int kRowPairs = 4;"),
       "no_fma": edit(src, "        if (busy) {\n          const float* slot",
                      "        if (false) {\n          const float* slot", 2),
-      "no_loads": edit(src, "  if (chunk + L::kAhead < n_chunks)\n",
-                       "  if (false)\n")}
+      "no_loads": edit(src, ", n_chunks, load_chunk);", ", 0, load_chunk);",
+                       2)}
 
 
 def build(sources: dict) -> dict:
@@ -74,9 +74,9 @@ def build(sources: dict) -> dict:
   for name, text in sources.items():
     (OUT / f"{name}.cu").write_text(text)
     procs[name] = subprocess.Popen(
-        [kl._nvcc(), *kl.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
-         str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        [kl._nvcc(), *kl.NVCC_FLAGS, "-I", str(kl.CSRC), "-shared", "-o",
+         str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
   libs = {}
   for name, proc in procs.items():
     log = proc.communicate()[0]

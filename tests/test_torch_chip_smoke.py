@@ -545,7 +545,7 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
 # As nvcc names them in the build (the f32 FFMA kernel and the bf16
 # tensor-core one, each <C, C', last>).
 SHARD_128 = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463615wn_shard_"
-             "kernelILi256ELi128ELb0EEEvPKfS2_S2_S2_S2_Pfii")
+             "kernelILi256ELi128ELb0EEEvPKfS2_S2_S2_S2_Pfiiii")
 SHARD_MMA = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463619wn_shard_"
              "kernel_mmaILi512ELi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_Pfii")
 
@@ -575,6 +575,82 @@ def test_check_tensor_cores_holds_the_f32_shard_kernel(smoke):
   with pytest.raises(SystemExit, match="no HMMA/HGMMA"):
     smoke.check_tensor_cores({"shard-bf16,C=256,C'=64,layer": 0},
                              ["shard-bf16,C=256,C'=64,layer"])
+
+
+def shard_attributes(name, local_bytes):
+  return {name: {"registers": 160, "local_bytes": local_bytes,
+                 "static_smem_bytes": 0, "dynamic_smem_bytes": 196_352}}
+
+
+@pytest.mark.parametrize("fault", [None, "local bytes", "ptxas spills"])
+def test_check_no_spills_holds_the_f32_shard_kernels(smoke, fault):
+  """A shard-f32 variant fails on local bytes in the loaded build or on
+  spills in ptxas's report, as the f32 forward does."""
+  name = "shard-f32,C=512,C'=256,layer"
+  ptxas = {name: {"spill_store_bytes": 0, "spill_load_bytes": 0}}
+  attrs = shard_attributes(name, 8 if fault == "local bytes" else 0)
+  if fault == "ptxas spills":
+    ptxas[name]["spill_store_bytes"] = 8
+  if fault is None:
+    smoke.check_no_spills(ptxas, attrs)
+    smoke.check_no_spills(None, attrs)
+    return
+  with pytest.raises(SystemExit, match=f"{name} kernel spills"):
+    smoke.check_no_spills(ptxas, attrs)
+
+
+def test_check_no_spills_leaves_the_bf16_shard_kernels(smoke):
+  """A shard-bf16 variant with local bytes and ptxas spills passes: the
+  bf16 variants are not held to the rule."""
+  name = "shard-bf16,C=512,C'=256,layer"
+  ptxas = {name: {"spill_store_bytes": 16, "spill_load_bytes": 16}}
+  smoke.check_no_spills(ptxas, shard_attributes(name, 24))
+  smoke.check_no_spills(None, shard_attributes(name, 24))
+
+
+def test_shard_f32_grid_reads_each_instance(smoke, monkeypatch):
+  """Phase 2's report of the f32 shard kernel: every f32 instance (18),
+  its loaded build beside its grid at B=1, T=T_KERNEL, and no bf16 one."""
+  seen = []
+
+  def schedule(batch, t, last=False, channels=256, cp=None):
+    seen.append((batch, t, channels, cp, last))
+    return {"sms": 132, "blocks_per_sm": 1, "blocks": 127,
+            "rows_per_block": 208, "tile_rows": 48, "quantum": 16,
+            "tiles_per_block": 5, "waves": 127 / 132}
+  monkeypatch.setattr(smoke.kl, "f32_schedule", schedule)
+  attrs = {smoke.shard_variant(*v): {"registers": 100 + i, "local_bytes": 0}
+           for i, v in enumerate(smoke.SHARD_KERNELS)}
+  info = smoke.shard_f32_grid(attrs)
+  assert len(info) == 18 and all(k.startswith("shard-f32") for k in info)
+  rec = info["shard-f32,C=512,C'=256,last"]
+  assert rec["registers"] == attrs["shard-f32,C=512,C'=256,last"][
+      "registers"]
+  assert rec["tile_rows"] == 48 and rec["blocks"] == 127
+  assert sorted(seen) == sorted((1, smoke.T_KERNEL, c, cp, last)
+                                for c, cp in smoke.kl.shard_pairs()
+                                for last in (False, True))
+
+
+def test_shard_f32_earlier_times_cover_every_pair(smoke):
+  """The read-out of the f32 shard kernel's earlier times has one entry
+  a built pair, each a positive time in ms."""
+  assert set(smoke.SHARD_F32_EARLIER_MS) == set(smoke.kl.shard_pairs())
+  assert all(0 < ms < 10 for ms in smoke.SHARD_F32_EARLIER_MS.values())
+
+
+def test_shard_extra_keys_list_each_other_cp(smoke):
+  """A shard entry of the kernels line carries each other C''s times and
+  bound beside the top one, all measured in the run: the f32 kernel's
+  earlier time, which the shard check prints, stays out of it."""
+  timed = {cp: {"kernel_ms": cp / 1000, "plain_ms": 1.0, "library_ms": 2.0,
+                "bound_ms": 0.1, "earlier_ms": cp / 100, "flops": 7}
+           for cp in (128, 64, 32)}
+  keys = smoke.shard_extra_keys(timed, 128)
+  assert keys["kernel_ms_C'64"] == 0.064 and keys["bound_ms_C'32"] == 0.1
+  assert "kernel_ms_C'128" not in keys and "flops_C'64" not in keys
+  assert not any("earlier" in k for k in keys)
+  assert len(keys) == 8
 
 
 @pytest.mark.parametrize("cp", [128, 64, 32])

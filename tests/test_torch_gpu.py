@@ -726,15 +726,20 @@ def shard_slices(args, model, rank):
 
 
 @pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
-                                           (2, True)])
+                                           (2, True), (512, False)])
+@pytest.mark.parametrize("batch,t", [(2, 300), (3, 37), (3, 301)])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("c,model", [(c, c // cp)
                                      for c, cp in kl.shard_pairs()])
-def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last, c):
+def test_shard_kernel_matches_plain(cuda, model, bf16, batch, t, dilation,
+                                    last, c):
   """Each rank's partial against ``wn_layer_shard_plain``, and the ranks'
   partials summed against the unsharded kernel's ``rs`` (x' - x and the
-  skip, less b_rs) at the bounds of the full kernel."""
-  batch, t = 2, 300  # a ragged last tile
+  skip, less b_rs) at the bounds of the full kernel. The shapes give the
+  f32 kernel's flat-row grid its edges: a ragged last tile (T = 300),
+  fewer rows than one tile (3 x 37), tiles that cross a sequence boundary
+  in the flat B*T rows (3 x 301); d = 512 (and 128 at T = 37) leaves
+  every side tap in the padding."""
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
   args = layer_inputs(cuda, batch, t, c, last, dtype, seed=model)
@@ -762,30 +767,57 @@ def test_shard_kernel_matches_plain(cuda, model, bf16, dilation, last, c):
 
 
 @pytest.mark.parametrize("c", WIDTHS)
-def test_shard_kernel_repeats_bitwise_and_refuses(cuda, c):
-  args = layer_inputs(cuda, 1, 1000, c, False, torch.bfloat16)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_shard_kernel_repeats_bitwise_and_refuses(cuda, bf16, c):
+  """16 launches give the same bits (no atomics, no split K), and inputs
+  outside the built set or of the other mode's dtype raise."""
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  args = layer_inputs(cuda, 1, 1000, c, False, dtype)
   sl = shard_slices(args, 2, 1)
-  one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+  one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=cdt)
   for _ in range(16):
-    two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+    two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=cdt)
     assert torch.equal(one, two)
   with pytest.raises(ValueError, match=r"\(C, C'\) in"):
     kl.wn_layer_shard(args[0], *shard_slices(args, 16, 0), 4,
-                      compute_dtype=torch.bfloat16)
+                      compute_dtype=cdt)
   with pytest.raises(ValueError, match="dtype"):
-    kl.wn_layer_shard(args[0], *sl, 4)
+    kl.wn_layer_shard(args[0], *sl, 4,
+                      compute_dtype=None if bf16 else torch.bfloat16)
 
 
 @pytest.mark.parametrize("c,cp", kl.shard_pairs())
 def test_shard_kernel_info_reads_the_loaded_build(cuda, c, cp):
   """Every (C, C') instance is in the loaded build; both take their shared
-  memory as dynamic (the f32 tile of 32 x (C + 4) floats is 66,048 bytes
-  at C = 512, over the 48 KB of static)."""
+  memory as dynamic (the f32 kernel's 4-stage ring and acts take 108,544
+  to 212,992 bytes, over the 48 KB of static), and the f32 one does not
+  spill."""
   for bf16 in (False, True):
     for last in (False, True):
       info = kl.shard_kernel_info(c, cp, bf16, last)
       assert 0 < info["registers"] <= 255
       assert info["dynamic_smem_bytes"] > 0
+      if not bf16:
+        assert info["dynamic_smem_bytes"] > 48 * 1024
+        assert info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+@pytest.mark.parametrize("last", [False, True])
+def test_shard_f32_schedule_covers_the_rows_in_one_wave(cuda, c, cp, last):
+  """The f32 shard kernel's grid: one wave of blocks, each a whole number
+  of quanta (4 warps' rows; a tile holds 3 or 4) of the flat B*T rows,
+  covering them exactly once, at the kernel phase's shapes, the model
+  mesh's batch and fewer rows than one tile."""
+  for batch, t in ((1, 26_432), (8, 26_432), (3, 37), (3, 301), (1, 1)):
+    grid = kl.f32_schedule(batch, t, last, channels=c, cp=cp)
+    assert grid["blocks_per_sm"] >= 1 and grid["waves"] <= 1
+    assert grid["tile_rows"] // grid["quantum"] in (3, 4)
+    assert grid["tile_rows"] % grid["quantum"] == 0
+    assert grid["rows_per_block"] % grid["quantum"] == 0
+    assert ((grid["blocks"] - 1) * grid["rows_per_block"] < batch * t
+            <= grid["blocks"] * grid["rows_per_block"])
 
 
 @pytest.mark.parametrize("frames,n", [(400, 4), (397, 4), (3, 4), (251, 2)])

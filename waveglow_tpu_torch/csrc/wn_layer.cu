@@ -120,38 +120,9 @@
 
 #include <atomic>
 
+#include "f32_ring.cuh"
+
 namespace {
-
-// ---- cp.async, shared by both kernels ------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-// 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read).
-__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
-                                                 bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
 
 // ---- the f32 kernel ------------------------------------------------------
 
@@ -192,34 +163,6 @@ struct F32 {
   static_assert(kPC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
 };
 
-// 4 contiguous floats from a 16-byte-aligned address.
-__device__ __forceinline__ void load4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-}
-
-// cp.async kChunk rows of a weight (rows `ld` floats apart from `src`) to
-// `dst` as rows of kN floats: columns [a, a + kHalf) of the source row, then
-// (when kN = 2 kHalf) columns [b, b + kHalf); 16 bytes a copy.
-template <int kThreads, int kN, int kHalf>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src,
-                                          int ld, int a, int b) {
-  constexpr int kPieces = kChunk * kN / 4;
-#pragma unroll
-  for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
-    const int p = threadIdx.x + i * kThreads;
-    if (kPieces % kThreads == 0 || p < kPieces) {
-      const int r = p / (kN / 4), col = (p % (kN / 4)) * 4;
-      const int from = col < kHalf ? a + col : b + col - kHalf;
-      cp_async16(dst + p * 16, src + static_cast<int64_t>(r) * ld + from);
-    }
-  }
-}
-
 // Start the cp.async copies of chunk `chunk` of the block's sequence into its
 // ring slot. Each tile of the block's rows takes kChunks chunks: per pass p
 // of the first product, kInPerPass of w_in (16 K rows each, the pass's tanh
@@ -244,10 +187,11 @@ __device__ __forceinline__ void f32_load_chunk(
     const int pass = j / L::kRsPerPass;
     const float* src = w_rs + static_cast<int64_t>(j % L::kRsPerPass) * kChunk * N_RS;
     if constexpr (kLast)
-      copy_rows<L::kThreads, kPC, kPC>(wslot, src, N_RS, pass * kPC, 0);
+      copy_rows<kChunk, L::kThreads, kPC, kPC>(wslot, src, N_RS, pass * kPC,
+                                               0);
     else
-      copy_rows<L::kThreads, 2 * kPC, kPC>(wslot, src, N_RS, pass * kPC,
-                                           kC + pass * kPC);
+      copy_rows<kChunk, L::kThreads, 2 * kPC, kPC>(wslot, src, N_RS,
+                                                   pass * kPC, kC + pass * kPC);
     return;
   }
   const int pass = local / L::kInPerPass;
@@ -269,27 +213,9 @@ __device__ __forceinline__ void f32_load_chunk(
     }
     cp_async16_zfill(slot + (r * kChunk + q * 4) * 4, src, valid);
   }
-  copy_rows<L::kThreads, 2 * kPC, kPC>(
+  copy_rows<kChunk, L::kThreads, 2 * kPC, kPC>(
       wslot, w_in + static_cast<int64_t>(kc) * kChunk * 2 * kC, 2 * kC,
       pass * kPC, kC + pass * kPC);
-}
-
-// One step of the ring, at chunk `chunk`: wait for this thread's copies of
-// it and make them block-wide. Past the barrier every thread is done with
-// chunk - 1, so its slot takes chunk + kAhead. One commit group a step
-// (empty past the last chunk), so the wait count stays kAhead - 1.
-template <int kC, bool kLast>
-__device__ __forceinline__ void f32_ring_step(
-    uint32_t ring, int chunk, int n_chunks, int row_begin, int row_end,
-    const float* x, const float* w_in, const float* w_rs, int T,
-    int dilation) {
-  using L = F32<kC>;
-  cp_async_wait<L::kAhead - 1>();
-  __syncthreads();
-  if (chunk + L::kAhead < n_chunks)
-    f32_load_chunk<kC, kLast>(ring, chunk + L::kAhead, row_begin, row_end, x,
-                              w_in, w_rs, T, dilation);
-  cp_async_commit();
 }
 
 // One ring slot's kChunk k: acc_a[i][j] += a[row 2i][k] * w[k][j], and when
@@ -302,26 +228,9 @@ __device__ __forceinline__ void f32_chunk_fma(
     float (&acc_b)[kRowsPerThread][kPerLane], const float* a,
     const float* w) {
 #pragma unroll
-  for (int kk = 0; kk < kChunk; kk += 4) {
-    float av[kRowsPerThread][4];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-      load4(av[i], a + 2 * i * kStride + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float wa[kPerLane], wb[kPerLane];
-      load4(wa, w + (kk + u) * kN);
-      if constexpr (kPaired) load4(wb, w + (kk + u) * kN + kBOff);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          acc_a[i][j] = fmaf(av[i][u], wa[j], acc_a[i][j]);
-          if constexpr (kPaired)
-            acc_b[i][j] = fmaf(av[i][u], wb[j], acc_b[i][j]);
-        }
-    }
-  }
+  for (int kk = 0; kk < kChunk; kk += 4)
+    tile_fma4<kRowsPerThread, 2, kStride, kN, kBOff, kPaired>(acc_a, acc_b, a,
+                                                              w, kk);
 }
 
 // kLast selects the [C, C] res/skip of the last layer. Block i takes flat
@@ -367,12 +276,11 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
   const int r0 = 16 * pair + lane / 16;                  // first tile row
   const int c0 = 64 * (warp % L::kColWarps) + 4 * (lane % 16);
 
-  for (int c = 0; c < L::kAhead; ++c) {
-    if (c < n_chunks)
-      f32_load_chunk<kC, kLast>(ring, c, row_begin, row_end, x, w_in, w_rs, T,
-                                dilation);
-    cp_async_commit();
-  }
+  const auto load_chunk = [&](int chunk) {
+    f32_load_chunk<kC, kLast>(ring, chunk, row_begin, row_end, x, w_in, w_rs,
+                              T, dilation);
+  };
+  ring_prologue<L::kAhead>(n_chunks, load_chunk);
 
   float acc_a[kRowsPerThread][kPerLane];  // tanh, then residual (last: skip)
   float acc_b[kRowsPerThread][kPerLane];  // sigmoid, then skip
@@ -396,8 +304,7 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
 #pragma unroll 1
       for (int kc = 0; kc < L::kInPerPass; ++kc) {
         const int local = p * L::kInPerPass + kc;
-        f32_ring_step<kC, kLast>(ring, chunk0 + local, n_chunks, row_begin,
-                                 row_end, x, w_in, w_rs, T, dilation);
+        ring_step<L::kAhead>(chunk0 + local, n_chunks, load_chunk);
         if (kc == L::kInPerPass - 16) {
           // cond's rows of the tile into L2, for the gate
           const float* src = cond + static_cast<int64_t>(t0) * N_IN;
@@ -463,8 +370,7 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
         const int local = L::kInChunks + p * L::kRsPerPass + kc;
         // the first step's barrier also orders the acts writes before the
         // reads
-        f32_ring_step<kC, kLast>(ring, chunk0 + local, n_chunks, row_begin,
-                                 row_end, x, w_in, w_rs, T, dilation);
+        ring_step<L::kAhead>(chunk0 + local, n_chunks, load_chunk);
         if (kc == L::kRsPerPass - 8) {
           // the residual's x rows and the skip sum into L2, for the epilogue
           const int64_t off = static_cast<int64_t>(t0) * C;
@@ -1311,58 +1217,15 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
 
 // ---- launch ---------------------------------------------------------------
 
-// The opt-in to more than 48 KB of dynamic shared memory, made once per
-// kernel and device (bit `device` of `*done`), not on every launch.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (device & 31);
-  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 // Blocks of the f32 kernel the device holds at once, as SMs and blocks an
 // SM (the occupancy API, after the shared-memory opt-in); read once per
 // variant and device.
 template <int kC, bool kLast>
 cudaError_t f32_slots(int* sms, int* per_sm) {
-  static std::atomic<int> cache[32];  // sms * 256 + per_sm; 0 until read
+  static std::atomic<int> cache[32];
   static std::atomic<uint32_t> opted_in{0};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int v = cache[device & 31].load(std::memory_order_acquire);
-  if (v == 0) {
-    err = opt_in_smem(wn_layer_kernel_f32<kC, kLast>, F32<kC>::kSmemBytes,
-                      &opted_in);
-    if (err != cudaSuccess) return err;
-    int n = 0, k = 0;
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &k, wn_layer_kernel_f32<kC, kLast>, F32<kC>::kThreads,
-        F32<kC>::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    if (n < 1 || k < 1 || k > 255) return cudaErrorInvalidConfiguration;
-    v = n * 256 + k;
-    cache[device & 31].store(v, std::memory_order_release);
-  }
-  *sms = v / 256;
-  *per_sm = v % 256;
-  return cudaSuccess;
-}
-
-// Rows each block of the f32 kernel takes: an equal share of the B*T rows
-// over the blocks the device holds at once, rounded up to kRowQuantum, so
-// the grid is one wave and no SM runs more than one short tile.
-int f32_rows_per_block(int rows, int slots) {
-  const int share = (rows + slots - 1) / slots;
-  return (share + kRowQuantum - 1) / kRowQuantum * kRowQuantum;
+  return wave_slots(wn_layer_kernel_f32<kC, kLast>, F32<kC>::kThreads,
+                    F32<kC>::kSmemBytes, cache, &opted_in, sms, per_sm);
 }
 
 struct Args {
@@ -1397,7 +1260,7 @@ cudaError_t launch(const Args& a) {
     cudaError_t err = f32_slots<kC, kLast>(&sms, &per_sm);  // also opts in
     if (err != cudaSuccess) return err;
     const int rows = a.batch * a.T;
-    const int per_block = f32_rows_per_block(rows, sms * per_sm);
+    const int per_block = one_wave_rows(rows, sms * per_sm, kRowQuantum);
     wn_layer_kernel_f32<kC, kLast><<<(rows + per_block - 1) / per_block,
                                      F32<kC>::kThreads, F32<kC>::kSmemBytes,
                                      a.stream>>>(
@@ -1507,7 +1370,7 @@ cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
   }
   if (err != cudaSuccess) return err;
   const int rows = batch * T;
-  *rows_per_block = f32_rows_per_block(rows, *sms * *blocks_per_sm);
+  *rows_per_block = one_wave_rows(rows, *sms * *blocks_per_sm, kRowQuantum);
   *blocks = (rows + *rows_per_block - 1) / *rows_per_block;
   return cudaSuccess;
 }

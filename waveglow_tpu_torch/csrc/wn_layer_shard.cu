@@ -38,14 +38,45 @@
 //
 // Two kernels, one per mode.
 //
-// wn_shard_kernel (f32, FFMA; simple first): one block of 256 threads per
-// (batch row, tile of 32 time rows). For each tap the tile's 32 tap rows of
-// x (zero outside [0, T)) are staged in shared memory; each thread holds 2
-// tanh and the same 2 sigmoid channels of this rank for 32 / (256 / (C'/2))
-// rows, reads its weights through the L1 cache and runs the gate on its
-// accumulators. The acts go to shared memory (over the tap rows); for the
-// second product each thread holds 4 adjacent output columns for
-// 32 / (256 / (N/4)) rows.
+// wn_shard_kernel (f32, FFMA on the CUDA cores, no TF32), after the f32
+// forward kernel (csrc/wn_layer.cu, wn_layer_kernel_f32), whose cp.async
+// ring, register-tile FMAs and one-wave grid it shares (csrc/f32_ring.cuh):
+//   * One wave of blocks (SMs x blocks an SM, from the occupancy API), each
+//     taking an equal share of the B*T rows, taken as one flat [B*T, C]
+//     sequence, rounded up to a quantum of 4 warps' rows (one warp on each
+//     scheduler), and walking it in tiles, the last one short: its warps
+//     past the block's end skip the FMAs. Tap rows read x of their own
+//     sequence only (zero-filled outside [0, T)).
+//   * Register tile: a thread holds kR rows x 4 columns of an "a" half and
+//     the same 4 columns of a "b" half: the tanh and sigmoid columns of 4
+//     gate channels in the first product, so the gate (cond_s and b_in_s
+//     added, tanh * sigmoid, f32) runs on the accumulators; 4 partial
+//     columns and the 4 that lie C' further on in the second. kR = 8 at C'
+//     >= 128 (12 warps, 168 registers), kR = 4 below (16 warps); at narrow
+//     C' the lanes go to rows, not channels (a warp covers 16 rows x 64
+//     channels at C' >= 128, 16 x 32 at 64 and 32, 32 x 16 at 16), so the
+//     tile does not shrink with C': 48 rows at C' = 256 to 512 at 16. A
+//     weight value read from shared memory feeds kR rows of FMAs.
+//   * Ring: both products stream as one sequence of 16-row K chunks through
+//     a 4-stage ring filled by cp.async, three chunks ahead, one barrier a
+//     chunk, running on across tiles: 3C/16 chunks of w_in_s (all 2C'
+//     columns) with the tile's tap rows of those 16 input channels, then
+//     w_rs_s in passes of 2C' columns (N / 2C' passes of C'/16 chunks).
+//   * The acts [tile rows][C'] are staged once a tile in shared memory; each
+//     pass of the second product writes its columns from the accumulators
+//     in 16-byte pieces, rows < T only.
+// No atomics and no split K: each output is summed in one fixed order, so
+// two launches give the same bits.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, B=1, T =
+// 26,432, d=1 (ms, share of the operation bound): C = 256, C' = 128 0.40
+// (51%), 64 0.23 (44%), 32 0.15 (36%); C = 512, C' = 256 1.45 (57%), 128
+// 0.79 (52%), 64 0.46 (45%); C = 128, C' = 64 / 32 / 16 0.12 / 0.079 /
+// 0.055 (42% / 33% / 24%); the simple FFMA kernel it replaced took 0.63 ms
+// at (256, 128) and 2.93 ms at (512, 256) on the same card. 117 to 168
+// registers, no spills, 108,544 to 212,992 bytes of shared memory, one
+// block an SM. At B=1 the narrow pairs hold fewer warps of work than the
+// card has slots: a quantum of 32 to 128 rows against about 200 rows an
+// SM. PERF.md keeps the times.
 //
 // wn_shard_kernel_mma (bf16, tensor cores): mma.sync m16n8k16 (bf16
 // operands, f32 accumulators) fed by ldmatrix from padded shared memory.
@@ -75,167 +106,290 @@
 
 #include <atomic>
 
+#include "f32_ring.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 // ---- the f32 kernel (FFMA) --------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;                // time rows a block
+constexpr int kChunk = 16;               // K rows of a ring stage
+constexpr int kTapStride = kChunk + 4;   // padded tap row: the 2-8 rows a
+                                         // warp reads fall in distinct banks
 
+// The f32 kernel's layout for (C, C', last). A thread holds kR rows x 4
+// columns of an "a" half and the same 4 columns of a "b" half of a 2C'-wide
+// block: in the first product the tanh and the sigmoid columns of 4 gate
+// channels, in the second 4 partial columns and the 4 that lie C' further on.
+// A warp spreads kQuads lanes over column quads and kRowLanes over rows
+// (rows r0 + kRowLanes * i), so the tile does not shrink with C': at C' >=
+// 128 (kR = 8) a warp covers 16 rows x 64 channels; at C' = 64 and 32 (kR =
+// 4: at B=1 the narrow pairs have little work a warp) 16 rows x 32, at C' =
+// 16 32 rows x 16. kThreads / 32 warps tile kTileRows rows; 4 of them (one
+// a scheduler) cover a quantum of rows. Ring slot: the chunk's taps
+// [kTileRows][kTapStride], then its weight rows [kChunk][2C']; acts
+// [kTileRows][C' + 4]; all f32.
 template <int kC, int kCP, bool kLast>
-__global__ void __launch_bounds__(kThreads)
+struct ShardF32 {
+  static constexpr int kN = kLast ? kC : 2 * kC;          // partial columns
+  static constexpr int kR = kCP >= 128 ? 8 : 4;           // rows a thread
+  // lanes across column quads: 16 at kR = 8, at most 8 at kR = 4
+  static constexpr int kQuads = kR == 8 ? 16 : (kCP / 4 < 8 ? kCP / 4 : 8);
+  static constexpr int kRowLanes = 32 / kQuads;            // lanes down
+  static constexpr int kWarpRows = kR * kRowLanes;
+  static constexpr int kColWarps = kCP / (4 * kQuads);
+  // 12 warps (3 a scheduler) under the 168 registers of kR = 8; 16 (4 a
+  // scheduler) at kR = 4, whose threads fit in 128
+  static constexpr int kThreads = kR == 8 ? 384 : 512;
+  static constexpr int kRowWarps = kThreads / 32 / kColWarps;
+  static constexpr int kTileRows = kRowWarps * kWarpRows;
+  static constexpr int kQuantum = kTileRows * 128 / kThreads;  // 4 warps' rows
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 1;  // chunks in flight under the FMAs
+  static constexpr int kInChunks = 3 * kC / kChunk;       // w_in_s and taps
+  static constexpr int kChunksPerTap = kC / kChunk;
+  static constexpr int kRsPerPass = kCP / kChunk;         // w_rs_s, a pass
+  static constexpr int kPasses = kN / (2 * kCP);          // 2C' columns each
+  static constexpr int kChunks = kInChunks + kPasses * kRsPerPass;  // a tile
+  static constexpr int kTapFloats = kTileRows * kTapStride;
+  // a tile row's taps of a chunk are 4 16-byte pieces, copied by kTapSplit
+  // threads (threads past kTapSplit * kTileRows copy none)
+  static constexpr int kTapSplit =
+      kThreads / kTileRows < 4 ? kThreads / kTileRows : 4;
+  static constexpr int kSlotFloats = kTapFloats + kChunk * 2 * kCP;
+  static constexpr int kActsStride = kCP + 4;  // padded like the tap rows
+  static constexpr int kSmemBytes =
+      sizeof(float) * (kStages * kSlotFloats + kTileRows * kActsStride);
+  static_assert(kColWarps * kRowWarps * 32 == kThreads, "warp grid");
+  static_assert(kRowWarps * kColWarps % 4 == 0 && kQuantum * kColWarps ==
+                4 * kWarpRows, "a quantum is 4 warps, one a scheduler");
+  static_assert(4 * kQuads * kColWarps == kCP && kColWarps >= 1, "quads");
+  static_assert(kPasses >= 1 && kTapSplit >= 1 && 4 % kTapSplit == 0,
+                "passes, tap pieces");
+  static_assert(kCP % kChunk == 0 && kN % (2 * kCP) == 0, "chunks");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+};
+
+// Start the cp.async copies of chunk `chunk` of the block's sequence into its
+// ring slot. Each tile of the block's rows takes kChunks chunks: kInChunks of
+// w_in_s (16 K rows each, all 2C' columns) with the matching taps, then per
+// pass p of the second product kRsPerPass of w_rs_s (16 K rows, columns
+// [2C' p, 2C' p + 2C')). Taps are rows of the flat [B*T, C] x: tile row r is
+// flat row R = b*T + t, and its tap reads row R + (tap-1)*d, zero unless t +
+// (tap-1)*d lies in [0, T) (its own sequence) and R before the block's end.
+// This thread copies pieces of tile row r = tid / kTapSplit; tap_t holds
+// that row's t for the tile being loaded, set at its first chunk (a large
+// negative past the block's end), so the division by T runs once a tile.
+template <int kC, int kCP, bool kLast>
+__device__ __forceinline__ void shard_load_chunk(
+    uint32_t ring, int chunk, int row_begin, int row_end, const float* x,
+    const float* w_in, const float* w_rs, int T, int dilation, int& tap_t) {
+  using L = ShardF32<kC, kCP, kLast>;
+  const int tile = chunk / L::kChunks;
+  const int local = chunk % L::kChunks;
+  const uint32_t slot = ring + (chunk % L::kStages) * L::kSlotFloats * 4;
+  const int r = threadIdx.x / L::kTapSplit;
+  const int row = row_begin + tile * L::kTileRows + r;  // flat row
+  if (local == 0)
+    tap_t = row < row_end
+                ? row - static_cast<int>(static_cast<unsigned>(row) /
+                                         static_cast<unsigned>(T)) * T
+                : INT32_MIN / 2;
+  const uint32_t wslot = slot + L::kTapFloats * 4;
+  if (local >= L::kInChunks) {
+    // 16 rows of w_rs_s, columns [2C' p, 2C' p + 2C') of pass p
+    const int j = local - L::kInChunks;
+    const int col = (j / L::kRsPerPass) * 2 * kCP;
+    copy_rows<kChunk, L::kThreads, 2 * kCP, 2 * kCP>(
+        wslot, w_rs + static_cast<int64_t>(j % L::kRsPerPass) * kChunk * L::kN,
+        L::kN, col, 0);
+  } else {
+    const int off = (local / L::kChunksPerTap - 1) * dilation;
+    const int k0 = (local % L::kChunksPerTap) * kChunk;
+    if (r < L::kTileRows) {
+      constexpr int kPieces = 4 / L::kTapSplit;
+      const int t = tap_t + off;
+      const bool valid = t >= 0 && t < T;
+      const int q0 = (threadIdx.x % L::kTapSplit) * kPieces;
+      const float* src =
+          valid ? x + static_cast<int64_t>(row + off) * kC + k0 + q0 * 4 : x;
+#pragma unroll
+      for (int q = 0; q < kPieces; ++q)
+        cp_async16_zfill(slot + (r * kTapStride + (q0 + q) * 4) * 4,
+                         src + q * 4, valid);
+    }
+    // 16 rows of w_in_s, all 2C' columns
+    copy_rows<kChunk, L::kThreads, 2 * kCP, 2 * kCP>(
+        wslot, w_in + static_cast<int64_t>(local) * kChunk * 2 * kCP, 2 * kCP,
+        0, 0);
+  }
+}
+
+// One ring slot's kChunk k: acc_a[i][j] += a[row kRL*i][k] * w[k][j] and
+// acc_b[i][j] += a[row kRL*i][k] * w[k][kBOff + j]. `a` points at the
+// thread's first row (rows kStride floats apart), `w` at its first column
+// (rows kN floats apart).
+template <int kR, int kRL, int kStride, int kN, int kBOff>
+__device__ __forceinline__ void shard_chunk_fma(float (&acc_a)[kR][4],
+                                                float (&acc_b)[kR][4],
+                                                const float* a,
+                                                const float* w) {
+#pragma unroll
+  for (int kk = 0; kk < kChunk; kk += 4) {
+    // no shared load moves above this step: hoisting a whole chunk's
+    // weights made ptxas spill at C' = 16
+    asm volatile("" ::: "memory");
+    tile_fma4<kR, kRL, kStride, kN, kBOff, true>(acc_a, acc_b, a, w, kk);
+  }
+}
+
+// Block i takes flat rows [i * rows_per_block, (i + 1) * rows_per_block) of
+// the B*T rows, in tiles of kTileRows (the last one short: its warps past
+// the block's end skip the FMAs).
+template <int kC, int kCP, bool kLast>
+__global__ void __launch_bounds__(ShardF32<kC, kCP, kLast>::kThreads, 1)
 wn_shard_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                 const float* __restrict__ w_in, const float* __restrict__ b_in,
                 const float* __restrict__ w_rs, float* __restrict__ out, int T,
-                int dilation) {
-  constexpr int kStride = kC + 4;          // padded shared row: rows 2 apart
-                                           // fall 8 banks apart
-  constexpr int kIn = 2 * kCP;             // gate columns of this rank
-  constexpr int kN = kLast ? kC : 2 * kC;  // partial columns
-  constexpr int kPairs = kCP / 2;          // channel pairs
-  constexpr int kRG1 = kThreads / kPairs;  // row groups of the gate product
-  constexpr int kR1 = kRows / kRG1;        // rows a thread
-  constexpr int kCG2 = kN / 4;             // float4 columns of the partial
-  constexpr int kRG2 = kThreads / kCG2;
-  constexpr int kR2 = kRows / kRG2;        // rows a thread
-  static_assert(kThreads % kPairs == 0 && kRows % kRG1 == 0, "gate grid");
-  static_assert(kThreads % kCG2 == 0 && kRows % kRG2 == 0, "partial grid");
-  static_assert(kCP + 4 <= kStride, "acts fit in a tap row");
+                int dilation, int rows, int rows_per_block) {
+  using L = ShardF32<kC, kCP, kLast>;
+  constexpr int kR = L::kR;
+  constexpr int kRL = L::kRowLanes;
+  const int row_begin = blockIdx.x * rows_per_block;
+  const int row_end = min(rows, row_begin + rows_per_block);
+  if (row_begin >= row_end) return;
+  const int n_chunks =
+      (row_end - row_begin + L::kTileRows - 1) / L::kTileRows * L::kChunks;
 
-  // tap rows of x during the first product, then the acts [kRows][kCP]
   extern __shared__ float4 shard_smem[];
-  float (*tile)[kStride] = reinterpret_cast<float (*)[kStride]>(shard_smem);
+  float* smem = reinterpret_cast<float*>(shard_smem);
+  const uint32_t ring = smem_u32(smem);
+  float* acts = smem + L::kStages * L::kSlotFloats;  // [kTileRows][kActsStride]
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int pair = tid % kPairs;
-  const int r1 = (tid / kPairs) * kR1;
-  const int c0 = 2 * pair;                 // this thread's channels c0, c0+1
-  const float* xb = x + static_cast<int64_t>(b) * T * kC;
+  // Warp w: rows [kWarpRows (w / kColWarps), +kWarpRows) of the tile and
+  // columns [4 kQuads (w % kColWarps), +4 kQuads) of each half; lane l:
+  // rows r0 + kRL i and columns c0..c0+3 (and C' further on). The lanes of
+  // a row read one piece of a weight row, which the other rows' lanes
+  // share.
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warp_row = (warp / L::kColWarps) * L::kWarpRows;
+  const int r0 = warp_row + lane / L::kQuads;
+  const int c0 = 4 * (L::kQuads * (warp % L::kColWarps) + lane % L::kQuads);
 
-  float acc[kR1][4];                       // tanh c0, c0+1; sigmoid c0, c0+1
+  int tap_t;
+  const auto load_chunk = [&](int chunk) {
+    shard_load_chunk<kC, kCP, kLast>(ring, chunk, row_begin, row_end, x, w_in,
+                                     w_rs, T, dilation, tap_t);
+  };
+  ring_prologue<L::kAhead>(n_chunks, load_chunk);
+
+  float acc_a[kR][4];  // tanh, then partial columns [c0, c0 + 4) of a pass
+  float acc_b[kR][4];  // sigmoid, then the columns C' further on
+  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += L::kChunks) {
+    const int t0 = row_begin + chunk0 / L::kChunks * L::kTileRows;  // flat row
+    const int tile_rows = min(L::kTileRows, row_end - t0);
+    const bool busy = warp_row < tile_rows;
+
+    // ---- first product: pre[rows, 2C'] = taps[rows, 3C] @ w_in_s --------
 #pragma unroll
-  for (int r = 0; r < kR1; ++r)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int tap = 0; tap < 3; ++tap) {
-    const int off = (tap - 1) * dilation;
-    __syncthreads();                       // the previous tap's reads are done
-    for (int i = tid; i < kRows * (kC / 4); i += kThreads) {
-      const int r = i / (kC / 4);
-      const int q = i % (kC / 4);
-      const int t = t0 + r + off;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t >= 0 && t < T)
-        v = __ldg(reinterpret_cast<const float4*>(xb + static_cast<int64_t>(t) * kC) + q);
-      *reinterpret_cast<float4*>(&tile[r][q * 4]) = v;
+      for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < L::kInChunks; ++kc) {
+      ring_step<L::kAhead>(chunk0 + kc, n_chunks, load_chunk);
+      if (kc == L::kInChunks - 16) {
+        // cond_s's rows of the tile into L2, for the gate
+        const float* src = cond + static_cast<int64_t>(t0) * 2 * kCP;
+        for (int q = threadIdx.x; q < tile_rows * 2 * kCP / 32;
+             q += L::kThreads)
+          prefetch_l2(src + q * 32);
+      }
+      if (busy) {
+        const float* slot =
+            smem + ((chunk0 + kc) % L::kStages) * L::kSlotFloats;
+        shard_chunk_fma<kR, kRL, kTapStride, 2 * kCP, kCP>(
+            acc_a, acc_b, slot + r0 * kTapStride, slot + L::kTapFloats + c0);
+      }
     }
-    __syncthreads();
-    const float* w = w_in + static_cast<int64_t>(tap) * kC * kIn;
-#pragma unroll 4
-    for (int k = 0; k < kC; ++k) {
-      const float* wk = w + k * kIn;
-      const float wt0 = wk[c0], wt1 = wk[c0 + 1];
-      const float ws0 = wk[kCP + c0], ws1 = wk[kCP + c0 + 1];
+
+    // ---- gate (f32) on the accumulators, acts to shared memory -----------
+    // The previous tile's acts were last read before this tile's barriers;
+    // rows past the tile's end get zero taps and cond (finite, never stored).
+    if (busy) {
+      float bt[4], bs[4];
+      load4(bt, b_in + c0);
+      load4(bs, b_in + kCP + c0);
 #pragma unroll
-      for (int r = 0; r < kR1; ++r) {
-        const float xv = tile[r1 + r][k];
-        acc[r][0] = fmaf(xv, wt0, acc[r][0]);
-        acc[r][1] = fmaf(xv, wt1, acc[r][1]);
-        acc[r][2] = fmaf(xv, ws0, acc[r][2]);
-        acc[r][3] = fmaf(xv, ws1, acc[r][3]);
+      for (int i0 = 0; i0 < kR; i0 += 2) {
+        float ct[2][4], cs[2][4];  // 2 rows' loads in flight
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + kRL * (i0 + h);
+          if (r < tile_rows) {
+            const float* crow = cond + static_cast<int64_t>(t0 + r) * 2 * kCP;
+            load4(ct[h], crow + c0);
+            load4(cs[h], crow + kCP + c0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) ct[h][j] = cs[h][j] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
+            const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
+            v[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
+          }
+          store4(acts + (r0 + kRL * (i0 + h)) * L::kActsStride + c0, v);
+        }
+      }
+    }
+
+    // ---- second product: partial[rows, N] = acts[rows, C'] @ w_rs_s ------
+    // pass p: columns [2C' p, 2C' p + 2C'); the first step's barrier orders
+    // the acts writes before their reads
+#pragma unroll 1
+    for (int p = 0; p < L::kPasses; ++p) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < L::kRsPerPass; ++kc) {
+        const int local = L::kInChunks + p * L::kRsPerPass + kc;
+        ring_step<L::kAhead>(chunk0 + local, n_chunks, load_chunk);
+        if (busy) {
+          const float* slot =
+              smem + ((chunk0 + local) % L::kStages) * L::kSlotFloats;
+          shard_chunk_fma<kR, kRL, L::kActsStride, 2 * kCP, kCP>(
+              acc_a, acc_b, acts + r0 * L::kActsStride + kc * kChunk,
+              slot + L::kTapFloats + c0);
+        }
+      }
+      // the pass's columns, from the accumulators: rows < the tile's end
+      if (busy) {
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          const int r = r0 + kRL * i;
+          if (r >= tile_rows) break;
+          float* o = out + static_cast<int64_t>(t0 + r) * L::kN + p * 2 * kCP +
+                     c0;
+          store4(o, acc_a[i]);
+          store4(o + kCP, acc_b[i]);
+        }
       }
     }
   }
-
-  // the gate, in f32, on the accumulators
-  float act[kR1][2];
-  const float bt0 = b_in[c0], bt1 = b_in[c0 + 1];
-  const float bs0 = b_in[kCP + c0], bs1 = b_in[kCP + c0 + 1];
-#pragma unroll
-  for (int r = 0; r < kR1; ++r) {
-    const int t = t0 + r1 + r;
-    float ct0 = 0.f, ct1 = 0.f, cs0 = 0.f, cs1 = 0.f;
-    if (t < T) {
-      const float* crow = cond + (static_cast<int64_t>(b) * T + t) * kIn;
-      ct0 = crow[c0];
-      ct1 = crow[c0 + 1];
-      cs0 = crow[kCP + c0];
-      cs1 = crow[kCP + c0 + 1];
-    }
-    const float g_t0 = acc[r][0] + bt0 + ct0, g_t1 = acc[r][1] + bt1 + ct1;
-    const float g_s0 = acc[r][2] + bs0 + cs0, g_s1 = acc[r][3] + bs1 + cs1;
-    act[r][0] = tanhf(g_t0) * (1.f / (1.f + expf(-g_s0)));
-    act[r][1] = tanhf(g_t1) * (1.f / (1.f + expf(-g_s1)));
-  }
-  __syncthreads();                         // every tap row read: reuse tile
-#pragma unroll
-  for (int r = 0; r < kR1; ++r) {
-    tile[r1 + r][c0] = act[r][0];
-    tile[r1 + r][c0 + 1] = act[r][1];
-  }
-  __syncthreads();
-
-  // the partial res/skip product: 4 adjacent columns, kR2 rows a thread
-  const int cg = tid % kCG2;
-  const int r2 = (tid / kCG2) * kR2;
-  float acc2[kR2][4];
-#pragma unroll
-  for (int r = 0; r < kR2; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc2[r][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < kCP; ++k) {
-    const float4 w4 = __ldg(reinterpret_cast<const float4*>(
-        w_rs + static_cast<int64_t>(k) * kN + cg * 4));
-#pragma unroll
-    for (int r = 0; r < kR2; ++r) {
-      const float a = tile[r2 + r][k];
-      acc2[r][0] = fmaf(a, w4.x, acc2[r][0]);
-      acc2[r][1] = fmaf(a, w4.y, acc2[r][1]);
-      acc2[r][2] = fmaf(a, w4.z, acc2[r][2]);
-      acc2[r][3] = fmaf(a, w4.w, acc2[r][3]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kR2; ++r) {
-    const int t = t0 + r2 + r;
-    if (t < T) {
-      float4* dst = reinterpret_cast<float4*>(
-          out + (static_cast<int64_t>(b) * T + t) * kN) + cg;
-      *dst = make_float4(acc2[r][0], acc2[r][1], acc2[r][2], acc2[r][3]);
-    }
-  }
-}
-
-template <int kC>
-constexpr int f32_smem_bytes() {
-  return kRows * (kC + 4) * 4;
+  cp_async_wait<0>();
 }
 
 // ---- the bf16 kernel (tensor cores) -----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // register i of lane l holds row l/4, columns 2(l%4), 2(l%4)+1 of matrix i
@@ -279,6 +433,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
                      __uint_as_float(v & 0xffff0000u));
 }
 
+constexpr int kThreads = 256;    // 8 warps
 constexpr int kMmaRows = 64;     // time rows a block
 constexpr int kK1 = 32;          // K rows of a first-product chunk
 constexpr int kNB = 128;         // columns of a second-product block
@@ -575,19 +730,28 @@ wn_shard_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
 
 // ---- launch -----------------------------------------------------------------
 
-// The opt-in to more than 48 KB of dynamic shared memory, made once per
-// kernel and device (bit `device` of `*done`), not on every launch.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+// The f32 kernel's grid for `rows` flat rows: one wave of blocks (SMs x
+// blocks an SM, the occupancy API, read once per instance and device after
+// the shared-memory opt-in), each taking an equal share of the rows rounded
+// up to the instance's quantum, so no SM runs more than one short tile.
+struct F32Grid {
+  int sms, per_sm, blocks, rows_per_block, tile_rows, quantum;
+};
+
+template <int kC, int kCP, bool kLast>
+cudaError_t f32_grid(int rows, F32Grid* g) {
+  using L = ShardF32<kC, kCP, kLast>;
+  static std::atomic<int> cache[32];
+  static std::atomic<uint32_t> opted_in{0};
+  cudaError_t err = wave_slots(wn_shard_kernel<kC, kCP, kLast>, L::kThreads,
+                               L::kSmemBytes, cache, &opted_in, &g->sms,
+                               &g->per_sm);
   if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (device & 31);
-  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_release);
-  return err;
+  g->rows_per_block = one_wave_rows(rows, g->sms * g->per_sm, L::kQuantum);
+  g->blocks = (rows + g->rows_per_block - 1) / g->rows_per_block;
+  g->tile_rows = L::kTileRows;
+  g->quantum = L::kQuantum;
+  return cudaSuccess;
 }
 
 // The (C, C', bf16, last) instance as a function pointer, and the dynamic
@@ -598,7 +762,7 @@ const void* instance(int* smem_bytes) {
     *smem_bytes = ShardMma<kC, kCP, kLast>::kSmem;
     return reinterpret_cast<const void*>(wn_shard_kernel_mma<kC, kCP, kLast>);
   } else {
-    *smem_bytes = f32_smem_bytes<kC>();
+    *smem_bytes = ShardF32<kC, kCP, kLast>::kSmemBytes;
     return reinterpret_cast<const void*>(wn_shard_kernel<kC, kCP, kLast>);
   }
 }
@@ -607,8 +771,8 @@ template <int kC, int kCP, bool kBf16, bool kLast>
 cudaError_t launch(const float* x, const void* cond, const void* w_in,
                    const float* b_in, const void* w_rs, float* out, int batch,
                    int T, int dilation, cudaStream_t stream) {
-  static std::atomic<uint32_t> opted_in{0};
   if constexpr (kBf16) {
+    static std::atomic<uint32_t> opted_in{0};
     constexpr int smem = ShardMma<kC, kCP, kLast>::kSmem;
     auto kernel = wn_shard_kernel_mma<kC, kCP, kLast>;
     cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
@@ -618,14 +782,16 @@ cudaError_t launch(const float* x, const void* cond, const void* w_in,
         x, static_cast<const bf16*>(cond), static_cast<const bf16*>(w_in), b_in,
         static_cast<const bf16*>(w_rs), out, T, dilation);
   } else {
-    constexpr int smem = f32_smem_bytes<kC>();
-    auto kernel = wn_shard_kernel<kC, kCP, kLast>;
-    cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
+    using L = ShardF32<kC, kCP, kLast>;
+    const int rows = batch * T;
+    F32Grid g;
+    cudaError_t err = f32_grid<kC, kCP, kLast>(rows, &g);  // also opts in
     if (err != cudaSuccess) return err;
-    dim3 grid((T + kRows - 1) / kRows, batch);
-    kernel<<<grid, kThreads, smem, stream>>>(
+    wn_shard_kernel<kC, kCP, kLast><<<g.blocks, L::kThreads, L::kSmemBytes,
+                                      stream>>>(
         x, static_cast<const float*>(cond), static_cast<const float*>(w_in),
-        b_in, static_cast<const float*>(w_rs), out, T, dilation);
+        b_in, static_cast<const float*>(w_rs), out, T, dilation, rows,
+        g.rows_per_block);
   }
   return cudaGetLastError();
 }
@@ -686,6 +852,21 @@ cudaError_t dispatch(int c, int cp, const Args* a, int bf16_mode, int last,
   }
 }
 
+// The f32 grid of the (C, C', last) instance.
+template <int kC, int kCP>
+cudaError_t f32_grid_pair(int last, int rows, F32Grid* g) {
+  return last ? f32_grid<kC, kCP, true>(rows, g)
+              : f32_grid<kC, kCP, false>(rows, g);
+}
+
+template <int kC>
+cudaError_t f32_grid_for(int cp, int last, int rows, F32Grid* g) {
+  if (cp == kC / 2) return f32_grid_pair<kC, kC / 2>(last, rows, g);
+  if (cp == kC / 4) return f32_grid_pair<kC, kC / 4>(last, rows, g);
+  if (cp == kC / 8) return f32_grid_pair<kC, kC / 8>(last, rows, g);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -725,6 +906,34 @@ cudaError_t wn_layer_shard_kernel_info(int c, int cp, int bf16, int last,
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
+// The f32 kernel's grid for the (c, cp, last) instance at `batch` x T rows,
+// as its launcher picks it: SMs, blocks an SM (occupancy API), blocks
+// launched, rows a block takes, rows of a tile and the quantum the rows a
+// block are rounded to.
+cudaError_t wn_layer_shard_f32_schedule(int c, int cp, int batch, int T,
+                                        int last, int* sms, int* blocks_per_sm,
+                                        int* blocks, int* rows_per_block,
+                                        int* tile_rows, int* quantum) {
+  if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
+    return cudaErrorInvalidValue;
+  F32Grid g;
+  cudaError_t err;
+  switch (c) {
+    case 128: err = f32_grid_for<128>(cp, last, batch * T, &g); break;
+    case 256: err = f32_grid_for<256>(cp, last, batch * T, &g); break;
+    case 512: err = f32_grid_for<512>(cp, last, batch * T, &g); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  *sms = g.sms;
+  *blocks_per_sm = g.per_sm;
+  *blocks = g.blocks;
+  *rows_per_block = g.rows_per_block;
+  *tile_rows = g.tile_rows;
+  *quantum = g.quantum;
   return cudaSuccess;
 }
 

@@ -68,6 +68,8 @@ SHARD_LAUNCHES = 0
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
            CSRC / "wn_layer_shard.cu")
+# Included by the forward and the shard source (the f32 ring and tile).
+HEADERS = (CSRC / "f32_ring.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -172,7 +174,7 @@ def build_library() -> Path:
   link. Returns the library's path; raises with nvcc's output on failure."""
   global BUILD_LOG, BUILD_SECONDS
   digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-  for src in SOURCES:
+  for src in SOURCES + HEADERS:
     digest.update(src.read_bytes())
   lib = BUILD_DIR / f"wn_layer_{digest.hexdigest()[:16]}.so"
   if lib.is_file():
@@ -230,6 +232,10 @@ def _library():
     sched = lib.wn_layer_f32_schedule
     sched.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
     sched.restype = ctypes.c_int
+    shard_sched = lib.wn_layer_shard_f32_schedule
+    shard_sched.argtypes = ([ctypes.c_int] * 5
+                            + [ctypes.POINTER(ctypes.c_int)] * 6)
+    shard_sched.restype = ctypes.c_int
     _LIB = lib
   return _LIB
 
@@ -268,21 +274,34 @@ F32_TILE_ROWS = 48
 
 
 def f32_schedule(batch: int, t: int, last: bool = False,
-                 channels: int = 256) -> dict:
-  """The f32 kernel's grid at width ``channels`` for ``batch`` x ``t``
-  rows, as its launcher picks it: one wave of blocks (SMs x blocks an SM,
-  from the occupancy API), each taking ``rows_per_block`` of the B*T rows
-  in tiles of ``F32_TILE_ROWS``, the last of them short."""
-  check_width(channels)
-  vals = [ctypes.c_int() for _ in range(4)]
-  err = _library().wn_layer_f32_schedule(channels, batch, t, int(last),
-                                         *[ctypes.byref(v) for v in vals])
+                 channels: int = 256, cp: Optional[int] = None) -> dict:
+  """The grid of the f32 kernel at width ``channels`` (with ``cp``, of the
+  f32 shard kernel at (``channels``, ``cp``)) for ``batch`` x ``t`` rows,
+  as its launcher picks it: one wave of blocks (SMs x blocks an SM, from
+  the occupancy API), each taking ``rows_per_block`` of the B*T rows in
+  tiles, the last of them short. The shard kernel's grid also names its
+  ``tile_rows`` and the ``quantum`` its rows a block are a multiple of;
+  the forward's tiles are ``F32_TILE_ROWS``."""
+  check_width(channels, cp)
+  lib = _library()
+  if cp is None:
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.wn_layer_f32_schedule(channels, batch, t, int(last),
+                                    *[ctypes.byref(v) for v in vals])
+  else:
+    vals = [ctypes.c_int() for _ in range(6)]
+    err = lib.wn_layer_shard_f32_schedule(channels, cp, batch, t, int(last),
+                                          *[ctypes.byref(v) for v in vals])
   if err != 0:
-    raise RuntimeError(f"wn_layer_f32_schedule failed: cudaError {err}")
-  sms, per_sm, blocks, rows_per_block = (v.value for v in vals)
-  return {"sms": sms, "blocks_per_sm": per_sm, "blocks": blocks,
-          "rows_per_block": rows_per_block,
-          "tiles_per_block": -(-rows_per_block // F32_TILE_ROWS),
+    raise RuntimeError(f"the f32 schedule of (C={channels}, C'={cp}) "
+                       f"failed: cudaError {err}")
+  sms, per_sm, blocks, rows_per_block, *tile = (v.value for v in vals)
+  grid = {"sms": sms, "blocks_per_sm": per_sm, "blocks": blocks,
+          "rows_per_block": rows_per_block}
+  if tile:
+    grid.update(tile_rows=tile[0], quantum=tile[1])
+  tile_rows = grid.get("tile_rows", F32_TILE_ROWS)
+  return {**grid, "tiles_per_block": -(-rows_per_block // tile_rows),
           "waves": blocks / (sms * per_sm)}
 
 
