@@ -6,16 +6,19 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
   2. build: the WN-layer kernels are compiled from
      waveglow_tpu_torch/csrc/wn_layer.cu (forward), wn_layer_bwd.cu (the
-     bf16 backward) and wn_layer_shard.cu (a model rank's share), one nvcc
-     per source, started together, every width instance (C = 128, 256,
-     512; the shard kernel at C' = C/2, C/4, C/8); build seconds and
+     bf16 backward), wn_layer_shard.cu (a model rank's share) and
+     wn_layer_shard_bwd.cu (its bf16 backward), one nvcc per source,
+     started together, every width instance (C = 128, 256, 512; the shard
+     kernels at C' = C/2, C/4, C/8); build seconds and
      ptxas facts (when this run built it), and what the loaded build uses
      as the CUDA runtime reports it (registers, local bytes, shared
      memory). The library's SASS (cuobjdump -sass) must show
      tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the
-     forward variants, the backward's rows, dx and weights kernels, and the
-     bf16 shard kernels) and none in the f32 ones; the backward's reduce
-     kernel does no products. The f32 kernel's registers, shared memory,
+     forward variants, the backward's rows, dx and weights kernels, the
+     bf16 shard kernels and the shard backward's rows, dx and weights
+     kernels, whose registers, spills and shared memory are printed) and
+     none in the f32 ones; the two backwards' reduce kernels do no
+     products. The f32 kernel's registers, shared memory,
      blocks an SM and grid at B=1 and B=8 are printed (at each width), and
      any spill of an f32 forward variant fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
@@ -80,7 +83,8 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      C9 check: a solo 200-frame request dispatched, then an 8-row batch of
      826-frame requests dispatched from another thread, and the solo one
      finalized before the batch's event completes and within 1.5x of its
-     solo time.
+     solo time (the median of 7 rounds against the median of 7 solo calls,
+     each made just before its round).
   9. cli: the command line at full width in f32 and bf16. The reference
      `.pt` (export_torch_checkpoint) and NVIDIA's raw form (legacy
      weight_g/weight_v names in the "model" slot) are written with torch;
@@ -151,7 +155,30 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      step a mode (192 WN launches with remat, 96 backward-kernel calls in
      bf16) with one step's gradients against the plain route at phase 5's
      bounds.
- 13. a `kernels` JSON line, the card's name and power limit, and last the
+ 13. mesh training: (a) the bf16 shard backward kernels
+     (csrc/wn_layer_shard_bwd.cu) against wn_layer_shard_backward at
+     every (C, C') pair, B=12, T=2,000, d=1 and the last layer, every
+     rank, the ranks' outputs summed and concatenated against the full
+     layer's backward kernels, two launches bit for bit, timed at d=1
+     beside the bound, the plain version and the library's (cuBLAS bf16
+     products and torch elementwise), and the f32 route (torch ops)
+     against autograd; (b) train() at full width (12 x 8 x 256, batch
+     12, segment 16,000) on logical meshes of cuda:0, (data, model) =
+     (1, 2), (2, 1) and (2, 2), in f32 and bf16: one step's loss and
+     every leaf's gradient against the unsharded step at phase 6's
+     bounds, launches at the code's counts (96 x model shard launches a
+     forward, 96 x model shard-backward calls a bf16 step, no full-layer
+     launch on a model > 1 mesh), three steps with saves at 1 and 2, the
+     resume from 2 bit for bit the straight run, the checkpoint resumed
+     unsharded at the mesh's step-3 loss, the step's wall, device busy,
+     idle share and peak memory; one step at C = 512 on model = 2
+     against the unsharded step; (c) the train command as two processes
+     on the card over gloo (--num-processes 2 --process-id r
+     --coordinator-address 127.0.0.1:<port>, global batch 12, 6 rows a
+     process, two steps): equal losses and states on both ranks, process
+     0's first checkpoint against one process at phase 6's bounds, the
+     cross-process reduce's ms.
+ 14. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
@@ -216,7 +243,11 @@ from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
                                                 infer, infer_noise_shapes,
                                                 init_params)
+from waveglow_tpu_torch.ops.conv import shift_time
 from waveglow_tpu_torch.parallel.mesh import make_mesh, make_time_mesh
+from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
+                                                  gather_tree,
+                                                  shard_trainable_params)
 from waveglow_tpu_torch.parallel.time_shard import span_windows
 from waveglow_tpu_torch.training import step as train_lib
 from waveglow_tpu_torch.training.data import SegmentDataset, load_dataset
@@ -327,12 +358,14 @@ SERVE_TIMEOUT_S = 120
 # C9: a solo request's dispatch-to-result time, with an 8-row batch of
 # 826-frame requests dispatched behind it from another thread (median of
 # C9_ROUNDS rounds after a warm-up one), within this factor of its solo
-# time (median of C9_REPS); the batch's event still pending when the solo
-# result is in, in every round.
+# time (median of C9_ROUNDS solo calls, each made just before its round, so
+# both medians see the same stretch of the host's clock: a bf16 solo
+# request is the host's enqueue, whose pace drifts between stretches of a
+# run); the batch's event still pending when the solo result is in, in
+# every round.
 C9_FRAMES = 200
 C9_RATIO = 1.5
-C9_REPS = 5
-C9_ROUNDS = 3
+C9_ROUNDS = 7
 
 # The CLI (phase 9): synthesize's --batch, and the (start, length) in samples
 # of the two cuts of the speech fixture that synthesize-wav reads.
@@ -496,14 +529,35 @@ def shard_variant(width: int, channels: int, bf16: bool, last: bool) -> str:
 SHARD_KERNELS = tuple((c, cp, bf16, last) for c, cp in kl.shard_pairs()
                       for bf16 in (False, True) for last in (False, True))
 
+# The bf16 shard backward's kernels, (name, C, C', last) as
+# kl.shard_bwd_kernel_info takes them (the rows kernel has a last variant).
+SHARD_BWD_KERNELS = tuple(
+    (k, c, cp, last) for c, cp in kl.shard_pairs() for k in kl.BWD_KERNELS
+    for last in ((False, True) if k == "rows" else (False,)))
+
+
+def shard_bwd_variant(kernel: str, width: int, channels: int,
+                      last: bool = False) -> str:
+  """Variant name of a shard-backward kernel: "bf16,C=N,C'=M,sbwd-..." for
+  those that do products (check_tensor_cores demands HMMA/HGMMA of them),
+  "reduce,C=N,C'=M,sbwd" for the reduce kernel, which does none."""
+  pair = f"C={width},C'={channels}"
+  if kernel == "reduce":
+    return f"reduce,{pair},sbwd"
+  if kernel == "rows":
+    return f"bf16,{pair},sbwd-rows,{'last' if last else 'layer'}"
+  return f"bf16,{pair},sbwd-{kernel}"
+
 
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kC, kLast>``, the bf16 tensor-core kernel
   ``wn_layer_kernel_mma<kC, kLast>``, a backward kernel
-  ``wn_bwd_{rows<kC, kLast>,dx<kC>,weights<kC>,reduce<kC>}_kernel`` or a
+  ``wn_bwd_{rows<kC, kLast>,dx<kC>,weights<kC>,reduce<kC>}_kernel``, a
   shard kernel ``wn_shard_kernel[_mma]<kC, kCP, kLast>`` (FFMA in f32, the
-  tensor cores in bf16); other symbols are returned as they are."""
+  tensor cores in bf16) or a shard-backward kernel
+  ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``;
+  other symbols are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
@@ -513,6 +567,11 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return bwd_variant(inst.group(1), inst.group(3) == "1",
                        int(inst.group(2)))
+  inst = re.search(r"wn_sbwd_(rows|dx|weights|reduce)_kernelILi(\d+)ELi(\d+)E"
+                   r"(?:Lb([01])E)?", mangled)
+  if inst:
+    return shard_bwd_variant(inst.group(1), int(inst.group(2)),
+                             int(inst.group(3)), inst.group(4) == "1")
   inst = re.search(r"wn_shard_kernel(_mma)?ILi(\d+)ELi(\d+)ELb([01])E",
                    mangled)
   if inst:
@@ -649,6 +708,8 @@ def phase_build() -> dict:
                      for k, last, width in BWD_KERNELS})
   attributes.update({shard_variant(*v): kl.shard_kernel_info(*v)
                      for v in SHARD_KERNELS})
+  attributes.update({shard_bwd_variant(*v): kl.shard_bwd_kernel_info(*v)
+                     for v in SHARD_BWD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -666,6 +727,12 @@ def phase_build() -> dict:
   log("build " + json.dumps(info))
   log("f32 kernel " + json.dumps(info["f32_grid"]))
   log("f32 shard kernel " + json.dumps(info["shard_f32_grid"]))
+  log("shard backward kernels " + json.dumps(
+      {shard_bwd_variant(*v): {**attributes[shard_bwd_variant(*v)],
+                               "ptxas": (info["ptxas"].get(
+                                   shard_bwd_variant(*v)) if built
+                                   else "cached")}
+       for v in SHARD_BWD_KERNELS}))
   if built and set(info["ptxas"]) != set(attributes):
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
@@ -1752,7 +1819,8 @@ def c9_check(synth: Synthesizer, solo_mel: np.ndarray, batch_mel: np.ndarray,
   """Dispatch a solo request, then, from one other thread (as the daemon's
   dispatcher does while its finisher fetches), an 8-row batch; finalize the
   solo one. Its result must not wait for the batch: one warm-up round,
-  then the median of C9_ROUNDS rounds against the median solo call."""
+  then the median of C9_ROUNDS rounds against the median of the solo calls
+  made one just before each round."""
   def solo_call():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1782,18 +1850,20 @@ def c9_check(synth: Synthesizer, solo_mel: np.ndarray, batch_mel: np.ndarray,
     rows = synth.serving_many_finalize(batch)
     if len(rows) != SERVE_MAX_BATCH:
       fail(f"C9: the batch gave {len(rows)} results")
-    if not np.array_equal(res.samples, reps[0][1].samples):
+    if not np.array_equal(res.samples, ref.samples):
       fail("C9: the solo result differs from its solo call")
     return {"result_s": result_s, "solo_dispatch_s": t_dispatched,
             "batch_event_done_at_result": batch_done,
             "batch_finalize_wait_s": time.perf_counter() - t_batch}
 
-  solo_call()
-  reps = [solo_call() for _ in range(C9_REPS)]
-  solo_s = float(np.median([t for t, _ in reps]))
+  _, ref = solo_call()
+  reps, rounds = [], []
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     warm = one_round(pool)
-    rounds = [one_round(pool) for _ in range(C9_ROUNDS)]
+    for _ in range(C9_ROUNDS):
+      reps.append(solo_call()[0])
+      rounds.append(one_round(pool))
+  solo_s = float(np.median(reps))
   result_s = float(np.median([r["result_s"] for r in rounds]))
   batch_done = any(r["batch_event_done_at_result"] for r in rounds)
   # the route C9 repaired, as it waited: a blocking fetch made at finalize
@@ -1813,7 +1883,7 @@ def c9_check(synth: Synthesizer, solo_mel: np.ndarray, batch_mel: np.ndarray,
   if not blocking:
     fail(f"C9: the check passed a blocking fetch ({blocking_s:.4f} s, solo "
          f"{solo_s:.4f} s)")
-  info = {"solo_s": solo_s, "solo_reps_s": [t for t, _ in reps],
+  info = {"solo_s": solo_s, "solo_reps_s": reps,
           "result_s": result_s, "ratio": result_s / solo_s,
           "bound_ratio": C9_RATIO, "batch_event_done_at_result": batch_done,
           "rounds": rounds, "warm_up_round": warm,
@@ -3530,6 +3600,575 @@ def phase_widths(seed: int, tmp: Path) -> dict:
   return out
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# Mesh training on logical meshes of the one card (the ranks run one after
+# another: the numbers are checked, no speedup is shown): full width, batch
+# 12 and segment 16,000 (phase 6's), three train() steps with saves at
+# steps 1 (the first iteration's) and MESH_SAVE_AT and a resume from the
+# latter; validation on MESH_VAL_WAVS cuts (one batch a save). Then one
+# step at C = MESH_WIDE on a model = 2 mesh at WIDTH_TRAIN_BATCH rows, and
+# the train command in two processes (gloo on the one card: NCCL will not
+# put two ranks on one device), global batch 12, 6 rows a process, two
+# steps. The bounds are phase 6's (STEP_LOSS_TOL, STEP_GRAD_TOL_REL): a
+# mesh step against the unsharded step differs in summation order (the
+# ranks' partials, the replicas' gradients) and in bf16 by the roundings
+# that order moves.
+MESH_TRAIN = ((1, 2), (2, 1), (2, 2))
+MESH_TRAIN_STEPS = 3
+MESH_SAVE_AT = 2
+MESH_VAL_WAVS = 12
+MESH_WIDE = 512
+CLI_PROCS = 2
+CLI_PROC_TIMEOUT_S = 300
+SHARD_BWD_DESIGN = (
+    "bf16 tensor cores (mma.sync m16n8k16 fed by ldmatrix, cp.async rings), "
+    "four kernels after the full layer's backward: rows (taps staged in "
+    "shared memory, the gate recompute and dacts on the same accumulators, "
+    "passes of min(C', 128) channels, 64-row tiles, 32 at C = 512 and 128 "
+    "at C' = 16), dx (128 x 128 tiles, K = 3 x 2C'), weights (128 x 128 "
+    "tiles, the extent past 2C' or C' skipped by whole warps, row-split f32 "
+    "partials), reduce (fixed order, no atomics)")
+
+
+def shard_bwd_cost(batch: int, t: int, width: int, cp: int, last: bool,
+                   mode: str) -> dict:
+  """Least work of one shard backward (a rank's C' of ``width`` channels):
+  the saved inputs (x, cond_s, w_in_s, b_in_s, w_rs_s) and g read once,
+  dx, dcond_s, dw_in_s, db_in_s and dw_rs_s written once; the products
+  dacts, dw_rs, dw_in and the taps' adjoint at the compute dtype's rate,
+  without the gate recompute (as ``trainable_cost`` counts the full
+  layer's backward)."""
+  C = width
+  esize = 2 if mode == "bf16" else 4
+  rs = C if last else 2 * C
+  rows = batch * t
+  weights = (3 * C * 2 * cp + cp * rs) * esize
+  nbytes = (2 * rows * C * 4              # x in, dx out
+            + 2 * rows * 2 * cp * esize   # cond_s in, dcond_s out
+            + 2 * weights + 2 * 2 * cp * 4  # the weights and b_in_s, both ways
+            + rows * rs * 4)              # g in
+  flops = 2 * rows * (2 * rs * cp + 2 * 3 * C * 2 * cp)
+  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / PEAK_FLOPS[mode] * 1e3
+  return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_shard_backward(saved, g, dilation: int, dtype):
+  """Yardstick the port never calls: the shard backward's function as
+  cuBLAS matmuls on ``dtype`` operands (bf16 or f32) and torch elementwise
+  ops."""
+  x, cond_s, w_in_s, b_in_s, w_rs_s = saved
+  batch, t, c = x.shape
+  cp = b_in_s.numel() // 2
+  rs = w_rs_s.numel() // cp
+  xd = x.to(dtype)
+  taps = torch.cat([shift_time(xd, (k - 1) * dilation) for k in range(3)],
+                   dim=-1).reshape(-1, 3 * c)
+  w_in = w_in_s.reshape(3 * c, 2 * cp).to(dtype)
+  w_rs = w_rs_s.reshape(cp, rs).to(dtype)
+  gates = (torch.matmul(taps, w_in).float() + b_in_s
+           + cond_s.reshape(-1, 2 * cp).float())
+  t_act, s_act = torch.tanh(gates[:, :cp]), torch.sigmoid(gates[:, cp:])
+  gd = g.reshape(-1, rs).to(dtype)
+  dacts = torch.matmul(gd, w_rs.T).float()
+  dw_rs = torch.matmul((t_act * s_act).to(dtype).T, gd)
+  dgates = torch.cat([dacts * s_act * (1 - t_act * t_act),
+                      dacts * t_act * s_act * (1 - s_act)], dim=-1)
+  db_in = dgates.sum(0)
+  dg = dgates.to(dtype)
+  dw_in = torch.matmul(taps.T, dg)
+  g_w = torch.matmul(dg, w_in.T).float().reshape(batch, t, 3 * c)
+  dx = sum(shift_time(g_w[..., k * c:(k + 1) * c], -(k - 1) * dilation)
+           for k in range(3))
+  return dx, dg, dw_in, db_in, dw_rs
+
+
+def shard_bwd_check(seed: int) -> dict:
+  """The bf16 shard backward kernels against wn_layer_shard_backward at
+  every pair, B_TRAIN x T_TRAIN, d=1 and the last layer (rank 0): each
+  gradient within KERNEL_TOL_BF16_REL of its scale; two launches of every
+  rank the same bits; the ranks' outputs, dx summed (plus the residual's
+  cotangent) and the rest concatenated, against the full layer's backward
+  kernels at the same bound. Timed at d=1 (rank 0) beside the bound, the plain version
+  and the library's; and the f32 route (torch ops) at (C, C/2)."""
+  bf = torch.bfloat16
+  cases, timed = [], {}
+  for width in kl.kernel_widths():
+    for i, (dilation, last) in enumerate(((1, False),
+                                          (LAST_DILATION, True))):
+      args, _, _ = layer_inputs(B_TRAIN, T_TRAIN, last, bf, seed + 130 + i,
+                                width)
+      rs = width if last else 2 * width
+      gen = torch.Generator(device=DEVICE).manual_seed(seed + 140 + i)
+      g = torch.randn(B_TRAIN, T_TRAIN, rs, generator=gen, device=DEVICE)
+      dx_next = None if last else g[..., :width].contiguous()
+      dskip = g if last else g[..., width:].contiguous()
+      full = kl.wn_layer_backward_fused(args, dx_next, dskip, dilation)
+      for c, cp in kl.shard_pairs():
+        if c != width:
+          continue
+        model = width // cp
+        outs, err, err_of_scale, repeats = [], 0.0, 0.0, True
+        for rank in range(model):
+          cond_s, w_in_s, b_in_s, w_rs_s = shard_slices(args, model, rank)
+          saved = (args[0], cond_s, w_in_s.reshape(3 * width, 2 * cp),
+                   b_in_s, w_rs_s)
+          got = kl.wn_layer_shard_backward_fused(saved, g, dilation)
+          again = kl.wn_layer_shard_backward_fused(saved, g, dilation)
+          torch.cuda.synchronize()
+          repeats = repeats and all(torch.equal(a, b)
+                                    for a, b in zip(got, again))
+          del again
+          if not all(torch.isfinite(a).all() for a in got):
+            fail(f"shard backward C={width} C'={cp}: not finite")
+          if rank == 0:
+            ref = kl.wn_layer_shard_backward(saved, g, dilation, bf)
+            for a, b in zip(got, ref):
+              e = (a.float() - b.float()).abs().max().item()
+              err = max(err, e)
+              err_of_scale = max(err_of_scale,
+                                 e / max(b.float().abs().max().item(), 1e-30))
+            del ref
+          outs.append(got)
+          if dilation == 1 and rank == 0:
+            cost = shard_bwd_cost(B_TRAIN, T_TRAIN, width, cp, last, "bf16")
+            rec = {"kernel_ms": cuda_ms(lambda: kl.wn_layer_shard_backward_fused(
+                saved, g, 1), reps=10),
+                   "plain_ms": cuda_ms(lambda: kl.wn_layer_shard_backward(
+                       saved, g, 1, bf), reps=5),
+                   "library_ms": cuda_ms(lambda: library_shard_backward(
+                       saved, g, 1, bf), reps=5), **cost}
+            rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+            timed[(width, cp)] = rec
+        dx = sum(o[0] for o in outs) + (0 if last else g[..., :width])
+
+        def cat(k, shape):
+          return torch.cat([o[k].reshape(shape) for o in outs], dim=-1)
+
+        summed = (dx, cat(1, (B_TRAIN, T_TRAIN, 2, -1)),
+                  cat(2, (3 * width, 2, -1)), cat(3, (2, -1)),
+                  torch.cat([o[4].reshape(cp, rs) for o in outs], 0))
+        sum_err = max(
+            (a.float().reshape(b.shape) - b.float()).abs().max().item()
+            / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(summed, full[:5]))
+        case = {"C": width, "C'": cp, "dilation": dilation, "last": last,
+                "max_abs_err": err, "max_err_of_scale": err_of_scale,
+                "ranks_vs_full_err_of_scale": sum_err,
+                "repeat_bitwise": repeats,
+                "tolerance_of_scale": KERNEL_TOL_BF16_REL}
+        if (err_of_scale > KERNEL_TOL_BF16_REL
+            or sum_err > KERNEL_TOL_BF16_REL or not repeats):
+          fail(f"shard backward kernel disagrees: {case}")
+        if (width, cp) in timed and dilation == 1:
+          case.update(timed[(width, cp)])
+        log("shard backward " + json.dumps(case))
+        cases.append(case)
+        del outs, summed, dx
+      del args, g, full
+    torch.cuda.empty_cache()
+  # the f32 route: torch ops, at (C, C/2), d=1, rank 0
+  args, _, _ = layer_inputs(B_TRAIN, T_TRAIN, False, torch.float32,
+                            seed + 150, C)
+  gen = torch.Generator(device=DEVICE).manual_seed(seed + 151)
+  g = torch.randn(B_TRAIN, T_TRAIN, 2 * C, generator=gen, device=DEVICE)
+  cond_s, w_in_s, b_in_s, w_rs_s = shard_slices(args, 2, 0)
+  saved = (args[0], cond_s, w_in_s.reshape(3 * C, C), b_in_s, w_rs_s)
+  leaves = [v.clone().requires_grad_() for v in saved]
+  plain_out = kl.wn_layer_shard_plain(*leaves, 1)
+  f32 = {"ms": cuda_ms(lambda: kl.wn_layer_shard_backward(saved, g, 1),
+                       reps=5),
+         "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+             plain_out, leaves, g, retain_graph=True), reps=5),
+         "library_ms": cuda_ms(lambda: library_shard_backward(
+             saved, g, 1, torch.float32), reps=5),
+         **shard_bwd_cost(B_TRAIN, T_TRAIN, C, C // 2, False, "f32")}
+  got = kl.wn_layer_shard_backward(saved, g, 1)
+  want = torch.autograd.grad(plain_out, leaves, g)
+  f32["max_abs_err"] = max((a - b).abs().max().item()
+                           for a, b in zip(got, want))
+  f32["max_err_of_scale"] = max((a - b).abs().max().item()
+                                / b.abs().max().item()
+                                for a, b in zip(got, want))
+  if f32["max_err_of_scale"] > GRAD_TOL_REL["f32"]:
+    fail(f"f32 shard backward against autograd: {f32}")
+  log("shard backward f32 " + json.dumps(f32))
+  del args, g, saved, leaves, plain_out, got, want
+  torch.cuda.empty_cache()
+  return {"cases": cases, "timed": timed, "f32": f32}
+
+
+def expected_mesh_train_launches(data_: int, model: int, mode: str,
+                                 per_forward: int, remat: bool = True,
+                                 steps: int = 1, evals: int = 0) -> dict:
+  """Launches of ``steps`` mesh train steps and ``evals`` validation
+  batches: each data replica runs the forward once a step and, with remat,
+  again in the backward; a model group runs the shard kernel once a rank
+  and layer (no full-layer kernel), and in bf16 the shard backward once a
+  rank and layer; a model = 1 replica runs the full layer's kernels."""
+  fwd = data_ * per_forward * ((2 if remat else 1) * steps + evals)
+  bwd = data_ * per_forward * steps if mode == "bf16" else 0
+  if model > 1:
+    return {"fused": 0, "backward": 0, "shard": fwd * model,
+            "shard_backward": bwd * model}
+  return {"fused": fwd, "backward": bwd, "shard": 0, "shard_backward": 0}
+
+
+def launch_counts() -> dict:
+  return {"fused": kl.LAUNCHES, "backward": kl.BWD_LAUNCHES,
+          "shard": kl.SHARD_LAUNCHES, "shard_backward": kl.SHARD_BWD_LAUNCHES}
+
+
+def reset_launches() -> None:
+  kl.LAUNCHES = kl.BWD_LAUNCHES = kl.SHARD_LAUNCHES = 0
+  kl.SHARD_BWD_LAUNCHES = 0
+
+
+def mesh_grads(hp: HParams, config: WaveGlowConfig, params_np: dict,
+               batch: torch.Tensor, data_: int, model: int) -> tuple:
+  """One mesh step without the update, under torch.profiler: each data
+  replica's loss and gradients on its rows, averaged over the replicas (the
+  step's own sync). Returns the loss, replica 0's gradients gathered to the
+  full tree's leaves on the host, and the step's device busy ms (its
+  forward, remat recompute, backward and the replicas' sum; not Adam)."""
+  from torch.profiler import ProfilerActivity, profile
+  mesh = make_mesh(data_, model, devices=logical_devices(data_ * model))
+  replicas = shard_trainable_params(params_np, mesh)
+  loss_fn = train_lib.make_loss_fn(config, hp, MelSTFT(hp, DEVICE))
+  rows = batch.shape[0] // data_
+  torch.cuda.synchronize()
+  # the device's activity alone: tracing every host op of a full-width
+  # step cost 5-20 s of post-processing a mesh
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    losses = [train_lib.compute_grads(
+        loss_fn, group if model > 1 else group[0],
+        batch[i * rows:(i + 1) * rows]) for i, group in enumerate(replicas)]
+    loss = float(train_lib.sync_replica_grads(replicas, losses))
+    torch.cuda.synchronize()
+  busy = sum(ms for _, ms in device_kernels(prof))
+  grads = [torch.from_numpy(v) for v in gather_tree(
+      replicas[0], lambda p: p.grad.detach().to("cpu").numpy())]
+  return loss, grads, busy if busy else "not measured"
+
+
+def states_equal(a: dict, b: dict) -> bool:
+  return (all(np.array_equal(x, y) for x, y in
+              zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
+          and all(np.array_equal(x, y)
+                  for x, y in zip(a["opt_state"], b["opt_state"])))
+
+
+def mesh_train_case(mode: str, custom: dict, hp: HParams,
+                    config: WaveGlowConfig, params_np: dict,
+                    batch: torch.Tensor, ref: tuple, data_: int, model: int,
+                    entries, val_entries, tmp: Path) -> dict:
+  """Phase 13(b) on one (data, model) mesh: a step's loss and gradients
+  against the unsharded step (ref), launch counts, train() with saves and a
+  resume bit for bit, the checkpoint resumed unsharded, the step's busy
+  time and peak memory."""
+  per_forward = config.n_flows * config.n_layers
+  name = f"{mode} mesh ({data_}, {model})"
+  reset_launches()
+  t0 = time.perf_counter()
+  loss, grads, busy = mesh_grads(hp, config, params_np, batch, data_, model)
+  seconds = {"step_check": time.perf_counter() - t0}
+  counts = launch_counts()
+  want = expected_mesh_train_launches(data_, model, mode, per_forward,
+                                      hp.remat)
+  if counts != want:
+    fail(f"{name}: one step launched {counts}, expected {want}")
+  rel = leaf_norm_rel_errors(grads, ref[1])
+  worst = int(np.argmax(rel))
+  rec = {"mode": mode, "data": data_, "model": model, "loss": loss,
+         "loss_err": abs(loss - ref[0]), "grad_norm_rel": rel[worst],
+         "worst_leaf": worst, "step_launches": counts,
+         "device_busy_ms": busy,
+         "loss_bound": STEP_LOSS_TOL[mode],
+         "grad_bound_rel": STEP_GRAD_TOL_REL[mode]}
+  del grads
+  if (rec["loss_err"] > STEP_LOSS_TOL[mode]
+      or rec["grad_norm_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"{name}: the step differs from the unsharded step: {rec}")
+
+  devices = logical_devices(data_ * model)
+  mcustom = dict(custom, mesh_data=str(data_), mesh_model=str(model))
+  reset_launches()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  straight = train(mcustom, tmp / "logs", entries, val_entries, tmp / "ck",
+                   max_iterations=MESH_TRAIN_STEPS, device=DEVICE,
+                   mesh_devices=devices)
+  rec["train_s"] = seconds["train"] = time.perf_counter() - t0
+  rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+  counts = launch_counts()
+  records = read_metrics(tmp / "logs")
+  steps = [r for r in records if r["event"] == "train_step"]
+  saves = [r["iteration"] for r in records if r["event"] == "validation"]
+  val_batches = len(val_entries) // B_TRAIN
+  want = expected_mesh_train_launches(
+      data_, model, mode, per_forward, hp.remat, steps=len(steps),
+      evals=val_batches * len(saves))
+  rec.update(train_launches=counts, losses=[r["loss"] for r in steps],
+             step_s=[r["duration_s"] for r in steps])
+  if len(steps) != MESH_TRAIN_STEPS or saves != [1, MESH_SAVE_AT]:
+    fail(f"{name}: train() ran {len(steps)} steps, saved at {saves}")
+  if counts != want:
+    fail(f"{name}: train() launched {counts}, expected {want}")
+  t0 = time.perf_counter()
+  ckpt = CheckpointWaveglow.load(tmp / "ck" / f"{MESH_SAVE_AT}.npz")
+  seconds["load"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  resumed = train(None, None, entries, val_entries, tmp / "ck_resumed",
+                  checkpoint=ckpt, max_iterations=MESH_TRAIN_STEPS,
+                  device=DEVICE, mesh_devices=devices)
+  rec["resume_bitwise"] = states_equal(resumed, straight)
+  if not rec["resume_bitwise"]:
+    fail(f"{name}: the resumed run's state differs from the straight run's")
+  del resumed
+  seconds["resume"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  train({"mesh_data": "1", "mesh_model": "1"}, tmp / "logs_flat", entries,
+        val_entries, tmp / "ck_flat", checkpoint=ckpt,
+        max_iterations=MESH_TRAIN_STEPS, device=DEVICE)
+  seconds["unsharded_resume"] = time.perf_counter() - t0
+  flat = [r["loss"] for r in read_metrics(tmp / "logs_flat")
+          if r["event"] == "train_step"]
+  rec["unsharded_resume_loss"] = flat
+  rec["unsharded_resume_loss_err"] = abs(flat[0] - rec["losses"][-1])
+  if rec["unsharded_resume_loss_err"] > STEP_LOSS_TOL[mode]:
+    fail(f"{name}: the checkpoint resumed unsharded took step "
+         f"{MESH_TRAIN_STEPS} at loss {flat}, the mesh at "
+         f"{rec['losses'][-1]}")
+  del straight, ckpt
+  for path in ("ck", "ck_resumed", "ck_flat", "logs", "logs_flat"):
+    shutil.rmtree(tmp / path, ignore_errors=True)
+  # the profiled step runs slower (the profiler's own host cost): its busy
+  # time is set against train()'s median step after the first
+  rec["median_step_s"] = float(np.median(rec["step_s"][1:]))
+  rec["idle_share"] = (1 - busy / 1e3 / rec["median_step_s"]
+                       if busy != "not measured" else busy)
+  rec["seconds"] = seconds
+  torch.cuda.empty_cache()
+  log("mesh train " + json.dumps(rec))
+  return rec
+
+
+def mesh_wide_step(mode: str, seed: int, entries) -> dict:
+  """One step at C = MESH_WIDE on a model = 2 mesh (C' = 256), at
+  WIDTH_TRAIN_BATCH rows: the loss and gradients against the unsharded
+  step at phase 6's bounds, and the launch counts."""
+  custom = {"compute_dtype": "bfloat16" if mode == "bf16" else "float32",
+            "seed": str(seed)}
+  hp = overwrite_custom_hparams(width_hparams(MESH_WIDE), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  params_np = full_width_params(seed, MESH_WIDE)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(WIDTH_TRAIN_BATCH), 0)).to(DEVICE)
+  params = trainable_params_from_numpy(params_np, DEVICE)
+  ref_loss = float(train_lib.compute_grads(
+      train_lib.make_loss_fn(config, hp, MelSTFT(hp, DEVICE)), params, batch))
+  ref_grads = [p.grad.detach().cpu() for p in tree_leaves(params)]
+  del params
+  reset_launches()
+  loss, grads, _ = mesh_grads(hp, config, params_np, batch, 1, 2)
+  counts = launch_counts()
+  want = expected_mesh_train_launches(1, 2, mode,
+                                      config.n_flows * config.n_layers,
+                                      hp.remat)
+  rel = leaf_norm_rel_errors(grads, ref_grads)
+  rec = {"mode": mode, "C": MESH_WIDE, "model": 2, "loss": loss,
+         "loss_err": abs(loss - ref_loss), "grad_norm_rel": max(rel),
+         "launches": counts}
+  del grads, ref_grads, batch
+  torch.cuda.empty_cache()
+  log("mesh train wide " + json.dumps(rec))
+  if (counts != want or rec["loss_err"] > STEP_LOSS_TOL[mode]
+      or rec["grad_norm_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"C={MESH_WIDE} {mode} model=2 step: {rec}, launches expected "
+         f"{want}")
+  return rec
+
+
+# One process of the two-process train command: joins the group over gloo
+# (two ranks on one card), runs the command, and prints its losses, a
+# digest of its final state and what its cross-process reduces cost (one a
+# step, one a validation batch).
+MESH_CLI_WORKER = """
+import hashlib, json, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from waveglow_tpu_torch.checkpointing.from_jax import tree_leaves
+from waveglow_tpu_torch.cli import main
+from waveglow_tpu_torch.parallel import mesh
+from waveglow_tpu_torch.training import loop
+rank, port = int(sys.argv[1]), sys.argv[2]
+mesh.initialize_multihost(f"127.0.0.1:{{port}}", {procs}, rank,
+                          backend="gloo", timeout_s={timeout})
+states, losses = [], []
+train, make_step = loop.train, loop.make_mesh_train_step
+
+def keep(*args, **kwargs):
+  states.append(train(*args, **kwargs))
+  return states[-1]
+
+def recording(*args, **kwargs):
+  step = make_step(*args, **kwargs)
+  def run(audio):
+    loss = step(audio)
+    losses.append(float(loss))
+    return loss
+  return run
+
+loop.train, loop.make_mesh_train_step = keep, recording
+rc = main.run(sys.argv[3:])
+digest = hashlib.sha256()
+for leaf in tree_leaves(states[0]["params"]) + list(states[0]["opt_state"]):
+  digest.update(np.ascontiguousarray(leaf).tobytes())
+print("MESH_CLI " + json.dumps({{"rc": rc, "losses": losses,
+                                 "digest": digest.hexdigest(),
+                                 "reduce": mesh.REDUCE_STATS}}))
+sys.exit(rc)
+"""
+
+
+def mesh_cli_train(mode: str, seed: int, tmp: Path, wav_dir: Path,
+                   val_dir: Path, entries) -> dict:
+  """Phase 13(c): `train --num-processes 2 --process-id r
+  --coordinator-address 127.0.0.1:<port>` as two processes on the card;
+  both ranks' losses equal and their final states the same bits; process
+  0's first checkpoint (its Adam mu is 0.1 x the step-1 gradient) and the
+  step-1 loss against one-process loss and gradients of the same global
+  batch at phase 6's bounds; process 1 writes no checkpoint."""
+  custom = dict(TRAIN_HPARAMS, seed=str(seed), epochs="1",
+                iters_per_checkpoint=str(MESH_SAVE_AT),
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  hp = overwrite_custom_hparams(HParams(), custom)
+  script = tmp / "mesh_cli_worker.py"
+  script.write_text(MESH_CLI_WORKER.format(
+      root=str(ROOT), procs=CLI_PROCS, timeout=CLI_PROC_TIMEOUT_S))
+  port = free_port()
+  hp_arg = ",".join(f"{k}={v}" for k, v in custom.items())
+  t0 = time.perf_counter()
+  procs = [subprocess.Popen(
+      [sys.executable, str(script), str(rank), str(port), "train",
+       str(wav_dir), str(val_dir), str(tmp / f"cli_ck{rank}"),
+       "--custom-hparams", hp_arg, "--tl-dir", str(tmp / f"cli_logs{rank}"),
+       "--coordinator-address", f"127.0.0.1:{port}", "--num-processes",
+       str(CLI_PROCS), "--process-id", str(rank), "--device", DEVICE,
+       "--log", str(tmp / f"cli{rank}.log")],
+      cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+      for rank in range(CLI_PROCS)]
+  outs = []
+  try:
+    for proc in procs:
+      out, err = proc.communicate(timeout=CLI_PROC_TIMEOUT_S)
+      outs.append((proc.returncode, out, err))
+  finally:
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+  wall_s = time.perf_counter() - t0
+  results = []
+  for rank, (rc, out, err) in enumerate(outs):
+    line = [ln for ln in out.splitlines() if ln.startswith("MESH_CLI ")]
+    if rc != 0 or not line:
+      fail(f"{mode}: train process {rank} exited {rc}:\n{out[-2000:]}\n"
+           f"{err[-3000:]}")
+    results.append(json.loads(line[-1][len("MESH_CLI "):]))
+  rec = {"mode": mode, "wall_s": wall_s,
+         "losses": [r["losses"] for r in results],
+         "states_bitwise": len({r["digest"] for r in results}) == 1,
+         "reduce": [r["reduce"] for r in results]}
+  if rec["losses"][0] != rec["losses"][1] or len(rec["losses"][0]) != 2:
+    fail(f"{mode}: the two processes' losses differ: {rec['losses']}")
+  if not rec["states_bitwise"]:
+    fail(f"{mode}: the two processes' final states differ")
+  written = sorted(p.name for p in (tmp / "cli_ck0").iterdir())
+  if written != ["1.npz", f"{MESH_SAVE_AT}.npz"] or (
+      tmp / "cli_ck1").exists():
+    fail(f"{mode}: process 0 wrote {written}; process 1 wrote "
+         f"{(tmp / 'cli_ck1').exists()}")
+  # one process, the same global batch (the union of the two processes'
+  # rows) from the same initialisation
+  config = WaveGlowConfig.from_hparams(hp)
+  params = trainable_params_from_numpy(init_params(config, seed=seed), DEVICE)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(B_TRAIN), 0)).to(DEVICE)
+  ref_loss = float(train_lib.compute_grads(
+      train_lib.make_loss_fn(config, hp, MelSTFT(hp, DEVICE)), params, batch))
+  ref = [p.grad.detach().cpu() for p in tree_leaves(params)]
+  del params, batch
+  first = CheckpointWaveglow.load(tmp / "cli_ck0" / "1.npz")
+  n = len(ref)
+  mu = [torch.from_numpy(np.asarray(m) / 0.1)
+        for m in first.optimizer[1:1 + n]]
+  rel = leaf_norm_rel_errors(mu, ref)
+  rec.update(one_process_loss=ref_loss,
+             loss_err=abs(rec["losses"][0][0] - ref_loss),
+             grad_norm_rel=max(rel))
+  del first, mu, ref
+  for rank in range(CLI_PROCS):
+    shutil.rmtree(tmp / f"cli_ck{rank}", ignore_errors=True)
+  torch.cuda.empty_cache()
+  log("mesh cli train " + json.dumps(rec))
+  if (rec["loss_err"] > STEP_LOSS_TOL[mode]
+      or rec["grad_norm_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"{mode}: the two-process run's first step differs from one "
+         f"process: {rec}")
+  return rec
+
+
+def phase_mesh_train(seed: int, tmp: Path) -> dict:
+  """Phase 13: the shard backward kernels at every pair (a), train() on
+  logical meshes in f32 and bf16 (b) with the C = 512 step, and the train
+  command in two processes (c)."""
+  t0 = time.perf_counter()
+  out = {"shard_backward": shard_bwd_check(seed)}
+  seconds = {"shard_backward": time.perf_counter() - t0}
+  entries = write_wavs(tmp / "mesh_wavs", seed)
+  val_dir = tmp / "mesh_val"
+  val_dir.mkdir(parents=True, exist_ok=True)
+  for e in entries[:MESH_VAL_WAVS]:
+    shutil.copy(e.wav_absolute_path, val_dir / e.basename)
+  val_entries = load_dataset(val_dir)
+  params_np = full_width_params(seed)
+  for mode in MODES:
+    custom = dict(TRAIN_HPARAMS, seed=str(seed),
+                  iters_per_checkpoint=str(MESH_SAVE_AT),
+                  compute_dtype="bfloat16" if mode == "bf16" else "float32")
+    hp = overwrite_custom_hparams(HParams(), custom)
+    config = WaveGlowConfig.from_hparams(hp)
+    batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+        range(B_TRAIN), 0)).to(DEVICE)
+    params = trainable_params_from_numpy(params_np, DEVICE)
+    ref_loss = float(train_lib.compute_grads(
+        train_lib.make_loss_fn(config, hp, MelSTFT(hp, DEVICE)), params,
+        batch))
+    ref = (ref_loss, [p.grad.detach().cpu() for p in tree_leaves(params)])
+    del params
+    out[mode] = {}
+    for d, m in MESH_TRAIN:
+      t0 = time.perf_counter()
+      out[mode][f"{d}x{m}"] = mesh_train_case(
+          mode, custom, hp, config, params_np, batch, ref, d, m, entries,
+          val_entries, tmp)
+      seconds[f"{mode} {d}x{m}"] = time.perf_counter() - t0
+    del ref, batch
+    t0 = time.perf_counter()
+    out[mode]["wide"] = mesh_wide_step(mode, seed, entries)
+    seconds[f"{mode} wide"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out[mode]["cli"] = mesh_cli_train(mode, seed, tmp, tmp / "mesh_wavs",
+                                      val_dir, entries)
+    seconds[f"{mode} cli"] = time.perf_counter() - t0
+  out["seconds"] = seconds
+  log("phase 13 seconds " + json.dumps(seconds))
+  return out
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -3580,6 +4219,9 @@ def main() -> None:
     widths = phase_widths(args.seed, Path(tmp))
     log(f"phase 12 (widths {list(WIDE_WIDTHS)}): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_train = phase_mesh_train(args.seed, Path(tmp))
+    log(f"phase 13 (mesh training): {time.perf_counter() - t0:.1f} s")
 
   kernels = []
   for mode in MODES:
@@ -3763,6 +4405,55 @@ def main() -> None:
         "ms": bwd[0]["kernel_ms"], "design": BACKWARD_DESIGN,
         "shape": f"B={B_TRAIN},T={T_TRAIN},C={width},d=1"})
 
+  # phase 13: the trainable shard, launched by the mesh train() runs
+  sbwd = mesh_train["shard_backward"]
+  for mode in MODES:
+    runs = [mesh_train[mode][f"{d}x{m}"] for d, m in MESH_TRAIN]
+    launched = {k: sum(r["train_launches"][k] for r in runs)
+                for k in ("shard", "shard_backward")}
+    rec = sbwd["timed"][(C, C // 2)] if mode == "bf16" else sbwd["f32"]
+    entry = {
+        "name": f"wn_layer_shard_trainable[{mode}]", "route": "cuda",
+        "source": ("waveglow_tpu_torch/csrc/wn_layer_shard_bwd.cu"
+                   if mode == "bf16"
+                   else "waveglow_tpu_torch/csrc/wn_layer_shard.cu"),
+        "replaces": "waveglow_tpu/parallel/sharding.py:44 (the autodiff "
+                    "of the WN layer under a model axis)",
+        "ms": rec.get("kernel_ms", rec.get("ms")),
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},C'={C // 2},d=1",
+        "forward_launches": launched["shard"],
+        "mesh_steps": {f"{d}x{m}": {k: mesh_train[mode][f"{d}x{m}"][k]
+                                    for k in ("loss_err", "grad_norm_rel",
+                                              "median_step_s",
+                                              "device_busy_ms", "idle_share",
+                                              "max_memory_allocated_bytes")}
+                       for d, m in MESH_TRAIN},
+        "cli_two_processes": {k: mesh_train[mode]["cli"][k]
+                              for k in ("loss_err", "grad_norm_rel",
+                                        "reduce", "wall_s")}}
+    if mode == "bf16":
+      entry.update(
+          launches=launched["shard_backward"],
+          max_abs_err=max(c["max_abs_err"] for c in sbwd["cases"]),
+          max_err_of_scale=max(c["max_err_of_scale"] for c in sbwd["cases"]),
+          tolerance_of_scale=KERNEL_TOL_BF16_REL, design=SHARD_BWD_DESIGN,
+          pairs={f"C={c},C'={cp}": {k: r[k] for k in (
+              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+              for (c, cp), r in sorted(sbwd["timed"].items())},
+          loaded_build={shard_bwd_variant(*v): build["attributes"][
+              shard_bwd_variant(*v)] for v in SHARD_BWD_KERNELS
+              if v[1] == C and v[2] == C // 2})
+    else:
+      # the f32 backward is torch ops (the parity-mode route); ms is its
+      # time, the forward kernel's is wn_layer_shard[f32]'s
+      entry.update(launches=launched["shard"],
+                   max_abs_err=rec["max_abs_err"],
+                   max_err_of_scale=rec["max_err_of_scale"],
+                   backward_route="torch ops")
+    kernels.append(entry)
+
   args.out.mkdir(parents=True, exist_ok=True)
   detail = {"device": device, "build": build,
             "kernel_cases": kernel["cases"], "slices": slices,
@@ -3770,6 +4461,10 @@ def main() -> None:
             "cli_train": cli_trains, "mesh": meshes,
             "trainable_cases": trainable["cases"], "train": trains,
             "widths": {str(w): r for w, r in widths.items()},
+            "mesh_train": {**{k: v for k, v in mesh_train.items()
+                              if k != "shard_backward"},
+                           "shard_backward": {
+                               "cases": sbwd["cases"], "f32": sbwd["f32"]}},
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))

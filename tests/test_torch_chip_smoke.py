@@ -751,3 +751,170 @@ def test_shard_cost_at_other_widths(smoke, width, cp):
   cost = smoke.trainable_cost(False, "bf16", width)
   assert cost["bwd_flops"] == 2 * 24_000 * (2 * width * 2 * width
                                             + 2 * 3 * width * 2 * width)
+
+
+# -- phase 13: mesh training ------------------------------------------------------
+
+_SBWD = "_ZN54_GLOBAL__N__5b1e0c2a_21_wn_layer_shard_bwd_cu_4f3a9d1e"
+SBWD_ROWS = (_SBWD + "19wn_sbwd_rows_kernelILi256ELi128ELb0EEEvPKfPK13__nv_"
+             "bfloat16S5_S2_S5_S2_PS3_S6_S6_S6_Pfii")
+
+
+@pytest.mark.parametrize("mangled,name", [
+    (SBWD_ROWS, "bf16,C=256,C'=128,sbwd-rows,layer"),
+    (SBWD_ROWS.replace("ILi256ELi128ELb0E", "ILi128ELi16ELb1E"),
+     "bf16,C=128,C'=16,sbwd-rows,last"),
+    (_SBWD + "17wn_sbwd_dx_kernelILi512ELi256EEvPK13__nv_bfloat16S2_Pfii",
+     "bf16,C=512,C'=256,sbwd-dx"),
+    (_SBWD + "22wn_sbwd_weights_kernelILi256ELi32EEvPK13__nv_bfloat16S2_S2_"
+     "S2_Pfiiiii", "bf16,C=256,C'=32,sbwd-weights"),
+    (_SBWD + "21wn_sbwd_reduce_kernelILi128ELi64EEvPKfiS1_iiP13__nv_"
+     "bfloat16S3_Pf", "reduce,C=128,C'=64,sbwd")])
+def test_shard_backward_variant_names(smoke, mangled, name):
+  """Each shard-backward kernel's mangled name maps to the variant phase 2
+  queries from the runtime; the backward's own kernels keep theirs."""
+  assert smoke.kernel_variant(mangled) == name
+  assert name in {smoke.shard_bwd_variant(*v)
+                  for v in smoke.SHARD_BWD_KERNELS}
+  assert smoke.kernel_variant(BWD_DX) == "bf16,C=256,bwd-dx"
+
+
+def test_shard_backward_kernels_are_held_to_the_tensor_cores(smoke):
+  """Every pair's rows (both variants), dx and weights kernels must have
+  HMMA/HGMMA; the reduce kernel is held to neither."""
+  variants = [smoke.shard_bwd_variant(*v) for v in smoke.SHARD_BWD_KERNELS]
+  assert len(variants) == 9 * 5
+  mma = {name: (0 if name.startswith("reduce") else 12) for name in variants}
+  smoke.check_tensor_cores(mma, variants)
+  mma["bf16,C=128,C'=16,sbwd-weights"] = 0
+  with pytest.raises(SystemExit):
+    smoke.check_tensor_cores(mma, variants)
+
+
+@pytest.mark.parametrize("width,cp,bound_ms,by", [
+    (256, 128, 0.0370, "bytes"), (512, 256, 0.1018, "operations"),
+    (128, 16, 0.0156, "bytes")])
+def test_shard_backward_cost(smoke, width, cp, bound_ms, by):
+  """At B=12, T=2,000, d=1, non-last: products 2 * R * (2 * n_rs * C' +
+  2 * 3C * 2C') (dacts, dw_rs, dw_in, the taps' adjoint; 25.2 GFLOP at
+  (256, 128), 100.7 at (512, 256)); bytes x, dx, g, cond_s, dcond_s, the
+  weights and their gradients once each."""
+  rows = smoke.B_TRAIN * smoke.T_TRAIN
+  cost = smoke.shard_bwd_cost(smoke.B_TRAIN, smoke.T_TRAIN, width, cp, False,
+                              "bf16")
+  assert cost["flops"] == 2 * rows * (2 * 2 * width * cp
+                                      + 2 * 3 * width * 2 * cp)
+  assert cost["bytes"] == (2 * rows * width * 4 + 2 * rows * 2 * cp * 2
+                           + 2 * (3 * width * 2 * cp + cp * 2 * width) * 2
+                           + 2 * 2 * cp * 4 + rows * 2 * width * 4)
+  assert cost["bound_ms"] == pytest.approx(bound_ms, abs=1e-4)
+  assert cost["bound_by"] == by
+  f32 = smoke.shard_bwd_cost(smoke.B_TRAIN, smoke.T_TRAIN, width, cp, False,
+                             "f32")
+  assert f32["bound_by"] == "operations" and f32["bound_ms"] > bound_ms
+
+
+def test_expected_mesh_train_launches(smoke):
+  """A step runs each data replica's forward twice with remat (the flow's
+  recompute): a model group launches the shard kernel once a rank and
+  layer and, in bf16, the shard backward once a rank and layer, and never
+  the full layer's kernels; a model = 1 replica runs the full layer's."""
+  assert smoke.expected_mesh_train_launches(1, 2, "bf16", 96) == {
+      "fused": 0, "backward": 0, "shard": 384, "shard_backward": 192}
+  assert smoke.expected_mesh_train_launches(2, 2, "f32", 96) == {
+      "fused": 0, "backward": 0, "shard": 768, "shard_backward": 0}
+  assert smoke.expected_mesh_train_launches(2, 1, "bf16", 96) == {
+      "fused": 384, "backward": 192, "shard": 0, "shard_backward": 0}
+  # three steps and two validation batches (no remat there)
+  assert smoke.expected_mesh_train_launches(
+      2, 2, "bf16", 96, steps=3, evals=2) == {
+          "fused": 0, "backward": 0, "shard": 2 * 96 * 8 * 2,
+          "shard_backward": 2 * 96 * 3 * 2}
+  assert smoke.expected_mesh_train_launches(1, 2, "bf16", 96,
+                                            remat=False)["shard"] == 192
+
+
+def test_phase_13_meshes_and_kernels_line_keys(smoke):
+  """Phase 13 drives the (1, 2), (2, 1) and (2, 2) meshes and the kernels
+  line's entries carry every key of the contract."""
+  assert smoke.MESH_TRAIN == ((1, 2), (2, 1), (2, 2))
+  assert smoke.MESH_WIDE == 512 and (512, 256) in smoke.kl.shard_pairs()
+  source = (ROOT / "chip_smoke.py").read_text()
+  start = source.index("# phase 13: the trainable shard")
+  block = source[start:source.index("args.out.mkdir", start)]
+  for key in ("name", "route", "source", "replaces", "launches",
+              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms"):
+    assert f'"{key}"' in block or f"{key}=" in block, key
+
+
+def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
+                                                    tmp_path):
+  """Phase 13(b) on a tiny model, f32, a (1, 2) mesh of the CPU: the
+  step against the unsharded one, the launch counts (the CPU's plain
+  versions counted in the kernels' place), train() with saves at 1 and
+  2, the resume bit for bit and the checkpoint resumed unsharded."""
+  import dataclasses
+  from waveglow_tpu_torch.checkpointing.from_jax import (
+      trainable_params_from_numpy, tree_leaves)
+  from waveglow_tpu_torch.dsp.mel import MelSTFT
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, init_params
+  from waveglow_tpu_torch.training import step as train_lib
+  from waveglow_tpu_torch.training.data import SegmentDataset
+  kl = smoke.kl
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  for name, fn in (("synchronize", lambda *a, **k: None),
+                   ("empty_cache", lambda: None),
+                   ("reset_peak_memory_stats", lambda *a, **k: None),
+                   ("max_memory_allocated", lambda *a, **k: 0)):
+    monkeypatch.setattr(torch.cuda, name, fn)
+  monkeypatch.setattr(smoke, "logical_devices", lambda n: ["cpu"] * n)
+
+  class NoTrace:  # the CPU has no CUDA activity to trace
+    def __init__(self, activities):
+      pass
+
+    def __enter__(self):
+      return self
+
+    def __exit__(self, *exc):
+      return False
+
+    def events(self):
+      return []
+
+  monkeypatch.setattr(torch.profiler, "profile", NoTrace)
+  monkeypatch.setattr(smoke, "B_TRAIN", 4)
+  monkeypatch.setattr(smoke, "N_WAVS", 8)
+  shard_plain = kl.wn_layer_shard_plain
+
+  def counted(*args, **kwargs):
+    kl.SHARD_LAUNCHES += 1
+    return shard_plain(*args, **kwargs)
+
+  monkeypatch.setattr(kl, "wn_layer_shard_plain", counted)
+  custom = {"batch_size": "4", "iters_per_checkpoint": "2",
+            "epochs_per_checkpoint": "0", "n_flows": "2", "n_layers": "2",
+            "n_channels": "32", "segment_length": "2048", "seed": "3"}
+  hp = overwrite_custom_hparams(HParams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  params_np = init_params(config, seed=3)
+  for flow in params_np["flows"]:
+    flow["wn"]["end"]["w"] = flow["wn"]["end"]["w"] + 0.02
+  entries = smoke.write_wavs(tmp_path / "wavs", 3)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(range(4), 0))
+  params = trainable_params_from_numpy(params_np, "cpu")
+  ref_loss = float(train_lib.compute_grads(
+      train_lib.make_loss_fn(config, hp, MelSTFT(hp, "cpu")), params, batch))
+  ref = (ref_loss, [p.grad.detach() for p in tree_leaves(params)])
+  rec = smoke.mesh_train_case("f32", custom, hp, config, params_np, batch,
+                              ref, 1, 2, entries, entries[:4], tmp_path)
+  assert rec["step_launches"] == {"fused": 0, "backward": 0, "shard": 16,
+                                  "shard_backward": 0}
+  # 4 layers x 2 ranks x (3 steps with remat + 2 validation batches)
+  assert rec["train_launches"]["shard"] == 4 * 2 * (2 * 3 + 2)
+  assert rec["resume_bitwise"] and rec["grad_norm_rel"] < 1e-5
+  assert rec["device_busy_ms"] == "not measured"
+  assert len(rec["losses"]) == smoke.MESH_TRAIN_STEPS
+  assert not (tmp_path / "ck").exists()

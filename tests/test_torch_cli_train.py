@@ -96,10 +96,24 @@ def test_parser_lists_the_ports_seven_commands():
 
 @pytest.mark.parametrize("flag", ["--coordinator-address", "--num-processes",
                                   "--process-id"])
-def test_multi_process_flags_are_not_offered(ws, flag):
+def test_multi_process_flags_are_not_offered(ws, flag, tmp_path):
+  """Only train and continue-train take the multi-process flags, as in the
+  JAX package; validate refuses them."""
   with pytest.raises(SystemExit) as e:
-    cli.build_parser().parse_args([*map(str, train_args(ws)), flag, "1"])
+    cli.build_parser().parse_args(["validate", str(tmp_path), str(tmp_path),
+                                   str(ws / "val"), flag, "1"])
   assert e.value.code == 2
+
+
+@pytest.mark.parametrize("command", ["train", "continue-train"])
+def test_training_commands_take_the_multi_process_flags(ws, command,
+                                                       tmp_path):
+  ns = cli.build_parser().parse_args([
+      command, str(ws / "train"), str(ws / "val"), str(tmp_path),
+      "--coordinator-address", "127.0.0.1:1234", "--num-processes", "2",
+      "--process-id", "1"])
+  assert (ns.coordinator_address, ns.num_processes, ns.process_id) == (
+      "127.0.0.1:1234", 2, 1)
 
 
 @pytest.mark.parametrize("cmd", ["train", "continue-train", "validate"])

@@ -909,3 +909,116 @@ def test_bwd_kernel_launches_on_the_tensors_card(cuda, c):
     torch.cuda.synchronize(other)
   for g, r in zip(got, ref):
     assert g.device == other and torch.equal(g, r)
+
+
+# -- the trainable shard's bf16 backward (csrc/wn_layer_shard_bwd.cu) ------------
+
+def shard_bwd_inputs(device, batch, t, c, model, rank, last, seed=0):
+  """Rank ``rank``'s bf16 saved inputs of the trainable shard and a
+  cotangent of its partial, with the whole layer's inputs they cut."""
+  args = layer_inputs(device, batch, t, c, last, torch.bfloat16, seed=seed)
+  cond_s, w_in_s, b_in_s, w_rs_s = shard_slices(args, model, rank)
+  rng = np.random.default_rng(seed + 7)
+  n_rs = c if last else 2 * c
+  g = torch.from_numpy(rng.standard_normal((batch, t, n_rs)).astype(
+      np.float32)).to(device)
+  return (args[0], cond_s, w_in_s.reshape(3 * c, -1), b_in_s, w_rs_s), g, args
+
+
+@pytest.mark.parametrize("dilation,last,batch,t", [
+    (1, False, 2, 300), (128, True, 3, 37), (8, False, 3, 301),
+    (512, True, 1, 70)])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_kernel_matches_plain(cuda, c, cp, dilation, last, batch,
+                                        t):
+  """One call of the shard backward kernels (one count in
+  SHARD_BWD_LAUNCHES) against wn_layer_shard_backward at the same bf16
+  rounding points: each gradient within 2e-2 of its scale; the ragged
+  tiles (T = 37, 300, 301) and a dilation past T leave every side tap in
+  the padding."""
+  saved, g, _ = shard_bwd_inputs(cuda, batch, t, c, c // cp, 1, last)
+  before = kl.SHARD_BWD_LAUNCHES
+  got = kl.wn_layer_shard_backward_fused(saved, g, dilation)
+  torch.cuda.synchronize()
+  assert kl.SHARD_BWD_LAUNCHES == before + 1
+  ref = kl.wn_layer_shard_backward(saved, g, dilation, torch.bfloat16)
+  for a, b in zip(got, ref):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    scale = b.float().abs().max().item()
+    assert (a.float() - b.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_kernel_ranks_make_the_full_backward(cuda, c, cp, last):
+  """The ranks' kernel outputs, dx summed (plus the residual's cotangent)
+  and the rest concatenated, against the full layer's backward kernel
+  (wn_layer_backward_fused) at 2e-2 of scale; and two launches give the
+  same bits."""
+  model, batch, t = c // cp, 2, 300
+  outs = []
+  for rank in range(model):
+    saved, g, args = shard_bwd_inputs(cuda, batch, t, c, model, rank, last)
+    outs.append(kl.wn_layer_shard_backward_fused(saved, g, 2))
+    again = kl.wn_layer_shard_backward_fused(saved, g, 2)
+    assert all(torch.equal(a, b) for a, b in zip(outs[-1], again))
+  n_rs = c if last else 2 * c
+  dx_next = None if last else g[..., :c].contiguous()
+  dskip = g if last else g[..., c:].contiguous()
+  want = kl.wn_layer_backward_fused(args, dx_next, dskip, 2)
+  torch.cuda.synchronize()
+  dx = sum(o[0] for o in outs) + (0 if last else g[..., :c])
+
+  def cat(i, shape):
+    return torch.cat([o[i].reshape(shape) for o in outs], dim=-1)
+
+  got = (dx, cat(1, (batch, t, 2, -1)).reshape(batch, t, 2 * c),
+         cat(2, (3 * c, 2, -1)).reshape(3 * c, 2 * c),
+         cat(3, (2, -1)).reshape(-1),
+         torch.cat([o[4].reshape(cp, n_rs) for o in outs], 0))
+  for a, b in zip(got, want):
+    scale = b.float().abs().max().item()
+    assert (a.float() - b.float().reshape(a.shape)).abs().max().item() <= (
+        2e-2 * scale)
+
+
+def test_shard_trainable_goes_through_the_kernels(cuda):
+  """wn_layer_shard_trainable in bf16 on the card: the forward is the shard
+  kernel, the backward the shard backward kernels (f32 takes torch ops)."""
+  saved, g, _ = shard_bwd_inputs(cuda, 2, 200, 256, 2, 0, False)
+  leaves = [v.clone().requires_grad_() for v in saved]
+  for cdt, calls in ((torch.bfloat16, 1), (None, 0)):
+    args = leaves if cdt else [v.float().detach().requires_grad_()
+                               for v in leaves]
+    fwd, bwd = kl.SHARD_LAUNCHES, kl.SHARD_BWD_LAUNCHES
+    out = kl.wn_layer_shard_trainable(*args, 1, compute_dtype=cdt)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert kl.SHARD_LAUNCHES == fwd + 1
+    assert kl.SHARD_BWD_LAUNCHES == bwd + calls
+
+
+def test_shard_bwd_kernel_refuses(cuda):
+  """A pair that was not built, f32 operands and a CPU tensor raise; the
+  kernel never falls back to the plain version."""
+  saved, g, args = shard_bwd_inputs(cuda, 1, 64, 256, 2, 0, False)
+  cond_s, w_in_s, b_in_s, w_rs_s = shard_slices(args, 16, 0)
+  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
+    kl.wn_layer_shard_backward_fused(
+        (args[0], cond_s, w_in_s.reshape(768, -1), b_in_s, w_rs_s), g, 1)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_shard_backward_fused(
+        (saved[0], saved[1].float(), *saved[2:]), g, 1)
+  with pytest.raises(ValueError, match="CUDA"):
+    kl.wn_layer_shard_backward_fused(tuple(v.cpu() for v in saved),
+                                     g.cpu(), 1)
+
+
+@pytest.mark.parametrize("kernel,last", [("rows", False), ("rows", True),
+                                         ("dx", False), ("weights", False),
+                                         ("reduce", False)])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_kernel_info_reads_the_loaded_build(cuda, c, cp, kernel,
+                                                      last):
+  info = kl.shard_bwd_kernel_info(kernel, c, cp, last)
+  assert info["registers"] > 0 and info["local_bytes"] == 0

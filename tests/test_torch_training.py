@@ -319,8 +319,6 @@ def test_train_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("setting,queue", [
-    ({"mesh_data": "2"}, "Parallelism"),
-    ({"mesh_model": "2"}, "Parallelism"),
     ({"checkpoint_backend": "orbax"}, "Checkpoint interop"),
     ({"checkpoint_async": "true"}, "Checkpoint interop"),
 ])

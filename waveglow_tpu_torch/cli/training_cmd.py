@@ -1,10 +1,11 @@
 """``train`` / ``continue-train`` subcommands (counterpart of
 ``waveglow_tpu/cli/training_cmd.py``).
 
-Training runs on ``--device`` (the card by default) in one process. The
-JAX commands' multi-process flags (``--coordinator-address``,
-``--num-processes``, ``--process-id``) are not offered: multi-card
-training is not ported yet.
+Training runs on ``--device`` (the card by default). ``--num-processes``,
+``--process-id`` and ``--coordinator-address`` (``host:port`` of process 0)
+join a multi-process run over ``torch.distributed``
+(``parallel.mesh.initialize_multihost``: NCCL on the card, gloo with
+``--device cpu``), as the JAX commands' flags of the same names do.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ def init_training_parser(parser: ArgumentParser):
                            "the same command can be run again after an "
                            "interruption")
   _add_log_args(parser)
+  _add_multihost_args(parser)
   return train_ns
 
 
@@ -67,6 +69,7 @@ def init_continue_training_parser(parser: ArgumentParser):
   add_hparams_argument(parser)
   add_compute_arguments(parser)
   _add_log_args(parser)
+  _add_multihost_args(parser)
   return continue_train_ns
 
 
@@ -88,6 +91,23 @@ def _add_log_args(parser: ArgumentParser) -> None:
                            "traces grow with steps")
 
 
+def _add_multihost_args(parser: ArgumentParser) -> None:
+  parser.add_argument("--coordinator-address", default=None,
+                      metavar="HOST:PORT",
+                      help="process 0's address of a multi-process run "
+                           "(torch.distributed, tcp://)")
+  parser.add_argument("--num-processes", type=int, default=None)
+  parser.add_argument("--process-id", type=int, default=None)
+
+
+def _maybe_init_multihost(ns: Namespace, device) -> None:
+  from waveglow_tpu_torch.parallel.mesh import initialize_multihost
+  initialize_multihost(coordinator_address=ns.coordinator_address,
+                       num_processes=ns.num_processes,
+                       process_id=ns.process_id,
+                       backend="gloo" if device.type == "cpu" else None)
+
+
 def _custom_hparams(ns: Namespace):
   custom = parse_custom_hparams(ns.custom_hparams)
   if ns.compute_dtype:
@@ -100,6 +120,7 @@ def _train(ns: Namespace, checkpoint, warm_model, device) -> None:
   from waveglow_tpu_torch.training.data import load_dataset
   from waveglow_tpu_torch.training.loop import train
 
+  _maybe_init_multihost(ns, device)
   trainset = load_dataset(ns.train_folder)
   valset = load_dataset(ns.val_folder)
   logger.info("Trainset: %d entries | Valset: %d entries",

@@ -43,6 +43,14 @@ of ``csrc/wn_layer_bwd.cu`` (``wn_layer_backward_fused``, counted in
 ``BWD_LAUNCHES``), in f32 on the card by torch ops (``wn_layer_backward``,
 the designated parity-mode route: its products must stay true f32), and on
 the CPU by ``wn_layer_backward``, which is also the bf16 kernel's yardstick.
+
+``wn_layer_shard_trainable`` is the differentiable shard, for training on a
+``model`` mesh axis: its forward is ``wn_layer_shard``; its backward gives
+the rank's adjoints and its partial dx, in bf16 on the card by the four
+kernels of ``csrc/wn_layer_shard_bwd.cu`` (``wn_layer_shard_backward_fused``,
+counted in ``SHARD_BWD_LAUNCHES``), otherwise by torch ops
+(``wn_layer_shard_backward``, the CPU path, the f32 route and the kernel's
+yardstick).
 """
 
 from __future__ import annotations
@@ -64,10 +72,11 @@ from waveglow_tpu_torch.ops.conv import shift_time
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 SHARD_LAUNCHES = 0
+SHARD_BWD_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
-           CSRC / "wn_layer_shard.cu")
+           CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_shard_bwd.cu")
 # Included by the forward and the shard source (the f32 ring and tile).
 HEADERS = (CSRC / "f32_ring.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -236,6 +245,16 @@ def _library():
     shard_sched.argtypes = ([ctypes.c_int] * 5
                             + [ctypes.POINTER(ctypes.c_int)] * 6)
     shard_sched.restype = ctypes.c_int
+    shard_bwd = lib.wn_layer_shard_backward_bf16
+    shard_bwd.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p])
+    shard_bwd.restype = ctypes.c_int
+    shard_bwd_info = lib.wn_layer_shard_bwd_kernel_info
+    shard_bwd_info.argtypes = ([ctypes.c_int] * 4
+                               + [ctypes.POINTER(ctypes.c_int)] * 4)
+    shard_bwd_info.restype = ctypes.c_int
+    lib.wn_layer_shard_bwd_tile_rows.argtypes = [ctypes.c_int] * 2
+    lib.wn_layer_shard_bwd_tile_rows.restype = ctypes.c_int
     _LIB = lib
   return _LIB
 
@@ -315,6 +334,16 @@ def bwd_kernel_info(kernel: str, last: bool = False,
   width ``channels``."""
   check_width(channels)
   return _info(_library().wn_layer_bwd_kernel_info, channels,
+               BWD_KERNELS.index(kernel), int(last))
+
+
+def shard_bwd_kernel_info(kernel: str, channels: int, cp: int,
+                          last: bool = False) -> dict:
+  """:func:`kernel_info` for one kernel of ``BWD_KERNELS`` of the bf16
+  shard backward (``csrc/wn_layer_shard_bwd.cu``) at the pair (``channels``,
+  ``cp``)."""
+  check_width(channels, cp)
+  return _info(_library().wn_layer_shard_bwd_kernel_info, channels, cp,
                BWD_KERNELS.index(kernel), int(last))
 
 
@@ -414,13 +443,15 @@ def wn_layer_shard_plain(x: torch.Tensor, cond_s: torch.Tensor,
   (last layer). Returns the f32 partial ``acts @ w_rs_s`` [B, T, 2C] (or
   [B, T, C]): no ``b_rs``, no residual, no row mask; summed over the ranks
   it is the full layer's ``rs - b_rs``. ``compute_dtype=torch.bfloat16``
-  rounds the same operands as :func:`wn_layer_plain` does.
+  rounds the same operands as :func:`wn_layer_plain` does. f64 inputs stay
+  f64 (``torch.autograd.gradcheck``).
   """
   batch, t, c = x.shape
   cp = b_in_s.numel() // 2
+  wide = _wide(x)
 
   def operand(v):
-    return v.float() if compute_dtype is None else v.to(compute_dtype).float()
+    return v.to(wide) if compute_dtype is None else v.to(compute_dtype).float()
 
   xm = operand(x)
   w_in_s = operand(w_in_s).reshape(3, c, 2 * cp)
@@ -428,10 +459,15 @@ def wn_layer_shard_plain(x: torch.Tensor, cond_s: torch.Tensor,
   for tap in range(3):
     term = torch.matmul(shift_time(xm, (tap - 1) * dilation), w_in_s[tap])
     pre = term if pre is None else pre + term
-  gates = (pre + b_in_s.reshape(-1).float()
+  gates = (pre + b_in_s.reshape(-1).to(wide)
            + operand(cond_s).reshape(batch, t, 2 * cp))
   acts = operand(torch.tanh(gates[..., :cp]) * torch.sigmoid(gates[..., cp:]))
   return torch.matmul(acts, operand(w_rs_s).reshape(cp, -1))
+
+
+def _wide(x: torch.Tensor) -> torch.dtype:
+  """The plain shard's working dtype: f64 for f64 x, else f32."""
+  return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
@@ -522,29 +558,12 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
   """
   x, cond, w_in, b_in, w_rs, b_rs = saved
   batch, t, c = x.shape
-  f32 = torch.float32
   last = w_rs.numel() == c * c
-  n_rs = c if last else 2 * c
-  if compute_dtype is None:
-    def operand(v):
-      return v
-  else:
-    def operand(v):
-      return v.to(compute_dtype).float()
-  xm = x.float() if compute_dtype is None else x.to(compute_dtype).float()
-  taps = torch.cat([shift_time(xm, (tap - 1) * dilation) for tap in range(3)],
-                   dim=-1).reshape(-1, 3 * c)                    # [R, 3C]
-  w_in_f = w_in.to(f32).reshape(3 * c, 2 * c)
-  gates = (torch.matmul(taps, w_in_f) + b_in.to(f32).reshape(-1)
-           + cond.to(f32).reshape(-1, 2 * c))                    # [R, 2C]
-  t_act = torch.tanh(gates[:, :c])
-  s_act = torch.sigmoid(gates[:, c:])
-  acts = t_act * s_act
 
   def cotangent(g):
     if g is None:
-      return torch.zeros((batch * t, c), dtype=f32, device=x.device)
-    return g.to(f32).reshape(-1, c)
+      return torch.zeros((batch * t, c), dtype=torch.float32, device=x.device)
+    return g.to(torch.float32).reshape(-1, c)
 
   dx_next, dskip = cotangent(dx_next), cotangent(dskip)
   keep = _row_mask(valid_t, t, x.device)
@@ -553,12 +572,43 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
     dx_next = torch.where(keep.reshape(-1, 1), dx_next,
                           torch.zeros((), device=x.device))
   drs = dskip if last else torch.cat([dx_next, dskip], dim=-1)  # [R, n_rs]
+  grads = _backward(saved[:5], drs, dx_next.reshape(batch, t, c), dilation,
+                    compute_dtype)
+  return grads + (drs.sum(0).reshape(b_rs.shape).to(b_rs.dtype),)
 
-  w_rs_f = w_rs.to(f32).reshape(c, n_rs)
+
+def _backward(saved: Tuple[torch.Tensor, ...], drs: torch.Tensor,
+              dx: Optional[torch.Tensor], dilation: int, compute_dtype
+              ) -> Tuple[torch.Tensor, ...]:
+  """Gradients of (x, cond, w_in, b_in, w_rs) of a layer holding C' = b_in's
+  half of the gate channels (C' = C for the whole layer), given drs [R,
+  n_rs], the cotangent of its res/skip product, at the rounding points of
+  :func:`wn_layer_backward`; the taps' adjoint is added onto ``dx`` (None:
+  onto nothing) in tap order."""
+  x, cond, w_in, b_in, w_rs = saved
+  batch, t, c = x.shape
+  cp = b_in.numel() // 2
+  n_rs = w_rs.numel() // cp
+  f32 = _wide(x)
+  if compute_dtype is None:
+    def operand(v):
+      return v
+  else:
+    def operand(v):
+      return v.to(compute_dtype).float()
+  xm = x.to(f32) if compute_dtype is None else x.to(compute_dtype).float()
+  taps = torch.cat([shift_time(xm, (tap - 1) * dilation) for tap in range(3)],
+                   dim=-1).reshape(-1, 3 * c)                    # [R, 3C]
+  w_in_f = w_in.to(f32).reshape(3 * c, 2 * cp)
+  gates = (torch.matmul(taps, w_in_f) + b_in.to(f32).reshape(-1)
+           + cond.to(f32).reshape(-1, 2 * cp))                   # [R, 2C']
+  t_act = torch.tanh(gates[:, :cp])
+  s_act = torch.sigmoid(gates[:, cp:])
+  acts = t_act * s_act
+  w_rs_f = w_rs.to(f32).reshape(cp, n_rs)
   drs_op = operand(drs)
   dacts = torch.matmul(drs_op, w_rs_f.T)
   dw_rs = torch.matmul(operand(acts).T, drs_op)
-  db_rs = drs.sum(0)
   dgates = torch.cat([dacts * s_act * (1.0 - t_act * t_act),
                       dacts * t_act * s_act * (1.0 - s_act)], dim=-1)
   db_in = dgates.sum(0)
@@ -567,15 +617,15 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
   # adjoint of the 3-tap dilated conv: shift_time's adjoint is shift_time
   # with the negated offset
   g_w = torch.matmul(dgates_op, w_in_f.T).reshape(batch, t, 3 * c)
-  dx = dx_next.reshape(batch, t, c)
   for tap in range(3):
-    dx = dx + shift_time(g_w[..., tap * c:(tap + 1) * c], -(tap - 1) * dilation)
+    term = shift_time(g_w[..., tap * c:(tap + 1) * c], -(tap - 1) * dilation)
+    dx = term if dx is None else dx + term
 
   def like(g, ref):
     return g.reshape(ref.shape).to(ref.dtype)
 
   return (like(dx, x), like(dgates, cond), like(dw_in, w_in),
-          like(db_in, b_in), like(dw_rs, w_rs), like(db_rs, b_rs))
+          like(db_in, b_in), like(dw_rs, w_rs))
 
 
 # Rows of one range of the weights kernel's split (a multiple of its 32-row
@@ -707,3 +757,139 @@ def wn_layer_trainable(x: torch.Tensor, cond: torch.Tensor,
   :func:`wn_layer_plain`."""
   return WNLayerTrainable.apply(x, cond, w_in, b_in, w_rs, b_rs, dilation,
                                 valid_t, compute_dtype)
+
+
+def wn_layer_shard_backward(saved: Tuple[torch.Tensor, ...],
+                            g: Optional[torch.Tensor], dilation: int,
+                            compute_dtype=None) -> Tuple[torch.Tensor, ...]:
+  """Gradients of (x, cond_s, w_in_s, b_in_s, w_rs_s) of one model rank's
+  share of a layer (:func:`wn_layer_shard`), from its saved inputs and
+  ``g`` [B, T, n_rs], the cotangent of its partial (None means zero): the
+  CPU path, the f32 route on the card (the designated parity-mode route, as
+  :func:`wn_layer_backward` is for the full layer) and the yardstick of the
+  bf16 kernel (:func:`wn_layer_shard_backward_fused`).
+
+  The arithmetic and the rounding points are :func:`wn_layer_backward`'s
+  over the rank's C' gate channels, with ``g`` in the place of drs: taps,
+  gates and acts recomputed in f32; with ``compute_dtype=torch.bfloat16``
+  the taps of x, g, acts and dgates rounded to bf16 where they enter a
+  product. dx is the rank's partial, the taps' adjoint over its C'
+  channels: the ranks' dx summed, plus the residual's cotangent, is the
+  full layer's dx; the ranks' other gradients concatenate to the full
+  layer's. b_rs, the residual and the row mask are outside (autograd).
+  """
+  x, _, _, b_in_s, w_rs_s = saved
+  cp = b_in_s.numel() // 2
+  n_rs = w_rs_s.numel() // cp
+  if g is None:
+    g = torch.zeros((*x.shape[:2], n_rs), dtype=_wide(x), device=x.device)
+  return _backward(saved, g.to(_wide(x)).reshape(-1, n_rs), None, dilation,
+                   compute_dtype)
+
+
+def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
+                                  g: Optional[torch.Tensor], dilation: int
+                                  ) -> Tuple[torch.Tensor, ...]:
+  """:func:`wn_layer_shard_backward` with ``compute_dtype=torch.bfloat16``
+  on the card: the four kernels of ``csrc/wn_layer_shard_bwd.cu`` (one call,
+  counted once in ``SHARD_BWD_LAUNCHES``). Inputs as :func:`wn_layer_shard`
+  takes them in bf16 (x, b_in_s f32; cond_s, w_in_s, w_rs_s bf16; (C, C')
+  one of ``shard_pairs()``); g f32 [B, T, n_rs] or None (zero: every
+  gradient is zero and nothing is launched). Anything else raises; it never
+  falls back to the plain version."""
+  global SHARD_BWD_LAUNCHES
+  x, cond_s, w_in_s, b_in_s, w_rs_s = saved
+  if x.device.type != "cuda":
+    raise ValueError(f"the shard backward kernel needs CUDA tensors, got "
+                     f"{x.device}")
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  dev = x.device
+  batch, t, c = x.shape
+  cp = b_in_s.numel() // 2
+  check_width(c, cp)
+  last = w_rs_s.numel() == cp * c
+  n_rs = c if last else 2 * c
+  bf16 = torch.bfloat16
+  _check("x", x, torch.float32, (batch, t, c), dev)
+  _check("cond_s", cond_s, bf16, (batch, t, 2 * cp), dev)
+  _check("w_in_s", w_in_s, bf16, (3 * c, 2 * cp), dev)
+  _check("b_in_s", b_in_s, torch.float32, (2 * cp,), dev)
+  _check("w_rs_s", w_rs_s, bf16, (cp * n_rs,), dev)
+  if g is None:
+    return tuple(torch.zeros_like(v) for v in saved)
+  g = g.contiguous()  # autograd may hand an expanded view
+  _check("g", g, torch.float32, (batch, t, n_rs), dev)
+
+  def empty(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+  rows = batch * t
+  n_splits_t = -(-t // SPLIT_ROWS)
+  dx = empty(x.shape, torch.float32)
+  dcond = empty(cond_s.shape, bf16)
+  dw_in = empty(w_in_s.shape, bf16)
+  db_in = empty(b_in_s.shape, torch.float32)
+  dw_rs = empty(w_rs_s.shape, bf16)
+  acts = empty((rows, cp), bf16)
+  x_bf = empty((rows, c), bf16)
+  g_bf = empty((rows, n_rs), bf16)
+  lib = _library()
+  tile = lib.wn_layer_shard_bwd_tile_rows(c, cp)
+  part_bias = empty((batch * -(-t // tile), 2 * cp), torch.float32)
+  ws = empty((batch * n_splits_t, 3 * c * 2 * cp + cp * n_rs), torch.float32)
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_shard_backward_bf16(
+        x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+        b_in_s.data_ptr(), w_rs_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
+        dw_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(), g_bf.data_ptr(),
+        part_bias.data_ptr(), ws.data_ptr(), batch, t, c, cp, int(dilation),
+        int(last), n_splits_t, SPLIT_ROWS,
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer shard backward kernels failed to launch: "
+                       f"cudaError {err}")
+  SHARD_BWD_LAUNCHES += 1
+  return dx, dcond, dw_in, db_in, dw_rs
+
+
+class WNLayerShardTrainable(torch.autograd.Function):
+  """Forward: :func:`wn_layer_shard` (the shard kernel on the card); backward:
+  :func:`wn_layer_shard_backward_fused` for bf16 on the card, else
+  :func:`wn_layer_shard_backward`. Saves the five inputs, as
+  :class:`WNLayerTrainable` does (nothing of the kernel's intermediates)."""
+
+  @staticmethod
+  def forward(ctx, x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+              compute_dtype):
+    ctx.set_materialize_grads(False)
+    ctx.dilation = dilation
+    ctx.compute_dtype = compute_dtype
+    ctx.save_for_backward(x, cond_s, w_in_s, b_in_s, w_rs_s)
+    return wn_layer_shard(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+                          compute_dtype=compute_dtype)
+
+  @staticmethod
+  def backward(ctx, g):
+    saved = ctx.saved_tensors
+    if saved[0].device.type == "cuda" and ctx.compute_dtype is not None:
+      grads = wn_layer_shard_backward_fused(saved, g, ctx.dilation)
+    else:
+      # CPU tensors, and f32 on the card (parity mode's torch-ops route)
+      grads = wn_layer_shard_backward(saved, g, ctx.dilation,
+                                      ctx.compute_dtype)
+    return grads + (None, None)
+
+
+def wn_layer_shard_trainable(x: torch.Tensor, cond_s: torch.Tensor,
+                             w_in_s: torch.Tensor, b_in_s: torch.Tensor,
+                             w_rs_s: torch.Tensor, dilation: int,
+                             compute_dtype=None) -> torch.Tensor:
+  """Differentiable :func:`wn_layer_shard`: the rank's f32 partial res/skip
+  sum, with gradients for its five tensor inputs. On CUDA tensors the
+  forward is the shard kernel (inputs as ``wn_layer_shard`` takes them, or
+  it raises); on CPU tensors the plain version. Its plain counterpart is
+  ``torch.autograd`` through :func:`wn_layer_shard_plain`."""
+  return WNLayerShardTrainable.apply(x, cond_s, w_in_s, b_in_s, w_rs_s,
+                                     dilation, compute_dtype)

@@ -26,7 +26,8 @@ from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
                                                  wn_layer_trainable)
 from waveglow_tpu_torch.models import weightnorm
 from waveglow_tpu_torch.models.wn import (LayerFn, init_wn_params, wn_forward,
-                                          wn_forward_tp, wn_forward_train)
+                                          wn_forward_tp, wn_forward_train,
+                                          wn_forward_train_tp)
 from waveglow_tpu_torch.ops import inv1x1
 from waveglow_tpu_torch.ops.conv import conv_transpose1d
 
@@ -192,12 +193,16 @@ def unfold_groups(upsampled: torch.Tensor, n_group: int) -> torch.Tensor:
                                              n_mels * n_group)
 
 
-def forward(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
-            audio: torch.Tensor, compute_dtype=None, remat: bool = False,
-            remat_scope: str = "flow", layer: LayerFn = wn_layer_trainable
+def forward(params: Union[Dict, Sequence[Dict]], config: WaveGlowConfig,
+            spect: torch.Tensor, audio: torch.Tensor, compute_dtype=None,
+            remat: bool = False, remat_scope: str = "flow",
+            layer: LayerFn = wn_layer_trainable
             ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
   """Training-direction flow over trainable leaves (``params`` from
-  ``checkpointing.from_jax.trainable_params_from_numpy``).
+  ``checkpointing.from_jax.trainable_params_from_numpy``), or over a model
+  group: a list of rank trees (``parallel.sharding.shard_trainable_params``),
+  whose WN stacks run through ``models.wn.wn_forward_train_tp`` and the rest
+  on rank 0's device (its replicated leaves; ``layer`` is then unused).
 
   ``spect`` [B, n_mels, frames] is upsampled, trimmed to the audio length
   and unfolded; ``audio`` [B, T] (T a multiple of n_group) runs through the
@@ -212,8 +217,10 @@ def forward(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
   """
   if remat_scope not in ("flow", "wn"):
     raise ValueError(f"remat_scope must be 'flow' or 'wn', got {remat_scope!r}")
+  group = isinstance(params, (list, tuple))
+  head = params[0] if group else params
   batch, t_audio = audio.shape
-  up = upsample_mel(params, spect, compute_dtype)
+  up = upsample_mel(head, spect, compute_dtype)
   if up.shape[1] < t_audio:
     raise ValueError(f"upsampled mel ({up.shape[1]} samples) is shorter than "
                      f"the audio ({t_audio})")
@@ -222,20 +229,28 @@ def forward(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
                                   config.n_group)
 
   def wn_call(wn_params, audio_0):
+    if group:
+      return wn_forward_train_tp(wn_params, audio_0, spect_g,
+                                 config.n_channels, config.n_layers,
+                                 config.kernel_size,
+                                 compute_dtype=compute_dtype)
     return wn_forward_train(wn_params, audio_0, spect_g, config.n_channels,
                             config.n_layers, config.kernel_size,
                             compute_dtype=compute_dtype, layer=layer)
 
   def flow_step(flow, audio_g, channels):
-    audio_g, log_det_w = inv1x1.forward(audio_g, flow["inv1x1"]["w"])
+    # a model group's flow is its ranks' flow dicts
+    wn_params = [f["wn"] for f in flow] if group else flow["wn"]
+    inv = flow[0]["inv1x1"] if group else flow["inv1x1"]
+    audio_g, log_det_w = inv1x1.forward(audio_g, inv["w"])
     n_half = channels // 2
     audio_0 = audio_g[..., :n_half]
     audio_1 = audio_g[..., n_half:]
     if remat and remat_scope == "wn":
-      wn_out = checkpoint(wn_call, flow["wn"], audio_0, use_reentrant=False,
+      wn_out = checkpoint(wn_call, wn_params, audio_0, use_reentrant=False,
                           preserve_rng_state=False)
     else:
-      wn_out = wn_call(flow["wn"], audio_0)
+      wn_out = wn_call(wn_params, audio_0)
     b = wn_out[..., :n_half]
     log_s = wn_out[..., n_half:]
     audio_1 = torch.exp(log_s) * audio_1 + b
@@ -248,13 +263,14 @@ def forward(params: Dict, config: WaveGlowConfig, spect: torch.Tensor,
     if k % config.n_early_every == 0 and k > 0:
       output_chunks.append(audio_g[..., :config.n_early_size])
       audio_g = audio_g[..., config.n_early_size:]
+    flow = ([p["flows"][k] for p in params] if group
+            else params["flows"][k])
     if remat and remat_scope == "flow":
       audio_g, log_s, log_det_w = checkpoint(
-          flow_step, params["flows"][k], audio_g, channels,
-          use_reentrant=False, preserve_rng_state=False)
+          flow_step, flow, audio_g, channels, use_reentrant=False,
+          preserve_rng_state=False)
     else:
-      audio_g, log_s, log_det_w = flow_step(params["flows"][k], audio_g,
-                                            channels)
+      audio_g, log_s, log_det_w = flow_step(flow, audio_g, channels)
     log_s_list.append(log_s)
     log_det_w_list.append(log_det_w)
   output_chunks.append(audio_g)

@@ -22,7 +22,8 @@ training outside it.
 tensor-parallel contract, ``waveglow_tpu/models/wn.py``): each rank holds a
 slice of the gate channels (``parallel.sharding``), runs its share of each
 layer through the shard kernel, and the ranks' partial res/skip sums are
-reduced once a layer.
+reduced once a layer. ``wn_forward_train_tp`` is its differentiable
+counterpart for training, through the trainable shard.
 """
 
 from __future__ import annotations
@@ -34,10 +35,14 @@ import torch
 
 from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
                                                  wn_layer_shard,
+                                                 wn_layer_shard_trainable,
                                                  wn_layer_trainable)
-from waveglow_tpu_torch.models.weightnorm import init_weightnorm, materialize
+from waveglow_tpu_torch.models.weightnorm import (init_weightnorm, materialize,
+                                                  materialize_row_parallel)
 from waveglow_tpu_torch.ops.conv import _mm, conv1x1
-from waveglow_tpu_torch.parallel.mesh import reduce_partials
+from waveglow_tpu_torch.parallel.mesh import (copy_to_model_ranks,
+                                              reduce_from_model_ranks,
+                                              reduce_partials)
 
 
 def init_wn_params(rng: np.random.Generator, n_in_channels: int,
@@ -228,4 +233,63 @@ def wn_forward_train(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
                     compute_dtype=compute_dtype)
     output = skip if output is None else output + skip
   return conv1x1(output, params["end"]["w"], params["end"]["b"],
+                 compute_dtype=compute_dtype, out_dtype=torch.float32)
+
+
+def wn_forward_train_tp(shards: Sequence[Dict], audio0: torch.Tensor,
+                        spect: torch.Tensor, n_channels: int, n_layers: int,
+                        kernel_size: int, compute_dtype=None
+                        ) -> torch.Tensor:
+  """:func:`wn_forward_train` over a model group: the differentiable
+  counterpart of :func:`wn_forward_tp`, built from the same parts.
+
+  ``shards``: one trainable WN params dict per model rank
+  (``parallel.sharding.shard_trainable_params``: rank r's slices on its
+  device, the replicated leaves held once on rank 0's); ``audio0`` and
+  ``spect`` on rank 0's device. The residual stream and the skip sum are
+  held once, on rank 0's device, in f32. Per layer the stream and the
+  conditioning enter every rank through ``copy_to_model_ranks``; each rank
+  runs its slice of the conditioning product (``torch.matmul``) and its
+  share of the layer through :func:`wn_layer_shard_trainable` (the shard
+  kernel and its backward); the partials are summed in rank order
+  (``reduce_from_model_ranks``), then b_rs, the residual and the skip are
+  added once. The ``res_skip`` weight norm sums over the cut axis
+  (``materialize_row_parallel``). So every gradient sum across ranks runs
+  in rank order: the partial dx's and d(spect)'s in ``copy_to_model_ranks``'
+  backward, the replicated ``res_skip`` ``g``'s in the norm's.
+  """
+  if kernel_size != 3:
+    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  dtype = compute_dtype or torch.float32
+  c = n_channels
+  head = shards[0]
+  devices = [s["in_layers"][0]["v"].device for s in shards]
+  x = conv1x1(audio0, materialize(head["start"]), head["start"]["b"],
+              compute_dtype=compute_dtype, out_dtype=torch.float32)
+  spects = copy_to_model_ranks(spect.to(dtype), devices)
+  w_conds = [materialize(s["cond"]) for s in shards]      # [M, L, 2, C']
+  output = None
+  for i in range(n_layers):
+    last = i == n_layers - 1
+    w_rss = materialize_row_parallel([s["res_skip"][i] for s in shards])
+    xs = copy_to_model_ranks(x, devices)
+    partials = []
+    for shard, x_r, spect_r, w_cond, w_rs in zip(shards, xs, spects, w_conds,
+                                                 w_rss):
+      cp = w_cond.shape[-1]
+      cond_i = _mm(spect_r, w_cond[:, i].reshape(-1, 2 * cp), compute_dtype)
+      cond_i = cond_i + shard["cond"]["b"][i].reshape(-1).to(cond_i.dtype)
+      in_layer = shard["in_layers"][i]
+      partials.append(wn_layer_shard_trainable(
+          x_r, cond_i, materialize(in_layer).reshape(3 * c, 2 * cp).to(dtype),
+          in_layer["b"].float().reshape(-1),
+          w_rs.reshape(cp, -1).to(dtype), 2 ** i,
+          compute_dtype=compute_dtype))
+    rs = (reduce_from_model_ranks(partials)
+          + head["res_skip"][i]["b"].float().reshape(-1))
+    skip = rs if last else rs[..., c:]
+    if not last:
+      x = x + rs[..., :c]
+    output = skip if output is None else output + skip
+  return conv1x1(output, head["end"]["w"], head["end"]["b"],
                  compute_dtype=compute_dtype, out_dtype=torch.float32)

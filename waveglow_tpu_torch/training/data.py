@@ -44,13 +44,20 @@ class SegmentDataset:
 
   Entries are shuffled once with the experiment seed; each (epoch, index)
   crop offset comes from a counter-based RNG, so any iteration is
-  reproducible in isolation.
+  reproducible in isolation. A process of a multi-process run takes the
+  round-robin shard ``order[process_index::process_count]``, and crops are
+  keyed by an entry's global position in the shuffled order, so the union
+  of the processes' step-b rows is the one-process step-b batch, cropped
+  alike.
   """
 
-  def __init__(self, entries: Entries, hparams: HParams):
+  def __init__(self, entries: Entries, hparams: HParams,
+               process_index: int = 0, process_count: int = 1):
     order = list(entries)
     np.random.RandomState(hparams.seed).shuffle(order)
-    self.entries = order
+    self.entries = order[process_index::process_count]
+    self._global_index = list(range(process_index, len(order),
+                                    process_count))
     self.segment_length = hparams.segment_length
     self.seed = hparams.seed
     self.sampling_rate = hparams.sampling_rate
@@ -76,7 +83,7 @@ class SegmentDataset:
     if length < self.segment_length:
       return -1
     crop_rng = np.random.default_rng(
-        np.random.SeedSequence([self.seed, epoch, index]))
+        np.random.SeedSequence([self.seed, epoch, self._global_index[index]]))
     return int(crop_rng.integers(0, length - self.segment_length + 1))
 
   def segment(self, index: int, epoch: int) -> np.ndarray:
@@ -94,16 +101,23 @@ class SegmentDataset:
 
 class BatchLoader:
   """Iterates [B, segment_length] float32 batches for one epoch, decoded by
-  a background thread ``prefetch`` batches ahead."""
+  a background thread ``prefetch`` batches ahead. ``num_batches`` overrides
+  the natural count: a multi-process run passes one count to every process,
+  so each runs the same number of steps even where the shards differ in
+  size by one."""
 
   def __init__(self, dataset: SegmentDataset, batch_size: int,
-               drop_last: bool = True, prefetch: int = 2):
+               drop_last: bool = True, prefetch: int = 2,
+               num_batches: Optional[int] = None):
     self.dataset = dataset
     self.batch_size = batch_size
     self.drop_last = drop_last
     self.prefetch = prefetch
+    self.num_batches = num_batches
 
   def __len__(self) -> int:
+    if self.num_batches is not None:
+      return self.num_batches
     n = len(self.dataset)
     if self.drop_last:
       return n // self.batch_size

@@ -10,8 +10,14 @@ Telemetry goes to the logger and a JSONL metrics file in ``logdir``.
 
 Every WN layer's forward runs through the fused CUDA kernel on the card,
 whatever ``use_pallas`` says (it chooses the JAX package's route only).
-Multi-card meshes and the orbax backend are not ported yet: their settings
-raise instead of being ignored.
+
+With ``mesh_data * mesh_model > 1``, or several processes
+(``parallel.mesh.initialize_multihost``), training runs on a (data, model)
+mesh: each process drives its own mesh, the model axis through the
+trainable shard, and ``batch_size`` is the global batch, each process
+loading its share of the rows from its shard of the entries. Saves gather
+the state and only process 0 writes; a checkpoint resumes on any mesh. The
+orbax backend is not ported: its settings raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import logging
 import time
 from dataclasses import asdict
 from pathlib import Path
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,6 +39,12 @@ from waveglow_tpu_torch.device import resolve_device
 from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
 from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, init_params
+from waveglow_tpu_torch.parallel.mesh import (DeviceLike, all_reduce_ordered,
+                                              make_mesh, process_count,
+                                              process_index)
+from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
+                                                  gather_trainable_params,
+                                                  shard_trainable_params)
 from waveglow_tpu_torch.training.data import (BatchLoader, Entries,
                                               SegmentDataset)
 from waveglow_tpu_torch.training.schedule import (SaveIterationSettings,
@@ -40,9 +52,12 @@ from waveglow_tpu_torch.training.schedule import (SaveIterationSettings,
                                                   get_continue_batch_iteration,
                                                   get_continue_epoch)
 from waveglow_tpu_torch.training.step import (adam_state_from_optax,
+                                              adam_state_from_optax_group,
                                               adam_state_to_optax,
-                                              make_eval_loss, make_optimizer,
-                                              make_train_step)
+                                              adam_state_to_optax_group,
+                                              make_eval_loss,
+                                              make_mesh_train_step,
+                                              make_optimizer, make_train_step)
 from waveglow_tpu_torch.training.tboard import make_tensorboard_logger
 
 logger = logging.getLogger(__name__)
@@ -92,11 +107,7 @@ def warm_start_params(target: Dict, source: Dict) -> Dict:
 
 
 def _check_supported(hp: HParams) -> None:
-  """Raise on settings this slice of the port does not implement."""
-  if hp.mesh_data * hp.mesh_model > 1:
-    raise ValueError(
-        f"mesh_data={hp.mesh_data} x mesh_model={hp.mesh_model}: multi-card "
-        "training is not ported yet (ROADMAP.md queue A.6, Parallelism)")
+  """Raise on settings the port does not implement."""
   if hp.checkpoint_backend == "orbax":
     raise ValueError(
         "checkpoint_backend='orbax' is not ported yet (ROADMAP.md queue A.4, "
@@ -110,12 +121,71 @@ def _check_supported(hp: HParams) -> None:
         "yet (ROADMAP.md queue A.4, Checkpoint interop)")
 
 
-def validate_model(eval_loss: Callable, params: Dict, val_loader: BatchLoader,
-                   device: torch.device) -> float:
-  """Average NLL over the validation set."""
-  losses = [float(eval_loss(params, torch.from_numpy(batch).to(device)))
+def validate_model(eval_loss: Callable, val_loader: BatchLoader) -> float:
+  """Average NLL over the validation set; ``eval_loss(batch)`` takes a host
+  batch. In a multi-process run every process calls it on as many batches
+  (a collective), and gets the same value."""
+  losses = [float(eval_loss(torch.from_numpy(batch)))
             for batch in val_loader.epoch(0)]
   return float(np.mean(losses)) if losses else float("nan")
+
+
+class _Trainer:
+  """The params, optimizer and step of a run, unsharded or on a mesh, with
+  the gather of its state into the checkpoint layout."""
+
+  def __init__(self, config: WaveGlowConfig, hp: HParams, params_np: Dict,
+               opt_leaves, device: torch.device, mesh_devices):
+    self.mesh = None
+    if hp.mesh_data * hp.mesh_model > 1 or process_count() > 1:
+      n = hp.mesh_data * hp.mesh_model
+      if mesh_devices is None and n == 1:
+        mesh_devices = [device]
+      self.mesh = make_mesh(hp.mesh_data, hp.mesh_model,
+                            devices=mesh_devices)
+      self.replicas = shard_trainable_params(params_np, self.mesh)
+      self.optimizers = [make_optimizer(distinct_leaves(g), hp.learning_rate)
+                         for g in self.replicas]
+      if opt_leaves is not None:
+        for opt, group in zip(self.optimizers, self.replicas):
+          adam_state_from_optax_group(opt, group, opt_leaves)
+      self.step = make_mesh_train_step(config, hp, self.replicas,
+                                       self.optimizers)
+      self.eval_fns = [
+          (make_eval_loss(config, hp, MelSTFT(hp, self.mesh.devices[i, 0])),
+           group if len(group) > 1 else group[0], self.mesh.devices[i, 0])
+          for i, group in enumerate(self.replicas)]
+      return
+    self.params = trainable_params_from_numpy(params_np, device)
+    self.optimizer = make_optimizer(self.params, hp.learning_rate)
+    if opt_leaves is not None:
+      adam_state_from_optax(self.optimizer, self.params, opt_leaves)
+    mel_op = MelSTFT(hp, device)
+    train_step = make_train_step(config, hp, mel_op, self.optimizer)
+    self.step = lambda audio: train_step(self.params, audio.to(device))
+    self.eval_fns = [(make_eval_loss(config, hp, mel_op), self.params,
+                      device)]
+
+  def eval_loss(self, audio: torch.Tensor) -> torch.Tensor:
+    """The loss of a host batch: its rows split over the data replicas,
+    the replicas' losses averaged over every process (rank order)."""
+    rows = audio.shape[0] // len(self.eval_fns)
+    losses = [fn(params, audio[i * rows:(i + 1) * rows].to(dev))
+              for i, (fn, params, dev) in enumerate(self.eval_fns)]
+    loss = losses[0]
+    for other in losses[1:]:
+      loss = loss + other.to(loss.device)
+    loss = all_reduce_ordered(loss.reshape(1).float())[0]
+    return loss / (len(losses) * process_count())
+
+  def state(self):
+    """(params numpy tree, optax-layout Adam leaves): data replica 0's
+    model group, gathered."""
+    if self.mesh is None:
+      return (params_to_numpy(self.params),
+              adam_state_to_optax(self.optimizer, self.params))
+    return (gather_trainable_params(self.replicas[0]),
+            adam_state_to_optax_group(self.optimizers[0], self.replicas[0]))
 
 
 def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
@@ -124,14 +194,24 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
           warm_model: Optional[CheckpointWaveglow] = None,
           max_iterations: Optional[int] = None,
           tensorboard_dir: Optional[Path] = None,
-          device: Union[str, torch.device] = "cuda") -> Dict:
+          device: Union[str, torch.device] = "cuda",
+          mesh_devices: Optional[Sequence[DeviceLike]] = None) -> Dict:
   """Train (or continue training) a WaveGlow model on ``device``: the card
   by default (raises without one), the CPU only when asked.
+
+  With ``hparams.mesh_data * mesh_model > 1`` the run uses a (data, model)
+  mesh over ``cuda:0 .. cuda:n-1``, or over ``mesh_devices``, which may
+  list one device more than once (``["cpu"] * n`` runs the mesh's shards
+  one after another on the CPU). In a multi-process run
+  (``parallel.mesh.initialize_multihost`` first) each process drives such a
+  mesh (one device, ``device``, when the mesh is 1 x 1) and the global data
+  axis is the processes times its rows.
 
   ``max_iterations`` bounds this invocation; ``None`` trains to
   ``hparams.epochs``. ``tensorboard_dir`` also writes TensorBoard scalars.
   Returns the final state on the host: ``{"params": numpy tree,
-  "opt_state": optax-layout leaves, "step": iteration}``.
+  "opt_state": optax-layout leaves, "step": iteration}`` (on a mesh, the
+  gathered tree).
   """
   complete_start = time.time()
   device = resolve_device(device)
@@ -139,8 +219,10 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
   hparams = overwrite_custom_hparams(hparams, custom_hparams)
   _check_supported(hparams)
   config = WaveGlowConfig.from_hparams(hparams)
-  metrics = MetricsLogger(logdir)
-  tboard = make_tensorboard_logger(tensorboard_dir)
+  rank, n_procs = process_index(), process_count()
+  # one metrics writer a run, not a process
+  metrics = MetricsLogger(logdir if rank == 0 else None)
+  tboard = make_tensorboard_logger(tensorboard_dir if rank == 0 else None)
 
   # --- model + optimizer state -------------------------------------------
   if checkpoint is not None:
@@ -152,22 +234,39 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
     iteration = 0
   else:
     params_np, iteration = init_params(config, seed=hparams.seed), 0
-  params = trainable_params_from_numpy(params_np, device)
-  optimizer = make_optimizer(params, hparams.learning_rate)
-  if checkpoint is not None and checkpoint.optimizer is not None:
-    adam_state_from_optax(optimizer, params, checkpoint.optimizer)
 
   # --- data ---------------------------------------------------------------
-  mel_op = MelSTFT(hparams, device)
-  batch_iterations = len(trainset) // hparams.batch_size
+  # batch_size is the global batch; each process loads its share of the
+  # rows from its shard of the entries, and the counts come from global
+  # sizes, so the step and save schedule do not depend on the process count
+  data_rows = n_procs * hparams.mesh_data
+  if hparams.batch_size % data_rows:
+    raise ValueError(
+        f"batch_size {hparams.batch_size} must be divisible by the data "
+        f"axis ({n_procs} processes x mesh_data {hparams.mesh_data})")
+  local_batch = hparams.batch_size // n_procs
+  train_ds = SegmentDataset(trainset, hparams, rank, n_procs)
+  val_ds = SegmentDataset(valset, hparams, rank, n_procs)
+  batch_iterations = (len(trainset) // n_procs) // local_batch
   if batch_iterations == 0:
     raise RuntimeError("Not enough training data.")
-  train_loader = BatchLoader(SegmentDataset(trainset, hparams),
-                             hparams.batch_size, drop_last=True)
-  val_loader = BatchLoader(SegmentDataset(valset, hparams),
-                           hparams.batch_size, drop_last=False)
-  train_step = make_train_step(config, hparams, mel_op, optimizer)
-  eval_loss = make_eval_loss(config, hparams, mel_op)
+  train_loader = BatchLoader(train_ds, local_batch, drop_last=True,
+                             num_batches=batch_iterations)
+  trainer = _Trainer(config, hparams, params_np,
+                     checkpoint.optimizer if checkpoint is not None else None,
+                     device, mesh_devices)
+  if trainer.mesh is not None:
+    # the replicas' batches are full and as many on every process
+    val_batches = (len(valset) // n_procs) // local_batch
+    if val_batches == 0:
+      logger.warning(
+          "Validation set (%d entries) is smaller than one global batch "
+          "(%d): validation loss will be NaN in mesh mode.",
+          len(valset), hparams.batch_size)
+    val_loader = BatchLoader(val_ds, local_batch, drop_last=True,
+                             num_batches=val_batches)
+  else:
+    val_loader = BatchLoader(val_ds, local_batch, drop_last=False)
   save_settings = SaveIterationSettings(
       epochs=hparams.epochs, batch_iterations=batch_iterations,
       iters_per_checkpoint=hparams.iters_per_checkpoint,
@@ -186,7 +285,7 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
       start_batch = (get_continue_batch_iteration(iteration, batch_iterations)
                      if epoch == continue_epoch else 0)
       for batch in train_loader.epoch(epoch, start_batch):
-        loss = float(train_step(params, torch.from_numpy(batch).to(device)))
+        loss = float(trainer.step(torch.from_numpy(batch)))
         iteration += 1
         if not np.isfinite(loss):
           # the state is already poisoned (non-finite grads reached Adam):
@@ -214,14 +313,15 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
           tboard.log_training(iteration, loss, step_s)
 
         if check_save_it(epoch, iteration, save_settings):
-          path = Path(save_checkpoint_dir) / f"{iteration}.npz"
-          CheckpointWaveglow(
-              state_dict=params_to_numpy(params),
-              optimizer=adam_state_to_optax(optimizer, params),
-              learning_rate=hparams.learning_rate, iteration=iteration,
-              hparams=asdict(hparams)).save(path)
-          logger.info("Saved checkpoint %s", path)
-          val_loss = validate_model(eval_loss, params, val_loader, device)
+          if rank == 0:
+            params_np, opt_leaves = trainer.state()
+            path = Path(save_checkpoint_dir) / f"{iteration}.npz"
+            CheckpointWaveglow(
+                state_dict=params_np, optimizer=opt_leaves,
+                learning_rate=hparams.learning_rate, iteration=iteration,
+                hparams=asdict(hparams)).save(path)
+            logger.info("Saved checkpoint %s", path)
+          val_loss = validate_model(trainer.eval_loss, val_loader)
           logger.info("Validation loss %d: %9f", iteration, val_loss)
           metrics.log(event="validation", iteration=iteration, loss=val_loss)
           if tboard is not None:
@@ -238,6 +338,5 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
 
   logger.info("Finished training. Total duration: %.2fm",
               (time.time() - complete_start) / 60)
-  return {"params": params_to_numpy(params),
-          "opt_state": adam_state_to_optax(optimizer, params),
-          "step": iteration}
+  params_np, opt_leaves = trainer.state()
+  return {"params": params_np, "opt_state": opt_leaves, "step": iteration}

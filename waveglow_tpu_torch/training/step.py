@@ -7,6 +7,16 @@ order. :func:`adam_state_to_optax` and :func:`adam_state_from_optax` carry
 the Adam state to and from optax's positional layout (``count``, then the
 ``mu`` leaves, then the ``nu`` leaves), so either package resumes the
 other's checkpoint.
+
+:func:`make_mesh_train_step` is the step on a (data, model) mesh, one
+process or several: each data replica (a model group,
+``parallel.sharding.shard_trainable_params``) takes its rows of the batch,
+and the replicas' gradients are summed in global data-rank order (in the
+process, then across processes in process order) and divided by their
+count, so every replica's Adam sees the same bits.
+:func:`adam_state_to_optax_group` and :func:`adam_state_from_optax_group`
+gather and scatter a group's Adam state in optax's layout, so a checkpoint
+saved on a mesh resumes on no mesh and the other way round.
 """
 
 from __future__ import annotations
@@ -24,6 +34,11 @@ from waveglow_tpu_torch.kernels.wn_layer import wn_layer_trainable
 from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, forward
 from waveglow_tpu_torch.models.wn import LayerFn
 from waveglow_tpu_torch.ops.conv import compute_dtype_from_name
+from waveglow_tpu_torch.parallel.mesh import (all_reduce_ordered,
+                                              process_count)
+from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
+                                                  gather_tree,
+                                                  shard_leaf_pairs)
 from waveglow_tpu_torch.training.loss import waveglow_loss
 
 
@@ -97,12 +112,13 @@ def make_loss_fn(config: WaveGlowConfig, hp: HParams, mel_op: MelSTFT,
 def compute_grads(loss_fn: Callable, params: Dict, audio: torch.Tensor,
                   grad_accum: int = 1) -> torch.Tensor:
   """Fill every leaf's ``.grad`` with d loss / d leaf and return the loss
-  (detached). With ``grad_accum`` > 1 the batch splits into that many
-  micro-batches, and the loss and grads are their means."""
+  (detached). ``params`` is a tree or a model group's rank trees (a leaf
+  they share counts once). With ``grad_accum`` > 1 the batch splits into
+  that many micro-batches, and the loss and grads are their means."""
   if audio.shape[0] % grad_accum:
     raise ValueError(f"batch size {audio.shape[0]} is not divisible by "
                      f"grad_accum={grad_accum}")
-  leaves = tree_leaves(params)
+  leaves = distinct_leaves(params)
   for p in leaves:
     p.grad = None
   total = None
@@ -127,6 +143,115 @@ def make_train_step(config: WaveGlowConfig, hp: HParams, mel_op: MelSTFT,
   def step(params: Dict, audio: torch.Tensor) -> torch.Tensor:
     loss = compute_grads(loss_fn, params, audio, hp.grad_accum)
     optimizer.step()
+    return loss
+
+  return step
+
+
+def adam_state_to_optax_group(optimizer: torch.optim.Adam,
+                              group: List[Dict]) -> List[np.ndarray]:
+  """:func:`adam_state_to_optax` of a model group's optimizer (over
+  ``distinct_leaves(group)``): the moments of the whole tree, each
+  gathered from the ranks' slices, in optax's layout."""
+  states = [optimizer.state.get(p, {}) for p in distinct_leaves(group)]
+  count = int(states[0]["step"]) if states[0] else 0
+
+  def moment(key):
+    def value(p):
+      state = optimizer.state.get(p, {})
+      if not state:
+        return np.zeros(tuple(p.shape), np.float32)
+      return state[key].detach().to("cpu", torch.float32).numpy()
+    return value
+
+  return ([np.asarray(count, dtype=np.int32)]
+          + gather_tree(group, moment("exp_avg"))
+          + gather_tree(group, moment("exp_avg_sq")))
+
+
+def adam_state_from_optax_group(optimizer: torch.optim.Adam,
+                                group: List[Dict],
+                                opt_leaves: List[np.ndarray]) -> None:
+  """Load optax's Adam leaves of a whole tree into a model group's
+  optimizer: each rank's leaves take their slices."""
+  n = len(tree_leaves(group[0]))
+  if len(opt_leaves) != 1 + 2 * n:
+    raise ValueError(f"optimizer state has {len(opt_leaves)} leaves, "
+                     f"expected {1 + 2 * n} (count, mu, nu) for {n} params")
+  mu = shard_leaf_pairs(list(opt_leaves[1:1 + n]), group)
+  nu = shard_leaf_pairs(list(opt_leaves[1 + n:]), group)
+  adam_state_from_optax(optimizer, [p for p, _ in mu],
+                        [opt_leaves[0]] + [m for _, m in mu]
+                        + [v for _, v in nu])
+
+
+def _group_device(group: List[Dict]) -> torch.device:
+  return tree_leaves(group[0])[0].device
+
+
+def sync_replica_grads(replicas: List[List[Dict]],
+                       losses: List[torch.Tensor]) -> torch.Tensor:
+  """Make every data replica's gradient the mean over all replicas of all
+  processes, with the same bits on each: the sums run in global data-rank
+  order (this process's replicas in order, then the processes' sums in
+  process order through ``all_reduce_ordered``), then divide by the
+  replica count. Returns the mean of the replicas' losses (each replica
+  holds an equal share of the rows, so it is the global batch's loss)."""
+  leaves = [distinct_leaves(group) for group in replicas]
+  dev0 = _group_device(replicas[0])
+  sums = []
+  for j, p0 in enumerate(leaves[0]):
+    total = p0.grad
+    for rep in leaves[1:]:
+      total = total + rep[j].grad.to(total.device)
+    sums.append(total)
+  loss = losses[0].to(dev0)
+  for other in losses[1:]:
+    loss = loss + other.to(dev0)
+  count = len(replicas) * process_count()
+  if process_count() > 1:
+    flat = all_reduce_ordered(torch.cat(
+        [loss.reshape(1).float()] + [s.reshape(-1).to(dev0) for s in sums]))
+    loss, offset = flat[0], 1
+    for j, s in enumerate(sums):
+      sums[j] = flat[offset:offset + s.numel()].reshape(s.shape).to(s.device)
+      offset += s.numel()
+  means = [s / count for s in sums]
+  for i, rep in enumerate(leaves):
+    for p, mean in zip(rep, means):
+      p.grad = mean if i == 0 else mean.to(p.device, copy=True)
+  return loss / count
+
+
+def make_mesh_train_step(config: WaveGlowConfig, hp: HParams,
+                         replicas: List[List[Dict]],
+                         optimizers: List[torch.optim.Adam]) -> Callable:
+  """``step(audio [local B, segment]) -> loss`` on a (data, model) mesh:
+  data replica i (``replicas[i]``, a model group on its devices, with
+  ``optimizers[i]``) takes rows [i*B/D, (i+1)*B/D) of this process's
+  batch; each computes its loss and gradients (``hp.grad_accum``
+  micro-batches), the gradients are averaged over every replica of every
+  process (:func:`sync_replica_grads`), and each replica's Adam steps.
+  Returns the global batch's loss, the same on every process."""
+  fns = []
+  for group in replicas:
+    mel_op = MelSTFT(hp, _group_device(group))
+    loss_fn = make_loss_fn(config, hp, mel_op)
+    fns.append((loss_fn, group if len(group) > 1 else group[0]))
+
+  def step(audio: torch.Tensor) -> torch.Tensor:
+    if audio.shape[0] % len(replicas):
+      raise ValueError(f"a batch of {audio.shape[0]} rows does not split "
+                       f"over {len(replicas)} data replicas")
+    rows = audio.shape[0] // len(replicas)
+    losses = [compute_grads(loss_fn, params,
+                            audio[i * rows:(i + 1) * rows].to(
+                                _group_device(replicas[i])),
+                            hp.grad_accum)
+              for i, (loss_fn, params) in enumerate(fns)]
+    loss = sync_replica_grads(replicas, losses)
+    for optimizer in optimizers:
+      optimizer.step()
     return loss
 
   return step
