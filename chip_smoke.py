@@ -18,7 +18,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      bf16 shard kernels and the shard backward's rows, dx and weights
      kernels, whose registers, spills and shared memory are printed) and
      none in the f32 ones; the two backwards' reduce kernels do no
-     products. The f32 kernel's registers, shared memory,
+     products. The shard backward's rows, dx and weights kernels must be
+     wgmma (HGMMA), with no ptxas warning that their wgmmas are
+     serialized (C7511/C7513), and no spill. The f32 kernel's registers, shared memory,
      blocks an SM and grid at B=1 and B=8 are printed (at each width), and
      any spill of an f32 forward variant fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
@@ -161,7 +163,8 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      rank, the ranks' outputs summed and concatenated against the full
      layer's backward kernels, two launches bit for bit, timed at d=1
      beside the bound, the plain version and the library's (cuBLAS bf16
-     products and torch elementwise), and the f32 route (torch ops)
+     products and torch elementwise), with each kernel's device time
+     (torch.profiler over 10 calls), and the f32 route (torch ops)
      against autograd; (b) train() at full width (12 x 8 x 256, batch
      12, segment 16,000) on logical meshes of cuda:0, (data, model) =
      (1, 2), (2, 1) and (2, 2), in f32 and bf16: one step's loss and
@@ -620,18 +623,53 @@ def find_cuobjdump() -> Path:
        "the tensor-core check of the bf16 kernels cannot run")
 
 
-def count_mma(sass: str) -> dict:
-  """Tensor-core instructions (HMMA, HGMMA) per kernel variant in the
-  output of ``cuobjdump -sass``."""
+def count_mma(sass: str, opcode: str = r"\bH(G)?MMA\.") -> dict:
+  """Tensor-core instructions (HMMA and HGMMA; with ``opcode``
+  r"\\bHGMMA\\.", wgmma alone) per kernel variant in the output of
+  ``cuobjdump -sass``."""
   counts, name = {}, None
   for line in sass.splitlines():
     m = re.search(r"Function : (\S+)", line)
     if m:
       name = kernel_variant(m.group(1))
       counts[name] = 0
-    elif name is not None and re.search(r"\bH(G)?MMA\.", line):
+    elif name is not None and re.search(opcode, line):
       counts[name] += 1
   return counts
+
+
+def wgmma_serialized(build_log: str) -> set:
+  """Kernel variants whose wgmmas ptxas reports serialized (its C7511 and
+  C7513 warnings; the kernel runs, but no faster than mma.sync). The
+  function is the one the warning names, else the one ptxas was
+  compiling."""
+  found, name = set(), None
+  for line in build_log.splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      name = kernel_variant(m.group(1))
+    if re.search(r"C751[13]", line):
+      named = re.search(r"'(_Z\w+)'", line)
+      found.add(kernel_variant(named.group(1)) if named else name)
+  return found
+
+
+def redesigned_sbwd(name: str) -> bool:
+  """A product kernel of the shard backward (rows, dx, weights): held to
+  wgmma, to no serialization and to no spill."""
+  return name.startswith("bf16,") and ",sbwd-" in name
+
+
+def check_wgmma(hgmma: dict, serialized, variants) -> None:
+  """Fail unless every product kernel of the shard backward has HGMMA and
+  ptxas serialized none of its wgmmas."""
+  for name in variants:
+    if not redesigned_sbwd(name):
+      continue
+    if hgmma.get(name, 0) == 0:
+      fail(f"the {name} kernel has no wgmma (HGMMA) instruction")
+    if name in serialized:
+      fail(f"ptxas serialized the wgmmas of the {name} kernel (C7511/C7513)")
 
 
 def check_tensor_cores(mma: dict, variants) -> None:
@@ -649,12 +687,13 @@ def check_tensor_cores(mma: dict, variants) -> None:
 
 
 def check_no_spills(ptxas, attributes) -> None:
-  """Fail if an f32 kernel variant (the forward's or the shard's) spills:
-  local bytes in the loaded build, or spill stores or loads in ptxas's
-  report (``ptxas`` is None when the library was built by an earlier
-  process). The bf16 variants are not held to it."""
+  """Fail if an f32 kernel variant (the forward's or the shard's) or a
+  product kernel of the shard backward spills: local bytes in the loaded
+  build, or spill stores or loads in ptxas's report (``ptxas`` is None
+  when the library was built by an earlier process). The other bf16
+  variants are not held to it."""
   for name, attr in attributes.items():
-    if not name.startswith(("f32", "shard-f32")):
+    if not (name.startswith(("f32", "shard-f32")) or redesigned_sbwd(name)):
       continue
     facts = (ptxas or {}).get(name, {})
     spills = (attr["local_bytes"], facts.get("spill_store_bytes", 0),
@@ -715,6 +754,8 @@ def phase_build() -> dict:
   if sass.returncode != 0:
     fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
   mma = count_mma(sass.stdout)
+  hgmma = count_mma(sass.stdout, r"\bHGMMA\.")
+  serialized = wgmma_serialized(kl.BUILD_LOG) if built else set()
   info = {"built_in_this_run": built,
           "build_s": kl.BUILD_SECONDS if built else "cached",
           "build_and_load_s": seconds,
@@ -722,6 +763,8 @@ def phase_build() -> dict:
                     else "cached: built by an earlier process"),
           "attributes": attributes,
           "sass_tensor_core_instructions": mma,
+          "sass_wgmma_instructions": hgmma,
+          "wgmma_serialized": sorted(serialized),
           "f32_grid": f32_grid(attributes),
           "shard_f32_grid": shard_f32_grid(attributes)}
   log("build " + json.dumps(info))
@@ -729,6 +772,7 @@ def phase_build() -> dict:
   log("f32 shard kernel " + json.dumps(info["shard_f32_grid"]))
   log("shard backward kernels " + json.dumps(
       {shard_bwd_variant(*v): {**attributes[shard_bwd_variant(*v)],
+                               "hgmma": hgmma.get(shard_bwd_variant(*v), 0),
                                "ptxas": (info["ptxas"].get(
                                    shard_bwd_variant(*v)) if built
                                    else "cached")}
@@ -737,6 +781,7 @@ def phase_build() -> dict:
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
   check_tensor_cores(mma, attributes)
+  check_wgmma(hgmma, serialized, attributes)
   check_no_spills(info["ptxas"] if built else None, attributes)
   return info
 
@@ -3622,13 +3667,16 @@ MESH_WIDE = 512
 CLI_PROCS = 2
 CLI_PROC_TIMEOUT_S = 300
 SHARD_BWD_DESIGN = (
-    "bf16 tensor cores (mma.sync m16n8k16 fed by ldmatrix, cp.async rings), "
-    "four kernels after the full layer's backward: rows (taps staged in "
-    "shared memory, the gate recompute and dacts on the same accumulators, "
-    "passes of min(C', 128) channels, 64-row tiles, 32 at C = 512 and 128 "
-    "at C' = 16), dx (128 x 128 tiles, K = 3 x 2C'), weights (128 x 128 "
-    "tiles, the extent past 2C' or C' skipped by whole warps, row-split f32 "
-    "partials), reduce (fixed order, no atomics)")
+    "redesigned for Hopper: wgmma m64nNk16 from 128-byte-swizzled shared "
+    "memory, two warpgroups of 64 rows, 64-deep K chunks with one chunk's "
+    "wgmmas running under the next one's loads; rows (a block per batch row, "
+    "128-row tile and pass of min(C', 64) channels: the gate recompute and "
+    "dacts on accumulators of the same (row, channel), f32 x and g read and "
+    "rounded to bf16 under the previous chunk's wgmmas, weights through a "
+    "cp.async ring), dx (128 rows x min(C, 256) channels, K = 3 x 2C'), "
+    "weights (dw_in and dw_rs^T tiles of 128 x the live N, both operands "
+    "MN-major, a row split that fills the card's waves), reduce (fixed "
+    "order, no atomics)")
 
 
 def shard_bwd_cost(batch: int, t: int, width: int, cp: int, last: bool,
@@ -3683,6 +3731,37 @@ def library_shard_backward(saved, g, dilation: int, dtype):
   dx = sum(shift_time(g_w[..., k * c:(k + 1) * c], -(k - 1) * dilation)
            for k in range(3))
   return dx, dg, dw_in, db_in, dw_rs
+
+
+def shard_backward_kernel_ms(saved, g, dilation: int, reps: int = 10,
+                             tries: int = 3):
+  """Device milliseconds of each bf16 shard-backward kernel in one call, by
+  its variant name (``shard_bwd_variant``): the mean over the launches that
+  torch.profiler holds of ``reps`` calls (a layer's saved inputs: its rows
+  kernel is the "layer" variant). Late in a long process a trace may hold
+  fewer launches than were made, or none of a kernel: such a trace is taken
+  again, up to ``tries`` times, then "not measured"."""
+  from torch.profiler import ProfilerActivity, profile
+  width = saved[0].shape[-1]
+  cp = saved[3].numel() // 2
+  kl.wn_layer_shard_backward_fused(saved, g, dilation)
+  torch.cuda.synchronize()
+  for _ in range(tries):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        kl.wn_layer_shard_backward_fused(saved, g, dilation)
+      torch.cuda.synchronize()
+    total, seen = {}, {}
+    for name, ms in device_kernels(prof):
+      kernel = re.search(r"wn_sbwd_(rows|dx|weights|reduce)_kernel", name)
+      if kernel:
+        key = shard_bwd_variant(kernel.group(1), width, cp)
+        total[key] = total.get(key, 0.0) + ms
+        seen[key] = seen.get(key, 0) + 1
+    if len(seen) == 4:
+      return {key: total[key] / seen[key] for key in total}
+  return "not measured"
 
 
 def shard_bwd_check(seed: int) -> dict:
@@ -3741,6 +3820,7 @@ def shard_bwd_check(seed: int) -> dict:
                    "library_ms": cuda_ms(lambda: library_shard_backward(
                        saved, g, 1, bf), reps=5), **cost}
             rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+            rec["kernels_ms"] = shard_backward_kernel_ms(saved, g, 1)
             timed[(width, cp)] = rec
         dx = sum(o[0] for o in outs) + (0 if last else g[..., :width])
 
@@ -4440,7 +4520,8 @@ def main() -> None:
           max_err_of_scale=max(c["max_err_of_scale"] for c in sbwd["cases"]),
           tolerance_of_scale=KERNEL_TOL_BF16_REL, design=SHARD_BWD_DESIGN,
           pairs={f"C={c},C'={cp}": {k: r[k] for k in (
-              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "share_of_bound", "kernels_ms")}
               for (c, cp), r in sorted(sbwd["timed"].items())},
           loaded_build={shard_bwd_variant(*v): build["attributes"][
               shard_bwd_variant(*v)] for v in SHARD_BWD_KERNELS

@@ -755,7 +755,7 @@ def test_shard_cost_at_other_widths(smoke, width, cp):
 
 # -- phase 13: mesh training ------------------------------------------------------
 
-_SBWD = "_ZN54_GLOBAL__N__5b1e0c2a_21_wn_layer_shard_bwd_cu_4f3a9d1e"
+_SBWD = "_ZN54_GLOBAL__N__05726558_21_wn_layer_shard_bwd_cu_3e1b28cf"
 SBWD_ROWS = (_SBWD + "19wn_sbwd_rows_kernelILi256ELi128ELb0EEEvPKfPK13__nv_"
              "bfloat16S5_S2_S5_S2_PS3_S6_S6_S6_Pfii")
 
@@ -764,12 +764,12 @@ SBWD_ROWS = (_SBWD + "19wn_sbwd_rows_kernelILi256ELi128ELb0EEEvPKfPK13__nv_"
     (SBWD_ROWS, "bf16,C=256,C'=128,sbwd-rows,layer"),
     (SBWD_ROWS.replace("ILi256ELi128ELb0E", "ILi128ELi16ELb1E"),
      "bf16,C=128,C'=16,sbwd-rows,last"),
-    (_SBWD + "17wn_sbwd_dx_kernelILi512ELi256EEvPK13__nv_bfloat16S2_Pfii",
+    (_SBWD + "17wn_sbwd_dx_kernelILi512ELi256EEEvPK13__nv_bfloat16S3_Pfiii",
      "bf16,C=512,C'=256,sbwd-dx"),
-    (_SBWD + "22wn_sbwd_weights_kernelILi256ELi32EEvPK13__nv_bfloat16S2_S2_"
-     "S2_Pfiiiii", "bf16,C=256,C'=32,sbwd-weights"),
-    (_SBWD + "21wn_sbwd_reduce_kernelILi128ELi64EEvPKfiS1_iiP13__nv_"
-     "bfloat16S3_Pf", "reduce,C=128,C'=64,sbwd")])
+    (_SBWD + "22wn_sbwd_weights_kernelILi256ELi32EEEvPK13__nv_bfloat16S3_S3_"
+     "S3_Pfiiiii", "bf16,C=256,C'=32,sbwd-weights"),
+    (_SBWD + "21wn_sbwd_reduce_kernelILi128ELi64EEEvPKfiS2_iiP13__nv_"
+     "bfloat16S4_Pf", "reduce,C=128,C'=64,sbwd")])
 def test_shard_backward_variant_names(smoke, mangled, name):
   """Each shard-backward kernel's mangled name maps to the variant phase 2
   queries from the runtime; the backward's own kernels keep theirs."""

@@ -1022,3 +1022,80 @@ def test_shard_bwd_kernel_info_reads_the_loaded_build(cuda, c, cp, kernel,
                                                       last):
   info = kl.shard_bwd_kernel_info(kernel, c, cp, last)
   assert info["registers"] > 0 and info["local_bytes"] == 0
+
+
+# The redesigned kernels' tile edges: T = 17 (one ragged 128-row tile, one
+# 64-row chunk of the weights kernel), 127 and 129 (either side of a tile),
+# 2,000 (the training segment); B = 1, 4, 12; d = 1, 128 and 512 (every
+# side tap in the padding).
+SBWD_EDGES = [(1, 17, 1, False), (4, 127, 128, True), (4, 129, 512, False),
+              (12, 2_000, 1, True), (1, 129, 128, False), (12, 17, 512, True)]
+
+
+@pytest.mark.parametrize("batch,t,dilation,last", SBWD_EDGES)
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_kernel_at_the_tile_edges(cuda, c, cp, batch, t, dilation,
+                                            last):
+  """Every pair, both variants, against wn_layer_shard_backward at 2e-2 of
+  each gradient's scale; a second launch gives the same bits."""
+  saved, g, _ = shard_bwd_inputs(cuda, batch, t, c, c // cp, 0, last,
+                                 seed=batch + t)
+  got = kl.wn_layer_shard_backward_fused(saved, g, dilation)
+  again = kl.wn_layer_shard_backward_fused(saved, g, dilation)
+  torch.cuda.synchronize()
+  ref = kl.wn_layer_shard_backward(saved, g, dilation, torch.bfloat16)
+  for a, b, r in zip(got, again, ref):
+    assert torch.equal(a, b)
+    scale = r.float().abs().max().item()
+    assert (a.float() - r.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("batch,t,dilation,last", [(1, 129, 128, False),
+                                                   (12, 2_000, 1, True)])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_ranks_make_the_full_backward_at_the_edges(
+    cuda, c, cp, batch, t, dilation, last):
+  """The ranks summed (dx) and concatenated (the rest) against the full
+  layer's backward kernels at 2e-2 of scale, at a tile's edge and at the
+  training shape."""
+  model = c // cp
+  outs = []
+  for rank in range(model):
+    saved, g, args = shard_bwd_inputs(cuda, batch, t, c, model, rank, last)
+    outs.append(kl.wn_layer_shard_backward_fused(saved, g, dilation))
+  n_rs = c if last else 2 * c
+  dx_next = None if last else g[..., :c].contiguous()
+  dskip = g if last else g[..., c:].contiguous()
+  want = kl.wn_layer_backward_fused(args, dx_next, dskip, dilation)
+  torch.cuda.synchronize()
+  got = (sum(o[0] for o in outs) + (0 if last else g[..., :c]),
+         torch.cat([o[1].reshape(batch, t, 2, -1) for o in outs], -1),
+         torch.cat([o[2].reshape(3 * c, 2, -1) for o in outs], -1),
+         torch.cat([o[3].reshape(2, -1) for o in outs], -1),
+         torch.cat([o[4].reshape(cp, n_rs) for o in outs], 0))
+  for a, b in zip(got, want):
+    scale = b.float().abs().max().item()
+    assert (a.float().reshape(b.shape) - b.float()).abs().max().item() <= (
+        2e-2 * scale)
+
+
+# The weights kernel's output tiles a pair (non-last; last: n_rs = C, so
+# C / 128 fewer), as tests/test_torch_shard_bwd.py lays out its splits.
+SBWD_WEIGHT_TILES = {(128, 64): 5, (128, 32): 5, (128, 16): 5,
+                     (256, 128): 10, (256, 64): 10, (256, 32): 10,
+                     (512, 256): 32, (512, 128): 20, (512, 64): 20}
+
+
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_shard_bwd_schedule_reads_the_loaded_build(cuda, c, cp):
+  """The library's tiles agree with the host's schedule: 128-row tiles of
+  the rows kernel, the weights kernel's output tiles; at B=12, T=2,000 its
+  blocks fill at least one wave of the card."""
+  lib = kl._library()
+  assert lib.wn_layer_shard_bwd_tile_rows(c, cp) == 128
+  tiles = lib.wn_layer_shard_bwd_weight_tiles(c, cp, 0)
+  assert tiles == SBWD_WEIGHT_TILES[(c, cp)]
+  assert lib.wn_layer_shard_bwd_weight_tiles(c, cp, 1) == tiles - c // 128
+  sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+  n_splits, _ = kl.shard_bwd_splits(12, 2_000, tiles, sms)
+  assert tiles * 12 * n_splits >= sms

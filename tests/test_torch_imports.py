@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "waveglow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bwd_ablation.py"]
+    ROOT / "chip_smoke.py", ROOT / "bwd_ablation.py",
+    ROOT / "sbwd_ablation.py"]
 
 
 def imported_modules(path: Path):

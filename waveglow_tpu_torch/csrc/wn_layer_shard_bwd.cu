@@ -44,37 +44,48 @@
 // whole x (4C bytes a row) and g (4 n_rs) and writes a whole f32 partial dx
 // (4C), whatever C' is: at (128, 16) 52 MB, 0.016 ms.
 //
-// Four kernels, launched in order on one stream, after the full layer's
-// backward (csrc/wn_layer_bwd.cu), with the tiles generalised to narrow C':
-//   wn_sbwd_rows_kernel<C, C', last> - per tile of time rows (one block per
-//     SM, 8 warps): stages the three bf16 tap windows in shared memory and
-//     bf16(g) into a global scratch, then in passes over blocks of
-//     min(C', 128) channels recomputes the tanh and sigmoid pre-activations
-//     (K = 3C) and dacts (K = n_rs, g read back through the ring) of the
-//     same channels into accumulators that sit in the same thread, so the
-//     gate and its adjoint run on the accumulators. Writes dcond_s, bf16
-//     acts and bf16 x (scratch operands of the weights kernel) and per-tile
-//     f32 column sums of dgates. The warp grid follows the block's width:
-//     a warp holds 32 x 32, 32 x 16 or 16 x 16 rows x channels, and the
-//     tile 64 rows (32 at C = 512, whose three tap windows would not fit
-//     at 64; 128 at C' = 16, where a pass of 16 channels leaves eight row
-//     warps).
-//   wn_sbwd_dx_kernel<C, C'> - per 128 rows x 128 of the C output channels:
-//     dx = a 3-tap dilated product over bf16 dgates with the offsets
-//     negated (K = 3*2C').
-//   wn_sbwd_weights_kernel<C, C'> - dw_in_s (3C/128 x ceil(2C'/128) tiles)
-//     and dw_rs_s (ceil(C'/128) x n_rs/128 tiles) of 128 x 128, whose
-//     extent past 2C' or C' is zero-filled and skipped by whole warps:
-//     long-K reductions over the rows, split into row ranges (per batch
-//     row) over the grid's y; f32 partials go to a workspace.
+// Four kernels, launched in order on one stream. Every product is a wgmma
+// (m64nNk16, bf16 operands from 128-byte-swizzled shared memory, f32
+// accumulators; sm90_wgmma.cuh) of two warpgroups, 64 rows each, fed by
+// 64-deep K chunks, with one chunk's wgmmas left running under the next
+// chunk's loads:
+//   wn_sbwd_rows_kernel<C, C', last> - one block per (batch row, tile of 128
+//     time rows, pass of P = min(C', 64) channels): the gate recompute (K =
+//     3C; N = [P tanh | P sigmoid] columns, at least 64) then dacts (K =
+//     n_rs, N = P, w_rs_s read K-major as it lies) into accumulators that
+//     sit in the same thread for the same (row, channel), so the gate and
+//     its adjoint run on the accumulators. The A operands stream: a
+//     chunk's f32 x taps (or g) and its weights go out by cp.async two
+//     chunks ahead, and while the wgmmas of one chunk run each thread
+//     rounds its own share of the next chunk's f32 values to bf16 into the
+//     other of two A slots (its warpgroup's rows only, so the warpgroup's
+//     own wgmma wait frees the slot). The pass-0 block also writes bf16 x
+//     and bf16 g (the weights kernel's operands) from the rounded values;
+//     no block reads them back. Writes dcond_s, bf16 acts and per-tile f32
+//     column sums of dgates.
+//   wn_sbwd_dx_kernel<C, C'> - per 128 flat rows x min(C, 256) output
+//     channels: dx = a product over K = 3 x 2C' (the three taps' dgates
+//     rows, shifted by -(tap-1)*d, against w_in_s[tap] read K-major).
+//   wn_sbwd_weights_kernel<C, C'> - dw_in_s (tiles of 128 of its 3C rows x
+//     min(2C', 256) columns, at least 64) and dw_rs_s^T (tiles of 128 of its
+//     n_rs rows x min(C', 256) columns, at least 64), both operands
+//     MN-major as they lie in memory: long-K reductions over the rows,
+//     split per batch row into ranges that the caller sizes to fill whole
+//     waves of the card; f32 partials go to a workspace (dw_rs_s
+//     transposed back on the way out).
 //   wn_sbwd_reduce_kernel<C, C'> - sums the partials and the per-tile bias
 //     sums in a fixed order, then casts.
-// Every product is mma.sync m16n8k16 (bf16 operands, f32 accumulators) fed
-// by ldmatrix from padded shared memory (row strides 16 bytes past a
-// multiple of 128), every operand chunk streams through a cp.async ring
-// (zero-filled outside [0, T)). No atomics anywhere: two launches give the
-// same bits. PERF.md keeps the times; wn_layer_shard_bwd_kernel_info
-// reports each kernel's registers, spills and shared memory.
+// Extents past 2C', C' or K are zero-filled. No atomics anywhere: two
+// launches give the same bits.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py phase
+// 13(a), B=12, T=2,000, d=1: 0.19 ms at (256, 128) (rows 0.098, dx 0.030,
+// weights 0.041, reduce 0.007), 0.54 ms at (512, 256), against 0.29 and
+// 1.01 ms for the mma.sync design it replaced. The rows kernel takes half:
+// with its A operands' copies and rounding switched off it ran in about
+// half its time, so the f32 x and g it streams, not its products, bound
+// it. PERF.md keeps the times; wn_layer_shard_bwd_kernel_info reports each
+// kernel's registers, spills and shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,65 +93,20 @@
 
 #include <atomic>
 
+#include "f32_ring.cuh"  // cp.async, opt_in_smem
+#include "sm90_wgmma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;          // 8 warps
-constexpr int kK = 32;                 // K rows of one pipeline chunk
-constexpr int kKStride = kK + 8;       // a [rows][32] chunk row: 80 bytes
-constexpr int kWTile = 128;            // weights kernel output tile edge
-constexpr int kWStride = kWTile + 8;   // [32][128] chunk row: 272 bytes
-
-// ---- PTX helpers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Four 8x8 b16 matrices (of their transposes with .trans); lanes 8i..8i+7
-// give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a @ b: one m16n8k16 product, bf16 operands, f32 accumulators; d0,d1
-// = (g, 2q..2q+1), d2,d3 = (g+8, 2q..), g = lane/4, q = lane%4.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kThreads = 256;             // two warpgroups
+constexpr int kTileRows = 128;            // rows of a rows or dx tile
+constexpr int kKC = 64;                   // K of a chunk: one swizzle row
+constexpr int kBlockBytes = 64 * 128;     // 64 rows (or 64 K rows) x 128 B
+constexpr int kABytes = 2 * kBlockBytes;  // an A chunk of two warpgroups
+constexpr int kStages = 4;                // weight / operand ring depth
+constexpr int kAhead = kStages - 2;       // chunks in flight under the wgmmas
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo at the lower address
@@ -152,100 +118,221 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
                      __uint_as_float(v & 0xffff0000u));
 }
 
+// One step of the dx and weights kernels' ring at chunk `c`: this thread's
+// copies of chunk c have landed; hand them to the async proxy and make
+// them block-wide. Past this barrier every warpgroup has waited for the
+// wgmmas of chunk c - 2, so its slot is free for chunk c + kAhead.
+__device__ __forceinline__ void ring_wait() {
+  cp_async_wait<kAhead - 1>();
+  fence_proxy_async();
+  __syncthreads();
+}
+
 // ---- kernel 1: rows (gate recompute, dacts, gate adjoint) -----------------
 
-// The rows kernel's layout at (kC, kCP). A pass covers kBlk = min(C', 128)
-// channels; 8 warps = kRowWarps x kColWarps, a warp kMi m16 row blocks x
-// kWarpCh channels (32 x 32 where the tile has room, else 32 x 16, else
-// 16 x 16).
 template <int kC, int kCP, bool kLast>
 struct SRows {
   static constexpr int kNrs = kLast ? kC : 2 * kC;
-  static constexpr int kBlk = kCP < 128 ? kCP : 128;
-  static constexpr int kPasses = kCP / kBlk;
-  static constexpr int kTileRows = kC > 256 ? 32 : (kBlk == 16 ? 128 : 64);
-  static constexpr int kWarpArea = kTileRows * kBlk / 8;
-  static constexpr int kWarpCh = kWarpArea >= 1024 ? 32 : 16;
-  static constexpr int kMi = kWarpArea / (16 * kWarpCh);
-  static constexpr int kColWarps = kBlk / kWarpCh;
-  static constexpr int kRowWarps = 8 / kColWarps;
-  static constexpr int kNB = kWarpCh / 8;                  // n8 blocks
-  static constexpr int kInStride = 2 * kBlk + 8;           // w_in chunk row
-  static constexpr int kWinStride = kC + 8;                // tap window row
-  static constexpr int kTapBytes = 3 * kTileRows * kWinStride * 2;
-  static constexpr int kInChunkBytes = kK * kInStride * 2;
-  static constexpr int kRsChunkBytes = kBlk * kKStride * 2;
-  static constexpr int kGChunkBytes = kTileRows * kKStride * 2;
-  static constexpr int kStageBytes =
-      kInChunkBytes > kRsChunkBytes + kGChunkBytes
-          ? kInChunkBytes : kRsChunkBytes + kGChunkBytes;
-  static constexpr int kStages = 6;
-  static constexpr int kAhead = kStages - 1;
-  static constexpr int kRedBytes = kRowWarps * 2 * kCP * 4;
-  static constexpr int kSmem = kTapBytes + kStages * kStageBytes + kRedBytes;
-  static constexpr int kInChunks = 3 * kC / kK;
-  static constexpr int kRsChunks = kNrs / kK;
-  static constexpr int kPerPass = kInChunks + kRsChunks;
-  static constexpr int kChunks = kPasses * kPerPass;
-  static_assert(kMi >= 1 && kMi <= 2 && kRowWarps * kColWarps == 8 &&
-                    kRowWarps * 16 * kMi == kTileRows && kNB % 2 == 0,
-                "warp grid");
-  static_assert(kAhead <= kInChunks,
-                "the prologue's chunks must not read the g scratch");
+  static constexpr int kP = kCP < 64 ? kCP : 64;        // channels a pass
+  static constexpr int kPasses = kCP / kP;
+  static constexpr int kNg = 2 * kP < 64 ? 64 : 2 * kP;  // the gate's N
+  static constexpr int kTapChunks = 3 * kC / kKC;
+  static constexpr int kChunks = kTapChunks + kNrs / kKC;
+  // a ring slot: the gate's [64 K][Ng] MN-major (dacts' [P][64 K] is less)
+  static constexpr int kStageBytes = kKC * kNg * 2;
+  // an f32 A chunk; one for each chunk in flight
+  static constexpr int kF32Bytes = kTileRows * kKC * 4;
+  static constexpr int kRingOff = 2 * kABytes;
+  static constexpr int kF32Off = kRingOff + kStages * kStageBytes;
+  static constexpr int kRedOff = kF32Off + kAhead * kF32Bytes;
+  static constexpr int kSmem = kRedOff + 8 * 2 * kP * 4;
+  static_assert(kP * 128 <= kStageBytes, "dacts' weights fit a slot");
   static_assert(kSmem <= 232448, "over 227 KB");
 };
 
-// Start the copies of chunk `c` into ring slot `slot`: in pass c / kPerPass
-// (channel block cb), first the w_in_s rows [k0, k0+32) restricted to the
-// tanh columns [cb, cb+kBlk) (stored at 0..kBlk-1) and the sigmoid columns
-// [C'+cb, ...) (stored at kBlk..), as [k][n]; then w_rs_s rows [cb,
-// cb+kBlk), columns [k0, k0+32), as [n][k], and beside them the tile's bf16
-// g rows, columns [k0, k0+32), from the scratch this block wrote (zero past
-// T).
+// This thread's share of an A chunk: 8 pieces of 4 values, rows rb + lt/16
+// + 8i of its warpgroup's 64 (lt its index in the warpgroup), columns 4 (lt
+// % 16) + [0, 4) of the chunk's 64. It copies them in f32 and rounds the
+// same values, so it reads back only what it copied itself.
+
+// Start the f32 copies of this thread's share of A chunk j of a pass into
+// an f32 slot ([128 rows][64] f32): j < kTapChunks, tap j % 3, channels 64
+// (j / 3) + [0, 64) of x rows t0 + r + (tap-1)*d, zero outside [0, T);
+// then the g columns 64 (j - kTapChunks) + [0, 64) of rows r < rows, zero
+// past them. The gate's K runs in the same order: K row tap * C + 64 (j /
+// 3) + k of w_in_s.
+template <int kC, int kNrs>
+__device__ __forceinline__ void srows_load_a(uint32_t f32_slot, int j,
+                                             const float* xb, const float* gb,
+                                             int rb, int t0, int rows, int T,
+                                             int dilation) {
+  constexpr int kTapChunks = 3 * kC / kKC;
+  const int lt = threadIdx.x % 128;
+  const int c4 = (lt % 16) * 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = rb + lt / 16 + 8 * i;
+    const uint32_t dst = f32_slot + (r * kKC + c4) * 4;
+    if (j < kTapChunks) {
+      const int t = t0 + r + (j % 3 - 1) * dilation;
+      const bool ok = t >= 0 && t < T;
+      cp_async16_zfill(dst,
+                       xb + static_cast<int64_t>(ok ? t : 0) * kC +
+                           (j / 3) * kKC + c4,
+                       ok);
+    } else {
+      const bool ok = r < rows;
+      cp_async16_zfill(dst,
+                       gb + static_cast<int64_t>(t0 + (ok ? r : 0)) * kNrs +
+                           (j - kTapChunks) * kKC + c4,
+                       ok);
+    }
+  }
+}
+
+// Round this thread's share of A chunk j from its f32 slot to bf16 into an
+// A slot (K-major); with `scratch`, also write the rows < rows of the
+// unshifted tap and of g out as the weights kernel's bf16 x and g.
+template <int kC, int kNrs>
+__device__ __forceinline__ void srows_convert(char* slot, const char* f32_slot,
+                                              int j, int rb, int rows,
+                                              bool scratch, bf16* x_bf,
+                                              bf16* g_bf, int64_t row0) {
+  constexpr int kTapChunks = 3 * kC / kKC;
+  const int lt = threadIdx.x % 128;
+  const int c4 = (lt % 16) * 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = rb + lt / 16 + 8 * i;
+    const float4 v =
+        *reinterpret_cast<const float4*>(f32_slot + (r * kKC + c4) * 4);
+    const uint2 pk = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    *reinterpret_cast<uint2*>(slot + sw128_piece(r, c4 / 8) + (c4 % 8) * 2) =
+        pk;
+    if (scratch && r < rows) {
+      if (j >= kTapChunks)
+        *reinterpret_cast<uint2*>(g_bf + (row0 + r) * kNrs +
+                                  (j - kTapChunks) * kKC + c4) = pk;
+      else if (j % 3 == 1)
+        *reinterpret_cast<uint2*>(x_bf + (row0 + r) * kC + (j / 3) * kKC +
+                                  c4) = pk;
+    }
+  }
+}
+
+// Start the copies of the weights of chunk j of the pass at channel cb into
+// a ring slot: j < kTapChunks, w_in_s rows tap * C + 64 (j / 3) + [0, 64)
+// (tap = j % 3) at the pass's
+// tanh columns [cb, cb + P) (slot columns [0, P)) and sigmoid columns [C' +
+// cb, ...) (slot columns [P, 2P)), MN-major, zero past 2P; then w_rs_s rows
+// [cb, cb + P), columns [64k, 64k + 64) of dacts' chunk k, K-major.
 template <int kC, int kCP, bool kLast>
-__device__ __forceinline__ void srows_load(uint32_t slot, int c,
-                                           const bf16* w_in, const bf16* w_rs,
-                                           const bf16* g_bf, int64_t row0,
-                                           int rows) {
+__device__ __forceinline__ void srows_load_b(uint32_t slot, int j,
+                                             const bf16* w_in,
+                                             const bf16* w_rs, int cb) {
   using L = SRows<kC, kCP, kLast>;
-  const int j = c % L::kPerPass;
-  const int cb = (c / L::kPerPass) * L::kBlk;
-  if (j < L::kInChunks) {
-    const int k0 = j * kK;
-    constexpr int kRowPieces = L::kBlk / 4;       // 16-byte pieces a row
-    constexpr int kPieces = kK * kRowPieces;
+  constexpr int kP = L::kP;
+  if (j < L::kTapChunks) {
+    constexpr int kPer = L::kNg / 8;  // 16-byte pieces of a K row
+    static_assert(kKC * kPer % kThreads == 0, "whole rounds");
+#pragma unroll
+    for (int i = 0; i < kKC * kPer / kThreads; ++i) {
+      const int p = threadIdx.x + i * kThreads;
+      const int k = p / kPer, n = (p % kPer) * 8;
+      const bool live = n < 2 * kP;
+      const int col = n < kP ? cb + n : kCP + cb + n - kP;
+      cp_async16_zfill(slot + (n / 64) * kBlockBytes + sw128_piece(k, n % 64 / 8),
+                       w_in + ((j % 3) * kC + (j / 3) * kKC + k) * 2 * kCP +
+                           (live ? col : 0),
+                       live);
+    }
+  } else {
+    const int k0 = (j - L::kTapChunks) * kKC;
+    constexpr int kPieces = kP * 8;
 #pragma unroll
     for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
       const int p = threadIdx.x + i * kThreads;
       if (kPieces % kThreads != 0 && p >= kPieces) break;
-      const int r = p / kRowPieces, q = p % kRowPieces;
-      const int half = kRowPieces / 2;
-      const int col = q < half ? cb + q * 8 : kCP + cb + (q - half) * 8;
-      cp_async16(slot + (r * L::kInStride + q * 8) * 2,
-                 w_in + (k0 + r) * 2 * kCP + col, true);
-    }
-  } else {
-    const int k0 = (j - L::kInChunks) * kK;
-    constexpr int kWPieces = L::kBlk * 4;
-#pragma unroll
-    for (int i = 0; i < (kWPieces + kThreads - 1) / kThreads; ++i) {
-      const int p = threadIdx.x + i * kThreads;
-      if (kWPieces % kThreads != 0 && p >= kWPieces) break;
-      const int n = p / 4, q = p % 4;
-      cp_async16(slot + (n * kKStride + q * 8) * 2,
-                 w_rs + (cb + n) * L::kNrs + k0 + q * 8, true);
-    }
-    constexpr int kGPieces = L::kTileRows * 4;
-#pragma unroll
-    for (int i = 0; i < (kGPieces + kThreads - 1) / kThreads; ++i) {
-      const int p = threadIdx.x + i * kThreads;
-      if (kGPieces % kThreads != 0 && p >= kGPieces) break;
-      const int r = p / 4, q = p % 4;
-      cp_async16(slot + L::kRsChunkBytes + (r * kKStride + q * 8) * 2,
-                 g_bf + (row0 + (r < rows ? r : 0)) * L::kNrs + k0 + q * 8,
-                 r < rows);
+      const int n = p / 8, q = p % 8;
+      cp_async16(slot + sw128_piece(n, q),
+                 w_rs + (cb + n) * L::kNrs + k0 + q * 8);
     }
   }
+}
+
+// What a pass of the rows kernel reads besides its chunk index.
+struct SRowsPass {
+  char* base;             // A slots, weight ring, f32 slots, column sums
+  const bf16* w_in;
+  const bf16* w_rs;
+  const float* xb;        // the batch row's x
+  const float* gb;        // and g
+  bf16* x_bf;
+  bf16* g_bf;
+  int64_t row0;
+  int cb, rb, t0, rows, T, dilation;
+  uint32_t a_wg;          // the warpgroup's rows in an A slot
+  bool scratch;           // pass 0 writes the bf16 x and g
+};
+
+// The copies of chunk j of a pass (its weights and this thread's f32 share
+// of its A operand) as one commit group; empty past the last chunk.
+template <int kC, int kCP, bool kLast>
+__device__ __forceinline__ void srows_load(const SRowsPass& s, int j) {
+  using L = SRows<kC, kCP, kLast>;
+  const uint32_t smem = smem_u32(s.base);
+  if (j < L::kChunks) {
+    srows_load_b<kC, kCP, kLast>(
+        smem + L::kRingOff + (j % kStages) * L::kStageBytes, j, s.w_in,
+        s.w_rs, s.cb);
+    srows_load_a<kC, L::kNrs>(smem + L::kF32Off + (j % kAhead) * L::kF32Bytes,
+                              j, s.xb, s.gb, s.rb, s.t0, s.rows, s.T,
+                              s.dilation);
+  }
+  cp_async_commit();
+}
+
+// Round this thread's f32 share of chunk j into A slot j % 2.
+template <int kC, int kCP, bool kLast>
+__device__ __forceinline__ void srows_round(const SRowsPass& s, int j) {
+  using L = SRows<kC, kCP, kLast>;
+  srows_convert<kC, L::kNrs>(s.base + (j % 2) * kABytes,
+                             s.base + L::kF32Off + (j % kAhead) * L::kF32Bytes,
+                             j, s.rb, s.rows, s.scratch, s.x_bf, s.g_bf,
+                             s.row0);
+}
+
+// Step j of a pass, on the product kN wide (the gate's, B MN-major, or
+// dacts', B K-major). Chunk j's copies went out at step j - 2 (its weights
+// to ring slot j % 4, its f32 A share to f32 slot j % 2) and at step j - 1
+// this thread waited for them and rounded its A share into A slot j % 2.
+// Now: start chunk j + 2's copies, run chunk j's wgmmas, wait for chunk j +
+// 1's copies and, once this warpgroup's wgmmas of chunk j - 1 (the A slot's
+// last reader) are done, round chunk j + 1's share. Each warpgroup reads
+// and writes only its own 64 rows of an A slot, and each thread only its
+// own pieces of an f32 slot.
+template <int kC, int kCP, bool kLast, int kN, int kTransB>
+__device__ __forceinline__ void srows_step(const SRowsPass& s, int j,
+                                           float (&acc)[kN / 2]) {
+  using L = SRows<kC, kCP, kLast>;
+  const uint32_t smem = smem_u32(s.base);
+  fence_proxy_async();
+  __syncthreads();
+  srows_load<kC, kCP, kLast>(s, j + kAhead);
+  const uint32_t a0 = smem + (j % 2) * kABytes + s.a_wg;
+  const uint32_t b0 = smem + L::kRingOff + (j % kStages) * L::kStageBytes;
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kKC / 16; ++k)
+    wgmma_m64<kN, 0, kTransB>(acc, kmajor_desc(a0 + k * 32),
+                              kTransB ? mnmajor_desc(b0 + k * 2048, kBlockBytes)
+                                      : kmajor_desc(b0 + k * 32));
+  wgmma_commit();
+  cp_async_wait<kAhead - 1>();
+  wgmma_wait<1>();
+  fence_acc(acc);
+  if (j + 1 < L::kChunks) srows_round<kC, kCP, kLast>(s, j + 1);
 }
 
 template <int kC, int kCP, bool kLast>
@@ -260,446 +347,384 @@ wn_sbwd_rows_kernel(const float* __restrict__ x,
                     bf16* __restrict__ g_bf, float* __restrict__ part_bias,
                     int T, int dilation) {
   using L = SRows<kC, kCP, kLast>;
-  constexpr int C = kC;
   constexpr int CP = kCP;
   constexpr int N_RS = L::kNrs;
-  constexpr int kTile = L::kTileRows;
-  constexpr int kMi = L::kMi;
-  constexpr int kNB = L::kNB;
-  extern __shared__ __align__(16) uint4 smem_srows[];
+  constexpr int kP = L::kP;
+  constexpr int kNB = kP / 8;  // n8 blocks of the pass's channels
+  extern __shared__ __align__(1024) uint4 smem_srows[];
   char* base = reinterpret_cast<char*>(smem_srows);
-  bf16* taps = reinterpret_cast<bf16*>(base);
-  const uint32_t taps_s = smem_u32(taps);
-  const uint32_t ring_s = taps_s + L::kTapBytes;
-  float* red = reinterpret_cast<float*>(base + L::kTapBytes +
-                                        L::kStages * L::kStageBytes);
+  float* red = reinterpret_cast<float*>(base + L::kRedOff);
 
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const int rows = min(kTile, T - t0);
+  const int tile = blockIdx.x / L::kPasses;
+  const int tiles_t = gridDim.x / L::kPasses;
+  const int cb = (blockIdx.x % L::kPasses) * kP;  // the pass's channels
+  const int t0 = tile * kTileRows;
+  const int rows = min(kTileRows, T - t0);
   const int64_t row0 = static_cast<int64_t>(b) * T + t0;
-  const int tile_id = b * gridDim.x + blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q4 = lane % 4;
-  const int wr = warp % L::kRowWarps;
-  const int rw0 = wr * 16 * kMi;                      // the warp's rows
-  const int cw = (warp / L::kRowWarps) * L::kWarpCh;  // its channels of a
-                                                      // pass block
+  const int wg = warp / 4;
+  const int r16 = warp * 16;     // the warp's rows of the accumulators
+  const int g = lane / 4, tig = lane % 4;
+  const SRowsPass st{base, w_in, w_rs,
+                     x + static_cast<int64_t>(b) * T * kC,
+                     gin + static_cast<int64_t>(b) * T * N_RS,
+                     x_bf, g_bf, row0, cb, wg * 64, t0, rows, T, dilation,
+                     static_cast<uint32_t>(wg * kBlockBytes), cb == 0};
 
-  // the first chunks (w_in_s only) load while the tile is staged
-  for (int c = 0; c < L::kAhead; ++c) {
-    srows_load<kC, kCP, kLast>(ring_s + c * L::kStageBytes, c, w_in, w_rs,
-                               g_bf, row0, rows);
-    cp_async_commit();
-  }
+  for (int c = 0; c < kAhead; ++c) srows_load<kC, kCP, kLast>(st, c);
+  cp_async_wait<kAhead - 1>();
+  srows_round<kC, kCP, kLast>(st, 0);
 
-  // ---- taps: window w, row r <- bf16(x[t0 + r + (w-1)*d]), zero outside
-  // [0, T); window 1 (rows < T) also goes out as the bf16 x scratch
-  {
-    constexpr int kQ = C / 4;  // float4 per row
-    constexpr int kTotal = 3 * kTile * kQ;
-    constexpr int kUnroll = kTotal % (16 * kThreads) == 0 ? 16 : 8;
-    static_assert(kTotal % (kUnroll * kThreads) == 0, "whole rounds");
-    const float* xb = x + static_cast<int64_t>(b) * T * C;
+  // acc_g: element 4j + 2h + e is row r16 + g + 8h, gate column 8j + 2 tig
+  // + e: the tanh pre-activation of channel cb + 8j + 2 tig + e for j < kNB,
+  // the sigmoid one of channel cb + 8(j - kNB) + 2 tig + e for j < 2 kNB;
+  // acc_d: element 4j + 2h + e is dacts of the same row and that channel
+  float acc_g[L::kNg / 2], acc_d[kP / 2];
+#pragma unroll
+  for (int i = 0; i < L::kNg / 2; ++i) acc_g[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kP / 2; ++i) acc_d[i] = 0.f;
+
+  // ---- gates = taps @ w_in_s[:, pass columns] ----------------------------
 #pragma unroll 1
-    for (int p0 = threadIdx.x; p0 < kTotal; p0 += kUnroll * kThreads) {
-      float4 v[kUnroll];
+  for (int j = 0; j < L::kTapChunks; ++j)
+    srows_step<kC, kCP, kLast, L::kNg, 1>(st, j, acc_g);
+  wgmma_wait<0>();
+  fence_acc(acc_g);
+
+  // cond_s of the pass's channels, read under the dacts product
+  uint32_t cond_t[kNB][2], cond_g[kNB][2];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int p = p0 + u * kThreads;
-        const int i = p / kQ;
-        const int t = t0 + i % kTile + (i / kTile - 1) * dilation;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t >= 0 && t < T)
-          v[u] = *reinterpret_cast<const float4*>(
-              xb + static_cast<int64_t>(t) * C + (p % kQ) * 4);
-      }
+  for (int j = 0; j < kNB; ++j)
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int p = p0 + u * kThreads;
-        const int i = p / kQ, c4 = (p % kQ) * 4;
-        const uint2 pk = make_uint2(pack_bf16(v[u].x, v[u].y),
-                                    pack_bf16(v[u].z, v[u].w));
-        *reinterpret_cast<uint2*>(taps + i * L::kWinStride + c4) = pk;
-        const int r = i - kTile;
-        if (r >= 0 && r < rows)
-          *reinterpret_cast<uint2*>(x_bf + (row0 + r) * C + c4) = pk;
+    for (int h = 0; h < 2; ++h) {
+      const int row = r16 + g + 8 * h;
+      const bf16* cr = cond + (row0 + row) * 2 * CP + cb + 8 * j + 2 * tig;
+      cond_t[j][h] = cond_g[j][h] = 0u;  // bf16 zeros
+      if (row < rows) {
+        cond_t[j][h] = *reinterpret_cast<const uint32_t*>(cr);
+        cond_g[j][h] = *reinterpret_cast<const uint32_t*>(cr + CP);
       }
     }
-  }
 
-  // ---- bf16(g) into the scratch (read back through the ring as dacts' A
-  // operand), rows < T
-  {
-    constexpr int kQuads = N_RS / 4;
-    const int live = rows * kQuads;
-#pragma unroll 4
-    for (int p = threadIdx.x; p < live; p += kThreads) {
-      const int r = p / kQuads, c = (p % kQuads) * 4;
-      const float4 v =
-          *reinterpret_cast<const float4*>(gin + (row0 + r) * N_RS + c);
-      *reinterpret_cast<uint2*>(g_bf + (row0 + r) * N_RS + c) =
-          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
-    // other threads read the scratch back with cp.async.cg, which bypasses
-    // L1: make the stores visible in L2 before the ring's first barrier
-    __threadfence();
-  }
-
-  // ---- passes over blocks of kBlk channels: acc_t / acc_s the tanh and
-  // sigmoid pre-activations, acc_d dacts, of the same (row, channel) in the
-  // same thread: m16 block mi, n8 block nb, element e is row rw0 + 16mi + g
-  // + 8(e/2), channel cb + cw + 8nb + 2q4 + e%2
-  float acc_t[kMi][kNB][4], acc_s[kMi][kNB][4], acc_d[kMi][kNB][4];
-#pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc_t[mi][nb][e] = acc_s[mi][nb][e] = acc_d[mi][nb][e] = 0.f;
-
-  // cond_s of the pass's epilogue, fetched during its dacts chunks
-  uint32_t cond_t[kMi][kNB][2], cond_g[kMi][kNB][2];
-
+  // ---- dacts = bf16(g) @ w_rs_s[pass rows]^T ------------------------------
 #pragma unroll 1
-  for (int c = 0; c < L::kChunks; ++c) {
-    // chunk c landed for every thread; chunk c-1's slot is free (and, past
-    // the first barrier, the g scratch is written for every thread)
-    cp_async_wait<L::kAhead - 1>();
-    __syncthreads();
-    if (c + L::kAhead < L::kChunks)
-      srows_load<kC, kCP, kLast>(
-          ring_s + ((c + L::kAhead) % L::kStages) * L::kStageBytes,
-          c + L::kAhead, w_in, w_rs, g_bf, row0, rows);
-    cp_async_commit();
-    const uint32_t slot = ring_s + (c % L::kStages) * L::kStageBytes;
-    const int j = c % L::kPerPass;
-    if (j == L::kInChunks) {
-      const int cb = (c / L::kPerPass) * L::kBlk;
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-        for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = rw0 + 16 * mi + g + 8 * h;
-            const bf16* cr = cond + (row0 + row) * 2 * CP + cb + cw + 8 * nb +
-                             2 * q4;
-            cond_t[mi][nb][h] = cond_g[mi][nb][h] = 0u;  // bf16 zeros
-            if (row < rows) {
-              cond_t[mi][nb][h] = *reinterpret_cast<const uint32_t*>(cr);
-              cond_g[mi][nb][h] = *reinterpret_cast<const uint32_t*>(cr + CP);
-            }
-          }
-    }
-    if (j < L::kInChunks) {
-      const int tap = j / (C / kK);
-      const int kin = (j % (C / kK)) * kK;
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 16) {
-        uint32_t a[kMi][4];
-#pragma unroll
-        for (int mi = 0; mi < kMi; ++mi)
-          ldsm_x4(a[mi], taps_s + ((tap * kTile + rw0 + 16 * mi + lane % 16) *
-                                       L::kWinStride + kin + kk +
-                                   (lane / 16) * 8) * 2);
-        const uint32_t brow =
-            slot + ((kk + lane % 8 + ((lane / 8) % 2) * 8) * L::kInStride +
-                    cw + (lane / 16) * 8) * 2;
-#pragma unroll
-        for (int pb = 0; pb < kNB / 2; ++pb) {
-          uint32_t bt[4], bs[4];
-          ldsm_x4_t(bt, brow + pb * 16 * 2);
-          ldsm_x4_t(bs, brow + (L::kBlk + pb * 16) * 2);
-#pragma unroll
-          for (int mi = 0; mi < kMi; ++mi) {
-            mma16816(acc_t[mi][2 * pb], a[mi], bt[0], bt[1]);
-            mma16816(acc_t[mi][2 * pb + 1], a[mi], bt[2], bt[3]);
-            mma16816(acc_s[mi][2 * pb], a[mi], bs[0], bs[1]);
-            mma16816(acc_s[mi][2 * pb + 1], a[mi], bs[2], bs[3]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 16) {
-        uint32_t a[kMi][4];
-#pragma unroll
-        for (int mi = 0; mi < kMi; ++mi)
-          ldsm_x4(a[mi], slot + L::kRsChunkBytes +
-                             ((rw0 + 16 * mi + lane % 16) * kKStride + kk +
-                              (lane / 16) * 8) * 2);
-#pragma unroll
-        for (int pb = 0; pb < kNB / 2; ++pb) {
-          uint32_t bd[4];
-          ldsm_x4(bd, slot + ((cw + pb * 16 + lane % 8 + (lane / 16) * 8) *
-                                  kKStride + kk + ((lane / 8) % 2) * 8) * 2);
-#pragma unroll
-          for (int mi = 0; mi < kMi; ++mi) {
-            mma16816(acc_d[mi][2 * pb], a[mi], bd[0], bd[1]);
-            mma16816(acc_d[mi][2 * pb + 1], a[mi], bd[2], bd[3]);
-          }
-        }
-      }
-    }
-    if (j != L::kPerPass - 1) continue;
-
-    // ---- gate and its adjoint on the accumulators (f32) -------------------
-    // Rows >= T have zero taps, cond and g: finite gates, zero dgates.
-    const int cb = (c / L::kPerPass) * L::kBlk;
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      const int ch = cb + cw + 8 * nb + 2 * q4;
-      const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
-      const float2 bs = *reinterpret_cast<const float2*>(b_in + CP + ch);
-      float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = rw0 + 16 * mi + g + 8 * h;
-          const int64_t grow = row0 + row;
-          const float2 ct = unpack_bf16(cond_t[mi][nb][h]);
-          const float2 cs = unpack_bf16(cond_g[mi][nb][h]);
-          float da[2], db[2], act[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float gt = acc_t[mi][nb][2 * h + e] + (e ? bt.y : bt.x) +
-                             (e ? ct.y : ct.x);
-            const float gs = acc_s[mi][nb][2 * h + e] + (e ? bs.y : bs.x) +
-                             (e ? cs.y : cs.x);
-            const float tv = tanhf(gt);
-            const float sv = 1.f / (1.f + expf(-gs));
-            const float dv = acc_d[mi][nb][2 * h + e];
-            act[e] = tv * sv;
-            da[e] = dv * sv * (1.f - tv * tv);
-            db[e] = dv * tv * sv * (1.f - sv);
-          }
-          sa0 += da[0]; sa1 += da[1]; sb0 += db[0]; sb1 += db[1];
-          if (row < rows) {
-            *reinterpret_cast<uint32_t*>(acts_out + grow * CP + ch) =
-                pack_bf16(act[0], act[1]);
-            *reinterpret_cast<uint32_t*>(dcond + grow * 2 * CP + ch) =
-                pack_bf16(da[0], da[1]);
-            *reinterpret_cast<uint32_t*>(dcond + grow * 2 * CP + CP + ch) =
-                pack_bf16(db[0], db[1]);
-          }
-        }
-      // column sums over the warp's rows (fixed butterfly order)
-#pragma unroll
-      for (int m = 4; m < 32; m *= 2) {
-        sa0 += __shfl_xor_sync(0xffffffffu, sa0, m);
-        sa1 += __shfl_xor_sync(0xffffffffu, sa1, m);
-        sb0 += __shfl_xor_sync(0xffffffffu, sb0, m);
-        sb1 += __shfl_xor_sync(0xffffffffu, sb1, m);
-      }
-      if (g == 0) {
-        float* rw = red + wr * 2 * CP;
-        rw[ch] = sa0;
-        rw[ch + 1] = sa1;
-        rw[CP + ch] = sb0;
-        rw[CP + ch + 1] = sb1;
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc_t[mi][nb][e] = acc_s[mi][nb][e] = acc_d[mi][nb][e] = 0.f;
-  }
+  for (int j = L::kTapChunks; j < L::kChunks; ++j)
+    srows_step<kC, kCP, kLast, kP, 0>(st, j, acc_d);
+  wgmma_wait<0>();
+  fence_acc(acc_d);
   cp_async_wait<0>();
 
-  // ---- the tile's dgates column sums over the row warps, in order
+  // ---- gate and its adjoint on the accumulators (f32) -------------------
+  // Rows >= T have zero g and cond: finite gates, zero dgates.
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    const int ch = cb + 8 * j + 2 * tig;
+    const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+    const float2 bs = *reinterpret_cast<const float2*>(b_in + CP + ch);
+    float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r16 + g + 8 * h;
+      const int64_t grow = row0 + row;
+      const float2 ct = unpack_bf16(cond_t[j][h]);
+      const float2 cs = unpack_bf16(cond_g[j][h]);
+      float da[2], db[2], act[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float gt = acc_g[4 * j + 2 * h + e] + (e ? bt.y : bt.x) +
+                         (e ? ct.y : ct.x);
+        const float gs = acc_g[4 * (j + kNB) + 2 * h + e] +
+                         (e ? bs.y : bs.x) + (e ? cs.y : cs.x);
+        const float tv = tanhf(gt);
+        const float sv = 1.f / (1.f + expf(-gs));
+        const float dv = acc_d[4 * j + 2 * h + e];
+        act[e] = tv * sv;
+        da[e] = dv * sv * (1.f - tv * tv);
+        db[e] = dv * tv * sv * (1.f - sv);
+      }
+      sa0 += da[0]; sa1 += da[1]; sb0 += db[0]; sb1 += db[1];
+      if (row < rows) {
+        *reinterpret_cast<uint32_t*>(acts_out + grow * CP + ch) =
+            pack_bf16(act[0], act[1]);
+        *reinterpret_cast<uint32_t*>(dcond + grow * 2 * CP + ch) =
+            pack_bf16(da[0], da[1]);
+        *reinterpret_cast<uint32_t*>(dcond + grow * 2 * CP + CP + ch) =
+            pack_bf16(db[0], db[1]);
+      }
+    }
+    // column sums over the warp's 16 rows (fixed butterfly order)
+#pragma unroll
+    for (int m = 4; m < 32; m *= 2) {
+      sa0 += __shfl_xor_sync(0xffffffffu, sa0, m);
+      sa1 += __shfl_xor_sync(0xffffffffu, sa1, m);
+      sb0 += __shfl_xor_sync(0xffffffffu, sb0, m);
+      sb1 += __shfl_xor_sync(0xffffffffu, sb1, m);
+    }
+    if (g == 0) {
+      float* rw = red + warp * 2 * kP + 8 * j + 2 * tig;
+      rw[0] = sa0;
+      rw[1] = sa1;
+      rw[kP] = sb0;
+      rw[kP + 1] = sb1;
+    }
+  }
+
+  // ---- the tile's dgates column sums over the 8 row warps, in order
   __syncthreads();
-  float* out = part_bias + static_cast<int64_t>(tile_id) * 2 * CP;
-  for (int col = threadIdx.x; col < 2 * CP; col += kThreads) {
+  float* out = part_bias + static_cast<int64_t>(b * tiles_t + tile) * 2 * CP;
+  for (int col = threadIdx.x; col < 2 * kP; col += kThreads) {
     float sum = red[col];
 #pragma unroll
-    for (int w = 1; w < L::kRowWarps; ++w) sum += red[w * 2 * CP + col];
-    out[col] = sum;
+    for (int w = 1; w < 8; ++w) sum += red[w * 2 * kP + col];
+    out[col < kP ? cb + col : CP + cb + col - kP] = sum;
   }
 }
 
 // ---- kernel 2: dx, the taps' adjoint over the rank's channels -------------
 
-// Block tile: 128 rows x 128 output channels; warp tile 64 x 32. K runs
-// tap-major over 3 x 2C' in chunks of 32.
-constexpr int kRT = 128;
-constexpr int kRingStages = 4;                    // dx and weights rings
-constexpr int kRingAhead = kRingStages - 1;
-constexpr int kDxChunkBytes = kRT * kKStride * 2;  // 10,240: [128][32]
-constexpr int kDxStage = 2 * kDxChunkBytes;       // A then B
-constexpr int kDxSmem = kRingStages * kDxStage;   // 81,920
+template <int kC, int kCP>
+struct SDx {
+  static constexpr int kN = kC < 256 ? kC : 256;  // output channels a block
+  static constexpr int kK = 3 * 2 * kCP;          // (tap, gate column)
+  static constexpr int kChunks = (kK + kKC - 1) / kKC;
+  static constexpr int kStageBytes = kABytes + kN * 128;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kSmem <= 232448, "over 227 KB");
+};
 
-template <int kCP>
-constexpr int kDxChunks = 3 * 2 * kCP / kK;
-
-// Chunk c: tap c / (2C'/32), gate columns m0. A: dgates rows t0 + r -
-// (tap-1)*d (zero outside [0, T)); B: w_in_s[tap*C + n0 + n][m0..+32) as
-// [n][k].
+// Start the copies of K chunk c into a ring slot, both K-major: A, the
+// tile's 128 rows of dgates at K = (tap, column m), row t - (tap-1)*d of
+// the same batch row (zero outside [0, T)); B, w_in_s[tap * C + n0 + n][m]
+// for the block's kN output channels n. Zero past K. This thread's A rows
+// are tid/8 + 32i: `rbase` their batch row's first flat row, `tt` their
+// time (far negative past the last row).
 template <int kC, int kCP>
 __device__ __forceinline__ void sdx_load(uint32_t slot, int c,
                                          const bf16* dgates, const bf16* w_in,
-                                         int64_t brow0, int t0, int n0, int T,
+                                         const int64_t (&rbase)[4],
+                                         const int (&tt)[4], int n0, int T,
                                          int dilation) {
-  const int tap = c / (2 * kCP / kK);
-  const int m0 = (c % (2 * kCP / kK)) * kK;
+  using L = SDx<kC, kCP>;
+  const int q = threadIdx.x % 8;
+  const int k = c * kKC + q * 8;
+  const bool kin = k < L::kK;
+  const int tap = k / (2 * kCP), m = k % (2 * kCP);
 #pragma unroll
-  for (int i = 0; i < kRT * 4 / kThreads; ++i) {  // 4 pieces a row
-    const int p = threadIdx.x + i * kThreads;
-    const int r = p / 4, q = p % 4;
-    const int s = t0 + r - (tap - 1) * dilation;
-    const bool ok = s >= 0 && s < T;
-    cp_async16(slot + (r * kKStride + q * 8) * 2,
-               dgates + (brow0 + (ok ? s : 0)) * 2 * kCP + m0 + q * 8, ok);
-    cp_async16(slot + kDxChunkBytes + (r * kKStride + q * 8) * 2,
-               w_in + (tap * kC + n0 + r) * 2 * kCP + m0 + q * 8, true);
+  for (int i = 0; i < 4; ++i) {
+    const int r = threadIdx.x / 8 + 32 * i;
+    const int s = tt[i] - (tap - 1) * dilation;
+    const bool ok = kin && s >= 0 && s < T;
+    cp_async16_zfill(slot + sw128_piece(r, q),
+                     dgates + (ok ? (rbase[i] + s) * 2 * kCP + m : 0), ok);
+  }
+#pragma unroll
+  for (int i = 0; i < L::kN * 8 / kThreads; ++i) {
+    const int n = threadIdx.x / 8 + 32 * i;
+    cp_async16_zfill(slot + kABytes + sw128_piece(n, q),
+                     w_in + (kin ? (tap * kC + n0 + n) * 2 * kCP + m : 0),
+                     kin);
   }
 }
 
 template <int kC, int kCP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 wn_sbwd_dx_kernel(const bf16* __restrict__ dgates,
                   const bf16* __restrict__ w_in, float* __restrict__ dx,
-                  int T, int dilation) {
-  static_assert(kDxChunks<kCP> >= kRingAhead, "the prologue's chunks");
-  extern __shared__ __align__(16) uint4 smem_sdx[];
+                  int total_rows, int T, int dilation) {
+  using L = SDx<kC, kCP>;
+  extern __shared__ __align__(1024) uint4 smem_sdx[];
   const uint32_t ring_s = smem_u32(smem_sdx);
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * kRT;
-  const int n0 = blockIdx.y * kRT;
-  const int rows = min(kRT, T - t0);
-  const int64_t brow0 = static_cast<int64_t>(b) * T;
-  const int64_t row0 = brow0 + t0;
+  const int rt0 = blockIdx.x * kTileRows;   // the tile's first flat row
+  const int n0 = blockIdx.y * L::kN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q4 = lane % 4;
-  const int m0 = (warp % 2) * 64;
-  const int nw = n0 + (warp / 2) * 32;
+  const int wg = warp / 4;
+  const int r16 = warp * 16;
+  const int g = lane / 4, tig = lane % 4;
 
-  for (int c = 0; c < kRingAhead; ++c) {
-    sdx_load<kC, kCP>(ring_s + c * kDxStage, c, dgates, w_in, brow0, t0, n0,
-                      T, dilation);
+  int64_t rbase[4];
+  int tt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int fr = rt0 + threadIdx.x / 8 + 32 * i;
+    const int bi = fr / T;
+    rbase[i] = static_cast<int64_t>(bi) * T;
+    tt[i] = fr < total_rows ? fr - bi * T : -(1 << 30);
+  }
+
+  for (int c = 0; c < kAhead; ++c) {
+    if (c < L::kChunks)
+      sdx_load<kC, kCP>(ring_s + c * L::kStageBytes, c, dgates, w_in, rbase,
+                        tt, n0, T, dilation);
     cp_async_commit();
   }
 
-  float acc[4][4][4];
+  float acc[L::kN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+  for (int i = 0; i < L::kN / 2; ++i) acc[i] = 0.f;
 
 #pragma unroll 1
-  for (int c = 0; c < kDxChunks<kCP>; ++c) {
-    cp_async_wait<kRingAhead - 1>();
-    __syncthreads();
-    if (c + kRingAhead < kDxChunks<kCP>)
-      sdx_load<kC, kCP>(ring_s + ((c + kRingAhead) % kRingStages) * kDxStage,
-                        c + kRingAhead, dgates, w_in, brow0, t0, n0, T,
-                        dilation);
+  for (int c = 0; c < L::kChunks; ++c) {
+    ring_wait();
+    if (c + kAhead < L::kChunks)
+      sdx_load<kC, kCP>(ring_s + ((c + kAhead) % kStages) * L::kStageBytes,
+                        c + kAhead, dgates, w_in, rbase, tt, n0, T, dilation);
     cp_async_commit();
-    const uint32_t slot = ring_s + (c % kRingStages) * kDxStage;
+    const uint32_t slot = ring_s + (c % kStages) * L::kStageBytes;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], slot + ((m0 + 16 * mi + lane % 16) * kKStride + kk +
-                               (lane / 16) * 8) * 2);
-#pragma unroll
-      for (int pb = 0; pb < 2; ++pb) {
-        uint32_t bw[4];
-        const int n = (warp / 2) * 32 + pb * 16 + lane % 8 + (lane / 16) * 8;
-        ldsm_x4(bw, slot + kDxChunkBytes +
-                        (n * kKStride + kk + ((lane / 8) % 2) * 8) * 2);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma16816(acc[mi][2 * pb], a[mi], bw[0], bw[1]);
-          mma16816(acc[mi][2 * pb + 1], a[mi], bw[2], bw[3]);
-        }
-      }
-    }
+    for (int k = 0; k < kKC / 16; ++k)
+      wgmma_m64<L::kN, 0, 0>(acc, kmajor_desc(slot + wg * kBlockBytes + k * 32),
+                             kmajor_desc(slot + kABytes + k * 32));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int mh = 0; mh < 8; ++mh) {
-    const int mi = mh / 2, h = mh % 2;
-    const int row = m0 + 16 * mi + g + 8 * h;
-    if (row >= rows) continue;
+  for (int h = 0; h < 2; ++h) {
+    const int fr = rt0 + r16 + g + 8 * h;
+    if (fr >= total_rows) continue;
+    float* out = dx + static_cast<int64_t>(fr) * kC + n0 + 2 * tig;
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int64_t off = (row0 + row) * kC + nw + 8 * nj + 2 * q4;
-      *reinterpret_cast<float2*>(dx + off) =
-          make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-    }
+    for (int j = 0; j < L::kN / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
 // ---- kernel 3: weight gradients, row-split partials -----------------------
 
-constexpr int kWChunk = kK * kWStride * 2;       // 8,704: [32 rows][128]
-constexpr int kWStage = 2 * kWChunk;
-constexpr int kWSmem = kRingStages * kWStage;    // 69,632
-
-struct SWOperands {
-  const bf16* a;  // [rows][a_ld], the tile's output rows along its columns
-  const bf16* b;  // [rows][b_ld], the tile's output columns
-  int a_ld, b_ld, a_shift;
-  int m_ext, n_ext;  // the tile's live output rows and columns (<= 128)
+template <int kC, int kCP>
+struct SW {
+  static constexpr int kInN = 2 * kCP < 64 ? 64 : (2 * kCP > 256 ? 256 : 2 * kCP);
+  static constexpr int kRsN = kCP < 64 ? 64 : (kCP > 256 ? 256 : kCP);
+  static constexpr int kInNt = (2 * kCP + kInN - 1) / kInN;  // N tiles of dw_in
+  static constexpr int kInTiles = 3 * kC / 128 * kInNt;
+  // A [64 K][128 M] and B [64 K][N], both MN-major; dw_rs^T's N <= dw_in's
+  static constexpr int kStageBytes = kABytes + kInN * 128;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kRsN <= kInN && kSmem <= 232448, "slots");
 };
 
-// Rows [t, t+32) of the split (t from tb + 32c) into A and B chunks, each
-// [32 rows][128], with row t of A read from row t + a_shift; zero outside
-// [0, T), past the split's end te, and past the tile's extents.
-__device__ __forceinline__ void sw_load(uint32_t slot, int c,
-                                        const SWOperands& o, int64_t brow0,
-                                        int tb, int te, int T) {
+// One output tile: out[m][n] (m < m_ext of 128, n < n_ext of kN) = sum over
+// the split's rows t of A[t][m] B[t][n], A's row t read from row t + a_shift
+// (zero outside [0, T)).
+struct SWJob {
+  const bf16* a;  // [rows][lda], from the tile's first M value
+  const bf16* b;  // [rows][ldb], from its first N value
+  int lda, ldb, a_shift, m_ext, n_ext;
+  float* out;     // element (m, n) at out[m * ld_m + n * ld_n]
+  int ld_m, ld_n;
+};
+
+// Start the copies of the split's rows [tb + 64c, +64) into a ring slot:
+// A's 128 M values and B's kN N values of each row, zero past te and the
+// extents.
+template <int kN>
+__device__ __forceinline__ void sw_load(uint32_t slot, int c, const SWJob& o,
+                                        int64_t brow0, int tb, int te, int T) {
 #pragma unroll
-  for (int i = 0; i < kK * 16 / kThreads; ++i) {  // 16 pieces a row
+  for (int i = 0; i < kKC * 16 / kThreads; ++i) {
     const int p = threadIdx.x + i * kThreads;
-    const int r = p / 16, q = p % 16;
-    const int t = tb + c * kK + r;
+    const int kr = p / 16, m = (p % 16) * 8;
+    const int t = tb + c * kKC + kr;
     const int s = t + o.a_shift;
-    const bool ok_b = t < te && q * 8 < o.n_ext;
-    const bool ok_a = t < te && s >= 0 && s < T && q * 8 < o.m_ext;
-    cp_async16(slot + (r * kWStride + q * 8) * 2,
-               o.a + (brow0 + (ok_a ? s : 0)) * o.a_ld + (ok_a ? q * 8 : 0),
-               ok_a);
-    cp_async16(slot + kWChunk + (r * kWStride + q * 8) * 2,
-               o.b + (brow0 + (ok_b ? t : 0)) * o.b_ld + (ok_b ? q * 8 : 0),
-               ok_b);
+    const bool ok = t < te && s >= 0 && s < T && m < o.m_ext;
+    cp_async16_zfill(slot + (m / 64) * kBlockBytes + sw128_piece(kr, m % 64 / 8),
+                     o.a + (ok ? (brow0 + s) * o.lda + m : 0), ok);
+  }
+  constexpr int kPer = kN / 8;
+#pragma unroll
+  for (int i = 0; i < kKC * kPer / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    const int kr = p / kPer, n = (p % kPer) * 8;
+    const int t = tb + c * kKC + kr;
+    const bool ok = t < te && n < o.n_ext;
+    cp_async16_zfill(
+        slot + kABytes + (n / 64) * kBlockBytes + sw128_piece(kr, n % 64 / 8),
+        o.b + (ok ? (brow0 + t) * o.ldb + n : 0), ok);
   }
 }
 
-// Output tiles of dw_in_s [3C][2C'] and dw_rs_s [C'][n_rs].
-template <int kC, int kCP>
-constexpr int kSInNt = (2 * kCP + kWTile - 1) / kWTile;
-template <int kC, int kCP>
-constexpr int kSInTiles = (3 * kC / kWTile) * kSInNt<kC, kCP>;
-template <int kC, int kCP>
-constexpr int kSRsMt = (kCP + kWTile - 1) / kWTile;
+template <int kN>
+__device__ __forceinline__ void sw_tile(const SWJob& o, uint32_t ring_s,
+                                        int64_t brow0, int tb, int te, int T) {
+  constexpr int kStage = kABytes + kN * 128;
+  const int chunks = te > tb ? (te - tb + kKC - 1) / kKC : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int g = lane / 4, tig = lane % 4;
+  for (int c = 0; c < kAhead; ++c) {
+    if (c < chunks) sw_load<kN>(ring_s + c * kStage, c, o, brow0, tb, te, T);
+    cp_async_commit();
+  }
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    ring_wait();
+    if (c + kAhead < chunks)
+      sw_load<kN>(ring_s + ((c + kAhead) % kStages) * kStage, c + kAhead, o,
+                  brow0, tb, te, T);
+    cp_async_commit();
+    const uint32_t slot = ring_s + (c % kStages) * kStage;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKC / 16; ++k)
+      wgmma_m64<kN, 1, 1>(
+          acc, mnmajor_desc(slot + wg * kBlockBytes + k * 2048, kBlockBytes),
+          mnmajor_desc(slot + kABytes + k * 2048, kBlockBytes));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
 
-// blockIdx.x: output tile (dw_in_s's, then dw_rs_s's); blockIdx.y: split s
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = warp * 16 + g + 8 * h;
+    if (m >= o.m_ext) continue;
+    float* out = o.out + static_cast<int64_t>(m) * o.ld_m;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int n = 8 * j + 2 * tig;
+      if (n >= o.n_ext) break;
+      if (o.ld_n == 1) {
+        *reinterpret_cast<float2*>(out + n) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        out[static_cast<int64_t>(n) * o.ld_n] = acc[4 * j + 2 * h];
+        out[static_cast<int64_t>(n + 1) * o.ld_n] = acc[4 * j + 2 * h + 1];
+      }
+    }
+  }
+}
+
+// blockIdx.x: output tile (dw_in_s's, then dw_rs_s^T's); blockIdx.y: split s
 // = b * n_splits_t + ts over rows t of batch row b in [ts * split_rows, (ts
 // + 1) * split_rows). Writes its f32 partial to ws[s][...] (dw_in_s then
-// dw_rs_s).
+// dw_rs_s, each in its own layout).
 template <int kC, int kCP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 wn_sbwd_weights_kernel(const bf16* __restrict__ x_bf,
                        const bf16* __restrict__ dgates,
                        const bf16* __restrict__ acts,
                        const bf16* __restrict__ g_bf, float* __restrict__ ws,
                        int T, int dilation, int n_rs, int n_splits_t,
                        int split_rows) {
-  constexpr int C = kC;
-  constexpr int CP = kCP;
-  constexpr int kDwIn = 3 * C * 2 * CP;
-  extern __shared__ __align__(16) uint4 smem_sw[];
+  using L = SW<kC, kCP>;
+  constexpr int kDwIn = 3 * kC * 2 * kCP;
+  extern __shared__ __align__(1024) uint4 smem_sw[];
   const uint32_t ring_s = smem_u32(smem_sw);
   const int tile = blockIdx.x;
   const int split = blockIdx.y;
@@ -707,94 +732,22 @@ wn_sbwd_weights_kernel(const bf16* __restrict__ x_bf,
   const int tb = (split % n_splits_t) * split_rows;
   const int te = min(T, tb + split_rows);
   const int64_t brow0 = static_cast<int64_t>(b) * T;
-  const int64_t ws_stride = kDwIn + static_cast<int64_t>(CP) * n_rs;
-  SWOperands o;
-  float* out;
-  int out_ld;
-  if (tile < kSInTiles<C, CP>) {
-    constexpr int kNt = kSInNt<C, CP>, kCt = C / kWTile;
-    const int mt = tile / kNt, nt = tile % kNt;
-    const int tap = mt / kCt, ci0 = (mt % kCt) * kWTile;
-    o = {x_bf + ci0, dgates + nt * kWTile, C, 2 * CP, (tap - 1) * dilation,
-         kWTile, min(kWTile, 2 * CP - nt * kWTile)};
-    out = ws + split * ws_stride + (tap * C + ci0) * 2 * CP + nt * kWTile;
-    out_ld = 2 * CP;
+  float* wsp = ws + split * (kDwIn + static_cast<int64_t>(kCP) * n_rs);
+  if (tile < L::kInTiles) {
+    // dw_in_s rows (tap, ci0 + m), columns nt * kInN + n
+    const int mt = tile / L::kInNt, nt = tile % L::kInNt;
+    const int tap = mt * 128 / kC, ci0 = mt * 128 % kC;
+    const SWJob o{x_bf + ci0, dgates + nt * L::kInN, kC, 2 * kCP,
+                  (tap - 1) * dilation, 128,
+                  min(L::kInN, 2 * kCP - nt * L::kInN),
+                  wsp + (tap * kC + ci0) * 2 * kCP + nt * L::kInN, 2 * kCP, 1};
+    sw_tile<L::kInN>(o, ring_s, brow0, tb, te, T);
   } else {
-    const int n_nt = n_rs / kWTile;
-    const int mt = (tile - kSInTiles<C, CP>) / n_nt;
-    const int nt = (tile - kSInTiles<C, CP>) % n_nt;
-    o = {acts + mt * kWTile, g_bf + nt * kWTile, CP, n_rs, 0,
-         min(kWTile, CP - mt * kWTile), kWTile};
-    out = ws + split * ws_stride + kDwIn + mt * kWTile * n_rs + nt * kWTile;
-    out_ld = n_rs;
-  }
-  const int chunks = te > tb ? (te - tb + kK - 1) / kK : 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q4 = lane % 4;
-  const int m0 = (warp % 2) * 64;  // the warp's 64 output rows
-  const int n0 = (warp / 2) * 32;  // and 32 output columns
-  // warps wholly past the tile's extents only help load; the extents are
-  // multiples of 16 (rows) and 32 (columns)
-  const bool live = m0 < o.m_ext && n0 < o.n_ext;
-
-  for (int c = 0; c < kRingAhead; ++c) {
-    if (c < chunks) sw_load(ring_s + c * kWStage, c, o, brow0, tb, te, T);
-    cp_async_commit();
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-#pragma unroll 1
-  for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<kRingAhead - 1>();
-    __syncthreads();
-    if (c + kRingAhead < chunks)
-      sw_load(ring_s + ((c + kRingAhead) % kRingStages) * kWStage,
-              c + kRingAhead, o, brow0, tb, te, T);
-    cp_async_commit();
-    if (!live) continue;
-    const uint32_t slot = ring_s + (c % kRingStages) * kWStage;
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4_t(a[mi], slot + ((kk + lane % 8 + (lane / 16) * 8) * kWStride +
-                                 m0 + mi * 16 + ((lane / 8) % 2) * 8) * 2);
-#pragma unroll
-      for (int pb = 0; pb < 2; ++pb) {
-        uint32_t bq[4];
-        ldsm_x4_t(bq, slot + kWChunk +
-                          ((kk + lane % 8 + ((lane / 8) % 2) * 8) * kWStride +
-                           n0 + pb * 16 + (lane / 16) * 8) * 2);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          if (m0 + mi * 16 >= o.m_ext) break;
-          mma16816(acc[mi][2 * pb], a[mi], bq[0], bq[1]);
-          mma16816(acc[mi][2 * pb + 1], a[mi], bq[2], bq[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    if (m0 + mi * 16 >= o.m_ext) break;
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(
-            out + (m0 + mi * 16 + g + 8 * h) * out_ld + n0 + nj * 8 + 2 * q4) =
-            make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+    // dw_rs_s^T rows mt * 128 + m (of n_rs), columns n (of C')
+    const int mt = tile - L::kInTiles;
+    const SWJob o{g_bf + mt * 128, acts, n_rs, kCP, 0, 128, kCP,
+                  wsp + kDwIn + mt * 128, 1, n_rs};
+    sw_tile<L::kRsN>(o, ring_s, brow0, tb, te, T);
   }
 }
 
@@ -839,21 +792,6 @@ wn_sbwd_reduce_kernel(const float* __restrict__ ws, int n_splits,
 
 // ---- launch ----------------------------------------------------------------
 
-// The opt-in to more than 48 KB of dynamic shared memory, made once per
-// kernel and device (bit `device` of `*done`).
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>* done) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (device & 31);
-  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 struct SArgs {
   const float* x;
   const bf16* cond;
@@ -881,11 +819,17 @@ cudaError_t launch_srows(const SArgs& a, cudaStream_t stream) {
   auto kernel = wn_sbwd_rows_kernel<kC, kCP, kLast>;
   cudaError_t err = opt_in_smem(kernel, L::kSmem, &opted_in);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + L::kTileRows - 1) / L::kTileRows, a.batch);
-  kernel<<<grid, kThreads, L::kSmem, stream>>>(
+  const int tiles_t = (a.T + kTileRows - 1) / kTileRows;
+  kernel<<<dim3(tiles_t * L::kPasses, a.batch), kThreads, L::kSmem, stream>>>(
       a.x, a.cond, a.w_in, a.b_in, a.w_rs, a.g, a.dcond, a.acts, a.x_bf,
       a.g_bf, a.part_bias, a.T, a.dilation);
   return cudaGetLastError();
+}
+
+// Output tiles of the weights kernel: dw_in_s's, then dw_rs_s^T's.
+template <int kC, int kCP>
+int weight_tiles(int n_rs) {
+  return SW<kC, kCP>::kInTiles + n_rs / 128;
 }
 
 template <int kC, int kCP>
@@ -896,26 +840,28 @@ cudaError_t shard_backward(const SArgs& a, int last, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
 
   static std::atomic<uint32_t> dx_opted{0}, w_opted{0};
-  err = opt_in_smem(wn_sbwd_dx_kernel<kC, kCP>, kDxSmem, &dx_opted);
+  using D = SDx<kC, kCP>;
+  err = opt_in_smem(wn_sbwd_dx_kernel<kC, kCP>, D::kSmem, &dx_opted);
   if (err != cudaSuccess) return err;
+  const int total_rows = a.batch * a.T;
   wn_sbwd_dx_kernel<kC, kCP>
-      <<<dim3((a.T + kRT - 1) / kRT, kC / kRT, a.batch), kThreads, kDxSmem,
-         stream>>>(a.dcond, a.w_in, a.dx, a.T, a.dilation);
+      <<<dim3((total_rows + kTileRows - 1) / kTileRows, kC / D::kN), kThreads,
+         D::kSmem, stream>>>(a.dcond, a.w_in, a.dx, total_rows, a.T,
+                             a.dilation);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = opt_in_smem(wn_sbwd_weights_kernel<kC, kCP>, kWSmem, &w_opted);
+  using W = SW<kC, kCP>;
+  err = opt_in_smem(wn_sbwd_weights_kernel<kC, kCP>, W::kSmem, &w_opted);
   if (err != cudaSuccess) return err;
-  const int n_tiles_w = kSInTiles<kC, kCP> + kSRsMt<kC, kCP> * (n_rs / kWTile);
   wn_sbwd_weights_kernel<kC, kCP>
-      <<<dim3(n_tiles_w, a.batch * a.n_splits_t), kThreads, kWSmem, stream>>>(
-          a.x_bf, a.dcond, a.acts, a.g_bf, a.ws, a.T, a.dilation, n_rs,
-          a.n_splits_t, a.split_rows);
+      <<<dim3(weight_tiles<kC, kCP>(n_rs), a.batch * a.n_splits_t), kThreads,
+         W::kSmem, stream>>>(a.x_bf, a.dcond, a.acts, a.g_bf, a.ws, a.T,
+                             a.dilation, n_rs, a.n_splits_t, a.split_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int kTile = SRows<kC, kCP, false>::kTileRows;
-  const int tiles_t = (a.T + kTile - 1) / kTile;
+  const int tiles_t = (a.T + kTileRows - 1) / kTileRows;
   const int64_t n_w = 3 * kC * 2 * kCP + static_cast<int64_t>(kCP) * n_rs;
   const int blocks = 2 * kCP / kBiasColsPerBlock +
                      static_cast<int>((n_w + kThreads - 1) / kThreads);
@@ -939,10 +885,10 @@ const void* sbwd_kernel_for(int which, int last, int* smem_bytes) {
                   : reinterpret_cast<const void*>(
                         wn_sbwd_rows_kernel<kC, kCP, false>);
     case 1:
-      *smem_bytes = kDxSmem;
+      *smem_bytes = SDx<kC, kCP>::kSmem;
       return reinterpret_cast<const void*>(wn_sbwd_dx_kernel<kC, kCP>);
     case 2:
-      *smem_bytes = kWSmem;
+      *smem_bytes = SW<kC, kCP>::kSmem;
       return reinterpret_cast<const void*>(wn_sbwd_weights_kernel<kC, kCP>);
     default:
       *smem_bytes = 0;
@@ -970,8 +916,9 @@ extern "C" {
 // C], g_bf [batch*T, n_rs] bf16; part_bias [batch * ceil(T/tile), 2C'] f32
 // (tile: wn_layer_shard_bwd_tile_rows(C, C')); ws [batch * n_splits_t,
 // 3C*2C' + C'*n_rs] f32. The weights kernel splits each batch row's T into
-// n_splits_t ranges of split_rows rows. Pointers 16-byte aligned,
-// contiguous.
+// n_splits_t ranges of split_rows rows (a multiple of 64), over
+// wn_layer_shard_bwd_weight_tiles(C, C', last) output tiles. Pointers
+// 16-byte aligned, contiguous.
 cudaError_t wn_layer_shard_backward_bf16(
     const float* x, const void* cond, const void* w_in, const float* b_in,
     const void* w_rs, const float* g, float* dx, void* dcond, void* dw_in,
@@ -980,8 +927,10 @@ cudaError_t wn_layer_shard_backward_bf16(
     int dilation, int last, int n_splits_t, int split_rows,
     cudaStream_t stream) {
   if (T <= 0 || batch <= 0 || batch > 65535 || n_splits_t <= 0 ||
-      split_rows <= 0 || static_cast<int64_t>(batch) * n_splits_t > 65535 ||
-      static_cast<int64_t>(n_splits_t) * split_rows < T)
+      split_rows <= 0 || split_rows % kKC != 0 ||
+      static_cast<int64_t>(batch) * n_splits_t > 65535 ||
+      static_cast<int64_t>(n_splits_t) * split_rows < T ||
+      static_cast<int64_t>(batch) * T > (1ll << 31) - 1 - kTileRows)
     return cudaErrorInvalidValue;
   const SArgs a{x,
                 static_cast<const bf16*>(cond),
@@ -1011,13 +960,24 @@ cudaError_t wn_layer_shard_backward_bf16(
   return cudaErrorInvalidValue;
 }
 
-// Time rows of the rows kernel's tile at (C, C') (its part_bias rows a
-// batch row are ceil(T / this)), or -1 for a pair it is not built for.
+// Time rows of the rows kernel's tile (its part_bias rows a batch row are
+// ceil(T / this)), or -1 for a pair it is not built for.
 int wn_layer_shard_bwd_tile_rows(int C, int cp) {
 #define WN_SBWD_TILE(WIDTH, CP) \
-  if (C == WIDTH && cp == CP) return SRows<WIDTH, CP, false>::kTileRows;
+  if (C == WIDTH && cp == CP) return kTileRows;
   WN_SBWD_PAIRS(WN_SBWD_TILE)
 #undef WN_SBWD_TILE
+  return -1;
+}
+
+// Output tiles of the weights kernel at (C, C') (each a block for each of
+// the n_splits_t ranges of each batch row), or -1 for a pair it is not
+// built for.
+int wn_layer_shard_bwd_weight_tiles(int C, int cp, int last) {
+#define WN_SBWD_WTILES(WIDTH, CP) \
+  if (C == WIDTH && cp == CP) return weight_tiles<WIDTH, CP>(last ? C : 2 * C);
+  WN_SBWD_PAIRS(WN_SBWD_WTILES)
+#undef WN_SBWD_WTILES
   return -1;
 }
 

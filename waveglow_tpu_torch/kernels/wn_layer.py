@@ -56,6 +56,7 @@ yardstick).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -77,8 +78,10 @@ SHARD_BWD_LAUNCHES = 0
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
            CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_shard_bwd.cu")
-# Included by the forward and the shard source (the f32 ring and tile).
-HEADERS = (CSRC / "f32_ring.cuh",)
+# Included by the sources: the f32 ring and tile (the forward, the shard
+# and, for its cp.async helpers, the shard backward) and the wgmma helpers
+# (the shard backward).
+HEADERS = (CSRC / "f32_ring.cuh", CSRC / "sm90_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -255,6 +258,8 @@ def _library():
     shard_bwd_info.restype = ctypes.c_int
     lib.wn_layer_shard_bwd_tile_rows.argtypes = [ctypes.c_int] * 2
     lib.wn_layer_shard_bwd_tile_rows.restype = ctypes.c_int
+    lib.wn_layer_shard_bwd_weight_tiles.argtypes = [ctypes.c_int] * 3
+    lib.wn_layer_shard_bwd_weight_tiles.restype = ctypes.c_int
     _LIB = lib
   return _LIB
 
@@ -787,6 +792,76 @@ def wn_layer_shard_backward(saved: Tuple[torch.Tensor, ...],
                    compute_dtype)
 
 
+# K rows of a chunk of the shard backward's weights kernel: its row ranges
+# are multiples of this.
+SHARD_BWD_CHUNK_ROWS = 64
+
+
+def shard_bwd_splits(batch: int, t: int, tiles: int, sms: int
+                     ) -> Tuple[int, int]:
+  """``(n_splits_t, split_rows)`` of the shard backward's weights kernel:
+  each of the ``batch`` rows' ``t`` time rows is cut into ``n_splits_t``
+  ranges of ``split_rows`` (a multiple of ``SHARD_BWD_CHUNK_ROWS``; the last
+  range short), one block for each of the kernel's ``tiles`` output tiles
+  and each range. The cut is the fewest ranges whose blocks fill at least
+  one wave of ``sms`` blocks and keep the last wave at least 85% full; else
+  (no such cut within 4 waves) the cut with the fullest last wave, at least
+  one wave where the rows allow it. More ranges mean more f32 partials for
+  the reduce kernel to read."""
+  chunks = -(-t // SHARD_BWD_CHUNK_ROWS)
+  best = None
+  for want in range(1, chunks + 1):
+    split_rows = -(-chunks // want) * SHARD_BWD_CHUNK_ROWS
+    n_splits = -(-t // split_rows)
+    if best is not None and n_splits == best[1]:
+      continue
+    blocks = tiles * batch * n_splits
+    waves = -(-blocks // sms)
+    if waves > 4 and best is not None:
+      break
+    fill = blocks / (waves * sms)
+    key = (blocks >= sms, fill)
+    if best is None or key > best[0]:
+      best = (key, n_splits, split_rows)
+    if blocks >= sms and fill >= 0.85:
+      break
+  return best[1], best[2]
+
+
+def shard_bwd_scratch(batch: int, t: int, c: int, cp: int, last: bool,
+                      n_splits_t: int, tile_rows: int) -> dict:
+  """The shard backward's scratch as one allocation: byte ``offsets`` (each
+  256-byte aligned) of the bf16 acts [B*T, C'], x [B*T, C] and g [B*T,
+  n_rs] (the weights kernel's operands, written by the rows kernel), the
+  rows kernel's f32 column sums [B * ceil(T / tile_rows), 2C'] and the
+  weights kernel's f32 partials [B * n_splits_t, 3C * 2C' + C' * n_rs],
+  and the total ``bytes``."""
+  rows, n_rs = batch * t, c if last else 2 * c
+  sizes = {"acts": rows * cp * 2, "x_bf": rows * c * 2,
+           "g_bf": rows * n_rs * 2,
+           "part_bias": batch * -(-t // tile_rows) * 2 * cp * 4,
+           "ws": batch * n_splits_t * (3 * c * 2 * cp + cp * n_rs) * 4}
+  offsets, end = {}, 0
+  for name, size in sizes.items():
+    offsets[name] = end
+    end += -(-size // 256) * 256
+  return {"offsets": offsets, "sizes": sizes, "bytes": end}
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_bwd_plan(batch: int, t: int, c: int, cp: int, last: bool,
+                    dev: torch.device) -> dict:
+  """The shard backward's launch plan at one shape and card: the weights
+  kernel's split and the scratch layout, read from the library once."""
+  lib = _library()
+  n_splits_t, split_rows = shard_bwd_splits(
+      batch, t, lib.wn_layer_shard_bwd_weight_tiles(c, cp, int(last)),
+      torch.cuda.get_device_properties(dev).multi_processor_count)
+  return {"n_splits_t": n_splits_t, "split_rows": split_rows,
+          **shard_bwd_scratch(batch, t, c, cp, last, n_splits_t,
+                              lib.wn_layer_shard_bwd_tile_rows(c, cp))}
+
+
 def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
                                   g: Optional[torch.Tensor], dilation: int
                                   ) -> Tuple[torch.Tensor, ...]:
@@ -821,31 +896,20 @@ def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
   g = g.contiguous()  # autograd may hand an expanded view
   _check("g", g, torch.float32, (batch, t, n_rs), dev)
 
-  def empty(shape, dtype):
-    return torch.empty(shape, dtype=dtype, device=dev)
-
-  rows = batch * t
-  n_splits_t = -(-t // SPLIT_ROWS)
-  dx = empty(x.shape, torch.float32)
-  dcond = empty(cond_s.shape, bf16)
-  dw_in = empty(w_in_s.shape, bf16)
-  db_in = empty(b_in_s.shape, torch.float32)
-  dw_rs = empty(w_rs_s.shape, bf16)
-  acts = empty((rows, cp), bf16)
-  x_bf = empty((rows, c), bf16)
-  g_bf = empty((rows, n_rs), bf16)
   lib = _library()
-  tile = lib.wn_layer_shard_bwd_tile_rows(c, cp)
-  part_bias = empty((batch * -(-t // tile), 2 * cp), torch.float32)
-  ws = empty((batch * n_splits_t, 3 * c * 2 * cp + cp * n_rs), torch.float32)
+  plan = _shard_bwd_plan(batch, t, c, cp, last, dev)
+  # each gradient has its input's shape and dtype
+  dx, dcond, dw_in, db_in, dw_rs = (torch.empty_like(v) for v in saved)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+  at = {k: scratch.data_ptr() + off for k, off in plan["offsets"].items()}
   with torch.cuda.device(dev):  # the launcher reads the current device
     err = lib.wn_layer_shard_backward_bf16(
         x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
         b_in_s.data_ptr(), w_rs_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
-        dw_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(), g_bf.data_ptr(),
-        part_bias.data_ptr(), ws.data_ptr(), batch, t, c, cp, int(dilation),
-        int(last), n_splits_t, SPLIT_ROWS,
+        dw_rs.data_ptr(), at["acts"], at["x_bf"], at["g_bf"],
+        at["part_bias"], at["ws"], batch, t, c, cp, int(dilation),
+        int(last), plan["n_splits_t"], plan["split_rows"],
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer shard backward kernels failed to launch: "
