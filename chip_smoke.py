@@ -6,23 +6,25 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
   2. build: the WN-layer kernels are compiled from
      waveglow_tpu_torch/csrc/wn_layer.cu (forward), wn_layer_bwd.cu (the
-     bf16 backward), wn_layer_shard.cu (a model rank's share) and
-     wn_layer_shard_bwd.cu (its bf16 backward), one nvcc per source,
+     bf16 backward, the whole layer's and a model rank's) and
+     wn_layer_shard.cu (a model rank's share), one nvcc per source,
      started together, every width instance (C = 128, 256, 512; the shard
      kernels at C' = C/2, C/4, C/8); build seconds and
      ptxas facts (when this run built it), and what the loaded build uses
      as the CUDA runtime reports it (registers, local bytes, shared
      memory). The library's SASS (cuobjdump -sass) must show
      tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the
-     forward variants, the backward's rows, dx and weights kernels, the
-     bf16 shard kernels and the shard backward's rows, dx and weights
-     kernels, whose registers, spills and shared memory are printed) and
-     none in the f32 ones; the two backwards' reduce kernels do no
-     products. The shard backward's rows, dx and weights kernels must be
-     wgmma (HGMMA), with no ptxas warning that their wgmmas are
-     serialized (C7511/C7513), and no spill. The f32 kernel's registers, shared memory,
-     blocks an SM and grid at B=1 and B=8 are printed (at each width), and
-     any spill of an f32 forward variant fails.
+     forward variants, the C = 512 gate kernel, the backwards' rows, dx
+     and weights kernels, the bf16 shard kernels) and none in the f32
+     ones; the backwards' reduce kernels, the whole layer's prep kernel
+     and the C = 512 rounding of x do no products. The rows, dx and
+     weights kernels of both backwards and the C = 512 bf16 forward's gate
+     and res/skip kernels must be wgmma (HGMMA), with no ptxas warning
+     that their wgmmas are serialized (C7511/C7513), and no spill (their
+     registers, spills and shared memory are printed). The f32 kernel's
+     registers, shared memory, blocks an SM and grid at B=1 and B=8 are
+     printed (at each width), and any spill of an f32 forward variant
+     fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
@@ -42,9 +44,10 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      layer, f32 and bf16: its forward (the kernel) against wn_layer_plain,
      its six gradients against autograd through wn_layer_plain, and in
      bf16 the backward kernels against wn_layer_backward at the same
-     rounding points; times of the forward, the backward, the plain
-     backward, plain autograd, the library and the library's backward
-     alone, beside the bound.
+     rounding points and against their own second launch bit for bit;
+     times of the forward, the backward (and each of its five kernels,
+     torch.profiler), the plain backward, plain autograd, the library and
+     the library's backward alone, beside the bound.
   6. train: train() at full width (12 x 8 x 256, batch 12, segment 16,000)
      on wav files cut from tests/fixtures/audio.wav, in f32 and bf16: six
      steps with saves at steps 1, 3 and 6, launch counts (each step's
@@ -147,7 +150,10 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      paper's). At each: the forward kernels (f32, bf16) and every shard
      pair against their plain versions at d=1, d=128 and the last layer
      (B=1, T=26,432), the bf16 backward against wn_layer_backward (B=12,
-     T=2,000), each timed beside its bound, plain and library times; a
+     T=2,000), bf16 kernels against their second launch bit for bit, each
+     timed beside its bound, plain and library times (with each kernel's
+     device time at d=1, torch.profiler, and the times before the bf16
+     redesign as a read-out); a
      full-depth model (12 x
      8, random weights from the seed, ends randomised) served through
      Synthesizer.infer_serving in f32 and bf16 (96 launches; phase 4's
@@ -158,7 +164,7 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      bf16) with one step's gradients against the plain route at phase 5's
      bounds.
  13. mesh training: (a) the bf16 shard backward kernels
-     (csrc/wn_layer_shard_bwd.cu) against wn_layer_shard_backward at
+     (csrc/wn_layer_bwd.cu) against wn_layer_shard_backward at
      every (C, C') pair, B=12, T=2,000, d=1 and the last layer, every
      rank, the ranks' outputs summed and concatenated against the full
      layer's backward kernels, two launches bit for bit, timed at d=1
@@ -406,13 +412,15 @@ DESIGN = {"f32": "f32 FFMA on the CUDA cores: one wave of 384-thread blocks, "
           "bf16": "wgmma m64n128k16 bf16 from swizzled shared memory, f32 "
                   "accumulators, 64-row tile, 4-stage cp.async weight ring"}
 BACKWARD_DESIGN = (
-    "4 launches, mma.sync m16n8k16 bf16 (ldmatrix from padded shared "
-    "memory, f32 accumulators, cp.async rings): rows kernel (64-row tile, "
-    "gate recompute and dacts in two 128-channel passes, the gate adjoint "
-    "on the accumulators, per-tile bias sums), dx kernel (128x128 tiles, "
-    "3-tap product over dgates, offsets negated), weights kernel (128x128 "
-    "tiles of dw_in/dw_rs over row ranges, f32 partials), fixed-order "
-    "reduce")
+    "5 launches, wgmma m64nNk16 bf16 from 128-byte-swizzled shared memory "
+    "(the shard backward's design at C' = C): prep (x rounded to bf16 once, "
+    "drs built, rounded and its per-tile column sums), rows (a block per "
+    "batch row, 128-row tile and pass of 64 channels: the gate recompute "
+    "and dacts on accumulators of the same (row, channel), the bf16 x taps "
+    "and drs by cp.async beside the weights in a 4-stage ring), dx (128 "
+    "rows x min(C, 256) channels, K = 6C, dx_next masked added), weights "
+    "(dw_in and dw_rs^T tiles of 128 x 256 at most, a row split that fills "
+    "the card's waves), reduce (fixed order, no atomics)")
 SHARD_DESIGN = {
     "f32": "FFMA: one wave of 384-thread (C' >= 128) or 512-thread blocks, "
            "each walking an equal share of the B*T rows in tiles (48 rows at "
@@ -501,23 +509,40 @@ def variant(mode: str, last: bool, width: int = C) -> str:
 FORWARD_KERNELS = tuple((mode, last, width) for width in kl.kernel_widths()
                         for mode in MODES for last in (False, True))
 
-# The bf16 backward's kernels, (name, last, width) as kl.bwd_kernel_info
-# takes them: the rows kernel has a last-layer variant.
+# The whole layer's bf16 backward kernels, (name, last, width) as
+# kl.bwd_kernel_info takes them: the rows and prep kernels have a
+# last-layer variant.
 BWD_KERNELS = tuple((k, last, width)
                     for width in kl.kernel_widths()
                     for k in kl.BWD_KERNELS
-                    for last in ((False, True) if k == "rows" else (False,)))
+                    for last in ((False, True) if k in ("rows", "prep")
+                                 else (False,)))
 
 
 def bwd_variant(kernel: str, last: bool = False, width: int = C) -> str:
   """Variant name of a backward kernel. Those that do products start with
-  "bf16" (check_tensor_cores demands HMMA/HGMMA of them); the reduce kernel
-  does none and starts with "reduce"."""
+  "bf16" (check_tensor_cores demands HMMA/HGMMA of them); the reduce and
+  prep kernels do none and start with their names."""
   if kernel == "reduce":
     return f"reduce,C={width},bwd"
+  if kernel == "prep":
+    return f"prep,C={width},bwd,{'last' if last else 'layer'}"
   if kernel == "rows":
     return f"bf16,C={width},bwd-rows,{'last' if last else 'layer'}"
   return f"bf16,C={width},bwd-{kernel}"
+
+
+# The bf16 forward at C = 512 beside its res/skip kernel (which
+# variant("bf16", last, 512) names): the gate kernel and the rounding of x,
+# as kl.wide_kernel_info takes them.
+WIDE_KERNELS = ("gate", "round")
+
+
+def wide_variant(kernel: str) -> str:
+  """Variant name of the C = 512 gate kernel ("bf16,...": held to HGMMA)
+  or of its rounding of x, which does no products."""
+  return (f"bf16,C={kl.WIDE_C},gate" if kernel == "gate"
+          else f"round,C={kl.WIDE_C},fwd")
 
 
 def shard_variant(width: int, channels: int, bf16: bool, last: bool) -> str:
@@ -535,7 +560,8 @@ SHARD_KERNELS = tuple((c, cp, bf16, last) for c, cp in kl.shard_pairs()
 # The bf16 shard backward's kernels, (name, C, C', last) as
 # kl.shard_bwd_kernel_info takes them (the rows kernel has a last variant).
 SHARD_BWD_KERNELS = tuple(
-    (k, c, cp, last) for c, cp in kl.shard_pairs() for k in kl.BWD_KERNELS
+    (k, c, cp, last) for c, cp in kl.shard_pairs()
+    for k in kl.SHARD_BWD_KERNELS
     for last in ((False, True) if k == "rows" else (False,)))
 
 
@@ -555,8 +581,9 @@ def shard_bwd_variant(kernel: str, width: int, channels: int,
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kC, kLast>``, the bf16 tensor-core kernel
-  ``wn_layer_kernel_mma<kC, kLast>``, a backward kernel
-  ``wn_bwd_{rows<kC, kLast>,dx<kC>,weights<kC>,reduce<kC>}_kernel``, a
+  ``wn_layer_kernel_mma<kC, kLast>`` (C <= 256), the C = 512 bf16 kernels
+  ``wn_layer_kernel_{gate,rs<kLast>,round}``, a backward kernel
+  ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, a
   shard kernel ``wn_shard_kernel[_mma]<kC, kCP, kLast>`` (FFMA in f32, the
   tensor cores in bf16) or a shard-backward kernel
   ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``;
@@ -565,7 +592,13 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
                    inst.group(3) == "1", int(inst.group(2)))
-  inst = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernelILi(\d+)E"
+  inst = re.search(r"wn_layer_kernel_rsILb([01])E", mangled)
+  if inst:
+    return variant("bf16", inst.group(1) == "1", kl.WIDE_C)
+  inst = re.search(r"wn_layer_kernel_(gate|round)", mangled)
+  if inst:
+    return wide_variant(inst.group(1))
+  inst = re.search(r"wn_bwd_(prep|rows|dx|weights|reduce)_kernelILi(\d+)E"
                    r"(?:Lb([01])E)?", mangled)
   if inst:
     return bwd_variant(inst.group(1), inst.group(3) == "1",
@@ -654,17 +687,20 @@ def wgmma_serialized(build_log: str) -> set:
   return found
 
 
-def redesigned_sbwd(name: str) -> bool:
-  """A product kernel of the shard backward (rows, dx, weights): held to
-  wgmma, to no serialization and to no spill."""
-  return name.startswith("bf16,") and ",sbwd-" in name
+def held_to_wgmma(name: str) -> bool:
+  """A product kernel of the bf16 backwards (rows, dx, weights; the whole
+  layer's and a rank's) or of the bf16 forward at C = 512 (gate, res/skip):
+  held to wgmma, to no serialization and to no spill."""
+  return name.startswith("bf16,") and (
+      ",bwd-" in name or ",sbwd-" in name
+      or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name)
 
 
 def check_wgmma(hgmma: dict, serialized, variants) -> None:
-  """Fail unless every product kernel of the shard backward has HGMMA and
-  ptxas serialized none of its wgmmas."""
+  """Fail unless every kernel ``held_to_wgmma`` has HGMMA and ptxas
+  serialized none of its wgmmas."""
   for name in variants:
-    if not redesigned_sbwd(name):
+    if not held_to_wgmma(name):
       continue
     if hgmma.get(name, 0) == 0:
       fail(f"the {name} kernel has no wgmma (HGMMA) instruction")
@@ -688,12 +724,12 @@ def check_tensor_cores(mma: dict, variants) -> None:
 
 def check_no_spills(ptxas, attributes) -> None:
   """Fail if an f32 kernel variant (the forward's or the shard's) or a
-  product kernel of the shard backward spills: local bytes in the loaded
-  build, or spill stores or loads in ptxas's report (``ptxas`` is None
-  when the library was built by an earlier process). The other bf16
-  variants are not held to it."""
+  kernel ``held_to_wgmma`` spills: local bytes in the loaded build, or
+  spill stores or loads in ptxas's report (``ptxas`` is None when the
+  library was built by an earlier process). The other bf16 variants are
+  not held to it."""
   for name, attr in attributes.items():
-    if not (name.startswith(("f32", "shard-f32")) or redesigned_sbwd(name)):
+    if not (name.startswith(("f32", "shard-f32")) or held_to_wgmma(name)):
       continue
     facts = (ptxas or {}).get(name, {})
     spills = (attr["local_bytes"], facts.get("spill_store_bytes", 0),
@@ -749,6 +785,8 @@ def phase_build() -> dict:
                      for v in SHARD_KERNELS})
   attributes.update({shard_bwd_variant(*v): kl.shard_bwd_kernel_info(*v)
                      for v in SHARD_BWD_KERNELS})
+  attributes.update({wide_variant(k): kl.wide_kernel_info(k)
+                     for k in WIDE_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -770,6 +808,11 @@ def phase_build() -> dict:
   log("build " + json.dumps(info))
   log("f32 kernel " + json.dumps(info["f32_grid"]))
   log("f32 shard kernel " + json.dumps(info["shard_f32_grid"]))
+  log("wgmma kernels " + json.dumps(
+      {name: {**attr, "hgmma": hgmma.get(name, 0),
+              "ptxas": info["ptxas"].get(name) if built else "cached"}
+       for name, attr in attributes.items()
+       if held_to_wgmma(name) and ",sbwd-" not in name}))
   log("shard backward kernels " + json.dumps(
       {shard_bwd_variant(*v): {**attributes[shard_bwd_variant(*v)],
                                "hgmma": hgmma.get(shard_bwd_variant(*v), 0),
@@ -814,8 +857,9 @@ def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int,
 
 def layer_cost(batch: int, t: int, last: bool, mode: str, width: int):
   """(bytes, flops, bound_ms, bound_by) of one layer call at ``width``
-  channels: every input read once, every output written once; flops of the
-  two products."""
+  channels: every input read once, every output written once (and the bf16
+  copy of x that the C = 512 bf16 layer makes, written and read once);
+  flops of the two products."""
   C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
@@ -826,6 +870,8 @@ def layer_cost(batch: int, t: int, last: bool, mode: str, width: int):
             + (2 * C + rs) * 4 + batch * 4     # biases, valid_t
             + rows * C * 4                     # skip_acc read
             + 2 * rows * C * 4)                # x' and skip written
+  if mode == "bf16" and width == kl.WIDE_C:
+    nbytes += 2 * rows * C * 2                 # bf16 x, written and read
   flops = 2 * rows * C * (3 * 2 * C + rs)
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_FLOPS[mode] * 1e3
@@ -878,6 +924,13 @@ def kernel_case(mode: str, batch: int, i: int, seed: int, width: int = C,
          "ref_max_abs": scale}
   if err > bound:
     fail(f"kernel disagrees with plain: {rec}")
+  if mode == "bf16":
+    again = kl.wn_layer_fused(*args, dilation, valid_t=valid,
+                              skip_acc=acc.clone(), compute_dtype=cdt)
+    if not (torch.equal(again[0], xk) and torch.equal(again[1], sk)):
+      fail(f"two launches of the kernel differ ({mode}, C={width}, "
+           f"B={batch}, d={dilation})")
+    del again
   del xk, sk, xp, sp
   if time_it:
     nbytes, flops, bound_ms, bound_by = layer_cost(batch, T_KERNEL, last,
@@ -896,6 +949,9 @@ def kernel_case(mode: str, batch: int, i: int, seed: int, width: int = C,
         x_cf, cond_flat, w_conv, b_lib, w_rs, b_rs, dilation, dtype))
     rec.update(bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / rec["kernel_ms"])
+    rec["kernels_ms"] = kernel_split(lambda: kl.wn_layer_fused(
+        *args, dilation, valid_t=valid, skip_acc=skip, compute_dtype=cdt),
+        FWD_SPLIT, 3 if mode == "bf16" and width == kl.WIDE_C else 1)
   log("kernel " + json.dumps(rec))
   return rec
 
@@ -1168,22 +1224,46 @@ def trainable_cost(last: bool, mode: str, width: int) -> dict:
           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def kernel_split(fn, pattern: str, kernels: int, reps: int = 10,
+                 tries: int = 3, key=None):
+  """Device milliseconds of each of the ``kernels`` kernels whose names
+  ``pattern`` matches in one call of ``fn``, by the match's first group
+  (or ``key`` of it): the mean over the launches that torch.profiler holds
+  of ``reps`` calls. Late in a long process a trace may hold fewer
+  launches than were made, or none of a kernel: such a trace is taken
+  again, up to ``tries`` times, then "not measured"."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  for _ in range(tries):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    total, seen = {}, {}
+    for name, ms in device_kernels(prof):
+      kernel = re.search(pattern, name)
+      if kernel:
+        k = key(kernel.group(1)) if key else kernel.group(1)
+        total[k] = total.get(k, 0.0) + ms
+        seen[k] = seen.get(k, 0) + 1
+    if len(seen) == kernels:
+      return {k: total[k] / seen[k] for k in total}
+  return "not measured"
+
+
+# The kernels of the whole layer's bf16 backward, and of the forward, by name.
+BWD_SPLIT = r"wn_bwd_(prep|rows|dx|weights|reduce)_kernel"
+FWD_SPLIT = r"wn_layer_kernel_(f32|mma|gate|rs|round)"
+
+
 def backward_kernel_ms(saved, cot, dilation: int, reps: int = 10) -> dict:
   """Device milliseconds of each bf16 backward kernel in one call, the mean
   over ``reps`` calls under torch.profiler."""
-  from torch.profiler import ProfilerActivity, profile
-  kl.wn_layer_backward_fused(saved, *cot, dilation)
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      kl.wn_layer_backward_fused(saved, *cot, dilation)
-    torch.cuda.synchronize()
-  out = {}
-  for name, ms in device_kernels(prof):
-    kernel = re.search(r"wn_bwd_(rows|dx|weights|reduce)_kernel", name)
-    if kernel:
-      out[kernel.group(1)] = out.get(kernel.group(1), 0.0) + ms / reps
-  return out if out else "not measured"
+  return kernel_split(lambda: kl.wn_layer_backward_fused(saved, *cot,
+                                                         dilation),
+                      BWD_SPLIT, len(kl.BWD_KERNELS), reps)
 
 
 def phase_trainable(seed: int) -> dict:
@@ -3403,10 +3483,12 @@ WIDTH_TRAIN_HPARAMS = {"batch_size": str(WIDTH_TRAIN_BATCH),
 WIDTH_DESIGN = {
     128: "the C = 256 kernels with one warpgroup (wgmma) and a 192-thread "
          "f32 warp grid",
-    512: "wgmma with the taps streamed: 64x64 bf16 tap blocks through a "
-         "3-block ring one block ahead, gate and res/skip products in two "
-         "256-channel passes, acts resident; f32: the C = 256 warp grid in "
-         "two passes of each product, a 3-stage ring"}
+    512: "bf16: x rounded once, then a gate kernel and a res/skip kernel, "
+         "each one wave of persistent blocks walking units of 128 flat rows "
+         "x a pass (128 channels; 256 of the n_rs columns), wgmma "
+         "m64n128k16 through a 4-stage ring of 64-deep K chunks, the acts "
+         "through global memory in bf16; f32: the C = 256 warp grid in two "
+         "passes of each product, a 3-stage ring"}
 
 
 def backward_kernel_case(i: int, seed: int, width: int,
@@ -3423,6 +3505,11 @@ def backward_kernel_case(i: int, seed: int, width: int,
   saved = tuple(a.detach() for a in args)
   got = kl.wn_layer_backward_fused(saved, *cot, dilation)
   torch.cuda.synchronize()
+  again = kl.wn_layer_backward_fused(saved, *cot, dilation)
+  if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    fail(f"two launches of the backward kernels at C={width} differ "
+         f"(d={dilation}, last={last})")
+  del again
   ref = kl.wn_layer_backward(saved, *cot, dilation, None, cdt)
   rec = {"C": width, "dilation": dilation, "last": last, "grads": {}}
   for name, g, r in zip(GRAD_NAMES, got, ref):
@@ -3455,7 +3542,9 @@ def backward_kernel_case(i: int, seed: int, width: int,
         lib_out, lib_in, cot_rs, retain_graph=True))
     del lib_out
     cost = trainable_cost(last, "bf16", width)
-    rec.update(bound_ms=cost["bwd_bound_ms"], bound_by=cost["bwd_bound_by"])
+    rec.update(bound_ms=cost["bwd_bound_ms"], bound_by=cost["bwd_bound_by"],
+               share_of_bound=cost["bwd_bound_ms"] / rec["kernel_ms"],
+               kernels_ms=backward_kernel_ms(saved, cot, dilation))
   log("width backward kernel " + json.dumps(rec))
   return rec
 
@@ -3735,33 +3824,15 @@ def library_shard_backward(saved, g, dilation: int, dtype):
 
 def shard_backward_kernel_ms(saved, g, dilation: int, reps: int = 10,
                              tries: int = 3):
-  """Device milliseconds of each bf16 shard-backward kernel in one call, by
-  its variant name (``shard_bwd_variant``): the mean over the launches that
-  torch.profiler holds of ``reps`` calls (a layer's saved inputs: its rows
-  kernel is the "layer" variant). Late in a long process a trace may hold
-  fewer launches than were made, or none of a kernel: such a trace is taken
-  again, up to ``tries`` times, then "not measured"."""
-  from torch.profiler import ProfilerActivity, profile
+  """:func:`kernel_split` of one bf16 shard-backward call, by each kernel's
+  variant name (``shard_bwd_variant``; a layer's saved inputs: its rows
+  kernel is the "layer" variant)."""
   width = saved[0].shape[-1]
   cp = saved[3].numel() // 2
-  kl.wn_layer_shard_backward_fused(saved, g, dilation)
-  torch.cuda.synchronize()
-  for _ in range(tries):
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      for _ in range(reps):
-        kl.wn_layer_shard_backward_fused(saved, g, dilation)
-      torch.cuda.synchronize()
-    total, seen = {}, {}
-    for name, ms in device_kernels(prof):
-      kernel = re.search(r"wn_sbwd_(rows|dx|weights|reduce)_kernel", name)
-      if kernel:
-        key = shard_bwd_variant(kernel.group(1), width, cp)
-        total[key] = total.get(key, 0.0) + ms
-        seen[key] = seen.get(key, 0) + 1
-    if len(seen) == 4:
-      return {key: total[key] / seen[key] for key in total}
-  return "not measured"
+  return kernel_split(
+      lambda: kl.wn_layer_shard_backward_fused(saved, g, dilation),
+      r"wn_sbwd_(rows|dx|weights|reduce)_kernel", len(kl.SHARD_BWD_KERNELS),
+      reps, tries, key=lambda k: shard_bwd_variant(k, width, cp))
 
 
 def shard_bwd_check(seed: int) -> dict:
@@ -4402,6 +4473,7 @@ def main() -> None:
       "ms": rec["backward_ms"], "plain_ms": rec["torch_backward_ms"],
       "bound_ms": rec["bwd_bound_ms"], "bound_by": rec["bwd_bound_by"],
       "library_ms": rec["library_backward_ms"],
+      "kernels_ms": rec["backward_kernels_ms"],
       "design": BACKWARD_DESIGN,
       "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},d=1",
       "ms_last": last["backward_ms"],
@@ -4452,6 +4524,11 @@ def main() -> None:
           **{k: fwd[0][k] for k in ("bound_ms", "bound_by", "plain_ms",
                                     "library_ms")},
           "ms": fwd[0]["kernel_ms"], "design": WIDTH_DESIGN[width],
+          "kernels_ms": fwd[0]["kernels_ms"],
+          **({"loaded_build_gate_round": {
+                  wide_variant(k): build["attributes"][wide_variant(k)]
+                  for k in WIDE_KERNELS}}
+             if mode == "bf16" and width == kl.WIDE_C else {}),
           "shape": f"B=1,T={T_KERNEL},C={width},d=1",
           **{f"{key}_{case}": c[key]
              for case, c in (("d128", fwd[1]), ("last", fwd[2]))
@@ -4481,7 +4558,8 @@ def main() -> None:
         "max_abs_err": max(c["max_abs_err"] for c in bwd),
         "max_err_of_scale": max(c["max_err_of_scale"] for c in bwd),
         **{k: bwd[0][k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")},
+                                  "library_ms", "kernels_ms",
+                                  "share_of_bound")},
         "ms": bwd[0]["kernel_ms"], "design": BACKWARD_DESIGN,
         "shape": f"B={B_TRAIN},T={T_TRAIN},C={width},d=1"})
 
@@ -4494,7 +4572,7 @@ def main() -> None:
     rec = sbwd["timed"][(C, C // 2)] if mode == "bf16" else sbwd["f32"]
     entry = {
         "name": f"wn_layer_shard_trainable[{mode}]", "route": "cuda",
-        "source": ("waveglow_tpu_torch/csrc/wn_layer_shard_bwd.cu"
+        "source": ("waveglow_tpu_torch/csrc/wn_layer_bwd.cu"
                    if mode == "bf16"
                    else "waveglow_tpu_torch/csrc/wn_layer_shard.cu"),
         "replaces": "waveglow_tpu/parallel/sharding.py:44 (the autodiff "

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from waveglow_tpu_torch.kernels import wn_layer as kl
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -57,10 +59,14 @@ BWD_WEIGHTS = (_BWD + "21wn_bwd_weights_kernelILi256EEvPK13__nv_bfloat16S2_"
                "S2_S2_Pfiiiii")
 BWD_REDUCE = (_BWD + "20wn_bwd_reduce_kernelILi256EEvPKfiS1_iiP13__nv_"
               "bfloat16S3_PfS4_")
+BWD_PREP_LAYER = (_BWD + "18wn_bwd_prep_kernelILi256ELb0EEEvPKfS2_S2_PKiP13"
+                  "__nv_bfloat16S6_Pfi")
+BWD_PREP_LAST = BWD_PREP_LAYER.replace("Lb0EE", "Lb1EE")
 BWD = {BWD_ROWS_LAYER: "bf16,C=256,bwd-rows,layer",
        BWD_ROWS_LAST: "bf16,C=256,bwd-rows,last",
        BWD_DX: "bf16,C=256,bwd-dx", BWD_WEIGHTS: "bf16,C=256,bwd-weights",
-       BWD_REDUCE: "reduce,C=256,bwd"}
+       BWD_REDUCE: "reduce,C=256,bwd", BWD_PREP_LAYER: "prep,C=256,bwd,layer",
+       BWD_PREP_LAST: "prep,C=256,bwd,last"}
 
 
 def test_layer_cost_at_the_kernel_phase_shape(smoke):
@@ -203,14 +209,15 @@ def bwd_sass(mma):
 
 
 def test_backward_kernels_pass_the_tensor_core_check(smoke):
-  """Every backward kernel that does products has HMMA; the reduce kernel
-  has none and is not asked for any."""
+  """Every backward kernel that does products has HMMA; the reduce and
+  prep kernels have none and are not asked for any."""
   counts = smoke.count_mma(SASS + bwd_sass({
       "bf16,C=256,bwd-rows,layer": 3, "bf16,C=256,bwd-rows,last": 3,
       "bf16,C=256,bwd-dx": 2, "bf16,C=256,bwd-weights": 4}))
   assert (counts["reduce,C=256,bwd"] == 0
+          and counts["prep,C=256,bwd,last"] == 0
           and counts["bf16,C=256,bwd-dx"] == 2)
-  assert len(counts) == 9
+  assert len(counts) == 11
   smoke.check_tensor_cores(counts, counts)  # passes
 
 
@@ -727,16 +734,18 @@ def test_phase_12_drives_every_other_built_width(smoke):
 @pytest.mark.parametrize("width", [128, 512])
 def test_layer_cost_scales_with_the_width(smoke, width):
   """At width C: flops 2 * rows * C * (3 * 2C + 2C); bytes x, cond, the
-  weights, the biases, valid_t and skip_acc read, x' and skip written. f32
-  is bound by operations at every width; bf16 by bytes at 128 and by
-  operations at 512 (4x the flops of 256 for 2x the bytes)."""
+  weights, the biases, valid_t and skip_acc read, x' and skip written (at
+  512 in bf16 also the bf16 copy of x, written and read). f32 is bound by
+  operations at every width; bf16 by bytes at 128 and by operations at 512
+  (4x the flops of 256 for 2x the bytes)."""
   rows = smoke.T_KERNEL
   nbytes, flops, bound_ms, by = smoke.layer_cost(1, rows, False, "bf16",
                                                  width)
   assert flops == 2 * rows * width * 8 * width
   assert nbytes == (rows * width * 4 + rows * 2 * width * 2
                     + 8 * width * width * 2 + 4 * width * 4 + 4
-                    + 3 * rows * width * 4)
+                    + 3 * rows * width * 4
+                    + (2 * rows * width * 2 if width == 512 else 0))
   assert bound_ms == pytest.approx(max(nbytes / 3.35e9, flops / 989e9))
   assert by == ("bytes" if width == 128 else "operations")
   _, _, _, by32 = smoke.layer_cost(1, rows, False, "f32", width)
@@ -918,3 +927,114 @@ def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
   assert rec["device_busy_ms"] == "not measured"
   assert len(rec["losses"]) == smoke.MESH_TRAIN_STEPS
   assert not (tmp_path / "ck").exists()
+
+
+# -- the redesigned bf16 kernels (the whole layer's backward, the C = 512
+# forward): their names, the wgmma rule and the per-kernel split --------
+
+_FWD_OBJ = "_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a"
+
+
+@pytest.mark.parametrize("mangled,want", [
+    (_BWD + "18wn_bwd_prep_kernelILi512ELb1EEEvPKfS2_S2_PKiP13__nv_bfloat16"
+     "S6_Pfi", "prep,C=512,bwd,last"),
+    (_BWD + "18wn_bwd_rows_kernelILi128ELb0EEEvPK13__nv_bfloat16S3_S3_PKfS3_"
+     "S3_PS1_S6_Pfii", "bf16,C=128,bwd-rows,layer"),
+    (_BWD + "16wn_bwd_dx_kernelILi256EEEvPK13__nv_bfloat16S3_PfPKfPKiiii",
+     "bf16,C=256,bwd-dx"),
+    (_BWD + "21wn_bwd_reduce_kernelILi512EEEvPKfiS1_iiP13__nv_bfloat16S3_PfS4_",
+     "reduce,C=512,bwd"),
+    (_FWD_OBJ + "20wn_layer_kernel_gateEPK13__nv_bfloat16S2_S2_PKfPS0_iii",
+     "bf16,C=512,gate"),
+    (_FWD_OBJ + "18wn_layer_kernel_rsILb1EEEvPKfPK13__nv_bfloat16S5_S2_PKiPfS8_"
+     "iii", "bf16,C=512,last"),
+    (_FWD_OBJ + "21wn_layer_kernel_roundEPKfP13__nv_bfloat16l",
+     "round,C=512,fwd")])
+def test_kernel_variant_names_the_redesigned_kernels(smoke, mangled, want):
+  assert smoke.kernel_variant(mangled) == want
+
+
+def test_wgmma_is_demanded_of_the_redesigned_kernels(smoke):
+  """Phase 2 holds the whole layer's rows, dx and weights kernels at every
+  width and the C = 512 forward's gate and res/skip kernels to HGMMA, no
+  serialized wgmma and no spill; the prep, reduce and rounding kernels
+  and the C <= 256 forward are not held."""
+  held = [smoke.bwd_variant(k, last, w) for k, last, w in smoke.BWD_KERNELS
+          if k in ("rows", "dx", "weights")]
+  held += ["bf16,C=512,layer", "bf16,C=512,last", "bf16,C=512,gate"]
+  free = ["bf16,C=256,layer", "bf16,C=128,last", "round,C=512,fwd",
+          "reduce,C=512,bwd", "prep,C=128,bwd,last"]
+  assert len(held) == 3 * 4 + 3
+  assert all(smoke.held_to_wgmma(n) for n in held)
+  assert not any(smoke.held_to_wgmma(n) for n in free)
+  hgmma = {**dict.fromkeys(held, 8), **dict.fromkeys(free, 0)}
+  smoke.check_wgmma(hgmma, set(), held + free)  # passes
+  for name in held:
+    with pytest.raises(SystemExit, match="no wgmma"):
+      smoke.check_wgmma({**hgmma, name: 0}, set(), held + free)
+  with pytest.raises(SystemExit, match="serialized"):
+    smoke.check_wgmma(hgmma, {"bf16,C=512,gate"}, held + free)
+  with pytest.raises(SystemExit, match="spills"):
+    smoke.check_no_spills(None, {"bf16,C=512,bwd-rows,layer": {
+        "registers": 200, "local_bytes": 16}})
+
+
+def test_phase2_lists_every_kernel_of_the_new_designs(smoke):
+  """Phase 2's attribute list holds the whole layer's five kernels at every
+  width (rows and prep in both variants) and the C = 512 gate kernel and
+  rounding of x; a rank's backward has no prep kernel."""
+  names = {smoke.bwd_variant(*v) for v in smoke.BWD_KERNELS}
+  for w in kl.kernel_widths():
+    for k in ("dx", "weights"):
+      assert f"bf16,C={w},bwd-{k}" in names
+    assert f"reduce,C={w},bwd" in names
+    for end in ("layer", "last"):
+      assert f"bf16,C={w},bwd-rows,{end}" in names
+      assert f"prep,C={w},bwd,{end}" in names
+  assert len(names) == 7 * len(kl.kernel_widths())
+  assert [smoke.wide_variant(k) for k in smoke.WIDE_KERNELS] == [
+      "bf16,C=512,gate", "round,C=512,fwd"]
+  assert {k for k, *_ in smoke.SHARD_BWD_KERNELS} == {
+      "rows", "dx", "weights", "reduce"}
+
+
+class _SplitTrace:
+  """Stands in for torch.profiler.profile (the CPU build traces no card)."""
+
+  def __init__(self, activities):
+    pass
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, *exc):
+    return False
+
+
+@pytest.mark.parametrize("kept", [10, 1, 0])
+def test_kernel_split_is_the_mean_of_the_traced_launches(smoke, monkeypatch,
+                                                         kept):
+  """Phases 5 and 12's per-kernel split: each kernel's mean device time over
+  the launches the trace holds (a trace that lost launches late in a long
+  process still gives each launch's time); a trace without one of the
+  expected kernels is taken again, 3 times in all, then "not measured"."""
+  import torch
+  monkeypatch.setattr(torch.profiler, "profile", _SplitTrace)
+  monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+  names = [f"void (anonymous namespace)::wn_bwd_{k}_kernel<512>(...)"
+           for k in kl.BWD_KERNELS]
+  trace = [(n, 0.5 * (i + 1)) for _ in range(kept) for i, n in enumerate(names)]
+  traces = []
+
+  def device_kernels(prof):
+    traces.append(prof)
+    return trace[1:] if kept == 10 else trace
+
+  monkeypatch.setattr(smoke, "device_kernels", device_kernels)
+  got = smoke.kernel_split(lambda: None, smoke.BWD_SPLIT, len(kl.BWD_KERNELS))
+  assert len(traces) == (3 if kept == 0 else 1)
+  if kept == 0:
+    assert got == "not measured"
+  else:
+    assert got == pytest.approx(
+        {k: 0.5 * (i + 1) for i, k in enumerate(kl.BWD_KERNELS)})

@@ -80,11 +80,13 @@ def test_kernel_matches_plain(cuda, dilation, last, bf16, c):
 
 
 # Time rows per tile of each forward kernel: the bf16 tensor-core kernel's
-# block, and the f32 kernel's tile (its blocks take whole shares of the B*T
-# rows in such tiles, the last one short). The bf16 backward's rows kernel
-# also works in 64-row tiles.
+# block at C <= 256, and the f32 kernel's tile (its blocks take whole shares
+# of the B*T rows in such tiles, the last one short); the bf16 kernels at C
+# = 512 take units of kl.WIDE_TILE_ROWS flat B*T rows. The bf16 backward's
+# prep, rows and dx kernels work in 128-row tiles
+# (test_bwd_schedule_reads_the_loaded_build reads them from the library).
 ROW_TILE = {"bf16": 64, "f32": kl.F32_TILE_ROWS}
-BWD_ROW_TILE = 64
+BWD_ROW_TILE = 128
 
 
 def check_against_plain(device, batch, t, dilation, last, bf16, valid,
@@ -126,6 +128,21 @@ def test_kernel_short_and_ragged_tiles(cuda, t, bf16, c):
   a full tile and a short one, and a tile holds the end of one sequence and
   the start of the next."""
   check_against_plain(cuda, 2, t, 2, False, bf16, [t, t - 5], seed=5, c=c)
+
+
+@pytest.mark.parametrize("batch,t", [
+    (1, kl.WIDE_TILE_ROWS - 1), (1, kl.WIDE_TILE_ROWS),
+    (1, kl.WIDE_TILE_ROWS + 1), (2, kl.WIDE_TILE_ROWS // 2),
+    (2, kl.WIDE_TILE_ROWS // 2 + 1), (3, 43)])
+def test_wide_kernel_ragged_last_unit(cuda, batch, t):
+  """The bf16 kernels at C = 512 walk units of WIDE_TILE_ROWS flat B*T
+  rows: B*T one unit less one row, one unit, one unit plus one row (a
+  1-row last unit, at B=1 and at B=3, where a unit holds the end of one
+  sequence and the start of the next), and two sequences that fill one
+  unit or spill two rows into a second."""
+  valid = [t - 5 * (row % 2) for row in range(batch)]
+  check_against_plain(cuda, batch, t, 2, False, True, valid, seed=5,
+                      c=kl.WIDE_C)
 
 
 @pytest.mark.parametrize("t,bf16", [
@@ -396,9 +413,11 @@ def test_bwd_kernel_matches_plain(cuda, dilation, last, c):
 
 
 @pytest.mark.parametrize("c", WIDTHS)
-@pytest.mark.parametrize("t", [17, BWD_ROW_TILE + 1])
+@pytest.mark.parametrize("t", [17, 65, BWD_ROW_TILE - 1, BWD_ROW_TILE,
+                               BWD_ROW_TILE + 1])
 def test_bwd_kernel_short_and_ragged_tiles(cuda, t, c):
-  """T shorter than one row tile, and one tile plus one row."""
+  """T shorter than one row tile, one tile less one row, one tile, and one
+  tile plus one row (a 1-row last tile of the prep, rows and dx kernels)."""
   check_bwd_against_plain(cuda, 2, t, 2, False, [t, t - 5], seed=12, c=c)
 
 
@@ -446,13 +465,57 @@ def test_bwd_kernel_rejects_bad_inputs(cuda):
 
 @pytest.mark.parametrize("kernel,last", [("rows", False), ("rows", True),
                                          ("dx", False), ("weights", False),
-                                         ("reduce", False)])
+                                         ("reduce", False), ("prep", False),
+                                         ("prep", True)])
 @pytest.mark.parametrize("c", WIDTHS)
 def test_bwd_kernel_info_reads_the_loaded_build(cuda, kernel, last, c):
   info = kl.bwd_kernel_info(kernel, last, c)
   assert 0 < info["registers"] <= 255
   assert info["static_smem_bytes"] >= 0 and info["local_bytes"] >= 0
-  assert (info["dynamic_smem_bytes"] > 48 * 1024) == (kernel != "reduce")
+  assert (info["dynamic_smem_bytes"] > 48 * 1024) == (
+      kernel not in ("reduce", "prep"))
+
+
+# The whole layer's weights kernel's output tiles (non-last): dw_in's, then
+# dw_rs^T's (tests/test_torch_bwd_plan.py holds the host side).
+BWD_WEIGHT_TILES = {128: 5, 256: 16, 512: 64}
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bwd_schedule_reads_the_loaded_build(cuda, c):
+  """The library's tiles agree with the host's schedule: 128-row tiles of
+  the rows and prep kernels, the weights kernel's output tiles; at B=12,
+  T=2,000 its blocks fill at least one wave of the card."""
+  lib = kl._library()
+  assert lib.wn_layer_bwd_tile_rows(c, c) == 128
+  tiles = lib.wn_layer_bwd_weight_tiles(c, c, 0)
+  assert tiles == BWD_WEIGHT_TILES[c]
+  assert lib.wn_layer_bwd_weight_tiles(c, c, 1) == tiles - c // 128 * max(
+      1, c // 256)
+  sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+  n_splits, _ = kl.bwd_splits(12, 2_000, tiles, sms)
+  assert tiles * 12 * n_splits >= sms
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("batch,t", [(1, 26_432), (8, 26_432), (3, 65)])
+def test_wide_schedule_is_the_host_grid(cuda, batch, t, last):
+  """The C = 512 bf16 forward's grid as the library picks it is
+  kl.wide_grid at the slots the card holds (one block an SM)."""
+  got = kl.wide_schedule(batch, t, last)
+  sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+  assert got["slots"] == sms
+  want = kl.wide_grid(batch, t, last, got["slots"])
+  assert {k: got[k] for k in ("tiles", "gate_blocks", "rs_blocks")} == {
+      k: want[k] for k in ("tiles", "gate_blocks", "rs_blocks")}
+
+
+@pytest.mark.parametrize("kernel,last", [("gate", False), ("rs", False),
+                                         ("rs", True), ("round", False)])
+def test_wide_kernel_info_reads_the_loaded_build(cuda, kernel, last):
+  info = kl.wide_kernel_info(kernel, last)
+  assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
+  assert (info["dynamic_smem_bytes"] == 196_608) == (kernel != "round")
 
 
 def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
@@ -911,7 +974,7 @@ def test_bwd_kernel_launches_on_the_tensors_card(cuda, c):
     assert g.device == other and torch.equal(g, r)
 
 
-# -- the trainable shard's bf16 backward (csrc/wn_layer_shard_bwd.cu) ------------
+# -- the trainable shard's bf16 backward (csrc/wn_layer_bwd.cu) ------------------
 
 def shard_bwd_inputs(device, batch, t, c, model, rank, last, seed=0):
   """Rank ``rank``'s bf16 saved inputs of the trainable shard and a
@@ -1092,10 +1155,10 @@ def test_shard_bwd_schedule_reads_the_loaded_build(cuda, c, cp):
   the rows kernel, the weights kernel's output tiles; at B=12, T=2,000 its
   blocks fill at least one wave of the card."""
   lib = kl._library()
-  assert lib.wn_layer_shard_bwd_tile_rows(c, cp) == 128
-  tiles = lib.wn_layer_shard_bwd_weight_tiles(c, cp, 0)
+  assert lib.wn_layer_bwd_tile_rows(c, cp) == 128
+  tiles = lib.wn_layer_bwd_weight_tiles(c, cp, 0)
   assert tiles == SBWD_WEIGHT_TILES[(c, cp)]
-  assert lib.wn_layer_shard_bwd_weight_tiles(c, cp, 1) == tiles - c // 128
+  assert lib.wn_layer_bwd_weight_tiles(c, cp, 1) == tiles - c // 128
   sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-  n_splits, _ = kl.shard_bwd_splits(12, 2_000, tiles, sms)
+  n_splits, _ = kl.bwd_splits(12, 2_000, tiles, sms)
   assert tiles * 12 * n_splits >= sms

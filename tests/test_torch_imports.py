@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``waveglow_tpu_torch`` and neither
-``chip_smoke.py`` nor ``bwd_ablation.py`` imports jax or anything of the
+``chip_smoke.py`` nor an ablation script imports jax or anything of the
 JAX package, nor a package that the card's machine does not have (it has
 torch, numpy and scipy, not matplotlib, pandas, Pillow or tensorstore).
 ``torch.utils.tensorboard`` stays allowed: the training loop imports it
@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "waveglow_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bwd_ablation.py",
-    ROOT / "sbwd_ablation.py"]
+    ROOT / "sbwd_ablation.py", ROOT / "fwd_ablation.py",
+    ROOT / "ablation.py", ROOT / "fwd_compare.py"]
 
 
 def imported_modules(path: Path):

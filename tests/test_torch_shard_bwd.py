@@ -1,11 +1,12 @@
 """The bf16 shard backward's host-side schedule and its build checks, on the
 CPU (no library is loaded).
 
-``shard_bwd_splits`` cuts the weights kernel's rows so its blocks fill the
-card's waves; ``shard_bwd_scratch`` lays its scratch out in one
-allocation; ``count_mma`` (HGMMA alone), ``wgmma_serialized`` and
-``check_wgmma`` hold the redesigned kernels to wgmma in phase 2 of
-``chip_smoke.py``.
+``bwd_splits`` cuts the weights kernel's rows so its blocks fill the
+card's waves; ``bwd_scratch`` lays its scratch out in one allocation;
+``count_mma`` (HGMMA alone), ``wgmma_serialized`` and ``check_wgmma`` hold
+the redesigned kernels to wgmma in phase 2 of ``chip_smoke.py``. The whole
+layer's backward, which shares these, is tested in
+``test_torch_bwd_plan.py``.
 """
 
 import importlib.util
@@ -20,7 +21,7 @@ SMS = 132  # an H100 SXM
 
 # The weights kernel's output tiles at each pair (non-last layer): dw_in_s's
 # 128-row tiles of 3C x ceil(2C' / min(2C', 256)), then dw_rs_s^T's n_rs /
-# 128 (wn_layer_shard_bwd_weight_tiles; the card's test reads the library).
+# 128 (wn_layer_bwd_weight_tiles; the card's test reads the library).
 WEIGHT_TILES = {(128, 64): 5, (128, 32): 5, (128, 16): 5, (256, 128): 10,
                 (256, 64): 10, (256, 32): 10, (512, 256): 32,
                 (512, 128): 20, (512, 64): 20}
@@ -46,8 +47,8 @@ def test_splits_fill_a_wave_at_the_training_shapes(pair, batch):
   weights kernel gets at least one full wave of blocks, whole 64-row
   chunks a range, the ranges covering T with no empty one."""
   t, tiles = 2_000, WEIGHT_TILES[pair]
-  n_splits, split_rows = kl.shard_bwd_splits(batch, t, tiles, SMS)
-  assert split_rows % kl.SHARD_BWD_CHUNK_ROWS == 0
+  n_splits, split_rows = kl.bwd_splits(batch, t, tiles, SMS)
+  assert split_rows % kl.BWD_CHUNK_ROWS == 0
   assert (n_splits - 1) * split_rows < t <= n_splits * split_rows
   blocks = tiles * batch * n_splits
   assert blocks >= SMS
@@ -64,13 +65,13 @@ def test_splits_fill_a_wave_at_the_training_shapes(pair, batch):
     (1, 129, 5, (3, 64))])        # too few rows for a wave: the fullest
 def test_splits_take_the_fewest_ranges_that_fill_the_waves(batch, t, tiles,
                                                            want):
-  assert kl.shard_bwd_splits(batch, t, tiles, SMS) == want
+  assert kl.bwd_splits(batch, t, tiles, SMS) == want
 
 
 def test_splits_stop_at_four_waves():
   """Where no cut fills 85% of its last wave, the fullest within 4 waves
   wins (C = 128 at batch 4: 11 ranges, 220 blocks, not 32 of 64 rows)."""
-  assert kl.shard_bwd_splits(4, 2_000, 5, SMS) == (11, 192)
+  assert kl.bwd_splits(4, 2_000, 5, SMS) == (11, 192)
 
 
 @pytest.mark.parametrize("last", [False, True])
@@ -79,7 +80,7 @@ def test_scratch_is_one_aligned_allocation(last):
   (at (256, 128), B = 12, T = 2,000, 2 ranges a batch row, 128-row tiles:
   68,370,432 bytes for a non-last layer)."""
   batch, t, c, cp, splits = 12, 2_000, 256, 128, 2
-  plan = kl.shard_bwd_scratch(batch, t, c, cp, last, splits, 128)
+  plan = kl.bwd_scratch(batch, t, c, cp, last, splits, 128)
   n_rs = c if last else 2 * c
   rows = batch * t
   assert plan["sizes"] == {
@@ -123,10 +124,10 @@ def test_count_mma_counts_wgmma_alone(smoke):
 
 def test_check_wgmma_demands_hgmma_of_the_shard_backward(smoke):
   """mma.sync (HMMA) no longer passes for the shard backward's product
-  kernels; the reduce kernel and the other bf16 kernels are not held."""
+  kernels; the reduce kernel and the C <= 256 forward are not held."""
   variants = [smoke.shard_bwd_variant(*v) for v in smoke.SHARD_BWD_KERNELS]
   variants += ["bf16,C=256,layer", "bf16,C=256,bwd-dx"]
-  hgmma = {name: (0 if name.startswith("reduce") or ",sbwd" not in name
+  hgmma = {name: (0 if name.startswith("reduce") or name == "bf16,C=256,layer"
                   else 8) for name in variants}
   smoke.check_wgmma(hgmma, set(), variants)  # passes
   hgmma["bf16,C=512,C'=256,sbwd-rows,last"] = 0

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) warpgroup matrix products for the bf16 shard backward
-// (wn_layer_shard_bwd.cu): the wgmma ordering instructions, shared-memory
+// Hopper (sm_90a) warpgroup matrix products for the bf16 kernels (the
+// backward, wn_layer_bwd.cu, and the forward's bf16 kernels, wn_layer.cu):
+// the wgmma ordering instructions, shared-memory
 // matrix descriptors for the 128-byte swizzle, the byte offsets of that
 // swizzle in both operand layouts, and m64nNk16 products (bf16 operands
 // from shared memory, f32 accumulators in registers) at N = 16 .. 256 with

@@ -94,15 +94,31 @@
 //     writes rows < T only (the ragged last tile).
 //   * C = 128 runs the same code with one warpgroup (128 threads).
 //   * C = 512 does not fit that layout (the three tap windows alone take
-//     192 KB), so it streams the taps: 64-row x 64-channel blocks of one tap,
-//     rounded to bf16 into a 3-block ring one block ahead of the wgmmas that
-//     read them (ld.global, convert, st.shared while the previous chunk's
-//     wgmmas run). Each product runs in two passes of 256 channels (the
-//     block's 128 accumulators a thread hold one pass): the first product's
-//     gate columns, then the res/skip columns (the last layer: all its C
-//     skip columns in one pass). The acts [64][C] stay resident as the
-//     second product's A operand; cond and the skip sum are read from global
-//     memory by the gate and the epilogue. 221,184 bytes of shared memory.
+//     192 KB, and a thread's 128 accumulators hold 256 of the 1,024 gate
+//     columns of 64 rows). Streaming the taps through it, as a 64-row tile
+//     whose products run in two passes, read all 4.19 MB of weights from L2
+//     for every 64 rows and rounded the taps again on every pass. So C =
+//     512 runs three kernels instead, all wgmma m64n128k16 through one
+//     4-stage cp.async ring whose stage is a 64-deep K chunk (A [128
+//     rows][64] K-major, B [64][256] MN-major; 196,608 bytes):
+//       wn_layer_kernel_round - x rounded to bf16 once (a scratch the
+//         wrapper allocates, with the acts'): every tap of every pass then
+//         reads it as it is.
+//       wn_layer_kernel_gate - a unit is 128 rows of the flat B*T rows (two
+//         warpgroups of 64) x one pass of 128 channels: pre = the three
+//         taps (rows of the row's own sequence, zero outside [0, T)) @
+//         w_in at the pass's 128 tanh and 128 sigmoid columns, K = 3C in
+//         (tap, 64-channel) chunks, so a weight chunk read from L2 feeds 128
+//         rows; then the gate in f32 on the accumulators, the acts rounded
+//         to bf16 into the scratch.
+//       wn_layer_kernel_rs<last> - a unit is 128 rows x 256 of the n_rs
+//         columns (the residual's 128 with the skip's 128 of the same
+//         channels; the last layer's skip in two halves): rs = acts @ w_rs,
+//         K = C; the epilogue of the C <= 256 kernel.
+//     Each is one wave of persistent blocks (one an SM, as many as the
+//     device holds, no more than units), each walking the units blockIdx +
+//     k * gridDim; the four passes of a tile are neighbours, so its taps
+//     are read from L2 while the other passes still hold them.
 // No atomics, no split K: the sums run in one fixed order, so two launches
 // give the same bits.
 //
@@ -110,7 +126,11 @@
 // shape above (d=1): the f32 kernel 0.75 ms against the 0.41 ms bound (55%;
 // 1.01 ms for the 32-row design it replaced, in the same run), with 167
 // registers, 193,280 bytes of shared memory and no spills; the bf16 kernel
-// 0.17 ms against the 0.041 ms bound (24%). PERF.md keeps the times;
+// 0.17 ms against the 0.041 ms bound (24%). At C = 512 (phase 12, same
+// shape) the three bf16 kernels take 0.43 ms (round 0.027, gate 0.244, rs
+// 0.142) against the 0.112 ms bound (26%) and 0.79 ms for the streamed
+// design they replaced; the gate kernel is bound by no one of its copies
+// or wgmmas (fwd_ablation.py). PERF.md keeps the times;
 // wn_layer_kernel_info reports the registers, spills and shared memory of
 // the loaded build.
 
@@ -118,9 +138,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
 #include "f32_ring.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
@@ -472,41 +494,6 @@ struct Mma {
                 "the skip sum fits windows 0 and 1");
 };
 
-// The layout at C = 512, taps streamed: two warpgroups, passes of 256
-// channels; a ring of kABlocks tap blocks [64 rows][64 channels], the
-// weight ring, and the acts window [64 rows][C].
-struct MmaWide {
-  static constexpr int kC = 512;
-  static constexpr int kThreads = 256;
-  static constexpr int kPassC = 256;                       // channels a pass
-  static constexpr int kPasses = kC / kPassC;
-  static constexpr int kInPerPass = 3 * kC / kKChunk;      // 48
-  static constexpr int kInChunks = kPasses * kInPerPass;   // 96
-  static constexpr int kRsPerPass = kC / kKChunk;          // 16
-  static constexpr int kChunksPerTap = kC / kKChunk;       // 16
-  static constexpr int kABlocks = 3;                       // tap block ring
-  static constexpr int kTapBlocks = kPasses * 3 * kC / 64;  // 48 a tile
-  static constexpr int kARingBytes = kABlocks * kKBlockBytes;      // 24,576
-  static constexpr int kStageBytes = 2 * kPassC / 64 * kBlockBytes;  // 32,768
-  static constexpr int kActsBytes = kC / 64 * kKBlockBytes;        // 65,536
-  static constexpr int kSmemBytes =
-      kARingBytes + kStages * kStageBytes + kActsBytes;            // 221,184
-  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
-  static_assert(kARingBytes % 1024 == 0, "swizzled slots need 1024-byte alignment");
-};
-
-template <int kC>
-constexpr int mma_threads() {
-  if constexpr (kC <= 256) return Mma<kC>::kThreads;
-  else return MmaWide::kThreads;
-}
-
-template <int kC>
-constexpr int mma_smem_bytes() {
-  if constexpr (kC <= 256) return Mma<kC>::kSmemBytes;
-  else return MmaWide::kSmemBytes;
-}
-
 // Byte offset of (row, ch) in a window: K-major with the 128-byte swizzle,
 // so channel block ch / 64 at (ch / 64) * kKBlockBytes, rows 128 bytes
 // apart in it, and 16-byte piece p of a row at p ^ (row % 8). The 8 rows
@@ -521,75 +508,6 @@ __device__ __forceinline__ int tile_off(int row, int ch) {
 template <int kC>
 __device__ __forceinline__ int skip_off(int row, int ch) {
   return row * kC * 4 + (((ch / 4) ^ (row % 8)) * 16) + (ch % 4) * 4;
-}
-
-// Makes this thread's generic-proxy writes to shared memory (stores,
-// cp.async) visible to the async proxy, where wgmma reads its operands.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma ordering: the fence before the first wgmma on freshly written
-// accumulators, the commit of the wgmmas started so far as one group, and the
-// wait until at most kPending groups are in flight.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Pins the accumulators at this point of the program: the compiler may not
-// move their reads above a wait, nor copy them between wgmmas.
-__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Descriptor of A: 64 rows x 16 K of a window from `addr` (K-major, 128-byte
-// swizzle, groups of 8 rows 1024 bytes apart; the leading offset is unused
-// when K fits one swizzle row).
-__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// Descriptor of B: 16 K x 128 columns of a ring slot from `addr` (N-major,
-// 128-byte swizzle, column blocks kBlockBytes apart, groups of 8 K rows
-// 1024 bytes apart).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kBlockBytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d += A @ B, one m64n128k16 product of the warpgroup on the tensor cores,
-// both operands from shared memory (A K-major, B N-major); bf16 operands,
-// f32 accumulators.
-__device__ __forceinline__ void wgmma_n128(float (&d)[kAcc], uint64_t desc_a,
-                                           uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -792,9 +710,11 @@ __device__ __forceinline__ void mma_resident(
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kKChunk / 16; ++k) {  // k16 steps: 32 bytes of A, 16 B rows
-      const uint64_t da = a_desc(a0 + k * 32);
-      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
-      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+      const uint64_t da = kmajor_desc(a0 + k * 32);
+      wgmma_m64<128, 0, 1>(acc_a, da,
+                           mnmajor_desc(slot + b_a + k * 16 * 128, kBlockBytes));
+      wgmma_m64<128, 0, 1>(acc_b, da,
+                           mnmajor_desc(slot + b_b + k * 16 * 128, kBlockBytes));
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -854,9 +774,12 @@ __device__ __forceinline__ void mma_resident(
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kKChunk / 16; ++k) {
-      const uint64_t da = a_desc(a0 + k * 32);
-      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
-      if constexpr (!kLast) wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+      const uint64_t da = kmajor_desc(a0 + k * 32);
+      wgmma_m64<128, 0, 1>(acc_a, da,
+                           mnmajor_desc(slot + b_a + k * 16 * 128, kBlockBytes));
+      if constexpr (!kLast)
+        wgmma_m64<128, 0, 1>(acc_b, da,
+                             mnmajor_desc(slot + b_b + k * 16 * 128, kBlockBytes));
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -922,284 +845,365 @@ __device__ __forceinline__ void mma_resident(
   }
 }
 
-// ---- C = 512: the taps streamed ---------------------------------------------
+// ---- C = 512: the taps rounded once, 128-row units, a persistent grid ----
 
-// Start the cp.async copies of chunk `chunk` of the wide kernel's weight
-// sequence into its ring slot: per pass p of the first product, w_in rows
-// [32 kc, 32 kc + 32) (kc = chunk % kInPerPass) at the pass's tanh columns
-// [256p, +256) then its sigmoid columns [C + 256p, +256); then per pass of
-// the second, w_rs rows at the pass's residual and skip columns (the last
-// layer: one pass, its skip columns [0, 256) then [256, 512)).
+// The three kernels of the C = 512 layer (see the note at the top): the
+// layout of a unit's ring. Two warpgroups, 64 rows each, hold a unit's 128
+// rows; a stage is one 64-deep K chunk: A [128 rows][64 K] K-major, then B
+// [64 K][256 N] MN-major in four 64-column blocks, both with the 128-byte
+// swizzle (sm90_wgmma.cuh).
+struct Wide {
+  static constexpr int kC = 512;
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 128;                   // rows of a unit
+  static constexpr int kKC = 64;                      // K of a chunk
+  static constexpr int kABytes = kTile * 128;         // 16,384
+  static constexpr int kNBlock = 64 * 128;            // [64 K][64 N]: 8,192
+  static constexpr int kStageBytes = kABytes + 4 * kNBlock;  // 49,152
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 2;          // chunks in flight
+  static constexpr int kSmem = kStages * kStageBytes;  // 196,608
+  static constexpr int kGatePasses = kC / 128;        // 128 channels a pass
+  static constexpr int kGateChunks = 3 * kC / kKC;    // 24
+  static constexpr int kRsChunks = kC / kKC;          // 8
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// Passes of the res/skip product: 256 of its n_rs columns each.
 template <bool kLast>
-__device__ __forceinline__ void wide_load_chunk(uint32_t ring, int chunk,
-                                                const bf16* w_in,
-                                                const bf16* w_rs) {
-  using L = MmaWide;
-  constexpr int C = L::kC;
-  constexpr int N_RS = kLast ? C : 2 * C;
-  const uint32_t slot = ring + (chunk % kStages) * L::kStageBytes;
-  if (chunk < L::kInChunks) {
-    const int p = chunk / L::kInPerPass, kc = chunk % L::kInPerPass;
-    copy_chunk<L::kThreads, 2 * L::kPassC, L::kPassC>(
-        slot, w_in + kc * kKChunk * 2 * C, 2 * C, p * L::kPassC,
-        C + p * L::kPassC);
-  } else {
-    const int j = chunk - L::kInChunks;
-    const int p = j / L::kRsPerPass, kc = j % L::kRsPerPass;
-    copy_chunk<L::kThreads, 2 * L::kPassC, L::kPassC>(
-        slot, w_rs + kc * kKChunk * N_RS, N_RS, p * L::kPassC,
-        kLast ? L::kPassC : C + p * L::kPassC);
-  }
+__host__ __device__ constexpr int wide_rs_passes() {
+  return (kLast ? Wide::kC : 2 * Wide::kC) / 256;
 }
 
-// Stage tap block `blk` of the tile (pass-local block blk % 24: tap
-// (blk % 24) / 8, channels 64 ((blk % 24) % 8) + [0, 64)) into A ring slot
-// blk % kABlocks: x rows t0 + r + (tap-1)*d rounded to bf16, zero outside
-// [0, T), in the window layout; two rounds of two 16-byte loads a thread.
-__device__ __forceinline__ void wide_stage_taps(char* aring, int blk,
-                                                const float* xb, int t0, int T,
-                                                int dilation) {
-  using L = MmaWide;
-  constexpr int kQ = 64 / 4;  // float4 of a block row
-  constexpr int kRound = 2;
-  const int lb = blk % (3 * L::kC / 64);
-  const int tap = lb / (L::kC / 64);
-  const int cb = (lb % (L::kC / 64)) * 64;
-  char* dst = aring + (blk % L::kABlocks) * kKBlockBytes;
-#pragma unroll
-  for (int p0 = 0; p0 < kMmaRows * kQ / L::kThreads; p0 += kRound) {
-    float4 v[kRound];
-#pragma unroll
-    for (int u = 0; u < kRound; ++u) {
-      const int p = threadIdx.x + (p0 + u) * L::kThreads;
-      const int t = t0 + p / kQ + (tap - 1) * dilation;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t >= 0 && t < T)
-        v[u] = *reinterpret_cast<const float4*>(
-            xb + static_cast<int64_t>(t) * L::kC + cb + (p % kQ) * 4);
-    }
-#pragma unroll
-    for (int u = 0; u < kRound; ++u) {
-      const int p = threadIdx.x + (p0 + u) * L::kThreads;
-      *reinterpret_cast<uint2*>(dst + tile_off(p / kQ, (p % kQ) * 4)) =
-          make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
-    }
-  }
-  fence_proxy_async();
-}
-
-// One step of the wide kernel's weight ring (as ring_step).
-template <bool kLast>
-__device__ __forceinline__ void wide_ring_step(uint32_t ring, int chunk,
-                                               const bf16* w_in,
-                                               const bf16* w_rs) {
-  constexpr int kChunks = MmaWide::kInChunks +
-                          (kLast ? 1 : MmaWide::kPasses) * MmaWide::kRsPerPass;
-  cp_async_wait<kAhead - 1>();
-  fence_proxy_async();
-  __syncthreads();
-  if (chunk + kAhead < kChunks)
-    wide_load_chunk<kLast>(ring, chunk + kAhead, w_in, w_rs);
-}
-
-// The res/skip outputs of one n8 block of accumulators (columns ch, ch+1 of
-// rows r16 + g and r16 + g + 8), as the resident kernel's epilogue forms
-// them: `res` (null on the last layer) is the residual's accumulators, `skp`
-// the skip's, `bk` the skip's bias offset.
-template <bool kLast>
-__device__ __forceinline__ void wide_store(
-    const float* res, const float* skp, int ch, int bk, int r16, int g,
-    int rows, int64_t row0, int t0, int valid, const float* x,
-    const float* b_rs, float* x_out, float* skip_out, int accumulate) {
-  constexpr int C = MmaWide::kC;
-  const float2 brs = *reinterpret_cast<const float2*>(b_rs + bk + ch);
-  float2 brr = make_float2(0.f, 0.f);
-  if constexpr (!kLast) brr = *reinterpret_cast<const float2*>(b_rs + ch);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r16 + g + 8 * h;
-    if (row >= rows) continue;
-    const int64_t off = (row0 + row) * C + ch;
-    float2 xo = *reinterpret_cast<const float2*>(x + off);
-    if constexpr (!kLast) {
-      xo.x += res[2 * h] + brr.x;
-      xo.y += res[2 * h + 1] + brr.y;
-    }
-    float2 skip = make_float2(skp[2 * h] + brs.x, skp[2 * h + 1] + brs.y);
-    if (t0 + row >= valid) xo = make_float2(0.f, 0.f);
-    *reinterpret_cast<float2*>(x_out + off) = xo;
-    if (accumulate) {
-      const float2 prev = *reinterpret_cast<const float2*>(skip_out + off);
-      skip.x += prev.x;
-      skip.y += prev.y;
-    }
-    *reinterpret_cast<float2*>(skip_out + off) = skip;
-  }
-}
-
-// The kernel at C = 512 (see the note at the top).
-template <bool kLast>
-__device__ __forceinline__ void mma_streamed(
-    const float* __restrict__ x, const bf16* __restrict__ cond,
-    const bf16* __restrict__ w_in, const float* __restrict__ b_in,
-    const bf16* __restrict__ w_rs, const float* __restrict__ b_rs,
-    const int* __restrict__ valid_t, float* __restrict__ x_out,
-    float* skip_out, int accumulate, int T, int dilation) {
-  using L = MmaWide;
-  constexpr int C = L::kC;
-  constexpr int kOutPasses = kLast ? 1 : L::kPasses;
-  constexpr int kChunks = L::kInChunks + kOutPasses * L::kRsPerPass;
-  extern __shared__ __align__(1024) uint4 smem_mma[];
-  char* aring = reinterpret_cast<char*>(smem_mma);
-  const uint32_t aring_s = smem_u32(aring);
-  const uint32_t ring_s = aring_s + L::kARingBytes;
-  char* acts = aring + L::kARingBytes + kStages * L::kStageBytes;
-  const uint32_t acts_s = smem_u32(acts);
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kMmaRows;
-  const int rows = min(kMmaRows, T - t0);
-  const int64_t row0 = static_cast<int64_t>(b) * T + t0;
-  const float* xb = x + static_cast<int64_t>(b) * T * C;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wg = warp / 4;
-  const int r16 = (warp % 4) * 16;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int col0 = wg * kGroupCols;  // of the pass's 256 columns of each half
-  const uint32_t b_a = (col0 / 64) * kBlockBytes;
-  const uint32_t b_b = ((L::kPassC + col0) / 64) * kBlockBytes;
-
-  for (int c = 0; c < kAhead; ++c) {
-    wide_load_chunk<kLast>(ring_s, c, w_in, w_rs);
+// A unit's products: kChunks K chunks through the ring, `load(stage, j)`
+// starting this thread's copies of chunk j (no commit) kAhead steps ahead
+// of its wgmmas; acc_a += A @ B[:, 0:128) and acc_b += A @ B[:, 128:256)
+// over the warpgroup's 64 rows. Past each step's barrier every warpgroup
+// has waited for the wgmmas of chunk j - 2, whose stage takes chunk j + 2.
+// Returns with every wgmma and copy of the unit done.
+template <int kChunks, typename Load>
+__device__ __forceinline__ void wide_products(uint32_t ring,
+                                              float (&acc_a)[kAcc],
+                                              float (&acc_b)[kAcc],
+                                              const Load& load) {
+  using L = Wide;
+  const uint32_t a_wg = (threadIdx.x / 128) * (L::kABytes / 2);
+  for (int c = 0; c < L::kAhead; ++c) {
+    load(ring + c * L::kStageBytes, c);
     cp_async_commit();
   }
-  wide_stage_taps(aring, 0, xb, t0, T, dilation);
-
-  float acc_a[kAcc], acc_b[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
-
-  // ---- first product, two passes: acc_a the tanh columns [256p + col0,
-  // +128), acc_b the sigmoid columns [C + 256p + col0, +128); chunk c reads
-  // tap block c / 2, staged at step c - 2 (one block ahead, every 2 steps)
 #pragma unroll 1
-  for (int chunk = 0; chunk < L::kInChunks; ++chunk) {
-    wide_ring_step<kLast>(ring_s, chunk, w_in, w_rs);
+  for (int j = 0; j < kChunks; ++j) {
+    cp_async_wait<L::kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (j + L::kAhead < kChunks)
+      load(ring + ((j + L::kAhead) % L::kStages) * L::kStageBytes,
+           j + L::kAhead);
     cp_async_commit();
-    const int blk = chunk / 2;
-    const uint32_t a0 = aring_s + (blk % L::kABlocks) * kKBlockBytes +
-                        (chunk % 2) * kKChunk * 2;
-    const uint32_t slot = ring_s + (chunk % kStages) * L::kStageBytes;
+    const uint32_t st = ring + (j % L::kStages) * L::kStageBytes;
     fence_acc(acc_a);
     fence_acc(acc_b);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kKChunk / 16; ++k) {
-      const uint64_t da = a_desc(a0 + k * 32);
-      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
-      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
-    }
-    wgmma_commit();
-    // the next tap block, while this chunk's wgmmas run: its slot last held
-    // block blk - 2, whose chunks the barrier proved done
-    if (chunk % 2 == 0 && blk + 1 < L::kTapBlocks)
-      wide_stage_taps(aring, blk + 1, xb, t0, T, dilation);
-    wgmma_wait<1>();
-    fence_acc(acc_a);
-    fence_acc(acc_b);
-    if (chunk % L::kInPerPass != L::kInPerPass - 1) continue;
-
-    // ---- the pass's gate (f32) on the accumulators, acts as bf16 --------
-    // rows >= T have zero taps and cond; their acts feed rows not stored
-    wgmma_wait<0>();
-    fence_acc(acc_a);
-    fence_acc(acc_b);
-    const int pc = (chunk / L::kInPerPass) * L::kPassC + col0;
-#pragma unroll
-    for (int j = 0; j < kAcc / 4; ++j) {
-      const int ch = pc + 8 * j + 2 * tig;
-      const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
-      const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r16 + g + 8 * h;
-        float2 ct = make_float2(0.f, 0.f), cs = make_float2(0.f, 0.f);
-        if (row < rows) {
-          const bf16* cr = cond + (row0 + row) * 2 * C + ch;
-          ct = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr));
-          cs = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr + C));
-        }
-        const float gt0 = acc_a[4 * j + 2 * h] + bt.x + ct.x;
-        const float gt1 = acc_a[4 * j + 2 * h + 1] + bt.y + ct.y;
-        const float gs0 = acc_b[4 * j + 2 * h] + bs.x + cs.x;
-        const float gs1 = acc_b[4 * j + 2 * h + 1] + bs.y + cs.y;
-        const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
-        const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
-        *reinterpret_cast<uint32_t*>(acts + tile_off(row, ch)) = pack_bf16(v0, v1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
-  }
-
-  // ---- second product, per pass p: acc_a the residual columns [256p +
-  // col0, +128), acc_b the skip columns [C + 256p + col0, +128) (the last
-  // layer: skip columns [col0, +128) and [256 + col0, +128))
-  const int valid = valid_t != nullptr ? valid_t[b] : T;
-#pragma unroll 1
-  for (int chunk = L::kInChunks; chunk < kChunks; ++chunk) {
-    // also hands the acts to the async proxy and orders them
-    wide_ring_step<kLast>(ring_s, chunk, w_in, w_rs);
-    cp_async_commit();
-    const int j = chunk - L::kInChunks;
-    const int k0 = (j % L::kRsPerPass) * kKChunk;
-    const uint32_t a0 = acts_s + (k0 / 64) * kKBlockBytes + (k0 % 64) * 2;
-    const uint32_t slot = ring_s + (chunk % kStages) * L::kStageBytes;
-    fence_acc(acc_a);
-    fence_acc(acc_b);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < kKChunk / 16; ++k) {
-      const uint64_t da = a_desc(a0 + k * 32);
-      wgmma_n128(acc_a, da, b_desc(slot + b_a + k * 16 * 128));
-      wgmma_n128(acc_b, da, b_desc(slot + b_b + k * 16 * 128));
+    for (int k = 0; k < L::kKC / 16; ++k) {
+      const uint64_t da = kmajor_desc(st + a_wg + k * 32);
+      wgmma_m64<128, 0, 1>(
+          acc_a, da, mnmajor_desc(st + L::kABytes + k * 2048, L::kNBlock));
+      wgmma_m64<128, 0, 1>(
+          acc_b, da,
+          mnmajor_desc(st + L::kABytes + 2 * L::kNBlock + k * 2048,
+                       L::kNBlock));
     }
     wgmma_commit();
     wgmma_wait<1>();
     fence_acc(acc_a);
     fence_acc(acc_b);
-    if (j % L::kRsPerPass != L::kRsPerPass - 1) continue;
-
-    // ---- epilogue of the pass: residual, valid_t mask, skip sum (f32) ---
-    wgmma_wait<0>();
-    fence_acc(acc_a);
-    fence_acc(acc_b);
-    const int pc = (j / L::kRsPerPass) * L::kPassC + col0;
-#pragma unroll
-    for (int jj = 0; jj < kAcc / 4; ++jj) {
-      const int ch = pc + 8 * jj + 2 * tig;
-      if constexpr (kLast) {
-        wide_store<true>(nullptr, acc_a + 4 * jj, ch, 0, r16, g, rows, row0, t0,
-                         valid, x, b_rs, x_out, skip_out, accumulate);
-        wide_store<true>(nullptr, acc_b + 4 * jj, ch + L::kPassC, 0, r16, g,
-                         rows, row0, t0, valid, x, b_rs, x_out, skip_out,
-                         accumulate);
-      } else {
-        wide_store<false>(acc_a + 4 * jj, acc_b + 4 * jj, ch, C, r16, g, rows,
-                          row0, t0, valid, x, b_rs, x_out, skip_out,
-                          accumulate);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
   }
+  wgmma_wait<0>();
+  fence_acc(acc_a);
+  fence_acc(acc_b);
   cp_async_wait<0>();
 }
 
+// cp.async 64 K rows of a bf16 weight (rows `ld` elements apart from `src`)
+// into the stage's B: its 256 columns are [a, a + 128) then [b, b + 128)
+// of the source row.
+__device__ __forceinline__ void wide_load_b(uint32_t stage, const bf16* src,
+                                            int ld, int a, int b) {
+  using L = Wide;
+#pragma unroll
+  for (int i = 0; i < L::kKC * 32 / L::kThreads; ++i) {
+    const int p = threadIdx.x + i * L::kThreads;
+    const int k = p / 32, n = (p % 32) * 8;
+    const int col = n < 128 ? a + n : b + n - 128;
+    cp_async16(stage + L::kABytes + (n / 64) * L::kNBlock +
+                   sw128_piece(k, (n % 64) / 8),
+               src + static_cast<int64_t>(k) * ld + col);
+  }
+}
+
+// x rounded to bf16, once a layer: the taps' operand of the gate kernel.
+// A grid-stride loop over the float4 of x, a batch of loads in flight.
+__global__ void __launch_bounds__(256)
+wn_layer_kernel_round(const float* __restrict__ x, bf16* __restrict__ x_bf,
+                      int64_t n4) {
+  constexpr int kBatch = 8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+       i0 < n4; i0 += kBatch * stride) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int64_t i = i0 + u * stride;
+      v[u] = i < n4 ? reinterpret_cast<const float4*>(x)[i]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int64_t i = i0 + u * stride;
+      if (i < n4)
+        reinterpret_cast<uint2*>(x_bf)[i] =
+            make_uint2(pack_bf16(v[u].x, v[u].y), pack_bf16(v[u].z, v[u].w));
+    }
+  }
+}
+
+// The gate: unit u = (tile u / 4 of 128 flat rows, pass u % 4 of 128
+// channels); the block walks units blockIdx.x + k * gridDim.x. pre = the
+// three taps of bf16 x (rows t + (tap-1)*d of the row's own sequence, zero
+// outside [0, T)) @ w_in at the pass's tanh columns (acc_a) and sigmoid
+// columns (acc_b), K = 3C in chunks of (tap, 64 channels); then the gate in
+// f32 on the accumulators, the acts rounded to bf16 into `acts`.
+__global__ void __launch_bounds__(256, 1)
+wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
+                     const bf16* __restrict__ cond,
+                     const bf16* __restrict__ w_in,
+                     const float* __restrict__ b_in, bf16* __restrict__ acts,
+                     int total_rows, int T, int dilation) {
+  using L = Wide;
+  constexpr int C = L::kC;
+  extern __shared__ __align__(1024) uint4 smem_wide[];
+  const uint32_t ring = smem_u32(smem_wide);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;  // the warp's rows of the unit (both groups)
+  const int g = lane / 4, tig = lane % 4;
+  const int q = threadIdx.x % 8;
+  const int units = (total_rows + L::kTile - 1) / L::kTile * L::kGatePasses;
+
+#pragma unroll 1
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int p = u % L::kGatePasses;
+    const int r0 = u / L::kGatePasses * L::kTile;
+    const int rows = min(L::kTile, total_rows - r0);
+    // this thread's A rows tid / 8 + 32i: flat row, and time in its
+    // sequence (far negative past the last row)
+    int64_t fr[4];
+    int tt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = threadIdx.x / 8 + 32 * i;
+      fr[i] = r0 + r;
+      tt[i] = r < rows ? r0 + r - (r0 + r) / T * T : -(1 << 30);
+    }
+    const auto load = [&](uint32_t stage, int j) {
+      const int tap = j / (C / L::kKC), cb = (j % (C / L::kKC)) * L::kKC;
+      const int shift = (tap - 1) * dilation;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = tt[i] + shift;
+        const bool ok = s >= 0 && s < T;
+        cp_async16_zfill(
+            stage + sw128_piece(threadIdx.x / 8 + 32 * i, q),
+            x_bf + (ok ? (fr[i] + shift) * C + cb + q * 8 : 0), ok);
+      }
+      wide_load_b(stage, w_in + static_cast<int64_t>(tap * C + cb) * 2 * C,
+                  2 * C, 128 * p, C + 128 * p);
+    };
+    // cond's rows of the pass's channels (both halves), into L2 under the
+    // products: two 128-byte lines of each half a row
+    for (int i = threadIdx.x; i < rows * 4; i += L::kThreads)
+      prefetch_l2(cond + (r0 + i / 4) * static_cast<int64_t>(2 * C) +
+                  (i % 4 / 2) * C + 128 * p + (i % 2) * 64);
+    float acc_a[kAcc], acc_b[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+    __syncthreads();  // the previous unit is done with the ring
+    wide_products<L::kGateChunks>(ring, acc_a, acc_b, load);
+
+    // ---- the gate (f32) on the accumulators, acts to global as bf16 ----
+    // cond of kBatch n8 blocks is loaded before any is used
+    constexpr int kBatch = 4;
+#pragma unroll
+    for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+      uint32_t cv[kBatch][2][2];  // [n8][h][tanh, sigmoid] bf16 pairs
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          const bf16* cr = cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * C +
+                           128 * p + 8 * (j0 + jj) + 2 * tig;
+          cv[jj][h][0] = *reinterpret_cast<const uint32_t*>(cr);
+          cv[jj][h][1] = *reinterpret_cast<const uint32_t*>(cr + C);
+        }
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const int j = j0 + jj;
+        const int ch = 128 * p + 8 * j + 2 * tig;
+        const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+        const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          if (row >= rows) continue;
+          const int64_t f = r0 + row;
+          const float2 ct = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&cv[jj][h][0]));
+          const float2 cs = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&cv[jj][h][1]));
+          const float gt0 = acc_a[4 * j + 2 * h] + bt.x + ct.x;
+          const float gt1 = acc_a[4 * j + 2 * h + 1] + bt.y + ct.y;
+          const float gs0 = acc_b[4 * j + 2 * h] + bs.x + cs.x;
+          const float gs1 = acc_b[4 * j + 2 * h + 1] + bs.y + cs.y;
+          const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
+          const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
+          *reinterpret_cast<uint32_t*>(acts + f * C + ch) = pack_bf16(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// The res/skip product and the epilogue: unit u = (tile u / P of 128 flat
+// rows, pass u % P of 256 columns), P = n_rs / 256. A non-last layer's pass
+// p pairs the residual columns [128p, +128) (acc_a) with the skip columns
+// [C + 128p, +128) (acc_b); the last layer's, skip columns [256p, +128) and
+// [256p + 128, +128). x' = x + res + b_rs (x on the last layer), zero at
+// rows t >= valid_t[b]; skip = rs + b_rs, plus the sum when accumulating;
+// f32, rows < total_rows only.
+template <bool kLast>
+__global__ void __launch_bounds__(256, 1)
+wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
+                   const bf16* __restrict__ w_rs,
+                   const float* __restrict__ b_rs,
+                   const int* __restrict__ valid_t, float* __restrict__ x_out,
+                   float* skip_out, int accumulate, int total_rows, int T) {
+  using L = Wide;
+  constexpr int C = L::kC;
+  constexpr int N_RS = kLast ? C : 2 * C;
+  constexpr int kPasses = wide_rs_passes<kLast>();
+  extern __shared__ __align__(1024) uint4 smem_wide[];
+  const uint32_t ring = smem_u32(smem_wide);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;
+  const int g = lane / 4, tig = lane % 4;
+  const int q = threadIdx.x % 8;
+  const int units = (total_rows + L::kTile - 1) / L::kTile * kPasses;
+
+#pragma unroll 1
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int p = u % kPasses;
+    const int r0 = u / kPasses * L::kTile;
+    const int rows = min(L::kTile, total_rows - r0);
+    const int col_a = kLast ? 256 * p : 128 * p;        // acc_a's columns
+    const int col_b = kLast ? 256 * p + 128 : C + 128 * p;  // acc_b's
+    const auto load = [&](uint32_t stage, int j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = threadIdx.x / 8 + 32 * i;
+        const bool ok = r < rows;
+        cp_async16_zfill(stage + sw128_piece(r, q),
+                         acts + (ok ? static_cast<int64_t>(r0 + r) * C +
+                                          j * L::kKC + q * 8
+                                    : 0),
+                         ok);
+      }
+      wide_load_b(stage, w_rs + static_cast<int64_t>(j) * L::kKC * N_RS, N_RS,
+                  col_a, col_b);
+    };
+    // the epilogue's rows of x and of the skip sum, into L2 under the
+    // products: the unit's 128 (last layer: 256) channels of each row
+    constexpr int kLines = (kLast ? 256 : 128) * 4 / 128;  // 128-byte lines
+    for (int i = threadIdx.x; i < rows * kLines; i += L::kThreads) {
+      const int64_t off = (r0 + i / kLines) * static_cast<int64_t>(C) + col_a +
+                          (i % kLines) * 32;
+      prefetch_l2(x + off);
+      if (accumulate) prefetch_l2(skip_out + off);
+    }
+    float acc_a[kAcc], acc_b[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+    __syncthreads();  // the previous unit is done with the ring
+    wide_products<L::kRsChunks>(ring, acc_a, acc_b, load);
+
+    // ---- epilogue: residual, valid_t mask, skip sum (f32) --------------
+    // The x and skip-sum values of kBatch n8 blocks are loaded before any is
+    // used: one wait on memory (L2, prefetched) a batch, not a value.
+    constexpr int kBatch = 4;
+    constexpr int kE = kLast ? 2 : 1;  // channel pairs a thread writes an n8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r16 + g + 8 * h;
+      if (row >= rows) continue;
+      const int64_t f = r0 + row;
+      const int b = static_cast<int>(f / T);
+      const bool keep = valid_t == nullptr ||
+                        static_cast<int>(f - static_cast<int64_t>(b) * T) <
+                            valid_t[b];
+#pragma unroll
+      for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+        // (channel, skip value) pairs: the last layer's two skip channels,
+        // or the residual's channel with its skip
+        float2 xo[kBatch][kE], prev[kBatch][kE];
+#pragma unroll
+        for (int jj = 0; jj < kBatch; ++jj)
+#pragma unroll
+          for (int e = 0; e < kE; ++e) {
+            const int64_t off = f * C + col_a + 8 * (j0 + jj) + 2 * tig + 128 * e;
+            xo[jj][e] = *reinterpret_cast<const float2*>(x + off);
+            prev[jj][e] = make_float2(0.f, 0.f);
+            if (accumulate)
+              prev[jj][e] = *reinterpret_cast<const float2*>(skip_out + off);
+          }
+#pragma unroll
+        for (int jj = 0; jj < kBatch; ++jj) {
+          const int j = j0 + jj;
+          const int ca = col_a + 8 * j + 2 * tig;  // acc_a's channel pair
+          const float2 ba = *reinterpret_cast<const float2*>(b_rs + ca);
+          const float2 bb =
+              *reinterpret_cast<const float2*>(b_rs + ca + (col_b - col_a));
+          const float2 ra = make_float2(acc_a[4 * j + 2 * h] + ba.x,
+                                        acc_a[4 * j + 2 * h + 1] + ba.y);
+          const float2 rb = make_float2(acc_b[4 * j + 2 * h] + bb.x,
+                                        acc_b[4 * j + 2 * h + 1] + bb.y);
+          float2 skip[kE];
+          if constexpr (kLast) {
+            skip[0] = ra;
+            skip[kE - 1] = rb;
+          } else {
+            xo[jj][0].x += ra.x;
+            xo[jj][0].y += ra.y;
+            skip[0] = rb;
+          }
+#pragma unroll
+          for (int e = 0; e < kE; ++e) {
+            const int64_t off = f * C + ca + 128 * e;
+            *reinterpret_cast<float2*>(x_out + off) =
+                keep ? xo[jj][e] : make_float2(0.f, 0.f);
+            *reinterpret_cast<float2*>(skip_out + off) = make_float2(
+                skip[e].x + prev[jj][e].x, skip[e].y + prev[jj][e].y);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The bf16 kernel at C <= 256 (C = 512 runs the three kernels above).
 template <int kC, bool kLast>
-__global__ void __launch_bounds__(mma_threads<kC>(), 1)
+__global__ void __launch_bounds__(Mma<kC>::kThreads, 1)
 wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
                     const bf16* __restrict__ w_in,
                     const float* __restrict__ b_in,
@@ -1207,12 +1211,8 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
                     const float* __restrict__ b_rs,
                     const int* __restrict__ valid_t, float* __restrict__ x_out,
                     float* skip_out, int accumulate, int T, int dilation) {
-  if constexpr (kC <= 256)
-    mma_resident<kC, kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out,
-                            skip_out, accumulate, T, dilation);
-  else
-    mma_streamed<kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out,
-                        skip_out, accumulate, T, dilation);
+  mma_resident<kC, kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out,
+                          skip_out, accumulate, T, dilation);
 }
 
 // ---- launch ---------------------------------------------------------------
@@ -1238,20 +1238,84 @@ struct Args {
   const int* valid_t;
   float* x_out;
   float* skip_out;
+  void* scratch;  // C = 512, bf16: x_bf, then acts, [B*T, C] bf16 each
   int accumulate, batch, T, dilation;
   cudaStream_t stream;
 };
 
+// Blocks of the C = 512 gate kernel, and of its res/skip kernel, the
+// device holds at once (one an SM: their rings take 196,608 bytes).
+cudaError_t wide_slots(bool last, int* slots) {
+  static std::atomic<int> cache[3][32];
+  static std::atomic<uint32_t> opted[3];
+  int sms = 0, per_sm = 0;
+  cudaError_t err = wave_slots(wn_layer_kernel_gate, Wide::kThreads,
+                               Wide::kSmem, cache[0], &opted[0], &sms,
+                               &per_sm);
+  if (err != cudaSuccess) return err;
+  int n = sms * per_sm;
+  err = last ? wave_slots(wn_layer_kernel_rs<true>, Wide::kThreads,
+                          Wide::kSmem, cache[1], &opted[1], &sms, &per_sm)
+             : wave_slots(wn_layer_kernel_rs<false>, Wide::kThreads,
+                          Wide::kSmem, cache[2], &opted[2], &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  *slots = std::min(n, sms * per_sm);
+  return cudaSuccess;
+}
+
+// The C = 512 layer's grid: its 128-row tiles of the B*T rows, and the
+// blocks of the gate and res/skip kernels (one wave each: no more blocks
+// than units, nor than `slots`).
+void wide_grid(int64_t rows, bool last, int slots, int* tiles,
+               int* gate_blocks, int* rs_blocks) {
+  *tiles = static_cast<int>((rows + Wide::kTile - 1) / Wide::kTile);
+  const int rs_passes = last ? wide_rs_passes<true>() : wide_rs_passes<false>();
+  *gate_blocks = std::min(*tiles * Wide::kGatePasses, slots);
+  *rs_blocks = std::min(*tiles * rs_passes, slots);
+}
+
+template <bool kLast>
+cudaError_t launch_wide(const Args& a) {
+  using L = Wide;
+  constexpr int C = L::kC;
+  if (a.scratch == nullptr) return cudaErrorInvalidValue;
+  int slots = 0;
+  cudaError_t err = wide_slots(kLast, &slots);  // also opts in
+  if (err != cudaSuccess) return err;
+  const int64_t rows = static_cast<int64_t>(a.batch) * a.T;
+  int tiles = 0, gate_blocks = 0, rs_blocks = 0;
+  wide_grid(rows, kLast, slots, &tiles, &gate_blocks, &rs_blocks);
+  bf16* x_bf = static_cast<bf16*>(a.scratch);
+  bf16* acts = x_bf + rows * C;
+  const int64_t n4 = rows * C / 4;
+  const int round_blocks = static_cast<int>(
+      std::min<int64_t>((n4 + 255) / 256, static_cast<int64_t>(slots) * 16));
+  wn_layer_kernel_round<<<round_blocks, 256, 0, a.stream>>>(a.x, x_bf, n4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wn_layer_kernel_gate<<<gate_blocks, L::kThreads, L::kSmem, a.stream>>>(
+      x_bf, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
+      a.b_in, acts, static_cast<int>(rows), a.T, a.dilation);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wn_layer_kernel_rs<kLast><<<rs_blocks, L::kThreads, L::kSmem, a.stream>>>(
+      a.x, acts, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
+      a.skip_out, a.accumulate, static_cast<int>(rows), a.T);
+  return cudaGetLastError();
+}
+
 template <int kC, bool kBf16, bool kLast>
 cudaError_t launch(const Args& a) {
-  if constexpr (kBf16) {
+  if constexpr (kBf16 && kC > 256) {
+    return launch_wide<kLast>(a);
+  } else if constexpr (kBf16) {
     static std::atomic<uint32_t> opted_in{0};
     auto kernel = wn_layer_kernel_mma<kC, kLast>;
-    constexpr int smem = mma_smem_bytes<kC>();
+    constexpr int smem = Mma<kC>::kSmemBytes;
     cudaError_t err = opt_in_smem(kernel, smem, &opted_in);
     if (err != cudaSuccess) return err;
     dim3 grid((a.T + kMmaRows - 1) / kMmaRows, a.batch);
-    kernel<<<grid, mma_threads<kC>(), smem, a.stream>>>(
+    kernel<<<grid, Mma<kC>::kThreads, smem, a.stream>>>(
         a.x, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
         a.b_in, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
         a.skip_out, a.accumulate, a.T, a.dilation);
@@ -1273,23 +1337,35 @@ cudaError_t launch(const Args& a) {
 }
 
 // The (kC, bf16, last) instance: launched with `a`, or (with `a` null) its
-// function pointer and the dynamic shared bytes its launcher passes.
+// function pointer and the dynamic shared bytes its launcher passes (at C =
+// 512 in bf16, the res/skip kernel's, which ends the layer).
 template <int kC>
 cudaError_t dispatch_width(const Args* a, int bf16_mode, int last,
                            const void** kernel, int* smem_bytes) {
 #define WN_CASE(BF, LAST, FN, SMEM)                                \
   if (a == nullptr) {                                              \
-    *kernel = reinterpret_cast<const void*>(FN<kC, LAST>);         \
+    *kernel = reinterpret_cast<const void*>(FN);                   \
     *smem_bytes = SMEM;                                            \
     return cudaSuccess;                                            \
   }                                                                \
   return launch<kC, BF, LAST>(*a)
-  if (bf16_mode) {
-    if (last) { WN_CASE(true, true, wn_layer_kernel_mma, mma_smem_bytes<kC>()); }
-    WN_CASE(true, false, wn_layer_kernel_mma, mma_smem_bytes<kC>());
+  if constexpr (kC > 256) {
+    if (bf16_mode) {
+      if (last) { WN_CASE(true, true, wn_layer_kernel_rs<true>, Wide::kSmem); }
+      WN_CASE(true, false, wn_layer_kernel_rs<false>, Wide::kSmem);
+    }
+  } else {
+    if (bf16_mode) {
+      if (last) {
+        WN_CASE(true, true, (wn_layer_kernel_mma<kC, true>), Mma<kC>::kSmemBytes);
+      }
+      WN_CASE(true, false, (wn_layer_kernel_mma<kC, false>), Mma<kC>::kSmemBytes);
+    }
   }
-  if (last) { WN_CASE(false, true, wn_layer_kernel_f32, F32<kC>::kSmemBytes); }
-  WN_CASE(false, false, wn_layer_kernel_f32, F32<kC>::kSmemBytes);
+  if (last) {
+    WN_CASE(false, true, (wn_layer_kernel_f32<kC, true>), F32<kC>::kSmemBytes);
+  }
+  WN_CASE(false, false, (wn_layer_kernel_f32<kC, false>), F32<kC>::kSmemBytes);
 #undef WN_CASE
 }
 
@@ -1318,20 +1394,23 @@ extern "C" {
 // [3C, 2C]; b_in [2C] f32; w_rs [C, 2C] or [C, C] (last); b_rs likewise f32;
 // valid_t [batch] int32 or null. cond/w_in/w_rs are bf16 when bf16 != 0,
 // else f32. accumulate != 0 adds into skip_out (in place). C must be 128,
-// 256 or 512. All pointers 16-byte aligned and contiguous. Launches on
-// `stream`, does not synchronise; returns the launch error.
+// 256 or 512. scratch: at C = 512 in bf16, 2 * batch * T * C bf16 (the
+// rounded x, then the acts), else unused. All pointers 16-byte aligned and
+// contiguous. Launches on `stream` (C = 512 in bf16: three kernels), does
+// not synchronise; returns the first launch error.
 cudaError_t wn_layer_forward(const float* x, const void* cond,
                              const void* w_in, const float* b_in,
                              const void* w_rs, const float* b_rs,
                              const int* valid_t, float* x_out,
-                             float* skip_out, int accumulate, int batch,
-                             int T, int C, int dilation, int bf16, int last,
-                             cudaStream_t stream) {
+                             float* skip_out, void* scratch, int accumulate,
+                             int batch, int T, int C, int dilation, int bf16,
+                             int last, cudaStream_t stream) {
   if (T <= 0 || batch <= 0 || batch > 65535 ||
-      static_cast<int64_t>(batch) * T > INT32_MAX)
+      static_cast<int64_t>(batch) * T > INT32_MAX - Wide::kTile)
     return cudaErrorInvalidValue;
-  const Args a{x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, skip_out,
-               accumulate, batch, T, dilation, stream};
+  const Args a{x,        cond,     w_in,    b_in,       w_rs,  b_rs,
+               valid_t,  x_out,    skip_out, scratch,   accumulate,
+               batch,    T,        dilation, stream};
   return dispatch(C, &a, bf16, last, nullptr, nullptr);
 }
 
@@ -1372,6 +1451,51 @@ cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
   const int rows = batch * T;
   *rows_per_block = one_wave_rows(rows, *sms * *blocks_per_sm, kRowQuantum);
   *blocks = (rows + *rows_per_block - 1) / *rows_per_block;
+  return cudaSuccess;
+}
+
+// What the loaded build of one of the C = 512 bf16 kernels uses (which: 0
+// the gate kernel, 1 the res/skip kernel (`last` its variant), 2 the
+// rounding of x), as wn_layer_kernel_info reports it.
+cudaError_t wn_layer_wide_kernel_info(int which, int last, int* registers,
+                                      int* local_bytes,
+                                      int* static_smem_bytes,
+                                      int* dynamic_smem_bytes) {
+  const void* kernel;
+  *dynamic_smem_bytes = Wide::kSmem;
+  switch (which) {
+    case 0: kernel = reinterpret_cast<const void*>(wn_layer_kernel_gate); break;
+    case 1:
+      kernel = last ? reinterpret_cast<const void*>(wn_layer_kernel_rs<true>)
+                    : reinterpret_cast<const void*>(wn_layer_kernel_rs<false>);
+      break;
+    case 2:
+      kernel = reinterpret_cast<const void*>(wn_layer_kernel_round);
+      *dynamic_smem_bytes = 0;
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
+// The C = 512 bf16 layer's grid for `batch` x T rows, as its launcher picks
+// it: the blocks of the gate or res/skip kernel the device holds at once,
+// the 128-row tiles, and the blocks of each kernel.
+cudaError_t wn_layer_wide_schedule(int batch, int T, int last, int* slots,
+                                   int* tiles, int* gate_blocks,
+                                   int* rs_blocks) {
+  if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t err = wide_slots(last != 0, slots);
+  if (err != cudaSuccess) return err;
+  wide_grid(static_cast<int64_t>(batch) * T, last != 0, *slots, tiles,
+            gate_blocks, rs_blocks);
   return cudaSuccess;
 }
 

@@ -4,11 +4,11 @@ their plain PyTorch versions.
 Replaces ``waveglow_tpu/kernels/wn_layer.py::_wn_layer_fused`` (Pallas, TPU).
 The forward kernels are in ``csrc/wn_layer.cu``: f32 FMAs on the CUDA cores
 for f32 (parity) and wgmma on the tensor cores for bf16; the bf16
-backward's four kernels are in ``csrc/wn_layer_bwd.cu``. The note at the
-top of each says what bounds it on an H100 and how it is laid out. Both
-are compiled with nvcc for ``sm_90a`` at first use into one library in
-``waveglow_tpu_torch/build/`` (keyed by a hash of the sources and flags)
-and bound with ctypes.
+backward's kernels (the whole layer's and a model rank's) are in
+``csrc/wn_layer_bwd.cu``. The note at the top of each says what bounds it
+on an H100 and how it is laid out. All are compiled with nvcc for
+``sm_90a`` at first use into one library in ``waveglow_tpu_torch/build/``
+(keyed by a hash of the sources and flags) and bound with ctypes.
 
 Math of one layer, channels-last (``C`` channels, dilation ``d``):
 
@@ -38,7 +38,7 @@ raises, for CUDA tensors; ``SHARD_LAUNCHES`` counts its launches.
 package's custom-VJP ``wn_layer_trainable``): its forward is
 ``wn_layer_fused`` without ``skip_acc`` (the kernel on the card). Its
 backward computes the closed-form adjoints of ``_wn_layer_trainable_bwd``,
-recomputing taps, gates and acts: in bf16 on the card by the four kernels
+recomputing taps, gates and acts: in bf16 on the card by the five kernels
 of ``csrc/wn_layer_bwd.cu`` (``wn_layer_backward_fused``, counted in
 ``BWD_LAUNCHES``), in f32 on the card by torch ops (``wn_layer_backward``,
 the designated parity-mode route: its products must stay true f32), and on
@@ -47,7 +47,7 @@ the CPU by ``wn_layer_backward``, which is also the bf16 kernel's yardstick.
 ``wn_layer_shard_trainable`` is the differentiable shard, for training on a
 ``model`` mesh axis: its forward is ``wn_layer_shard``; its backward gives
 the rank's adjoints and its partial dx, in bf16 on the card by the four
-kernels of ``csrc/wn_layer_shard_bwd.cu`` (``wn_layer_shard_backward_fused``,
+kernels of ``csrc/wn_layer_bwd.cu`` (``wn_layer_shard_backward_fused``,
 counted in ``SHARD_BWD_LAUNCHES``), otherwise by torch ops
 (``wn_layer_shard_backward``, the CPU path, the f32 route and the kernel's
 yardstick).
@@ -77,10 +77,10 @@ SHARD_BWD_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
-           CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_shard_bwd.cu")
+           CSRC / "wn_layer_shard.cu")
 # Included by the sources: the f32 ring and tile (the forward, the shard
-# and, for its cp.async helpers, the shard backward) and the wgmma helpers
-# (the shard backward).
+# and, for its cp.async helpers, the backward) and the wgmma helpers (the
+# forward's bf16 kernels and the backward).
 HEADERS = (CSRC / "f32_ring.cuh", CSRC / "sm90_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -216,51 +216,43 @@ def build_library() -> Path:
   return lib
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+# The argument types of each C entry point of the library; each returns a
+# cudaError_t (0 on success) as an int.
+SIGNATURES = {
+    "wn_layer_forward": [_P] * 10 + [_I] * 7 + [_P],
+    "wn_layer_backward_bf16": [_P] * 19 + [_I] * 7 + [_P],
+    "wn_layer_shard_forward": [_P] * 6 + [_I] * 7 + [_P],
+    "wn_layer_shard_backward_bf16": [_P] * 16 + [_I] * 8 + [_P],
+    "wn_layer_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_shard_kernel_info": [_I] * 4 + [_IP] * 4,
+    "wn_layer_bwd_kernel_info": [_I] * 4 + [_IP] * 4,
+    "wn_layer_wide_kernel_info": [_I] * 2 + [_IP] * 4,
+    "wn_layer_bwd_tile_rows": [_I] * 2,
+    "wn_layer_bwd_weight_tiles": [_I] * 3,
+    "wn_layer_f32_schedule": [_I] * 4 + [_IP] * 4,
+    "wn_layer_shard_f32_schedule": [_I] * 5 + [_IP] * 6,
+    "wn_layer_wide_schedule": [_I] * 3 + [_IP] * 4,
+}
+
+
+def load_library(path) -> ctypes.CDLL:
+  """Load a build of ``csrc/`` and declare the types of each entry point
+  of :data:`SIGNATURES` that it holds (a build of one source holds only
+  that source's)."""
+  lib = ctypes.CDLL(str(path))
+  for name, argtypes in SIGNATURES.items():
+    fn = getattr(lib, name, None)
+    if fn is not None:
+      fn.argtypes, fn.restype = argtypes, ctypes.c_int
+  return lib
+
+
 def _library():
   global _LIB
   if _LIB is None:
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.wn_layer_forward
-    fn.argtypes = ([ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    bwd = lib.wn_layer_backward_bf16
-    bwd.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                    + [ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    for info in (lib.wn_layer_kernel_info, lib.wn_layer_bwd_kernel_info):
-      info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
-      info.restype = ctypes.c_int
-    shard = lib.wn_layer_shard_forward
-    shard.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                      + [ctypes.c_void_p])
-    shard.restype = ctypes.c_int
-    shard_info = lib.wn_layer_shard_kernel_info
-    shard_info.argtypes = ([ctypes.c_int] * 4
-                           + [ctypes.POINTER(ctypes.c_int)] * 4)
-    shard_info.restype = ctypes.c_int
-    lib.wn_layer_bwd_tile_rows.argtypes = [ctypes.c_int]
-    lib.wn_layer_bwd_tile_rows.restype = ctypes.c_int
-    sched = lib.wn_layer_f32_schedule
-    sched.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
-    sched.restype = ctypes.c_int
-    shard_sched = lib.wn_layer_shard_f32_schedule
-    shard_sched.argtypes = ([ctypes.c_int] * 5
-                            + [ctypes.POINTER(ctypes.c_int)] * 6)
-    shard_sched.restype = ctypes.c_int
-    shard_bwd = lib.wn_layer_shard_backward_bf16
-    shard_bwd.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
-                          + [ctypes.c_void_p])
-    shard_bwd.restype = ctypes.c_int
-    shard_bwd_info = lib.wn_layer_shard_bwd_kernel_info
-    shard_bwd_info.argtypes = ([ctypes.c_int] * 4
-                               + [ctypes.POINTER(ctypes.c_int)] * 4)
-    shard_bwd_info.restype = ctypes.c_int
-    lib.wn_layer_shard_bwd_tile_rows.argtypes = [ctypes.c_int] * 2
-    lib.wn_layer_shard_bwd_tile_rows.restype = ctypes.c_int
-    lib.wn_layer_shard_bwd_weight_tiles.argtypes = [ctypes.c_int] * 3
-    lib.wn_layer_shard_bwd_weight_tiles.restype = ctypes.c_int
-    _LIB = lib
+    _LIB = load_library(build_library())
   return _LIB
 
 
@@ -291,6 +283,60 @@ def shard_kernel_info(channels: int, cp: int, bf16: bool,
   check_width(channels, cp)
   return _info(_library().wn_layer_shard_kernel_info, channels, cp,
                int(bf16), int(last))
+
+
+# The bf16 forward at C = 512: its three kernels (``csrc/wn_layer.cu``), by
+# their index in its C interface, and the rows of a unit of the gate and
+# res/skip kernels (Wide::kTile).
+WIDE_C = 512
+WIDE_KERNELS = ("gate", "rs", "round")
+WIDE_TILE_ROWS = 128
+
+
+def wide_kernel_info(kernel: str, last: bool = False) -> dict:
+  """:func:`kernel_info` for one of ``WIDE_KERNELS`` of the bf16 forward at
+  C = 512 (``last`` picks the res/skip kernel's variant)."""
+  return _info(_library().wn_layer_wide_kernel_info,
+               WIDE_KERNELS.index(kernel), int(last))
+
+
+def wide_passes(last: bool) -> dict:
+  """Passes of a 128-row tile in the C = 512 gate kernel (128 channels
+  each) and res/skip kernel (256 of the n_rs columns each)."""
+  return {"gate": WIDE_C // 128, "rs": (WIDE_C if last else 2 * WIDE_C) // 256}
+
+
+def wide_grid(batch: int, t: int, last: bool, slots: int) -> dict:
+  """The grid of the bf16 forward at C = 512 for ``batch`` x ``t`` rows on a
+  device holding ``slots`` of its blocks at once, as its launcher picks it:
+  the flat B*T rows in ``tiles`` of WIDE_TILE_ROWS (the last one short); a
+  unit is (tile, pass), unit u = tile * passes + pass; each kernel runs
+  min(units, slots) blocks, block b taking units b, b + blocks, ...
+  (:func:`block_units`)."""
+  tiles = -(-batch * t // WIDE_TILE_ROWS)
+  out = {"slots": slots, "tiles": tiles}
+  for kernel, passes in wide_passes(last).items():
+    out[f"{kernel}_units"] = tiles * passes
+    out[f"{kernel}_blocks"] = min(tiles * passes, slots)
+  return out
+
+
+def block_units(units: int, blocks: int, block: int) -> range:
+  """The units block ``block`` of a persistent C = 512 kernel walks."""
+  return range(block, units, blocks)
+
+
+def wide_schedule(batch: int, t: int, last: bool = False) -> dict:
+  """:func:`wide_grid` as the loaded library computes it on the current
+  card (slots from the occupancy API)."""
+  vals = [ctypes.c_int() for _ in range(4)]
+  err = _library().wn_layer_wide_schedule(batch, t, int(last),
+                                          *[ctypes.byref(v) for v in vals])
+  if err != 0:
+    raise RuntimeError(f"the C = 512 schedule failed: cudaError {err}")
+  slots, tiles, gate_blocks, rs_blocks = (v.value for v in vals)
+  return {"slots": slots, "tiles": tiles, "gate_blocks": gate_blocks,
+          "rs_blocks": rs_blocks}
 
 
 # Time rows of one tile of the f32 kernel (kTileRows in csrc/wn_layer.cu).
@@ -329,27 +375,30 @@ def f32_schedule(batch: int, t: int, last: bool = False,
           "waves": blocks / (sms * per_sm)}
 
 
-# The bf16 backward's kernels, in launch order (``last`` only for "rows").
-BWD_KERNELS = ("rows", "dx", "weights", "reduce")
+# The bf16 backward's kernels (``csrc/wn_layer_bwd.cu``), by their index in
+# its C interface; the whole layer launches "prep" first, then the other
+# four in this order; a rank's backward has no "prep". ``last`` picks the
+# variant of "rows" and "prep".
+BWD_KERNELS = ("rows", "dx", "weights", "reduce", "prep")
+SHARD_BWD_KERNELS = BWD_KERNELS[:4]
 
 
 def bwd_kernel_info(kernel: str, last: bool = False,
                     channels: int = 256) -> dict:
-  """:func:`kernel_info` for one backward kernel of ``BWD_KERNELS`` at
-  width ``channels``."""
+  """:func:`kernel_info` for one kernel of ``BWD_KERNELS`` of the whole
+  layer's bf16 backward at width ``channels``."""
   check_width(channels)
-  return _info(_library().wn_layer_bwd_kernel_info, channels,
+  return _info(_library().wn_layer_bwd_kernel_info, channels, channels,
                BWD_KERNELS.index(kernel), int(last))
 
 
 def shard_bwd_kernel_info(kernel: str, channels: int, cp: int,
                           last: bool = False) -> dict:
-  """:func:`kernel_info` for one kernel of ``BWD_KERNELS`` of the bf16
-  shard backward (``csrc/wn_layer_shard_bwd.cu``) at the pair (``channels``,
-  ``cp``)."""
+  """:func:`kernel_info` for one kernel of ``SHARD_BWD_KERNELS`` of the
+  bf16 shard backward at the pair (``channels``, ``cp``)."""
   check_width(channels, cp)
-  return _info(_library().wn_layer_shard_bwd_kernel_info, channels, cp,
-               BWD_KERNELS.index(kernel), int(last))
+  return _info(_library().wn_layer_bwd_kernel_info, channels, cp,
+               SHARD_BWD_KERNELS.index(kernel), int(last))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -418,6 +467,9 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   else:
     skip = torch.empty((batch, t, c), dtype=torch.float32, device=dev)
   x_out = torch.empty_like(x)
+  # C = 512 in bf16: the rounded x and the acts, [B*T, C] bf16 each
+  scratch = (torch.empty((2, batch * t, c), dtype=torch.bfloat16, device=dev)
+             if c == WIDE_C and wdt == torch.bfloat16 else None)
 
   lib = _library()
   with torch.cuda.device(dev):  # the launcher reads the current device
@@ -426,6 +478,7 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
         w_rs.data_ptr(), b_rs.data_ptr(),
         valid_t.data_ptr() if valid_t is not None else None,
         x_out.data_ptr(), skip.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         int(skip_acc is not None), batch, t, c, int(dilation),
         int(wdt == torch.bfloat16), int(last),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -633,25 +686,18 @@ def _backward(saved: Tuple[torch.Tensor, ...], drs: torch.Tensor,
           like(db_in, b_in), like(dw_rs, w_rs))
 
 
-# Rows of one range of the weights kernel's split (a multiple of its 32-row
-# chunk): one range per batch row at the training segment (T=2,000), 32 x B
-# blocks. Finer splits were slower on an H100 (bwd_ablation.py): the reduce
-# kernel's reads grow faster than the weights kernel gains.
-SPLIT_ROWS = 2048
-
-
 def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
                             dx_next: Optional[torch.Tensor],
                             dskip: Optional[torch.Tensor], dilation: int,
                             valid_t: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, ...]:
   """:func:`wn_layer_backward` with ``compute_dtype=torch.bfloat16`` on the
-  card: the four kernels of ``csrc/wn_layer_bwd.cu`` (one call, counted
-  once in ``BWD_LAUNCHES``). Inputs as :func:`wn_layer_fused` takes them in
-  bf16 (x, b_in, b_rs f32; cond, w_in, w_rs bf16; C in
-  ``kernel_widths()``; valid_t None or an int32 [B] tensor on the card);
-  the cotangents f32 [B, T, C] or None (zero, never materialised).
-  Anything else raises."""
+  card: the five kernels of ``csrc/wn_layer_bwd.cu`` for the whole layer
+  (one call, counted once in ``BWD_LAUNCHES``). Inputs as
+  :func:`wn_layer_fused` takes them in bf16 (x, b_in, b_rs f32; cond, w_in,
+  w_rs bf16; C in ``kernel_widths()``; valid_t None or an int32 [B] tensor
+  on the card); the cotangents f32 [B, T, C] or None (zero, never
+  materialised). Anything else raises."""
   global BWD_LAUNCHES
   x, cond, w_in, b_in, w_rs, b_rs = saved
   if x.device.type != "cuda":
@@ -681,36 +727,23 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
       _check(name, g, torch.float32, (batch, t, c), dev)
     cots.append(g)
 
-  def empty(shape, dtype):
-    return torch.empty(shape, dtype=dtype, device=dev)
-
-  rows = batch * t
-  n_splits_t = -(-t // SPLIT_ROWS)
-  dx = empty(x.shape, torch.float32)
-  dcond = empty(cond.shape, bf16)
-  dw_in = empty(w_in.shape, bf16)
-  db_in = empty(b_in.shape, torch.float32)
-  dw_rs = empty(w_rs.shape, bf16)
-  db_rs = empty(b_rs.shape, torch.float32)
-  acts = empty((rows, c), bf16)
-  x_bf = empty((rows, c), bf16)
-  drs = empty((rows, n_rs), bf16)
-  lib = _library()
-  tile = lib.wn_layer_bwd_tile_rows(c)  # the rows kernel's time rows a tile
-  part_bias = empty((batch * -(-t // tile), 2 * c + n_rs), torch.float32)
-  ws = empty((batch * n_splits_t, 3 * c * 2 * c + c * n_rs), torch.float32)
-
   def ptr(v):
     return v.data_ptr() if v is not None else None
 
+  lib = _library()
+  plan = _bwd_plan(batch, t, c, c, last, dev)
+  # each gradient has its input's shape and dtype
+  dx, dcond, dw_in, db_in, dw_rs, db_rs = (torch.empty_like(v) for v in saved)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+  at = {k: scratch.data_ptr() + off for k, off in plan["offsets"].items()}
   with torch.cuda.device(dev):  # the launcher reads the current device
     err = lib.wn_layer_backward_bf16(
         x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
         w_rs.data_ptr(), ptr(cots[0]), ptr(cots[1]), ptr(valid_t),
         dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
-        dw_rs.data_ptr(), db_rs.data_ptr(), acts.data_ptr(), x_bf.data_ptr(),
-        drs.data_ptr(), part_bias.data_ptr(), ws.data_ptr(), batch, t, c,
-        int(dilation), int(last), n_splits_t, SPLIT_ROWS,
+        dw_rs.data_ptr(), db_rs.data_ptr(), at["acts"], at["x_bf"],
+        at["g_bf"], at["part_bias"], at["ws"], batch, t, c, int(dilation),
+        int(last), plan["n_splits_t"], plan["split_rows"],
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer backward kernels failed to launch: "
@@ -792,26 +825,26 @@ def wn_layer_shard_backward(saved: Tuple[torch.Tensor, ...],
                    compute_dtype)
 
 
-# K rows of a chunk of the shard backward's weights kernel: its row ranges
+# K rows of a chunk of the bf16 backward's weights kernel: its row ranges
 # are multiples of this.
-SHARD_BWD_CHUNK_ROWS = 64
+BWD_CHUNK_ROWS = 64
 
 
-def shard_bwd_splits(batch: int, t: int, tiles: int, sms: int
-                     ) -> Tuple[int, int]:
-  """``(n_splits_t, split_rows)`` of the shard backward's weights kernel:
+def bwd_splits(batch: int, t: int, tiles: int, sms: int) -> Tuple[int, int]:
+  """``(n_splits_t, split_rows)`` of the bf16 backward's weights kernel
+  (the whole layer's and a rank's):
   each of the ``batch`` rows' ``t`` time rows is cut into ``n_splits_t``
-  ranges of ``split_rows`` (a multiple of ``SHARD_BWD_CHUNK_ROWS``; the last
+  ranges of ``split_rows`` (a multiple of ``BWD_CHUNK_ROWS``; the last
   range short), one block for each of the kernel's ``tiles`` output tiles
   and each range. The cut is the fewest ranges whose blocks fill at least
   one wave of ``sms`` blocks and keep the last wave at least 85% full; else
   (no such cut within 4 waves) the cut with the fullest last wave, at least
   one wave where the rows allow it. More ranges mean more f32 partials for
   the reduce kernel to read."""
-  chunks = -(-t // SHARD_BWD_CHUNK_ROWS)
+  chunks = -(-t // BWD_CHUNK_ROWS)
   best = None
   for want in range(1, chunks + 1):
-    split_rows = -(-chunks // want) * SHARD_BWD_CHUNK_ROWS
+    split_rows = -(-chunks // want) * BWD_CHUNK_ROWS
     n_splits = -(-t // split_rows)
     if best is not None and n_splits == best[1]:
       continue
@@ -828,18 +861,21 @@ def shard_bwd_splits(batch: int, t: int, tiles: int, sms: int
   return best[1], best[2]
 
 
-def shard_bwd_scratch(batch: int, t: int, c: int, cp: int, last: bool,
-                      n_splits_t: int, tile_rows: int) -> dict:
-  """The shard backward's scratch as one allocation: byte ``offsets`` (each
-  256-byte aligned) of the bf16 acts [B*T, C'], x [B*T, C] and g [B*T,
-  n_rs] (the weights kernel's operands, written by the rows kernel), the
-  rows kernel's f32 column sums [B * ceil(T / tile_rows), 2C'] and the
-  weights kernel's f32 partials [B * n_splits_t, 3C * 2C' + C' * n_rs],
-  and the total ``bytes``."""
+def bwd_scratch(batch: int, t: int, c: int, cp: int, last: bool,
+                n_splits_t: int, tile_rows: int) -> dict:
+  """The bf16 backward's scratch as one allocation, of a rank holding
+  ``cp`` gate channels or of the whole layer (``cp == c``): byte
+  ``offsets`` (each 256-byte aligned) of the bf16 acts [B*T, C'], x [B*T,
+  C] and g [B*T, n_rs] (the weights kernel's operands; the whole layer's g
+  is drs), the f32 column sums of each tile of ``tile_rows`` rows [B *
+  ceil(T / tile_rows), 2C'] (the whole layer's rows also hold drs's n_rs
+  sums) and the weights kernel's f32 partials [B * n_splits_t, 3C * 2C' +
+  C' * n_rs], and the total ``bytes``."""
   rows, n_rs = batch * t, c if last else 2 * c
+  bias_cols = 2 * cp + (n_rs if cp == c else 0)
   sizes = {"acts": rows * cp * 2, "x_bf": rows * c * 2,
            "g_bf": rows * n_rs * 2,
-           "part_bias": batch * -(-t // tile_rows) * 2 * cp * 4,
+           "part_bias": batch * -(-t // tile_rows) * bias_cols * 4,
            "ws": batch * n_splits_t * (3 * c * 2 * cp + cp * n_rs) * 4}
   offsets, end = {}, 0
   for name, size in sizes.items():
@@ -849,29 +885,30 @@ def shard_bwd_scratch(batch: int, t: int, c: int, cp: int, last: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _shard_bwd_plan(batch: int, t: int, c: int, cp: int, last: bool,
-                    dev: torch.device) -> dict:
-  """The shard backward's launch plan at one shape and card: the weights
+def _bwd_plan(batch: int, t: int, c: int, cp: int, last: bool,
+              dev: torch.device) -> dict:
+  """The bf16 backward's launch plan at one shape and card (a rank holding
+  ``cp`` gate channels, or the whole layer at ``cp == c``): the weights
   kernel's split and the scratch layout, read from the library once."""
   lib = _library()
-  n_splits_t, split_rows = shard_bwd_splits(
-      batch, t, lib.wn_layer_shard_bwd_weight_tiles(c, cp, int(last)),
+  n_splits_t, split_rows = bwd_splits(
+      batch, t, lib.wn_layer_bwd_weight_tiles(c, cp, int(last)),
       torch.cuda.get_device_properties(dev).multi_processor_count)
   return {"n_splits_t": n_splits_t, "split_rows": split_rows,
-          **shard_bwd_scratch(batch, t, c, cp, last, n_splits_t,
-                              lib.wn_layer_shard_bwd_tile_rows(c, cp))}
+          **bwd_scratch(batch, t, c, cp, last, n_splits_t,
+                        lib.wn_layer_bwd_tile_rows(c, cp))}
 
 
 def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
                                   g: Optional[torch.Tensor], dilation: int
                                   ) -> Tuple[torch.Tensor, ...]:
   """:func:`wn_layer_shard_backward` with ``compute_dtype=torch.bfloat16``
-  on the card: the four kernels of ``csrc/wn_layer_shard_bwd.cu`` (one call,
-  counted once in ``SHARD_BWD_LAUNCHES``). Inputs as :func:`wn_layer_shard`
-  takes them in bf16 (x, b_in_s f32; cond_s, w_in_s, w_rs_s bf16; (C, C')
-  one of ``shard_pairs()``); g f32 [B, T, n_rs] or None (zero: every
-  gradient is zero and nothing is launched). Anything else raises; it never
-  falls back to the plain version."""
+  on the card: the four kernels of ``csrc/wn_layer_bwd.cu`` for a rank (one
+  call, counted once in ``SHARD_BWD_LAUNCHES``). Inputs as
+  :func:`wn_layer_shard` takes them in bf16 (x, b_in_s f32; cond_s, w_in_s,
+  w_rs_s bf16; (C, C') one of ``shard_pairs()``); g f32 [B, T, n_rs] or
+  None (zero: every gradient is zero and nothing is launched). Anything
+  else raises; it never falls back to the plain version."""
   global SHARD_BWD_LAUNCHES
   x, cond_s, w_in_s, b_in_s, w_rs_s = saved
   if x.device.type != "cuda":
@@ -897,7 +934,7 @@ def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
   _check("g", g, torch.float32, (batch, t, n_rs), dev)
 
   lib = _library()
-  plan = _shard_bwd_plan(batch, t, c, cp, last, dev)
+  plan = _bwd_plan(batch, t, c, cp, last, dev)
   # each gradient has its input's shape and dtype
   dx, dcond, dw_in, db_in, dw_rs = (torch.empty_like(v) for v in saved)
   scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
