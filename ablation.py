@@ -1,7 +1,7 @@
-"""What the ablation scripts (fwd_ablation.py, bwd_ablation.py,
-sbwd_ablation.py) share: timing-only variants of one CUDA source of
-waveglow_tpu_torch, made by text edits, built together and swapped in for
-the package's own library.
+"""What the ablation scripts (fwd_ablation.py, fwd_f32_ablation.py,
+bwd_ablation.py, sbwd_ablation.py) share: timing-only variants of one
+CUDA source of waveglow_tpu_torch, made by text edits, built together and
+swapped in for the package's own library.
 
 An edit is (text, replacement, frame): the text is replaced wherever it
 stands in the body of the function whose declaration starts with
@@ -34,10 +34,11 @@ def variants(src: str, edits: dict) -> dict:
   return out
 
 
-def build(name: str, sources: dict) -> dict:
+def build(name: str, sources: dict, logs=None) -> dict:
   """Each source built into a library under ``kl.BUILD_DIR / name``, one
   nvcc for each, all started together; the libraries loaded and bound as
-  the package binds its own."""
+  the package binds its own. With ``logs``, each variant's nvcc and
+  ptxas output is put there under its name."""
   out = kl.BUILD_DIR / name
   out.mkdir(parents=True, exist_ok=True)
   procs = {}
@@ -52,6 +53,8 @@ def build(name: str, sources: dict) -> dict:
     log = proc.communicate()[0]
     if proc.returncode:
       raise SystemExit(f"nvcc failed for {variant}:\n{log}")
+    if logs is not None:
+      logs[variant] = log
     libs[variant] = kl.load_library(out / f"{variant}.so")
   return libs
 

@@ -19,7 +19,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      ones; the backwards' reduce kernels, the whole layer's prep kernel
      and the C = 512 rounding of x do no products. The rows, dx and
      weights kernels of both backwards and the C = 512 bf16 forward's gate
-     and res/skip kernels must be wgmma (HGMMA), with no ptxas warning
+     and res/skip kernels (the layer's, and each model rank's, which
+     replace the mma.sync shard kernel there) must be wgmma (HGMMA), with
+     no ptxas warning
      that their wgmmas are serialized (C7511/C7513), and no spill (their
      registers, spills and shared memory are printed). The f32 kernel's
      registers, shared memory, blocks an SM and grid at B=1 and B=8 are
@@ -152,8 +154,8 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      (B=1, T=26,432), the bf16 backward against wn_layer_backward (B=12,
      T=2,000), bf16 kernels against their second launch bit for bit, each
      timed beside its bound, plain and library times (with each kernel's
-     device time at d=1, torch.profiler, and the times before the bf16
-     redesign as a read-out); a
+     device time at d=1, d=128 and the last layer, and at C = 512 each bf16
+     rank's round / gate / rs split, torch.profiler); a
      full-depth model (12 x
      8, random weights from the seed, ends randomised) served through
      Synthesizer.infer_serving in f32 and bf16 (96 launches; phase 4's
@@ -430,9 +432,10 @@ SHARD_DESIGN = {
            "channels a thread, the gate on the accumulators, acts in shared "
            "memory, the partial in passes of 2C' columns written from the "
            "accumulators",
-    "bf16": "mma.sync m16n8k16 bf16 (ldmatrix from padded shared memory, f32 "
-            "accumulators): 256-thread blocks of 64 time rows, both products "
-            "as one sequence of K chunks through a 4-stage ring (w_in and "
+    "bf16": "(C <= 256) mma.sync m16n8k16 bf16 (ldmatrix from padded "
+            "shared memory, f32 accumulators): 256-thread blocks of 64 time "
+            "rows, both products as one sequence of K chunks through a "
+            "4-stage ring (w_in and "
             "w_rs by cp.async, x taps by registers rounded to bf16), the gate "
             "on the paired tanh/sigmoid accumulators, the partial written "
             "from the accumulators in 16-byte stores"}
@@ -532,17 +535,31 @@ def bwd_variant(kernel: str, last: bool = False, width: int = C) -> str:
   return f"bf16,C={width},bwd-{kernel}"
 
 
-# The bf16 forward at C = 512 beside its res/skip kernel (which
-# variant("bf16", last, 512) names): the gate kernel and the rounding of x,
-# as kl.wide_kernel_info takes them.
-WIDE_KERNELS = ("gate", "round")
+# The bf16 forward at C = 512 beside its res/skip kernels (which
+# variant("bf16", last, 512) names for the layer and shard_variant(512, C',
+# True, last) for a rank): the gate kernel at each gate width (the layer's
+# 512, a rank's C') and the rounding of x, (kernel, gate width) as
+# kl.wide_kernel_info takes them.
+WIDE_KERNELS = (("gate", kl.WIDE_C), ("round", kl.WIDE_C)) + tuple(
+    ("gate", cp) for c, cp in kl.shard_pairs() if c == kl.WIDE_C)
 
 
-def wide_variant(kernel: str) -> str:
-  """Variant name of the C = 512 gate kernel ("bf16,...": held to HGMMA)
-  or of its rounding of x, which does no products."""
-  return (f"bf16,C={kl.WIDE_C},gate" if kernel == "gate"
-          else f"round,C={kl.WIDE_C},fwd")
+def wide_variant(kernel: str, cp: int = kl.WIDE_C) -> str:
+  """Variant name of a C = 512 gate kernel ("bf16,C=512,gate" for the
+  layer's, "shard-bf16,C=512,C'=M,gate" for a rank's: held to HGMMA) or of
+  the rounding of x, which does no products."""
+  if kernel == "round":
+    return f"round,C={kl.WIDE_C},fwd"
+  if cp == kl.WIDE_C:
+    return f"bf16,C={kl.WIDE_C},gate"
+  return f"shard-bf16,C={kl.WIDE_C},C'={cp},gate"
+
+
+def f32_rest_variant(last: bool) -> str:
+  """Variant name of the f32 forward's rest kernel at C = 512 (its tiles
+  kernel is variant("f32", last, 512)): held to no tensor cores and no
+  spill as every f32 kernel."""
+  return f"f32,C={kl.WIDE_C},rest,{'last' if last else 'layer'}"
 
 
 def shard_variant(width: int, channels: int, bf16: bool, last: bool) -> str:
@@ -580,9 +597,11 @@ def shard_bwd_variant(kernel: str, width: int, channels: int,
 
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
-  ``wn_layer_kernel_f32<kC, kLast>``, the bf16 tensor-core kernel
+  ``wn_layer_kernel_f32<kC, kLast>`` (C <= 256) or, at C = 512,
+  ``wn_layer_kernel_f32_{tiles,rest}<kLast>``, the bf16 tensor-core kernel
   ``wn_layer_kernel_mma<kC, kLast>`` (C <= 256), the C = 512 bf16 kernels
-  ``wn_layer_kernel_{gate,rs<kLast>,round}``, a backward kernel
+  ``wn_layer_kernel_{gate<kG>,rs<kG, kLast>,round}`` (kG = 512: the
+  layer's; kG = C': a rank's, named as its shard kernel), a backward kernel
   ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, a
   shard kernel ``wn_shard_kernel[_mma]<kC, kCP, kLast>`` (FFMA in f32, the
   tensor cores in bf16) or a shard-backward kernel
@@ -592,12 +611,21 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
                    inst.group(3) == "1", int(inst.group(2)))
-  inst = re.search(r"wn_layer_kernel_rsILb([01])E", mangled)
+  inst = re.search(r"wn_layer_kernel_f32_(tiles|rest)ILb([01])E", mangled)
   if inst:
-    return variant("bf16", inst.group(1) == "1", kl.WIDE_C)
-  inst = re.search(r"wn_layer_kernel_(gate|round)", mangled)
+    last = inst.group(2) == "1"
+    return (variant("f32", last, kl.WIDE_C) if inst.group(1) == "tiles"
+            else f32_rest_variant(last))
+  inst = re.search(r"wn_layer_kernel_rsILi(\d+)ELb([01])E", mangled)
   if inst:
-    return wide_variant(inst.group(1))
+    gates, last = int(inst.group(1)), inst.group(2) == "1"
+    return (variant("bf16", last, kl.WIDE_C) if gates == kl.WIDE_C
+            else shard_variant(kl.WIDE_C, gates, True, last))
+  inst = re.search(r"wn_layer_kernel_gateILi(\d+)E", mangled)
+  if inst:
+    return wide_variant("gate", int(inst.group(1)))
+  if re.search(r"wn_layer_kernel_round", mangled):
+    return wide_variant("round")
   inst = re.search(r"wn_bwd_(prep|rows|dx|weights|reduce)_kernelILi(\d+)E"
                    r"(?:Lb([01])E)?", mangled)
   if inst:
@@ -689,11 +717,13 @@ def wgmma_serialized(build_log: str) -> set:
 
 def held_to_wgmma(name: str) -> bool:
   """A product kernel of the bf16 backwards (rows, dx, weights; the whole
-  layer's and a rank's) or of the bf16 forward at C = 512 (gate, res/skip):
-  held to wgmma, to no serialization and to no spill."""
-  return name.startswith("bf16,") and (
+  layer's and a rank's) or of the bf16 forward at C = 512 (gate, res/skip;
+  the layer's and a rank's): held to wgmma, to no serialization and to no
+  spill."""
+  return (name.startswith("bf16,") and (
       ",bwd-" in name or ",sbwd-" in name
       or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name)
+      or name.startswith(f"shard-bf16,C={kl.WIDE_C},"))
 
 
 def check_wgmma(hgmma: dict, serialized, variants) -> None:
@@ -785,8 +815,10 @@ def phase_build() -> dict:
                      for v in SHARD_KERNELS})
   attributes.update({shard_bwd_variant(*v): kl.shard_bwd_kernel_info(*v)
                      for v in SHARD_BWD_KERNELS})
-  attributes.update({wide_variant(k): kl.wide_kernel_info(k)
-                     for k in WIDE_KERNELS})
+  attributes.update({wide_variant(k, cp): kl.wide_kernel_info(k, cp=cp)
+                     for k, cp in WIDE_KERNELS})
+  attributes.update({f32_rest_variant(last): kl.f32_rest_kernel_info(last)
+                     for last in (False, True)})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -891,6 +923,20 @@ def library_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation, dtype):
   return torch.matmul(acts.to(dtype), w_rs)
 
 
+def forward_kernels(mode: str, batch: int, width: int) -> int:
+  """Kernels one forward call launches at B = ``batch``, T = T_KERNEL: at
+  C = 512 in bf16 three (round, gate, res/skip), in f32 the tiles kernel
+  and, where a block has a rest of 48 rows or fewer, the rest kernel; else
+  one."""
+  if width != kl.WIDE_C:
+    return 1
+  if mode == "bf16":
+    return 3
+  grid = kl.f32_schedule(batch, T_KERNEL, channels=width)
+  return 1 + kl.f32_rest_launched(batch, T_KERNEL,
+                                  grid["sms"] * grid["blocks_per_sm"])
+
+
 def kernel_case(mode: str, batch: int, i: int, seed: int, width: int = C,
                 time_it: bool = False) -> dict:
   """Layer ``i`` of a flow (``i == N_LAYERS``: the last layer) at
@@ -951,7 +997,7 @@ def kernel_case(mode: str, batch: int, i: int, seed: int, width: int = C,
                bound_by=bound_by, share_of_bound=bound_ms / rec["kernel_ms"])
     rec["kernels_ms"] = kernel_split(lambda: kl.wn_layer_fused(
         *args, dilation, valid_t=valid, skip_acc=skip, compute_dtype=cdt),
-        FWD_SPLIT, 3 if mode == "bf16" and width == kl.WIDE_C else 1)
+        FWD_SPLIT, forward_kernels(mode, batch, width))
   log("kernel " + json.dumps(rec))
   return rec
 
@@ -1225,7 +1271,7 @@ def trainable_cost(last: bool, mode: str, width: int) -> dict:
 
 
 def kernel_split(fn, pattern: str, kernels: int, reps: int = 10,
-                 tries: int = 3, key=None):
+                 tries: int = 6, key=None):
   """Device milliseconds of each of the ``kernels`` kernels whose names
   ``pattern`` matches in one call of ``fn``, by the match's first group
   (or ``key`` of it): the mean over the launches that torch.profiler holds
@@ -1255,7 +1301,7 @@ def kernel_split(fn, pattern: str, kernels: int, reps: int = 10,
 
 # The kernels of the whole layer's bf16 backward, and of the forward, by name.
 BWD_SPLIT = r"wn_bwd_(prep|rows|dx|weights|reduce)_kernel"
-FWD_SPLIT = r"wn_layer_kernel_(f32|mma|gate|rs|round)"
+FWD_SPLIT = r"wn_layer_kernel_(f32_tiles|f32_rest|f32|mma|gate|rs|round)"
 
 
 def backward_kernel_ms(saved, cot, dilation: int, reps: int = 10) -> dict:
@@ -3079,6 +3125,10 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
                    share_of_bound=bound_ms / rec["kernel_ms"])
         if mode == "f32":
           rec["earlier_ms"] = SHARD_F32_EARLIER_MS[(width, cp)]
+        elif width == kl.WIDE_C:
+          # the layer's round, gate and res/skip kernels at gate width C'
+          rec["kernels_ms"] = kernel_split(lambda: kl.wn_layer_shard(
+              args[0], *sl, 1, compute_dtype=cdt), FWD_SPLIT, 3)
         timed[cp] = rec
       log("shard kernel " + json.dumps(rec))
       cases.append(rec)
@@ -3089,11 +3139,13 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
 
 def shard_extra_keys(timed: dict, top: int) -> dict:
   """The ``kernels`` line's keys of a shard entry beside its ``top`` C':
-  each other C''s times and bound, all of this run (never the earlier
-  times of ``SHARD_F32_EARLIER_MS``, which only the shard check prints)."""
+  each other C''s times and bound (and its per-kernel split where it was
+  taken), all of this run (never the earlier times of
+  ``SHARD_F32_EARLIER_MS``, which only the shard check prints)."""
   return {f"{key}_C'{cp}": timed[cp][key]
           for cp in sorted(timed, reverse=True) if cp != top
-          for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+          for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                      "kernels_ms") if key in timed[cp]}
 
 
 def annotate_reduce():
@@ -3481,14 +3533,30 @@ WIDTH_TRAIN_HPARAMS = {"batch_size": str(WIDTH_TRAIN_BATCH),
                        "iters_per_checkpoint": "1000",
                        "epochs_per_checkpoint": "0"}
 WIDTH_DESIGN = {
-    128: "the C = 256 kernels with one warpgroup (wgmma) and a 192-thread "
-         "f32 warp grid",
-    512: "bf16: x rounded once, then a gate kernel and a res/skip kernel, "
-         "each one wave of persistent blocks walking units of 128 flat rows "
-         "x a pass (128 channels; 256 of the n_rs columns), wgmma "
-         "m64n128k16 through a 4-stage ring of 64-deep K chunks, the acts "
-         "through global memory in bf16; f32: the C = 256 warp grid in two "
-         "passes of each product, a 3-stage ring"}
+    128: {"bf16": "the C = 256 kernel with one warpgroup (wgmma)",
+          "f32": "the C = 256 kernel with a 192-thread warp grid"},
+    512: {"bf16": "x rounded once, then a gate kernel and a res/skip "
+                  "kernel, each one wave of persistent blocks walking units "
+                  "of 128 flat rows x a pass (128 channels; 256 of the n_rs "
+                  "columns), wgmma m64n128k16 through a 4-stage ring of "
+                  "64-deep K chunks, the acts through global memory in bf16",
+          "f32": "two kernels of the C = 256 register tile (384 threads, 8 "
+                 "rows x (4 + 4) channels a thread, 16-row K chunks through "
+                 "a 4-stage cp.async ring): 96-row tiles in four passes of "
+                 "128 channels, then a block's rest of 48 rows or fewer in "
+                 "16-row tiles of one 512-channel pass (the rest kernel: 8 "
+                 "warps, a 3-stage ring); the acts through a "
+                 "global f32 scratch, read back through the ring as the "
+                 "second product's rows"}}
+# The bf16 shard at C = 512: the layer's kernels at gate width C'.
+SHARD_WIDE_DESIGN = (
+    "the C = 512 bf16 layer's three kernels at gate width C' "
+    "(csrc/wn_layer.cu): x rounded once, a gate kernel (units of 128 flat "
+    "rows x a pass of min(C', 128) channels, wgmma m64nNk16 with N = "
+    "min(C', 128)) writing the acts [B*T, C'] in bf16, a res/skip kernel "
+    "(units of 128 rows x 256 partial columns, K = C') storing the f32 "
+    "partial; one wave of persistent blocks each, a 4-stage ring of "
+    "64-deep K chunks")
 
 
 def backward_kernel_case(i: int, seed: int, width: int,
@@ -4523,30 +4591,47 @@ def main() -> None:
           "max_abs_err": max(c["max_abs_err"] for c in fwd),
           **{k: fwd[0][k] for k in ("bound_ms", "bound_by", "plain_ms",
                                     "library_ms")},
-          "ms": fwd[0]["kernel_ms"], "design": WIDTH_DESIGN[width],
+          "ms": fwd[0]["kernel_ms"], "design": WIDTH_DESIGN[width][mode],
           "kernels_ms": fwd[0]["kernels_ms"],
           **({"loaded_build_gate_round": {
                   wide_variant(k): build["attributes"][wide_variant(k)]
-                  for k in WIDE_KERNELS}}
+                  for k, cp in WIDE_KERNELS if cp == kl.WIDE_C}}
              if mode == "bf16" and width == kl.WIDE_C else {}),
           "shape": f"B=1,T={T_KERNEL},C={width},d=1",
           **{f"{key}_{case}": c[key]
              for case, c in (("d128", fwd[1]), ("last", fwd[2]))
-             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                         "kernels_ms")},
           "loaded_build": build["attributes"][variant(mode, False, width)]})
       shard = rec["kernels"]["shard"][mode]
       pairs = sorted(shard["timed"], reverse=True)
       top = shard["timed"][pairs[0]]
+      wide = mode == "bf16" and width == kl.WIDE_C
+      # the mesh step of phase 13 runs the shard forward at MESH_WIDE too
+      step = (mesh_train[mode]["wide"]["launches"]["shard"]
+              if width == MESH_WIDE else 0)
       kernels.append({
           "name": f"wn_layer_shard[{mode},C={width}]", "route": "cuda",
-          "source": "waveglow_tpu_torch/csrc/wn_layer_shard.cu",
+          "source": ("waveglow_tpu_torch/csrc/wn_layer.cu" if wide
+                     else "waveglow_tpu_torch/csrc/wn_layer_shard.cu"),
           "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
                       "shard, waveglow_tpu/parallel/sharding.py:44)",
-          "launches": served["mesh_model2"]["launches"]["shard"],
+          "launches": served["mesh_model2"]["launches"]["shard"] + step,
+          "serving_launches": served["mesh_model2"]["launches"]["shard"],
+          "train_launches": step,
           "max_abs_err": max(c["max_abs_err"] for c in shard["cases"]),
           "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-          "library_ms": top["library_ms"], "design": SHARD_DESIGN[mode],
+          "library_ms": top["library_ms"],
+          "design": SHARD_WIDE_DESIGN if wide else SHARD_DESIGN[mode],
+          **({"kernels_ms": top["kernels_ms"],
+              "loaded_build_gate": {
+                  wide_variant("gate", cp): build["attributes"][
+                      wide_variant("gate", cp)] for cp in pairs},
+              "loaded_build": {
+                  shard_variant(width, cp, True, False): build["attributes"][
+                      shard_variant(width, cp, True, False)]
+                  for cp in pairs}} if wide else {}),
           "shape": f"B=1,T={T_KERNEL},C={width},C'={pairs[0]},d=1",
           **shard_extra_keys(shard["timed"], pairs[0])})
     bwd = rec["kernels"]["backward"]

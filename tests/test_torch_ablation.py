@@ -10,7 +10,8 @@ import ablation
 from waveglow_tpu_torch.kernels import wn_layer as kl
 
 SCRIPTS = {"fwd_ablation": "wn_layer.cu", "bwd_ablation": "wn_layer_bwd.cu",
-           "sbwd_ablation": "wn_layer_bwd.cu"}
+           "sbwd_ablation": "wn_layer_bwd.cu",
+           "fwd_f32_ablation": "wn_layer.cu"}
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
@@ -49,3 +50,18 @@ def test_fwd_compare_checksum_sees_one_bit():
     flipped = out.clone().reshape(-1)
     flipped.view(torch.int32)[at] ^= 1
     assert fwd_compare.checksum(flipped.reshape(out.shape)) != same
+
+
+@pytest.mark.parametrize("width", [128, 256, 512])
+def test_f32_ablation_builds_one_width(width):
+  """fwd_f32_ablation.py's variants keep one width in the launchers'
+  dispatch (the ring variants need only fit C = 512), and its edits still
+  apply to that source."""
+  import fwd_f32_ablation
+  src = (kl.CSRC / "wn_layer.cu").read_text()
+  one = fwd_f32_ablation.only_width(src, width)
+  for other in kl.kernel_widths():
+    assert (f"return dispatch_width<{other}>(" in one) == (other == width)
+    assert (f"f32_slots_for<{other}>(last" in one) == (other == width)
+  out = ablation.variants(one, fwd_f32_ablation.EDITS)
+  assert all(out[name] != one for name in fwd_f32_ablation.EDITS)

@@ -554,15 +554,23 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
 SHARD_128 = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463615wn_shard_"
              "kernelILi256ELi128ELb0EEEvPKfS2_S2_S2_S2_Pfiiii")
 SHARD_MMA = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463619wn_shard_"
-             "kernel_mmaILi512ELi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_Pfii")
+             "kernel_mmaILi256ELi128ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_Pfii")
+# A rank's res/skip kernel at C = 512 in bf16 (csrc/wn_layer.cu's C = 512
+# kernels at gate width C'), which ends its call and bears the name the
+# mma.sync instance at C = 512 had.
+SHARD_WIDE_RS = ("_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a18wn_layer_"
+                 "kernel_rsILi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_PKiPfS8_iii")
 
 
 @pytest.mark.parametrize("mangled,name", [
     (SHARD_128, "shard-f32,C=256,C'=128,layer"),
     (SHARD_128.replace("ILi256ELi128ELb0E", "ILi128ELi16ELb1E"),
      "shard-f32,C=128,C'=16,last"),
-    (SHARD_MMA, "shard-bf16,C=512,C'=256,layer"),
-    (SHARD_MMA.replace("ILi512ELi256ELb0E", "ILi256ELi32ELb1E"),
+    (SHARD_WIDE_RS, "shard-bf16,C=512,C'=256,layer"),
+    (SHARD_WIDE_RS.replace("ILi256ELb0E", "ILi64ELb1E"),
+     "shard-bf16,C=512,C'=64,last"),
+    (SHARD_MMA, "shard-bf16,C=256,C'=128,layer"),
+    (SHARD_MMA.replace("ILi256ELi128ELb0E", "ILi256ELi32ELb1E"),
      "shard-bf16,C=256,C'=32,last")])
 def test_shard_kernel_variant_names(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
@@ -607,12 +615,13 @@ def test_check_no_spills_holds_the_f32_shard_kernels(smoke, fault):
 
 
 def test_check_no_spills_leaves_the_bf16_shard_kernels(smoke):
-  """A shard-bf16 variant with local bytes and ptxas spills passes: the
-  bf16 variants are not held to the rule."""
-  name = "shard-bf16,C=512,C'=256,layer"
-  ptxas = {name: {"spill_store_bytes": 16, "spill_load_bytes": 16}}
-  smoke.check_no_spills(ptxas, shard_attributes(name, 24))
-  smoke.check_no_spills(None, shard_attributes(name, 24))
+  """A shard-bf16 variant on mma.sync (C <= 256) with local bytes and
+  ptxas spills passes: those bf16 variants are not held to the rule; the
+  C = 512 ones, wgmma, are (test_wgmma_is_demanded_of_the_rank_kernels)."""
+  for name in ("shard-bf16,C=256,C'=128,layer", "shard-bf16,C=128,C'=16,last"):
+    ptxas = {name: {"spill_store_bytes": 16, "spill_load_bytes": 16}}
+    smoke.check_no_spills(ptxas, shard_attributes(name, 24))
+    smoke.check_no_spills(None, shard_attributes(name, 24))
 
 
 def test_shard_f32_grid_reads_each_instance(smoke, monkeypatch):
@@ -944,10 +953,14 @@ _FWD_OBJ = "_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a"
      "bf16,C=256,bwd-dx"),
     (_BWD + "21wn_bwd_reduce_kernelILi512EEEvPKfiS1_iiP13__nv_bfloat16S3_PfS4_",
      "reduce,C=512,bwd"),
-    (_FWD_OBJ + "20wn_layer_kernel_gateEPK13__nv_bfloat16S2_S2_PKfPS0_iii",
-     "bf16,C=512,gate"),
-    (_FWD_OBJ + "18wn_layer_kernel_rsILb1EEEvPKfPK13__nv_bfloat16S5_S2_PKiPfS8_"
-     "iii", "bf16,C=512,last"),
+    (_FWD_OBJ + "20wn_layer_kernel_gateILi512EEvPK13__nv_bfloat16S2_S2_PKfPS0_"
+     "iii", "bf16,C=512,gate"),
+    (_FWD_OBJ + "18wn_layer_kernel_rsILi512ELb1EEEvPKfPK13__nv_bfloat16S5_S2_"
+     "PKiPfS8_iii", "bf16,C=512,last"),
+    (_FWD_OBJ + "20wn_layer_kernel_gateILi128EEvPK13__nv_bfloat16S2_S2_PKfPS0_"
+     "iii", "shard-bf16,C=512,C'=128,gate"),
+    (_FWD_OBJ + "18wn_layer_kernel_rsILi64ELb0EEEvPKfPK13__nv_bfloat16S5_S2_"
+     "PKiPfS8_iii", "shard-bf16,C=512,C'=64,layer"),
     (_FWD_OBJ + "21wn_layer_kernel_roundEPKfP13__nv_bfloat16l",
      "round,C=512,fwd")])
 def test_kernel_variant_names_the_redesigned_kernels(smoke, mangled, want):
@@ -992,8 +1005,9 @@ def test_phase2_lists_every_kernel_of_the_new_designs(smoke):
       assert f"bf16,C={w},bwd-rows,{end}" in names
       assert f"prep,C={w},bwd,{end}" in names
   assert len(names) == 7 * len(kl.kernel_widths())
-  assert [smoke.wide_variant(k) for k in smoke.WIDE_KERNELS] == [
-      "bf16,C=512,gate", "round,C=512,fwd"]
+  assert [smoke.wide_variant(*k) for k in smoke.WIDE_KERNELS] == [
+      "bf16,C=512,gate", "round,C=512,fwd", "shard-bf16,C=512,C'=256,gate",
+      "shard-bf16,C=512,C'=128,gate", "shard-bf16,C=512,C'=64,gate"]
   assert {k for k, *_ in smoke.SHARD_BWD_KERNELS} == {
       "rows", "dx", "weights", "reduce"}
 
@@ -1017,7 +1031,7 @@ def test_kernel_split_is_the_mean_of_the_traced_launches(smoke, monkeypatch,
   """Phases 5 and 12's per-kernel split: each kernel's mean device time over
   the launches the trace holds (a trace that lost launches late in a long
   process still gives each launch's time); a trace without one of the
-  expected kernels is taken again, 3 times in all, then "not measured"."""
+  expected kernels is taken again, 6 times in all, then "not measured"."""
   import torch
   monkeypatch.setattr(torch.profiler, "profile", _SplitTrace)
   monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -1032,9 +1046,115 @@ def test_kernel_split_is_the_mean_of_the_traced_launches(smoke, monkeypatch,
 
   monkeypatch.setattr(smoke, "device_kernels", device_kernels)
   got = smoke.kernel_split(lambda: None, smoke.BWD_SPLIT, len(kl.BWD_KERNELS))
-  assert len(traces) == (3 if kept == 0 else 1)
+  assert len(traces) == (6 if kept == 0 else 1)
   if kept == 0:
     assert got == "not measured"
   else:
     assert got == pytest.approx(
         {k: 0.5 * (i + 1) for i, k in enumerate(kl.BWD_KERNELS)})
+
+
+# -- the C = 512 redesigns: a rank's bf16 share on the layer's wgmma
+# kernels, and the f32 layer's acts through a global scratch ---------------
+
+RANKS_512 = tuple(cp for c, cp in kl.shard_pairs() if c == kl.WIDE_C)
+
+
+def test_wgmma_is_demanded_of_the_rank_kernels(smoke):
+  """Phase 2 holds a rank's gate and res/skip kernels at C = 512 (bf16) to
+  HGMMA, no serialized wgmma and no spill, as the layer's; the mma.sync
+  shard kernels at C <= 256 and the f32 shard kernels are not held."""
+  held = [f"shard-bf16,C=512,C'={cp},{k}" for cp in RANKS_512
+          for k in ("gate", "layer", "last")]
+  free = ["shard-bf16,C=256,C'=128,layer", "shard-bf16,C=128,C'=16,last",
+          "shard-f32,C=512,C'=256,layer", "round,C=512,fwd"]
+  assert len(held) == 9
+  assert all(smoke.held_to_wgmma(n) for n in held)
+  assert not any(smoke.held_to_wgmma(n) for n in free)
+  hgmma = {**dict.fromkeys(held, 4), **dict.fromkeys(free, 0)}
+  smoke.check_wgmma(hgmma, set(), held + free)
+  for name in held:
+    with pytest.raises(SystemExit, match="no wgmma"):
+      smoke.check_wgmma({**hgmma, name: 0}, set(), held + free)
+    with pytest.raises(SystemExit, match="serialized"):
+      smoke.check_wgmma(hgmma, {name}, held + free)
+    with pytest.raises(SystemExit, match="spills"):
+      smoke.check_no_spills(None, shard_attributes(name, 8))
+
+
+def test_phase2_lists_every_rank_kernel_at_512(smoke):
+  """Phase 2's attribute names hold, for each rank C' at C = 512, its gate
+  kernel (WIDE_KERNELS) and its res/skip kernel in both variants (the
+  shard kernel's name, SHARD_KERNELS), and no other bf16 shard instance
+  at 512; every one of them is held to wgmma."""
+  names = {smoke.wide_variant(*k) for k in smoke.WIDE_KERNELS}
+  names |= {smoke.shard_variant(*v) for v in smoke.SHARD_KERNELS}
+  for cp in RANKS_512:
+    for k in ("gate", "layer", "last"):
+      assert f"shard-bf16,C=512,C'={cp},{k}" in names
+  wide = {n for n in names if n.startswith("shard-bf16,C=512,")}
+  assert len(wide) == 3 * len(RANKS_512)
+  assert all(smoke.held_to_wgmma(n) for n in wide)
+
+
+def test_width_design_names_each_mode(smoke):
+  """The kernels line's design strings: one for each mode at each other
+  width, the C = 512 f32 layer's naming its global acts scratch and
+  4-stage ring, and the C = 512 bf16 shard's the layer's kernels at gate
+  width C'."""
+  for width in smoke.WIDE_WIDTHS:
+    assert set(smoke.WIDTH_DESIGN[width]) == set(smoke.MODES)
+  f32 = smoke.WIDTH_DESIGN[kl.WIDE_C]["f32"]
+  assert "global f32 scratch" in f32 and "96-row tiles" in f32
+  assert "wgmma" in smoke.WIDTH_DESIGN[kl.WIDE_C]["bf16"]
+  assert "gate width C'" in smoke.SHARD_WIDE_DESIGN
+  assert "mma.sync" in smoke.SHARD_DESIGN["bf16"]
+
+
+def test_shard_extra_keys_carry_the_split_where_taken(smoke):
+  """The C = 512 bf16 shard entry carries each other C''s round / gate /
+  rs split beside its times; an entry without a split gets no such key."""
+  split = {"round": 0.027, "gate": 0.06, "rs": 0.05}
+  timed = {cp: {"kernel_ms": 0.1, "plain_ms": 1.0, "library_ms": 0.3,
+                "bound_ms": 0.05, "kernels_ms": split} for cp in RANKS_512}
+  keys = smoke.shard_extra_keys(timed, 256)
+  assert keys["kernels_ms_C'128"] == split and keys["kernels_ms_C'64"] == split
+  assert "kernels_ms_C'256" not in keys and len(keys) == 10
+
+
+_F32W = "_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a"
+
+
+@pytest.mark.parametrize("mangled,want", [
+    (_F32W + "25wn_layer_kernel_f32_tilesILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_"
+     "S5_iiiii", "f32,C=512,layer"),
+    (_F32W + "25wn_layer_kernel_f32_tilesILb1EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_"
+     "S5_iiiii", "f32,C=512,last"),
+    (_F32W + "24wn_layer_kernel_f32_restILb0EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_"
+     "S5_iiiii", "f32,C=512,rest,layer"),
+    (_F32W + "24wn_layer_kernel_f32_restILb1EEEvPKfS2_S2_S2_S2_S2_PKiPfS5_"
+     "S5_iiiii", "f32,C=512,rest,last")])
+def test_kernel_variant_names_the_f32_kernels_at_512(smoke, mangled, want):
+  """The f32 forward at C = 512 is two kernels: the tiles kernel bears the
+  width's f32 variant names, the rest kernel its own; both are held to
+  no tensor-core instruction and no spill, as every f32 kernel."""
+  assert smoke.kernel_variant(mangled) == want
+  with pytest.raises(SystemExit, match="tensor-core"):
+    smoke.check_tensor_cores({want: 2}, [want])
+  with pytest.raises(SystemExit, match="spills"):
+    smoke.check_no_spills(None, {want: {"registers": 168, "local_bytes": 4}})
+
+
+@pytest.mark.parametrize("mode,batch,width,rest,want", [
+    ("f32", 1, 512, True, 2), ("f32", 8, 512, False, 1),
+    ("bf16", 1, 512, True, 3), ("f32", 1, 256, True, 1),
+    ("bf16", 8, 128, True, 1)])
+def test_forward_kernels_counts_each_launch(smoke, monkeypatch, mode, batch,
+                                            width, rest, want):
+  """The per-kernel split expects the kernels one call launches: three in
+  bf16 at C = 512, the f32 tiles kernel and the rest kernel where a block
+  has a rest of 48 rows or fewer, else one."""
+  monkeypatch.setattr(smoke.kl, "f32_schedule", lambda *a, **k: {
+      "sms": 132, "blocks_per_sm": 1})
+  monkeypatch.setattr(smoke.kl, "f32_rest_launched", lambda *a: rest)
+  assert smoke.forward_kernels(mode, batch, width) == want

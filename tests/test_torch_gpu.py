@@ -497,25 +497,52 @@ def test_bwd_schedule_reads_the_loaded_build(cuda, c):
   assert tiles * 12 * n_splits >= sms
 
 
+# The gate widths of the C = 512 bf16 kernels: the layer's, then a rank's
+# C' at model = 2, 4, 8.
+WIDE_GATES = (kl.WIDE_C,) + tuple(cp for c, cp in kl.shard_pairs()
+                                   if c == kl.WIDE_C)
+
+
+@pytest.mark.parametrize("cp", WIDE_GATES)
 @pytest.mark.parametrize("last", [False, True])
 @pytest.mark.parametrize("batch,t", [(1, 26_432), (8, 26_432), (3, 65)])
-def test_wide_schedule_is_the_host_grid(cuda, batch, t, last):
-  """The C = 512 bf16 forward's grid as the library picks it is
-  kl.wide_grid at the slots the card holds (one block an SM)."""
-  got = kl.wide_schedule(batch, t, last)
+def test_wide_schedule_is_the_host_grid(cuda, batch, t, last, cp):
+  """The C = 512 bf16 forward's grid (the layer's and a rank's) as the
+  library picks it is kl.wide_grid at the slots the card holds (one block
+  an SM)."""
+  got = kl.wide_schedule(batch, t, last, cp)
   sms = torch.cuda.get_device_properties(cuda).multi_processor_count
   assert got["slots"] == sms
-  want = kl.wide_grid(batch, t, last, got["slots"])
+  want = kl.wide_grid(batch, t, last, got["slots"], cp)
   assert {k: got[k] for k in ("tiles", "gate_blocks", "rs_blocks")} == {
       k: want[k] for k in ("tiles", "gate_blocks", "rs_blocks")}
 
 
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c", WIDTHS)
+def test_f32_schedule_is_the_host_grid(cuda, c, last):
+  """The f32 forward kernel's grid as the library picks it is kl.f32_grid
+  at the slots the card holds (at C = 512 each block owns the rows of the
+  acts scratch it writes and reads back)."""
+  for batch, t in ((1, 26_432), (8, 26_432), (4, 2_000), (2, 17)):
+    got = kl.f32_schedule(batch, t, last, channels=c)
+    want = kl.f32_grid(batch, t, got["sms"] * got["blocks_per_sm"])
+    assert {k: got[k] for k in want} == want
+
+
+@pytest.mark.parametrize("cp", WIDE_GATES)
 @pytest.mark.parametrize("kernel,last", [("gate", False), ("rs", False),
                                          ("rs", True), ("round", False)])
-def test_wide_kernel_info_reads_the_loaded_build(cuda, kernel, last):
-  info = kl.wide_kernel_info(kernel, last)
+def test_wide_kernel_info_reads_the_loaded_build(cuda, kernel, last, cp):
+  """Every C = 512 bf16 kernel, the layer's and each rank's, is in the
+  loaded build, spills nothing and takes the ring's 196,608 bytes (the
+  rounding of x none); a rank's res/skip kernel is its shard kernel's
+  info."""
+  info = kl.wide_kernel_info(kernel, last, cp)
   assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
   assert (info["dynamic_smem_bytes"] == 196_608) == (kernel != "round")
+  if kernel == "rs" and cp < kl.WIDE_C:
+    assert kl.shard_kernel_info(kl.WIDE_C, cp, True, last) == info
 
 
 def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
@@ -827,6 +854,96 @@ def test_shard_kernel_matches_plain(cuda, model, bf16, batch, t, dilation,
   summed = total + b_rs
   bound = 2e-2 * full.abs().max().item() if bf16 else 1e-4
   assert (summed - full).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("batch,t", [
+    (1, kl.WIDE_TILE_ROWS - 1), (1, kl.WIDE_TILE_ROWS),
+    (1, kl.WIDE_TILE_ROWS + 1), (3, 43)])
+@pytest.mark.parametrize("dilation,last", [(2, False), (128, False),
+                                           (128, True)])
+@pytest.mark.parametrize("cp", WIDE_GATES[1:])
+def test_wide_shard_kernel_ragged_last_unit(cuda, cp, dilation, last, batch,
+                                            t):
+  """A rank's share at C = 512 in bf16 (the layer's three kernels at gate
+  width C') walks units of WIDE_TILE_ROWS flat B*T rows: B*T one unit less
+  one row, one unit, one unit plus one row, and 3 x 43 (units across
+  sequences); each against wn_layer_shard_plain, every rank launched once,
+  the ranks summed against the unsharded layer."""
+  model = kl.WIDE_C // cp
+  args = layer_inputs(cuda, batch, t, kl.WIDE_C, last, torch.bfloat16,
+                      seed=cp + t)
+  before, total = kl.SHARD_LAUNCHES, None
+  for rank in range(model):
+    sl = shard_slices(args, model, rank)
+    got = kl.wn_layer_shard(args[0], *sl, dilation,
+                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = kl.wn_layer_shard_plain(args[0], *sl, dilation,
+                                  compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    total = got if total is None else total + got
+  assert kl.SHARD_LAUNCHES == before + model
+  xk, sk = kl.wn_layer_fused(*args, dilation, compute_dtype=torch.bfloat16)
+  full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
+  assert ((total + args[5] - full).abs().max().item()
+          <= 2e-2 * full.abs().max().item())
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("cp", WIDE_GATES[1:])
+def test_wide_shard_kernel_repeats_bitwise(cuda, cp, last):
+  """16 launches of a rank's share at C = 512 in bf16 at B=1, T=26,432 (207
+  units a pass on one wave of persistent blocks) give the bits of the
+  first (no atomics, no split K)."""
+  args = layer_inputs(cuda, 1, 26_432, kl.WIDE_C, last, torch.bfloat16,
+                      seed=cp)
+  sl = shard_slices(args, kl.WIDE_C // cp, 1)
+  one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+  for _ in range(16):
+    two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
+                                           (128, True)])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_f32_wide_kernel_matches_plain(cuda, batch, dilation, last):
+  """The f32 layer at C = 512 (its acts through a global scratch, read
+  back through the ring) at B = 1 and 8, d = 1, 128 and the last layer,
+  each row with its own valid_t, skip_acc on, within 1e-4 of
+  wn_layer_plain (true f32, no TF32)."""
+  t = 2_000
+  valid = [t - 37 * row for row in range(batch)]
+  check_against_plain(cuda, batch, t, dilation, last, False, valid,
+                      seed=batch + dilation, c=kl.WIDE_C)
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_f32_wide_kernels_info_reads_the_loaded_build(cuda, last):
+  """The f32 forward at C = 512 is two kernels in the loaded build, the
+  tiles kernel (kernel_info; 384 threads) and the rest kernel (256): no
+  spill, their rings as dynamic shared memory (4 slots of 96 rows and a
+  128-channel pass; 3 slots of 16 rows and the 512-channel pass)."""
+  tiles = kl.kernel_info(kl.WIDE_C, False, last)
+  rest = kl.f32_rest_kernel_info(last)
+  assert 0 < tiles["registers"] <= 168 and 0 < rest["registers"] <= 255
+  assert tiles["local_bytes"] == 0 and rest["local_bytes"] == 0
+  assert tiles["dynamic_smem_bytes"] == 4 * (96 * 16 + 16 * 256) * 4
+  assert rest["dynamic_smem_bytes"] == 3 * (16 * 16 + 16 * 1024) * 4
+
+
+@pytest.mark.parametrize("t", [13_000, 19_000, 20_000, 26_432])
+def test_f32_wide_kernel_tiles(cuda, t):
+  """B=1 at T where a block's rows (one wave on the card) are one 96-row
+  tile and a 16-row rest (13,000), a 96-row tile and a rest of three
+  16-row tiles (19,000), a 96-row tile and a short 64-row one (20,000),
+  and two 96-row tiles and a rest (26,432): against wn_layer_plain, the
+  tiles as kl.f32_tiles gives them."""
+  grid = kl.f32_schedule(1, t, channels=kl.WIDE_C)
+  assert kl.f32_tiles(grid["rows_per_block"], kl.WIDE_C)
+  check_against_plain(cuda, 1, t, 8, False, False, [t - 3], seed=t,
+                      c=kl.WIDE_C)
 
 
 @pytest.mark.parametrize("c", WIDTHS)

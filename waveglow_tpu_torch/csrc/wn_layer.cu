@@ -31,7 +31,7 @@
 //     are T*C*(4*4 + 2*2) = 135 MB / 3.35 TB/s = 0.040 ms, against 0.028 ms
 //     of tensor-core time.
 //
-// Two kernels, one per mode.
+// Two kernels, one per mode (at C = 512 in f32 two, and in bf16 three).
 //
 // wn_layer_kernel_f32 (parity mode): true f32 FMAs on the CUDA cores, no
 // TF32, so no tensor cores. One wave of blocks of 384 threads (12 warps),
@@ -56,10 +56,13 @@
 //     product; cond's rows, then the residual's x rows and the skip sum, are
 //     prefetched into L2 before the gate and the epilogue read them.
 //   * Width: the warp grid covers 256 channels of each half (C = 128: 128
-//     with 8 warps of 192-thread blocks). At C = 512 each product runs in
-//     two passes of 256 channels: the gate's tanh and sigmoid columns of one
-//     pass, then the res/skip columns of one pass, each over the whole K;
-//     the ring has 3 stages there, so the acts [48][C] still fit.
+//     with 8 warps of 192-thread blocks). C = 512 runs two kernels of the
+//     same register tile, wn_layer_kernel_f32_tiles and _rest (their
+//     section below): 96-row tiles in four passes of 128 channels, so each
+//     weight row copied into the ring feeds 96 rows, a block's rest of 48
+//     rows or fewer in 16-row tiles of one 512-channel pass, and the acts
+//     through a global f32 scratch instead of shared memory, which keeps
+//     the ring at 4 stages.
 //
 // wn_layer_kernel_mma (fast mode): both products on the tensor cores, as
 // wgmma (m64n128k16, bf16 operands from shared memory, f32 accumulators in
@@ -119,6 +122,16 @@
 //     device holds, no more than units), each walking the units blockIdx +
 //     k * gridDim; the four passes of a tile are neighbours, so its taps
 //     are read from L2 while the other passes still hold them.
+//   * A model rank's share of the C = 512 layer in bf16 (wn_layer_shard.cu's
+//     contract: C' = 256, 128 or 64 gate channels, the f32 partial acts @
+//     w_rs_s out) runs the same three kernels at gate width G = C'
+//     (wn_layer_shard_wide_forward): the gate kernel makes G / 128 passes
+//     (one of 64 tanh and 64 sigmoid columns, two m64n64 products, at C' =
+//     64) over w_in_s [3C, 2C'] and cond_s [B*T, 2C'] into acts [B*T, C'];
+//     the res/skip kernel's K is C' and its epilogue stores the partial as
+//     it is. The mma.sync shard kernel it replaced there streamed all of
+//     w_in_s and w_rs_s through its ring for every 64 rows and rounded the
+//     f32 taps on every chunk.
 // No atomics, no split K: the sums run in one fixed order, so two launches
 // give the same bits.
 //
@@ -130,7 +143,13 @@
 // shape) the three bf16 kernels take 0.43 ms (round 0.027, gate 0.244, rs
 // 0.142) against the 0.112 ms bound (26%) and 0.79 ms for the streamed
 // design they replaced; the gate kernel is bound by no one of its copies
-// or wgmmas (fwd_ablation.py). PERF.md keeps the times;
+// or wgmmas (fwd_ablation.py). A rank's share at C = 512 in bf16 takes
+// 0.25 / 0.17 / 0.14 ms at C' = 256 / 128 / 64 against 0.40 / 0.26 / 0.19
+// for the mma.sync kernel it replaced, the same bits (fwd_compare.py). The
+// f32 layer at C = 512 takes 3.02 ms at d=1 and d=128 against the 1.65 ms
+// bound (55%) and 3.44 ms for the 48-row design it replaced, the same bits,
+// at the card's full 1,980 MHz clock (fwd_f32_ablation.py). PERF.md keeps
+// the times;
 // wn_layer_kernel_info reports the registers, spills and shared memory of
 // the loaded build.
 
@@ -140,6 +159,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "f32_ring.cuh"
 #include "sm90_wgmma.cuh"
@@ -158,18 +178,18 @@ constexpr int kChunk = 16;                     // K rows per ring stage
 constexpr int kRowQuantum = 16;
 constexpr int kTapFloats = kTileRows * kChunk;  // 768
 
-// The f32 kernel's layout at width kC. A pass covers kPC channels of each
-// half (the warp grid's width); C = 512 takes two passes of each product.
-// Ring slot: the chunk's taps [kTileRows][kChunk], then its weight rows
-// [kChunk][2 kPC] (the last layer's w_rs: [kChunk][kPC]); acts
-// [kTileRows][kActsStride]; f32.
+// The f32 kernel's layout at width kC <= 256 (C = 512 has the kernels of
+// the next section). A pass covers the kPC = C channels of each half (the
+// warp grid's width). Ring slot: the chunk's taps [kTileRows][kChunk],
+// then its weight rows [kChunk][2 kPC] (the last layer's w_rs:
+// [kChunk][kPC]); acts [kTileRows][kActsStride]; f32.
 template <int kC>
 struct F32 {
-  static constexpr int kPC = kC < 256 ? kC : 256;  // channels of a pass
+  static constexpr int kPC = kC;                   // channels of a pass
   static constexpr int kPasses = kC / kPC;
   static constexpr int kColWarps = kPC / 64;       // warps across a pass
   static constexpr int kThreads = 32 * kColWarps * kRowPairs;  // 192 / 384
-  static constexpr int kStages = kC > 256 ? 3 : 4;  // ring depth
+  static constexpr int kStages = 4;                // ring depth
   static constexpr int kAhead = kStages - 1;  // chunks in flight under the FMAs
   static constexpr int kInPerPass = 3 * kC / kChunk;  // w_in and the taps
   static constexpr int kRsPerPass = kC / kChunk;      // w_rs
@@ -183,6 +203,7 @@ struct F32 {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
   static_assert(kTileRows * kChunk / 4 <= kThreads, "one tap piece a thread");
   static_assert(kPC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
+  static_assert(kC <= 256, "C = 512 runs wn_layer_kernel_f32_{tiles,rest}");
 };
 
 // Start the cp.async copies of chunk `chunk` of the block's sequence into its
@@ -314,8 +335,6 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
 
     // ---- first product: pre[rows, 2C] = taps[rows, 3C] @ w_in[3C, 2C] -----
     // pass p: the tanh and sigmoid columns of channels [p kPC, p kPC + kPC)
-    // (unrolled: the pass's column offsets are constants, which keeps the
-    // last-layer variant at C = 512 inside the 168 registers a thread has)
 #pragma unroll
     for (int p = 0; p < L::kPasses; ++p) {
       const int ch = p * kPC + c0;  // this thread's channels of the pass
@@ -456,6 +475,395 @@ wn_layer_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
     }
   }
   cp_async_wait<0>();
+}
+
+// ---- the f32 kernel at C = 512: 96-row tiles, the acts through a scratch
+
+// At C = 512 the layout above holds a tile's acts [48][512] in 99 KB of
+// shared memory, leaves a 3-stage ring, and copies every weight row of the
+// layer into shared memory once for each 48 rows: those copies cost a fifth
+// of its time (fwd_f32_ablation.py), and a deeper ring does not hide them.
+// So the weight rows feed 96 rows here: a tile is 96 rows (6 pairs of 16)
+// x a pass of 128 channels (2 warps across), four passes of each product,
+// the same 8 x (4 + 4) register tile a thread; the acts go to a global f32
+// scratch [B*T, C] (a block's own rows) and come back through the ring as
+// the second product's rows, so the ring keeps 4 stages. A block's rows
+// (the one-wave split of the C <= 256 kernel) are walked by
+// wn_layer_kernel_f32_tiles in 96-row tiles, the last short; when 48 rows
+// or fewer are left (16 of 208 at B=1, T=26,432), wn_layer_kernel_f32_rest
+// takes them in tiles of 16 rows x all 512 channels in one pass, 8 warps
+// for each 16 rows (2 in a 96-row tile), through a 3-stage ring.
+
+// A tile layout of the C = 512 f32 kernels: a pass covers kPC channels of
+// each gate half (kPC / 64 warps across), a tile kRowPairs x 16 rows; per
+// pass of the first product kInPerPass 16-row K chunks of w_in (the pass's
+// tanh and sigmoid columns) with the taps, then per pass of the second
+// kRsPerPass of w_rs (its residual and skip columns; the last layer's
+// columns of the pass) with the acts. Ring slot: the chunk's taps or acts
+// [kTileRows][kChunk], then its weight rows [kChunk][2 kPC] (the last
+// layer's w_rs: [kChunk][kPC]); kStages_ slots.
+template <int kPC_, int kRowPairs, int kStages_ = 4>
+struct F32Wide {
+  static constexpr int kC = 512;
+  static constexpr int kPC = kPC_;
+  static constexpr int kPasses = kC / kPC;
+  static constexpr int kTileRows = 16 * kRowPairs;
+  static constexpr int kTapFloats = kTileRows * kChunk;
+  static constexpr int kColWarps = kPC / 64;
+  static constexpr int kThreads = 32 * kColWarps * kRowPairs;
+  static constexpr int kStages = kStages_;
+  static constexpr int kAhead = kStages - 1;
+  static constexpr int kInPerPass = 3 * kC / kChunk;
+  static constexpr int kRsPerPass = kC / kChunk;
+  static constexpr int kInChunks = kPasses * kInPerPass;
+  static constexpr int kChunks = kInChunks + kPasses * kRsPerPass;
+  static constexpr int kChunksPerTap = kC / kChunk;
+  static constexpr int kSlotFloats = kTapFloats + kChunk * 2 * kPC;
+  static constexpr int kSmemBytes = sizeof(float) * kStages * kSlotFloats;
+  static_assert(kPC == kColWarps * 16 * kPerLane, "16 lanes a channel quarter");
+  static_assert(kTileRows * kChunk / 4 <= kThreads, "one tap piece a thread");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+};
+using F32Tiles = F32Wide<128, 6>;    // wn_layer_kernel_f32_tiles: 384 threads
+using F32Rest = F32Wide<512, 1, 3>;  // wn_layer_kernel_f32_rest: 256 threads
+// The most rows of a block's rest left to the rest kernel.
+constexpr int kF32RestRows = 48;
+
+// A block of n rows: its 96-row tiles (the last short, when over
+// kF32RestRows rows are left), and whether a rest of kF32RestRows rows or
+// fewer is left to the rest kernel.
+__host__ __device__ inline int f32_wide_tiles(int n) {
+  const int rest = n % F32Tiles::kTileRows;
+  return n / F32Tiles::kTileRows + (rest > kF32RestRows);
+}
+
+__host__ __device__ inline bool f32_wide_rest(int n) {
+  const int rest = n % F32Tiles::kTileRows;
+  return rest > 0 && rest <= kF32RestRows;
+}
+
+// Start the cp.async copies of chunk `local` of a tile of layout L whose
+// first flat row is `tile0` into the ring slot at `slot`. Taps are rows of
+// the flat [B*T, C] x: tile row r is flat row R = b*T + t, and its tap
+// reads row R + (tap-1)*d, zero unless t + (tap-1)*d lies in [0, T) (its
+// own sequence) and R before the block's end `row_end`; this thread's tap
+// row's t is kept in `tap_t` from the tile's first chunk (a large negative
+// past the block's end), so the division by T runs once a tile. The second
+// product's chunks copy the tile's acts of their 16 channels from `acts`
+// [B*T, C] (zero past the block's end).
+template <typename L, bool kLast>
+__device__ __forceinline__ void f32_wide_load(
+    uint32_t slot, int local, int tile0, int row_end, const float* x,
+    const float* acts, const float* w_in, const float* w_rs, int T,
+    int dilation, int& tap_t) {
+  constexpr int kC = L::kC;
+  constexpr int kPC = L::kPC;
+  constexpr int N_RS = kLast ? kC : 2 * kC;
+  const uint32_t wslot = slot + L::kTapFloats * 4;
+  const int r = threadIdx.x / (kChunk / 4);  // tap row, 16-byte piece q
+  const int q = threadIdx.x % (kChunk / 4);
+  const int row = tile0 + r;                 // flat row
+  if (local == 0)
+    tap_t = row < row_end
+                ? row - static_cast<int>(static_cast<unsigned>(row) /
+                                         static_cast<unsigned>(T)) * T
+                : INT32_MIN / 2;
+  if (local >= L::kInChunks) {
+    const int j = local - L::kInChunks;
+    const int pass = j / L::kRsPerPass;
+    const int k0 = (j % L::kRsPerPass) * kChunk;
+    if (r < L::kTileRows)
+      cp_async16_zfill(
+          slot + (r * kChunk + q * 4) * 4,
+          row < row_end ? acts + static_cast<int64_t>(row) * kC + k0 + q * 4
+                        : acts,
+          row < row_end);
+    const float* src = w_rs + static_cast<int64_t>(k0) * N_RS;
+    if constexpr (kLast)
+      copy_rows<kChunk, L::kThreads, kPC, kPC>(wslot, src, N_RS, pass * kPC,
+                                               0);
+    else
+      copy_rows<kChunk, L::kThreads, 2 * kPC, kPC>(wslot, src, N_RS,
+                                                   pass * kPC, kC + pass * kPC);
+    return;
+  }
+  const int pass = local / L::kInPerPass;
+  const int kc = local % L::kInPerPass;
+  const int off = (kc / L::kChunksPerTap - 1) * dilation;
+  const int t = tap_t + off;
+  const bool valid = t >= 0 && t < T;
+  if (r < L::kTileRows)
+    cp_async16_zfill(slot + (r * kChunk + q * 4) * 4,
+                     valid ? x + static_cast<int64_t>(row + off) * kC +
+                                 (kc % L::kChunksPerTap) * kChunk + q * 4
+                           : x,
+                     valid);
+  copy_rows<kChunk, L::kThreads, 2 * kPC, kPC>(
+      wslot, w_in + static_cast<int64_t>(kc) * kChunk * 2 * kC, 2 * kC,
+      pass * kPC, kC + pass * kPC);
+}
+
+// `n_tiles` tiles of layout L from flat row `first` (the last one ending
+// at `row_end`, the block's end): both products, the gate and the epilogue
+// of the C <= 256 kernel, one sequence of K chunks through the ring.
+template <typename L, bool kLast>
+__device__ __forceinline__ void f32_wide_block(
+    const float* __restrict__ x, const float* __restrict__ cond,
+    const float* __restrict__ w_in, const float* __restrict__ b_in,
+    const float* __restrict__ w_rs, const float* __restrict__ b_rs,
+    const int* __restrict__ valid_t, float* __restrict__ x_out,
+    float* skip_out, float* acts_g, int accumulate, int T, int dilation,
+    int first, int n_tiles, int row_end) {
+  constexpr int C = L::kC;
+  constexpr int kPC = L::kPC;
+  constexpr int N_IN = 2 * C;  // gate pre-activations
+  constexpr int kThreads = L::kThreads;
+  const int n_chunks = n_tiles * L::kChunks;
+
+  extern __shared__ float4 smem_f32w[];
+  float* smem = reinterpret_cast<float*>(smem_f32w);
+  const uint32_t ring = smem_u32(smem);
+
+  // Warp w: rows [16 (w/kColWarps), +16) of the tile and channels
+  // [64 (w%kColWarps), +64) of each gate half of a pass; lane l: rows
+  // 16 (w/kColWarps) + 2i + l/16 and channels c0..c0+3, c0 = 64 (w%kColWarps)
+  // + 4 (l%16), as in the C <= 256 kernel.
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pair = warp / L::kColWarps;
+  const int r0 = 16 * pair + lane / 16;                  // first tile row
+  const int c0 = 64 * (warp % L::kColWarps) + 4 * (lane % 16);
+
+  int tap_t;
+  const auto load_chunk = [&](int chunk) {
+    f32_wide_load<L, kLast>(
+        ring + (chunk % L::kStages) * L::kSlotFloats * 4, chunk % L::kChunks,
+        first + chunk / L::kChunks * L::kTileRows, row_end, x, acts_g, w_in,
+        w_rs, T, dilation, tap_t);
+  };
+  ring_prologue<L::kAhead>(n_chunks, load_chunk);
+
+  float acc_a[kRowsPerThread][kPerLane];  // tanh, then residual (last: skip)
+  float acc_b[kRowsPerThread][kPerLane];  // sigmoid, then skip
+  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += L::kChunks) {
+    const int t0 = first + chunk0 / L::kChunks * L::kTileRows;  // flat row
+    const int tile_rows = min(L::kTileRows, row_end - t0);
+    // the warps of a pair of 16 rows all past the block's end do no FMAs
+    const bool busy = 16 * pair < tile_rows;
+    // One gate pass (the rest kernel): the second product's first chunks
+    // read acts that the pass's last step writes, so the ring loads nothing
+    // past the gate until then. (With more passes they are the first
+    // pass's channels, written a pass earlier.)
+    constexpr bool kOnePass = L::kPasses == 1;
+    const int gate_end = chunk0 + L::kInChunks;
+    const int gate_limit = kOnePass ? gate_end : n_chunks;
+
+    // ---- first product: pre[rows, 2C] = taps[rows, 3C] @ w_in[3C, 2C] -----
+    // pass p: the tanh and sigmoid columns of channels [p kPC, p kPC + kPC)
+    // (unrolled: the pass's column offsets are constants)
+#pragma unroll
+    for (int p = 0; p < L::kPasses; ++p) {
+      const int ch = p * kPC + c0;  // this thread's channels of the pass
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < L::kInPerPass; ++kc) {
+        const int local = p * L::kInPerPass + kc;
+        ring_step<L::kAhead>(chunk0 + local, gate_limit, load_chunk);
+        if (kc == L::kInPerPass - 16) {
+          // the pass's cond columns of the tile's rows into L2, for the
+          // gate: kLines 128-byte lines of each half a row
+          constexpr int kLines = kPC / 32;
+          const float* src = cond + static_cast<int64_t>(t0) * N_IN + p * kPC;
+          for (int q = threadIdx.x; q < tile_rows * 2 * kLines; q += kThreads)
+            prefetch_l2(src + q / (2 * kLines) * N_IN + q / kLines % 2 * C +
+                        q % kLines * 32);
+        }
+        if (busy) {
+          const float* slot =
+              smem + ((chunk0 + local) % L::kStages) * L::kSlotFloats;
+          f32_chunk_fma<true, kChunk, 2 * kPC, kPC>(
+              acc_a, acc_b, slot + r0 * kChunk, slot + L::kTapFloats + c0);
+        }
+      }
+
+      // ---- gate (f32) on the accumulators, acts to the scratch ------------
+      // rows of the tile only: the second product reads them back through
+      // the ring after this tile's next barriers
+      if (busy) {
+        float bt[kPerLane], bs[kPerLane];
+        load4(bt, b_in + ch);
+        load4(bs, b_in + C + ch);
+#pragma unroll
+        for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+          float ct[2][kPerLane], cs[2][kPerLane];  // 2 rows' loads in flight
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            if (r < tile_rows) {
+              const float* crow = cond + static_cast<int64_t>(t0 + r) * N_IN;
+              load4(ct[h], crow + ch);
+              load4(cs[h], crow + C + ch);
+            } else {
+#pragma unroll
+              for (int j = 0; j < kPerLane; ++j) ct[h][j] = cs[h][j] = 0.f;
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            float out[kPerLane];
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j) {
+              const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
+              const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
+              out[j] = tanhf(gt) * (1.f / (1.f + expf(-gs)));
+            }
+            if (r < tile_rows)
+              store4(acts_g + static_cast<int64_t>(t0 + r) * C + ch, out);
+          }
+        }
+      }
+      // the ring's cp.async.cg reads the acts from L2: this thread's stores
+      // reach it before the barriers that order those reads
+      __threadfence();
+    }
+    if constexpr (kOnePass) {
+      // the second product's first chunks, whose acts the gate has just
+      // written, load now (each a commit group, as the steps' loads)
+      __syncthreads();
+      for (int c = gate_end; c < gate_end + L::kAhead; ++c) {
+        if (c < n_chunks) load_chunk(c);
+        cp_async_commit();
+      }
+    }
+
+    // ---- second product: rs[rows, N_RS] = acts[rows, C] @ w_rs[C, N_RS] --
+    // pass p: residual and skip columns [p kPC, p kPC + kPC) (the last
+    // layer: skip columns)
+#pragma unroll
+    for (int p = 0; p < L::kPasses; ++p) {
+      const int ch = p * kPC + c0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < L::kRsPerPass; ++kc) {
+        const int local = L::kInChunks + p * L::kRsPerPass + kc;
+        ring_step<L::kAhead>(chunk0 + local, n_chunks, load_chunk);
+        if (kc == L::kRsPerPass - 8) {
+          // the pass's columns of the x rows and the skip sum into L2, for
+          // the epilogue
+          constexpr int kLines = kPC / 32;
+          const int64_t off = static_cast<int64_t>(t0) * C + p * kPC;
+          for (int q = threadIdx.x; q < tile_rows * kLines; q += kThreads) {
+            const int64_t at = off + q / kLines * C + q % kLines * 32;
+            prefetch_l2(x + at);
+            if (accumulate) prefetch_l2(skip_out + at);
+          }
+        }
+        if (busy) {
+          const float* slot =
+              smem + ((chunk0 + local) % L::kStages) * L::kSlotFloats;
+          f32_chunk_fma<!kLast, kChunk, kLast ? kPC : 2 * kPC, kPC>(
+              acc_a, acc_b, slot + r0 * kChunk, slot + L::kTapFloats + c0);
+        }
+      }
+
+      // ---- epilogue: residual, valid_t mask, skip accumulation -----------
+      if (busy) {
+        float br[kPerLane], bk[kPerLane];
+        load4(br, b_rs + ch);
+        if constexpr (!kLast) load4(bk, b_rs + C + ch);
+#pragma unroll
+        for (int i0 = 0; i0 < kRowsPerThread; i0 += 2) {
+          float xv[2][kPerLane], prev[2][kPerLane];  // 2 rows' loads in flight
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            if (r >= tile_rows) continue;
+            const int64_t off = static_cast<int64_t>(t0 + r) * C + ch;
+            load4(xv[h], x + off);
+            if (accumulate) load4(prev[h], skip_out + off);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + h;
+            const int r = r0 + 2 * i;
+            if (r >= tile_rows) continue;
+            const int row = t0 + r;
+            const int b = static_cast<unsigned>(row) / static_cast<unsigned>(T);
+            const int valid = valid_t != nullptr ? valid_t[b] : T;
+            const bool keep = row - b * T < valid;
+            float skip[kPerLane];
+#pragma unroll
+            for (int j = 0; j < kPerLane; ++j) {
+              if constexpr (kLast) {
+                skip[j] = acc_a[i][j] + br[j];
+              } else {
+                xv[h][j] += acc_a[i][j] + br[j];
+                skip[j] = acc_b[i][j] + bk[j];
+              }
+              if (!keep) xv[h][j] = 0.f;
+              if (accumulate) skip[j] += prev[h][j];
+            }
+            const int64_t off = static_cast<int64_t>(row) * C + ch;
+            store4(x_out + off, xv[h]);
+            store4(skip_out + off, skip);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// C = 512, f32: block i's flat rows [i * rows_per_block, (i + 1) *
+// rows_per_block) of the B*T rows in 96-row tiles (f32_wide_tiles).
+template <bool kLast>
+__global__ void __launch_bounds__(F32Tiles::kThreads, 1)
+wn_layer_kernel_f32_tiles(
+    const float* __restrict__ x, const float* __restrict__ cond,
+    const float* __restrict__ w_in, const float* __restrict__ b_in,
+    const float* __restrict__ w_rs, const float* __restrict__ b_rs,
+    const int* __restrict__ valid_t, float* __restrict__ x_out,
+    float* skip_out, float* acts_g, int accumulate, int T, int dilation,
+    int rows, int rows_per_block) {
+  const int row_begin = blockIdx.x * rows_per_block;
+  const int row_end = min(rows, row_begin + rows_per_block);
+  if (row_begin >= row_end) return;
+  const int n_tiles = f32_wide_tiles(row_end - row_begin);
+  if (n_tiles == 0) return;
+  f32_wide_block<F32Tiles, kLast>(x, cond, w_in, b_in, w_rs, b_rs, valid_t,
+                                  x_out, skip_out, acts_g, accumulate, T,
+                                  dilation, row_begin, n_tiles, row_end);
+}
+
+// C = 512, f32: the rest of block i's rows past its 96-row tiles, when
+// kF32RestRows or fewer (f32_wide_rest), in 16-row tiles of one 512-channel
+// pass; the same grid as wn_layer_kernel_f32_tiles.
+template <bool kLast>
+__global__ void __launch_bounds__(F32Rest::kThreads, 1)
+wn_layer_kernel_f32_rest(
+    const float* __restrict__ x, const float* __restrict__ cond,
+    const float* __restrict__ w_in, const float* __restrict__ b_in,
+    const float* __restrict__ w_rs, const float* __restrict__ b_rs,
+    const int* __restrict__ valid_t, float* __restrict__ x_out,
+    float* skip_out, float* acts_g, int accumulate, int T, int dilation,
+    int rows, int rows_per_block) {
+  const int row_begin = blockIdx.x * rows_per_block;
+  const int row_end = min(rows, row_begin + rows_per_block);
+  if (row_begin >= row_end || !f32_wide_rest(row_end - row_begin)) return;
+  const int first =
+      row_begin + f32_wide_tiles(row_end - row_begin) * F32Tiles::kTileRows;
+  f32_wide_block<F32Rest, kLast>(
+      x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, skip_out, acts_g,
+      accumulate, T, dilation, first,
+      (row_end - first + F32Rest::kTileRows - 1) / F32Rest::kTileRows,
+      row_end);
 }
 
 // ---- the bf16 tensor-core kernel ------------------------------------------
@@ -847,11 +1255,13 @@ __device__ __forceinline__ void mma_resident(
 
 // ---- C = 512: the taps rounded once, 128-row units, a persistent grid ----
 
-// The three kernels of the C = 512 layer (see the note at the top): the
-// layout of a unit's ring. Two warpgroups, 64 rows each, hold a unit's 128
-// rows; a stage is one 64-deep K chunk: A [128 rows][64 K] K-major, then B
-// [64 K][256 N] MN-major in four 64-column blocks, both with the 128-byte
-// swizzle (sm90_wgmma.cuh).
+// The three kernels of the C = 512 layer (see the note at the top), which
+// also run a model rank's share of it at C' = C / model gate channels
+// (wn_layer_shard.cu's contract): the layout of a unit's ring. Two
+// warpgroups, 64 rows each, hold a unit's 128 rows; a stage is one 64-deep
+// K chunk: A [128 rows][64 K] K-major, then B [64 K][at most 256 N]
+// MN-major in 64-column blocks, both with the 128-byte swizzle
+// (sm90_wgmma.cuh).
 struct Wide {
   static constexpr int kC = 512;
   static constexpr int kThreads = 256;
@@ -863,10 +1273,18 @@ struct Wide {
   static constexpr int kStages = 4;
   static constexpr int kAhead = kStages - 2;          // chunks in flight
   static constexpr int kSmem = kStages * kStageBytes;  // 196,608
-  static constexpr int kGatePasses = kC / 128;        // 128 channels a pass
   static constexpr int kGateChunks = 3 * kC / kKC;    // 24
-  static constexpr int kRsChunks = kC / kKC;          // 8
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// The gate kernel at kG gate channels (C for the layer, C' for a rank): a
+// pass takes kPW of them, its tanh and sigmoid columns side by side in B
+// (kPW each: two m64nkPW products a chunk).
+template <int kG>
+struct WideGate {
+  static constexpr int kPW = kG < 128 ? kG : 128;  // channels of a pass
+  static constexpr int kPasses = kG / kPW;
+  static_assert(kPW % 64 == 0 && kG % kPW == 0, "whole 64-column blocks");
 };
 
 // Passes of the res/skip product: 256 of its n_rs columns each.
@@ -877,19 +1295,19 @@ __host__ __device__ constexpr int wide_rs_passes() {
 
 // A unit's products: kChunks K chunks through the ring, `load(stage, j)`
 // starting this thread's copies of chunk j (no commit) kAhead steps ahead
-// of its wgmmas; acc_a += A @ B[:, 0:128) and acc_b += A @ B[:, 128:256)
+// of its wgmmas; acc_a += A @ B[:, 0:kN) and acc_b += A @ B[:, kN:2kN)
 // over the warpgroup's 64 rows. Past each step's barrier every warpgroup
 // has waited for the wgmmas of chunk j - 2, whose stage takes chunk j + 2.
 // Returns with every wgmma and copy of the unit done.
-template <int kChunks, typename Load>
+template <int kChunks, int kN, typename Load>
 __device__ __forceinline__ void wide_products(uint32_t ring,
-                                              float (&acc_a)[kAcc],
-                                              float (&acc_b)[kAcc],
+                                              float (&acc_a)[kN / 2],
+                                              float (&acc_b)[kN / 2],
                                               const Load& load) {
   using L = Wide;
   const uint32_t a_wg = (threadIdx.x / 128) * (L::kABytes / 2);
   for (int c = 0; c < L::kAhead; ++c) {
-    load(ring + c * L::kStageBytes, c);
+    if (c < kChunks) load(ring + c * L::kStageBytes, c);
     cp_async_commit();
   }
 #pragma unroll 1
@@ -908,11 +1326,11 @@ __device__ __forceinline__ void wide_products(uint32_t ring,
 #pragma unroll
     for (int k = 0; k < L::kKC / 16; ++k) {
       const uint64_t da = kmajor_desc(st + a_wg + k * 32);
-      wgmma_m64<128, 0, 1>(
+      wgmma_m64<kN, 0, 1>(
           acc_a, da, mnmajor_desc(st + L::kABytes + k * 2048, L::kNBlock));
-      wgmma_m64<128, 0, 1>(
+      wgmma_m64<kN, 0, 1>(
           acc_b, da,
-          mnmajor_desc(st + L::kABytes + 2 * L::kNBlock + k * 2048,
+          mnmajor_desc(st + L::kABytes + kN / 64 * L::kNBlock + k * 2048,
                        L::kNBlock));
     }
     wgmma_commit();
@@ -927,16 +1345,18 @@ __device__ __forceinline__ void wide_products(uint32_t ring,
 }
 
 // cp.async 64 K rows of a bf16 weight (rows `ld` elements apart from `src`)
-// into the stage's B: its 256 columns are [a, a + 128) then [b, b + 128)
-// of the source row.
+// into the stage's B: its 2 kN columns are [a, a + kN) then [b, b + kN) of
+// the source row.
+template <int kN>
 __device__ __forceinline__ void wide_load_b(uint32_t stage, const bf16* src,
                                             int ld, int a, int b) {
   using L = Wide;
+  constexpr int kPieces = 2 * kN / 8;  // 16-byte pieces of a K row
 #pragma unroll
-  for (int i = 0; i < L::kKC * 32 / L::kThreads; ++i) {
+  for (int i = 0; i < L::kKC * kPieces / L::kThreads; ++i) {
     const int p = threadIdx.x + i * L::kThreads;
-    const int k = p / 32, n = (p % 32) * 8;
-    const int col = n < 128 ? a + n : b + n - 128;
+    const int k = p / kPieces, n = (p % kPieces) * 8;
+    const int col = n < kN ? a + n : b + n - kN;
     cp_async16(stage + L::kABytes + (n / 64) * L::kNBlock +
                    sw128_piece(k, (n % 64) / 8),
                src + static_cast<int64_t>(k) * ld + col);
@@ -970,12 +1390,14 @@ wn_layer_kernel_round(const float* __restrict__ x, bf16* __restrict__ x_bf,
   }
 }
 
-// The gate: unit u = (tile u / 4 of 128 flat rows, pass u % 4 of 128
-// channels); the block walks units blockIdx.x + k * gridDim.x. pre = the
-// three taps of bf16 x (rows t + (tap-1)*d of the row's own sequence, zero
-// outside [0, T)) @ w_in at the pass's tanh columns (acc_a) and sigmoid
-// columns (acc_b), K = 3C in chunks of (tap, 64 channels); then the gate in
-// f32 on the accumulators, the acts rounded to bf16 into `acts`.
+// The gate at kG gate channels: unit u = (tile u / P of 128 flat rows, pass
+// u % P of kPW channels), P = kG / kPW; the block walks units blockIdx.x +
+// k * gridDim.x. pre = the three taps of bf16 x (rows t + (tap-1)*d of the
+// row's own sequence, zero outside [0, T)) @ w_in [3C, 2 kG] at the pass's
+// tanh columns (acc_a) and sigmoid columns (acc_b), K = 3C in chunks of
+// (tap, 64 channels); then the gate in f32 on the accumulators (cond [B*T,
+// 2 kG], b_in [2 kG]), the acts rounded to bf16 into `acts` [B*T, kG].
+template <int kG>
 __global__ void __launch_bounds__(256, 1)
 wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
                      const bf16* __restrict__ cond,
@@ -983,19 +1405,22 @@ wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
                      const float* __restrict__ b_in, bf16* __restrict__ acts,
                      int total_rows, int T, int dilation) {
   using L = Wide;
+  using P = WideGate<kG>;
   constexpr int C = L::kC;
+  constexpr int kPW = P::kPW;
+  constexpr int kAccN = kPW / 2;  // f32 accumulators a thread, each half
   extern __shared__ __align__(1024) uint4 smem_wide[];
   const uint32_t ring = smem_u32(smem_wide);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r16 = warp * 16;  // the warp's rows of the unit (both groups)
   const int g = lane / 4, tig = lane % 4;
   const int q = threadIdx.x % 8;
-  const int units = (total_rows + L::kTile - 1) / L::kTile * L::kGatePasses;
+  const int units = (total_rows + L::kTile - 1) / L::kTile * P::kPasses;
 
 #pragma unroll 1
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int p = u % L::kGatePasses;
-    const int r0 = u / L::kGatePasses * L::kTile;
+    const int p = u % P::kPasses;
+    const int r0 = u / P::kPasses * L::kTile;
     const int rows = min(L::kTile, total_rows - r0);
     // this thread's A rows tid / 8 + 32i: flat row, and time in its
     // sequence (far negative past the last row)
@@ -1018,42 +1443,47 @@ wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
             stage + sw128_piece(threadIdx.x / 8 + 32 * i, q),
             x_bf + (ok ? (fr[i] + shift) * C + cb + q * 8 : 0), ok);
       }
-      wide_load_b(stage, w_in + static_cast<int64_t>(tap * C + cb) * 2 * C,
-                  2 * C, 128 * p, C + 128 * p);
+      wide_load_b<kPW>(stage,
+                       w_in + static_cast<int64_t>(tap * C + cb) * 2 * kG,
+                       2 * kG, kPW * p, kG + kPW * p);
     };
     // cond's rows of the pass's channels (both halves), into L2 under the
-    // products: two 128-byte lines of each half a row
-    for (int i = threadIdx.x; i < rows * 4; i += L::kThreads)
-      prefetch_l2(cond + (r0 + i / 4) * static_cast<int64_t>(2 * C) +
-                  (i % 4 / 2) * C + 128 * p + (i % 2) * 64);
-    float acc_a[kAcc], acc_b[kAcc];
+    // products: kLines 128-byte lines of each half a row
+    constexpr int kLines = kPW * 2 / 128;
+    for (int i = threadIdx.x; i < rows * 2 * kLines; i += L::kThreads)
+      prefetch_l2(cond +
+                  (r0 + i / (2 * kLines)) * static_cast<int64_t>(2 * kG) +
+                  (i % (2 * kLines) / kLines) * kG + kPW * p +
+                  (i % kLines) * 64);
+    float acc_a[kAccN], acc_b[kAccN];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+    for (int i = 0; i < kAccN; ++i) acc_a[i] = acc_b[i] = 0.f;
     __syncthreads();  // the previous unit is done with the ring
-    wide_products<L::kGateChunks>(ring, acc_a, acc_b, load);
+    wide_products<L::kGateChunks, kPW>(ring, acc_a, acc_b, load);
 
     // ---- the gate (f32) on the accumulators, acts to global as bf16 ----
     // cond of kBatch n8 blocks is loaded before any is used
     constexpr int kBatch = 4;
 #pragma unroll
-    for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+    for (int j0 = 0; j0 < kAccN / 4; j0 += kBatch) {
       uint32_t cv[kBatch][2][2];  // [n8][h][tanh, sigmoid] bf16 pairs
 #pragma unroll
       for (int jj = 0; jj < kBatch; ++jj)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r16 + g + 8 * h;
-          const bf16* cr = cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * C +
-                           128 * p + 8 * (j0 + jj) + 2 * tig;
+          const bf16* cr =
+              cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * kG +
+              kPW * p + 8 * (j0 + jj) + 2 * tig;
           cv[jj][h][0] = *reinterpret_cast<const uint32_t*>(cr);
-          cv[jj][h][1] = *reinterpret_cast<const uint32_t*>(cr + C);
+          cv[jj][h][1] = *reinterpret_cast<const uint32_t*>(cr + kG);
         }
 #pragma unroll
       for (int jj = 0; jj < kBatch; ++jj) {
         const int j = j0 + jj;
-        const int ch = 128 * p + 8 * j + 2 * tig;
+        const int ch = kPW * p + 8 * j + 2 * tig;
         const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
-        const float2 bs = *reinterpret_cast<const float2*>(b_in + C + ch);
+        const float2 bs = *reinterpret_cast<const float2*>(b_in + kG + ch);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r16 + g + 8 * h;
@@ -1069,31 +1499,36 @@ wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
           const float gs1 = acc_b[4 * j + 2 * h + 1] + bs.y + cs.y;
           const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
           const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
-          *reinterpret_cast<uint32_t*>(acts + f * C + ch) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(acts + f * kG + ch) =
+              pack_bf16(v0, v1);
         }
       }
     }
   }
 }
 
-// The res/skip product and the epilogue: unit u = (tile u / P of 128 flat
-// rows, pass u % P of 256 columns), P = n_rs / 256. A non-last layer's pass
-// p pairs the residual columns [128p, +128) (acc_a) with the skip columns
-// [C + 128p, +128) (acc_b); the last layer's, skip columns [256p, +128) and
-// [256p + 128, +128). x' = x + res + b_rs (x on the last layer), zero at
-// rows t >= valid_t[b]; skip = rs + b_rs, plus the sum when accumulating;
-// f32, rows < total_rows only.
-template <bool kLast>
+// The res/skip product of acts [B*T, kK] (kK: C for the layer, C' for a
+// rank) and its epilogue: unit u = (tile u / P of 128 flat rows, pass u % P
+// of 256 columns), P = n_rs / 256. A non-last layer's pass p pairs the
+// residual columns [128p, +128) (acc_a) with the skip columns [C + 128p,
+// +128) (acc_b); the last layer's, skip columns [256p, +128) and [256p +
+// 128, +128). The layer's epilogue: x' = x + res + b_rs (x on the last
+// layer) into `out`, zero at rows t >= valid_t[b]; skip = rs + b_rs, plus
+// the sum when accumulating. A rank's (kK < C): the f32 partial rs as it
+// is into `out` [B*T, n_rs] (x, b_rs, valid_t and skip_out unused). f32,
+// rows < total_rows only.
+template <int kK, bool kLast>
 __global__ void __launch_bounds__(256, 1)
 wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
                    const bf16* __restrict__ w_rs,
                    const float* __restrict__ b_rs,
-                   const int* __restrict__ valid_t, float* __restrict__ x_out,
+                   const int* __restrict__ valid_t, float* __restrict__ out,
                    float* skip_out, int accumulate, int total_rows, int T) {
   using L = Wide;
   constexpr int C = L::kC;
   constexpr int N_RS = kLast ? C : 2 * C;
   constexpr int kPasses = wide_rs_passes<kLast>();
+  constexpr bool kPartial = kK < C;  // a rank's share
   extern __shared__ __align__(1024) uint4 smem_wide[];
   const uint32_t ring = smem_u32(smem_wide);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1115,85 +1550,107 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
         const int r = threadIdx.x / 8 + 32 * i;
         const bool ok = r < rows;
         cp_async16_zfill(stage + sw128_piece(r, q),
-                         acts + (ok ? static_cast<int64_t>(r0 + r) * C +
+                         acts + (ok ? static_cast<int64_t>(r0 + r) * kK +
                                           j * L::kKC + q * 8
                                     : 0),
                          ok);
       }
-      wide_load_b(stage, w_rs + static_cast<int64_t>(j) * L::kKC * N_RS, N_RS,
-                  col_a, col_b);
+      wide_load_b<128>(stage, w_rs + static_cast<int64_t>(j) * L::kKC * N_RS,
+                       N_RS, col_a, col_b);
     };
-    // the epilogue's rows of x and of the skip sum, into L2 under the
-    // products: the unit's 128 (last layer: 256) channels of each row
-    constexpr int kLines = (kLast ? 256 : 128) * 4 / 128;  // 128-byte lines
-    for (int i = threadIdx.x; i < rows * kLines; i += L::kThreads) {
-      const int64_t off = (r0 + i / kLines) * static_cast<int64_t>(C) + col_a +
-                          (i % kLines) * 32;
-      prefetch_l2(x + off);
-      if (accumulate) prefetch_l2(skip_out + off);
+    if constexpr (!kPartial) {
+      // the epilogue's rows of x and of the skip sum, into L2 under the
+      // products: the unit's 128 (last layer: 256) channels of each row
+      constexpr int kLines = (kLast ? 256 : 128) * 4 / 128;  // 128-byte lines
+      for (int i = threadIdx.x; i < rows * kLines; i += L::kThreads) {
+        const int64_t off = (r0 + i / kLines) * static_cast<int64_t>(C) +
+                            col_a + (i % kLines) * 32;
+        prefetch_l2(x + off);
+        if (accumulate) prefetch_l2(skip_out + off);
+      }
     }
     float acc_a[kAcc], acc_b[kAcc];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
     __syncthreads();  // the previous unit is done with the ring
-    wide_products<L::kRsChunks>(ring, acc_a, acc_b, load);
+    wide_products<kK / L::kKC, 128>(ring, acc_a, acc_b, load);
 
-    // ---- epilogue: residual, valid_t mask, skip sum (f32) --------------
-    // The x and skip-sum values of kBatch n8 blocks are loaded before any is
-    // used: one wait on memory (L2, prefetched) a batch, not a value.
-    constexpr int kBatch = 4;
-    constexpr int kE = kLast ? 2 : 1;  // channel pairs a thread writes an n8
+    if constexpr (kPartial) {
+      // ---- a rank's epilogue: the partial's 256 columns as they are ----
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r16 + g + 8 * h;
-      if (row >= rows) continue;
-      const int64_t f = r0 + row;
-      const int b = static_cast<int>(f / T);
-      const bool keep = valid_t == nullptr ||
-                        static_cast<int>(f - static_cast<int64_t>(b) * T) <
-                            valid_t[b];
+      for (int h = 0; h < 2; ++h) {
+        const int row = r16 + g + 8 * h;
+        if (row >= rows) continue;
+        float* o = out + (r0 + row) * static_cast<int64_t>(N_RS) + 2 * tig;
 #pragma unroll
-      for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
-        // (channel, skip value) pairs: the last layer's two skip channels,
-        // or the residual's channel with its skip
-        float2 xo[kBatch][kE], prev[kBatch][kE];
+        for (int j = 0; j < kAcc / 4; ++j) {
+          *reinterpret_cast<float2*>(o + col_a + 8 * j) =
+              make_float2(acc_a[4 * j + 2 * h], acc_a[4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(o + col_b + 8 * j) =
+              make_float2(acc_b[4 * j + 2 * h], acc_b[4 * j + 2 * h + 1]);
+        }
+      }
+    } else {
+      // ---- the layer's epilogue: residual, valid_t mask, skip sum (f32)
+      // The x and skip-sum values of kBatch n8 blocks are loaded before any
+      // is used: one wait on memory (L2, prefetched) a batch, not a value.
+      constexpr int kBatch = 4;
+      constexpr int kE = kLast ? 2 : 1;  // channel pairs a thread writes
+                                         // an n8
 #pragma unroll
-        for (int jj = 0; jj < kBatch; ++jj)
+      for (int h = 0; h < 2; ++h) {
+        const int row = r16 + g + 8 * h;
+        if (row >= rows) continue;
+        const int64_t f = r0 + row;
+        const int b = static_cast<int>(f / T);
+        const bool keep = valid_t == nullptr ||
+                          static_cast<int>(f - static_cast<int64_t>(b) * T) <
+                              valid_t[b];
 #pragma unroll
-          for (int e = 0; e < kE; ++e) {
-            const int64_t off = f * C + col_a + 8 * (j0 + jj) + 2 * tig + 128 * e;
-            xo[jj][e] = *reinterpret_cast<const float2*>(x + off);
-            prev[jj][e] = make_float2(0.f, 0.f);
-            if (accumulate)
-              prev[jj][e] = *reinterpret_cast<const float2*>(skip_out + off);
-          }
+        for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+          // (channel, skip value) pairs: the last layer's two skip channels,
+          // or the residual's channel with its skip
+          float2 xo[kBatch][kE], prev[kBatch][kE];
 #pragma unroll
-        for (int jj = 0; jj < kBatch; ++jj) {
-          const int j = j0 + jj;
-          const int ca = col_a + 8 * j + 2 * tig;  // acc_a's channel pair
-          const float2 ba = *reinterpret_cast<const float2*>(b_rs + ca);
-          const float2 bb =
-              *reinterpret_cast<const float2*>(b_rs + ca + (col_b - col_a));
-          const float2 ra = make_float2(acc_a[4 * j + 2 * h] + ba.x,
-                                        acc_a[4 * j + 2 * h + 1] + ba.y);
-          const float2 rb = make_float2(acc_b[4 * j + 2 * h] + bb.x,
-                                        acc_b[4 * j + 2 * h + 1] + bb.y);
-          float2 skip[kE];
-          if constexpr (kLast) {
-            skip[0] = ra;
-            skip[kE - 1] = rb;
-          } else {
-            xo[jj][0].x += ra.x;
-            xo[jj][0].y += ra.y;
-            skip[0] = rb;
-          }
+          for (int jj = 0; jj < kBatch; ++jj)
 #pragma unroll
-          for (int e = 0; e < kE; ++e) {
-            const int64_t off = f * C + ca + 128 * e;
-            *reinterpret_cast<float2*>(x_out + off) =
-                keep ? xo[jj][e] : make_float2(0.f, 0.f);
-            *reinterpret_cast<float2*>(skip_out + off) = make_float2(
-                skip[e].x + prev[jj][e].x, skip[e].y + prev[jj][e].y);
+            for (int e = 0; e < kE; ++e) {
+              const int64_t off =
+                  f * C + col_a + 8 * (j0 + jj) + 2 * tig + 128 * e;
+              xo[jj][e] = *reinterpret_cast<const float2*>(x + off);
+              prev[jj][e] = make_float2(0.f, 0.f);
+              if (accumulate)
+                prev[jj][e] =
+                    *reinterpret_cast<const float2*>(skip_out + off);
+            }
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            const int j = j0 + jj;
+            const int ca = col_a + 8 * j + 2 * tig;  // acc_a's channel pair
+            const float2 ba = *reinterpret_cast<const float2*>(b_rs + ca);
+            const float2 bb =
+                *reinterpret_cast<const float2*>(b_rs + ca + (col_b - col_a));
+            const float2 ra = make_float2(acc_a[4 * j + 2 * h] + ba.x,
+                                          acc_a[4 * j + 2 * h + 1] + ba.y);
+            const float2 rb = make_float2(acc_b[4 * j + 2 * h] + bb.x,
+                                          acc_b[4 * j + 2 * h + 1] + bb.y);
+            float2 skip[kE];
+            if constexpr (kLast) {
+              skip[0] = ra;
+              skip[kE - 1] = rb;
+            } else {
+              xo[jj][0].x += ra.x;
+              xo[jj][0].y += ra.y;
+              skip[0] = rb;
+            }
+#pragma unroll
+            for (int e = 0; e < kE; ++e) {
+              const int64_t off = f * C + ca + 128 * e;
+              *reinterpret_cast<float2*>(out + off) =
+                  keep ? xo[jj][e] : make_float2(0.f, 0.f);
+              *reinterpret_cast<float2*>(skip_out + off) = make_float2(
+                  skip[e].x + prev[jj][e].x, skip[e].y + prev[jj][e].y);
+            }
           }
         }
       }
@@ -1219,13 +1676,23 @@ wn_layer_kernel_mma(const float* __restrict__ x, const bf16* __restrict__ cond,
 
 // Blocks of the f32 kernel the device holds at once, as SMs and blocks an
 // SM (the occupancy API, after the shared-memory opt-in); read once per
-// variant and device.
+// variant and device. At C = 512: those of wn_layer_kernel_f32_tiles, whose
+// grid the rest kernel shares (its opt-in is made here too).
 template <int kC, bool kLast>
 cudaError_t f32_slots(int* sms, int* per_sm) {
   static std::atomic<int> cache[32];
   static std::atomic<uint32_t> opted_in{0};
-  return wave_slots(wn_layer_kernel_f32<kC, kLast>, F32<kC>::kThreads,
-                    F32<kC>::kSmemBytes, cache, &opted_in, sms, per_sm);
+  if constexpr (kC > 256) {
+    static std::atomic<uint32_t> rest_opted_in{0};
+    cudaError_t err = opt_in_smem(wn_layer_kernel_f32_rest<kLast>,
+                                  F32Rest::kSmemBytes, &rest_opted_in);
+    if (err != cudaSuccess) return err;
+    return wave_slots(wn_layer_kernel_f32_tiles<kLast>, F32Tiles::kThreads,
+                      F32Tiles::kSmemBytes, cache, &opted_in, sms, per_sm);
+  } else {
+    return wave_slots(wn_layer_kernel_f32<kC, kLast>, F32<kC>::kThreads,
+                      F32<kC>::kSmemBytes, cache, &opted_in, sms, per_sm);
+  }
 }
 
 struct Args {
@@ -1238,53 +1705,59 @@ struct Args {
   const int* valid_t;
   float* x_out;
   float* skip_out;
-  void* scratch;  // C = 512, bf16: x_bf, then acts, [B*T, C] bf16 each
+  // C = 512: in bf16 x_bf [B*T, C], then acts [B*T, C or C'], bf16; in
+  // f32 acts [B*T, C] f32
+  void* scratch;
   int accumulate, batch, T, dilation;
   cudaStream_t stream;
 };
 
-// Blocks of the C = 512 gate kernel, and of its res/skip kernel, the
-// device holds at once (one an SM: their rings take 196,608 bytes).
-cudaError_t wide_slots(bool last, int* slots) {
-  static std::atomic<int> cache[3][32];
-  static std::atomic<uint32_t> opted[3];
+// Blocks of the C = 512 gate kernel at kG gate channels, and of its
+// res/skip kernel, the device holds at once (one an SM: their rings take
+// 196,608 bytes).
+template <int kG, bool kLast>
+cudaError_t wide_slots(int* slots) {
+  static std::atomic<int> cache[2][32];
+  static std::atomic<uint32_t> opted[2];
   int sms = 0, per_sm = 0;
-  cudaError_t err = wave_slots(wn_layer_kernel_gate, Wide::kThreads,
+  cudaError_t err = wave_slots(wn_layer_kernel_gate<kG>, Wide::kThreads,
                                Wide::kSmem, cache[0], &opted[0], &sms,
                                &per_sm);
   if (err != cudaSuccess) return err;
-  int n = sms * per_sm;
-  err = last ? wave_slots(wn_layer_kernel_rs<true>, Wide::kThreads,
-                          Wide::kSmem, cache[1], &opted[1], &sms, &per_sm)
-             : wave_slots(wn_layer_kernel_rs<false>, Wide::kThreads,
-                          Wide::kSmem, cache[2], &opted[2], &sms, &per_sm);
+  const int n = sms * per_sm;
+  err = wave_slots(wn_layer_kernel_rs<kG, kLast>, Wide::kThreads, Wide::kSmem,
+                   cache[1], &opted[1], &sms, &per_sm);
   if (err != cudaSuccess) return err;
   *slots = std::min(n, sms * per_sm);
   return cudaSuccess;
 }
 
-// The C = 512 layer's grid: its 128-row tiles of the B*T rows, and the
-// blocks of the gate and res/skip kernels (one wave each: no more blocks
-// than units, nor than `slots`).
-void wide_grid(int64_t rows, bool last, int slots, int* tiles,
-               int* gate_blocks, int* rs_blocks) {
+// The C = 512 grid: its 128-row tiles of the B*T rows, and the blocks of
+// the gate and res/skip kernels (one wave each: no more blocks than units,
+// nor than `slots`).
+void wide_grid(int64_t rows, int gate_passes, int rs_passes, int slots,
+               int* tiles, int* gate_blocks, int* rs_blocks) {
   *tiles = static_cast<int>((rows + Wide::kTile - 1) / Wide::kTile);
-  const int rs_passes = last ? wide_rs_passes<true>() : wide_rs_passes<false>();
-  *gate_blocks = std::min(*tiles * Wide::kGatePasses, slots);
+  *gate_blocks = std::min(*tiles * gate_passes, slots);
   *rs_blocks = std::min(*tiles * rs_passes, slots);
 }
 
-template <bool kLast>
+// The C = 512 bf16 layer (kG = C) or a rank's share of it (kG = C': `a`'s
+// x_out is the partial, its b_rs, valid_t and skip_out unused): x rounded,
+// then the gate and res/skip kernels. The scratch holds the rounded x
+// [B*T, C], then the acts [B*T, kG], bf16.
+template <int kG, bool kLast>
 cudaError_t launch_wide(const Args& a) {
   using L = Wide;
   constexpr int C = L::kC;
   if (a.scratch == nullptr) return cudaErrorInvalidValue;
   int slots = 0;
-  cudaError_t err = wide_slots(kLast, &slots);  // also opts in
+  cudaError_t err = wide_slots<kG, kLast>(&slots);  // also opts in
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(a.batch) * a.T;
   int tiles = 0, gate_blocks = 0, rs_blocks = 0;
-  wide_grid(rows, kLast, slots, &tiles, &gate_blocks, &rs_blocks);
+  wide_grid(rows, WideGate<kG>::kPasses, wide_rs_passes<kLast>(), slots,
+            &tiles, &gate_blocks, &rs_blocks);
   bf16* x_bf = static_cast<bf16*>(a.scratch);
   bf16* acts = x_bf + rows * C;
   const int64_t n4 = rows * C / 4;
@@ -1293,21 +1766,67 @@ cudaError_t launch_wide(const Args& a) {
   wn_layer_kernel_round<<<round_blocks, 256, 0, a.stream>>>(a.x, x_bf, n4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wn_layer_kernel_gate<<<gate_blocks, L::kThreads, L::kSmem, a.stream>>>(
+  wn_layer_kernel_gate<kG><<<gate_blocks, L::kThreads, L::kSmem, a.stream>>>(
       x_bf, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
       a.b_in, acts, static_cast<int>(rows), a.T, a.dilation);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wn_layer_kernel_rs<kLast><<<rs_blocks, L::kThreads, L::kSmem, a.stream>>>(
-      a.x, acts, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
-      a.skip_out, a.accumulate, static_cast<int>(rows), a.T);
+  wn_layer_kernel_rs<kG, kLast>
+      <<<rs_blocks, L::kThreads, L::kSmem, a.stream>>>(
+          a.x, acts, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t,
+          a.x_out, a.skip_out, a.accumulate, static_cast<int>(rows), a.T);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, G>{}) at the gate width g of the C = 512
+// kernels: the layer's C, or a rank's C' = C / model, model in {2, 4, 8}.
+template <typename F>
+cudaError_t with_gate_width(int g, const F& f) {
+  switch (g) {
+    case 512: return f(std::integral_constant<int, 512>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The f32 layer at C = 512: the tiles kernel over every block's 96-row
+// tiles, then, when a block has a rest of 48 rows or fewer, the rest kernel
+// on the same grid. The scratch holds the acts [B*T, C] f32.
+template <bool kLast>
+cudaError_t launch_f32_wide(const Args& a) {
+  if (a.scratch == nullptr) return cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = f32_slots<Wide::kC, kLast>(&sms, &per_sm);  // opts in
+  if (err != cudaSuccess) return err;
+  const int rows = a.batch * a.T;
+  const int per_block = one_wave_rows(rows, sms * per_sm, kRowQuantum);
+  const int blocks = (rows + per_block - 1) / per_block;
+  const auto cond = static_cast<const float*>(a.cond);
+  const auto w_in = static_cast<const float*>(a.w_in);
+  const auto w_rs = static_cast<const float*>(a.w_rs);
+  const auto acts = static_cast<float*>(a.scratch);
+  wn_layer_kernel_f32_tiles<kLast>
+      <<<blocks, F32Tiles::kThreads, F32Tiles::kSmemBytes, a.stream>>>(
+          a.x, cond, w_in, a.b_in, w_rs, a.b_rs, a.valid_t, a.x_out,
+          a.skip_out, acts, a.accumulate, a.T, a.dilation, rows, per_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (f32_wide_rest(per_block) ||
+      f32_wide_rest(rows - (blocks - 1) * per_block))
+    wn_layer_kernel_f32_rest<kLast>
+        <<<blocks, F32Rest::kThreads, F32Rest::kSmemBytes, a.stream>>>(
+            a.x, cond, w_in, a.b_in, w_rs, a.b_rs, a.valid_t, a.x_out,
+            a.skip_out, acts, a.accumulate, a.T, a.dilation, rows,
+            per_block);
   return cudaGetLastError();
 }
 
 template <int kC, bool kBf16, bool kLast>
 cudaError_t launch(const Args& a) {
   if constexpr (kBf16 && kC > 256) {
-    return launch_wide<kLast>(a);
+    return launch_wide<kC, kLast>(a);
   } else if constexpr (kBf16) {
     static std::atomic<uint32_t> opted_in{0};
     auto kernel = wn_layer_kernel_mma<kC, kLast>;
@@ -1319,6 +1838,8 @@ cudaError_t launch(const Args& a) {
         a.x, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
         a.b_in, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t, a.x_out,
         a.skip_out, a.accumulate, a.T, a.dilation);
+  } else if constexpr (kC > 256) {
+    return launch_f32_wide<kLast>(a);
   } else {
     int sms = 0, per_sm = 0;
     cudaError_t err = f32_slots<kC, kLast>(&sms, &per_sm);  // also opts in
@@ -1351,8 +1872,10 @@ cudaError_t dispatch_width(const Args* a, int bf16_mode, int last,
   return launch<kC, BF, LAST>(*a)
   if constexpr (kC > 256) {
     if (bf16_mode) {
-      if (last) { WN_CASE(true, true, wn_layer_kernel_rs<true>, Wide::kSmem); }
-      WN_CASE(true, false, wn_layer_kernel_rs<false>, Wide::kSmem);
+      if (last) {
+        WN_CASE(true, true, (wn_layer_kernel_rs<kC, true>), Wide::kSmem);
+      }
+      WN_CASE(true, false, (wn_layer_kernel_rs<kC, false>), Wide::kSmem);
     }
   } else {
     if (bf16_mode) {
@@ -1362,10 +1885,21 @@ cudaError_t dispatch_width(const Args* a, int bf16_mode, int last,
       WN_CASE(true, false, (wn_layer_kernel_mma<kC, false>), Mma<kC>::kSmemBytes);
     }
   }
-  if (last) {
-    WN_CASE(false, true, (wn_layer_kernel_f32<kC, true>), F32<kC>::kSmemBytes);
+  if constexpr (kC > 256) {
+    if (last) {
+      WN_CASE(false, true, wn_layer_kernel_f32_tiles<true>,
+              F32Tiles::kSmemBytes);
+    }
+    WN_CASE(false, false, wn_layer_kernel_f32_tiles<false>,
+            F32Tiles::kSmemBytes);
+  } else {
+    if (last) {
+      WN_CASE(false, true, (wn_layer_kernel_f32<kC, true>),
+              F32<kC>::kSmemBytes);
+    }
+    WN_CASE(false, false, (wn_layer_kernel_f32<kC, false>),
+            F32<kC>::kSmemBytes);
   }
-  WN_CASE(false, false, (wn_layer_kernel_f32<kC, false>), F32<kC>::kSmemBytes);
 #undef WN_CASE
 }
 
@@ -1395,7 +1929,8 @@ extern "C" {
 // valid_t [batch] int32 or null. cond/w_in/w_rs are bf16 when bf16 != 0,
 // else f32. accumulate != 0 adds into skip_out (in place). C must be 128,
 // 256 or 512. scratch: at C = 512 in bf16, 2 * batch * T * C bf16 (the
-// rounded x, then the acts), else unused. All pointers 16-byte aligned and
+// rounded x, then the acts), in f32 batch * T * C f32 (the acts), else
+// unused. All pointers 16-byte aligned and
 // contiguous. Launches on `stream` (C = 512 in bf16: three kernels), does
 // not synchronise; returns the first launch error.
 cudaError_t wn_layer_forward(const float* x, const void* cond,
@@ -1432,9 +1967,29 @@ cudaError_t wn_layer_kernel_info(int C, int bf16, int last, int* registers,
   return cudaSuccess;
 }
 
+// What the loaded build of the f32 rest kernel at C = 512 (`last` its
+// variant) uses, as wn_layer_kernel_info reports it (which reports the
+// tiles kernel for (512, f32)).
+cudaError_t wn_layer_f32_rest_kernel_info(int last, int* registers,
+                                          int* local_bytes,
+                                          int* static_smem_bytes,
+                                          int* dynamic_smem_bytes) {
+  const void* kernel =
+      last ? reinterpret_cast<const void*>(wn_layer_kernel_f32_rest<true>)
+           : reinterpret_cast<const void*>(wn_layer_kernel_f32_rest<false>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *dynamic_smem_bytes = F32Rest::kSmemBytes;
+  return cudaSuccess;
+}
+
 // The f32 kernel's grid at width C for `batch` x T rows, as its launcher
 // picks it: SMs, blocks an SM (occupancy API), blocks launched, rows a
-// block takes.
+// block takes (at C = 512 the grid of both its kernels).
 cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
                                   int* blocks_per_sm, int* blocks,
                                   int* rows_per_block) {
@@ -1454,29 +2009,37 @@ cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
   return cudaSuccess;
 }
 
-// What the loaded build of one of the C = 512 bf16 kernels uses (which: 0
-// the gate kernel, 1 the res/skip kernel (`last` its variant), 2 the
-// rounding of x), as wn_layer_kernel_info reports it.
-cudaError_t wn_layer_wide_kernel_info(int which, int last, int* registers,
-                                      int* local_bytes,
+// What the loaded build of one of the C = 512 bf16 kernels at gate width
+// `g` (the layer's 512, or a rank's C') uses (which: 0 the gate kernel, 1
+// the res/skip kernel (`last` its variant), 2 the rounding of x), as
+// wn_layer_kernel_info reports it.
+cudaError_t wn_layer_wide_kernel_info(int which, int g, int last,
+                                      int* registers, int* local_bytes,
                                       int* static_smem_bytes,
                                       int* dynamic_smem_bytes) {
-  const void* kernel;
+  const void* kernel = nullptr;
   *dynamic_smem_bytes = Wide::kSmem;
-  switch (which) {
-    case 0: kernel = reinterpret_cast<const void*>(wn_layer_kernel_gate); break;
-    case 1:
-      kernel = last ? reinterpret_cast<const void*>(wn_layer_kernel_rs<true>)
-                    : reinterpret_cast<const void*>(wn_layer_kernel_rs<false>);
-      break;
-    case 2:
-      kernel = reinterpret_cast<const void*>(wn_layer_kernel_round);
-      *dynamic_smem_bytes = 0;
-      break;
-    default: return cudaErrorInvalidValue;
-  }
+  cudaError_t err = with_gate_width(g, [&](auto width) {
+    constexpr int kG = decltype(width)::value;
+    switch (which) {
+      case 0:
+        kernel = reinterpret_cast<const void*>(wn_layer_kernel_gate<kG>);
+        return cudaSuccess;
+      case 1:
+        kernel = last
+            ? reinterpret_cast<const void*>(wn_layer_kernel_rs<kG, true>)
+            : reinterpret_cast<const void*>(wn_layer_kernel_rs<kG, false>);
+        return cudaSuccess;
+      case 2:
+        kernel = reinterpret_cast<const void*>(wn_layer_kernel_round);
+        *dynamic_smem_bytes = 0;
+        return cudaSuccess;
+      default: return cudaErrorInvalidValue;
+    }
+  });
+  if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -1484,19 +2047,49 @@ cudaError_t wn_layer_wide_kernel_info(int which, int last, int* registers,
   return cudaSuccess;
 }
 
-// The C = 512 bf16 layer's grid for `batch` x T rows, as its launcher picks
-// it: the blocks of the gate or res/skip kernel the device holds at once,
-// the 128-row tiles, and the blocks of each kernel.
-cudaError_t wn_layer_wide_schedule(int batch, int T, int last, int* slots,
-                                   int* tiles, int* gate_blocks,
+// The C = 512 bf16 grid at gate width `g` for `batch` x T rows, as its
+// launcher picks it: the blocks of the gate or res/skip kernel the device
+// holds at once, the 128-row tiles, and the blocks of each kernel.
+cudaError_t wn_layer_wide_schedule(int g, int batch, int T, int last,
+                                   int* slots, int* tiles, int* gate_blocks,
                                    int* rs_blocks) {
   if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
-  cudaError_t err = wide_slots(last != 0, slots);
-  if (err != cudaSuccess) return err;
-  wide_grid(static_cast<int64_t>(batch) * T, last != 0, *slots, tiles,
-            gate_blocks, rs_blocks);
-  return cudaSuccess;
+  return with_gate_width(g, [&](auto width) {
+    constexpr int kG = decltype(width)::value;
+    cudaError_t err = last ? wide_slots<kG, true>(slots)
+                           : wide_slots<kG, false>(slots);
+    if (err != cudaSuccess) return err;
+    wide_grid(static_cast<int64_t>(batch) * T, WideGate<kG>::kPasses,
+              last ? wide_rs_passes<true>() : wide_rs_passes<false>(), *slots,
+              tiles, gate_blocks, rs_blocks);
+    return cudaSuccess;
+  });
+}
+
+// A model rank's share of the bf16 layer at C = 512 (wn_layer_shard.cu's
+// contract and layouts, C' = cp in {256, 128, 64} gate channels; the
+// partial `out` [batch, T, n_rs] f32): the C = 512 layer's three kernels
+// at gate width C', their epilogue storing the partial. scratch: batch * T
+// * (512 + cp) bf16 (the rounded x, then the acts). Launches on `stream`,
+// does not synchronise; returns the first launch error.
+cudaError_t wn_layer_shard_wide_forward(const float* x, const void* cond,
+                                        const void* w_in, const float* b_in,
+                                        const void* w_rs, float* out,
+                                        void* scratch, int batch, int T,
+                                        int cp, int dilation, int last,
+                                        cudaStream_t stream) {
+  if (T <= 0 || batch <= 0 ||
+      static_cast<int64_t>(batch) * T > INT32_MAX - Wide::kTile ||
+      cp >= Wide::kC)
+    return cudaErrorInvalidValue;
+  const Args a{x,       cond,    w_in,    b_in,    w_rs,  nullptr,
+               nullptr, out,     nullptr, scratch, 0,     batch,
+               T,       dilation, stream};
+  return with_gate_width(cp, [&](auto width) {
+    constexpr int kG = decltype(width)::value;
+    return last ? launch_wide<kG, true>(a) : launch_wide<kG, false>(a);
+  });
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@
 // cond_s in, the f32 partial out: T*(4C + 2*2C' + 4*2C) = 95 MB), so bf16
 // is byte-bound.
 //
-// Two kernels, one per mode.
+// Two kernels, one per mode (in bf16 at C = 512, wn_layer.cu's).
 //
 // wn_shard_kernel (f32, FFMA on the CUDA cores, no TF32), after the f32
 // forward kernel (csrc/wn_layer.cu, wn_layer_kernel_f32), whose cp.async
@@ -78,8 +78,15 @@
 // card has slots: a quantum of 32 to 128 rows against about 200 rows an
 // SM. PERF.md keeps the times.
 //
-// wn_shard_kernel_mma (bf16, tensor cores): mma.sync m16n8k16 (bf16
-// operands, f32 accumulators) fed by ldmatrix from padded shared memory.
+// wn_shard_kernel_mma (bf16, tensor cores, C <= 256): mma.sync m16n8k16
+// (bf16 operands, f32 accumulators) fed by ldmatrix from padded shared
+// memory. At C = 512 a rank in bf16 runs the C = 512 layer's three wgmma
+// kernels at gate width C' instead (wn_layer.cu, wn_layer_shard_wide_forward:
+// x rounded once, a gate kernel, a res/skip kernel storing the partial):
+// this kernel streamed all of w_in_s and w_rs_s through its ring for every
+// 64 rows there, and lost to the library (0.40 ms at (512, 256) against
+// the library's 0.36; the wgmma kernels 0.25, the same bits;
+// fwd_compare.py on an NVIDIA H100 80GB HBM3, 700 W).
 // One block of 256 threads (8 warps) per (batch row, tile of 64 time rows);
 // both products run as one sequence of K chunks through a 4-stage ring:
 //   * first product, 3C/32 chunks of 32 K rows (tap = chunk / (C/32)): the
@@ -821,8 +828,12 @@ cudaError_t dispatch_pair(const Args* a, int bf16_mode, int last,
                                    a->out, a->batch, a->T, a->dilation,      \
                                    a->stream)
   if (bf16_mode) {
-    if (last) { WN_SHARD_CASE(true, true); }
-    WN_SHARD_CASE(true, false);
+    // bf16 at C = 512 is wn_layer.cu's (wn_layer_shard_wide_forward)
+    if constexpr (kC > 256) return cudaErrorInvalidValue;
+    else {
+      if (last) { WN_SHARD_CASE(true, true); }
+      WN_SHARD_CASE(true, false);
+    }
   }
   if (last) { WN_SHARD_CASE(false, true); }
   WN_SHARD_CASE(false, false);
@@ -874,9 +885,10 @@ extern "C" {
 // Shapes: x [batch, T, c] f32; cond [batch, T, 2*cp]; w_in [3, c, 2*cp];
 // b_in [2*cp] f32; w_rs [cp, 2c] or [cp, c] (last != 0); out [batch, T,
 // 2c] or [batch, T, c] f32. cond/w_in/w_rs are bf16 when bf16 != 0, else
-// f32. c must be 128, 256 or 512 and cp one of c/2, c/4, c/8. All pointers
-// 16-byte aligned and contiguous. Launches on `stream`, does not
-// synchronise; returns the launch error.
+// f32. c must be 128, 256 or 512 and cp one of c/2, c/4, c/8; bf16 at c =
+// 512 is wn_layer.cu's wn_layer_shard_wide_forward (cudaErrorInvalidValue
+// here). All pointers 16-byte aligned and contiguous. Launches on
+// `stream`, does not synchronise; returns the launch error.
 cudaError_t wn_layer_shard_forward(const float* x, const void* cond,
                                    const void* w_in, const float* b_in,
                                    const void* w_rs, float* out, int batch,

@@ -27,7 +27,8 @@ widths ``kernel_widths()`` (C = 128, 256, 512; the shard kernel for
 ``shard_pairs()``), and ``check_width`` refuses any other on the card.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
-mesh axis (``csrc/wn_layer_shard.cu``, built into the same library): the
+mesh axis (``csrc/wn_layer_shard.cu``, and in bf16 at C = 512 the C = 512
+layer's kernels of ``csrc/wn_layer.cu``, built into the same library): the
 same conv, gate and res/skip product over C' = C / model of the gate
 channels, giving the rank's partial res/skip sum without b_rs and the
 residual, which ``models.wn.wn_forward_tp`` adds after the ranks' reduce.
@@ -224,16 +225,18 @@ SIGNATURES = {
     "wn_layer_forward": [_P] * 10 + [_I] * 7 + [_P],
     "wn_layer_backward_bf16": [_P] * 19 + [_I] * 7 + [_P],
     "wn_layer_shard_forward": [_P] * 6 + [_I] * 7 + [_P],
+    "wn_layer_shard_wide_forward": [_P] * 7 + [_I] * 5 + [_P],
     "wn_layer_shard_backward_bf16": [_P] * 16 + [_I] * 8 + [_P],
     "wn_layer_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_f32_rest_kernel_info": [_I] + [_IP] * 4,
     "wn_layer_shard_kernel_info": [_I] * 4 + [_IP] * 4,
     "wn_layer_bwd_kernel_info": [_I] * 4 + [_IP] * 4,
-    "wn_layer_wide_kernel_info": [_I] * 2 + [_IP] * 4,
+    "wn_layer_wide_kernel_info": [_I] * 3 + [_IP] * 4,
     "wn_layer_bwd_tile_rows": [_I] * 2,
     "wn_layer_bwd_weight_tiles": [_I] * 3,
     "wn_layer_f32_schedule": [_I] * 4 + [_IP] * 4,
     "wn_layer_shard_f32_schedule": [_I] * 5 + [_IP] * 6,
-    "wn_layer_wide_schedule": [_I] * 3 + [_IP] * 4,
+    "wn_layer_wide_schedule": [_I] * 4 + [_IP] * 4,
 }
 
 
@@ -276,46 +279,64 @@ def kernel_info(channels: int, bf16: bool, last: bool) -> dict:
                int(last))
 
 
+def f32_rest_kernel_info(last: bool) -> dict:
+  """:func:`kernel_info` for the f32 forward's rest kernel at C = 512
+  (``wn_layer_kernel_f32_rest``; ``kernel_info(512, False, last)`` is its
+  tiles kernel's)."""
+  return _info(_library().wn_layer_f32_rest_kernel_info, int(last))
+
+
 def shard_kernel_info(channels: int, cp: int, bf16: bool,
                       last: bool) -> dict:
   """:func:`kernel_info` for the shard kernel at width ``channels``
-  holding ``cp`` gate channels (a pair of :func:`shard_pairs`)."""
+  holding ``cp`` gate channels (a pair of :func:`shard_pairs`); in bf16 at
+  C = 512, the res/skip kernel of :func:`wide_kernel_info`, which ends a
+  rank's call there."""
   check_width(channels, cp)
+  if bf16 and channels == WIDE_C:
+    return wide_kernel_info("rs", last, cp)
   return _info(_library().wn_layer_shard_kernel_info, channels, cp,
                int(bf16), int(last))
 
 
-# The bf16 forward at C = 512: its three kernels (``csrc/wn_layer.cu``), by
-# their index in its C interface, and the rows of a unit of the gate and
-# res/skip kernels (Wide::kTile).
+# The bf16 forward at C = 512, the whole layer's and a model rank's: its
+# three kernels (``csrc/wn_layer.cu``), by their index in its C interface,
+# and the rows of a unit of the gate and res/skip kernels (Wide::kTile).
 WIDE_C = 512
 WIDE_KERNELS = ("gate", "rs", "round")
 WIDE_TILE_ROWS = 128
 
 
-def wide_kernel_info(kernel: str, last: bool = False) -> dict:
+def wide_kernel_info(kernel: str, last: bool = False,
+                     cp: int = WIDE_C) -> dict:
   """:func:`kernel_info` for one of ``WIDE_KERNELS`` of the bf16 forward at
-  C = 512 (``last`` picks the res/skip kernel's variant)."""
+  C = 512, the layer's (``cp`` = 512) or a rank's holding ``cp`` gate
+  channels (``last`` picks the res/skip kernel's variant)."""
+  check_width(WIDE_C, None if cp == WIDE_C else cp)
   return _info(_library().wn_layer_wide_kernel_info,
-               WIDE_KERNELS.index(kernel), int(last))
+               WIDE_KERNELS.index(kernel), cp, int(last))
 
 
-def wide_passes(last: bool) -> dict:
-  """Passes of a 128-row tile in the C = 512 gate kernel (128 channels
-  each) and res/skip kernel (256 of the n_rs columns each)."""
-  return {"gate": WIDE_C // 128, "rs": (WIDE_C if last else 2 * WIDE_C) // 256}
+def wide_passes(last: bool, cp: int = WIDE_C) -> dict:
+  """Passes of a 128-row tile in the C = 512 gate kernel at ``cp`` gate
+  channels (the layer's 512 or a rank's C'; min(cp, 128) channels each)
+  and in its res/skip kernel (256 of the n_rs columns each)."""
+  return {"gate": cp // min(cp, 128),
+          "rs": (WIDE_C if last else 2 * WIDE_C) // 256}
 
 
-def wide_grid(batch: int, t: int, last: bool, slots: int) -> dict:
-  """The grid of the bf16 forward at C = 512 for ``batch`` x ``t`` rows on a
-  device holding ``slots`` of its blocks at once, as its launcher picks it:
-  the flat B*T rows in ``tiles`` of WIDE_TILE_ROWS (the last one short); a
+def wide_grid(batch: int, t: int, last: bool, slots: int,
+              cp: int = WIDE_C) -> dict:
+  """The grid of the bf16 forward at C = 512 (``cp`` gate channels: the
+  layer's 512 or a rank's C') for ``batch`` x ``t`` rows on a device
+  holding ``slots`` of its blocks at once, as its launcher picks it: the
+  flat B*T rows in ``tiles`` of WIDE_TILE_ROWS (the last one short); a
   unit is (tile, pass), unit u = tile * passes + pass; each kernel runs
   min(units, slots) blocks, block b taking units b, b + blocks, ...
   (:func:`block_units`)."""
   tiles = -(-batch * t // WIDE_TILE_ROWS)
   out = {"slots": slots, "tiles": tiles}
-  for kernel, passes in wide_passes(last).items():
+  for kernel, passes in wide_passes(last, cp).items():
     out[f"{kernel}_units"] = tiles * passes
     out[f"{kernel}_blocks"] = min(tiles * passes, slots)
   return out
@@ -326,11 +347,12 @@ def block_units(units: int, blocks: int, block: int) -> range:
   return range(block, units, blocks)
 
 
-def wide_schedule(batch: int, t: int, last: bool = False) -> dict:
+def wide_schedule(batch: int, t: int, last: bool = False,
+                  cp: int = WIDE_C) -> dict:
   """:func:`wide_grid` as the loaded library computes it on the current
   card (slots from the occupancy API)."""
   vals = [ctypes.c_int() for _ in range(4)]
-  err = _library().wn_layer_wide_schedule(batch, t, int(last),
+  err = _library().wn_layer_wide_schedule(cp, batch, t, int(last),
                                           *[ctypes.byref(v) for v in vals])
   if err != 0:
     raise RuntimeError(f"the C = 512 schedule failed: cudaError {err}")
@@ -339,8 +361,79 @@ def wide_schedule(batch: int, t: int, last: bool = False) -> dict:
           "rs_blocks": rs_blocks}
 
 
-# Time rows of one tile of the f32 kernel (kTileRows in csrc/wn_layer.cu).
+def wide_scratch(batch: int, t: int, cp: int, bf16: bool) -> dict:
+  """The scratch of the C = 512 forward as one allocation: in bf16 (the
+  layer's, ``cp`` = 512, or a rank's holding ``cp`` gate channels) the
+  rounded x [B*T, C] and the acts [B*T, cp], bf16, the gate kernel's
+  operand and output; in f32 (the layer's) the acts [B*T, C] f32, which
+  the kernel writes and reads back. Byte ``offsets`` (each 256-byte
+  aligned), ``sizes`` and the total ``bytes``."""
+  rows = batch * t
+  sizes = ({"x_bf": rows * WIDE_C * 2, "acts": rows * cp * 2} if bf16
+           else {"acts": rows * WIDE_C * 4})
+  offsets, end = {}, 0
+  for name, size in sizes.items():
+    offsets[name] = end
+    end += -(-size // 256) * 256
+  return {"offsets": offsets, "sizes": sizes, "bytes": end}
+
+
+# Time rows of one tile of the f32 kernel at C <= 256 (kTileRows in
+# csrc/wn_layer.cu), of the C = 512 tiles kernel's (F32Tiles::kTileRows)
+# and rest kernel's (F32Rest::kTileRows), the most rows of a block's rest
+# at C = 512 (kF32RestRows), and the quantum a block's rows are a multiple
+# of (kRowQuantum).
 F32_TILE_ROWS = 48
+F32_WIDE_TILE_ROWS = 96
+F32_REST_TILE_ROWS = 16
+F32_REST_ROWS = 48
+F32_ROW_QUANTUM = 16
+
+
+def f32_tiles(n: int, channels: int = 256) -> list:
+  """The tiles of an f32 forward block holding ``n`` flat rows at width
+  ``channels``, as (first row, rows, tile rows of the layout), in the
+  order they run (csrc/wn_layer.cu). C <= 256: tiles of F32_TILE_ROWS,
+  the last one short. C = 512: wn_layer_kernel_f32_tiles' tiles of
+  F32_WIDE_TILE_ROWS, the last one short when over F32_REST_ROWS rows are
+  left (f32_wide_tiles), else those rows as wn_layer_kernel_f32_rest's
+  tiles of F32_REST_TILE_ROWS x all 512 channels (8 warps a tile;
+  f32_wide_rest)."""
+  if channels != WIDE_C:
+    size = F32_TILE_ROWS
+    return [(r, min(size, n - r), size) for r in range(0, n, size)]
+  size, rest = F32_WIDE_TILE_ROWS, n % F32_WIDE_TILE_ROWS
+  main = n // size + (rest > F32_REST_ROWS)
+  out = [(k * size, min(size, n - k * size), size) for k in range(main)]
+  if 0 < rest <= F32_REST_ROWS:
+    out += [(r, min(F32_REST_TILE_ROWS, n - r), F32_REST_TILE_ROWS)
+            for r in range(main * size, n, F32_REST_TILE_ROWS)]
+  return out
+
+
+def f32_grid(batch: int, t: int, slots: int) -> dict:
+  """The f32 forward kernel's grid for ``batch`` x ``t`` rows on a device
+  holding ``slots`` of its blocks at once, as its launcher picks it (one
+  wave): block b takes the flat rows [b * rows_per_block, (b + 1) *
+  rows_per_block) of the B*T rows, an equal share rounded up to
+  F32_ROW_QUANTUM (the last block's short), in the tiles of
+  :func:`f32_tiles`. At C = 512 a block writes the acts of its own rows to
+  the scratch and reads them back; no other block touches them."""
+  rows = batch * t
+  per_block = -(-(-(-rows // slots)) // F32_ROW_QUANTUM) * F32_ROW_QUANTUM
+  return {"rows_per_block": per_block, "blocks": -(-rows // per_block)}
+
+
+def f32_rest_launched(batch: int, t: int, slots: int) -> bool:
+  """Whether the f32 forward at C = 512 launches its rest kernel for
+  ``batch`` x ``t`` rows on a device holding ``slots`` of its blocks: when
+  a block (every one but the last holds rows_per_block rows) has a rest
+  of F32_REST_ROWS rows or fewer past its 96-row tiles."""
+  grid = f32_grid(batch, t, slots)
+  last = batch * t - (grid["blocks"] - 1) * grid["rows_per_block"]
+  return any(size == F32_REST_TILE_ROWS
+             for n in (grid["rows_per_block"], last)
+             for _, _, size in f32_tiles(n, WIDE_C))
 
 
 def f32_schedule(batch: int, t: int, last: bool = False,
@@ -467,9 +560,9 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   else:
     skip = torch.empty((batch, t, c), dtype=torch.float32, device=dev)
   x_out = torch.empty_like(x)
-  # C = 512 in bf16: the rounded x and the acts, [B*T, C] bf16 each
-  scratch = (torch.empty((2, batch * t, c), dtype=torch.bfloat16, device=dev)
-             if c == WIDE_C and wdt == torch.bfloat16 else None)
+  # C = 512: the acts, and in bf16 the rounded x (wide_scratch)
+  scratch = (torch.empty(wide_scratch(batch, t, c, wdt == torch.bfloat16)[
+      "bytes"], dtype=torch.uint8, device=dev) if c == WIDE_C else None)
 
   lib = _library()
   with torch.cuda.device(dev):  # the launcher reads the current device
@@ -537,10 +630,12 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
 
   CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
   shard kernel (``csrc/wn_layer_shard.cu``: FFMA in f32, tensor cores in
-  bf16), which takes: x f32 [B, T, C]; cond_s, w_in_s, w_rs_s in
-  ``compute_dtype`` (f32 when None); b_in_s f32; (C, C') one of
-  ``shard_pairs()``. Anything else raises; it never falls back to the
-  plain version. ``SHARD_LAUNCHES`` counts the launches.
+  bf16; in bf16 at C = 512 the C = 512 layer's three wgmma kernels of
+  ``csrc/wn_layer.cu`` at gate width C'), which takes: x f32 [B, T, C];
+  cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when None); b_in_s
+  f32; (C, C') one of ``shard_pairs()``. Anything else raises; it never
+  falls back to the plain version. ``SHARD_LAUNCHES`` counts the calls
+  that launched.
   """
   global SHARD_LAUNCHES
   if x.device.type == "cpu":
@@ -565,12 +660,23 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   _check("b_in_s", b_in_s, torch.float32, (2 * cp,), dev)
   _check("w_rs_s", w_rs_s, wdt, (cp * n_rs,), dev)
   out = torch.empty((batch, t, n_rs), dtype=torch.float32, device=dev)
+  lib = _library()
   with torch.cuda.device(dev):  # the launch goes to this device's stream
-    err = _library().wn_layer_shard_forward(
-        x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
-        b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, c, cp,
-        int(dilation), int(wdt == torch.bfloat16), int(last),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if c == WIDE_C and wdt == torch.bfloat16:
+      # the C = 512 layer's three kernels at gate width C'
+      # (csrc/wn_layer.cu), with their operand and acts (wide_scratch)
+      scratch = torch.empty(wide_scratch(batch, t, cp, True)["bytes"],
+                            dtype=torch.uint8, device=dev)
+      err = lib.wn_layer_shard_wide_forward(
+          x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+          b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(),
+          scratch.data_ptr(), batch, t, cp, int(dilation), int(last), stream)
+    else:
+      err = lib.wn_layer_shard_forward(
+          x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+          b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, c,
+          cp, int(dilation), int(wdt == torch.bfloat16), int(last), stream)
   if err != 0:
     raise RuntimeError(f"wn_layer shard kernel launch failed: cudaError {err}")
   SHARD_LAUNCHES += 1
