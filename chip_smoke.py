@@ -52,16 +52,24 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      the library's backward alone, beside the bound.
   6. train: train() at full width (12 x 8 x 256, batch 12, segment 16,000)
      on wav files cut from tests/fixtures/audio.wav, in f32 and bf16: six
-     steps with saves at steps 1, 3 and 6, launch counts (each step's
-     forward and its remat recompute; one backward-kernel call per layer
-     a bf16 step, none in f32), resume from the step-3 checkpoint
-     against the straight run, one step's loss and each leaf's gradient
-     (norm-wise) through the kernel against the plain route (and two wrong
-     routes, which the grad bound and the loss bound must each flag: the
-     plain route in the other dtype, and the kernel with the last rows of
-     every sequence left at zero), the loss falling over 5 steps on one repeated
-     batch, step time, audio-seconds per second, peak memory and a profiler
-     breakdown of one step.
+     steps with saves at steps 1, 3 and 6, every batch read through the
+     native C++ loader (waveglow_tpu_torch/native/wavloader.cpp, built
+     with g++; native.BATCHES equals the batches the run read), launch
+     counts (each step's forward and its remat recompute; one
+     backward-kernel call per layer a bf16 step, none in f32), resume from
+     the step-3 checkpoint against the straight run; the loader's batches
+     at epochs 0 and 1 bit for bit the Python decoder's, and one batch of
+     12 crops decoded both ways over 100 PCM16 files of 1.5-10 s (host
+     ms, median of 10); the model's bias capture from a normal mel (96
+     launches a capture, a finite f32 bias unlike the zeros mel's, within
+     phase 4's bound of wn_layer_plain's);
+     one step's loss and each leaf's gradient (norm-wise) through the
+     kernel against the plain route (and two wrong routes, which the grad
+     bound and the loss bound must each flag: the plain route in the
+     other dtype, and the kernel with the last rows of every sequence left
+     at zero), the loss falling over 5 steps on one repeated batch, step
+     time, audio-seconds per second, peak memory and a profiler breakdown
+     of one step.
   7. stream: Synthesizer.stream at full width in f32 and bf16, the
      826-frame request in 256-frame chunks (4 windows) and the 200-frame
      request (one padded, masked window), raw and denoised: 96 kernel
@@ -206,6 +214,7 @@ import dataclasses
 import functools
 import http.server
 import json
+import os
 import re
 import shutil
 import signal
@@ -223,6 +232,7 @@ import torch
 import torch.nn.functional as F
 from scipy.io import wavfile
 
+from waveglow_tpu_torch import native
 from waveglow_tpu_torch.checkpointing import download, load_checkpoint_any
 from waveglow_tpu_torch.checkpointing.export_torch import (
     export_torch_checkpoint, params_to_state_dict)
@@ -245,6 +255,8 @@ from waveglow_tpu_torch.eval.plots import (make_same_width_by_filling_white,
 from waveglow_tpu_torch.hparams import (HParams, overwrite_custom_hparams,
                                         parse_custom_hparams)
 from waveglow_tpu_torch.inference.client import SynthesisClient
+from waveglow_tpu_torch.inference.denoiser import (BIAS_MEL_LENGTH, Denoiser,
+                                                   capture_bias)
 from waveglow_tpu_torch.inference.server import SynthesisService, make_server
 from waveglow_tpu_torch.inference.serving import BatchSynthesizer
 from waveglow_tpu_torch.inference.streaming import receptive_halo_frames
@@ -252,8 +264,9 @@ from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 from waveglow_tpu_torch.kernels import wn_layer as kl
 from waveglow_tpu_torch.models.waveglow import (UPSAMPLE_STRIDE,
                                                 WaveGlowConfig,
-                                                infer, infer_noise_shapes,
-                                                init_params)
+                                                fuse_for_inference, infer,
+                                                infer_noise_shapes,
+                                                init_params, params_to_torch)
 from waveglow_tpu_torch.ops.conv import shift_time
 from waveglow_tpu_torch.parallel.mesh import make_mesh, make_time_mesh
 from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
@@ -294,6 +307,12 @@ T_TRAIN = 2_000
 N_WAVS = 24
 TRAIN_STEPS = 6
 RESUME_FROM = 3
+# phase 6's host timing of the native loader against the Python decoder:
+# LOADER_WAVS PCM16 mono files of 1.5-10 s (LJSpeech's range of lengths),
+# one batch of B_TRAIN crops a rep, LOADER_REPS reps
+LOADER_WAVS = 100
+LOADER_SECONDS = (1.5, 10.0)
+LOADER_REPS = 10
 TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "3",
                  "epochs_per_checkpoint": "0"}
 # Tolerances of the training phases, stated before the run.
@@ -1454,6 +1473,109 @@ def write_wavs(folder: Path, seed: int) -> list:
   return load_dataset(folder)
 
 
+def write_loader_wavs(folder: Path, seed: int) -> list:
+  """LOADER_WAVS seeded PCM16 noise files of LOADER_SECONDS at 22,050 Hz
+  (about 25 MB)."""
+  rng = np.random.default_rng(seed)
+  folder.mkdir(parents=True, exist_ok=True)
+  sr = HParams().sampling_rate
+  for i in range(LOADER_WAVS):
+    n = int(rng.uniform(*LOADER_SECONDS) * sr)
+    wavfile.write(folder / f"{i:03d}.wav", sr,
+                  rng.integers(-12_000, 12_000, n).astype(np.int16))
+  return load_dataset(folder)
+
+
+def loader_check(entries: list, hp: HParams, seed: int, tmp: Path) -> dict:
+  """The native loader against the Python decoder: phase 6's batches at
+  epochs 0 and 1 bit for bit, then one batch of B_TRAIN crops of the
+  LJSpeech-like folder decoded both ways LOADER_REPS times (each its own
+  files, alternating which goes first; lengths probed and files in the page
+  cache beforehand): host ms, median."""
+  datasets = [SegmentDataset(entries, hp, use_native=n) for n in (True, False)]
+  unequal = []
+  for epoch in (0, 1):
+    for lo in range(0, len(entries), B_TRAIN):
+      rows = range(lo, min(lo + B_TRAIN, len(entries)))
+      a, b = (ds.batch(rows, epoch) for ds in datasets)
+      if a.tobytes() != b.tobytes():
+        unequal.append((epoch, lo))
+  if unequal:
+    fail(f"the native loader's batches (epoch, first row) {unequal} differ "
+         "from the Python decoder's")
+  wavs = write_loader_wavs(tmp / "loader_wavs", seed)
+  datasets = [SegmentDataset(wavs, hp, use_native=n) for n in (True, False)]
+  for i in range(len(wavs)):
+    datasets[0]._length(i)
+    datasets[1]._load(i)
+  times = {True: [], False: []}
+  for rep in range(LOADER_REPS):
+    start = rep * B_TRAIN % (len(wavs) - B_TRAIN)
+    rows = range(start, start + B_TRAIN)
+    out = {}
+    for use_native in ((True, False) if rep % 2 == 0 else (False, True)):
+      t0 = time.perf_counter()
+      out[use_native] = datasets[0 if use_native else 1].batch(rows, rep)
+      times[use_native].append((time.perf_counter() - t0) * 1e3)
+    if out[True].tobytes() != out[False].tobytes():
+      fail(f"native and Python batches of rows {list(rows)} differ")
+  size = sum(e.wav_absolute_path.stat().st_size for e in wavs)
+  seconds = [datasets[0]._length(i) / hp.sampling_rate
+             for i in range(len(wavs))]
+  shutil.rmtree(tmp / "loader_wavs")
+  return {"batches_equal_epochs_0_1": True,
+          "timing_folder": {"files": len(wavs), "bytes": size,
+                            "seconds_min_max": [min(seconds), max(seconds)]},
+          "native_ms": times[True], "python_ms": times[False],
+          "native_median_ms": float(np.median(times[True])),
+          "python_median_ms": float(np.median(times[False])),
+          "host_cores": len(os.sched_getaffinity(0))}
+
+
+def denoiser_check(mode: str, seed: int, hp: HParams) -> dict:
+  """The denoiser's bias capture (``capture_bias``) of phase 6's model
+  (``hp``, full width) in ``mode``, from a standard-normal mel drawn from
+  ``seed``: 96 WN launches a capture, a finite f32 bias unlike the zeros
+  mel's (the ``Denoiser``'s, in f32), within SLICE_TOL_REL of the same
+  capture through wn_layer_plain."""
+  config = WaveGlowConfig.from_hparams(hp)
+  cdt = MODES[mode]
+  tree = params_to_torch(fuse_for_inference(full_width_params(seed)),
+                         torch.device(DEVICE))
+  per_capture = config.n_flows * config.n_layers
+  dn = Denoiser(tree, config, hp, DEVICE)
+  mel = torch.randn((1, hp.n_mel_channels, BIAS_MEL_LENGTH),
+                    generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+  torch.cuda.synchronize()
+  before = kl.LAUNCHES
+  t0 = time.perf_counter()
+  bias = capture_bias(tree, config, dn.stft, mel, cdt)
+  torch.cuda.synchronize()
+  capture_ms = (time.perf_counter() - t0) * 1e3
+  launches = kl.LAUNCHES - before
+  if launches != per_capture:
+    fail(f"{mode}: the normal-mel bias capture launched the WN kernel "
+         f"{launches} times, expected {per_capture}")
+  if bias.dtype != torch.float32 or not bool(torch.isfinite(bias).all()):
+    fail(f"{mode}: normal-mel bias {bias.dtype}, finite "
+         f"{bool(torch.isfinite(bias).all())}")
+  zeros = dn.bias_spec if cdt is None else capture_bias(
+      tree, config, dn.stft, torch.zeros_like(mel), cdt)
+  if torch.equal(zeros, bias):
+    fail(f"{mode}: the normal mel's bias equals the zeros mel's")
+  plain = capture_bias(tree, config, dn.stft, mel, cdt,
+                       layer=kl.wn_layer_plain)
+  scale = plain.abs().max().item()
+  err = (bias - plain).abs().max().item()
+  if err > SLICE_TOL_REL[mode] * scale:
+    fail(f"{mode}: the normal mel's bias through the kernel differs from "
+         f"the plain capture by {err} (scale {scale})")
+  return {"launches": launches, "capture_ms": capture_ms,
+          "max_abs_err_vs_plain": err, "scale": scale,
+          "bound": SLICE_TOL_REL[mode] * scale,
+          "vs_zeros_max_abs": (zeros - bias).abs().max().item()}
+
+
 def read_metrics(logdir: Path) -> list:
   return [json.loads(line) for line in
           (logdir / "metrics.jsonl").read_text().splitlines()]
@@ -1573,14 +1695,16 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   bwd_per_step = per_forward if mode == "bf16" else 0
   audio_per_step = B_TRAIN * hp.segment_length / hp.sampling_rate
 
-  # -- the main path: train() from the seed's initialisation
+  # -- the main path: train() from the seed's initialisation, its batches
+  # read through the native loader
   torch.cuda.reset_peak_memory_stats()
-  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  kl.LAUNCHES = kl.BWD_LAUNCHES = native.BATCHES = 0
   t0 = time.perf_counter()
   train(custom, tmp / "logs", entries, entries, tmp / "ck",
         max_iterations=TRAIN_STEPS, device=DEVICE)
   train_s = time.perf_counter() - t0
   launches, bwd_launches = kl.LAUNCHES, kl.BWD_LAUNCHES
+  loader_batches = native.BATCHES
   peak = torch.cuda.max_memory_allocated()
   records = read_metrics(tmp / "logs")
   steps = [r for r in records if r["event"] == "train_step"]
@@ -1597,6 +1721,11 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
     fail(f"{mode}: train() called the backward kernels {bwd_launches} "
          f"times, expected {bwd_per_step * len(steps)} ({bwd_per_step} per "
          "step)")
+  read_batches = len(steps) + val_batches * len(saves)
+  if loader_batches != read_batches:
+    fail(f"{mode}: the native loader decoded {loader_batches} batches, "
+         f"train() read {read_batches} ({len(steps)} steps, {val_batches} "
+         f"a validation)")
   losses = [r["loss"] for r in steps]
   if not np.isfinite(losses).all():
     fail(f"{mode}: non-finite loss {losses}")
@@ -1617,6 +1746,13 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
          f"{losses} by {resume_err}")
   for ck in ("ck", "ck_resumed"):   # about 1 GB a checkpoint
     shutil.rmtree(tmp / ck)
+
+  t0 = time.perf_counter()
+  loader = loader_check(entries, hp, seed, tmp)
+  denoiser = denoiser_check(mode, seed, hp)
+  log(f"loader {mode} " + json.dumps({**loader, "denoiser": denoiser,
+                                      "main_path_batches": loader_batches,
+                                      "seconds": time.perf_counter() - t0}))
 
   # -- one step through the kernel against the plain route
   params_np = full_width_params(seed)
@@ -1714,6 +1850,8 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   steady_s = float(np.median(step_times))
   busy_ms = profile["device_busy_ms"]
   info = {"mode": mode, "launches": launches, "expected_launches": expected,
+          "loader_batches": loader_batches, "loader": loader,
+          "normal_mel_capture": denoiser,
           "launches_per_step": per_call[0],
           "backward_launches": bwd_launches,
           "backward_launches_per_step": bwd_per_call[0], "train_s": train_s,

@@ -1,7 +1,8 @@
-"""The WN-layer forward kernels of two trees of this repo, on one NVIDIA
-card: their outputs bit for bit and their call times alternated.
+"""The WN-layer forward kernels, or the training step, of two trees of
+this repo, on one NVIDIA card: their outputs bit for bit and their times
+alternated.
 
-  python3 fwd_compare.py OTHER_TREE [--out chiprun_out/fwd_compare.json]
+  python3 fwd_compare.py OTHER_TREE [--train] [--out chiprun_out/fwd_compare.json]
 
 OTHER_TREE is an unpacked checkout of another commit, for example
 `git archive <commit> | tar -x -C build/parent`. Both trees' kernels are
@@ -18,8 +19,13 @@ a checksum of each case's output bits and times, by CUDA events (20 calls
 after 3 warm-ups), the cases phase 3 times (d=1, d=128, the last layer),
 and beside them the library's time for the same function (chip_smoke's
 yardstick: cuDNN conv1d, the gate, a cuBLAS matmul; TF32 off), which
-both trees compute alike. The last line is one JSON object: for each case
-whether every run gave the same bits, and each run's ms and library ms.
+both trees compute alike. With --train a run is instead chip_smoke.py
+phase 6 of its tree (``phase_train``: train() at 12 x 8 x 256, batch 12,
+segment 16,000, seed 1234) in f32 and in bf16; each mode's case records
+the run's losses (the bits compared) and its median step and median
+steady step on one batch in ms (host clock, ending in a synchronise). The
+last line is one JSON object: for each case whether every run gave the
+same bits, and each run's times.
 """
 
 import argparse
@@ -37,6 +43,7 @@ RANKS = (256, 128, 64)
 T = 26_432
 N_LAYERS = 8
 TIMED = (1, 128)
+TRAIN_SEED = 1234
 
 
 def checksum(out) -> list:
@@ -161,6 +168,23 @@ def worker(tree: str, build_only: bool) -> dict:
   return out
 
 
+def train_worker(tree: str) -> dict:
+  sys.path.insert(0, tree)
+  import tempfile
+  import chip_smoke as smoke
+  assert Path(smoke.__file__).resolve().is_relative_to(Path(tree).resolve())
+  smoke.phase_device()
+  out = {}
+  for mode in smoke.MODES:
+    with tempfile.TemporaryDirectory() as tmp:
+      info = smoke.phase_train(mode, TRAIN_SEED, Path(tmp))
+    out[f"train,{mode}"] = {
+        "checksum": [float(loss).hex() for loss in info["losses"]],
+        "ms": info["median_step_s"] * 1e3,
+        "steady_ms": info["steady_median_step_s"] * 1e3}
+  return out
+
+
 def run(tree: Path, *flags) -> subprocess.Popen:
   return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                            "--worker", str(tree), *flags], cwd=tree,
@@ -174,9 +198,12 @@ def main() -> None:
                                             / "fwd_compare.json"))
   parser.add_argument("--worker")
   parser.add_argument("--build-only", action="store_true")
+  parser.add_argument("--train", action="store_true")
   args = parser.parse_args()
   if args.worker:
-    print(json.dumps(worker(args.worker, args.build_only)))
+    print(json.dumps(train_worker(args.worker)
+                     if args.train and not args.build_only
+                     else worker(args.worker, args.build_only)))
     return
   if not args.other:
     parser.error("OTHER_TREE is needed")
@@ -187,7 +214,7 @@ def main() -> None:
     raise SystemExit("a tree's kernels did not build")
   runs = []
   for name in ("other", "this", "this", "other"):
-    proc = run(trees[name])
+    proc = run(trees[name], *(["--train"] if args.train else []))
     text = proc.communicate()[0]
     if proc.returncode:
       raise SystemExit(f"the run of {name} failed")
@@ -198,7 +225,7 @@ def main() -> None:
     sums = {tuple(r[case]["checksum"]) for _, r in runs}
     cases[case] = {"same_bits": len(sums) == 1,
                    **{key: [[name, r[case][key]] for name, r in runs]
-                      for key in ("ms", "library_ms")
+                      for key in ("ms", "steady_ms", "library_ms")
                       if key in runs[0][1][case]}}
   import torch
   result = {"device": subprocess.run(

@@ -12,7 +12,9 @@ the CLI phase's launch accounting and its file-for-file comparison;
 ``expected_train_launches``, ``expected_validate_launches``,
 ``validation_dirs_mismatch``, ``validation_metrics`` and ``state_mismatch``
 are the training and validation commands' launch accounting, their
-iteration folders, report rows and checkpoint comparison.
+iteration folders, report rows and checkpoint comparison; ``loader_check``
+and ``denoiser_check`` are phase 6's native-loader and normal-mel
+bias-capture checks, rehearsed here on the CPU.
 """
 
 import importlib.util
@@ -1158,3 +1160,85 @@ def test_forward_kernels_counts_each_launch(smoke, monkeypatch, mode, batch,
       "sms": 132, "blocks_per_sm": 1})
   monkeypatch.setattr(smoke.kl, "f32_rest_launched", lambda *a: rest)
   assert smoke.forward_kernels(mode, batch, width) == want
+
+
+# -- phase 6's loader and normal-mel capture checks, rehearsed on the CPU ---
+
+def tiny_train_hparams(smoke):
+  return smoke.overwrite_custom_hparams(smoke.HParams(), {
+      "n_flows": "2", "n_layers": "2", "n_channels": "32",
+      "segment_length": "4096", "batch_size": "4"})
+
+
+def test_loader_check_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+  """Phase 6's loader check at a small size: the batches of two epochs bit
+  for bit, then LOADER_REPS timed batches each way over the LJSpeech-like
+  folder (its files 1.5-10 s), the folder removed afterwards."""
+  monkeypatch.setattr(smoke, "N_WAVS", 8)
+  monkeypatch.setattr(smoke, "B_TRAIN", 4)
+  monkeypatch.setattr(smoke, "LOADER_WAVS", 12)
+  hp = tiny_train_hparams(smoke)
+  entries = smoke.write_wavs(tmp_path / "wavs", 3)
+  before = smoke.native.BATCHES
+  rec = smoke.loader_check(entries, hp, 3, tmp_path)
+  assert len(rec["native_ms"]) == len(rec["python_ms"]) == smoke.LOADER_REPS
+  assert rec["timing_folder"]["files"] == 12
+  low, high = rec["timing_folder"]["seconds_min_max"]
+  assert smoke.LOADER_SECONDS[0] <= low <= high <= smoke.LOADER_SECONDS[1]
+  # 2 epochs x 2 batches, then one batch a rep, through the loader
+  assert smoke.native.BATCHES - before == 4 + smoke.LOADER_REPS
+  assert not (tmp_path / "loader_wavs").exists()
+
+
+@pytest.fixture
+def tiny_capture(smoke, monkeypatch):
+  """The CPU in the card's place: a tiny model for ``full_width_params``
+  and ``wn_layer_plain`` counted in ``LAUNCHES`` (the CPU branch of
+  ``wn_layer_fused`` calls it)."""
+  from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, init_params
+  hp = tiny_train_hparams(smoke)
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+  def tiny_params(seed, width=32):
+    params = init_params(WaveGlowConfig.from_hparams(hp), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    for flow in params["flows"]:
+      end = flow["wn"]["end"]
+      end["w"] = (rng.standard_normal(end["w"].shape) * 0.02).astype(
+          np.float32)
+    return params
+
+  monkeypatch.setattr(smoke, "full_width_params", tiny_params)
+  plain = kl.wn_layer_plain
+
+  def counted(*args, **kwargs):
+    kl.LAUNCHES += 1
+    return plain(*args, **kwargs)
+
+  monkeypatch.setattr(kl, "wn_layer_plain", counted)
+  return hp
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_denoiser_check_rehearses_on_the_cpu(smoke, tiny_capture, mode):
+  rec = smoke.denoiser_check(mode, 5, tiny_capture)
+  assert rec["launches"] == 4  # 2 flows x 2 layers a capture
+  assert rec["max_abs_err_vs_plain"] <= rec["bound"]
+  assert rec["vs_zeros_max_abs"] > 0
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_denoiser_check_flags_a_capture_that_ignores_the_mel(
+    smoke, tiny_capture, monkeypatch, mode):
+  """A capture that runs the zeros mel whatever mel it is given fails the
+  check: its bias is the zeros mel's."""
+  capture = smoke.capture_bias
+
+  def zeros_only(params, config, stft, mel, *args, **kwargs):
+    return capture(params, config, stft, torch.zeros_like(mel), *args,
+                   **kwargs)
+
+  monkeypatch.setattr(smoke, "capture_bias", zeros_only)
+  with pytest.raises(SystemExit):
+    smoke.denoiser_check(mode, 5, tiny_capture)

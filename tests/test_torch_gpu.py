@@ -798,6 +798,81 @@ def test_train_command_on_the_card(cuda, tmp_path, compute_dtype):
       assert a[key].tobytes() == b[key].tobytes(), key
 
 
+# -- the normal-mel bias capture and the native loader on the card --------------
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_normal_mel_capture_through_the_kernels(cuda, compute_dtype):
+  """The bias capture of a standard-normal mel at width 256 runs through
+  the WN kernel (8 launches), within 1e-3 (f32) or 5e-2 (bf16) of the max
+  |value| of the same capture through ``wn_layer_plain`` on the card;
+  f32 bias, finite, not the zeros mel's (the ``Denoiser``'s)."""
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  from waveglow_tpu_torch.inference.denoiser import (BIAS_MEL_LENGTH,
+                                                     Denoiser, capture_bias)
+  from waveglow_tpu_torch.models import waveglow as wg
+  hp = overwrite_custom_hparams(HParams(), SMALL)
+  config = wg.WaveGlowConfig.from_hparams(hp)
+  params = wg.init_params(config, seed=0)
+  rng = np.random.default_rng(2)
+  for flow in params["flows"]:
+    end = flow["wn"]["end"]
+    end["w"] = (rng.standard_normal(end["w"].shape) * 0.05).astype(np.float32)
+    end["b"] = (rng.standard_normal(end["b"].shape) * 0.05).astype(np.float32)
+  tree = wg.params_to_torch(wg.fuse_for_inference(params), cuda)
+  dn = Denoiser(tree, config, hp, cuda)
+  mel = torch.randn((1, hp.n_mel_channels, BIAS_MEL_LENGTH),
+                    generator=torch.Generator().manual_seed(3)).to(cuda)
+  before = kl.LAUNCHES
+  bias = capture_bias(tree, config, dn.stft, mel, compute_dtype)
+  torch.cuda.synchronize()
+  assert kl.LAUNCHES - before == config.n_flows * config.n_layers
+  plain = capture_bias(tree, config, dn.stft, mel, compute_dtype,
+                       layer=kl.wn_layer_plain)
+  assert kl.LAUNCHES - before == config.n_flows * config.n_layers
+  assert bias.dtype == torch.float32
+  assert torch.isfinite(bias).all()
+  scale = plain.abs().max().item()
+  bound = (1e-3 if compute_dtype is None else 5e-2) * scale
+  assert (bias - plain).abs().max().item() <= bound
+  assert not torch.equal(dn.bias_spec, bias)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_same_bits_native_or_python(cuda, tmp_path, monkeypatch,
+                                               compute_dtype):
+  """One ``train()`` step at width 256 on batches read through the native
+  loader and through the Python decoder (``use_native=False``): the same
+  loss bits and the same params after the step."""
+  import functools
+  import json
+  from waveglow_tpu_torch import native
+  from waveglow_tpu_torch.training import data, loop
+  custom = dict(SMALL, segment_length="4096", batch_size="2", epochs="1",
+                iters_per_checkpoint="0", epochs_per_checkpoint="0",
+                compute_dtype=compute_dtype)
+  write_cuts(tmp_path / "wavs", [(20_000 * i, 9_000) for i in range(2)])
+  entries = data.load_dataset(tmp_path / "wavs")
+  out = {}
+  for use_native in (True, False):
+    monkeypatch.setattr(loop, "SegmentDataset", functools.partial(
+        data.SegmentDataset, use_native=use_native))
+    before = native.BATCHES
+    result = loop.train(custom, tmp_path / f"logs{use_native}", entries,
+                        entries, tmp_path / f"ck{use_native}",
+                        max_iterations=1, device="cuda")
+    assert (native.BATCHES > before) == use_native
+    losses = [json.loads(line).get("loss") for line in
+              (tmp_path / f"logs{use_native}" / "metrics.jsonl")
+              .read_text().splitlines()]
+    out[use_native] = (losses, result["params"])
+  assert out[True][0] == out[False][0]
+  assert out[True][0] and np.isfinite(out[True][0][0])
+  from waveglow_tpu_torch.checkpointing.from_jax import tree_leaves
+  for a, b in zip(tree_leaves(out[True][1]), tree_leaves(out[False][1])):
+    assert a.tobytes() == b.tobytes()
+
+
 # -- the tensor-parallel shard kernel (model mesh axis) ----------------------
 
 def shard_slices(args, model, rank):

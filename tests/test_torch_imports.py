@@ -77,3 +77,45 @@ def test_scan_catches_a_package_the_card_lacks(tmp_path):
   assert sorted(m for m in imported_modules(probe)
                 if missing_on_the_card(m)) == [
       "PIL", "PIL.Image", "matplotlib", "matplotlib.pyplot", "pandas"]
+
+
+def test_native_loader_is_scanned_and_its_own():
+  """The C++ loader's module is among the scanned sources, and the source
+  it builds is the port's own file under ``waveglow_tpu_torch/native/``
+  (not the JAX package's, not a link to it), built into the port's
+  gitignored build directory."""
+  from waveglow_tpu_torch import native
+  port_native = ROOT / "waveglow_tpu_torch" / "native"
+  assert port_native / "__init__.py" in SOURCES
+  assert native.SOURCE == port_native / "wavloader.cpp"
+  assert native.SOURCE.is_file() and not native.SOURCE.is_symlink()
+  text = native.SOURCE.read_text()
+  for name in ("wav_info", "wav_read_f32", "batch_segments"):
+    assert f" {name}(" in text, name
+  assert native.BUILD_DIR == ROOT / "waveglow_tpu_torch" / "build"
+  assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+BUILT_SOURCES = sorted(
+    path.relative_to(ROOT / "waveglow_tpu_torch").as_posix()
+    for path in (ROOT / "waveglow_tpu_torch").rglob("*")
+    if path.suffix in (".cu", ".cuh", ".cpp") and "build" not in path.parts)
+
+
+def test_every_built_source_is_found():
+  from waveglow_tpu_torch import native
+  assert native.SOURCE.relative_to(ROOT / "waveglow_tpu_torch").as_posix() \
+      in BUILT_SOURCES
+  assert "csrc/wn_layer.cu" in BUILT_SOURCES
+
+
+@pytest.mark.parametrize("source", BUILT_SOURCES)
+def test_built_source_ships_in_the_package(source):
+  """Every source the port compiles at first use (the CUDA kernels, the
+  C++ loader) matches a glob of the package data, so that an installed
+  package can build it."""
+  import fnmatch
+  import tomllib
+  data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+  globs = data["tool"]["setuptools"]["package-data"]["waveglow_tpu_torch"]
+  assert any(fnmatch.fnmatch(source, glob) for glob in globs), (source, globs)

@@ -54,6 +54,71 @@ def test_shift_time(offset):
                                 np.asarray(ref))
 
 
+def dilated_pair(k, dilation, t_len, seed):
+  rng = np.random.default_rng(seed)
+  x = rng.standard_normal((2, t_len, 6)).astype(np.float32)
+  w = (rng.standard_normal((k, 6, 5)) / np.sqrt(6 * k)).astype(np.float32)
+  b = rng.standard_normal(5).astype(np.float32)
+  return x, w, b
+
+
+# T: just past the farthest tap (half * d + 1, under the conv's full reach
+# (K - 1) * d wherever that exceeds it), and longer than the reach
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dilation", [1, 2, 7])
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dilated_conv_matches_jax(k, dilation, long, bf16):
+  """f32: 1e-5; bf16 operands and result: 2e-2 of max|ref| (the sum of K
+  bf16 products, rounded at other points)."""
+  t_len = 40 if long else (k // 2) * dilation + 1
+  x, w, b = dilated_pair(k, dilation, t_len, seed=k * 10 + dilation)
+  cdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+  ref = np.asarray(jax_conv.dilated_conv(
+      jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), dilation=dilation,
+      compute_dtype=cdt[0]).astype(jnp.float32))
+  out = port_conv.dilated_conv(t(x), t(w), t(b), dilation=dilation,
+                               compute_dtype=cdt[1])
+  assert out.shape == (2, t_len, 5)
+  assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+  bound = 2e-2 * np.abs(ref).max() if bf16 else 1e-5
+  np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=bound)
+
+
+@pytest.mark.parametrize("k,dilation,t_len", [(3, 7, 3), (5, 4, 6),
+                                              (3, 1, 1)])
+def test_dilated_conv_taps_past_both_ends_read_zeros(k, dilation, t_len):
+  """Taps farther than T away read zeros, as torch ``Conv1d(padding=d *
+  (K-1) // 2)`` pads (the JAX function needs T >= (K//2) * d): 1e-5."""
+  x, w, b = dilated_pair(k, dilation, t_len, seed=3)
+  ref = torch.nn.functional.conv1d(
+      t(x).transpose(1, 2), t(w).permute(2, 1, 0), t(b),
+      padding=dilation * (k - 1) // 2, dilation=dilation).transpose(1, 2)
+  out = port_conv.dilated_conv(t(x), t(w), t(b), dilation=dilation)
+  torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def test_dilated_conv_bf16_f32_out():
+  x, w, b = dilated_pair(3, 2, 30, seed=4)
+  ref = jax_conv.dilated_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                              dilation=2, compute_dtype=jnp.bfloat16,
+                              out_dtype=jnp.float32)
+  out = port_conv.dilated_conv(t(x), t(w), t(b), dilation=2,
+                               compute_dtype=torch.bfloat16,
+                               out_dtype=torch.float32)
+  assert out.dtype == torch.float32
+  np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_dilated_conv_refuses_even_kernels(k):
+  """An even K has no centred tap: a ValueError (the JAX function's bare
+  assert vanishes under ``python -O``)."""
+  x, w, _ = dilated_pair(k, 1, 10, seed=5)
+  with pytest.raises(ValueError, match="odd"):
+    port_conv.dilated_conv(t(x), t(w))
+
+
 def test_conv_transpose1d():
   x, w, b = rand(2, 5, 6), rand(6, 32, 3), rand(3)
   ref = jax_conv.conv_transpose1d(jnp.asarray(x), jnp.asarray(w),

@@ -7,6 +7,7 @@ is stated in its test.
 
 import functools
 import json
+import struct
 from pathlib import Path
 
 import jax
@@ -27,13 +28,14 @@ from waveglow_tpu.training import data as jax_data
 from waveglow_tpu.training import loop as jax_loop
 from waveglow_tpu.training import step as jax_step
 from waveglow_tpu.training.loss import waveglow_loss as jax_loss
+from waveglow_tpu_torch import native
 from waveglow_tpu_torch.checkpointing.from_jax import (
     trainable_params_from_numpy, tree_leaves)
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
 from waveglow_tpu_torch.dsp.mel import MelSTFT
 from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
 from waveglow_tpu_torch.models.waveglow import WaveGlowConfig
-from waveglow_tpu_torch.training import data, step
+from waveglow_tpu_torch.training import data, loop, step
 from waveglow_tpu_torch.training.loop import train
 from waveglow_tpu_torch.training.loss import waveglow_loss
 
@@ -247,6 +249,158 @@ def test_segment_crops_equal_jax(tmp_path):
   jloader = jax_data.BatchLoader(theirs[0], 2, drop_last=True)
   for a, b in zip(loader.epoch(1, start_batch=1), jloader.epoch(1, 1)):
     np.testing.assert_array_equal(a, b)
+
+
+def write_pcm24(path, samples):
+  """A mono 24-bit PCM wav (scipy and the Python decoder read it; the
+  native loader, like the JAX package's, refuses it)."""
+  data = b"".join(int(v).to_bytes(3, "little", signed=True) for v in samples)
+  fmt = struct.pack("<HHIIHH", 1, 1, 22050, 22050 * 3, 3, 24)
+  body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data"
+          + struct.pack("<I", len(data)) + data)
+  path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def write_mixed_dataset(folder, pcm24=False):
+  """Speech cuts as PCM16, one as PCM32, one as IEEE float, one shorter
+  than the segment and, with ``pcm24``, one 24-bit file."""
+  entries = write_speech_dataset(folder, n=4, length=5000, seed=3)
+  sr, (a, b, short) = fixture_segments(3, 4000, seed=4)
+  wavfile.write(folder / "pcm32.wav", sr, a.astype(np.int32) << 16)
+  wavfile.write(folder / "float.wav", sr, a.astype(np.float32) / 32768)
+  wavfile.write(folder / "short.wav", sr, short[:1500])
+  if pcm24:
+    write_pcm24(folder / "pcm24.wav", b.astype(np.int32) << 8)
+  return data.load_dataset(folder)
+
+
+LOADERS = [(ours, theirs) for ours in (True, False) for theirs in (True, False)]
+
+
+def loader_id(pair):
+  return "-".join(("native" if n else "python") + "-" + who
+                  for n, who in zip(pair, ("port", "jax")))
+
+
+@pytest.mark.parametrize("ours_native,theirs_native", LOADERS,
+                         ids=map(loader_id, LOADERS))
+@pytest.mark.parametrize("pcm24", [False, True], ids=["decodable", "latch"])
+def test_batches_equal_jax_across_loaders(tmp_path, caplog, ours_native,
+                                          theirs_native, pcm24):
+  """The port's native or Python batches against the JAX package's native
+  or Python ones, bit for bit, at three epochs and through the prefetching
+  loader, over PCM16, PCM32, IEEE-float and short files. With a 24-bit
+  file (``latch``), a native dataset logs one warning at the first batch
+  that holds it and decodes in Python from then on, as the JAX one does:
+  the same batches all the same."""
+  entries = write_mixed_dataset(tmp_path, pcm24)
+  custom = {"segment_length": "2048", "seed": "77"}
+  ours = data.SegmentDataset(
+      entries, overwrite_custom_hparams(HParams(), custom),
+      use_native=ours_native)
+  theirs = jax_data.SegmentDataset(to_jax_entries(entries),
+                                   jax_overwrite(JaxHParams(), custom),
+                                   use_native=theirs_native)
+  caplog.set_level("WARNING", logger=data.logger.name)
+  before = native.BATCHES
+  batches = 0
+  for epoch in (0, 1, 3):
+    for lo in range(0, len(entries), 3):
+      rows = range(lo, min(lo + 3, len(entries)))
+      assert ours.batch(rows, epoch).tobytes() == theirs.batch(
+          rows, epoch).tobytes()
+      batches += 1
+  loader = data.BatchLoader(ours, 2, drop_last=True)
+  jloader = jax_data.BatchLoader(theirs, 2, drop_last=True)
+  for a, b in zip(loader.epoch(2, start_batch=1), jloader.epoch(2, 1)):
+    assert a.tobytes() == b.tobytes()
+    batches += 1
+  warned = [r for r in caplog.records if r.name == data.logger.name
+            and "native wav decode failed" in r.getMessage()]
+  if not ours_native:
+    assert native.BATCHES == before and not warned
+  elif not pcm24:
+    assert native.BATCHES - before == batches and not warned
+  else:
+    # the first batch that holds the 24-bit file latches the dataset: the
+    # batches before it were the loader's, none after it
+    first = min(i for i, e in enumerate(ours.entries)
+                if e.basename == "pcm24.wav") // 3
+    assert len(warned) == 1 and "pcm24.wav" in warned[0].getMessage()
+    assert native.BATCHES - before == first
+
+
+@pytest.mark.parametrize("kind,probed", [("float", True), ("pcm32", False)])
+def test_length_comes_from_the_header(tmp_path, monkeypatch, kind, probed):
+  """An entry's length is read from its header with no decode: by stdlib
+  ``wave`` for PCM, by the native probe for IEEE float (which ``wave``
+  cannot read), the same count as the JAX dataset's."""
+  entries = write_mixed_dataset(tmp_path)
+  hp = overwrite_custom_hparams(HParams(), {"segment_length": "2048"})
+  ours = data.SegmentDataset(entries, hp)
+  theirs = jax_data.SegmentDataset(to_jax_entries(entries),
+                                   jax_overwrite(JaxHParams(),
+                                                 {"segment_length": "2048"}))
+  index = [e.basename for e in ours.entries].index(f"{kind}.wav")
+  probe, decode = [], []
+  wav_info = native.wav_info
+  monkeypatch.setattr(native, "wav_info",
+                      lambda path: probe.append(path) or wav_info(path))
+  monkeypatch.setattr(data.audio_io, "wav_to_float32",
+                      lambda path: decode.append(path))
+  assert ours._length(index) == theirs._length(index) == 4000
+  assert len(probe) == int(probed) and not decode
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_wrong_sampling_rate_is_named(tmp_path, caplog, use_native):
+  """A file at another rate aborts the batch with the rate's message (not a
+  decode failure, and no latch), on either path, as the JAX dataset does."""
+  entries = write_speech_dataset(tmp_path, n=3, length=5000)
+  sr, (cut,) = fixture_segments(1, 5000, seed=9)
+  wavfile.write(tmp_path / "16k.wav", 16000, cut)
+  entries = data.load_dataset(tmp_path)
+  hp = overwrite_custom_hparams(HParams(), {"segment_length": "2048"})
+  ours = data.SegmentDataset(entries, hp, use_native=use_native)
+  theirs = jax_data.SegmentDataset(
+      to_jax_entries(entries), jax_overwrite(JaxHParams(),
+                                             {"segment_length": "2048"}),
+      use_native=use_native)
+  caplog.set_level("WARNING", logger=data.logger.name)
+  for ds in (ours, theirs):
+    with pytest.raises(ValueError, match="sampling rate 16000 != 22050"):
+      ds.batch(range(4), 0)
+  assert not [r for r in caplog.records if r.name == data.logger.name]
+  assert ours._use_native == use_native
+
+
+def test_train_reads_through_the_loader(tmp_path, monkeypatch):
+  """``train()`` reads every batch through the native loader by default,
+  and with the Python decoder (``use_native=False``) trains to the same
+  bits."""
+  entries = write_speech_dataset(tmp_path / "data")
+  results = {}
+  for use_native in (True, False):
+    monkeypatch.setattr(loop, "SegmentDataset", functools.partial(
+        data.SegmentDataset, use_native=use_native))
+    before = native.BATCHES
+    results[use_native] = train(LOOP_HPARAMS, tmp_path / f"logs{use_native}",
+                                entries, entries, tmp_path / f"ck{use_native}",
+                                max_iterations=2, device="cpu")
+    records = [json.loads(line) for line in (
+        tmp_path / f"logs{use_native}" / "metrics.jsonl").read_text()
+        .splitlines()]
+    events = [r["event"] for r in records]
+    # each step's batch, and each validation's 2 batches of 2 entries
+    read = events.count("train_step") + 2 * events.count("validation")
+    assert native.BATCHES - before == (read if use_native else 0)
+    results[use_native]["losses"] = [r["loss"] for r in records
+                                     if "loss" in r]
+  assert len(results[True]["losses"]) >= 2
+  assert results[True]["losses"] == results[False]["losses"]
+  for a, b in zip(tree_leaves(results[True]["params"]),
+                  tree_leaves(results[False]["params"])):
+    assert a.tobytes() == b.tobytes()
 
 
 # -- (g), (i) train() ----------------------------------------------------------

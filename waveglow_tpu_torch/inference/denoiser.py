@@ -7,7 +7,8 @@ result as ``bias_spec``; a call subtracts ``strength * bias_spec`` from the
 audio's magnitude spectrogram, clamps at 0 and inverts with the original
 phases. It runs in float32 whatever the serving compute dtype. On a
 tensor-parallel group (a list of model ranks' params) the bias is captured
-through the group.
+through the group. :func:`capture_bias` is the capture of any mel, in any
+compute dtype, through any layer function.
 """
 
 from __future__ import annotations
@@ -19,9 +20,28 @@ import torch
 
 from waveglow_tpu_torch.dsp.stft import STFT, reflect_pad
 from waveglow_tpu_torch.hparams import TSTFTHParams
-from waveglow_tpu_torch.models.waveglow import WaveGlowConfig, infer
+from waveglow_tpu_torch.kernels.wn_layer import wn_layer_fused
+from waveglow_tpu_torch.models.waveglow import (WaveGlowConfig, infer,
+                                                params_for_compute)
 
 BIAS_MEL_LENGTH = 88
+
+
+def capture_bias(params, config: WaveGlowConfig, stft: STFT,
+                 mel: torch.Tensor, compute_dtype=None,
+                 layer=wn_layer_fused) -> torch.Tensor:
+  """The first STFT frame, [1, cutoff, 1] f32, of ``infer`` of ``mel`` at
+  sigma 0 with f32 ``params`` (a tree, or a tensor-parallel list of trees)
+  in ``compute_dtype``, every WN layer through ``layer``."""
+  if isinstance(params, (list, tuple)):
+    params = [params_for_compute(tree, compute_dtype) for tree in params]
+  else:
+    params = params_for_compute(params, compute_dtype)
+  audio = infer(params, config, mel, sigma=0.0, seed=0,
+                compute_dtype=compute_dtype, layer=layer,
+                device=stft.device)
+  spec, _ = stft.transform(audio.float())
+  return spec[:, :, 0:1]
 
 
 def denoise_window(stft: STFT, padded: torch.Tensor, bias: torch.Tensor,
@@ -48,10 +68,8 @@ class Denoiser:
     self.stft = STFT(hparams.filter_length, hparams.hop_length,
                      hparams.win_length, hparams.window, device=device)
     mel = torch.zeros((1, hparams.n_mel_channels, BIAS_MEL_LENGTH),
-                      dtype=torch.float32, device=device)
-    bias_audio = infer(params, config, mel, sigma=0.0, seed=0, device=device)
-    bias_spec, _ = self.stft.transform(bias_audio)
-    self.bias_spec = bias_spec[:, :, 0:1]  # [1, cutoff, 1], first frame
+                      dtype=torch.float32, device=self.stft.device)
+    self.bias_spec = capture_bias(params, config, self.stft, mel)
 
   def to(self, device: torch.device) -> "Denoiser":
     """This denoiser on ``device``: the same bias, copied there (itself

@@ -69,7 +69,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from waveglow_tpu_torch.ops.conv import shift_time
+from waveglow_tpu_torch.ops.conv import dilated_conv, shift_time
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -147,11 +147,8 @@ def wn_layer_plain(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     return v.float() if compute_dtype is None else v.to(compute_dtype).float()
 
   xm = operand(x)
-  w_in = operand(w_in).reshape(3, c, 2 * c)
-  pre = None
-  for tap in range(3):
-    term = torch.matmul(shift_time(xm, (tap - 1) * dilation), w_in[tap])
-    pre = term if pre is None else pre + term
+  pre = dilated_conv(xm, operand(w_in).reshape(3, c, 2 * c),
+                     dilation=dilation)
   gates = (pre + b_in.reshape(-1).to(f32)
            + operand(cond).reshape(batch, t, 2 * c))
   acts = torch.tanh(gates[..., :c]) * torch.sigmoid(gates[..., c:])

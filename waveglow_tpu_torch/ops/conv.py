@@ -1,9 +1,10 @@
 """Convolutions as matmuls, channels-last (counterpart of
 ``waveglow_tpu/ops/conv.py``).
 
-Weight layouts are the JAX package's: 1x1 ``w[Cin, Cout]``, conv-transpose
-``w[Cin, K, Cout]``. These products stay ``torch.matmul`` (cuBLAS on the
-card), as the JAX package left them to XLA.
+Weight layouts are the JAX package's: 1x1 ``w[Cin, Cout]``, k-tap
+``w[K, Cin, Cout]``, conv-transpose ``w[Cin, K, Cout]``. These products
+stay ``torch.matmul`` (cuBLAS on the card), as the JAX package left them to
+XLA.
 
 Precision policy:
   * ``compute_dtype=None`` (parity mode): float32 operands and results. On
@@ -69,6 +70,29 @@ def shift_time(x: torch.Tensor, offset: int) -> torch.Tensor:
   if offset > 0:
     return F.pad(x[:, offset:, :], (0, 0, 0, offset))
   return F.pad(x[:, :t + offset, :], (0, 0, -offset, 0))
+
+
+def dilated_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, dilation: int = 1,
+                 compute_dtype=None, out_dtype=None) -> torch.Tensor:
+  """"Same"-padded dilated conv: [B, T, Cin] x [K, Cin, Cout] -> [B, T, Cout].
+
+  torch ``Conv1d(padding=dilation*(K-1)//2)`` semantics for odd K:
+  ``y[t] = sum_k w[k] @ x[t + (k - K//2) * d]``, taps past either end of
+  the sequence read zeros. An even K raises ``ValueError``.
+  """
+  k = w.shape[0]
+  if k % 2 != 1:
+    raise ValueError(f"kernel size must be odd for same padding, got {k}")
+  half = k // 2
+  y = None
+  for tap in range(k):
+    term = _mm(shift_time(x, (tap - half) * dilation), w[tap], compute_dtype,
+               out_dtype)
+    y = term if y is None else y + term
+  if b is not None:
+    y = y + b.to(y.dtype)
+  return y
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,

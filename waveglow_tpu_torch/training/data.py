@@ -1,26 +1,34 @@
-"""Host data pipeline (the port's own copy of ``waveglow_tpu/training/data.py``,
-Python decode path only): dataset discovery, deterministic segment crops and
-a prefetching batch loader.
+"""Host data pipeline (the port's own copy of ``waveglow_tpu/training/data.py``):
+dataset discovery, deterministic segment crops and a prefetching batch
+loader.
 
 The host only decodes wavs and crops fixed-length segments; the mel runs on
-the device inside the train step. Crops are a function of (seed, epoch,
-index) alone, so a resumed run regenerates the exact remaining batches of
-its epoch, and the crops equal the JAX package's for the same seed, epoch
-and index. Entries are every ``*.wav`` under a folder, recursively.
+the device inside the train step. A batch is decoded and cropped by the C++
+loader of ``waveglow_tpu_torch.native`` (a thread pool), or in Python with
+``use_native=False``; both give the same bits. Crops are a function of
+(seed, epoch, index) alone, so a resumed run regenerates the exact
+remaining batches of its epoch, and the crops equal the JAX package's for
+the same seed, epoch and index. Entries are every ``*.wav`` under a folder,
+recursively.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
+import wave
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from waveglow_tpu_torch import native
 from waveglow_tpu_torch.dsp import audio_io
 from waveglow_tpu_torch.hparams import HParams
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -49,10 +57,18 @@ class SegmentDataset:
   keyed by an entry's global position in the shuffled order, so the union
   of the processes' step-b rows is the one-process step-b batch, cropped
   alike.
+
+  Without ``cache_wavs`` a batch goes through the native loader, its crop
+  offsets computed from each file's header (``_length``). If the loader
+  refuses a file (a format it does not decode, such as 24-bit PCM), the
+  dataset logs one warning and decodes in Python for the rest of the run,
+  as the JAX package's does; ``use_native=False`` decodes in Python from
+  the start.
   """
 
   def __init__(self, entries: Entries, hparams: HParams,
-               process_index: int = 0, process_count: int = 1):
+               process_index: int = 0, process_count: int = 1,
+               use_native: bool = True):
     order = list(entries)
     np.random.RandomState(hparams.seed).shuffle(order)
     self.entries = order[process_index::process_count]
@@ -63,6 +79,8 @@ class SegmentDataset:
     self.sampling_rate = hparams.sampling_rate
     self._cache: Optional[Dict[int, np.ndarray]] = (
         {} if hparams.cache_wavs else None)
+    self._lengths: Dict[int, int] = {}
+    self._use_native = use_native
 
   def __len__(self) -> int:
     return len(self.entries)
@@ -76,7 +94,20 @@ class SegmentDataset:
       raise ValueError(f"{path}: sampling rate {sr} != {self.sampling_rate}")
     if self._cache is not None:
       self._cache[index] = wav
+    self._lengths[index] = len(wav)
     return wav
+
+  def _length(self, index: int) -> int:
+    """Entry ``index``'s sample count from its header; its sampling rate
+    is checked here, since the native batch never reads it again."""
+    if index not in self._lengths:
+      path = self.entries[index].wav_absolute_path
+      frames, sr = _wav_header(path)
+      if sr != self.sampling_rate:
+        raise ValueError(
+            f"{path}: sampling rate {sr} != {self.sampling_rate}")
+      self._lengths[index] = frames
+    return self._lengths[index]
 
   def crop_offset(self, index: int, epoch: int, length: int) -> int:
     """Deterministic crop start; -1 means the file is shorter (zero-pad)."""
@@ -95,8 +126,40 @@ class SegmentDataset:
 
   def batch(self, indices, epoch: int) -> np.ndarray:
     """[len(indices), segment_length] float32 batch of segments."""
+    if self._use_native and self._cache is None:
+      paths = [self.entries[i].wav_absolute_path for i in indices]
+      # outside the try: a wrong sampling rate aborts with its own message
+      offsets = [self.crop_offset(i, epoch, self._length(i))
+                 for i in indices]
+      try:
+        return native.load_segments_batch(paths, offsets,
+                                          self.segment_length)
+      except ValueError as e:
+        # latched: retrying natively would decode every later batch twice
+        logger.warning("native wav decode failed (%s); using the Python "
+                       "loader for the rest of this run", e)
+        self._use_native = False
     return np.stack([self.segment(i, epoch) for i in indices]).astype(
         np.float32)
+
+
+def _wav_header(path) -> Tuple[int, int]:
+  """(sample count, sampling rate) from a wav's header, no data decode.
+
+  stdlib ``wave`` reads PCM headers but not IEEE-float ones (``wave.Error:
+  unknown format: 3``); the native header probe reads those, and a full
+  decode is the last resort (a data chunk past the probe's 64 KiB)."""
+  try:
+    with wave.open(str(path), "rb") as f:
+      return f.getnframes(), f.getframerate()
+  except (wave.Error, EOFError):
+    pass
+  try:
+    return native.wav_info(path)
+  except ValueError:
+    pass
+  wav, sr = audio_io.wav_to_float32(path)
+  return len(wav), sr
 
 
 class BatchLoader:
