@@ -13,17 +13,17 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      ptxas facts (when this run built it), and what the loaded build uses
      as the CUDA runtime reports it (registers, local bytes, shared
      memory). The library's SASS (cuobjdump -sass) must show
-     tensor-core instructions (HMMA/HGMMA) in every bf16 kernel (the
-     forward variants, the C = 512 gate kernel, the backwards' rows, dx
-     and weights kernels, the bf16 shard kernels) and none in the f32
-     ones; the backwards' reduce kernels, the whole layer's prep kernel
-     and the C = 512 rounding of x do no products. The rows, dx and
-     weights kernels of both backwards and the C = 512 bf16 forward's gate
-     and res/skip kernels (the layer's, and each model rank's, which
-     replace the mma.sync shard kernel there) must be wgmma (HGMMA), with
-     no ptxas warning
-     that their wgmmas are serialized (C7511/C7513), and no spill (their
-     registers, spills and shared memory are printed). The f32 kernel's
+     tensor-core instructions in every bf16 kernel (the forward variants,
+     the gate kernels, the backwards' rows, dx and weights kernels, the
+     bf16 shard kernels), none in the f32 ones, and no mma.sync (HMMA) in
+     any kernel; the backwards' reduce kernels, the whole layer's prep
+     kernel and the C = 512 rounding of x do no products. The rows, dx and
+     weights kernels of both backwards, the C = 512 bf16 forward's gate
+     and res/skip kernels, and every model rank's bf16 gate and res/skip
+     kernels at every width (which replaced the mma.sync shard kernel)
+     must be wgmma (HGMMA), with no ptxas warning that their wgmmas are
+     serialized (C7511/C7513), and no spill (their registers, spills and
+     shared memory are printed). The f32 kernel's
      registers, shared memory, blocks an SM and grid at B=1 and B=8 are
      printed (at each width), and any spill of an f32 forward variant
      fails.
@@ -136,11 +136,14 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
  11. mesh: sharded serving on logical meshes that list cuda:0 once a
      shard, in f32 and bf16 at full width (the shards run one after
      another: the numbers are checked, no speedup is shown). The shard
-     kernel (csrc/wn_layer_shard.cu: FFMA in f32, the tensor cores in
-     bf16) against wn_layer_shard_plain at C' = 128, 64 and 32, d=1,
-     d=128 and the last layer, and the ranks'
-     partials summed against the unsharded kernel, timed at d=1 beside its
-     bound, plain version and library yardstick; BatchSynthesizer on data
+     kernels (FFMA in f32, csrc/wn_layer_shard.cu; in bf16 the wgmma gate
+     and res/skip kernels of csrc/wn_layer.cu) against
+     wn_layer_shard_plain at C' = 128, 64 and 32, d=1, d=128 and the last
+     layer, and the ranks' partials summed against the unsharded kernel,
+     timed at d=1 beside its bound, plain version and library yardstick,
+     in bf16 with each kernel's device time (the rank kernel, or gate /
+     rs at C' = 128; torch.profiler) and the mma.sync kernel's earlier
+     time (a read-out); BatchSynthesizer on data
      = 2 and 4 (8 x 826 frames: each device's rows bit for bit an
      unsharded call on them, the batch within the slice bound of the
      8-row call; infer_many of 7 lengths padded and trimmed); infer_long
@@ -162,8 +165,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      (B=1, T=26,432), the bf16 backward against wn_layer_backward (B=12,
      T=2,000), bf16 kernels against their second launch bit for bit, each
      timed beside its bound, plain and library times (with each kernel's
-     device time at d=1, d=128 and the last layer, and at C = 512 each bf16
-     rank's round / gate / rs split, torch.profiler); a
+     device time at d=1, d=128 and the last layer, and each bf16 rank's
+     split: round / gate / rs at C = 512, the rank kernel at 128, with
+     the mma.sync kernel's earlier time there; torch.profiler); a
      full-depth model (12 x
      8, random weights from the seed, ends randomised) served through
      Synthesizer.infer_serving in f32 and bf16 (96 launches; phase 4's
@@ -451,13 +455,19 @@ SHARD_DESIGN = {
            "channels a thread, the gate on the accumulators, acts in shared "
            "memory, the partial in passes of 2C' columns written from the "
            "accumulators",
-    "bf16": "(C <= 256) mma.sync m16n8k16 bf16 (ldmatrix from padded "
-            "shared memory, f32 accumulators): 256-thread blocks of 64 time "
-            "rows, both products as one sequence of K chunks through a "
-            "4-stage ring (w_in and "
-            "w_rs by cp.async, x taps by registers rounded to bf16), the gate "
-            "on the paired tanh/sigmoid accumulators, the partial written "
-            "from the accumulators in 16-byte stores"}
+    "bf16": "(C <= 256) wgmma (csrc/wn_layer.cu), one wave of persistent "
+            "blocks walking units of 128 flat rows (two warpgroups of 64): "
+            "the gate in one pass of all C' channels (m64nNk16, N = max(64, "
+            "2C'): tanh and sigmoid columns in the same thread), K = 3C in "
+            "64-deep (channel block, tap) chunks, the f32 x taps copied by "
+            "cp.async and rounded to bf16 by the kernel into a swizzled A "
+            "slot, w_in_s through a 4-stage ring running on across units, "
+            "the gate on the accumulators; then, in the same kernel "
+            "(wn_layer_kernel_rank), the acts (bf16, shared memory) @ "
+            "w_rs_s (held in shared memory) in passes of 256 partial "
+            "columns stored from the accumulators; at (256, 128), where "
+            "w_rs_s does not fit, the acts [B*T, C'] go out in bf16 to the "
+            "res/skip kernel (units of 128 rows x 256 columns, K = C')"}
 # Shapes at which phase 2 reports the f32 kernel's grid: phase 3's two batch
 # sizes and the training segment.
 F32_GRID_SHAPES = ((1, T_KERNEL), (8, T_KERNEL), (B_TRAIN, T_TRAIN))
@@ -470,6 +480,14 @@ SHARD_F32_EARLIER_MS = {(256, 128): 0.6284, (256, 64): 0.4664,
                         (512, 128): 1.8521, (512, 64): 1.2882,
                         (128, 64): 0.1776, (128, 32): 0.1136,
                         (128, 16): 0.0902}
+# The bf16 shard kernel's times before its redesign (mma.sync m16n8k16,
+# wn_shard_kernel_mma; a full run of this script on an NVIDIA H100 80GB
+# HBM3, 700.00 W; B=1, T=26,432, d=1, ms; PERF.md keeps the run), by (C,
+# C') at C <= 256: printed beside this run's times as a read-out, never a
+# limit.
+SHARD_BF16_EARLIER_MS = {(256, 128): 0.1448, (256, 64): 0.1063,
+                         (256, 32): 0.0662, (128, 64): 0.0637,
+                         (128, 32): 0.0487, (128, 16): 0.0429}
 # The route of each mode's trainable backward.
 BACKWARD_ROUTE = {"f32": "torch ops", "bf16": "cuda"}
 
@@ -554,24 +572,29 @@ def bwd_variant(kernel: str, last: bool = False, width: int = C) -> str:
   return f"bf16,C={width},bwd-{kernel}"
 
 
-# The bf16 forward at C = 512 beside its res/skip kernels (which
-# variant("bf16", last, 512) names for the layer and shard_variant(512, C',
-# True, last) for a rank): the gate kernel at each gate width (the layer's
-# 512, a rank's C') and the rounding of x, (kernel, gate width) as
-# kl.wide_kernel_info takes them.
-WIDE_KERNELS = (("gate", kl.WIDE_C), ("round", kl.WIDE_C)) + tuple(
-    ("gate", cp) for c, cp in kl.shard_pairs() if c == kl.WIDE_C)
+# The bf16 gate kernels beside the kernels that end a call (which
+# variant("bf16", last, 512) names for the C = 512 layer and
+# shard_variant(C, C', True, last) for a rank: its res/skip kernel, or its
+# rank kernel where that runs alone): the gate kernel of the C = 512 layer
+# and of every rank that has one (C = 512, and (256, 128)), and the C =
+# 512 rounding of x, (kernel, gate width, width) as kl.wide_kernel_info
+# takes them.
+WIDE_KERNELS = (("gate", kl.WIDE_C, kl.WIDE_C),
+                ("round", kl.WIDE_C, kl.WIDE_C)) + tuple(
+    ("gate", cp, c) for c, cp in sorted(kl.shard_pairs(), reverse=True)
+    if "gate" in kl.wide_kernels(c, cp))
 
 
-def wide_variant(kernel: str, cp: int = kl.WIDE_C) -> str:
-  """Variant name of a C = 512 gate kernel ("bf16,C=512,gate" for the
-  layer's, "shard-bf16,C=512,C'=M,gate" for a rank's: held to HGMMA) or of
-  the rounding of x, which does no products."""
+def wide_variant(kernel: str, cp: int = kl.WIDE_C,
+                 width: int = kl.WIDE_C) -> str:
+  """Variant name of a gate kernel ("bf16,C=512,gate" for the C = 512
+  layer's, "shard-bf16,C=N,C'=M,gate" for a rank's: held to HGMMA) or of
+  the C = 512 rounding of x, which does no products."""
   if kernel == "round":
     return f"round,C={kl.WIDE_C},fwd"
-  if cp == kl.WIDE_C:
-    return f"bf16,C={kl.WIDE_C},gate"
-  return f"shard-bf16,C={kl.WIDE_C},C'={cp},gate"
+  if cp == width:
+    return f"bf16,C={width},gate"
+  return f"shard-bf16,C={width},C'={cp},gate"
 
 
 def f32_rest_variant(last: bool) -> str:
@@ -618,13 +641,15 @@ def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kC, kLast>`` (C <= 256) or, at C = 512,
   ``wn_layer_kernel_f32_{tiles,rest}<kLast>``, the bf16 tensor-core kernel
-  ``wn_layer_kernel_mma<kC, kLast>`` (C <= 256), the C = 512 bf16 kernels
-  ``wn_layer_kernel_{gate<kG>,rs<kG, kLast>,round}`` (kG = 512: the
-  layer's; kG = C': a rank's, named as its shard kernel), a backward kernel
-  ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, a
-  shard kernel ``wn_shard_kernel[_mma]<kC, kCP, kLast>`` (FFMA in f32, the
-  tensor cores in bf16) or a shard-backward kernel
-  ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``;
+  ``wn_layer_kernel_mma<kC, kLast>`` (C <= 256), the bf16 gate and
+  res/skip kernels ``wn_layer_kernel_{gate<kC, kG>,rs<kC, kG, kLast>}``
+  (kG = kC = 512: the C = 512 layer's; kG = C': a rank's, the res/skip
+  kernel named as its shard kernel), a rank's one kernel below C = 512
+  ``wn_layer_kernel_rank<kC, kG, kLast>`` (named as its shard kernel) and
+  the C = 512 rounding ``wn_layer_kernel_round``, a backward kernel
+  ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, the
+  f32 shard kernel ``wn_shard_kernel<kC, kCP, kLast>`` or a shard-backward
+  kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``;
   other symbols are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
@@ -635,14 +660,20 @@ def kernel_variant(mangled: str) -> str:
     last = inst.group(2) == "1"
     return (variant("f32", last, kl.WIDE_C) if inst.group(1) == "tiles"
             else f32_rest_variant(last))
-  inst = re.search(r"wn_layer_kernel_rsILi(\d+)ELb([01])E", mangled)
+  inst = re.search(r"wn_layer_kernel_rsILi(\d+)ELi(\d+)ELb([01])E", mangled)
   if inst:
-    gates, last = int(inst.group(1)), inst.group(2) == "1"
-    return (variant("bf16", last, kl.WIDE_C) if gates == kl.WIDE_C
-            else shard_variant(kl.WIDE_C, gates, True, last))
-  inst = re.search(r"wn_layer_kernel_gateILi(\d+)E", mangled)
+    width, gates = int(inst.group(1)), int(inst.group(2))
+    last = inst.group(3) == "1"
+    return (variant("bf16", last, width) if gates == width
+            else shard_variant(width, gates, True, last))
+  inst = re.search(r"wn_layer_kernel_gateILi(\d+)ELi(\d+)E", mangled)
   if inst:
-    return wide_variant("gate", int(inst.group(1)))
+    return wide_variant("gate", int(inst.group(2)), int(inst.group(1)))
+  inst = re.search(r"wn_layer_kernel_rankILi(\d+)ELi(\d+)ELb([01])E",
+                   mangled)
+  if inst:
+    return shard_variant(int(inst.group(1)), int(inst.group(2)), True,
+                         inst.group(3) == "1")
   if re.search(r"wn_layer_kernel_round", mangled):
     return wide_variant("round")
   inst = re.search(r"wn_bwd_(prep|rows|dx|weights|reduce)_kernelILi(\d+)E"
@@ -655,11 +686,10 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return shard_bwd_variant(inst.group(1), int(inst.group(2)),
                              int(inst.group(3)), inst.group(4) == "1")
-  inst = re.search(r"wn_shard_kernel(_mma)?ILi(\d+)ELi(\d+)ELb([01])E",
-                   mangled)
+  inst = re.search(r"wn_shard_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
   if inst:
-    return shard_variant(int(inst.group(2)), int(inst.group(3)),
-                         inst.group(1) is not None, inst.group(4) == "1")
+    return shard_variant(int(inst.group(1)), int(inst.group(2)), False,
+                         inst.group(3) == "1")
   return mangled
 
 
@@ -736,13 +766,22 @@ def wgmma_serialized(build_log: str) -> set:
 
 def held_to_wgmma(name: str) -> bool:
   """A product kernel of the bf16 backwards (rows, dx, weights; the whole
-  layer's and a rank's) or of the bf16 forward at C = 512 (gate, res/skip;
-  the layer's and a rank's): held to wgmma, to no serialization and to no
-  spill."""
+  layer's and a rank's), of the bf16 forward at C = 512 (gate, res/skip)
+  or of a rank's bf16 share at any width (gate, res/skip): held to wgmma,
+  to no serialization and to no spill."""
   return (name.startswith("bf16,") and (
       ",bwd-" in name or ",sbwd-" in name
       or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name)
-      or name.startswith(f"shard-bf16,C={kl.WIDE_C},"))
+      or name.startswith("shard-bf16,"))
+
+
+def check_no_hmma(hmma: dict) -> None:
+  """Fail if any kernel of the library has an mma.sync (HMMA)
+  instruction: every bf16 product of the port is a wgmma."""
+  found = {name: n for name, n in hmma.items() if n}
+  if found:
+    fail(f"mma.sync (HMMA) in {sorted(found)}: every bf16 product must be "
+         "a wgmma")
 
 
 def check_wgmma(hgmma: dict, serialized, variants) -> None:
@@ -834,8 +873,9 @@ def phase_build() -> dict:
                      for v in SHARD_KERNELS})
   attributes.update({shard_bwd_variant(*v): kl.shard_bwd_kernel_info(*v)
                      for v in SHARD_BWD_KERNELS})
-  attributes.update({wide_variant(k, cp): kl.wide_kernel_info(k, cp=cp)
-                     for k, cp in WIDE_KERNELS})
+  attributes.update({wide_variant(k, cp, w):
+                     kl.wide_kernel_info(k, cp=cp, channels=w)
+                     for k, cp, w in WIDE_KERNELS})
   attributes.update({f32_rest_variant(last): kl.f32_rest_kernel_info(last)
                      for last in (False, True)})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
@@ -844,6 +884,7 @@ def phase_build() -> dict:
     fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
   mma = count_mma(sass.stdout)
   hgmma = count_mma(sass.stdout, r"\bHGMMA\.")
+  hmma = count_mma(sass.stdout, r"\bHMMA\.")
   serialized = wgmma_serialized(kl.BUILD_LOG) if built else set()
   info = {"built_in_this_run": built,
           "build_s": kl.BUILD_SECONDS if built else "cached",
@@ -853,6 +894,7 @@ def phase_build() -> dict:
           "attributes": attributes,
           "sass_tensor_core_instructions": mma,
           "sass_wgmma_instructions": hgmma,
+          "sass_mma_sync_instructions": {k: n for k, n in hmma.items() if n},
           "wgmma_serialized": sorted(serialized),
           "f32_grid": f32_grid(attributes),
           "shard_f32_grid": shard_f32_grid(attributes)}
@@ -875,6 +917,7 @@ def phase_build() -> dict:
     fail(f"ptxas facts for {sorted(info['ptxas'])}, expected "
          f"{sorted(attributes)}")
   check_tensor_cores(mma, attributes)
+  check_no_hmma(hmma)
   check_wgmma(hgmma, serialized, attributes)
   check_no_spills(info["ptxas"] if built else None, attributes)
   return info
@@ -1320,7 +1363,8 @@ def kernel_split(fn, pattern: str, kernels: int, reps: int = 10,
 
 # The kernels of the whole layer's bf16 backward, and of the forward, by name.
 BWD_SPLIT = r"wn_bwd_(prep|rows|dx|weights|reduce)_kernel"
-FWD_SPLIT = r"wn_layer_kernel_(f32_tiles|f32_rest|f32|mma|gate|rs|round)"
+FWD_SPLIT = (r"wn_layer_kernel_(f32_tiles|f32_rest|f32|mma|gate|rs|round|"
+             r"rank)")
 
 
 def backward_kernel_ms(saved, cot, dilation: int, reps: int = 10) -> dict:
@@ -3202,8 +3246,10 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
   unsharded kernel's res/skip, and a second launch of each rank against
   the first, bit for bit; times at d=1 beside the bound, the plain
   version, the library's sharded layer (cuDNN conv1d, the gate, cuBLAS
-  matmul) and, in f32, the kernel's time before its redesign
-  (``SHARD_F32_EARLIER_MS``, a read-out)."""
+  matmul), the kernel's time before its redesign (``SHARD_F32_EARLIER_MS``,
+  at C <= 256 in bf16 ``SHARD_BF16_EARLIER_MS``: read-outs) and in bf16
+  each kernel's device time (round, gate, rs at C = 512; gate, rs at (256,
+  128); the rank kernel at the other pairs)."""
   cdt = MODES[mode]
   dtype = cdt or torch.float32
   cases, timed = [], {}
@@ -3263,10 +3309,14 @@ def shard_kernel_check(mode: str, seed: int, width: int = C) -> dict:
                    share_of_bound=bound_ms / rec["kernel_ms"])
         if mode == "f32":
           rec["earlier_ms"] = SHARD_F32_EARLIER_MS[(width, cp)]
-        elif width == kl.WIDE_C:
-          # the layer's round, gate and res/skip kernels at gate width C'
+        else:
+          # the gate and res/skip kernels at gate width C' (at C = 512
+          # after the rounding of x)
+          if width != kl.WIDE_C:
+            rec["earlier_ms"] = SHARD_BF16_EARLIER_MS[(width, cp)]
           rec["kernels_ms"] = kernel_split(lambda: kl.wn_layer_shard(
-              args[0], *sl, 1, compute_dtype=cdt), FWD_SPLIT, 3)
+              args[0], *sl, 1, compute_dtype=cdt), FWD_SPLIT,
+              len(kl.wide_kernels(width, cp)))
         timed[cp] = rec
       log("shard kernel " + json.dumps(rec))
       cases.append(rec)
@@ -3279,7 +3329,8 @@ def shard_extra_keys(timed: dict, top: int) -> dict:
   """The ``kernels`` line's keys of a shard entry beside its ``top`` C':
   each other C''s times and bound (and its per-kernel split where it was
   taken), all of this run (never the earlier times of
-  ``SHARD_F32_EARLIER_MS``, which only the shard check prints)."""
+  ``SHARD_F32_EARLIER_MS`` and ``SHARD_BF16_EARLIER_MS``, which only the
+  shard check prints)."""
   return {f"{key}_C'{cp}": timed[cp][key]
           for cp in sorted(timed, reverse=True) if cp != top
           for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -4696,9 +4747,11 @@ def main() -> None:
   for mode in MODES:
     shard = meshes[mode]["shard_kernel"]
     rec = shard["timed"][128]
+    bf16 = mode == "bf16"
     kernels.append({
         "name": f"wn_layer_shard[{mode}]", "route": "cuda",
-        "source": "waveglow_tpu_torch/csrc/wn_layer_shard.cu",
+        "source": ("waveglow_tpu_torch/csrc/wn_layer.cu" if bf16
+                   else "waveglow_tpu_torch/csrc/wn_layer_shard.cu"),
         "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
                     "shard, waveglow_tpu/parallel/sharding.py:44)",
         "launches": meshes[mode]["launches"]["shard"],
@@ -4707,10 +4760,10 @@ def main() -> None:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "design": SHARD_DESIGN[mode],
         "shape": f"B=1,T={T_KERNEL},C={C},C'=128,d=1",
+        **({"kernels_ms": rec["kernels_ms"]} if bf16 else {}),
         **shard_extra_keys(shard["timed"], 128),
-        "loaded_build": {f"C'={cp}": kl.shard_kernel_info(
-            c, cp, mode == "bf16", False)
-            for c, cp in kl.shard_pairs() if c == C}})
+        "loaded_build": {f"C'={cp}": kl.shard_kernel_info(c, cp, bf16, False)
+                         for c, cp in kl.shard_pairs() if c == C}})
 
   # phase 12: each kernel at the other widths, launched by that width's
   # serving, mesh and train() runs
@@ -4733,7 +4786,7 @@ def main() -> None:
           "kernels_ms": fwd[0]["kernels_ms"],
           **({"loaded_build_gate_round": {
                   wide_variant(k): build["attributes"][wide_variant(k)]
-                  for k, cp in WIDE_KERNELS if cp == kl.WIDE_C}}
+                  for k, cp, w in WIDE_KERNELS if cp == w == kl.WIDE_C}}
              if mode == "bf16" and width == kl.WIDE_C else {}),
           "shape": f"B=1,T={T_KERNEL},C={width},d=1",
           **{f"{key}_{case}": c[key]
@@ -4744,13 +4797,13 @@ def main() -> None:
       shard = rec["kernels"]["shard"][mode]
       pairs = sorted(shard["timed"], reverse=True)
       top = shard["timed"][pairs[0]]
-      wide = mode == "bf16" and width == kl.WIDE_C
+      bf16 = mode == "bf16"
       # the mesh step of phase 13 runs the shard forward at MESH_WIDE too
       step = (mesh_train[mode]["wide"]["launches"]["shard"]
               if width == MESH_WIDE else 0)
       kernels.append({
           "name": f"wn_layer_shard[{mode},C={width}]", "route": "cuda",
-          "source": ("waveglow_tpu_torch/csrc/wn_layer.cu" if wide
+          "source": ("waveglow_tpu_torch/csrc/wn_layer.cu" if bf16
                      else "waveglow_tpu_torch/csrc/wn_layer_shard.cu"),
           "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
                       "shard, waveglow_tpu/parallel/sharding.py:44)",
@@ -4761,15 +4814,17 @@ def main() -> None:
           "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
           "library_ms": top["library_ms"],
-          "design": SHARD_WIDE_DESIGN if wide else SHARD_DESIGN[mode],
+          "design": (SHARD_WIDE_DESIGN if bf16 and width == kl.WIDE_C
+                     else SHARD_DESIGN[mode]),
           **({"kernels_ms": top["kernels_ms"],
               "loaded_build_gate": {
-                  wide_variant("gate", cp): build["attributes"][
-                      wide_variant("gate", cp)] for cp in pairs},
+                  wide_variant("gate", cp, width): build["attributes"][
+                      wide_variant("gate", cp, width)] for cp in pairs
+                  if "gate" in kl.wide_kernels(width, cp)},
               "loaded_build": {
                   shard_variant(width, cp, True, False): build["attributes"][
                       shard_variant(width, cp, True, False)]
-                  for cp in pairs}} if wide else {}),
+                  for cp in pairs}} if bf16 else {}),
           "shape": f"B=1,T={T_KERNEL},C={width},C'={pairs[0]},d=1",
           **shard_extra_keys(shard["timed"], pairs[0])})
     bwd = rec["kernels"]["backward"]

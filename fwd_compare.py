@@ -13,7 +13,8 @@ chip_smoke.py phase 3's bf16 cases at C = 128 and 256 and its f32 cases
 at C = 256 and 512 (B=1 and 8, T=26,432, the eight layers of a flow, d =
 1 to 128, and the last layer, a per-row valid_t and skip_acc;
 kl.wn_layer_fused),
-and rank 0's bf16 share of the C = 512 layer at C' = 256, 128 and 64
+and rank 0's bf16 share of a layer at every (C, C') pair: C = 512 at C' =
+256, 128 and 64, C = 256 at 128, 64 and 32, C = 128 at 64, 32 and 16
 (B=1, d = 1, 128 and the last layer; kl.wn_layer_shard). Each run records
 a checksum of each case's output bits and times, by CUDA events (20 calls
 after 3 warm-ups), the cases phase 3 times (d=1, d=128, the last layer),
@@ -38,8 +39,8 @@ ROOT = Path(__file__).resolve().parent
 # (mode, width, batches): the layer's cases
 LAYERS = (("bf16", 128, (1, 8)), ("bf16", 256, (1, 8)), ("f32", 256, (1, 8)),
           ("f32", 512, (1, 8)))
-# the C = 512 bf16 rank's C'
-RANKS = (256, 128, 64)
+# the bf16 ranks: (C, C') at every width
+RANKS = tuple((c, c // m) for c in (512, 256, 128) for m in (2, 4, 8))
 T = 26_432
 N_LAYERS = 8
 TIMED = (1, 128)
@@ -144,27 +145,33 @@ def worker(tree: str, build_only: bool) -> dict:
       del x, cond, acc
       torch.cuda.empty_cache()
   bf = torch.bfloat16
-  g = torch.Generator(device="cuda").manual_seed(7)
-  x = torch.randn(1, T, 512, generator=g, device="cuda") * 0.5
-  cond = (torch.randn(1, T, 2, 512, generator=g, device="cuda") * 0.5).to(bf)
-  w_in = (torch.randn(3, 512, 2, 512, generator=g, device="cuda")
-          * 1536 ** -0.5).to(bf)
-  b_in = torch.randn(2, 512, generator=g, device="cuda") * 0.1
-  w_rs = (torch.randn(512, 1024, generator=g, device="cuda")
-          * 512 ** -0.5).to(bf)
-  for cp in RANKS:
-    cols = slice(0, cp)
-    for dilation, last in ((1, False), (128, False), (128, True)):
-      sl = (cond[..., cols].reshape(1, T, 2 * cp).contiguous(),
-            w_in[..., cols].reshape(3 * 512, 2 * cp).contiguous(),
-            b_in[:, cols].reshape(-1).contiguous(),
-            w_rs[cols, :512 if last else 1024].contiguous())
-      got = kl.wn_layer_shard(x, *sl, dilation, compute_dtype=bf)
-      out[f"shard,C=512,C'={cp},d={dilation}{',last' if last else ''}"] = {
-          "checksum": checksum(got),
-          "ms": device_ms(lambda: kl.wn_layer_shard(x, *sl, dilation,
-                                                    compute_dtype=bf)),
-          "library_ms": library(x, *sl, dilation, bf)}
+  for width in sorted({c for c, _ in RANKS}, reverse=True):
+    g = torch.Generator(device="cuda").manual_seed(
+        7 if width == 512 else 7 + width)
+    x = torch.randn(1, T, width, generator=g, device="cuda") * 0.5
+    cond = (torch.randn(1, T, 2, width, generator=g, device="cuda")
+            * 0.5).to(bf)
+    w_in = (torch.randn(3, width, 2, width, generator=g, device="cuda")
+            * (3 * width) ** -0.5).to(bf)
+    b_in = torch.randn(2, width, generator=g, device="cuda") * 0.1
+    w_rs = (torch.randn(width, 2 * width, generator=g, device="cuda")
+            * width ** -0.5).to(bf)
+    for cp in (cp for c, cp in RANKS if c == width):
+      cols = slice(0, cp)
+      for dilation, last in ((1, False), (128, False), (128, True)):
+        sl = (cond[..., cols].reshape(1, T, 2 * cp).contiguous(),
+              w_in[..., cols].reshape(3 * width, 2 * cp).contiguous(),
+              b_in[:, cols].reshape(-1).contiguous(),
+              w_rs[cols, :width if last else 2 * width].contiguous())
+        got = kl.wn_layer_shard(x, *sl, dilation, compute_dtype=bf)
+        key = f"shard,C={width},C'={cp},d={dilation}{',last' if last else ''}"
+        out[key] = {
+            "checksum": checksum(got),
+            "ms": device_ms(lambda: kl.wn_layer_shard(x, *sl, dilation,
+                                                      compute_dtype=bf)),
+            "library_ms": library(x, *sl, dilation, bf)}
+    del x, cond, w_in, w_rs
+    torch.cuda.empty_cache()
   return out
 
 

@@ -551,17 +551,25 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
 
 # -- phase 11: sharded serving --------------------------------------------------
 
-# As nvcc names them in the build (the f32 FFMA kernel and the bf16
-# tensor-core one, each <C, C', last>).
+# As nvcc names them in the build: the f32 FFMA kernel <C, C', last> of
+# csrc/wn_layer_shard.cu and a rank's bf16 res/skip kernel <C, C', last>
+# of csrc/wn_layer.cu (its gate and res/skip kernels at gate width C'),
+# which ends its call and is named as its shard kernel. The mma.sync
+# kernel wn_shard_kernel_mma is no more: its symbol names no variant.
 SHARD_128 = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463615wn_shard_"
              "kernelILi256ELi128ELb0EEEvPKfS2_S2_S2_S2_Pfiiii")
 SHARD_MMA = ("_ZN50_GLOBAL__N__59f1e4f0_17_wn_layer_shard_cu_98e0463619wn_shard_"
              "kernel_mmaILi256ELi128ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_Pfii")
-# A rank's res/skip kernel at C = 512 in bf16 (csrc/wn_layer.cu's C = 512
-# kernels at gate width C'), which ends its call and bears the name the
-# mma.sync instance at C = 512 had.
 SHARD_WIDE_RS = ("_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a18wn_layer_"
-                 "kernel_rsILi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_PKiPfS8_iii")
+                 "kernel_rsILi512ELi256ELb0EEEvPKfPK13__nv_bfloat16S5_S2_PKiPf"
+                 "S8_iii")
+SHARD_GATE = ("_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a20wn_layer_"
+              "kernel_gateILi512ELi128EEEvPK13__nv_bfloat16S3_S3_PKfPS1_iii")
+# A rank's one kernel below C = 512 (the gate on the f32 x, then the
+# res/skip product), named as its shard kernel.
+SHARD_RANK = ("_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a20wn_layer_"
+              "kernel_rankILi256ELi64ELb0EEEvPKfPK13__nv_bfloat16S5_S2_S5_"
+              "Pfiii")
 
 
 @pytest.mark.parametrize("mangled,name", [
@@ -569,19 +577,43 @@ SHARD_WIDE_RS = ("_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a18wn_layer_"
     (SHARD_128.replace("ILi256ELi128ELb0E", "ILi128ELi16ELb1E"),
      "shard-f32,C=128,C'=16,last"),
     (SHARD_WIDE_RS, "shard-bf16,C=512,C'=256,layer"),
-    (SHARD_WIDE_RS.replace("ILi256ELb0E", "ILi64ELb1E"),
+    (SHARD_WIDE_RS.replace("ILi512ELi256ELb0E", "ILi512ELi64ELb1E"),
      "shard-bf16,C=512,C'=64,last"),
-    (SHARD_MMA, "shard-bf16,C=256,C'=128,layer"),
-    (SHARD_MMA.replace("ILi256ELi128ELb0E", "ILi256ELi32ELb1E"),
-     "shard-bf16,C=256,C'=32,last")])
+    (SHARD_WIDE_RS.replace("ILi512ELi256ELb0E", "ILi256ELi128ELb0E"),
+     "shard-bf16,C=256,C'=128,layer"),
+    (SHARD_RANK, "shard-bf16,C=256,C'=64,layer"),
+    (SHARD_RANK.replace("ILi256ELi64ELb0E", "ILi128ELi16ELb1E"),
+     "shard-bf16,C=128,C'=16,last")])
 def test_shard_kernel_variant_names(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
   assert name in {smoke.shard_variant(*v) for v in smoke.SHARD_KERNELS}
 
 
+@pytest.mark.parametrize("mangled,name", [
+    (SHARD_GATE, "shard-bf16,C=512,C'=128,gate"),
+    (SHARD_GATE.replace("ILi512ELi128E", "ILi512ELi64E"),
+     "shard-bf16,C=512,C'=64,gate"),
+    (SHARD_GATE.replace("ILi512ELi128E", "ILi512ELi512E"),
+     "bf16,C=512,gate"),
+    (SHARD_GATE.replace("ILi512ELi128E", "ILi256ELi128E"),
+     "shard-bf16,C=256,C'=128,gate"),
+    (SHARD_WIDE_RS.replace("ILi512ELi256ELb0E", "ILi512ELi512ELb1E"),
+     "bf16,C=512,last"),
+    (SHARD_MMA, SHARD_MMA)])
+def test_rank_gate_kernel_variant_names(smoke, mangled, name):
+  """The gate kernel <C, G> is named for the C = 512 layer (G = 512) or a
+  rank that has one (G = C': at C = 512, and at (256, 128)), as phase 2's
+  WIDE_KERNELS list it; the res/skip kernel <512, 512, last> is the
+  layer's own; the mma.sync kernel's symbol names no variant any more."""
+  assert smoke.kernel_variant(mangled) == name
+  names = {smoke.wide_variant(*k) for k in smoke.WIDE_KERNELS}
+  names |= {smoke.variant("bf16", last, 512) for last in (False, True)}
+  assert (name in names) == (mangled != SHARD_MMA)
+
+
 def test_check_tensor_cores_holds_the_f32_shard_kernel(smoke):
   """The f32 shard kernel (FFMA) must have no tensor-core instruction and
-  the bf16 one (mma.sync) some."""
+  the bf16 one (wgmma) some."""
   smoke.check_tensor_cores({"shard-bf16,C=256,C'=64,layer": 2,
                             "shard-f32,C=256,C'=64,layer": 0},
                            ["shard-bf16,C=256,C'=64,layer",
@@ -617,13 +649,35 @@ def test_check_no_spills_holds_the_f32_shard_kernels(smoke, fault):
 
 
 def test_check_no_spills_leaves_the_bf16_shard_kernels(smoke):
-  """A shard-bf16 variant on mma.sync (C <= 256) with local bytes and
-  ptxas spills passes: those bf16 variants are not held to the rule; the
-  C = 512 ones, wgmma, are (test_wgmma_is_demanded_of_the_rank_kernels)."""
-  for name in ("shard-bf16,C=256,C'=128,layer", "shard-bf16,C=128,C'=16,last"):
+  """No shard-bf16 variant is left out of the spill rule any more: since
+  the mma.sync kernel went, every rank's bf16 gate and res/skip kernel at
+  every width is wgmma and fails on local bytes or on ptxas spills, as
+  the f32 ones do; without spills it passes."""
+  for name in ("shard-bf16,C=256,C'=128,layer", "shard-bf16,C=128,C'=16,last",
+               "shard-bf16,C=256,C'=32,gate"):
+    clean = {name: {"spill_store_bytes": 0, "spill_load_bytes": 0}}
+    smoke.check_no_spills(clean, shard_attributes(name, 0))
     ptxas = {name: {"spill_store_bytes": 16, "spill_load_bytes": 16}}
-    smoke.check_no_spills(ptxas, shard_attributes(name, 24))
-    smoke.check_no_spills(None, shard_attributes(name, 24))
+    with pytest.raises(SystemExit, match=f"{name} kernel spills"):
+      smoke.check_no_spills(ptxas, shard_attributes(name, 0))
+    with pytest.raises(SystemExit, match=f"{name} kernel spills"):
+      smoke.check_no_spills(None, shard_attributes(name, 24))
+
+
+@pytest.mark.parametrize("hmma", [0, 2])
+def test_check_no_hmma_fails_on_any_mma_sync(smoke, hmma):
+  """Phase 2 fails when any kernel of the library, of any kind, has an
+  mma.sync (HMMA) instruction, and passes when none has."""
+  counts = smoke.count_mma(SASS, r"\bHMMA\.")
+  assert counts == {"bf16,C=256,layer": 2, "bf16,C=256,last": 0,
+                    "f32,C=256,layer": 0, "f32,C=256,last": 0}
+  counts["bf16,C=256,layer"] = hmma
+  counts["shard-bf16,C=128,C'=16,gate"] = 0
+  if hmma == 0:
+    smoke.check_no_hmma(counts)
+    return
+  with pytest.raises(SystemExit, match=r"mma.sync \(HMMA\) in"):
+    smoke.check_no_hmma(counts)
 
 
 def test_shard_f32_grid_reads_each_instance(smoke, monkeypatch):
@@ -955,14 +1009,14 @@ _FWD_OBJ = "_ZN44_GLOBAL__N__0e86b78e_11_wn_layer_cu_4c7a5d2a"
      "bf16,C=256,bwd-dx"),
     (_BWD + "21wn_bwd_reduce_kernelILi512EEEvPKfiS1_iiP13__nv_bfloat16S3_PfS4_",
      "reduce,C=512,bwd"),
-    (_FWD_OBJ + "20wn_layer_kernel_gateILi512EEvPK13__nv_bfloat16S2_S2_PKfPS0_"
-     "iii", "bf16,C=512,gate"),
-    (_FWD_OBJ + "18wn_layer_kernel_rsILi512ELb1EEEvPKfPK13__nv_bfloat16S5_S2_"
-     "PKiPfS8_iii", "bf16,C=512,last"),
-    (_FWD_OBJ + "20wn_layer_kernel_gateILi128EEvPK13__nv_bfloat16S2_S2_PKfPS0_"
-     "iii", "shard-bf16,C=512,C'=128,gate"),
-    (_FWD_OBJ + "18wn_layer_kernel_rsILi64ELb0EEEvPKfPK13__nv_bfloat16S5_S2_"
-     "PKiPfS8_iii", "shard-bf16,C=512,C'=64,layer"),
+    (_FWD_OBJ + "20wn_layer_kernel_gateILi512ELi512EEEvPKvPK13__nv_bfloat16"
+     "S5_PKfPS3_iii", "bf16,C=512,gate"),
+    (_FWD_OBJ + "18wn_layer_kernel_rsILi512ELi512ELb1EEEvPKfPK13__nv_bfloat16"
+     "S5_S2_PKiPfS8_iii", "bf16,C=512,last"),
+    (_FWD_OBJ + "20wn_layer_kernel_gateILi512ELi128EEEvPKvPK13__nv_bfloat16"
+     "S5_PKfPS3_iii", "shard-bf16,C=512,C'=128,gate"),
+    (_FWD_OBJ + "18wn_layer_kernel_rsILi512ELi64ELb0EEEvPKfPK13__nv_bfloat16"
+     "S5_S2_PKiPfS8_iii", "shard-bf16,C=512,C'=64,layer"),
     (_FWD_OBJ + "21wn_layer_kernel_roundEPKfP13__nv_bfloat16l",
      "round,C=512,fwd")])
 def test_kernel_variant_names_the_redesigned_kernels(smoke, mangled, want):
@@ -1009,7 +1063,8 @@ def test_phase2_lists_every_kernel_of_the_new_designs(smoke):
   assert len(names) == 7 * len(kl.kernel_widths())
   assert [smoke.wide_variant(*k) for k in smoke.WIDE_KERNELS] == [
       "bf16,C=512,gate", "round,C=512,fwd", "shard-bf16,C=512,C'=256,gate",
-      "shard-bf16,C=512,C'=128,gate", "shard-bf16,C=512,C'=64,gate"]
+      "shard-bf16,C=512,C'=128,gate", "shard-bf16,C=512,C'=64,gate",
+      "shard-bf16,C=256,C'=128,gate"]
   assert {k for k, *_ in smoke.SHARD_BWD_KERNELS} == {
       "rows", "dx", "weights", "reduce"}
 
@@ -1063,14 +1118,15 @@ RANKS_512 = tuple(cp for c, cp in kl.shard_pairs() if c == kl.WIDE_C)
 
 
 def test_wgmma_is_demanded_of_the_rank_kernels(smoke):
-  """Phase 2 holds a rank's gate and res/skip kernels at C = 512 (bf16) to
-  HGMMA, no serialized wgmma and no spill, as the layer's; the mma.sync
-  shard kernels at C <= 256 and the f32 shard kernels are not held."""
-  held = [f"shard-bf16,C=512,C'={cp},{k}" for cp in RANKS_512
+  """Phase 2 holds a rank's bf16 gate and res/skip kernels at every pair
+  (C = 512's and, since the mma.sync kernel went, C <= 256's) to HGMMA, no
+  serialized wgmma and no spill, as the layer's; the f32 shard kernels
+  and the rounding of x are not held."""
+  held = [f"shard-bf16,C={c},C'={cp},{k}" for c, cp in kl.shard_pairs()
           for k in ("gate", "layer", "last")]
-  free = ["shard-bf16,C=256,C'=128,layer", "shard-bf16,C=128,C'=16,last",
-          "shard-f32,C=512,C'=256,layer", "round,C=512,fwd"]
-  assert len(held) == 9
+  free = ["shard-f32,C=512,C'=256,layer", "shard-f32,C=128,C'=16,last",
+          "round,C=512,fwd"]
+  assert len(held) == 27
   assert all(smoke.held_to_wgmma(n) for n in held)
   assert not any(smoke.held_to_wgmma(n) for n in free)
   hgmma = {**dict.fromkeys(held, 4), **dict.fromkeys(free, 0)}
@@ -1102,15 +1158,16 @@ def test_phase2_lists_every_rank_kernel_at_512(smoke):
 def test_width_design_names_each_mode(smoke):
   """The kernels line's design strings: one for each mode at each other
   width, the C = 512 f32 layer's naming its global acts scratch and
-  4-stage ring, and the C = 512 bf16 shard's the layer's kernels at gate
-  width C'."""
+  4-stage ring, the C = 512 bf16 shard's the layer's kernels at gate
+  width C', and the bf16 shard's below 512 its two wgmma kernels."""
   for width in smoke.WIDE_WIDTHS:
     assert set(smoke.WIDTH_DESIGN[width]) == set(smoke.MODES)
   f32 = smoke.WIDTH_DESIGN[kl.WIDE_C]["f32"]
   assert "global f32 scratch" in f32 and "96-row tiles" in f32
   assert "wgmma" in smoke.WIDTH_DESIGN[kl.WIDE_C]["bf16"]
   assert "gate width C'" in smoke.SHARD_WIDE_DESIGN
-  assert "mma.sync" in smoke.SHARD_DESIGN["bf16"]
+  assert "wgmma" in smoke.SHARD_DESIGN["bf16"]
+  assert "mma.sync" not in smoke.SHARD_DESIGN["bf16"]
 
 
 def test_shard_extra_keys_carry_the_split_where_taken(smoke):

@@ -497,25 +497,27 @@ def test_bwd_schedule_reads_the_loaded_build(cuda, c):
   assert tiles * 12 * n_splits >= sms
 
 
-# The gate widths of the C = 512 bf16 kernels: the layer's, then a rank's
-# C' at model = 2, 4, 8.
-WIDE_GATES = (kl.WIDE_C,) + tuple(cp for c, cp in kl.shard_pairs()
-                                   if c == kl.WIDE_C)
+# (C, gate width) of every bf16 gate and res/skip kernel pair: the C = 512
+# layer's, then each model rank's at every width.
+WIDE_PAIRS = ((kl.WIDE_C, kl.WIDE_C),) + kl.shard_pairs()
+# The C <= 256 ranks (the gate kernel on the f32 x, then res/skip).
+RANK_PAIRS = tuple(p for p in kl.shard_pairs() if p[0] < kl.WIDE_C)
 
 
-@pytest.mark.parametrize("cp", WIDE_GATES)
+@pytest.mark.parametrize("c,cp", WIDE_PAIRS)
 @pytest.mark.parametrize("last", [False, True])
 @pytest.mark.parametrize("batch,t", [(1, 26_432), (8, 26_432), (3, 65)])
-def test_wide_schedule_is_the_host_grid(cuda, batch, t, last, cp):
-  """The C = 512 bf16 forward's grid (the layer's and a rank's) as the
-  library picks it is kl.wide_grid at the slots the card holds (one block
-  an SM)."""
-  got = kl.wide_schedule(batch, t, last, cp)
+def test_wide_schedule_is_the_host_grid(cuda, batch, t, last, c, cp):
+  """The bf16 gate and res/skip kernels' grid (the C = 512 layer's and a
+  rank's at every width) as the library picks it is kl.wide_grid at the
+  slots the card holds (one block an SM)."""
+  got = kl.wide_schedule(batch, t, last, cp, c)
   sms = torch.cuda.get_device_properties(cuda).multi_processor_count
   assert got["slots"] == sms
-  want = kl.wide_grid(batch, t, last, got["slots"], cp)
-  assert {k: got[k] for k in ("tiles", "gate_blocks", "rs_blocks")} == {
-      k: want[k] for k in ("tiles", "gate_blocks", "rs_blocks")}
+  want = kl.wide_grid(batch, t, last, got["slots"], cp, c)
+  keys = [k for k in got if k != "slots"]
+  assert len(keys) == 1 + len(kl.wide_passes(last, cp, c))
+  assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
 
 
 @pytest.mark.parametrize("last", [False, True])
@@ -530,19 +532,29 @@ def test_f32_schedule_is_the_host_grid(cuda, c, last):
     assert {k: got[k] for k in want} == want
 
 
-@pytest.mark.parametrize("cp", WIDE_GATES)
-@pytest.mark.parametrize("kernel,last", [("gate", False), ("rs", False),
-                                         ("rs", True), ("round", False)])
-def test_wide_kernel_info_reads_the_loaded_build(cuda, kernel, last, cp):
-  """Every C = 512 bf16 kernel, the layer's and each rank's, is in the
-  loaded build, spills nothing and takes the ring's 196,608 bytes (the
-  rounding of x none); a rank's res/skip kernel is its shard kernel's
-  info."""
-  info = kl.wide_kernel_info(kernel, last, cp)
+@pytest.mark.parametrize("c,cp,kernel,last", [
+    (c, cp, kernel, last) for c, cp in WIDE_PAIRS
+    for kernel, last in (("gate", False), ("rs", False), ("rs", True),
+                         ("round", False), ("rank", False), ("rank", True))
+    if kernel in kl.wide_kernels(c, cp)])
+def test_wide_kernel_info_reads_the_loaded_build(cuda, kernel, last, c, cp):
+  """Every bf16 gate, res/skip and fused rank kernel, the C = 512
+  layer's and each rank's at every width, is in the loaded build and
+  spills nothing; at C = 512 they take the ring's 196,608 bytes (the
+  rounding of x none), a res/skip kernel below too, a gate or fused
+  kernel below its A slots, f32 chunks, weight stages (and w_rs_s) (over
+  48 KB, within the 227 KB a block may use); the kernel that ends a
+  rank's call is its shard kernel's info."""
+  info = kl.wide_kernel_info(kernel, last, cp, c)
   assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
-  assert (info["dynamic_smem_bytes"] == 196_608) == (kernel != "round")
-  if kernel == "rs" and cp < kl.WIDE_C:
-    assert kl.shard_kernel_info(kl.WIDE_C, cp, True, last) == info
+  if kernel == "round":
+    assert info["dynamic_smem_bytes"] == 0
+  elif kernel == "rs" or c == kl.WIDE_C:
+    assert info["dynamic_smem_bytes"] == 196_608
+  else:
+    assert 48 * 1024 < info["dynamic_smem_bytes"] <= 232_448
+  if kernel in ("rs", "rank") and cp < c:
+    assert kl.shard_kernel_info(c, cp, True, last) == info
 
 
 def test_trainable_bf16_backward_goes_through_the_kernel(cuda):
@@ -936,16 +948,18 @@ def test_shard_kernel_matches_plain(cuda, model, bf16, batch, t, dilation,
     (1, kl.WIDE_TILE_ROWS + 1), (3, 43)])
 @pytest.mark.parametrize("dilation,last", [(2, False), (128, False),
                                            (128, True)])
-@pytest.mark.parametrize("cp", WIDE_GATES[1:])
-def test_wide_shard_kernel_ragged_last_unit(cuda, cp, dilation, last, batch,
-                                            t):
-  """A rank's share at C = 512 in bf16 (the layer's three kernels at gate
-  width C') walks units of WIDE_TILE_ROWS flat B*T rows: B*T one unit less
-  one row, one unit, one unit plus one row, and 3 x 43 (units across
-  sequences); each against wn_layer_shard_plain, every rank launched once,
-  the ranks summed against the unsharded layer."""
-  model = kl.WIDE_C // cp
-  args = layer_inputs(cuda, batch, t, kl.WIDE_C, last, torch.bfloat16,
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_wide_shard_kernel_ragged_last_unit(cuda, c, cp, dilation, last,
+                                            batch, t):
+  """A rank's bf16 share at every pair (the gate and res/skip kernels at
+  gate width C', at C = 512 after the rounding of x; the fused rank
+  kernel where w_rs_s fits in its shared memory) walks units of
+  WIDE_TILE_ROWS flat B*T rows: B*T one unit less one row, one unit, one
+  unit plus one row, and 3 x 43 (units across sequences); each against
+  wn_layer_shard_plain, every rank launched once, the ranks summed against
+  the unsharded layer."""
+  model = c // cp
+  args = layer_inputs(cuda, batch, t, c, last, torch.bfloat16,
                       seed=cp + t)
   before, total = kl.SHARD_LAUNCHES, None
   for rank in range(model):
@@ -965,15 +979,52 @@ def test_wide_shard_kernel_ragged_last_unit(cuda, cp, dilation, last, batch,
           <= 2e-2 * full.abs().max().item())
 
 
+@pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
+                                           (128, True)])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("c,cp", RANK_PAIRS)
+def test_rank_kernels_match_plain_at_every_pair(cuda, c, cp, batch, dilation,
+                                                last):
+  """A rank's bf16 share at every pair below C = 512 (the fused rank
+  kernel, or at (256, 128) the gate kernel on the f32 taps and the
+  res/skip kernel; no mma.sync kernel is left) at
+  B = 1 and 8, T = 2,001 (a ragged last unit of 81 or 8 rows), d = 1,
+  128 and the last layer: every rank against wn_layer_shard_plain within
+  2e-2 of its max |value| and again bit for bit, each call one launch,
+  and the ranks' partials summed against the unsharded layer's res/skip."""
+  t = 2_001
+  model = c // cp
+  args = layer_inputs(cuda, batch, t, c, last, torch.bfloat16,
+                      seed=c + cp + batch)
+  before, total = kl.SHARD_LAUNCHES, None
+  for rank in range(model):
+    sl = shard_slices(args, model, rank)
+    got = kl.wn_layer_shard(args[0], *sl, dilation,
+                            compute_dtype=torch.bfloat16)
+    again = kl.wn_layer_shard(args[0], *sl, dilation,
+                              compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = kl.wn_layer_shard_plain(args[0], *sl, dilation,
+                                  compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    total = got if total is None else total + got
+  assert kl.SHARD_LAUNCHES == before + 2 * model
+  xk, sk = kl.wn_layer_fused(*args, dilation, compute_dtype=torch.bfloat16)
+  full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
+  assert ((total + args[5] - full).abs().max().item()
+          <= 2e-2 * full.abs().max().item())
+
+
 @pytest.mark.parametrize("last", [False, True])
-@pytest.mark.parametrize("cp", WIDE_GATES[1:])
-def test_wide_shard_kernel_repeats_bitwise(cuda, cp, last):
-  """16 launches of a rank's share at C = 512 in bf16 at B=1, T=26,432 (207
-  units a pass on one wave of persistent blocks) give the bits of the
-  first (no atomics, no split K)."""
-  args = layer_inputs(cuda, 1, 26_432, kl.WIDE_C, last, torch.bfloat16,
-                      seed=cp)
-  sl = shard_slices(args, kl.WIDE_C // cp, 1)
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_wide_shard_kernel_repeats_bitwise(cuda, c, cp, last):
+  """16 launches of a rank's bf16 share at every pair at B=1, T=26,432
+  (207 units a pass on one wave of persistent blocks) give the bits of
+  the first (no atomics, no split K)."""
+  args = layer_inputs(cuda, 1, 26_432, c, last, torch.bfloat16, seed=cp)
+  sl = shard_slices(args, c // cp, 1)
   one = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)
   for _ in range(16):
     two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=torch.bfloat16)

@@ -1,9 +1,10 @@
-"""The host-side plans of the C = 512 forward designs, on the CPU (no
-library is loaded): the bf16 layer's and each model rank's three kernels
-(their units and one-wave grids, every row of every pass taken once, the
-ragged last unit, their one scratch allocation) and the f32 layer's
-one-wave grid, whose blocks each own the rows of the global acts scratch
-they write and read back. The card checks that the library picks these
+"""The host-side plans of the bf16 gate and res/skip designs and of the
+f32 forward at C = 512, on the CPU (no library is loaded): the C = 512
+bf16 layer's and each model rank's kernels at every width (their units
+and one-wave grids, every row of every pass taken once, the ragged last
+unit, their one scratch allocation, the library calls that read their
+build and grid) and the f32 layer's one-wave grid, whose blocks each own
+the rows of the global acts scratch they write and read back. The card checks that the library picks these
 grids (``test_torch_gpu.py``: ``test_wide_schedule_is_the_host_grid``,
 ``test_f32_schedule_is_the_host_grid``).
 """
@@ -153,3 +154,156 @@ def test_f32_tiles_below_512_are_48_rows():
   assert kl.f32_tiles(208, 256) == [(0, 48, 48), (48, 48, 48), (96, 48, 48),
                                     (144, 48, 48), (192, 16, 48)]
   assert kl.f32_tiles(47, 128) == [(0, 47, 48)]
+
+
+# -- every model rank's bf16 share below C = 512: one rank kernel (the gate
+# on the f32 x, then the res/skip product from w_rs_s held in its shared
+# memory) where w_rs_s fits, else, at (256, 128), the gate kernel on the
+# f32 x and the res/skip kernel ------------------------------------------
+
+RANK_PAIRS = tuple(p for p in kl.shard_pairs() if p[0] < C)
+# the kernels of each pair below C = 512 and their passes of a 128-row tile
+# (non-last, last): the rank kernel's one (its res/skip passes run inside a
+# unit); at (256, 128) the gate kernel's one pass of all C' channels and
+# the res/skip kernel's n_rs / 256
+RANK_PASSES = {(256, 128): {"gate": (1, 1), "rs": (2, 1)},
+               (256, 64): {"rank": (1, 1)}, (256, 32): {"rank": (1, 1)},
+               (128, 64): {"rank": (1, 1)}, (128, 32): {"rank": (1, 1)},
+               (128, 16): {"rank": (1, 1)}}
+
+
+def test_rank_pairs_below_512():
+  """Every pair below C = 512 runs the one rank kernel but (256, 128),
+  whose w_rs_s (128 x 512 bf16, 128 KB) does not fit beside the gate's 224
+  KB; C = 512 rounds x, then runs the gate and res/skip kernels."""
+  assert set(RANK_PAIRS) == set(RANK_PASSES)
+  assert kl.wide_kernels(C) == ("round", "gate", "rs")
+  for c, cp in RANK_PAIRS:
+    assert kl.rank_fused(c, cp) == ((c, cp) != (256, 128))
+    assert kl.wide_kernels(c, cp) == tuple(RANK_PASSES[(c, cp)])
+  assert not any(kl.rank_fused(c, cp) for c, cp in kl.shard_pairs()
+                 if c == C)
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c,cp", RANK_PAIRS)
+def test_units_at_each_rank_pair(c, cp, last):
+  """The units of each kernel at B=1, T=26,432 (207 tiles of 128 rows) and
+  the blocks of one wave on 132 SMs."""
+  want = {k: passes[last] for k, passes in RANK_PASSES[(c, cp)].items()}
+  assert kl.wide_passes(last, cp, c) == want
+  grid = kl.wide_grid(1, 26_432, last, SMS, cp, c)
+  assert grid["tiles"] == 207
+  for kernel, passes in want.items():
+    assert grid[f"{kernel}_units"] == 207 * passes
+    assert grid[f"{kernel}_blocks"] == SMS
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c,cp", RANK_PAIRS)
+@pytest.mark.parametrize("batch,t,slots", [
+    (1, 26_432, SMS), (1, 3 * TILE + 127, SMS), (1, 3 * TILE, SMS),
+    (1, 3 * TILE + 1, SMS), (3, 43, SMS), (8, 2_000, 7)])
+def test_every_row_of_every_pass_once_at_each_rank_pair(batch, t, slots,
+                                                        last, c, cp):
+  """At every pair below C = 512, over the blocks' units, each kernel
+  takes every (row, pass) of the flat B*T rows exactly once, the ragged
+  last unit too, and no block takes two units more than another."""
+  grid = kl.wide_grid(batch, t, last, slots, cp, c)
+  rows = batch * t
+  for kernel, passes in kl.wide_passes(last, cp, c).items():
+    units, blocks = grid[f"{kernel}_units"], grid[f"{kernel}_blocks"]
+    assert units == -(-rows // TILE) * passes and blocks == min(units, slots)
+    taken = [0] * (rows * passes)
+    for block in range(blocks):
+      for u in kl.block_units(units, blocks, block):
+        tile, p = divmod(u, passes)
+        for r in range(tile * TILE, min(tile * TILE + TILE, rows)):
+          taken[r * passes + p] += 1
+    assert taken == [1] * (rows * passes)
+    per_block = [len(kl.block_units(units, blocks, b)) for b in range(blocks)]
+    assert max(per_block) - min(per_block) <= 1
+
+
+@pytest.mark.parametrize("c,cp", RANK_PAIRS)
+@pytest.mark.parametrize("batch,t", [(1, 26_432), (8, 26_432), (3, 43)])
+def test_rank_scratch_is_the_acts(batch, t, c, cp):
+  """Below C = 512 a rank's bf16 call reads the f32 x itself (no rounded
+  copy of x); its scratch is nothing where the rank kernel keeps the acts
+  in shared memory, and the acts [B*T, C'] alone at (256, 128)."""
+  plan = kl.wide_scratch(batch, t, cp, True, c)
+  rows = batch * t
+  if kl.rank_fused(c, cp):
+    assert plan == {"offsets": {}, "sizes": {}, "bytes": 0}
+    return
+  assert plan["sizes"] == {"acts": rows * cp * 2}
+  assert plan["offsets"] == {"acts": 0}
+  assert rows * cp * 2 <= plan["bytes"] < rows * cp * 2 + 256
+  assert plan["bytes"] % 256 == 0
+
+
+class _InfoLibrary:
+  """Stands in for the built library (this sandbox has no nvcc): records
+  the arguments of each info and schedule call and fills its outputs."""
+
+  def __init__(self):
+    self.calls = []
+
+  def wn_layer_wide_kernel_info(self, *args):
+    self.calls.append(("info", args[:4]))
+    for i, ref in enumerate(args[4:]):
+      ref._obj.value = 100 + i
+    return 0
+
+  def wn_layer_wide_schedule(self, *args):
+    self.calls.append(("schedule", args[:5]))
+    for i, ref in enumerate(args[5:]):
+      ref._obj.value = (SMS, 207, SMS - 1, SMS - 2)[i]
+    return 0
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs())
+def test_wide_kernel_info_asks_for_each_pair(monkeypatch, c, cp, last):
+  """wide_kernel_info asks the library for each kernel a pair launches by
+  its index in WIDE_KERNELS, and shard_kernel_info in bf16 for the one
+  that ends a rank's call (the rank kernel, or the res/skip kernel);
+  a kernel the pair does not launch, or a pair outside the built set,
+  raises before any call."""
+  lib = _InfoLibrary()
+  monkeypatch.setattr(kl, "_library", lambda: lib)
+  kernels = kl.wide_kernels(c, cp)
+  for kernel in kernels:
+    info = kl.wide_kernel_info(kernel, last, cp, c)
+    assert lib.calls[-1] == ("info", (c, kl.WIDE_KERNELS.index(kernel), cp,
+                                      int(last)))
+    assert info == {"registers": 100, "local_bytes": 101,
+                    "static_smem_bytes": 102, "dynamic_smem_bytes": 103}
+  assert kl.shard_kernel_info(c, cp, True, last) == info
+  assert lib.calls[-1] == ("info", (c, kl.WIDE_KERNELS.index(kernels[-1]),
+                                    cp, int(last)))
+  calls = len(lib.calls)
+  for kernel in set(kl.WIDE_KERNELS) - set(kernels):
+    with pytest.raises(ValueError, match=f"no {kernel} kernel"):
+      kl.wide_kernel_info(kernel, last, cp, c)
+  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
+    kl.wide_kernel_info(kernels[0], last, 3 * cp, c)
+  assert len(lib.calls) == calls
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("c,cp", kl.shard_pairs() + ((C, C),))
+def test_wide_schedule_asks_for_each_pair(monkeypatch, c, cp, last):
+  """wide_schedule passes (C, C', B, T, last) to the library and reads
+  back the slots, the tiles and the blocks of each kernel that does
+  products, in launch order (the rank kernel's alone where it runs)."""
+  lib = _InfoLibrary()
+  monkeypatch.setattr(kl, "_library", lambda: lib)
+  got = kl.wide_schedule(1, 26_432, last, cp, c)
+  assert lib.calls == [("schedule", (c, cp, 1, 26_432, int(last)))]
+  want = {"slots": SMS, "tiles": 207}
+  if kl.rank_fused(c, cp):
+    want["rank_blocks"] = SMS - 1
+  else:
+    want.update(gate_blocks=SMS - 1, rs_blocks=SMS - 2)
+  assert got == want

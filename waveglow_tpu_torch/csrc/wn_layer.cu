@@ -132,6 +132,23 @@
 //     it is. The mma.sync shard kernel it replaced there streamed all of
 //     w_in_s and w_rs_s through its ring for every 64 rows and rounded the
 //     f32 taps on every chunk.
+//   * A rank's share below C = 512 in bf16 (C = 256 at C' = 128, 64, 32; C
+//     = 128 at 64, 32, 16) is one kernel, wn_layer_kernel_rank<C, C',
+//     last> (its section below). It is byte-bound: at (256, 128), B=1, T =
+//     26,432, x in (27 MB f32), cond_s in and the f32 partial out (54 MB)
+//     take 0.028 ms at 3.35 TB/s against 0.014 ms of tensor-core time; at
+//     the narrow pairs the partial alone is most of the bytes. One pass of
+//     the gate covers every channel there, so the kernel rounds the f32
+//     taps itself (no rounding kernel, no rounded copy of x), and the acts
+//     stay in shared memory for the res/skip product (no acts in global
+//     memory, one launch): each unit of 128 flat rows reads its x rows
+//     from L2 three times (once a tap) and w_in_s once, and writes its
+//     partial rows once. w_rs_s sits in shared memory for the whole
+//     kernel, where it fits beside the gate's buffers: at every pair but
+//     (256, 128), whose gate kernel (the same gate) writes the acts for
+//     wn_layer_kernel_rs. The ring runs on across units, so the next
+//     unit's first copies land under this unit's last steps and its
+//     stores.
 // No atomics, no split K: the sums run in one fixed order, so two launches
 // give the same bits.
 //
@@ -145,11 +162,19 @@
 // design they replaced; the gate kernel is bound by no one of its copies
 // or wgmmas (fwd_ablation.py). A rank's share at C = 512 in bf16 takes
 // 0.25 / 0.17 / 0.14 ms at C' = 256 / 128 / 64 against 0.40 / 0.26 / 0.19
-// for the mma.sync kernel it replaced, the same bits (fwd_compare.py). The
-// f32 layer at C = 512 takes 3.02 ms at d=1 and d=128 against the 1.65 ms
-// bound (55%) and 3.44 ms for the 48-row design it replaced, the same bits,
-// at the card's full 1,980 MHz clock (fwd_f32_ablation.py). PERF.md keeps
-// the times;
+// for the mma.sync kernel it replaced, the same bits (fwd_compare.py). A
+// rank's share below 512 in bf16 (fwd_compare.py, other / this / this /
+// other against the mma.sync kernel; B=1, T=26,432, d=1): (256, 128) 0.098
+// ms (gate 0.061, rs 0.033: fwd_ablation.py) against 0.143, (256, 64)
+// 0.064 against 0.106, (256, 32) 0.056-0.059 against 0.065-0.066, (128,
+// 64) 0.043-0.046 against 0.063-0.064, against bounds of 0.028 / 0.026 /
+// 0.025 / 0.014 ms; at (128, 32) and (128, 16) both designs' calls are
+// host-bound (0.03-0.05 ms, the rank kernel alone 0.030 and 0.026 ms by
+// fwd_ablation.py). Their bits differ from the mma.sync kernel's (another
+// order of the K sums). The f32 layer at C = 512 takes 3.02 ms at d=1 and
+// d=128 against the 1.65 ms bound (55%) and 3.44 ms for the 48-row design
+// it replaced, the same bits, at the card's full 1,980 MHz clock
+// (fwd_f32_ablation.py). PERF.md keeps the times;
 // wn_layer_kernel_info reports the registers, spills and shared memory of
 // the loaded build.
 
@@ -1287,11 +1312,14 @@ struct WideGate {
   static_assert(kPW % 64 == 0 && kG % kPW == 0, "whole 64-column blocks");
 };
 
-// Passes of the res/skip product: 256 of its n_rs columns each.
-template <bool kLast>
-__host__ __device__ constexpr int wide_rs_passes() {
-  return (kLast ? Wide::kC : 2 * Wide::kC) / 256;
-}
+// The res/skip product at width kC: passes of 2 kH of its n_rs columns (kH
+// = 128; 64 at C = 128's last layer, whose n_rs is 128).
+template <int kC, bool kLast>
+struct WideRs {
+  static constexpr int kNrs = kLast ? kC : 2 * kC;
+  static constexpr int kH = kNrs / 2 < 128 ? kNrs / 2 : 128;
+  static constexpr int kPasses = kNrs / (2 * kH);
+};
 
 // A unit's products: kChunks K chunks through the ring, `load(stage, j)`
 // starting this thread's copies of chunk j (no commit) kAhead steps ahead
@@ -1390,20 +1418,22 @@ wn_layer_kernel_round(const float* __restrict__ x, bf16* __restrict__ x_bf,
   }
 }
 
-// The gate at kG gate channels: unit u = (tile u / P of 128 flat rows, pass
-// u % P of kPW channels), P = kG / kPW; the block walks units blockIdx.x +
-// k * gridDim.x. pre = the three taps of bf16 x (rows t + (tap-1)*d of the
-// row's own sequence, zero outside [0, T)) @ w_in [3C, 2 kG] at the pass's
-// tanh columns (acc_a) and sigmoid columns (acc_b), K = 3C in chunks of
-// (tap, 64 channels); then the gate in f32 on the accumulators (cond [B*T,
-// 2 kG], b_in [2 kG]), the acts rounded to bf16 into `acts` [B*T, kG].
+// The gate at C = 512 and kG gate channels: unit u = (tile u / P of 128
+// flat rows, pass u % P of kPW channels), P = kG / kPW; the block walks
+// units blockIdx.x + k * gridDim.x. pre = the three taps of bf16 x (rows t
+// + (tap-1)*d of the row's own sequence, zero outside [0, T)) @ w_in [3C, 2
+// kG] at the pass's tanh columns (acc_a) and sigmoid columns (acc_b), K =
+// 3C in chunks of (tap, 64 channels); then the gate in f32 on the
+// accumulators (cond [B*T, 2 kG], b_in [2 kG]), the acts rounded to bf16
+// into `acts` [B*T, kG].
 template <int kG>
-__global__ void __launch_bounds__(256, 1)
-wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
-                     const bf16* __restrict__ cond,
-                     const bf16* __restrict__ w_in,
-                     const float* __restrict__ b_in, bf16* __restrict__ acts,
-                     int total_rows, int T, int dilation) {
+__device__ __forceinline__ void gate_rounded_x(const bf16* __restrict__ x_bf,
+                                               const bf16* __restrict__ cond,
+                                               const bf16* __restrict__ w_in,
+                                               const float* __restrict__ b_in,
+                                               bf16* __restrict__ acts,
+                                               int total_rows, int T,
+                                               int dilation) {
   using L = Wide;
   using P = WideGate<kG>;
   constexpr int C = L::kC;
@@ -1507,17 +1537,53 @@ wn_layer_kernel_gate(const bf16* __restrict__ x_bf,
   }
 }
 
-// The res/skip product of acts [B*T, kK] (kK: C for the layer, C' for a
-// rank) and its epilogue: unit u = (tile u / P of 128 flat rows, pass u % P
-// of 256 columns), P = n_rs / 256. A non-last layer's pass p pairs the
-// residual columns [128p, +128) (acc_a) with the skip columns [C + 128p,
-// +128) (acc_b); the last layer's, skip columns [256p, +128) and [256p +
-// 128, +128). The layer's epilogue: x' = x + res + b_rs (x on the last
-// layer) into `out`, zero at rows t >= valid_t[b]; skip = rs + b_rs, plus
-// the sum when accumulating. A rank's (kK < C): the f32 partial rs as it
-// is into `out` [B*T, n_rs] (x, b_rs, valid_t and skip_out unused). f32,
-// rows < total_rows only.
-template <int kK, bool kLast>
+// An n8 block of m64 accumulators d[0..3] (row g: columns 2 tig, 2 tig +
+// 1; row g + 8: the same) as 4 adjacent columns of one row: lanes tig and
+// tig ^ 1 swap halves (one shuffle each), the even lane returning row g's
+// columns 4 (tig / 2) + [0, 4), the odd lane row g + 8's. All lanes call.
+__device__ __forceinline__ float4 swap_halves(const float* d, bool odd) {
+  const float s0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+  const float s1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+  return odd ? make_float4(s0, s1, d[2], d[3])
+             : make_float4(d[0], d[1], s0, s1);
+}
+
+// A rank's partial, acc_a's kH columns from col_a and acc_b's from col_b,
+// into rows [r0, r0 + 128) of `out` [B*T, kNrs] (rows < r0 + rows only):
+// 16 bytes a store, lanes tig and tig ^ 1 swapping halves (swap_halves).
+template <int kH, int kNrs>
+__device__ __forceinline__ void store_partial(float* __restrict__ out,
+                                              const float (&acc_a)[kH / 2],
+                                              const float (&acc_b)[kH / 2],
+                                              int r0, int rows, int col_a,
+                                              int col_b) {
+  const int lane = threadIdx.x % 32, tig = lane % 4;
+  const bool odd = tig & 1;
+  const int row = (threadIdx.x / 32) * 16 + lane / 4 + (odd ? 8 : 0);
+  float* o = out + (r0 + row) * static_cast<int64_t>(kNrs) + 4 * (tig / 2);
+#pragma unroll
+  for (int j = 0; j < kH / 8; ++j) {
+    const float4 va = swap_halves(acc_a + 4 * j, odd);
+    const float4 vb = swap_halves(acc_b + 4 * j, odd);
+    if (row < rows) {
+      *reinterpret_cast<float4*>(o + col_a + 8 * j) = va;
+      *reinterpret_cast<float4*>(o + col_b + 8 * j) = vb;
+    }
+  }
+}
+
+// The res/skip product of acts [B*T, kK] at width kC (kK: C for the C =
+// 512 layer, C' for a rank at C = 512 or at (256, 128)) and its epilogue:
+// unit u = (tile u / P of 128 flat rows, pass u % P of 2 kH = 256
+// columns), P = n_rs / 256 (WideRs). A non-last
+// layer's pass p pairs the residual columns [kH p, +kH) (acc_a) with the
+// skip columns [C + kH p, +kH) (acc_b); the last layer's, skip columns [2
+// kH p, +kH) and [2 kH p + kH, +kH). The layer's epilogue: x' = x + res +
+// b_rs (x on the last layer) into `out`, zero at rows t >= valid_t[b];
+// skip = rs + b_rs, plus the sum when accumulating. A rank's (kK < C): the
+// f32 partial rs as it is into `out` [B*T, n_rs] (x, b_rs, valid_t and
+// skip_out unused). f32, rows < total_rows only.
+template <int kC, int kK, bool kLast>
 __global__ void __launch_bounds__(256, 1)
 wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
                    const bf16* __restrict__ w_rs,
@@ -1525,10 +1591,16 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
                    const int* __restrict__ valid_t, float* __restrict__ out,
                    float* skip_out, int accumulate, int total_rows, int T) {
   using L = Wide;
-  constexpr int C = L::kC;
-  constexpr int N_RS = kLast ? C : 2 * C;
-  constexpr int kPasses = wide_rs_passes<kLast>();
+  using R = WideRs<kC, kLast>;
+  constexpr int C = kC;
+  constexpr int N_RS = R::kNrs;
+  constexpr int kH = R::kH;
+  constexpr int kPasses = R::kPasses;
+  constexpr int kAccN = kH / 2;  // f32 accumulators a thread, each half
   constexpr bool kPartial = kK < C;  // a rank's share
+  static_assert(kH == 128 && kK % L::kKC == 0 && (kPartial || C == L::kC),
+                "256-column passes of 64-deep chunks; the whole layer at "
+                "512 only");
   extern __shared__ __align__(1024) uint4 smem_wide[];
   const uint32_t ring = smem_u32(smem_wide);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1542,8 +1614,8 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
     const int p = u % kPasses;
     const int r0 = u / kPasses * L::kTile;
     const int rows = min(L::kTile, total_rows - r0);
-    const int col_a = kLast ? 256 * p : 128 * p;        // acc_a's columns
-    const int col_b = kLast ? 256 * p + 128 : C + 128 * p;  // acc_b's
+    const int col_a = kLast ? 2 * kH * p : kH * p;           // acc_a's columns
+    const int col_b = kLast ? 2 * kH * p + kH : C + kH * p;  // acc_b's
     const auto load = [&](uint32_t stage, int j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1555,13 +1627,13 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
                                     : 0),
                          ok);
       }
-      wide_load_b<128>(stage, w_rs + static_cast<int64_t>(j) * L::kKC * N_RS,
-                       N_RS, col_a, col_b);
+      wide_load_b<kH>(stage, w_rs + static_cast<int64_t>(j) * L::kKC * N_RS,
+                      N_RS, col_a, col_b);
     };
     if constexpr (!kPartial) {
       // the epilogue's rows of x and of the skip sum, into L2 under the
       // products: the unit's 128 (last layer: 256) channels of each row
-      constexpr int kLines = (kLast ? 256 : 128) * 4 / 128;  // 128-byte lines
+      constexpr int kLines = (kLast ? 2 * kH : kH) * 4 / 128;  // 128-byte lines
       for (int i = threadIdx.x; i < rows * kLines; i += L::kThreads) {
         const int64_t off = (r0 + i / kLines) * static_cast<int64_t>(C) +
                             col_a + (i % kLines) * 32;
@@ -1569,27 +1641,15 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
         if (accumulate) prefetch_l2(skip_out + off);
       }
     }
-    float acc_a[kAcc], acc_b[kAcc];
+    float acc_a[kAccN], acc_b[kAccN];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc_a[i] = acc_b[i] = 0.f;
+    for (int i = 0; i < kAccN; ++i) acc_a[i] = acc_b[i] = 0.f;
     __syncthreads();  // the previous unit is done with the ring
-    wide_products<kK / L::kKC, 128>(ring, acc_a, acc_b, load);
+    wide_products<kK / L::kKC, kH>(ring, acc_a, acc_b, load);
 
     if constexpr (kPartial) {
-      // ---- a rank's epilogue: the partial's 256 columns as they are ----
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r16 + g + 8 * h;
-        if (row >= rows) continue;
-        float* o = out + (r0 + row) * static_cast<int64_t>(N_RS) + 2 * tig;
-#pragma unroll
-        for (int j = 0; j < kAcc / 4; ++j) {
-          *reinterpret_cast<float2*>(o + col_a + 8 * j) =
-              make_float2(acc_a[4 * j + 2 * h], acc_a[4 * j + 2 * h + 1]);
-          *reinterpret_cast<float2*>(o + col_b + 8 * j) =
-              make_float2(acc_b[4 * j + 2 * h], acc_b[4 * j + 2 * h + 1]);
-        }
-      }
+      // ---- a rank's epilogue: the partial's 2 kH columns as they are
+      store_partial<kH, N_RS>(out, acc_a, acc_b, r0, rows, col_a, col_b);
     } else {
       // ---- the layer's epilogue: residual, valid_t mask, skip sum (f32)
       // The x and skip-sum values of kBatch n8 blocks are loaded before any
@@ -1607,7 +1667,7 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
                           static_cast<int>(f - static_cast<int64_t>(b) * T) <
                               valid_t[b];
 #pragma unroll
-        for (int j0 = 0; j0 < kAcc / 4; j0 += kBatch) {
+        for (int j0 = 0; j0 < kAccN / 4; j0 += kBatch) {
           // (channel, skip value) pairs: the last layer's two skip channels,
           // or the residual's channel with its skip
           float2 xo[kBatch][kE], prev[kBatch][kE];
@@ -1616,7 +1676,7 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
 #pragma unroll
             for (int e = 0; e < kE; ++e) {
               const int64_t off =
-                  f * C + col_a + 8 * (j0 + jj) + 2 * tig + 128 * e;
+                  f * C + col_a + 8 * (j0 + jj) + 2 * tig + kH * e;
               xo[jj][e] = *reinterpret_cast<const float2*>(x + off);
               prev[jj][e] = make_float2(0.f, 0.f);
               if (accumulate)
@@ -1645,7 +1705,7 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
             }
 #pragma unroll
             for (int e = 0; e < kE; ++e) {
-              const int64_t off = f * C + ca + 128 * e;
+              const int64_t off = f * C + ca + kH * e;
               *reinterpret_cast<float2*>(out + off) =
                   keep ? xo[jj][e] : make_float2(0.f, 0.f);
               *reinterpret_cast<float2*>(skip_out + off) = make_float2(
@@ -1656,6 +1716,389 @@ wn_layer_kernel_rs(const float* __restrict__ x, const bf16* __restrict__ acts,
       }
     }
   }
+}
+
+// ---- a model rank's share at C <= 256: the gate on the f32 taps ---------
+
+// A rank's share at width kC <= 256 and kG = C' <= 128 gate channels. One
+// pass covers every gate channel (N = 2 kG <= 256), so each tap row feeds
+// one pass only: the kernel reads the f32 x tap rows itself and rounds
+// them to bf16 as its A operand, and no rounding kernel runs (at C = 512
+// four passes share one rounding). A unit is 128 flat rows (two
+// warpgroups of 64): the gate, K = 3C in chunks of (64-channel block,
+// tap), the three taps of a block side by side, so a block's x rows are
+// read from L2 three times in a row. Shared memory: two bf16 A slots [128
+// rows][64] K-major (gate chunk j in slot j % 2); a ring of kStages weight
+// stages [64 K][kNg] MN-major, w_in_s's tanh then sigmoid columns as they
+// lie, zero-filled past 2 kG (kNg = max(64, 2 kG): the swizzle's 64-column
+// block); kAhead f32 A chunks [128][64] that the tap copies land in (the
+// rank backward's rows kernel's design, wn_layer_bwd.cu); and, where it
+// fits (kFused: every pair but (256, 128)), all of w_rs_s [kG][n_rs],
+// copied once a block, MN-major in 64-column blocks of kG K rows. There
+// one kernel does the whole share (wn_layer_kernel_rank): the acts,
+// rounded to bf16, go into the A slots (K-major, channel c in slot c /
+// 64), and each res/skip pass of 2 kH partial columns is kG / 16 wgmma
+// steps from shared memory alone, stored from the accumulators: no acts
+// in global memory, one launch. At (256, 128) w_rs_s (128 KB) does not fit
+// beside the gate's 224 KB, and streaming it through the ring would hold
+// the gate's 128 accumulators and the res/skip product's state in one
+// kernel of at most 255 registers: there the gate kernel writes the acts
+// [B*T, C'] and wn_layer_kernel_rs follows.
+template <int kC, int kG>
+struct RankGate {
+  using L = Wide;
+  static constexpr int kNg = 2 * kG < 64 ? 64 : 2 * kG;  // the gate's N
+  static constexpr int kChunks = 3 * kC / L::kKC;        // the gate's
+  static constexpr int kBBytes = L::kKC * kNg * 2;
+  static constexpr int kF32Bytes = L::kTile * L::kKC * 4;  // 32,768
+  static constexpr int kRingOff = 2 * L::kABytes;
+  // chunks in flight under the wgmmas: 2, as at C = 512
+  static constexpr int kAhead = L::kAhead;
+  static constexpr int kStages = L::kStages;
+  static constexpr int kF32Off = kRingOff + kStages * kBBytes;
+  static constexpr int kWrsOff = kF32Off + kAhead * kF32Bytes;
+  static constexpr int kWrsBlock = kG * 128;  // 64 partial columns of w_rs_s
+  // the res/skip product in this kernel when w_rs_s [kG][2 kC] fits
+  static constexpr bool kFused = kWrsOff + kG * 2 * kC * 2 <= 232448;
+  static constexpr int kSmem = kWrsOff + (kFused ? kG * 2 * kC * 2 : 0);
+  static_assert(kC <= 256 && kG % 16 == 0 && kNg <= 256, "one pass");
+  static_assert(kBBytes % 1024 == 0 && kWrsBlock % 1024 == 0,
+                "swizzled tiles 1024-byte aligned");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// A rank at C <= 256: unit u is the flat rows [128u, 128u + 128); the block
+// walks units blockIdx.x + k * gridDim.x. pre = the three taps of x (rows
+// t + (tap-1)*d of the row's own sequence, zero outside [0, T)), rounded
+// to bf16, @ w_in [3C, 2 kG]: the tanh pre-activation of channel c in
+// accumulator column c, the sigmoid one in column kG + c, both in the same
+// thread; then the gate in f32 on them (cond [B*T, 2 kG], b_in [2 kG]),
+// the acts rounded to bf16: into the A slots, then partial = acts @ w_rs
+// [kG, n_rs] into `out` [B*T, n_rs] f32, rows < B*T only (kFused); or
+// into `acts` [B*T, kG] for wn_layer_kernel_rs.
+//
+// The ring runs on across units: chunk j of a unit is sequence position
+// base + j, its weights in stage (base + j) % kStages, and the next unit's
+// first kAhead chunks load under this unit's last steps, its gate and its
+// res/skip product (its rows begun once every copy of this unit's taps is
+// out). Step j: chunk j's A, rounded, sits in A slot j % 2. Start chunk j
+// + kAhead's copies (weights into the stage chunk j - 2 left, this
+// thread's f32 share of its taps into the f32 chunk j left), run chunk j's
+// wgmmas, then wait for chunk j + 1's copies and, once this warpgroup's
+// wgmmas of chunk j - 1 (the A slot's last reader) are done, round this
+// thread's share of chunk j + 1 into the other A slot. A thread copies and
+// rounds the same pieces (rows rb + 8i of its warpgroup's 64, columns c4 +
+// [0, 4)), so it reads back only its own copies, and a warpgroup writes
+// only its own rows of an A slot.
+template <int kC, int kG, bool kLast>
+__device__ __forceinline__ void rank_body(const float* __restrict__ x,
+                                          const bf16* __restrict__ cond,
+                                          const bf16* __restrict__ w_in,
+                                          const float* __restrict__ b_in,
+                                          const bf16* __restrict__ w_rs,
+                                          bf16* __restrict__ acts,
+                                          float* __restrict__ out,
+                                          int total_rows, int T,
+                                          int dilation) {
+  using L = Wide;
+  using S = RankGate<kC, kG>;
+  using R = WideRs<kC, kLast>;
+  constexpr int kNg = S::kNg;
+  constexpr int kNB = kG / 8;  // n8 blocks of each half
+  constexpr int kH = R::kH;  // a res/skip pass: 2 kH partial columns
+  extern __shared__ __align__(1024) uint4 smem_wide[];
+  char* base = reinterpret_cast<char*>(smem_wide);
+  const uint32_t smem = smem_u32(base);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;  // the warp's rows of the unit (both groups)
+  const int g = lane / 4, tig = lane % 4;
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int rb = wg * 64 + lt / 16;  // this thread's A rows: rb + 8i
+  const int c4 = (lt % 16) * 4;      // and columns c4 + [0, 4)
+  const uint32_t a_wg = wg * (L::kABytes / 2);
+  const int units = (total_rows + L::kTile - 1) / L::kTile;
+  if (static_cast<int>(blockIdx.x) >= units) return;
+
+  if constexpr (S::kFused) {
+    // w_rs_s once a block, into the first commit group (with chunk 0)
+    constexpr int kPer = R::kNrs / 8;  // 16-byte pieces of a K row
+    static_assert(kG * kPer % L::kThreads == 0, "whole rounds");
+#pragma unroll
+    for (int i = 0; i < kG * kPer / L::kThreads; ++i) {
+      const int p = threadIdx.x + i * L::kThreads;
+      const int k = p / kPer, n = (p % kPer) * 8;
+      cp_async16(smem + S::kWrsOff + (n / 64) * S::kWrsBlock +
+                     sw128_piece(k, (n % 64) / 8),
+                 w_rs + k * R::kNrs + n);
+    }
+  }
+
+  int r0 = 0, rows = 0;
+  int tt[8];  // row rb + 8i's time in its sequence (far negative past rows)
+  const auto begin = [&](int u) {
+    r0 = u * L::kTile;
+    rows = min(L::kTile, total_rows - r0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = rb + 8 * i;
+      tt[i] = r < rows ? (r0 + r) % T : -(1 << 30);
+    }
+  };
+  int seq = 0;  // sequence position of the current unit's chunk 0
+  bool next = true;  // a unit follows the current one (set at its begin)
+  // the copies of chunk s of the current unit (s >= kChunks: chunk s -
+  // kChunks of the next one, whose rows are begun), as one commit group;
+  // empty when there is no such chunk
+  const auto load = [&](int s) {
+    const uint32_t stage =
+        smem + S::kRingOff + ((seq + s) % S::kStages) * S::kBBytes;
+    const int j = s < S::kChunks ? s : s - S::kChunks;
+    if (s < S::kChunks || next) {
+      // this thread's f32 taps and its weight copies
+      const int tap = j % 3, cb = (j / 3) * L::kKC;
+      const int shift = (tap - 1) * dilation;
+      const uint32_t f32s = smem + S::kF32Off + (j % S::kAhead) * S::kF32Bytes;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = rb + 8 * i;
+        const int t = tt[i] + shift;
+        const bool ok = t >= 0 && t < T;
+        cp_async16_zfill(
+            f32s + (r * L::kKC + c4) * 4,
+            x + (ok ? static_cast<int64_t>(r0 + r + shift) * kC + cb + c4 : 0),
+            ok);
+      }
+      constexpr int kPer = kNg / 8;  // 16-byte pieces of a K row
+      static_assert(L::kKC * kPer % L::kThreads == 0, "whole rounds");
+#pragma unroll
+      for (int i = 0; i < L::kKC * kPer / L::kThreads; ++i) {
+        const int p = threadIdx.x + i * L::kThreads;
+        const int k = p / kPer, n = (p % kPer) * 8;
+        const bool live = n < 2 * kG;
+        cp_async16_zfill(
+            stage + (n / 64) * L::kNBlock + sw128_piece(k, (n % 64) / 8),
+            w_in + static_cast<int64_t>(tap * kC + cb + k) * 2 * kG +
+                (live ? n : 0),
+            live);
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's share of chunk j, from its f32 slot to bf16 in A slot j % 2
+  const auto to_bf16 = [&](int j) {
+    const char* f32s = base + S::kF32Off + (j % S::kAhead) * S::kF32Bytes;
+    char* slot = base + (j % 2) * L::kABytes;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = rb + 8 * i;
+      const float4 v =
+          *reinterpret_cast<const float4*>(f32s + (r * L::kKC + c4) * 4);
+      *reinterpret_cast<uint2*>(slot + sw128_piece(r, c4 / 8) +
+                                (c4 % 8) * 2) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    }
+  };
+  // the loads of step s (chunk s + kAhead), beginning the next unit's rows
+  // where its first chunk is reached
+  const auto load_ahead = [&](int s, int u) {
+    if (s + S::kAhead == S::kChunks) {
+      next = u + static_cast<int>(gridDim.x) < units;
+      if (next) begin(u + gridDim.x);
+    }
+    load(s + S::kAhead);
+  };
+
+  begin(blockIdx.x);
+  for (int c = 0; c < S::kAhead; ++c) load(c);
+#pragma unroll 1
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int u0 = r0, n = rows;  // this unit's (begin moves on below)
+    {
+      // cond's rows of the unit into L2 under the products
+      const char* src = reinterpret_cast<const char*>(
+          cond + static_cast<int64_t>(u0) * 2 * kG);
+      const int lines = (n * 4 * kG + 127) / 128;
+      for (int i = threadIdx.x; i < lines; i += L::kThreads)
+        prefetch_l2(src + i * 128);
+    }
+    float acc[kNg / 2];
+#pragma unroll
+    for (int i = 0; i < kNg / 2; ++i) acc[i] = 0.f;
+    cp_async_wait<S::kAhead - 1>();  // this thread's copies of chunk 0
+    to_bf16(0);
+#pragma unroll 1
+    for (int j = 0; j < S::kChunks; ++j) {
+      fence_proxy_async();
+      __syncthreads();
+      load_ahead(j, u);
+      const uint32_t a0 = smem + (j % 2) * L::kABytes + a_wg;
+      const uint32_t b0 =
+          smem + S::kRingOff + ((seq + j) % S::kStages) * S::kBBytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < L::kKC / 16; ++k)
+        wgmma_m64<kNg, 0, 1>(acc, kmajor_desc(a0 + k * 32),
+                             mnmajor_desc(b0 + k * 2048, L::kNBlock));
+      wgmma_commit();
+      if (j + 1 < S::kChunks) {
+        cp_async_wait<S::kAhead - 1>();
+        wgmma_wait<1>();
+        fence_acc(acc);
+        to_bf16(j + 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // ---- the gate (f32) on the accumulators, the acts as bf16 (fused:
+    // into this warpgroup's rows of the A slots, its gate wgmmas done) ----
+    // cond of kBatch n8 blocks is loaded before any is used; rows past the
+    // unit's end (zero taps, a kept row's cond) give finite acts that no
+    // stored row reads
+    constexpr int kBatch = kNB < 4 ? kNB : 4;
+#pragma unroll
+    for (int j0 = 0; j0 < kNB; j0 += kBatch) {
+      uint32_t cv[kBatch][2][2];  // [n8][h][tanh, sigmoid] bf16 pairs
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          const bf16* cr = cond +
+                           static_cast<int64_t>(u0 + min(row, n - 1)) * 2 * kG +
+                           8 * (j0 + jj) + 2 * tig;
+          cv[jj][h][0] = *reinterpret_cast<const uint32_t*>(cr);
+          cv[jj][h][1] = *reinterpret_cast<const uint32_t*>(cr + kG);
+        }
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const int j = j0 + jj;
+        const int ch = 8 * j + 2 * tig;
+        const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
+        const float2 bs = *reinterpret_cast<const float2*>(b_in + kG + ch);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          if (!S::kFused && row >= n) continue;
+          const float2 ct = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&cv[jj][h][0]));
+          const float2 cs = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&cv[jj][h][1]));
+          const float gt0 = acc[4 * j + 2 * h] + bt.x + ct.x;
+          const float gt1 = acc[4 * j + 2 * h + 1] + bt.y + ct.y;
+          const float gs0 = acc[4 * (j + kNB) + 2 * h] + bs.x + cs.x;
+          const float gs1 = acc[4 * (j + kNB) + 2 * h + 1] + bs.y + cs.y;
+          const float v0 = tanhf(gt0) * (1.f / (1.f + expf(-gs0)));
+          const float v1 = tanhf(gt1) * (1.f / (1.f + expf(-gs1)));
+          if constexpr (S::kFused)
+            *reinterpret_cast<uint32_t*>(base + (ch / 64) * L::kABytes +
+                                         sw128_piece(row, (ch % 64) / 8) +
+                                         (ch % 8) * 2) = pack_bf16(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(
+                acts + static_cast<int64_t>(u0 + row) * kG + ch) =
+                pack_bf16(v0, v1);
+        }
+      }
+    }
+
+    if constexpr (S::kFused) {
+      // ---- the res/skip product: acts (A slots) @ w_rs_s (resident) ----
+      // pass p of 2 kH partial columns: acc_a's from col_a, acc_b's from
+      // col_b (the rs kernel's pairing); kG / 16 k16 steps
+      fence_proxy_async();
+      __syncthreads();  // the acts are in the A slots
+      const uint32_t wrs = smem + S::kWrsOff;
+#pragma unroll 1
+      for (int p = 0; p < R::kPasses; ++p) {
+        const int col_a = kLast ? 2 * kH * p : kH * p;
+        const int col_b = kLast ? 2 * kH * p + kH : kC + kH * p;
+        float acc_a[kH / 2], acc_b[kH / 2];
+#pragma unroll
+        for (int i = 0; i < kH / 2; ++i) acc_a[i] = acc_b[i] = 0.f;
+        fence_acc(acc_a);
+        fence_acc(acc_b);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kG / 16; ++k) {
+          const uint64_t da = kmajor_desc(smem + (k / 4) * L::kABytes + a_wg +
+                                          (k % 4) * 32);
+          wgmma_m64<kH, 0, 1>(
+              acc_a, da,
+              mnmajor_desc(wrs + (col_a / 64) * S::kWrsBlock + k * 2048,
+                           S::kWrsBlock));
+          wgmma_m64<kH, 0, 1>(
+              acc_b, da,
+              mnmajor_desc(wrs + (col_b / 64) * S::kWrsBlock + k * 2048,
+                           S::kWrsBlock));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc_a);
+        fence_acc(acc_b);
+        store_partial<kH, R::kNrs>(out, acc_a, acc_b, u0, n, col_a, col_b);
+      }
+    }
+    seq += S::kChunks;
+  }
+  cp_async_wait<0>();
+}
+
+// The gate kernel of the bf16 forward at width kC and gate width kG: the C
+// = 512 layer's (kG = 512) and a rank's there (kG = C') on the rounded x
+// (gate_rounded_x); a rank's at (256, 128) on the f32 x (rank_body), the
+// acts to `acts` for wn_layer_kernel_rs.
+template <int kC, int kG>
+__global__ void __launch_bounds__(256, 1)
+wn_layer_kernel_gate(const void* __restrict__ x, const bf16* __restrict__ cond,
+                     const bf16* __restrict__ w_in,
+                     const float* __restrict__ b_in, bf16* __restrict__ acts,
+                     int total_rows, int T, int dilation) {
+  if constexpr (kC == Wide::kC)
+    gate_rounded_x<kG>(static_cast<const bf16*>(x), cond, w_in, b_in, acts,
+                       total_rows, T, dilation);
+  else
+    rank_body<kC, kG, false>(static_cast<const float*>(x), cond, w_in, b_in,
+                             nullptr, acts, nullptr, total_rows, T,
+                             dilation);
+}
+
+// A rank's whole bf16 share below C = 512 where w_rs_s fits beside the gate
+// (RankGate::kFused): the gate on the f32 x, then the res/skip product
+// storing the f32 partial `out` [B*T, n_rs], one kernel.
+template <int kC, int kG, bool kLast>
+__global__ void __launch_bounds__(256, 1)
+wn_layer_kernel_rank(const float* __restrict__ x,
+                     const bf16* __restrict__ cond,
+                     const bf16* __restrict__ w_in,
+                     const float* __restrict__ b_in,
+                     const bf16* __restrict__ w_rs, float* __restrict__ out,
+                     int total_rows, int T, int dilation) {
+  rank_body<kC, kG, kLast>(x, cond, w_in, b_in, w_rs, nullptr, out,
+                           total_rows, T, dilation);
+}
+
+// Whether a bf16 call at (kC, kG) is a rank's one kernel
+// (wn_layer_kernel_rank) rather than the gate and res/skip kernels.
+template <int kC, int kG>
+constexpr bool rank_fused() {
+  if constexpr (kC == Wide::kC) return false;
+  else return RankGate<kC, kG>::kFused;
+}
+
+// The dynamic shared bytes of the gate (or rank) kernel and its passes of
+// a 128-row tile.
+template <int kC, int kG>
+constexpr int gate_smem() {
+  if constexpr (kC == Wide::kC) return Wide::kSmem;
+  else return RankGate<kC, kG>::kSmem;
+}
+
+template <int kC, int kG>
+constexpr int gate_passes() {
+  if constexpr (kC == Wide::kC) return WideGate<kG>::kPasses;
+  else return 1;
 }
 
 // The bf16 kernel at C <= 256 (C = 512 runs the three kernels above).
@@ -1712,29 +2155,38 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Blocks of the C = 512 gate kernel at kG gate channels, and of its
-// res/skip kernel, the device holds at once (one an SM: their rings take
-// 196,608 bytes).
-template <int kG, bool kLast>
+// Blocks of the bf16 gate kernel at (kC, kG), and of its res/skip kernel,
+// or of the fused rank kernel, the device holds at once (one an SM: 139,264
+// to 229,376 bytes of shared memory a block).
+template <int kC, int kG, bool kLast>
 cudaError_t wide_slots(int* slots) {
   static std::atomic<int> cache[2][32];
   static std::atomic<uint32_t> opted[2];
   int sms = 0, per_sm = 0;
-  cudaError_t err = wave_slots(wn_layer_kernel_gate<kG>, Wide::kThreads,
-                               Wide::kSmem, cache[0], &opted[0], &sms,
-                               &per_sm);
-  if (err != cudaSuccess) return err;
-  const int n = sms * per_sm;
-  err = wave_slots(wn_layer_kernel_rs<kG, kLast>, Wide::kThreads, Wide::kSmem,
-                   cache[1], &opted[1], &sms, &per_sm);
-  if (err != cudaSuccess) return err;
-  *slots = std::min(n, sms * per_sm);
-  return cudaSuccess;
+  if constexpr (rank_fused<kC, kG>()) {
+    cudaError_t err = wave_slots(wn_layer_kernel_rank<kC, kG, kLast>,
+                                 Wide::kThreads, gate_smem<kC, kG>(),
+                                 cache[0], &opted[0], &sms, &per_sm);
+    *slots = sms * per_sm;
+    return err;
+  } else {
+    cudaError_t err = wave_slots(wn_layer_kernel_gate<kC, kG>, Wide::kThreads,
+                                 gate_smem<kC, kG>(), cache[0], &opted[0],
+                                 &sms, &per_sm);
+    if (err != cudaSuccess) return err;
+    const int n = sms * per_sm;
+    err = wave_slots(wn_layer_kernel_rs<kC, kG, kLast>, Wide::kThreads,
+                     Wide::kSmem, cache[1], &opted[1], &sms, &per_sm);
+    if (err != cudaSuccess) return err;
+    *slots = std::min(n, sms * per_sm);
+    return cudaSuccess;
+  }
 }
 
-// The C = 512 grid: its 128-row tiles of the B*T rows, and the blocks of
-// the gate and res/skip kernels (one wave each: no more blocks than units,
-// nor than `slots`).
+// The grid of the gate and res/skip kernels: their 128-row tiles of the
+// B*T rows, and the blocks of each (one wave each: no more blocks than
+// units, nor than `slots`; the fused rank kernel's as the gate's, rs_passes
+// 0).
 void wide_grid(int64_t rows, int gate_passes, int rs_passes, int slots,
                int* tiles, int* gate_blocks, int* rs_blocks) {
   *tiles = static_cast<int>((rows + Wide::kTile - 1) / Wide::kTile);
@@ -1742,51 +2194,92 @@ void wide_grid(int64_t rows, int gate_passes, int rs_passes, int slots,
   *rs_blocks = std::min(*tiles * rs_passes, slots);
 }
 
-// The C = 512 bf16 layer (kG = C) or a rank's share of it (kG = C': `a`'s
-// x_out is the partial, its b_rs, valid_t and skip_out unused): x rounded,
-// then the gate and res/skip kernels. The scratch holds the rounded x
-// [B*T, C], then the acts [B*T, kG], bf16.
-template <int kG, bool kLast>
+// The C = 512 bf16 layer (kC = kG = 512), a rank's share of it (kG = C'),
+// or a rank's share at C <= 256 (`a`'s x_out is a rank's partial, its b_rs,
+// valid_t and skip_out unused): at C = 512 x rounded, then the gate and
+// res/skip kernels, the scratch holding the rounded x [B*T, C], then the
+// acts [B*T, kG], bf16; at C <= 256 the fused rank kernel, no scratch,
+// or at (256, 128) the gate kernel on the f32 x, then the res/skip kernel,
+// the scratch holding the acts alone.
+template <int kC, int kG, bool kLast>
 cudaError_t launch_wide(const Args& a) {
   using L = Wide;
-  constexpr int C = L::kC;
-  if (a.scratch == nullptr) return cudaErrorInvalidValue;
+  constexpr bool kFused = rank_fused<kC, kG>();
+  if (!kFused && a.scratch == nullptr) return cudaErrorInvalidValue;
   int slots = 0;
-  cudaError_t err = wide_slots<kG, kLast>(&slots);  // also opts in
+  cudaError_t err = wide_slots<kC, kG, kLast>(&slots);  // also opts in
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(a.batch) * a.T;
   int tiles = 0, gate_blocks = 0, rs_blocks = 0;
-  wide_grid(rows, WideGate<kG>::kPasses, wide_rs_passes<kLast>(), slots,
-            &tiles, &gate_blocks, &rs_blocks);
-  bf16* x_bf = static_cast<bf16*>(a.scratch);
-  bf16* acts = x_bf + rows * C;
-  const int64_t n4 = rows * C / 4;
-  const int round_blocks = static_cast<int>(
-      std::min<int64_t>((n4 + 255) / 256, static_cast<int64_t>(slots) * 16));
-  wn_layer_kernel_round<<<round_blocks, 256, 0, a.stream>>>(a.x, x_bf, n4);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wn_layer_kernel_gate<kG><<<gate_blocks, L::kThreads, L::kSmem, a.stream>>>(
-      x_bf, static_cast<const bf16*>(a.cond), static_cast<const bf16*>(a.w_in),
-      a.b_in, acts, static_cast<int>(rows), a.T, a.dilation);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wn_layer_kernel_rs<kG, kLast>
-      <<<rs_blocks, L::kThreads, L::kSmem, a.stream>>>(
-          a.x, acts, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t,
-          a.x_out, a.skip_out, a.accumulate, static_cast<int>(rows), a.T);
-  return cudaGetLastError();
+  wide_grid(rows, gate_passes<kC, kG>(),
+            kFused ? 0 : WideRs<kC, kLast>::kPasses, slots, &tiles,
+            &gate_blocks, &rs_blocks);
+  if constexpr (kFused) {
+    wn_layer_kernel_rank<kC, kG, kLast>
+        <<<gate_blocks, L::kThreads, gate_smem<kC, kG>(), a.stream>>>(
+            a.x, static_cast<const bf16*>(a.cond),
+            static_cast<const bf16*>(a.w_in), a.b_in,
+            static_cast<const bf16*>(a.w_rs), a.x_out,
+            static_cast<int>(rows), a.T, a.dilation);
+    return cudaGetLastError();
+  } else {
+    // at C = 512 x rounded first, the gate's operand
+    bf16* acts = static_cast<bf16*>(a.scratch);
+    const void* taps = a.x;
+    if constexpr (kC == L::kC) {
+      taps = acts;
+      acts += rows * kC;
+      const int64_t n4 = rows * kC / 4;
+      const int round_blocks = static_cast<int>(std::min<int64_t>(
+          (n4 + 255) / 256, static_cast<int64_t>(slots) * 16));
+      wn_layer_kernel_round<<<round_blocks, 256, 0, a.stream>>>(
+          a.x, static_cast<bf16*>(a.scratch), n4);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    wn_layer_kernel_gate<kC, kG>
+        <<<gate_blocks, L::kThreads, gate_smem<kC, kG>(), a.stream>>>(
+            taps, static_cast<const bf16*>(a.cond),
+            static_cast<const bf16*>(a.w_in), a.b_in, acts,
+            static_cast<int>(rows), a.T, a.dilation);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    wn_layer_kernel_rs<kC, kG, kLast>
+        <<<rs_blocks, L::kThreads, L::kSmem, a.stream>>>(
+            a.x, acts, static_cast<const bf16*>(a.w_rs), a.b_rs, a.valid_t,
+            a.x_out, a.skip_out, a.accumulate, static_cast<int>(rows), a.T);
+    return cudaGetLastError();
+  }
 }
 
-// f(std::integral_constant<int, G>{}) at the gate width g of the C = 512
-// kernels: the layer's C, or a rank's C' = C / model, model in {2, 4, 8}.
+// f(std::integral_constant<int, C>{}, std::integral_constant<int, G>{}) at
+// a built (C, G) of the gate and res/skip kernels: the C = 512 layer's (G
+// = 512), or a rank's G = C' = C / model, model in {2, 4, 8}, at C = 128,
+// 256, 512.
 template <typename F>
-cudaError_t with_gate_width(int g, const F& f) {
-  switch (g) {
-    case 512: return f(std::integral_constant<int, 512>{});
-    case 256: return f(std::integral_constant<int, 256>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    case 64: return f(std::integral_constant<int, 64>{});
+cudaError_t with_gate_width(int c, int g, const F& f) {
+  using std::integral_constant;
+  switch (c * 1024 + g) {
+    case 512 * 1024 + 512:
+      return f(integral_constant<int, 512>{}, integral_constant<int, 512>{});
+    case 512 * 1024 + 256:
+      return f(integral_constant<int, 512>{}, integral_constant<int, 256>{});
+    case 512 * 1024 + 128:
+      return f(integral_constant<int, 512>{}, integral_constant<int, 128>{});
+    case 512 * 1024 + 64:
+      return f(integral_constant<int, 512>{}, integral_constant<int, 64>{});
+    case 256 * 1024 + 128:
+      return f(integral_constant<int, 256>{}, integral_constant<int, 128>{});
+    case 256 * 1024 + 64:
+      return f(integral_constant<int, 256>{}, integral_constant<int, 64>{});
+    case 256 * 1024 + 32:
+      return f(integral_constant<int, 256>{}, integral_constant<int, 32>{});
+    case 128 * 1024 + 64:
+      return f(integral_constant<int, 128>{}, integral_constant<int, 64>{});
+    case 128 * 1024 + 32:
+      return f(integral_constant<int, 128>{}, integral_constant<int, 32>{});
+    case 128 * 1024 + 16:
+      return f(integral_constant<int, 128>{}, integral_constant<int, 16>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1826,7 +2319,7 @@ cudaError_t launch_f32_wide(const Args& a) {
 template <int kC, bool kBf16, bool kLast>
 cudaError_t launch(const Args& a) {
   if constexpr (kBf16 && kC > 256) {
-    return launch_wide<kC, kLast>(a);
+    return launch_wide<kC, kC, kLast>(a);
   } else if constexpr (kBf16) {
     static std::atomic<uint32_t> opted_in{0};
     auto kernel = wn_layer_kernel_mma<kC, kLast>;
@@ -1873,9 +2366,9 @@ cudaError_t dispatch_width(const Args* a, int bf16_mode, int last,
   if constexpr (kC > 256) {
     if (bf16_mode) {
       if (last) {
-        WN_CASE(true, true, (wn_layer_kernel_rs<kC, true>), Wide::kSmem);
+        WN_CASE(true, true, (wn_layer_kernel_rs<kC, kC, true>), Wide::kSmem);
       }
-      WN_CASE(true, false, (wn_layer_kernel_rs<kC, false>), Wide::kSmem);
+      WN_CASE(true, false, (wn_layer_kernel_rs<kC, kC, false>), Wide::kSmem);
     }
   } else {
     if (bf16_mode) {
@@ -2009,32 +2502,49 @@ cudaError_t wn_layer_f32_schedule(int C, int batch, int T, int last, int* sms,
   return cudaSuccess;
 }
 
-// What the loaded build of one of the C = 512 bf16 kernels at gate width
-// `g` (the layer's 512, or a rank's C') uses (which: 0 the gate kernel, 1
-// the res/skip kernel (`last` its variant), 2 the rounding of x), as
+// What the loaded build of one of the bf16 gate and res/skip kernels at
+// width `c` and gate width `g` (the C = 512 layer's g = 512, or a rank's
+// C') uses (which: 0 the gate kernel, 1 the res/skip kernel (`last` its
+// variant), 2 the rounding of x, which only C = 512 runs, 3 the fused rank
+// kernel (`last` its variant), which runs alone where it applies), as
 // wn_layer_kernel_info reports it.
-cudaError_t wn_layer_wide_kernel_info(int which, int g, int last,
+cudaError_t wn_layer_wide_kernel_info(int c, int which, int g, int last,
                                       int* registers, int* local_bytes,
                                       int* static_smem_bytes,
                                       int* dynamic_smem_bytes) {
   const void* kernel = nullptr;
-  *dynamic_smem_bytes = Wide::kSmem;
-  cudaError_t err = with_gate_width(g, [&](auto width) {
-    constexpr int kG = decltype(width)::value;
-    switch (which) {
-      case 0:
-        kernel = reinterpret_cast<const void*>(wn_layer_kernel_gate<kG>);
-        return cudaSuccess;
-      case 1:
-        kernel = last
-            ? reinterpret_cast<const void*>(wn_layer_kernel_rs<kG, true>)
-            : reinterpret_cast<const void*>(wn_layer_kernel_rs<kG, false>);
-        return cudaSuccess;
-      case 2:
-        kernel = reinterpret_cast<const void*>(wn_layer_kernel_round);
-        *dynamic_smem_bytes = 0;
-        return cudaSuccess;
-      default: return cudaErrorInvalidValue;
+  cudaError_t err = with_gate_width(c, g, [&](auto width, auto gates) {
+    constexpr int kC = decltype(width)::value;
+    constexpr int kG = decltype(gates)::value;
+    if constexpr (rank_fused<kC, kG>()) {
+      if (which != 3) return cudaErrorInvalidValue;
+      kernel = last ? reinterpret_cast<const void*>(
+                          wn_layer_kernel_rank<kC, kG, true>)
+                    : reinterpret_cast<const void*>(
+                          wn_layer_kernel_rank<kC, kG, false>);
+      *dynamic_smem_bytes = gate_smem<kC, kG>();
+      return cudaSuccess;
+    } else {
+      switch (which) {
+        case 0:
+          kernel =
+              reinterpret_cast<const void*>(wn_layer_kernel_gate<kC, kG>);
+          *dynamic_smem_bytes = gate_smem<kC, kG>();
+          return cudaSuccess;
+        case 1:
+          kernel = last ? reinterpret_cast<const void*>(
+                              wn_layer_kernel_rs<kC, kG, true>)
+                        : reinterpret_cast<const void*>(
+                              wn_layer_kernel_rs<kC, kG, false>);
+          *dynamic_smem_bytes = Wide::kSmem;
+          return cudaSuccess;
+        case 2:
+          if (kC != Wide::kC) return cudaErrorInvalidValue;
+          kernel = reinterpret_cast<const void*>(wn_layer_kernel_round);
+          *dynamic_smem_bytes = 0;
+          return cudaSuccess;
+        default: return cudaErrorInvalidValue;
+      }
     }
   });
   if (err != cudaSuccess) return err;
@@ -2047,48 +2557,57 @@ cudaError_t wn_layer_wide_kernel_info(int which, int g, int last,
   return cudaSuccess;
 }
 
-// The C = 512 bf16 grid at gate width `g` for `batch` x T rows, as its
-// launcher picks it: the blocks of the gate or res/skip kernel the device
-// holds at once, the 128-row tiles, and the blocks of each kernel.
-cudaError_t wn_layer_wide_schedule(int g, int batch, int T, int last,
+// The grid of the bf16 gate and res/skip kernels at width `c` and gate
+// width `g` for `batch` x T rows, as the launcher picks it: the blocks of
+// either kernel the device holds at once, the 128-row tiles, and the
+// blocks of each kernel (where the fused rank kernel runs alone, its
+// blocks, and 0 res/skip blocks).
+cudaError_t wn_layer_wide_schedule(int c, int g, int batch, int T, int last,
                                    int* slots, int* tiles, int* gate_blocks,
                                    int* rs_blocks) {
   if (T <= 0 || batch <= 0 || static_cast<int64_t>(batch) * T > INT32_MAX)
     return cudaErrorInvalidValue;
-  return with_gate_width(g, [&](auto width) {
-    constexpr int kG = decltype(width)::value;
-    cudaError_t err = last ? wide_slots<kG, true>(slots)
-                           : wide_slots<kG, false>(slots);
+  return with_gate_width(c, g, [&](auto width, auto gates) {
+    constexpr int kC = decltype(width)::value;
+    constexpr int kG = decltype(gates)::value;
+    cudaError_t err = last ? wide_slots<kC, kG, true>(slots)
+                           : wide_slots<kC, kG, false>(slots);
     if (err != cudaSuccess) return err;
-    wide_grid(static_cast<int64_t>(batch) * T, WideGate<kG>::kPasses,
-              last ? wide_rs_passes<true>() : wide_rs_passes<false>(), *slots,
-              tiles, gate_blocks, rs_blocks);
+    const int rs_passes =
+        rank_fused<kC, kG>() ? 0
+        : last               ? WideRs<kC, true>::kPasses
+                             : WideRs<kC, false>::kPasses;
+    wide_grid(static_cast<int64_t>(batch) * T, gate_passes<kC, kG>(),
+              rs_passes, *slots, tiles, gate_blocks, rs_blocks);
     return cudaSuccess;
   });
 }
 
-// A model rank's share of the bf16 layer at C = 512 (wn_layer_shard.cu's
-// contract and layouts, C' = cp in {256, 128, 64} gate channels; the
-// partial `out` [batch, T, n_rs] f32): the C = 512 layer's three kernels
-// at gate width C', their epilogue storing the partial. scratch: batch * T
-// * (512 + cp) bf16 (the rounded x, then the acts). Launches on `stream`,
-// does not synchronise; returns the first launch error.
+// A model rank's share of the bf16 layer (wn_layer_shard.cu's contract and
+// layouts: x [batch, T, c] f32, c in {128, 256, 512}, C' = cp = c / model,
+// model in {2, 4, 8}; the partial `out` [batch, T, n_rs] f32): at c = 512
+// the layer's three kernels at gate width C', at c <= 256 the fused rank
+// kernel (at (256, 128) the gate kernel on the f32 x and the res/skip
+// kernel), the last epilogue storing the partial. scratch: batch * T * (512 + cp) bf16 at c = 512 (the rounded x,
+// then the acts), batch * T * cp bf16 at (256, 128) (the acts), none (null)
+// where the fused rank kernel runs. Launches on `stream`, does not
+// synchronise; returns the first launch error.
 cudaError_t wn_layer_shard_wide_forward(const float* x, const void* cond,
                                         const void* w_in, const float* b_in,
                                         const void* w_rs, float* out,
                                         void* scratch, int batch, int T,
-                                        int cp, int dilation, int last,
+                                        int c, int cp, int dilation, int last,
                                         cudaStream_t stream) {
   if (T <= 0 || batch <= 0 ||
-      static_cast<int64_t>(batch) * T > INT32_MAX - Wide::kTile ||
-      cp >= Wide::kC)
+      static_cast<int64_t>(batch) * T > INT32_MAX - Wide::kTile || cp >= c)
     return cudaErrorInvalidValue;
   const Args a{x,       cond,    w_in,    b_in,    w_rs,  nullptr,
                nullptr, out,     nullptr, scratch, 0,     batch,
                T,       dilation, stream};
-  return with_gate_width(cp, [&](auto width) {
-    constexpr int kG = decltype(width)::value;
-    return last ? launch_wide<kG, true>(a) : launch_wide<kG, false>(a);
+  return with_gate_width(c, cp, [&](auto width, auto gates) {
+    constexpr int kC = decltype(width)::value;
+    constexpr int kG = decltype(gates)::value;
+    return last ? launch_wide<kC, kG, true>(a) : launch_wide<kC, kG, false>(a);
   });
 }
 

@@ -27,11 +27,13 @@ widths ``kernel_widths()`` (C = 128, 256, 512; the shard kernel for
 ``shard_pairs()``), and ``check_width`` refuses any other on the card.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
-mesh axis (``csrc/wn_layer_shard.cu``, and in bf16 at C = 512 the C = 512
-layer's kernels of ``csrc/wn_layer.cu``, built into the same library): the
-same conv, gate and res/skip product over C' = C / model of the gate
-channels, giving the rank's partial res/skip sum without b_rs and the
-residual, which ``models.wn.wn_forward_tp`` adds after the ranks' reduce.
+mesh axis (in f32 ``csrc/wn_layer_shard.cu``; in bf16 the wgmma kernels of
+``csrc/wn_layer.cu``: below C = 512 the one rank kernel, at (256, 128) and
+C = 512 a gate and a res/skip kernel, at C = 512 after its rounding of x;
+all built into the same library): the same conv, gate and res/skip
+product over C' = C / model of the gate channels, giving the rank's
+partial res/skip sum without b_rs and the residual, which
+``models.wn.wn_forward_tp`` adds after the ranks' reduce.
 It runs ``wn_layer_shard_plain`` for CPU tensors and the kernel, or
 raises, for CUDA tensors; ``SHARD_LAUNCHES`` counts its launches.
 
@@ -221,19 +223,19 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "wn_layer_forward": [_P] * 10 + [_I] * 7 + [_P],
     "wn_layer_backward_bf16": [_P] * 19 + [_I] * 7 + [_P],
-    "wn_layer_shard_forward": [_P] * 6 + [_I] * 7 + [_P],
-    "wn_layer_shard_wide_forward": [_P] * 7 + [_I] * 5 + [_P],
+    "wn_layer_shard_forward": [_P] * 6 + [_I] * 6 + [_P],
+    "wn_layer_shard_wide_forward": [_P] * 7 + [_I] * 6 + [_P],
     "wn_layer_shard_backward_bf16": [_P] * 16 + [_I] * 8 + [_P],
     "wn_layer_kernel_info": [_I] * 3 + [_IP] * 4,
     "wn_layer_f32_rest_kernel_info": [_I] + [_IP] * 4,
-    "wn_layer_shard_kernel_info": [_I] * 4 + [_IP] * 4,
+    "wn_layer_shard_kernel_info": [_I] * 3 + [_IP] * 4,
     "wn_layer_bwd_kernel_info": [_I] * 4 + [_IP] * 4,
-    "wn_layer_wide_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_wide_kernel_info": [_I] * 4 + [_IP] * 4,
     "wn_layer_bwd_tile_rows": [_I] * 2,
     "wn_layer_bwd_weight_tiles": [_I] * 3,
     "wn_layer_f32_schedule": [_I] * 4 + [_IP] * 4,
     "wn_layer_shard_f32_schedule": [_I] * 5 + [_IP] * 6,
-    "wn_layer_wide_schedule": [_I] * 4 + [_IP] * 4,
+    "wn_layer_wide_schedule": [_I] * 5 + [_IP] * 4,
 }
 
 
@@ -286,88 +288,140 @@ def f32_rest_kernel_info(last: bool) -> dict:
 def shard_kernel_info(channels: int, cp: int, bf16: bool,
                       last: bool) -> dict:
   """:func:`kernel_info` for the shard kernel at width ``channels``
-  holding ``cp`` gate channels (a pair of :func:`shard_pairs`); in bf16 at
-  C = 512, the res/skip kernel of :func:`wide_kernel_info`, which ends a
-  rank's call there."""
+  holding ``cp`` gate channels (a pair of :func:`shard_pairs`); in bf16,
+  the kernel of :func:`wide_kernel_info` that ends a rank's call (the rank
+  kernel, or the res/skip kernel)."""
   check_width(channels, cp)
-  if bf16 and channels == WIDE_C:
-    return wide_kernel_info("rs", last, cp)
+  if bf16:
+    return wide_kernel_info(wide_kernels(channels, cp)[-1], last, cp,
+                            channels)
   return _info(_library().wn_layer_shard_kernel_info, channels, cp,
-               int(bf16), int(last))
+               int(last))
 
 
-# The bf16 forward at C = 512, the whole layer's and a model rank's: its
-# three kernels (``csrc/wn_layer.cu``), by their index in its C interface,
-# and the rows of a unit of the gate and res/skip kernels (Wide::kTile).
+# The bf16 gate and res/skip kernels of ``csrc/wn_layer.cu``: the C = 512
+# layer's and every model rank's share in bf16. ``WIDE_KERNELS`` by their
+# index in its C interface: at C = 512 x is rounded once ("round"), then
+# the gate and res/skip kernels run; a rank below C = 512 runs one kernel
+# ("rank": the gate on the f32 x, then the res/skip product from its
+# shared memory) where w_rs_s fits there (:func:`rank_fused`), else (at
+# (256, 128)) the gate kernel on the f32 x and the res/skip kernel.
+# WIDE_TILE_ROWS: the rows of a unit of these kernels (Wide::kTile).
 WIDE_C = 512
-WIDE_KERNELS = ("gate", "rs", "round")
+WIDE_KERNELS = ("gate", "rs", "round", "rank")
 WIDE_TILE_ROWS = 128
 
 
-def wide_kernel_info(kernel: str, last: bool = False,
-                     cp: int = WIDE_C) -> dict:
-  """:func:`kernel_info` for one of ``WIDE_KERNELS`` of the bf16 forward at
-  C = 512, the layer's (``cp`` = 512) or a rank's holding ``cp`` gate
-  channels (``last`` picks the res/skip kernel's variant)."""
-  check_width(WIDE_C, None if cp == WIDE_C else cp)
-  return _info(_library().wn_layer_wide_kernel_info,
+def rank_fused(channels: int, cp: int) -> bool:
+  """Whether a rank's bf16 share at (``channels``, ``cp``) is the one rank
+  kernel: below C = 512, where w_rs_s [C', 2C] bf16 fits beside the gate's
+  two A slots, four weight stages and two f32 A chunks in the 232,448
+  bytes of shared memory a block may use (RankGate::kFused)."""
+  if channels == WIDE_C:
+    return False
+  gate = 2 * 128 * 64 * 2 + 4 * 64 * max(64, 2 * cp) * 2 + 2 * 128 * 64 * 4
+  return gate + cp * 2 * channels * 2 <= 232_448
+
+
+def wide_kernels(channels: int = WIDE_C,
+                 cp: Optional[int] = None) -> Tuple[str, ...]:
+  """The kernels of ``WIDE_KERNELS`` a bf16 call at width ``channels`` (a
+  rank's with ``cp`` gate channels) launches, in order."""
+  if channels == WIDE_C:
+    return ("round", "gate", "rs")
+  return ("rank",) if rank_fused(channels, cp) else ("gate", "rs")
+
+
+def _check_wide(channels: int, cp: int) -> None:
+  check_width(channels, None if cp == channels == WIDE_C else cp)
+
+
+def wide_kernel_info(kernel: str, last: bool = False, cp: int = WIDE_C,
+                     channels: int = WIDE_C) -> dict:
+  """:func:`kernel_info` for one of :func:`wide_kernels` of the bf16
+  forward at width ``channels``: the C = 512 layer's (``cp`` = 512) or a
+  rank's holding ``cp`` gate channels (``last`` picks the res/skip
+  kernel's variant)."""
+  _check_wide(channels, cp)
+  if kernel not in wide_kernels(channels, cp):
+    raise ValueError(f"no {kernel} kernel at C = {channels}, C' = {cp}")
+  return _info(_library().wn_layer_wide_kernel_info, channels,
                WIDE_KERNELS.index(kernel), cp, int(last))
 
 
-def wide_passes(last: bool, cp: int = WIDE_C) -> dict:
-  """Passes of a 128-row tile in the C = 512 gate kernel at ``cp`` gate
-  channels (the layer's 512 or a rank's C'; min(cp, 128) channels each)
-  and in its res/skip kernel (256 of the n_rs columns each)."""
+def wide_passes(last: bool, cp: int = WIDE_C,
+                channels: int = WIDE_C) -> dict:
+  """Passes of a 128-row tile in each kernel at width ``channels`` and
+  ``cp`` gate channels (the C = 512 layer's 512 or a rank's C'): the gate
+  kernel's of min(cp, 128) channels each (one pass of every channel
+  below C = 512), the res/skip kernel's of 256 of the n_rs columns each;
+  the rank kernel's one (its res/skip passes run inside a unit)."""
+  if rank_fused(channels, cp):
+    return {"rank": 1}
   return {"gate": cp // min(cp, 128),
-          "rs": (WIDE_C if last else 2 * WIDE_C) // 256}
+          "rs": (channels if last else 2 * channels) // 256}
 
 
 def wide_grid(batch: int, t: int, last: bool, slots: int,
-              cp: int = WIDE_C) -> dict:
-  """The grid of the bf16 forward at C = 512 (``cp`` gate channels: the
-  layer's 512 or a rank's C') for ``batch`` x ``t`` rows on a device
-  holding ``slots`` of its blocks at once, as its launcher picks it: the
-  flat B*T rows in ``tiles`` of WIDE_TILE_ROWS (the last one short); a
-  unit is (tile, pass), unit u = tile * passes + pass; each kernel runs
-  min(units, slots) blocks, block b taking units b, b + blocks, ...
-  (:func:`block_units`)."""
+              cp: int = WIDE_C, channels: int = WIDE_C) -> dict:
+  """The grid of the bf16 gate and res/skip kernels (width
+  ``channels``, ``cp`` gate channels: the C = 512 layer's 512 or a rank's
+  C') for ``batch`` x ``t`` rows on a device holding ``slots`` of their
+  blocks at once, as the launcher picks it: the flat B*T rows in
+  ``tiles`` of WIDE_TILE_ROWS (the last one short); a unit is (tile,
+  pass), unit u = tile * passes + pass; each kernel runs min(units, slots)
+  blocks, block b taking units b, b + blocks, ... (:func:`block_units`)."""
   tiles = -(-batch * t // WIDE_TILE_ROWS)
   out = {"slots": slots, "tiles": tiles}
-  for kernel, passes in wide_passes(last, cp).items():
+  for kernel, passes in wide_passes(last, cp, channels).items():
     out[f"{kernel}_units"] = tiles * passes
     out[f"{kernel}_blocks"] = min(tiles * passes, slots)
   return out
 
 
 def block_units(units: int, blocks: int, block: int) -> range:
-  """The units block ``block`` of a persistent C = 512 kernel walks."""
+  """The units block ``block`` of a persistent gate or res/skip kernel
+  walks."""
   return range(block, units, blocks)
 
 
-def wide_schedule(batch: int, t: int, last: bool = False,
-                  cp: int = WIDE_C) -> dict:
+def wide_schedule(batch: int, t: int, last: bool = False, cp: int = WIDE_C,
+                  channels: int = WIDE_C) -> dict:
   """:func:`wide_grid` as the loaded library computes it on the current
   card (slots from the occupancy API)."""
+  _check_wide(channels, cp)
   vals = [ctypes.c_int() for _ in range(4)]
-  err = _library().wn_layer_wide_schedule(cp, batch, t, int(last),
+  err = _library().wn_layer_wide_schedule(channels, cp, batch, t, int(last),
                                           *[ctypes.byref(v) for v in vals])
   if err != 0:
-    raise RuntimeError(f"the C = 512 schedule failed: cudaError {err}")
-  slots, tiles, gate_blocks, rs_blocks = (v.value for v in vals)
-  return {"slots": slots, "tiles": tiles, "gate_blocks": gate_blocks,
-          "rs_blocks": rs_blocks}
+    raise RuntimeError(f"the schedule of (C={channels}, C'={cp}) failed: "
+                       f"cudaError {err}")
+  slots, tiles, *blocks = (v.value for v in vals)
+  products = [k for k in wide_kernels(channels, cp) if k != "round"]
+  return {"slots": slots, "tiles": tiles,
+          **{f"{k}_blocks": n for k, n in zip(products, blocks)}}
 
 
-def wide_scratch(batch: int, t: int, cp: int, bf16: bool) -> dict:
-  """The scratch of the C = 512 forward as one allocation: in bf16 (the
-  layer's, ``cp`` = 512, or a rank's holding ``cp`` gate channels) the
-  rounded x [B*T, C] and the acts [B*T, cp], bf16, the gate kernel's
-  operand and output; in f32 (the layer's) the acts [B*T, C] f32, which
-  the kernel writes and reads back. Byte ``offsets`` (each 256-byte
-  aligned), ``sizes`` and the total ``bytes``."""
+def wide_scratch(batch: int, t: int, cp: int, bf16: bool,
+                 channels: int = WIDE_C) -> dict:
+  """The scratch of the bf16 gate and res/skip kernels, or of the f32
+  layer at C = 512, as one allocation: in bf16 at C = 512 (the layer's,
+  ``cp`` = 512, or a rank's holding ``cp`` gate channels) the rounded x
+  [B*T, C] and the acts [B*T, cp], bf16, the gate kernel's operand and
+  output; in bf16 at (256, 128) the acts alone (its gate kernel reads the
+  f32 x); none where the rank kernel runs (its acts stay in shared
+  memory); in f32 (the C = 512 layer's) the acts [B*T, C] f32, which the
+  kernel writes and reads back. Byte ``offsets`` (each 256-byte aligned),
+  ``sizes`` and the total ``bytes``."""
   rows = batch * t
-  sizes = ({"x_bf": rows * WIDE_C * 2, "acts": rows * cp * 2} if bf16
-           else {"acts": rows * WIDE_C * 4})
+  if not bf16:
+    sizes = {"acts": rows * WIDE_C * 4}
+  elif channels == WIDE_C:
+    sizes = {"x_bf": rows * WIDE_C * 2, "acts": rows * cp * 2}
+  elif rank_fused(channels, cp):
+    sizes = {}
+  else:
+    sizes = {"acts": rows * cp * 2}
   offsets, end = {}, 0
   for name, size in sizes.items():
     offsets[name] = end
@@ -626,9 +680,9 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   :func:`wn_layer_shard_plain`.
 
   CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
-  shard kernel (``csrc/wn_layer_shard.cu``: FFMA in f32, tensor cores in
-  bf16; in bf16 at C = 512 the C = 512 layer's three wgmma kernels of
-  ``csrc/wn_layer.cu`` at gate width C'), which takes: x f32 [B, T, C];
+  shard kernels (in f32 the FFMA kernel of ``csrc/wn_layer_shard.cu``; in
+  bf16 the wgmma kernels of ``csrc/wn_layer.cu`` at gate width C',
+  :func:`wide_kernels`), which take: x f32 [B, T, C];
   cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when None); b_in_s
   f32; (C, C') one of ``shard_pairs()``. Anything else raises; it never
   falls back to the plain version. ``SHARD_LAUNCHES`` counts the calls
@@ -660,20 +714,23 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   lib = _library()
   with torch.cuda.device(dev):  # the launch goes to this device's stream
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if c == WIDE_C and wdt == torch.bfloat16:
-      # the C = 512 layer's three kernels at gate width C'
-      # (csrc/wn_layer.cu), with their operand and acts (wide_scratch)
-      scratch = torch.empty(wide_scratch(batch, t, cp, True)["bytes"],
-                            dtype=torch.uint8, device=dev)
+    if wdt == torch.bfloat16:
+      # csrc/wn_layer.cu: the rank kernel, or the gate and res/skip
+      # kernels at gate width C' with the acts between them (at C = 512
+      # after the rounding of x; wide_scratch)
+      nbytes = wide_scratch(batch, t, cp, True, c)["bytes"]
+      scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                 if nbytes else None)
       err = lib.wn_layer_shard_wide_forward(
           x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
           b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(),
-          scratch.data_ptr(), batch, t, cp, int(dilation), int(last), stream)
+          scratch.data_ptr() if scratch is not None else None, batch, t, c,
+          cp, int(dilation), int(last), stream)
     else:
       err = lib.wn_layer_shard_forward(
           x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
           b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), batch, t, c,
-          cp, int(dilation), int(wdt == torch.bfloat16), int(last), stream)
+          cp, int(dilation), int(last), stream)
   if err != 0:
     raise RuntimeError(f"wn_layer shard kernel launch failed: cudaError {err}")
   SHARD_LAUNCHES += 1
