@@ -110,8 +110,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      of Synthesizer.infer (infer_serving_many for --batch 4) in this
      process, the .pt's files equal the npz's, WN launches at the count the
      dispatch rule gives; `synthesize-wav` of two cuts of the speech
-     fixture against MelSTFT.get_mel_from_file + infer; `serve` as a
-     subprocess (`python -m waveglow_tpu_torch serve <pt>`): /healthz, one
+     fixture against MelSTFT.get_mel_from_file + infer; in bf16
+     (SINGLE_MODE), `serve` as a subprocess (`python -m
+     waveglow_tpu_torch serve <pt>`): /healthz, one
      body against this process's infer_serving, /reload of the .pt
      refused and of the npz taken, SIGTERM drains and it exits 0 within
      30 s.
@@ -123,7 +124,8 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      epoch 2 (steps 3 and 4, four train_step events in the metrics file);
      checkpoint 4 bit for bit a train(max_iterations=4) of the same
      settings in this process; `validate --full-run` of the newest
-     checkpoint and `--select 2` over all of them on the whole fixture
+     checkpoint and, in bf16 (SINGLE_MODE), `--select 2` over all of them
+     on the whole fixture
      (826 frames), its first half and two cuts: the iteration folders
      filter_checkpoints gives, every inferred_denoised.wav bit for bit
      normalize_wav + int16 of Synthesizer.infer in this process, every
@@ -195,14 +197,25 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      resume from 2 bit for bit the straight run, the checkpoint resumed
      unsharded at the mesh's step-3 loss, the step's wall, device busy,
      idle share and peak memory; one step at C = 512 on model = 2
-     against the unsharded step; (c) the train command as two processes
-     on the card over gloo (--num-processes 2 --process-id r
-     --coordinator-address 127.0.0.1:<port>, global batch 12, 6 rows a
-     process, two steps): equal losses and states on both ranks, process
-     0's first checkpoint against one process at phase 6's bounds, the
-     cross-process reduce's ms.
- 14. a `kernels` JSON line, the card's name and power limit, and last the
+     against the unsharded step; (c) in bf16 (SINGLE_MODE), the train
+     command as two processes on the card over gloo (--num-processes 2
+     --process-id r --coordinator-address 127.0.0.1:<port>, global batch
+     12, 6 rows a process, two steps): equal losses and states on both
+     ranks, process 0's first checkpoint against one process at phase 6's
+     bounds, the cross-process reduce's ms.
+ 14. benchmark: `python -m waveglow_tpu_torch benchmark --iters 2` as a
+     process in bf16 and f32 (full width, B=8 x 826 frames; the bench's
+     own latency and training repetitions): exit 0, its last stdout line
+     a JSON object with the JAX bench's keys (less vs_baseline and
+     headline_dtype_note; with power_limit_w and the launch counts),
+     value and every rate and time finite and positive, a finite
+     training loss, and the WN launches (and in bf16 the backward-kernel
+     calls) at the counts the code gives; both lines printed.
+ 15. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
+
+Every phase prints its wall seconds ("phase N (name): s"), and the run's
+split ends in a "phase seconds" line.
 
 Imports nothing of jax and nothing of the JAX package. Details go to
 ``<out>/chip_smoke.json`` (default ``chiprun_out/``).
@@ -218,6 +231,7 @@ import dataclasses
 import functools
 import http.server
 import json
+import math
 import os
 import re
 import shutil
@@ -236,7 +250,7 @@ import torch
 import torch.nn.functional as F
 from scipy.io import wavfile
 
-from waveglow_tpu_torch import native
+from waveglow_tpu_torch import bench, native
 from waveglow_tpu_torch.checkpointing import download, load_checkpoint_any
 from waveglow_tpu_torch.checkpointing.export_torch import (
     export_torch_checkpoint, params_to_state_dict)
@@ -256,7 +270,8 @@ from waveglow_tpu_torch.eval import metrics as eval_metrics
 from waveglow_tpu_torch.eval.plots import (make_same_width_by_filling_white,
                                            plot_melspec_np, save_image,
                                            stack_images_vertically)
-from waveglow_tpu_torch.hparams import (HParams, overwrite_custom_hparams,
+from waveglow_tpu_torch.hparams import (HParams, STFTHParams,
+                                        overwrite_custom_hparams,
                                         parse_custom_hparams)
 from waveglow_tpu_torch.inference.client import SynthesisClient
 from waveglow_tpu_torch.inference.denoiser import (BIAS_MEL_LENGTH, Denoiser,
@@ -423,6 +438,11 @@ MESH_MANY = (826, 517, 230, 200, 826, 517, 300)
 MESH_LONG = (LONG_FRAMES, LONG_FRAMES - 3)
 MESH_MICRO = (826, 800, 780, 826)
 MODES = {"f32": None, "bf16": torch.bfloat16}
+# Paths whose code is the same in both modes run in this one alone: the
+# serve command as a process (phase 9), validate --select (phase 10) and
+# the two-process train command (phase 13). Each mode's kernels run in
+# the phases' other steps.
+SINGLE_MODE = "bf16"
 DEVICE = "cuda"
 
 # Phase 3 times these dilations (the narrowest and the widest halo) and the
@@ -736,14 +756,16 @@ def find_cuobjdump() -> Path:
 def count_mma(sass: str, opcode: str = r"\bH(G)?MMA\.") -> dict:
   """Tensor-core instructions (HMMA and HGMMA; with ``opcode``
   r"\\bHGMMA\\.", wgmma alone) per kernel variant in the output of
-  ``cuobjdump -sass``."""
+  ``cuobjdump -sass``. Every opcode counted holds "MMA.", so a line
+  without it is passed over before any pattern is matched: the library's
+  SASS runs to millions of lines."""
   counts, name = {}, None
+  pattern = re.compile(opcode)
   for line in sass.splitlines():
-    m = re.search(r"Function : (\S+)", line)
-    if m:
-      name = kernel_variant(m.group(1))
+    if "Function : " in line:
+      name = kernel_variant(re.search(r"Function : (\S+)", line).group(1))
       counts[name] = 0
-    elif name is not None and re.search(opcode, line):
+    elif name is not None and "MMA." in line and pattern.search(line):
       counts[name] += 1
   return counts
 
@@ -2801,7 +2823,8 @@ def phase_cli(params: dict, hparams: HParams, seed: int, tmp: Path) -> dict:
     rec["launches"] = launches
     del synth, mel_op
     torch.cuda.empty_cache()
-    rec["serve"] = serve_subprocess(pt, npz, mode, mels[-1], seed, tmp)
+    if mode == SINGLE_MODE:
+      rec["serve"] = serve_subprocess(pt, npz, mode, mels[-1], seed, tmp)
     log(f"cli {mode} " + json.dumps(dict(rec, card=nvidia_smi_line())))
     info["modes"][mode] = rec
   # phase 10's `synthesize --include-stats` reruns the npz --batch 1 run
@@ -3048,9 +3071,10 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   lap("checkpoint_compare")
 
   # -- validate: the newest checkpoint, then every CLI_SELECT-th
-  runs = {"validate": ([], 1), "validate_select": (
-      ["--select", CLI_SELECT], len(filter_checkpoints(available,
-                                                       select=CLI_SELECT)))}
+  runs = {"validate": ([], 1)}
+  if mode == SINGLE_MODE:
+    runs["validate_select"] = (["--select", CLI_SELECT], len(
+        filter_checkpoints(available, select=CLI_SELECT)))
   for name, (extra, n_ckpts) in runs.items():
     command(name, ["validate", ckpts, work / name, val_dir, "--full-run",
                    "--custom-seed", seed, "--compute-dtype", dtype, *extra],
@@ -3153,8 +3177,7 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   info["backward_launches"] = sum(info["launches"][k][1] for k in
                                   ("train", "continue_train"))
   info["synthesis_launches"] = sum(info["launches"][k][0] for k in
-                                   ("validate", "validate_select",
-                                    "synthesize_stats"))
+                                   (*runs, "synthesize_stats"))
   log(f"cli_train {mode} " + json.dumps(dict(info, card=nvidia_smi_line())))
   return info
 
@@ -4568,13 +4591,127 @@ def phase_mesh_train(seed: int, tmp: Path) -> dict:
     t0 = time.perf_counter()
     out[mode]["wide"] = mesh_wide_step(mode, seed, entries)
     seconds[f"{mode} wide"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out[mode]["cli"] = mesh_cli_train(mode, seed, tmp, tmp / "mesh_wavs",
-                                      val_dir, entries)
-    seconds[f"{mode} cli"] = time.perf_counter() - t0
+    if mode == SINGLE_MODE:
+      t0 = time.perf_counter()
+      out[mode]["cli"] = mesh_cli_train(mode, seed, tmp, tmp / "mesh_wavs",
+                                        val_dir, entries)
+      seconds[f"{mode} cli"] = time.perf_counter() - t0
   out["seconds"] = seconds
   log("phase 13 seconds " + json.dumps(seconds))
   return out
+
+
+# -- phase 14 --------------------------------------------------------------
+
+# The `benchmark` command's timed synthesis calls in this phase; its
+# latency and training repetitions are the bench's own defaults.
+BENCH_ITERS = 2
+BENCH_TIMEOUT_S = 300
+# The bench line's keys: the JAX bench's (bench.py) without vs_baseline and
+# headline_dtype_note, with the card's power limit and the launch counts
+BENCH_KEYS = ("metric", "value", "unit", "dtype", "batch",
+              "utterance_seconds", "per_utterance_realtime_factor",
+              "platform", "device", "power_limit_w", "batch1_latency_s_p50",
+              "per_utterance_realtime_factor_batch1",
+              "streaming_first_audio_latency_s_p50",
+              "streaming_first_chunk_audio_s", "streaming_chunk_frames",
+              "streaming_first_audio_denoised_s_p50",
+              "training_samples_per_sec", "training_step_seconds",
+              "training_loss_finite", "training_samples_per_sec_batch24",
+              "training_batch24_config", "wn_kernel_launches")
+BENCH_COUNTS = ("batch", "streaming_chunk_frames", "wn_kernel_launches",
+                "bwd_kernel_launches")
+
+
+def first_denoised_windows(frames: int, chunk: int, halo: int,
+                           stft: STFTHParams) -> int:
+  """Stream windows the bench's denoised first-audio call runs: raw pieces
+  of ``chunk`` frames until the streaming denoiser holds its first block
+  (the block the bench sizes from the chunk), or every window."""
+  edge = stft.filter_length - stft.hop_length
+  half = stft.filter_length // 2
+  block = max(stft.hop_length,
+              (chunk * UPSAMPLE_STRIDE - 2 * edge + half)
+              // stft.hop_length * stft.hop_length)
+  needed = max(0, half - edge) + block + 2 * edge - half
+  windows = stream_windows(frames, chunk, halo)
+  return min(windows, -(-needed // (chunk * UPSAMPLE_STRIDE)))
+
+
+def expected_bench_launches(args: argparse.Namespace, hp: HParams,
+                            bf16: bool) -> tuple:
+  """(WN kernel launches, backward-kernel calls) of a bench run of
+  ``args`` at ``hp``: one synthesis (n_flows x n_layers launches) a
+  throughput call and its warm-up; with latency, a batch-1 call and its
+  warm-up, one window a raw first-audio call and its warm-up, the
+  denoiser's bias capture and the windows of each denoised first-audio
+  call; with training, each micro-batch's forward (twice with remat) and,
+  in bf16, one backward-kernel call a layer a micro-batch, over a warm-up
+  and ``train_iters`` steps at ``train_batch`` and at 24 in 3."""
+  config = WaveGlowConfig.from_hparams(hp)
+  per = config.n_flows * config.n_layers
+  syntheses = 1 + args.iters
+  if args.latency:
+    reps = 1 + args.latency_iters
+    denoised = first_denoised_windows(
+        args.frames, args.stream_chunk_frames, receptive_halo_frames(config),
+        STFTHParams())
+    syntheses += 2 * reps + 1 + reps * denoised
+  thp = overwrite_custom_hparams(hp, parse_custom_hparams(args.train_hparams))
+  micro_steps = 0
+  if args.train:
+    micro_steps = (1 + args.train_iters) * (
+        thp.grad_accum + (bench.BATCH24_ACCUM if args.train_batch24 else 0))
+  forward, backward = expected_train_launches(per, thp.remat, micro_steps, 0,
+                                              0, bf16)
+  return per * syntheses + forward, backward
+
+
+def phase_bench(mode: str, tmp: Path) -> dict:
+  """Phase 14: `python -m waveglow_tpu_torch benchmark` as a process at
+  ``--iters BENCH_ITERS``: exit 0; its last stdout line a JSON object with
+  every key of BENCH_KEYS (and in bf16 bwd_kernel_launches); value and
+  every rate and time finite and positive; a finite training loss; the
+  launch counts those the code gives."""
+  dtype = "bfloat16" if mode == "bf16" else "float32"
+  cmd = [sys.executable, "-m", "waveglow_tpu_torch", "benchmark",
+         "--dtype", dtype, "--iters", str(BENCH_ITERS), "--device", DEVICE,
+         "--log", str(tmp / f"bench_{mode}.log")]
+  t0 = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                        timeout=BENCH_TIMEOUT_S)
+  wall_s = time.perf_counter() - t0
+  if proc.returncode != 0:
+    fail(f"benchmark {mode} exited {proc.returncode}:\n"
+         f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+  last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+  try:
+    line = json.loads(last)
+  except json.JSONDecodeError:
+    fail(f"benchmark {mode}: the last stdout line is not JSON: {last!r}")
+  keys = set(BENCH_KEYS) | ({"bwd_kernel_launches"} if mode == "bf16"
+                            else set())
+  if set(line) != keys:
+    fail(f"benchmark {mode}: keys missing {sorted(keys - set(line))}, "
+         f"unexpected {sorted(set(line) - keys)}")
+  bad = [k for k, v in line.items()
+         if k not in BENCH_COUNTS and isinstance(v, (int, float))
+         and not isinstance(v, bool) and not (math.isfinite(v) and v > 0)]
+  if bad or line["training_loss_finite"] is not True:
+    fail(f"benchmark {mode}: not finite and positive {bad}, loss finite "
+         f"{line['training_loss_finite']}: {last}")
+  args = bench.build_parser().parse_args(
+      ["--iters", str(BENCH_ITERS), "--dtype", dtype])
+  hp = overwrite_custom_hparams(HParams(), {"compute_dtype": dtype})
+  forward, backward = expected_bench_launches(args, hp, mode == "bf16")
+  got = (line["wn_kernel_launches"], line.get("bwd_kernel_launches", 0))
+  if got != (forward, backward):
+    fail(f"benchmark {mode}: launches (WN, backward) {got}, expected "
+         f"{(forward, backward)}")
+  log(f"benchmark {mode} on {nvidia_smi_line()}: {wall_s:.1f} s")
+  log(f"benchmark {mode} {last}")
+  return {"line": line, "wall_s": wall_s,
+          "expected_launches": [forward, backward]}
 
 
 def main() -> None:
@@ -4583,53 +4720,84 @@ def main() -> None:
   parser.add_argument("--out", type=Path, default=Path("chiprun_out"))
   args = parser.parse_args()
 
-  device = phase_device()
-  build = phase_build()
-  kernel = phase_kernel(args.seed)
+  seconds = {}
+
+  def phase(number: int, name: str, fn, *fn_args):
+    """``fn(*fn_args)``, its wall seconds printed and kept."""
+    t0 = time.perf_counter()
+    out = fn(*fn_args)
+    seconds[f"{number} {name}"] = time.perf_counter() - t0
+    log(f"phase {number} ({name}): {seconds[f'{number} {name}']:.1f} s")
+    return out
+
+  t_run = time.perf_counter()
+  device = phase(1, "device", phase_device)
+  build = phase(2, "build", phase_build)
+  kernel = phase(3, "kernel", phase_kernel, args.seed)
   with tempfile.TemporaryDirectory() as tmp:
     # phase 8 reloads these two npz files; they are kept to the end
     paths = {"first": Path(tmp) / "1.npz", "other": Path(tmp) / "2.npz"}
-    t0 = time.perf_counter()
-    ckpt = full_width_checkpoint(args.seed, paths["first"])
-    log(f"checkpoint 12x256 written and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    slices, first = {}, {}
-    for mode in MODES:
-      slices[mode], first[mode] = phase_slice(ckpt, mode, args.seed)
-    # bf16 really ran: the same request (same seed) differs from f32
-    bf16_vs_f32 = float(np.abs(first["bf16"] - first["f32"]).max())
-    scale = float(np.abs(first["f32"]).max())
-    log(f"bf16 vs f32, first request: max abs {bf16_vs_f32} (scale {scale})")
-    if not bf16_vs_f32 > 0:
-      fail("bf16 serving gave the f32 waveform: bf16 did not run")
-    slices["bf16"]["vs_f32_max_abs"] = bf16_vs_f32
-    trainable = phase_trainable(args.seed)
-    trains = {}
-    for mode in MODES:
-      with tempfile.TemporaryDirectory() as train_tmp:
-        trains[mode] = phase_train(mode, args.seed, Path(train_tmp))
-    streams = {mode: phase_stream(ckpt, mode, args.seed) for mode in MODES}
-    CheckpointWaveglow.from_params(full_width_params(args.seed + 1),
-                                   HParams(), iteration=2).save(
-                                       paths["other"])
-    serves = {mode: phase_serve(ckpt, paths, mode, args.seed)
+
+    def slice_phase():
+      t0 = time.perf_counter()
+      ckpt = full_width_checkpoint(args.seed, paths["first"])
+      log(f"checkpoint 12x256 written and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+      slices, first = {}, {}
+      for mode in MODES:
+        slices[mode], first[mode] = phase_slice(ckpt, mode, args.seed)
+      # bf16 really ran: the same request (same seed) differs from f32
+      bf16_vs_f32 = float(np.abs(first["bf16"] - first["f32"]).max())
+      scale = float(np.abs(first["f32"]).max())
+      log(f"bf16 vs f32, first request: max abs {bf16_vs_f32} "
+          f"(scale {scale})")
+      if not bf16_vs_f32 > 0:
+        fail("bf16 serving gave the f32 waveform: bf16 did not run")
+      slices["bf16"]["vs_f32_max_abs"] = bf16_vs_f32
+      return ckpt, slices
+
+    def train_phase():
+      trains = {}
+      for mode in MODES:
+        with tempfile.TemporaryDirectory() as train_tmp:
+          trains[mode] = phase_train(mode, args.seed, Path(train_tmp))
+      return trains
+
+    def serve_phase():
+      CheckpointWaveglow.from_params(full_width_params(args.seed + 1),
+                                     HParams(), iteration=2).save(
+                                         paths["other"])
+      return {mode: phase_serve(ckpt, paths, mode, args.seed)
               for mode in MODES}
-    clis = phase_cli(ckpt.state_dict, HParams(), args.seed, Path(tmp))
-    cli_trains = {mode: phase_cli_train(mode, args.seed, Path(tmp),
-                                        clis["files"])
-                  for mode in MODES}
-    meshes = {mode: phase_mesh(ckpt, paths, mode, args.seed)
-              for mode in MODES}
-    meshes["serve_refusal"] = serve_refuses_missing_cards(paths["first"],
-                                                          Path(tmp))
-    log("mesh serve refusal " + json.dumps(meshes["serve_refusal"]))
-    t0 = time.perf_counter()
-    widths = phase_widths(args.seed, Path(tmp))
-    log(f"phase 12 (widths {list(WIDE_WIDTHS)}): "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mesh_train = phase_mesh_train(args.seed, Path(tmp))
-    log(f"phase 13 (mesh training): {time.perf_counter() - t0:.1f} s")
+
+    def mesh_phase():
+      meshes = {mode: phase_mesh(ckpt, paths, mode, args.seed)
+                for mode in MODES}
+      meshes["serve_refusal"] = serve_refuses_missing_cards(paths["first"],
+                                                            Path(tmp))
+      log("mesh serve refusal " + json.dumps(meshes["serve_refusal"]))
+      return meshes
+
+    ckpt, slices = phase(4, "slice", slice_phase)
+    trainable = phase(5, "trainable layer", phase_trainable, args.seed)
+    trains = phase(6, "train", train_phase)
+    streams = phase(7, "stream", lambda: {
+        mode: phase_stream(ckpt, mode, args.seed) for mode in MODES})
+    serves = phase(8, "serve", serve_phase)
+    clis = phase(9, "cli", phase_cli, ckpt.state_dict, HParams(), args.seed,
+                 Path(tmp))
+    cli_trains = phase(10, "cli train and validate", lambda: {
+        mode: phase_cli_train(mode, args.seed, Path(tmp), clis["files"])
+        for mode in MODES})
+    meshes = phase(11, "mesh", mesh_phase)
+    widths = phase(12, f"widths {list(WIDE_WIDTHS)}", phase_widths,
+                   args.seed, Path(tmp))
+    mesh_train = phase(13, "mesh training", phase_mesh_train, args.seed,
+                       Path(tmp))
+    benches = phase(14, "benchmark", lambda: {
+        mode: phase_bench(mode, Path(tmp)) for mode in MODES})
+  seconds["total"] = time.perf_counter() - t_run
+  log("phase seconds " + json.dumps(seconds))
 
   kernels = []
   for mode in MODES:
@@ -4866,9 +5034,10 @@ def main() -> None:
                                               "device_busy_ms", "idle_share",
                                               "max_memory_allocated_bytes")}
                        for d, m in MESH_TRAIN},
-        "cli_two_processes": {k: mesh_train[mode]["cli"][k]
-                              for k in ("loss_err", "grad_norm_rel",
-                                        "reduce", "wall_s")}}
+        **({"cli_two_processes": {k: mesh_train[mode]["cli"][k]
+                                  for k in ("loss_err", "grad_norm_rel",
+                                            "reduce", "wall_s")}}
+           if mode == SINGLE_MODE else {})}
     if mode == "bf16":
       entry.update(
           launches=launched["shard_backward"],
@@ -4902,7 +5071,7 @@ def main() -> None:
                               if k != "shard_backward"},
                            "shard_backward": {
                                "cases": sbwd["cases"], "f32": sbwd["f32"]}},
-            "kernels": kernels}
+            "bench": benches, "phase_seconds": seconds, "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))
   print(device["nvidia_smi"])

@@ -1299,3 +1299,64 @@ def test_denoiser_check_flags_a_capture_that_ignores_the_mel(
   monkeypatch.setattr(smoke, "capture_bias", zeros_only)
   with pytest.raises(SystemExit):
     smoke.denoiser_check(mode, 5, tiny_capture)
+
+
+# -- phase 14: the benchmark command's launch accounting and line keys -----
+
+def test_first_denoised_windows(smoke):
+  """The bench sizes its denoiser block so that one chunk completes the
+  first block: one window at chunk 128 (826 frames, 100-frame halo) and
+  at 16, and one padded window for a short mel; a chunk under the
+  block's floor needs several."""
+  from waveglow_tpu_torch.hparams import STFTHParams
+  stft = STFTHParams()
+  assert smoke.first_denoised_windows(826, 128, 100, stft) == 1
+  assert smoke.first_denoised_windows(40, 16, 5, stft) == 1
+  assert smoke.first_denoised_windows(200, 128, 100, stft) == 1
+  # chunk 2: a block of one hop needs 256 + 1536 - 512 samples, 3 pieces
+  assert smoke.first_denoised_windows(100, 2, 5, stft) == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expected_bench_launches_count_a_tiny_run(smoke, monkeypatch, dtype):
+  """The bench on the CPU at a tiny config, the plain versions counted in
+  the kernels' place: the WN launches and the backward calls (bf16) equal
+  the phase's count, and the line's keys are the phase's."""
+  from waveglow_tpu_torch.hparams import HParams, overwrite_custom_hparams
+  kl = smoke.kl
+  plain, backward = kl.wn_layer_plain, kl.wn_layer_backward
+
+  def counted(*args, **kwargs):
+    kl.LAUNCHES += 1
+    return plain(*args, **kwargs)
+
+  def counted_backward(saved, dx_next, dskip, dilation, valid_t=None,
+                       compute_dtype=None):
+    if compute_dtype is torch.bfloat16:
+      kl.BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, compute_dtype)
+
+  monkeypatch.setattr(kl, "wn_layer_plain", counted)
+  monkeypatch.setattr(kl, "wn_layer_backward", counted_backward)
+  hp = overwrite_custom_hparams(HParams(), {
+      "n_flows": "2", "n_layers": "2", "n_channels": "32",
+      "segment_length": "2048"})
+  argv = ["--device", "cpu", "--batch", "2", "--frames", "40", "--iters",
+          "1", "--latency-iters", "2", "--train-iters", "1",
+          "--stream-chunk-frames", "16", "--train-batch", "2",
+          "--dtype", dtype]
+  line = smoke.bench.run_benchmark(smoke.bench.build_parser().parse_args(argv),
+                                   hparams=hp)
+  want = smoke.expected_bench_launches(
+      smoke.bench.build_parser().parse_args(argv),
+      overwrite_custom_hparams(hp, {"compute_dtype": dtype}),
+      dtype == "bfloat16")
+  # 4 layers a synthesis: 2 throughput, 3 batch-1, 3 raw, 1 capture, 3
+  # denoised; 2 steps x (1 + 3) micro-batches, each forward twice (remat)
+  assert want == (4 * (2 + 3 + 3 + 1 + 3) + 2 * 4 * 2 * 4,
+                  4 * 2 * 4 if dtype == "bfloat16" else 0)
+  assert (line["wn_kernel_launches"],
+          line.get("bwd_kernel_launches", 0)) == want
+  keys = set(smoke.BENCH_KEYS) | ({"bwd_kernel_launches"}
+                                  if dtype == "bfloat16" else set())
+  assert set(line) == keys

@@ -36,7 +36,7 @@ TINY = ("n_flows=2,n_channels=32,n_layers=2,segment_length=4096,"
         "batch_size=2,seed=1")
 SEED = 5
 COMMANDS = ("download", "train", "continue-train", "validate", "synthesize",
-            "synthesize-wav", "serve")
+            "synthesize-wav", "benchmark", "serve")
 ENTRY_FILES = ("original.wav", "inferred_denoised.wav", "original.mel.npy",
                "inferred_denoised.mel.npy", "original.png",
                "inferred_denoised.png", "diff.png", "comparison.png")
@@ -87,11 +87,13 @@ def expected_pcm(wav):
   return convert_wav(normalize_wav(np.asarray(wav)), np.int16)
 
 
-def test_parser_lists_the_ports_seven_commands():
+def test_parser_lists_the_ports_eight_commands():
+  """The JAX CLI's eight commands, in its order (benchmark before
+  serve)."""
   parser = cli.build_parser()
   sub = next(a for a in parser._actions if a.dest == "command")
   assert tuple(sub.choices) == COMMANDS
-  assert "benchmark" not in parser.format_help()
+  assert "benchmark" in parser.format_help()
 
 
 @pytest.mark.parametrize("flag", ["--coordinator-address", "--num-processes",

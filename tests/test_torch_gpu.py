@@ -1405,3 +1405,43 @@ def test_shard_bwd_schedule_reads_the_loaded_build(cuda, c, cp):
   sms = torch.cuda.get_device_properties(cuda).multi_processor_count
   n_splits, _ = kl.bwd_splits(12, 2_000, tiles, sms)
   assert tiles * 12 * n_splits >= sms
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bench_runs_through_the_kernels_at_full_width(cuda, dtype):
+  """The port's bench on the card at full width (12 x 8 x 256), one timed
+  synthesis call, 2 latency repetitions, one timed train step a section:
+  96 WN launches a synthesis (2 throughput, 3 batch-1, 3 raw stream
+  windows, the denoiser's capture, 3 denoised first blocks of one window
+  each), 192 a micro-batch step with remat (2 steps x (1 + 3)
+  micro-batches); in bf16 one backward-kernel call a layer a micro-batch;
+  a finite loss and the card's name and power limit in the line."""
+  from waveglow_tpu_torch import bench
+  args = bench.build_parser().parse_args(
+      ["--iters", "1", "--latency-iters", "2", "--train-iters", "1",
+       "--dtype", dtype])
+  line = bench.run_benchmark(args)
+  assert line["wn_kernel_launches"] == 96 * (2 + 3 + 3 + 1 + 3) + 192 * 8
+  if dtype == "bfloat16":
+    assert line["bwd_kernel_launches"] == 96 * 8
+  else:
+    assert "bwd_kernel_launches" not in line
+  assert line["training_loss_finite"] is True
+  assert line["platform"] == "gpu"
+  assert line["device"] == torch.cuda.get_device_name(cuda)
+  assert line["power_limit_w"] > 0
+  for key in ("value", "batch1_latency_s_p50",
+              "streaming_first_audio_latency_s_p50",
+              "streaming_first_audio_denoised_s_p50",
+              "training_samples_per_sec", "training_samples_per_sec_batch24"):
+    assert np.isfinite(line[key]) and line[key] > 0, key
+
+
+def test_to_device_takes_an_expanded_host_tensor(cuda):
+  """One seed for every row is an ``expand`` of one element: pinning
+  refused it, so ``infer`` with one seed at B > 1 failed on the card."""
+  from waveglow_tpu_torch.device import to_device
+  seeds = torch.tensor([7]).expand(8)
+  got = to_device(seeds, cuda, torch.int64)
+  torch.cuda.synchronize()
+  assert got.device.type == "cuda" and got.tolist() == [7] * 8

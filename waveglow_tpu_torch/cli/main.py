@@ -1,18 +1,20 @@
 """CLI dispatcher: waveglow-tpu-torch {download,train,continue-train,
-validate,synthesize,synthesize-wav,serve} (counterpart of
+validate,synthesize,synthesize-wav,benchmark,serve} (counterpart of
 ``waveglow_tpu/cli/main.py``).
 
 Each subcommand's init function configures its parser and returns the
 handler; the run wrapper sets up logging, logs a platform banner to the
 file logger, times the handler and prints a success or failure banner.
 Exit codes: 0 success (and a bare invocation, which prints help), 1
-failure, 130 interrupted. The JAX CLI's ``benchmark`` is not offered: it
-runs the JAX package's bench, and the port has no bench yet.
+failure, 130 interrupted. ``benchmark`` runs the port's bench
+(:mod:`waveglow_tpu_torch.bench`) in this process and prints its one JSON
+line on stdout (the log goes to stderr).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 import tempfile
@@ -20,7 +22,7 @@ import time
 from pathlib import Path
 
 from waveglow_tpu_torch import __version__
-from waveglow_tpu_torch.cli.argparse_helpers import parse_path
+from waveglow_tpu_torch.cli.argparse_helpers import parse_device, parse_path
 
 PROG = "waveglow-tpu-torch"
 DEFAULT_LOG = Path(tempfile.gettempdir()) / f"{PROG}.log"
@@ -52,6 +54,29 @@ def _download_ns(ns: argparse.Namespace) -> bool:
   return True
 
 
+def _init_benchmark_parser(parser: argparse.ArgumentParser):
+  parser.description = "Benchmark synthesis/training throughput on the card."
+  parser.add_argument("--batch", type=int, default=8)
+  parser.add_argument("--frames", type=int, default=826)
+  parser.add_argument("--iters", type=int, default=5)
+  parser.add_argument("--dtype", default="bfloat16",
+                      choices=["bfloat16", "float32"])
+  parser.add_argument("--device", type=parse_device, default="cuda",
+                      help="where the model runs: the card (fails without "
+                           "one) or cpu (the plain PyTorch path, for tests)")
+  return _benchmark_ns
+
+
+def _benchmark_ns(ns: argparse.Namespace) -> bool:
+  from waveglow_tpu_torch import bench
+
+  args = bench.build_parser().parse_args(
+      ["--batch", str(ns.batch), "--frames", str(ns.frames),
+       "--iters", str(ns.iters), "--dtype", ns.dtype, "--device", ns.device])
+  print(json.dumps(bench.run_benchmark(args)), flush=True)
+  return True
+
+
 def _subcommands():
   from waveglow_tpu_torch.cli.serve_cmd import init_serve_parser
   from waveglow_tpu_torch.cli.synthesis_cmd import (init_synthesis_parser,
@@ -70,6 +95,8 @@ def _subcommands():
        init_synthesis_parser),
       ("synthesize-wav", "synthesize audio files sample-wise "
        "(copy synthesis)", init_synthesis_wav_parser),
+      ("benchmark", "measure synthesis/training throughput",
+       _init_benchmark_parser),
       ("serve", "run the HTTP synthesis daemon", init_serve_parser),
   )
 

@@ -37,7 +37,8 @@ def to_device(value, device: torch.device,
   ``non_blocking=True``. A blocking host-to-device copy synchronises the
   stream, so the host would wait for all work enqueued before it; this
   copy waits for nothing and lands in stream order. Device tensors are
-  only moved or cast."""
+  only moved or cast. A host tensor whose elements share memory (an
+  ``expand``) is made contiguous first: pinning refuses it."""
   if isinstance(value, torch.Tensor) and value.device.type != "cpu":
     return value.to(device=device, dtype=dtype)
   if isinstance(value, np.ndarray):
@@ -45,4 +46,4 @@ def to_device(value, device: torch.device,
   host = torch.as_tensor(value, dtype=dtype)
   if device.type != "cuda":
     return host
-  return host.pin_memory().to(device, non_blocking=True)
+  return host.contiguous().pin_memory().to(device, non_blocking=True)
