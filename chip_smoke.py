@@ -193,9 +193,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      every leaf's gradient against the unsharded step at phase 6's
      bounds, launches at the code's counts (96 x model shard launches a
      forward, 96 x model shard-backward calls a bf16 step, no full-layer
-     launch on a model > 1 mesh), three steps with saves at 1 and 2, the
-     resume from 2 bit for bit the straight run, the checkpoint resumed
-     unsharded at the mesh's step-3 loss, the step's wall, device busy,
+     launch on a model > 1 mesh), three steps with one save, at 1, the
+     resume from 1 bit for bit the straight run, the checkpoint resumed
+     unsharded at the mesh's step-2 loss, the step's wall, device busy,
      idle share and peak memory; one step at C = 512 on model = 2
      against the unsharded step; (c) in bf16 (SINGLE_MODE), the train
      command as two processes on the card over gloo (--num-processes 2
@@ -211,7 +211,26 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      value and every rate and time finite and positive, a finite
      training loss, and the WN launches (and in bf16 the backward-kernel
      calls) at the counts the code gives; both lines printed.
- 15. a `kernels` JSON line, the card's name and power limit, and last the
+ 15. orbax: the port's orbax checkpoint store (its own zstd decoder,
+     native/zstd.cpp built with g++, OCDBT and zarr code). The committed
+     fixture tests/data/orbax_tiny/7.orbax, which the JAX package's
+     orbax and TensorStore wrote (zstd-compressed chunks and nodes), read
+     equal to its npz copy bit for bit (the decoder's g++ build timed
+     apart from the read). Then in bf16 at full width (12 x
+     8 x 256, batch 8 of 24 cuts, 3 steps an epoch): train() for 3 steps
+     with checkpoint_backend=orbax and checkpoint_async=true, saving at
+     1 and 2 (timed: the trainer's sharded_state, then save, which
+     returns after the one host copy; the write and commit on their own
+     thread; the next save or the end of train() waits); `continue-train` from 2.orbax for 1 step,
+     saving 3.orbax, whose restore equals train()'s step-3 state bit for
+     bit, and read onto a logical model = 2 mesh (restore_sharded: each
+     rank's slices) and saved back as the ranks' chunks, equal again;
+     `synthesize` from 3.orbax (phase 9's four mels, --batch 1),
+     every file against in-process synthesis from the restored state bit
+     for bit. Launches (train, continue-train, synthesize) at the code's
+     counts; the save, async-wait, restore and synthesize seconds and the
+     checkpoint's bytes each on their own line.
+ 16. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Every phase prints its wall seconds ("phase N (name): s"), and the run's
@@ -251,7 +270,10 @@ import torch.nn.functional as F
 from scipy.io import wavfile
 
 from waveglow_tpu_torch import bench, native
-from waveglow_tpu_torch.checkpointing import download, load_checkpoint_any
+from waveglow_tpu_torch.checkpointing import (download,
+                                              get_all_iterations_any,
+                                              load_checkpoint_any,
+                                              orbax_store)
 from waveglow_tpu_torch.checkpointing.export_torch import (
     export_torch_checkpoint, params_to_state_dict)
 from waveglow_tpu_torch.checkpointing.from_jax import (
@@ -290,8 +312,10 @@ from waveglow_tpu_torch.ops.conv import shift_time
 from waveglow_tpu_torch.parallel.mesh import make_mesh, make_time_mesh
 from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
                                                   gather_tree,
+                                                  rank_trees_to_numpy,
                                                   shard_trainable_params)
 from waveglow_tpu_torch.parallel.time_shard import span_windows
+from waveglow_tpu_torch.training import loop as train_loop
 from waveglow_tpu_torch.training import step as train_lib
 from waveglow_tpu_torch.training.data import SegmentDataset, load_dataset
 from waveglow_tpu_torch.training.loop import train
@@ -2968,6 +2992,18 @@ def time_entry_writes(mel_op: MelSTFT, wav_path: Path, wav: np.ndarray,
   return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def no_saves():
+  """``train()`` that saves nothing (and so validates nothing): the state
+  it returns is the same."""
+  check = train_loop.check_save_it
+  train_loop.check_save_it = lambda *args: False
+  try:
+    yield
+  finally:
+    train_loop.check_save_it = check
+
+
 def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   """``train``, ``continue-train``, ``validate`` and ``synthesize
   --include-stats`` from the command line at full width. The checkpoints
@@ -3056,9 +3092,11 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
     fail(f"cli continue-train {mode}: checkpoints {available}, train_step "
          f"events {step_its}, expected [1, 2, 3, 4] both")
   # -- the same settings in one train() call: checkpoint 4 bit for bit
-  state = train(custom, None, entries, val_entries, work / "ref_ck",
-                max_iterations=4, device=DEVICE)
-  shutil.rmtree(work / "ref_ck")
+  # (no saves: they do not touch the state, and each is 1 GB)
+  with no_saves():
+    state = train(custom, None, entries, val_entries, work / "ref_ck",
+                  max_iterations=4, device=DEVICE)
+  shutil.rmtree(work / "ref_ck", ignore_errors=True)
   lap("reference_train")
   loaded = {4: CheckpointWaveglow.load(ckpts / "4.npz")}
   bad = state_mismatch(loaded[4], state, hp)
@@ -4018,9 +4056,9 @@ def phase_widths(seed: int, tmp: Path) -> dict:
 
 # Mesh training on logical meshes of the one card (the ranks run one after
 # another: the numbers are checked, no speedup is shown): full width, batch
-# 12 and segment 16,000 (phase 6's), three train() steps with saves at
-# steps 1 (the first iteration's) and MESH_SAVE_AT and a resume from the
-# latter; validation on MESH_VAL_WAVS cuts (one batch a save). Then one
+# 12 and segment 16,000 (phase 6's), three train() steps with one save, at
+# step MESH_RESUME_FROM (the first iteration's), and a resume from it;
+# validation on MESH_VAL_WAVS cuts (one batch a save). Then one
 # step at C = MESH_WIDE on a model = 2 mesh at WIDTH_TRAIN_BATCH rows, and
 # the train command in two processes (gloo on the one card: NCCL will not
 # put two ranks on one device), global batch 12, 6 rows a process, two
@@ -4030,7 +4068,8 @@ def phase_widths(seed: int, tmp: Path) -> dict:
 # that order moves.
 MESH_TRAIN = ((1, 2), (2, 1), (2, 2))
 MESH_TRAIN_STEPS = 3
-MESH_SAVE_AT = 2
+MESH_RESUME_FROM = 1
+MESH_SAVE_AT = 2  # the two-process train command's second save
 MESH_VAL_WAVS = 12
 MESH_WIDE = 512
 CLI_PROCS = 2
@@ -4343,12 +4382,12 @@ def mesh_train_case(mode: str, custom: dict, hp: HParams,
       evals=val_batches * len(saves))
   rec.update(train_launches=counts, losses=[r["loss"] for r in steps],
              step_s=[r["duration_s"] for r in steps])
-  if len(steps) != MESH_TRAIN_STEPS or saves != [1, MESH_SAVE_AT]:
+  if len(steps) != MESH_TRAIN_STEPS or saves != [MESH_RESUME_FROM]:
     fail(f"{name}: train() ran {len(steps)} steps, saved at {saves}")
   if counts != want:
     fail(f"{name}: train() launched {counts}, expected {want}")
   t0 = time.perf_counter()
-  ckpt = CheckpointWaveglow.load(tmp / "ck" / f"{MESH_SAVE_AT}.npz")
+  ckpt = CheckpointWaveglow.load(tmp / "ck" / f"{MESH_RESUME_FROM}.npz")
   seconds["load"] = time.perf_counter() - t0
   t0 = time.perf_counter()
   resumed = train(None, None, entries, val_entries, tmp / "ck_resumed",
@@ -4360,18 +4399,20 @@ def mesh_train_case(mode: str, custom: dict, hp: HParams,
   del resumed
   seconds["resume"] = time.perf_counter() - t0
   t0 = time.perf_counter()
+  # the step after the save, unsharded, from the same state as the mesh's
   train({"mesh_data": "1", "mesh_model": "1"}, tmp / "logs_flat", entries,
         val_entries, tmp / "ck_flat", checkpoint=ckpt,
-        max_iterations=MESH_TRAIN_STEPS, device=DEVICE)
+        max_iterations=MESH_RESUME_FROM + 1, device=DEVICE)
   seconds["unsharded_resume"] = time.perf_counter() - t0
   flat = [r["loss"] for r in read_metrics(tmp / "logs_flat")
           if r["event"] == "train_step"]
   rec["unsharded_resume_loss"] = flat
-  rec["unsharded_resume_loss_err"] = abs(flat[0] - rec["losses"][-1])
+  rec["unsharded_resume_loss_err"] = abs(
+      flat[0] - rec["losses"][MESH_RESUME_FROM])
   if rec["unsharded_resume_loss_err"] > STEP_LOSS_TOL[mode]:
     fail(f"{name}: the checkpoint resumed unsharded took step "
-         f"{MESH_TRAIN_STEPS} at loss {flat}, the mesh at "
-         f"{rec['losses'][-1]}")
+         f"{MESH_RESUME_FROM + 1} at loss {flat}, the mesh at "
+         f"{rec['losses'][MESH_RESUME_FROM]}")
   del straight, ckpt
   for path in ("ck", "ck_resumed", "ck_flat", "logs", "logs_flat"):
     shutil.rmtree(tmp / path, ignore_errors=True)
@@ -4567,8 +4608,8 @@ def phase_mesh_train(seed: int, tmp: Path) -> dict:
   val_entries = load_dataset(val_dir)
   params_np = full_width_params(seed)
   for mode in MODES:
-    custom = dict(TRAIN_HPARAMS, seed=str(seed),
-                  iters_per_checkpoint=str(MESH_SAVE_AT),
+    # one 1 GB save a mesh case, the first iteration's
+    custom = dict(TRAIN_HPARAMS, seed=str(seed), iters_per_checkpoint="0",
                   compute_dtype="bfloat16" if mode == "bf16" else "float32")
     hp = overwrite_custom_hparams(HParams(), custom)
     config = WaveGlowConfig.from_hparams(hp)
@@ -4714,6 +4755,222 @@ def phase_bench(mode: str, tmp: Path) -> dict:
           "expected_launches": [forward, backward]}
 
 
+# -- phase 15 --------------------------------------------------------------
+
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_tiny"
+ORBAX_FIXTURE_IT = 7
+# 24 cuts at batch 8: 3 steps an epoch. train() takes 3 steps of a 2-epoch
+# schedule (saves at 1 and 2, none at its end); continue-train from 2 with
+# epochs=1 takes step 3, the schedule's last, and saves it
+ORBAX_BATCH = 8
+ORBAX_STEPS = 3
+ORBAX_HPARAMS = {"batch_size": str(ORBAX_BATCH), "epochs": "2",
+                 "iters_per_checkpoint": "2", "epochs_per_checkpoint": "0",
+                 "checkpoint_backend": "orbax", "checkpoint_async": "true",
+                 "compute_dtype": "bfloat16"}
+
+
+def orbax_fixture_check() -> dict:
+  """The committed fixture, which orbax and TensorStore wrote, read by the
+  port's store equal to its npz copy: every leaf's dtype, shape and
+  bytes, the optimizer leaves, the metadata. The zstd decoder's g++
+  build (a no-op when an earlier phase built it) is timed apart from the
+  read."""
+  t0 = time.perf_counter()
+  native.get_zstd_lib()
+  build_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  got = orbax_store.restore_host(ORBAX_FIXTURE / f"{ORBAX_FIXTURE_IT}.orbax")
+  read_s = time.perf_counter() - t0
+  want = CheckpointWaveglow.load(ORBAX_FIXTURE / f"{ORBAX_FIXTURE_IT}.npz")
+  state = {"params": want.state_dict, "opt_state": want.optimizer,
+           "step": want.iteration}
+  bad = state_mismatch(got, state, want.get_hparams())
+  if bad:
+    fail(f"orbax fixture: the port's read differs from the npz copy at "
+         f"{bad[:5]} ({len(bad)} leaves)")
+  leaves = len(flatten_tree(got.state_dict)) + len(got.optimizer)
+  size = sum(p.stat().st_size for p in (ORBAX_FIXTURE / f"{ORBAX_FIXTURE_IT}"
+                                        ".orbax").rglob("*") if p.is_file())
+  return {"leaves": leaves, "bytes": size, "build_s": build_s,
+          "read_s": read_s, "bit_exact": True}
+
+
+@contextlib.contextmanager
+def orbax_timings(rec: dict):
+  """Record the seconds of each trainer's ``sharded_state`` (gathering
+  the state to save, on the device), AsyncSaver.save (the host copy and
+  the start of the write; with ``state``, what a save stalls the step),
+  wait (what the caller blocks), and of each save's background write and
+  commit, under those keys of ``rec``."""
+  saver, save_cls = orbax_store.AsyncSaver, orbax_store._Save
+  originals = {"state": (train_loop._Trainer, "sharded_state"),
+               "save": (saver, "save"), "wait": (saver, "wait"),
+               "write": (save_cls, "write"), "commit": (save_cls, "commit")}
+  kept = {k: getattr(owner, name) for k, (owner, name) in originals.items()}
+
+  def timed(key):
+    fn = kept[key]
+
+    def run(*args, **kwargs):
+      t0 = time.perf_counter()
+      try:
+        return fn(*args, **kwargs)
+      finally:
+        rec.setdefault(key, []).append(time.perf_counter() - t0)
+    return run
+
+  for key, (owner, name) in originals.items():
+    setattr(owner, name, timed(key))
+  try:
+    yield rec
+  finally:
+    for key, (owner, name) in originals.items():
+      setattr(owner, name, kept[key])
+
+
+def phase_orbax(seed: int, tmp: Path, files: dict) -> dict:
+  """Phase 15: the fixture, then train() with async orbax saves,
+  continue-train from the save and synthesize from it, in bf16 at full
+  width (SINGLE_MODE)."""
+  mode = SINGLE_MODE
+  info = {"mode": mode, "seconds": {}}
+  t0 = time.perf_counter()
+  info["fixture"] = orbax_fixture_check()
+  info["seconds"]["fixture"] = time.perf_counter() - t0
+  log("orbax fixture " + json.dumps(info["fixture"]))
+
+  hp = overwrite_custom_hparams(HParams(), ORBAX_HPARAMS)
+  config = WaveGlowConfig.from_hparams(hp)
+  per_forward = config.n_flows * config.n_layers
+  work = tmp / "orbax"
+  train_dir, val_dir, ckpts = work / "train", work / "val", work / "ckpts"
+  entries = write_wavs(train_dir, seed)
+  val_entries = write_val_wavs(val_dir)
+  val_batches = -(-len(val_entries) // ORBAX_BATCH)
+
+  def launched(name, expected):
+    got = (kl.LAUNCHES, kl.BWD_LAUNCHES)
+    if got != expected:
+      fail(f"orbax {name}: (forward, backward) launches {got}, expected "
+           f"{expected}")
+    info.setdefault("launches", {})[name] = got
+
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  t0 = time.perf_counter()
+  with orbax_timings({}) as timings:
+    state = train(ORBAX_HPARAMS, None, entries, val_entries, ckpts,
+                  max_iterations=ORBAX_STEPS, device=DEVICE)
+  info["seconds"]["train"] = time.perf_counter() - t0
+  launched("train", expected_train_launches(per_forward, hp.remat,
+                                            ORBAX_STEPS, 2, val_batches,
+                                            True))
+  if get_all_iterations_any(ckpts) != [1, 2]:
+    fail(f"orbax train: checkpoints {get_all_iterations_any(ckpts)}, "
+         "expected [1, 2]")
+  info["async"] = {k: timings.get(k, []) for k in ("state", "save", "wait",
+                                                   "write", "commit")}
+  if len(info["async"]["write"]) != 2 or len(info["async"]["commit"]) != 2:
+    fail(f"orbax train: async writes {info['async']}, expected 2 saves")
+  log(f"orbax sharded_state s: {info['async']['state']}; save (host "
+      f"copy, save returns) s: {info['async']['save']}")
+  log(f"orbax background write s: {info['async']['write']}; commit s: "
+      f"{info['async']['commit']}")
+  log(f"orbax async wait s: {info['async']['wait']}")
+
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  cont = run_cli(["continue-train", train_dir, val_dir, ckpts,
+                  "--custom-hparams", "epochs=1", "--compute-dtype",
+                  "bfloat16", "--tl-dir", work / "logs"],
+                 work / "continue_train.log")
+  info["seconds"]["continue_train"] = cont["wall_s"]
+  launched("continue_train", expected_train_launches(
+      per_forward, hp.remat, 1, 1, val_batches, True))
+  if get_all_iterations_any(ckpts) != [1, 2, 3]:
+    fail(f"orbax continue-train: checkpoints "
+         f"{get_all_iterations_any(ckpts)}, expected [1, 2, 3]")
+  path = ckpts / "3.orbax"
+  t0 = time.perf_counter()
+  restored = orbax_store.restore_host(path)
+  info["seconds"]["restore"] = time.perf_counter() - t0
+  info["checkpoint_bytes"] = sum(p.stat().st_size for p in path.rglob("*")
+                                 if p.is_file())
+  log(f"orbax restore s: {info['seconds']['restore']} "
+      f"({info['checkpoint_bytes']} bytes)")
+  bad = state_mismatch(restored, state, overwrite_custom_hparams(
+      hp, {"epochs": "1"}))
+  if bad:
+    fail(f"orbax continue-train: 3.orbax differs from train()'s step 3 at "
+         f"{bad[:5]} ({len(bad)} leaves)")
+  info["resume_bit_exact"] = True
+  del state
+
+  # the sharded layout on a logical model = 2 mesh of the card: each
+  # rank's slices read alone, then saved as the ranks' chunks and read
+  # back whole
+  mesh = make_mesh(1, 2, devices=logical_devices(2))
+  t0 = time.perf_counter()
+  rank_params, rank_opt, _ = orbax_store.restore_sharded(path, mesh)
+  info["seconds"]["restore_sharded"] = time.perf_counter() - t0
+  cut = rank_trees_to_numpy(shard_trainable_params(restored.state_dict,
+                                                   mesh)[0])
+  for rank, (got, want) in enumerate(zip(rank_params, cut)):
+    if any(a.tobytes() != b.tobytes() for a, b in zip(tree_leaves(got),
+                                                      tree_leaves(want))):
+      fail(f"orbax restore_sharded: rank {rank}'s slices differ from the "
+           "restored state's")
+  t0 = time.perf_counter()
+  resaved = orbax_store.save_sharded(work / "sharded", 3, rank_params,
+                                     rank_opt, restored.get_hparams())
+  info["seconds"]["sharded_save"] = time.perf_counter() - t0
+  bad = state_mismatch(orbax_store.restore_host(resaved), {
+      "params": restored.state_dict, "opt_state": restored.optimizer,
+      "step": restored.iteration}, restored.get_hparams())
+  if bad:
+    fail(f"orbax sharded save: the ranks' chunks read back differ at "
+         f"{bad[:5]} ({len(bad)} leaves)")
+  info["sharded_bit_exact"] = True
+  log(f"orbax restore_sharded s: {info['seconds']['restore_sharded']}; "
+      f"sharded save s: {info['seconds']['sharded_save']}")
+  del rank_params, rank_opt, cut
+
+  mel_dir = Path(files["mels"])
+  names = sorted(p.stem for p in mel_dir.glob("*.npy"))
+  mels = [np.load(mel_dir / f"{n}.npy") for n in names]
+  out = work / "synthesized"
+  kl.LAUNCHES = kl.BWD_LAUNCHES = 0
+  synth_run = run_cli(["synthesize", path, mel_dir, "--custom-seed", seed,
+                       "--batch", 1, "--compute-dtype", "bfloat16", "-out",
+                       out], work / "synthesize.log")
+  info["seconds"]["synthesize"] = synth_run["wall_s"]
+  log(f"orbax synthesize s: {synth_run['wall_s']}")
+  launched("synthesize", (expected_cli_launches(
+      [m.shape[1] for m in mels], BUCKET, 1, per_forward), 0))
+  synth = Synthesizer(CheckpointWaveglow(
+      state_dict=restored.state_dict, optimizer=None,
+      learning_rate=restored.learning_rate, iteration=restored.iteration,
+      hparams=restored.hparams), compute_dtype="bfloat16", device=DEVICE)
+  for name, mel in zip(names, mels):
+    want = synth.infer(mel, seed=seed, bucket_frames=BUCKET).wav_denoised
+    if not np.isfinite(np.asarray(want)).all():
+      fail(f"orbax synthesize: {name} is not finite")
+    miss = pcm_mismatch(out / f"{name}.wav", expected_pcm(want),
+                        hp.sampling_rate)
+    if miss:
+      fail(f"orbax synthesize from 3.orbax: {miss}")
+  info["synthesis_bit_exact"] = True
+  del synth, restored
+  shutil.rmtree(work)
+  torch.cuda.empty_cache()
+  info["forward_launches"] = (info["launches"]["train"][0]
+                              + info["launches"]["continue_train"][0])
+  info["backward_launches"] = (info["launches"]["train"][1]
+                               + info["launches"]["continue_train"][1])
+  info["synthesis_launches"] = info["launches"]["synthesize"][0]
+  log("orbax " + json.dumps(info))
+  return info
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -4796,6 +5053,8 @@ def main() -> None:
                        Path(tmp))
     benches = phase(14, "benchmark", lambda: {
         mode: phase_bench(mode, Path(tmp)) for mode in MODES})
+    orbax = phase(15, "orbax", phase_orbax, args.seed, Path(tmp),
+                  clis["files"])
   seconds["total"] = time.perf_counter() - t_run
   log("phase seconds " + json.dumps(seconds))
 
@@ -4812,7 +5071,9 @@ def main() -> None:
                      + serves[mode]["launches"]
                      + clis["modes"][mode]["launches"]
                      + cli_trains[mode]["synthesis_launches"]
-                     + meshes[mode]["launches"]["fused"]),
+                     + meshes[mode]["launches"]["fused"]
+                     + (orbax["synthesis_launches"]
+                        if mode == orbax["mode"] else 0)),
         "max_abs_err": max(errs), "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4829,6 +5090,8 @@ def main() -> None:
         "cli_launches": clis["modes"][mode]["launches"],
         "cli_validate_launches": cli_trains[mode]["synthesis_launches"],
         "mesh_launches": meshes[mode]["launches"]["fused"],
+        "orbax_launches": (orbax["synthesis_launches"]
+                           if mode == orbax["mode"] else 0),
         # the last layer and B=8, each with its library yardstick
         **{f"{key}_{case}": kernel["timed"][shape][key]
            for case, shape in (("last", (mode, 1, True, LAST_DILATION)),
@@ -4859,9 +5122,13 @@ def main() -> None:
         "source": "waveglow_tpu_torch/csrc/wn_layer.cu",
         "replaces": "waveglow_tpu/kernels/wn_layer.py:174",
         "launches": (trains[mode]["launches"]
-                     + cli_trains[mode]["forward_launches"]),
+                     + cli_trains[mode]["forward_launches"]
+                     + (orbax["forward_launches"]
+                        if mode == orbax["mode"] else 0)),
         "train_launches": trains[mode]["launches"],
         "cli_train_launches": cli_trains[mode]["forward_launches"],
+        "orbax_launches": (orbax["forward_launches"]
+                           if mode == orbax["mode"] else 0),
         "max_abs_err": max(c["forward_max_abs_err"] for c in cases),
         "forward_bound_max": max(c["forward_bound"] for c in cases),
         "ms": rec["ms"],
@@ -4889,9 +5156,11 @@ def main() -> None:
       "source": "waveglow_tpu_torch/csrc/wn_layer_bwd.cu",
       "replaces": "waveglow_tpu/kernels/wn_layer.py:198",
       "launches": (trains["bf16"]["backward_launches"]
-                   + cli_trains["bf16"]["backward_launches"]),
+                   + cli_trains["bf16"]["backward_launches"]
+                   + orbax["backward_launches"]),
       "train_launches": trains["bf16"]["backward_launches"],
       "cli_train_launches": cli_trains["bf16"]["backward_launches"],
+      "orbax_launches": orbax["backward_launches"],
       "max_abs_err": max(c["backward_max_abs_err"] for c in cases),
       "max_err_of_scale": max(c["backward_max_err_of_scale"] for c in cases),
       "tolerance_of_scale": KERNEL_TOL_BF16_REL,
@@ -5071,7 +5340,8 @@ def main() -> None:
                               if k != "shard_backward"},
                            "shard_backward": {
                                "cases": sbwd["cases"], "f32": sbwd["f32"]}},
-            "bench": benches, "phase_seconds": seconds, "kernels": kernels}
+            "bench": benches, "orbax": orbax, "phase_seconds": seconds,
+            "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))
   print(device["nvidia_smi"])

@@ -926,8 +926,8 @@ def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
                                                     tmp_path):
   """Phase 13(b) on a tiny model, f32, a (1, 2) mesh of the CPU: the
   step against the unsharded one, the launch counts (the CPU's plain
-  versions counted in the kernels' place), train() with saves at 1 and
-  2, the resume bit for bit and the checkpoint resumed unsharded."""
+  versions counted in the kernels' place), train() with its one save at
+  1, the resume bit for bit and the checkpoint resumed unsharded."""
   import dataclasses
   from waveglow_tpu_torch.checkpointing.from_jax import (
       trainable_params_from_numpy, tree_leaves)
@@ -968,7 +968,7 @@ def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
     return shard_plain(*args, **kwargs)
 
   monkeypatch.setattr(kl, "wn_layer_shard_plain", counted)
-  custom = {"batch_size": "4", "iters_per_checkpoint": "2",
+  custom = {"batch_size": "4", "iters_per_checkpoint": "0",
             "epochs_per_checkpoint": "0", "n_flows": "2", "n_layers": "2",
             "n_channels": "32", "segment_length": "2048", "seed": "3"}
   hp = overwrite_custom_hparams(HParams(), custom)
@@ -986,8 +986,8 @@ def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
                               ref, 1, 2, entries, entries[:4], tmp_path)
   assert rec["step_launches"] == {"fused": 0, "backward": 0, "shard": 16,
                                   "shard_backward": 0}
-  # 4 layers x 2 ranks x (3 steps with remat + 2 validation batches)
-  assert rec["train_launches"]["shard"] == 4 * 2 * (2 * 3 + 2)
+  # 4 layers x 2 ranks x (3 steps with remat + 1 validation batch)
+  assert rec["train_launches"]["shard"] == 4 * 2 * (2 * 3 + 1)
   assert rec["resume_bitwise"] and rec["grad_norm_rel"] < 1e-5
   assert rec["device_busy_ms"] == "not measured"
   assert len(rec["losses"]) == smoke.MESH_TRAIN_STEPS
@@ -1360,3 +1360,58 @@ def test_expected_bench_launches_count_a_tiny_run(smoke, monkeypatch, dtype):
   keys = set(smoke.BENCH_KEYS) | ({"bwd_kernel_launches"}
                                   if dtype == "bfloat16" else set())
   assert set(line) == keys
+
+
+def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+  """Phase 15 on a tiny model on the CPU, the plain versions counted in
+  the kernels' place: the committed fixture against its npz copy, train()
+  with async orbax saves at 1 and 2, continue-train from 2.orbax to a
+  3.orbax equal to train()'s step 3, synthesize from it file for file,
+  and the launch counts of each."""
+  kl = smoke.kl
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+  monkeypatch.setattr(smoke, "logical_devices", lambda n: ["cpu"] * n)
+  plain, backward = kl.wn_layer_plain, kl.wn_layer_backward
+
+  def counted(*args, **kwargs):
+    kl.LAUNCHES += 1
+    return plain(*args, **kwargs)
+
+  def counted_backward(saved, dx_next, dskip, dilation, valid_t=None,
+                       compute_dtype=None):
+    if compute_dtype is torch.bfloat16:
+      kl.BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, compute_dtype)
+
+  monkeypatch.setattr(kl, "wn_layer_plain", counted)
+  monkeypatch.setattr(kl, "wn_layer_backward", counted_backward)
+  run = smoke.cli_main.run
+  monkeypatch.setattr(smoke.cli_main, "run",
+                      lambda argv: run([*argv, "--device", "cpu"]))
+  tiny = {"n_flows": "2", "n_layers": "2", "n_channels": "32",
+          "segment_length": "4096"}
+  monkeypatch.setattr(smoke, "ORBAX_HPARAMS", dict(smoke.ORBAX_HPARAMS,
+                                                   **tiny))
+  mels = tmp_path / "mels"
+  mels.mkdir()
+  rng = np.random.default_rng(0)
+  for i, frames in enumerate((20, 37)):
+    np.save(mels / f"{i}_{frames}.npy",
+            rng.uniform(-11, 1, (80, frames)).astype(np.float32))
+  info = smoke.phase_orbax(3, tmp_path, {"mels": str(mels)})
+  per_forward = 4
+  # 3 steps with remat and 2 saves' validation batch; then 1 step, 1 save
+  assert info["launches"]["train"] == (per_forward * (2 * 3 + 2),
+                                       per_forward * 3)
+  assert info["launches"]["continue_train"] == (per_forward * (2 + 1),
+                                                per_forward)
+  # the denoiser capture and one synthesis a file
+  assert info["launches"]["synthesize"] == (per_forward * 3, 0)
+  assert info["fixture"]["bit_exact"] and info["resume_bit_exact"]
+  assert info["synthesis_bit_exact"] and info["sharded_bit_exact"]
+  assert len(info["async"]["write"]) == len(info["async"]["commit"]) == 2
+  assert len(info["async"]["state"]) == len(info["async"]["save"]) == 2
+  assert info["fixture"]["build_s"] >= 0
+  assert info["checkpoint_bytes"] > 0
+  assert not (tmp_path / "orbax").exists()

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``waveglow_tpu_torch`` and neither
 ``chip_smoke.py`` nor an ablation script imports jax or anything of the
 JAX package, nor a package that the card's machine does not have (it has
-torch, numpy and scipy, not matplotlib, pandas, Pillow or tensorstore).
+torch, numpy and scipy, not matplotlib, pandas, Pillow, tensorstore, orbax
+or a zstd binding: the checkpoint store decodes zstd itself).
 ``torch.utils.tensorboard`` stays allowed: the training loop imports it
 lazily and raises a clear error without it."""
 
@@ -31,7 +32,8 @@ def imported_modules(path: Path):
 
 # not installed where the port runs
 MISSING_ON_THE_CARD = ("matplotlib", "pandas", "PIL", "imageio", "skimage",
-                       "librosa", "tensorstore", "orbax")
+                       "librosa", "tensorstore", "orbax", "zstandard", "zstd",
+                       "numcodecs")
 
 
 def forbidden(name: str) -> bool:
@@ -73,10 +75,12 @@ def test_scan_catches_a_package_the_card_lacks(tmp_path):
   probe = tmp_path / "probe.py"
   probe.write_text("import numpy\nfrom matplotlib import pyplot as plt\n"
                    "def f():\n  import pandas as pd\n  from PIL import Image\n"
-                   "  from torch.utils.tensorboard import SummaryWriter\n")
+                   "  from torch.utils.tensorboard import SummaryWriter\n"
+                   "  import zstandard\n  from numcodecs import Zstd\n")
   assert sorted(m for m in imported_modules(probe)
                 if missing_on_the_card(m)) == [
-      "PIL", "PIL.Image", "matplotlib", "matplotlib.pyplot", "pandas"]
+      "PIL", "PIL.Image", "matplotlib", "matplotlib.pyplot", "numcodecs",
+      "numcodecs.Zstd", "pandas", "zstandard"]
 
 
 def test_native_loader_is_scanned_and_its_own():

@@ -434,13 +434,21 @@ def test_checkpoint_directory_helpers_match_jax(tmp_path):
 
 
 def test_any_helpers_never_pass_over_a_newer_orbax_save(tmp_path):
-  """``3.npz`` beside ``5.orbax/state``: the newest save is the orbax one,
-  which the port lists and refuses to load; ``3.npz`` is not returned in
-  its place."""
+  """``3.npz`` beside ``5.orbax``: the newest save is the orbax one, which
+  the port lists and reads (``load_checkpoint_any`` whole, equal to the
+  JAX package's read; ``load_checkpoint_lazy`` by reference); ``3.npz`` is
+  not returned in its place."""
+  from waveglow_tpu.checkpointing import orbax_store as jax_orbax
+  from waveglow_tpu_torch.checkpointing import orbax_store
   params, hp = tiny_params()
   CheckpointWaveglow.from_params(params, hp, iteration=3).save(
       tmp_path / "3.npz")
-  (tmp_path / "5.orbax" / "state").mkdir(parents=True)
+  port_hp = ckpting.CheckpointWaveglow.from_params(
+      params, hp, iteration=5).get_hparams()
+  leaves = tree_leaves(params)
+  opt = [np.asarray(4, np.int32)] + [np.full_like(x, 0.5) for x in leaves] \
+      + [np.full_like(x, 0.25) for x in leaves]
+  orbax_store.save_sharded(tmp_path, 5, params, opt, port_hp)
   (tmp_path / "8.orbax").mkdir()  # no state item: not a checkpoint
   assert (ckpting.get_all_iterations_any(tmp_path)
           == jax_ckpting.get_all_iterations_any(tmp_path) == [3, 5])
@@ -449,9 +457,15 @@ def test_any_helpers_never_pass_over_a_newer_orbax_save(tmp_path):
   assert it == 5 and last == (tmp_path / "5.orbax").resolve()
   assert ckpting.get_checkpoint_any(tmp_path, 3) == tmp_path / "3.npz"
   assert ckpting.load_checkpoint_any(tmp_path / "3.npz").iteration == 3
-  for load in (ckpting.load_checkpoint_any, ckpting.load_checkpoint_lazy):
-    with pytest.raises(ValueError, match="reads no orbax checkpoint"):
-      load(last)
+  port = ckpting.load_checkpoint_any(last)
+  ref = jax_orbax.restore_host(last)
+  assert port.iteration == ref.iteration == 5
+  for a, b in zip(tree_leaves(port.state_dict) + port.optimizer,
+                  jax.tree_util.tree_leaves(ref.state_dict) + ref.optimizer):
+    np.testing.assert_array_equal(a, np.asarray(b))
+  lazy = ckpting.load_checkpoint_lazy(last)
+  assert isinstance(lazy, orbax_store.OrbaxCheckpointRef)
+  assert lazy.iteration == 5 and lazy.get_hparams().n_flows == 5
   with pytest.raises(FileNotFoundError):
     ckpting.get_checkpoint_any(tmp_path, 8)
   with pytest.raises(FileNotFoundError):

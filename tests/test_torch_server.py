@@ -544,6 +544,27 @@ def test_reload_swaps_npz_weights_and_refuses_torch(client, service,
   np.testing.assert_array_equal(client.synthesize(mel, seed=70), before)
 
 
+def test_reload_takes_an_orbax_directory(client, tmp_path):
+  """An orbax directory reloads as its npz twin does (it holds no code):
+  the same samples after either reload."""
+  from waveglow_tpu_torch.checkpointing import orbax_store
+  mel = rand_mel(10, seed=71)
+  other = tiny_checkpoint(seed=9, iteration=580124)
+  other.save(tmp_path / "other.npz")
+  path = orbax_store.save_sharded(tmp_path, 580124, other.state_dict, None,
+                                  other.get_hparams())
+  tiny_checkpoint(seed=1).save(tmp_path / "orig.npz")
+  try:
+    out = client.reload(path)
+    assert out["status"] == "reloaded" and out["iteration"] == 580124
+    from_orbax = client.synthesize(mel, seed=71)
+    client.reload(tmp_path / "other.npz")
+    np.testing.assert_array_equal(client.synthesize(mel, seed=71),
+                                  from_orbax)
+  finally:
+    client.reload(tmp_path / "orig.npz")
+
+
 def test_reload_during_concurrent_requests(tmp_path):
   """Raw requests racing a hot-swap each return the old or the new
   model's samples; the daemon ends idle."""
@@ -573,7 +594,12 @@ def test_sniff_and_load_checkpoint_as(tmp_path):
   torch.save({"w": torch.zeros(2)}, str(tmp_path / "zip.pt"))
   torch.save({"w": torch.zeros(2)}, str(tmp_path / "legacy.pt"),
              _use_new_zipfile_serialization=False)
-  (tmp_path / "ckpt.orbax").mkdir()
+  from waveglow_tpu_torch.checkpointing import orbax_store
+  from waveglow_tpu_torch.checkpointing.from_jax import tree_leaves
+  npz = tiny_checkpoint(seed=2, iteration=12)
+  orbax_store.save_sharded(tmp_path, 12, npz.state_dict, None,
+                           npz.get_hparams())
+  (tmp_path / "12.orbax").rename(tmp_path / "ckpt.orbax")
   assert sniff_checkpoint_format(tmp_path / "c.npz") == "npz"
   assert sniff_checkpoint_format(tmp_path / "zip.pt") == "torch"
   assert sniff_checkpoint_format(tmp_path / "legacy.pt") == "torch"
@@ -581,8 +607,10 @@ def test_sniff_and_load_checkpoint_as(tmp_path):
   assert load_checkpoint_as(tmp_path / "c.npz", "npz").iteration == 12
   with pytest.raises(ValueError, match="unrecognized torch checkpoint"):
     load_checkpoint_as(tmp_path / "zip.pt", "torch")
-  with pytest.raises(ValueError, match="reads no orbax checkpoint"):
-    load_checkpoint_as(tmp_path / "ckpt.orbax", "orbax")
+  orbax = load_checkpoint_as(tmp_path / "ckpt.orbax", "orbax")
+  assert orbax.iteration == 12 and orbax.hparams == npz.hparams
+  for a, b in zip(tree_leaves(orbax.state_dict), tree_leaves(npz.state_dict)):
+    np.testing.assert_array_equal(a, b)
   with pytest.raises(ValueError, match="unknown checkpoint format"):
     load_checkpoint_as(tmp_path / "c.npz", "exotic")
   with pytest.raises(KeyError):  # a swapped file fails as npz, unpickled

@@ -472,17 +472,32 @@ def test_train_defaults_to_the_card(tmp_path):
   assert not (tmp_path / "ck").exists()
 
 
-@pytest.mark.parametrize("setting,queue", [
-    ({"checkpoint_backend": "orbax"}, "Checkpoint interop"),
-    ({"checkpoint_async": "true"}, "Checkpoint interop"),
-])
-def test_unported_settings_raise(tmp_path, setting, queue):
-  """Settings this slice does not implement raise, naming the ROADMAP.md
-  queue they wait for, instead of being ignored."""
+@pytest.mark.parametrize("setting", ["orbax", "async-without-orbax"])
+def test_checkpoint_settings(tmp_path, setting):
+  """``checkpoint_backend="orbax"`` saves ``<it>.orbax`` directories that
+  hold the state ``train()`` returns; ``checkpoint_async`` without it
+  raises the JAX package's error, as the JAX ``train()`` does."""
   entries = write_speech_dataset(tmp_path / "data", n=2)
-  with pytest.raises(ValueError, match=f"ROADMAP.md queue .*{queue}"):
-    train(dict(LOOP_HPARAMS, **setting), None, entries, entries,
-          tmp_path / "ck", max_iterations=1, device="cpu")
+  if setting == "orbax":
+    from waveglow_tpu_torch.checkpointing import orbax_store
+    out = train(dict(LOOP_HPARAMS, iters_per_checkpoint="1",
+                     checkpoint_backend="orbax"), None, entries, entries,
+                tmp_path / "ck", max_iterations=1, device="cpu")
+    saved = orbax_store.restore_host(tmp_path / "ck" / "1.orbax")
+    assert saved.get_hparams().checkpoint_backend == "orbax"
+    for a, b in zip(tree_leaves(saved.state_dict) + saved.optimizer,
+                    tree_leaves(out["params"]) + out["opt_state"]):
+      np.testing.assert_array_equal(a, b)
+    return
+  custom = dict(LOOP_HPARAMS, checkpoint_async="true")
+  match = "requires checkpoint_backend=orbax"
+  with pytest.raises(ValueError, match=match):
+    train(custom, None, entries, entries, tmp_path / "ck",
+          max_iterations=1, device="cpu")
+  with pytest.raises(ValueError, match=match):
+    jax_loop.train(custom, None, to_jax_entries(entries),
+                   to_jax_entries(entries), tmp_path / "jax",
+                   max_iterations=1)
 
 
 # -- (h) checkpoints across the packages ---------------------------------------

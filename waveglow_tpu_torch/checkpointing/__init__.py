@@ -2,21 +2,21 @@
 ``waveglow_tpu/checkpointing/__init__.py``): the sniff by content, loaders
 that take its result, and directory helpers over both save formats.
 
-The port reads the native npz store and every reference-era torch ``.pt``
-form (:mod:`.import_torch`). It reads no orbax checkpoint: the JAX
-package's reader imports jax, and the card's machine has no other. An
-orbax directory raises ``ValueError`` before anything is read; the
-directory helpers still list ``<it>.orbax`` saves, so the newest save of a
-directory is never passed over for an older npz.
+The port reads the native npz store, the orbax directories the JAX
+package's orbax backend writes (:mod:`.orbax_store`, with its own OCDBT,
+zarr and zstd code: no orbax, TensorStore or jax) and every reference-era
+torch ``.pt`` form (:mod:`.import_torch`).
 """
 
 import zipfile
 from pathlib import Path
 from typing import List, Tuple, Union
 
+from waveglow_tpu_torch.checkpointing.orbax_store import (
+    OrbaxCheckpointRef, checkpoint_path, get_all_orbax_iterations,
+    is_orbax_checkpoint, load_checkpoint_ref, restore_host)
 from waveglow_tpu_torch.checkpointing.store import (
-    CheckpointWaveglow, get_all_checkpoint_iterations,
-    get_all_orbax_iterations, is_orbax_checkpoint, orbax_checkpoint_path)
+    CheckpointWaveglow, get_all_checkpoint_iterations)
 
 
 def sniff_checkpoint_format(path: Union[str, Path]) -> str:
@@ -60,24 +60,25 @@ def load_checkpoint_as(path: Union[str, Path], fmt: str) -> CheckpointWaveglow:
         load_torch_checkpoint
     return load_torch_checkpoint(path)
   if fmt == "orbax":
-    raise ValueError(
-        f"{path}: an orbax checkpoint directory; the port reads no orbax "
-        "checkpoint (the JAX package's reader imports jax, and the card's "
-        "machine has no other reader). Convert it to the npz format with "
-        "the JAX package first")
+    return restore_host(Path(path))
   raise ValueError(f"unknown checkpoint format {fmt!r}")
 
 
 def load_checkpoint_any(path: Union[str, Path]) -> CheckpointWaveglow:
-  """Load a checkpoint of any format the port reads (npz, torch ``.pt``),
-  detected by content (:func:`sniff_checkpoint_format`)."""
+  """Load a checkpoint of any format the port reads (npz, orbax directory,
+  torch ``.pt``), detected by content (:func:`sniff_checkpoint_format`)."""
   return load_checkpoint_as(path, sniff_checkpoint_format(path))
 
 
-def load_checkpoint_lazy(path: Union[str, Path]) -> CheckpointWaveglow:
-  """:func:`load_checkpoint_any`: npz and torch are single files and load
-  eagerly; the JAX package opens orbax directories lazily, which the port
-  cannot read (``ValueError``)."""
+def load_checkpoint_lazy(
+    path: Union[str, Path]) -> Union[CheckpointWaveglow, OrbaxCheckpointRef]:
+  """:func:`load_checkpoint_any`, but an orbax directory opens by
+  reference (its metadata only): ``train()`` then reads its tensors, on a
+  mesh each model rank only its slices. npz and torch are single files and
+  load eagerly."""
+  path = Path(path)
+  if path.is_dir():
+    return load_checkpoint_ref(path)
   return load_checkpoint_any(path)
 
 
@@ -95,7 +96,7 @@ def get_checkpoint_any(checkpoints_dir: Union[str, Path],
   npz = Path(checkpoints_dir) / f"{iteration}.npz"
   if npz.is_file():
     return npz
-  orbax = orbax_checkpoint_path(checkpoints_dir, iteration)
+  orbax = checkpoint_path(checkpoints_dir, iteration)
   if is_orbax_checkpoint(orbax):
     return orbax
   raise FileNotFoundError(

@@ -140,14 +140,9 @@ class CheckpointWaveglow:
 
 
 # -- checkpoint directories ---------------------------------------------------
-# One ``<iteration>.npz`` file per save; the JAX package's orbax backend
-# writes ``<iteration>.orbax`` directories beside them. The port reads no
-# orbax checkpoint, but it lists them, so a directory whose newest save is
-# an orbax one is never mistaken for one that ends at an older npz.
-
-ORBAX_SUFFIX = ".orbax"
-_ORBAX_STATE_ITEM = "state"
-
+# One ``<iteration>.npz`` file per save; orbax saves are ``<iteration>.orbax``
+# directories beside them (``orbax_store``), and the helpers of the package
+# (``checkpointing.get_last_checkpoint_any``, ...) list both.
 
 def get_checkpoint_filename(iteration: int) -> str:
   return f"{iteration}{CKPT_EXT}"
@@ -198,25 +193,3 @@ def filter_checkpoints(iterations: List[int], select: Optional[int] = None,
   if select > 0:
     result = [it for it in result if it % select == 0]
   return result
-
-
-def orbax_checkpoint_path(checkpoints_dir: Union[str, Path],
-                          iteration: int) -> Path:
-  """Where the JAX package's orbax backend saves ``iteration`` (resolved,
-  as orbax requires absolute paths)."""
-  return Path(checkpoints_dir).resolve() / f"{iteration}{ORBAX_SUFFIX}"
-
-
-def is_orbax_checkpoint(path: Union[str, Path]) -> bool:
-  """An orbax checkpoint is a directory holding its ``state`` item."""
-  path = Path(path)
-  return path.is_dir() and (path / _ORBAX_STATE_ITEM).exists()
-
-
-def get_all_orbax_iterations(checkpoints_dir: Union[str, Path]) -> List[int]:
-  checkpoints_dir = Path(checkpoints_dir)
-  if not checkpoints_dir.is_dir():
-    return []
-  return sorted(int(p.stem) for p in checkpoints_dir.iterdir()
-                if p.suffix == ORBAX_SUFFIX and p.stem.isdigit()
-                and is_orbax_checkpoint(p))

@@ -28,7 +28,7 @@ def init_serve_parser(parser: ArgumentParser):
                         "(POST /synthesize, /synthesize-wav, /stream).")
   parser.add_argument("checkpoint", metavar="CHECKPOINT",
                       type=parse_existing_path,
-                      help="checkpoint to serve (.npz or .pt)")
+                      help="checkpoint to serve (.npz, .pt or .orbax)")
   parser.add_argument("--host", default="127.0.0.1",
                       help="bind address (0.0.0.0 exposes the service "
                            "beyond this machine)")

@@ -29,7 +29,7 @@ import numpy as np
 from waveglow_tpu_torch.cli.argparse_helpers import (
     add_compute_arguments, add_denoiser_and_sigma_arguments,
     add_hparams_argument, get_optional, parse_existing_directory,
-    parse_existing_file, parse_non_negative_integer, parse_path,
+    parse_existing_path, parse_non_negative_integer, parse_path,
     parse_positive_integer)
 from waveglow_tpu_torch.hparams import parse_custom_hparams
 
@@ -106,8 +106,9 @@ def _add_common(parser: ArgumentParser) -> None:
 def init_synthesis_parser(parser: ArgumentParser):
   parser.description = "Synthesize mel-spectrograms (.npy) to .wav files."
   parser.add_argument("checkpoint", metavar="CHECKPOINT",
-                      type=parse_existing_file,
-                      help="checkpoint to synthesize with (.npz or .pt)")
+                      type=parse_existing_path,
+                      help="checkpoint to synthesize with (.npz, .pt or "
+                      ".orbax)")
   parser.add_argument("folder", metavar="FOLDER",
                       type=parse_existing_directory,
                       help="folder containing mel-spectrogram .npy files")
@@ -119,8 +120,9 @@ def init_synthesis_wav_parser(parser: ArgumentParser):
   parser.description = ("Synthesize .wav files (via copy-synthesis through "
                         "the mel spectrogram).")
   parser.add_argument("checkpoint", metavar="CHECKPOINT",
-                      type=parse_existing_file,
-                      help="checkpoint to synthesize with (.npz or .pt)")
+                      type=parse_existing_path,
+                      help="checkpoint to synthesize with (.npz, .pt or "
+                      ".orbax)")
   parser.add_argument("folder", metavar="FOLDER",
                       type=parse_existing_directory,
                       help="folder containing .wav files")

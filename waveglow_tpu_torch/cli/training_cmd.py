@@ -45,7 +45,7 @@ def init_training_parser(parser: ArgumentParser):
   parser.add_argument("--pre-trained-model", metavar="PRE-TRAINED-MODEL",
                       type=get_optional(parse_existing_path), default=None,
                       help="path to checkpoint used for warm start "
-                           "(npz or torch .pt)")
+                           "(npz, orbax directory or torch .pt)")
   parser.add_argument("--warm-start", action="store_true",
                       help="warm start using PRE-TRAINED-MODEL")
   parser.add_argument("--auto-resume", action="store_true",
@@ -136,7 +136,8 @@ def _train(ns: Namespace, checkpoint, warm_model, device) -> None:
 def train_ns(ns: Namespace) -> bool:
   from waveglow_tpu_torch.checkpointing import (get_all_iterations_any,
                                                 get_last_checkpoint_any,
-                                                load_checkpoint_any)
+                                                load_checkpoint_any,
+                                                load_checkpoint_lazy)
   from waveglow_tpu_torch.device import resolve_device
 
   device = resolve_device(ns.device)  # no card, no work
@@ -147,7 +148,9 @@ def train_ns(ns: Namespace) -> bool:
     last_path, last_it = get_last_checkpoint_any(ns.checkpoints_dir)
     logger.info("Auto-resume: continuing from iteration %d (%s)",
                 last_it, last_path)
-    checkpoint = load_checkpoint_any(last_path)
+    # an orbax checkpoint opens by reference: on a mesh each model rank
+    # reads only its slices
+    checkpoint = load_checkpoint_lazy(last_path)
   elif existing:
     # a fresh run would start at iteration 0 and overwrite the earlier
     # run's checkpoints at the same iteration numbers
@@ -177,11 +180,11 @@ def train_ns(ns: Namespace) -> bool:
 
 def continue_train_ns(ns: Namespace) -> bool:
   from waveglow_tpu_torch.checkpointing import (get_last_checkpoint_any,
-                                                load_checkpoint_any)
+                                                load_checkpoint_lazy)
   from waveglow_tpu_torch.device import resolve_device
 
   device = resolve_device(ns.device)  # no card, no work
   last_path, last_it = get_last_checkpoint_any(ns.checkpoints_dir)
   logger.info("Continuing from iteration %d (%s)", last_it, last_path)
-  _train(ns, load_checkpoint_any(last_path), None, device)
+  _train(ns, load_checkpoint_lazy(last_path), None, device)
   return True

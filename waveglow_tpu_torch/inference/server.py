@@ -26,8 +26,8 @@ With ``mesh=`` the daemon is a sharded synthesis service
 (``Synthesizer(mesh=)``): a ``data`` axis spreads micro-batch rows over the
 devices, a ``model`` axis cuts the WN hidden channels over them, a ``time``
 axis splits each request's frames; ``/healthz`` reports the mesh's shape
-and ``/reload`` re-shards. Orbax reloads are not ported; a torch-format
-reload needs ``allow_torch_reload``.
+and ``/reload`` re-shards. npz files and orbax directories reload; a
+torch-format reload needs ``allow_torch_reload``.
 
 Endpoints (JSON errors, application/json):
 
@@ -507,8 +507,8 @@ class SynthesisService:
     service was built with ``allow_torch_reload``: the torch importer
     unpickles (``torch.load(weights_only=False)``, which NVIDIA's
     full-module files need), so a client-supplied path would run code for
-    anyone who can reach the port and place a file. npz checkpoints carry
-    no code and always reload; an orbax directory raises."""
+    anyone who can reach the port and place a file. npz checkpoints and
+    orbax directories carry no code and always reload."""
     fmt = sniff_checkpoint_format(checkpoint_path)
     if fmt == "torch" and not self.allow_torch_reload:
       raise ValueError(

@@ -136,9 +136,34 @@ def shard_trainable_params(params: Dict, mesh: Mesh) -> List[List[Dict]]:
   leaf is one tensor on ``mesh.devices[i, 0]``, shared by the replica's
   rank trees. Every data replica has tensors of its own (its own Adam
   state), even where two replicas share a device."""
+  model = mesh.devices.reshape(mesh.devices.shape[0], -1).shape[1]
   specs = param_specs(params)
+
+  # one host array a leaf, so a replicated leaf is the same in every rank tree
+  host = {id(leaf): np.asarray(leaf) for leaf in tree_leaves(params)}
+
+  def cut(tree, spec, rank):
+    if isinstance(tree, dict):
+      return {k: cut(tree[k], spec[k], rank) for k in tree}
+    if isinstance(tree, (list, tuple)):
+      return [cut(t, sp, rank) for t, sp in zip(tree, spec)]
+    return _slice(host[id(tree)], spec, rank, model)
+
+  return place_trainable_params([cut(params, specs, r) for r in range(model)],
+                                mesh)
+
+
+def place_trainable_params(rank_trees: List[Dict], mesh: Mesh
+                           ) -> List[List[Dict]]:
+  """:func:`shard_trainable_params` from trees already cut: ``rank_trees[r]``
+  holds model rank r's slice of each cut leaf and the replicated leaves
+  whole (one array shared by the rank trees, as
+  ``checkpointing.orbax_store.restore_sharded`` reads them)."""
+  specs = param_specs(rank_trees[0])
   grid = mesh.devices.reshape(mesh.devices.shape[0], -1)
-  model = grid.shape[1]
+  if len(rank_trees) != grid.shape[1]:
+    raise ValueError(f"{len(rank_trees)} rank trees for {grid.shape[1]} "
+                     "model ranks")
 
   def leaf(host, device):
     return torch.tensor(np.ascontiguousarray(host, dtype=np.float32),
@@ -154,14 +179,33 @@ def shard_trainable_params(params: Dict, mesh: Mesh) -> List[List[Dict]]:
       if isinstance(tree, (list, tuple)):
         return [build(t, s, rank) for t, s in zip(tree, spec)]
       if MODEL_AXIS in spec:
-        return leaf(_slice(np.asarray(tree), spec, rank, model),
-                    grid[i, rank])
+        return leaf(tree, grid[i, rank])
       if id(tree) not in held:
-        held[id(tree)] = leaf(np.asarray(tree), grid[i, 0])
+        held[id(tree)] = leaf(tree, grid[i, 0])
       return held[id(tree)]
 
-    out.append([build(params, specs, r) for r in range(model)])
+    out.append([build(t, specs, r) for r, t in enumerate(rank_trees)])
   return out
+
+
+def rank_trees_to_numpy(group: List[Dict]) -> List[Dict]:
+  """A model group's rank trees as numpy trees (f32 host copies), each
+  shared tensor copied once: the layout :func:`place_trainable_params`
+  takes back."""
+  host: Dict[int, np.ndarray] = {}
+
+  def value(t):
+    if id(t) not in host:
+      host[id(t)] = t.detach().to("cpu", torch.float32).numpy()
+    return host[id(t)]
+
+  return [tree_unflatten(tree, [value(t) for t in tree_leaves(tree)])
+          for tree in group]
+
+
+def leaf_specs(tree: Dict) -> List[Spec]:
+  """Each leaf's spec (:func:`param_specs`), in ``tree_leaves`` order."""
+  return [spec for spec, _ in _walk(param_specs(tree), tree)]
 
 
 def distinct_leaves(trees) -> List[torch.Tensor]:

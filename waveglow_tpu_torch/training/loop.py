@@ -4,8 +4,9 @@
 Hparams come from the checkpoint when continuing (overridable by custom
 hparams); training resumes mid-epoch at the exact next batch, because the
 data pipeline regenerates the remaining crops from (seed, epoch, index);
-checkpoints are the npz files the JAX package reads and writes, with the
-Adam state in optax's positional layout; validation runs at every save.
+checkpoints are the npz files or the orbax directories
+(``checkpoint_backend``) the JAX package reads and writes, with the Adam
+state in optax's positional layout; validation runs at every save.
 Telemetry goes to the logger and a JSONL metrics file in ``logdir``.
 
 Every WN layer's forward runs through the fused CUDA kernel on the card,
@@ -15,9 +16,11 @@ With ``mesh_data * mesh_model > 1``, or several processes
 (``parallel.mesh.initialize_multihost``), training runs on a (data, model)
 mesh: each process drives its own mesh, the model axis through the
 trainable shard, and ``batch_size`` is the global batch, each process
-loading its share of the rows from its shard of the entries. Saves gather
-the state and only process 0 writes; a checkpoint resumes on any mesh. The
-orbax backend is not ported: its settings raise instead of being ignored.
+loading its share of the rows from its shard of the entries. npz saves
+gather the state and only process 0 writes; orbax saves write the model
+ranks' slices as chunks, every process its share, and an orbax checkpoint
+resumes on a mesh through ``restore_sharded``, each rank reading its
+slices. A checkpoint of either format resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from waveglow_tpu_torch.checkpointing import orbax_store
 from waveglow_tpu_torch.checkpointing.from_jax import (
     params_to_numpy, trainable_params_from_numpy)
 from waveglow_tpu_torch.checkpointing.store import CheckpointWaveglow
@@ -44,6 +48,7 @@ from waveglow_tpu_torch.parallel.mesh import (DeviceLike, all_reduce_ordered,
                                               process_index)
 from waveglow_tpu_torch.parallel.sharding import (distinct_leaves,
                                                   gather_trainable_params,
+                                                  place_trainable_params,
                                                   shard_trainable_params)
 from waveglow_tpu_torch.training.data import (BatchLoader, Entries,
                                               SegmentDataset)
@@ -53,8 +58,10 @@ from waveglow_tpu_torch.training.schedule import (SaveIterationSettings,
                                                   get_continue_epoch)
 from waveglow_tpu_torch.training.step import (adam_state_from_optax,
                                               adam_state_from_optax_group,
+                                              adam_state_from_optax_ranks,
                                               adam_state_to_optax,
                                               adam_state_to_optax_group,
+                                              adam_state_to_optax_ranks,
                                               make_eval_loss,
                                               make_mesh_train_step,
                                               make_optimizer, make_train_step)
@@ -107,18 +114,16 @@ def warm_start_params(target: Dict, source: Dict) -> Dict:
 
 
 def _check_supported(hp: HParams) -> None:
-  """Raise on settings the port does not implement."""
-  if hp.checkpoint_backend == "orbax":
+  """Raise on checkpoint settings that do not go together (the JAX
+  package's errors)."""
+  if hp.checkpoint_backend not in ("npz", "orbax"):
     raise ValueError(
-        "checkpoint_backend='orbax' is not ported yet (ROADMAP.md queue A.4, "
-        "Checkpoint interop); use 'npz'")
-  if hp.checkpoint_backend != "npz":
-    raise ValueError(f"unknown checkpoint_backend {hp.checkpoint_backend!r} "
-                     "(expected 'npz')")
-  if hp.checkpoint_async:
+        f"unknown checkpoint_backend {hp.checkpoint_backend!r} "
+        "(expected 'npz' or 'orbax')")
+  if hp.checkpoint_async and hp.checkpoint_backend != "orbax":
     raise ValueError(
-        "checkpoint_async=true needs the orbax backend, which is not ported "
-        "yet (ROADMAP.md queue A.4, Checkpoint interop)")
+        "checkpoint_async=true requires checkpoint_backend=orbax (the npz "
+        "backend writes synchronously)")
 
 
 def validate_model(eval_loss: Callable, val_loader: BatchLoader) -> float:
@@ -132,22 +137,33 @@ def validate_model(eval_loss: Callable, val_loader: BatchLoader) -> float:
 
 class _Trainer:
   """The params, optimizer and step of a run, unsharded or on a mesh, with
-  the gather of its state into the checkpoint layout."""
+  the gather of its state into the checkpoint layout. ``orbax_path`` (an
+  orbax checkpoint to restore on the mesh) stands in for ``params_np`` and
+  ``opt_leaves``."""
 
   def __init__(self, config: WaveGlowConfig, hp: HParams, params_np: Dict,
-               opt_leaves, device: torch.device, mesh_devices):
+               opt_leaves, device: torch.device, mesh_devices,
+               orbax_path: Optional[Path] = None):
     self.mesh = None
-    if hp.mesh_data * hp.mesh_model > 1 or process_count() > 1:
+    if uses_mesh(hp):
       n = hp.mesh_data * hp.mesh_model
       if mesh_devices is None and n == 1:
         mesh_devices = [device]
       self.mesh = make_mesh(hp.mesh_data, hp.mesh_model,
                             devices=mesh_devices)
-      self.replicas = shard_trainable_params(params_np, self.mesh)
+      if orbax_path is not None:
+        rank_params, rank_opt, _ = orbax_store.restore_sharded(orbax_path,
+                                                               self.mesh)
+        self.replicas = place_trainable_params(rank_params, self.mesh)
+      else:
+        self.replicas = shard_trainable_params(params_np, self.mesh)
       self.optimizers = [make_optimizer(distinct_leaves(g), hp.learning_rate)
                          for g in self.replicas]
-      if opt_leaves is not None:
-        for opt, group in zip(self.optimizers, self.replicas):
+      for opt, group in zip(self.optimizers, self.replicas):
+        if orbax_path is not None:
+          if rank_opt is not None:
+            adam_state_from_optax_ranks(opt, group, rank_opt)
+        elif opt_leaves is not None:
           adam_state_from_optax_group(opt, group, opt_leaves)
       self.step = make_mesh_train_step(config, hp, self.replicas,
                                        self.optimizers)
@@ -187,10 +203,27 @@ class _Trainer:
     return (gather_trainable_params(self.replicas[0]),
             adam_state_to_optax_group(self.optimizers[0], self.replicas[0]))
 
+  def sharded_state(self):
+    """The state for an orbax save, left on the device (the store copies
+    it to the host once): the params tree and its optax-layout Adam leaves;
+    on a mesh, data replica 0's rank trees and each rank's Adam leaves,
+    ungathered."""
+    if self.mesh is None:
+      return (self.params,
+              adam_state_to_optax_ranks(self.optimizer, [self.params])[0])
+    return (self.replicas[0],
+            adam_state_to_optax_ranks(self.optimizers[0], self.replicas[0]))
+
+
+def uses_mesh(hp: HParams) -> bool:
+  """Whether a run trains on a (data, model) mesh."""
+  return hp.mesh_data * hp.mesh_model > 1 or process_count() > 1
+
 
 def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
           trainset: Entries, valset: Entries, save_checkpoint_dir: Path,
-          checkpoint: Optional[CheckpointWaveglow] = None,
+          checkpoint: Optional[Union[
+              CheckpointWaveglow, orbax_store.OrbaxCheckpointRef]] = None,
           warm_model: Optional[CheckpointWaveglow] = None,
           max_iterations: Optional[int] = None,
           tensorboard_dir: Optional[Path] = None,
@@ -206,6 +239,14 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
   (``parallel.mesh.initialize_multihost`` first) each process drives such a
   mesh (one device, ``device``, when the mesh is 1 x 1) and the global data
   axis is the processes times its rows.
+
+  ``checkpoint`` may be an orbax checkpoint by reference
+  (``checkpointing.load_checkpoint_lazy`` of a directory): on a mesh each
+  model rank reads its slices of it (``orbax_store.restore_sharded``),
+  without one it is read whole (``restore_host``). With
+  ``checkpoint_backend="orbax"`` saves are orbax directories, written in
+  the background when ``checkpoint_async`` is set; the end of ``train()``
+  waits for the last one and raises a failed write.
 
   ``max_iterations`` bounds this invocation; ``None`` trains to
   ``hparams.epochs``. ``tensorboard_dir`` also writes TensorBoard scalars.
@@ -225,7 +266,17 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
   tboard = make_tensorboard_logger(tensorboard_dir if rank == 0 else None)
 
   # --- model + optimizer state -------------------------------------------
-  if checkpoint is not None:
+  orbax_path = None
+  if isinstance(checkpoint, orbax_store.OrbaxCheckpointRef):
+    if uses_mesh(hparams):
+      orbax_path = checkpoint.path
+      logger.info("Resuming iteration %d by a sharded orbax restore (%s)",
+                  checkpoint.iteration, orbax_path)
+    else:
+      checkpoint = orbax_store.restore_host(checkpoint.path)
+  if orbax_path is not None:
+    params_np, iteration = None, checkpoint.iteration
+  elif checkpoint is not None:
     params_np, iteration = checkpoint.state_dict, checkpoint.iteration
   elif warm_model is not None:
     logger.info("Warm-starting from pretrained model state...")
@@ -252,9 +303,10 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
     raise RuntimeError("Not enough training data.")
   train_loader = BatchLoader(train_ds, local_batch, drop_last=True,
                              num_batches=batch_iterations)
-  trainer = _Trainer(config, hparams, params_np,
-                     checkpoint.optimizer if checkpoint is not None else None,
-                     device, mesh_devices)
+  trainer = _Trainer(
+      config, hparams, params_np,
+      checkpoint.optimizer if params_np is not None and checkpoint is not None
+      else None, device, mesh_devices, orbax_path)
   if trainer.mesh is not None:
     # the replicas' batches are full and as many on every process
     val_batches = (len(valset) // n_procs) // local_batch
@@ -277,6 +329,7 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
   last_t = train_start
   duration_sum, duration_n = 0.0, 0
   stop = False
+  async_saver = None  # made at the first async orbax save
   continue_epoch = get_continue_epoch(iteration, batch_iterations)
   try:
     for epoch in range(continue_epoch, hparams.epochs):
@@ -313,7 +366,20 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
           tboard.log_training(iteration, loss, step_s)
 
         if check_save_it(epoch, iteration, save_settings):
-          if rank == 0:
+          if hparams.checkpoint_backend == "orbax":
+            # every process writes its share (a collective)
+            params_out, opt_out = trainer.sharded_state()
+            if hparams.checkpoint_async:
+              if async_saver is None:
+                async_saver = orbax_store.AsyncSaver()
+              path = async_saver.save(save_checkpoint_dir, iteration,
+                                      params_out, opt_out, hparams)
+            else:
+              path = orbax_store.save_sharded(save_checkpoint_dir, iteration,
+                                              params_out, opt_out, hparams)
+            if rank == 0:
+              logger.info("Saved checkpoint %s", path)
+          elif rank == 0:
             params_np, opt_leaves = trainer.state()
             path = Path(save_checkpoint_dir) / f"{iteration}.npz"
             CheckpointWaveglow(
@@ -333,8 +399,14 @@ def train(custom_hparams: Optional[Dict[str, str]], logdir: Optional[Path],
           stop = True
           break
   finally:
-    if tboard is not None:
-      tboard.close()
+    try:
+      if async_saver is not None:
+        # the last checkpoint is whole on disk when train() returns, and a
+        # failed write raises here
+        async_saver.close()
+    finally:
+      if tboard is not None:
+        tboard.close()
 
   logger.info("Finished training. Total duration: %.2fm",
               (time.time() - complete_start) / 60)

@@ -185,6 +185,46 @@ def adam_state_from_optax_group(optimizer: torch.optim.Adam,
                         + [v for _, v in nu])
 
 
+def adam_state_to_optax_ranks(optimizer: torch.optim.Adam,
+                              group: List[Dict]) -> List[List]:
+  """Each model rank's Adam state in optax's layout, ungathered and where
+  it lies (a sharded save copies it to the host once): the count (int32
+  numpy), then the f32 moments of the rank tree's leaves (its slices of
+  the cut leaves, the replicated leaves whole); zeros before the first
+  step."""
+  states = [optimizer.state.get(p, {}) for p in distinct_leaves(group)]
+  count = np.asarray(int(states[0]["step"]) if states[0] else 0, np.int32)
+
+  def moment(p, key):
+    state = optimizer.state.get(p, {})
+    return (state[key].detach().float() if state
+            else torch.zeros_like(p, dtype=torch.float32))
+
+  return [[count] + [moment(p, "exp_avg") for p in tree_leaves(tree)]
+          + [moment(p, "exp_avg_sq") for p in tree_leaves(tree)]
+          for tree in group]
+
+
+def adam_state_from_optax_ranks(optimizer: torch.optim.Adam,
+                                group: List[Dict],
+                                rank_opt: List[List[np.ndarray]]) -> None:
+  """Load each model rank's optax-layout leaves (already its slices, as
+  ``checkpointing.orbax_store.restore_sharded`` reads them) into a model
+  group's optimizer."""
+  n = len(tree_leaves(group[0]))
+  pairs: Dict[int, tuple] = {}
+  for tree, leaves in zip(group, rank_opt):
+    if len(leaves) != 1 + 2 * n:
+      raise ValueError(f"optimizer state has {len(leaves)} leaves, "
+                       f"expected {1 + 2 * n} (count, mu, nu) for {n} params")
+    for i, p in enumerate(tree_leaves(tree)):
+      pairs.setdefault(id(p), (p, leaves[1 + i], leaves[1 + n + i]))
+  ordered = [pairs[id(p)] for p in distinct_leaves(group)]
+  adam_state_from_optax(optimizer, [p for p, _, _ in ordered],
+                        [rank_opt[0][0]] + [m for _, m, _ in ordered]
+                        + [v for _, _, v in ordered])
+
+
 def _group_device(group: List[Dict]) -> torch.device:
   return tree_leaves(group[0])[0].device
 
