@@ -6,9 +6,10 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   1. device: a CUDA card is required; TF32 is switched off and printed.
   2. build: the WN-layer kernels are compiled from
      waveglow_tpu_torch/csrc/wn_layer.cu (forward), wn_layer_bwd.cu (the
-     bf16 backward, the whole layer's and a model rank's) and
-     wn_layer_shard.cu (a model rank's share), one nvcc per source,
-     started together, every width instance (C = 128, 256, 512; the shard
+     bf16 backward, the whole layer's and a model rank's),
+     wn_layer_shard.cu (a model rank's share) and wn_layer_any.cu (the
+     forward at every other shape), one nvcc per source, started
+     together, every width instance (C = 128, 256, 512; the shard
      kernels at C' = C/2, C/4, C/8); build seconds and
      ptxas facts (when this run built it), and what the loaded build uses
      as the CUDA runtime reports it (registers, local bytes, shared
@@ -19,14 +20,15 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      any kernel; the backwards' reduce kernels, the whole layer's prep
      kernel and the C = 512 rounding of x do no products. The rows, dx and
      weights kernels of both backwards, the C = 512 bf16 forward's gate
-     and res/skip kernels, and every model rank's bf16 gate and res/skip
+     and res/skip kernels, every model rank's bf16 gate and res/skip
      kernels at every width (which replaced the mma.sync shard kernel)
-     must be wgmma (HGMMA), with no ptxas warning that their wgmmas are
+     and the bf16 shape-generic forward must be wgmma (HGMMA), with no
+     ptxas warning that their wgmmas are
      serialized (C7511/C7513), and no spill (their registers, spills and
      shared memory are printed). The f32 kernel's
      registers, shared memory, blocks an SM and grid at B=1 and B=8 are
      printed (at each width), and any spill of an f32 forward variant
-     fails.
+     (the shape-generic one's included) fails.
   3. kernel: the kernel against its plain PyTorch version on the card at
      C=256, T=26,432 groups (826 frames), B in {1, 8}, every dilation and
      the last-layer variant, f32 and bf16, per-row valid_t, skip_acc on;
@@ -106,9 +108,10 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      `download` fetches the raw form from a server on 127.0.0.1 and
      converts it, bit for bit the params, 12 x 8 x 256 derived from its
      shapes; `synthesize` of phase 4's four requests from the .pt and from
-     the npz, --batch 1 and 4, every file bit for bit normalize_wav + int16
-     of Synthesizer.infer (infer_serving_many for --batch 4) in this
-     process, the .pt's files equal the npz's, WN launches at the count the
+     the npz at --batch 1 and from the .pt at --batch 4, every file bit for
+     bit normalize_wav + int16 of Synthesizer.infer (infer_serving_many for
+     --batch 4) in this process, the .pt's files equal the npz's, WN
+     launches at the count the
      dispatch rule gives; `synthesize-wav` of two cuts of the speech
      fixture against MelSTFT.get_mel_from_file + infer; in bf16
      (SINGLE_MODE), `serve` as a subprocess (`python -m
@@ -193,19 +196,20 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      every leaf's gradient against the unsharded step at phase 6's
      bounds, launches at the code's counts (96 x model shard launches a
      forward, 96 x model shard-backward calls a bf16 step, no full-layer
-     launch on a model > 1 mesh), three steps with one save, at 1, the
+     launch on a model > 1 mesh), two steps with one save, at 1, the
      resume from 1 bit for bit the straight run, the checkpoint resumed
      unsharded at the mesh's step-2 loss, the step's wall, device busy,
      idle share and peak memory; one step at C = 512 on model = 2
      against the unsharded step; (c) in bf16 (SINGLE_MODE), the train
      command as two processes on the card over gloo (--num-processes 2
      --process-id r --coordinator-address 127.0.0.1:<port>, global batch
-     12, 6 rows a process, two steps): equal losses and states on both
-     ranks, process 0's first checkpoint against one process at phase 6's
-     bounds, the cross-process reduce's ms.
+     12, 6 rows a process, one step and its save): equal losses and
+     states on both ranks, process 0's checkpoint against one process at
+     phase 6's bounds, the cross-process reduce's ms.
  14. benchmark: `python -m waveglow_tpu_torch benchmark --iters 2` as a
-     process in bf16 and f32 (full width, B=8 x 826 frames; the bench's
-     own latency and training repetitions): exit 0, its last stdout line
+     process in bf16 (SINGLE_MODE: the command's code is the same in
+     both modes; full width, B=8 x 826 frames; the bench's own latency
+     and training repetitions): exit 0, its last stdout line
      a JSON object with the JAX bench's keys (less vs_baseline and
      headline_dtype_note; with power_limit_w and the launch counts),
      value and every rate and time finite and positive, a finite
@@ -230,7 +234,20 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      for bit. Launches (train, continue-train, synthesize) at the code's
      counts; the save, async-wait, restore and synthesize seconds and the
      checkpoint's bytes each on their own line.
- 16. a `kernels` JSON line, the card's name and power limit, and last the
+ 16. any shape: the shape-generic forward kernel
+     (csrc/wn_layer_any.cu), which every shape outside the specialised
+     kernels' takes (any even C, any odd K): against wn_layer_plain in
+     f32 and bf16 at (C, K) = (64, 3), (50, 3), (384, 3), (256, 5),
+     (128, 7), (256, 1), d = 1, 128 and the last layer, B = 1 at T =
+     26,432 and B = 8 at T = 2,017 with ragged valid_t (bf16 repeats bit
+     for bit); against the specialised kernel at (256, 3); timed at (256,
+     5), (384, 3), (64, 3), (256, 3) beside the bound, plain, library and
+     (at (256, 3)) specialised ms; HParams() at kernel_size 5 and at
+     n_channels 384 served through Synthesizer.infer_serving in f32 and
+     bf16 (96 generic launches, none of the specialised kernels, against
+     the plain path at phase 4's bounds), and the K = 5 model's 826-frame
+     request streamed in 256-frame chunks bit for bit its one call.
+ 17. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Every phase prints its wall seconds ("phase N (name): s"), and the run's
@@ -463,9 +480,9 @@ MESH_LONG = (LONG_FRAMES, LONG_FRAMES - 3)
 MESH_MICRO = (826, 800, 780, 826)
 MODES = {"f32": None, "bf16": torch.bfloat16}
 # Paths whose code is the same in both modes run in this one alone: the
-# serve command as a process (phase 9), validate --select (phase 10) and
-# the two-process train command (phase 13). Each mode's kernels run in
-# the phases' other steps.
+# serve command as a process (phase 9), validate --select (phase 10), the
+# two-process train command (phase 13) and the benchmark command (phase
+# 14). Each mode's kernels run in the phases' other steps.
 SINGLE_MODE = "bf16"
 DEVICE = "cuda"
 
@@ -681,6 +698,20 @@ def shard_bwd_variant(kernel: str, width: int, channels: int,
   return f"bf16,{pair},sbwd-{kernel}"
 
 
+# The shape-generic forward's kernels (csrc/wn_layer_any.cu), (bf16,
+# last) as kl.any_kernel_info takes them.
+ANY_KERNELS = tuple((bf16, last) for bf16 in (False, True)
+                    for last in (False, True))
+
+
+def any_variant(bf16: bool, last: bool) -> str:
+  """Variant name of a shape-generic forward kernel, "f32,any,..." (held
+  to no tensor-core instruction and no spill) or "bf16,any,..." (held to
+  wgmma, no serialization, no spill)."""
+  return (f"{'bf16' if bf16 else 'f32'},any,"
+          f"{'last' if last else 'layer'}")
+
+
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kC, kLast>`` (C <= 256) or, at C = 512,
@@ -693,7 +724,8 @@ def kernel_variant(mangled: str) -> str:
   the C = 512 rounding ``wn_layer_kernel_round``, a backward kernel
   ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, the
   f32 shard kernel ``wn_shard_kernel<kC, kCP, kLast>`` or a shard-backward
-  kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``;
+  kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``
+  or a shape-generic forward kernel ``wn_any_kernel_{f32,bf16}<kLast>``;
   other symbols are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
@@ -734,6 +766,9 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return shard_variant(int(inst.group(1)), int(inst.group(2)), False,
                          inst.group(3) == "1")
+  inst = re.search(r"wn_any_kernel_(f32|bf16)ILb([01])E", mangled)
+  if inst:
+    return any_variant(inst.group(1) == "bf16", inst.group(2) == "1")
   return mangled
 
 
@@ -812,12 +847,14 @@ def wgmma_serialized(build_log: str) -> set:
 
 def held_to_wgmma(name: str) -> bool:
   """A product kernel of the bf16 backwards (rows, dx, weights; the whole
-  layer's and a rank's), of the bf16 forward at C = 512 (gate, res/skip)
-  or of a rank's bf16 share at any width (gate, res/skip): held to wgmma,
-  to no serialization and to no spill."""
+  layer's and a rank's), of the bf16 forward at C = 512 (gate, res/skip),
+  of a rank's bf16 share at any width (gate, res/skip) or the bf16
+  shape-generic forward: held to wgmma, to no serialization and to no
+  spill."""
   return (name.startswith("bf16,") and (
       ",bwd-" in name or ",sbwd-" in name
-      or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name)
+      or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name
+      or name.startswith("bf16,any,"))
       or name.startswith("shard-bf16,"))
 
 
@@ -924,6 +961,8 @@ def phase_build() -> dict:
                      for k, cp, w in WIDE_KERNELS})
   attributes.update({f32_rest_variant(last): kl.f32_rest_kernel_info(last)
                      for last in (False, True)})
+  attributes.update({any_variant(*v): kl.any_kernel_info(*v)
+                     for v in ANY_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
@@ -972,9 +1011,9 @@ def phase_build() -> dict:
 # -- phase 3 ---------------------------------------------------------------
 
 def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int,
-                 width: int = C):
-  """Inputs at the scale the model feeds the layer (``width`` channels), on
-  the card."""
+                 width: int = C, k: int = 3):
+  """Inputs at the scale the model feeds the layer (``width`` channels,
+  ``k`` taps), on the card."""
   C = width
   g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -987,7 +1026,7 @@ def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int,
   keep = torch.arange(t, device="cuda")[None, :, None] < valid[:, None, None]
   x = rand(batch, t, C, scale=0.5) * keep
   cond = rand(batch, t, 2, C, scale=0.5).to(dtype)
-  w_in = rand(3, C, 2 * C, scale=(3 * C) ** -0.5).to(dtype)
+  w_in = rand(k, C, 2 * C, scale=(k * C) ** -0.5).to(dtype)
   b_in = rand(2 * C, scale=0.1)
   w_rs = rand(C, rs, scale=C ** -0.5).to(dtype)
   b_rs = rand(rs, scale=0.1)
@@ -995,24 +1034,26 @@ def layer_inputs(batch: int, t: int, last: bool, dtype, seed: int,
   return (x, cond, w_in, b_in, w_rs, b_rs), valid, acc
 
 
-def layer_cost(batch: int, t: int, last: bool, mode: str, width: int):
+def layer_cost(batch: int, t: int, last: bool, mode: str, width: int,
+               k: int = 3, generic: bool = False):
   """(bytes, flops, bound_ms, bound_by) of one layer call at ``width``
-  channels: every input read once, every output written once (and the bf16
-  copy of x that the C = 512 bf16 layer makes, written and read once);
-  flops of the two products."""
+  channels and ``k`` taps: every input read once, every output written once
+  (and the bf16 copy of x that the specialised C = 512 bf16 layer makes,
+  written and read once; not the ``generic`` kernel's); flops of the two
+  products."""
   C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = batch * t
   nbytes = (rows * C * 4                       # x
             + rows * 2 * C * esize             # cond
-            + (3 * C * 2 * C + C * rs) * esize  # w_in, w_rs
+            + (k * C * 2 * C + C * rs) * esize  # w_in, w_rs
             + (2 * C + rs) * 4 + batch * 4     # biases, valid_t
             + rows * C * 4                     # skip_acc read
             + 2 * rows * C * 4)                # x' and skip written
-  if mode == "bf16" and width == kl.WIDE_C:
+  if mode == "bf16" and width == kl.WIDE_C and not generic:
     nbytes += 2 * rows * C * 2                 # bf16 x, written and read
-  flops = 2 * rows * C * (3 * 2 * C + rs)
+  flops = 2 * rows * C * (k * 2 * C + rs)
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_FLOPS[mode] * 1e3
   return nbytes, flops, max(t_bytes, t_ops), (
@@ -1024,7 +1065,8 @@ def library_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation, dtype):
   matmul for the res/skip (the layer's two products), with the gate between
   them. Inputs are given channels-first where conv1d wants them."""
   x_cf, w_conv = x, w_in
-  pre = F.conv1d(x_cf, w_conv, b_in, padding=dilation, dilation=dilation)
+  pre = F.conv1d(x_cf, w_conv, b_in, padding=dilation * (w_conv.shape[-1] // 2),
+                 dilation=dilation)
   c = w_conv.shape[0] // 2   # the gate channels (C' for a rank's shard)
   gates = pre.transpose(1, 2) + cond
   acts = torch.tanh(gates[..., :c]) * torch.sigmoid(gates[..., c:])
@@ -1129,16 +1171,20 @@ def phase_kernel(seed: int) -> dict:
 
 # -- phase 4 ---------------------------------------------------------------
 
-def width_hparams(width: int = C) -> HParams:
-  """The model's hparams (12 flows x 8 layers) at ``width`` channels."""
-  return dataclasses.replace(HParams(), n_channels=width)
+def width_hparams(width: int = C, kernel_size: int = 3) -> HParams:
+  """The model's hparams (12 flows x 8 layers) at ``width`` channels and
+  ``kernel_size`` taps."""
+  return dataclasses.replace(HParams(), n_channels=width,
+                             kernel_size=kernel_size)
 
 
-def full_width_params(seed: int, width: int = C) -> dict:
-  """12 x ``width`` model from the seed, every ``end`` randomised small (a
-  zero end conv makes each coupling the identity and hides the kernel)."""
-  params = init_params(WaveGlowConfig.from_hparams(width_hparams(width)),
-                       seed=seed)
+def full_width_params(seed: int, width: int = C, kernel_size: int = 3) -> dict:
+  """12 x ``width`` model (``kernel_size`` taps) from the seed, every
+  ``end`` randomised small (a zero end conv makes each coupling the
+  identity and hides the kernel)."""
+  params = init_params(
+      WaveGlowConfig.from_hparams(width_hparams(width, kernel_size)),
+      seed=seed)
   rng = np.random.default_rng(seed + 1)
   for flow in params["flows"]:
     end = flow["wn"]["end"]
@@ -1147,10 +1193,11 @@ def full_width_params(seed: int, width: int = C) -> dict:
   return params
 
 
-def full_width_checkpoint(seed: int, path: Path,
-                          width: int = C) -> CheckpointWaveglow:
-  CheckpointWaveglow.from_params(full_width_params(seed, width),
-                                 width_hparams(width), iteration=1).save(path)
+def full_width_checkpoint(seed: int, path: Path, width: int = C,
+                          kernel_size: int = 3) -> CheckpointWaveglow:
+  CheckpointWaveglow.from_params(
+      full_width_params(seed, width, kernel_size),
+      width_hparams(width, kernel_size), iteration=1).save(path)
   return CheckpointWaveglow.load(path)
 
 
@@ -1267,6 +1314,8 @@ def phase_slice(ckpt: CheckpointWaveglow, mode: str, seed: int):
 def kernel_family(name: str) -> str:
   if "wn_layer_kernel" in name:
     return "wn_layer kernel"
+  if "wn_any_kernel" in name:
+    return "wn_layer_any kernel"
   if "wn_shard_kernel" in name:
     return "wn shard kernel"
   if re.search(r"gemm|xmma|nvjet|cutlass|cublas", name, re.I):
@@ -2792,7 +2841,10 @@ def phase_cli(params: dict, hparams: HParams, seed: int, tmp: Path) -> dict:
     for batch, refs in ((1, solo), (CLI_BATCH, many)):
       expected = expected_cli_launches(FRAMES, BUCKET, batch, per_synthesis)
       outs = {}
-      for source, ckpt_path in (("pt", pt), ("npz", npz)):
+      # the npz's files equal the .pt's at --batch 1; --batch 4 from the
+      # .pt alone (the command reads both formats by one loader)
+      sources = (("pt", pt), ("npz", npz)) if batch == 1 else (("pt", pt),)
+      for source, ckpt_path in sources:
         out = tmp / f"out_{mode}_{source}_b{batch}"
         kl.LAUNCHES = 0
         times = run_cli(["synthesize", ckpt_path, mel_dir, "--custom-seed",
@@ -2814,7 +2866,7 @@ def phase_cli(params: dict, hparams: HParams, seed: int, tmp: Path) -> dict:
             "file_loop_audio_s_per_s": audio_s / times["after_model_s"],
             "launches": got, "expected_launches": expected,
             "dispatch_rows": cli_dispatch_rows(FRAMES, BUCKET, batch)}
-      for name in names:
+      for name in names if "npz" in outs else ():
         if ((outs["pt"] / f"{name}.wav").read_bytes()
             != (outs["npz"] / f"{name}.wav").read_bytes()):
           fail(f"cli synthesize {mode} --batch {batch}: {name}.wav from the "
@@ -3884,11 +3936,17 @@ def width_kernels(width: int, seed: int) -> dict:
   return out
 
 
-def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
+def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int,
+                  generic: bool = False) -> dict:
   """Phase 4's 826-frame request through Synthesizer.infer_serving (96
-  launches), the kernel path against the plain path on injected noise, wall,
-  device busy and peak memory; then a model = 2 logical mesh dispatch (192
-  shard launches, no WN-kernel launch) against the unsharded one."""
+  launches of the specialised kernels, none of the shape-generic one), the
+  kernel path against the plain path on injected noise, wall, device busy
+  and peak memory; then a model = 2 logical mesh dispatch (192 shard
+  launches, no WN-kernel launch) against the unsharded one. With
+  ``generic`` (phase 16: a shape the specialised kernels are not built
+  for) the 96 launches are the shape-generic kernel's and the specialised
+  kernels launch none, and the mesh part is left out (the shard kernels
+  take the built widths at three taps only)."""
   dtype_name = "bfloat16" if mode == "bf16" else "float32"
   tol = SLICE_TOL_REL[mode]
   rng = np.random.default_rng(seed)   # phase 4's requests
@@ -3899,18 +3957,22 @@ def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
   synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  kl.LAUNCHES = kl.SHARD_LAUNCHES = 0
+  kl.LAUNCHES = kl.SHARD_LAUNCHES = kl.ANY_LAUNCHES = 0
   t0 = time.perf_counter()
   res = synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)
   wall = time.perf_counter() - t0
-  launches = kl.LAUNCHES
+  counts = {"fused": kl.LAUNCHES, "any": kl.ANY_LAUNCHES,
+            "shard": kl.SHARD_LAUNCHES}
+  want = {"fused": 0 if generic else per_synthesis,
+          "any": per_synthesis if generic else 0, "shard": 0}
+  launches = counts["any" if generic else "fused"]
   peak = torch.cuda.max_memory_allocated()
-  if launches != per_synthesis or kl.SHARD_LAUNCHES:
-    fail(f"C={synth.config.n_channels} {mode}: infer_serving launched "
-         f"{launches} (shard {kl.SHARD_LAUNCHES}), expected {per_synthesis}")
+  shape = f"C={synth.config.n_channels},K={synth.config.kernel_size}"
+  if counts != want:
+    fail(f"{shape} {mode}: infer_serving launched {counts}, expected {want}")
   if (res.samples.shape != (req.shape[-1] * UPSAMPLE_STRIDE,)
       or not np.isfinite(res.samples).all()):
-    fail(f"C={synth.config.n_channels} {mode}: output "
+    fail(f"{shape} {mode}: output "
          f"{res.samples.shape}, finite {np.isfinite(res.samples).all()}")
 
   # -- the kernel path against the plain path, same weights and noise
@@ -3926,7 +3988,7 @@ def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
   plain_err = float(np.abs(wav_k - wav_p).max())
   plain_bound = tol * float(np.abs(wav_p).max())
   if not np.isfinite(wav_k).all() or plain_err > plain_bound:
-    fail(f"C={synth.config.n_channels} {mode}: kernel path vs plain path "
+    fail(f"{shape} {mode}: kernel path vs plain path "
          f"{plain_err} > {plain_bound}")
   info = {"mode": mode, "launches": launches, "wall_s": wall,
           "audio_s": req.shape[-1] * UPSAMPLE_STRIDE
@@ -3936,6 +3998,10 @@ def width_serving(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
           "kernel_vs_plain_bound": plain_bound,
           "profile": profile_call(lambda: synth.infer_serving(
               req, seed=seed, bucket_frames=BUCKET))}
+  if generic:
+    del synth
+    torch.cuda.empty_cache()
+    return info
 
   # -- model = 2 on a logical mesh of the card
   mesh = Synthesizer(ckpt, compute_dtype=dtype_name,
@@ -4056,20 +4122,19 @@ def phase_widths(seed: int, tmp: Path) -> dict:
 
 # Mesh training on logical meshes of the one card (the ranks run one after
 # another: the numbers are checked, no speedup is shown): full width, batch
-# 12 and segment 16,000 (phase 6's), three train() steps with one save, at
+# 12 and segment 16,000 (phase 6's), two train() steps with one save, at
 # step MESH_RESUME_FROM (the first iteration's), and a resume from it;
 # validation on MESH_VAL_WAVS cuts (one batch a save). Then one
 # step at C = MESH_WIDE on a model = 2 mesh at WIDTH_TRAIN_BATCH rows, and
 # the train command in two processes (gloo on the one card: NCCL will not
-# put two ranks on one device), global batch 12, 6 rows a process, two
-# steps. The bounds are phase 6's (STEP_LOSS_TOL, STEP_GRAD_TOL_REL): a
+# put two ranks on one device), global batch 12, 6 rows a process, one
+# step. The bounds are phase 6's (STEP_LOSS_TOL, STEP_GRAD_TOL_REL): a
 # mesh step against the unsharded step differs in summation order (the
 # ranks' partials, the replicas' gradients) and in bf16 by the roundings
 # that order moves.
 MESH_TRAIN = ((1, 2), (2, 1), (2, 2))
-MESH_TRAIN_STEPS = 3
+MESH_TRAIN_STEPS = 2
 MESH_RESUME_FROM = 1
-MESH_SAVE_AT = 2  # the two-process train command's second save
 MESH_VAL_WAVS = 12
 MESH_WIDE = 512
 CLI_PROCS = 2
@@ -4505,17 +4570,24 @@ sys.exit(rc)
 """
 
 
-def mesh_cli_train(mode: str, seed: int, tmp: Path, wav_dir: Path,
-                   val_dir: Path, entries) -> dict:
+def mesh_cli_train(mode: str, seed: int, tmp: Path, val_dir: Path,
+                   entries) -> dict:
   """Phase 13(c): `train --num-processes 2 --process-id r
-  --coordinator-address 127.0.0.1:<port>` as two processes on the card;
-  both ranks' losses equal and their final states the same bits; process
-  0's first checkpoint (its Adam mu is 0.1 x the step-1 gradient) and the
-  step-1 loss against one-process loss and gradients of the same global
-  batch at phase 6's bounds; process 1 writes no checkpoint."""
+  --coordinator-address 127.0.0.1:<port>` as two processes on the card,
+  one step of global batch B_TRAIN (an epoch of the first B_TRAIN cuts)
+  and its one save; both ranks' losses equal and their final states the
+  same bits; process 0's checkpoint (its Adam mu is 0.1 x the step-1
+  gradient) and the step-1 loss against one-process loss and gradients of
+  the same global batch at phase 6's bounds; process 1 writes no
+  checkpoint."""
   custom = dict(TRAIN_HPARAMS, seed=str(seed), epochs="1",
-                iters_per_checkpoint=str(MESH_SAVE_AT),
+                iters_per_checkpoint="0",
                 compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  cli_wavs = tmp / "mesh_cli_wavs"
+  cli_wavs.mkdir(parents=True, exist_ok=True)
+  for e in entries[:B_TRAIN]:
+    shutil.copy(e.wav_absolute_path, cli_wavs / e.basename)
+  entries = load_dataset(cli_wavs)
   hp = overwrite_custom_hparams(HParams(), custom)
   script = tmp / "mesh_cli_worker.py"
   script.write_text(MESH_CLI_WORKER.format(
@@ -4525,7 +4597,7 @@ def mesh_cli_train(mode: str, seed: int, tmp: Path, wav_dir: Path,
   t0 = time.perf_counter()
   procs = [subprocess.Popen(
       [sys.executable, str(script), str(rank), str(port), "train",
-       str(wav_dir), str(val_dir), str(tmp / f"cli_ck{rank}"),
+       str(cli_wavs), str(val_dir), str(tmp / f"cli_ck{rank}"),
        "--custom-hparams", hp_arg, "--tl-dir", str(tmp / f"cli_logs{rank}"),
        "--coordinator-address", f"127.0.0.1:{port}", "--num-processes",
        str(CLI_PROCS), "--process-id", str(rank), "--device", DEVICE,
@@ -4554,12 +4626,12 @@ def mesh_cli_train(mode: str, seed: int, tmp: Path, wav_dir: Path,
          "losses": [r["losses"] for r in results],
          "states_bitwise": len({r["digest"] for r in results}) == 1,
          "reduce": [r["reduce"] for r in results]}
-  if rec["losses"][0] != rec["losses"][1] or len(rec["losses"][0]) != 2:
+  if rec["losses"][0] != rec["losses"][1] or len(rec["losses"][0]) != 1:
     fail(f"{mode}: the two processes' losses differ: {rec['losses']}")
   if not rec["states_bitwise"]:
     fail(f"{mode}: the two processes' final states differ")
   written = sorted(p.name for p in (tmp / "cli_ck0").iterdir())
-  if written != ["1.npz", f"{MESH_SAVE_AT}.npz"] or (
+  if written != ["1.npz"] or (
       tmp / "cli_ck1").exists():
     fail(f"{mode}: process 0 wrote {written}; process 1 wrote "
          f"{(tmp / 'cli_ck1').exists()}")
@@ -4584,6 +4656,7 @@ def mesh_cli_train(mode: str, seed: int, tmp: Path, wav_dir: Path,
   del first, mu, ref
   for rank in range(CLI_PROCS):
     shutil.rmtree(tmp / f"cli_ck{rank}", ignore_errors=True)
+  shutil.rmtree(cli_wavs)
   torch.cuda.empty_cache()
   log("mesh cli train " + json.dumps(rec))
   if (rec["loss_err"] > STEP_LOSS_TOL[mode]
@@ -4634,8 +4707,7 @@ def phase_mesh_train(seed: int, tmp: Path) -> dict:
     seconds[f"{mode} wide"] = time.perf_counter() - t0
     if mode == SINGLE_MODE:
       t0 = time.perf_counter()
-      out[mode]["cli"] = mesh_cli_train(mode, seed, tmp, tmp / "mesh_wavs",
-                                        val_dir, entries)
+      out[mode]["cli"] = mesh_cli_train(mode, seed, tmp, val_dir, entries)
       seconds[f"{mode} cli"] = time.perf_counter() - t0
   out["seconds"] = seconds
   log("phase 13 seconds " + json.dumps(seconds))
@@ -4971,6 +5043,194 @@ def phase_orbax(seed: int, tmp: Path, files: dict) -> dict:
   return info
 
 
+# -- phase 16 --------------------------------------------------------------
+
+# The shape-generic forward (csrc/wn_layer_any.cu), which every shape
+# outside the specialised kernels' (K = 3 at kl.kernel_widths()) takes:
+# (a) against its plain version at these (C, K): widths outside the built
+# set (64; 50, no multiple of 4; 384) and K != 3 at built widths; at d = 1
+# and 128 and the last layer, B = 1 at T_KERNEL and B = 8 at ANY_T_B8 (its
+# rows alternately 1,000 short of T); (d) timed at ANY_TIMED (B = 1,
+# T_KERNEL, d = 1), the specialised kernel beside it at (256, 3).
+ANY_SHAPES = ((64, 3), (50, 3), (384, 3), (256, 5), (128, 7), (256, 1))
+ANY_T_B8 = 2_017
+ANY_TIMED = ((256, 5), (384, 3), (64, 3), (256, 3))
+# (c) the two models of HParams() the JAX package runs and the specialised
+# kernels do not: kernel_size 5 (12 x 8 x 256) and n_channels 384, served
+# (and at K = 5 streamed) in f32 and bf16, (width, kernel_size).
+ANY_MODELS = {"k5": (C, 5), "c384": (384, 3)}
+ANY_DESIGN = {
+    "f32": "f32 FFMA, one block of 256 threads per (batch row, 64 time "
+           "rows), passes of 64 gate channels then of 64 res/skip "
+           "channels, a thread 4 rows x (4 + 4) channels, 16-row K chunks "
+           "double-buffered by cp.async (taps transposed), the acts of "
+           "every channel in shared memory",
+    "bf16": "wgmma m64n64k16, one warpgroup per (batch row, 64 time rows), "
+            "passes of 64 gate channels then of 64 res/skip channels, "
+            "64-deep K chunks double-buffered by cp.async (f32 taps staged "
+            "and rounded to the swizzled bf16 operand), the acts of every "
+            "channel in shared memory"}
+
+
+def any_kernel_case(mode: str, batch: int, t: int, width: int, k: int,
+                    dilation: int, last: bool, seed: int) -> dict:
+  """The shape-generic kernel against wn_layer_plain (per-row valid_t,
+  skip_acc on) at phase 3's bounds; rows at or past valid_t zero; in bf16
+  a second launch bit for bit."""
+  cdt = MODES[mode]
+  args, valid, acc = layer_inputs(batch, t, last, cdt or torch.float32,
+                                  seed, width, k)
+  xk, sk = kl.wn_layer_any(*args, dilation, valid_t=valid,
+                           skip_acc=acc.clone(), compute_dtype=cdt)
+  torch.cuda.synchronize()
+  xp, sp = kl.wn_layer_plain(*args, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  err = max((xk - xp).abs().max().item(), (sk - sp).abs().max().item())
+  scale = max(xp.abs().max().item(), sp.abs().max().item())
+  bound = KERNEL_TOL_F32 if mode == "f32" else KERNEL_TOL_BF16_REL * scale
+  rec = {"mode": mode, "C": width, "K": k, "B": batch, "T": t,
+         "dilation": dilation, "last": last, "max_abs_err": err,
+         "bound": bound, "ref_max_abs": scale}
+  if not (torch.isfinite(xk).all() and torch.isfinite(sk).all()):
+    fail(f"generic kernel output not finite: {rec}")
+  if err > bound:
+    fail(f"generic kernel disagrees with plain: {rec}")
+  for row, v in enumerate(valid.tolist()):
+    if v < t and xk[row, v:].abs().max().item() != 0:
+      fail(f"generic kernel left rows >= valid_t nonzero: {rec}")
+  if mode == "bf16":
+    again = kl.wn_layer_any(*args, dilation, valid_t=valid,
+                            skip_acc=acc.clone(), compute_dtype=cdt)
+    if not (torch.equal(again[0], xk) and torch.equal(again[1], sk)):
+      fail(f"two launches of the generic kernel differ: {rec}")
+  return rec
+
+
+def any_vs_specialised(mode: str, last: bool, seed: int) -> dict:
+  """(b): the shape-generic kernel against the specialised one at (256, 3),
+  B=1, T_KERNEL (d=1; the last layer at its dilation), within the bound
+  each keeps to the plain version."""
+  cdt = MODES[mode]
+  dilation = LAST_DILATION if last else 1
+  args, valid, acc = layer_inputs(1, T_KERNEL, last, cdt or torch.float32,
+                                  seed)
+  xa, sa = kl.wn_layer_any(*args, dilation, valid_t=valid,
+                           skip_acc=acc.clone(), compute_dtype=cdt)
+  xs, ss = kl.wn_layer_fused(*args, dilation, valid_t=valid,
+                             skip_acc=acc.clone(), compute_dtype=cdt)
+  err = max((xa - xs).abs().max().item(), (sa - ss).abs().max().item())
+  scale = max(xs.abs().max().item(), ss.abs().max().item())
+  bound = KERNEL_TOL_F32 if mode == "f32" else KERNEL_TOL_BF16_REL * scale
+  rec = {"mode": mode, "last": last, "dilation": dilation,
+         "max_abs_err": err, "bound": bound}
+  if not err <= bound:
+    fail(f"generic kernel disagrees with the specialised one: {rec}")
+  return rec
+
+
+def any_timed(mode: str, width: int, k: int, seed: int) -> dict:
+  """(d): the shape-generic kernel's, the plain version's and the library's
+  ms (CUDA events) at B=1, T_KERNEL, d=1 beside the bound; at (256, 3) also
+  the specialised kernel's."""
+  cdt = MODES[mode]
+  dtype = cdt or torch.float32
+  args, valid, acc = layer_inputs(1, T_KERNEL, False, dtype, seed, width, k)
+  skip = acc.clone()
+  nbytes, flops, bound_ms, bound_by = layer_cost(1, T_KERNEL, False, mode,
+                                                 width, k, generic=True)
+  rec = {"mode": mode, "C": width, "K": k, "bytes": nbytes, "flops": flops,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+  rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_any(
+      *args, 1, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+  rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_plain(
+      *args, 1, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+  x, cond, w_in, b_in, w_rs, b_rs = args
+  x_cf = x.to(dtype).transpose(1, 2).contiguous()
+  w_conv = w_in.permute(2, 1, 0).contiguous()   # [2C, C, K]
+  cond_flat = cond.reshape(1, T_KERNEL, 2 * width)
+  b_lib = b_in.to(dtype)
+  rec["library_ms"] = cuda_ms(lambda: library_layer(
+      x_cf, cond_flat, w_conv, b_lib, w_rs, b_rs, 1, dtype))
+  if (width, k) == (C, 3):
+    rec["specialised_ms"] = cuda_ms(lambda: kl.wn_layer_fused(
+        *args, 1, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+  rec["share_of_bound"] = bound_ms / rec["kernel_ms"]
+  return rec
+
+
+def any_stream(ckpt: CheckpointWaveglow, mode: str, seed: int) -> dict:
+  """(c) at K = 5: the 826-frame request streamed raw in STREAM_CHUNK
+  chunks (several windows; receptive_halo_frames widens the halo with the
+  kernel size), 96 generic launches a window and none of the specialised
+  kernels, the reassembled stream equal to one call bit for bit."""
+  synth = Synthesizer(ckpt, compute_dtype="bfloat16" if mode == "bf16"
+                      else "float32", device=DEVICE)
+  mel = np.random.default_rng(seed + 7).uniform(
+      -11.0, 1.0, (80, STREAM_FRAMES[0])).astype(np.float32)
+  per_window = synth.config.n_flows * synth.config.n_layers
+  windows = stream_windows(STREAM_FRAMES[0], STREAM_CHUNK,
+                           receptive_halo_frames(synth.config))
+  kl.LAUNCHES = kl.ANY_LAUNCHES = 0
+  got = np.concatenate([p for _, p in synth.stream(
+      mel, seed=seed, chunk_frames=STREAM_CHUNK)])
+  counts = {"fused": kl.LAUNCHES, "any": kl.ANY_LAUNCHES}
+  want = synth.infer(mel, seed=seed, denoiser_strength=0.0).wav
+  rec = {"mode": mode, "windows": windows,
+         "halo_frames": receptive_halo_frames(synth.config),
+         "launches": counts["any"], "bitwise": bool(np.array_equal(got, want)),
+         "max_abs": float(np.abs(got - want).max()) if got.shape == want.shape
+                    else None}
+  if windows < 2 or counts != {"fused": 0, "any": per_window * windows}:
+    fail(f"K=5 {mode} stream: {windows} windows, launches {counts}, "
+         f"expected {per_window} generic launches a window")
+  if not rec["bitwise"]:
+    fail(f"K=5 {mode} stream differs from the one call: {rec}")
+  del synth
+  torch.cuda.empty_cache()
+  return rec
+
+
+def phase_any_shape(seed: int, tmp: Path) -> dict:
+  """Phase 16: the shape-generic kernel against its plain version (a) and
+  the specialised kernel (b), the two models served through it (c), its
+  times (d)."""
+  out = {"card": nvidia_smi_line(), "cases": [], "vs_specialised": [],
+         "timed": {}, "serving": {}, "stream": {}}
+  for width, k in ANY_SHAPES:
+    for mode in MODES:
+      for batch, t in ((1, T_KERNEL), (8, ANY_T_B8)):
+        for dilation, last in ((1, False), (128, False),
+                               (LAST_DILATION, True)):
+          out["cases"].append(any_kernel_case(mode, batch, t, width, k,
+                                              dilation, last, seed + width))
+  for mode in MODES:
+    for last in (False, True):
+      out["vs_specialised"].append(any_vs_specialised(mode, last, seed))
+    out["timed"][mode] = {f"C={w},K={k}": any_timed(mode, w, k, seed)
+                          for w, k in ANY_TIMED}
+  torch.cuda.empty_cache()
+  log("generic kernel " + json.dumps(
+      {"cases": len(out["cases"]),
+       "max_err": {m: max(c["max_abs_err"] for c in out["cases"]
+                          if c["mode"] == m) for m in MODES},
+       "vs_specialised": out["vs_specialised"], "timed": out["timed"]}))
+  for name, (width, k) in ANY_MODELS.items():
+    ckpt = full_width_checkpoint(seed, tmp / f"any_{name}.npz", width, k)
+    out["serving"][name] = {mode: width_serving(ckpt, mode, seed,
+                                                generic=True)
+                            for mode in MODES}
+    for mode in MODES:
+      log(f"generic serving {name} {mode} " + json.dumps(
+          {k_: v for k_, v in out["serving"][name][mode].items()
+           if k_ != "profile"}))
+    if k != 3:
+      out["stream"] = {mode: any_stream(ckpt, mode, seed) for mode in MODES}
+      log("generic stream " + json.dumps(out["stream"]))
+    del ckpt
+    torch.cuda.empty_cache()
+  return out
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -5052,9 +5312,10 @@ def main() -> None:
     mesh_train = phase(13, "mesh training", phase_mesh_train, args.seed,
                        Path(tmp))
     benches = phase(14, "benchmark", lambda: {
-        mode: phase_bench(mode, Path(tmp)) for mode in MODES})
+        SINGLE_MODE: phase_bench(SINGLE_MODE, Path(tmp))})
     orbax = phase(15, "orbax", phase_orbax, args.seed, Path(tmp),
                   clis["files"])
+    anys = phase(16, "any shape", phase_any_shape, args.seed, Path(tmp))
   seconds["total"] = time.perf_counter() - t_run
   log("phase seconds " + json.dumps(seconds))
 
@@ -5278,6 +5539,37 @@ def main() -> None:
         "ms": bwd[0]["kernel_ms"], "design": BACKWARD_DESIGN,
         "shape": f"B={B_TRAIN},T={T_TRAIN},C={width},d=1"})
 
+  # phase 16: the shape-generic forward, launched by the two models'
+  # serving runs and the K = 5 streams
+  for mode in MODES:
+    head = anys["timed"][mode]["C=256,K=5"]
+    served = {name: anys["serving"][name][mode]["launches"]
+              for name in ANY_MODELS}
+    cases = [c for c in anys["cases"] if c["mode"] == mode]
+    kernels.append({
+        "name": f"wn_layer_any[{mode}]", "route": "cuda",
+        "source": "waveglow_tpu_torch/csrc/wn_layer_any.cu",
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (widths outside "
+                    "the built set) and waveglow_tpu/models/wn.py:152 (the "
+                    "XLA layer body, kernel_size != 3)",
+        "launches": sum(served.values()) + anys["stream"][mode]["launches"],
+        "serving_launches": served,
+        "stream_launches": anys["stream"][mode]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_err_of_bound": max(c["max_abs_err"] / c["bound"] for c in cases),
+        **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "share_of_bound")},
+        "ms": head["kernel_ms"], "design": ANY_DESIGN[mode],
+        "shape": f"B=1,T={T_KERNEL},C=256,K=5,d=1",
+        "timed": {shape: {k: r[k] for k in r if k.endswith("_ms")
+                          or k in ("bound_by", "share_of_bound")}
+                  for shape, r in anys["timed"][mode].items()},
+        "vs_specialised_max_abs": max(
+            r["max_abs_err"] for r in anys["vs_specialised"]
+            if r["mode"] == mode),
+        "loaded_build": build["attributes"][any_variant(mode == "bf16",
+                                                        False)]})
+
   # phase 13: the trainable shard, launched by the mesh train() runs
   sbwd = mesh_train["shard_backward"]
   for mode in MODES:
@@ -5340,7 +5632,8 @@ def main() -> None:
                               if k != "shard_backward"},
                            "shard_backward": {
                                "cases": sbwd["cases"], "f32": sbwd["f32"]}},
-            "bench": benches, "orbax": orbax, "phase_seconds": seconds,
+            "bench": benches, "orbax": orbax, "any_shape": anys,
+            "phase_seconds": seconds,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
   print(json.dumps({"kernels": kernels}))

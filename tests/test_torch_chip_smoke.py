@@ -986,8 +986,10 @@ def test_phase_13_rehearses_a_model_mesh_on_the_cpu(smoke, monkeypatch,
                               ref, 1, 2, entries, entries[:4], tmp_path)
   assert rec["step_launches"] == {"fused": 0, "backward": 0, "shard": 16,
                                   "shard_backward": 0}
-  # 4 layers x 2 ranks x (3 steps with remat + 1 validation batch)
-  assert rec["train_launches"]["shard"] == 4 * 2 * (2 * 3 + 1)
+  # 4 layers x 2 ranks x (MESH_TRAIN_STEPS steps with remat + 1
+  # validation batch)
+  assert rec["train_launches"]["shard"] == 4 * 2 * (
+      2 * smoke.MESH_TRAIN_STEPS + 1)
   assert rec["resume_bitwise"] and rec["grad_norm_rel"] < 1e-5
   assert rec["device_busy_ms"] == "not measured"
   assert len(rec["losses"]) == smoke.MESH_TRAIN_STEPS
@@ -1415,3 +1417,152 @@ def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
   assert info["fixture"]["build_s"] >= 0
   assert info["checkpoint_bytes"] > 0
   assert not (tmp_path / "orbax").exists()
+
+
+# -- phase 16: the shape-generic forward ------------------------------------------
+
+# Its kernels as nvcc names them in the library (wn_layer_any.cu compiled
+# on its own).
+_ANY_OBJ = "_ZN48_GLOBAL__N__8c31e70a_15_wn_layer_any_cu_6edbed1c"
+ANY_F32_LAYER = (_ANY_OBJ + "17wn_any_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_"
+                 "PKiPfS5_iiiii")
+ANY_BF16_LAYER = (_ANY_OBJ + "18wn_any_kernel_bf16ILb0EEEvPKfPK13__nv_"
+                  "bfloat16S5_S2_S5_S2_PKiPfS8_iiiii")
+
+
+@pytest.mark.parametrize("mangled,name", [
+    (ANY_F32_LAYER, "f32,any,layer"),
+    (ANY_F32_LAYER.replace("ILb0EE", "ILb1EE"), "f32,any,last"),
+    (ANY_BF16_LAYER, "bf16,any,layer"),
+    (ANY_BF16_LAYER.replace("ILb0EE", "ILb1EE"), "bf16,any,last")])
+def test_kernel_variant_names_the_generic_kernels(smoke, mangled, name):
+  assert smoke.kernel_variant(mangled) == name
+
+
+def test_profiles_name_the_generic_kernel(smoke):
+  """A profile's split by family keeps the generic kernel apart from the
+  elementwise ops (phase 16's serving profiles read its device time)."""
+  assert smoke.kernel_family(ANY_F32_LAYER) == "wn_layer_any kernel"
+  assert smoke.kernel_family(ANY_BF16_LAYER) == "wn_layer_any kernel"
+  assert smoke.kernel_family(F32_LAYER) == "wn_layer kernel"
+  assert smoke.kernel_family("void at::native::vectorized_elementwise_"
+                             "kernel<4>") == "elementwise, copies and reductions"
+
+
+def test_phase2_holds_the_generic_kernels(smoke):
+  """Phase 2 lists the four generic variants; the bf16 ones are held to
+  wgmma, no serialization and no spill, the f32 ones to no tensor-core
+  instruction and no spill."""
+  names = [smoke.any_variant(*v) for v in smoke.ANY_KERNELS]
+  assert names == ["f32,any,layer", "f32,any,last", "bf16,any,layer",
+                   "bf16,any,last"]
+  bf16, f32 = names[2:], names[:2]
+  assert all(smoke.held_to_wgmma(n) for n in bf16)
+  assert not any(smoke.held_to_wgmma(n) for n in f32)
+  mma = {**dict.fromkeys(bf16, 12), **dict.fromkeys(f32, 0)}
+  smoke.check_tensor_cores(mma, names)  # passes
+  smoke.check_wgmma(mma, set(), names)
+  with pytest.raises(SystemExit, match="tensor-core"):
+    smoke.check_tensor_cores({**mma, "f32,any,last": 4}, names)
+  with pytest.raises(SystemExit, match="no wgmma"):
+    smoke.check_wgmma({**mma, "bf16,any,layer": 0}, set(), names)
+  with pytest.raises(SystemExit, match="serialized"):
+    smoke.check_wgmma(mma, {"bf16,any,last"}, names)
+  for name in names:
+    with pytest.raises(SystemExit, match="spills"):
+      smoke.check_no_spills(None, {name: {"registers": 140,
+                                          "local_bytes": 8}})
+
+
+@pytest.mark.parametrize("c,k,mode,bound_ms,by", [
+    (256, 5, "f32", 0.6205, "operations"),
+    (256, 5, "bf16", 0.04203, "operations"),
+    (384, 3, "f32", 0.9307, "operations"),
+    (384, 3, "bf16", 0.06305, "operations"),
+    (64, 3, "bf16", 0.010119, "bytes"),
+])
+def test_layer_cost_of_the_generic_kernel(smoke, c, k, mode, bound_ms, by):
+  """The bound of phase 16's timed shapes (B=1, T=26,432, d=1): 2 B T C
+  (K 2C + 2C) operations, the bytes of every input read once and every
+  output written once, no rounded copy of x."""
+  nbytes, flops, got_ms, got_by = smoke.layer_cost(
+      1, smoke.T_KERNEL, False, mode, c, k, generic=True)
+  assert flops == 2 * smoke.T_KERNEL * c * (k * 2 * c + 2 * c)
+  assert got_by == by
+  assert got_ms == pytest.approx(bound_ms, rel=1e-3)
+  if c == kl.WIDE_C:
+    assert nbytes < smoke.layer_cost(1, smoke.T_KERNEL, False, mode, c)[0]
+
+
+def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+  """Phase 16 on tiny models on the CPU, the plain version counted in the
+  kernels' place (ANY_LAUNCHES where the shape is not the specialised
+  kernels'): every kernel case, the specialised comparison, the timings'
+  keys, both models served with 2 x 2 generic launches and none other, the
+  K = 5 model's stream over several windows equal to its one call, and the
+  kernels line's entries built from the record."""
+  kl = smoke.kl
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+    monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+  monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+  monkeypatch.setattr(smoke, "nvidia_smi_line", lambda: "cpu, 0 W")
+  monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: (fn(), 1.0)[1])
+  monkeypatch.setattr(smoke, "profile_call", lambda fn: {"busy_ms": 0.0})
+  monkeypatch.setattr(smoke, "T_KERNEL", 130)
+  monkeypatch.setattr(smoke, "ANY_T_B8", 67)
+  monkeypatch.setattr(smoke, "ANY_SHAPES", ((16, 3), (10, 5)))
+  monkeypatch.setattr(smoke, "ANY_TIMED", ((16, 5), (32, 3)))
+  monkeypatch.setattr(smoke, "C", 32)
+  monkeypatch.setattr(smoke, "ANY_MODELS", {"k5": (32, 5), "c48": (48, 3)})
+  monkeypatch.setattr(kl, "_WIDTHS", (32,))
+  monkeypatch.setattr(smoke, "FRAMES", (9, 21))
+  monkeypatch.setattr(smoke, "STREAM_FRAMES", (21,))
+  monkeypatch.setattr(smoke, "STREAM_CHUNK", 4)
+  monkeypatch.setattr(smoke, "BUCKET", 16)
+  monkeypatch.setattr(
+      smoke, "width_hparams", lambda width=32, kernel_size=3: smoke.HParams(
+          n_flows=2, n_layers=2, n_channels=width, kernel_size=kernel_size))
+
+  def layer_inputs(batch, t, last, dtype, seed, width=32, k=3):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale):
+      return torch.randn(*shape, generator=g) * scale
+
+    rs = width if last else 2 * width
+    valid = torch.tensor([t - 13 * (i % 2) for i in range(batch)],
+                         dtype=torch.int32)
+    x = rand(batch, t, width, scale=0.5) * (
+        torch.arange(t)[None, :, None] < valid[:, None, None])
+    return ((x, rand(batch, t, 2, width, scale=0.5).to(dtype),
+             rand(k, width, 2 * width, scale=(k * width) ** -0.5).to(dtype),
+             rand(2 * width, scale=0.1),
+             rand(width, rs, scale=width ** -0.5).to(dtype),
+             rand(rs, scale=0.1)), valid, rand(batch, t, width, scale=1.0))
+
+  monkeypatch.setattr(smoke, "layer_inputs", layer_inputs)
+  plain = kl.wn_layer_plain
+
+  def counted(x, cond, w_in, *args, **kwargs):
+    c = x.shape[-1]
+    if kl.specialised(c, w_in.numel() // (2 * c * c)):
+      kl.LAUNCHES += 1
+    else:
+      kl.ANY_LAUNCHES += 1
+    return plain(x, cond, w_in, *args, **kwargs)
+
+  monkeypatch.setattr(kl, "wn_layer_plain", counted)
+  out = smoke.phase_any_shape(5, tmp_path)
+  assert len(out["cases"]) == 2 * 2 * 2 * 3
+  assert all(c["max_abs_err"] <= c["bound"] for c in out["cases"])
+  assert len(out["vs_specialised"]) == 4
+  for mode in smoke.MODES:
+    assert set(out["timed"][mode]) == {"C=16,K=5", "C=32,K=3"}
+    assert "specialised_ms" in out["timed"][mode]["C=32,K=3"]
+    for name in ("k5", "c48"):
+      assert out["serving"][name][mode]["launches"] == 4
+      assert "mesh_model2" not in out["serving"][name][mode]
+    stream = out["stream"][mode]
+    assert stream["windows"] >= 2 and stream["bitwise"]
+    assert stream["launches"] == 4 * stream["windows"]

@@ -27,7 +27,7 @@ def cuda():
   return torch.device("cuda")
 
 
-def layer_inputs(device, batch, t, c, last, dtype, seed=0):
+def layer_inputs(device, batch, t, c, last, dtype, seed=0, k=3):
   rng = np.random.default_rng(seed)
 
   def rand(*shape, scale):
@@ -37,7 +37,7 @@ def layer_inputs(device, batch, t, c, last, dtype, seed=0):
   rs = c if last else 2 * c
   x = rand(batch, t, c, scale=0.5)
   cond = rand(batch, t, 2, c, scale=0.5).to(dtype)
-  w_in = rand(3, c, 2 * c, scale=(3 * c) ** -0.5).to(dtype)
+  w_in = rand(k, c, 2 * c, scale=(k * c) ** -0.5).to(dtype)
   b_in = rand(2 * c, scale=0.1)
   w_rs = rand(c, rs, scale=c ** -0.5).to(dtype)
   b_rs = rand(rs, scale=0.1)
@@ -90,21 +90,21 @@ BWD_ROW_TILE = 128
 
 
 def check_against_plain(device, batch, t, dilation, last, bf16, valid,
-                        seed, c):
-  """One launch with ``skip_acc`` and a per-row ``valid_t`` against
-  wn_layer_plain at ``c`` channels, at the bounds of
+                        seed, c, k=3, layer=kl.wn_layer_fused):
+  """One launch of ``layer`` with ``skip_acc`` and a per-row ``valid_t``
+  against wn_layer_plain at ``c`` channels and ``k`` taps, at the bounds of
   test_kernel_matches_plain; rows at and past valid_t must come out
   zero."""
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
-  x, *rest = layer_inputs(device, batch, t, c, last, dtype, seed)
+  x, *rest = layer_inputs(device, batch, t, c, last, dtype, seed, k)
   valid = torch.tensor(valid, dtype=torch.int32, device=device)
   x = x * (torch.arange(t, device=device)[None, :, None]
            < valid[:, None, None])
   acc = torch.randn(batch, t, c,
                     generator=torch.Generator().manual_seed(seed)).to(device)
-  xk, sk = kl.wn_layer_fused(x, *rest, dilation, valid_t=valid,
-                             skip_acc=acc.clone(), compute_dtype=cdt)
+  xk, sk = layer(x, *rest, dilation, valid_t=valid, skip_acc=acc.clone(),
+                 compute_dtype=cdt)
   torch.cuda.synchronize()
   xp, sp = kl.wn_layer_plain(x, *rest, dilation, valid_t=valid,
                              skip_acc=acc.clone(), compute_dtype=cdt)
@@ -239,7 +239,9 @@ def test_kernel_rejects_bad_inputs(cuda):
     kl.wn_layer_fused(x, cond.transpose(2, 3), w_in, b_in, w_rs, b_rs, 1)
   with pytest.raises(ValueError, match="valid_t"):
     kl.wn_layer_fused(x, cond, w_in, b_in, w_rs, b_rs, 1, valid_t=10)
-  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 192"):
+  # x at C = 192 beside weights of C = 256: the generic kernel's wrapper
+  # (every width outside the built set goes there) refuses the weights
+  with pytest.raises(ValueError, match=r"w_in: .* is not \[K, 192, 384\]"):
     kl.wn_layer_fused(x[..., :192].contiguous(), cond, w_in, b_in, w_rs,
                       b_rs, 1)
 
@@ -1175,17 +1177,104 @@ def test_model_mesh_synthesis_on_the_card(cuda, stream_model, model):
   assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
+# -- the shape-generic kernel (csrc/wn_layer_any.cu) ---------------------------
+
+# (C, K) the generic kernel is held at: widths outside the built set (one
+# not a multiple of 4, one not of 64), and K != 3 at built widths.
+ANY_SHAPES = ((64, 3), (50, 3), (384, 3), (256, 5), (128, 7), (256, 1),
+              (48, 5))
+
+
+@pytest.mark.parametrize("c,k", ANY_SHAPES)
+@pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
+                                           (128, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_matches_plain(cuda, c, k, dilation, last, bf16):
+  """The generic kernel, called through wn_layer_fused (which must pick
+  it), against wn_layer_plain at test_kernel_matches_plain's bounds:
+  B=2, T=300 (a ragged last tile), a row with valid_t short of T."""
+  before, any_before = kl.LAUNCHES, kl.ANY_LAUNCHES
+  check_against_plain(cuda, 2, 300, dilation, last, bf16, [300, 223],
+                      seed=c + k, c=c, k=k)
+  assert (kl.LAUNCHES, kl.ANY_LAUNCHES) == (before, any_before + 1)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_runs_the_built_widths_too(cuda, c, bf16):
+  """Called directly, wn_layer_any runs the K = 3 shapes of the specialised
+  kernels as well, within their bounds of the plain version."""
+  check_against_plain(cuda, 2, 300, 8, False, bf16, [300, 41], seed=c,
+                      c=c, layer=kl.wn_layer_any)
+
+
+@pytest.mark.parametrize("t", [1, 17, 63, 64, 65])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_short_and_ragged_tiles(cuda, t, bf16):
+  check_against_plain(cuda, 3, t, 2, False, bf16, [t, max(t - 5, 1), 1],
+                      seed=t, c=200, k=5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_is_deterministic(cuda, bf16):
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  args = layer_inputs(cuda, 2, 999, 384, False, dtype, seed=3)
+  cdt = torch.bfloat16 if bf16 else None
+  a = kl.wn_layer_any(*args, 16, compute_dtype=cdt)
+  b = kl.wn_layer_any(*args, 16, compute_dtype=cdt)
+  assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_refuses_what_it_does_not_take(cuda, bf16):
+  """Over the shared-memory cap (named), an odd C, an even K, a bad dtype:
+  each raises and launches nothing."""
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  cap = kl.ANY_MAX_C[dtype]
+  before = kl.ANY_LAUNCHES
+  wide = layer_inputs(cuda, 1, 8, cap + 2, False, dtype)
+  with pytest.raises(ValueError, match=f"at most {cap} .*got C = {cap + 2}"):
+    kl.wn_layer_fused(*wide, 1, compute_dtype=cdt)
+  odd = layer_inputs(cuda, 1, 8, 51, False, dtype)
+  with pytest.raises(ValueError, match="even C"):
+    kl.wn_layer_fused(*odd, 1, compute_dtype=cdt)
+  x, cond, _, b_in, w_rs, b_rs = layer_inputs(cuda, 1, 8, 64, False, dtype)
+  even = torch.zeros(4, 64, 128, dtype=dtype, device=cuda)
+  with pytest.raises(ValueError, match="odd K"):
+    kl.wn_layer_fused(x, cond, even, b_in, w_rs, b_rs, 1, compute_dtype=cdt)
+  assert kl.ANY_LAUNCHES == before
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("last", [False, True])
+def test_any_kernel_info_reads_the_loaded_build(cuda, bf16, last):
+  cap = kl.ANY_MAX_C[torch.bfloat16 if bf16 else torch.float32]
+  info = kl.any_kernel_info(bf16, last, 256)
+  assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
+  assert info["dynamic_smem_bytes"] > 48 * 1024
+  assert kl.any_kernel_info(bf16, last, cap)["dynamic_smem_bytes"] <= 232_448
+  assert kl._library().wn_layer_any_max_channels(int(bf16)) == cap
+
+
 # -- widths outside the built set, and launches on a second card -------------
 
 def test_other_widths_are_refused_on_the_card(cuda):
   """A CUDA tensor at a width outside the built set raises, naming the
-  set, in the forward, the backward and the shard kernel's wrappers; it
-  never falls back to the plain version."""
+  set, in the trainable layer's, the backward's and the shard kernel's
+  wrappers; it never falls back to the plain version. The forward takes
+  it through the shape-generic kernel (the specialised ones launch
+  nothing)."""
   args = layer_inputs(cuda, 1, 64, 384, False, torch.float32)
-  before = kl.LAUNCHES
-  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 384"):
-    kl.wn_layer_fused(*args, 1)
-  assert kl.LAUNCHES == before
+  before, any_before = kl.LAUNCHES, kl.ANY_LAUNCHES
+  got = kl.wn_layer_fused(*args, 1)
+  assert (kl.LAUNCHES, kl.ANY_LAUNCHES) == (before, any_before + 1)
+  ref = kl.wn_layer_plain(*args, 1)
+  for a, b in zip(got, ref):
+    assert (a - b).abs().max().item() <= 1e-4
+  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\) on the card, "
+                                       r"got K = 3, C = 384"):
+    kl.wn_layer_trainable(*args, 1)
   saved, cots, _ = bwd_inputs(cuda, 1, 64, 1, False, None, seed=18, c=384)
   before = kl.BWD_LAUNCHES
   with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 384"):

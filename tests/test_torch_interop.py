@@ -362,7 +362,7 @@ def test_reference_parameter_order_matches_jax():
   for form in (sd, legacy_naming(sd), fused_naming(sd)):
     assert (export_torch.reference_parameter_order(form)
             == jax_export.reference_parameter_order(form))
-  with pytest.raises(AssertionError):
+  with pytest.raises(ValueError, match="stray"):
     export_torch.reference_parameter_order(dict(sd, stray=torch.zeros(1)))
 
 

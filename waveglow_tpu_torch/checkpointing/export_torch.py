@@ -115,7 +115,8 @@ def reference_parameter_order(sd: Dict) -> List[str]:
   ``convinv.k``. Within a weight-normed conv the bias leads, then ``g``
   and ``v`` (both the parametrization and the legacy hook remove
   ``weight`` before registering them); a plain conv keeps ``weight`` then
-  ``bias``. Raises ``AssertionError`` when ``sd`` holds other keys.
+  ``bias``. Raises ``ValueError`` when ``sd`` holds other keys or lacks
+  some.
   """
   def conv_keys(prefix):
     keys = []
@@ -140,8 +141,11 @@ def reference_parameter_order(sd: Dict) -> List[str]:
       order += conv_keys(f"WN.{k}.{name}")
   order += [f"convinv.{k}.conv.weight" for k in range(n_flows)]
 
-  assert set(order) == set(sd.keys()), (
-      sorted(set(sd.keys()) - set(order)), sorted(set(order) - set(sd.keys())))
+  if set(order) != set(sd.keys()):
+    raise ValueError(
+        "state dict keys do not match the reference WaveGlow layout: extra "
+        f"{sorted(set(sd.keys()) - set(order))}, missing "
+        f"{sorted(set(order) - set(sd.keys()))}")
   return order
 
 

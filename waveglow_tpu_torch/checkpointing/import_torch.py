@@ -161,7 +161,7 @@ def torch_adam_to_opt_leaves(opt_sd: Dict, torch_sd: Dict,
   order = [i for g in groups for i in g.get("params", ())]
   try:
     names = reference_parameter_order(dict(torch_sd))
-  except AssertionError:
+  except ValueError:
     logger.warning("state dict keys do not match the reference WaveGlow "
                    "parameter layout; optimizer restarts")
     return None

@@ -10,9 +10,10 @@ on an H100 and how it is laid out. All are compiled with nvcc for
 ``sm_90a`` at first use into one library in ``waveglow_tpu_torch/build/``
 (keyed by a hash of the sources and flags) and bound with ctypes.
 
-Math of one layer, channels-last (``C`` channels, dilation ``d``):
+Math of one layer, channels-last (``C`` channels, ``K`` taps, dilation
+``d``):
 
-  pre  = sum_tap x[t + (tap-1)*d] @ w_in[tap]        (zero "same" padding)
+  pre  = sum_k x[t + (k - K//2)*d] @ w_in[k]         (zero "same" padding)
   acts = tanh(pre[:C] + b_in[:C] + cond[:C]) * sigmoid(pre[C:] + b_in[C:] + cond[C:])
   rs   = acts @ w_rs + b_rs
   x'   = x + rs[:C], skip = rs[C:]                   (last layer: x' = x, skip = rs)
@@ -20,10 +21,15 @@ Math of one layer, channels-last (``C`` channels, dilation ``d``):
 x' rows ``>= valid_t[b]`` are zeroed (bucket padding), and with ``skip_acc``
 the skip is added into that buffer in place and the buffer returned.
 
-``wn_layer_fused`` runs the plain version for CPU tensors and the kernel for
-CUDA tensors; on a CUDA tensor it launches the kernel or raises, never falls
-back. ``LAUNCHES`` counts kernel launches. Every kernel is built for the
-widths ``kernel_widths()`` (C = 128, 256, 512; the shard kernel for
+``wn_layer_fused`` runs the plain version for CPU tensors and a kernel for
+CUDA tensors; on a CUDA tensor it launches a kernel or raises, never falls
+back. At K = 3 and the widths ``kernel_widths()`` (C = 128, 256, 512) it
+launches the specialised kernels of ``csrc/wn_layer.cu`` (counted in
+``LAUNCHES``), at every other shape (any even C up to ``ANY_MAX_C``, any
+odd K) the shape-generic kernel of ``csrc/wn_layer_any.cu`` through
+``wn_layer_any`` (counted in ``ANY_LAUNCHES``); ``specialised`` is the
+choice. The other kernels (the backward, the shard) are built for the
+widths ``kernel_widths()`` at K = 3 (the shard kernel for
 ``shard_pairs()``), and ``check_width`` refuses any other on the card.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
@@ -77,13 +83,15 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 SHARD_LAUNCHES = 0
 SHARD_BWD_LAUNCHES = 0
+ANY_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
-           CSRC / "wn_layer_shard.cu")
+           CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_any.cu")
 # Included by the sources: the f32 ring and tile (the forward, the shard
-# and, for its cp.async helpers, the backward) and the wgmma helpers (the
-# forward's bf16 kernels and the backward).
+# and, for its cp.async helpers and its shared-memory opt-in, the backward
+# and the shape-generic forward) and the wgmma helpers (the bf16 kernels of
+# both forwards and the backward).
 HEADERS = (CSRC / "f32_ring.cuh", CSRC / "sm90_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -93,6 +101,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _WIDTHS = (128, 256, 512)
 # The shard kernel holds C' = C / model gate channels, model in this set.
 SHARD_MODELS = (2, 4, 8)
+# The widest C of the shape-generic forward (csrc/wn_layer_any.cu), by
+# compute dtype: a 64-row tile keeps the acts of every channel in shared
+# memory (AnyF32::kMaxC, AnyBf16::kMaxC there).
+ANY_MAX_C = {torch.float32: 704, torch.bfloat16: 1280}
 
 _LIB = None
 # nvcc/ptxas output and seconds of a build this process ran; empty and None
@@ -111,6 +123,13 @@ def kernel_widths() -> Tuple[int, ...]:
 def shard_pairs() -> Tuple[Tuple[int, int], ...]:
   """The (C, C') pairs the shard kernel is built for: C' = C / model."""
   return tuple((c, c // m) for c in _WIDTHS for m in SHARD_MODELS)
+
+
+def specialised(c: int, k: int) -> bool:
+  """Whether a forward at width ``c`` and ``k`` taps runs the specialised
+  kernels of ``csrc/wn_layer.cu`` (K = 3 at a width of ``kernel_widths()``)
+  rather than the shape-generic one of ``csrc/wn_layer_any.cu``."""
+  return k == 3 and c in _WIDTHS
 
 
 def check_width(c: int, cp: Optional[int] = None) -> None:
@@ -132,9 +151,10 @@ def wn_layer_plain(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
                    compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
   """The layer in plain torch ops: the CPU path and the kernel's yardstick.
 
-  Shapes: x [B, T, C] f32; cond [B, T, 2, C] or [B, T, 2C]; w_in [3, C, 2C]
-  (or [3, C, 2, C]); b_in [2C]; w_rs [C, 2C] / [C, 2, C] or [C, C] (last
-  layer); b_rs to match. ``valid_t``: None, an int, or a [B] tensor.
+  Shapes: x [B, T, C] f32; cond [B, T, 2, C] or [B, T, 2C]; w_in [K, C, 2C]
+  (or [K, C, 2, C], or [K*C, 2C]) for any odd K; b_in [2C]; w_rs [C, 2C] /
+  [C, 2, C] or [C, C] (last layer); b_rs to match. ``valid_t``: None, an
+  int, or a [B] tensor.
 
   ``compute_dtype=torch.bfloat16`` rounds every product operand to bf16
   (the taps of x, the weights, cond and the gated acts) and accumulates
@@ -149,7 +169,7 @@ def wn_layer_plain(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     return v.float() if compute_dtype is None else v.to(compute_dtype).float()
 
   xm = operand(x)
-  pre = dilated_conv(xm, operand(w_in).reshape(3, c, 2 * c),
+  pre = dilated_conv(xm, operand(w_in).reshape(-1, c, 2 * c),
                      dilation=dilation)
   gates = (pre + b_in.reshape(-1).to(f32)
            + operand(cond).reshape(batch, t, 2 * c))
@@ -236,6 +256,9 @@ SIGNATURES = {
     "wn_layer_f32_schedule": [_I] * 4 + [_IP] * 4,
     "wn_layer_shard_f32_schedule": [_I] * 5 + [_IP] * 6,
     "wn_layer_wide_schedule": [_I] * 5 + [_IP] * 4,
+    "wn_layer_any_forward": [_P] * 9 + [_I] * 8 + [_P],
+    "wn_layer_any_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_any_max_channels": [_I],
 }
 
 
@@ -275,6 +298,14 @@ def kernel_info(channels: int, bf16: bool, last: bool) -> dict:
   the dynamic shared bytes its launcher passes."""
   check_width(channels)
   return _info(_library().wn_layer_kernel_info, channels, int(bf16),
+               int(last))
+
+
+def any_kernel_info(bf16: bool, last: bool, channels: int = 256) -> dict:
+  """:func:`kernel_info` for the shape-generic forward kernel
+  (``csrc/wn_layer_any.cu``) in one mode, its dynamic shared bytes those its
+  launcher passes at width ``channels``."""
+  return _info(_library().wn_layer_any_kernel_info, channels, int(bf16),
                int(last))
 
 
@@ -565,39 +596,19 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
-                   b_in: torch.Tensor, w_rs: torch.Tensor, b_rs: torch.Tensor,
-                   dilation: int, valid_t: ValidT = None,
-                   skip_acc: Optional[torch.Tensor] = None,
-                   compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-  """One fused WN layer; same contract as :func:`wn_layer_plain`.
-
-  CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch the kernel,
-  which takes: x f32 [B, T, C] with C in ``kernel_widths()`` (another
-  width raises, naming them); cond, w_in, w_rs in
-  ``compute_dtype`` (f32 when None); b_in, b_rs and skip_acc f32; valid_t
-  None or an int32 [B] CUDA tensor. Anything else raises.
-  """
-  global LAUNCHES
-  if x.device.type == "cpu":
-    return wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation,
-                          valid_t=valid_t, skip_acc=skip_acc,
-                          compute_dtype=compute_dtype)
-  if x.device.type != "cuda":
-    raise ValueError(f"unsupported device {x.device}")
-  dev = x.device
-  if x.dim() != 3:
-    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+def _layer_operands(x, cond, w_in, b_in, w_rs, b_rs, valid_t, skip_acc,
+                    wdt, k: int):
+  """Check a forward kernel's operands on x's card (x [B, T, C] f32; cond,
+  w_in [K, C, 2C] and w_rs in ``wdt``; b_in, b_rs and skip_acc f32; valid_t
+  None or an int32 [B] tensor) and allocate its outputs: ``(last, x_out,
+  skip)``, skip being skip_acc when given."""
   batch, t, c = x.shape
-  check_width(c)
+  dev = x.device
   last = w_rs.numel() == c * c
   n_rs = c if last else 2 * c
-  wdt = compute_dtype or torch.float32
-  if wdt not in (torch.float32, torch.bfloat16):
-    raise ValueError(f"unsupported compute dtype {wdt}")
   _check("x", x, torch.float32, (batch, t, c), dev)
   _check("cond", cond, wdt, (batch, t, 2 * c), dev)
-  _check("w_in", w_in, wdt, (3 * c, 2 * c), dev)
+  _check("w_in", w_in, wdt, (k * c, 2 * c), dev)
   _check("b_in", b_in, torch.float32, (2 * c,), dev)
   _check("w_rs", w_rs, wdt, (c * n_rs,), dev)
   _check("b_rs", b_rs, torch.float32, (n_rs,), dev)
@@ -610,7 +621,43 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     skip = skip_acc
   else:
     skip = torch.empty((batch, t, c), dtype=torch.float32, device=dev)
-  x_out = torch.empty_like(x)
+  return last, torch.empty_like(x), skip
+
+
+def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
+                   b_in: torch.Tensor, w_rs: torch.Tensor, b_rs: torch.Tensor,
+                   dilation: int, valid_t: ValidT = None,
+                   skip_acc: Optional[torch.Tensor] = None,
+                   compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+  """One fused WN layer; same contract as :func:`wn_layer_plain`.
+
+  CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch a kernel: at
+  K = 3 and C in ``kernel_widths()`` (:func:`specialised`) those of
+  ``csrc/wn_layer.cu``, which take x f32 [B, T, C]; cond, w_in, w_rs in
+  ``compute_dtype`` (f32 when None); b_in, b_rs and skip_acc f32; valid_t
+  None or an int32 [B] CUDA tensor. Every other shape goes to
+  :func:`wn_layer_any`. Anything else raises.
+  """
+  global LAUNCHES
+  if x.device.type == "cpu":
+    return wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation,
+                          valid_t=valid_t, skip_acc=skip_acc,
+                          compute_dtype=compute_dtype)
+  if x.device.type != "cuda":
+    raise ValueError(f"unsupported device {x.device}")
+  dev = x.device
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  batch, t, c = x.shape
+  if not specialised(c, w_in.numel() // max(2 * c * c, 1)):
+    return wn_layer_any(x, cond, w_in, b_in, w_rs, b_rs, dilation,
+                        valid_t=valid_t, skip_acc=skip_acc,
+                        compute_dtype=compute_dtype)
+  wdt = compute_dtype or torch.float32
+  if wdt not in (torch.float32, torch.bfloat16):
+    raise ValueError(f"unsupported compute dtype {wdt}")
+  last, x_out, skip = _layer_operands(x, cond, w_in, b_in, w_rs, b_rs,
+                                      valid_t, skip_acc, wdt, 3)
   # C = 512: the acts, and in bf16 the rounded x (wide_scratch)
   scratch = (torch.empty(wide_scratch(batch, t, c, wdt == torch.bfloat16)[
       "bytes"], dtype=torch.uint8, device=dev) if c == WIDE_C else None)
@@ -629,6 +676,66 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   if err != 0:
     raise RuntimeError(f"wn_layer kernel launch failed: cudaError {err}")
   LAUNCHES += 1
+  return x_out, skip
+
+
+def wn_layer_any(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
+                 b_in: torch.Tensor, w_rs: torch.Tensor, b_rs: torch.Tensor,
+                 dilation: int, valid_t: ValidT = None,
+                 skip_acc: Optional[torch.Tensor] = None,
+                 compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+  """One fused WN layer at any shape, through the shape-generic kernel of
+  ``csrc/wn_layer_any.cu``; same contract as :func:`wn_layer_plain`.
+
+  CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch the kernel,
+  which takes: x f32 [B, T, C] with C even and at most
+  ``ANY_MAX_C[compute dtype]``; w_in [K, C, 2C] (any view of it) for any
+  odd K; cond, w_in, w_rs in ``compute_dtype`` (f32 when None); b_in, b_rs
+  and skip_acc f32; valid_t None or an int32 [B] CUDA tensor. Anything
+  else raises. :func:`wn_layer_fused` calls it at every shape but the
+  specialised kernels'; called directly it runs those too.
+  ``ANY_LAUNCHES`` counts its launches.
+  """
+  global ANY_LAUNCHES
+  if x.device.type == "cpu":
+    return wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation,
+                          valid_t=valid_t, skip_acc=skip_acc,
+                          compute_dtype=compute_dtype)
+  if x.device.type != "cuda":
+    raise ValueError(f"unsupported device {x.device}")
+  dev = x.device
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  batch, t, c = x.shape
+  wdt = compute_dtype or torch.float32
+  if wdt not in ANY_MAX_C:
+    raise ValueError(f"unsupported compute dtype {wdt}")
+  if c % 2 or not 0 < c <= ANY_MAX_C[wdt]:
+    raise ValueError(f"the shape-generic kernel takes an even C of at most "
+                     f"{ANY_MAX_C[wdt]} in {wdt} (its shared memory's cap), "
+                     f"got C = {c}")
+  k = w_in.numel() // (2 * c * c)
+  if k % 2 != 1 or w_in.numel() != k * c * 2 * c:
+    raise ValueError(f"w_in: {tuple(w_in.shape)} is not [K, {c}, {2 * c}] "
+                     "for an odd K")
+  if dilation < 0:
+    raise ValueError(f"dilation must be >= 0, got {dilation}")
+  if batch > 65535:
+    raise ValueError(f"the kernel's grid takes B <= 65535, got {batch}")
+  last, x_out, skip = _layer_operands(x, cond, w_in, b_in, w_rs, b_rs,
+                                      valid_t, skip_acc, wdt, k)
+  lib = _library()
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_any_forward(
+        x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+        w_rs.data_ptr(), b_rs.data_ptr(),
+        valid_t.data_ptr() if valid_t is not None else None,
+        x_out.data_ptr(), skip.data_ptr(), int(skip_acc is not None), batch,
+        t, c, k, int(dilation), int(wdt == torch.bfloat16), int(last),
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer_any kernel launch failed: cudaError {err}")
+  ANY_LAUNCHES += 1
   return x_out, skip
 
 
@@ -950,9 +1057,17 @@ def wn_layer_trainable(x: torch.Tensor, cond: torch.Tensor,
   """Differentiable fused WN layer: ``(x', skip)`` as
   :func:`wn_layer_fused` without ``skip_acc``, with gradients for all six
   tensor inputs. On CUDA tensors the forward is the kernel (inputs as
-  ``wn_layer_fused`` takes them, or it raises); on CPU tensors the plain
-  version. Its plain counterpart is ``torch.autograd`` through
+  ``wn_layer_fused`` takes them at K = 3 and C in ``kernel_widths()``, the
+  shapes of the backward kernels; any other shape raises); on CPU tensors
+  the plain version. Its plain counterpart is ``torch.autograd`` through
   :func:`wn_layer_plain`."""
+  if x.device.type == "cuda":
+    c = x.shape[-1]
+    k = w_in.numel() // max(2 * c * c, 1)
+    if not specialised(c, k):
+      raise ValueError(
+          f"the trainable layer takes K = 3 and C in {_WIDTHS} on the card, "
+          f"got K = {k}, C = {c}")
   return WNLayerTrainable.apply(x, cond, w_in, b_in, w_rs, b_rs, dilation,
                                 valid_t, compute_dtype)
 

@@ -14,9 +14,12 @@ res/skip pair axes), so one checkpoint feeds both:
 
 Every layer body runs through the fused WN-layer kernel wrapper (CUDA kernel
 on the card, plain torch on the CPU); the per-layer conditioning product
-stays ``torch.matmul``. The residual stream and the skip sum are float32 in
-both modes; in synthesis the skip sum is accumulated inside the kernel, in
-training outside it.
+stays ``torch.matmul``. Synthesis (``wn_forward``) takes every shape the
+JAX package's ``wn_forward`` takes: any odd ``kernel_size`` and any even
+``n_channels``. Training and the model axis take ``kernel_size`` 3 only
+(and on the card the widths their kernels are built for). The residual
+stream and the skip sum are float32 in both modes; in synthesis the skip
+sum is accumulated inside the kernel, in training outside it.
 
 ``wn_forward_tp`` is the stack on a ``model`` mesh axis (the JAX package's
 tensor-parallel contract, ``waveglow_tpu/models/wn.py``): each rank holds a
@@ -33,7 +36,8 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
+from waveglow_tpu_torch.kernels.wn_layer import (kernel_widths,
+                                                 wn_layer_fused,
                                                  wn_layer_shard,
                                                  wn_layer_shard_trainable,
                                                  wn_layer_trainable)
@@ -101,8 +105,6 @@ def wn_forward(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
   padding of an unpadded call. ``layer`` is the layer body (the kernel
   wrapper; ``wn_layer_plain`` runs the same model without the kernel).
   """
-  if kernel_size != 3:
-    raise ValueError("the fused WN layer implements kernel_size 3 only")
   c = n_channels
   batch, t, _ = audio0.shape
   x = conv1x1(audio0, params["start"]["w"], params["start"]["b"],
@@ -122,12 +124,21 @@ def wn_forward(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
     cond_i = _mm(spect, w_cond[:, i].reshape(-1, 2 * c), compute_dtype)
     cond_i = cond_i + b_cond[i].reshape(-1).to(cond_i.dtype)
     x, skip_acc = layer(
-        x, cond_i, in_layer["w"].reshape(3, c, 2 * c), in_layer["b"].reshape(-1),
+        x, cond_i, in_layer["w"].reshape(kernel_size, c, 2 * c),
+        in_layer["b"].reshape(-1),
         res_skip["w"].reshape(c, -1), res_skip["b"].reshape(-1),
         2 ** i, valid_t=valid_t, skip_acc=skip_acc,
         compute_dtype=compute_dtype)
   return conv1x1(skip_acc, params["end"]["w"], params["end"]["b"],
                  compute_dtype=compute_dtype, out_dtype=torch.float32)
+
+
+def _check_kernel_size(entry: str, kernel_size: int) -> None:
+  if kernel_size != 3:
+    raise ValueError(
+        f"{entry} takes kernel_size 3 only (on the card at n_channels in "
+        f"{kernel_widths()}), got kernel_size {kernel_size}; synthesis "
+        "without a mesh takes any odd kernel_size")
 
 
 def _row_keep(valid_t: torch.Tensor, t: int) -> torch.Tensor:
@@ -155,10 +166,9 @@ def wn_forward_tp(shards: Sequence[Dict], audio0: torch.Tensor,
   (``parallel.mesh.reduce_partials``); then b_rs, the residual add and the
   ``valid_t`` row mask run on each rank (the same bits on each) and the
   skip is added to the sum once. The work of every rank is enqueued
-  before any is waited for.
+  before any is waited for. Takes ``kernel_size`` 3 only.
   """
-  if kernel_size != 3:
-    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  _check_kernel_size("wn_forward_tp (a model mesh)", kernel_size)
   c = n_channels
   batch, t, _ = audio0.shape
   x = conv1x1(audio0, shards[0]["start"]["w"], shards[0]["start"]["b"],
@@ -209,10 +219,9 @@ def wn_forward_train(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
   the skip sum is added in f32 outside the kernel. The residual stream
   stays f32 in both modes, because the kernel takes f32 x: that matches
   the JAX XLA route (``wn_forward``), while the JAX Pallas route keeps x in
-  the compute dtype.
+  the compute dtype. Takes ``kernel_size`` 3 only.
   """
-  if kernel_size != 3:
-    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  _check_kernel_size("wn_forward_train (training)", kernel_size)
   dtype = compute_dtype or torch.float32
   c = n_channels
   x = conv1x1(audio0, materialize(params["start"]), params["start"]["b"],
@@ -256,10 +265,11 @@ def wn_forward_train_tp(shards: Sequence[Dict], audio0: torch.Tensor,
   added once. The ``res_skip`` weight norm sums over the cut axis
   (``materialize_row_parallel``). So every gradient sum across ranks runs
   in rank order: the partial dx's and d(spect)'s in ``copy_to_model_ranks``'
-  backward, the replicated ``res_skip`` ``g``'s in the norm's.
+  backward, the replicated ``res_skip`` ``g``'s in the norm's. Takes
+  ``kernel_size`` 3 only.
   """
-  if kernel_size != 3:
-    raise ValueError("the fused WN layer implements kernel_size 3 only")
+  _check_kernel_size("wn_forward_train_tp (training on a model mesh)",
+                     kernel_size)
   dtype = compute_dtype or torch.float32
   c = n_channels
   head = shards[0]
