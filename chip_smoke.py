@@ -7,8 +7,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
   2. build: the WN-layer kernels are compiled from
      waveglow_tpu_torch/csrc/wn_layer.cu (forward), wn_layer_bwd.cu (the
      bf16 backward, the whole layer's and a model rank's),
-     wn_layer_shard.cu (a model rank's share) and wn_layer_any.cu (the
-     forward at every other shape), one nvcc per source, started
+     wn_layer_shard.cu (a model rank's share), wn_layer_any.cu (the
+     forward at every other shape) and wn_layer_bwd_any.cu (the bf16
+     backward at every other shape), one nvcc per source, started
      together, every width instance (C = 128, 256, 512; the shard
      kernels at C' = C/2, C/4, C/8); build seconds and
      ptxas facts (when this run built it), and what the loaded build uses
@@ -21,8 +22,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      kernel and the C = 512 rounding of x do no products. The rows, dx and
      weights kernels of both backwards, the C = 512 bf16 forward's gate
      and res/skip kernels, every model rank's bf16 gate and res/skip
-     kernels at every width (which replaced the mma.sync shard kernel)
-     and the bf16 shape-generic forward must be wgmma (HGMMA), with no
+     kernels at every width (which replaced the mma.sync shard kernel),
+     the bf16 shape-generic forward and the rows, dx and weights kernels
+     of the shape-generic backward must be wgmma (HGMMA), with no
      ptxas warning that their wgmmas are
      serialized (C7511/C7513), and no spill (their registers, spills and
      shared memory are printed). The f32 kernel's
@@ -54,12 +56,13 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      the library's backward alone, beside the bound.
   6. train: train() at full width (12 x 8 x 256, batch 12, segment 16,000)
      on wav files cut from tests/fixtures/audio.wav, in f32 and bf16: six
-     steps with saves at steps 1, 3 and 6, every batch read through the
+     steps with saves at steps 1 and 5, every batch read through the
      native C++ loader (waveglow_tpu_torch/native/wavloader.cpp, built
      with g++; native.BATCHES equals the batches the run read), launch
      counts (each step's forward and its remat recompute; one
      backward-kernel call per layer a bf16 step, none in f32), resume from
-     the step-3 checkpoint against the straight run; the loader's batches
+     the step-5 checkpoint (mid-epoch) for step 6, saving nothing, against
+     the straight run; the loader's batches
      at epochs 0 and 1 bit for bit the Python decoder's, and one batch of
      12 crops decoded both ways over 100 PCM16 files of 1.5-10 s (host
      ms, median of 10); the model's bias capture from a normal mel (96
@@ -120,11 +123,12 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      refused and of the npz taken, SIGTERM drains and it exits 0 within
      30 s.
  10. cli train and validate: the training and validation commands at full
-     width in f32 and bf16. `train` of phase 6's 24 cuts (batch 12, a
-     checkpoint every step: steps and checkpoints 1 and 2) with
+     width in f32 and bf16. `train` of phase 6's 24 cuts (batch 12, steps
+     and checkpoints 1 and 2: the first and the epoch's last) with
      --profile-dir, whose trace must name the WN kernel; the same command
      again refused (exit 1, the checkpoints untouched); `continue-train` to
-     epoch 2 (steps 3 and 4, four train_step events in the metrics file);
+     epoch 2 (steps 3 and 4, a checkpoint at 4, four train_step events in
+     the metrics file);
      checkpoint 4 bit for bit a train(max_iterations=4) of the same
      settings in this process; `validate --full-run` of the newest
      checkpoint and, in bf16 (SINGLE_MODE), `--select 2` over all of them
@@ -247,7 +251,26 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      bf16 (96 generic launches, none of the specialised kernels, against
      the plain path at phase 4's bounds), and the K = 5 model's 826-frame
      request streamed in 256-frame chunks bit for bit its one call.
- 17. a `kernels` JSON line, the card's name and power limit, and last the
+ 17. train at any shape: the shape-generic bf16 backward
+     (csrc/wn_layer_bwd_any.cu), which the trainable layer runs at every
+     shape outside the specialised kernels': (a) against
+     wn_layer_backward(compute_dtype=bf16) at phase 16's (C, K), d = 1,
+     128 and the last layer, B = 12, T = 2,000 with every other row cut
+     to 1,000 by valid_t, each gradient within phase 5's bound, every
+     repeat bit for bit; the f32 trainable layer (the generic forward, the
+     torch backward over K taps) against autograd through wn_layer_plain
+     at the same shapes; (b) against the specialised backward at (256,
+     3), its bits compared; (c) timed at (256, 5), (384, 3), (256, 3)
+     beside the bound, plain and library ms (the backward split kernel by
+     kernel), and the trainable layer in both modes; (d) train() on
+     HParams() at kernel_size 5 and at n_channels 384, batch 12, segment
+     16,000, two steps in f32 and bf16 from an iteration-1 checkpoint:
+     the generic kernels at the code's counts (192 forward launches a
+     step with remat, 96 backward calls a bf16 step) and no specialised
+     launch, a finite loss, step seconds and peak memory; one step's loss
+     and gradients through the kernels against the plain route at phase
+     6's bounds.
+ 18. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Every phase prints its wall seconds ("phase N (name): s"), and the run's
@@ -366,14 +389,14 @@ B_TRAIN = 12
 T_TRAIN = 2_000
 N_WAVS = 24
 TRAIN_STEPS = 6
-RESUME_FROM = 3
+RESUME_FROM = 5
 # phase 6's host timing of the native loader against the Python decoder:
 # LOADER_WAVS PCM16 mono files of 1.5-10 s (LJSpeech's range of lengths),
 # one batch of B_TRAIN crops a rep, LOADER_REPS reps
 LOADER_WAVS = 100
 LOADER_SECONDS = (1.5, 10.0)
 LOADER_REPS = 10
-TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "3",
+TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "5",
                  "epochs_per_checkpoint": "0"}
 # Tolerances of the training phases, stated before the run.
 # Trainable layer: its forward against the plain layer at the bounds of
@@ -464,11 +487,14 @@ CLI_WAV_CUTS = ((22_050, 30_000), (120_000, 41_000))
 
 # The training and validation commands (phase 10): `train` takes epoch 1
 # of phase 6's 24 cuts at batch 12 (2 steps), `continue-train` epoch 2 (2
-# more), a checkpoint every step; `validate` scores the whole speech
-# fixture, its first half and phase 9's two cuts, on the newest checkpoint
-# and then on every CLI_SELECT-th one
+# more), a checkpoint at the first step and at each run's last (1, 2, 4:
+# about 1 GB each); `validate` scores the whole speech fixture, its first
+# half and phase 9's two cuts, on the newest checkpoint and then on every
+# CLI_SELECT-th one
 CLI_TRAIN_HPARAMS = (f"epochs={{epochs}},batch_size={B_TRAIN},"
-                     "iters_per_checkpoint=1,epochs_per_checkpoint=0")
+                     "iters_per_checkpoint=0,epochs_per_checkpoint=0")
+# The checkpoints the two runs leave, in order.
+CLI_TRAIN_SAVES = (1, 2, 4)
 CLI_SELECT = 2
 # Sharded serving on logical meshes of the one card (phase 11): a batch of
 # MESH_BATCH rows of phase 4's longest request length, infer_many of
@@ -712,6 +738,15 @@ def any_variant(bf16: bool, last: bool) -> str:
           f"{'last' if last else 'layer'}")
 
 
+def any_bwd_variant(kernel: str) -> str:
+  """Variant name of a shape-generic backward kernel: "bf16,any,bwd-..."
+  for those that do products (held to wgmma, no serialization, no spill),
+  "{reduce,prep,pad},any,bwd" for the others, which do none."""
+  if kernel in ("rows", "dx", "weights"):
+    return f"bf16,any,bwd-{kernel}"
+  return f"{kernel},any,bwd"
+
+
 def kernel_variant(mangled: str) -> str:
   """The variant a kernel's mangled symbol instantiates: the f32 kernel
   ``wn_layer_kernel_f32<kC, kLast>`` (C <= 256) or, at C = 512,
@@ -725,7 +760,8 @@ def kernel_variant(mangled: str) -> str:
   ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, the
   f32 shard kernel ``wn_shard_kernel<kC, kCP, kLast>`` or a shard-backward
   kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``
-  or a shape-generic forward kernel ``wn_any_kernel_{f32,bf16}<kLast>``;
+  or a shape-generic forward kernel ``wn_any_kernel_{f32,bf16}<kLast>``
+  or backward kernel ``wn_bwd_any_{rows,dx,weights,reduce,prep,pad}_kernel``;
   other symbols are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
@@ -769,6 +805,10 @@ def kernel_variant(mangled: str) -> str:
   inst = re.search(r"wn_any_kernel_(f32|bf16)ILb([01])E", mangled)
   if inst:
     return any_variant(inst.group(1) == "bf16", inst.group(2) == "1")
+  inst = re.search(r"wn_bwd_any_(rows|dx|weights|reduce|prep|pad)_kernel",
+                   mangled)
+  if inst:
+    return any_bwd_variant(inst.group(1))
   return mangled
 
 
@@ -847,10 +887,10 @@ def wgmma_serialized(build_log: str) -> set:
 
 def held_to_wgmma(name: str) -> bool:
   """A product kernel of the bf16 backwards (rows, dx, weights; the whole
-  layer's and a rank's), of the bf16 forward at C = 512 (gate, res/skip),
-  of a rank's bf16 share at any width (gate, res/skip) or the bf16
-  shape-generic forward: held to wgmma, to no serialization and to no
-  spill."""
+  layer's, a rank's and the shape-generic one's), of the bf16 forward at
+  C = 512 (gate, res/skip), of a rank's bf16 share at any width (gate,
+  res/skip) or the bf16 shape-generic forward: held to wgmma, to no
+  serialization and to no spill."""
   return (name.startswith("bf16,") and (
       ",bwd-" in name or ",sbwd-" in name
       or name.startswith(f"bf16,C={kl.WIDE_C},") and ",bwd" not in name
@@ -963,13 +1003,19 @@ def phase_build() -> dict:
                      for last in (False, True)})
   attributes.update({any_variant(*v): kl.any_kernel_info(*v)
                      for v in ANY_KERNELS})
+  attributes.update({any_bwd_variant(k): kl.any_bwd_kernel_info(k)
+                     for k in kl.ANY_BWD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
                         capture_output=True, text=True, check=False)
   if sass.returncode != 0:
     fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
-  mma = count_mma(sass.stdout)
-  hgmma = count_mma(sass.stdout, r"\bHGMMA\.")
-  hmma = count_mma(sass.stdout, r"\bHMMA\.")
+  # the counts read the kernels' headers and the tensor-core lines alone:
+  # keep those in one pass over the library's millions of lines
+  kept = "\n".join(line for line in sass.stdout.splitlines()
+                   if "Function : " in line or "MMA." in line)
+  mma = count_mma(kept)
+  hgmma = count_mma(kept, r"\bHGMMA\.")
+  hmma = count_mma(kept, r"\bHMMA\.")
   serialized = wgmma_serialized(kl.BUILD_LOG) if built else set()
   info = {"built_in_this_run": built,
           "build_s": kl.BUILD_SECONDS if built else "cached",
@@ -1071,6 +1117,28 @@ def library_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation, dtype):
   gates = pre.transpose(1, 2) + cond
   acts = torch.tanh(gates[..., :c]) * torch.sigmoid(gates[..., c:])
   return torch.matmul(acts.to(dtype), w_rs)
+
+
+def library_grads_ms(saved, cot, dilation: int, dtype,
+                     backward_only: bool) -> float:
+  """ms of autograd through ``library_layer`` (cuDNN conv1d, the gate, a
+  cuBLAS matmul) on the same inputs: its backward alone (its forward built
+  once, outside the timed region) or forward and backward."""
+  x, cond, w_in, b_in, w_rs, _ = saved
+  width = x.shape[-1]
+  lib_in = (x.to(dtype).transpose(1, 2).contiguous().requires_grad_(),
+            cond.reshape(B_TRAIN, T_TRAIN, 2 * width).clone()
+            .requires_grad_(),
+            w_in.permute(2, 1, 0).contiguous().requires_grad_(),
+            b_in.to(dtype).clone().requires_grad_(),
+            w_rs.clone().requires_grad_())
+  cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(dtype)
+  if not backward_only:
+    return cuda_ms(lambda: torch.autograd.grad(
+        library_layer(*lib_in, None, dilation, dtype), lib_in, cot_rs))
+  lib_out = library_layer(*lib_in, None, dilation, dtype)
+  return cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, cot_rs,
+                                             retain_graph=True))
 
 
 def forward_kernels(mode: str, batch: int, width: int) -> int:
@@ -1367,10 +1435,11 @@ def profile_call(fn) -> dict:
 GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
 
 
-def trainable_inputs(last: bool, dtype, seed: int, width: int = C):
+def trainable_inputs(last: bool, dtype, seed: int, width: int = C,
+                     k: int = 3):
   """The six inputs (requiring grad) of one training layer (``width``
-  channels) at the training segment's shape, as the model feeds it, and two
-  output cotangents."""
+  channels, ``k`` taps) at the training segment's shape, as the model feeds
+  it, and two output cotangents."""
   C = width
   g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1380,7 +1449,7 @@ def trainable_inputs(last: bool, dtype, seed: int, width: int = C):
   rs = C if last else 2 * C
   args = (rand(B_TRAIN, T_TRAIN, C, scale=0.5),
           rand(B_TRAIN, T_TRAIN, 2, C, scale=0.5).to(dtype),
-          rand(3, C, 2 * C, scale=(3 * C) ** -0.5).to(dtype),
+          rand(k, C, 2 * C, scale=(k * C) ** -0.5).to(dtype),
           rand(2 * C, scale=0.1),
           rand(C, rs, scale=C ** -0.5).to(dtype),
           rand(rs, scale=0.1))
@@ -1389,19 +1458,20 @@ def trainable_inputs(last: bool, dtype, seed: int, width: int = C):
   return [a.requires_grad_() for a in args], cot
 
 
-def trainable_cost(last: bool, mode: str, width: int) -> dict:
+def trainable_cost(last: bool, mode: str, width: int, k: int = 3) -> dict:
   """Least work of one training layer: the forward (the kernel's work) and
   the six gradients (without recomputing the forward), each input read
   once and each output written once. Every product takes its operands in
   the compute dtype and counts at that dtype's rate: in bf16 the backward's
   operands (drs, acts, dgates, the taps) are rounded to bf16 (the rounding
   points of wn_layer_backward), so its products count at the tensor cores'
-  bf16 rate; in f32 they count at the f32 rate. ``width``: the channels."""
+  bf16 rate; in f32 they count at the f32 rate. ``width``: the channels;
+  ``k``: the taps."""
   C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = B_TRAIN * T_TRAIN
-  weights = (3 * C * 2 * C + C * rs) * esize
+  weights = (k * C * 2 * C + C * rs) * esize
   biases = (2 * C + rs) * 4
   fwd_bytes = (rows * C * 4 + rows * 2 * C * esize + weights + biases
                + 2 * rows * C * 4)             # x, cond in; x', skip out
@@ -1411,9 +1481,9 @@ def trainable_cost(last: bool, mode: str, width: int) -> dict:
   # the backward alone reads the saved inputs again
   bwd_bytes = (grad_bytes + rows * C * 4 + rows * 2 * C * esize + weights
                + biases)
-  fwd_flops = 2 * rows * C * (3 * 2 * C + rs)
+  fwd_flops = 2 * rows * C * (k * 2 * C + rs)
   # dacts and dw_rs, then dw_in and the taps' adjoint
-  bwd_flops = 2 * rows * (2 * C * rs + 2 * 3 * C * 2 * C)
+  bwd_flops = 2 * rows * (2 * C * rs + 2 * k * C * 2 * C)
   t_ops = fwd_flops / PEAK_FLOPS[mode] + bwd_flops / PEAK_FLOPS[mode]
   t_bytes = all_bytes / HBM_BYTES_PER_S
   return {"bytes": all_bytes, "fwd_flops": fwd_flops, "bwd_flops": bwd_flops,
@@ -1567,22 +1637,10 @@ def phase_trainable(seed: int) -> dict:
         rec["plain_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
             plain_out, args, cot, retain_graph=True))
         del plain_out
-        x, cond, w_in, b_in, w_rs, _ = detached
-        lib_in = (x.to(dtype).transpose(1, 2).contiguous().requires_grad_(),
-                  cond.reshape(B_TRAIN, T_TRAIN, 2 * C).clone()
-                  .requires_grad_(),
-                  w_in.permute(2, 1, 0).contiguous().requires_grad_(),
-                  b_in.to(dtype).clone().requires_grad_(),
-                  w_rs.clone().requires_grad_())
-        cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(dtype)
-        rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            library_layer(*lib_in, None, dilation, dtype), lib_in, cot_rs))
-        # the library's backward alone: its forward built once, outside the
-        # timed region
-        lib_out = library_layer(*lib_in, None, dilation, dtype)
-        rec["library_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, lib_in, cot_rs, retain_graph=True))
-        del lib_out
+        rec["library_ms"] = library_grads_ms(detached, cot, dilation, dtype,
+                                             False)
+        rec["library_backward_ms"] = library_grads_ms(detached, cot,
+                                                      dilation, dtype, True)
         rec.update(trainable_cost(last, mode, C))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["backward_share_of_bound"] = (rec["bwd_bound_ms"]
@@ -1850,7 +1908,7 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   saves = [r["iteration"] for r in records if r["event"] == "validation"]
   val_batches = -(-len(entries) // B_TRAIN)
   expected = per_step * len(steps) + per_forward * val_batches * len(saves)
-  if len(steps) != TRAIN_STEPS or saves != [1, RESUME_FROM, TRAIN_STEPS]:
+  if len(steps) != TRAIN_STEPS or saves != [1, RESUME_FROM]:
     fail(f"{mode}: train() ran {len(steps)} steps, validated at {saves}")
   if launches != expected:
     fail(f"{mode}: train() launched the kernel {launches} times, expected "
@@ -1870,10 +1928,13 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
     fail(f"{mode}: non-finite loss {losses}")
   step_s = [r["duration_s"] for r in steps[1:]]
 
-  # -- resume from the step-3 checkpoint: the straight run's losses
-  train(None, tmp / "logs_resumed", entries, entries, tmp / "ck_resumed",
-        checkpoint=CheckpointWaveglow.load(tmp / "ck" / f"{RESUME_FROM}.npz"),
-        max_iterations=TRAIN_STEPS, device=DEVICE)
+  # -- resume from the step-5 checkpoint (mid-epoch): the straight run's
+  # loss (no saves: they do not touch the state, and each is 1 GB)
+  with no_saves():
+    train(None, tmp / "logs_resumed", entries, entries, tmp / "ck_resumed",
+          checkpoint=CheckpointWaveglow.load(
+              tmp / "ck" / f"{RESUME_FROM}.npz"),
+          max_iterations=TRAIN_STEPS, device=DEVICE)
   resumed = {r["iteration"]: r["loss"]
              for r in read_metrics(tmp / "logs_resumed")
              if r["event"] == "train_step"}
@@ -1883,8 +1944,8 @@ def phase_train(mode: str, seed: int, tmp: Path) -> dict:
   if resume_err > RESUME_LOSS_TOL:
     fail(f"{mode}: resumed losses {resumed} differ from the straight run "
          f"{losses} by {resume_err}")
-  for ck in ("ck", "ck_resumed"):   # about 1 GB a checkpoint
-    shutil.rmtree(tmp / ck)
+  shutil.rmtree(tmp / "ck")   # about 1 GB a checkpoint
+  shutil.rmtree(tmp / "ck_resumed", ignore_errors=True)
 
   t0 = time.perf_counter()
   loader = loader_check(entries, hp, seed, tmp)
@@ -3077,10 +3138,14 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   logs = work / "logs"
   entries = write_wavs(train_dir, seed)
   val_entries = write_val_wavs(val_dir)
-  steps = N_WAVS // hp.batch_size       # a step and a save each, an epoch
+  steps = N_WAVS // hp.batch_size       # steps an epoch
   val_batches = -(-len(val_entries) // hp.batch_size)
-  want_train = expected_train_launches(per_forward, hp.remat, steps, steps,
-                                       val_batches, mode == "bf16")
+  saved = {"train": [it for it in CLI_TRAIN_SAVES if it <= steps],
+           "continue_train": [it for it in CLI_TRAIN_SAVES if it > steps]}
+  want = {run: expected_train_launches(per_forward, hp.remat, steps,
+                                       len(its), val_batches,
+                                       mode == "bf16")
+          for run, its in saved.items()}
   info = {"mode": mode, "walls_s": {}, "launches": {}, "seconds": {}}
   last = [t_start]
 
@@ -3111,10 +3176,10 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
   lap("data")
   # -- train: epoch 1, traced
   command("train", train_cmd("train", 1, "--profile-dir", work / "trace"),
-          want_train)
-  if get_all_checkpoint_iterations(ckpts) != [1, 2]:
+          want["train"])
+  if get_all_checkpoint_iterations(ckpts) != saved["train"]:
     fail(f"cli train {mode}: checkpoints "
-         f"{get_all_checkpoint_iterations(ckpts)}, expected [1, 2]")
+         f"{get_all_checkpoint_iterations(ckpts)}, expected {saved['train']}")
   lap("train")
   trace_path = work / "trace" / "trace.json"
   trace = trace_path.read_bytes()
@@ -3135,14 +3200,16 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
     fail(f"cli train {mode}: the refused run touched the checkpoints")
   lap("train_refused")
   # -- continue-train: epoch 2
-  command("continue_train", train_cmd("continue-train", 2), want_train)
+  command("continue_train", train_cmd("continue-train", 2),
+          want["continue_train"])
   lap("continue_train")
   available = get_all_checkpoint_iterations(ckpts)
   step_its = [r["iteration"] for r in read_metrics(logs)
               if r["event"] == "train_step"]
-  if available != [1, 2, 3, 4] or step_its != [1, 2, 3, 4]:
+  if available != list(CLI_TRAIN_SAVES) or step_its != [1, 2, 3, 4]:
     fail(f"cli continue-train {mode}: checkpoints {available}, train_step "
-         f"events {step_its}, expected [1, 2, 3, 4] both")
+         f"events {step_its}, expected {list(CLI_TRAIN_SAVES)} and "
+         "[1, 2, 3, 4]")
   # -- the same settings in one train() call: checkpoint 4 bit for bit
   # (no saves: they do not touch the state, and each is 1 GB)
   with no_saves():
@@ -3899,18 +3966,7 @@ def backward_kernel_case(i: int, seed: int, width: int,
         saved, *cot, dilation))
     rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
         saved, *cot, dilation, None, cdt))
-    x, cond, w_in, b_in, w_rs, _ = saved
-    lib_in = (x.to(cdt).transpose(1, 2).contiguous().requires_grad_(),
-              cond.reshape(B_TRAIN, T_TRAIN, 2 * width).clone()
-              .requires_grad_(),
-              w_in.permute(2, 1, 0).contiguous().requires_grad_(),
-              b_in.to(cdt).clone().requires_grad_(),
-              w_rs.clone().requires_grad_())
-    cot_rs = torch.cat(cot, dim=-1)[..., :w_rs.shape[1]].to(cdt)
-    lib_out = library_layer(*lib_in, None, dilation, cdt)
-    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, lib_in, cot_rs, retain_graph=True))
-    del lib_out
+    rec["library_ms"] = library_grads_ms(saved, cot, dilation, cdt, True)
     cost = trainable_cost(last, "bf16", width)
     rec.update(bound_ms=cost["bwd_bound_ms"], bound_by=cost["bwd_bound_by"],
                share_of_bound=cost["bwd_bound_ms"] / rec["kernel_ms"],
@@ -5072,6 +5128,16 @@ ANY_DESIGN = {
             "channel in shared memory"}
 
 
+def any_checkpoint(seed: int, tmp: Path, name: str) -> CheckpointWaveglow:
+  """The iteration-1 checkpoint of ANY_MODELS[name] that phase 16 serves
+  (``tmp / any_<name>.npz``), written here when it is not there."""
+  width, k = ANY_MODELS[name]
+  path = tmp / f"any_{name}.npz"
+  if not path.is_file():
+    return full_width_checkpoint(seed, path, width, k)
+  return CheckpointWaveglow.load(path)
+
+
 def any_kernel_case(mode: str, batch: int, t: int, width: int, k: int,
                     dilation: int, last: bool, seed: int) -> dict:
   """The shape-generic kernel against wn_layer_plain (per-row valid_t,
@@ -5215,7 +5281,7 @@ def phase_any_shape(seed: int, tmp: Path) -> dict:
                           if c["mode"] == m) for m in MODES},
        "vs_specialised": out["vs_specialised"], "timed": out["timed"]}))
   for name, (width, k) in ANY_MODELS.items():
-    ckpt = full_width_checkpoint(seed, tmp / f"any_{name}.npz", width, k)
+    ckpt = any_checkpoint(seed, tmp, name)
     out["serving"][name] = {mode: width_serving(ckpt, mode, seed,
                                                 generic=True)
                             for mode in MODES}
@@ -5229,6 +5295,340 @@ def phase_any_shape(seed: int, tmp: Path) -> dict:
     del ckpt
     torch.cuda.empty_cache()
   return out
+
+
+# -- phase 17 --------------------------------------------------------------
+
+# Training at every shape: the shape-generic bf16 backward
+# (csrc/wn_layer_bwd_any.cu), which the trainable layer runs wherever the
+# specialised kernels do not (kl.specialised), beside the generic forward.
+# (a) against wn_layer_backward(compute_dtype=bf16) at phase 16's
+# ANY_SHAPES, d = 1, 128 and the last layer, B_TRAIN x T_TRAIN with every
+# other row cut to ANY_BWD_CUT rows by valid_t (x zero past it, as the
+# model keeps it), each gradient within phase 5's KERNEL_TOL_BF16_REL of
+# its max |value|, every repeat bit for bit; the f32 trainable layer (the
+# generic forward, the torch backward over K taps) against autograd through
+# wn_layer_plain at the same shapes, within GRAD_TOL_REL; (b) at (C, 3)
+# against the specialised backward; (c) timed at ANY_BWD_TIMED; (d)
+# train() on ANY_MODELS in both modes, ANY_TRAIN_STEPS steps from an
+# iteration-1 checkpoint with a fresh optimizer (no save: a checkpoint with
+# Adam state is 1-3 GB), phase 6's batch and segment.
+ANY_BWD_CUT = 1_000
+ANY_BWD_TIMED = ((C, 5), (384, 3), (C, 3))
+ANY_TRAIN_STEPS = 2
+ANY_TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "1000",
+                     "epochs_per_checkpoint": "0"}
+ANY_BWD_SPLIT = r"wn_bwd_any_(pad|prep|rows|dx|weights|reduce)_kernel"
+ANY_BWD_DESIGN = (
+    "six kernels: the weights padded to 64-channel blocks, x and drs "
+    "rounded to bf16 into padded layouts (drs's column sums); rows: one "
+    "warpgroup per (batch row, 64 time rows, pass of 64 channels), the "
+    "gate recompute (K*Cp deep, each tap's rows loaded on their own) and "
+    "dacts by wgmma m64n64k16, the gate's adjoint on the accumulators; dx: "
+    "per (64 rows, 64 channels) one K*2Cp deep wgmma product; weights: "
+    "tiles of 64 x 128 by wgmma m64n128k16 over ranges of a batch row's "
+    "rows, f32 partials; a fixed-order reduce; every product's 64-deep K "
+    "chunks double-buffered by cp.async")
+
+
+def any_trainable_inputs(width: int, k: int, last: bool, dtype, seed: int):
+  """trainable_inputs at ``k`` taps with every other row's x zero from
+  ANY_BWD_CUT rows on, and that valid_t (an int32 [B] tensor)."""
+  args, cot = trainable_inputs(last, dtype, seed, width, k)
+  valid = torch.tensor([T_TRAIN - (T_TRAIN - ANY_BWD_CUT) * (i % 2)
+                        for i in range(B_TRAIN)], dtype=torch.int32,
+                       device=DEVICE)
+  keep = torch.arange(T_TRAIN, device=DEVICE)[None, :, None] < valid[:, None,
+                                                                     None]
+  args[0] = (args[0].detach() * keep).requires_grad_()
+  return args, cot, valid
+
+
+def grads_within(what: str, got, ref, tol: float) -> dict:
+  """Each gradient's max abs error and its reference's max |value|; fail
+  unless it is finite, in its reference's dtype and shape, and within
+  ``tol`` of that max."""
+  out = {}
+  for name, g, r in zip(GRAD_NAMES, got, ref):
+    if g.dtype != r.dtype or g.shape != r.shape:
+      fail(f"{what}: grad {name} {g.dtype} {tuple(g.shape)}, reference "
+           f"{r.dtype} {tuple(r.shape)}")
+    err = (g.float() - r.float()).abs().max().item()
+    scale = r.float().abs().max().item()
+    out[name] = {"max_abs_err": err, "ref_max_abs": scale}
+    if not torch.isfinite(g).all() or err > tol * scale:
+      fail(f"{what}: grad {name} {out[name]}, bound {tol} of its max")
+  return out
+
+
+def any_bwd_case(width: int, k: int, dilation: int, last: bool,
+                 seed: int) -> dict:
+  """(a) at one shape: the generic bf16 backward twice (bit for bit)
+  against wn_layer_backward; the f32 trainable layer against autograd
+  through wn_layer_plain."""
+  what = f"C={width},K={k},d={dilation},last={last}"
+  rec = {"C": width, "K": k, "dilation": dilation, "last": last}
+  args, cot, valid = any_trainable_inputs(width, k, last, torch.bfloat16,
+                                          seed)
+  saved = tuple(a.detach() for a in args)
+  got = kl.wn_layer_backward_any(saved, *cot, dilation, valid)
+  again = kl.wn_layer_backward_any(saved, *cot, dilation, valid)
+  torch.cuda.synchronize()
+  if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    fail(f"two calls of the generic backward differ ({what})")
+  del again
+  ref = kl.wn_layer_backward(saved, *cot, dilation, valid, torch.bfloat16)
+  grads = grads_within(f"generic backward {what}", got, ref,
+                       KERNEL_TOL_BF16_REL)
+  rec["backward_max_abs_err"] = max(g["max_abs_err"] for g in grads.values())
+  rec["backward_max_err_of_scale"] = max(
+      g["max_abs_err"] / g["ref_max_abs"] for g in grads.values()
+      if g["ref_max_abs"] > 0)
+  del args, saved, got, ref
+
+  args, cot, valid = any_trainable_inputs(width, k, last, torch.float32, seed)
+  out = kl.wn_layer_trainable(*args, dilation, valid_t=valid)
+  plain_out = kl.wn_layer_plain(*args, dilation, valid_t=valid)
+  rec["f32_forward_max_abs_err"] = max(
+      (a - b).abs().max().item() for a, b in zip(out, plain_out))
+  if rec["f32_forward_max_abs_err"] > KERNEL_TOL_F32:
+    fail(f"f32 trainable forward {what}: {rec}")
+  grads = grads_within(f"f32 trainable layer {what}",
+                       torch.autograd.grad(out, args, cot),
+                       torch.autograd.grad(plain_out, args, cot),
+                       GRAD_TOL_REL["f32"])
+  rec["f32_grad_max_err_of_scale"] = max(
+      g["max_abs_err"] / g["ref_max_abs"] for g in grads.values()
+      if g["ref_max_abs"] > 0)
+  return rec
+
+
+def any_bwd_vs_specialised(last: bool, seed: int) -> dict:
+  """(b): the generic backward against the specialised one at (C, 3), B_TRAIN
+  x T_TRAIN (d = 1; the last layer at its dilation, valid_t cut), within
+  the bound each keeps to the plain version; whether the bits are equal."""
+  dilation = LAST_DILATION if last else 1
+  args, cot, valid = any_trainable_inputs(C, 3, last, torch.bfloat16, seed)
+  saved = tuple(a.detach() for a in args)
+  generic = kl.wn_layer_backward_any(saved, *cot, dilation, valid)
+  fused = kl.wn_layer_backward_fused(saved, *cot, dilation, valid)
+  grads = grads_within(f"generic vs specialised backward (last={last})",
+                       generic, fused, KERNEL_TOL_BF16_REL)
+  return {"last": last, "dilation": dilation,
+          "bitwise_equal": all(torch.equal(a, b)
+                               for a, b in zip(generic, fused)),
+          "max_err_of_scale": max(g["max_abs_err"] / g["ref_max_abs"]
+                                  for g in grads.values()
+                                  if g["ref_max_abs"] > 0)}
+
+
+def any_bwd_timed(width: int, k: int, seed: int) -> dict:
+  """(c) at B_TRAIN x T_TRAIN, d = 1 (CUDA events): the generic backward
+  (and its kernels by torch.profiler), its plain version and the library's
+  backward beside its bound; the trainable layer in each mode at the
+  generic kernels (forward and backward) beside its bound, plain
+  (autograd through wn_layer_plain) and library (forward and backward); at
+  (C, 3) the specialised kernels' times too."""
+  rec = {"C": width, "K": k}
+  for mode, cdt in MODES.items():
+    dtype = cdt or torch.float32
+    args, cot = trainable_inputs(False, dtype, seed, width, k)
+    saved = tuple(a.detach() for a in args)
+    if mode == "bf16":
+      cost = trainable_cost(False, "bf16", width, k)
+      bwd = {"bound_ms": cost["bwd_bound_ms"], "bound_by": cost["bwd_bound_by"],
+             "gflop": cost["bwd_flops"] / 1e9}
+      bwd["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_backward_any(
+          saved, *cot, 1))
+      bwd["plain_ms"] = cuda_ms(lambda: kl.wn_layer_backward(
+          saved, *cot, 1, None, cdt))
+      bwd["library_ms"] = library_grads_ms(saved, cot, 1, dtype, True)
+      bwd["kernels_ms"] = kernel_split(
+          lambda: kl.wn_layer_backward_any(saved, *cot, 1), ANY_BWD_SPLIT,
+          len(kl.ANY_BWD_KERNELS))
+      if (width, k) == (C, 3):
+        bwd["specialised_ms"] = cuda_ms(lambda: kl.wn_layer_backward_fused(
+            saved, *cot, 1))
+      bwd["share_of_bound"] = bwd["bound_ms"] / bwd["kernel_ms"]
+      rec["backward"] = bwd
+      backward_ms = bwd["kernel_ms"]
+    else:
+      backward_ms = cuda_ms(lambda: kl.wn_layer_backward(saved, *cot, 1,
+                                                         None, cdt))
+    cost = trainable_cost(False, mode, width, k)
+    layer = {"bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+             "forward_ms": cuda_ms(lambda: kl.wn_layer_any(
+                 *saved, 1, compute_dtype=cdt)),
+             "backward_ms": backward_ms}
+    layer["ms"] = layer["forward_ms"] + layer["backward_ms"]
+    layer["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        kl.wn_layer_plain(*args, 1, compute_dtype=cdt), args, cot))
+    layer["library_ms"] = library_grads_ms(saved, cot, 1, dtype, False)
+    layer["share_of_bound"] = layer["bound_ms"] / layer["ms"]
+    rec[f"trainable_{mode}"] = layer
+    del args, saved, cot
+  return rec
+
+
+def any_train(name: str, ckpt: CheckpointWaveglow, mode: str, seed: int,
+              tmp: Path) -> dict:
+  """(d) train() from ``ckpt``, ANY_MODELS[name]'s iteration-1 checkpoint,
+  for ANY_TRAIN_STEPS steps in ``mode``:
+  the kernel counts set to 0 just before it and read just after, held to
+  the code's (the generic forward 2 x 96 a step with remat, the generic
+  backward once a layer a bf16 step, no specialised launch); then one
+  step's loss and gradients through the kernels against the plain route on
+  the same params and batch at phase 6's bounds."""
+  custom = dict(ANY_TRAIN_HPARAMS, seed=str(seed),
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  hp = overwrite_custom_hparams(ckpt.get_hparams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  entries = write_wavs(tmp / "any_wavs", seed)
+  per_forward = config.n_flows * config.n_layers
+  per_step = 2 * per_forward if hp.remat else per_forward
+  expected = {"fused": 0, "backward_fused": 0,
+              "any": per_step * ANY_TRAIN_STEPS,
+              "any_backward": (per_forward * ANY_TRAIN_STEPS
+                               if mode == "bf16" else 0)}
+  logs = tmp / f"logs_any_{name}_{mode}"
+  torch.cuda.reset_peak_memory_stats()
+  kl.LAUNCHES = kl.BWD_LAUNCHES = kl.ANY_LAUNCHES = kl.ANY_BWD_LAUNCHES = 0
+  t0 = time.perf_counter()
+  train(custom, logs, entries, entries, tmp / f"ck_any_{name}_{mode}",
+        checkpoint=ckpt, max_iterations=1 + ANY_TRAIN_STEPS, device=DEVICE)
+  train_s = time.perf_counter() - t0
+  counts = {"fused": kl.LAUNCHES, "backward_fused": kl.BWD_LAUNCHES,
+            "any": kl.ANY_LAUNCHES, "any_backward": kl.ANY_BWD_LAUNCHES}
+  peak = torch.cuda.max_memory_allocated()
+  steps = [r for r in read_metrics(logs) if r["event"] == "train_step"]
+  losses = [r["loss"] for r in steps]
+  if (len(steps) != ANY_TRAIN_STEPS or counts != expected
+      or not np.isfinite(losses).all()):
+    fail(f"{name} {mode}: train() ran {len(steps)} steps, losses {losses}, "
+         f"launches {counts}, expected {ANY_TRAIN_STEPS} steps and "
+         f"{expected}")
+
+  mel_op = MelSTFT(hp, DEVICE)
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(B_TRAIN), 0)).to(DEVICE)
+  routes = {}
+  for route, layer in (("kernel", kl.wn_layer_trainable),
+                       ("plain", kl.wn_layer_plain)):
+    params = trainable_params_from_numpy(ckpt.state_dict, DEVICE)
+    loss = train_lib.compute_grads(
+        train_lib.make_loss_fn(config, hp, mel_op, layer), params, batch)
+    routes[route] = (float(loss), [p.grad for p in tree_leaves(params)])
+    del params
+  (loss_k, grads_k), (loss_p, grads_p) = routes["kernel"], routes["plain"]
+  rel = leaf_norm_rel_errors(grads_k, grads_p)
+  worst = int(np.argmax(rel))
+  info = {"model": name, "mode": mode, "C": config.n_channels,
+          "K": config.kernel_size, "launches": counts, "train_s": train_s,
+          "losses": losses, "step_s": [r["duration_s"] for r in steps],
+          "max_memory_allocated_bytes": peak,
+          "kernel_vs_plain_loss": [loss_k, loss_p],
+          "loss_err": abs(loss_k - loss_p), "loss_bound": STEP_LOSS_TOL[mode],
+          "grad_norm_rel": rel[worst], "worst_leaf": worst,
+          "grad_bound_rel": STEP_GRAD_TOL_REL[mode]}
+  del routes, grads_k, grads_p, batch
+  torch.cuda.empty_cache()
+  log(f"any-shape train {name} {mode} " + json.dumps(info))
+  if (not np.isfinite(loss_k) or info["loss_err"] > STEP_LOSS_TOL[mode]
+      or info["grad_norm_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"{name} {mode}: a step through the kernels against the plain "
+         f"route: {info}")
+  return info
+
+
+def phase_train_any_shape(seed: int, tmp: Path) -> dict:
+  """Phase 17: the generic backward and the f32 trainable layer against
+  their plain versions (a), the specialised backward (b), their times
+  (c), train() on the two models in both modes (d)."""
+  out = {"card": nvidia_smi_line(), "cases": [], "vs_specialised": [],
+         "timed": {}, "train": {}}
+  for width, k in ANY_SHAPES:
+    for dilation, last in ((1, False), (128, False), (LAST_DILATION, True)):
+      out["cases"].append(any_bwd_case(width, k, dilation, last,
+                                       seed + width + k))
+  out["vs_specialised"] = [any_bwd_vs_specialised(last, seed)
+                           for last in (False, True)]
+  out["timed"] = {f"C={w},K={k}": any_bwd_timed(w, k, seed)
+                  for w, k in ANY_BWD_TIMED}
+  torch.cuda.empty_cache()
+  log("generic backward " + json.dumps(
+      {"cases": out["cases"], "vs_specialised": out["vs_specialised"],
+       "timed": out["timed"]}))
+  for name in ANY_MODELS:
+    ckpt = any_checkpoint(seed, tmp, name)
+    out["train"][name] = {mode: any_train(name, ckpt, mode, seed, tmp)
+                          for mode in MODES}
+    del ckpt
+  return out
+
+
+def train_any_shape_kernels(any_trains: dict, build: dict) -> list:
+  """Phase 17's entries of the kernels line: the shape-generic backward,
+  launched by the bf16 train() runs of the two models, and the trainable
+  layer at the generic kernels in each mode, launched by every run."""
+  kernels = []
+  head = any_trains["timed"][f"C={C},K=5"]
+  bwd_launches = {name: any_trains["train"][name]["bf16"]["launches"][
+      "any_backward"] for name in ANY_MODELS}
+  kernels.append({
+      "name": "wn_layer_bwd_any[bf16]", "route": "cuda",
+      "source": "waveglow_tpu_torch/csrc/wn_layer_bwd_any.cu",
+      "replaces": "waveglow_tpu/kernels/wn_layer.py:198 (widths outside the "
+                  "built set) and the autodiff of waveglow_tpu/models/"
+                  "wn.py:152 (kernel_size != 3)",
+      "launches": sum(bwd_launches.values()),
+      "train_launches": bwd_launches,
+      "max_abs_err": max(c["backward_max_abs_err"]
+                         for c in any_trains["cases"]),
+      "max_err_of_scale": max(c["backward_max_err_of_scale"]
+                              for c in any_trains["cases"]),
+      "tolerance_of_scale": KERNEL_TOL_BF16_REL,
+      "ms": head["backward"]["kernel_ms"],
+      **{k: head["backward"][k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "share_of_bound",
+                                          "kernels_ms")},
+      "design": ANY_BWD_DESIGN,
+      "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},K=5,d=1",
+      "timed": {shape: r["backward"] for shape, r in
+                any_trains["timed"].items()},
+      "vs_specialised": any_trains["vs_specialised"],
+      "loaded_build": {any_bwd_variant(k): build["attributes"][
+          any_bwd_variant(k)] for k in kl.ANY_BWD_KERNELS}})
+  for mode in MODES:
+    runs = {name: any_trains["train"][name][mode] for name in ANY_MODELS}
+    layer = head[f"trainable_{mode}"]
+    kernels.append({
+        "name": f"wn_layer_trainable[{mode},any]", "route": "cuda",
+        "source": ("waveglow_tpu_torch/csrc/wn_layer_bwd_any.cu"
+                   if mode == "bf16"
+                   else "waveglow_tpu_torch/csrc/wn_layer_any.cu"),
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:174 (widths outside "
+                    "the built set) and the autodiff of waveglow_tpu/models/"
+                    "wn.py:152 (kernel_size != 3)",
+        "launches": sum(r["launches"]["any"] for r in runs.values()),
+        "backward_route": BACKWARD_ROUTE[mode],
+        "max_abs_err": (max(c["backward_max_abs_err"]
+                            for c in any_trains["cases"]) if mode == "bf16"
+                        else max(c["f32_forward_max_abs_err"]
+                                 for c in any_trains["cases"])),
+        "grad_max_err_of_scale": max(
+            c["backward_max_err_of_scale" if mode == "bf16"
+              else "f32_grad_max_err_of_scale"] for c in any_trains["cases"]),
+        "ms": layer["ms"],
+        **{k: layer[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "share_of_bound",
+                                 "forward_ms", "backward_ms")},
+        "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},K=5,d=1",
+        "timed": {shape: r[f"trainable_{mode}"] for shape, r in
+                  any_trains["timed"].items()},
+        "train": {name: {k: r[k] for k in (
+            "launches", "losses", "step_s", "max_memory_allocated_bytes",
+            "loss_err", "grad_norm_rel")} for name, r in runs.items()}})
+  return kernels
 
 
 def main() -> None:
@@ -5316,6 +5716,8 @@ def main() -> None:
     orbax = phase(15, "orbax", phase_orbax, args.seed, Path(tmp),
                   clis["files"])
     anys = phase(16, "any shape", phase_any_shape, args.seed, Path(tmp))
+    any_trains = phase(17, "train at any shape", phase_train_any_shape,
+                       args.seed, Path(tmp))
   seconds["total"] = time.perf_counter() - t_run
   log("phase seconds " + json.dumps(seconds))
 
@@ -5540,11 +5942,13 @@ def main() -> None:
         "shape": f"B={B_TRAIN},T={T_TRAIN},C={width},d=1"})
 
   # phase 16: the shape-generic forward, launched by the two models'
-  # serving runs and the K = 5 streams
+  # serving runs and the K = 5 streams, and by phase 17's train() runs
   for mode in MODES:
     head = anys["timed"][mode]["C=256,K=5"]
     served = {name: anys["serving"][name][mode]["launches"]
               for name in ANY_MODELS}
+    trained = {name: any_trains["train"][name][mode]["launches"]["any"]
+               for name in ANY_MODELS}
     cases = [c for c in anys["cases"] if c["mode"] == mode]
     kernels.append({
         "name": f"wn_layer_any[{mode}]", "route": "cuda",
@@ -5552,9 +5956,11 @@ def main() -> None:
         "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (widths outside "
                     "the built set) and waveglow_tpu/models/wn.py:152 (the "
                     "XLA layer body, kernel_size != 3)",
-        "launches": sum(served.values()) + anys["stream"][mode]["launches"],
+        "launches": (sum(served.values()) + anys["stream"][mode]["launches"]
+                     + sum(trained.values())),
         "serving_launches": served,
         "stream_launches": anys["stream"][mode]["launches"],
+        "train_launches": trained,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_err_of_bound": max(c["max_abs_err"] / c["bound"] for c in cases),
         **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
@@ -5569,6 +5975,8 @@ def main() -> None:
             if r["mode"] == mode),
         "loaded_build": build["attributes"][any_variant(mode == "bf16",
                                                         False)]})
+
+  kernels.extend(train_any_shape_kernels(any_trains, build))
 
   # phase 13: the trainable shard, launched by the mesh train() runs
   sbwd = mesh_train["shard_backward"]
@@ -5633,6 +6041,7 @@ def main() -> None:
                            "shard_backward": {
                                "cases": sbwd["cases"], "f32": sbwd["f32"]}},
             "bench": benches, "orbax": orbax, "any_shape": anys,
+            "train_any_shape": any_trains,
             "phase_seconds": seconds,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -2,7 +2,8 @@
 this repo, on one NVIDIA card: their outputs bit for bit and their times
 alternated.
 
-  python3 fwd_compare.py OTHER_TREE [--train] [--out chiprun_out/fwd_compare.json]
+  python3 fwd_compare.py OTHER_TREE [--trainable] [--train]
+      [--out chiprun_out/fwd_compare.json]
 
 OTHER_TREE is an unpacked checkout of another commit, for example
 `git archive <commit> | tar -x -C build/parent`. Both trees' kernels are
@@ -24,9 +25,15 @@ both trees compute alike. With --train a run is instead chip_smoke.py
 phase 6 of its tree (``phase_train``: train() at 12 x 8 x 256, batch 12,
 segment 16,000, seed 1234) in f32 and in bf16; each mode's case records
 the run's losses (the bits compared) and its median step and median
-steady step on one batch in ms (host clock, ending in a synchronise). The
-last line is one JSON object: for each case whether every run gave the
-same bits, and each run's times.
+steady step on one batch in ms (host clock, ending in a synchronise).
+With --trainable (alone, or with --train in the same runs) a run instead
+takes the trainable layer at K = 3 and every built width in each mode
+(kl.wn_layer_trainable: the forward kernels, the bf16 backward kernels or
+the f32 torch-ops backward; B=12, T=2,000, d = 1, and the last layer at d
+= 128 with a per-row valid_t) and rank 0's trainable shard at (C, C/2)
+(kl.wn_layer_shard_trainable), and records a checksum of the outputs' and
+every gradient's bits. The last line is one JSON object: for each case
+whether every run gave the same bits, and each run's times.
 """
 
 import argparse
@@ -51,7 +58,8 @@ def checksum(out) -> list:
   """Two sums of a tensor's bits as int64 (plain and position-weighted):
   any change of a bit changes them but for a chance cancellation."""
   import torch
-  bits = out.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+  word = torch.int16 if out.element_size() == 2 else torch.int32
+  bits = out.contiguous().view(word).reshape(-1).to(torch.int64)
   weight = torch.arange(bits.numel(), device=bits.device) % 65_521 + 1
   return [int(bits.sum()), int((bits * weight).sum())]
 
@@ -192,6 +200,65 @@ def train_worker(tree: str) -> dict:
   return out
 
 
+def trainable_worker(tree: str) -> dict:
+  sys.path.insert(0, tree)
+  import torch
+  from waveglow_tpu_torch.kernels import wn_layer as kl
+  assert Path(kl.__file__).resolve().is_relative_to(Path(tree).resolve())
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  batch, t = 12, 2_000
+  out = {}
+  for width in (128, 256, 512):
+    for mode in ("f32", "bf16"):
+      dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+      cdt = torch.bfloat16 if mode == "bf16" else None
+      for dilation, last in ((1, False), (128, True)):
+        g = torch.Generator(device="cuda").manual_seed(width + dilation)
+
+        def rand(*shape, scale):
+          return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        rs = width if last else 2 * width
+        valid = torch.tensor([t - 700 * (i % 2) for i in range(batch)],
+                             dtype=torch.int32, device="cuda")
+        keep = torch.arange(t, device="cuda")[None, :, None] < valid[
+            :, None, None]
+        args = [rand(batch, t, width, scale=0.5) * keep,
+                rand(batch, t, 2, width, scale=0.5).to(dtype),
+                rand(3, width, 2 * width, scale=(3 * width) ** -0.5).to(dtype),
+                rand(2 * width, scale=0.1),
+                rand(width, rs, scale=width ** -0.5).to(dtype),
+                rand(rs, scale=0.1)]
+        args = [a.requires_grad_() for a in args]
+        cot = [rand(batch, t, width, scale=1.0) for _ in range(2)]
+        outs = kl.wn_layer_trainable(*args, dilation, valid_t=valid,
+                                     compute_dtype=cdt)
+        grads = torch.autograd.grad(outs, args, cot)
+        key = (f"trainable,{mode},C={width},d={dilation}"
+               f"{',last' if last else ''}")
+        out[key] = {"checksum": [s for v in (*outs, *grads)
+                                 for s in checksum(v)]}
+      cp = width // 2
+      g = torch.Generator(device="cuda").manual_seed(width + 1)
+      sh = [torch.randn(batch, t, width, generator=g, device="cuda") * 0.5,
+            (torch.randn(batch, t, 2 * cp, generator=g, device="cuda")
+             * 0.5).to(dtype),
+            (torch.randn(3 * width, 2 * cp, generator=g, device="cuda")
+             * (3 * width) ** -0.5).to(dtype),
+            torch.randn(2 * cp, generator=g, device="cuda") * 0.1,
+            (torch.randn(cp, 2 * width, generator=g, device="cuda")
+             * width ** -0.5).to(dtype)]
+      sh = [a.requires_grad_() for a in sh]
+      part = kl.wn_layer_shard_trainable(*sh, 4, compute_dtype=cdt)
+      grads = torch.autograd.grad(part, sh, torch.randn(
+          part.shape, generator=g, device="cuda"))
+      out[f"shard_trainable,{mode},C={width},C'={cp}"] = {
+          "checksum": [s for v in (part, *grads) for s in checksum(v)]}
+      torch.cuda.empty_cache()
+  return out
+
+
 def run(tree: Path, *flags) -> subprocess.Popen:
   return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                            "--worker", str(tree), *flags], cwd=tree,
@@ -206,11 +273,16 @@ def main() -> None:
   parser.add_argument("--worker")
   parser.add_argument("--build-only", action="store_true")
   parser.add_argument("--train", action="store_true")
+  parser.add_argument("--trainable", action="store_true")
   args = parser.parse_args()
   if args.worker:
-    print(json.dumps(train_worker(args.worker)
-                     if args.train and not args.build_only
-                     else worker(args.worker, args.build_only)))
+    if args.build_only or not (args.train or args.trainable):
+      print(json.dumps(worker(args.worker, args.build_only)))
+      return
+    result = trainable_worker(args.worker) if args.trainable else {}
+    if args.train:
+      result.update(train_worker(args.worker))
+    print(json.dumps(result))
     return
   if not args.other:
     parser.error("OTHER_TREE is needed")
@@ -221,7 +293,8 @@ def main() -> None:
     raise SystemExit("a tree's kernels did not build")
   runs = []
   for name in ("other", "this", "this", "other"):
-    proc = run(trees[name], *(["--train"] if args.train else []))
+    proc = run(trees[name], *(["--train"] if args.train else []),
+               *(["--trainable"] if args.trainable else []))
     text = proc.communicate()[0]
     if proc.returncode:
       raise SystemExit(f"the run of {name} failed")

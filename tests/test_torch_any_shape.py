@@ -411,27 +411,58 @@ def test_wn_layer_any_takes_the_plain_version_on_the_cpu():
 
 
 def test_training_and_mesh_entry_points_refuse_kernel_size_5():
-  """Training (``forward``/``wn_forward_train``), a model mesh's synthesis
-  (``wn_forward_tp``) and its training (``wn_forward_train_tp``) take
-  kernel_size 3 only: each raises a ValueError naming what it takes."""
+  """A model mesh's synthesis (``wn_forward_tp``) and its training
+  (``wn_forward_train_tp``) take kernel_size 3 only: each raises a
+  ValueError naming what it takes. Training without a mesh
+  (``wn_forward_train``, ``forward``) runs at kernel_size 5: through the
+  trainable layer (its CPU route) it gives the plain route's output and
+  gradients."""
   cfg = port_model.WaveGlowConfig(**CONFIGS["k5"])
-  params = port_model.init_params(cfg, seed=0)
+  params = randomize_end(port_model.init_params(cfg, seed=0), seed=1)
   wn = params_from_numpy(params, "cpu")["flows"][0]["wn"]
   tr = trainable_params_from_numpy(params, "cpu")
-  audio0 = torch.zeros(1, 8, 4)
-  spect = torch.zeros(1, 8, 640)
+  rng = np.random.default_rng(2)
+  audio0 = torch.from_numpy(rng.standard_normal((1, 8, 4)).astype(np.float32))
+  spect = torch.from_numpy(rng.standard_normal((1, 8, 640)).astype(
+      np.float32))
   c, layers, k = cfg.n_channels, cfg.n_layers, cfg.kernel_size
   calls = {
-      "wn_forward_train": lambda: port_wn.wn_forward_train(
-          tr["flows"][0]["wn"], audio0, spect, c, layers, k),
       "wn_forward_tp": lambda: port_wn.wn_forward_tp(
           [wn], audio0, [spect], c, layers, k),
       "wn_forward_train_tp": lambda: port_wn.wn_forward_train_tp(
           [tr["flows"][0]["wn"]], audio0, spect, c, layers, k),
-      "forward": lambda: port_model.forward(
-          tr, cfg, torch.zeros(1, 80, 2), torch.zeros(1, 512)),
   }
   for name, call in calls.items():
     with pytest.raises(ValueError, match="kernel_size 3 only") as err:
       call()
     assert "got kernel_size 5" in str(err.value), name
+
+  mel = torch.from_numpy(rng.standard_normal((1, 80, 2)).astype(np.float32))
+  audio = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 512)).astype(
+      np.float32))
+  runs = {
+      "wn_forward_train": (lambda layer: port_wn.wn_forward_train(
+          tr["flows"][0]["wn"], audio0, spect, c, layers, k, layer=layer),
+                           tree_leaves(tr["flows"][0]["wn"])),
+      "forward": (lambda layer: port_model.forward(
+          tr, cfg, mel, audio, layer=layer)[0], tree_leaves(tr)),
+  }
+  for name, (run, leaves) in runs.items():
+    outs = {}
+    for route, layer in (("trainable", kl.wn_layer_trainable),
+                         ("plain", kl.wn_layer_plain)):
+      for leaf in leaves:
+        leaf.grad = None
+      out = run(layer)
+      out.square().sum().backward()
+      outs[route] = (out.detach(), [leaf.grad.clone() for leaf in leaves])
+    (got, got_grads), (want, want_grads) = outs["trainable"], outs["plain"]
+    assert got.shape == want.shape and got.abs().max() > 0, name
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * want.abs().max().item(),
+                               err_msg=name)
+    for n, (g, w) in enumerate(zip(got_grads, want_grads)):
+      assert w.abs().max() > 0, f"{name} leaf {n}"
+      np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                 atol=1e-5 * w.abs().max().item(),
+                                 err_msg=f"{name} leaf {n}")

@@ -29,8 +29,8 @@ def few_torch_threads():
   torch.set_num_threads(before)
 
 
-def dyadic_inputs(batch, t, c, last, seed):
-  """Inputs, as numpy f32, whose products and sums before each bf16
+def dyadic_inputs(batch, t, c, last, seed, k=3):
+  """Inputs, as numpy f32 (``k`` taps), whose products and sums before each bf16
   rounding point are exact in f32 in any order: small integers over powers
   of two (x, cond and the cotangents need at most 7 significant bits, so
   bf16 holds them exactly). Then the port and the closed form see the same
@@ -44,7 +44,7 @@ def dyadic_inputs(batch, t, c, last, seed):
     return (rng.integers(-lo, lo + 1, shape) / scale).astype(np.float32)
 
   inputs = (ints(32, (batch, t, c), 64), ints(64, (batch, t, 2, c), 128),
-            ints(16, (3, c, 2 * c), 256), ints(16, (2, c), 128),
+            ints(16, (k, c, 2 * c), 256), ints(16, (2, c), 128),
             ints(16, (c, rs), 256), ints(16, (rs,), 128))
   cot = (ints(32, (batch, t, c), 16), ints(32, (batch, t, c), 16))
   return inputs, cot
@@ -84,12 +84,15 @@ def jax_shift(v, off):
 
 def closed_form_bf16(inputs, cot, dilation, valid):
   """The backward at the bf16 rounding points of wn_layer_backward, in JAX
-  ops: taps bf16; gates, t, s, acts f32; drs, acts and dgates rounded to
-  bf16 where they enter a product, f32 accumulation; dcond bf16(dgates);
-  bias grads from the f32 dgates and drs; dw_in, dw_rs summed in f32 then
-  rounded to bf16; dx f32."""
+  ops, over K taps (w_in [K, C, 2C]): taps bf16, shifted by (k - K//2)*d;
+  gates, t, s, acts f32; drs, acts and dgates rounded to bf16 where they
+  enter a product, f32 accumulation; dcond bf16(dgates); bias grads from
+  the f32 dgates and drs; dw_in, dw_rs summed in f32 then rounded to bf16;
+  dx f32, the taps' adjoint shifted by -(k - K//2)*d."""
   x, cond, w_in, b_in, w_rs, _ = (jnp.asarray(a) for a in inputs)
   batch, t, c = x.shape
+  k_taps = w_in.shape[0]
+  half = k_taps // 2
   last = w_rs.shape[-1] == c
 
   def bf(v):
@@ -98,10 +101,10 @@ def closed_form_bf16(inputs, cot, dilation, valid):
   def dot(spec, a, b):
     return jnp.einsum(spec, a, b, precision=HIGHEST)
 
-  w_in = bf(w_in).reshape(3 * c, 2 * c)
+  w_in = bf(w_in).reshape(k_taps * c, 2 * c)
   w_rs = bf(w_rs)
-  taps = jnp.concatenate([jax_shift(bf(x), (k - 1) * dilation)
-                          for k in range(3)], axis=-1)
+  taps = jnp.concatenate([jax_shift(bf(x), (k - half) * dilation)
+                          for k in range(k_taps)], axis=-1)
   gates = (dot("btk,km->btm", taps, w_in) + b_in.reshape(-1)
            + bf(cond).reshape(batch, t, 2 * c))
   t_act = jnp.tanh(gates[..., :c])
@@ -117,8 +120,8 @@ def closed_form_bf16(inputs, cot, dilation, valid):
                             dacts * t_act * s_act * (1.0 - s_act)], axis=-1)
   g_w = dot("btm,km->btk", bf(dgates), w_in)
   dx = dx_next
-  for k in range(3):
-    dx = dx + jax_shift(g_w[..., k * c:(k + 1) * c], -(k - 1) * dilation)
+  for k in range(k_taps):
+    dx = dx + jax_shift(g_w[..., k * c:(k + 1) * c], -(k - half) * dilation)
   grads = (dx, bf(dgates),
            bf(dot("btk,btm->km", taps, bf(dgates))),
            dgates.sum((0, 1)),

@@ -1566,3 +1566,200 @@ def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     stream = out["stream"][mode]
     assert stream["windows"] >= 2 and stream["bitwise"]
     assert stream["launches"] == 4 * stream["windows"]
+
+
+# -- phase 17: training at every shape ----------------------------------------------
+
+# The shape-generic backward's kernels as nvcc names them in the library
+# (wn_layer_bwd_any.cu compiled on its own).
+_ANY_BWD_OBJ = "_ZN52_GLOBAL__N__5f0c2a1e_19_wn_layer_bwd_any_cu_0b8e41d2"
+ANY_BWD_ROWS = (_ANY_BWD_OBJ + "22wn_bwd_any_rows_kernelEPK13__nv_bfloat16S2_"
+                "S2_PKfS2_S2_PS0_S5_S5_Pfiiiii")
+ANY_BWD = {
+    ANY_BWD_ROWS: "bf16,any,bwd-rows",
+    ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "20wn_bwd_any_dx"):
+        "bf16,any,bwd-dx",
+    ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "25wn_bwd_any_weights"):
+        "bf16,any,bwd-weights",
+    ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "24wn_bwd_any_reduce"):
+        "reduce,any,bwd",
+    ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "22wn_bwd_any_prep"):
+        "prep,any,bwd",
+    ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "21wn_bwd_any_pad"):
+        "pad,any,bwd"}
+
+
+@pytest.mark.parametrize("mangled,name", sorted(ANY_BWD.items()))
+def test_kernel_variant_names_the_generic_backward(smoke, mangled, name):
+  assert smoke.kernel_variant(mangled) == name
+
+
+def test_phase2_holds_the_generic_backward(smoke):
+  """Phase 2 lists the six kernels of the generic backward: rows, dx and
+  weights held to wgmma, no serialization and no spill; pad, prep and
+  reduce (no products) to neither; the specialised backward's names are
+  not taken for them."""
+  names = [smoke.any_bwd_variant(k) for k in kl.ANY_BWD_KERNELS]
+  assert names == sorted(ANY_BWD.values(), key=names.index)
+  assert set(names) == set(ANY_BWD.values())
+  products = [n for n in names if n.startswith("bf16,")]
+  assert products == ["bf16,any,bwd-rows", "bf16,any,bwd-dx",
+                      "bf16,any,bwd-weights"]
+  assert all(smoke.held_to_wgmma(n) for n in products)
+  assert not any(smoke.held_to_wgmma(n) for n in names if n not in products)
+  mma = {**dict.fromkeys(products, 16),
+         **dict.fromkeys(set(names) - set(products), 0)}
+  smoke.check_tensor_cores(mma, names)  # passes
+  smoke.check_wgmma(mma, set(), names)
+  with pytest.raises(SystemExit, match="no wgmma"):
+    smoke.check_wgmma({**mma, "bf16,any,bwd-dx": 0}, set(), names)
+  with pytest.raises(SystemExit, match="serialized"):
+    smoke.check_wgmma(mma, {"bf16,any,bwd-weights"}, names)
+  with pytest.raises(SystemExit, match="spills"):
+    smoke.check_no_spills(None, {"bf16,any,bwd-rows": {"local_bytes": 8}})
+  assert not smoke.kernel_variant(ANY_BWD_ROWS).startswith("bf16,C=")
+
+
+@pytest.mark.parametrize("c,k,gflop,bound_ms", [
+    (256, 3, 50.33, 0.05089), (256, 5, 75.50, 0.07634),
+    (384, 3, 113.2, 0.1145)])
+def test_generic_backward_bound(smoke, c, k, gflop, bound_ms):
+  """The bound of phase 17's timed shapes (B=12, T=2,000): the gradients'
+  products, 2 R (2 C n_rs + 2 K C 2C) operations at the bf16 rate,
+  operation-bound; the default K = 3 keeps phase 5's figure."""
+  cost = smoke.trainable_cost(False, "bf16", c, k)
+  assert cost["bwd_flops"] / 1e9 == pytest.approx(gflop, rel=1e-3)
+  assert cost["bwd_bound_ms"] == pytest.approx(bound_ms, rel=1e-3)
+  assert cost["bwd_bound_by"] == "operations"
+  if k == 3:
+    assert cost == smoke.trainable_cost(False, "bf16", c)
+
+
+def test_phase_17_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+  """Phase 17 on tiny models on the CPU, the plain backward counted in the
+  generic backward's place (ANY_BWD_LAUNCHES; BWD_LAUNCHES at the
+  specialised shape) and the plain forward in the forward kernels' (as
+  phase 16's rehearsal counts it): every case, the specialised comparison,
+  the timings' keys, both models' train() in both modes at the code's
+  counts with no specialised launch. The step check's bf16 bound (3e-3 of
+  a leaf's norm) is set for the full-width model, where the card read
+  1.3e-3 (phase 6); a 2 x 2 model's bf16 roundings sit at 4-5e-3 on the
+  CPU (at C = 128 and K = 3 too, the specialised kernels' own shape), so
+  the rehearsal reads the bf16 gap against 1e-2 and the f32 one against
+  the phase's own bound."""
+  kl_ = smoke.kl
+  monkeypatch.setattr(smoke, "STEP_GRAD_TOL_REL",
+                      dict(smoke.STEP_GRAD_TOL_REL, bf16=1e-2))
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+    monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+  monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+  monkeypatch.setattr(smoke, "nvidia_smi_line", lambda: "cpu, 0 W")
+  monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: (fn(), 1.0)[1])
+  monkeypatch.setattr(smoke, "kernel_split",
+                      lambda fn, *a, **k: (fn(), "not measured")[1])
+  monkeypatch.setattr(smoke, "C", 32)
+  monkeypatch.setattr(smoke, "B_TRAIN", 2)
+  monkeypatch.setattr(smoke, "T_TRAIN", 70)
+  monkeypatch.setattr(smoke, "ANY_BWD_CUT", 50)
+  monkeypatch.setattr(smoke, "LAST_DILATION", 8)
+  monkeypatch.setattr(smoke, "ANY_SHAPES", ((16, 3), (10, 5)))
+  monkeypatch.setattr(smoke, "ANY_BWD_TIMED", ((32, 5), (32, 3)))
+  monkeypatch.setattr(smoke, "ANY_MODELS", {"k5": (32, 5), "c48": (48, 3)})
+  monkeypatch.setattr(smoke, "ANY_TRAIN_HPARAMS", dict(
+      smoke.ANY_TRAIN_HPARAMS, batch_size="2", segment_length="2048"))
+  monkeypatch.setattr(smoke, "N_WAVS", 4)
+  monkeypatch.setattr(kl_, "_WIDTHS", (32,))
+  monkeypatch.setattr(
+      smoke, "width_hparams", lambda width=32, kernel_size=3: smoke.HParams(
+          n_flows=2, n_layers=2, n_channels=width, kernel_size=kernel_size))
+
+  def trainable_inputs(last, dtype, seed, width=32, k=3):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale):
+      return torch.randn(*shape, generator=g) * scale
+
+    t, b = smoke.T_TRAIN, smoke.B_TRAIN
+    rs = width if last else 2 * width
+    args = (rand(b, t, width, scale=0.5),
+            rand(b, t, 2, width, scale=0.5).to(dtype),
+            rand(k, width, 2 * width, scale=(k * width) ** -0.5).to(dtype),
+            rand(2 * width, scale=0.1),
+            rand(width, rs, scale=width ** -0.5).to(dtype),
+            rand(rs, scale=0.1))
+    cot = (rand(b, t, width, scale=1.0), rand(b, t, width, scale=1.0))
+    return [a.requires_grad_() for a in args], cot
+
+  monkeypatch.setattr(smoke, "trainable_inputs", trainable_inputs)
+  plain, backward = kl_.wn_layer_plain, kl_.wn_layer_backward
+
+  def counted_forward(x, cond, w_in, *args, **kwargs):
+    c = x.shape[-1]
+    if kl_.specialised(c, w_in.numel() // (2 * c * c)):
+      kl_.LAUNCHES += 1
+    else:
+      kl_.ANY_LAUNCHES += 1
+    return plain(x, cond, w_in, *args, **kwargs)
+
+  def counted_backward(saved, dx_next, dskip, dilation, valid_t=None,
+                       compute_dtype=None):
+    if compute_dtype is not None:
+      c = saved[0].shape[-1]
+      if kl_.specialised(c, saved[2].numel() // (2 * c * c)):
+        kl_.BWD_LAUNCHES += 1
+      else:
+        kl_.ANY_BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, compute_dtype)
+
+  def generic(saved, dx_next, dskip, dilation, valid_t=None):
+    kl_.ANY_BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, torch.bfloat16)
+
+  def specialised(saved, dx_next, dskip, dilation, valid_t=None):
+    kl_.BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, torch.bfloat16)
+
+  monkeypatch.setattr(kl_, "wn_layer_plain", counted_forward)
+  monkeypatch.setattr(kl_, "wn_layer_backward", counted_backward)
+  monkeypatch.setattr(kl_, "wn_layer_backward_any", generic)
+  monkeypatch.setattr(kl_, "wn_layer_backward_fused", specialised)
+  out = smoke.phase_train_any_shape(5, tmp_path)
+
+  assert len(out["cases"]) == 2 * 3
+  for case in out["cases"]:
+    assert case["backward_max_err_of_scale"] <= smoke.KERNEL_TOL_BF16_REL
+    assert case["f32_grad_max_err_of_scale"] <= smoke.GRAD_TOL_REL["f32"]
+  assert [r["bitwise_equal"] for r in out["vs_specialised"]] == [True, True]
+  assert set(out["timed"]) == {"C=32,K=5", "C=32,K=3"}
+  assert "specialised_ms" in out["timed"]["C=32,K=3"]["backward"]
+  for rec in out["timed"].values():
+    assert {"kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "kernels_ms", "share_of_bound"} <= set(rec["backward"])
+    for mode in smoke.MODES:
+      layer = rec[f"trainable_{mode}"]
+      assert layer["ms"] == layer["forward_ms"] + layer["backward_ms"]
+  for name in ("k5", "c48"):
+    for mode in smoke.MODES:
+      run = out["train"][name][mode]
+      # 2 flows x 2 layers, twice a step (remat), 2 steps
+      assert run["launches"] == {
+          "fused": 0, "backward_fused": 0, "any": 16,
+          "any_backward": 8 if mode == "bf16" else 0}
+      assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+      assert run["grad_norm_rel"] <= smoke.STEP_GRAD_TOL_REL[mode]
+  assert out["train"]["k5"]["f32"]["grad_bound_rel"] == 1e-5
+
+  build = {"attributes": {smoke.any_bwd_variant(k): {"registers": 1}
+                          for k in kl_.ANY_BWD_KERNELS}}
+  entries = smoke.train_any_shape_kernels(out, build)
+  assert [e["name"] for e in entries] == [
+      "wn_layer_bwd_any[bf16]", "wn_layer_trainable[f32,any]",
+      "wn_layer_trainable[bf16,any]"]
+  keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+  for entry in entries:
+    assert keys <= set(entry) and entry["route"] == "cuda"
+    assert (ROOT / entry["source"]).is_file()
+  assert entries[0]["launches"] == 2 * 8  # bf16: two models, 8 calls each
+  assert entries[1]["launches"] == entries[2]["launches"] == 2 * 16

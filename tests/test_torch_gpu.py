@@ -364,11 +364,11 @@ GRAD_NAMES = ("x", "cond", "w_in", "b_in", "w_rs", "b_rs")
 
 
 def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None,
-               c=256):
-  """The saved inputs of a bf16 layer at ``c`` channels (x zero at rows >=
-  valid_t), the two cotangents (``drop`` of them None) and valid_t as the
-  kernel takes it."""
-  x, *rest = layer_inputs(device, batch, t, c, last, torch.bfloat16, seed)
+               c=256, k=3):
+  """The saved inputs of a bf16 layer at ``c`` channels and ``k`` taps (x
+  zero at rows >= valid_t), the two cotangents (``drop`` of them None) and
+  valid_t as the kernel takes it."""
+  x, *rest = layer_inputs(device, batch, t, c, last, torch.bfloat16, seed, k)
   valid_t = None
   if valid is not None:
     valid_t = torch.tensor(valid, dtype=torch.int32, device=device)
@@ -383,17 +383,21 @@ def bwd_inputs(device, batch, t, dilation, last, valid, seed, drop=None,
 
 
 def check_bwd_against_plain(device, batch, t, dilation, last, valid, seed,
-                            drop=None, c=256):
-  """One call of the backward kernels (one count in BWD_LAUNCHES) against
-  wn_layer_backward at the same rounding points: each gradient within 2e-2
-  of its own max |value| (f32 sums in another order can flip one bf16
-  rounding of a dgate or an act), in its input's dtype and shape."""
+                            drop=None, c=256, k=3, generic=False):
+  """One call of the backward kernels (the specialised ones, one count in
+  BWD_LAUNCHES; with ``generic``, the shape-generic ones, one count in
+  ANY_BWD_LAUNCHES and none in BWD_LAUNCHES) against wn_layer_backward at
+  the same rounding points: each gradient within 2e-2 of its own max
+  |value| (f32 sums in another order can flip one bf16 rounding of a dgate
+  or an act), in its input's dtype and shape."""
   saved, cots, valid_t = bwd_inputs(device, batch, t, dilation, last, valid,
-                                    seed, drop, c)
-  before = kl.BWD_LAUNCHES
-  got = kl.wn_layer_backward_fused(saved, *cots, dilation, valid_t)
+                                    seed, drop, c, k)
+  before = (kl.BWD_LAUNCHES, kl.ANY_BWD_LAUNCHES)
+  backward = kl.wn_layer_backward_any if generic else kl.wn_layer_backward_fused
+  got = backward(saved, *cots, dilation, valid_t)
   torch.cuda.synchronize()
-  assert kl.BWD_LAUNCHES == before + 1
+  assert (kl.BWD_LAUNCHES, kl.ANY_BWD_LAUNCHES) == (
+      before[0] + (not generic), before[1] + generic)
   ref = kl.wn_layer_backward(saved, *cots, dilation, valid_t, torch.bfloat16)
   for name, g, r, arg in zip(GRAD_NAMES, got, ref, saved):
     assert g.dtype == arg.dtype and g.shape == arg.shape, name
@@ -1257,14 +1261,178 @@ def test_any_kernel_info_reads_the_loaded_build(cuda, bf16, last):
   assert kl._library().wn_layer_any_max_channels(int(bf16)) == cap
 
 
+# -- the shape-generic bf16 backward (csrc/wn_layer_bwd_any.cu) -------------------
+
+# (C, K) the generic backward is held at: widths outside the built set (not
+# a multiple of 64; 50, whose rows allow no 16-byte copy; 384), and K != 3
+# at and outside the built widths.
+ANY_BWD_SHAPES = ((48, 3), (50, 3), (384, 3), (256, 5), (64, 1), (128, 7),
+                  (48, 5))
+
+
+@pytest.mark.parametrize("c,k", ANY_BWD_SHAPES)
+@pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
+                                           (128, True)])
+def test_any_bwd_kernel_matches_plain(cuda, c, k, dilation, last):
+  """B=2, T=300 (a ragged last tile; d = 128 at K = 7 reaches +-384 rows,
+  past both ends), a row with valid_t short of T, and the last layer."""
+  check_bwd_against_plain(cuda, 2, 300, dilation, last, [300, 223],
+                          seed=c + k, c=c, k=k, generic=True)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_any_bwd_kernel_runs_the_built_widths_too(cuda, c):
+  """Called directly, the generic backward runs the specialised kernels'
+  shapes as well, within the same bounds of the plain version."""
+  check_bwd_against_plain(cuda, 2, 300, 8, False, [300, 41], seed=c,
+                          c=c, generic=True)
+
+
+@pytest.mark.parametrize("t,dilation", [(1, 1), (17, 128), (63, 2),
+                                        (64, 2), (65, 2)])
+def test_any_bwd_kernel_short_and_ragged_tiles(cuda, t, dilation):
+  """T of one row, T = 17 with every tap but the centre's past both ends
+  (d = 128), one 64-row tile less one row, one tile, one tile plus one
+  row."""
+  check_bwd_against_plain(cuda, 3, t, dilation, False,
+                          [t, max(t - 5, 1), 1], seed=t, c=200, k=5,
+                          generic=True)
+
+
+def test_any_bwd_kernel_batch_with_one_valid_row(cuda):
+  """B=8 with one row kept at valid_t=1."""
+  valid = [300, 1, 299, 170, 64, 65, 300, 2]
+  check_bwd_against_plain(cuda, 8, 300, 8, False, valid, seed=13, c=50,
+                          k=5, generic=True)
+
+
+@pytest.mark.parametrize("drop,last", [(0, False), (1, False), (0, True),
+                                       (1, True)])
+def test_any_bwd_kernel_none_cotangents(cuda, drop, last):
+  """A None dx_next or dskip is zero, never materialised (the last layer
+  with dskip None has zero gradients but dx)."""
+  check_bwd_against_plain(cuda, 2, 200, 4, last, None, seed=14, c=48,
+                          k=5, drop=drop, generic=True)
+
+
+@pytest.mark.parametrize("c,k", [(384, 3), (256, 5), (50, 3)])
+@pytest.mark.parametrize("last", [False, True])
+def test_any_bwd_kernel_repeats_bitwise(cuda, c, k, last):
+  """Two calls at the training shape (B=12, T=2,000) give the same bits:
+  no atomics, every sum in a fixed order."""
+  saved, cots, _ = bwd_inputs(cuda, 12, 2000, 1, last, None, seed=15, c=c,
+                              k=k)
+  first = kl.wn_layer_backward_any(saved, *cots, 1)
+  again = kl.wn_layer_backward_any(saved, *cots, 1)
+  assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_any_bwd_kernel_refuses_what_it_does_not_take(cuda):
+  """Beyond the generic kernels' cap (named), an odd C, an even K, a bad
+  dtype, shape or valid_t: each raises and launches nothing."""
+  cap = kl.ANY_MAX_C[torch.bfloat16]
+  before = kl.ANY_BWD_LAUNCHES
+  saved, cots, _ = bwd_inputs(cuda, 1, 8, 1, False, None, seed=16, c=cap + 2)
+  with pytest.raises(ValueError, match=f"at most {cap}.*got C = {cap + 2}"):
+    kl.wn_layer_backward_any(saved, *cots, 1)
+  saved, cots, _ = bwd_inputs(cuda, 1, 8, 1, False, None, seed=16, c=51)
+  with pytest.raises(ValueError, match="even C"):
+    kl.wn_layer_backward_any(saved, *cots, 1)
+  saved, cots, _ = bwd_inputs(cuda, 1, 64, 1, False, None, seed=16, c=48,
+                              k=5)
+  x, cond, w_in, b_in, w_rs, b_rs = saved
+  even = torch.zeros(4, 48, 96, dtype=torch.bfloat16, device=cuda)
+  with pytest.raises(ValueError, match="odd K"):
+    kl.wn_layer_backward_any((x, cond, even, b_in, w_rs, b_rs), *cots, 1)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_backward_any((x, cond, w_in.float(), b_in, w_rs, b_rs),
+                             *cots, 1)
+  with pytest.raises(ValueError, match="shape"):
+    kl.wn_layer_backward_any(saved, cots[0][:, :32], cots[1], 1)
+  with pytest.raises(ValueError, match="valid_t"):
+    kl.wn_layer_backward_any(saved, *cots, 1, valid_t=10)
+  with pytest.raises(ValueError, match="CUDA"):
+    kl.wn_layer_backward_any(tuple(a.cpu() for a in saved), None, None, 1)
+  assert kl.ANY_BWD_LAUNCHES == before
+
+
+# Dynamic shared bytes of each kernel of the generic backward: double
+# buffers of 8 KB A chunks and 8 KB (dx), 16 KB (rows, weights) B chunks;
+# the rows kernel's column sums.
+ANY_BWD_SMEM = {"rows": 51_200, "dx": 32_768, "weights": 49_152,
+                "reduce": 0, "prep": 0, "pad": 0}
+
+
+@pytest.mark.parametrize("kernel", kl.ANY_BWD_KERNELS)
+def test_any_bwd_kernel_info_reads_the_loaded_build(cuda, kernel):
+  info = kl.any_bwd_kernel_info(kernel)
+  assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
+  assert info["dynamic_smem_bytes"] == ANY_BWD_SMEM[kernel]
+
+
+@pytest.mark.parametrize("c,k", ANY_BWD_SHAPES)
+def test_any_bwd_schedule_reads_the_loaded_build(cuda, c, k):
+  """The weights kernel's output tiles, which size the host's split: 64
+  rows x 128 columns of the padded dw_in [K*Cp, 2Cp] and dw_rs [Cp, n_rsp]
+  (Cp = C rounded up to 64; n_rsp = 2Cp, the last layer's Cp)."""
+  lib = kl._library()
+  cp = -(-c // 64) * 64
+  for last in (False, True):
+    n_rsp = cp if last else 2 * cp
+    assert lib.wn_layer_bwd_any_weight_tiles(c, k, int(last)) == (
+        k * cp // 64 * (2 * cp // 128) + cp // 64 * -(-n_rsp // 128))
+
+
+@pytest.mark.parametrize("c,k", [(48, 5), (50, 3), (384, 3), (256, 1)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_bwd_trainable_grads_match_plain(cuda, c, k, bf16):
+  """wn_layer_trainable at shapes no specialised kernel takes: the forward
+  is one generic launch equal to wn_layer_any, the backward one generic
+  backward call in bf16 (none in f32: torch ops over K taps), no
+  specialised launch; the six gradients (with a per-row valid_t) match
+  autograd through wn_layer_plain at test_trainable_grads_match_plain's
+  bounds."""
+  batch, t, dilation = 2, 300, 16
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  args = list(layer_inputs(cuda, batch, t, c, False, dtype, seed=3, k=k))
+  valid = torch.tensor([t, t - 77], dtype=torch.int32, device=cuda)
+  args[0] = args[0] * (torch.arange(t, device=cuda)[None, :, None]
+                       < valid[:, None, None])
+  args = [a.detach().clone().requires_grad_() for a in args]
+  gen = torch.Generator(device=cuda).manual_seed(4)
+  cot = [torch.randn(batch, t, c, generator=gen, device=cuda)
+         for _ in range(2)]
+  counts = (kl.LAUNCHES, kl.BWD_LAUNCHES, kl.ANY_LAUNCHES,
+            kl.ANY_BWD_LAUNCHES)
+  out = kl.wn_layer_trainable(*args, dilation, valid_t=valid,
+                              compute_dtype=cdt)
+  grads = torch.autograd.grad(out, args, cot)
+  assert (kl.LAUNCHES, kl.BWD_LAUNCHES, kl.ANY_LAUNCHES,
+          kl.ANY_BWD_LAUNCHES) == (counts[0], counts[1], counts[2] + 1,
+                                   counts[3] + bf16)
+  direct = kl.wn_layer_any(*[a.detach() for a in args], dilation,
+                           valid_t=valid, compute_dtype=cdt)
+  assert all(torch.equal(a, b) for a, b in zip(out, direct))
+  plain = torch.autograd.grad(
+      kl.wn_layer_plain(*args, dilation, valid_t=valid, compute_dtype=cdt),
+      args, cot)
+  tol = 2e-2 if bf16 else 1e-4
+  for got, ref, arg in zip(grads, plain, args):
+    assert got.dtype == arg.dtype and got.shape == arg.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
 # -- widths outside the built set, and launches on a second card -------------
 
 def test_other_widths_are_refused_on_the_card(cuda):
-  """A CUDA tensor at a width outside the built set raises, naming the
-  set, in the trainable layer's, the backward's and the shard kernel's
-  wrappers; it never falls back to the plain version. The forward takes
-  it through the shape-generic kernel (the specialised ones launch
-  nothing)."""
+  """At a width outside the built set (C = 384) the forward and the
+  trainable layer run the shape-generic kernels (the specialised ones
+  launch nothing), the trainable layer's output and gradients within
+  test_trainable_grads_match_plain's bounds of its plain version; the
+  specialised backward's and the shard kernel's wrappers raise, naming
+  the set; none falls back to the plain version."""
   args = layer_inputs(cuda, 1, 64, 384, False, torch.float32)
   before, any_before = kl.LAUNCHES, kl.ANY_LAUNCHES
   got = kl.wn_layer_fused(*args, 1)
@@ -1272,9 +1440,27 @@ def test_other_widths_are_refused_on_the_card(cuda):
   ref = kl.wn_layer_plain(*args, 1)
   for a, b in zip(got, ref):
     assert (a - b).abs().max().item() <= 1e-4
-  with pytest.raises(ValueError, match=r"C in \(128, 256, 512\) on the card, "
-                                       r"got K = 3, C = 384"):
-    kl.wn_layer_trainable(*args, 1)
+  for cdt in (None, torch.bfloat16):
+    trainable = [a.detach().clone().requires_grad_() for a in
+                 layer_inputs(cuda, 1, 64, 384, False, cdt or torch.float32)]
+    counts = (kl.LAUNCHES, kl.BWD_LAUNCHES, kl.ANY_LAUNCHES,
+              kl.ANY_BWD_LAUNCHES)
+    out = kl.wn_layer_trainable(*trainable, 1, compute_dtype=cdt)
+    cot = [torch.ones_like(o) for o in out]
+    grads = torch.autograd.grad(out, trainable, cot)
+    assert (kl.LAUNCHES, kl.BWD_LAUNCHES, kl.ANY_LAUNCHES,
+            kl.ANY_BWD_LAUNCHES) == (counts[0], counts[1], counts[2] + 1,
+                                     counts[3] + (cdt is not None))
+    plain_out = kl.wn_layer_plain(*trainable, 1, compute_dtype=cdt)
+    plain = torch.autograd.grad(plain_out, trainable, cot)
+    tol = 1e-4 if cdt is None else 2e-2
+    for a, b in zip(out, plain_out):
+      bound = 1e-4 if cdt is None else 2e-2 * b.abs().max().item()
+      assert (a - b).abs().max().item() <= bound
+    for g, r, arg in zip(grads, plain, trainable):
+      assert g.dtype == arg.dtype and g.shape == arg.shape
+      err = (g.float() - r.float()).abs().max().item()
+      assert err <= tol * r.float().abs().max().item(), err
   saved, cots, _ = bwd_inputs(cuda, 1, 64, 1, False, None, seed=18, c=384)
   before = kl.BWD_LAUNCHES
   with pytest.raises(ValueError, match=r"C in \(128, 256, 512\), got C = 384"):

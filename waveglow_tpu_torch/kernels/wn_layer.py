@@ -5,7 +5,9 @@ Replaces ``waveglow_tpu/kernels/wn_layer.py::_wn_layer_fused`` (Pallas, TPU).
 The forward kernels are in ``csrc/wn_layer.cu``: f32 FMAs on the CUDA cores
 for f32 (parity) and wgmma on the tensor cores for bf16; the bf16
 backward's kernels (the whole layer's and a model rank's) are in
-``csrc/wn_layer_bwd.cu``. The note at the top of each says what bounds it
+``csrc/wn_layer_bwd.cu``; the shape-generic forward and bf16 backward in
+``csrc/wn_layer_any.cu`` and ``csrc/wn_layer_bwd_any.cu``. The note at the
+top of each says what bounds it
 on an H100 and how it is laid out. All are compiled with nvcc for
 ``sm_90a`` at first use into one library in ``waveglow_tpu_torch/build/``
 (keyed by a hash of the sources and flags) and bound with ctypes.
@@ -28,9 +30,10 @@ launches the specialised kernels of ``csrc/wn_layer.cu`` (counted in
 ``LAUNCHES``), at every other shape (any even C up to ``ANY_MAX_C``, any
 odd K) the shape-generic kernel of ``csrc/wn_layer_any.cu`` through
 ``wn_layer_any`` (counted in ``ANY_LAUNCHES``); ``specialised`` is the
-choice. The other kernels (the backward, the shard) are built for the
+choice. The specialised backward and the shard kernel are built for the
 widths ``kernel_widths()`` at K = 3 (the shard kernel for
-``shard_pairs()``), and ``check_width`` refuses any other on the card.
+``shard_pairs()``), and ``check_width`` refuses any other on the card; the
+shape-generic backward takes every shape the generic forward takes.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
 mesh axis (in f32 ``csrc/wn_layer_shard.cu``; in bf16 the wgmma kernels of
@@ -45,13 +48,17 @@ raises, for CUDA tensors; ``SHARD_LAUNCHES`` counts its launches.
 
 ``wn_layer_trainable`` is the differentiable layer (counterpart of the JAX
 package's custom-VJP ``wn_layer_trainable``): its forward is
-``wn_layer_fused`` without ``skip_acc`` (the kernel on the card). Its
-backward computes the closed-form adjoints of ``_wn_layer_trainable_bwd``,
-recomputing taps, gates and acts: in bf16 on the card by the five kernels
-of ``csrc/wn_layer_bwd.cu`` (``wn_layer_backward_fused``, counted in
-``BWD_LAUNCHES``), in f32 on the card by torch ops (``wn_layer_backward``,
-the designated parity-mode route: its products must stay true f32), and on
-the CPU by ``wn_layer_backward``, which is also the bf16 kernel's yardstick.
+``wn_layer_fused`` without ``skip_acc`` (the kernel on the card), so it
+takes every shape the forward takes: any odd K and any even C up to
+``ANY_MAX_C``. Its backward computes the closed-form adjoints of
+``_wn_layer_trainable_bwd`` over K taps, recomputing taps, gates and acts:
+in bf16 on the card by the five kernels of ``csrc/wn_layer_bwd.cu``
+(``wn_layer_backward_fused``, counted in ``BWD_LAUNCHES``) where
+``specialised`` holds and by the six of ``csrc/wn_layer_bwd_any.cu``
+(``wn_layer_backward_any``, counted in ``ANY_BWD_LAUNCHES``) at every other
+shape; in f32 on the card by torch ops (``wn_layer_backward``, the
+designated parity-mode route: its products must stay true f32), and on the
+CPU by ``wn_layer_backward``, which is also both bf16 backwards' yardstick.
 
 ``wn_layer_shard_trainable`` is the differentiable shard, for training on a
 ``model`` mesh axis: its forward is ``wn_layer_shard``; its backward gives
@@ -84,14 +91,16 @@ BWD_LAUNCHES = 0
 SHARD_LAUNCHES = 0
 SHARD_BWD_LAUNCHES = 0
 ANY_LAUNCHES = 0
+ANY_BWD_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
-           CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_any.cu")
+           CSRC / "wn_layer_shard.cu", CSRC / "wn_layer_any.cu",
+           CSRC / "wn_layer_bwd_any.cu")
 # Included by the sources: the f32 ring and tile (the forward, the shard
-# and, for its cp.async helpers and its shared-memory opt-in, the backward
+# and, for its cp.async helpers and its shared-memory opt-in, both backwards
 # and the shape-generic forward) and the wgmma helpers (the bf16 kernels of
-# both forwards and the backward).
+# both forwards and both backwards).
 HEADERS = (CSRC / "f32_ring.cuh", CSRC / "sm90_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -259,6 +268,9 @@ SIGNATURES = {
     "wn_layer_any_forward": [_P] * 9 + [_I] * 8 + [_P],
     "wn_layer_any_kernel_info": [_I] * 3 + [_IP] * 4,
     "wn_layer_any_max_channels": [_I],
+    "wn_layer_backward_any_bf16": [_P] * 23 + [_I] * 8 + [_P],
+    "wn_layer_bwd_any_kernel_info": [_I] + [_IP] * 4,
+    "wn_layer_bwd_any_weight_tiles": [_I] * 3,
 }
 
 
@@ -307,6 +319,20 @@ def any_kernel_info(bf16: bool, last: bool, channels: int = 256) -> dict:
   launcher passes at width ``channels``."""
   return _info(_library().wn_layer_any_kernel_info, channels, int(bf16),
                int(last))
+
+
+# The shape-generic bf16 backward's kernels (``csrc/wn_layer_bwd_any.cu``),
+# by their index in its C interface; a call launches "pad" and "prep",
+# then the other four in this order.
+ANY_BWD_KERNELS = ("rows", "dx", "weights", "reduce", "prep", "pad")
+
+
+def any_bwd_kernel_info(kernel: str) -> dict:
+  """:func:`kernel_info` for one kernel of ``ANY_BWD_KERNELS`` of the
+  shape-generic bf16 backward (its dynamic shared bytes are the same at
+  every shape)."""
+  return _info(_library().wn_layer_bwd_any_kernel_info,
+               ANY_BWD_KERNELS.index(kernel))
 
 
 def f32_rest_kernel_info(last: bool) -> dict:
@@ -858,10 +884,11 @@ def wn_layer_backward(saved: Tuple[torch.Tensor, ...],
                       dskip: Optional[torch.Tensor], dilation: int,
                       valid_t: ValidT = None, compute_dtype=None
                       ) -> Tuple[torch.Tensor, ...]:
-  """Gradients of (x, cond, w_in, b_in, w_rs, b_rs) of one layer, from the
-  saved inputs and the output cotangents (None means zero); the torch-ops
-  counterpart of ``_wn_layer_trainable_bwd``, and the yardstick of the bf16
-  backward kernel (:func:`wn_layer_backward_fused`).
+  """Gradients of (x, cond, w_in, b_in, w_rs, b_rs) of one layer (w_in [K,
+  C, 2C] for any odd K, or any view of it), from the saved inputs and the
+  output cotangents (None means zero); the torch-ops counterpart of
+  ``_wn_layer_trainable_bwd``, and the yardstick of the bf16 backward
+  kernels (:func:`wn_layer_backward_fused`, :func:`wn_layer_backward_any`).
 
   Taps, gates and acts are recomputed in f32 from the inputs, and each
   gradient is cast to its input's dtype and shape. With
@@ -908,8 +935,9 @@ def _backward(saved: Tuple[torch.Tensor, ...], drs: torch.Tensor,
   """Gradients of (x, cond, w_in, b_in, w_rs) of a layer holding C' = b_in's
   half of the gate channels (C' = C for the whole layer), given drs [R,
   n_rs], the cotangent of its res/skip product, at the rounding points of
-  :func:`wn_layer_backward`; the taps' adjoint is added onto ``dx`` (None:
-  onto nothing) in tap order."""
+  :func:`wn_layer_backward`; K, the taps, is w_in's [K*C, 2C'] rows over C;
+  the taps' adjoint is added onto ``dx`` (None: onto nothing) in tap
+  order."""
   x, cond, w_in, b_in, w_rs = saved
   batch, t, c = x.shape
   cp = b_in.numel() // 2
@@ -921,10 +949,13 @@ def _backward(saved: Tuple[torch.Tensor, ...], drs: torch.Tensor,
   else:
     def operand(v):
       return v.to(compute_dtype).float()
+  k_taps = w_in.numel() // (c * 2 * cp)
+  half = k_taps // 2
   xm = x.to(f32) if compute_dtype is None else x.to(compute_dtype).float()
-  taps = torch.cat([shift_time(xm, (tap - 1) * dilation) for tap in range(3)],
-                   dim=-1).reshape(-1, 3 * c)                    # [R, 3C]
-  w_in_f = w_in.to(f32).reshape(3 * c, 2 * cp)
+  taps = torch.cat([shift_time(xm, (tap - half) * dilation)
+                    for tap in range(k_taps)],
+                   dim=-1).reshape(-1, k_taps * c)               # [R, KC]
+  w_in_f = w_in.to(f32).reshape(k_taps * c, 2 * cp)
   gates = (torch.matmul(taps, w_in_f) + b_in.to(f32).reshape(-1)
            + cond.to(f32).reshape(-1, 2 * cp))                   # [R, 2C']
   t_act = torch.tanh(gates[:, :cp])
@@ -939,11 +970,12 @@ def _backward(saved: Tuple[torch.Tensor, ...], drs: torch.Tensor,
   db_in = dgates.sum(0)
   dgates_op = operand(dgates)
   dw_in = torch.matmul(taps.T, dgates_op)
-  # adjoint of the 3-tap dilated conv: shift_time's adjoint is shift_time
+  # adjoint of the K-tap dilated conv: shift_time's adjoint is shift_time
   # with the negated offset
-  g_w = torch.matmul(dgates_op, w_in_f.T).reshape(batch, t, 3 * c)
-  for tap in range(3):
-    term = shift_time(g_w[..., tap * c:(tap + 1) * c], -(tap - 1) * dilation)
+  g_w = torch.matmul(dgates_op, w_in_f.T).reshape(batch, t, k_taps * c)
+  for tap in range(k_taps):
+    term = shift_time(g_w[..., tap * c:(tap + 1) * c],
+                      -(tap - half) * dilation)
     dx = term if dx is None else dx + term
 
   def like(g, ref):
@@ -966,20 +998,63 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
   on the card); the cotangents f32 [B, T, C] or None (zero, never
   materialised). Anything else raises."""
   global BWD_LAUNCHES
-  x, cond, w_in, b_in, w_rs, b_rs = saved
+  x, cond, w_in, b_in, w_rs, _ = saved
+  _check_bwd_x(x)
+  check_width(x.shape[-1])
+  last, cots = _bwd_operands(saved, dx_next, dskip, valid_t, 3)
+  dev = x.device
+  batch, t, c = x.shape
+  lib = _library()
+  plan = _bwd_plan(batch, t, c, c, last, dev)
+  # each gradient has its input's shape and dtype
+  dx, dcond, dw_in, db_in, dw_rs, db_rs = (torch.empty_like(v) for v in saved)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+  at = {k: scratch.data_ptr() + off for k, off in plan["offsets"].items()}
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_backward_bf16(
+        x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+        w_rs.data_ptr(), _ptr(cots[0]), _ptr(cots[1]), _ptr(valid_t),
+        dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
+        dw_rs.data_ptr(), db_rs.data_ptr(), at["acts"], at["x_bf"],
+        at["g_bf"], at["part_bias"], at["ws"], batch, t, c, int(dilation),
+        int(last), plan["n_splits_t"], plan["split_rows"],
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer backward kernels failed to launch: "
+                       f"cudaError {err}")
+  BWD_LAUNCHES += 1
+  return dx, dcond, dw_in, db_in, dw_rs, db_rs
+
+
+def _ptr(v: Optional[torch.Tensor]):
+  return v.data_ptr() if v is not None else None
+
+
+def _check_bwd_x(x: torch.Tensor) -> None:
+  """Raise unless x, a whole-layer backward's first saved input, is a
+  [B, T, C] CUDA tensor."""
   if x.device.type != "cuda":
     raise ValueError(f"the backward kernel needs CUDA tensors, got {x.device}")
   if x.dim() != 3:
     raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+
+
+def _bwd_operands(saved: Tuple[torch.Tensor, ...],
+                  dx_next: Optional[torch.Tensor],
+                  dskip: Optional[torch.Tensor], valid_t, k: int):
+  """Check a whole-layer bf16 backward's operands on x's card (x, b_in,
+  b_rs f32; cond, w_in [K*C, 2C] at ``k`` taps, w_rs bf16; valid_t None or
+  an int32 [B] tensor; the cotangents f32 [B, T, C] or None): ``(last,
+  [dx_next, dskip])``, each cotangent contiguous."""
+  x, cond, w_in, b_in, w_rs, b_rs = saved
   dev = x.device
   batch, t, c = x.shape
-  check_width(c)
   last = w_rs.numel() == c * c
   n_rs = c if last else 2 * c
   bf16 = torch.bfloat16
   _check("x", x, torch.float32, (batch, t, c), dev)
   _check("cond", cond, bf16, (batch, t, 2 * c), dev)
-  _check("w_in", w_in, bf16, (3 * c, 2 * c), dev)
+  _check("w_in", w_in, bf16, (k * c, 2 * c), dev)
   _check("b_in", b_in, torch.float32, (2 * c,), dev)
   _check("w_rs", w_rs, bf16, (c * n_rs,), dev)
   _check("b_rs", b_rs, torch.float32, (n_rs,), dev)
@@ -993,37 +1068,117 @@ def wn_layer_backward_fused(saved: Tuple[torch.Tensor, ...],
       g = g.contiguous()  # autograd may hand an expanded view
       _check(name, g, torch.float32, (batch, t, c), dev)
     cots.append(g)
+  return last, cots
 
-  def ptr(v):
-    return v.data_ptr() if v is not None else None
 
+# Time rows of a tile of the shape-generic backward's prep, rows and dx
+# kernels (kTile in csrc/wn_layer_bwd_any.cu).
+ANY_BWD_TILE_ROWS = 64
+
+
+def any_bwd_scratch(batch: int, t: int, c: int, k: int, last: bool,
+                    n_splits_t: int) -> dict:
+  """The shape-generic backward's scratch as one allocation: byte
+  ``offsets`` (each 256-byte aligned), ``sizes`` and the total ``bytes`` of
+  its operands padded to Cp = C rounded up to 64 channels (zero past C):
+  bf16 x_p [R, Cp], g_p (drs) [R, n_rsp], w_in_p [K*Cp, 2Cp], w_rs_p [Cp,
+  n_rsp], acts_p [R, Cp] and dg_p (dgates) [R, 2Cp]; the f32 column sums of
+  each 64-row tile, part_in [B*tiles, 2Cp] of dgates and part_rs [B*tiles,
+  n_rsp] of drs; and the weights kernel's f32 partials ws [B*n_splits_t,
+  K*Cp*2Cp + Cp*n_rsp]. R = B*T; n_rsp = 2Cp, the last layer's Cp."""
+  cp = -(-c // 64) * 64
+  n_rsp = cp if last else 2 * cp
+  rows = batch * t
+  tiles = batch * -(-t // ANY_BWD_TILE_ROWS)
+  sizes = {"x_p": rows * cp * 2, "g_p": rows * n_rsp * 2,
+           "w_in_p": k * cp * 2 * cp * 2, "w_rs_p": cp * n_rsp * 2,
+           "acts_p": rows * cp * 2, "dg_p": rows * 2 * cp * 2,
+           "part_in": tiles * 2 * cp * 4, "part_rs": tiles * n_rsp * 4,
+           "ws": batch * n_splits_t * (k * cp * 2 * cp + cp * n_rsp) * 4}
+  offsets, end = {}, 0
+  for name, size in sizes.items():
+    offsets[name] = end
+    end += -(-size // 256) * 256
+  return {"offsets": offsets, "sizes": sizes, "bytes": end}
+
+
+@functools.lru_cache(maxsize=None)
+def _any_bwd_plan(batch: int, t: int, c: int, k: int, last: bool,
+                  dev: torch.device) -> dict:
+  """The shape-generic backward's launch plan at one shape and card: the
+  weights kernel's split (:func:`bwd_splits` over its output tiles, read
+  from the library) and the scratch layout."""
+  n_splits_t, split_rows = bwd_splits(
+      batch, t, _library().wn_layer_bwd_any_weight_tiles(c, k, int(last)),
+      torch.cuda.get_device_properties(dev).multi_processor_count)
+  return {"n_splits_t": n_splits_t, "split_rows": split_rows,
+          **any_bwd_scratch(batch, t, c, k, last, n_splits_t)}
+
+
+def wn_layer_backward_any(saved: Tuple[torch.Tensor, ...],
+                          dx_next: Optional[torch.Tensor],
+                          dskip: Optional[torch.Tensor], dilation: int,
+                          valid_t: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, ...]:
+  """:func:`wn_layer_backward` with ``compute_dtype=torch.bfloat16`` on the
+  card at any shape, through the six kernels of
+  ``csrc/wn_layer_bwd_any.cu`` (one call, counted once in
+  ``ANY_BWD_LAUNCHES``). Inputs as :func:`wn_layer_any` takes them in bf16
+  (x, b_in, b_rs f32; cond, w_in [K, C, 2C] or any view of it, w_rs bf16;
+  C even and at most ``ANY_MAX_C[torch.bfloat16]``, K odd; valid_t None or
+  an int32 [B] tensor on the card); the
+  cotangents f32 [B, T, C] or None (zero, never materialised). Anything
+  else raises; it never falls back to the plain version.
+  :class:`WNLayerTrainable` calls it at every shape but the specialised
+  kernels' (:func:`specialised`); called directly it runs those too."""
+  global ANY_BWD_LAUNCHES
+  x, cond, w_in, b_in, w_rs, _ = saved
+  _check_bwd_x(x)
+  dev = x.device
+  batch, t, c = x.shape
+  cap = ANY_MAX_C[torch.bfloat16]
+  if c % 2 or not 0 < c <= cap:
+    raise ValueError(f"the shape-generic backward takes an even C of at "
+                     f"most {cap} (the generic forward's cap in bf16), got "
+                     f"C = {c}")
+  k = w_in.numel() // (2 * c * c)
+  if k % 2 != 1 or w_in.numel() != k * c * 2 * c:
+    raise ValueError(f"w_in: {tuple(w_in.shape)} is not [K, {c}, {2 * c}] "
+                     "for an odd K")
+  if dilation < 0:
+    raise ValueError(f"dilation must be >= 0, got {dilation}")
+  if batch > 65535:
+    raise ValueError(f"the kernels' grids take B <= 65535, got {batch}")
+  last, cots = _bwd_operands(saved, dx_next, dskip, valid_t, k)
   lib = _library()
-  plan = _bwd_plan(batch, t, c, c, last, dev)
+  plan = _any_bwd_plan(batch, t, c, k, last, dev)
   # each gradient has its input's shape and dtype
   dx, dcond, dw_in, db_in, dw_rs, db_rs = (torch.empty_like(v) for v in saved)
   scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
-  at = {k: scratch.data_ptr() + off for k, off in plan["offsets"].items()}
+  at = {n: scratch.data_ptr() + off for n, off in plan["offsets"].items()}
   with torch.cuda.device(dev):  # the launcher reads the current device
-    err = lib.wn_layer_backward_bf16(
+    err = lib.wn_layer_backward_any_bf16(
         x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-        w_rs.data_ptr(), ptr(cots[0]), ptr(cots[1]), ptr(valid_t),
+        w_rs.data_ptr(), _ptr(cots[0]), _ptr(cots[1]), _ptr(valid_t),
         dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
-        dw_rs.data_ptr(), db_rs.data_ptr(), at["acts"], at["x_bf"],
-        at["g_bf"], at["part_bias"], at["ws"], batch, t, c, int(dilation),
-        int(last), plan["n_splits_t"], plan["split_rows"],
+        dw_rs.data_ptr(), db_rs.data_ptr(), at["x_p"], at["g_p"],
+        at["w_in_p"], at["w_rs_p"], at["acts_p"], at["dg_p"], at["part_in"],
+        at["part_rs"], at["ws"], batch, t, c, k, int(dilation), int(last),
+        plan["n_splits_t"], plan["split_rows"],
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
-    raise RuntimeError(f"wn_layer backward kernels failed to launch: "
+    raise RuntimeError(f"wn_layer_backward_any kernels failed to launch: "
                        f"cudaError {err}")
-  BWD_LAUNCHES += 1
+  ANY_BWD_LAUNCHES += 1
   return dx, dcond, dw_in, db_in, dw_rs, db_rs
 
 
 class WNLayerTrainable(torch.autograd.Function):
-  """Forward: :func:`wn_layer_fused` without ``skip_acc``; backward:
-  :func:`wn_layer_backward_fused` for bf16 on the card, else
-  :func:`wn_layer_backward`. Saves the six inputs, as the JAX custom VJP
-  does (nothing of the kernel's intermediates)."""
+  """Forward: :func:`wn_layer_fused` without ``skip_acc``; backward, in
+  bf16 on the card: :func:`wn_layer_backward_fused` where
+  :func:`specialised` holds, else :func:`wn_layer_backward_any`; in f32 on
+  the card and on the CPU: :func:`wn_layer_backward`. Saves the six inputs,
+  as the JAX custom VJP does (nothing of the kernel's intermediates)."""
 
   @staticmethod
   def forward(ctx, x, cond, w_in, b_in, w_rs, b_rs, dilation, valid_t,
@@ -1040,8 +1195,11 @@ class WNLayerTrainable(torch.autograd.Function):
   def backward(ctx, dx_next, dskip):
     saved = ctx.saved_tensors
     if saved[0].device.type == "cuda" and ctx.compute_dtype is not None:
-      grads = wn_layer_backward_fused(saved, dx_next, dskip, ctx.dilation,
-                                      ctx.valid_t)
+      c = saved[0].shape[-1]
+      kernels = (wn_layer_backward_fused
+                 if specialised(c, saved[2].numel() // (2 * c * c))
+                 else wn_layer_backward_any)
+      grads = kernels(saved, dx_next, dskip, ctx.dilation, ctx.valid_t)
     else:
       # CPU tensors, and f32 on the card (parity mode's torch-ops route)
       grads = wn_layer_backward(saved, dx_next, dskip, ctx.dilation,
@@ -1057,17 +1215,10 @@ def wn_layer_trainable(x: torch.Tensor, cond: torch.Tensor,
   """Differentiable fused WN layer: ``(x', skip)`` as
   :func:`wn_layer_fused` without ``skip_acc``, with gradients for all six
   tensor inputs. On CUDA tensors the forward is the kernel (inputs as
-  ``wn_layer_fused`` takes them at K = 3 and C in ``kernel_widths()``, the
-  shapes of the backward kernels; any other shape raises); on CPU tensors
-  the plain version. Its plain counterpart is ``torch.autograd`` through
-  :func:`wn_layer_plain`."""
-  if x.device.type == "cuda":
-    c = x.shape[-1]
-    k = w_in.numel() // max(2 * c * c, 1)
-    if not specialised(c, k):
-      raise ValueError(
-          f"the trainable layer takes K = 3 and C in {_WIDTHS} on the card, "
-          f"got K = {k}, C = {c}")
+  ``wn_layer_fused`` takes them: every shape the shape-generic kernels
+  take, any odd K and any even C up to ``ANY_MAX_C``, and beyond those caps
+  it raises, naming them); on CPU tensors the plain version. Its plain
+  counterpart is ``torch.autograd`` through :func:`wn_layer_plain`."""
   return WNLayerTrainable.apply(x, cond, w_in, b_in, w_rs, b_rs, dilation,
                                 valid_t, compute_dtype)
 

@@ -14,10 +14,11 @@ res/skip pair axes), so one checkpoint feeds both:
 
 Every layer body runs through the fused WN-layer kernel wrapper (CUDA kernel
 on the card, plain torch on the CPU); the per-layer conditioning product
-stays ``torch.matmul``. Synthesis (``wn_forward``) takes every shape the
-JAX package's ``wn_forward`` takes: any odd ``kernel_size`` and any even
-``n_channels``. Training and the model axis take ``kernel_size`` 3 only
-(and on the card the widths their kernels are built for). The residual
+stays ``torch.matmul``. Synthesis (``wn_forward``) and training
+(``wn_forward_train``) take every shape the JAX package's ``wn_forward``
+takes: any odd ``kernel_size`` and any even ``n_channels``. Only the model
+axis (``wn_forward_tp``, ``wn_forward_train_tp``) takes ``kernel_size`` 3
+alone (and on the card the widths its kernels are built for). The residual
 stream and the skip sum are float32 in both modes; in synthesis the skip
 sum is accumulated inside the kernel, in training outside it.
 
@@ -137,8 +138,8 @@ def _check_kernel_size(entry: str, kernel_size: int) -> None:
   if kernel_size != 3:
     raise ValueError(
         f"{entry} takes kernel_size 3 only (on the card at n_channels in "
-        f"{kernel_widths()}), got kernel_size {kernel_size}; synthesis "
-        "without a mesh takes any odd kernel_size")
+        f"{kernel_widths()}), got kernel_size {kernel_size}; synthesis and "
+        "training without a model mesh take any odd kernel_size")
 
 
 def _row_keep(valid_t: torch.Tensor, t: int) -> torch.Tensor:
@@ -219,9 +220,9 @@ def wn_forward_train(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
   the skip sum is added in f32 outside the kernel. The residual stream
   stays f32 in both modes, because the kernel takes f32 x: that matches
   the JAX XLA route (``wn_forward``), while the JAX Pallas route keeps x in
-  the compute dtype. Takes ``kernel_size`` 3 only.
+  the compute dtype. Takes any odd ``kernel_size`` and any even
+  ``n_channels`` (on the card the layer's kernels' caps, ``ANY_MAX_C``).
   """
-  _check_kernel_size("wn_forward_train (training)", kernel_size)
   dtype = compute_dtype or torch.float32
   c = n_channels
   x = conv1x1(audio0, materialize(params["start"]), params["start"]["b"],
@@ -233,7 +234,7 @@ def wn_forward_train(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
   for i in range(n_layers):
     in_layer = params["in_layers"][i]
     res_skip = params["res_skip"][i]
-    w_in = materialize(in_layer).reshape(3, c, 2 * c).to(dtype)
+    w_in = materialize(in_layer).reshape(kernel_size, c, 2 * c).to(dtype)
     w_rs = materialize(res_skip).reshape(c, -1).to(dtype)
     cond_i = _mm(spect, w_cond[:, i].reshape(-1, 2 * c), compute_dtype)
     cond_i = cond_i + b_cond[i].reshape(-1).to(cond_i.dtype)
