@@ -725,17 +725,35 @@ def shard_bwd_variant(kernel: str, width: int, channels: int,
 
 
 # The shape-generic forward's kernels (csrc/wn_layer_any.cu), (bf16,
-# last) as kl.any_kernel_info takes them.
-ANY_KERNELS = tuple((bf16, last) for bf16 in (False, True)
-                    for last in (False, True))
+# last, kernel, channels) as kl.any_kernel_info takes them: the kernel that
+# ends a call in each mode and variant (the f32 layer kernel, its own
+# instance at Cp = 64 among them; the bf16 res/skip kernel), the bf16 gate
+# kernel and each mode's prep kernel.
+ANY_KERNELS = (tuple((bf16, last, "layer", width)
+                     for bf16, width in ((False, C), (False, 64), (True, C))
+                     for last in (False, True))
+               + ((True, False, "gate", C), (False, False, "prep", C),
+                  (True, False, "prep", C)))
+# The generic forward's kernels by name in a profile (kernel_split's
+# groups: "kernel_f32" the f32 layer, "rs" the bf16 res/skip kernel).
+ANY_FWD_SPLIT = r"wn_any_(prep|gate|rs|kernel_f32)"
 
 
-def any_variant(bf16: bool, last: bool) -> str:
-  """Variant name of a shape-generic forward kernel, "f32,any,..." (held
-  to no tensor-core instruction and no spill) or "bf16,any,..." (held to
-  wgmma, no serialization, no spill)."""
-  return (f"{'bf16' if bf16 else 'f32'},any,"
-          f"{'last' if last else 'layer'}")
+def any_variant(bf16: bool, last: bool, kernel: str = "layer",
+                channels: int = C) -> str:
+  """Variant name of a shape-generic forward kernel: "f32,any,{layer,
+  last}" and, for its instance at Cp = 64 (``channels`` up to 64),
+  "f32,any,c64,{layer,last}" (held to no tensor-core instruction and no
+  spill); "bf16,any,{layer,last}" (the res/skip kernel) and
+  "bf16,any,gate" (held to wgmma, no serialization, no spill);
+  "prep,any,fwd-{f32,bf16}" (held to neither)."""
+  mode = "bf16" if bf16 else "f32"
+  if kernel == "prep":
+    return f"prep,any,fwd-{mode}"
+  if kernel == "gate":
+    return "bf16,any,gate"
+  c64 = "c64," if not bf16 and kl.any_cp(channels) == 64 else ""
+  return f"{mode},any,{c64}{'last' if last else 'layer'}"
 
 
 def any_bwd_variant(kernel: str) -> str:
@@ -760,9 +778,11 @@ def kernel_variant(mangled: str) -> str:
   ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, the
   f32 shard kernel ``wn_shard_kernel<kC, kCP, kLast>`` or a shard-backward
   kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``
-  or a shape-generic forward kernel ``wn_any_kernel_{f32,bf16}<kLast>``
-  or backward kernel ``wn_bwd_any_{rows,dx,weights,reduce,prep,pad}_kernel``;
-  other symbols are returned as they are."""
+  or a shape-generic forward kernel ``wn_any_kernel_f32<kTwo, kLast>``,
+  ``wn_any_rs_kernel<kLast>``, ``wn_any_gate_kernel`` or
+  ``wn_any_prep_kernel<kBf16>`` or backward kernel
+  ``wn_bwd_any_{rows,dx,weights,reduce,prep,pad}_kernel``; other symbols
+  are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
@@ -802,9 +822,18 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return shard_variant(int(inst.group(1)), int(inst.group(2)), False,
                          inst.group(3) == "1")
-  inst = re.search(r"wn_any_kernel_(f32|bf16)ILb([01])E", mangled)
+  inst = re.search(r"wn_any_kernel_f32ILb([01])ELb([01])E", mangled)
   if inst:
-    return any_variant(inst.group(1) == "bf16", inst.group(2) == "1")
+    return any_variant(False, inst.group(2) == "1", "layer",
+                       64 if inst.group(1) == "1" else C)
+  inst = re.search(r"wn_any_rs_kernelILb([01])E", mangled)
+  if inst:
+    return any_variant(True, inst.group(1) == "1")
+  if re.search(r"wn_any_gate_kernel", mangled):
+    return any_variant(True, False, "gate")
+  inst = re.search(r"wn_any_prep_kernelILb([01])E", mangled)
+  if inst:
+    return any_variant(inst.group(1) == "1", False, "prep")
   inst = re.search(r"wn_bwd_any_(rows|dx|weights|reduce|prep|pad)_kernel",
                    mangled)
   if inst:
@@ -1001,7 +1030,8 @@ def phase_build() -> dict:
                      for k, cp, w in WIDE_KERNELS})
   attributes.update({f32_rest_variant(last): kl.f32_rest_kernel_info(last)
                      for last in (False, True)})
-  attributes.update({any_variant(*v): kl.any_kernel_info(*v)
+  attributes.update({any_variant(*v): kl.any_kernel_info(v[0], v[1], v[3],
+                                                         v[2])
                      for v in ANY_KERNELS})
   attributes.update({any_bwd_variant(k): kl.any_bwd_kernel_info(k)
                      for k in kl.ANY_BWD_KERNELS})
@@ -1382,7 +1412,7 @@ def phase_slice(ckpt: CheckpointWaveglow, mode: str, seed: int):
 def kernel_family(name: str) -> str:
   if "wn_layer_kernel" in name:
     return "wn_layer kernel"
-  if "wn_any_kernel" in name:
+  if "wn_any_" in name:
     return "wn_layer_any kernel"
   if "wn_shard_kernel" in name:
     return "wn shard kernel"
@@ -5116,16 +5146,20 @@ ANY_TIMED = ((256, 5), (384, 3), (64, 3), (256, 3))
 # (and at K = 5 streamed) in f32 and bf16, (width, kernel_size).
 ANY_MODELS = {"k5": (C, 5), "c384": (384, 3)}
 ANY_DESIGN = {
-    "f32": "f32 FFMA, one block of 256 threads per (batch row, 64 time "
-           "rows), passes of 64 gate channels then of 64 res/skip "
-           "channels, a thread 4 rows x (4 + 4) channels, 16-row K chunks "
-           "double-buffered by cp.async (taps transposed), the acts of "
-           "every channel in shared memory",
-    "bf16": "wgmma m64n64k16, one warpgroup per (batch row, 64 time rows), "
-            "passes of 64 gate channels then of 64 res/skip channels, "
-            "64-deep K chunks double-buffered by cp.async (f32 taps staged "
-            "and rounded to the swizzled bf16 operand), the acts of every "
-            "channel in shared memory"}
+    "f32": "f32 FFMA, one wave of 384-thread blocks over the flat B*T rows "
+           "(equal shares of 16-row quanta), 96-row tiles x passes of 128 "
+           "gate then res/skip channels (192-row tiles at Cp = 64; a "
+           "block's last tile of 16 rows or fewer runs two passes at "
+           "once), a thread 8 rows x (4 + 4) channels, 16-deep K chunks "
+           "through a 4-stage cp.async ring, the acts through an f32 "
+           "scratch; operands padded to 64 channels by a prep kernel where "
+           "C is not a multiple of 64",
+    "bf16": "three kernels: x rounded once into a 64-channel-padded bf16 "
+            "scratch (prep), then a gate and a res/skip kernel, each one "
+            "persistent wave over units of 128 flat rows x 128 channels, "
+            "wgmma m64n128k16 through a 4-stage cp.async ring of 64-deep "
+            "K chunks with one chunk's wgmmas in flight, the acts through "
+            "a bf16 scratch"}
 
 
 def any_checkpoint(seed: int, tmp: Path, name: str) -> CheckpointWaveglow:
@@ -5195,9 +5229,10 @@ def any_vs_specialised(mode: str, last: bool, seed: int) -> dict:
 
 
 def any_timed(mode: str, width: int, k: int, seed: int) -> dict:
-  """(d): the shape-generic kernel's, the plain version's and the library's
-  ms (CUDA events) at B=1, T_KERNEL, d=1 beside the bound; at (256, 3) also
-  the specialised kernel's."""
+  """(d): the shape-generic kernels', the plain version's and the
+  library's ms (CUDA events) at B=1, T_KERNEL, d=1 beside the bound, and
+  each kernel's device ms in a call (``kernels_ms``, torch.profiler); at
+  (256, 3) also the specialised kernel's."""
   cdt = MODES[mode]
   dtype = cdt or torch.float32
   args, valid, acc = layer_inputs(1, T_KERNEL, False, dtype, seed, width, k)
@@ -5208,6 +5243,10 @@ def any_timed(mode: str, width: int, k: int, seed: int) -> dict:
          "bound_ms": bound_ms, "bound_by": bound_by}
   rec["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_any(
       *args, 1, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
+  rec["kernels_ms"] = kernel_split(
+      lambda: kl.wn_layer_any(*args, 1, valid_t=valid, skip_acc=skip,
+                              compute_dtype=cdt), ANY_FWD_SPLIT,
+      len(kl.any_kernels(mode == "bf16", width)), reps=5)
   rec["plain_ms"] = cuda_ms(lambda: kl.wn_layer_plain(
       *args, 1, valid_t=valid, skip_acc=skip, compute_dtype=cdt))
   x, cond, w_in, b_in, w_rs, b_rs = args
@@ -5964,17 +6003,20 @@ def main() -> None:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_err_of_bound": max(c["max_abs_err"] / c["bound"] for c in cases),
         **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "share_of_bound")},
+                                "library_ms", "share_of_bound",
+                                "kernels_ms")},
         "ms": head["kernel_ms"], "design": ANY_DESIGN[mode],
         "shape": f"B=1,T={T_KERNEL},C=256,K=5,d=1",
         "timed": {shape: {k: r[k] for k in r if k.endswith("_ms")
-                          or k in ("bound_by", "share_of_bound")}
+                          or k in ("bound_by", "share_of_bound",
+                                   "kernels_ms")}
                   for shape, r in anys["timed"][mode].items()},
         "vs_specialised_max_abs": max(
             r["max_abs_err"] for r in anys["vs_specialised"]
             if r["mode"] == mode),
-        "loaded_build": build["attributes"][any_variant(mode == "bf16",
-                                                        False)]})
+        "loaded_build": {any_variant(*v): build["attributes"][
+            any_variant(*v)] for v in ANY_KERNELS
+                         if v[0] == (mode == "bf16")}})
 
   kernels.extend(train_any_shape_kernels(any_trains, build))
 

@@ -2,7 +2,7 @@
 this repo, on one NVIDIA card: their outputs bit for bit and their times
 alternated.
 
-  python3 fwd_compare.py OTHER_TREE [--trainable] [--train]
+  python3 fwd_compare.py OTHER_TREE [--trainable] [--train] [--any]
       [--out chiprun_out/fwd_compare.json]
 
 OTHER_TREE is an unpacked checkout of another commit, for example
@@ -32,8 +32,13 @@ takes the trainable layer at K = 3 and every built width in each mode
 the f32 torch-ops backward; B=12, T=2,000, d = 1, and the last layer at d
 = 128 with a per-row valid_t) and rank 0's trainable shard at (C, C/2)
 (kl.wn_layer_shard_trainable), and records a checksum of the outputs' and
-every gradient's bits. The last line is one JSON object: for each case
-whether every run gave the same bits, and each run's times.
+every gradient's bits. With --any a run instead takes the shape-generic
+forward (kl.wn_layer_any) at chip_smoke.py phase 16's timed shapes (C, K)
+= (256, 5), (384, 3), (64, 3), (256, 3) in f32 and bf16 (B=1, T=26,432,
+d=1, skip_acc on), records a checksum of each case's output bits and
+times it beside the library's call (conv1d over K taps, the gate, a
+matmul). The last line is one JSON object: for each case whether every
+run gave the same bits, and each run's times.
 """
 
 import argparse
@@ -52,6 +57,8 @@ T = 26_432
 N_LAYERS = 8
 TIMED = (1, 128)
 TRAIN_SEED = 1234
+# --any: (C, K) of the generic forward, phase 16's ANY_TIMED
+ANY_TIMED = ((256, 5), (384, 3), (64, 3), (256, 3))
 
 
 def checksum(out) -> list:
@@ -86,13 +93,15 @@ def library(x, cond, w_in, b_in, w_rs, dilation, dtype):
   import torch
   import torch.nn.functional as F
   c = w_in.shape[-1] // 2
+  k = w_in.numel() // (x.shape[-1] * 2 * c)
   x_cf = x.to(dtype).transpose(1, 2).contiguous()
-  w_conv = w_in.reshape(3, -1, 2 * c).permute(2, 1, 0).contiguous()
+  w_conv = w_in.reshape(k, -1, 2 * c).permute(2, 1, 0).contiguous()
   cond = cond.reshape(*x.shape[:2], 2 * c)
   b_lib = b_in.to(dtype)
 
   def call():
-    pre = F.conv1d(x_cf, w_conv, b_lib, padding=dilation, dilation=dilation)
+    pre = F.conv1d(x_cf, w_conv, b_lib, padding=dilation * (k // 2),
+                   dilation=dilation)
     gates = pre.transpose(1, 2) + cond
     acts = torch.tanh(gates[..., :c]) * torch.sigmoid(gates[..., c:])
     return torch.matmul(acts.to(dtype), w_rs)
@@ -180,6 +189,44 @@ def worker(tree: str, build_only: bool) -> dict:
             "library_ms": library(x, *sl, dilation, bf)}
     del x, cond, w_in, w_rs
     torch.cuda.empty_cache()
+  return out
+
+
+def any_worker(tree: str) -> dict:
+  sys.path.insert(0, tree)
+  import torch
+  from waveglow_tpu_torch.kernels import wn_layer as kl
+  assert Path(kl.__file__).resolve().is_relative_to(Path(tree).resolve())
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  out = {}
+  for mode in ("f32", "bf16"):
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    cdt = torch.bfloat16 if mode == "bf16" else None
+    for width, k in ANY_TIMED:
+      g = torch.Generator(device="cuda").manual_seed(100 * width + k)
+
+      def rand(*shape, scale):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+      x = rand(1, T, width, scale=0.5)
+      cond = rand(1, T, 2, width, scale=0.5).to(dtype)
+      w_in = rand(k, width, 2 * width, scale=(k * width) ** -0.5).to(dtype)
+      b_in = rand(2 * width, scale=0.1)
+      w_rs = rand(width, 2 * width, scale=width ** -0.5).to(dtype)
+      b_rs = rand(2 * width, scale=0.1)
+      acc = rand(1, T, width, scale=1.0)
+      args = (x, cond, w_in, b_in, w_rs, b_rs, 1)
+      x_next, skip = kl.wn_layer_any(*args, skip_acc=acc.clone(),
+                                     compute_dtype=cdt)
+      buf = acc.clone()
+      out[f"any,{mode},C={width},K={k}"] = {
+          "checksum": checksum(x_next) + checksum(skip),
+          "ms": device_ms(lambda: kl.wn_layer_any(
+              *args, skip_acc=buf, compute_dtype=cdt)),
+          "library_ms": library(x, cond, w_in, b_in, w_rs, 1, dtype)}
+      del x, cond, acc, buf, x_next, skip
+      torch.cuda.empty_cache()
   return out
 
 
@@ -274,8 +321,12 @@ def main() -> None:
   parser.add_argument("--build-only", action="store_true")
   parser.add_argument("--train", action="store_true")
   parser.add_argument("--trainable", action="store_true")
+  parser.add_argument("--any", action="store_true")
   args = parser.parse_args()
   if args.worker:
+    if args.any and not args.build_only:
+      print(json.dumps(any_worker(args.worker)))
+      return
     if args.build_only or not (args.train or args.trainable):
       print(json.dumps(worker(args.worker, args.build_only)))
       return
@@ -294,7 +345,8 @@ def main() -> None:
   runs = []
   for name in ("other", "this", "this", "other"):
     proc = run(trees[name], *(["--train"] if args.train else []),
-               *(["--trainable"] if args.trainable else []))
+               *(["--trainable"] if args.trainable else []),
+               *(["--any"] if args.any else []))
     text = proc.communicate()[0]
     if proc.returncode:
       raise SystemExit(f"the run of {name} failed")

@@ -372,11 +372,12 @@ def test_specialised_only_at_the_built_widths_and_three_taps(c, k, want):
 
 
 def test_the_generic_kernel_caps_are_its_shared_memory():
-  """ANY_MAX_C mirrors csrc/wn_layer_any.cu's kMaxC: the largest multiple
-  of 64 channels whose 64-row tile (double-buffered operands, in bf16 the
-  f32 taps staged, and the acts of every channel) fits the 232,448 bytes a
-  block may use. Every width
-  the JAX package's tests and HParams use is under it."""
+  """ANY_MAX_C keeps the caps of the generic forward's first design
+  (csrc/wn_layer_any.cu's kMaxCF32, kMaxCBf16): the largest multiple of 64
+  channels whose 64-row tile (double-buffered operands, in bf16 the f32
+  taps staged, and the acts of every channel) fit the 232,448 bytes a
+  block may use. Every width the JAX package's tests and HParams use is
+  under it."""
   def f32_bytes(cpad):
     return (2 * 16 * 68 + 2 * 16 * 128 + cpad * 68) * 4
 

@@ -18,6 +18,7 @@ bias-capture checks, rehearsed here on the CPU.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -1424,51 +1425,65 @@ def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
 # Its kernels as nvcc names them in the library (wn_layer_any.cu compiled
 # on its own).
 _ANY_OBJ = "_ZN48_GLOBAL__N__8c31e70a_15_wn_layer_any_cu_6edbed1c"
-ANY_F32_LAYER = (_ANY_OBJ + "17wn_any_kernel_f32ILb0EEEvPKfS2_S2_S2_S2_S2_"
-                 "PKiPfS5_iiiii")
-ANY_BF16_LAYER = (_ANY_OBJ + "18wn_any_kernel_bf16ILb0EEEvPKfPK13__nv_"
-                  "bfloat16S5_S2_S5_S2_PKiPfS8_iiiii")
+ANY_F32_LAYER = _ANY_OBJ + "17wn_any_kernel_f32ILb0ELb0EEEvNS_7AnyArgsE"
+ANY_BF16_LAYER = _ANY_OBJ + "16wn_any_rs_kernelILb0EEEvNS_7AnyArgsE"
+ANY_BF16_GATE = _ANY_OBJ + "18wn_any_gate_kernelENS_7AnyArgsE"
+ANY_PREP = _ANY_OBJ + "18wn_any_prep_kernelILb0EEEvPKfPvPKvS5_S3_S3_liiii"
 
 
 @pytest.mark.parametrize("mangled,name", [
     (ANY_F32_LAYER, "f32,any,layer"),
-    (ANY_F32_LAYER.replace("ILb0EE", "ILb1EE"), "f32,any,last"),
+    (ANY_F32_LAYER.replace("ELb0EE", "ELb1EE"), "f32,any,last"),
+    (ANY_F32_LAYER.replace("ILb0E", "ILb1E"), "f32,any,c64,layer"),
+    (ANY_F32_LAYER.replace("ILb0ELb0E", "ILb1ELb1E"), "f32,any,c64,last"),
     (ANY_BF16_LAYER, "bf16,any,layer"),
-    (ANY_BF16_LAYER.replace("ILb0EE", "ILb1EE"), "bf16,any,last")])
+    (ANY_BF16_LAYER.replace("ILb0EE", "ILb1EE"), "bf16,any,last"),
+    (ANY_BF16_GATE, "bf16,any,gate"),
+    (ANY_PREP, "prep,any,fwd-f32"),
+    (ANY_PREP.replace("ILb0EE", "ILb1EE"), "prep,any,fwd-bf16")])
 def test_kernel_variant_names_the_generic_kernels(smoke, mangled, name):
   assert smoke.kernel_variant(mangled) == name
 
 
 def test_profiles_name_the_generic_kernel(smoke):
-  """A profile's split by family keeps the generic kernel apart from the
-  elementwise ops (phase 16's serving profiles read its device time)."""
-  assert smoke.kernel_family(ANY_F32_LAYER) == "wn_layer_any kernel"
-  assert smoke.kernel_family(ANY_BF16_LAYER) == "wn_layer_any kernel"
+  """A profile's split by family keeps the generic kernels apart from the
+  elementwise ops (phase 16's serving profiles read their device time),
+  and phase 16's split names each of a call's kernels."""
+  for name in (ANY_F32_LAYER, ANY_BF16_LAYER, ANY_BF16_GATE, ANY_PREP):
+    assert smoke.kernel_family(name) == "wn_layer_any kernel"
+  groups = [re.search(smoke.ANY_FWD_SPLIT, name).group(1)
+            for name in (ANY_F32_LAYER, ANY_BF16_LAYER, ANY_BF16_GATE,
+                         ANY_PREP)]
+  assert groups == ["kernel_f32", "rs", "gate", "prep"]
   assert smoke.kernel_family(F32_LAYER) == "wn_layer kernel"
   assert smoke.kernel_family("void at::native::vectorized_elementwise_"
                              "kernel<4>") == "elementwise, copies and reductions"
 
 
 def test_phase2_holds_the_generic_kernels(smoke):
-  """Phase 2 lists the four generic variants; the bf16 ones are held to
-  wgmma, no serialization and no spill, the f32 ones to no tensor-core
-  instruction and no spill."""
+  """Phase 2 lists the nine generic forward variants; the bf16 gate and
+  res/skip ones are held to wgmma, no serialization and no spill, the f32
+  ones (the Cp = 64 instance too) to no tensor-core instruction and no
+  spill, the prep kernels to neither."""
   names = [smoke.any_variant(*v) for v in smoke.ANY_KERNELS]
-  assert names == ["f32,any,layer", "f32,any,last", "bf16,any,layer",
-                   "bf16,any,last"]
-  bf16, f32 = names[2:], names[:2]
+  assert names == ["f32,any,layer", "f32,any,last", "f32,any,c64,layer",
+                   "f32,any,c64,last", "bf16,any,layer", "bf16,any,last",
+                   "bf16,any,gate", "prep,any,fwd-f32", "prep,any,fwd-bf16"]
+  bf16, f32, prep = names[4:7], names[:4], names[7:]
   assert all(smoke.held_to_wgmma(n) for n in bf16)
-  assert not any(smoke.held_to_wgmma(n) for n in f32)
-  mma = {**dict.fromkeys(bf16, 12), **dict.fromkeys(f32, 0)}
+  assert not any(smoke.held_to_wgmma(n) for n in f32 + prep)
+  mma = {**dict.fromkeys(bf16, 12), **dict.fromkeys(f32 + prep, 0)}
   smoke.check_tensor_cores(mma, names)  # passes
   smoke.check_wgmma(mma, set(), names)
+  smoke.check_no_spills(None, {n: {"local_bytes": 8} for n in prep})
   with pytest.raises(SystemExit, match="tensor-core"):
     smoke.check_tensor_cores({**mma, "f32,any,last": 4}, names)
-  with pytest.raises(SystemExit, match="no wgmma"):
-    smoke.check_wgmma({**mma, "bf16,any,layer": 0}, set(), names)
-  with pytest.raises(SystemExit, match="serialized"):
-    smoke.check_wgmma(mma, {"bf16,any,last"}, names)
-  for name in names:
+  for name in bf16:
+    with pytest.raises(SystemExit, match="no wgmma"):
+      smoke.check_wgmma({**mma, name: 0}, set(), names)
+    with pytest.raises(SystemExit, match="serialized"):
+      smoke.check_wgmma(mma, {name}, names)
+  for name in bf16 + f32:
     with pytest.raises(SystemExit, match="spills"):
       smoke.check_no_spills(None, {name: {"registers": 140,
                                           "local_bytes": 8}})
@@ -1509,6 +1524,8 @@ def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
   monkeypatch.setattr(smoke, "nvidia_smi_line", lambda: "cpu, 0 W")
   monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: (fn(), 1.0)[1])
   monkeypatch.setattr(smoke, "profile_call", lambda fn: {"busy_ms": 0.0})
+  monkeypatch.setattr(smoke, "kernel_split",
+                      lambda fn, *a, **k: (fn(), "not measured")[1])
   monkeypatch.setattr(smoke, "T_KERNEL", 130)
   monkeypatch.setattr(smoke, "ANY_T_B8", 67)
   monkeypatch.setattr(smoke, "ANY_SHAPES", ((16, 3), (10, 5)))
@@ -1559,6 +1576,7 @@ def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
   assert len(out["vs_specialised"]) == 4
   for mode in smoke.MODES:
     assert set(out["timed"][mode]) == {"C=16,K=5", "C=32,K=3"}
+    assert all("kernels_ms" in r for r in out["timed"][mode].values())
     assert "specialised_ms" in out["timed"][mode]["C=32,K=3"]
     for name in ("k5", "c48"):
       assert out["serving"][name][mode]["launches"] == 4

@@ -1259,6 +1259,61 @@ def test_any_kernel_info_reads_the_loaded_build(cuda, bf16, last):
   assert info["dynamic_smem_bytes"] > 48 * 1024
   assert kl.any_kernel_info(bf16, last, cap)["dynamic_smem_bytes"] <= 232_448
   assert kl._library().wn_layer_any_max_channels(int(bf16)) == cap
+  for kernel in kl.any_kernels(bf16, 50):
+    info = kl.any_kernel_info(bf16, last, 50, kernel)
+    assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("c", [50, 256, 384])
+@pytest.mark.parametrize("batch,t", [(1, 26_432), (3, 43), (8, 2_017)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_schedule_is_the_host_grid(cuda, c, batch, t, bf16):
+  """The library's grid of a generic call is any_grid's at the slots it
+  reads from the card."""
+  got = kl.any_schedule(batch, t, c, bf16)
+  want = kl.any_grid(batch, t, c, bf16, got["slots"])
+  assert got["slots"] >= torch.cuda.get_device_properties(
+      cuda).multi_processor_count
+  assert (got["blocks"], got["rows_per_block"]) == (
+      want["blocks"], want["rows_per_block"])
+
+
+@pytest.mark.parametrize("c,k", [(256, 5), (50, 3), (384, 3)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_units_across_sequences(cuda, c, k, bf16):
+  """B > 1 at T = 43 and 100: a 128-row unit (a 96-row f32 tile) spans two
+  or more sequences; each row's taps stay in its own sequence."""
+  for batch, t in ((3, 43), (5, 100)):
+    check_against_plain(cuda, batch, t, 3, False, bf16,
+                        [t - 7 * (i % 2) for i in range(batch)],
+                        seed=c + t, c=c, k=k, layer=kl.wn_layer_any)
+
+
+@pytest.mark.parametrize("dilation", [1, 16])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_any_kernel_stream_window_is_bitwise(cuda, dilation, bf16):
+  """K = 5: a window of the sequence (as a stream runs the layer on its
+  windows) gives the bits of the whole call at the rows its halo covers,
+  wherever the window starts: each output's sums run in one fixed order,
+  whatever the row's place in a tile."""
+  cdt = torch.bfloat16 if bf16 else None
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  t, c, k = 2_001, 256, 5
+  x, cond, *rest = layer_inputs(cuda, 1, t, c, False, dtype, seed=dilation,
+                                k=k)
+  acc = torch.randn(1, t, c, generator=torch.Generator().manual_seed(1)).to(
+      cuda)
+  whole = kl.wn_layer_any(x, cond, *rest, dilation, skip_acc=acc.clone(),
+                          compute_dtype=cdt)
+  halo = (k // 2) * dilation
+  for start, end in ((0, 333), (77, 1_000), (1_001, t)):
+    part = kl.wn_layer_any(
+        x[:, start:end].contiguous(), cond[:, start:end].contiguous(), *rest,
+        dilation, skip_acc=acc[:, start:end].clone(), compute_dtype=cdt)
+    lo = 0 if start == 0 else halo
+    hi = end - start - (0 if end == t else halo)
+    for got, ref in zip(part, whole):
+      assert torch.equal(got[:, lo:hi], ref[:, start + lo:start + hi])
 
 
 # -- the shape-generic bf16 backward (csrc/wn_layer_bwd_any.cu) -------------------

@@ -37,56 +37,88 @@
 //   * bf16 is balanced: (256, 5) 0.042 ms of tensor-core time against
 //     0.040 ms of bytes; (384, 3) 0.063 ms against 0.061 ms.
 //
-// Design: right and simple, one block per (batch row, tile of 64 time rows),
-// the channels in passes of 64. Nothing here is tuned; making it fast is
-// later work.
-//   * Gate: for each pass p of 64 gate channels, pre [64 rows, 64 tanh + 64
-//     sigmoid columns] accumulates over the K*C deep product in K chunks
-//     (tap, channel block). Each tap's rows are loaded on their own from
-//     global memory (rows of the row's own sequence, zero outside [0, T)):
-//     taps reach +-(K/2)*d rows, up to +-384 at K = 7 and d = 128, so no
-//     halo window is staged. While one chunk is multiplied the next one
-//     copies into the other of two shared buffers by cp.async, nothing
-//     staged in registers: the weights as they are, the f32 taps
-//     transposed in f32, and in bf16 into an f32 staging area that each
-//     thread then rounds into the bf16 operand; one barrier a chunk. The
-//     gate runs in f32 on the accumulators and writes the pass's acts into
-//     shared memory.
-//   * The acts of all C channels of the tile stay in shared memory; the
-//     res/skip product reads them from there in passes of 64 output
-//     channels (the residual's with the skip's of the same channels; the
-//     last layer's 64 skip channels), K = C, then the epilogue adds b_rs,
-//     the residual and the skip sum in f32, masks rows >= valid_t and writes
-//     rows < T only.
-//   * Any even C: a 64-channel block past C is zero-filled in shared memory
-//     (taps, weight rows and columns, acts), so C = 48 or 200 is exact. An
-//     f32 row of x is 4C bytes and a bf16 weight row's sigmoid half starts
-//     2C bytes in, so C = 50 allows no 16-byte copy: the taps copy as
-//     single floats (f32, transposed) or 8-byte pairs (bf16), and the
-//     weights in 16-byte pieces where C allows (C % 4 == 0 in f32, C % 8 ==
-//     0 in bf16), else in pairs (8 or 4 bytes), which C even keeps
-//     aligned; a warp's copies are contiguous.
+// Design. Both modes read their operands in layouts padded to Cp = C
+// rounded up to 64 channels (zero past C), so every copy into shared memory
+// is an aligned 16-byte cp.async and every channel tail is zero: C = 48 and
+// C = 50 are exact. Where C is a multiple of 64 the f32 operands are read
+// as they are (their layout is the padded one); otherwise, and in bf16 for
+// x always, wn_any_prep_kernel first writes them into scratch the wrapper
+// allocates: x_p [B*T, Cp] (x rounded to bf16 in fast mode, so nothing is
+// rounded on a K loop), w_in_p [K*Cp, 2Cp] and w_rs_p [Cp, n_rsp] (each
+// half of the columns from column 0 and from column Cp; n_rsp = 2Cp, the
+// last layer's Cp). Taps are rows of the flat [B*T, Cp] rows: row R = b*T +
+// t reads row R + (k - K/2)*d where t + (k - K/2)*d lies in [0, T) (its own
+// sequence), else zero; taps reach +-(K/2)*d rows (+-384 at K = 7 and d =
+// 128), so each tap's rows are copied on their own, no halo window. Both
+// designs walk the channels in passes of 128 (the last one 64 when Cp is
+// not a multiple of 128; the columns past Cp are zero-filled).
 //   * wn_any_kernel_f32<last> (parity mode): true f32 FMAs on the CUDA
-//     cores, 256 threads, a thread 4 rows x 4 channels of each half (32
-//     accumulators), K chunks of 16 rows; the taps and the acts held
-//     transposed ([channel][row]) so a thread's 4 rows are one 16-byte read.
-//   * wn_any_kernel_bf16<last> (fast mode): one warpgroup (128 threads),
-//     wgmma m64n64k16 with both operands in shared memory in the 128-byte
-//     swizzle of sm90_wgmma.cuh (A: the taps or the acts, K-major; B: the
-//     weights, MN-major), K chunks of 64; every chunk's wgmmas are waited
-//     for before the next chunk's taps are rounded into the other buffer,
-//     so no wgmma is in flight across the loop's back edge.
+//     cores, no TF32. The register tile, ring and one-wave schedule of
+//     wn_layer.cu's f32 kernel at C = 512 (f32_ring.cuh): one wave of
+//     384-thread blocks, one an SM, each walking an equal share (a multiple
+//     of 16 rows) of the flat B*T rows in tiles of 96 rows x passes of 128
+//     channels; a thread holds 8 rows x (4 + 4) channels, 64 accumulators,
+//     so a weight value read from shared memory feeds 8 rows and each
+//     weight row copied into the ring feeds 96. A tile's two products (K*Cp
+//     deep, then Cp deep) run as one sequence of 16-deep K chunks (tap, 16
+//     channels) through a 4-stage ring, three chunks ahead of the FMAs, one
+//     barrier a chunk, running on across tiles (32-deep chunks were slower
+//     and spilled). A block's last tile of 16 rows or fewer (16 of its 208
+//     rows at B=1, T=26,432), which busies one pair of warps in six, runs
+//     its two passes at once at P = 2, and at Cp = 64 (one pass of 64
+//     channels) an instance of its own takes tiles of 192 rows, each column
+//     of warps 96 of them (AnyF32's note). The gate of each
+//     pass writes its acts (f32) to a global scratch [B*T, Cp] (a block's
+//     own rows), which the res/skip chunks read back through the ring.
+//     cond's rows, then the residual's x rows and the skip sum, are
+//     prefetched into L2 before the gate and the epilogue read them.
+//   * bf16 (fast mode), wn_layer.cu's C = 512 design at run-time C and K,
+//     three kernels a call:
+//       wn_any_prep_kernel<true> - x rounded to bf16 once into x_p (and the
+//         weights padded where C is not a multiple of 64).
+//       wn_any_gate_kernel - a unit is 128 flat rows (two warpgroups of 64)
+//         x one pass of 128 gate channels: pre = the K taps of x_p @ w_in
+//         at the pass's 128 tanh and 128 sigmoid columns (wgmma m64n128k16,
+//         128 f32 accumulators a thread), K*Cp deep in (tap, 64-channel)
+//         chunks, so a weight chunk read from L2 feeds 128 rows and the taps
+//         are read Cp/128 times; then the gate in f32 on the accumulators,
+//         the acts rounded to bf16 into the scratch acts [B*T, Cp].
+//       wn_any_rs_kernel<last> - a unit is 128 rows x a pass of 128
+//         channels: rs = acts @ w_rs at the residual's 128 columns and the
+//         skip's 128 of the same channels (the last layer: its 128 skip
+//         columns), Cp deep; the epilogue stages the f32 sums in the
+//         ring's shared memory and streams the pass's x, skip-sum and
+//         output rows in 16-byte pieces, a batch of loads in flight (from
+//         the accumulators' fragments, 8-byte pieces of 8 rows a warp,
+//         it took twice the time); it adds b_rs, the residual and the skip
+//         sum in f32, masks rows >= valid_t, writes rows < B*T only.
+//     The two product kernels stream 64-deep K chunks (A [128 rows][64]
+//     K-major, B [64][at most 256] MN-major, both in the 128-byte swizzle of
+//     sm90_wgmma.cuh) through a 4-stage cp.async ring, two chunks ahead,
+//     with one chunk's wgmmas left in flight across each barrier
+//     (wgmma_wait<1>). Each is one wave of persistent blocks (one an SM,
+//     no more than units) walking units blockIdx + k * gridDim; the passes
+//     of a tile are neighbours, so its taps and acts are read from L2
+//     while the other passes still hold them. cond (gate) and x and the
+//     skip sum (epilogue) are prefetched into L2 under the products.
+// No atomics, no split K: each output's sums run in one fixed order that
+// depends on neither B, T nor where a row falls in a tile, so two launches
+// give the same bits and a window of a stream gives its rows' bits.
 //
-// Shared memory caps C (the acts of a 64-row tile at all C channels): the
-// f32 kernel's at kMaxC = 704 (AnyF32::smem), the bf16 kernel's at 1,280
-// (AnyBf16::smem); kernels/wn_layer.py's ANY_MAX_C names both, and the
-// wrapper refuses a wider C.
+// Neither design holds the acts in shared memory, so neither caps C; the
+// wrapper keeps the caps of the first design (kernels/wn_layer.py's
+// ANY_MAX_C: 704 in f32, 1,280 in bf16), the set of widths it has been held
+// to. PERF.md keeps the times (chip_smoke.py phase 16, fwd_compare.py
+// --any); wn_layer_any_kernel_info reports each kernel's registers, spills
+// and shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "f32_ring.cuh"
 #include "sm90_wgmma.cuh"
@@ -95,41 +127,58 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;  // time rows of a block
-constexpr int kPass = 64;  // channels of a gate or res/skip pass
+constexpr int kMaxCF32 = 704;    // the wrapper's caps (ANY_MAX_C)
+constexpr int kMaxCBf16 = 1280;
+constexpr int kPass = 128;       // channels of a pass, both designs
 
-struct AnyF32 {
-  static constexpr int kThreads = 256;
-  static constexpr int kKC = 16;                       // K rows of a chunk
-  static constexpr int kLd = kTile + 4;                // floats a row of A / acts
-  static constexpr int kAFloats = kKC * kLd;           // [16 k][68]
-  static constexpr int kBFloats = kKC * 2 * kPass;     // [16 k][128]
-  static constexpr int kMaxC = 704;
-  static constexpr int smem(int cpad) {
-    return (2 * kAFloats + 2 * kBFloats + cpad * kLd) * 4;
-  }
-};
-static_assert(AnyF32::smem(AnyF32::kMaxC) <= 232448,
-              "over the 227 KB a block may use");
-static_assert(AnyF32::smem(AnyF32::kMaxC + kPass) > 232448,
-              "kMaxC is the largest fit");
+__host__ __device__ __forceinline__ int pad64(int c) {
+  return (c + 63) / 64 * 64;
+}
 
-struct AnyBf16 {
-  static constexpr int kThreads = 128;
-  static constexpr int kKC = 64;               // K of a chunk
-  static constexpr int kABytes = kTile * 128;  // [64 rows][64 K] K-major
-  static constexpr int kNBlock = 64 * 128;     // [64 K][64 N] MN-major
-  static constexpr int kBBytes = 2 * kNBlock;  // two N blocks
-  static constexpr int kFBytes = kTile * kKC * 4;  // the f32 taps staged
-  static constexpr int kMaxC = 1280;
-  static constexpr int smem(int cpad) {
-    return 2 * kABytes + 2 * kBBytes + kFBytes + cpad / kPass * kABytes;
-  }
+// n / d for 0 <= n < 2^31 by a multiply and a shift (the round-up method
+// of Granlund and Montgomery): m = floor(2^(31 + l) / d) + 1, l =
+// ceil(log2 d), made on the host. The product kernels divide by run-time
+// sizes (C, K, T) on every K chunk; a division by a run-time int is some
+// twenty instructions, and the f32 kernel's three a chunk cost 8% of its
+// time.
+struct FastDiv {
+  uint64_t m;
+  int shift, d;
 };
-static_assert(AnyBf16::smem(AnyBf16::kMaxC) <= 232448,
-              "over the 227 KB a block may use");
-static_assert(AnyBf16::smem(AnyBf16::kMaxC + kPass) > 232448,
-              "kMaxC is the largest fit");
+
+FastDiv fast_div(int d) {
+  int l = 0;
+  while ((int64_t{1} << l) < d) ++l;
+  return {(uint64_t{1} << (31 + l)) / static_cast<uint64_t>(d) + 1, 31 + l,
+          d};
+}
+
+__device__ __forceinline__ int div_by(int n, const FastDiv& f) {
+  return static_cast<int>((static_cast<uint64_t>(n) * f.m) >> f.shift);
+}
+
+// What every kernel of a call reads, as one parameter in the constant bank
+// (the derived sizes too, so a kernel spends no register on them).
+struct AnyArgs {
+  const float* x;        // [R, C] f32: the residual
+  const void* x_src;     // the taps' rows, Cp apart: x_p, or x (f32, C = Cp)
+  const void* cond;      // [R, 2C]
+  const void* w_in;      // [K*Cp, 2Cp]: w_in_p, or w_in when C = Cp
+  const float* b_in;     // [2C]
+  const void* w_rs;      // [Cp, n_rsp]: w_rs_p, or w_rs when C = Cp
+  const float* b_rs;     // [n_rs]
+  const int* valid_t;    // [B] or null
+  float* x_out;          // [R, C]
+  float* skip_out;       // [R, C]
+  void* acts;            // [R, Cp] scratch (bf16 or f32)
+  int accumulate, T, C, K, dilation;
+  int rows;              // R = B*T
+  int cp, passes;        // Cp, ceil(Cp / kPass)
+  int rows_per_block;    // f32: a block's flat rows
+  // divisors: T; the passes P; bf16: the 64-deep chunks of a tap; f32:
+  // the 16-deep chunks of a tap, of a gate pass and of a tile
+  FastDiv div_t, div_passes, div_tap64, div_tap16, div_gate, div_tile;
+};
 
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
@@ -144,549 +193,1061 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// Byte offset of the pair (row, 2i) in a 128-byte-swizzled row of 64 bf16:
-// a K-major A tile (row = M row, column = K) or a K row of an MN-major B
-// block (row = K row, column = N).
-__device__ __forceinline__ int sw_off(int row, int col) {
-  return row * 128 + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
-}
+// ---- prep: the operands into their padded layouts ---------------------------
 
-// cp.async of kBytes (4, 8 or 16) from `src` when `valid`, else kBytes zero
-// bytes (nothing is read).
-template <int kBytes>
-__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
-                                               bool valid) {
-  if constexpr (kBytes == 16) {
-    cp_async16_zfill(dst, src, valid);
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0));
+// One launch: blocks [0, w_rows) each pad one weight row (rows [0, K*Cp) of
+// w_in_p, then rows [0, Cp) of w_rs_p; w_rows = 0 where C = Cp and the
+// weights are read as they are); the others walk the channel pairs of x
+// (C even keeps a pair's 8 bytes aligned) into x_p [R, Cp], rounded to bf16
+// (kBf16) or as they are, zero past C. W is the weights' and x_p's type.
+template <bool kBf16>
+__global__ void __launch_bounds__(256)
+wn_any_prep_kernel(const float* __restrict__ x, void* x_p,
+                   const void* w_in, const void* w_rs, void* w_in_p,
+                   void* w_rs_p, int64_t rows, int C, int K, int last,
+                   int w_rows) {
+  using W = std::conditional_t<kBf16, bf16, float>;
+  const int cp = pad64(C);
+  if (static_cast<int>(blockIdx.x) < w_rows) {
+    const int n_rs = last ? C : 2 * C, n_rsp = last ? cp : 2 * cp;
+    const int row = blockIdx.x;
+    const W* src;
+    W* dst;
+    int ci, width;
+    if (row < K * cp) {
+      const int tap = row / cp;
+      ci = row % cp;
+      src = static_cast<const W*>(w_in) +
+            static_cast<int64_t>(tap * C + ci) * 2 * C;
+      dst = static_cast<W*>(w_in_p) + static_cast<int64_t>(row) * 2 * cp;
+      width = 2 * cp;
+    } else {
+      ci = row - K * cp;
+      src = static_cast<const W*>(w_rs) + static_cast<int64_t>(ci) * n_rs;
+      dst = static_cast<W*>(w_rs_p) + static_cast<int64_t>(ci) * n_rsp;
+      width = n_rsp;
+    }
+    for (int col = threadIdx.x; col < width; col += blockDim.x) {
+      const int h = col / cp, co = col % cp;
+      W v;
+      if constexpr (kBf16) v = __float2bfloat16(0.f);
+      else v = 0.f;
+      if (ci < C && co < C) v = src[h * C + co];
+      dst[col] = v;
+    }
+    return;
   }
-}
-
-// The K loop of one product: n chunks in two shared buffers. `issue(j,
-// buf)` starts chunk j's cp.async copies into buffer `buf` (the bf16
-// kernel's taps into an f32 staging area); `round(buf)` turns the thread's
-// own copies of the staged taps into buffer `buf`'s bf16 A (nothing in
-// f32); `mul(j, buf)` multiplies chunk j from buffer `buf` into the
-// accumulators. Chunk j + 1 copies while chunk j is multiplied; one barrier
-// a chunk, before which the thread's copies are done and (kFence) handed to
-// the async proxy, where the bf16 kernel's wgmma reads them. Nothing is
-// staged in registers. Returns after a barrier, with every chunk
-// multiplied.
-template <bool kFence, typename Issue, typename Round, typename Mul>
-__device__ __forceinline__ void chunks(int n, const Issue& issue,
-                                       const Round& round, const Mul& mul) {
-  issue(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  round(0);
-  if constexpr (kFence) fence_proxy_async();
-  __syncthreads();
-#pragma unroll 1
-  for (int j = 0; j < n; ++j) {
-    // past the last barrier every thread is done with buffer (j + 1) & 1
-    // and with the staging area
-    if (j + 1 < n) issue(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    mul(j, j & 1);
-    cp_async_wait<0>();
-    if (j + 1 < n) round((j + 1) & 1);
-    if constexpr (kFence) fence_proxy_async();
-    __syncthreads();
-  }
-}
-
-// cp.async the taps of a chunk: row r of the tile and channel c of the
-// chunk's kCh (from c0) is x[t0 + r + shift][c0 + c] of the sequence, zero
-// outside [0, T) and past channel C, landing at `dst(r, c)`. kW floats a
-// copy (C even keeps two aligned). A thread copies one column piece of rows
-// rf, rf + kStep, ... (see copy_weights).
-template <int kW, int kThreads, int kCh, typename Dst>
-__device__ __forceinline__ void copy_taps(const Dst& dst, const float* x,
-                                          int64_t seq, int T, int C, int t0,
-                                          int64_t shift, int c0) {
-  constexpr int kPer = kCh / kW;            // copies a row
-  constexpr int kStep = kThreads / kPer;    // rows between a thread's copies
-  static_assert(kThreads % kPer == 0 && kTile % kStep == 0, "whole rounds");
-  const int c = (threadIdx.x % kPer) * kW, rf = threadIdx.x / kPer;
-  const bool col_ok = c0 + c < C;
-  const int64_t s0 = t0 + rf + shift;
-#pragma unroll 4
-  for (int i = 0; i < kTile / kStep; ++i) {
-    const int64_t s = s0 + i * kStep;
-    const bool ok = col_ok && s >= 0 && s < T;
-    cp_async_zfill<kW * 4>(dst(rf + i * kStep, c),
-                           ok ? x + (seq + s) * C + c0 + c : x, ok);
-  }
-}
-
-// cp.async a weight chunk of kRows K rows into a shared B buffer: K row k
-// is row row0 + k of `w` (rows `ld` values apart), its half h the 64
-// columns from column c_h of that row (c1 < 0: no second half), landing at
-// `dst(h, k, n)` for column n of the half; zero past row C - k0 and past
-// channel C - ch0. Pieces of kW values: 16 bytes where C allows, else two
-// values. A thread copies one column piece of rows kf, kf + kStep, ...,
-// its source one pointer stepping down the rows (a copy a row apart
-// computes no address of its own, which kept ptxas from holding one for
-// each of the 32 two-value copies of a bf16 chunk and spilling them).
-template <int kW, int kThreads, int kRows, typename T, typename Dst>
-__device__ __forceinline__ void copy_weights(const Dst& dst, const T* w,
-                                             int64_t ld, int k0, int row0,
-                                             int c0, int c1, int ch0, int C) {
-  constexpr int kPer = 2 * kPass / kW;      // pieces a K row
-  constexpr int kStep = kThreads / kPer;    // K rows between a thread's pieces
-  static_assert(kThreads % kPer == 0 && kRows % kStep == 0, "whole rounds");
-  const int piece = threadIdx.x % kPer, kf = threadIdx.x / kPer;
-  const int h = piece / (kPer / 2), n = (piece % (kPer / 2)) * kW;
-  const bool col_ok = ch0 + n < C && (h == 0 || c1 >= 0);
-  const T* src = w + (row0 + kf) * ld + (h ? c1 : c0) + n;
-  const int64_t step = kStep * ld;
-#pragma unroll 4
-  for (int i = 0; i < kRows / kStep; ++i) {
-    const int k = kf + i * kStep;
-    const bool ok = col_ok && k0 + k < C;
-    cp_async_zfill<static_cast<int>(kW * sizeof(T))>(
-        dst(h, k, n), ok ? src + i * step : w, ok);
-  }
-}
-
-// ---- f32 (parity mode) ----------------------------------------------------------
-
-template <bool kLast>
-__global__ void __launch_bounds__(AnyF32::kThreads, 1)
-wn_any_kernel_f32(const float* __restrict__ x, const float* __restrict__ cond,
-                  const float* __restrict__ w_in,
-                  const float* __restrict__ b_in,
-                  const float* __restrict__ w_rs,
-                  const float* __restrict__ b_rs,
-                  const int* __restrict__ valid_t, float* __restrict__ x_out,
-                  float* skip_out, int accumulate, int T, int C, int K,
-                  int dilation) {
-  using L = AnyF32;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* const as = smem_f32;                      // [2][kKC][kLd]: A^T
-  float* const bs = as + 2 * L::kAFloats;          // [2][kKC][128]
-  float* const acts = bs + 2 * L::kBFloats;        // [Cpad][kLd]: acts^T
-  const uint32_t as_u32 = smem_u32(as), bs_u32 = smem_u32(bs);
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;  // rows 4tr, ch 4tc
-  const int passes = (C + kPass - 1) / kPass;
-  const int kchunks = (C + L::kKC - 1) / L::kKC;   // K chunks of C channels
-  const int64_t seq = static_cast<int64_t>(b) * T;  // the sequence's first row
-  const int n_rs = kLast ? C : 2 * C;
-  const bool vec = C % 4 == 0;  // 16-byte weight pieces
-
-  // a weight chunk into B buffer `buf`
-  const auto weights = [&](int buf, const float* w, int64_t ld, int k0,
-                           int row0, int c0, int c1, int ch0) {
-    const uint32_t b0 = bs_u32 + buf * L::kBFloats * 4;
-    const auto dst = [&](int h, int k, int n) {
-      return b0 + (k * 2 * kPass + h * kPass + n) * 4;
-    };
-    if (vec)
-      copy_weights<4, L::kThreads, L::kKC>(dst, w, ld, k0, row0, c0, c1,
-                                            ch0, C);
+  const int pairs = cp / 2;
+  const int64_t n = rows * pairs;
+  const int64_t stride =
+      static_cast<int64_t>(gridDim.x - w_rows) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x - w_rows) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const int64_t r = i / pairs;
+    const int c = 2 * static_cast<int>(i - r * pairs);
+    float2 v = make_float2(0.f, 0.f);
+    if (c < C) v = *reinterpret_cast<const float2*>(x + r * C + c);
+    if constexpr (kBf16)
+      *reinterpret_cast<uint32_t*>(static_cast<bf16*>(x_p) + r * cp + c) =
+          pack_bf16(v.x, v.y);
     else
-      copy_weights<2, L::kThreads, L::kKC>(dst, w, ld, k0, row0, c0, c1,
-                                            ch0, C);
-  };
-  // 32 FMAs a K row: the thread's 4 rows (a: A^T from row 4 tr) x its 4
-  // channels of each half (w: from column 4 tc)
-  const auto fma_rows = [&](float (&acc_a)[4][4], float (&acc_b)[4][4],
-                            const float* a, const float* w, bool paired) {
-#pragma unroll
-    for (int k = 0; k < L::kKC; ++k) {
-      float av[4], wa[4], wb[4];
-      load4(av, a + k * L::kLd);
-      load4(wa, w + k * 2 * kPass);
-      load4(wb, w + k * 2 * kPass + kPass);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_a[i][j] = fmaf(av[i], wa[j], acc_a[i][j]);
-          if (paired) acc_b[i][j] = fmaf(av[i], wb[j], acc_b[i][j]);
-        }
-    }
-  };
-
-  // ---- the gate, in passes of 64 channels -------------------------------------
-#pragma unroll 1
-  for (int p = 0; p < passes; ++p) {
-    float acc_t[4][4] = {}, acc_s[4][4] = {};
-    const int ch0 = p * kPass;
-    const auto issue = [&](int j, int buf) {
-      const int tap = j / kchunks, c0 = (j % kchunks) * L::kKC;
-      const int64_t shift = static_cast<int64_t>(tap - K / 2) * dilation;
-      weights(buf, w_in, 2 * C, c0, tap * C + c0, ch0, C + ch0, ch0);
-      const uint32_t a0 = as_u32 + buf * L::kAFloats * 4;
-      copy_taps<1, L::kThreads, L::kKC>(
-          [&](int r, int c) { return a0 + (c * L::kLd + r) * 4; }, x, seq, T,
-          C, t0, shift, c0);
-    };
-    chunks<false>(K * kchunks, issue, [](int) {}, [&](int, int buf) {
-      fma_rows(acc_t, acc_s, as + buf * L::kAFloats + 4 * tr,
-               bs + buf * L::kBFloats + 4 * tc, true);
-    });
-    // the gate in f32; acts^T of the pass's 64 channels (zero past C and
-    // past T)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ch = ch0 + 4 * tc + j;
-      float v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + 4 * tr + i;
-        v[i] = 0.f;
-        if (t < T && ch < C) {
-          const float* cr = cond + (seq + t) * 2 * C;
-          const float gt = acc_t[i][j] + b_in[ch] + cr[ch];
-          const float gs = acc_s[i][j] + b_in[C + ch] + cr[C + ch];
-          v[i] = tanhf(gt) * sigmoidf(gs);
-        }
-      }
-      store4(acts + ch * L::kLd + 4 * tr, v);
-    }
-  }
-  // the acts are read by every thread past chunks()'s first barrier
-
-  // ---- the res/skip product, in passes of 64 output channels -----------------
-  const int vt = valid_t != nullptr ? valid_t[b] : T;
-#pragma unroll 1
-  for (int q = 0; q < passes; ++q) {
-    float acc_a[4][4] = {}, acc_b[4][4] = {};  // residual | skip (last: skip)
-    const int ch0 = q * kPass;
-    chunks<false>(
-        kchunks,
-        [&](int j, int buf) {
-          const int k0 = j * L::kKC;
-          weights(buf, w_rs, n_rs, k0, k0, ch0, kLast ? -1 : C + ch0, ch0);
-        },
-        [](int) {},
-        [&](int j, int buf) {
-          fma_rows(acc_a, acc_b, acts + j * L::kKC * L::kLd + 4 * tr,
-                   bs + buf * L::kBFloats + 4 * tc, !kLast);
-        });
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + 4 * tr + i;
-      if (t >= T) continue;
-      const int64_t row = (seq + t) * C;
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        const int ch = ch0 + 4 * tc + j;
-        if (ch >= C) continue;  // C even: ch + 1 < C too
-        float2 xn = *reinterpret_cast<const float2*>(x + row + ch);
-        float2 sk;
-        if constexpr (kLast) {
-          sk = make_float2(acc_a[i][j] + b_rs[ch],
-                           acc_a[i][j + 1] + b_rs[ch + 1]);
-        } else {
-          xn.x += acc_a[i][j] + b_rs[ch];
-          xn.y += acc_a[i][j + 1] + b_rs[ch + 1];
-          sk = make_float2(acc_b[i][j] + b_rs[C + ch],
-                           acc_b[i][j + 1] + b_rs[C + ch + 1]);
-        }
-        if (t >= vt) xn = make_float2(0.f, 0.f);
-        if (accumulate) {
-          const float2 old =
-              *reinterpret_cast<const float2*>(skip_out + row + ch);
-          sk.x = old.x + sk.x;
-          sk.y = old.y + sk.y;
-        }
-        *reinterpret_cast<float2*>(x_out + row + ch) = xn;
-        *reinterpret_cast<float2*>(skip_out + row + ch) = sk;
-      }
-    }
+      *reinterpret_cast<float2*>(static_cast<float*>(x_p) + r * cp + c) = v;
   }
 }
 
-// ---- bf16 (fast mode), wgmma ------------------------------------------------------
+// ---- f32 (parity mode) ------------------------------------------------------
 
-template <bool kLast>
-__global__ void __launch_bounds__(AnyBf16::kThreads, 1)
-wn_any_kernel_bf16(const float* __restrict__ x, const bf16* __restrict__ cond,
-                   const bf16* __restrict__ w_in,
-                   const float* __restrict__ b_in,
-                   const bf16* __restrict__ w_rs,
-                   const float* __restrict__ b_rs,
-                   const int* __restrict__ valid_t, float* __restrict__ x_out,
-                   float* skip_out, int accumulate, int T, int C, int K,
-                   int dilation) {
-  using L = AnyBf16;
-  extern __shared__ __align__(1024) uint4 smem_any[];
-  char* const sm = reinterpret_cast<char*>(smem_any);
-  const uint32_t base = smem_u32(smem_any);
-  // [A0][A1][B0][B1][F: f32 taps][acts: Cpad / 64 K-major blocks], all
-  // 1024-aligned
-  constexpr int kB = 2 * L::kABytes, kF = kB + 2 * L::kBBytes;
-  constexpr int kActs = kF + L::kFBytes;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int passes = (C + kPass - 1) / kPass;  // also the K chunks of C
-  const int64_t seq = static_cast<int64_t>(b) * T;
-  const int n_rs = kLast ? C : 2 * C;
-  const bool vec = C % 8 == 0;  // 16-byte weight pieces
-
-  // a weight chunk into B buffer `buf`
-  const auto weights = [&](int buf, const bf16* w, int64_t ld, int k0,
-                           int row0, int c0, int c1, int ch0) {
-    const uint32_t b0 = base + kB + buf * L::kBBytes;
-    const auto dst = [&](int h, int k, int n) {
-      return b0 + h * L::kNBlock + sw_off(k, n);
-    };
-    if (vec)
-      copy_weights<8, L::kThreads, L::kKC>(dst, w, ld, k0, row0, c0, c1,
-                                            ch0, C);
-    else
-      copy_weights<2, L::kThreads, L::kKC>(dst, w, ld, k0, row0, c0, c1,
-                                            ch0, C);
-  };
-
-  // ---- the gate, in passes of 64 channels -------------------------------------
-#pragma unroll 1
-  for (int p = 0; p < passes; ++p) {
-    float acc_t[32], acc_s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc_t[i] = acc_s[i] = 0.f;
-    const int ch0 = p * kPass;
-    const auto issue = [&](int j, int buf) {
-      const int tap = j / passes, c0 = (j % passes) * L::kKC;
-      const int64_t shift = static_cast<int64_t>(tap - K / 2) * dilation;
-      weights(buf, w_in, 2 * C, c0, tap * C + c0, ch0, C + ch0, ch0);
-      copy_taps<2, L::kThreads, L::kKC>(
-          [&](int r, int c) { return base + kF + (r * L::kKC + c) * 4; }, x,
-          seq, T, C, t0, shift, c0);
-    };
-    // the thread's own staged taps (copy_taps' pieces) rounded into A
-    const auto round_taps = [&](int buf) {
-      constexpr int kPer = L::kKC / 2, kStep = L::kThreads / kPer;
-      const int c = (threadIdx.x % kPer) * 2, rf = threadIdx.x / kPer;
-      char* a = sm + buf * L::kABytes;
-#pragma unroll 4
-      for (int i = 0; i < kTile / kStep; ++i) {
-        const int r = rf + i * kStep;
-        const float2 v =
-            *reinterpret_cast<const float2*>(sm + kF + (r * L::kKC + c) * 4);
-        *reinterpret_cast<uint32_t*>(a + sw_off(r, c)) = pack_bf16(v.x, v.y);
-      }
-    };
-    chunks<true>(K * passes, issue, round_taps, [&](int, int buf) {
-      const uint32_t a = base + buf * L::kABytes;
-      const uint32_t w = base + kB + buf * L::kBBytes;
-      fence_acc(acc_t);
-      fence_acc(acc_s);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < L::kKC / 16; ++k) {
-        const uint64_t da = kmajor_desc(a + k * 32);
-        wgmma_m64<64, 0, 1>(acc_t, da,
-                            mnmajor_desc(w + k * 2048, L::kNBlock));
-        wgmma_m64<64, 0, 1>(
-            acc_s, da, mnmajor_desc(w + L::kNBlock + k * 2048, L::kNBlock));
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(acc_t);
-      fence_acc(acc_s);
-    });
-    // the gate in f32 on the accumulators (thread: rows warp*16 + g + 8h,
-    // columns 8j + 2tig + {0, 1}); the acts in bf16 into acts block p
-    // (zero past C and past T)
-    char* blk = sm + kActs + p * L::kABytes;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = warp * 16 + g + 8 * h;
-      const int t = t0 + row;
-      const bf16* cr = cond + (seq + (t < T ? t : 0)) * 2 * C;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = 8 * j + 2 * tig, ch = ch0 + n;
-        float v0 = 0.f, v1 = 0.f;
-        if (t < T && ch < C) {
-          const float2 ct =
-              unpack_bf16(*reinterpret_cast<const uint32_t*>(cr + ch));
-          const float2 cs =
-              unpack_bf16(*reinterpret_cast<const uint32_t*>(cr + C + ch));
-          const float2 bt = *reinterpret_cast<const float2*>(b_in + ch);
-          const float2 bsg = *reinterpret_cast<const float2*>(b_in + C + ch);
-          v0 = tanhf(acc_t[4 * j + 2 * h] + bt.x + ct.x) *
-               sigmoidf(acc_s[4 * j + 2 * h] + bsg.x + cs.x);
-          v1 = tanhf(acc_t[4 * j + 2 * h + 1] + bt.y + ct.y) *
-               sigmoidf(acc_s[4 * j + 2 * h + 1] + bsg.y + cs.y);
-        }
-        *reinterpret_cast<uint32_t*>(blk + sw_off(row, n)) = pack_bf16(v0, v1);
-      }
-    }
-  }
-  // the acts reach the async proxy and every thread past chunks()'s first
-  // fence and barrier
-
-  // ---- the res/skip product, in passes of 64 output channels -----------------
-  const int vt = valid_t != nullptr ? valid_t[b] : T;
-#pragma unroll 1
-  for (int q = 0; q < passes; ++q) {
-    float acc_a[32], acc_b[32];  // residual | skip (last: skip)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc_a[i] = acc_b[i] = 0.f;
-    const int ch0 = q * kPass;
-    chunks<true>(
-        passes,
-        [&](int j, int buf) {
-          const int k0 = j * L::kKC;
-          weights(buf, w_rs, n_rs, k0, k0, ch0, kLast ? -1 : C + ch0, ch0);
-        },
-        [](int) {},
-        [&](int j, int buf) {
-          const uint32_t a = base + kActs + j * L::kABytes;
-          const uint32_t w = base + kB + buf * L::kBBytes;
-          fence_acc(acc_a);
-          if constexpr (!kLast) fence_acc(acc_b);
-          wgmma_fence();
-#pragma unroll
-          for (int k = 0; k < L::kKC / 16; ++k) {
-            const uint64_t da = kmajor_desc(a + k * 32);
-            wgmma_m64<64, 0, 1>(acc_a, da,
-                                mnmajor_desc(w + k * 2048, L::kNBlock));
-            if constexpr (!kLast)
-              wgmma_m64<64, 0, 1>(
-                  acc_b, da,
-                  mnmajor_desc(w + L::kNBlock + k * 2048, L::kNBlock));
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_acc(acc_a);
-          if constexpr (!kLast) fence_acc(acc_b);
-        });
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = t0 + warp * 16 + g + 8 * h;
-      if (t >= T) continue;
-      const int64_t row = (seq + t) * C;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int ch = ch0 + 8 * j + 2 * tig;
-        if (ch >= C) continue;  // C even: ch + 1 < C too
-        const float a0 = acc_a[4 * j + 2 * h], a1 = acc_a[4 * j + 2 * h + 1];
-        float2 xn = *reinterpret_cast<const float2*>(x + row + ch);
-        float2 sk;
-        if constexpr (kLast) {
-          sk = make_float2(a0 + b_rs[ch], a1 + b_rs[ch + 1]);
-        } else {
-          xn.x += a0 + b_rs[ch];
-          xn.y += a1 + b_rs[ch + 1];
-          sk = make_float2(acc_b[4 * j + 2 * h] + b_rs[C + ch],
-                           acc_b[4 * j + 2 * h + 1] + b_rs[C + ch + 1]);
-        }
-        if (t >= vt) xn = make_float2(0.f, 0.f);
-        if (accumulate) {
-          const float2 old =
-              *reinterpret_cast<const float2*>(skip_out + row + ch);
-          sk.x = old.x + sk.x;
-          sk.y = old.y + sk.y;
-        }
-        *reinterpret_cast<float2*>(x_out + row + ch) = xn;
-        *reinterpret_cast<float2*>(skip_out + row + ch) = sk;
-      }
-    }
-  }
-}
-
-// The (bf16, last) instance's function pointer, threads, the dynamic
-// shared bytes at width C, and the most any width needs (the opt-in).
-struct Instance {
-  const void* fn;
-  int threads, smem, max_smem;
+// Tile 96 rows (6 pairs of 16 rows) x a pass of 128 channels (2 warps
+// across), wn_layer.cu's f32 layout at C = 512. Ring slot: the chunk's taps
+// or acts [96][16], then kRestPasses blocks of weight rows [16][256] (a
+// pass's tanh | sigmoid, residual | skip columns; the last layer's 128 skip
+// columns in the first half), the second used by a rest tile alone.
+//
+// A block's share of the rows is a multiple of 16 that is not one of 96
+// (208 at B=1, T=26,432: two tiles, then 16 rows), and a last tile of 16
+// rows or fewer busies one pair of warps in 6: run pass by pass, it cost
+// half a 96-row tile. So at P = 2 passes such a "rest tile" runs both
+// passes at once, pair j on pass j of the same 16 rows: 4 warps work, and
+// the tile takes one pass's chunks, each with both passes' weight rows.
+// The sums of a row run in the same order either way. At Cp = 64 a pass
+// is 64 channels and the second column of warps would have none: it takes
+// 96 more rows instead, a tile of 192 rows.
+struct AnyF32 {
+  static constexpr int kRowPairs = 6;
+  static constexpr int kTileRows = 16 * kRowPairs;
+  static constexpr int kColWarps = kPass / 64;
+  static constexpr int kThreads = 32 * kColWarps * kRowPairs;  // 384
+  static constexpr int kChunk = 16;                            // K rows
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 1;
+  static constexpr int kTapFloats = 2 * kTileRows * kChunk;  // Cp = 64
+  static constexpr int kWLd = 2 * kPass;  // floats a weight row of a slot
+  static constexpr int kWFloats = kChunk * kWLd;  // a pass's weight rows
+  static constexpr int kRestPasses = 2;   // passes a rest tile runs at once
+  static constexpr int kRestRows = 16;    // rows a rest tile holds at most
+  static constexpr int kSlotFloats = kTapFloats + kRestPasses * kWFloats;
+  static constexpr int kSmem = 4 * kStages * kSlotFloats;  // 180,224
+  static constexpr int kRowQuantum = 16;
+  static_assert(kTileRows * kChunk / 4 == kThreads,
+                "one tap piece a thread and 96 rows (two at Cp = 64)");
+  static_assert(kRestPasses <= kRowPairs, "a pair of warps a pass");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
-Instance instance(int bf16_mode, int last, int C) {
-  const int cpad = (C + kPass - 1) / kPass * kPass;
-  if (bf16_mode)
-    return {last ? reinterpret_cast<const void*>(wn_any_kernel_bf16<true>)
-                 : reinterpret_cast<const void*>(wn_any_kernel_bf16<false>),
-            AnyBf16::kThreads, AnyBf16::smem(cpad),
-            AnyBf16::smem(AnyBf16::kMaxC)};
-  return {last ? reinterpret_cast<const void*>(wn_any_kernel_f32<true>)
-               : reinterpret_cast<const void*>(wn_any_kernel_f32<false>),
-          AnyF32::kThreads, AnyF32::smem(cpad), AnyF32::smem(AnyF32::kMaxC)};
+// cp.async 16 K rows of an f32 weight (rows `ld` floats apart from `src`)
+// into a slot's weight rows: columns [a, a + 128) then (kPaired) [b, b +
+// 128) of each, zero where a column's offset in its half is at or past
+// `lim` (the channels past Cp in a pass of 64).
+template <bool kPaired>
+__device__ __forceinline__ void f32_copy_w(uint32_t wslot, const float* src,
+                                           int64_t ld, int a, int b,
+                                           int lim) {
+  using L = AnyF32;
+  constexpr int kPer = (kPaired ? 2 : 1) * kPass / 4;  // pieces a K row
+  constexpr int kPieces = L::kChunk * kPer;
+#pragma unroll
+  for (int i = 0; i < (kPieces + L::kThreads - 1) / L::kThreads; ++i) {
+    const int p = threadIdx.x + i * L::kThreads;
+    if (kPieces % L::kThreads == 0 || p < kPieces) {
+      const int k = p / kPer, n = (p % kPer) * 4;
+      const int h = n / kPass, off = n % kPass;
+      const bool ok = off < lim;
+      cp_async16_zfill(wslot + (k * L::kWLd + n) * 4,
+                       ok ? src + k * ld + (h ? b : a) + off : src, ok);
+    }
+  }
 }
 
-std::atomic<uint32_t> g_opted_in[4];
+// Up to 4 floats from `src` (n of them valid, the rest zero): one 16-byte
+// load when `vec` (src 16-byte aligned) and all 4 are valid, else pairs (8
+// bytes; C even keeps a pair aligned and whole).
+__device__ __forceinline__ void load4_upto(float (&d)[4], const float* src,
+                                           int n, bool vec) {
+  if (vec && n >= 4) {
+    load4(d, src);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; j += 2) {
+    const float2 v = j < n ? *reinterpret_cast<const float2*>(src + j)
+                           : make_float2(0.f, 0.f);
+    d[j] = v.x;
+    d[j + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void store4_upto(float* dst, const float (&v)[4],
+                                            int n, bool vec) {
+  if (vec && n >= 4) {
+    store4(dst, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; j += 2)
+    if (j < n)
+      *reinterpret_cast<float2*>(dst + j) = make_float2(v[j], v[j + 1]);
+}
+
+// Prefetch into L2 the lines of `n` values (n >= 1) from `src`: its first,
+// every 32nd and its last value.
+__device__ __forceinline__ void prefetch_span(const float* src, int n, int i) {
+  prefetch_l2(src + min(32 * i, n - 1));
+}
+
+// kTwo: the instance for Cp = 64, its tiles 192 rows (AnyF32's note).
+template <bool kTwo, bool kLast>
+__global__ void __launch_bounds__(AnyF32::kThreads, 1)
+wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
+  using L = AnyF32;
+  const float* __restrict__ x_src = static_cast<const float*>(a.x_src);
+  const float* __restrict__ cond = static_cast<const float*>(a.cond);
+  const float* __restrict__ w_in = static_cast<const float*>(a.w_in);
+  const float* __restrict__ w_rs = static_cast<const float*>(a.w_rs);
+  float* acts_g = static_cast<float*>(a.acts);
+  const int C = a.C;
+  const int cp = kTwo ? 64 : a.cp;
+  const int P = kTwo ? 1 : a.passes;        // Cp = 64: one pass
+  const int cpc = kTwo ? 4 : a.div_tap16.d;  // K chunks of a tap
+  const int nin = a.div_gate.d;           // a gate pass's chunks: K cpc
+  const int in_chunks = P * nin;
+  const int tile_chunks = a.div_tile.d;   // in_chunks + P cpc
+  const int n_rsp = kLast ? cp : 2 * cp;
+
+  const int row_begin = blockIdx.x * a.rows_per_block;
+  const int row_end = min(a.rows, row_begin + a.rows_per_block);
+  if (row_begin >= row_end) return;
+  // the rows of a tile: 192 at Cp = 64 (a column of warps each), else 96
+  constexpr int tile_h = kTwo ? 2 * L::kTileRows : L::kTileRows;
+  const int n_tiles = (row_end - row_begin + tile_h - 1) / tile_h;
+  // a last tile of kRestRows rows or fewer runs its passes at once
+  const bool rest = !kTwo && P == L::kRestPasses &&
+                    row_end - row_begin - (n_tiles - 1) * tile_h <=
+                        L::kRestRows;
+  const int full_end = (n_tiles - rest) * tile_chunks;  // full tiles' chunks
+  const int n_chunks = full_end + (rest ? nin + cpc : 0);
+
+  extern __shared__ float4 smem_any_f32[];
+  float* smem = reinterpret_cast<float*>(smem_any_f32);
+  const uint32_t ring = smem_u32(smem);
+
+  // Warp w: rows [16 (w / 2), +16) of the tile and channels [64 (w % 2),
+  // +64) of each half of a pass; lane l: rows 16 (w / 2) + 2i + l / 16 and
+  // channels c0..c0+3, c0 = 64 (w % 2) + 4 (l % 16) (wn_layer.cu's layout).
+  // At Cp = 64, warp w takes channels [0, 64) of rows 96 (w % 2) + 16 (w /
+  // 2) + ...; in a rest tile, pair j takes pass j of rows 2i + l / 16.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = warp / L::kColWarps;
+  const int cw = kTwo ? 0 : 64 * (warp % L::kColWarps);
+  const int c0 = cw + 4 * (lane % 16);
+  const int row16 = 16 * pair + (kTwo ? L::kTileRows * (warp % 2) : 0);
+  // this thread's tap / acts piece: tile row ra, 16-byte piece q
+  const int ra = threadIdx.x / 4, q = threadIdx.x % 4;
+
+  int tap_t[2] = {0, 0};  // the times of this thread's tap rows
+  const auto load_chunk = [&](int chunk) {
+    const bool rest_chunk = chunk >= full_end;
+    const int tile = rest_chunk ? n_tiles - 1 : div_by(chunk, a.div_tile);
+    const int local = chunk - tile * tile_chunks;
+    const uint32_t slot = ring + (chunk % L::kStages) * L::kSlotFloats * 4;
+    const uint32_t wslot = slot + L::kTapFloats * 4;
+    const int row = row_begin + tile * tile_h + ra;  // flat row
+    if (local == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + h * L::kTileRows;
+        tap_t[h] = r < row_end && (h == 0 || kTwo)
+                       ? r - div_by(r, a.div_t) * a.T
+                       : INT32_MIN / 2;
+      }
+    }
+    // the passes whose weight rows the chunk holds: [p0, p0 + np)
+    const int np = rest_chunk ? P : 1;
+    if (local < (rest_chunk ? nin : in_chunks)) {
+      const int p0 = rest_chunk ? 0 : div_by(local, a.div_gate);
+      const int kc = local - p0 * nin;
+      const int tap = div_by(kc, a.div_tap16);
+      const int ch = (kc - tap * cpc) * L::kChunk;
+      const int64_t off = static_cast<int64_t>(tap - a.K / 2) * a.dilation;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && !kTwo) break;
+        const int64_t t = tap_t[h] + off;
+        const bool ok = t >= 0 && t < a.T;
+        const int r = ra + h * L::kTileRows;
+        cp_async16_zfill(slot + (r * L::kChunk + q * 4) * 4,
+                         ok ? x_src + (row - ra + r + off) * cp + ch + q * 4
+                            : x_src,
+                         ok);
+      }
+      const float* src = w_in + static_cast<int64_t>(tap * cp + ch) * 2 * cp;
+      for (int p = p0; p < p0 + np; ++p)
+        f32_copy_w<true>(wslot + (p - p0) * L::kWFloats * 4, src, 2 * cp,
+                         p * kPass, cp + p * kPass, cp - p * kPass);
+    } else {
+      const int j = local - (rest_chunk ? nin : in_chunks);
+      const int p0 = rest_chunk ? 0 : div_by(j, a.div_tap16);
+      const int k0 = (j - p0 * cpc) * L::kChunk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && !kTwo) break;
+        const int r = ra + h * L::kTileRows;
+        const bool ok = row - ra + r < row_end;
+        cp_async16_zfill(slot + (r * L::kChunk + q * 4) * 4,
+                         ok ? acts_g + static_cast<int64_t>(row - ra + r) * cp +
+                                  k0 + q * 4
+                            : acts_g,
+                         ok);
+      }
+      const float* src = w_rs + static_cast<int64_t>(k0) * n_rsp;
+      for (int p = p0; p < p0 + np; ++p)
+        f32_copy_w<!kLast>(wslot + (p - p0) * L::kWFloats * 4, src, n_rsp,
+                           p * kPass, cp + p * kPass, cp - p * kPass);
+    }
+  };
+  ring_prologue<L::kAhead>(n_chunks, load_chunk);
+
+  const bool vec = C % 4 == 0;  // rows of x, the sigmoid half of cond
+  float acc_a[8][4];  // tanh, then residual (last: skip)
+  float acc_b[8][4];  // sigmoid, then skip
+#pragma unroll 1
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int chunk0 = tile * tile_chunks;
+    const int t0 = row_begin + tile * tile_h;
+    const int tile_rows = min(tile_h, row_end - t0);
+    const bool rest_tile = rest && tile == n_tiles - 1;
+    // passes run one after another: P, or one (all at once) in a rest tile
+    const int seq = rest_tile ? 1 : P;
+    // this thread's first row and its passes' weight block in a slot
+    const int r0 = (rest_tile ? 0 : row16) + lane / 16;
+    const int w_off = rest_tile ? pair * L::kWFloats : 0;
+    const bool rows_busy = rest_tile ? pair < P : row16 < tile_rows;
+    // One pass in a row: the res/skip product's first chunks read acts
+    // that the pass's last steps write, so the ring loads nothing past the
+    // gate until then. (With more passes they are the first pass's
+    // channels, written a pass earlier. A tile's gate is at least K*64/16
+    // = 4 chunks, more than the ring runs ahead, so the loads that run on
+    // into the next tile stop short of its res/skip chunks.)
+    const int gate_end = chunk0 + seq * nin;
+    const int gate_limit = seq == 1 ? gate_end : n_chunks;
+    // the columns of the passes a step covers, whose lines are prefetched
+    const int pf_n = rest_tile ? min(P * kPass, C) : 0;
+    const int pf_lines = (rest_tile ? P * kPass : kPass) / 32 + 1;
+
+    // ---- gate product and gate, pass by pass --------------------------------
+#pragma unroll 1
+    for (int s = 0; s < seq; ++s) {
+      const int p = rest_tile ? pair : s;  // this thread's pass
+      const int ch = p * kPass + c0;       // this thread's channels of it
+      const bool busy = rows_busy && p * kPass + cw < cp;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < nin; ++kc) {
+        const int chunk = chunk0 + s * nin + kc;
+        ring_step<L::kAhead>(chunk, gate_limit, load_chunk);
+        if (kc == max(nin - 16, 0)) {
+          // the step's cond columns of the tile's rows into L2
+          const int c_lo = rest_tile ? 0 : s * kPass;
+          const int n = rest_tile ? pf_n : min(kPass, C - c_lo);
+          for (int i = threadIdx.x; i < tile_rows * 2 * pf_lines;
+               i += L::kThreads) {
+            const int r = i / (2 * pf_lines), h = i / pf_lines % 2;
+            prefetch_span(cond + static_cast<int64_t>(t0 + r) * 2 * C +
+                              h * C + c_lo, n, i % pf_lines);
+          }
+        }
+        if (busy) {
+          const float* slot = smem + (chunk % L::kStages) * L::kSlotFloats;
+#pragma unroll
+          for (int kk = 0; kk < L::kChunk; kk += 4)
+            tile_fma4<8, 2, L::kChunk, L::kWLd, kPass, true>(
+                acc_a, acc_b, slot + r0 * L::kChunk,
+                slot + L::kTapFloats + w_off + c0, kk);
+        }
+      }
+      // the gate (f32) on the accumulators; the acts to the scratch, zero
+      // past C
+      if (busy) {
+        float bt[4], bs[4];
+        load4_upto(bt, a.b_in + ch, C - ch, true);
+        load4_upto(bs, a.b_in + C + ch, C - ch, vec);
+#pragma unroll
+        for (int i0 = 0; i0 < 8; i0 += 2) {
+          float ct[2][4], cs[2][4];  // 2 rows' loads in flight
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            const int n = r < tile_rows ? C - ch : 0;
+            const float* crow = cond + static_cast<int64_t>(t0 + r) * 2 * C;
+            load4_upto(ct[h], crow + ch, n, true);
+            load4_upto(cs[h], crow + C + ch, n, vec);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            float out[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
+              const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
+              out[j] = ch + j < C ? tanhf(gt) * sigmoidf(gs) : 0.f;
+            }
+            if (r < tile_rows)
+              store4(acts_g + static_cast<int64_t>(t0 + r) * cp + ch, out);
+          }
+        }
+      }
+      // the ring's cp.async.cg reads the acts from L2: this thread's
+      // stores reach it before the barriers that order those reads
+      __threadfence();
+    }
+    if (seq == 1) {
+      // the res/skip product's first chunks, whose acts the gate has just
+      // written, load now (each a commit group, as the steps' loads)
+      __syncthreads();
+      for (int c = gate_end; c < gate_end + L::kAhead; ++c) {
+        if (c < n_chunks) load_chunk(c);
+        cp_async_commit();
+      }
+    }
+
+    // ---- res/skip product and epilogue, pass by pass ------------------------
+#pragma unroll 1
+    for (int s = 0; s < seq; ++s) {
+      const int p = rest_tile ? pair : s;
+      const int ch = p * kPass + c0;
+      const int n_ch = C - ch;  // this thread's channels below C (<= 0: none)
+      const bool busy = rows_busy && p * kPass + cw < cp;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < cpc; ++kc) {
+        const int chunk = gate_end + s * cpc + kc;
+        ring_step<L::kAhead>(chunk, n_chunks, load_chunk);
+        if (kc == max(cpc - 8, 0)) {
+          // the step's columns of the x rows and the skip sum into L2
+          const int c_lo = rest_tile ? 0 : s * kPass;
+          const int n = rest_tile ? pf_n : min(kPass, C - c_lo);
+          for (int i = threadIdx.x; i < tile_rows * pf_lines;
+               i += L::kThreads) {
+            const int64_t off =
+                static_cast<int64_t>(t0 + i / pf_lines) * C + c_lo;
+            prefetch_span(a.x + off, n, i % pf_lines);
+            if (a.accumulate)
+              prefetch_span(a.skip_out + off, n, i % pf_lines);
+          }
+        }
+        if (busy) {
+          const float* slot = smem + (chunk % L::kStages) * L::kSlotFloats;
+#pragma unroll
+          for (int kk = 0; kk < L::kChunk; kk += 4)
+            tile_fma4<8, 2, L::kChunk, L::kWLd, kPass, !kLast>(
+                acc_a, acc_b, slot + r0 * L::kChunk,
+                slot + L::kTapFloats + w_off + c0, kk);
+        }
+      }
+      // ---- epilogue: residual, valid_t mask, skip accumulation (f32)
+      if (busy && n_ch > 0) {
+        float br[4], bk[4];
+        load4_upto(br, a.b_rs + ch, n_ch, true);
+        if constexpr (!kLast) load4_upto(bk, a.b_rs + C + ch, n_ch, vec);
+#pragma unroll
+        for (int i0 = 0; i0 < 8; i0 += 2) {
+          float xv[2][4], prev[2][4];  // 2 rows' loads in flight
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 2 * (i0 + h);
+            const int n = r < tile_rows ? n_ch : 0;
+            const int64_t off = static_cast<int64_t>(t0 + r) * C + ch;
+            load4_upto(xv[h], a.x + off, n, vec);
+            load4_upto(prev[h], a.skip_out + off, a.accumulate ? n : 0, vec);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + h;
+            const int r = r0 + 2 * i;
+            if (r >= tile_rows) continue;
+            const int row = t0 + r;
+            const int b = div_by(row, a.div_t);
+            const int valid = a.valid_t != nullptr ? a.valid_t[b] : a.T;
+            const bool keep = row - b * a.T < valid;
+            float skip[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (kLast) {
+                skip[j] = acc_a[i][j] + br[j];
+              } else {
+                xv[h][j] += acc_a[i][j] + br[j];
+                skip[j] = acc_b[i][j] + bk[j];
+              }
+              if (!keep) xv[h][j] = 0.f;
+              if (a.accumulate) skip[j] += prev[h][j];
+            }
+            const int64_t off = static_cast<int64_t>(row) * C + ch;
+            store4_upto(a.x_out + off, xv[h], n_ch, vec);
+            store4_upto(a.skip_out + off, skip, n_ch, vec);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- bf16 (fast mode), wgmma ------------------------------------------------
+
+// The ring of the gate and res/skip kernels: two warpgroups, 64 rows each,
+// hold a unit's 128 rows; a stage is one 64-deep K chunk: A [128 rows][64
+// K] K-major, then B [64 K][at most 256 N] MN-major in 64-column blocks.
+struct AnyWide {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 128;                   // rows of a unit
+  static constexpr int kKC = 64;                      // K of a chunk
+  static constexpr int kABytes = kTile * 128;         // 16,384
+  static constexpr int kNBlock = 64 * 128;            // [64 K][64 N]: 8,192
+  static constexpr int kStageBytes = kABytes + 4 * kNBlock;  // 49,152
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 2;          // chunks in flight
+  static constexpr int kSmem = kStages * kStageBytes;  // 196,608
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// A unit's product: n K chunks through the ring, `load(stage, j)` starting
+// this thread's copies of chunk j (no commit) kAhead steps ahead of its
+// wgmmas; acc_a += A @ B[:, 0:kN) and (kPaired) acc_b += A @ B[:, kN:2kN)
+// over the warpgroup's 64 rows. Past each step's barrier every warpgroup
+// has waited for the wgmmas of chunk j - 2, whose stage takes chunk j + 2.
+// Returns with every wgmma and copy of the unit done.
+template <int kN, bool kPaired, typename Load>
+__device__ __forceinline__ void any_products(uint32_t ring, int n,
+                                             float (&acc_a)[kN / 2],
+                                             float (&acc_b)[kN / 2],
+                                             const Load& load) {
+  using L = AnyWide;
+  const uint32_t a_wg = (threadIdx.x / 128) * (L::kABytes / 2);
+  for (int c = 0; c < L::kAhead; ++c) {
+    if (c < n) load(ring + c * L::kStageBytes, c);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<L::kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (j + L::kAhead < n)
+      load(ring + ((j + L::kAhead) % L::kStages) * L::kStageBytes,
+           j + L::kAhead);
+    cp_async_commit();
+    const uint32_t st = ring + (j % L::kStages) * L::kStageBytes;
+    fence_acc(acc_a);
+    if constexpr (kPaired) fence_acc(acc_b);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < L::kKC / 16; ++k) {
+      const uint64_t da = kmajor_desc(st + a_wg + k * 32);
+      wgmma_m64<kN, 0, 1>(
+          acc_a, da, mnmajor_desc(st + L::kABytes + k * 2048, L::kNBlock));
+      if constexpr (kPaired)
+        wgmma_m64<kN, 0, 1>(
+            acc_b, da,
+            mnmajor_desc(st + L::kABytes + kN / 64 * L::kNBlock + k * 2048,
+                         L::kNBlock));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc_a);
+    if constexpr (kPaired) fence_acc(acc_b);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc_a);
+  if constexpr (kPaired) fence_acc(acc_b);
+  cp_async_wait<0>();
+}
+
+// cp.async 64 K rows of a bf16 weight (rows `ld` values apart from `src`)
+// into the stage's B: kN columns from column a and (kPaired) kN from column
+// b of each row, zero where a column's offset in its half is at or past
+// `lim` (the channels past Cp in a pass of 64).
+template <int kN, bool kPaired>
+__device__ __forceinline__ void any_load_b(uint32_t stage, const bf16* src,
+                                           int64_t ld, int a, int b,
+                                           int lim) {
+  using L = AnyWide;
+  constexpr int kPer = (kPaired ? 2 : 1) * kN / 8;  // 16-byte pieces a K row
+#pragma unroll
+  for (int i = 0; i < L::kKC * kPer / L::kThreads; ++i) {
+    const int p = threadIdx.x + i * L::kThreads;
+    const int k = p / kPer, n = (p % kPer) * 8;
+    const int h = n / kN, off = n % kN;
+    const bool ok = off < lim;
+    cp_async16_zfill(
+        stage + L::kABytes + (n / 64) * L::kNBlock + sw128_piece(k, n % 64 / 8),
+        ok ? src + k * ld + (h ? b : a) + off : src, ok);
+  }
+}
+
+// cp.async a unit's A chunk: row r (this thread's rows tid / 8 + 32i, piece
+// q = tid % 8) is `src` + off[i] when ok[i], else zero.
+__device__ __forceinline__ void any_load_a(uint32_t stage, const bf16* src,
+                                           const int64_t (&off)[4],
+                                           const bool (&ok)[4]) {
+  const int q = threadIdx.x % 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    cp_async16_zfill(stage + sw128_piece(threadIdx.x / 8 + 32 * i, q),
+                     src + (ok[i] ? off[i] + q * 8 : 0), ok[i]);
+}
+
+// A unit's accumulators staged in shared memory (the ring's bytes, free
+// once every warpgroup's wgmmas are done), f32 rows kStageLd apart: acc_a
+// as [128 rows][128] from `st`, then (kPaired) acc_b as the next [128][128].
+// Element 4j + 2h + e of a thread is row 16 warp + g + 8h, column 8j + 2tig
+// + e. kStageLd = 136 puts the 8-byte stores of a half warp in distinct
+// banks.
+constexpr int kStageLd = kPass + 8;
+static_assert(2 * AnyWide::kTile * kStageLd * 4 <= AnyWide::kSmem,
+              "the staged sums fit in the ring");
+
+template <bool kPaired>
+__device__ __forceinline__ void stage_acc(float* st,
+                                          const float (&acc_a)[kPass / 2],
+                                          const float (&acc_b)[kPass / 2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kPass / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = (warp * 16 + g + 8 * h) * kStageLd + 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(st + off) =
+          make_float2(acc_a[4 * j + 2 * h], acc_a[4 * j + 2 * h + 1]);
+      if constexpr (kPaired)
+        *reinterpret_cast<float2*>(st + AnyWide::kTile * kStageLd + off) =
+            make_float2(acc_b[4 * j + 2 * h], acc_b[4 * j + 2 * h + 1]);
+    }
+}
+
+// The gate: unit u = (tile u / P of 128 flat rows, pass u % P of 128
+// channels); pre = the K taps of x_p @ w_in at the pass's tanh (acc_a) and
+// sigmoid (acc_b) columns, K*Cp deep in (tap, 64-channel) chunks; then the
+// gate in f32 (cond [R, 2C], b_in [2C]), the acts rounded to bf16 into
+// acts [R, Cp], zero past C.
+__global__ void __launch_bounds__(AnyWide::kThreads, 1)
+wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
+  using L = AnyWide;
+  const bf16* __restrict__ x_p = static_cast<const bf16*>(a.x_src);
+  const bf16* __restrict__ cond = static_cast<const bf16*>(a.cond);
+  const bf16* __restrict__ w_in = static_cast<const bf16*>(a.w_in);
+  bf16* __restrict__ acts = static_cast<bf16*>(a.acts);
+  extern __shared__ __align__(1024) uint4 smem_any_wide[];
+  const uint32_t ring = smem_u32(smem_any_wide);
+  const int C = a.C, cp = a.cp, P = a.passes;
+  const int cpb = a.div_tap64.d;  // chunks of a tap: Cp / 64
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;  // the warp's rows of the unit (both groups)
+  const int g = lane / 4, tig = lane % 4;
+  const int units = (a.rows + L::kTile - 1) / L::kTile * P;
+
+#pragma unroll 1
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = div_by(u, a.div_passes), p = u - tile * P;
+    const int r0 = tile * L::kTile;
+    const int rows = min(L::kTile, a.rows - r0);
+    const int ch0 = p * kPass;
+    // this thread's A rows tid / 8 + 32i: flat row, and time in its
+    // sequence (far negative past the last row)
+    int64_t fr[4], tt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = threadIdx.x / 8 + 32 * i;
+      fr[i] = r0 + r;
+      tt[i] = r < rows ? r0 + r - div_by(r0 + r, a.div_t) * a.T
+                       : -(int64_t{1} << 40);
+    }
+    const auto load = [&](uint32_t stage, int j) {
+      const int tap = div_by(j, a.div_tap64);
+      const int cb = (j - tap * cpb) * L::kKC;
+      const int64_t shift = static_cast<int64_t>(tap - a.K / 2) * a.dilation;
+      int64_t off[4];
+      bool ok[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t s = tt[i] + shift;
+        ok[i] = s >= 0 && s < a.T;
+        off[i] = (fr[i] + shift) * cp + cb;
+      }
+      any_load_a(stage, x_p, off, ok);
+      any_load_b<kPass, true>(
+          stage, w_in + static_cast<int64_t>(tap * cp + cb) * 2 * cp, 2 * cp,
+          ch0, cp + ch0, cp - ch0);
+    };
+    // cond's rows of the pass's channels (both halves), into L2 under the
+    // products: 3 lines a half a row cover its 128 bf16 channels
+    {
+      const int n = min(kPass, C - ch0);
+      for (int i = threadIdx.x; i < rows * 6; i += L::kThreads) {
+        const int r = i / 6, h = i / 3 % 2, e = i % 3;
+        prefetch_l2(cond + static_cast<int64_t>(r0 + r) * 2 * C + h * C +
+                    ch0 + min(64 * e, n - 1));
+      }
+    }
+    float acc_a[kPass / 2], acc_b[kPass / 2];
+#pragma unroll
+    for (int i = 0; i < kPass / 2; ++i) acc_a[i] = acc_b[i] = 0.f;
+    __syncthreads();  // the previous unit is done with the ring
+    any_products<kPass, true>(ring, a.K * cpb, acc_a, acc_b, load);
+
+    // ---- the gate (f32) on the accumulators, acts to global as bf16:
+    // element 4j + 2h + e is row r16 + g + 8h, channel ch0 + 8j + 2tig + e;
+    // cond of kBatch n8 blocks is loaded before any is used
+    constexpr int kBatch = 4;
+#pragma unroll
+    for (int j0 = 0; j0 < kPass / 8; j0 += kBatch) {
+      uint32_t cv[kBatch][2][2];  // [n8][h][tanh, sigmoid] bf16 pairs
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const int ch = ch0 + 8 * (j0 + jj) + 2 * tig;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          const bf16* cr =
+              cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * C + ch;
+          const bool ok = ch < C;  // C even: ch + 1 < C too
+          cv[jj][h][0] = ok ? *reinterpret_cast<const uint32_t*>(cr) : 0u;
+          cv[jj][h][1] = ok ? *reinterpret_cast<const uint32_t*>(cr + C) : 0u;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const int j = j0 + jj;
+        const int ch = ch0 + 8 * j + 2 * tig;
+        if (ch >= cp) continue;  // a pass of 64: no acts column here
+        const bool ok = ch < C;
+        const float2 bt = ok ? *reinterpret_cast<const float2*>(a.b_in + ch)
+                             : make_float2(0.f, 0.f);
+        const float2 bs = ok
+            ? *reinterpret_cast<const float2*>(a.b_in + C + ch)
+            : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r16 + g + 8 * h;
+          if (row >= rows) continue;
+          const float2 ct = unpack_bf16(cv[jj][h][0]);
+          const float2 cs = unpack_bf16(cv[jj][h][1]);
+          float v0 = 0.f, v1 = 0.f;
+          if (ok) {
+            v0 = tanhf(acc_a[4 * j + 2 * h] + bt.x + ct.x) *
+                 sigmoidf(acc_b[4 * j + 2 * h] + bs.x + cs.x);
+            v1 = tanhf(acc_a[4 * j + 2 * h + 1] + bt.y + ct.y) *
+                 sigmoidf(acc_b[4 * j + 2 * h + 1] + bs.y + cs.y);
+          }
+          *reinterpret_cast<uint32_t*>(
+              acts + static_cast<int64_t>(r0 + row) * cp + ch) =
+              pack_bf16(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// The res/skip product of acts [R, Cp] and its epilogue: unit u = (tile u
+// / P of 128 flat rows, pass u % P of 128 channels). A non-last layer's
+// pass p pairs the residual columns [128p, +128) (acc_a) with the skip
+// columns [Cp + 128p, +128) (acc_b) of w_rs_p; the last layer's, its skip
+// columns [128p, +128) (acc_a alone). Epilogue: x' = x + res + b_rs (x on
+// the last layer), zero at rows t >= valid_t[b]; skip = rs + b_rs, plus the
+// sum when accumulating; f32, rows < R and channels < C only.
+template <bool kLast>
+__global__ void __launch_bounds__(AnyWide::kThreads, 1)
+wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
+  using L = AnyWide;
+  const bf16* __restrict__ acts = static_cast<const bf16*>(a.acts);
+  const bf16* __restrict__ w_rs = static_cast<const bf16*>(a.w_rs);
+  extern __shared__ __align__(1024) uint4 smem_any_wide[];
+  const uint32_t ring = smem_u32(smem_any_wide);
+  float* const staged = reinterpret_cast<float*>(smem_any_wide);
+  const int C = a.C, cp = a.cp, P = a.passes;
+  const int n_rsp = kLast ? cp : 2 * cp;
+  const int units = (a.rows + L::kTile - 1) / L::kTile * P;
+
+#pragma unroll 1
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = div_by(u, a.div_passes), p = u - tile * P;
+    const int r0 = tile * L::kTile;
+    const int rows = min(L::kTile, a.rows - r0);
+    const int ch0 = p * kPass;
+    int64_t fr[4];
+    bool in[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = threadIdx.x / 8 + 32 * i;
+      fr[i] = static_cast<int64_t>(r0 + r) * cp;
+      in[i] = r < rows;
+    }
+    const auto load = [&](uint32_t stage, int j) {
+      int64_t off[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) off[i] = fr[i] + j * L::kKC;
+      any_load_a(stage, acts, off, in);
+      any_load_b<kPass, !kLast>(
+          stage, w_rs + static_cast<int64_t>(j) * L::kKC * n_rsp, n_rsp, ch0,
+          cp + ch0, cp - ch0);
+    };
+    // the epilogue's rows of x and of the skip sum, into L2 under the
+    // products: 5 lines cover a row's 128 f32 channels of the pass
+    {
+      const int n = min(kPass, C - ch0);
+      for (int i = threadIdx.x; i < rows * 5; i += L::kThreads) {
+        const int64_t off = static_cast<int64_t>(r0 + i / 5) * C + ch0 +
+                            min(32 * (i % 5), n - 1);
+        prefetch_l2(a.x + off);
+        if (a.accumulate) prefetch_l2(a.skip_out + off);
+      }
+    }
+    float acc_a[kPass / 2], acc_b[kPass / 2];
+#pragma unroll
+    for (int i = 0; i < kPass / 2; ++i) acc_a[i] = acc_b[i] = 0.f;
+    __syncthreads();  // the previous unit is done with the ring
+    any_products<kPass, !kLast>(ring, cp / L::kKC, acc_a, acc_b, load);
+
+    // ---- epilogue from the staged sums: residual, valid_t mask, skip sum
+    // (f32), 4 channels a piece of the pass's channels below C; kBatch
+    // pieces' loads in flight
+    __syncthreads();  // every warpgroup's wgmmas are done with the ring
+    stage_acc<!kLast>(staged, acc_a, acc_b);
+    __syncthreads();
+    const bool vec = C % 4 == 0;  // rows of x 16-byte aligned
+    const int per_row = (min(kPass, C - ch0) + 3) / 4;
+    const int pieces = rows * per_row;
+    constexpr int kBatch = 4;
+#pragma unroll 1
+    for (int i0 = threadIdx.x; i0 < pieces; i0 += kBatch * L::kThreads) {
+      float xv[kBatch][4], prev[kBatch][4];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = min(i0 + u * L::kThreads, pieces - 1);
+        const int row = i / per_row, ch = ch0 + 4 * (i - row * per_row);
+        const int64_t off = static_cast<int64_t>(r0 + row) * C + ch;
+        load4_upto(xv[u], a.x + off, C - ch, vec);
+        load4_upto(prev[u], a.skip_out + off, a.accumulate ? C - ch : 0, vec);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * L::kThreads;
+        if (i >= pieces) break;
+        const int row = i / per_row, c = 4 * (i - row * per_row);
+        const int ch = ch0 + c, nv = C - ch;
+        const int f = r0 + row, b = div_by(f, a.div_t);
+        const bool keep = a.valid_t == nullptr || f - b * a.T < a.valid_t[b];
+        const float* pa = staged + row * kStageLd + c;
+        float ba[4], skip[4];
+        load4_upto(ba, a.b_rs + ch, nv, true);
+        if constexpr (kLast) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) skip[e] = pa[e] + ba[e];
+        } else {
+          const float* pb = pa + L::kTile * kStageLd;
+          float bb[4];
+          load4_upto(bb, a.b_rs + C + ch, nv, vec);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            xv[u][e] += pa[e] + ba[e];
+            skip[e] = pb[e] + bb[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!keep) xv[u][e] = 0.f;
+          if (a.accumulate) skip[e] += prev[u][e];
+        }
+        const int64_t off = static_cast<int64_t>(f) * C + ch;
+        store4_upto(a.x_out + off, xv[u], nv, vec);
+        store4_upto(a.skip_out + off, skip, nv, vec);
+      }
+    }
+  }
+}
+
+// ---- launch -----------------------------------------------------------------
+
+// The kernel `which` of a mode at width C (0: the kernel that ends a
+// call, the f32 layer kernel (its Cp = 64 instance there) or the bf16
+// res/skip kernel; 1: the bf16 gate; 2: the prep), its threads and dynamic
+// shared bytes; null for the f32 mode's gate.
+struct Instance {
+  const void* fn;
+  int threads, smem;
+};
+
+Instance instance(int bf16_mode, int which, int last, int C) {
+  if (which == 2)
+    return {bf16_mode
+                ? reinterpret_cast<const void*>(wn_any_prep_kernel<true>)
+                : reinterpret_cast<const void*>(wn_any_prep_kernel<false>),
+            256, 0};
+  if (!bf16_mode) {
+    if (which != 0) return {nullptr, 0, 0};
+    const bool two = pad64(C) == 64;
+    const void* fn =
+        two ? (last ? reinterpret_cast<const void*>(
+                          wn_any_kernel_f32<true, true>)
+                    : reinterpret_cast<const void*>(
+                          wn_any_kernel_f32<true, false>))
+            : (last ? reinterpret_cast<const void*>(
+                          wn_any_kernel_f32<false, true>)
+                    : reinterpret_cast<const void*>(
+                          wn_any_kernel_f32<false, false>));
+    return {fn, AnyF32::kThreads, AnyF32::kSmem};
+  }
+  if (which == 1)
+    return {reinterpret_cast<const void*>(wn_any_gate_kernel),
+            AnyWide::kThreads, AnyWide::kSmem};
+  return {last ? reinterpret_cast<const void*>(wn_any_rs_kernel<true>)
+               : reinterpret_cast<const void*>(wn_any_rs_kernel<false>),
+          AnyWide::kThreads, AnyWide::kSmem};
+}
+
+// One occupancy cache and opt-in flag per product kernel instance: (bf16,
+// gate or res/skip, last), (f32, Cp = 64 or not, last).
+std::atomic<int> g_slots[2 * 2 * 2][32];
+std::atomic<uint32_t> g_opted_in[2 * 2 * 2];
+
+// Blocks of one wave of instance (bf16_mode, which, last) at width C on the
+// current device.
+cudaError_t slots_of(int bf16_mode, int which, int last, int C, int* slots) {
+  const Instance k = instance(bf16_mode, which, last, C);
+  const bool second = bf16_mode ? which == 1 : pad64(C) == 64;
+  const int id = 4 * (bf16_mode != 0) + 2 * second + (last != 0);
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = wave_slots(k.fn, k.threads, k.smem, g_slots[id],
+                                     &g_opted_in[id], &sms, &per_sm);
+  *slots = sms * per_sm;
+  return err;
+}
+
+// The grid of the kernels of one call: in bf16 the gate's and the res/skip
+// kernel's blocks (min(units, slots), units = 128-row tiles x passes), in
+// f32 the layer kernel's blocks and their rows (one wave, an equal share
+// rounded up to 16 rows).
+cudaError_t schedule(int bf16_mode, int last, int64_t rows, int C,
+                     int* slots, int* blocks, int* rows_per_block) {
+  cudaError_t err = slots_of(bf16_mode, 0, last, C, slots);
+  if (err != cudaSuccess) return err;
+  if (bf16_mode) {
+    const int64_t units = (rows + AnyWide::kTile - 1) / AnyWide::kTile *
+                          ((pad64(C) + kPass - 1) / kPass);
+    int gate_slots = 0;
+    err = slots_of(1, 1, 0, C, &gate_slots);
+    if (err != cudaSuccess) return err;
+    *slots = std::min(*slots, gate_slots);
+    *blocks = static_cast<int>(std::min<int64_t>(units, *slots));
+    *rows_per_block = AnyWide::kTile;
+    return cudaSuccess;
+  }
+  *rows_per_block = one_wave_rows(static_cast<int>(rows), *slots,
+                                  AnyF32::kRowQuantum);
+  *blocks = static_cast<int>((rows + *rows_per_block - 1) / *rows_per_block);
+  return cudaSuccess;
+}
 
 }  // namespace
 
 extern "C" {
 
-// The widest C each mode's kernel takes (its shared memory's cap).
+// The widest C each mode's wrapper takes.
 int wn_layer_any_max_channels(int bf16_mode) {
-  return bf16_mode ? AnyBf16::kMaxC : AnyF32::kMaxC;
+  return bf16_mode ? kMaxCBf16 : kMaxCF32;
+}
+
+// The launch grid of one call (see schedule): the slots of one wave, the
+// blocks of each product kernel and, in f32, the rows a block takes (in
+// bf16 the rows of a unit).
+cudaError_t wn_layer_any_schedule(int C, int batch, int T, int bf16_mode,
+                                  int last, int* slots, int* blocks,
+                                  int* rows_per_block) {
+  if (C <= 0 || C % 2 != 0 || batch <= 0 || T <= 0 ||
+      static_cast<int64_t>(batch) * T >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  return schedule(bf16_mode, last, static_cast<int64_t>(batch) * T, C, slots,
+                  blocks, rows_per_block);
 }
 
 // Shapes: x, x_out, skip_out [batch, T, C] f32; cond [batch, T, 2C]; w_in
 // [K*C, 2C]; b_in [2C] f32; w_rs [C, 2C] or [C, C] (last); b_rs likewise
 // f32; valid_t [batch] int32 or null. cond/w_in/w_rs are bf16 when bf16_mode
-// != 0, else f32. C even, at most wn_layer_any_max_channels(bf16_mode); K odd;
-// dilation >= 0. accumulate != 0 adds into skip_out (in place). All
-// pointers 8-byte aligned and contiguous. Launches one kernel on `stream`,
-// does not synchronise; returns the launch error.
+// != 0, else f32. C even, at most wn_layer_any_max_channels(bf16_mode); K
+// odd; dilation >= 0. accumulate != 0 adds into skip_out (in place).
+// Scratch from the caller (Cp = C rounded up to 64, R = batch*T, n_rsp =
+// 2Cp, the last layer's Cp; bf16 in bf16 mode, else f32): acts [R, Cp];
+// x_p [R, Cp] in bf16 mode or where C != Cp, else null; w_in_p [K*Cp, 2Cp]
+// and w_rs_p [Cp, n_rsp] where C != Cp, else null. All pointers 16-byte
+// aligned and contiguous. Launches the prep kernel (bf16, or C != Cp), then
+// the layer kernel (f32) or the gate and res/skip kernels (bf16), on
+// `stream`, does not synchronise; returns the first launch error.
 cudaError_t wn_layer_any_forward(const float* x, const void* cond,
                                  const void* w_in, const float* b_in,
                                  const void* w_rs, const float* b_rs,
                                  const int* valid_t, float* x_out,
-                                 float* skip_out, int accumulate, int batch,
-                                 int T, int C, int K, int dilation,
+                                 float* skip_out, void* acts, void* x_p,
+                                 void* w_in_p, void* w_rs_p, int accumulate,
+                                 int batch, int T, int C, int K, int dilation,
                                  int bf16_mode, int last,
                                  cudaStream_t stream) {
-  if (T <= 0 || batch <= 0 || batch > 65535 || C <= 0 || C % 2 != 0 ||
-      C > wn_layer_any_max_channels(bf16_mode) || K <= 0 || K % 2 != 1 ||
-      dilation < 0)
+  const int64_t rows = static_cast<int64_t>(batch) * T;
+  const int cp = pad64(C);
+  const bool pad = cp != C;
+  if (T <= 0 || batch <= 0 || rows >= (int64_t{1} << 31) || C <= 0 ||
+      C % 2 != 0 || C > wn_layer_any_max_channels(bf16_mode) || K <= 0 ||
+      K % 2 != 1 || dilation < 0 || acts == nullptr ||
+      ((bf16_mode || pad) && x_p == nullptr) ||
+      (pad && (w_in_p == nullptr || w_rs_p == nullptr)))
     return cudaErrorInvalidValue;
-  const Instance k = instance(bf16_mode, last, C);
-  // one opt-in per (mode, last) instance and device, to the widest C's bytes
-  cudaError_t err =
-      opt_in_smem(k.fn, k.max_smem, &g_opted_in[2 * (bf16_mode != 0) + (last != 0)]);
+  int slots = 0, blocks = 0, rows_per_block = 0;
+  cudaError_t err = schedule(bf16_mode, last, rows, C, &slots, &blocks,
+                             &rows_per_block);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTile - 1) / kTile, batch);
-  if (bf16_mode) {
-    const auto* c = static_cast<const bf16*>(cond);
-    const auto* wi = static_cast<const bf16*>(w_in);
-    const auto* wr = static_cast<const bf16*>(w_rs);
-    if (last)
-      wn_any_kernel_bf16<true><<<grid, k.threads, k.smem, stream>>>(
-          x, c, wi, b_in, wr, b_rs, valid_t, x_out, skip_out, accumulate, T,
-          C, K, dilation);
+
+  if (bf16_mode || pad) {
+    const int w_rows = pad ? K * cp + cp : 0;
+    const int64_t x_blocks =
+        std::min<int64_t>((rows * (cp / 2) + 255) / 256, 4096);
+    const unsigned grid = static_cast<unsigned>(w_rows + x_blocks);
+    if (bf16_mode)
+      wn_any_prep_kernel<true><<<grid, 256, 0, stream>>>(
+          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, K, last, w_rows);
     else
-      wn_any_kernel_bf16<false><<<grid, k.threads, k.smem, stream>>>(
-          x, c, wi, b_in, wr, b_rs, valid_t, x_out, skip_out, accumulate, T,
-          C, K, dilation);
-  } else {
-    const auto* c = static_cast<const float*>(cond);
-    const auto* wi = static_cast<const float*>(w_in);
-    const auto* wr = static_cast<const float*>(w_rs);
-    if (last)
-      wn_any_kernel_f32<true><<<grid, k.threads, k.smem, stream>>>(
-          x, c, wi, b_in, wr, b_rs, valid_t, x_out, skip_out, accumulate, T,
-          C, K, dilation);
-    else
-      wn_any_kernel_f32<false><<<grid, k.threads, k.smem, stream>>>(
-          x, c, wi, b_in, wr, b_rs, valid_t, x_out, skip_out, accumulate, T,
-          C, K, dilation);
+      wn_any_prep_kernel<false><<<grid, 256, 0, stream>>>(
+          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, K, last, w_rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
+
+  AnyArgs a;
+  a.x = x;
+  a.x_src = bf16_mode || pad ? x_p : x;
+  a.cond = cond;
+  a.w_in = pad ? w_in_p : w_in;
+  a.b_in = b_in;
+  a.w_rs = pad ? w_rs_p : w_rs;
+  a.b_rs = b_rs;
+  a.valid_t = valid_t;
+  a.x_out = x_out;
+  a.skip_out = skip_out;
+  a.acts = acts;
+  a.accumulate = accumulate;
+  a.T = T;
+  a.C = C;
+  a.K = K;
+  a.dilation = dilation;
+  a.rows = static_cast<int>(rows);
+  a.cp = cp;
+  a.passes = (cp + kPass - 1) / kPass;
+  a.rows_per_block = rows_per_block;
+  a.div_t = fast_div(T);
+  a.div_passes = fast_div(a.passes);
+  a.div_tap64 = fast_div(cp / AnyWide::kKC);
+  a.div_tap16 = fast_div(cp / AnyF32::kChunk);
+  a.div_gate = fast_div(K * a.div_tap16.d);
+  a.div_tile = fast_div(a.passes * (K + 1) * a.div_tap16.d);
+  if (!bf16_mode) {
+    const Instance k = instance(0, 0, last, C);
+    void* params[] = {&a};
+    err = cudaLaunchKernel(k.fn, dim3(blocks), dim3(k.threads), params,
+                           k.smem, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  wn_any_gate_kernel<<<blocks, AnyWide::kThreads, AnyWide::kSmem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (last)
+    wn_any_rs_kernel<true><<<blocks, AnyWide::kThreads, AnyWide::kSmem,
+                             stream>>>(a);
+  else
+    wn_any_rs_kernel<false><<<blocks, AnyWide::kThreads, AnyWide::kSmem,
+                              stream>>>(a);
   return cudaGetLastError();
 }
 
-// What the loaded build of the (bf16, last) kernel uses, read from the CUDA
-// runtime: registers per thread, local (spill) bytes per thread, static
-// shared bytes, and the dynamic shared bytes its launcher passes at width C.
-cudaError_t wn_layer_any_kernel_info(int C, int bf16_mode, int last,
-                                     int* registers, int* local_bytes,
+// What the loaded build of kernel `which` (0: the f32 layer kernel or the
+// bf16 res/skip kernel, 1: the bf16 gate, 2: the prep) of a mode uses, read
+// from the CUDA runtime: registers per thread, local (spill) bytes per
+// thread, static shared bytes, and the dynamic shared bytes its launcher
+// passes (the same at every C).
+cudaError_t wn_layer_any_kernel_info(int C, int bf16_mode, int which,
+                                     int last, int* registers,
+                                     int* local_bytes,
                                      int* static_smem_bytes,
                                      int* dynamic_smem_bytes) {
-  if (C <= 0 || C % 2 != 0 || C > wn_layer_any_max_channels(bf16_mode))
+  if (C <= 0 || C % 2 != 0 || C > wn_layer_any_max_channels(bf16_mode) ||
+      which < 0 || which > 2)
     return cudaErrorInvalidValue;
-  const Instance k = instance(bf16_mode, last, C);
+  const Instance k = instance(bf16_mode, which, last, C);
+  if (k.fn == nullptr) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, k.fn);
   if (err != cudaSuccess) return err;

@@ -111,8 +111,9 @@ _WIDTHS = (128, 256, 512)
 # The shard kernel holds C' = C / model gate channels, model in this set.
 SHARD_MODELS = (2, 4, 8)
 # The widest C of the shape-generic forward (csrc/wn_layer_any.cu), by
-# compute dtype: a 64-row tile keeps the acts of every channel in shared
-# memory (AnyF32::kMaxC, AnyBf16::kMaxC there).
+# compute dtype: the caps of its first design, whose 64-row tile kept the
+# acts of every channel in shared memory. The present design has no such
+# cap; the caps keep the set of widths the generic path is held to.
 ANY_MAX_C = {torch.float32: 704, torch.bfloat16: 1280}
 
 _LIB = None
@@ -265,8 +266,9 @@ SIGNATURES = {
     "wn_layer_f32_schedule": [_I] * 4 + [_IP] * 4,
     "wn_layer_shard_f32_schedule": [_I] * 5 + [_IP] * 6,
     "wn_layer_wide_schedule": [_I] * 5 + [_IP] * 4,
-    "wn_layer_any_forward": [_P] * 9 + [_I] * 8 + [_P],
-    "wn_layer_any_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_any_forward": [_P] * 13 + [_I] * 8 + [_P],
+    "wn_layer_any_kernel_info": [_I] * 4 + [_IP] * 4,
+    "wn_layer_any_schedule": [_I] * 5 + [_IP] * 3,
     "wn_layer_any_max_channels": [_I],
     "wn_layer_backward_any_bf16": [_P] * 23 + [_I] * 8 + [_P],
     "wn_layer_bwd_any_kernel_info": [_I] + [_IP] * 4,
@@ -313,12 +315,21 @@ def kernel_info(channels: int, bf16: bool, last: bool) -> dict:
                int(last))
 
 
-def any_kernel_info(bf16: bool, last: bool, channels: int = 256) -> dict:
-  """:func:`kernel_info` for the shape-generic forward kernel
-  (``csrc/wn_layer_any.cu``) in one mode, its dynamic shared bytes those its
-  launcher passes at width ``channels``."""
+# The shape-generic forward's kernels (``csrc/wn_layer_any.cu``), by their
+# index in its C interface: "layer" ends a call (the f32 layer kernel, or
+# the bf16 res/skip kernel; ``last`` picks its variant), "gate" is the bf16
+# gate kernel and "prep" writes the padded operands (:func:`any_kernels`).
+ANY_FWD_KERNELS = ("layer", "gate", "prep")
+
+
+def any_kernel_info(bf16: bool, last: bool, channels: int = 256,
+                    kernel: str = "layer") -> dict:
+  """:func:`kernel_info` for one kernel of ``ANY_FWD_KERNELS`` of the
+  shape-generic forward (``csrc/wn_layer_any.cu``) in one mode (f32 has no
+  "gate"), its dynamic shared bytes those its launcher passes at width
+  ``channels``."""
   return _info(_library().wn_layer_any_kernel_info, channels, int(bf16),
-               int(last))
+               ANY_FWD_KERNELS.index(kernel), int(last))
 
 
 # The shape-generic bf16 backward's kernels (``csrc/wn_layer_bwd_any.cu``),
@@ -705,22 +716,139 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
   return x_out, skip
 
 
+# The shape-generic forward's plan (csrc/wn_layer_any.cu): operands padded
+# to Cp = C rounded up to ANY_PAD channels; channels in passes of ANY_PASS
+# (the last one ANY_PAD when Cp is not a multiple of ANY_PASS); the bf16
+# gate and res/skip kernels' units of ANY_TILE_ROWS flat rows (AnyWide::
+# kTile); the f32 layer kernel's tiles of ANY_F32_TILE_ROWS (AnyF32::
+# kTileRows; twice that at Cp = ANY_PAD, where a pass is ANY_PAD channels)
+# over a block's share of the rows, a multiple of F32_ROW_QUANTUM, a last
+# tile of ANY_REST_ROWS rows or fewer running its passes at once where
+# there are ANY_REST_PASSES of them (AnyF32::kRestRows, kRestPasses).
+ANY_PAD = 64
+ANY_PASS = 128
+ANY_TILE_ROWS = 128
+ANY_F32_TILE_ROWS = 96
+ANY_REST_ROWS = 16
+ANY_REST_PASSES = 2
+
+
+def any_cp(c: int) -> int:
+  """Cp: the width ``c`` rounded up to ANY_PAD channels."""
+  return -(-c // ANY_PAD) * ANY_PAD
+
+
+def any_passes(c: int) -> int:
+  """Passes of ANY_PASS channels (the last one ANY_PAD when Cp is not a
+  multiple of ANY_PASS) of both generic designs at width ``c``."""
+  return -(-any_cp(c) // ANY_PASS)
+
+
+def any_f32_tiles(n: int, c: int) -> list:
+  """The tiles of an f32 generic block holding ``n`` flat rows at width
+  ``c``, as (first row, rows, passes run at once), in the order they run:
+  tiles of ANY_F32_TILE_ROWS (twice that at Cp = ANY_PAD; the last one
+  short), their passes one after another, except a last tile of
+  ANY_REST_ROWS rows or fewer at ANY_REST_PASSES passes, which runs them
+  at once (a "rest tile")."""
+  size = ANY_F32_TILE_ROWS * (2 if any_cp(c) == ANY_PAD else 1)
+  passes = any_passes(c)
+  out = [(r, min(size, n - r), 1) for r in range(0, n, size)]
+  first, rows, _ = out[-1]
+  if passes == ANY_REST_PASSES and rows <= ANY_REST_ROWS:
+    out[-1] = (first, rows, passes)
+  return out
+
+
+def any_kernels(bf16: bool, c: int) -> Tuple[str, ...]:
+  """The kernels a generic forward call at width ``c`` launches, in order:
+  "prep" (in bf16 always: x rounded once; in f32 where C is not a multiple
+  of ANY_PAD), then "gate" and "layer" (the res/skip kernel) in bf16, or
+  "layer" (the whole layer) in f32."""
+  if bf16:
+    return ("prep", "gate", "layer")
+  return (("prep",) if c % ANY_PAD else ()) + ("layer",)
+
+
+def any_grid(batch: int, t: int, c: int, bf16: bool, slots: int) -> dict:
+  """The grid of a generic forward call for ``batch`` x ``t`` rows at width
+  ``c`` on a device holding ``slots`` blocks of its product kernels at
+  once, as the launcher picks it. bf16: the flat B*T rows in ``tiles`` of
+  ANY_TILE_ROWS (the last one short); a unit is (tile, pass), unit u =
+  tile * passes + pass; the gate and res/skip kernels each run
+  min(units, slots) blocks, block b taking units b, b + blocks, ...
+  (:func:`block_units`). f32: one wave, block b taking the flat rows
+  [b * rows_per_block, (b + 1) * rows_per_block), an equal share rounded up
+  to F32_ROW_QUANTUM, in the tiles of :func:`any_f32_tiles`."""
+  rows, passes = batch * t, any_passes(c)
+  out = {"slots": slots, "cp": any_cp(c), "passes": passes}
+  if bf16:
+    tiles = -(-rows // ANY_TILE_ROWS)
+    return {**out, "tiles": tiles, "units": tiles * passes,
+            "blocks": min(tiles * passes, slots),
+            "rows_per_block": ANY_TILE_ROWS}
+  per = -(-(-(-rows // slots)) // F32_ROW_QUANTUM) * F32_ROW_QUANTUM
+  tiles = any_f32_tiles(per, c)
+  return {**out, "rows_per_block": per, "blocks": -(-rows // per),
+          "tiles_per_block": len(tiles), "rest_tile": tiles[-1][2] > 1}
+
+
+def any_schedule(batch: int, t: int, c: int, bf16: bool,
+                 last: bool = False) -> dict:
+  """:func:`any_grid`'s slots, blocks and rows a block as the loaded
+  library computes them on the current card (slots from the occupancy
+  API)."""
+  vals = [ctypes.c_int() for _ in range(3)]
+  err = _library().wn_layer_any_schedule(c, batch, t, int(bf16), int(last),
+                                         *[ctypes.byref(v) for v in vals])
+  if err != 0:
+    raise RuntimeError(f"the generic schedule of C={c} failed: "
+                       f"cudaError {err}")
+  slots, blocks, per = (v.value for v in vals)
+  return {"slots": slots, "blocks": blocks, "rows_per_block": per}
+
+
+def any_scratch(batch: int, t: int, c: int, k: int, last: bool,
+                bf16: bool) -> dict:
+  """The generic forward's scratch as one allocation, in the compute
+  dtype's element (bf16, or f32): the acts [R, Cp], which the gate writes
+  and the res/skip product reads; x_p [R, Cp] (the taps' operand: x
+  rounded in bf16, x padded in f32) in bf16 or where C is not a multiple
+  of ANY_PAD; and there the padded weights w_in_p [K*Cp, 2Cp] and w_rs_p
+  [Cp, n_rsp] (n_rsp = 2Cp, the last layer's Cp). Byte ``offsets`` (each
+  256-byte aligned), ``sizes`` and the total ``bytes``. R = B*T."""
+  cp, rows, size = any_cp(c), batch * t, 2 if bf16 else 4
+  pad = cp != c
+  sizes = {"acts": rows * cp * size}
+  if bf16 or pad:
+    sizes["x_p"] = rows * cp * size
+  if pad:
+    sizes["w_in_p"] = k * cp * 2 * cp * size
+    sizes["w_rs_p"] = cp * (cp if last else 2 * cp) * size
+  offsets, end = {}, 0
+  for name, n in sizes.items():
+    offsets[name] = end
+    end += -(-n // 256) * 256
+  return {"offsets": offsets, "sizes": sizes, "bytes": end}
+
+
 def wn_layer_any(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
                  b_in: torch.Tensor, w_rs: torch.Tensor, b_rs: torch.Tensor,
                  dilation: int, valid_t: ValidT = None,
                  skip_acc: Optional[torch.Tensor] = None,
                  compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-  """One fused WN layer at any shape, through the shape-generic kernel of
+  """One fused WN layer at any shape, through the shape-generic kernels of
   ``csrc/wn_layer_any.cu``; same contract as :func:`wn_layer_plain`.
 
-  CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch the kernel,
-  which takes: x f32 [B, T, C] with C even and at most
-  ``ANY_MAX_C[compute dtype]``; w_in [K, C, 2C] (any view of it) for any
-  odd K; cond, w_in, w_rs in ``compute_dtype`` (f32 when None); b_in, b_rs
-  and skip_acc f32; valid_t None or an int32 [B] CUDA tensor. Anything
-  else raises. :func:`wn_layer_fused` calls it at every shape but the
-  specialised kernels'; called directly it runs those too.
-  ``ANY_LAUNCHES`` counts its launches.
+  CPU tensors run :func:`wn_layer_plain`. CUDA tensors launch the kernels
+  of :func:`any_kernels`, which take: x f32 [B, T, C] with C even and at
+  most ``ANY_MAX_C[compute dtype]``; w_in [K, C, 2C] (any view of it) for
+  any odd K; cond, w_in, w_rs in ``compute_dtype`` (f32 when None); b_in,
+  b_rs and skip_acc f32; valid_t None or an int32 [B] CUDA tensor. Anything
+  else raises. The scratch (:func:`any_scratch`) is allocated here.
+  :func:`wn_layer_fused` calls it at every shape but the specialised
+  kernels'; called directly it runs those too. ``ANY_LAUNCHES`` counts its
+  calls, one a call whatever the kernels it launches.
   """
   global ANY_LAUNCHES
   if x.device.type == "cpu":
@@ -738,26 +866,34 @@ def wn_layer_any(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
     raise ValueError(f"unsupported compute dtype {wdt}")
   if c % 2 or not 0 < c <= ANY_MAX_C[wdt]:
     raise ValueError(f"the shape-generic kernel takes an even C of at most "
-                     f"{ANY_MAX_C[wdt]} in {wdt} (its shared memory's cap), "
-                     f"got C = {c}")
+                     f"{ANY_MAX_C[wdt]} in {wdt}, got C = {c}")
   k = w_in.numel() // (2 * c * c)
   if k % 2 != 1 or w_in.numel() != k * c * 2 * c:
     raise ValueError(f"w_in: {tuple(w_in.shape)} is not [K, {c}, {2 * c}] "
                      "for an odd K")
   if dilation < 0:
     raise ValueError(f"dilation must be >= 0, got {dilation}")
-  if batch > 65535:
-    raise ValueError(f"the kernel's grid takes B <= 65535, got {batch}")
+  if batch * t >= 2 ** 31:
+    raise ValueError(f"the kernels take B*T < 2**31 rows, got {batch * t}")
   last, x_out, skip = _layer_operands(x, cond, w_in, b_in, w_rs, b_rs,
                                       valid_t, skip_acc, wdt, k)
+  bf16 = wdt == torch.bfloat16
+  plan = any_scratch(batch, t, c, k, last, bf16)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+
+  def part(name):
+    off = plan["offsets"].get(name)
+    return None if off is None else scratch.data_ptr() + off
+
   lib = _library()
   with torch.cuda.device(dev):  # the launcher reads the current device
     err = lib.wn_layer_any_forward(
         x.data_ptr(), cond.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
         w_rs.data_ptr(), b_rs.data_ptr(),
         valid_t.data_ptr() if valid_t is not None else None,
-        x_out.data_ptr(), skip.data_ptr(), int(skip_acc is not None), batch,
-        t, c, k, int(dilation), int(wdt == torch.bfloat16), int(last),
+        x_out.data_ptr(), skip.data_ptr(), part("acts"), part("x_p"),
+        part("w_in_p"), part("w_rs_p"), int(skip_acc is not None), batch,
+        t, c, k, int(dilation), int(bf16), int(last),
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer_any kernel launch failed: cudaError {err}")
