@@ -63,3 +63,4 @@ def use(lib) -> None:
   """Route the package's wrappers through ``lib`` (None: its own build)."""
   kl._LIB = lib
   kl._bwd_plan.cache_clear()
+  kl._any_bwd_plan.cache_clear()

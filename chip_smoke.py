@@ -758,8 +758,10 @@ def any_variant(bf16: bool, last: bool, kernel: str = "layer",
 
 def any_bwd_variant(kernel: str) -> str:
   """Variant name of a shape-generic backward kernel: "bf16,any,bwd-..."
-  for those that do products (held to wgmma, no serialization, no spill),
-  "{reduce,prep,pad},any,bwd" for the others, which do none."""
+  for those that do products (held to wgmma, no serialization, no spill;
+  one function each, the dx and weights kernels holding an instance for
+  each tile width they take), "{reduce,prep,pad},any,bwd" for the others,
+  which do none."""
   if kernel in ("rows", "dx", "weights"):
     return f"bf16,any,bwd-{kernel}"
   return f"{kernel},any,bwd"
@@ -5357,17 +5359,24 @@ ANY_BWD_TIMED = ((C, 5), (384, 3), (C, 3))
 ANY_TRAIN_STEPS = 2
 ANY_TRAIN_HPARAMS = {"batch_size": str(B_TRAIN), "iters_per_checkpoint": "1000",
                      "epochs_per_checkpoint": "0"}
+# The generic backward's kernels by name (a call launches
+# kl.any_bwd_kernels(C) of them: pad only where C % 64 != 0).
 ANY_BWD_SPLIT = r"wn_bwd_any_(pad|prep|rows|dx|weights|reduce)_kernel"
 ANY_BWD_DESIGN = (
-    "six kernels: the weights padded to 64-channel blocks, x and drs "
-    "rounded to bf16 into padded layouts (drs's column sums); rows: one "
-    "warpgroup per (batch row, 64 time rows, pass of 64 channels), the "
-    "gate recompute (K*Cp deep, each tap's rows loaded on their own) and "
-    "dacts by wgmma m64n64k16, the gate's adjoint on the accumulators; dx: "
-    "per (64 rows, 64 channels) one K*2Cp deep wgmma product; weights: "
-    "tiles of 64 x 128 by wgmma m64n128k16 over ranges of a batch row's "
-    "rows, f32 partials; a fixed-order reduce; every product's 64-deep K "
-    "chunks double-buffered by cp.async")
+    "the specialised whole-layer design at run-time C and K: the weights "
+    "padded to 64-channel blocks where C % 64 != 0 (else read as they "
+    "lie, dcond as the padded dgates); prep: x and drs rounded to bf16 "
+    "once on 128-row tiles (drs's column sums); rows: two warpgroups per "
+    "(batch row, 128 time rows, pass of 64 channels), the gate recompute "
+    "(K*Cp deep, each tap's rows loaded on their own) by wgmma m64n128k16 "
+    "and dacts by m64n64k16, the gate's adjoint on the accumulators; dx: "
+    "per 128 flat rows x N channels (N the widest of 192, 128, 64 "
+    "dividing Cp) one K*2Cp deep product; weights: tiles of 128 x N (the "
+    "widest of 256, 192, 128, 64) over ranges that are parts of a batch "
+    "row or runs of whole batch rows, f32 partials, a slot a range; a "
+    "fixed-order reduce; every product's 64-deep K chunks through a "
+    "cp.async ring of up to six stages, all but two in flight, one "
+    "chunk's wgmmas running under the next chunk's loads")
 
 
 def any_trainable_inputs(width: int, k: int, last: bool, dtype, seed: int):
@@ -5484,7 +5493,7 @@ def any_bwd_timed(width: int, k: int, seed: int) -> dict:
       bwd["library_ms"] = library_grads_ms(saved, cot, 1, dtype, True)
       bwd["kernels_ms"] = kernel_split(
           lambda: kl.wn_layer_backward_any(saved, *cot, 1), ANY_BWD_SPLIT,
-          len(kl.ANY_BWD_KERNELS))
+          len(kl.any_bwd_kernels(width)))
       if (width, k) == (C, 3):
         bwd["specialised_ms"] = cuda_ms(lambda: kl.wn_layer_backward_fused(
             saved, *cot, 1))

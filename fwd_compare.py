@@ -3,7 +3,7 @@ this repo, on one NVIDIA card: their outputs bit for bit and their times
 alternated.
 
   python3 fwd_compare.py OTHER_TREE [--trainable] [--train] [--any]
-      [--out chiprun_out/fwd_compare.json]
+      [--any-bwd] [--out chiprun_out/fwd_compare.json]
 
 OTHER_TREE is an unpacked checkout of another commit, for example
 `git archive <commit> | tar -x -C build/parent`. Both trees' kernels are
@@ -37,8 +37,16 @@ forward (kl.wn_layer_any) at chip_smoke.py phase 16's timed shapes (C, K)
 = (256, 5), (384, 3), (64, 3), (256, 3) in f32 and bf16 (B=1, T=26,432,
 d=1, skip_acc on), records a checksum of each case's output bits and
 times it beside the library's call (conv1d over K taps, the gate, a
-matmul). The last line is one JSON object: for each case whether every
-run gave the same bits, and each run's times.
+matmul). With --any-bwd a run instead takes the shape-generic bf16
+backward (kl.wn_layer_backward_any) at chip_smoke.py phase 17's timed
+shapes (C, K) = (256, 5), (384, 3), (256, 3) (B=12, T=2,000, d=1, the
+tree's own chip_smoke.trainable_inputs, seed 1234), records a checksum of
+its six gradients' bits and times it beside the library's backward
+(chip_smoke.library_grads_ms: autograd through conv1d, the gate and a
+matmul) and, at (256, 3), the specialised backward
+(kl.wn_layer_backward_fused). The last line is one JSON object: for each
+case whether every run gave the same bits, whether each tree's two runs
+did, and each run's times.
 """
 
 import argparse
@@ -59,6 +67,8 @@ TIMED = (1, 128)
 TRAIN_SEED = 1234
 # --any: (C, K) of the generic forward, phase 16's ANY_TIMED
 ANY_TIMED = ((256, 5), (384, 3), (64, 3), (256, 3))
+# --any-bwd: (C, K) of the generic backward, phase 17's ANY_BWD_TIMED
+ANY_BWD_TIMED = ((256, 5), (384, 3), (256, 3))
 
 
 def checksum(out) -> list:
@@ -230,6 +240,33 @@ def any_worker(tree: str) -> dict:
   return out
 
 
+def any_bwd_worker(tree: str) -> dict:
+  sys.path.insert(0, tree)
+  import torch
+  import chip_smoke as smoke
+  from waveglow_tpu_torch.kernels import wn_layer as kl
+  assert Path(kl.__file__).resolve().is_relative_to(Path(tree).resolve())
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  out = {}
+  for width, k in ANY_BWD_TIMED:
+    args, cot = smoke.trainable_inputs(False, torch.bfloat16, TRAIN_SEED,
+                                       width, k)
+    saved = tuple(a.detach() for a in args)
+    grads = kl.wn_layer_backward_any(saved, *cot, 1)
+    rec = {"checksum": [s for g in grads for s in checksum(g)],
+           "ms": device_ms(lambda: kl.wn_layer_backward_any(saved, *cot, 1)),
+           "library_ms": smoke.library_grads_ms(saved, cot, 1,
+                                                torch.bfloat16, True)}
+    if (width, k) == (256, 3):
+      rec["specialised_ms"] = device_ms(
+          lambda: kl.wn_layer_backward_fused(saved, *cot, 1))
+    out[f"any_bwd,C={width},K={k}"] = rec
+    del args, cot, saved, grads
+    torch.cuda.empty_cache()
+  return out
+
+
 def train_worker(tree: str) -> dict:
   sys.path.insert(0, tree)
   import tempfile
@@ -322,10 +359,14 @@ def main() -> None:
   parser.add_argument("--train", action="store_true")
   parser.add_argument("--trainable", action="store_true")
   parser.add_argument("--any", action="store_true")
+  parser.add_argument("--any-bwd", action="store_true")
   args = parser.parse_args()
   if args.worker:
     if args.any and not args.build_only:
       print(json.dumps(any_worker(args.worker)))
+      return
+    if args.any_bwd and not args.build_only:
+      print(json.dumps(any_bwd_worker(args.worker)))
       return
     if args.build_only or not (args.train or args.trainable):
       print(json.dumps(worker(args.worker, args.build_only)))
@@ -346,7 +387,8 @@ def main() -> None:
   for name in ("other", "this", "this", "other"):
     proc = run(trees[name], *(["--train"] if args.train else []),
                *(["--trainable"] if args.trainable else []),
-               *(["--any"] if args.any else []))
+               *(["--any"] if args.any else []),
+               *(["--any-bwd"] if args.any_bwd else []))
     text = proc.communicate()[0]
     if proc.returncode:
       raise SystemExit(f"the run of {name} failed")
@@ -356,8 +398,13 @@ def main() -> None:
   for case in runs[0][1]:
     sums = {tuple(r[case]["checksum"]) for _, r in runs}
     cases[case] = {"same_bits": len(sums) == 1,
+                   "repeats_same_bits": {
+                       tree: len({tuple(r[case]["checksum"])
+                                  for name, r in runs if name == tree}) == 1
+                       for tree in trees},
                    **{key: [[name, r[case][key]] for name, r in runs]
-                      for key in ("ms", "steady_ms", "library_ms")
+                      for key in ("ms", "steady_ms", "library_ms",
+                                  "specialised_ms")
                       if key in runs[0][1][case]}}
   import torch
   result = {"device": subprocess.run(

@@ -12,7 +12,8 @@ from waveglow_tpu_torch.kernels import wn_layer as kl
 SCRIPTS = {"fwd_ablation": "wn_layer.cu", "bwd_ablation": "wn_layer_bwd.cu",
            "sbwd_ablation": "wn_layer_bwd.cu",
            "fwd_f32_ablation": "wn_layer.cu",
-           "any_ablation": "wn_layer_any.cu"}
+           "any_ablation": "wn_layer_any.cu",
+           "any_bwd_ablation": "wn_layer_bwd_any.cu"}
 
 
 @pytest.mark.parametrize("script", sorted(SCRIPTS))

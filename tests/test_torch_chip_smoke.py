@@ -1589,10 +1589,9 @@ def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
 # -- phase 17: training at every shape ----------------------------------------------
 
 # The shape-generic backward's kernels as nvcc names them in the library
-# (wn_layer_bwd_any.cu compiled on its own).
-_ANY_BWD_OBJ = "_ZN52_GLOBAL__N__5f0c2a1e_19_wn_layer_bwd_any_cu_0b8e41d2"
-ANY_BWD_ROWS = (_ANY_BWD_OBJ + "22wn_bwd_any_rows_kernelEPK13__nv_bfloat16S2_"
-                "S2_PKfS2_S2_PS0_S5_S5_Pfiiiii")
+# (wn_layer_bwd_any.cu compiled on its own; each takes the call's BwdArgs).
+_ANY_BWD_OBJ = "_ZN52_GLOBAL__N__9651bf1b_19_wn_layer_bwd_any_cu_19e1c2e2"
+ANY_BWD_ROWS = _ANY_BWD_OBJ + "22wn_bwd_any_rows_kernelENS_7BwdArgsE"
 ANY_BWD = {
     ANY_BWD_ROWS: "bf16,any,bwd-rows",
     ANY_BWD_ROWS.replace("22wn_bwd_any_rows", "20wn_bwd_any_dx"):

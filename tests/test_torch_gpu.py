@@ -1411,10 +1411,12 @@ def test_any_bwd_kernel_refuses_what_it_does_not_take(cuda):
   assert kl.ANY_BWD_LAUNCHES == before
 
 
-# Dynamic shared bytes of each kernel of the generic backward: double
-# buffers of 8 KB A chunks and 8 KB (dx), 16 KB (rows, weights) B chunks;
-# the rows kernel's column sums.
-ANY_BWD_SMEM = {"rows": 51_200, "dx": 32_768, "weights": 49_152,
+# Dynamic shared bytes of each kernel of the generic backward at C = 256:
+# rings of 16 KB A chunks and B chunks, 16 KB in the rows kernel (the
+# gate's two 64-column blocks; six stages and its column sums), N * 128
+# bytes in the dx (N = 128: six stages) and weights kernels (N = 256: four
+# stages).
+ANY_BWD_SMEM = {"rows": 200_704, "dx": 196_608, "weights": 196_608,
                 "reduce": 0, "prep": 0, "pad": 0}
 
 
@@ -1425,17 +1427,55 @@ def test_any_bwd_kernel_info_reads_the_loaded_build(cuda, kernel):
   assert info["dynamic_smem_bytes"] == ANY_BWD_SMEM[kernel]
 
 
+@pytest.mark.parametrize("c,kernel,n,stages", [
+    (384, "weights", 192, 5), (384, "dx", 192, 5), (48, "weights", 64, 6),
+    (48, "dx", 64, 6), (640, "weights", 128, 6), (256, "dx", 128, 6)])
+def test_any_bwd_kernel_info_follows_the_tile_width(cuda, c, kernel, n,
+                                                    stages):
+  """The dx and weights kernels' rings hold B chunks as wide as their
+  tiles, as many stages as 227 KB hold, at most six: N = 192 at C = 384
+  (five), 64 at C = 48 (six); the weights' 128 at C = 640, dx's 128 at C
+  = 256 (six)."""
+  tile = kl.any_bwd_dx_tile if kernel == "dx" else kl.any_bwd_n_tile
+  assert tile(c) == n
+  info = kl.any_bwd_kernel_info(kernel, c)
+  assert info["dynamic_smem_bytes"] == stages * (16_384 + n * 128)
+
+
 @pytest.mark.parametrize("c,k", ANY_BWD_SHAPES)
 def test_any_bwd_schedule_reads_the_loaded_build(cuda, c, k):
-  """The weights kernel's output tiles, which size the host's split: 64
-  rows x 128 columns of the padded dw_in [K*Cp, 2Cp] and dw_rs [Cp, n_rsp]
-  (Cp = C rounded up to 64; n_rsp = 2Cp, the last layer's Cp)."""
+  """The weights kernel's output tiles, which size the host's cut: 128
+  rows x N columns (N = 256 at Cp = 256 and 1,280, 192 at 384, 64 at 64)
+  of the padded dw_in [K*Cp, 2Cp] and dw_rs^T [n_rsp, Cp] (Cp = C rounded
+  up to 64; n_rsp = 2Cp, the last layer's Cp)."""
   lib = kl._library()
   cp = -(-c // 64) * 64
+  n = kl.any_bwd_n_tile(c)
   for last in (False, True):
     n_rsp = cp if last else 2 * cp
     assert lib.wn_layer_bwd_any_weight_tiles(c, k, int(last)) == (
-        k * cp // 64 * (2 * cp // 128) + cp // 64 * -(-n_rsp // 128))
+        -(-k * cp // 128) * (2 * cp // n) + -(-n_rsp // 128) * (cp // n))
+
+
+@pytest.mark.parametrize("c", [48, 50, 64, 384, 640, 1280])
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+def test_any_bwd_weight_tiles_mirror_is_the_library(cuda, c, k):
+  """kl.any_bwd_weight_tiles, the host's mirror the CPU plan tests hold,
+  counts what the loaded library counts, both layers."""
+  lib = kl._library()
+  for last in (False, True):
+    assert kl.any_bwd_weight_tiles(c, k, last) == (
+        lib.wn_layer_bwd_any_weight_tiles(c, k, int(last)))
+
+
+@pytest.mark.parametrize("c,k,dilation", [(384, 7, 128), (640, 3, 1),
+                                          (1280, 3, 1)])
+def test_any_bwd_kernel_matches_plain_at_wide_widths(cuda, c, k, dilation):
+  """N = 192 tiles whose dw_in tiles take two taps (C = 384, K = 7), N =
+  128 (C = 640) and one range of whole batch rows (C = 1,280) at B=4,
+  T=500 with a row short of T."""
+  check_bwd_against_plain(cuda, 4, 500, dilation, False, [500, 321, 500, 7],
+                          seed=c + k, c=c, k=k, generic=True)
 
 
 @pytest.mark.parametrize("c,k", [(48, 5), (50, 3), (384, 3), (256, 1)])

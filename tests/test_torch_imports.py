@@ -15,7 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "waveglow_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bwd_ablation.py",
     ROOT / "sbwd_ablation.py", ROOT / "fwd_ablation.py",
-    ROOT / "ablation.py", ROOT / "fwd_compare.py"]
+    ROOT / "fwd_f32_ablation.py", ROOT / "any_ablation.py",
+    ROOT / "any_bwd_ablation.py", ROOT / "ablation.py",
+    ROOT / "fwd_compare.py"]
 
 
 def imported_modules(path: Path):

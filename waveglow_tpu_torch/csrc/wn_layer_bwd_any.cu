@@ -41,52 +41,64 @@
 // 113.2 at (384, 3), 0.114 ms. The bytes, about 24*C a row, take less:
 // every shape is operation-bound.
 //
-// Design: right and simple; nothing is tuned, making it fast is later work.
-// Every product is a wgmma (m64n64k16 or m64n128k16, bf16 operands from
-// 128-byte-swizzled shared memory, f32 accumulators; sm90_wgmma.cuh) of
-// one warpgroup on a tile of 64 rows, fed by 64-deep K chunks that
-// cp.async double-buffers (nothing staged in registers), each chunk's
-// wgmmas waited for before the chunk's barrier, so none is in flight
-// across the loop's back edge. Any even C: the first two kernels copy the
-// operands once into layouts padded to Cp = C rounded up to 64 channels,
-// zero past C, so every later copy is a 16-byte piece of a swizzle row
-// and every channel tail is zero: C = 48 and C = 50 are exact, and C = 50,
-// whose rows allow no 16-byte copy, is read in pairs by those two kernels
-// alone. Each tap's rows are loaded on their own: taps reach +-(K/2)*d
-// rows (+-384 at K = 7 and d = 128), further than T at T = 17; rows outside
-// [0, T) are zero-filled, and the adjoint's shifts run the other way. The
-// kernels, in order on one stream:
-//   pad     - w_in into w_in_p [K*Cp, 2Cp] and w_rs into w_rs_p [Cp, n_rsp]
-//             (n_rsp = 2Cp, the last layer's Cp), each half of the columns
-//             from column 0 and from column Cp, zero past C.
-//   prep    - per (batch row, tile of 64 time rows): x_p = bf16(x) [R, Cp];
-//             drs from the cotangents and valid_t, written as g_p = bf16(drs)
-//             [R, n_rsp]; the tile's f32 column sums of drs (db_rs) into
-//             part_rs. Memory-bound.
-//   rows    - per (batch row, tile of 64 time rows, pass of 64 channels):
-//             the gate recompute (K*Cp deep; the pass's tanh and sigmoid
-//             columns, two m64n64 products), then dacts (n_rsp deep, w_rs_p
-//             read K-major as it lies) into accumulators that sit in the
-//             same thread for the same (row, channel), so the gate and its
-//             adjoint run on them in f32: dcond, acts_p = bf16(acts) [R, Cp],
-//             dg_p = bf16(dgates) [R, 2Cp], and the tile's f32 column sums
-//             of dgates (db_in) into part_in.
-//   dx      - per (batch row, tile of 64 time rows, 64 output channels):
-//             one product K*2Cp deep, tap k's chunks the dg_p rows at t -
-//             (k - K/2)*d against w_in_p's tap-k rows read K-major; adds
-//             dx_next at rows t < valid_t.
-//   weights - per (output tile of 64 x 128, range of a batch row's rows):
-//             dw_in (x_p rows at t + (k - K/2)*d against dg_p) and dw_rs
-//             (acts_p against g_p), both operands MN-major as they lie;
-//             the f32 partials to a workspace, a slot for each range (the
-//             caller sizes the ranges to fill the card: kernels/wn_layer.py's
-//             bwd_splits).
+// Design: wn_layer_bwd.cu's whole-layer design at run-time C and K. Every
+// product is a wgmma (bf16 operands from 128-byte-swizzled shared memory,
+// f32 accumulators; sm90_wgmma.cuh) of two warpgroups, 64 rows each, fed
+// by 64-deep K chunks through a cp.async ring of as many stages as shared
+// memory holds, up to six (rows six; dx and weights six at N = 128, five
+// at 192, four at 256), all but two of them chunks in flight, one chunk's
+// wgmmas left running under the next chunk's loads.
+// The operands are read in layouts padded to Cp = C rounded up to 64
+// channels, zero past C, so every copy is a 16-byte piece of a swizzle row
+// and every channel tail is zero: C = 48 and C = 50 are exact. Where C =
+// Cp the weights and dcond are those layouts already and are read as they
+// are; elsewhere the pad kernel copies the weights and the rows kernel
+// writes the padded dgates beside dcond. Each tap's rows are loaded on
+// their own: taps reach +-(K/2)*d rows (+-384 at K = 7 and d = 128),
+// further than T at T = 17; rows outside [0, T) are zero-filled, and the
+// adjoint's shifts run the other way. The kernels, in order on one stream:
+//   pad     - (C != Cp only) w_in into w_in_p [K*Cp, 2Cp] and w_rs into
+//             w_rs_p [Cp, n_rsp] (n_rsp = 2Cp, the last layer's Cp), each
+//             half of the columns from column 0 and from column Cp.
+//   prep    - per (batch row, tile of 128 time rows): x_p = bf16(x) [R, Cp]
+//             and g_p = bf16(drs) [R, n_rsp], each rounded once, with
+//             16-byte loads where C % 4 == 0 (else 8-byte ones, C = 50);
+//             the tile's f32 column sums of drs (db_rs) into its part_bias
+//             row. Memory-bound: eight loads in flight a thread.
+//   rows    - per (batch row, tile of 128 time rows, pass of 64 channels):
+//             the gate recompute (K*Cp deep in (channel block, tap) chunks;
+//             N = the pass's 64 tanh and 64 sigmoid columns, m64n128k16)
+//             then dacts (n_rsp deep, w_rs read K-major as it lies,
+//             m64n64k16) into accumulators that sit in the same thread for
+//             the same (row, channel), so the gate and its adjoint run on
+//             them in f32: dcond, acts_p = bf16(acts) [R, Cp], the padded
+//             dgates dg_p [R, 2Cp] (C != Cp) and the tile's f32 column sums
+//             of dgates (db_in) into its part_bias row.
+//   dx      - per 128 flat rows x N output channels (the widest of 192,
+//             128, 64 dividing Cp): one product K*2Cp deep, tap k's chunks the
+//             dgates rows at t - (k - K/2)*d against w_in's tap-k rows read
+//             K-major; adds dx_next at rows t < valid_t, its loads issued
+//             before any store.
+//   weights - per (output tile, range of rows): dw_in's tiles of 128 of its
+//             K*Cp rows x N of its 2Cp columns (N the widest of 256, 192,
+//             128, 64 dividing Cp; a tile's two 64-row halves may take two
+//             taps) and dw_rs^T's of 128 of its n_rsp rows x N of its Cp
+//             columns, both operands MN-major as they lie; the f32
+//             partials to a workspace, a slot a range. A range is a part of
+//             one batch row or a run of whole batch rows, whichever the cut
+//             needs to fill the card's waves (kernels/wn_layer.py's
+//             any_bwd_splits), so the workspace holds as many slots as that
+//             cut has ranges, not one a batch row at least.
 //   reduce  - sums the partials over the ranges and the column sums over
-//             the tiles in a fixed order, drops the padding, casts dw_in and
-//             dw_rs to bf16.
-// No atomics anywhere: two launches give the same bits. PERF.md keeps its
-// times (chip_smoke.py phase 17), wn_layer_bwd_any_kernel_info each
-// kernel's registers, spills and shared memory.
+//             the tiles in a fixed order (a warp a bias column: lanes over
+//             every 32nd tile, then a butterfly), drops the padding, casts
+//             dw_in and dw_rs to bf16.
+// At C = Cp every output's sums run in the order of wn_layer_bwd.cu's (the
+// same tiles, chunks, cut and reduce), so at K = 3 and a built width the
+// two give the same bits. No atomics anywhere: two launches give the same
+// bits. PERF.md keeps the times (chip_smoke.py phase 17, fwd_compare.py
+// --any-bwd, any_bwd_ablation.py); wn_layer_bwd_any_kernel_info reports
+// each kernel's registers, spills and shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,20 +113,82 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;                 // time rows of a tile
+constexpr int kMaxC = 1280;               // the wrapper's cap (ANY_MAX_C)
+constexpr int kThreads = 256;             // two warpgroups; every kernel
+constexpr int kTile = 128;                // rows of a prep, rows or dx tile
 constexpr int kKC = 64;                   // K of a chunk: one swizzle row
-constexpr int kThreads = 128;             // one warpgroup
 constexpr int kBlock = 64 * 128;          // [64 rows][64 bf16], swizzled
-constexpr int kWN = 128;                  // N of a weights tile
-constexpr int kElemThreads = 256;         // pad, prep, reduce
-// Dynamic shared bytes: two A buffers and two B buffers (the rows kernel's
-// B holds the gate's tanh and sigmoid blocks; it adds its column sums).
-constexpr int kRowsSmem = 2 * kBlock + 2 * 2 * kBlock + 4 * 2 * 64 * 4;
-constexpr int kDxSmem = 2 * kBlock + 2 * kBlock;
-constexpr int kWeightsSmem = 2 * kBlock + 2 * (kWN / 64) * kBlock;
+constexpr int kABytes = 2 * kBlock;       // an A chunk of two warpgroups
+constexpr int kSmemMax = 232448;          // the 227 KB a block may use
+constexpr int kPass = 64;                 // channels of a rows pass
+
+// Stages of a product's ring of `stage`-byte stages beside `extra` bytes:
+// as many as a block's shared memory holds, at most 6; and the chunks in
+// flight under the wgmmas of a ring of `stages` (ring_step).
+__host__ __device__ constexpr int ring_stages(int stage, int extra) {
+  return (kSmemMax - extra) / stage < 6 ? (kSmemMax - extra) / stage : 6;
+}
+__host__ __device__ constexpr int ring_ahead(int stages) { return stages - 2; }
+
+// The rows kernel's stage: an A chunk, then the gate's B [64 K][2 x 64 N]
+// MN-major (dacts' [64 N][64 K] K-major takes half of it); after the ring,
+// the column sums [8 warps][2 x 64]. Six stages, four chunks in flight.
+constexpr int kRowsStage = kABytes + 2 * kBlock;
+constexpr int kRowsRedBytes = 8 * 2 * kPass * 4;
+constexpr int kRowsStages = ring_stages(kRowsStage, kRowsRedBytes);
+constexpr int kRowsRed = kRowsStages * kRowsStage;
+constexpr int kRowsSmem = kRowsRed + kRowsRedBytes;
+static_assert(kRowsSmem <= kSmemMax, "over 227 KB");
+
+// The dx and weights kernels' stage at N = n: an A chunk, then B ([n][64
+// K] K-major, or [64 K][n] MN-major in 64-column blocks); their ring: 4
+// stages at N = 256, 5 at 192, 6 at 128 and 64.
+__host__ __device__ constexpr int nt_stage(int n) { return kABytes + n * 128; }
+__host__ __device__ constexpr int nt_stages(int n) {
+  return ring_stages(nt_stage(n), 0);
+}
+__host__ __device__ constexpr int nt_smem(int n) {
+  return nt_stages(n) * nt_stage(n);
+}
+static_assert(nt_smem(256) <= kSmemMax && nt_smem(192) <= kSmemMax &&
+                  nt_smem(128) <= kSmemMax && nt_smem(64) <= kSmemMax,
+              "over 227 KB");
 
 __host__ __device__ __forceinline__ int pad64(int c) {
   return (c + 63) / 64 * 64;
+}
+
+// N of the weights kernel's tiles at padded width Cp: the widest of 256,
+// 192, 128 and 64 that divides Cp (and so 2Cp). The dx kernel's: the
+// widest of 192, 128 and 64; at N = 256 its blocks fill the card's waves
+// worse (at B=12, T=2,000 and C = 256, 188 blocks, the second wave 42%
+// full, against 376 in three waves 95% full at N = 128) in a shallower
+// ring (four stages, not six).
+__host__ __device__ __forceinline__ int n_tile(int cp) {
+  return cp % 256 == 0 ? 256 : cp % 192 == 0 ? 192 : cp % 128 == 0 ? 128 : 64;
+}
+__host__ __device__ __forceinline__ int dx_tile(int cp) {
+  return cp % 192 == 0 ? 192 : cp % 128 == 0 ? 128 : 64;
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (the round-up method
+// of Granlund and Montgomery, as in wn_layer_any.cu), made on the host: the
+// rows and dx kernels divide a block or row index by a run-time size (the
+// passes, T).
+struct FastDiv {
+  uint64_t m;
+  int shift, d;
+};
+
+FastDiv fast_div(int d) {
+  int l = 0;
+  while ((int64_t{1} << l) < d) ++l;
+  return {(uint64_t{1} << (31 + l)) / static_cast<uint64_t>(d) + 1, 31 + l,
+          d};
+}
+
+__device__ __forceinline__ int div_by(int n, const FastDiv& f) {
+  return static_cast<int>((static_cast<uint64_t>(n) * f.m) >> f.shift);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -127,287 +201,437 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
                      __uint_as_float(v & 0xffff0000u));
 }
 
-// The K loop of one product: n chunks in two shared buffers. `issue(j,
-// buf)` starts chunk j's cp.async copies into buffer `buf`; `mul(j, buf)`
-// runs chunk j's wgmmas from buffer `buf` and waits for them. Chunk j + 1
-// copies while chunk j is multiplied; one barrier a chunk, before which the
-// thread's copies have landed and are handed to the async proxy. Returns
-// after a barrier, with every chunk multiplied.
-template <typename Issue, typename Mul>
-__device__ __forceinline__ void chunks(int n, const Issue& issue,
-                                       const Mul& mul) {
-  if (n > 0) issue(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+// What every kernel of a call reads, as one parameter in the constant bank
+// (the derived sizes too, so a kernel spends no register on them).
+struct BwdArgs {
+  const float* x;          // [R, C]
+  const bf16* cond;        // [R, 2C]
+  const bf16* w_in;        // [K*C, 2C]
+  const float* b_in;       // [2C]
+  const bf16* w_rs;        // [C, n_rs]
+  const float* dx_next;    // [R, C] or null
+  const float* dskip;      // [R, C] or null
+  const int* valid_t;      // [B] or null
+  float* dx;               // [R, C]
+  bf16* dcond;             // [R, 2C]
+  bf16* dw_in;             // [K*C, 2C]
+  float* db_in;            // [2C]
+  bf16* dw_rs;             // [C, n_rs]
+  float* db_rs;            // [n_rs]
+  bf16* x_p;               // [R, Cp]: bf16(x), zero past C
+  bf16* g_p;               // [R, n_rsp]: bf16(drs), zero past C
+  bf16* acts_p;            // [R, Cp]: bf16(acts)
+  bf16* dg_p;              // [R, 2Cp]: bf16(dgates); dcond where C = Cp
+  bf16* w_in_p;            // [K*Cp, 2Cp], the pad kernel's (C != Cp)
+  bf16* w_rs_p;            // [Cp, n_rsp], likewise
+  const bf16* w_in_k;      // what the products read: w_in_p, or w_in
+  const bf16* w_rs_k;      // w_rs_p, or w_rs
+  float* part_bias;        // [B * tiles_t, 2Cp + n_rsp]: dgates', drs' sums
+  float* ws;               // [n_splits, K*Cp*2Cp + Cp*n_rsp]: the partials
+  int batch, T, C, K, dilation, last;
+  int rows;                // R = B*T
+  int cp, n_rs, n_rsp, pad;
+  int tiles_t, passes;     // ceil(T / kTile); Cp / kPass
+  int dx_n, w_n;           // N of the dx and weights tiles
+  int in_mt, in_nt;        // the weights kernel's dw_in_p tiles: M x N
+  int rs_mt, rs_nt;        // and its dw_rs_p^T tiles
+  int n_splits_t, split_rows, split_batches;  // its ranges (see the kernel)
+  FastDiv div_passes, div_t;  // passes, T
+};
+
+// One step at chunk j of a product's ring of kStages stages, `stage` bytes
+// apart from `ring`, kAhead chunks in flight: wait for this thread's
+// copies of chunk j and hand the block's to the async proxy; past the
+// barrier every warpgroup has waited for its wgmmas of chunk j - 2, so
+// `load(j + kAhead)` may fill the stage of chunk j + kAhead - kStages (one
+// commit group, empty past the last chunk); then start chunk j's wgmmas
+// on this warpgroup's 64 rows (acc += A @ B; kTransA / kTransB 1 for an
+// MN-major operand, whose 64-value blocks lie kBlock apart) and wait until
+// only they are in flight.
+template <int kN, int kTransA, int kTransB, int kStages, typename Load>
+__device__ __forceinline__ void ring_step(uint32_t ring, int stage, int j,
+                                          float (&acc)[kN / 2],
+                                          const Load& load) {
+  constexpr int kAhead = ring_ahead(kStages);
+  cp_async_wait<kAhead - 1>();
   fence_proxy_async();
   __syncthreads();
-#pragma unroll 1
-  for (int j = 0; j < n; ++j) {
-    // past the last barrier every thread is done with buffer (j + 1) & 1
-    if (j + 1 < n) issue(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    mul(j, j & 1);
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();
-  }
-}
-
-// One chunk of a K-major A operand: 64 rows of 64 bf16 (8 pieces of 16
-// bytes each) into `dst`; this thread's pieces are q = tid % 8 of rows tid / 8
-// + 16i. Row r is `rows_src` row `s0 + r` (its rows `ld` values apart, from
-// its column `col`), zero where that row is outside [lo, hi).
-__device__ __forceinline__ void load_a(uint32_t dst, const bf16* src,
-                                       int64_t seq, int64_t ld, int64_t s0,
-                                       int lo, int hi, int col) {
-  const int q = threadIdx.x % 8, r0 = threadIdx.x / 8;
+  load(j + kAhead);
+  const uint32_t st = ring + (j % kStages) * stage;
+  const uint32_t a = st + (threadIdx.x / 128) * kBlock;
+  fence_acc(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 16 * i;
-    const int64_t s = s0 + r;
-    const bool ok = s >= lo && s < hi;
-    cp_async16_zfill(dst + sw128_piece(r, q),
-                     ok ? src + (seq + s) * ld + col + q * 8 : src, ok);
-  }
+  for (int k = 0; k < kKC / 16; ++k)
+    wgmma_m64<kN, kTransA, kTransB>(
+        acc,
+        kTransA ? mnmajor_desc(a + k * 2048, kBlock) : kmajor_desc(a + k * 32),
+        kTransB ? mnmajor_desc(st + kABytes + k * 2048, kBlock)
+                : kmajor_desc(st + kABytes + k * 32));
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_acc(acc);
 }
 
-// One chunk of a B operand of 64 rows (a K-major B: its N rows; an MN-major
-// one: its K rows) of kN values, in blocks of 64 values kBlock bytes apart:
-// row r is `src` row r (rows `ld` values apart).
-template <int kN>
-__device__ __forceinline__ void load_b(uint32_t dst, const bf16* src,
-                                       int64_t ld) {
-  const int q = threadIdx.x % 8, r0 = threadIdx.x / 8;
-#pragma unroll
-  for (int i = 0; i < 4 * kN / 64; ++i) {
-    const int r = r0 + 16 * (i % 4), h = i / 4;
-    cp_async16(dst + h * kBlock + sw128_piece(r, q),
-               src + static_cast<int64_t>(r) * ld + h * 64 + q * 8);
-  }
-}
-
-// ---- pad: the weights into padded layouts ------------------------------------
+// ---- pad: the weights into padded layouts (C != Cp) ------------------------
 
 // One block a padded row: rows [0, K*Cp) of w_in_p, then rows [0, Cp) of
 // w_rs_p.
-__global__ void __launch_bounds__(kElemThreads)
-wn_bwd_any_pad_kernel(const bf16* __restrict__ w_in,
-                      const bf16* __restrict__ w_rs, bf16* __restrict__ w_in_p,
-                      bf16* __restrict__ w_rs_p, int C, int K, int last) {
-  const int cp = pad64(C);
-  const int n_rs = last ? C : 2 * C, n_rsp = last ? cp : 2 * cp;
+__global__ void __launch_bounds__(kThreads)
+wn_bwd_any_pad_kernel(const __grid_constant__ BwdArgs a) {
+  const int C = a.C, cp = a.cp;
   const bf16 zero = __float2bfloat16(0.f);
   const int row = blockIdx.x;
-  if (row < K * cp) {
+  if (row < a.K * cp) {
     const int tap = row / cp, ci = row % cp;
-    const bf16* src = w_in + static_cast<int64_t>(tap * C + ci) * 2 * C;
-    bf16* dst = w_in_p + static_cast<int64_t>(row) * 2 * cp;
-    for (int col = threadIdx.x; col < 2 * cp; col += kElemThreads) {
+    const bf16* src = a.w_in + static_cast<int64_t>(tap * C + ci) * 2 * C;
+    bf16* dst = a.w_in_p + static_cast<int64_t>(row) * 2 * cp;
+    for (int col = threadIdx.x; col < 2 * cp; col += kThreads) {
       const int h = col / cp, co = col % cp;
       dst[col] = ci < C && co < C ? src[h * C + co] : zero;
     }
   } else {
-    const int c = row - K * cp;
-    const bf16* src = w_rs + static_cast<int64_t>(c) * n_rs;
-    bf16* dst = w_rs_p + static_cast<int64_t>(c) * n_rsp;
-    for (int col = threadIdx.x; col < n_rsp; col += kElemThreads) {
+    const int c = row - a.K * cp;
+    const bf16* src = a.w_rs + static_cast<int64_t>(c) * a.n_rs;
+    bf16* dst = a.w_rs_p + static_cast<int64_t>(c) * a.n_rsp;
+    for (int col = threadIdx.x; col < a.n_rsp; col += kThreads) {
       const int h = col / cp, co = col % cp;
       dst[col] = c < C && co < C ? src[h * C + co] : zero;
     }
   }
 }
 
-// ---- prep: x and drs rounded into padded layouts, drs's column sums ------------
+// ---- prep: x and drs rounded once, drs's column sums ------------------------
 
-// One block per (tile of kTile time rows, batch row). Pairs of channels
-// (C even keeps a pair's 8 bytes aligned): x_p from x, all threads over
-// the tile's flat (row, pair)s; g_p from drs, a thread a column pair summing
-// its column down the tile's rows in order, the sums into the tile's row of
-// part_rs.
-__global__ void __launch_bounds__(kElemThreads)
-wn_bwd_any_prep_kernel(const float* __restrict__ x,
-                       const float* __restrict__ dx_next,
-                       const float* __restrict__ dskip,
-                       const int* __restrict__ valid_t, bf16* __restrict__ x_p,
-                       bf16* __restrict__ g_p, float* __restrict__ part_rs,
-                       int T, int C, int last) {
-  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp;
+// kV consecutive f32 values (16- or 8-byte aligned).
+template <int kV>
+struct Piece {
+  float v[kV];
+};
+
+template <int kV>
+__device__ __forceinline__ Piece<kV> load_piece(const float* src) {
+  Piece<kV> p;
+  if constexpr (kV == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    p.v[0] = f.x;
+    p.v[1] = f.y;
+    p.v[2] = f.z;
+    p.v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(src);
+    p.v[0] = f.x;
+    p.v[1] = f.y;
+  }
+  return p;
+}
+
+template <int kV>
+__device__ __forceinline__ void store_piece(bf16* dst, const Piece<kV>& p) {
+  if constexpr (kV == 4)
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(pack_bf16(p.v[0], p.v[1]), pack_bf16(p.v[2], p.v[3]));
+  else
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(p.v[0], p.v[1]);
+}
+
+// One (tile of kTile time rows, batch row), the rows kernel's tiles, in
+// pieces of kV channels: x_p = bf16(x), zero past C; drs = [dx_next masked
+// at t >= valid_t | dskip] (last: dskip) as bf16 g_p; and drs's f32 column
+// sums into columns [2Cp, 2Cp + n_rsp) of the tile's part_bias row. A drs
+// column piece is summed down the tile's rows by `phases` threads (rows ph
+// + phases*k, in order), whose sums add in phase order: at C = Cp the
+// whole-layer prep kernel's order.
+template <int kV>
+__device__ __forceinline__ void prep_body(const BwdArgs& a, float* red) {
+  constexpr int kBatch = 8;  // loads in flight a thread
+  const int C = a.C, cp = a.cp, n_rsp = a.n_rsp, T = a.T;
   const int tile = blockIdx.x, b = blockIdx.y;
   const int t0 = tile * kTile;
   const int rows = min(kTile, T - t0);
   const int64_t row0 = static_cast<int64_t>(b) * T + t0;
-  const int valid = valid_t != nullptr ? valid_t[b] : T;
+  const int valid = a.valid_t != nullptr ? a.valid_t[b] : T;
 
-  const int pairs = cp / 2;
-  for (int i = threadIdx.x; i < rows * pairs; i += kElemThreads) {
-    const int r = i / pairs, c = 2 * (i % pairs);
-    const int64_t row = row0 + r;
-    float2 v = make_float2(0.f, 0.f);
-    if (c < C) v = *reinterpret_cast<const float2*>(x + row * C + c);
-    *reinterpret_cast<uint32_t*>(x_p + row * cp + c) = pack_bf16(v.x, v.y);
+  const int xq = cp / kV;  // pieces of an x_p row
+  const int n = rows * xq;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
+    Piece<kV> v[kBatch];
+    int r[kBatch], c[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = i0 + u * kThreads;
+      r[u] = p / xq;
+      c[u] = (p - r[u] * xq) * kV;
+#pragma unroll
+      for (int e = 0; e < kV; ++e) v[u].v[e] = 0.f;
+      if (p < n && c[u] < C)
+        v[u] = load_piece<kV>(a.x + (row0 + r[u]) * C + c[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n)
+        store_piece<kV>(a.x_p + (row0 + r[u]) * cp + c[u], v[u]);
   }
 
-  for (int p = threadIdx.x; p < n_rsp / 2; p += kElemThreads) {
-    const int col = 2 * p, h = col / cp, co = col % cp;
-    const bool residual = !last && h == 0;  // dx_next's columns
-    const float* src = residual ? dx_next : dskip;
-    float2 sum = make_float2(0.f, 0.f);
-    for (int r = 0; r < rows; ++r) {
-      const int64_t row = row0 + r;
-      float2 v = make_float2(0.f, 0.f);
-      if (co < C && src != nullptr && !(residual && t0 + r >= valid))
-        v = *reinterpret_cast<const float2*>(src + row * C + co);
-      sum.x += v.x;
-      sum.y += v.y;
-      *reinterpret_cast<uint32_t*>(g_p + row * n_rsp + col) =
-          pack_bf16(v.x, v.y);
+  const int kq = n_rsp / kV;  // pieces of a g_p row
+  const int phases = kq < kThreads ? kThreads / kq : 1;
+  const int per = (kTile + phases - 1) / phases;  // rows of a phase
+  const int rounds = (kq + kThreads - 1) / kThreads;  // 1 where phases > 1
+  float* out = a.part_bias +
+               (static_cast<int64_t>(b) * a.tiles_t + tile) *
+                   (2 * cp + n_rsp) +
+               2 * cp;
+  for (int round = 0; round < rounds; ++round) {
+    const int ph = phases > 1 ? threadIdx.x / kq : 0;
+    const int q = phases > 1 ? threadIdx.x - ph * kq
+                             : threadIdx.x + round * kThreads;
+    if (ph >= phases || q >= kq) continue;
+    const int col = kV * q;
+    const int h = col >= cp, co = col - h * cp;
+    const bool from_next = !a.last && h == 0;
+    const float* src = from_next ? a.dx_next : a.dskip;
+    const bool live = src != nullptr && co < C;
+    float s[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) s[e] = 0.f;
+    for (int k0 = 0; k0 < per; k0 += kBatch) {
+      Piece<kV> v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = ph + (k0 + u) * phases;
+#pragma unroll
+        for (int e = 0; e < kV; ++e) v[u].v[e] = 0.f;
+        if (live && k0 + u < per && r < rows &&
+            !(from_next && t0 + r >= valid))
+          v[u] = load_piece<kV>(src + (row0 + r) * C + co);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = ph + (k0 + u) * phases;
+        if (k0 + u >= per) continue;
+#pragma unroll
+        for (int e = 0; e < kV; ++e) s[e] += v[u].v[e];
+        if (r < rows) store_piece<kV>(a.g_p + (row0 + r) * n_rsp + col, v[u]);
+      }
     }
-    float* out = part_rs + (static_cast<int64_t>(b) * gridDim.x + tile) * n_rsp;
-    out[col] = sum.x;
-    out[col + 1] = sum.y;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      if (phases > 1) red[threadIdx.x * kV + e] = s[e];
+      else out[col + e] = s[e];
+    }
+  }
+  if (phases > 1) {
+    // the phases' sums, in order
+    __syncthreads();
+    for (int c = threadIdx.x; c < n_rsp; c += kThreads) {
+      float sum = red[c];
+      for (int p = 1; p < phases; ++p) sum += red[p * n_rsp + c];
+      out[c] = sum;
+    }
   }
 }
 
-// ---- rows: the gate recompute, dacts, the gate's adjoint ------------------------
+__global__ void __launch_bounds__(kThreads)
+wn_bwd_any_prep_kernel(const __grid_constant__ BwdArgs a) {
+  __shared__ float red[kThreads * 4];
+  if (a.C % 4 == 0) prep_body<4>(a, red);
+  else prep_body<2>(a, red);
+}
 
-// One block per (tile of 64 time rows x pass of 64 channels, batch row):
-// blockIdx.x = tile * passes + pass.
+// ---- rows: the gate recompute, dacts, the gate's adjoint --------------------
+
+// One block per (tile of 128 time rows x pass of 64 channels, batch row):
+// blockIdx.x = tile * passes + pass. Chunk j < K * passes of the gate is
+// tap j % K, channels 64 (j / K) + [0, 64) (wn_layer_bwd.cu's order at K =
+// 3); then dacts' chunks, 64 drs columns each. What the loops read is held
+// in registers (a field of the parameter would be read again past every
+// accumulator fence), the chunk's tap and channel block are counters.
 __global__ void __launch_bounds__(kThreads, 1)
-wn_bwd_any_rows_kernel(const bf16* __restrict__ x_p,
-                       const bf16* __restrict__ cond,
-                       const bf16* __restrict__ w_in_p,
-                       const float* __restrict__ b_in,
-                       const bf16* __restrict__ w_rs_p,
-                       const bf16* __restrict__ g_p, bf16* __restrict__ dcond,
-                       bf16* __restrict__ acts_p, bf16* __restrict__ dg_p,
-                       float* __restrict__ part_in, int T, int C, int K,
-                       int dilation, int last) {
+wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(1024) uint4 smem_rows[];
-  const uint32_t base = smem_u32(smem_rows);
-  // [A0][A1] kBlock each, [B0][B1] 2 kBlock each, then the column sums
-  // [4 warps][128]
-  constexpr int kB = 2 * kBlock, kRed = kB + 4 * kBlock;
+  const uint32_t ring = smem_u32(smem_rows);
   float* red = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_rows) +
-                                        kRed);
-  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp;
-  const int passes = cp / 64;
-  const int tile = blockIdx.x / passes, cb = (blockIdx.x % passes) * 64;
+                                        kRowsRed);
+  const int C = a.C, cp = a.cp, n_rsp = a.n_rsp, K = a.K, T = a.T;
+  const int dilation = a.dilation;
+  const int tile = div_by(blockIdx.x, a.div_passes);
+  const int cb = (blockIdx.x - tile * a.passes) * kPass;  // the pass's
   const int b = blockIdx.y;
   const int t0 = tile * kTile;
-  const int64_t seq = static_cast<int64_t>(b) * T;
+  const int rows = min(kTile, T - t0);
+  const int64_t row0 = static_cast<int64_t>(b) * T + t0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;  // the warp's rows of the tile (both groups)
   const int g = lane / 4, tig = lane % 4;
+  const int gate_chunks = K * a.passes;
+  const int chunks = gate_chunks + n_rsp / kKC;
 
-  // accumulator element 4j + 2h + e: row warp*16 + g + 8h, column 8j + 2tig
-  // + e of the pass: channel cb + 8j + 2tig + e's tanh pre-activation
-  // (acc_t), sigmoid pre-activation (acc_s) and dacts (acc_d)
-  float acc_t[32], acc_s[32], acc_d[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc_t[i] = acc_s[i] = acc_d[i] = 0.f;
+  // This thread's copies of a chunk. A: rows ra + 32i, piece q (K-major).
+  // The gate's B: K rows kb + 16i of w_in at column nb of the pass's 64
+  // tanh (nb < 64) or sigmoid columns, MN-major. dacts' B: w_rs rows cb +
+  // ra + 32i, piece q, K-major.
+  const int q = threadIdx.x % 8, ra = threadIdx.x / 8;
+  const int kb = threadIdx.x / 16, nb = (threadIdx.x % 16) * 8;
+  const uint32_t a_dst = sw128_piece(ra, q);
+  const uint32_t wg_dst =
+      kABytes + nb / 64 * kBlock + sw128_piece(kb, nb % 64 / 8);
+  const bf16* __restrict__ xa = a.x_p + (row0 + ra) * cp + q * 8;
+  const bf16* __restrict__ ga = a.g_p + (row0 + ra) * n_rsp + q * 8;
+  const bf16* __restrict__ wga = a.w_in_k + static_cast<int64_t>(kb) * 2 * cp +
+                                 nb / 64 * cp + cb + nb % 64;
+  const bf16* __restrict__ wra =
+      a.w_rs_k + static_cast<int64_t>(cb + ra) * n_rsp + q * 8;
+  const int64_t x_step = static_cast<int64_t>(32) * cp;    // 32 x_p rows
+  const int64_t g_step = static_cast<int64_t>(32) * n_rsp;  // 32 g_p rows
+  const int64_t wg_step = static_cast<int64_t>(16) * 2 * cp;
+  const bf16* __restrict__ cond = a.cond;
+  int ld_tap = 0, ld_c0 = 0;  // the next gate chunk's tap and channels
 
-  // ---- gates = taps @ w_in_p[:, the pass's columns]: chunk j is tap j /
-  // passes, channels 64 (j % passes) + [0, 64)
-  chunks(
-      K * passes,
-      [&](int j, int buf) {
-        const int tap = j / passes, c0 = (j % passes) * kKC;
-        load_a(base + buf * kBlock, x_p, seq, cp,
-               t0 + static_cast<int64_t>(tap - K / 2) * dilation, 0, T, c0);
-        // two MN-major [64 K][64 N] blocks: tanh columns cb.., sigmoid
-        // columns Cp + cb..
-        const bf16* w = w_in_p + static_cast<int64_t>(tap * cp + c0) * 2 * cp + cb;
-        const uint32_t dst = base + kB + buf * 2 * kBlock;
-        load_b<64>(dst, w, 2 * cp);
-        load_b<64>(dst + kBlock, w + cp, 2 * cp);
-      },
-      [&](int, int buf) {
-        const uint32_t a = base + buf * kBlock;
-        const uint32_t w = base + kB + buf * 2 * kBlock;
-        fence_acc(acc_t);
-        fence_acc(acc_s);
-        wgmma_fence();
+  // chunk j into its stage (called for j = 0, 1, 2, ... in turn)
+  const auto load = [&](int j) {
+    if (j < chunks) {
+      const uint32_t st = ring + (j % kRowsStages) * kRowsStage;
+      if (j < gate_chunks) {
+        const int shift = (ld_tap - K / 2) * dilation;
+        const bf16* x0 = xa + static_cast<int64_t>(shift) * cp + ld_c0;
 #pragma unroll
-        for (int k = 0; k < kKC / 16; ++k) {
-          const uint64_t da = kmajor_desc(a + k * 32);
-          wgmma_m64<64, 0, 1>(acc_t, da, mnmajor_desc(w + k * 2048, kBlock));
-          wgmma_m64<64, 0, 1>(acc_s, da,
-                              mnmajor_desc(w + kBlock + k * 2048, kBlock));
+        for (int i = 0; i < 4; ++i) {
+          const int t = t0 + ra + 32 * i + shift;
+          const bool ok = t >= 0 && t < T;
+          cp_async16_zfill(st + a_dst + i * 4096, ok ? x0 + i * x_step : xa,
+                           ok);
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc_t);
-        fence_acc(acc_s);
-      });
-
-  // ---- dacts = bf16(drs) @ w_rs_p[the pass's rows]^T: rows past T zero
-  chunks(
-      n_rsp / kKC,
-      [&](int j, int buf) {
-        load_a(base + buf * kBlock, g_p, seq, n_rsp, t0, 0, T, j * kKC);
-        // K-major: N row n is w_rs_p row cb + n, its K values 64j..
-        load_b<64>(base + kB + buf * 2 * kBlock,
-                   w_rs_p + static_cast<int64_t>(cb) * n_rsp + j * kKC,
-                   n_rsp);
-      },
-      [&](int, int buf) {
-        const uint32_t a = base + buf * kBlock;
-        const uint32_t w = base + kB + buf * 2 * kBlock;
-        fence_acc(acc_d);
-        wgmma_fence();
+        const bf16* w0 =
+            wga + static_cast<int64_t>(ld_tap * cp + ld_c0) * 2 * cp;
 #pragma unroll
-        for (int k = 0; k < kKC / 16; ++k)
-          wgmma_m64<64, 0, 0>(acc_d, kmajor_desc(a + k * 32),
-                              kmajor_desc(w + k * 32));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc_d);
-      });
-
-  // ---- the gate and its adjoint on the accumulators (f32); rows past T and
-  // channels past C give zeros
+        for (int i = 0; i < 4; ++i)
+          cp_async16(st + wg_dst + i * 2048, w0 + i * wg_step);
+        if (++ld_tap == K) {
+          ld_tap = 0;
+          ld_c0 += kKC;
+        }
+      } else {
+        const int c0 = (j - gate_chunks) * kKC;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int ch = cb + 8 * j + 2 * tig;
-    const bool ch_ok = ch < C;  // C even: ch + 1 < C too
-    float2 bt = make_float2(0.f, 0.f), bs = bt;
-    if (ch_ok) {
-      bt = *reinterpret_cast<const float2*>(b_in + ch);
-      bs = *reinterpret_cast<const float2*>(b_in + C + ch);
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = ra + 32 * i < rows;
+          cp_async16_zfill(st + a_dst + i * 4096,
+                           ok ? ga + c0 + i * g_step : ga, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          cp_async16(st + kABytes + a_dst + i * 4096,
+                     wra + c0 + i * g_step);
+      }
     }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < ring_ahead(kRowsStages); ++c) load(c);
+
+  // acc_g: element 4j + 2h + e is row r16 + g + 8h, gate column 8j + 2 tig
+  // + e: the tanh pre-activation of channel cb + 8j + 2 tig + e for j < 8,
+  // the sigmoid one of channel cb + 8(j - 8) + 2 tig + e for j < 16; acc_d:
+  // element 4j + 2h + e is dacts of the same row and that channel
+  float acc_g[kPass], acc_d[kPass / 2];
+#pragma unroll
+  for (int i = 0; i < kPass; ++i) acc_g[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPass / 2; ++i) acc_d[i] = 0.f;
+
+  // ---- gates = taps @ w_in[:, the pass's columns]
+#pragma unroll 1
+  for (int j = 0; j < gate_chunks; ++j)
+    ring_step<2 * kPass, 0, 1, kRowsStages>(ring, kRowsStage, j, acc_g,
+                                            load);
+  wgmma_wait<0>();
+  fence_acc(acc_g);
+
+  // cond of the pass's channels (zero past C and past the tile's rows),
+  // read under the dacts product
+  uint32_t cond_t[kPass / 8][2], cond_s[kPass / 8][2];
+#pragma unroll
+  for (int j = 0; j < kPass / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r16 + g + 8 * h;
+      const int ch = cb + 8 * j + 2 * tig;
+      cond_t[j][h] = cond_s[j][h] = 0u;  // bf16 zeros
+      if (row < rows && ch < C) {  // C even: ch + 1 < C too
+        const bf16* cr = cond + (row0 + row) * 2 * C + ch;
+        cond_t[j][h] = *reinterpret_cast<const uint32_t*>(cr);
+        cond_s[j][h] = *reinterpret_cast<const uint32_t*>(cr + C);
+      }
+    }
+
+  // ---- dacts = bf16(drs) @ w_rs[the pass's rows]^T
+#pragma unroll 1
+  for (int j = gate_chunks; j < chunks; ++j)
+    ring_step<kPass, 0, 0, kRowsStages>(ring, kRowsStage, j, acc_d, load);
+  wgmma_wait<0>();
+  fence_acc(acc_d);
+  cp_async_wait<0>();
+
+  // ---- the gate and its adjoint on the accumulators (f32). Rows past the
+  // tile's have zero drs: finite gates, zero dgates. Channels past C have
+  // zero weights, bias and cond: zero acts and dgates. The bias is loaded
+  // before any store (the outputs are fields the compiler cannot tell
+  // apart from it).
+  float2 b_t[kPass / 8], b_s[kPass / 8];
+#pragma unroll
+  for (int j = 0; j < kPass / 8; ++j) {
+    const int ch = cb + 8 * j + 2 * tig;
+    b_t[j] = b_s[j] = make_float2(0.f, 0.f);
+    if (ch < C) {
+      b_t[j] = *reinterpret_cast<const float2*>(a.b_in + ch);
+      b_s[j] = *reinterpret_cast<const float2*>(a.b_in + C + ch);
+    }
+  }
+  bf16* __restrict__ acts_p = a.acts_p;
+  bf16* __restrict__ dcond = a.dcond;
+  bf16* __restrict__ dg_p = a.dg_p;
+  const bool pad = a.pad;
+#pragma unroll
+  for (int j = 0; j < kPass / 8; ++j) {
+    const int ch = cb + 8 * j + 2 * tig;
+    const bool ch_ok = ch < C;
+    const float2 bt = b_t[j], bs = b_s[j];
     float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int t = t0 + warp * 16 + g + 8 * h;
-      if (t >= T) continue;
-      const int64_t row = seq + t;
-      float act[2] = {0.f, 0.f}, da[2] = {0.f, 0.f}, db[2] = {0.f, 0.f};
-      if (ch_ok) {
-        const bf16* cr = cond + row * 2 * C + ch;
-        const float2 ct = unpack_bf16(*reinterpret_cast<const uint32_t*>(cr));
-        const float2 cs =
-            unpack_bf16(*reinterpret_cast<const uint32_t*>(cr + C));
+      const int row = r16 + g + 8 * h;
+      const int64_t grow = row0 + row;
+      const float2 ct = unpack_bf16(cond_t[j][h]);
+      const float2 cs = unpack_bf16(cond_s[j][h]);
+      float da[2], db[2], act[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          const float gt = acc_t[i] + (e ? bt.y : bt.x) + (e ? ct.y : ct.x);
-          const float gs = acc_s[i] + (e ? bs.y : bs.x) + (e ? cs.y : cs.x);
-          const float tv = tanhf(gt);
-          const float sv = 1.f / (1.f + expf(-gs));
-          const float dv = acc_d[i];
-          act[e] = tv * sv;
-          da[e] = dv * sv * (1.f - tv * tv);
-          db[e] = dv * tv * sv * (1.f - sv);
-        }
-        bf16* dc = dcond + row * 2 * C + ch;
-        *reinterpret_cast<uint32_t*>(dc) = pack_bf16(da[0], da[1]);
-        *reinterpret_cast<uint32_t*>(dc + C) = pack_bf16(db[0], db[1]);
+      for (int e = 0; e < 2; ++e) {
+        const float gt = acc_g[4 * j + 2 * h + e] + (e ? bt.y : bt.x) +
+                         (e ? ct.y : ct.x);
+        const float gs = acc_g[4 * (j + kPass / 8) + 2 * h + e] +
+                         (e ? bs.y : bs.x) + (e ? cs.y : cs.x);
+        const float tv = tanhf(gt);
+        const float sv = 1.f / (1.f + expf(-gs));
+        const float dv = acc_d[4 * j + 2 * h + e];
+        act[e] = tv * sv;
+        da[e] = dv * sv * (1.f - tv * tv);
+        db[e] = dv * tv * sv * (1.f - sv);
       }
       sa0 += da[0]; sa1 += da[1]; sb0 += db[0]; sb1 += db[1];
-      *reinterpret_cast<uint32_t*>(acts_p + row * cp + ch) =
-          pack_bf16(act[0], act[1]);
-      bf16* dg = dg_p + row * 2 * cp + ch;
-      *reinterpret_cast<uint32_t*>(dg) = pack_bf16(da[0], da[1]);
-      *reinterpret_cast<uint32_t*>(dg + cp) = pack_bf16(db[0], db[1]);
+      if (row < rows) {
+        *reinterpret_cast<uint32_t*>(acts_p + grow * cp + ch) =
+            pack_bf16(act[0], act[1]);
+        if (ch_ok) {
+          bf16* dc = dcond + grow * 2 * C + ch;
+          *reinterpret_cast<uint32_t*>(dc) = pack_bf16(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(dc + C) = pack_bf16(db[0], db[1]);
+        }
+        if (pad) {
+          bf16* dg = dg_p + grow * 2 * cp + ch;
+          *reinterpret_cast<uint32_t*>(dg) = pack_bf16(da[0], da[1]);
+          *reinterpret_cast<uint32_t*>(dg + cp) = pack_bf16(db[0], db[1]);
+        }
+      }
     }
     // column sums over the warp's 16 rows (fixed butterfly order)
 #pragma unroll
@@ -418,287 +642,379 @@ wn_bwd_any_rows_kernel(const bf16* __restrict__ x_p,
       sb1 += __shfl_xor_sync(0xffffffffu, sb1, m);
     }
     if (g == 0) {
-      float* rw = red + warp * 128 + 8 * j + 2 * tig;
+      float* rw = red + warp * 2 * kPass + 8 * j + 2 * tig;
       rw[0] = sa0;
       rw[1] = sa1;
-      rw[64] = sb0;
-      rw[65] = sb1;
+      rw[kPass] = sb0;
+      rw[kPass + 1] = sb1;
     }
   }
-  // the tile's dgates column sums over the 4 warps, in order
+
+  // ---- the tile's dgates column sums over the 8 row warps, in order
   __syncthreads();
-  const int col = threadIdx.x;  // 128 columns: 64 tanh, then 64 sigmoid
-  const float sum = ((red[col] + red[128 + col]) + red[256 + col]) +
-                    red[384 + col];
-  const int tiles = gridDim.x / passes;
-  part_in[(static_cast<int64_t>(b) * tiles + tile) * 2 * cp +
-          (col < 64 ? cb + col : cp + cb + col - 64)] = sum;
+  float* out = a.part_bias + (static_cast<int64_t>(b) * a.tiles_t + tile) *
+                                 (2 * cp + n_rsp);
+  for (int col = threadIdx.x; col < 2 * kPass; col += kThreads) {
+    float sum = red[col];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) sum += red[w * 2 * kPass + col];
+    out[col < kPass ? cb + col : cp + cb + col - kPass] = sum;
+  }
 }
 
-// ---- dx: the taps' adjoint ----------------------------------------------------------
+// ---- dx: the taps' adjoint --------------------------------------------------
 
-// One block per (tile of 64 time rows x 64 output channels, batch row):
-// blockIdx.x = tile * (Cp / 64) + channel block. K chunk j is tap j /
-// (2Cp / 64), gate columns 64 (j % (2Cp / 64)) + [0, 64).
-__global__ void __launch_bounds__(kThreads, 1)
-wn_bwd_any_dx_kernel(const bf16* __restrict__ dg_p,
-                     const bf16* __restrict__ w_in_p,
-                     const float* __restrict__ dx_next,
-                     const int* __restrict__ valid_t, float* __restrict__ dx,
-                     int T, int C, int K, int dilation) {
-  extern __shared__ __align__(1024) uint4 smem_dx[];
-  const uint32_t base = smem_u32(smem_dx);
-  constexpr int kB = 2 * kBlock;  // [A0][A1][B0][B1], kBlock each
-  const int cp = pad64(C);
-  const int blocks_n = cp / 64, per_tap = 2 * cp / kKC;
-  const int tile = blockIdx.x / blocks_n, n0 = (blockIdx.x % blocks_n) * 64;
-  const int b = blockIdx.y;
-  const int t0 = tile * kTile;
-  const int64_t seq = static_cast<int64_t>(b) * T;
+// One block per (128 flat rows, kN output channels): a product over K * 2Cp,
+// chunk c the (tap c / (2Cp / 64), gate columns 64 (c % (2Cp / 64)) + [0,
+// 64)) of dgates rows t - (tap - K/2)*d of each row's own batch row (zero
+// outside [0, T)), against w_in rows tap*Cp + n0 + n, both K-major. As in
+// the rows kernel, the loops read registers and count the chunk's tap and
+// columns.
+template <int kN>
+__device__ __forceinline__ void dx_body(const BwdArgs& a, uint32_t ring) {
+  constexpr int kStage = nt_stage(kN), kStages = nt_stages(kN);
+  const int C = a.C, cp = a.cp, K = a.K, T = a.T, R = a.rows;
+  const int chunks = K * (2 * cp / kKC);
+  const int rt0 = blockIdx.x * kTile;  // the tile's first flat row
+  const int n0 = blockIdx.y * kN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r16 = warp * 16;
   const int g = lane / 4, tig = lane % 4;
+  const int q = threadIdx.x % 8;
 
-  float acc[32];
+  // This thread's copies of a chunk: A rows tid / 8 + 32i (their dgates
+  // rows from `arow`, their time `tt`, far negative past the last row),
+  // piece q; B w_in rows n0 + tid / 8 + 32i, piece q, both K-major.
+  const bf16* __restrict__ dg = a.dg_p;
+  const int dilation = a.dilation;
+  const bf16* arow[4];
+  int64_t tt[4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  chunks(
-      K * per_tap,
-      [&](int j, int buf) {
-        const int tap = j / per_tap, m0 = (j % per_tap) * kKC;
-        // dx[t] takes dgates[t - (tap - K/2)*d]
-        load_a(base + buf * kBlock, dg_p, seq, 2 * cp,
-               t0 - static_cast<int64_t>(tap - K / 2) * dilation, 0, T, m0);
-        // K-major: N row n is w_in_p row tap*Cp + n0 + n, its K values m0..
-        load_b<64>(base + kB + buf * kBlock,
-                   w_in_p + static_cast<int64_t>(tap * cp + n0) * 2 * cp + m0,
-                   2 * cp);
-      },
-      [&](int, int buf) {
-        const uint32_t a = base + buf * kBlock;
-        const uint32_t w = base + kB + buf * kBlock;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < kKC / 16; ++k)
-          wgmma_m64<64, 0, 0>(acc, kmajor_desc(a + k * 32),
-                              kmajor_desc(w + k * 32));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc);
-      });
+  for (int i = 0; i < 4; ++i) {
+    const int fr = rt0 + threadIdx.x / 8 + 32 * i;
+    const int bi = div_by(fr, a.div_t);
+    arow[i] = dg + static_cast<int64_t>(bi) * T * 2 * cp + q * 8;
+    tt[i] = fr < R ? fr - static_cast<int64_t>(bi) * T : -(int64_t{1} << 40);
+  }
+  const uint32_t a_dst = sw128_piece(threadIdx.x / 8, q);
+  const bf16* __restrict__ wa =
+      a.w_in_k + static_cast<int64_t>(n0 + threadIdx.x / 8) * 2 * cp + q * 8;
+  const int64_t w_step = static_cast<int64_t>(32) * 2 * cp;  // 32 w_in rows
+  int ld_tap = 0, ld_m0 = 0;  // the next chunk's tap and gate columns
 
-  const int valid = valid_t != nullptr ? valid_t[b] : T;
+  // chunk c into its stage (called for c = 0, 1, 2, ... in turn)
+  const auto load = [&](int c) {
+    if (c < chunks) {
+      const uint32_t st = ring + (c % kStages) * kStage;
+      // dx[t] takes dgates[t - (tap - K/2)*d]
+      const int shift = (ld_tap - K / 2) * dilation;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t s = tt[i] - shift;
+        const bool ok = s >= 0 && s < T;
+        cp_async16_zfill(st + a_dst + i * 4096,
+                         ok ? arow[i] + s * 2 * cp + ld_m0 : dg, ok);
+      }
+      const bf16* w0 =
+          wa + static_cast<int64_t>(ld_tap) * cp * 2 * cp + ld_m0;
+#pragma unroll
+      for (int i = 0; i < kN / 32; ++i)
+        cp_async16(st + kABytes + a_dst + i * 4096, w0 + i * w_step);
+      ld_m0 += kKC;
+      if (ld_m0 == 2 * cp) {
+        ld_m0 = 0;
+        ++ld_tap;
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < ring_ahead(kStages); ++c) load(c);
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c)
+    ring_step<kN, 0, 0, kStages>(ring, kStage, c, acc, load);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
+
+  // the epilogue: each row's dx_next loads all issued before any store
+  // (dx_next and dx are distinct, but the compiler cannot know it of two
+  // fields), channels past C dropped (C even: a pair's second too)
+  const float* __restrict__ dx_next = a.dx_next;
+  float* __restrict__ dx = a.dx;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int t = t0 + warp * 16 + g + 8 * h;
-    if (t >= T) continue;
-    const int64_t row = (seq + t) * C;
-    const bool add = dx_next != nullptr && t < valid;
+    const int fr = rt0 + r16 + g + 8 * h;
+    if (fr >= R) continue;
+    const int bi = div_by(fr, a.div_t);
+    const bool add = dx_next != nullptr &&
+                     (a.valid_t == nullptr || fr - bi * T < a.valid_t[bi]);
+    const int64_t off = static_cast<int64_t>(fr) * C + n0 + 2 * tig;
+    if (add) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ch = n0 + 8 * j + 2 * tig;
-      if (ch >= C) continue;  // C even: ch + 1 < C too
-      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      if (add) {
-        const float2 n = *reinterpret_cast<const float2*>(dx_next + row + ch);
-        v = make_float2(n.x + v.x, n.y + v.y);
+      for (int j = 0; j < kN / 8; ++j) {
+        if (n0 + 8 * j + 2 * tig >= C) continue;
+        const float2 n =
+            *reinterpret_cast<const float2*>(dx_next + off + 8 * j);
+        acc[4 * j + 2 * h] = n.x + acc[4 * j + 2 * h];
+        acc[4 * j + 2 * h + 1] = n.y + acc[4 * j + 2 * h + 1];
       }
-      *reinterpret_cast<float2*>(dx + row + ch) = v;
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      if (n0 + 8 * j + 2 * tig >= C) continue;
+      *reinterpret_cast<float2*>(dx + off + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// ---- weights: dw_in and dw_rs, f32 partials of row ranges --------------------------
-
-// Output tiles of 64 rows x kWN columns: dw_in_p's (K*Cp / 64 x 2Cp / kWN),
-// then dw_rs_p's (Cp / 64 x ceil(n_rsp / kWN)).
-__host__ __device__ __forceinline__ int weight_tiles(int C, int K, int last) {
-  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp;
-  return K * cp / 64 * (2 * cp / kWN) + cp / 64 * ((n_rsp + kWN - 1) / kWN);
+__global__ void __launch_bounds__(kThreads, 1)
+wn_bwd_any_dx_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(1024) uint4 smem_dx[];
+  const uint32_t ring = smem_u32(smem_dx);
+  switch (a.dx_n) {
+    case 64: dx_body<64>(a, ring); break;
+    case 128: dx_body<128>(a, ring); break;
+    default: dx_body<192>(a, ring); break;
+  }
 }
 
-// blockIdx.x: the output tile; blockIdx.y: the range s = b * n_splits_t +
-// ts, rows [ts * split_rows, (ts + 1) * split_rows) of batch row b. Writes
-// its f32 partial of the tile into slot s of ws, each slot dw_in_p [K*Cp,
-// 2Cp] then dw_rs_p [Cp, n_rsp].
-__global__ void __launch_bounds__(kThreads, 1)
-wn_bwd_any_weights_kernel(const bf16* __restrict__ x_p,
-                          const bf16* __restrict__ dg_p,
-                          const bf16* __restrict__ acts_p,
-                          const bf16* __restrict__ g_p, float* __restrict__ ws,
-                          int T, int C, int K, int dilation, int last,
-                          int n_splits_t, int split_rows) {
-  extern __shared__ __align__(1024) uint4 smem_w[];
-  const uint32_t base = smem_u32(smem_w);
-  constexpr int kB = 2 * kBlock;  // [A0][A1] kBlock each, [B0][B1]
-  constexpr int kBBytes = kWN / 64 * kBlock;
-  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp;
-  const int split = blockIdx.y;
-  const int b = split / n_splits_t;
-  const int tb = (split % n_splits_t) * split_rows;
-  const int te = min(T, tb + split_rows);
-  const int64_t seq = static_cast<int64_t>(b) * T;
-  const int64_t dw_in_size = static_cast<int64_t>(K) * cp * 2 * cp;
-  float* wsp = ws + split * (dw_in_size + static_cast<int64_t>(cp) * n_rsp);
+// ---- weights: dw_in and dw_rs, f32 partials of row ranges -------------------
 
-  // the tile: out[m][n] = sum over the range's rows t of A[t + shift][m]
-  // B[t][n], m < 64, n < n_ext
-  const int in_nt = 2 * cp / kWN, in_tiles = K * cp / 64 * in_nt;
-  const int rs_nt = (n_rsp + kWN - 1) / kWN;
+// Output tiles of 128 rows x N columns: dw_in_p's (ceil(K*Cp / 128) x 2Cp /
+// N), then dw_rs_p^T's (ceil(n_rsp / 128) x Cp / N).
+struct WeightTiles {
+  int n, in_mt, in_nt, rs_mt, rs_nt;
+  int count() const { return in_mt * in_nt + rs_mt * rs_nt; }
+};
+
+WeightTiles weight_tiles(int C, int K, int last) {
+  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp, n = n_tile(cp);
+  return {n, (K * cp + kTile - 1) / kTile, 2 * cp / n,
+          (n_rsp + kTile - 1) / kTile, cp / n};
+}
+
+// blockIdx.x: the output tile; blockIdx.y: the range s, rows [tb, te) of
+// batch rows [b0, b1): with bq = s / n_splits_t and ts = s % n_splits_t,
+// b0 = bq * split_batches, b1 = min(B, b0 + split_batches), tb = ts *
+// split_rows, te = min(T, tb + split_rows) (a part of one batch row, or
+// whole batch rows where split_batches > 1 and n_splits_t = 1). Each batch
+// row's rows run in 64-row chunks from tb. Writes its f32 partial of the
+// tile into slot s of ws, each slot dw_in_p [K*Cp, 2Cp] then dw_rs_p [Cp,
+// n_rsp]. out[m][n] = sum over the range's rows t of A[t + shift][m]
+// B[t][n]: dw_in, A = x_p at tap-k columns (shift (k - K/2)*d; this
+// thread's 8 M values (tid % 16) * 8 lie in one tap), B = dgates; dw_rs^T,
+// A = g_p, B = acts_p.
+template <int kN>
+__device__ __forceinline__ void weights_body(const BwdArgs& a,
+                                             uint32_t ring) {
+  constexpr int kStage = nt_stage(kN), kStages = nt_stages(kN);
+  constexpr int kPer = kN / 8;  // 16-byte pieces of a B row
+  const int cp = a.cp, K = a.K, T = a.T, n_rsp = a.n_rsp;
+  const int s = blockIdx.y;
+  const int bq = s / a.n_splits_t, ts = s - bq * a.n_splits_t;
+  const int b0 = bq * a.split_batches;
+  const int b1 = min(a.batch, b0 + a.split_batches);
+  const int tb = ts * a.split_rows, te = min(T, tb + a.split_rows);
+  const int cpb = (te - tb + kKC - 1) / kKC;  // chunks of a batch row
+  const int chunks = (b1 - b0) * cpb;
+  const int64_t dw_in_size = static_cast<int64_t>(K) * cp * 2 * cp;
+  float* wsp = a.ws + s * (dw_in_size + static_cast<int64_t>(cp) * n_rsp);
+
+  const int m = (threadIdx.x % 16) * 8;  // this thread's A values of a row
   const bf16 *a_src, *b_src;
-  int lda, ldb, n_ext, ld_out;
+  int lda, ldb, m_ext, ld_m, ld_n;
   int64_t shift;
   float* out;
-  if (static_cast<int>(blockIdx.x) < in_tiles) {
-    // dw_in_p rows tap*Cp + ci0 + m, columns nt*kWN + n
-    const int mt = blockIdx.x / in_nt, nt = blockIdx.x % in_nt;
-    const int tap = mt * 64 / cp, ci0 = mt * 64 % cp;
-    a_src = x_p + ci0;
+  if (static_cast<int>(blockIdx.x) < a.in_mt * a.in_nt) {
+    // dw_in_p rows mt * 128 + m (tap, channel), columns nt * kN + n
+    const int mt = blockIdx.x / a.in_nt, nt = blockIdx.x - mt * a.in_nt;
+    const int mrow = mt * kTile + m;
+    const int tap = mrow / cp;
+    a_src = a.x_p + (mrow - tap * cp);
     lda = cp;
-    shift = static_cast<int64_t>(tap - K / 2) * dilation;
-    b_src = dg_p + nt * kWN;
+    shift = static_cast<int64_t>(tap - K / 2) * a.dilation;
+    m_ext = min(kTile, K * cp - mt * kTile);
+    b_src = a.dg_p + nt * kN;
     ldb = 2 * cp;
-    n_ext = kWN;
-    ld_out = 2 * cp;
-    out = wsp + static_cast<int64_t>(mt) * 64 * 2 * cp + nt * kWN;
+    out = wsp + static_cast<int64_t>(mt) * kTile * 2 * cp + nt * kN;
+    ld_m = 2 * cp;
+    ld_n = 1;
   } else {
-    // dw_rs_p rows mt*64 + m, columns nt*kWN + n
-    const int tile = blockIdx.x - in_tiles;
-    const int mt = tile / rs_nt, nt = tile % rs_nt;
-    a_src = acts_p + mt * 64;
-    lda = cp;
+    // dw_rs_p^T rows mt * 128 + m (of n_rsp), columns nt * kN + n (of Cp)
+    const int tile = blockIdx.x - a.in_mt * a.in_nt;
+    const int mt = tile / a.rs_nt, nt = tile - mt * a.rs_nt;
+    a_src = a.g_p + mt * kTile + m;
+    lda = n_rsp;
     shift = 0;
-    b_src = g_p + nt * kWN;
-    ldb = n_rsp;
-    n_ext = min(kWN, n_rsp - nt * kWN);
-    ld_out = n_rsp;
-    out = wsp + dw_in_size + static_cast<int64_t>(mt) * 64 * n_rsp + nt * kWN;
+    m_ext = min(kTile, n_rsp - mt * kTile);
+    b_src = a.acts_p + nt * kN;
+    ldb = cp;
+    out = wsp + dw_in_size + static_cast<int64_t>(nt) * kN * n_rsp +
+          mt * kTile;
+    ld_m = 1;
+    ld_n = n_rsp;
   }
+  const bool m_ok = m < m_ext;
+
+  // Chunk c: the rows ld_t1 + [0, 64) of the batch row from flat row
+  // ld_row0, zero at or past te (counters, the batch row's chunks in turn);
+  // A [64 K][128 M] and B [64 K][kN], MN-major. This thread's A pieces: K
+  // rows ka + 16i at its M values m.
+  const int ka = threadIdx.x / 16;
+  const uint32_t a_dst = m / 64 * kBlock + sw128_piece(ka, m % 64 / 8);
+  int ld_t1 = tb;
+  int64_t ld_row0 = static_cast<int64_t>(b0) * T;
+  const auto load = [&](int c) {
+    if (c < chunks) {
+      const uint32_t st = ring + (c % kStages) * kStage;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ld_t1 + ka + 16 * i;
+        const int64_t src_t = t + shift;
+        const bool ok = m_ok && t < te && src_t >= 0 && src_t < T;
+        cp_async16_zfill(st + a_dst + i * 2048,
+                         ok ? a_src + (ld_row0 + src_t) * lda : a_src, ok);
+      }
+#pragma unroll
+      for (int i = 0; i < kN / 32; ++i) {
+        const int p = threadIdx.x + i * kThreads;
+        const int kr = p / kPer, n = (p % kPer) * 8;
+        const int t = ld_t1 + kr;
+        const bool ok = t < te;
+        cp_async16_zfill(
+            st + kABytes + n / 64 * kBlock + sw128_piece(kr, n % 64 / 8),
+            ok ? b_src + (ld_row0 + t) * ldb + n : b_src, ok);
+      }
+      ld_t1 += kKC;
+      if (ld_t1 >= te) {
+        ld_t1 = tb;
+        ld_row0 += T;
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < ring_ahead(kStages); ++c) load(c);
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c)
+    ring_step<kN, 1, 1, kStages>(ring, kStage, c, acc, load);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;
-  float acc[kWN / 2];
-#pragma unroll
-  for (int i = 0; i < kWN / 2; ++i) acc[i] = 0.f;
-  chunks(
-      te > tb ? (te - tb + kKC - 1) / kKC : 0,
-      [&](int c, int buf) {
-        const int q = threadIdx.x % 8, r0 = threadIdx.x / 8;
-        const uint32_t a = base + buf * kBlock;
-        const uint32_t w = base + kB + buf * kBBytes;
-        // MN-major: K row kr is time row t = tb + 64c + kr, its 64 M values
-        // (A, from row t + shift) and kWN N values (B)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kr = r0 + 16 * i;
-          const int t = tb + c * kKC + kr;
-          const int64_t s = t + shift;
-          const bool ok = t < te && s >= 0 && s < T;
-          cp_async16_zfill(a + sw128_piece(kr, q),
-                           ok ? a_src + (seq + s) * lda + q * 8 : a_src, ok);
-        }
-#pragma unroll
-        for (int i = 0; i < 4 * kWN / 64; ++i) {
-          const int kr = r0 + 16 * (i % 4), h = i / 4;
-          const int t = tb + c * kKC + kr;
-          const int n = h * 64 + q * 8;
-          const bool ok = t < te && n < n_ext;
-          cp_async16_zfill(w + h * kBlock + sw128_piece(kr, q),
-                           ok ? b_src + (seq + t) * ldb + n : b_src, ok);
-        }
-      },
-      [&](int, int buf) {
-        const uint32_t a = base + buf * kBlock;
-        const uint32_t w = base + kB + buf * kBBytes;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < kKC / 16; ++k)
-          wgmma_m64<kWN, 1, 1>(acc, mnmajor_desc(a + k * 2048, kBlock),
-                               mnmajor_desc(w + k * 2048, kBlock));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc);
-      });
-
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float* o = out + static_cast<int64_t>(warp * 16 + g + 8 * h) * ld_out;
+    const int mm = warp * 16 + g + 8 * h;
+    if (mm >= m_ext) continue;
+    float* o = out + static_cast<int64_t>(mm) * ld_m;
 #pragma unroll
-    for (int j = 0; j < kWN / 8; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       const int n = 8 * j + 2 * tig;
-      if (n < n_ext)
+      if (ld_n == 1) {
         *reinterpret_cast<float2*>(o + n) =
             make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        o[static_cast<int64_t>(n) * ld_n] = acc[4 * j + 2 * h];
+        o[static_cast<int64_t>(n + 1) * ld_n] = acc[4 * j + 2 * h + 1];
+      }
     }
   }
 }
 
-// ---- reduce: fixed-order sums, the padding dropped, casts -------------------------
+__global__ void __launch_bounds__(kThreads, 1)
+wn_bwd_any_weights_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(1024) uint4 smem_w[];
+  const uint32_t ring = smem_u32(smem_w);
+  switch (a.w_n) {
+    case 64: weights_body<64>(a, ring); break;
+    case 128: weights_body<128>(a, ring); break;
+    case 192: weights_body<192>(a, ring); break;
+    default: weights_body<256>(a, ring); break;
+  }
+}
 
-// One thread per output element: dw_in [K*C, 2C], dw_rs [C, n_rs], db_in
-// [2C], db_rs [n_rs], in that order. A weight sums its n_splits partials in
-// order; a bias its n_tiles column sums in order.
-__global__ void __launch_bounds__(kElemThreads)
-wn_bwd_any_reduce_kernel(const float* __restrict__ ws, int n_splits,
-                         const float* __restrict__ part_in,
-                         const float* __restrict__ part_rs, int n_tiles,
-                         bf16* __restrict__ dw_in, bf16* __restrict__ dw_rs,
-                         float* __restrict__ db_in, float* __restrict__ db_rs,
-                         int C, int K, int last) {
-  const int cp = pad64(C);
-  const int n_rs = last ? C : 2 * C, n_rsp = last ? cp : 2 * cp;
-  const int64_t n_in = static_cast<int64_t>(K) * C * 2 * C;
-  const int64_t n_w = n_in + static_cast<int64_t>(C) * n_rs;
-  const int64_t dw_in_size = static_cast<int64_t>(K) * cp * 2 * cp;
-  const int64_t stride = dw_in_size + static_cast<int64_t>(cp) * n_rsp;
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * kElemThreads + threadIdx.x;
-  if (idx < n_w) {
-    int64_t p;
-    if (idx < n_in) {
-      const int64_t row = idx / (2 * C);
-      const int col = static_cast<int>(idx % (2 * C));
-      const int64_t tap = row / C, ci = row % C;
-      p = (tap * cp + ci) * 2 * cp + col / C * cp + col % C;
-    } else {
-      const int64_t c = (idx - n_in) / n_rs;
-      const int col = static_cast<int>((idx - n_in) % n_rs);
-      p = dw_in_size + c * n_rsp + col / C * cp + col % C;
-    }
+// ---- reduce: fixed-order sums, the padding dropped, casts -------------------
+
+// Blocks [0, bias blocks): one warp a bias column, db_in's 2C then db_rs's
+// n_rs, its lanes summing every 32nd of the B * tiles_t rows of part_bias,
+// then a butterfly. The blocks after them: one thread an element of dw_in
+// [K*C, 2C] then dw_rs [C, n_rs], summing the ranges' partials in order.
+constexpr int kBiasCols = kThreads / 32;
+
+__global__ void __launch_bounds__(kThreads)
+wn_bwd_any_reduce_kernel(const __grid_constant__ BwdArgs a) {
+  const int C = a.C, cp = a.cp, n_rs = a.n_rs, n_rsp = a.n_rsp;
+  const int n_bias = 2 * C + n_rs;
+  const int bias_blocks = (n_bias + kBiasCols - 1) / kBiasCols;
+  if (static_cast<int>(blockIdx.x) < bias_blocks) {
+    const int col = blockIdx.x * kBiasCols + threadIdx.x / 32;
+    if (col >= n_bias) return;  // the whole warp
+    const int lane = threadIdx.x % 32;
+    const bool in = col < 2 * C;
+    const int c = in ? col : col - 2 * C;
+    const int p = (in ? 0 : 2 * cp) + c / C * cp + c % C;
+    const int ld = 2 * cp + n_rsp;
+    const int n_tiles = a.batch * a.tiles_t;
     float s = 0.f;
-    for (int i = 0; i < n_splits; ++i) s += ws[i * stride + p];
-    const bf16 v = __float2bfloat16(s);
-    if (idx < n_in) dw_in[idx] = v;
-    else dw_rs[idx - n_in] = v;
+    for (int i = lane; i < n_tiles; i += 32)
+      s += a.part_bias[static_cast<int64_t>(i) * ld + p];
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) {
+      if (in) a.db_in[c] = s;
+      else a.db_rs[c] = s;
+    }
     return;
   }
-  const int64_t col = idx - n_w;
-  if (col >= 2 * C + n_rs) return;
-  const bool in = col < 2 * C;
-  const int c = static_cast<int>(in ? col : col - 2 * C);
-  const float* part = in ? part_in : part_rs;
-  const int ld = in ? 2 * cp : n_rsp;
-  const int p = c / C * cp + c % C;
+  const int n_in = a.K * C * 2 * C;
+  const int n_w = n_in + C * n_rs;
+  const int w = (blockIdx.x - bias_blocks) * kThreads + threadIdx.x;
+  if (w >= n_w) return;
+  const int dw_in_size = a.K * cp * 2 * cp;
+  int p = w;  // C = Cp: the padded layouts are the outputs'
+  if (a.pad) {
+    if (w < n_in) {
+      const int row = w / (2 * C), col = w - row * 2 * C;
+      const int tap = row / C, ci = row - tap * C;
+      p = (tap * cp + ci) * 2 * cp + col / C * cp + col % C;
+    } else {
+      const int c = (w - n_in) / n_rs, col = w - n_in - c * n_rs;
+      p = dw_in_size + c * n_rsp + col / C * cp + col % C;
+    }
+  }
+  const int64_t stride = dw_in_size + static_cast<int64_t>(cp) * n_rsp;
+  const int n_splits = (a.batch + a.split_batches - 1) / a.split_batches *
+                       a.n_splits_t;
   float s = 0.f;
-  for (int i = 0; i < n_tiles; ++i) s += part[static_cast<int64_t>(i) * ld + p];
-  if (in) db_in[c] = s;
-  else db_rs[c] = s;
+  for (int i = 0; i < n_splits; ++i) s += a.ws[i * stride + p];
+  const bf16 v = __float2bfloat16(s);
+  if (w < n_in) a.dw_in[w] = v;
+  else a.dw_rs[w - n_in] = v;
 }
 
 // The kernel `which` (0 rows, 1 dx, 2 weights, 3 reduce, 4 prep, 5 pad) and
-// its dynamic shared bytes.
-const void* kernel_for(int which, int* smem_bytes) {
+// its dynamic shared bytes at width C.
+const void* kernel_for(int which, int C, int* smem_bytes) {
   *smem_bytes = 0;
   switch (which) {
     case 0:
       *smem_bytes = kRowsSmem;
       return reinterpret_cast<const void*>(wn_bwd_any_rows_kernel);
     case 1:
-      *smem_bytes = kDxSmem;
+      *smem_bytes = nt_smem(dx_tile(pad64(C)));
       return reinterpret_cast<const void*>(wn_bwd_any_dx_kernel);
     case 2:
-      *smem_bytes = kWeightsSmem;
+      *smem_bytes = nt_smem(n_tile(pad64(C)));
       return reinterpret_cast<const void*>(wn_bwd_any_weights_kernel);
     case 3:
       return reinterpret_cast<const void*>(wn_bwd_any_reduce_kernel);
@@ -718,108 +1034,157 @@ std::atomic<uint32_t> g_opted_in[3];
 extern "C" {
 
 // Output tiles of the weights kernel at (C, K, last): each a block for each
-// of the n_splits_t ranges of each batch row.
+// range of the cut; -1 for a shape the kernels do not take.
 int wn_layer_bwd_any_weight_tiles(int C, int K, int last) {
-  if (C <= 0 || C % 2 != 0 || K <= 0 || K % 2 != 1) return -1;
-  return weight_tiles(C, K, last);
+  if (C <= 0 || C % 2 != 0 || C > kMaxC || K <= 0 || K % 2 != 1) return -1;
+  return weight_tiles(C, K, last).count();
 }
 
-// The bf16 backward of one whole layer at any even C and odd K, six
-// launches on `stream` (pad, prep, rows, dx, weights, reduce), no
-// synchronisation; returns the first launch error.
+// The bf16 backward of one whole layer at any even C up to 1,280 and odd K,
+// on `stream` (pad where C is not a multiple of 64, then prep, rows, dx,
+// weights, reduce), no synchronisation; returns the first launch error.
 // Inputs: x [batch, T, C] f32; cond [batch, T, 2C], w_in [K*C, 2C], w_rs
 // [C, n_rs] bf16 (n_rs = C when last, else 2C); b_in [2C] f32; dx_next,
 // dskip [batch, T, C] f32 or null (zero); valid_t [batch] int32 or null.
 // Outputs: dx f32 like x, dcond bf16 like cond, dw_in / dw_rs bf16 like the
 // weights, db_in / db_rs f32. Scratch, from the caller (Cp = C rounded up
 // to 64, n_rsp = Cp when last, else 2Cp; R = batch*T; tiles = batch *
-// ceil(T / 64)): x_p, acts_p [R, Cp], g_p [R, n_rsp], dg_p [R, 2Cp],
-// w_in_p [K*Cp, 2Cp], w_rs_p [Cp, n_rsp] bf16; part_in [tiles, 2Cp],
-// part_rs [tiles, n_rsp] f32; ws [batch * n_splits_t, K*Cp*2Cp +
-// Cp*n_rsp] f32. The weights kernel splits each batch row's T into
-// n_splits_t ranges of split_rows rows (a multiple of 64). Pointers
+// ceil(T / 128)): x_p, acts_p [R, Cp], g_p [R, n_rsp] bf16; part_bias
+// [tiles, 2Cp + n_rsp] f32; where C != Cp (else null) w_in_p [K*Cp, 2Cp],
+// w_rs_p [Cp, n_rsp], dg_p [R, 2Cp] bf16; ws [ranges, K*Cp*2Cp +
+// Cp*n_rsp] f32. The weights kernel's ranges (see its kernel):
+// ceil(batch / split_batches) * n_splits_t of them, each batch row's T cut
+// into n_splits_t ranges of split_rows rows (a multiple of 64), or
+// split_batches > 1 whole batch rows a range (n_splits_t = 1). Pointers
 // 16-byte aligned, contiguous.
 cudaError_t wn_layer_backward_any_bf16(
     const float* x, const void* cond, const void* w_in, const float* b_in,
     const void* w_rs, const float* dx_next, const float* dskip,
     const int* valid_t, float* dx, void* dcond, void* dw_in, float* db_in,
     void* dw_rs, float* db_rs, void* x_p, void* g_p, void* w_in_p,
-    void* w_rs_p, void* acts_p, void* dg_p, float* part_in, float* part_rs,
-    float* ws, int batch, int T, int C, int K, int dilation, int last,
-    int n_splits_t, int split_rows, cudaStream_t stream) {
-  if (T <= 0 || batch <= 0 || batch > 65535 || C <= 0 || C % 2 != 0 ||
-      K <= 0 || K % 2 != 1 || dilation < 0 || n_splits_t <= 0 ||
-      split_rows <= 0 || split_rows % kKC != 0 ||
-      static_cast<int64_t>(batch) * n_splits_t > 65535 ||
-      static_cast<int64_t>(n_splits_t) * split_rows < T)
-    return cudaErrorInvalidValue;
+    void* w_rs_p, void* acts_p, void* dg_p, float* part_bias, float* ws,
+    int batch, int T, int C, int K, int dilation, int last, int n_splits_t,
+    int split_rows, int split_batches, cudaStream_t stream) {
   const int cp = pad64(C);
-  const int tiles_t = (T + kTile - 1) / kTile;
-  const auto* wi = static_cast<const bf16*>(w_in);
-  const auto* wr = static_cast<const bf16*>(w_rs);
-  auto* xb = static_cast<bf16*>(x_p);
-  auto* gb = static_cast<bf16*>(g_p);
-  auto* wib = static_cast<bf16*>(w_in_p);
-  auto* wrb = static_cast<bf16*>(w_rs_p);
-  auto* ab = static_cast<bf16*>(acts_p);
-  auto* dgb = static_cast<bf16*>(dg_p);
+  const bool pad = cp != C;
+  const int64_t rows = static_cast<int64_t>(batch) * T;
+  if (T <= 0 || batch <= 0 || batch > 65535 ||
+      rows >= (int64_t{1} << 31) - kTile || C <= 0 || C % 2 != 0 ||
+      C > kMaxC || K <= 0 || K % 2 != 1 || dilation < 0 ||
+      static_cast<int64_t>(K) * cp * 2 * cp + 2 * cp * cp >=
+          (int64_t{1} << 31) ||
+      n_splits_t <= 0 || split_rows <= 0 || split_rows % kKC != 0 ||
+      split_batches <= 0 || (split_batches > 1 && n_splits_t != 1) ||
+      static_cast<int64_t>(n_splits_t) * split_rows < T ||
+      static_cast<int64_t>((batch + split_batches - 1) / split_batches) *
+              n_splits_t > 65535 ||
+      x_p == nullptr || g_p == nullptr || acts_p == nullptr ||
+      part_bias == nullptr || ws == nullptr ||
+      (pad && (w_in_p == nullptr || w_rs_p == nullptr || dg_p == nullptr)))
+    return cudaErrorInvalidValue;
+  const WeightTiles wt = weight_tiles(C, K, last);
+  BwdArgs a;
+  a.x = x;
+  a.cond = static_cast<const bf16*>(cond);
+  a.w_in = static_cast<const bf16*>(w_in);
+  a.b_in = b_in;
+  a.w_rs = static_cast<const bf16*>(w_rs);
+  a.dx_next = dx_next;
+  a.dskip = dskip;
+  a.valid_t = valid_t;
+  a.dx = dx;
+  a.dcond = static_cast<bf16*>(dcond);
+  a.dw_in = static_cast<bf16*>(dw_in);
+  a.db_in = db_in;
+  a.dw_rs = static_cast<bf16*>(dw_rs);
+  a.db_rs = db_rs;
+  a.x_p = static_cast<bf16*>(x_p);
+  a.g_p = static_cast<bf16*>(g_p);
+  a.acts_p = static_cast<bf16*>(acts_p);
+  a.dg_p = pad ? static_cast<bf16*>(dg_p) : a.dcond;
+  a.w_in_p = static_cast<bf16*>(w_in_p);
+  a.w_rs_p = static_cast<bf16*>(w_rs_p);
+  a.w_in_k = pad ? a.w_in_p : a.w_in;
+  a.w_rs_k = pad ? a.w_rs_p : a.w_rs;
+  a.part_bias = part_bias;
+  a.ws = ws;
+  a.batch = batch;
+  a.T = T;
+  a.C = C;
+  a.K = K;
+  a.dilation = dilation;
+  a.last = last;
+  a.rows = static_cast<int>(rows);
+  a.cp = cp;
+  a.n_rs = last ? C : 2 * C;
+  a.n_rsp = last ? cp : 2 * cp;
+  a.pad = pad;
+  a.tiles_t = (T + kTile - 1) / kTile;
+  a.passes = cp / kPass;
+  a.dx_n = dx_tile(cp);
+  a.w_n = wt.n;
+  a.in_mt = wt.in_mt;
+  a.in_nt = wt.in_nt;
+  a.rs_mt = wt.rs_mt;
+  a.rs_nt = wt.rs_nt;
+  a.n_splits_t = n_splits_t;
+  a.split_rows = split_rows;
+  a.split_batches = split_batches;
+  a.div_passes = fast_div(a.passes);
+  a.div_t = fast_div(T);
 
-  wn_bwd_any_pad_kernel<<<K * cp + cp, kElemThreads, 0, stream>>>(
-      wi, wr, wib, wrb, C, K, last);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wn_bwd_any_prep_kernel<<<dim3(tiles_t, batch), kElemThreads, 0, stream>>>(
-      x, dx_next, dskip, valid_t, xb, gb, part_rs, T, C, last);
+  cudaError_t err;
+  if (pad) {
+    wn_bwd_any_pad_kernel<<<K * cp + cp, kThreads, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  wn_bwd_any_prep_kernel<<<dim3(a.tiles_t, batch), kThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = opt_in_smem(wn_bwd_any_rows_kernel, kRowsSmem, &g_opted_in[0]);
   if (err != cudaSuccess) return err;
-  wn_bwd_any_rows_kernel<<<dim3(tiles_t * (cp / 64), batch), kThreads,
-                           kRowsSmem, stream>>>(
-      xb, static_cast<const bf16*>(cond), wib, b_in, wrb, gb,
-      static_cast<bf16*>(dcond), ab, dgb, part_in, T, C, K, dilation, last);
+  wn_bwd_any_rows_kernel<<<dim3(a.tiles_t * a.passes, batch), kThreads,
+                           kRowsSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = opt_in_smem(wn_bwd_any_dx_kernel, kDxSmem, &g_opted_in[1]);
+  // both opted in at the most bytes of any N, launched with their own N's
+  err = opt_in_smem(wn_bwd_any_dx_kernel, kSmemMax, &g_opted_in[1]);
   if (err != cudaSuccess) return err;
-  wn_bwd_any_dx_kernel<<<dim3(tiles_t * (cp / 64), batch), kThreads, kDxSmem,
-                         stream>>>(dgb, wib, dx_next, valid_t, dx, T, C, K,
-                                   dilation);
+  wn_bwd_any_dx_kernel<<<dim3((a.rows + kTile - 1) / kTile, cp / a.dx_n),
+                         kThreads, nt_smem(a.dx_n), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = opt_in_smem(wn_bwd_any_weights_kernel, kWeightsSmem, &g_opted_in[2]);
+  err = opt_in_smem(wn_bwd_any_weights_kernel, kSmemMax, &g_opted_in[2]);
   if (err != cudaSuccess) return err;
-  wn_bwd_any_weights_kernel<<<dim3(weight_tiles(C, K, last),
-                                   batch * n_splits_t),
-                              kThreads, kWeightsSmem, stream>>>(
-      xb, dgb, ab, gb, ws, T, C, K, dilation, last, n_splits_t, split_rows);
+  const int ranges =
+      (batch + split_batches - 1) / split_batches * n_splits_t;
+  wn_bwd_any_weights_kernel<<<dim3(wt.count(), ranges), kThreads,
+                              nt_smem(wt.n), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int n_rs = last ? C : 2 * C;
-  const int64_t outputs = static_cast<int64_t>(K) * C * 2 * C +
-                          static_cast<int64_t>(C) * n_rs + 2 * C + n_rs;
-  wn_bwd_any_reduce_kernel<<<static_cast<unsigned>(
-                                 (outputs + kElemThreads - 1) / kElemThreads),
-                             kElemThreads, 0, stream>>>(
-      ws, batch * n_splits_t, part_in, part_rs, batch * tiles_t,
-      static_cast<bf16*>(dw_in), static_cast<bf16*>(dw_rs), db_in, db_rs, C,
-      K, last);
+  const int n_bias = 2 * C + a.n_rs;
+  const int n_w = K * C * 2 * C + C * a.n_rs;
+  const int blocks = (n_bias + kBiasCols - 1) / kBiasCols +
+                     (n_w + kThreads - 1) / kThreads;
+  wn_bwd_any_reduce_kernel<<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // What the loaded build of kernel `which` (0 rows, 1 dx, 2 weights, 3
 // reduce, 4 prep, 5 pad) uses, from the CUDA runtime: registers and local
 // (spill) bytes per thread, static shared bytes, and the dynamic shared
-// bytes its launcher passes.
-cudaError_t wn_layer_bwd_any_kernel_info(int which, int* registers,
+// bytes its launcher passes at width C.
+cudaError_t wn_layer_bwd_any_kernel_info(int which, int C, int* registers,
                                          int* local_bytes,
                                          int* static_smem_bytes,
                                          int* dynamic_smem_bytes) {
-  const void* kernel = kernel_for(which, dynamic_smem_bytes);
+  if (C <= 0 || C % 2 != 0 || C > kMaxC) return cudaErrorInvalidValue;
+  const void* kernel = kernel_for(which, C, dynamic_smem_bytes);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);

@@ -270,8 +270,8 @@ SIGNATURES = {
     "wn_layer_any_kernel_info": [_I] * 4 + [_IP] * 4,
     "wn_layer_any_schedule": [_I] * 5 + [_IP] * 3,
     "wn_layer_any_max_channels": [_I],
-    "wn_layer_backward_any_bf16": [_P] * 23 + [_I] * 8 + [_P],
-    "wn_layer_bwd_any_kernel_info": [_I] + [_IP] * 4,
+    "wn_layer_backward_any_bf16": [_P] * 22 + [_I] * 9 + [_P],
+    "wn_layer_bwd_any_kernel_info": [_I] * 2 + [_IP] * 4,
     "wn_layer_bwd_any_weight_tiles": [_I] * 3,
 }
 
@@ -333,17 +333,18 @@ def any_kernel_info(bf16: bool, last: bool, channels: int = 256,
 
 
 # The shape-generic bf16 backward's kernels (``csrc/wn_layer_bwd_any.cu``),
-# by their index in its C interface; a call launches "pad" and "prep",
-# then the other four in this order.
+# by their index in its C interface; a call launches them in the order of
+# :func:`any_bwd_kernels`.
 ANY_BWD_KERNELS = ("rows", "dx", "weights", "reduce", "prep", "pad")
 
 
-def any_bwd_kernel_info(kernel: str) -> dict:
+def any_bwd_kernel_info(kernel: str, channels: int = 256) -> dict:
   """:func:`kernel_info` for one kernel of ``ANY_BWD_KERNELS`` of the
-  shape-generic bf16 backward (its dynamic shared bytes are the same at
-  every shape)."""
+  shape-generic bf16 backward, its dynamic shared bytes those its launcher
+  passes at width ``channels`` (the dx and weights kernels' rings hold
+  tiles :func:`any_bwd_dx_tile` and :func:`any_bwd_n_tile` wide)."""
   return _info(_library().wn_layer_bwd_any_kernel_info,
-               ANY_BWD_KERNELS.index(kernel))
+               ANY_BWD_KERNELS.index(kernel), channels)
 
 
 def f32_rest_kernel_info(last: bool) -> dict:
@@ -1208,29 +1209,93 @@ def _bwd_operands(saved: Tuple[torch.Tensor, ...],
 
 
 # Time rows of a tile of the shape-generic backward's prep, rows and dx
-# kernels (kTile in csrc/wn_layer_bwd_any.cu).
-ANY_BWD_TILE_ROWS = 64
+# kernels, and M of a weights tile (kTile in csrc/wn_layer_bwd_any.cu); the
+# channels of a rows kernel's pass (kPass): Cp / ANY_BWD_PASS passes a tile.
+ANY_BWD_TILE_ROWS = 128
+ANY_BWD_PASS = 64
+
+
+def any_bwd_kernels(c: int) -> Tuple[str, ...]:
+  """The kernels a generic backward call at width ``c`` launches, in order:
+  "pad" where C is not a multiple of ANY_PAD (elsewhere the weights and
+  dcond are read as they lie), then "prep", "rows", "dx", "weights",
+  "reduce"."""
+  return (("pad",) if c % ANY_PAD else ()) + (
+      "prep", "rows", "dx", "weights", "reduce")
+
+
+def any_bwd_n_tile(c: int) -> int:
+  """N of the generic backward's weights tiles at width ``c``: the widest
+  of 256, 192, 128 and 64 that divides Cp (n_tile in
+  csrc/wn_layer_bwd_any.cu)."""
+  cp = any_cp(c)
+  return next(n for n in (256, 192, 128, 64) if cp % n == 0)
+
+
+def any_bwd_dx_tile(c: int) -> int:
+  """N of the generic backward's dx tiles at width ``c``: the widest of
+  192, 128 and 64 that divides Cp (dx_tile in csrc/wn_layer_bwd_any.cu)."""
+  cp = any_cp(c)
+  return next(n for n in (192, 128, 64) if cp % n == 0)
+
+
+def any_bwd_weight_tiles(c: int, k: int, last: bool) -> int:
+  """The output tiles of the generic backward's weights kernel, as the
+  library's ``wn_layer_bwd_any_weight_tiles`` counts them: dw_in_p [K*Cp,
+  2Cp] in tiles of ANY_BWD_TILE_ROWS rows (the last one short where K*Cp
+  is an odd number of 64s) x :func:`any_bwd_n_tile` columns, then dw_rs_p^T
+  [n_rsp, Cp] likewise (n_rsp = 2Cp, the last layer's Cp)."""
+  cp, n = any_cp(c), any_bwd_n_tile(c)
+  n_rsp = cp if last else 2 * cp
+  m = ANY_BWD_TILE_ROWS
+  return -(-k * cp // m) * (2 * cp // n) + -(-n_rsp // m) * (cp // n)
+
+
+def any_bwd_splits(batch: int, t: int, tiles: int,
+                   sms: int) -> Tuple[int, int, int]:
+  """``(split_batches, n_splits_t, split_rows)`` of the generic backward's
+  weights kernel: its ranges are runs of ``split_batches`` whole batch rows
+  (``n_splits_t`` = 1, ``split_rows`` T rounded up to BWD_CHUNK_ROWS) or,
+  at ``split_batches`` = 1, each batch row cut into ``n_splits_t`` ranges of
+  ``split_rows`` rows (:func:`_row_cuts`), one block for each of the
+  kernel's ``tiles`` output tiles and each range, and one slot of f32
+  partials a range. :func:`_fill_waves` picks among them, the runs of whole
+  batch rows first; where no run of several whole batch rows fills a wave,
+  the cut is :func:`bwd_splits`' own."""
+  whole = -(-t // BWD_CHUNK_ROWS) * BWD_CHUNK_ROWS
+  runs = sorted({-(-batch // g) for g in range(1, batch + 1)}, reverse=True)
+  cuts = [(-(-batch // per), (per, 1, whole)) for per in runs]
+  cuts += [(batch * n, (1, n, rows)) for n, rows in _row_cuts(t)[1:]]
+  return _fill_waves(cuts, tiles, sms)
+
+
+def any_bwd_ranges(batch: int, split_batches: int, n_splits_t: int) -> int:
+  """The weights kernel's ranges, and so the workspace's slots, of a cut."""
+  return -(-batch // split_batches) * n_splits_t
 
 
 def any_bwd_scratch(batch: int, t: int, c: int, k: int, last: bool,
-                    n_splits_t: int) -> dict:
+                    ranges: int) -> dict:
   """The shape-generic backward's scratch as one allocation: byte
   ``offsets`` (each 256-byte aligned), ``sizes`` and the total ``bytes`` of
-  its operands padded to Cp = C rounded up to 64 channels (zero past C):
-  bf16 x_p [R, Cp], g_p (drs) [R, n_rsp], w_in_p [K*Cp, 2Cp], w_rs_p [Cp,
-  n_rsp], acts_p [R, Cp] and dg_p (dgates) [R, 2Cp]; the f32 column sums of
-  each 64-row tile, part_in [B*tiles, 2Cp] of dgates and part_rs [B*tiles,
-  n_rsp] of drs; and the weights kernel's f32 partials ws [B*n_splits_t,
-  K*Cp*2Cp + Cp*n_rsp]. R = B*T; n_rsp = 2Cp, the last layer's Cp."""
-  cp = -(-c // 64) * 64
+  its operands in layouts padded to Cp = C rounded up to 64 channels (zero
+  past C): bf16 x_p [R, Cp], g_p (drs) [R, n_rsp] and acts_p [R, Cp]; the
+  f32 column sums of each 128-row tile, part_bias [B*tiles, 2Cp + n_rsp]
+  (dgates', then drs'); the weights kernel's f32 partials ws [ranges,
+  K*Cp*2Cp + Cp*n_rsp], a slot a range of its cut (:func:`any_bwd_splits`);
+  and where C is not a multiple of 64 the padded w_in_p [K*Cp, 2Cp], w_rs_p
+  [Cp, n_rsp] and dgates dg_p [R, 2Cp] (elsewhere the kernels read w_in,
+  w_rs and dcond as they lie). R = B*T; n_rsp = 2Cp, the last layer's Cp."""
+  cp = any_cp(c)
   n_rsp = cp if last else 2 * cp
   rows = batch * t
   tiles = batch * -(-t // ANY_BWD_TILE_ROWS)
   sizes = {"x_p": rows * cp * 2, "g_p": rows * n_rsp * 2,
-           "w_in_p": k * cp * 2 * cp * 2, "w_rs_p": cp * n_rsp * 2,
-           "acts_p": rows * cp * 2, "dg_p": rows * 2 * cp * 2,
-           "part_in": tiles * 2 * cp * 4, "part_rs": tiles * n_rsp * 4,
-           "ws": batch * n_splits_t * (k * cp * 2 * cp + cp * n_rsp) * 4}
+           "acts_p": rows * cp * 2, "part_bias": tiles * (2 * cp + n_rsp) * 4,
+           "ws": ranges * (k * cp * 2 * cp + cp * n_rsp) * 4}
+  if cp != c:
+    sizes.update(w_in_p=k * cp * 2 * cp * 2, w_rs_p=cp * n_rsp * 2,
+                 dg_p=rows * 2 * cp * 2)
   offsets, end = {}, 0
   for name, size in sizes.items():
     offsets[name] = end
@@ -1242,13 +1307,15 @@ def any_bwd_scratch(batch: int, t: int, c: int, k: int, last: bool,
 def _any_bwd_plan(batch: int, t: int, c: int, k: int, last: bool,
                   dev: torch.device) -> dict:
   """The shape-generic backward's launch plan at one shape and card: the
-  weights kernel's split (:func:`bwd_splits` over its output tiles, read
+  weights kernel's cut (:func:`any_bwd_splits` over its output tiles, read
   from the library) and the scratch layout."""
-  n_splits_t, split_rows = bwd_splits(
+  split_batches, n_splits_t, split_rows = any_bwd_splits(
       batch, t, _library().wn_layer_bwd_any_weight_tiles(c, k, int(last)),
       torch.cuda.get_device_properties(dev).multi_processor_count)
-  return {"n_splits_t": n_splits_t, "split_rows": split_rows,
-          **any_bwd_scratch(batch, t, c, k, last, n_splits_t)}
+  ranges = any_bwd_ranges(batch, split_batches, n_splits_t)
+  return {"split_batches": split_batches, "n_splits_t": n_splits_t,
+          "split_rows": split_rows, "ranges": ranges,
+          **any_bwd_scratch(batch, t, c, k, last, ranges)}
 
 
 def wn_layer_backward_any(saved: Tuple[torch.Tensor, ...],
@@ -1257,8 +1324,8 @@ def wn_layer_backward_any(saved: Tuple[torch.Tensor, ...],
                           valid_t: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, ...]:
   """:func:`wn_layer_backward` with ``compute_dtype=torch.bfloat16`` on the
-  card at any shape, through the six kernels of
-  ``csrc/wn_layer_bwd_any.cu`` (one call, counted once in
+  card at any shape, through the kernels of ``csrc/wn_layer_bwd_any.cu``
+  (:func:`any_bwd_kernels`; one call, counted once in
   ``ANY_BWD_LAUNCHES``). Inputs as :func:`wn_layer_any` takes them in bf16
   (x, b_in, b_rs f32; cond, w_in [K, C, 2C] or any view of it, w_rs bf16;
   C even and at most ``ANY_MAX_C[torch.bfloat16]``, K odd; valid_t None or
@@ -1298,9 +1365,9 @@ def wn_layer_backward_any(saved: Tuple[torch.Tensor, ...],
         w_rs.data_ptr(), _ptr(cots[0]), _ptr(cots[1]), _ptr(valid_t),
         dx.data_ptr(), dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
         dw_rs.data_ptr(), db_rs.data_ptr(), at["x_p"], at["g_p"],
-        at["w_in_p"], at["w_rs_p"], at["acts_p"], at["dg_p"], at["part_in"],
-        at["part_rs"], at["ws"], batch, t, c, k, int(dilation), int(last),
-        plan["n_splits_t"], plan["split_rows"],
+        at.get("w_in_p"), at.get("w_rs_p"), at["acts_p"], at.get("dg_p"),
+        at["part_bias"], at["ws"], batch, t, c, k, int(dilation), int(last),
+        plan["n_splits_t"], plan["split_rows"], plan["split_batches"],
         torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"wn_layer_backward_any kernels failed to launch: "
@@ -1392,35 +1459,51 @@ def wn_layer_shard_backward(saved: Tuple[torch.Tensor, ...],
 BWD_CHUNK_ROWS = 64
 
 
-def bwd_splits(batch: int, t: int, tiles: int, sms: int) -> Tuple[int, int]:
-  """``(n_splits_t, split_rows)`` of the bf16 backward's weights kernel
-  (the whole layer's and a rank's):
-  each of the ``batch`` rows' ``t`` time rows is cut into ``n_splits_t``
-  ranges of ``split_rows`` (a multiple of ``BWD_CHUNK_ROWS``; the last
-  range short), one block for each of the kernel's ``tiles`` output tiles
-  and each range. The cut is the fewest ranges whose blocks fill at least
-  one wave of ``sms`` blocks and keep the last wave at least 85% full; else
-  (no such cut within 4 waves) the cut with the fullest last wave, at least
-  one wave where the rows allow it. More ranges mean more f32 partials for
-  the reduce kernel to read."""
+def _row_cuts(t: int) -> list:
+  """``(n_splits_t, split_rows)`` of each cut of a batch row's ``t`` rows
+  into ranges of a multiple of ``BWD_CHUNK_ROWS`` rows (the last range
+  short), in increasing number of ranges."""
   chunks = -(-t // BWD_CHUNK_ROWS)
-  best = None
+  out = []
   for want in range(1, chunks + 1):
     split_rows = -(-chunks // want) * BWD_CHUNK_ROWS
     n_splits = -(-t // split_rows)
-    if best is not None and n_splits == best[1]:
-      continue
-    blocks = tiles * batch * n_splits
+    if not out or out[-1][0] != n_splits:
+      out.append((n_splits, split_rows))
+  return out
+
+
+def _fill_waves(cuts: list, tiles: int, sms: int):
+  """The cut a weights kernel of ``tiles`` output tiles takes among
+  ``cuts``, (ranges, cut) pairs in increasing number of ranges, one block
+  for each tile and range: the fewest ranges whose blocks fill at least one
+  wave of ``sms`` blocks and keep the last wave at least 85% full; else
+  (no such cut within 4 waves) the cut with the fullest last wave, at least
+  one wave where the rows allow it. More ranges mean more f32 partials for
+  the reduce kernel to read."""
+  best = None
+  for ranges, cut in cuts:
+    blocks = tiles * ranges
     waves = -(-blocks // sms)
     if waves > 4 and best is not None:
       break
     fill = blocks / (waves * sms)
     key = (blocks >= sms, fill)
     if best is None or key > best[0]:
-      best = (key, n_splits, split_rows)
+      best = (key, cut)
     if blocks >= sms and fill >= 0.85:
       break
-  return best[1], best[2]
+  return best[1]
+
+
+def bwd_splits(batch: int, t: int, tiles: int, sms: int) -> Tuple[int, int]:
+  """``(n_splits_t, split_rows)`` of the bf16 backward's weights kernel
+  (the whole layer's and a rank's): each of the ``batch`` rows' ``t`` time
+  rows is cut into ``n_splits_t`` ranges of ``split_rows`` (a multiple of
+  ``BWD_CHUNK_ROWS``; the last range short), as :func:`_fill_waves` picks
+  among :func:`_row_cuts`."""
+  return _fill_waves([(batch * n, (n, rows)) for n, rows in _row_cuts(t)],
+                     tiles, sms)
 
 
 def bwd_scratch(batch: int, t: int, c: int, cp: int, last: bool,
