@@ -41,11 +41,10 @@ EDITS = {
     "divide": [("div_by(chunk, a.div_tile)", "chunk / a.div_tile.d", F32),
                ("div_by(local, a.div_gate)", "local / a.div_gate.d", F32),
                ("div_by(kc, a.div_tap16)", "kc / a.div_tap16.d", F32),
-               ("div_by(j, a.div_tap16)", "j / a.div_tap16.d", F32)],
+               ("div_by(j, div_acts16)", "j / div_acts16.d", F32)],
     "no_rest": [("const bool rest = !kTwo &&", "const bool rest = false &&",
                  F32)],
-    "no_c64": [("const bool two = pad64(C) == 64;", "const bool two = false;",
-                None)],
+    "no_c64": [("return pad64(G) == 64;", "return false;", None)],
     "no_fma": [(FMA, FMA.replace("(busy)", "(false)"), F32)],
     "no_w": [("      cp_async16_zfill(wslot + (k * L::kWLd + n) * 4,",
               "      if (false)\n"

@@ -194,8 +194,9 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      beside the bound, the plain version and the library's (cuBLAS bf16
      products and torch elementwise), with each kernel's device time
      (torch.profiler over 10 calls), and the f32 route (torch ops)
-     against autograd; (b) train() at full width (12 x 8 x 256, batch
-     12, segment 16,000) on logical meshes of cuda:0, (data, model) =
+     against autograd; (b) train() at full width and half depth (6 x 8
+     x 256, batch 12, segment 16,000) on logical meshes of cuda:0,
+     (data, model) =
      (1, 2), (2, 1) and (2, 2), in f32 and bf16: one step's loss and
      every leaf's gradient against the unsharded step at phase 6's
      bounds, launches at the code's counts (96 x model shard launches a
@@ -270,7 +271,28 @@ Phases, in order; any error or tolerance breach fails the run (nonzero exit):
      launch, a finite loss, step seconds and peak memory; one step's loss
      and gradients through the kernels against the plain route at phase
      6's bounds.
- 18. a `kernels` JSON line, the card's name and power limit, and last the
+ 18. mesh at every shape: a model rank's share of a layer at any odd K
+     and any C' = C / model through the shape-generic rank kernels
+     (wn_layer_any.cu in partial mode, wn_layer_bwd_any.cu at the rank's
+     gate width): (a) every rank's forward against wn_layer_shard_plain
+     in f32 and bf16 at B = 1, T = 26,432, d = 1, 128 and the last layer,
+     the ranks' partials summed against the whole layer's generic kernel,
+     at model 2 for each of phase 16's (C, K), (384, 3) at model 3 and 8,
+     (256, 5) at model 4 and (256, 3) at model 16; (b) every rank's bf16
+     backward against wn_layer_shard_backward at B = 12, T = 2,000, the
+     ranks' dx summed plus the residual's cotangent and their other
+     gradients against the whole layer's generic backward; (c) against
+     the specialised rank kernels at (256, 3, C' = 128), the bits
+     compared; (d) timed at (256, 5) and (384, 3), C' = C / 2, beside
+     the bound, plain and library ms, split kernel by kernel; (e) phase
+     16's two models served on a logical model = 2 mesh of the card in
+     both modes (the generic rank kernels 2 x 96 times a dispatch,
+     nothing else) against the unsharded generic path at phase 12's
+     bound; (f) train() on a logical (1, 2) mesh of each model, two steps
+     a mode from its iteration-1 checkpoint, batch 12, segment 16,000,
+     after one step's loss and gradients against the unsharded step at
+     phase 13(b)'s bounds.
+ 19. a `kernels` JSON line, the card's name and power limit, and last the
      `{"ok": true, ...}` line.
 
 Every phase prints its wall seconds ("phase N (name): s"), and the run's
@@ -303,6 +325,7 @@ import threading
 import time
 import urllib.error
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -737,33 +760,50 @@ ANY_KERNELS = (tuple((bf16, last, "layer", width)
 # The generic forward's kernels by name in a profile (kernel_split's
 # groups: "kernel_f32" the f32 layer, "rs" the bf16 res/skip kernel).
 ANY_FWD_SPLIT = r"wn_any_(prep|gate|rs|kernel_f32)"
+# The generic kernels' instances for a model rank (phase 18): (bf16, last,
+# kernel, gate channels C') as kl.any_kernel_info takes them at C: the f32
+# layer kernel in partial mode (its Gp = 64 instance at C' = 64), the bf16
+# res/skip kernel in partial mode and the bf16 gate at a rank's width; the
+# prep kernels are the whole layer's. The backward's rows kernel has a
+# rank's instance too (MESH_ANY_BWD_KERNELS); its other kernels are the
+# whole layer's.
+MESH_ANY_KERNELS = tuple((bf16, last, "layer", cp)
+                         for bf16, cp in ((False, C // 2), (False, 64),
+                                          (True, C // 2))
+                         for last in (False, True)) + (
+                             (True, False, "gate", C // 2),)
+MESH_ANY_BWD_KERNELS = ("rows",)
 
 
 def any_variant(bf16: bool, last: bool, kernel: str = "layer",
-                channels: int = C) -> str:
+                channels: int = C, partial: bool = False) -> str:
   """Variant name of a shape-generic forward kernel: "f32,any,{layer,
-  last}" and, for its instance at Cp = 64 (``channels`` up to 64),
+  last}" and, for its instance at Gp = 64 (gate ``channels`` up to 64),
   "f32,any,c64,{layer,last}" (held to no tensor-core instruction and no
   spill); "bf16,any,{layer,last}" (the res/skip kernel) and
   "bf16,any,gate" (held to wgmma, no serialization, no spill);
-  "prep,any,fwd-{f32,bf16}" (held to neither)."""
+  "prep,any,fwd-{f32,bf16}" (held to neither). A rank's ``partial``
+  instance of the layer, res/skip or gate kernel: "shard-f32,any,..." or
+  "shard-bf16,any,..." (held as the shard kernels are)."""
   mode = "bf16" if bf16 else "f32"
   if kernel == "prep":
     return f"prep,any,fwd-{mode}"
+  shard = "shard-" if partial else ""
   if kernel == "gate":
-    return "bf16,any,gate"
+    return f"{shard}bf16,any,gate"
   c64 = "c64," if not bf16 and kl.any_cp(channels) == 64 else ""
-  return f"{mode},any,{c64}{'last' if last else 'layer'}"
+  return f"{shard}{mode},any,{c64}{'last' if last else 'layer'}"
 
 
-def any_bwd_variant(kernel: str) -> str:
+def any_bwd_variant(kernel: str, rank: bool = False) -> str:
   """Variant name of a shape-generic backward kernel: "bf16,any,bwd-..."
   for those that do products (held to wgmma, no serialization, no spill;
   one function each, the dx and weights kernels holding an instance for
-  each tile width they take), "{reduce,prep,pad},any,bwd" for the others,
-  which do none."""
+  each tile width they take; the rows kernel's ``rank`` instance, a
+  model rank's at C' != C, "bf16,any,bwd-rows,rank"),
+  "{reduce,prep,pad},any,bwd" for the others, which do none."""
   if kernel in ("rows", "dx", "weights"):
-    return f"bf16,any,bwd-{kernel}"
+    return f"bf16,any,bwd-{kernel}" + (",rank" if rank else "")
   return f"{kernel},any,bwd"
 
 
@@ -780,11 +820,12 @@ def kernel_variant(mangled: str) -> str:
   ``wn_bwd_{prep<kC, kLast>,rows<kC, kLast>,dx,weights,reduce<kC>}_kernel``, the
   f32 shard kernel ``wn_shard_kernel<kC, kCP, kLast>`` or a shard-backward
   kernel ``wn_sbwd_{rows<kC, kCP, kLast>,dx,weights,reduce<kC, kCP>}_kernel``
-  or a shape-generic forward kernel ``wn_any_kernel_f32<kTwo, kLast>``,
-  ``wn_any_rs_kernel<kLast>``, ``wn_any_gate_kernel`` or
+  or a shape-generic forward kernel ``wn_any_kernel_f32<kTwo, kLast,
+  kPartial>``, ``wn_any_rs_kernel<kLast, kPartial>``,
+  ``wn_any_gate_kernel<kRank>`` (kPartial, kRank: a rank's instance) or
   ``wn_any_prep_kernel<kBf16>`` or backward kernel
-  ``wn_bwd_any_{rows,dx,weights,reduce,prep,pad}_kernel``; other symbols
-  are returned as they are."""
+  ``wn_bwd_any_{rows<kRank>,dx,weights,reduce,prep,pad}_kernel``; other
+  symbols are returned as they are."""
   inst = re.search(r"wn_layer_kernel_(f32|mma)ILi(\d+)ELb([01])E", mangled)
   if inst:
     return variant("f32" if inst.group(1) == "f32" else "bf16",
@@ -824,22 +865,26 @@ def kernel_variant(mangled: str) -> str:
   if inst:
     return shard_variant(int(inst.group(1)), int(inst.group(2)), False,
                          inst.group(3) == "1")
-  inst = re.search(r"wn_any_kernel_f32ILb([01])ELb([01])E", mangled)
+  inst = re.search(r"wn_any_kernel_f32ILb([01])ELb([01])E(?:Lb([01])E)?",
+                   mangled)
   if inst:
     return any_variant(False, inst.group(2) == "1", "layer",
-                       64 if inst.group(1) == "1" else C)
-  inst = re.search(r"wn_any_rs_kernelILb([01])E", mangled)
+                       64 if inst.group(1) == "1" else C,
+                       inst.group(3) == "1")
+  inst = re.search(r"wn_any_rs_kernelILb([01])E(?:Lb([01])E)?", mangled)
   if inst:
-    return any_variant(True, inst.group(1) == "1")
-  if re.search(r"wn_any_gate_kernel", mangled):
-    return any_variant(True, False, "gate")
+    return any_variant(True, inst.group(1) == "1",
+                       partial=inst.group(2) == "1")
+  inst = re.search(r"wn_any_gate_kernel(?:ILb([01])E)?", mangled)
+  if inst:
+    return any_variant(True, False, "gate", partial=inst.group(1) == "1")
   inst = re.search(r"wn_any_prep_kernelILb([01])E", mangled)
   if inst:
     return any_variant(inst.group(1) == "1", False, "prep")
-  inst = re.search(r"wn_bwd_any_(rows|dx|weights|reduce|prep|pad)_kernel",
-                   mangled)
+  inst = re.search(r"wn_bwd_any_(rows|dx|weights|reduce|prep|pad)_kernel"
+                   r"(?:ILb([01])E)?", mangled)
   if inst:
-    return any_bwd_variant(inst.group(1))
+    return any_bwd_variant(inst.group(1), inst.group(2) == "1")
   return mangled
 
 
@@ -1035,6 +1080,11 @@ def phase_build() -> dict:
   attributes.update({any_variant(*v): kl.any_kernel_info(v[0], v[1], v[3],
                                                          v[2])
                      for v in ANY_KERNELS})
+  attributes.update({any_variant(bf16, last, kernel, cp, True):
+                     kl.any_kernel_info(bf16, last, C, kernel, cp)
+                     for bf16, last, kernel, cp in MESH_ANY_KERNELS})
+  attributes.update({any_bwd_variant(k, True): kl.any_bwd_kernel_info(
+      k, C, C // 2) for k in MESH_ANY_BWD_KERNELS})
   attributes.update({any_bwd_variant(k): kl.any_bwd_kernel_info(k)
                      for k in kl.ANY_BWD_KERNELS})
   sass = subprocess.run([str(find_cuobjdump()), "-sass", str(lib)],
@@ -1278,13 +1328,15 @@ def width_hparams(width: int = C, kernel_size: int = 3) -> HParams:
                              kernel_size=kernel_size)
 
 
-def full_width_params(seed: int, width: int = C, kernel_size: int = 3) -> dict:
-  """12 x ``width`` model (``kernel_size`` taps) from the seed, every
-  ``end`` randomised small (a zero end conv makes each coupling the
-  identity and hides the kernel)."""
-  params = init_params(
-      WaveGlowConfig.from_hparams(width_hparams(width, kernel_size)),
-      seed=seed)
+def full_width_params(seed: int, width: int = C, kernel_size: int = 3,
+                      n_flows: Optional[int] = None) -> dict:
+  """12 x ``width`` model (``kernel_size`` taps; ``n_flows`` flows when
+  given) from the seed, every ``end`` randomised small (a zero end conv
+  makes each coupling the identity and hides the kernel)."""
+  hp = width_hparams(width, kernel_size)
+  if n_flows is not None:
+    hp = dataclasses.replace(hp, n_flows=n_flows)
+  params = init_params(WaveGlowConfig.from_hparams(hp), seed=seed)
   rng = np.random.default_rng(seed + 1)
   for flow in params["flows"]:
     end = flow["wn"]["end"]
@@ -3374,21 +3426,21 @@ def phase_cli_train(mode: str, seed: int, tmp: Path, files: dict) -> dict:
 # -- phase 11 --------------------------------------------------------------
 
 def shard_cost(batch: int, t: int, cp: int, last: bool, mode: str,
-               width: int):
+               width: int, k: int = 3):
   """(bytes, flops, bound_ms, bound_by) of one shard-kernel call holding
-  ``cp`` of the C = ``width`` gate channels: x, cond_s and the weights read
-  once, the partial written once; flops of its two products,
-  2 * B * T * (3C * 2C' + C' * n_rs)."""
+  ``cp`` of the C = ``width`` gate channels at ``k`` taps: x, cond_s and
+  the weights read once, the partial written once; flops of its two
+  products, 2 * B * T * (K C * 2C' + C' * n_rs)."""
   C = width
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = batch * t
   nbytes = (rows * C * 4                          # x
             + rows * 2 * cp * esize               # cond_s
-            + (3 * C * 2 * cp + cp * rs) * esize  # w_in_s, w_rs_s
+            + (k * C * 2 * cp + cp * rs) * esize  # w_in_s, w_rs_s
             + 2 * cp * 4                          # b_in_s
             + rows * rs * 4)                      # the partial written
-  flops = 2 * rows * (3 * C * 2 * cp + cp * rs)
+  flops = 2 * rows * (k * C * 2 * cp + cp * rs)
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_FLOPS[mode] * 1e3
   return nbytes, flops, max(t_bytes, t_ops), (
@@ -3400,15 +3452,16 @@ def shard_slices(args, model: int, rank: int):
   inputs, cut as ``parallel.sharding.shard_params`` cuts the params."""
   _, cond, w_in, b_in, w_rs, _ = args
   C = args[0].shape[-1]
+  k = w_in.numel() // (2 * C * C)
   cp = C // model
   cols = slice(rank * cp, (rank + 1) * cp)
   lead = cond.shape[:2]
   return (cond.reshape(*lead, 2, C)[..., cols].reshape(*lead, 2 * cp)
           .contiguous(),
-          w_in.reshape(3, C, 2, C)[..., cols].reshape(3, C, 2 * cp)
+          w_in.reshape(k, C, 2, C)[..., cols].reshape(k, C, 2 * cp)
           .contiguous(),
           b_in.reshape(2, C)[:, cols].reshape(-1).contiguous(),
-          w_rs.reshape(C, -1)[cols].contiguous())
+          w_rs.reshape(C, -1)[cols].clone())  # its own 16-byte-aligned copy
 
 
 def expected_mesh_launches(axis: str, size: int, rows: int, frames: int,
@@ -4209,8 +4262,10 @@ def phase_widths(seed: int, tmp: Path) -> dict:
 # -- phase 13 ----------------------------------------------------------------
 
 # Mesh training on logical meshes of the one card (the ranks run one after
-# another: the numbers are checked, no speedup is shown): full width, batch
-# 12 and segment 16,000 (phase 6's), two train() steps with one save, at
+# another: the numbers are checked, no speedup is shown): full width at
+# MESH_TRAIN_FLOWS flows (half the model's depth, cut when phase 18 took the
+# run past 950 s of its 1,200), batch 12 and segment 16,000 (phase 6's),
+# two train() steps with one save, at
 # step MESH_RESUME_FROM (the first iteration's), and a resume from it;
 # validation on MESH_VAL_WAVS cuts (one batch a save). Then one
 # step at C = MESH_WIDE on a model = 2 mesh at WIDTH_TRAIN_BATCH rows, and
@@ -4221,6 +4276,7 @@ def phase_widths(seed: int, tmp: Path) -> dict:
 # ranks' partials, the replicas' gradients) and in bf16 by the roundings
 # that order moves.
 MESH_TRAIN = ((1, 2), (2, 1), (2, 2))
+MESH_TRAIN_FLOWS = 6
 MESH_TRAIN_STEPS = 2
 MESH_RESUME_FROM = 1
 MESH_VAL_WAVS = 12
@@ -4241,8 +4297,9 @@ SHARD_BWD_DESIGN = (
 
 
 def shard_bwd_cost(batch: int, t: int, width: int, cp: int, last: bool,
-                   mode: str) -> dict:
-  """Least work of one shard backward (a rank's C' of ``width`` channels):
+                   mode: str, k: int = 3) -> dict:
+  """Least work of one shard backward (a rank's C' of ``width`` channels,
+  ``k`` taps):
   the saved inputs (x, cond_s, w_in_s, b_in_s, w_rs_s) and g read once,
   dx, dcond_s, dw_in_s, db_in_s and dw_rs_s written once; the products
   dacts, dw_rs, dw_in and the taps' adjoint at the compute dtype's rate,
@@ -4252,12 +4309,12 @@ def shard_bwd_cost(batch: int, t: int, width: int, cp: int, last: bool,
   esize = 2 if mode == "bf16" else 4
   rs = C if last else 2 * C
   rows = batch * t
-  weights = (3 * C * 2 * cp + cp * rs) * esize
+  weights = (k * C * 2 * cp + cp * rs) * esize
   nbytes = (2 * rows * C * 4              # x in, dx out
             + 2 * rows * 2 * cp * esize   # cond_s in, dcond_s out
             + 2 * weights + 2 * 2 * cp * 4  # the weights and b_in_s, both ways
             + rows * rs * 4)              # g in
-  flops = 2 * rows * (2 * rs * cp + 2 * 3 * C * 2 * cp)
+  flops = 2 * rows * (2 * rs * cp + 2 * k * C * 2 * cp)
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_FLOPS[mode] * 1e3
   return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
@@ -4272,10 +4329,12 @@ def library_shard_backward(saved, g, dilation: int, dtype):
   batch, t, c = x.shape
   cp = b_in_s.numel() // 2
   rs = w_rs_s.numel() // cp
+  n_taps = w_in_s.numel() // (c * 2 * cp)
+  half = n_taps // 2
   xd = x.to(dtype)
-  taps = torch.cat([shift_time(xd, (k - 1) * dilation) for k in range(3)],
-                   dim=-1).reshape(-1, 3 * c)
-  w_in = w_in_s.reshape(3 * c, 2 * cp).to(dtype)
+  taps = torch.cat([shift_time(xd, (k - half) * dilation)
+                    for k in range(n_taps)], dim=-1).reshape(-1, n_taps * c)
+  w_in = w_in_s.reshape(n_taps * c, 2 * cp).to(dtype)
   w_rs = w_rs_s.reshape(cp, rs).to(dtype)
   gates = (torch.matmul(taps, w_in).float() + b_in_s
            + cond_s.reshape(-1, 2 * cp).float())
@@ -4288,9 +4347,9 @@ def library_shard_backward(saved, g, dilation: int, dtype):
   db_in = dgates.sum(0)
   dg = dgates.to(dtype)
   dw_in = torch.matmul(taps.T, dg)
-  g_w = torch.matmul(dg, w_in.T).float().reshape(batch, t, 3 * c)
-  dx = sum(shift_time(g_w[..., k * c:(k + 1) * c], -(k - 1) * dilation)
-           for k in range(3))
+  g_w = torch.matmul(dg, w_in.T).float().reshape(batch, t, n_taps * c)
+  dx = sum(shift_time(g_w[..., k * c:(k + 1) * c], -(k - half) * dilation)
+           for k in range(n_taps))
   return dx, dg, dw_in, db_in, dw_rs
 
 
@@ -4767,10 +4826,11 @@ def phase_mesh_train(seed: int, tmp: Path) -> dict:
   for e in entries[:MESH_VAL_WAVS]:
     shutil.copy(e.wav_absolute_path, val_dir / e.basename)
   val_entries = load_dataset(val_dir)
-  params_np = full_width_params(seed)
+  params_np = full_width_params(seed, n_flows=MESH_TRAIN_FLOWS)
   for mode in MODES:
-    # one 1 GB save a mesh case, the first iteration's
+    # one save a mesh case, the first iteration's
     custom = dict(TRAIN_HPARAMS, seed=str(seed), iters_per_checkpoint="0",
+                  n_flows=str(MESH_TRAIN_FLOWS),
                   compute_dtype="bfloat16" if mode == "bf16" else "float32")
     hp = overwrite_custom_hparams(HParams(), custom)
     config = WaveGlowConfig.from_hparams(hp)
@@ -5679,6 +5739,527 @@ def train_any_shape_kernels(any_trains: dict, build: dict) -> list:
   return kernels
 
 
+# -- phase 18 --------------------------------------------------------------
+
+# A model mesh at every shape the JAX package shards: a rank's share of a
+# layer at any odd K and any C' = C / model through the shape-generic rank
+# kernels (csrc/wn_layer_any.cu in partial mode; csrc/wn_layer_bwd_any.cu at
+# the rank's gate width), which wn_layer_shard and the trainable shard take
+# wherever the specialised rank kernels are not built (kl.shard_specialised).
+# (a) every rank's forward against wn_layer_shard_plain in both modes at B =
+# 1, T_KERNEL, d = 1, 128 and the last layer, the ranks' partials summed
+# against the whole layer's generic kernel, at MESH_ANY_CASES: model 2 at
+# every ANY_SHAPES entry (C' = 32, 25, 192, 128, 64, 128), (384, 3) at model
+# 3 and 8, (256, 5) at model 4 and (256, 3) at model 16 (a built width at a
+# model count the specialised kernels lack); (b) every rank's bf16
+# backward against wn_layer_shard_backward at B_TRAIN x T_TRAIN, d = 1 and
+# the last layer, the ranks' dx summed plus the residual's cotangent and
+# their other gradients against the whole layer's generic backward; (c)
+# at (256, 3, C' = 128) against the specialised rank kernels; (d) timed at
+# MESH_ANY_TIMED; (e) ANY_MODELS served on a logical model = 2 mesh; (f)
+# train() on a logical (1, 2) mesh of the two models.
+MESH_ANY_CASES = (tuple((w, k, 2) for w, k in ANY_SHAPES)
+                  + ((384, 3, 3), (384, 3, 8), (C, 5, 4), (C, 3, 16)))
+MESH_ANY_VS = (C, 3, 2)
+MESH_ANY_TIMED = ((C, 5, 2), (384, 3, 2))
+MESH_ANY_MODEL = 2
+MESH_ANY_TRAIN_STEPS = 2
+SHARD_GRAD_NAMES = GRAD_NAMES[:5]
+MESH_ANY_DESIGN = {
+    "f32": "the generic f32 layer kernel in partial mode: the gate over the "
+           "rank's C' channels (Gp = C' rounded up to 64) in passes of 128 "
+           "(one of 64 in 192-row tiles at Gp = 64) over the K*Cp deep "
+           "taps, the acts through an f32 scratch, the res/skip product Gp "
+           "deep in passes of the output channels (64 at Gp = 64), the "
+           "partial stored as it is; one wave of 384-thread blocks, a "
+           "thread 8 rows x (4 + 4) channels, 16-deep K chunks through a "
+           "4-stage cp.async ring",
+    "bf16": "three kernels: x rounded once (prep, which pads the weights "
+            "where C or C' is not a multiple of 64), the gate kernel over "
+            "units of 128 rows x 128 of the rank's gate channels, the "
+            "res/skip kernel over units of 128 rows x 128 output channels "
+            "Gp deep storing the f32 partial; wgmma m64n128k16 through a "
+            "4-stage ring of 64-deep K chunks"}
+MESH_ANY_BWD_DESIGN = (
+    "the generic backward's six kernels at the rank's gate width: the "
+    "rank's partial's cotangent as drs (no mask), the rows kernel's passes "
+    "over its Gp gate channels (the gate recompute K*Cp deep), dx one "
+    "K*2Gp deep product with nothing added, the weights tiles of dw_in_s "
+    "[K*Cp, 2Gp] and dw_rs_s^T [n_rsp, Gp] over ranges of rows, a "
+    "fixed-order reduce; no db_rs")
+
+
+def mesh_any_launches() -> dict:
+  return {"fused": kl.LAUNCHES, "backward": kl.BWD_LAUNCHES,
+          "any": kl.ANY_LAUNCHES, "any_backward": kl.ANY_BWD_LAUNCHES,
+          "shard": kl.SHARD_LAUNCHES, "shard_backward": kl.SHARD_BWD_LAUNCHES,
+          "any_shard": kl.ANY_SHARD_LAUNCHES,
+          "any_shard_backward": kl.ANY_SHARD_BWD_LAUNCHES}
+
+
+def reset_mesh_any_launches() -> None:
+  kl.LAUNCHES = kl.BWD_LAUNCHES = kl.ANY_LAUNCHES = kl.ANY_BWD_LAUNCHES = 0
+  kl.SHARD_LAUNCHES = kl.SHARD_BWD_LAUNCHES = 0
+  kl.ANY_SHARD_LAUNCHES = kl.ANY_SHARD_BWD_LAUNCHES = 0
+
+
+def mesh_any_fwd_case(mode: str, width: int, k: int, model: int,
+                      dilation: int, last: bool, seed: int) -> dict:
+  """(a) at one shape: each rank's generic forward against
+  wn_layer_shard_plain (in bf16 a second launch bit for bit) at phase 3's
+  bounds, and the ranks' partials plus b_rs against the whole layer's
+  generic kernel's res/skip sum (x' - x and the skip)."""
+  cdt = MODES[mode]
+  args, _, _ = layer_inputs(1, T_KERNEL, last, cdt or torch.float32, seed,
+                            width, k)
+  err, scale, total, repeats = 0.0, 0.0, None, True
+  for rank in range(model):
+    sl = shard_slices(args, model, rank)
+    got = kl.wn_layer_shard_any(args[0], *sl, dilation, compute_dtype=cdt)
+    if mode == "bf16":
+      again = kl.wn_layer_shard_any(args[0], *sl, dilation,
+                                    compute_dtype=cdt)
+      repeats = repeats and torch.equal(got, again)
+      del again
+    torch.cuda.synchronize()
+    ref = kl.wn_layer_shard_plain(args[0], *sl, dilation, compute_dtype=cdt)
+    if not torch.isfinite(got).all():
+      fail(f"generic rank output not finite: C={width} K={k} "
+           f"model={model} rank={rank} {mode}")
+    err = max(err, (got - ref).abs().max().item())
+    scale = max(scale, ref.abs().max().item())
+    total = got if total is None else total + got
+    del got, ref
+  xk, sk = kl.wn_layer_any(*args, dilation, compute_dtype=cdt)
+  full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
+  full_scale = full.abs().max().item()
+  sum_err = (total + args[5] - full).abs().max().item()
+  bound = KERNEL_TOL_F32 if mode == "f32" else KERNEL_TOL_BF16_REL * scale
+  sum_bound = (KERNEL_TOL_F32 if mode == "f32"
+               else KERNEL_TOL_BF16_REL * full_scale)
+  rec = {"mode": mode, "C": width, "K": k, "model": model,
+         "C'": width // model, "dilation": dilation, "last": last,
+         "max_abs_err": err, "bound": bound, "ref_max_abs": scale,
+         "summed_vs_layer_max_abs": sum_err, "summed_bound": sum_bound,
+         "repeat_bitwise": repeats}
+  if err > bound or sum_err > sum_bound:
+    fail(f"generic rank kernels disagree: {rec}")
+  if not repeats:
+    fail(f"two launches of the generic rank kernels differ: {rec}")
+  return rec
+
+
+def shard_grads_within(what: str, got, ref, tol: float,
+                       names=SHARD_GRAD_NAMES) -> dict:
+  """grads_within over a rank's five gradients (or those ``names``)."""
+  out = {}
+  for name, g, r in zip(names, got, ref):
+    if g.dtype != r.dtype or g.shape != r.shape:
+      fail(f"{what}: grad {name} {g.dtype} {tuple(g.shape)}, reference "
+           f"{r.dtype} {tuple(r.shape)}")
+    err = (g.float() - r.float()).abs().max().item()
+    ref_max = r.float().abs().max().item()
+    out[name] = {"max_abs_err": err, "ref_max_abs": ref_max}
+    if not torch.isfinite(g).all() or err > tol * ref_max:
+      fail(f"{what}: grad {name} {out[name]}, bound {tol} of its max")
+  return out
+
+
+def mesh_any_bwd_case(width: int, k: int, model: int, dilation: int,
+                      last: bool, seed: int) -> dict:
+  """(b) at one shape: each rank's generic bf16 backward (the cotangent of
+  its partial: [dx_next | dskip], the last layer's dskip) against
+  wn_layer_shard_backward; the ranks' dx summed plus dx_next, and each
+  rank's other gradients, against the whole layer's generic backward
+  (wn_layer_backward_any, no valid_t) and its slices, each within
+  KERNEL_TOL_BF16_REL of its max |value|."""
+  what = f"C={width},K={k},model={model},d={dilation},last={last}"
+  args, cot = trainable_inputs(last, torch.bfloat16, seed, width, k)
+  full = tuple(a.detach() for a in args)
+  drs = cot[1] if last else torch.cat(cot, dim=-1)
+  whole = kl.wn_layer_backward_any(full, *cot, dilation)
+  cp = width // model
+  worst, dx_sum = 0.0, None
+  for rank in range(model):
+    sl = shard_slices(full, model, rank)
+    saved = (full[0],) + sl
+    got = kl.wn_layer_shard_backward_any(saved, drs, dilation)
+    ref = kl.wn_layer_shard_backward(saved, drs, dilation, torch.bfloat16)
+    grads = shard_grads_within(f"generic rank backward {what} rank={rank}",
+                               got, ref, KERNEL_TOL_BF16_REL)
+    worst = max([worst] + [g["max_abs_err"] / g["ref_max_abs"]
+                           for g in grads.values() if g["ref_max_abs"] > 0])
+    cols = slice(rank * cp, (rank + 1) * cp)
+    lead = full[1].shape[:2]
+    parts = (whole[1].reshape(*lead, 2, width)[..., cols].reshape(
+                 *lead, 2 * cp),
+             whole[2].reshape(k, width, 2, width)[..., cols].reshape(
+                 sl[1].shape),
+             whole[3].reshape(2, width)[:, cols].reshape(-1),
+             whole[4].reshape(width, -1)[cols])
+    shard_grads_within(f"rank {rank} against the whole layer {what}",
+                       got[1:], parts, KERNEL_TOL_BF16_REL,
+                       SHARD_GRAD_NAMES[1:])
+    dx_sum = got[0] if dx_sum is None else dx_sum + got[0]
+    del got, ref
+  dx = dx_sum + cot[0]   # the residual's (the last layer's x' = x) cotangent
+  dx_err = (dx - whole[0]).abs().max().item()
+  dx_scale = whole[0].abs().max().item()
+  rec = {"C": width, "K": k, "model": model, "C'": cp, "dilation": dilation,
+         "last": last, "max_err_of_scale": worst,
+         "summed_dx_vs_layer_max_abs": dx_err,
+         "summed_dx_bound": KERNEL_TOL_BF16_REL * dx_scale}
+  if not torch.isfinite(dx).all() or dx_err > rec["summed_dx_bound"]:
+    fail(f"generic rank backward {what}: the ranks' dx summed against the "
+         f"whole layer's: {rec}")
+  return rec
+
+
+def mesh_any_vs_specialised(seed: int) -> dict:
+  """(c): the generic rank kernels against the specialised ones at
+  MESH_ANY_VS (rank 0): the forward in both modes at B = 1, T_KERNEL, d = 1
+  and the last layer; the bf16 backward at B_TRAIN x T_TRAIN; each within
+  the bound each keeps to its plain version, and whether the bits match."""
+  width, k, model = MESH_ANY_VS
+  out = {"forward": [], "backward": []}
+  for mode, cdt in MODES.items():
+    for last in (False, True):
+      dilation = LAST_DILATION if last else 1
+      args, _, _ = layer_inputs(1, T_KERNEL, last, cdt or torch.float32,
+                                seed, width, k)
+      sl = shard_slices(args, model, 0)
+      before = kl.SHARD_LAUNCHES
+      spec = kl.wn_layer_shard(args[0], *sl, dilation, compute_dtype=cdt)
+      if kl.SHARD_LAUNCHES != before + 1:
+        fail(f"wn_layer_shard at {MESH_ANY_VS} did not take the specialised "
+             "rank kernels")
+      generic = kl.wn_layer_shard_any(args[0], *sl, dilation,
+                                      compute_dtype=cdt)
+      err = (generic - spec).abs().max().item()
+      scale = spec.abs().max().item()
+      bound = KERNEL_TOL_F32 if mode == "f32" else KERNEL_TOL_BF16_REL * scale
+      rec = {"mode": mode, "last": last, "dilation": dilation,
+             "max_abs_err": err, "bound": bound,
+             "bitwise_equal": bool(torch.equal(generic, spec))}
+      if not err <= bound:
+        fail(f"generic rank forward against the specialised one: {rec}")
+      out["forward"].append(rec)
+  for last in (False, True):
+    dilation = LAST_DILATION if last else 1
+    args, cot = trainable_inputs(last, torch.bfloat16, seed, width, k)
+    full = tuple(a.detach() for a in args)
+    saved = (full[0],) + shard_slices(full, model, 0)
+    drs = cot[1] if last else torch.cat(cot, dim=-1)
+    generic = kl.wn_layer_shard_backward_any(saved, drs, dilation)
+    spec = kl.wn_layer_shard_backward_fused(saved, drs, dilation)
+    grads = shard_grads_within(f"generic vs specialised rank backward "
+                               f"(last={last})", generic, spec,
+                               KERNEL_TOL_BF16_REL)
+    out["backward"].append({
+        "last": last, "dilation": dilation,
+        "bitwise_equal": all(torch.equal(a, b)
+                             for a, b in zip(generic, spec)),
+        "max_err_of_scale": max(g["max_abs_err"] / g["ref_max_abs"]
+                                for g in grads.values()
+                                if g["ref_max_abs"] > 0)})
+  return out
+
+
+def mesh_any_timed(width: int, k: int, model: int, seed: int) -> dict:
+  """(d): rank 0's generic forward in each mode at B = 1, T_KERNEL, d = 1
+  and its generic bf16 backward at B_TRAIN x T_TRAIN, d = 1 (CUDA events;
+  each kernel's share by torch.profiler), beside the plain version, the
+  library's call (the sharded layer as cuDNN conv1d over K taps, the gate
+  and a cuBLAS matmul; its backward as cuBLAS matmuls) and the bound."""
+  cp = width // model
+  rec = {"C": width, "K": k, "model": model, "C'": cp}
+  for mode, cdt in MODES.items():
+    dtype = cdt or torch.float32
+    bf16 = mode == "bf16"
+    args, _, _ = layer_inputs(1, T_KERNEL, False, dtype, seed, width, k)
+    sl = shard_slices(args, model, 0)
+    nbytes, flops, bound_ms, bound_by = shard_cost(1, T_KERNEL, cp, False,
+                                                   mode, width, k)
+    fwd = {"bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    fwd["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_shard_any(
+        args[0], *sl, 1, compute_dtype=cdt))
+    fwd["kernels_ms"] = kernel_split(
+        lambda: kl.wn_layer_shard_any(args[0], *sl, 1, compute_dtype=cdt),
+        ANY_FWD_SPLIT, len(kl.any_kernels(bf16, width, cp)), reps=5)
+    fwd["plain_ms"] = cuda_ms(lambda: kl.wn_layer_shard_plain(
+        args[0], *sl, 1, compute_dtype=cdt))
+    x_cf = args[0].to(dtype).transpose(1, 2).contiguous()
+    w_conv = sl[1].permute(2, 1, 0).contiguous()   # [2C', C, K]
+    b_lib = sl[2].to(dtype)
+    fwd["library_ms"] = cuda_ms(lambda: library_layer(
+        x_cf, sl[0], w_conv, b_lib, sl[3], None, 1, dtype))
+    fwd["share_of_bound"] = bound_ms / fwd["kernel_ms"]
+    rec[f"forward_{mode}"] = fwd
+    del args, sl, x_cf, w_conv
+  args, cot = trainable_inputs(False, torch.bfloat16, seed, width, k)
+  full = tuple(a.detach() for a in args)
+  saved = (full[0],) + shard_slices(full, model, 0)
+  g = torch.cat(cot, dim=-1)
+  bwd = dict(shard_bwd_cost(B_TRAIN, T_TRAIN, width, cp, False, "bf16", k))
+  bwd["kernel_ms"] = cuda_ms(lambda: kl.wn_layer_shard_backward_any(
+      saved, g, 1))
+  bwd["kernels_ms"] = kernel_split(
+      lambda: kl.wn_layer_shard_backward_any(saved, g, 1), ANY_BWD_SPLIT,
+      len(kl.any_bwd_kernels(width, cp)))
+  bwd["plain_ms"] = cuda_ms(lambda: kl.wn_layer_shard_backward(
+      saved, g, 1, torch.bfloat16))
+  bwd["library_ms"] = cuda_ms(lambda: library_shard_backward(
+      saved, g, 1, torch.bfloat16))
+  bwd["share_of_bound"] = bwd["bound_ms"] / bwd["kernel_ms"]
+  rec["backward_bf16"] = bwd
+  return rec
+
+
+def mesh_any_serving(name: str, ckpt: CheckpointWaveglow, mode: str,
+                     seed: int) -> dict:
+  """(e): phase 4's 826-frame request served on a logical model = 2 mesh
+  of the card (Synthesizer.infer_serving), held to the unsharded generic
+  path's output at phase 12's model = 2 bound, the counts set to 0 just
+  before the dispatch and read just after: the generic rank kernels once a
+  rank and layer, nothing else; its wall, device busy time and peak
+  memory."""
+  dtype_name = "bfloat16" if mode == "bf16" else "float32"
+  tol = SLICE_TOL_REL[mode]
+  rng = np.random.default_rng(seed)   # phase 4's requests
+  req = [rng.uniform(-11.0, 1.0, (80, f)).astype(np.float32)
+         for f in FRAMES][-1]
+  flat = Synthesizer(ckpt, compute_dtype=dtype_name, device=DEVICE)
+  per_synthesis = flat.config.n_flows * flat.config.n_layers
+  ref = flat.infer_serving(req, seed=seed, bucket_frames=BUCKET).samples
+  del flat
+  synth = Synthesizer(ckpt, compute_dtype=dtype_name,
+                      mesh=make_mesh(data=1, model=MESH_ANY_MODEL,
+                                     devices=logical_devices(MESH_ANY_MODEL)))
+  synth.infer_serving(req, seed=seed, bucket_frames=BUCKET)   # warm-up
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_mesh_any_launches()
+  t0 = time.perf_counter()
+  got = synth.infer_serving(req, seed=seed, bucket_frames=BUCKET).samples
+  wall = time.perf_counter() - t0
+  counts = mesh_any_launches()
+  peak = torch.cuda.max_memory_allocated()
+  want = dict.fromkeys(counts, 0)
+  want["any_shard"] = per_synthesis * MESH_ANY_MODEL
+  scale = float(np.abs(ref).max())
+  err = float(np.abs(got - ref).max()) if got.shape == ref.shape else None
+  rec = {"model": name, "mode": mode, "C": synth.config.n_channels,
+         "K": synth.config.kernel_size, "mesh_model": MESH_ANY_MODEL,
+         "launches": counts["any_shard"], "wall_s": wall,
+         "max_memory_allocated_bytes": peak, "vs_unsharded_max_abs": err,
+         "bound": tol * scale,
+         "profile": profile_call(lambda: synth.infer_serving(
+             req, seed=seed, bucket_frames=BUCKET))}
+  del synth
+  torch.cuda.empty_cache()
+  log(f"mesh any-shape serving {name} {mode} " + json.dumps(
+      {k_: v for k_, v in rec.items() if k_ != "profile"}))
+  if counts != want:
+    fail(f"{name} {mode} model={MESH_ANY_MODEL}: a dispatch launched "
+         f"{counts}, expected {want}")
+  if err is None or not np.isfinite(got).all() or err > tol * scale:
+    fail(f"{name} {mode} model={MESH_ANY_MODEL} against unsharded: {rec}")
+  return rec
+
+
+def mesh_any_train(name: str, ckpt: CheckpointWaveglow, mode: str, seed: int,
+                   tmp: Path) -> dict:
+  """(f): one step's loss and gradients on a logical (1, MESH_ANY_MODEL)
+  mesh against the unsharded step on the same params and batch at phase
+  13(b)'s bounds (launches: the generic rank forward twice a rank and
+  layer with remat, in bf16 the generic rank backward once, nothing
+  else); then train() on that mesh from ``ckpt`` for MESH_ANY_TRAIN_STEPS
+  steps (the counts set to 0 just before it and read just after), its
+  losses finite, its step seconds and peak memory."""
+  custom = dict(ANY_TRAIN_HPARAMS, seed=str(seed),
+                compute_dtype="bfloat16" if mode == "bf16" else "float32")
+  hp = overwrite_custom_hparams(ckpt.get_hparams(), custom)
+  config = WaveGlowConfig.from_hparams(hp)
+  entries = write_wavs(tmp / "any_wavs", seed)
+  per_forward = config.n_flows * config.n_layers
+  batch = torch.from_numpy(SegmentDataset(entries, hp).batch(
+      range(B_TRAIN), 0)).to(DEVICE)
+  params = trainable_params_from_numpy(ckpt.state_dict, DEVICE)
+  ref_loss = float(train_lib.compute_grads(
+      train_lib.make_loss_fn(config, hp, MelSTFT(hp, DEVICE)), params, batch))
+  ref_grads = [p.grad.detach().cpu() for p in tree_leaves(params)]
+  del params
+  torch.cuda.empty_cache()
+
+  def want(steps: int) -> dict:
+    out = dict.fromkeys(mesh_any_launches(), 0)
+    fwd = per_forward * (2 if hp.remat else 1) * steps
+    out["any_shard"] = fwd * MESH_ANY_MODEL
+    if mode == "bf16":
+      out["any_shard_backward"] = per_forward * steps * MESH_ANY_MODEL
+    return out
+
+  reset_mesh_any_launches()
+  loss, grads, busy = mesh_grads(hp, config, ckpt.state_dict, batch, 1,
+                                 MESH_ANY_MODEL)
+  step_counts = mesh_any_launches()
+  rel = leaf_norm_rel_errors(grads, ref_grads)
+  worst = int(np.argmax(rel))
+  rec = {"model": name, "mode": mode, "C": config.n_channels,
+         "K": config.kernel_size, "mesh": [1, MESH_ANY_MODEL], "loss": loss,
+         "loss_err": abs(loss - ref_loss), "loss_bound": STEP_LOSS_TOL[mode],
+         "grad_norm_rel": rel[worst], "worst_leaf": worst,
+         "grad_bound_rel": STEP_GRAD_TOL_REL[mode],
+         "step_launches": step_counts, "device_busy_ms": busy}
+  del grads, ref_grads, batch
+  torch.cuda.empty_cache()
+  if step_counts != want(1):
+    fail(f"{name} {mode} mesh step launched {step_counts}, expected "
+         f"{want(1)}")
+  if (not np.isfinite(loss) or rec["loss_err"] > STEP_LOSS_TOL[mode]
+      or rec["grad_norm_rel"] > STEP_GRAD_TOL_REL[mode]):
+    fail(f"{name} {mode}: the mesh step differs from the unsharded step: "
+         f"{rec}")
+
+  mcustom = dict(custom, mesh_data="1", mesh_model=str(MESH_ANY_MODEL))
+  logs = tmp / f"logs_mesh_any_{name}_{mode}"
+  torch.cuda.reset_peak_memory_stats()
+  reset_mesh_any_launches()
+  t0 = time.perf_counter()
+  train(mcustom, logs, entries, entries, tmp / f"ck_mesh_any_{name}_{mode}",
+        checkpoint=ckpt, max_iterations=1 + MESH_ANY_TRAIN_STEPS,
+        device=DEVICE, mesh_devices=logical_devices(MESH_ANY_MODEL))
+  rec["train_s"] = time.perf_counter() - t0
+  counts = mesh_any_launches()
+  steps = [r for r in read_metrics(logs) if r["event"] == "train_step"]
+  rec.update(train_launches=counts, losses=[r["loss"] for r in steps],
+             step_s=[r["duration_s"] for r in steps],
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+  torch.cuda.empty_cache()
+  log(f"mesh any-shape train {name} {mode} " + json.dumps(rec))
+  if (len(steps) != MESH_ANY_TRAIN_STEPS or counts != want(len(steps))
+      or not np.isfinite(rec["losses"]).all()):
+    fail(f"{name} {mode}: train() on the mesh ran {len(steps)} steps, "
+         f"losses {rec['losses']}, launches {counts}, expected "
+         f"{MESH_ANY_TRAIN_STEPS} steps and {want(MESH_ANY_TRAIN_STEPS)}")
+  return rec
+
+
+def phase_mesh_any_shape(seed: int, tmp: Path) -> dict:
+  """Phase 18: the generic rank kernels against their plain versions (a,
+  b), against the specialised ones (c), their times (d), and the two
+  models served (e) and trained (f) on a logical model = 2 mesh."""
+  out = {"card": nvidia_smi_line(), "cases": [], "bwd_cases": [],
+         "timed": {}, "serving": {}, "train": {}}
+  for width, k, model in MESH_ANY_CASES:
+    for mode in MODES:
+      for dilation, last in ((1, False), (128, False),
+                             (LAST_DILATION, True)):
+        out["cases"].append(mesh_any_fwd_case(
+            mode, width, k, model, dilation, last, seed + width + k))
+    for dilation, last in ((1, False), (LAST_DILATION, True)):
+      out["bwd_cases"].append(mesh_any_bwd_case(
+          width, k, model, dilation, last, seed + width + k))
+    torch.cuda.empty_cache()
+  out["vs_specialised"] = mesh_any_vs_specialised(seed)
+  out["timed"] = {f"C={w},K={k},C'={w // m}": mesh_any_timed(w, k, m, seed)
+                  for w, k, m in MESH_ANY_TIMED}
+  torch.cuda.empty_cache()
+  log("generic rank kernels " + json.dumps(
+      {"cases": len(out["cases"]), "bwd_cases": out["bwd_cases"],
+       "max_err_of_bound": {m: max(c["max_abs_err"] / c["bound"]
+                                   for c in out["cases"] if c["mode"] == m)
+                            for m in MODES},
+       "vs_specialised": out["vs_specialised"], "timed": out["timed"]}))
+  for name in ANY_MODELS:
+    ckpt = any_checkpoint(seed, tmp, name)
+    out["serving"][name] = {mode: mesh_any_serving(name, ckpt, mode, seed)
+                            for mode in MODES}
+    out["train"][name] = {mode: mesh_any_train(name, ckpt, mode, seed, tmp)
+                          for mode in MODES}
+    del ckpt
+    torch.cuda.empty_cache()
+  return out
+
+
+def mesh_any_kernels(mesh_anys: dict, build: dict) -> list:
+  """Phase 18's entries of the kernels line: the generic rank forward in
+  each mode (launched by the two models' mesh serving and train() runs)
+  and the generic rank backward (launched by the bf16 train() runs)."""
+  kernels = []
+  head_key = f"C={C},K=5,C'={C // 2}"
+  head = mesh_anys["timed"][head_key]
+  for mode in MODES:
+    bf16 = mode == "bf16"
+    fwd = head[f"forward_{mode}"]
+    served = {name: mesh_anys["serving"][name][mode]["launches"]
+              for name in ANY_MODELS}
+    trained = {name: mesh_anys["train"][name][mode]["train_launches"][
+        "any_shard"] for name in ANY_MODELS}
+    cases = [c for c in mesh_anys["cases"] if c["mode"] == mode]
+    kernels.append({
+        "name": f"wn_layer_shard_any[{mode}]", "route": "cuda",
+        "source": "waveglow_tpu_torch/csrc/wn_layer_any.cu",
+        "replaces": "waveglow_tpu/kernels/wn_layer.py:259 (its Megatron "
+                    "shard, waveglow_tpu/parallel/sharding.py:44, at every "
+                    "shape) and waveglow_tpu/models/wn.py:152 (the XLA "
+                    "layer body under a model axis, kernel_size != 3)",
+        "launches": sum(served.values()) + sum(trained.values()),
+        "serving_launches": served, "train_launches": trained,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_err_of_bound": max(c["max_abs_err"] / c["bound"]
+                                for c in cases),
+        "ms": fwd["kernel_ms"],
+        **{k: fwd[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "share_of_bound", "kernels_ms")},
+        "design": MESH_ANY_DESIGN[mode],
+        "shape": f"B=1,T={T_KERNEL},C={C},K=5,C'={C // 2},d=1",
+        "timed": {shape: r[f"forward_{mode}"]
+                  for shape, r in mesh_anys["timed"].items()},
+        "vs_specialised": [r for r in mesh_anys["vs_specialised"]["forward"]
+                           if r["mode"] == mode],
+        "loaded_build": {any_variant(b, last, kernel, cp, True):
+                         build["attributes"][any_variant(b, last, kernel,
+                                                         cp, True)]
+                         for b, last, kernel, cp in MESH_ANY_KERNELS
+                         if b == bf16}})
+  bwd = head["backward_bf16"]
+  bwd_launches = {name: mesh_anys["train"][name]["bf16"]["train_launches"][
+      "any_shard_backward"] for name in ANY_MODELS}
+  kernels.append({
+      "name": "wn_layer_shard_bwd_any[bf16]", "route": "cuda",
+      "source": "waveglow_tpu_torch/csrc/wn_layer_bwd_any.cu",
+      "replaces": "waveglow_tpu/kernels/wn_layer.py:198 (under a model "
+                  "axis, waveglow_tpu/parallel/sharding.py:44, at every "
+                  "shape) and the autodiff of waveglow_tpu/models/wn.py:152 "
+                  "(kernel_size != 3)",
+      "launches": sum(bwd_launches.values()), "train_launches": bwd_launches,
+      "max_abs_err": max(c["summed_dx_vs_layer_max_abs"]
+                         for c in mesh_anys["bwd_cases"]),
+      "max_err_of_scale": max(c["max_err_of_scale"]
+                              for c in mesh_anys["bwd_cases"]),
+      "tolerance_of_scale": KERNEL_TOL_BF16_REL,
+      "ms": bwd["kernel_ms"],
+      **{k: bwd[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "share_of_bound", "kernels_ms")},
+      "design": MESH_ANY_BWD_DESIGN,
+      "shape": f"B={B_TRAIN},T={T_TRAIN},C={C},K=5,C'={C // 2},d=1",
+      "timed": {shape: r["backward_bf16"]
+                for shape, r in mesh_anys["timed"].items()},
+      "vs_specialised": mesh_anys["vs_specialised"]["backward"],
+      "mesh_train": {name: {mode: {k: r[k] for k in (
+          "loss", "loss_err", "grad_norm_rel", "losses", "step_s",
+          "max_memory_allocated_bytes", "device_busy_ms")}
+          for mode, r in runs.items()}
+          for name, runs in mesh_anys["train"].items()},
+      "loaded_build": {any_bwd_variant(k, k in MESH_ANY_BWD_KERNELS):
+                       build["attributes"][any_bwd_variant(
+                           k, k in MESH_ANY_BWD_KERNELS)]
+                       for k in kl.ANY_BWD_KERNELS}})
+  return kernels
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=1234)
@@ -5766,6 +6347,8 @@ def main() -> None:
     anys = phase(16, "any shape", phase_any_shape, args.seed, Path(tmp))
     any_trains = phase(17, "train at any shape", phase_train_any_shape,
                        args.seed, Path(tmp))
+    mesh_anys = phase(18, "mesh at every shape", phase_mesh_any_shape,
+                      args.seed, Path(tmp))
   seconds["total"] = time.perf_counter() - t_run
   log("phase seconds " + json.dumps(seconds))
 
@@ -6028,6 +6611,7 @@ def main() -> None:
                          if v[0] == (mode == "bf16")}})
 
   kernels.extend(train_any_shape_kernels(any_trains, build))
+  kernels.extend(mesh_any_kernels(mesh_anys, build))
 
   # phase 13: the trainable shard, launched by the mesh train() runs
   sbwd = mesh_train["shard_backward"]
@@ -6092,7 +6676,7 @@ def main() -> None:
                            "shard_backward": {
                                "cases": sbwd["cases"], "f32": sbwd["f32"]}},
             "bench": benches, "orbax": orbax, "any_shape": anys,
-            "train_any_shape": any_trains,
+            "train_any_shape": any_trains, "mesh_any_shape": mesh_anys,
             "phase_seconds": seconds,
             "kernels": kernels}
   (args.out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

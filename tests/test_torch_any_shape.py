@@ -4,7 +4,7 @@ the shape-generic kernel (``csrc/wn_layer_any.cu``) and here through its
 plain version. Against the JAX package on the same numpy weights and noise:
 the WN stack (the JAX XLA body), whole synthesis, bucket padding,
 streaming, the CLI and the parameter conversions; and the dispatch rule and
-the entry points that still take kernel_size 3 only. Tiny configs (at most
+the mesh entry points at kernel_size 5. Tiny configs (at most
 3 flows, 3 layers); every ``end`` conv randomised."""
 
 import shutil
@@ -43,6 +43,9 @@ from waveglow_tpu_torch.inference.synthesizer import Synthesizer
 from waveglow_tpu_torch.kernels import wn_layer as kl
 from waveglow_tpu_torch.models import waveglow as port_model
 from waveglow_tpu_torch.models import wn as port_wn
+from waveglow_tpu_torch.parallel import mesh as mesh_lib
+from waveglow_tpu_torch.parallel.sharding import (gather_tree, shard_params,
+                                                  shard_trainable_params)
 
 # The two tiny models of the slice: kernel_size 5 at a built-in width, and
 # a width no specialised kernel is built for (C = 48, the JAX package's own
@@ -106,7 +109,7 @@ def mel_and_noise(cfg, frames, seed=0):
   return mel, noise
 
 
-# -- the WN stack -----------------------------------------------------------------
+# -- the WN stack --------------------------------------------------------------
 
 def to_torch(tree):
   if isinstance(tree, dict):
@@ -169,7 +172,7 @@ def test_the_plain_layer_takes_the_taps_from_w_in():
     kl.wn_layer_plain(x, cond, rand(4, c, 2 * c), b_in, w_rs, b_rs, 1)
 
 
-# -- whole synthesis ----------------------------------------------------------------
+# -- whole synthesis -----------------------------------------------------------
 
 def test_infer_f32_matches_jax(model):
   jcfg, jparams, pcfg, pparams = model
@@ -214,7 +217,7 @@ def test_bucket_padded_kept_samples_bit_equal(model, mode):
   np.testing.assert_array_equal(out[:, :7 * 256], ref)
 
 
-# -- streaming ----------------------------------------------------------------------
+# -- streaming -----------------------------------------------------------------
 
 def test_receptive_halo_matches_jax_at_kernel_size_5():
   overrides = {"kernel_size": "5", "n_flows": "3", "n_layers": "3"}
@@ -247,7 +250,7 @@ def test_stream_matches_one_call(model, mode):
   assert np.abs(out - ref).max() <= STREAM_TOL[mode] * np.abs(ref).max()
 
 
-# -- the CLI and the checkpoint conversions --------------------------------------------
+# -- the CLI and the checkpoint conversions ------------------------------------
 
 K5_HPARAMS = {"n_flows": "3", "n_layers": "3", "n_channels": "32",
               "kernel_size": "5"}
@@ -360,7 +363,7 @@ def test_a_width_the_kernels_are_not_built_for_round_trips(tmp_path):
   assert np.isfinite(a).all() and np.abs(a).max() > 0
 
 
-# -- the dispatch rule and the entry points that take kernel_size 3 only ----------
+# -- the dispatch rule and the training and mesh entry points at kernel_size 5 -
 
 @pytest.mark.parametrize("c,k,want", [
     (128, 3, True), (256, 3, True), (512, 3, True),
@@ -412,9 +415,11 @@ def test_wn_layer_any_takes_the_plain_version_on_the_cpu():
 
 
 def test_training_and_mesh_entry_points_refuse_kernel_size_5():
-  """A model mesh's synthesis (``wn_forward_tp``) and its training
-  (``wn_forward_train_tp``) take kernel_size 3 only: each raises a
-  ValueError naming what it takes. Training without a mesh
+  """The mesh entry points no longer refuse kernel_size 5: a model mesh's
+  synthesis (``wn_forward_tp``) and its training (``wn_forward_train_tp``)
+  over a model = 2 group of the CPU give the unsharded route's output
+  (``wn_forward``, ``wn_forward_train``) and, in training, its gradients
+  of every leaf (the ranks' slices gathered). Training without a mesh
   (``wn_forward_train``, ``forward``) runs at kernel_size 5: through the
   trainable layer (its CPU route) it gives the plain route's output and
   gradients."""
@@ -427,16 +432,40 @@ def test_training_and_mesh_entry_points_refuse_kernel_size_5():
   spect = torch.from_numpy(rng.standard_normal((1, 8, 640)).astype(
       np.float32))
   c, layers, k = cfg.n_channels, cfg.n_layers, cfg.kernel_size
-  calls = {
-      "wn_forward_tp": lambda: port_wn.wn_forward_tp(
-          [wn], audio0, [spect], c, layers, k),
-      "wn_forward_train_tp": lambda: port_wn.wn_forward_train_tp(
-          [tr["flows"][0]["wn"]], audio0, spect, c, layers, k),
-  }
-  for name, call in calls.items():
-    with pytest.raises(ValueError, match="kernel_size 3 only") as err:
-      call()
-    assert "got kernel_size 5" in str(err.value), name
+  mesh = mesh_lib.make_mesh(1, 2, devices=["cpu"] * 2)
+  group = [g["flows"][0]["wn"] for g in shard_params(
+      port_model.fuse_for_inference(params), mesh)[0]]
+  want = port_wn.wn_forward(wn, audio0, spect, c, layers, k)
+  got = port_wn.wn_forward_tp(group, audio0, [spect] * 2, c, layers, k)
+  assert want.abs().max() > 0.1
+  np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                             atol=1e-5 * want.abs().max().item())
+  ranks = shard_trainable_params(params, mesh)[0]
+  outs = {}
+  for route, run in (
+      ("mesh", lambda: port_wn.wn_forward_train_tp(
+          [g["flows"][0]["wn"] for g in ranks], audio0, spect, c, layers,
+          k)),
+      ("unsharded", lambda: port_wn.wn_forward_train(
+          tr["flows"][0]["wn"], audio0, spect, c, layers, k))):
+    out = run()
+    out.square().sum().backward()
+    outs[route] = out.detach()
+  np.testing.assert_allclose(outs["mesh"].numpy(), outs["unsharded"].numpy(),
+                             rtol=0,
+                             atol=1e-5 * outs["unsharded"].abs().max().item())
+
+  def grad(p):
+    return (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+
+  got_grads = gather_tree(ranks, grad)
+  want_grads = [grad(p) for p in tree_leaves(tr)]
+  assert len(got_grads) == len(want_grads)
+  assert sum(np.abs(g).max() > 0 for g in want_grads) >= 10
+  for n, (g, w) in enumerate(zip(got_grads, want_grads)):
+    np.testing.assert_allclose(g, w, rtol=0,
+                               atol=1e-5 * max(np.abs(w).max(), 1e-30),
+                               err_msg=f"leaf {n}")
 
   mel = torch.from_numpy(rng.standard_normal((1, 80, 2)).astype(np.float32))
   audio = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 512)).astype(

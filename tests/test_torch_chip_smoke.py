@@ -550,7 +550,7 @@ def test_state_mismatch_names_each_difference(smoke, tmp_path):
       "params/a/w", "optimizer/1", "iteration 4 != 5", "hparams"]
 
 
-# -- phase 11: sharded serving --------------------------------------------------
+# -- phase 11: sharded serving -------------------------------------------------
 
 # As nvcc names them in the build: the f32 FFMA kernel <C, C', last> of
 # csrc/wn_layer_shard.cu and a rank's bf16 res/skip kernel <C, C', last>
@@ -828,7 +828,7 @@ def test_shard_cost_at_other_widths(smoke, width, cp):
                                             + 2 * 3 * width * 2 * width)
 
 
-# -- phase 13: mesh training ------------------------------------------------------
+# -- phase 13: mesh training ---------------------------------------------------
 
 _SBWD = "_ZN54_GLOBAL__N__05726558_21_wn_layer_shard_bwd_cu_3e1b28cf"
 SBWD_ROWS = (_SBWD + "19wn_sbwd_rows_kernelILi256ELi128ELb0EEEvPKfPK13__nv_"
@@ -1420,7 +1420,7 @@ def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
   assert not (tmp_path / "orbax").exists()
 
 
-# -- phase 16: the shape-generic forward ------------------------------------------
+# -- phase 16: the shape-generic forward ---------------------------------------
 
 # Its kernels as nvcc names them in the library (wn_layer_any.cu compiled
 # on its own).
@@ -1586,7 +1586,7 @@ def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert stream["launches"] == 4 * stream["windows"]
 
 
-# -- phase 17: training at every shape ----------------------------------------------
+# -- phase 17: training at every shape -----------------------------------------
 
 # The shape-generic backward's kernels as nvcc names them in the library
 # (wn_layer_bwd_any.cu compiled on its own; each takes the call's BwdArgs).
@@ -1780,3 +1780,269 @@ def test_phase_17_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert (ROOT / entry["source"]).is_file()
   assert entries[0]["launches"] == 2 * 8  # bf16: two models, 8 calls each
   assert entries[1]["launches"] == entries[2]["launches"] == 2 * 16
+
+
+# -- phase 18: a model mesh at every shape -------------------------------------
+
+@pytest.mark.parametrize("mangled,name", [
+    (ANY_F32_LAYER.replace("ILb0ELb0EE", "ILb0ELb0ELb0EE"), "f32,any,layer"),
+    (ANY_F32_LAYER.replace("ILb0ELb0EE", "ILb0ELb0ELb1EE"),
+     "shard-f32,any,layer"),
+    (ANY_F32_LAYER.replace("ILb0ELb0EE", "ILb1ELb1ELb1EE"),
+     "shard-f32,any,c64,last"),
+    (ANY_BF16_LAYER.replace("ILb0EE", "ILb0ELb0EE"), "bf16,any,layer"),
+    (ANY_BF16_LAYER.replace("ILb0EE", "ILb1ELb1EE"), "shard-bf16,any,last"),
+    (ANY_BF16_LAYER.replace("ILb0EE", "ILb0ELb1EE"), "shard-bf16,any,layer"),
+    (ANY_BF16_GATE.replace("kernelENS_", "kernelILb0EEEvNS_"),
+     "bf16,any,gate"),
+    (ANY_BF16_GATE.replace("kernelENS_", "kernelILb1EEEvNS_"),
+     "shard-bf16,any,gate"),
+    (ANY_BWD_ROWS.replace("kernelENS_", "kernelILb0EEEvNS_"),
+     "bf16,any,bwd-rows"),
+    (ANY_BWD_ROWS.replace("kernelENS_", "kernelILb1EEEvNS_"),
+     "bf16,any,bwd-rows,rank")])
+def test_kernel_variant_names_the_generic_rank_kernels(smoke, mangled, name):
+  """The rank instances of the generic kernels (the forward's partial mode,
+  a third template flag or the res/skip kernel's second; the gate's and
+  the backward's rows kernel's own flag) are named as shard or rank
+  kernels; the whole layer's keep their names."""
+  assert smoke.kernel_variant(mangled) == name
+
+
+def test_phase2_holds_the_generic_rank_kernels(smoke):
+  """Phase 2 lists the eight rank instances: the f32 ones (the Gp = 64
+  instance too) held to no tensor-core instruction and no spill, the bf16
+  ones (the res/skip kernels, the gate and the backward's rows kernel) to
+  wgmma, no serialization and no spill."""
+  names = [smoke.any_variant(b, last, kernel, cp, True)
+           for b, last, kernel, cp in smoke.MESH_ANY_KERNELS] + [
+               smoke.any_bwd_variant(k, True)
+               for k in smoke.MESH_ANY_BWD_KERNELS]
+  assert names == ["shard-f32,any,layer", "shard-f32,any,last",
+                   "shard-f32,any,c64,layer", "shard-f32,any,c64,last",
+                   "shard-bf16,any,layer", "shard-bf16,any,last",
+                   "shard-bf16,any,gate", "bf16,any,bwd-rows,rank"]
+  f32, bf16 = names[:4], names[4:]
+  assert all(smoke.held_to_wgmma(n) for n in bf16)
+  assert not any(smoke.held_to_wgmma(n) for n in f32)
+  mma = {**dict.fromkeys(bf16, 8), **dict.fromkeys(f32, 0)}
+  smoke.check_tensor_cores(mma, names)  # passes
+  smoke.check_wgmma(mma, set(), names)
+  with pytest.raises(SystemExit, match="tensor-core"):
+    smoke.check_tensor_cores({**mma, f32[0]: 2}, names)
+  with pytest.raises(SystemExit, match="no wgmma"):
+    smoke.check_wgmma({**mma, bf16[1]: 0}, set(), names)
+  for name in names:
+    with pytest.raises(SystemExit, match="spills"):
+      smoke.check_no_spills(None, {name: {"local_bytes": 8}})
+
+
+@pytest.mark.parametrize("c,k,cp,mode,bound_ms,by", [
+    (256, 5, 128, "f32", 0.3102, "operations"),
+    (256, 5, 128, "bf16", 0.028513, "bytes"),
+    (384, 3, 192, "f32", 0.4654, "operations"),
+    (384, 3, 192, "bf16", 0.04277, "bytes")])
+def test_shard_cost_at_the_generic_timed_shapes(smoke, c, k, cp, mode,
+                                                bound_ms, by):
+  """The bound of phase 18's timed shapes (B = 1, T = 26,432, d = 1, a
+  rank of model 2): 2 T (K C 2C' + C' 2C) operations; x, cond_s and the
+  weights read once and the f32 partial written once; the default K = 3
+  keeps phase 11's figure."""
+  nbytes, flops, got_ms, got_by = smoke.shard_cost(1, smoke.T_KERNEL, cp,
+                                                   False, mode, c, k)
+  assert flops == 2 * smoke.T_KERNEL * (k * c * 2 * cp + cp * 2 * c)
+  assert got_by == by
+  assert got_ms == pytest.approx(bound_ms, rel=1e-3)
+  assert smoke.shard_cost(1, 100, 64, False, mode, 256) == smoke.shard_cost(
+      1, 100, 64, False, mode, 256, 3)
+
+
+def test_phase_18_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+  """Phase 18 on tiny models on the CPU, the plain versions counted in the
+  kernels' place (the generic rank forward and backward where the shape is
+  not the specialised kernels', the specialised ones at their pair): every
+  forward and backward case with its sums against the whole layer, the
+  specialised comparison, the timings' keys, both models served on a
+  model = 2 mesh (2 ranks x 4 generic launches) and trained on (1, 2) at
+  the code's counts, and the kernels line's entries built from the
+  record. The bf16 step bound is read at 1e-2 as in phase 17's rehearsal
+  (a 2 x 2 model's bf16 roundings)."""
+  kl_ = smoke.kl
+  monkeypatch.setattr(smoke, "STEP_GRAD_TOL_REL",
+                      dict(smoke.STEP_GRAD_TOL_REL, bf16=1e-2))
+  monkeypatch.setattr(smoke, "DEVICE", "cpu")
+  for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+    monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+  monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+  monkeypatch.setattr(smoke, "nvidia_smi_line", lambda: "cpu, 0 W")
+  monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: (fn(), 1.0)[1])
+  monkeypatch.setattr(smoke, "profile_call", lambda fn: {"busy_ms": 0.0})
+  monkeypatch.setattr(smoke, "kernel_split",
+                      lambda fn, *a, **k: (fn(), "not measured")[1])
+  monkeypatch.setattr(smoke, "logical_devices", lambda n: ["cpu"] * n)
+
+  class NoTrace:  # the CPU has no CUDA activity to trace
+    def __init__(self, activities):
+      pass
+
+    def __enter__(self):
+      return self
+
+    def __exit__(self, *exc):
+      return False
+
+    def events(self):
+      return []
+
+  monkeypatch.setattr(torch.profiler, "profile", NoTrace)
+  monkeypatch.setattr(smoke, "C", 32)
+  monkeypatch.setattr(smoke, "T_KERNEL", 130)
+  monkeypatch.setattr(smoke, "B_TRAIN", 2)
+  monkeypatch.setattr(smoke, "T_TRAIN", 70)
+  monkeypatch.setattr(smoke, "LAST_DILATION", 8)
+  monkeypatch.setattr(smoke, "MESH_ANY_CASES",
+                      ((16, 3, 2), (10, 5, 2), (48, 3, 3), (32, 3, 8)))
+  monkeypatch.setattr(smoke, "MESH_ANY_VS", (32, 3, 2))
+  monkeypatch.setattr(smoke, "MESH_ANY_TIMED", ((32, 5, 2), (48, 3, 2)))
+  monkeypatch.setattr(smoke, "ANY_MODELS", {"k5": (32, 5), "c48": (48, 3)})
+  monkeypatch.setattr(smoke, "ANY_TRAIN_HPARAMS", dict(
+      smoke.ANY_TRAIN_HPARAMS, batch_size="2", segment_length="2048"))
+  monkeypatch.setattr(smoke, "N_WAVS", 4)
+  monkeypatch.setattr(smoke, "FRAMES", (9, 21))
+  monkeypatch.setattr(smoke, "BUCKET", 16)
+  monkeypatch.setattr(kl_, "_WIDTHS", (32,))
+  monkeypatch.setattr(
+      smoke, "width_hparams", lambda width=32, kernel_size=3: smoke.HParams(
+          n_flows=2, n_layers=2, n_channels=width, kernel_size=kernel_size))
+
+  def rand_fn(seed):
+    g = torch.Generator().manual_seed(seed)
+    return lambda *shape, scale: torch.randn(*shape, generator=g) * scale
+
+  def layer_inputs(batch, t, last, dtype, seed, width=32, k=3):
+    rand = rand_fn(seed)
+    rs = width if last else 2 * width
+    valid = torch.tensor([t] * batch, dtype=torch.int32)
+    return ((rand(batch, t, width, scale=0.5),
+             rand(batch, t, 2, width, scale=0.5).to(dtype),
+             rand(k, width, 2 * width, scale=(k * width) ** -0.5).to(dtype),
+             rand(2 * width, scale=0.1),
+             rand(width, rs, scale=width ** -0.5).to(dtype),
+             rand(rs, scale=0.1)), valid, rand(batch, t, width, scale=1.0))
+
+  def trainable_inputs(last, dtype, seed, width=32, k=3):
+    rand = rand_fn(seed)
+    t, b = smoke.T_TRAIN, smoke.B_TRAIN
+    rs = width if last else 2 * width
+    args = (rand(b, t, width, scale=0.5),
+            rand(b, t, 2, width, scale=0.5).to(dtype),
+            rand(k, width, 2 * width, scale=(k * width) ** -0.5).to(dtype),
+            rand(2 * width, scale=0.1),
+            rand(width, rs, scale=width ** -0.5).to(dtype),
+            rand(rs, scale=0.1))
+    cot = (rand(b, t, width, scale=1.0), rand(b, t, width, scale=1.0))
+    return [a.requires_grad_() for a in args], cot
+
+  monkeypatch.setattr(smoke, "layer_inputs", layer_inputs)
+  monkeypatch.setattr(smoke, "trainable_inputs", trainable_inputs)
+  plain, shard_plain = kl_.wn_layer_plain, kl_.wn_layer_shard_plain
+  backward, shard_backward = (kl_.wn_layer_backward,
+                              kl_.wn_layer_shard_backward)
+
+  def specialised_shard(x, w_in_s, b_in_s):
+    c, cp = x.shape[-1], b_in_s.numel() // 2
+    return kl_.shard_specialised(c, cp, w_in_s.numel() // (c * 2 * cp))
+
+  def counted_forward(x, cond, w_in, *args, **kwargs):
+    c = x.shape[-1]
+    if kl_.specialised(c, w_in.numel() // (2 * c * c)):
+      kl_.LAUNCHES += 1
+    else:
+      kl_.ANY_LAUNCHES += 1
+    return plain(x, cond, w_in, *args, **kwargs)
+
+  def counted_shard(x, cond_s, w_in_s, b_in_s, *args, **kwargs):
+    if specialised_shard(x, w_in_s, b_in_s):
+      kl_.SHARD_LAUNCHES += 1
+    else:
+      kl_.ANY_SHARD_LAUNCHES += 1
+    return shard_plain(x, cond_s, w_in_s, b_in_s, *args, **kwargs)
+
+  def counted_shard_backward(saved, g, dilation, compute_dtype=None):
+    if compute_dtype is not None:
+      if specialised_shard(saved[0], saved[2], saved[3]):
+        kl_.SHARD_BWD_LAUNCHES += 1
+      else:
+        kl_.ANY_SHARD_BWD_LAUNCHES += 1
+    return shard_backward(saved, g, dilation, compute_dtype)
+
+  def generic_shard_backward(saved, g, dilation):
+    kl_.ANY_SHARD_BWD_LAUNCHES += 1
+    return shard_backward(saved, g, dilation, torch.bfloat16)
+
+  def fused_shard_backward(saved, g, dilation):
+    kl_.SHARD_BWD_LAUNCHES += 1
+    return shard_backward(saved, g, dilation, torch.bfloat16)
+
+  def generic_backward(saved, dx_next, dskip, dilation, valid_t=None):
+    kl_.ANY_BWD_LAUNCHES += 1
+    return backward(saved, dx_next, dskip, dilation, valid_t, torch.bfloat16)
+
+  monkeypatch.setattr(kl_, "wn_layer_plain", counted_forward)
+  monkeypatch.setattr(kl_, "wn_layer_shard_plain", counted_shard)
+  monkeypatch.setattr(kl_, "wn_layer_shard_backward", counted_shard_backward)
+  monkeypatch.setattr(kl_, "wn_layer_shard_backward_any",
+                      generic_shard_backward)
+  monkeypatch.setattr(kl_, "wn_layer_shard_backward_fused",
+                      fused_shard_backward)
+  monkeypatch.setattr(kl_, "wn_layer_backward_any", generic_backward)
+  out = smoke.phase_mesh_any_shape(5, tmp_path)
+
+  assert len(out["cases"]) == 4 * 2 * 3
+  for case in out["cases"]:
+    assert case["max_abs_err"] <= case["bound"]
+    assert case["summed_vs_layer_max_abs"] <= case["summed_bound"]
+  assert len(out["bwd_cases"]) == 4 * 2
+  for case in out["bwd_cases"]:
+    assert case["max_err_of_scale"] <= smoke.KERNEL_TOL_BF16_REL
+    assert case["summed_dx_vs_layer_max_abs"] <= case["summed_dx_bound"]
+  vs = out["vs_specialised"]
+  assert [r["bitwise_equal"] for r in vs["forward"] + vs["backward"]] == [
+      True] * 6
+  assert set(out["timed"]) == {"C=32,K=5,C'=16", "C=48,K=3,C'=24"}
+  for rec in out["timed"].values():
+    for key in ("forward_f32", "forward_bf16", "backward_bf16"):
+      assert {"kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "kernels_ms", "share_of_bound"} <= set(rec[key])
+  for name in ("k5", "c48"):
+    for mode in smoke.MODES:
+      served = out["serving"][name][mode]
+      assert served["launches"] == 2 * 4  # 2 ranks x 2 flows x 2 layers
+      assert served["vs_unsharded_max_abs"] <= served["bound"]
+      run = out["train"][name][mode]
+      # 2 flows x 2 layers x 2 ranks, twice a step (remat), 2 steps
+      assert run["train_launches"]["any_shard"] == 32
+      assert run["train_launches"]["any_shard_backward"] == (
+          16 if mode == "bf16" else 0)
+      assert sum(run["train_launches"].values()) == (
+          48 if mode == "bf16" else 32)
+      assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+      assert run["grad_norm_rel"] <= smoke.STEP_GRAD_TOL_REL[mode]
+
+  build = {"attributes": {
+      **{smoke.any_variant(b, last, kernel, cp, True): {"registers": 1}
+         for b, last, kernel, cp in smoke.MESH_ANY_KERNELS},
+      **{smoke.any_bwd_variant(k, k in smoke.MESH_ANY_BWD_KERNELS):
+         {"registers": 1} for k in kl_.ANY_BWD_KERNELS}}}
+  entries = smoke.mesh_any_kernels(out, build)
+  assert [e["name"] for e in entries] == [
+      "wn_layer_shard_any[f32]", "wn_layer_shard_any[bf16]",
+      "wn_layer_shard_bwd_any[bf16]"]
+  keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+  for entry in entries:
+    assert keys <= set(entry) and entry["route"] == "cuda"
+    assert (ROOT / entry["source"]).is_file()
+  # both models: 8 launches served and 32 trained
+  assert entries[0]["launches"] == entries[1]["launches"] == 2 * (8 + 32)
+  assert entries[2]["launches"] == 2 * 16

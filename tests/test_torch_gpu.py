@@ -816,7 +816,7 @@ def test_train_command_on_the_card(cuda, tmp_path, compute_dtype):
       assert a[key].tobytes() == b[key].tobytes(), key
 
 
-# -- the normal-mel bias capture and the native loader on the card --------------
+# -- the normal-mel bias capture and the native loader on the card -------------
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -898,14 +898,15 @@ def shard_slices(args, model, rank):
   ``parallel.sharding.shard_params`` cuts them."""
   _, cond, w_in, b_in, w_rs, _ = args
   c = args[0].shape[-1]
+  k = w_in.numel() // (2 * c * c)
   cp = c // model
   cols = slice(rank * cp, (rank + 1) * cp)
   return (cond.reshape(*cond.shape[:2], 2, c)[..., cols].reshape(
               *cond.shape[:2], 2 * cp).contiguous(),
-          w_in.reshape(3, c, 2, c)[..., cols].reshape(3, c, 2 * cp)
+          w_in.reshape(k, c, 2, c)[..., cols].reshape(k, c, 2 * cp)
           .contiguous(),
           b_in.reshape(2, c)[:, cols].reshape(-1).contiguous(),
-          w_rs.reshape(c, -1)[cols].contiguous())
+          w_rs.reshape(c, -1)[cols].clone())  # its own 16-byte-aligned copy
 
 
 @pytest.mark.parametrize("dilation,last", [(1, False), (128, False),
@@ -1082,7 +1083,7 @@ def test_f32_wide_kernel_tiles(cuda, t):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_shard_kernel_repeats_bitwise_and_refuses(cuda, bf16, c):
   """16 launches give the same bits (no atomics, no split K), and inputs
-  outside the built set or of the other mode's dtype raise."""
+  no rank kernel takes (an even K) or of the other mode's dtype raise."""
   dtype = torch.bfloat16 if bf16 else torch.float32
   cdt = torch.bfloat16 if bf16 else None
   args = layer_inputs(cuda, 1, 1000, c, False, dtype)
@@ -1091,9 +1092,10 @@ def test_shard_kernel_repeats_bitwise_and_refuses(cuda, bf16, c):
   for _ in range(16):
     two = kl.wn_layer_shard(args[0], *sl, 4, compute_dtype=cdt)
     assert torch.equal(one, two)
-  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
-    kl.wn_layer_shard(args[0], *shard_slices(args, 16, 0), 4,
-                      compute_dtype=cdt)
+  cond_s, w_in_s, b_in_s, w_rs_s = sl
+  with pytest.raises(ValueError, match="odd K"):
+    kl.wn_layer_shard(args[0], cond_s, w_in_s[:2].contiguous(), b_in_s,
+                      w_rs_s, 4, compute_dtype=cdt)
   with pytest.raises(ValueError, match="dtype"):
     kl.wn_layer_shard(args[0], *sl, 4,
                       compute_dtype=None if bf16 else torch.bfloat16)
@@ -1316,7 +1318,7 @@ def test_any_kernel_stream_window_is_bitwise(cuda, dilation, bf16):
       assert torch.equal(got[:, lo:hi], ref[:, start + lo:start + hi])
 
 
-# -- the shape-generic bf16 backward (csrc/wn_layer_bwd_any.cu) -------------------
+# -- the shape-generic bf16 backward (csrc/wn_layer_bwd_any.cu) ----------------
 
 # (C, K) the generic backward is held at: widths outside the built set (not
 # a multiple of 64; 50, whose rows allow no 16-byte copy; 384), and K != 3
@@ -1526,8 +1528,9 @@ def test_other_widths_are_refused_on_the_card(cuda):
   trainable layer run the shape-generic kernels (the specialised ones
   launch nothing), the trainable layer's output and gradients within
   test_trainable_grads_match_plain's bounds of its plain version; the
-  specialised backward's and the shard kernel's wrappers raise, naming
-  the set; none falls back to the plain version."""
+  specialised backward's wrapper raises, naming the set, and the shard
+  wrapper raises on weights of another width; none falls back to the
+  plain version."""
   args = layer_inputs(cuda, 1, 64, 384, False, torch.float32)
   before, any_before = kl.LAUNCHES, kl.ANY_LAUNCHES
   got = kl.wn_layer_fused(*args, 1)
@@ -1564,7 +1567,7 @@ def test_other_widths_are_refused_on_the_card(cuda):
   sl = shard_slices(layer_inputs(cuda, 1, 64, 256, False, torch.float32),
                     2, 0)
   x = torch.zeros(1, 64, 384, device=cuda)
-  with pytest.raises(ValueError, match=r"\(C, C'\) in"):
+  with pytest.raises(ValueError, match=r"w_in_s: .* for an odd K"):
     kl.wn_layer_shard(x, *sl, 1)
 
 
@@ -1587,7 +1590,7 @@ def test_bwd_kernel_launches_on_the_tensors_card(cuda, c):
     assert g.device == other and torch.equal(g, r)
 
 
-# -- the trainable shard's bf16 backward (csrc/wn_layer_bwd.cu) ------------------
+# -- the trainable shard's bf16 backward (csrc/wn_layer_bwd.cu) ----------------
 
 def shard_bwd_inputs(device, batch, t, c, model, rank, last, seed=0):
   """Rank ``rank``'s bf16 saved inputs of the trainable shard and a
@@ -1815,3 +1818,166 @@ def test_to_device_takes_an_expanded_host_tensor(cuda):
   got = to_device(seeds, cuda, torch.int64)
   torch.cuda.synchronize()
   assert got.device.type == "cuda" and got.tolist() == [7] * 8
+
+
+# -- a model rank at every shape: the generic rank kernels ---------------------
+
+# (C, K, model): odd and under-64 gate widths, K = 1, 5, 7, model counts
+# outside SHARD_MODELS, widths outside the built set, C' = C, and gate
+# widths of an odd number of 64s (192, 320: the f32 kernel's 64-channel
+# passes).
+RANK_ANY = ((256, 5, 2), (50, 3, 2), (384, 3, 3), (384, 3, 8), (256, 3, 16),
+            (64, 3, 2), (128, 7, 2), (256, 1, 2), (48, 5, 1), (1280, 3, 4),
+            (384, 3, 2), (640, 5, 2))
+
+
+def rank_bwd_inputs(device, batch, t, c, k, model, rank, last, seed=0):
+  """A rank's saved bf16 inputs (x f32, its slices of cond, w_in, b_in,
+  w_rs) and an f32 cotangent of its partial."""
+  args = layer_inputs(device, batch, t, c, last, torch.bfloat16, seed, k)
+  g = torch.randn(batch, t, c if last else 2 * c,
+                  generator=torch.Generator().manual_seed(seed + 1)).to(device)
+  return (args[0],) + shard_slices(args, model, rank), g
+
+
+@pytest.mark.parametrize("c,k,model", RANK_ANY)
+@pytest.mark.parametrize("dilation,last", [(1, False), (64, False),
+                                           (2, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_shard_any_matches_plain(cuda, c, k, model, dilation, last, bf16):
+  """Every rank's generic forward against wn_layer_shard_plain at the full
+  kernel's bounds (a ragged last tile, B = 2), counted once a call in
+  ANY_SHARD_LAUNCHES; the ranks' partials plus b_rs against the whole
+  layer's generic kernel."""
+  if c > kl.ANY_MAX_C[torch.bfloat16 if bf16 else torch.float32]:
+    pytest.skip("over the f32 cap")
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  cdt = torch.bfloat16 if bf16 else None
+  args = layer_inputs(cuda, 2, 300, c, last, dtype, seed=c + k, k=k)
+  total = None
+  for rank in range(model):
+    sl = shard_slices(args, model, rank)
+    before = kl.ANY_SHARD_LAUNCHES
+    got = kl.wn_layer_shard_any(args[0], *sl, dilation, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert kl.ANY_SHARD_LAUNCHES == before + 1
+    ref = kl.wn_layer_shard_plain(args[0], *sl, dilation, compute_dtype=cdt)
+    bound = 2e-2 * ref.abs().max().item() if bf16 else 1e-4
+    assert (got - ref).abs().max().item() <= bound
+    total = got if total is None else total + got
+  xk, sk = kl.wn_layer_any(*args, dilation, compute_dtype=cdt)
+  full = sk if last else torch.cat([xk - args[0], sk], dim=-1)
+  bound = 2e-2 * full.abs().max().item() if bf16 else 1e-4
+  assert (total + args[5] - full).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("c,k,model", RANK_ANY)
+@pytest.mark.parametrize("dilation,last", [(1, False), (128, True)])
+def test_shard_any_bwd_matches_plain(cuda, c, k, model, dilation, last):
+  """Every rank's generic bf16 backward against wn_layer_shard_backward at
+  the bf16 backward's bound (B = 3, T = 129: ragged tiles and ranges), a
+  second call bit for bit, counted in ANY_SHARD_BWD_LAUNCHES."""
+  for rank in range(model):
+    saved, g = rank_bwd_inputs(cuda, 3, 129, c, k, model, rank, last,
+                               seed=rank)
+    before = kl.ANY_SHARD_BWD_LAUNCHES
+    got = kl.wn_layer_shard_backward_any(saved, g, dilation)
+    again = kl.wn_layer_shard_backward_any(saved, g, dilation)
+    torch.cuda.synchronize()
+    assert kl.ANY_SHARD_BWD_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = kl.wn_layer_shard_backward(saved, g, dilation, torch.bfloat16)
+    for a, b, v in zip(got, ref, saved):
+      assert a.dtype == v.dtype and a.shape == v.shape
+      err = (a.float() - b.float()).abs().max().item()
+      assert err <= 2e-2 * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("c,cp,k,specialised", [
+    (256, 128, 3, True), (128, 16, 3, True), (256, 16, 3, False),
+    (256, 128, 5, False), (384, 192, 3, False)])
+def test_shard_dispatch_takes_the_rule(cuda, c, cp, k, specialised):
+  """wn_layer_shard and the trainable shard's bf16 backward launch the
+  specialised rank kernels at K = 3 and a built pair and the generic ones
+  everywhere else, never both."""
+  model = c // cp
+  args = layer_inputs(cuda, 1, 200, c, False, torch.bfloat16, k=k)
+  sl = [v.detach().clone().requires_grad_(v.is_floating_point())
+        for v in shard_slices(args, model, 0)]
+  x = args[0].clone().requires_grad_()
+  counts = (kl.SHARD_LAUNCHES, kl.ANY_SHARD_LAUNCHES, kl.SHARD_BWD_LAUNCHES,
+            kl.ANY_SHARD_BWD_LAUNCHES)
+  out = kl.wn_layer_shard_trainable(x, *sl, 1, compute_dtype=torch.bfloat16)
+  out.backward(torch.ones_like(out))
+  torch.cuda.synchronize()
+  got = (kl.SHARD_LAUNCHES - counts[0], kl.ANY_SHARD_LAUNCHES - counts[1],
+         kl.SHARD_BWD_LAUNCHES - counts[2],
+         kl.ANY_SHARD_BWD_LAUNCHES - counts[3])
+  assert got == ((1, 0, 1, 0) if specialised else (0, 1, 0, 1))
+  assert kl.shard_specialised(c, cp, k) is specialised
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_shard_any_equals_the_specialised_kernels_within_bound(cuda, bf16):
+  """At (256, 128), K = 3 both the generic and the specialised rank kernels
+  run; they agree within the bound each keeps to the plain version."""
+  cdt = torch.bfloat16 if bf16 else None
+  args = layer_inputs(cuda, 2, 300, 256, False,
+                      torch.bfloat16 if bf16 else torch.float32)
+  sl = shard_slices(args, 2, 1)
+  generic = kl.wn_layer_shard_any(args[0], *sl, 8, compute_dtype=cdt)
+  spec = kl.wn_layer_shard(args[0], *sl, 8, compute_dtype=cdt)
+  bound = 2e-2 * spec.abs().max().item() if bf16 else 1e-4
+  assert (generic - spec).abs().max().item() <= bound
+
+
+def test_shard_any_refuses_what_it_does_not_take(cuda):
+  """An odd C, C over the cap, an even K, C' over C, the other mode's dtype
+  and CPU tensors raise; nothing is launched."""
+  args = layer_inputs(cuda, 1, 64, 256, False, torch.float32)
+  x, (cond_s, w_in_s, b_in_s, w_rs_s) = args[0], shard_slices(args, 2, 0)
+  before = (kl.ANY_SHARD_LAUNCHES, kl.ANY_SHARD_BWD_LAUNCHES)
+  with pytest.raises(ValueError, match="even C"):
+    kl.wn_layer_shard_any(x[..., :255].contiguous(), cond_s, w_in_s, b_in_s,
+                          w_rs_s, 1)
+  with pytest.raises(ValueError, match="at most 704"):
+    kl.wn_layer_shard_any(torch.zeros(1, 8, 706, device=cuda), cond_s,
+                          w_in_s, b_in_s, w_rs_s, 1)
+  with pytest.raises(ValueError, match="odd K"):
+    kl.wn_layer_shard_any(x, cond_s, w_in_s[:2].contiguous(), b_in_s,
+                          w_rs_s, 1)
+  with pytest.raises(ValueError, match="gate channels"):
+    kl.wn_layer_shard_any(x[..., :64].contiguous(), cond_s, w_in_s, b_in_s,
+                          w_rs_s, 1)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_shard_any(x, cond_s, w_in_s, b_in_s, w_rs_s, 1,
+                          compute_dtype=torch.bfloat16)
+  saved, g = rank_bwd_inputs(cuda, 1, 64, 256, 5, 2, 0, False)
+  with pytest.raises(ValueError, match="dtype"):
+    kl.wn_layer_shard_backward_any((saved[0], saved[1].float()) + saved[2:],
+                                   g, 1)
+  with pytest.raises(ValueError, match="CUDA"):
+    kl.wn_layer_shard_backward_any(tuple(v.cpu() for v in saved), g.cpu(), 1)
+  assert (kl.ANY_SHARD_LAUNCHES, kl.ANY_SHARD_BWD_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("c,cp", [(256, 128), (50, 25), (384, 48),
+                                  (128, 64), (256, 16)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_shard_any_schedule_and_tiles_are_the_host_plan(cuda, c, cp, bf16):
+  """The library's grid of a rank's generic call is any_grid's at the
+  slots it reads from the card; its backward's weight tiles are
+  any_bwd_weight_tiles'; the partial-mode instances are in the loaded
+  build without spills."""
+  got = kl.any_schedule(1, 26_432, c, bf16, cp=cp)
+  want = kl.any_grid(1, 26_432, c, bf16, got["slots"], cp)
+  assert (got["blocks"], got["rows_per_block"]) == (
+      want["blocks"], want["rows_per_block"])
+  if bf16:
+    assert got["gate_blocks"] == want["gate_blocks"]
+  lib = kl._library()
+  for last in (False, True):
+    assert kl.any_bwd_weight_tiles(c, 5, last, cp) == (
+        lib.wn_layer_shard_bwd_any_weight_tiles(c, cp, 5, int(last)))
+    info = kl.any_kernel_info(bf16, last, c, "layer", cp)
+    assert info["local_bytes"] == 0 and info["registers"] > 0

@@ -18,9 +18,27 @@
 //   x'   = x + rs[:C], skip = rs[C:]                 (last layer: x' = x, skip = rs)
 //   skip_acc += skip in place (when accumulating), x' rows >= valid_t[b] = 0
 //
-// C, K, the dilation d, B and T are runtime arguments. Global layouts: x,
-// x', skip [B, T, C], cond [B, T, 2C], w_in [K*C, 2C], w_rs [C, 2C] (last
-// layer [C, C]), all row-major. x, x', b_in, b_rs and the skip sum are f32.
+// and, in partial mode, one model rank's share of it (kernels/wn_layer.py:
+// wn_layer_shard_any), which replaces the per-rank cut of the same Pallas
+// kernel and XLA body that GSPMD makes of them under a `model` mesh axis
+// (waveglow_tpu/parallel/sharding.py): the gate over the rank's G = C' of
+// the gate channels, the res/skip product over the same G rows,
+//
+//   pre     = sum_k x[t + (k - K/2)*d] @ w_in_s[k]   (w_in_s [K*C, 2G])
+//   acts    = tanh(pre[:G] + b_in_s[:G] + cond_s[:G]) * sigmoid(...[G:])
+//   partial = acts @ w_rs_s                          (w_rs_s [G, n_rs], f32)
+//
+// with no b_rs, no residual, no skip sum and no row mask: the ranks'
+// partials are summed outside, then those are added (models/wn.py). The
+// whole layer is partial mode's arithmetic at G = C plus its epilogue, and
+// a rank's kernels are the whole layer's at a run-time gate width G apart
+// from the input and output width C.
+//
+// C, G, K, the dilation d, B and T are runtime arguments. Global layouts: x,
+// x', skip [B, T, C], cond [B, T, 2G], w_in [K*C, 2G], w_rs [G, 2C] (last
+// layer [G, C]), a rank's partial [B, T, n_rs] (n_rs = 2C, the last layer's
+// C), all row-major; G = C but for a rank. x, x', b_in, b_rs, the skip sum
+// and the partial are f32.
 // cond, w_in and w_rs are f32 (parity mode) or bf16 (fast mode); in fast
 // mode the taps of x and the acts are rounded to bf16 where they enter a
 // product, every product accumulates in f32, and pre, the gate and rs stay
@@ -38,15 +56,22 @@
 //     0.040 ms of bytes; (384, 3) 0.063 ms against 0.061 ms.
 //
 // Design. Both modes read their operands in layouts padded to Cp = C
-// rounded up to 64 channels (zero past C), so every copy into shared memory
+// rounded up to 64 channels and Gp = G rounded up to 64 gate channels
+// (zero past C and G), so every copy into shared memory
 // is an aligned 16-byte cp.async and every channel tail is zero: C = 48 and
-// C = 50 are exact. Where C is a multiple of 64 the f32 operands are read
+// C = 50, or a rank's G = 25, are exact. Where C and G are multiples of 64
+// the f32 operands are read
 // as they are (their layout is the padded one); otherwise, and in bf16 for
 // x always, wn_any_prep_kernel first writes them into scratch the wrapper
 // allocates: x_p [B*T, Cp] (x rounded to bf16 in fast mode, so nothing is
-// rounded on a K loop), w_in_p [K*Cp, 2Cp] and w_rs_p [Cp, n_rsp] (each
-// half of the columns from column 0 and from column Cp; n_rsp = 2Cp, the
-// last layer's Cp). Taps are rows of the flat [B*T, Cp] rows: row R = b*T +
+// rounded on a K loop; only where C != Cp in f32), w_in_p [K*Cp, 2Gp] and
+// w_rs_p [Gp, n_rsp] (each half of the columns from column 0 and from
+// column Gp, or Cp; n_rsp = 2Cp, the last layer's Cp). The gate runs in
+// passes of the Gp gate channels over a product K*Cp deep; the res/skip
+// product in passes of the output channels over a product Gp deep; the
+// acts lie between them in a scratch [B*T, Gp]. A rank with an odd G reads
+// the sigmoid half of cond and b_in one value at a time (its pairs are not
+// aligned). Taps are rows of the flat [B*T, Cp] rows: row R = b*T +
 // t reads row R + (k - K/2)*d where t + (k - K/2)*d lies in [0, T) (its own
 // sequence), else zero; taps reach +-(K/2)*d rows (+-384 at K = 7 and d =
 // 128), so each tap's rows are copied on their own, no halo window. Both
@@ -65,9 +90,11 @@
 //     barrier a chunk, running on across tiles (32-deep chunks were slower
 //     and spilled). A block's last tile of 16 rows or fewer (16 of its 208
 //     rows at B=1, T=26,432), which busies one pair of warps in six, runs
-//     its two passes at once at P = 2, and at Cp = 64 (one pass of 64
-//     channels) an instance of its own takes tiles of 192 rows, each column
-//     of warps 96 of them (AnyF32's note). The gate of each
+//     its two passes at once at P = 2, and at Gp = 64 (one gate pass of 64
+//     channels: the whole layer at C <= 64, and most ranks of a small
+//     model) an instance of its own takes tiles of 192 rows, each column
+//     of warps 96 of them, its res/skip product in passes of 64 output
+//     channels (AnyF32's note). The gate of each
 //     pass writes its acts (f32) to a global scratch [B*T, Cp] (a block's
 //     own rows), which the res/skip chunks read back through the ring.
 //     cond's rows, then the residual's x rows and the skip sum, are
@@ -83,15 +110,16 @@
 //         chunks, so a weight chunk read from L2 feeds 128 rows and the taps
 //         are read Cp/128 times; then the gate in f32 on the accumulators,
 //         the acts rounded to bf16 into the scratch acts [B*T, Cp].
-//       wn_any_rs_kernel<last> - a unit is 128 rows x a pass of 128
-//         channels: rs = acts @ w_rs at the residual's 128 columns and the
-//         skip's 128 of the same channels (the last layer: its 128 skip
-//         columns), Cp deep; the epilogue stages the f32 sums in the
+//       wn_any_rs_kernel<last, partial> - a unit is 128 rows x a pass of
+//         128 channels: rs = acts @ w_rs at the residual's 128 columns and
+//         the skip's 128 of the same channels (the last layer: its 128 skip
+//         columns), Gp deep; the epilogue stages the f32 sums in the
 //         ring's shared memory and streams the pass's x, skip-sum and
 //         output rows in 16-byte pieces, a batch of loads in flight (from
 //         the accumulators' fragments, 8-byte pieces of 8 rows a warp,
 //         it took twice the time); it adds b_rs, the residual and the skip
-//         sum in f32, masks rows >= valid_t, writes rows < B*T only.
+//         sum in f32, masks rows >= valid_t, writes rows < B*T only. In
+//         partial mode it stores the staged sums as they are.
 //     The two product kernels stream 64-deep K chunks (A [128 rows][64]
 //     K-major, B [64][at most 256] MN-major, both in the 128-byte swizzle of
 //     sm90_wgmma.cuh) through a 4-stage cp.async ring, two chunks ahead,
@@ -162,22 +190,28 @@ __device__ __forceinline__ int div_by(int n, const FastDiv& f) {
 struct AnyArgs {
   const float* x;        // [R, C] f32: the residual
   const void* x_src;     // the taps' rows, Cp apart: x_p, or x (f32, C = Cp)
-  const void* cond;      // [R, 2C]
-  const void* w_in;      // [K*Cp, 2Cp]: w_in_p, or w_in when C = Cp
-  const float* b_in;     // [2C]
-  const void* w_rs;      // [Cp, n_rsp]: w_rs_p, or w_rs when C = Cp
+  const void* cond;      // [R, 2G]
+  const void* w_in;      // [K*Cp, 2Gp]: w_in_p, or w_in when C = Cp, G = Gp
+  const float* b_in;     // [2G]
+  const void* w_rs;      // [Gp, n_rsp]: w_rs_p, or w_rs likewise
   const float* b_rs;     // [n_rs]
   const int* valid_t;    // [B] or null
   float* x_out;          // [R, C]
   float* skip_out;       // [R, C]
-  void* acts;            // [R, Cp] scratch (bf16 or f32)
-  int accumulate, T, C, K, dilation;
+  float* part;           // [R, n_rs]: a rank's partial (partial mode)
+  void* acts;            // [R, Gp] scratch (bf16 or f32)
+  int accumulate, T, C, G, K, dilation;
   int rows;              // R = B*T
-  int cp, passes;        // Cp, ceil(Cp / kPass)
+  int cp, gp;            // Cp, Gp
+  int passes;            // res/skip passes: ceil(Cp / kPass) (f32 at Gp =
+                         // 64: Cp / 64)
+  int gate_passes;       // ceil(Gp / kPass)
   int rows_per_block;    // f32: a block's flat rows
-  // divisors: T; the passes P; bf16: the 64-deep chunks of a tap; f32:
-  // the 16-deep chunks of a tap, of a gate pass and of a tile
-  FastDiv div_t, div_passes, div_tap64, div_tap16, div_gate, div_tile;
+  // divisors: T; the res/skip and gate passes; bf16: the 64-deep chunks of
+  // a tap; f32: the 16-deep chunks of a tap, of a res/skip pass, of a gate
+  // pass and of a tile
+  FastDiv div_t, div_passes, div_gate_passes, div_tap64, div_tap16,
+      div_acts16, div_gate, div_tile;
 };
 
 __device__ __forceinline__ float sigmoidf(float v) {
@@ -196,43 +230,45 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 // ---- prep: the operands into their padded layouts ---------------------------
 
 // One launch: blocks [0, w_rows) each pad one weight row (rows [0, K*Cp) of
-// w_in_p, then rows [0, Cp) of w_rs_p; w_rows = 0 where C = Cp and the
-// weights are read as they are); the others walk the channel pairs of x
+// w_in_p, then rows [0, Gp) of w_rs_p; w_rows = 0 where C = Cp, G = Gp and
+// the weights are read as they are); the others walk the channel pairs of x
 // (C even keeps a pair's 8 bytes aligned) into x_p [R, Cp], rounded to bf16
 // (kBf16) or as they are, zero past C. W is the weights' and x_p's type.
 template <bool kBf16>
 __global__ void __launch_bounds__(256)
 wn_any_prep_kernel(const float* __restrict__ x, void* x_p,
                    const void* w_in, const void* w_rs, void* w_in_p,
-                   void* w_rs_p, int64_t rows, int C, int K, int last,
+                   void* w_rs_p, int64_t rows, int C, int G, int K, int last,
                    int w_rows) {
   using W = std::conditional_t<kBf16, bf16, float>;
-  const int cp = pad64(C);
+  const int cp = pad64(C), gp = pad64(G);
   if (static_cast<int>(blockIdx.x) < w_rows) {
     const int n_rs = last ? C : 2 * C, n_rsp = last ? cp : 2 * cp;
     const int row = blockIdx.x;
     const W* src;
     W* dst;
-    int ci, width;
+    // the source row ci of its ci_n, its column halves h_n wide of which
+    // co_n are real
+    int ci, ci_n, h_n, co_n, width;
     if (row < K * cp) {
       const int tap = row / cp;
       ci = row % cp;
       src = static_cast<const W*>(w_in) +
-            static_cast<int64_t>(tap * C + ci) * 2 * C;
-      dst = static_cast<W*>(w_in_p) + static_cast<int64_t>(row) * 2 * cp;
-      width = 2 * cp;
+            static_cast<int64_t>(tap * C + ci) * 2 * G;
+      dst = static_cast<W*>(w_in_p) + static_cast<int64_t>(row) * 2 * gp;
+      ci_n = C, h_n = gp, co_n = G, width = 2 * gp;
     } else {
       ci = row - K * cp;
       src = static_cast<const W*>(w_rs) + static_cast<int64_t>(ci) * n_rs;
       dst = static_cast<W*>(w_rs_p) + static_cast<int64_t>(ci) * n_rsp;
-      width = n_rsp;
+      ci_n = G, h_n = cp, co_n = C, width = n_rsp;
     }
     for (int col = threadIdx.x; col < width; col += blockDim.x) {
-      const int h = col / cp, co = col % cp;
+      const int h = col / h_n, co = col % h_n;
       W v;
       if constexpr (kBf16) v = __float2bfloat16(0.f);
       else v = 0.f;
-      if (ci < C && co < C) v = src[h * C + co];
+      if (ci < ci_n && co < co_n) v = src[h * co_n + co];
       dst[col] = v;
     }
     return;
@@ -270,9 +306,12 @@ wn_any_prep_kernel(const float* __restrict__ x, void* x_p,
 // half a 96-row tile. So at P = 2 passes such a "rest tile" runs both
 // passes at once, pair j on pass j of the same 16 rows: 4 warps work, and
 // the tile takes one pass's chunks, each with both passes' weight rows.
-// The sums of a row run in the same order either way. At Cp = 64 a pass
-// is 64 channels and the second column of warps would have none: it takes
-// 96 more rows instead, a tile of 192 rows.
+// The sums of a row run in the same order either way. (A rank's instance
+// has no rest tile: its gate and res/skip product have two passes each
+// only at C' = C.) At Gp = 64 a gate pass is 64 channels and the second
+// column of warps would have none: it takes 96 more rows instead, a tile of
+// 192 rows, and the res/skip product runs in passes of 64 output channels
+// (Cp / 64 of them).
 struct AnyF32 {
   static constexpr int kRowPairs = 6;
   static constexpr int kTileRows = 16 * kRowPairs;
@@ -321,11 +360,18 @@ __device__ __forceinline__ void f32_copy_w(uint32_t wslot, const float* src,
 
 // Up to 4 floats from `src` (n of them valid, the rest zero): one 16-byte
 // load when `vec` (src 16-byte aligned) and all 4 are valid, else pairs (8
-// bytes; C even keeps a pair aligned and whole).
+// bytes; C even keeps a pair aligned and whole), or single values where
+// `pairs` is false (a rank's odd G: its pairs are neither).
 __device__ __forceinline__ void load4_upto(float (&d)[4], const float* src,
-                                           int n, bool vec) {
+                                           int n, bool vec,
+                                           bool pairs = true) {
   if (vec && n >= 4) {
     load4(d, src);
+    return;
+  }
+  if (!pairs) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = j < n ? src[j] : 0.f;
     return;
   }
 #pragma unroll
@@ -355,37 +401,57 @@ __device__ __forceinline__ void prefetch_span(const float* src, int n, int i) {
   prefetch_l2(src + min(32 * i, n - 1));
 }
 
-// kTwo: the instance for Cp = 64, its tiles 192 rows (AnyF32's note).
-template <bool kTwo, bool kLast>
+// kTwo: the instance for Gp = 64, its tiles 192 rows (AnyF32's note);
+// kPartial: a rank's share, its epilogue the partial alone.
+template <bool kTwo, bool kLast, bool kPartial>
 __global__ void __launch_bounds__(AnyF32::kThreads, 1)
 wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
   using L = AnyF32;
+  // channels of a res/skip pass: 64 at Gp = 64, where a column of warps
+  // takes rows, not channels
+  constexpr int kPW = kTwo ? 64 : kPass;
   const float* __restrict__ x_src = static_cast<const float*>(a.x_src);
   const float* __restrict__ cond = static_cast<const float*>(a.cond);
   const float* __restrict__ w_in = static_cast<const float*>(a.w_in);
   const float* __restrict__ w_rs = static_cast<const float*>(a.w_rs);
   float* acts_g = static_cast<float*>(a.acts);
+  // The whole layer's instances take G = C, Gp = Cp and one count of
+  // passes for both products (at Gp = 64 also Cp = 64: one pass), so their
+  // code holds one of each; a rank's reads both.
   const int C = a.C;
-  const int cp = kTwo ? 64 : a.cp;
-  const int P = kTwo ? 1 : a.passes;        // Cp = 64: one pass
-  const int cpc = kTwo ? 4 : a.div_tap16.d;  // K chunks of a tap
+  const int G = kPartial ? a.G : C;
+  const int cp = kTwo && !kPartial ? 64 : a.cp;
+  const int gp = kTwo ? 64 : kPartial ? a.gp : cp;
+  const int P = kTwo && !kPartial ? 1 : a.passes;  // res/skip passes of kPW
+  const int PG = kTwo ? 1 : kPartial ? a.gate_passes : P;  // gate passes
+  // K chunks of a tap: Cp / 16; of a res/skip pass: Gp / 16. A rank's
+  // widths apart from the whole layer's (Gp, G, its gate passes and these
+  // chunks) are read from the parameter where they are used: held in
+  // registers across the FMA loops, they spilled.
+  const int cpc = kTwo && !kPartial ? 4 : a.div_tap16.d;
+  const auto gpc = [&] {
+    return kTwo ? 4 : kPartial ? a.div_acts16.d : cpc;
+  };
+  const FastDiv& div_acts16 = kPartial ? a.div_acts16 : a.div_tap16;
   const int nin = a.div_gate.d;           // a gate pass's chunks: K cpc
-  const int in_chunks = P * nin;
-  const int tile_chunks = a.div_tile.d;   // in_chunks + P cpc
+  const int in_chunks = PG * nin;
+  const int tile_chunks = a.div_tile.d;   // in_chunks + P gpc
   const int n_rsp = kLast ? cp : 2 * cp;
 
   const int row_begin = blockIdx.x * a.rows_per_block;
   const int row_end = min(a.rows, row_begin + a.rows_per_block);
   if (row_begin >= row_end) return;
-  // the rows of a tile: 192 at Cp = 64 (a column of warps each), else 96
+  // the rows of a tile: 192 at Gp = 64 (a column of warps each), else 96
   constexpr int tile_h = kTwo ? 2 * L::kTileRows : L::kTileRows;
   const int n_tiles = (row_end - row_begin + tile_h - 1) / tile_h;
-  // a last tile of kRestRows rows or fewer runs its passes at once
-  const bool rest = !kTwo && P == L::kRestPasses &&
+  // a last tile of kRestRows rows or fewer runs its passes at once (the
+  // whole layer's: a rank's gate and res/skip product have two passes each
+  // only at C' = C)
+  const bool rest = !kTwo && !kPartial && P == L::kRestPasses &&
                     row_end - row_begin - (n_tiles - 1) * tile_h <=
                         L::kRestRows;
   const int full_end = (n_tiles - rest) * tile_chunks;  // full tiles' chunks
-  const int n_chunks = full_end + (rest ? nin + cpc : 0);
+  const int n_chunks = full_end + (rest ? nin + gpc() : 0);
 
   extern __shared__ float4 smem_any_f32[];
   float* smem = reinterpret_cast<float*>(smem_any_f32);
@@ -394,7 +460,7 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
   // Warp w: rows [16 (w / 2), +16) of the tile and channels [64 (w % 2),
   // +64) of each half of a pass; lane l: rows 16 (w / 2) + 2i + l / 16 and
   // channels c0..c0+3, c0 = 64 (w % 2) + 4 (l % 16) (wn_layer.cu's layout).
-  // At Cp = 64, warp w takes channels [0, 64) of rows 96 (w % 2) + 16 (w /
+  // At Gp = 64, warp w takes channels [0, 64) of rows 96 (w % 2) + 16 (w /
   // 2) + ...; in a rest tile, pair j takes pass j of rows 2i + l / 16.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = warp / L::kColWarps;
@@ -406,7 +472,8 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
 
   int tap_t[2] = {0, 0};  // the times of this thread's tap rows
   const auto load_chunk = [&](int chunk) {
-    const bool rest_chunk = chunk >= full_end;
+    // (a rank's instance has no rest tile)
+    const bool rest_chunk = !kPartial && chunk >= full_end;
     const int tile = rest_chunk ? n_tiles - 1 : div_by(chunk, a.div_tile);
     const int local = chunk - tile * tile_chunks;
     const uint32_t slot = ring + (chunk % L::kStages) * L::kSlotFloats * 4;
@@ -422,8 +489,10 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
       }
     }
     // the passes whose weight rows the chunk holds: [p0, p0 + np)
-    const int np = rest_chunk ? P : 1;
-    if (local < (rest_chunk ? nin : in_chunks)) {
+    const int np = rest_chunk ? L::kRestPasses : 1;
+    if (local < (rest_chunk ? nin
+                            : kPartial ? a.gate_passes * a.div_gate.d
+                                       : in_chunks)) {
       const int p0 = rest_chunk ? 0 : div_by(local, a.div_gate);
       const int kc = local - p0 * nin;
       const int tap = div_by(kc, a.div_tap16);
@@ -440,21 +509,24 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
                             : x_src,
                          ok);
       }
-      const float* src = w_in + static_cast<int64_t>(tap * cp + ch) * 2 * cp;
+      const int gw = kPartial && !kTwo ? a.gp : gp;  // Gp
+      const float* src = w_in + static_cast<int64_t>(tap * cp + ch) * 2 * gw;
       for (int p = p0; p < p0 + np; ++p)
-        f32_copy_w<true>(wslot + (p - p0) * L::kWFloats * 4, src, 2 * cp,
-                         p * kPass, cp + p * kPass, cp - p * kPass);
+        f32_copy_w<true>(wslot + (p - p0) * L::kWFloats * 4, src, 2 * gw,
+                         p * kPass, gw + p * kPass, gw - p * kPass);
     } else {
-      const int j = local - (rest_chunk ? nin : in_chunks);
-      const int p0 = rest_chunk ? 0 : div_by(j, a.div_tap16);
-      const int k0 = (j - p0 * cpc) * L::kChunk;
+      const int j = local - (rest_chunk ? nin
+                             : kPartial ? a.gate_passes * a.div_gate.d
+                                        : in_chunks);
+      const int p0 = rest_chunk ? 0 : div_by(j, div_acts16);
+      const int k0 = (j - p0 * gpc()) * L::kChunk;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (h == 1 && !kTwo) break;
         const int r = ra + h * L::kTileRows;
         const bool ok = row - ra + r < row_end;
         cp_async16_zfill(slot + (r * L::kChunk + q * 4) * 4,
-                         ok ? acts_g + static_cast<int64_t>(row - ra + r) * cp +
+                         ok ? acts_g + static_cast<int64_t>(row - ra + r) * gp +
                                   k0 + q * 4
                             : acts_g,
                          ok);
@@ -462,12 +534,13 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
       const float* src = w_rs + static_cast<int64_t>(k0) * n_rsp;
       for (int p = p0; p < p0 + np; ++p)
         f32_copy_w<!kLast>(wslot + (p - p0) * L::kWFloats * 4, src, n_rsp,
-                           p * kPass, cp + p * kPass, cp - p * kPass);
+                           p * kPW, cp + p * kPW,
+                           kTwo ? kPW : cp - p * kPW);
     }
   };
   ring_prologue<L::kAhead>(n_chunks, load_chunk);
 
-  const bool vec = C % 4 == 0;  // rows of x, the sigmoid half of cond
+  const bool vec = C % 4 == 0;  // rows of x and of the partial
   float acc_a[8][4];  // tanh, then residual (last: skip)
   float acc_b[8][4];  // sigmoid, then skip
 #pragma unroll 1
@@ -476,30 +549,31 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
     const int t0 = row_begin + tile * tile_h;
     const int tile_rows = min(tile_h, row_end - t0);
     const bool rest_tile = rest && tile == n_tiles - 1;
-    // passes run one after another: P, or one (all at once) in a rest tile
-    const int seq = rest_tile ? 1 : P;
+    // passes run one after another: PG then P, or one (all at once) in a
+    // rest tile
+    const int gseq = rest_tile ? 1 : PG, rseq = rest_tile ? 1 : P;
     // this thread's first row and its passes' weight block in a slot
     const int r0 = (rest_tile ? 0 : row16) + lane / 16;
     const int w_off = rest_tile ? pair * L::kWFloats : 0;
-    const bool rows_busy = rest_tile ? pair < P : row16 < tile_rows;
-    // One pass in a row: the res/skip product's first chunks read acts
-    // that the pass's last steps write, so the ring loads nothing past the
-    // gate until then. (With more passes they are the first pass's
-    // channels, written a pass earlier. A tile's gate is at least K*64/16
-    // = 4 chunks, more than the ring runs ahead, so the loads that run on
-    // into the next tile stop short of its res/skip chunks.)
-    const int gate_end = chunk0 + seq * nin;
-    const int gate_limit = seq == 1 ? gate_end : n_chunks;
-    // the columns of the passes a step covers, whose lines are prefetched
-    const int pf_n = rest_tile ? min(P * kPass, C) : 0;
-    const int pf_lines = (rest_tile ? P * kPass : kPass) / 32 + 1;
+    const bool rows_busy =
+        rest_tile ? pair < L::kRestPasses : row16 < tile_rows;
+    // One gate pass in a row: the res/skip product's first chunks read
+    // acts that the pass's last steps write, so the ring loads nothing past
+    // the gate until then. (With more gate passes they are the first
+    // pass's channels, written a pass earlier. A tile's gate is at least
+    // K*64/16 = 4 chunks, more than the ring runs ahead, so the loads that
+    // run on into the next tile stop short of its res/skip chunks.)
+    const int gate_end = chunk0 + gseq * nin;
+    const int gate_limit = gseq == 1 ? gate_end : n_chunks;
+    // the lines of a step's columns prefetched, a row and half
+    const int pf_lines = (rest_tile ? L::kRestPasses * kPass : kPass) / 32 + 1;
 
     // ---- gate product and gate, pass by pass --------------------------------
 #pragma unroll 1
-    for (int s = 0; s < seq; ++s) {
+    for (int s = 0; s < gseq; ++s) {
       const int p = rest_tile ? pair : s;  // this thread's pass
       const int ch = p * kPass + c0;       // this thread's channels of it
-      const bool busy = rows_busy && p * kPass + cw < cp;
+      const bool busy = rows_busy && p * kPass + cw < gp;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -511,12 +585,14 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
         if (kc == max(nin - 16, 0)) {
           // the step's cond columns of the tile's rows into L2
           const int c_lo = rest_tile ? 0 : s * kPass;
-          const int n = rest_tile ? pf_n : min(kPass, C - c_lo);
+          const int gw = kPartial ? a.G : C;  // G
+          const int n = rest_tile ? min(L::kRestPasses * kPass, gw)
+                                  : min(kPass, gw - c_lo);
           for (int i = threadIdx.x; i < tile_rows * 2 * pf_lines;
                i += L::kThreads) {
             const int r = i / (2 * pf_lines), h = i / pf_lines % 2;
-            prefetch_span(cond + static_cast<int64_t>(t0 + r) * 2 * C +
-                              h * C + c_lo, n, i % pf_lines);
+            prefetch_span(cond + static_cast<int64_t>(t0 + r) * 2 * gw +
+                              h * gw + c_lo, n, i % pf_lines);
           }
         }
         if (busy) {
@@ -529,21 +605,28 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
         }
       }
       // the gate (f32) on the accumulators; the acts to the scratch, zero
-      // past C
+      // past G
       if (busy) {
+        // a rank's cond and b_in halves: 16-byte pieces of the tanh half
+        // where its rows are 16-byte aligned, of the sigmoid half where G %
+        // 4 == 0; pairs where G is even, else single values (the whole
+        // layer's: C even)
+        const bool vec_t = !kPartial || a.G % 2 == 0;
+        const bool vec_s = kPartial ? a.G % 4 == 0 : vec;
+        const bool pairs = !kPartial || a.G % 2 == 0;
         float bt[4], bs[4];
-        load4_upto(bt, a.b_in + ch, C - ch, true);
-        load4_upto(bs, a.b_in + C + ch, C - ch, vec);
+        load4_upto(bt, a.b_in + ch, G - ch, true, pairs);
+        load4_upto(bs, a.b_in + G + ch, G - ch, vec_s, pairs);
 #pragma unroll
         for (int i0 = 0; i0 < 8; i0 += 2) {
           float ct[2][4], cs[2][4];  // 2 rows' loads in flight
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = r0 + 2 * (i0 + h);
-            const int n = r < tile_rows ? C - ch : 0;
-            const float* crow = cond + static_cast<int64_t>(t0 + r) * 2 * C;
-            load4_upto(ct[h], crow + ch, n, true);
-            load4_upto(cs[h], crow + C + ch, n, vec);
+            const int n = r < tile_rows ? G - ch : 0;
+            const float* crow = cond + static_cast<int64_t>(t0 + r) * 2 * G;
+            load4_upto(ct[h], crow + ch, n, vec_t, pairs);
+            load4_upto(cs[h], crow + G + ch, n, vec_s, pairs);
           }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -553,10 +636,10 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
             for (int j = 0; j < 4; ++j) {
               const float gt = acc_a[i0 + h][j] + bt[j] + ct[h][j];
               const float gs = acc_b[i0 + h][j] + bs[j] + cs[h][j];
-              out[j] = ch + j < C ? tanhf(gt) * sigmoidf(gs) : 0.f;
+              out[j] = ch + j < G ? tanhf(gt) * sigmoidf(gs) : 0.f;
             }
             if (r < tile_rows)
-              store4(acts_g + static_cast<int64_t>(t0 + r) * cp + ch, out);
+              store4(acts_g + static_cast<int64_t>(t0 + r) * gp + ch, out);
           }
         }
       }
@@ -564,7 +647,7 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
       // stores reach it before the barriers that order those reads
       __threadfence();
     }
-    if (seq == 1) {
+    if (gseq == 1) {
       // the res/skip product's first chunks, whose acts the gate has just
       // written, load now (each a commit group, as the steps' loads)
       __syncthreads();
@@ -576,23 +659,24 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
 
     // ---- res/skip product and epilogue, pass by pass ------------------------
 #pragma unroll 1
-    for (int s = 0; s < seq; ++s) {
+    for (int s = 0; s < rseq; ++s) {
       const int p = rest_tile ? pair : s;
-      const int ch = p * kPass + c0;
+      const int ch = p * kPW + c0;
       const int n_ch = C - ch;  // this thread's channels below C (<= 0: none)
-      const bool busy = rows_busy && p * kPass + cw < cp;
+      const bool busy = rows_busy && p * kPW + cw < cp;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
 #pragma unroll 1
-      for (int kc = 0; kc < cpc; ++kc) {
-        const int chunk = gate_end + s * cpc + kc;
+      for (int kc = 0; kc < gpc(); ++kc) {
+        const int chunk = gate_end + s * gpc() + kc;
         ring_step<L::kAhead>(chunk, n_chunks, load_chunk);
-        if (kc == max(cpc - 8, 0)) {
+        if (!kPartial && kc == max(gpc() - 8, 0)) {
           // the step's columns of the x rows and the skip sum into L2
-          const int c_lo = rest_tile ? 0 : s * kPass;
-          const int n = rest_tile ? pf_n : min(kPass, C - c_lo);
+          const int c_lo = rest_tile ? 0 : s * kPW;
+          const int n = rest_tile ? min(L::kRestPasses * kPass, C)
+                                  : min(kPW, C - c_lo);
           for (int i = threadIdx.x; i < tile_rows * pf_lines;
                i += L::kThreads) {
             const int64_t off =
@@ -611,8 +695,21 @@ wn_any_kernel_f32(const __grid_constant__ AnyArgs a) {
                 slot + L::kTapFloats + w_off + c0, kk);
         }
       }
-      // ---- epilogue: residual, valid_t mask, skip accumulation (f32)
-      if (busy && n_ch > 0) {
+      if (!busy || n_ch <= 0) continue;
+      if constexpr (kPartial) {
+        // ---- a rank's partial: the sums as they are (f32)
+        const int n_rs = kLast ? C : 2 * C;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = r0 + 2 * i;
+          if (r >= tile_rows) continue;
+          const int64_t off = static_cast<int64_t>(t0 + r) * n_rs + ch;
+          store4_upto(a.part + off, acc_a[i], n_ch, vec);
+          if constexpr (!kLast) store4_upto(a.part + off + C, acc_b[i], n_ch,
+                                            vec);
+        }
+      } else {
+        // ---- epilogue: residual, valid_t mask, skip accumulation (f32)
         float br[4], bk[4];
         load4_upto(br, a.b_rs + ch, n_ch, true);
         if constexpr (!kLast) load4_upto(bk, a.b_rs + C + ch, n_ch, vec);
@@ -792,11 +889,30 @@ __device__ __forceinline__ void stage_acc(float* st,
     }
 }
 
-// The gate: unit u = (tile u / P of 128 flat rows, pass u % P of 128
-// channels); pre = the K taps of x_p @ w_in at the pass's tanh (acc_a) and
-// sigmoid (acc_b) columns, K*Cp deep in (tap, 64-channel) chunks; then the
-// gate in f32 (cond [R, 2C], b_in [2C]), the acts rounded to bf16 into
-// acts [R, Cp], zero past C.
+// A pair of bf16 values from `p` as one word: one 4-byte load where
+// `aligned`, else two loads (a rank's odd G), the second zero unless
+// `second`.
+__device__ __forceinline__ uint32_t load_bf16_pair(const bf16* p, bool aligned,
+                                                   bool second) {
+  if (aligned) return *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = second ? *reinterpret_cast<const uint16_t*>(p + 1) : 0u;
+  return lo | hi << 16;
+}
+
+__device__ __forceinline__ float2 load_f32_pair(const float* p, bool aligned,
+                                                bool second) {
+  if (aligned) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], second ? p[1] : 0.f);
+}
+
+// The gate: unit u = (tile u / PG of 128 flat rows, pass u % PG of 128
+// gate channels); pre = the K taps of x_p @ w_in at the pass's tanh (acc_a)
+// and sigmoid (acc_b) columns, K*Cp deep in (tap, 64-channel) chunks; then
+// the gate in f32 (cond [R, 2G], b_in [2G]), the acts rounded to bf16 into
+// acts [R, Gp], zero past G. kRank: a rank's instance; the whole layer's
+// holds one width (G = C) and one count of passes, its pairs aligned.
+template <bool kRank>
 __global__ void __launch_bounds__(AnyWide::kThreads, 1)
 wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
   using L = AnyWide;
@@ -806,16 +922,20 @@ wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
   bf16* __restrict__ acts = static_cast<bf16*>(a.acts);
   extern __shared__ __align__(1024) uint4 smem_any_wide[];
   const uint32_t ring = smem_u32(smem_any_wide);
-  const int C = a.C, cp = a.cp, P = a.passes;
+  const int cp = a.cp;
+  const int G = kRank ? a.G : a.C, gp = kRank ? a.gp : cp;
+  const int P = kRank ? a.gate_passes : a.passes;
+  const FastDiv& div_p = kRank ? a.div_gate_passes : a.div_passes;
   const int cpb = a.div_tap64.d;  // chunks of a tap: Cp / 64
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r16 = warp * 16;  // the warp's rows of the unit (both groups)
   const int g = lane / 4, tig = lane % 4;
   const int units = (a.rows + L::kTile - 1) / L::kTile * P;
+  const bool pairs = !kRank || G % 2 == 0;  // cond's, b_in's pairs aligned
 
 #pragma unroll 1
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int tile = div_by(u, a.div_passes), p = u - tile * P;
+    const int tile = div_by(u, div_p), p = u - tile * P;
     const int r0 = tile * L::kTile;
     const int rows = min(L::kTile, a.rows - r0);
     const int ch0 = p * kPass;
@@ -843,16 +963,16 @@ wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
       }
       any_load_a(stage, x_p, off, ok);
       any_load_b<kPass, true>(
-          stage, w_in + static_cast<int64_t>(tap * cp + cb) * 2 * cp, 2 * cp,
-          ch0, cp + ch0, cp - ch0);
+          stage, w_in + static_cast<int64_t>(tap * cp + cb) * 2 * gp, 2 * gp,
+          ch0, gp + ch0, gp - ch0);
     };
     // cond's rows of the pass's channels (both halves), into L2 under the
     // products: 3 lines a half a row cover its 128 bf16 channels
     {
-      const int n = min(kPass, C - ch0);
+      const int n = min(kPass, G - ch0);
       for (int i = threadIdx.x; i < rows * 6; i += L::kThreads) {
         const int r = i / 6, h = i / 3 % 2, e = i % 3;
-        prefetch_l2(cond + static_cast<int64_t>(r0 + r) * 2 * C + h * C +
+        prefetch_l2(cond + static_cast<int64_t>(r0 + r) * 2 * G + h * G +
                     ch0 + min(64 * e, n - 1));
       }
     }
@@ -876,23 +996,23 @@ wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
         for (int h = 0; h < 2; ++h) {
           const int row = r16 + g + 8 * h;
           const bf16* cr =
-              cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * C + ch;
-          const bool ok = ch < C;  // C even: ch + 1 < C too
-          cv[jj][h][0] = ok ? *reinterpret_cast<const uint32_t*>(cr) : 0u;
-          cv[jj][h][1] = ok ? *reinterpret_cast<const uint32_t*>(cr + C) : 0u;
+              cond + static_cast<int64_t>(r0 + min(row, rows - 1)) * 2 * G + ch;
+          // G even (the whole layer's): ch + 1 < G too
+          const bool ok = ch < G, ok1 = kRank ? ch + 1 < G : ok;
+          cv[jj][h][0] = ok ? load_bf16_pair(cr, pairs, ok1) : 0u;
+          cv[jj][h][1] = ok ? load_bf16_pair(cr + G, pairs, ok1) : 0u;
         }
       }
 #pragma unroll
       for (int jj = 0; jj < kBatch; ++jj) {
         const int j = j0 + jj;
         const int ch = ch0 + 8 * j + 2 * tig;
-        if (ch >= cp) continue;  // a pass of 64: no acts column here
-        const bool ok = ch < C;
-        const float2 bt = ok ? *reinterpret_cast<const float2*>(a.b_in + ch)
+        if (ch >= gp) continue;  // a pass of 64: no acts column here
+        const bool ok = ch < G, ok1 = kRank ? ch + 1 < G : ok;
+        const float2 bt = ok ? load_f32_pair(a.b_in + ch, pairs, ok1)
                              : make_float2(0.f, 0.f);
-        const float2 bs = ok
-            ? *reinterpret_cast<const float2*>(a.b_in + C + ch)
-            : make_float2(0.f, 0.f);
+        const float2 bs = ok ? load_f32_pair(a.b_in + G + ch, pairs, ok1)
+                             : make_float2(0.f, 0.f);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r16 + g + 8 * h;
@@ -900,14 +1020,14 @@ wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
           const float2 ct = unpack_bf16(cv[jj][h][0]);
           const float2 cs = unpack_bf16(cv[jj][h][1]);
           float v0 = 0.f, v1 = 0.f;
-          if (ok) {
+          if (ok)
             v0 = tanhf(acc_a[4 * j + 2 * h] + bt.x + ct.x) *
                  sigmoidf(acc_b[4 * j + 2 * h] + bs.x + cs.x);
+          if (ok1)
             v1 = tanhf(acc_a[4 * j + 2 * h + 1] + bt.y + ct.y) *
                  sigmoidf(acc_b[4 * j + 2 * h + 1] + bs.y + cs.y);
-          }
           *reinterpret_cast<uint32_t*>(
-              acts + static_cast<int64_t>(r0 + row) * cp + ch) =
+              acts + static_cast<int64_t>(r0 + row) * gp + ch) =
               pack_bf16(v0, v1);
         }
       }
@@ -915,14 +1035,15 @@ wn_any_gate_kernel(const __grid_constant__ AnyArgs a) {
   }
 }
 
-// The res/skip product of acts [R, Cp] and its epilogue: unit u = (tile u
-// / P of 128 flat rows, pass u % P of 128 channels). A non-last layer's
-// pass p pairs the residual columns [128p, +128) (acc_a) with the skip
-// columns [Cp + 128p, +128) (acc_b) of w_rs_p; the last layer's, its skip
-// columns [128p, +128) (acc_a alone). Epilogue: x' = x + res + b_rs (x on
-// the last layer), zero at rows t >= valid_t[b]; skip = rs + b_rs, plus the
-// sum when accumulating; f32, rows < R and channels < C only.
-template <bool kLast>
+// The res/skip product of acts [R, Gp] and its epilogue: unit u = (tile u
+// / P of 128 flat rows, pass u % P of 128 channels), Gp deep. A non-last
+// layer's pass p pairs the residual columns [128p, +128) (acc_a) with the
+// skip columns [Cp + 128p, +128) (acc_b) of w_rs_p; the last layer's, its
+// skip columns [128p, +128) (acc_a alone). Epilogue: x' = x + res + b_rs (x
+// on the last layer), zero at rows t >= valid_t[b]; skip = rs + b_rs, plus
+// the sum when accumulating; f32, rows < R and channels < C only. A rank's
+// (kPartial): the sums alone into its partial [R, n_rs], res then skip.
+template <bool kLast, bool kPartial>
 __global__ void __launch_bounds__(AnyWide::kThreads, 1)
 wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
   using L = AnyWide;
@@ -931,7 +1052,7 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
   extern __shared__ __align__(1024) uint4 smem_any_wide[];
   const uint32_t ring = smem_u32(smem_any_wide);
   float* const staged = reinterpret_cast<float*>(smem_any_wide);
-  const int C = a.C, cp = a.cp, P = a.passes;
+  const int C = a.C, cp = a.cp, gp = a.gp, P = a.passes;
   const int n_rsp = kLast ? cp : 2 * cp;
   const int units = (a.rows + L::kTile - 1) / L::kTile * P;
 
@@ -946,7 +1067,7 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = threadIdx.x / 8 + 32 * i;
-      fr[i] = static_cast<int64_t>(r0 + r) * cp;
+      fr[i] = static_cast<int64_t>(r0 + r) * gp;
       in[i] = r < rows;
     }
     const auto load = [&](uint32_t stage, int j) {
@@ -960,7 +1081,7 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
     };
     // the epilogue's rows of x and of the skip sum, into L2 under the
     // products: 5 lines cover a row's 128 f32 channels of the pass
-    {
+    if (!kPartial) {
       const int n = min(kPass, C - ch0);
       for (int i = threadIdx.x; i < rows * 5; i += L::kThreads) {
         const int64_t off = static_cast<int64_t>(r0 + i / 5) * C + ch0 +
@@ -973,7 +1094,7 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
 #pragma unroll
     for (int i = 0; i < kPass / 2; ++i) acc_a[i] = acc_b[i] = 0.f;
     __syncthreads();  // the previous unit is done with the ring
-    any_products<kPass, !kLast>(ring, cp / L::kKC, acc_a, acc_b, load);
+    any_products<kPass, !kLast>(ring, gp / L::kKC, acc_a, acc_b, load);
 
     // ---- epilogue from the staged sums: residual, valid_t mask, skip sum
     // (f32), 4 channels a piece of the pass's channels below C; kBatch
@@ -984,6 +1105,25 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
     const bool vec = C % 4 == 0;  // rows of x 16-byte aligned
     const int per_row = (min(kPass, C - ch0) + 3) / 4;
     const int pieces = rows * per_row;
+    if constexpr (kPartial) {
+      // a rank's partial: the staged sums as they are, res then skip
+      const int n_rs = kLast ? C : 2 * C;
+#pragma unroll 4
+      for (int i = threadIdx.x; i < pieces; i += L::kThreads) {
+        const int row = i / per_row, c = 4 * (i - row * per_row);
+        const int ch = ch0 + c;
+        const float* pa = staged + row * kStageLd + c;
+        const float va[4] = {pa[0], pa[1], pa[2], pa[3]};
+        const int64_t off = static_cast<int64_t>(r0 + row) * n_rs + ch;
+        store4_upto(a.part + off, va, C - ch, vec);
+        if constexpr (!kLast) {
+          const float* pb = pa + L::kTile * kStageLd;
+          const float vb[4] = {pb[0], pb[1], pb[2], pb[3]};
+          store4_upto(a.part + off + C, vb, C - ch, vec);
+        }
+      }
+      continue;
+    }
     constexpr int kBatch = 4;
 #pragma unroll 1
     for (int i0 = threadIdx.x; i0 < pieces; i0 += kBatch * L::kThreads) {
@@ -1035,16 +1175,24 @@ wn_any_rs_kernel(const __grid_constant__ AnyArgs a) {
 
 // ---- launch -----------------------------------------------------------------
 
-// The kernel `which` of a mode at width C (0: the kernel that ends a
-// call, the f32 layer kernel (its Cp = 64 instance there) or the bf16
-// res/skip kernel; 1: the bf16 gate; 2: the prep), its threads and dynamic
-// shared bytes; null for the f32 mode's gate.
+// The kernel `which` of a mode (0: the kernel that ends a call, the f32
+// layer kernel (its Gp = 64 instance where `two`) or the bf16 res/skip
+// kernel, each in partial mode for a rank; 1: the bf16 gate; 2: the prep),
+// its threads and dynamic shared bytes; null for the f32 mode's gate.
 struct Instance {
   const void* fn;
   int threads, smem;
 };
 
-Instance instance(int bf16_mode, int which, int last, int C) {
+template <bool kTwo, bool kLast>
+const void* f32_instance(int partial) {
+  return partial ? reinterpret_cast<const void*>(
+                       wn_any_kernel_f32<kTwo, kLast, true>)
+                 : reinterpret_cast<const void*>(
+                       wn_any_kernel_f32<kTwo, kLast, false>);
+}
+
+Instance instance(int bf16_mode, int which, int last, int partial, bool two) {
   if (which == 2)
     return {bf16_mode
                 ? reinterpret_cast<const void*>(wn_any_prep_kernel<true>)
@@ -1052,37 +1200,46 @@ Instance instance(int bf16_mode, int which, int last, int C) {
             256, 0};
   if (!bf16_mode) {
     if (which != 0) return {nullptr, 0, 0};
-    const bool two = pad64(C) == 64;
-    const void* fn =
-        two ? (last ? reinterpret_cast<const void*>(
-                          wn_any_kernel_f32<true, true>)
-                    : reinterpret_cast<const void*>(
-                          wn_any_kernel_f32<true, false>))
-            : (last ? reinterpret_cast<const void*>(
-                          wn_any_kernel_f32<false, true>)
-                    : reinterpret_cast<const void*>(
-                          wn_any_kernel_f32<false, false>));
+    const void* fn = two ? (last ? f32_instance<true, true>(partial)
+                                 : f32_instance<true, false>(partial))
+                         : (last ? f32_instance<false, true>(partial)
+                                 : f32_instance<false, false>(partial));
     return {fn, AnyF32::kThreads, AnyF32::kSmem};
   }
   if (which == 1)
-    return {reinterpret_cast<const void*>(wn_any_gate_kernel),
+    return {partial
+                ? reinterpret_cast<const void*>(wn_any_gate_kernel<true>)
+                : reinterpret_cast<const void*>(wn_any_gate_kernel<false>),
             AnyWide::kThreads, AnyWide::kSmem};
-  return {last ? reinterpret_cast<const void*>(wn_any_rs_kernel<true>)
-               : reinterpret_cast<const void*>(wn_any_rs_kernel<false>),
-          AnyWide::kThreads, AnyWide::kSmem};
+  const void* fn =
+      last ? (partial ? reinterpret_cast<const void*>(
+                            wn_any_rs_kernel<true, true>)
+                      : reinterpret_cast<const void*>(
+                            wn_any_rs_kernel<true, false>))
+           : (partial ? reinterpret_cast<const void*>(
+                            wn_any_rs_kernel<false, true>)
+                      : reinterpret_cast<const void*>(
+                            wn_any_rs_kernel<false, false>));
+  return {fn, AnyWide::kThreads, AnyWide::kSmem};
 }
 
-// One occupancy cache and opt-in flag per product kernel instance: (bf16,
-// gate or res/skip, last), (f32, Cp = 64 or not, last).
-std::atomic<int> g_slots[2 * 2 * 2][32];
-std::atomic<uint32_t> g_opted_in[2 * 2 * 2];
+// Whether an f32 call at gate width G takes the instance with 192-row
+// tiles (Gp = 64).
+bool two_rows(int G) { return pad64(G) == 64; }
 
-// Blocks of one wave of instance (bf16_mode, which, last) at width C on the
-// current device.
-cudaError_t slots_of(int bf16_mode, int which, int last, int C, int* slots) {
-  const Instance k = instance(bf16_mode, which, last, C);
-  const bool second = bf16_mode ? which == 1 : pad64(C) == 64;
-  const int id = 4 * (bf16_mode != 0) + 2 * second + (last != 0);
+// One occupancy cache and opt-in flag per product kernel instance: (bf16,
+// gate or res/skip, partial, last), (f32, Gp = 64 or not, partial, last).
+std::atomic<int> g_slots[2 * 2 * 2 * 2][32];
+std::atomic<uint32_t> g_opted_in[2 * 2 * 2 * 2];
+
+// Blocks of one wave of instance (bf16_mode, which, last, partial, two) on
+// the current device.
+cudaError_t slots_of(int bf16_mode, int which, int last, int partial,
+                     bool two, int* slots) {
+  const Instance k = instance(bf16_mode, which, last, partial, two);
+  const bool second = bf16_mode ? which == 1 : two;
+  const int id = 8 * (bf16_mode != 0) + 4 * second + 2 * (partial != 0) +
+                 (last != 0);
   int sms = 0, per_sm = 0;
   const cudaError_t err = wave_slots(k.fn, k.threads, k.smem, g_slots[id],
                                      &g_opted_in[id], &sms, &per_sm);
@@ -1090,28 +1247,152 @@ cudaError_t slots_of(int bf16_mode, int which, int last, int C, int* slots) {
   return err;
 }
 
-// The grid of the kernels of one call: in bf16 the gate's and the res/skip
-// kernel's blocks (min(units, slots), units = 128-row tiles x passes), in
-// f32 the layer kernel's blocks and their rows (one wave, an equal share
-// rounded up to 16 rows).
-cudaError_t schedule(int bf16_mode, int last, int64_t rows, int C,
-                     int* slots, int* blocks, int* rows_per_block) {
-  cudaError_t err = slots_of(bf16_mode, 0, last, C, slots);
+// The grid of the kernels of one call at width C and gate width G: in bf16
+// the gate's blocks (min(units, slots), units = 128-row tiles x gate
+// passes) and the res/skip kernel's (likewise over its passes of the C
+// output channels), in f32 the layer kernel's blocks and their rows (one
+// wave, an equal share rounded up to 16 rows; gate_blocks the same).
+cudaError_t schedule(int bf16_mode, int last, int partial, int64_t rows,
+                     int C, int G, int* slots, int* gate_blocks, int* blocks,
+                     int* rows_per_block) {
+  const bool two = !bf16_mode && two_rows(G);
+  cudaError_t err = slots_of(bf16_mode, 0, last, partial, two, slots);
   if (err != cudaSuccess) return err;
   if (bf16_mode) {
-    const int64_t units = (rows + AnyWide::kTile - 1) / AnyWide::kTile *
-                          ((pad64(C) + kPass - 1) / kPass);
+    const int64_t tiles = (rows + AnyWide::kTile - 1) / AnyWide::kTile;
     int gate_slots = 0;
-    err = slots_of(1, 1, 0, C, &gate_slots);
+    err = slots_of(1, 1, 0, partial, false, &gate_slots);
     if (err != cudaSuccess) return err;
     *slots = std::min(*slots, gate_slots);
-    *blocks = static_cast<int>(std::min<int64_t>(units, *slots));
+    *blocks = static_cast<int>(std::min<int64_t>(
+        tiles * ((pad64(C) + kPass - 1) / kPass), *slots));
+    *gate_blocks = static_cast<int>(std::min<int64_t>(
+        tiles * ((pad64(G) + kPass - 1) / kPass), *slots));
     *rows_per_block = AnyWide::kTile;
     return cudaSuccess;
   }
   *rows_per_block = one_wave_rows(static_cast<int>(rows), *slots,
                                   AnyF32::kRowQuantum);
   *blocks = static_cast<int>((rows + *rows_per_block - 1) / *rows_per_block);
+  *gate_blocks = *blocks;
+  return cudaSuccess;
+}
+
+bool bad_shape(int batch, int T, int C, int G, int K, int dilation,
+               int bf16_mode) {
+  const int64_t rows = static_cast<int64_t>(batch) * T;
+  return T <= 0 || batch <= 0 || rows >= (int64_t{1} << 31) || C <= 0 ||
+         C % 2 != 0 || C > (bf16_mode ? kMaxCBf16 : kMaxCF32) || G <= 0 ||
+         G > C || K <= 0 || K % 2 != 1 || dilation < 0;
+}
+
+// One call: the whole layer (part null) or a rank's share (part set; no
+// b_rs, valid_t, accumulation, x_out or skip_out); see the entry points.
+cudaError_t launch(const float* x, const void* cond, const void* w_in,
+                   const float* b_in, const void* w_rs, const float* b_rs,
+                   const int* valid_t, float* x_out, float* skip_out,
+                   float* part, void* acts, void* x_p, void* w_in_p,
+                   void* w_rs_p, int accumulate, int batch, int T, int C,
+                   int G, int K, int dilation, int bf16_mode, int last,
+                   cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(batch) * T;
+  const int cp = pad64(C), gp = pad64(G);
+  const bool pad_x = cp != C, pad_w = pad_x || gp != G;
+  const int partial = part != nullptr;
+  const bool two = !bf16_mode && two_rows(G);
+  if (bad_shape(batch, T, C, G, K, dilation, bf16_mode) || acts == nullptr ||
+      ((bf16_mode || pad_x) && x_p == nullptr) ||
+      (pad_w && (w_in_p == nullptr || w_rs_p == nullptr)))
+    return cudaErrorInvalidValue;
+  int slots = 0, gate_blocks = 0, blocks = 0, rows_per_block = 0;
+  cudaError_t err = schedule(bf16_mode, last, partial, rows, C, G, &slots,
+                             &gate_blocks, &blocks, &rows_per_block);
+  if (err != cudaSuccess) return err;
+
+  if (bf16_mode || pad_w) {
+    const int w_rows = pad_w ? K * cp + gp : 0;
+    const int64_t x_blocks =
+        bf16_mode || pad_x
+            ? std::min<int64_t>((rows * (cp / 2) + 255) / 256, 4096)
+            : 0;
+    const unsigned grid = static_cast<unsigned>(w_rows + x_blocks);
+    if (bf16_mode)
+      wn_any_prep_kernel<true><<<grid, 256, 0, stream>>>(
+          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, G, K, last, w_rows);
+    else
+      wn_any_prep_kernel<false><<<grid, 256, 0, stream>>>(
+          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, G, K, last, w_rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  AnyArgs a;
+  a.x = x;
+  a.x_src = bf16_mode || pad_x ? x_p : x;
+  a.cond = cond;
+  a.w_in = pad_w ? w_in_p : w_in;
+  a.b_in = b_in;
+  a.w_rs = pad_w ? w_rs_p : w_rs;
+  a.b_rs = b_rs;
+  a.valid_t = valid_t;
+  a.x_out = x_out;
+  a.skip_out = skip_out;
+  a.part = part;
+  a.acts = acts;
+  a.accumulate = accumulate;
+  a.T = T;
+  a.C = C;
+  a.G = G;
+  a.K = K;
+  a.dilation = dilation;
+  a.rows = static_cast<int>(rows);
+  a.cp = cp;
+  a.gp = gp;
+  a.passes = two ? cp / 64 : (cp + kPass - 1) / kPass;
+  a.gate_passes = (gp + kPass - 1) / kPass;
+  a.rows_per_block = rows_per_block;
+  a.div_t = fast_div(T);
+  a.div_passes = fast_div(a.passes);
+  a.div_gate_passes = fast_div(a.gate_passes);
+  a.div_tap64 = fast_div(cp / AnyWide::kKC);
+  a.div_tap16 = fast_div(cp / AnyF32::kChunk);
+  a.div_acts16 = fast_div(gp / AnyF32::kChunk);
+  a.div_gate = fast_div(K * a.div_tap16.d);
+  a.div_tile = fast_div(a.gate_passes * K * a.div_tap16.d +
+                        a.passes * a.div_acts16.d);
+  void* params[] = {&a};
+  if (!bf16_mode) {
+    const Instance k = instance(0, 0, last, partial, two);
+    err = cudaLaunchKernel(k.fn, dim3(blocks), dim3(k.threads), params,
+                           k.smem, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  const Instance gate = instance(1, 1, 0, partial, false);
+  err = cudaLaunchKernel(gate.fn, dim3(gate_blocks), dim3(gate.threads),
+                         params, gate.smem, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const Instance k = instance(1, 0, last, partial, false);
+  err = cudaLaunchKernel(k.fn, dim3(blocks), dim3(k.threads), params, k.smem,
+                         stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t kernel_info(int C, int G, int bf16_mode, int which, int last,
+                        int partial, int* registers, int* local_bytes,
+                        int* static_smem_bytes, int* dynamic_smem_bytes) {
+  if (bad_shape(1, 1, C, G, 1, 0, bf16_mode) || which < 0 || which > 2)
+    return cudaErrorInvalidValue;
+  const Instance k = instance(bf16_mode, which, last, partial, two_rows(G));
+  if (k.fn == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, k.fn);
+  if (err != cudaSuccess) return err;
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *dynamic_smem_bytes = k.smem;
   return cudaSuccess;
 }
 
@@ -1124,17 +1405,27 @@ int wn_layer_any_max_channels(int bf16_mode) {
   return bf16_mode ? kMaxCBf16 : kMaxCF32;
 }
 
-// The launch grid of one call (see schedule): the slots of one wave, the
-// blocks of each product kernel and, in f32, the rows a block takes (in
-// bf16 the rows of a unit).
+// The launch grid of one whole-layer call (see schedule): the slots of one
+// wave, the blocks of each product kernel and, in f32, the rows a block
+// takes (in bf16 the rows of a unit).
 cudaError_t wn_layer_any_schedule(int C, int batch, int T, int bf16_mode,
                                   int last, int* slots, int* blocks,
                                   int* rows_per_block) {
-  if (C <= 0 || C % 2 != 0 || batch <= 0 || T <= 0 ||
-      static_cast<int64_t>(batch) * T >= (int64_t{1} << 31))
-    return cudaErrorInvalidValue;
-  return schedule(bf16_mode, last, static_cast<int64_t>(batch) * T, C, slots,
-                  blocks, rows_per_block);
+  if (bad_shape(batch, T, C, C, 1, 0, bf16_mode)) return cudaErrorInvalidValue;
+  int gate_blocks = 0;
+  return schedule(bf16_mode, last, 0, static_cast<int64_t>(batch) * T, C, C,
+                  slots, &gate_blocks, blocks, rows_per_block);
+}
+
+// The launch grid of a rank's call at gate width G: as
+// wn_layer_any_schedule, with the bf16 gate kernel's blocks apart.
+cudaError_t wn_layer_shard_any_schedule(int C, int G, int batch, int T,
+                                        int bf16_mode, int last, int* slots,
+                                        int* gate_blocks, int* blocks,
+                                        int* rows_per_block) {
+  if (bad_shape(batch, T, C, G, 1, 0, bf16_mode)) return cudaErrorInvalidValue;
+  return schedule(bf16_mode, last, 1, static_cast<int64_t>(batch) * T, C, G,
+                  slots, gate_blocks, blocks, rows_per_block);
 }
 
 // Shapes: x, x_out, skip_out [batch, T, C] f32; cond [batch, T, 2C]; w_in
@@ -1158,79 +1449,33 @@ cudaError_t wn_layer_any_forward(const float* x, const void* cond,
                                  int batch, int T, int C, int K, int dilation,
                                  int bf16_mode, int last,
                                  cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(batch) * T;
-  const int cp = pad64(C);
-  const bool pad = cp != C;
-  if (T <= 0 || batch <= 0 || rows >= (int64_t{1} << 31) || C <= 0 ||
-      C % 2 != 0 || C > wn_layer_any_max_channels(bf16_mode) || K <= 0 ||
-      K % 2 != 1 || dilation < 0 || acts == nullptr ||
-      ((bf16_mode || pad) && x_p == nullptr) ||
-      (pad && (w_in_p == nullptr || w_rs_p == nullptr)))
-    return cudaErrorInvalidValue;
-  int slots = 0, blocks = 0, rows_per_block = 0;
-  cudaError_t err = schedule(bf16_mode, last, rows, C, &slots, &blocks,
-                             &rows_per_block);
-  if (err != cudaSuccess) return err;
+  if (x_out == nullptr || skip_out == nullptr) return cudaErrorInvalidValue;
+  return launch(x, cond, w_in, b_in, w_rs, b_rs, valid_t, x_out, skip_out,
+                nullptr, acts, x_p, w_in_p, w_rs_p, accumulate, batch, T, C, C,
+                K, dilation, bf16_mode, last, stream);
+}
 
-  if (bf16_mode || pad) {
-    const int w_rows = pad ? K * cp + cp : 0;
-    const int64_t x_blocks =
-        std::min<int64_t>((rows * (cp / 2) + 255) / 256, 4096);
-    const unsigned grid = static_cast<unsigned>(w_rows + x_blocks);
-    if (bf16_mode)
-      wn_any_prep_kernel<true><<<grid, 256, 0, stream>>>(
-          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, K, last, w_rows);
-    else
-      wn_any_prep_kernel<false><<<grid, 256, 0, stream>>>(
-          x, x_p, w_in, w_rs, w_in_p, w_rs_p, rows, C, K, last, w_rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-
-  AnyArgs a;
-  a.x = x;
-  a.x_src = bf16_mode || pad ? x_p : x;
-  a.cond = cond;
-  a.w_in = pad ? w_in_p : w_in;
-  a.b_in = b_in;
-  a.w_rs = pad ? w_rs_p : w_rs;
-  a.b_rs = b_rs;
-  a.valid_t = valid_t;
-  a.x_out = x_out;
-  a.skip_out = skip_out;
-  a.acts = acts;
-  a.accumulate = accumulate;
-  a.T = T;
-  a.C = C;
-  a.K = K;
-  a.dilation = dilation;
-  a.rows = static_cast<int>(rows);
-  a.cp = cp;
-  a.passes = (cp + kPass - 1) / kPass;
-  a.rows_per_block = rows_per_block;
-  a.div_t = fast_div(T);
-  a.div_passes = fast_div(a.passes);
-  a.div_tap64 = fast_div(cp / AnyWide::kKC);
-  a.div_tap16 = fast_div(cp / AnyF32::kChunk);
-  a.div_gate = fast_div(K * a.div_tap16.d);
-  a.div_tile = fast_div(a.passes * (K + 1) * a.div_tap16.d);
-  if (!bf16_mode) {
-    const Instance k = instance(0, 0, last, C);
-    void* params[] = {&a};
-    err = cudaLaunchKernel(k.fn, dim3(blocks), dim3(k.threads), params,
-                           k.smem, stream);
-    return err != cudaSuccess ? err : cudaGetLastError();
-  }
-  wn_any_gate_kernel<<<blocks, AnyWide::kThreads, AnyWide::kSmem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (last)
-    wn_any_rs_kernel<true><<<blocks, AnyWide::kThreads, AnyWide::kSmem,
-                             stream>>>(a);
-  else
-    wn_any_rs_kernel<false><<<blocks, AnyWide::kThreads, AnyWide::kSmem,
-                              stream>>>(a);
-  return cudaGetLastError();
+// One model rank's share of a layer at gate width G (1 <= G <= C): x
+// [batch, T, C] f32; cond_s [batch, T, 2G]; w_in_s [K*C, 2G]; b_in_s [2G]
+// f32; w_rs_s [G, n_rs] (n_rs = 2C, the last layer's C); cond_s, w_in_s and
+// w_rs_s bf16 when bf16_mode != 0, else f32. Writes the f32 partial
+// acts @ w_rs_s into out [batch, T, n_rs]. Scratch (Gp = G rounded up to
+// 64, in the mode's element type): acts [R, Gp]; x_p [R, Cp] in bf16 mode
+// or where C != Cp, else null; w_in_p [K*Cp, 2Gp] and w_rs_p [Gp, n_rsp]
+// where C != Cp or G != Gp, else null. Launches as wn_layer_any_forward.
+cudaError_t wn_layer_shard_any_forward(const float* x, const void* cond_s,
+                                       const void* w_in_s,
+                                       const float* b_in_s,
+                                       const void* w_rs_s, float* out,
+                                       void* acts, void* x_p, void* w_in_p,
+                                       void* w_rs_p, int batch, int T, int C,
+                                       int G, int K, int dilation,
+                                       int bf16_mode, int last,
+                                       cudaStream_t stream) {
+  if (out == nullptr) return cudaErrorInvalidValue;
+  return launch(x, cond_s, w_in_s, b_in_s, w_rs_s, nullptr, nullptr, nullptr,
+                nullptr, out, acts, x_p, w_in_p, w_rs_p, 0, batch, T, C, G, K,
+                dilation, bf16_mode, last, stream);
 }
 
 // What the loaded build of kernel `which` (0: the f32 layer kernel or the
@@ -1243,19 +1488,19 @@ cudaError_t wn_layer_any_kernel_info(int C, int bf16_mode, int which,
                                      int* local_bytes,
                                      int* static_smem_bytes,
                                      int* dynamic_smem_bytes) {
-  if (C <= 0 || C % 2 != 0 || C > wn_layer_any_max_channels(bf16_mode) ||
-      which < 0 || which > 2)
-    return cudaErrorInvalidValue;
-  const Instance k = instance(bf16_mode, which, last, C);
-  if (k.fn == nullptr) return cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, k.fn);
-  if (err != cudaSuccess) return err;
-  *registers = attr.numRegs;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
-  *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
-  *dynamic_smem_bytes = k.smem;
-  return cudaSuccess;
+  return kernel_info(C, C, bf16_mode, which, last, 0, registers, local_bytes,
+                     static_smem_bytes, dynamic_smem_bytes);
+}
+
+// The same for a rank's call at gate width G: kernel 0 is its partial-mode
+// instance (in f32 the Gp = 64 one where G <= 64).
+cudaError_t wn_layer_shard_any_kernel_info(int C, int G, int bf16_mode,
+                                           int which, int last,
+                                           int* registers, int* local_bytes,
+                                           int* static_smem_bytes,
+                                           int* dynamic_smem_bytes) {
+  return kernel_info(C, G, bf16_mode, which, last, 1, registers, local_bytes,
+                     static_smem_bytes, dynamic_smem_bytes);
 }
 
 }  // extern "C"

@@ -26,7 +26,22 @@
 //   dx      = dx_next masked + sum_k shift(bf16(dgates) @ w_in[k]^T,
 //                                          -(k - K/2)*d)          (f32)
 //
-// C, K, the dilation d, B and T are runtime arguments. Layouts, row-major:
+// and a model rank's share of it (kernels/wn_layer.py::
+// wn_layer_shard_backward_any), the adjoint of wn_layer_any.cu's partial
+// mode, which replaces the per-rank cut of the same backward that GSPMD
+// makes under a `model` mesh axis (waveglow_tpu/parallel/sharding.py): the
+// same sums over the rank's G = C' gate channels, with the cotangent g of
+// its partial [B, T, n_rs] in the place of drs (no mask), no dx_next added
+// to its partial dx (the residual's cotangent is outside) and no db_rs:
+//
+//   dx_s    = sum_k shift(bf16(dgates) @ w_in_s[k]^T, ...)   [B, T, C]
+//   dcond_s, db_in_s [2G], dw_in_s [K*C, 2G], dw_rs_s [G, n_rs]
+//
+// The ranks' dx_s summed, plus the residual's cotangent, is the whole
+// layer's dx; their other gradients are its columns (rows of dw_rs).
+//
+// C, G (= C but for a rank), K, the dilation d, B and T are runtime
+// arguments. Layouts, row-major (a rank's with G for the gate's C):
 // x, dx_next, dskip, dx [B, T, C] f32; cond, dcond [B, T, 2C] bf16; w_in,
 // dw_in [K*C, 2C] bf16 (tanh columns, then sigmoid columns); w_rs, dw_rs
 // [C, n_rs] bf16 (n_rs = 2C: residual columns, then skip columns; the last
@@ -49,14 +64,19 @@
 // at 192, four at 256), all but two of them chunks in flight, one chunk's
 // wgmmas left running under the next chunk's loads.
 // The operands are read in layouts padded to Cp = C rounded up to 64
-// channels, zero past C, so every copy is a 16-byte piece of a swizzle row
-// and every channel tail is zero: C = 48 and C = 50 are exact. Where C =
-// Cp the weights and dcond are those layouts already and are read as they
-// are; elsewhere the pad kernel copies the weights and the rows kernel
-// writes the padded dgates beside dcond. Each tap's rows are loaded on
-// their own: taps reach +-(K/2)*d rows (+-384 at K = 7 and d = 128),
-// further than T at T = 17; rows outside [0, T) are zero-filled, and the
-// adjoint's shifts run the other way. The kernels, in order on one stream:
+// channels and Gp = G rounded up to 64 gate channels, zero past C and G,
+// so every copy is a 16-byte piece of a swizzle row
+// and every channel tail is zero: C = 48 and C = 50, or a rank's G = 25,
+// are exact. Where C = Cp and G = Gp the weights and dcond are those
+// layouts already and are read as they are; elsewhere the pad kernel
+// copies the weights and, where G != Gp, the rows kernel writes the padded
+// dgates beside dcond. (Below, 2Cp deep gate columns and Cp of acts read
+// 2Gp and Gp for a rank.) A rank with an odd G reads and writes the
+// sigmoid halves of cond, b_in and dcond one value at a time. Each tap's
+// rows are loaded on their own: taps reach +-(K/2)*d rows (+-384 at K = 7
+// and d = 128), further than T at T = 17; rows outside [0, T) are
+// zero-filled, and the adjoint's shifts run the other way. The kernels,
+// in order on one stream:
 //   pad     - (C != Cp only) w_in into w_in_p [K*Cp, 2Cp] and w_rs into
 //             w_rs_p [Cp, n_rsp] (n_rsp = 2Cp, the last layer's Cp), each
 //             half of the columns from column 0 and from column Cp.
@@ -205,33 +225,38 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 // (the derived sizes too, so a kernel spends no register on them).
 struct BwdArgs {
   const float* x;          // [R, C]
-  const bf16* cond;        // [R, 2C]
-  const bf16* w_in;        // [K*C, 2C]
-  const float* b_in;       // [2C]
-  const bf16* w_rs;        // [C, n_rs]
-  const float* dx_next;    // [R, C] or null
-  const float* dskip;      // [R, C] or null
+  const bf16* cond;        // [R, 2G]
+  const bf16* w_in;        // [K*C, 2G]
+  const float* b_in;       // [2G]
+  const bf16* w_rs;        // [G, n_rs]
+  const float* dx_next;    // [R, C] or null: added to dx
+  const float* drs_a;      // drs's residual half: dx_next, or a rank's g
+  const float* drs_b;      // its skip half (the last layer's drs): dskip,
+                           // or g (+ C); either null for zero
+  int drs_ld;              // their rows' stride: C, or a rank's n_rs
   const int* valid_t;      // [B] or null
   float* dx;               // [R, C]
-  bf16* dcond;             // [R, 2C]
-  bf16* dw_in;             // [K*C, 2C]
-  float* db_in;            // [2C]
-  bf16* dw_rs;             // [C, n_rs]
-  float* db_rs;            // [n_rs]
+  bf16* dcond;             // [R, 2G]
+  bf16* dw_in;             // [K*C, 2G]
+  float* db_in;            // [2G]
+  bf16* dw_rs;             // [G, n_rs]
+  float* db_rs;            // [n_rs], or null (a rank)
   bf16* x_p;               // [R, Cp]: bf16(x), zero past C
   bf16* g_p;               // [R, n_rsp]: bf16(drs), zero past C
-  bf16* acts_p;            // [R, Cp]: bf16(acts)
-  bf16* dg_p;              // [R, 2Cp]: bf16(dgates); dcond where C = Cp
-  bf16* w_in_p;            // [K*Cp, 2Cp], the pad kernel's (C != Cp)
-  bf16* w_rs_p;            // [Cp, n_rsp], likewise
+  bf16* acts_p;            // [R, Gp]: bf16(acts)
+  bf16* dg_p;              // [R, 2Gp]: bf16(dgates); dcond where G = Gp
+  bf16* w_in_p;            // [K*Cp, 2Gp], the pad kernel's
+  bf16* w_rs_p;            // [Gp, n_rsp], likewise
   const bf16* w_in_k;      // what the products read: w_in_p, or w_in
   const bf16* w_rs_k;      // w_rs_p, or w_rs
-  float* part_bias;        // [B * tiles_t, 2Cp + n_rsp]: dgates', drs' sums
-  float* ws;               // [n_splits, K*Cp*2Cp + Cp*n_rsp]: the partials
-  int batch, T, C, K, dilation, last;
+  float* part_bias;        // [B * tiles_t, 2Gp + n_rsp]: dgates', drs' sums
+  float* ws;               // [n_splits, K*Cp*2Gp + Gp*n_rsp]: the partials
+  int batch, T, C, G, K, dilation, last;
   int rows;                // R = B*T
-  int cp, n_rs, n_rsp, pad;
-  int tiles_t, passes;     // ceil(T / kTile); Cp / kPass
+  int cp, gp, n_rs, n_rsp;
+  int pad, pad_g;          // weights padded (C != Cp or G != Gp); G != Gp
+  int in_blocks;           // Cp / kKC: a tap's chunks of the gate product
+  int tiles_t, passes;     // ceil(T / kTile); Gp / kPass
   int dx_n, w_n;           // N of the dx and weights tiles
   int in_mt, in_nt;        // the weights kernel's dw_in_p tiles: M x N
   int rs_mt, rs_nt;        // and its dw_rs_p^T tiles
@@ -275,20 +300,20 @@ __device__ __forceinline__ void ring_step(uint32_t ring, int stage, int j,
 
 // ---- pad: the weights into padded layouts (C != Cp) ------------------------
 
-// One block a padded row: rows [0, K*Cp) of w_in_p, then rows [0, Cp) of
+// One block a padded row: rows [0, K*Cp) of w_in_p, then rows [0, Gp) of
 // w_rs_p.
 __global__ void __launch_bounds__(kThreads)
 wn_bwd_any_pad_kernel(const __grid_constant__ BwdArgs a) {
-  const int C = a.C, cp = a.cp;
+  const int C = a.C, G = a.G, cp = a.cp, gp = a.gp;
   const bf16 zero = __float2bfloat16(0.f);
   const int row = blockIdx.x;
   if (row < a.K * cp) {
     const int tap = row / cp, ci = row % cp;
-    const bf16* src = a.w_in + static_cast<int64_t>(tap * C + ci) * 2 * C;
-    bf16* dst = a.w_in_p + static_cast<int64_t>(row) * 2 * cp;
-    for (int col = threadIdx.x; col < 2 * cp; col += kThreads) {
-      const int h = col / cp, co = col % cp;
-      dst[col] = ci < C && co < C ? src[h * C + co] : zero;
+    const bf16* src = a.w_in + static_cast<int64_t>(tap * C + ci) * 2 * G;
+    bf16* dst = a.w_in_p + static_cast<int64_t>(row) * 2 * gp;
+    for (int col = threadIdx.x; col < 2 * gp; col += kThreads) {
+      const int h = col / gp, co = col % gp;
+      dst[col] = ci < C && co < G ? src[h * G + co] : zero;
     }
   } else {
     const int c = row - a.K * cp;
@@ -296,7 +321,7 @@ wn_bwd_any_pad_kernel(const __grid_constant__ BwdArgs a) {
     bf16* dst = a.w_rs_p + static_cast<int64_t>(c) * a.n_rsp;
     for (int col = threadIdx.x; col < a.n_rsp; col += kThreads) {
       const int h = col / cp, co = col % cp;
-      dst[col] = c < C && co < C ? src[h * C + co] : zero;
+      dst[col] = c < G && co < C ? src[h * C + co] : zero;
     }
   }
 }
@@ -338,14 +363,14 @@ __device__ __forceinline__ void store_piece(bf16* dst, const Piece<kV>& p) {
 // One (tile of kTile time rows, batch row), the rows kernel's tiles, in
 // pieces of kV channels: x_p = bf16(x), zero past C; drs = [dx_next masked
 // at t >= valid_t | dskip] (last: dskip) as bf16 g_p; and drs's f32 column
-// sums into columns [2Cp, 2Cp + n_rsp) of the tile's part_bias row. A drs
+// sums into columns [2Gp, 2Gp + n_rsp) of the tile's part_bias row. A drs
 // column piece is summed down the tile's rows by `phases` threads (rows ph
 // + phases*k, in order), whose sums add in phase order: at C = Cp the
 // whole-layer prep kernel's order.
 template <int kV>
 __device__ __forceinline__ void prep_body(const BwdArgs& a, float* red) {
   constexpr int kBatch = 8;  // loads in flight a thread
-  const int C = a.C, cp = a.cp, n_rsp = a.n_rsp, T = a.T;
+  const int C = a.C, cp = a.cp, gp = a.gp, n_rsp = a.n_rsp, T = a.T;
   const int tile = blockIdx.x, b = blockIdx.y;
   const int t0 = tile * kTile;
   const int rows = min(kTile, T - t0);
@@ -379,8 +404,8 @@ __device__ __forceinline__ void prep_body(const BwdArgs& a, float* red) {
   const int rounds = (kq + kThreads - 1) / kThreads;  // 1 where phases > 1
   float* out = a.part_bias +
                (static_cast<int64_t>(b) * a.tiles_t + tile) *
-                   (2 * cp + n_rsp) +
-               2 * cp;
+                   (2 * gp + n_rsp) +
+               2 * gp;
   for (int round = 0; round < rounds; ++round) {
     const int ph = phases > 1 ? threadIdx.x / kq : 0;
     const int q = phases > 1 ? threadIdx.x - ph * kq
@@ -389,7 +414,7 @@ __device__ __forceinline__ void prep_body(const BwdArgs& a, float* red) {
     const int col = kV * q;
     const int h = col >= cp, co = col - h * cp;
     const bool from_next = !a.last && h == 0;
-    const float* src = from_next ? a.dx_next : a.dskip;
+    const float* src = from_next ? a.drs_a : a.drs_b;
     const bool live = src != nullptr && co < C;
     float s[kV];
 #pragma unroll
@@ -403,7 +428,7 @@ __device__ __forceinline__ void prep_body(const BwdArgs& a, float* red) {
         for (int e = 0; e < kV; ++e) v[u].v[e] = 0.f;
         if (live && k0 + u < per && r < rows &&
             !(from_next && t0 + r >= valid))
-          v[u] = load_piece<kV>(src + (row0 + r) * C + co);
+          v[u] = load_piece<kV>(src + (row0 + r) * a.drs_ld + co);
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -440,20 +465,49 @@ wn_bwd_any_prep_kernel(const __grid_constant__ BwdArgs a) {
 
 // ---- rows: the gate recompute, dacts, the gate's adjoint --------------------
 
-// One block per (tile of 128 time rows x pass of 64 channels, batch row):
-// blockIdx.x = tile * passes + pass. Chunk j < K * passes of the gate is
-// tap j % K, channels 64 (j / K) + [0, 64) (wn_layer_bwd.cu's order at K =
-// 3); then dacts' chunks, 64 drs columns each. What the loops read is held
-// in registers (a field of the parameter would be read again past every
-// accumulator fence), the chunk's tap and channel block are counters.
+// A pair of bf16 values at `p` as one word: one 4-byte load where
+// `aligned`, else two loads (a rank's odd G), the second zero unless
+// `second`.
+__device__ __forceinline__ uint32_t load_pair(const bf16* p, bool aligned,
+                                              bool second) {
+  if (aligned) return *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = second ? *reinterpret_cast<const uint16_t*>(p + 1) : 0u;
+  return lo | hi << 16;
+}
+
+// Stores a pair of bf16 values (`v` as pack_bf16 made it) at `p`: one
+// 4-byte store where `aligned`, else the first alone and, where `second`,
+// the second.
+__device__ __forceinline__ void store_pair(bf16* p, uint32_t v, bool aligned,
+                                           bool second) {
+  if (aligned) {
+    *reinterpret_cast<uint32_t*>(p) = v;
+    return;
+  }
+  *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(v & 0xffffu);
+  if (second)
+    *reinterpret_cast<uint16_t*>(p + 1) = static_cast<uint16_t>(v >> 16);
+}
+
+// One block per (tile of 128 time rows x pass of 64 gate channels, batch
+// row): blockIdx.x = tile * passes + pass. Chunk j < K * Cp / 64 of the
+// gate is tap j % K, input channels 64 (j / K) + [0, 64) (wn_layer_bwd.cu's
+// order at K = 3); then dacts' chunks, 64 drs columns each. What the
+// loops read is held in registers (a field of the parameter would be read
+// again past every accumulator fence), the chunk's tap and channel block
+// are counters. kRank: a rank's instance (G != C); the whole layer's holds
+// one width and its pairs aligned.
+template <bool kRank>
 __global__ void __launch_bounds__(kThreads, 1)
 wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(1024) uint4 smem_rows[];
   const uint32_t ring = smem_u32(smem_rows);
   float* red = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_rows) +
                                         kRowsRed);
-  const int C = a.C, cp = a.cp, n_rsp = a.n_rsp, K = a.K, T = a.T;
-  const int dilation = a.dilation;
+  const int cp = a.cp, n_rsp = a.n_rsp, K = a.K;
+  const int G = kRank ? a.G : a.C, gp = kRank ? a.gp : cp;
+  const int T = a.T, dilation = a.dilation;
   const int tile = div_by(blockIdx.x, a.div_passes);
   const int cb = (blockIdx.x - tile * a.passes) * kPass;  // the pass's
   const int b = blockIdx.y;
@@ -463,7 +517,7 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r16 = warp * 16;  // the warp's rows of the tile (both groups)
   const int g = lane / 4, tig = lane % 4;
-  const int gate_chunks = K * a.passes;
+  const int gate_chunks = K * (kRank ? a.in_blocks : a.passes);
   const int chunks = gate_chunks + n_rsp / kKC;
 
   // This thread's copies of a chunk. A: rows ra + 32i, piece q (K-major).
@@ -477,13 +531,13 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
       kABytes + nb / 64 * kBlock + sw128_piece(kb, nb % 64 / 8);
   const bf16* __restrict__ xa = a.x_p + (row0 + ra) * cp + q * 8;
   const bf16* __restrict__ ga = a.g_p + (row0 + ra) * n_rsp + q * 8;
-  const bf16* __restrict__ wga = a.w_in_k + static_cast<int64_t>(kb) * 2 * cp +
-                                 nb / 64 * cp + cb + nb % 64;
+  const bf16* __restrict__ wga = a.w_in_k + static_cast<int64_t>(kb) * 2 * gp +
+                                 nb / 64 * gp + cb + nb % 64;
   const bf16* __restrict__ wra =
       a.w_rs_k + static_cast<int64_t>(cb + ra) * n_rsp + q * 8;
   const int64_t x_step = static_cast<int64_t>(32) * cp;    // 32 x_p rows
   const int64_t g_step = static_cast<int64_t>(32) * n_rsp;  // 32 g_p rows
-  const int64_t wg_step = static_cast<int64_t>(16) * 2 * cp;
+  const int64_t wg_step = static_cast<int64_t>(16) * 2 * gp;
   const bf16* __restrict__ cond = a.cond;
   int ld_tap = 0, ld_c0 = 0;  // the next gate chunk's tap and channels
 
@@ -502,7 +556,7 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
                            ok);
         }
         const bf16* w0 =
-            wga + static_cast<int64_t>(ld_tap * cp + ld_c0) * 2 * cp;
+            wga + static_cast<int64_t>(ld_tap * cp + ld_c0) * 2 * gp;
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           cp_async16(st + wg_dst + i * 2048, w0 + i * wg_step);
@@ -547,8 +601,10 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   wgmma_wait<0>();
   fence_acc(acc_g);
 
-  // cond of the pass's channels (zero past C and past the tile's rows),
+  // cond of the pass's channels (zero past G and past the tile's rows),
   // read under the dacts product
+  // cond's, b_in's and dcond's pairs aligned
+  const bool pairs = !kRank || G % 2 == 0;
   uint32_t cond_t[kPass / 8][2], cond_s[kPass / 8][2];
 #pragma unroll
   for (int j = 0; j < kPass / 8; ++j)
@@ -557,10 +613,10 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
       const int row = r16 + g + 8 * h;
       const int ch = cb + 8 * j + 2 * tig;
       cond_t[j][h] = cond_s[j][h] = 0u;  // bf16 zeros
-      if (row < rows && ch < C) {  // C even: ch + 1 < C too
-        const bf16* cr = cond + (row0 + row) * 2 * C + ch;
-        cond_t[j][h] = *reinterpret_cast<const uint32_t*>(cr);
-        cond_s[j][h] = *reinterpret_cast<const uint32_t*>(cr + C);
+      if (row < rows && ch < G) {  // G even: ch + 1 < G too
+        const bf16* cr = cond + (row0 + row) * 2 * G + ch;
+        cond_t[j][h] = load_pair(cr, pairs, ch + 1 < G);
+        cond_s[j][h] = load_pair(cr + G, pairs, ch + 1 < G);
       }
     }
 
@@ -573,7 +629,7 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   cp_async_wait<0>();
 
   // ---- the gate and its adjoint on the accumulators (f32). Rows past the
-  // tile's have zero drs: finite gates, zero dgates. Channels past C have
+  // tile's have zero drs: finite gates, zero dgates. Channels past G have
   // zero weights, bias and cond: zero acts and dgates. The bias is loaded
   // before any store (the outputs are fields the compiler cannot tell
   // apart from it).
@@ -582,19 +638,26 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   for (int j = 0; j < kPass / 8; ++j) {
     const int ch = cb + 8 * j + 2 * tig;
     b_t[j] = b_s[j] = make_float2(0.f, 0.f);
-    if (ch < C) {
-      b_t[j] = *reinterpret_cast<const float2*>(a.b_in + ch);
-      b_s[j] = *reinterpret_cast<const float2*>(a.b_in + C + ch);
+    if (ch < G) {
+      if (pairs) {
+        b_t[j] = *reinterpret_cast<const float2*>(a.b_in + ch);
+        b_s[j] = *reinterpret_cast<const float2*>(a.b_in + G + ch);
+      } else {
+        const bool second = ch + 1 < G;
+        b_t[j] = make_float2(a.b_in[ch], second ? a.b_in[ch + 1] : 0.f);
+        b_s[j] = make_float2(a.b_in[G + ch],
+                             second ? a.b_in[G + ch + 1] : 0.f);
+      }
     }
   }
   bf16* __restrict__ acts_p = a.acts_p;
   bf16* __restrict__ dcond = a.dcond;
   bf16* __restrict__ dg_p = a.dg_p;
-  const bool pad = a.pad;
+  const bool pad_g = kRank ? a.pad_g : a.pad;
 #pragma unroll
   for (int j = 0; j < kPass / 8; ++j) {
     const int ch = cb + 8 * j + 2 * tig;
-    const bool ch_ok = ch < C;
+    const bool ch_ok = ch < G, second = ch + 1 < G;
     const float2 bt = b_t[j], bs = b_s[j];
     float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
 #pragma unroll
@@ -619,17 +682,17 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
       }
       sa0 += da[0]; sa1 += da[1]; sb0 += db[0]; sb1 += db[1];
       if (row < rows) {
-        *reinterpret_cast<uint32_t*>(acts_p + grow * cp + ch) =
+        *reinterpret_cast<uint32_t*>(acts_p + grow * gp + ch) =
             pack_bf16(act[0], act[1]);
         if (ch_ok) {
-          bf16* dc = dcond + grow * 2 * C + ch;
-          *reinterpret_cast<uint32_t*>(dc) = pack_bf16(da[0], da[1]);
-          *reinterpret_cast<uint32_t*>(dc + C) = pack_bf16(db[0], db[1]);
+          bf16* dc = dcond + grow * 2 * G + ch;
+          store_pair(dc, pack_bf16(da[0], da[1]), pairs, second);
+          store_pair(dc + G, pack_bf16(db[0], db[1]), pairs, second);
         }
-        if (pad) {
-          bf16* dg = dg_p + grow * 2 * cp + ch;
+        if (pad_g) {
+          bf16* dg = dg_p + grow * 2 * gp + ch;
           *reinterpret_cast<uint32_t*>(dg) = pack_bf16(da[0], da[1]);
-          *reinterpret_cast<uint32_t*>(dg + cp) = pack_bf16(db[0], db[1]);
+          *reinterpret_cast<uint32_t*>(dg + gp) = pack_bf16(db[0], db[1]);
         }
       }
     }
@@ -653,19 +716,19 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
   // ---- the tile's dgates column sums over the 8 row warps, in order
   __syncthreads();
   float* out = a.part_bias + (static_cast<int64_t>(b) * a.tiles_t + tile) *
-                                 (2 * cp + n_rsp);
+                                 (2 * gp + n_rsp);
   for (int col = threadIdx.x; col < 2 * kPass; col += kThreads) {
     float sum = red[col];
 #pragma unroll
     for (int w = 1; w < 8; ++w) sum += red[w * 2 * kPass + col];
-    out[col < kPass ? cb + col : cp + cb + col - kPass] = sum;
+    out[col < kPass ? cb + col : gp + cb + col - kPass] = sum;
   }
 }
 
 // ---- dx: the taps' adjoint --------------------------------------------------
 
-// One block per (128 flat rows, kN output channels): a product over K * 2Cp,
-// chunk c the (tap c / (2Cp / 64), gate columns 64 (c % (2Cp / 64)) + [0,
+// One block per (128 flat rows, kN output channels): a product over K * 2Gp,
+// chunk c the (tap c / (2Gp / 64), gate columns 64 (c % (2Gp / 64)) + [0,
 // 64)) of dgates rows t - (tap - K/2)*d of each row's own batch row (zero
 // outside [0, T)), against w_in rows tap*Cp + n0 + n, both K-major. As in
 // the rows kernel, the loops read registers and count the chunk's tap and
@@ -673,8 +736,8 @@ wn_bwd_any_rows_kernel(const __grid_constant__ BwdArgs a) {
 template <int kN>
 __device__ __forceinline__ void dx_body(const BwdArgs& a, uint32_t ring) {
   constexpr int kStage = nt_stage(kN), kStages = nt_stages(kN);
-  const int C = a.C, cp = a.cp, K = a.K, T = a.T, R = a.rows;
-  const int chunks = K * (2 * cp / kKC);
+  const int C = a.C, cp = a.cp, gp = a.gp, K = a.K, T = a.T, R = a.rows;
+  const int chunks = K * (2 * gp / kKC);
   const int rt0 = blockIdx.x * kTile;  // the tile's first flat row
   const int n0 = blockIdx.y * kN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -693,13 +756,13 @@ __device__ __forceinline__ void dx_body(const BwdArgs& a, uint32_t ring) {
   for (int i = 0; i < 4; ++i) {
     const int fr = rt0 + threadIdx.x / 8 + 32 * i;
     const int bi = div_by(fr, a.div_t);
-    arow[i] = dg + static_cast<int64_t>(bi) * T * 2 * cp + q * 8;
+    arow[i] = dg + static_cast<int64_t>(bi) * T * 2 * gp + q * 8;
     tt[i] = fr < R ? fr - static_cast<int64_t>(bi) * T : -(int64_t{1} << 40);
   }
   const uint32_t a_dst = sw128_piece(threadIdx.x / 8, q);
   const bf16* __restrict__ wa =
-      a.w_in_k + static_cast<int64_t>(n0 + threadIdx.x / 8) * 2 * cp + q * 8;
-  const int64_t w_step = static_cast<int64_t>(32) * 2 * cp;  // 32 w_in rows
+      a.w_in_k + static_cast<int64_t>(n0 + threadIdx.x / 8) * 2 * gp + q * 8;
+  const int64_t w_step = static_cast<int64_t>(32) * 2 * gp;  // 32 w_in rows
   int ld_tap = 0, ld_m0 = 0;  // the next chunk's tap and gate columns
 
   // chunk c into its stage (called for c = 0, 1, 2, ... in turn)
@@ -713,15 +776,15 @@ __device__ __forceinline__ void dx_body(const BwdArgs& a, uint32_t ring) {
         const int64_t s = tt[i] - shift;
         const bool ok = s >= 0 && s < T;
         cp_async16_zfill(st + a_dst + i * 4096,
-                         ok ? arow[i] + s * 2 * cp + ld_m0 : dg, ok);
+                         ok ? arow[i] + s * 2 * gp + ld_m0 : dg, ok);
       }
       const bf16* w0 =
-          wa + static_cast<int64_t>(ld_tap) * cp * 2 * cp + ld_m0;
+          wa + static_cast<int64_t>(ld_tap) * cp * 2 * gp + ld_m0;
 #pragma unroll
       for (int i = 0; i < kN / 32; ++i)
         cp_async16(st + kABytes + a_dst + i * 4096, w0 + i * w_step);
       ld_m0 += kKC;
-      if (ld_m0 == 2 * cp) {
+      if (ld_m0 == 2 * gp) {
         ld_m0 = 0;
         ++ld_tap;
       }
@@ -785,17 +848,18 @@ wn_bwd_any_dx_kernel(const __grid_constant__ BwdArgs a) {
 
 // ---- weights: dw_in and dw_rs, f32 partials of row ranges -------------------
 
-// Output tiles of 128 rows x N columns: dw_in_p's (ceil(K*Cp / 128) x 2Cp /
-// N), then dw_rs_p^T's (ceil(n_rsp / 128) x Cp / N).
+// Output tiles of 128 rows x N columns: dw_in_p's (ceil(K*Cp / 128) x 2Gp /
+// N), then dw_rs_p^T's (ceil(n_rsp / 128) x Gp / N); N = n_tile(Gp).
 struct WeightTiles {
   int n, in_mt, in_nt, rs_mt, rs_nt;
   int count() const { return in_mt * in_nt + rs_mt * rs_nt; }
 };
 
-WeightTiles weight_tiles(int C, int K, int last) {
-  const int cp = pad64(C), n_rsp = last ? cp : 2 * cp, n = n_tile(cp);
-  return {n, (K * cp + kTile - 1) / kTile, 2 * cp / n,
-          (n_rsp + kTile - 1) / kTile, cp / n};
+WeightTiles weight_tiles(int C, int G, int K, int last) {
+  const int cp = pad64(C), gp = pad64(G), n_rsp = last ? cp : 2 * cp;
+  const int n = n_tile(gp);
+  return {n, (K * cp + kTile - 1) / kTile, 2 * gp / n,
+          (n_rsp + kTile - 1) / kTile, gp / n};
 }
 
 // blockIdx.x: the output tile; blockIdx.y: the range s, rows [tb, te) of
@@ -804,7 +868,7 @@ WeightTiles weight_tiles(int C, int K, int last) {
 // split_rows, te = min(T, tb + split_rows) (a part of one batch row, or
 // whole batch rows where split_batches > 1 and n_splits_t = 1). Each batch
 // row's rows run in 64-row chunks from tb. Writes its f32 partial of the
-// tile into slot s of ws, each slot dw_in_p [K*Cp, 2Cp] then dw_rs_p [Cp,
+// tile into slot s of ws, each slot dw_in_p [K*Cp, 2Gp] then dw_rs_p [Gp,
 // n_rsp]. out[m][n] = sum over the range's rows t of A[t + shift][m]
 // B[t][n]: dw_in, A = x_p at tap-k columns (shift (k - K/2)*d; this
 // thread's 8 M values (tid % 16) * 8 lie in one tap), B = dgates; dw_rs^T,
@@ -814,7 +878,7 @@ __device__ __forceinline__ void weights_body(const BwdArgs& a,
                                              uint32_t ring) {
   constexpr int kStage = nt_stage(kN), kStages = nt_stages(kN);
   constexpr int kPer = kN / 8;  // 16-byte pieces of a B row
-  const int cp = a.cp, K = a.K, T = a.T, n_rsp = a.n_rsp;
+  const int cp = a.cp, gp = a.gp, K = a.K, T = a.T, n_rsp = a.n_rsp;
   const int s = blockIdx.y;
   const int bq = s / a.n_splits_t, ts = s - bq * a.n_splits_t;
   const int b0 = bq * a.split_batches;
@@ -822,8 +886,8 @@ __device__ __forceinline__ void weights_body(const BwdArgs& a,
   const int tb = ts * a.split_rows, te = min(T, tb + a.split_rows);
   const int cpb = (te - tb + kKC - 1) / kKC;  // chunks of a batch row
   const int chunks = (b1 - b0) * cpb;
-  const int64_t dw_in_size = static_cast<int64_t>(K) * cp * 2 * cp;
-  float* wsp = a.ws + s * (dw_in_size + static_cast<int64_t>(cp) * n_rsp);
+  const int64_t dw_in_size = static_cast<int64_t>(K) * cp * 2 * gp;
+  float* wsp = a.ws + s * (dw_in_size + static_cast<int64_t>(gp) * n_rsp);
 
   const int m = (threadIdx.x % 16) * 8;  // this thread's A values of a row
   const bf16 *a_src, *b_src;
@@ -840,12 +904,12 @@ __device__ __forceinline__ void weights_body(const BwdArgs& a,
     shift = static_cast<int64_t>(tap - K / 2) * a.dilation;
     m_ext = min(kTile, K * cp - mt * kTile);
     b_src = a.dg_p + nt * kN;
-    ldb = 2 * cp;
-    out = wsp + static_cast<int64_t>(mt) * kTile * 2 * cp + nt * kN;
-    ld_m = 2 * cp;
+    ldb = 2 * gp;
+    out = wsp + static_cast<int64_t>(mt) * kTile * 2 * gp + nt * kN;
+    ld_m = 2 * gp;
     ld_n = 1;
   } else {
-    // dw_rs_p^T rows mt * 128 + m (of n_rsp), columns nt * kN + n (of Cp)
+    // dw_rs_p^T rows mt * 128 + m (of n_rsp), columns nt * kN + n (of Gp)
     const int tile = blockIdx.x - a.in_mt * a.in_nt;
     const int mt = tile / a.rs_nt, nt = tile - mt * a.rs_nt;
     a_src = a.g_p + mt * kTile + m;
@@ -853,7 +917,7 @@ __device__ __forceinline__ void weights_body(const BwdArgs& a,
     shift = 0;
     m_ext = min(kTile, n_rsp - mt * kTile);
     b_src = a.acts_p + nt * kN;
-    ldb = cp;
+    ldb = gp;
     out = wsp + dw_in_size + static_cast<int64_t>(nt) * kN * n_rsp +
           mt * kTile;
     ld_m = 1;
@@ -945,25 +1009,27 @@ wn_bwd_any_weights_kernel(const __grid_constant__ BwdArgs a) {
 
 // ---- reduce: fixed-order sums, the padding dropped, casts -------------------
 
-// Blocks [0, bias blocks): one warp a bias column, db_in's 2C then db_rs's
-// n_rs, its lanes summing every 32nd of the B * tiles_t rows of part_bias,
-// then a butterfly. The blocks after them: one thread an element of dw_in
-// [K*C, 2C] then dw_rs [C, n_rs], summing the ranges' partials in order.
+// Blocks [0, bias blocks): one warp a bias column, db_in's 2G then db_rs's
+// n_rs (none for a rank), its lanes summing every 32nd of the B * tiles_t
+// rows of part_bias, then a butterfly. The blocks after them: one thread an
+// element of dw_in [K*C, 2G] then dw_rs [G, n_rs], summing the ranges'
+// partials in order.
 constexpr int kBiasCols = kThreads / 32;
 
 __global__ void __launch_bounds__(kThreads)
 wn_bwd_any_reduce_kernel(const __grid_constant__ BwdArgs a) {
-  const int C = a.C, cp = a.cp, n_rs = a.n_rs, n_rsp = a.n_rsp;
-  const int n_bias = 2 * C + n_rs;
+  const int C = a.C, G = a.G, cp = a.cp, gp = a.gp, n_rs = a.n_rs;
+  const int n_rsp = a.n_rsp;
+  const int n_bias = 2 * G + (a.db_rs != nullptr ? n_rs : 0);
   const int bias_blocks = (n_bias + kBiasCols - 1) / kBiasCols;
   if (static_cast<int>(blockIdx.x) < bias_blocks) {
     const int col = blockIdx.x * kBiasCols + threadIdx.x / 32;
     if (col >= n_bias) return;  // the whole warp
     const int lane = threadIdx.x % 32;
-    const bool in = col < 2 * C;
-    const int c = in ? col : col - 2 * C;
-    const int p = (in ? 0 : 2 * cp) + c / C * cp + c % C;
-    const int ld = 2 * cp + n_rsp;
+    const bool in = col < 2 * G;
+    const int c = in ? col : col - 2 * G;
+    const int p = in ? c / G * gp + c % G : 2 * gp + c / C * cp + c % C;
+    const int ld = 2 * gp + n_rsp;
     const int n_tiles = a.batch * a.tiles_t;
     float s = 0.f;
     for (int i = lane; i < n_tiles; i += 32)
@@ -976,23 +1042,23 @@ wn_bwd_any_reduce_kernel(const __grid_constant__ BwdArgs a) {
     }
     return;
   }
-  const int n_in = a.K * C * 2 * C;
-  const int n_w = n_in + C * n_rs;
+  const int n_in = a.K * C * 2 * G;
+  const int n_w = n_in + G * n_rs;
   const int w = (blockIdx.x - bias_blocks) * kThreads + threadIdx.x;
   if (w >= n_w) return;
-  const int dw_in_size = a.K * cp * 2 * cp;
-  int p = w;  // C = Cp: the padded layouts are the outputs'
+  const int dw_in_size = a.K * cp * 2 * gp;
+  int p = w;  // C = Cp, G = Gp: the padded layouts are the outputs'
   if (a.pad) {
     if (w < n_in) {
-      const int row = w / (2 * C), col = w - row * 2 * C;
+      const int row = w / (2 * G), col = w - row * 2 * G;
       const int tap = row / C, ci = row - tap * C;
-      p = (tap * cp + ci) * 2 * cp + col / C * cp + col % C;
+      p = (tap * cp + ci) * 2 * gp + col / G * gp + col % G;
     } else {
       const int c = (w - n_in) / n_rs, col = w - n_in - c * n_rs;
       p = dw_in_size + c * n_rsp + col / C * cp + col % C;
     }
   }
-  const int64_t stride = dw_in_size + static_cast<int64_t>(cp) * n_rsp;
+  const int64_t stride = dw_in_size + static_cast<int64_t>(gp) * n_rsp;
   const int n_splits = (a.batch + a.split_batches - 1) / a.split_batches *
                        a.n_splits_t;
   float s = 0.f;
@@ -1003,18 +1069,21 @@ wn_bwd_any_reduce_kernel(const __grid_constant__ BwdArgs a) {
 }
 
 // The kernel `which` (0 rows, 1 dx, 2 weights, 3 reduce, 4 prep, 5 pad) and
-// its dynamic shared bytes at width C.
-const void* kernel_for(int which, int C, int* smem_bytes) {
+// its dynamic shared bytes at width C and gate width G.
+const void* kernel_for(int which, int C, int G, int* smem_bytes) {
   *smem_bytes = 0;
   switch (which) {
     case 0:
       *smem_bytes = kRowsSmem;
-      return reinterpret_cast<const void*>(wn_bwd_any_rows_kernel);
+      return G != C ? reinterpret_cast<const void*>(
+                          wn_bwd_any_rows_kernel<true>)
+                    : reinterpret_cast<const void*>(
+                          wn_bwd_any_rows_kernel<false>);
     case 1:
       *smem_bytes = nt_smem(dx_tile(pad64(C)));
       return reinterpret_cast<const void*>(wn_bwd_any_dx_kernel);
     case 2:
-      *smem_bytes = nt_smem(n_tile(pad64(C)));
+      *smem_bytes = nt_smem(n_tile(pad64(G)));
       return reinterpret_cast<const void*>(wn_bwd_any_weights_kernel);
     case 3:
       return reinterpret_cast<const void*>(wn_bwd_any_reduce_kernel);
@@ -1027,7 +1096,120 @@ const void* kernel_for(int which, int C, int* smem_bytes) {
   }
 }
 
-std::atomic<uint32_t> g_opted_in[3];
+std::atomic<uint32_t> g_opted_in[4];  // rows, a rank's rows, dx, weights
+
+bool bad_shape(int C, int G, int K) {
+  return C <= 0 || C % 2 != 0 || C > kMaxC || G <= 0 || G > C || K <= 0 ||
+         K % 2 != 1;
+}
+
+// One backward: `a`'s inputs, outputs and scratch set, the rest derived
+// here; see the entry points.
+cudaError_t launch(BwdArgs& a, int batch, int T, int C, int G, int K,
+                   int dilation, int last, int n_splits_t, int split_rows,
+                   int split_batches, cudaStream_t stream) {
+  const int cp = pad64(C), gp = pad64(G);
+  const bool pad = cp != C || gp != G, pad_g = gp != G;
+  const int64_t rows = static_cast<int64_t>(batch) * T;
+  if (T <= 0 || batch <= 0 || batch > 65535 ||
+      rows >= (int64_t{1} << 31) - kTile || bad_shape(C, G, K) ||
+      dilation < 0 ||
+      static_cast<int64_t>(K) * cp * 2 * gp + 2 * cp * gp >=
+          (int64_t{1} << 31) ||
+      n_splits_t <= 0 || split_rows <= 0 || split_rows % kKC != 0 ||
+      split_batches <= 0 || (split_batches > 1 && n_splits_t != 1) ||
+      static_cast<int64_t>(n_splits_t) * split_rows < T ||
+      static_cast<int64_t>((batch + split_batches - 1) / split_batches) *
+              n_splits_t > 65535 ||
+      a.x_p == nullptr || a.g_p == nullptr || a.acts_p == nullptr ||
+      a.part_bias == nullptr || a.ws == nullptr ||
+      (pad && (a.w_in_p == nullptr || a.w_rs_p == nullptr)) ||
+      (pad_g && a.dg_p == nullptr))
+    return cudaErrorInvalidValue;
+  const WeightTiles wt = weight_tiles(C, G, K, last);
+  if (!pad_g) a.dg_p = a.dcond;
+  a.w_in_k = pad ? a.w_in_p : a.w_in;
+  a.w_rs_k = pad ? a.w_rs_p : a.w_rs;
+  a.batch = batch;
+  a.T = T;
+  a.C = C;
+  a.G = G;
+  a.K = K;
+  a.dilation = dilation;
+  a.last = last;
+  a.rows = static_cast<int>(rows);
+  a.cp = cp;
+  a.gp = gp;
+  a.n_rs = last ? C : 2 * C;
+  a.n_rsp = last ? cp : 2 * cp;
+  a.pad = pad;
+  a.pad_g = pad_g;
+  a.in_blocks = cp / kKC;
+  a.tiles_t = (T + kTile - 1) / kTile;
+  a.passes = gp / kPass;
+  a.dx_n = dx_tile(cp);
+  a.w_n = wt.n;
+  a.in_mt = wt.in_mt;
+  a.in_nt = wt.in_nt;
+  a.rs_mt = wt.rs_mt;
+  a.rs_nt = wt.rs_nt;
+  a.n_splits_t = n_splits_t;
+  a.split_rows = split_rows;
+  a.split_batches = split_batches;
+  a.div_passes = fast_div(a.passes);
+  a.div_t = fast_div(T);
+
+  cudaError_t err;
+  if (pad) {
+    wn_bwd_any_pad_kernel<<<K * cp + gp, kThreads, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  wn_bwd_any_prep_kernel<<<dim3(a.tiles_t, batch), kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 rows_grid(a.tiles_t * a.passes, batch);
+  if (G != C) {
+    err = opt_in_smem(wn_bwd_any_rows_kernel<true>, kRowsSmem,
+                      &g_opted_in[1]);
+    if (err != cudaSuccess) return err;
+    wn_bwd_any_rows_kernel<true><<<rows_grid, kThreads, kRowsSmem, stream>>>(
+        a);
+  } else {
+    err = opt_in_smem(wn_bwd_any_rows_kernel<false>, kRowsSmem,
+                      &g_opted_in[0]);
+    if (err != cudaSuccess) return err;
+    wn_bwd_any_rows_kernel<false><<<rows_grid, kThreads, kRowsSmem,
+                                    stream>>>(a);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // both opted in at the most bytes of any N, launched with their own N's
+  err = opt_in_smem(wn_bwd_any_dx_kernel, kSmemMax, &g_opted_in[2]);
+  if (err != cudaSuccess) return err;
+  wn_bwd_any_dx_kernel<<<dim3((a.rows + kTile - 1) / kTile, cp / a.dx_n),
+                         kThreads, nt_smem(a.dx_n), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = opt_in_smem(wn_bwd_any_weights_kernel, kSmemMax, &g_opted_in[3]);
+  if (err != cudaSuccess) return err;
+  const int ranges =
+      (batch + split_batches - 1) / split_batches * n_splits_t;
+  wn_bwd_any_weights_kernel<<<dim3(wt.count(), ranges), kThreads,
+                              nt_smem(wt.n), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int n_bias = 2 * G + (a.db_rs != nullptr ? a.n_rs : 0);
+  const int n_w = K * C * 2 * G + G * a.n_rs;
+  const int blocks = (n_bias + kBiasCols - 1) / kBiasCols +
+                     (n_w + kThreads - 1) / kThreads;
+  wn_bwd_any_reduce_kernel<<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1036,8 +1218,14 @@ extern "C" {
 // Output tiles of the weights kernel at (C, K, last): each a block for each
 // range of the cut; -1 for a shape the kernels do not take.
 int wn_layer_bwd_any_weight_tiles(int C, int K, int last) {
-  if (C <= 0 || C % 2 != 0 || C > kMaxC || K <= 0 || K % 2 != 1) return -1;
-  return weight_tiles(C, K, last).count();
+  if (bad_shape(C, C, K)) return -1;
+  return weight_tiles(C, C, K, last).count();
+}
+
+// The same for a rank's backward at gate width G.
+int wn_layer_shard_bwd_any_weight_tiles(int C, int G, int K, int last) {
+  if (bad_shape(C, G, K)) return -1;
+  return weight_tiles(C, G, K, last).count();
 }
 
 // The bf16 backward of one whole layer at any even C up to 1,280 and odd K,
@@ -1065,32 +1253,17 @@ cudaError_t wn_layer_backward_any_bf16(
     void* w_rs_p, void* acts_p, void* dg_p, float* part_bias, float* ws,
     int batch, int T, int C, int K, int dilation, int last, int n_splits_t,
     int split_rows, int split_batches, cudaStream_t stream) {
-  const int cp = pad64(C);
-  const bool pad = cp != C;
-  const int64_t rows = static_cast<int64_t>(batch) * T;
-  if (T <= 0 || batch <= 0 || batch > 65535 ||
-      rows >= (int64_t{1} << 31) - kTile || C <= 0 || C % 2 != 0 ||
-      C > kMaxC || K <= 0 || K % 2 != 1 || dilation < 0 ||
-      static_cast<int64_t>(K) * cp * 2 * cp + 2 * cp * cp >=
-          (int64_t{1} << 31) ||
-      n_splits_t <= 0 || split_rows <= 0 || split_rows % kKC != 0 ||
-      split_batches <= 0 || (split_batches > 1 && n_splits_t != 1) ||
-      static_cast<int64_t>(n_splits_t) * split_rows < T ||
-      static_cast<int64_t>((batch + split_batches - 1) / split_batches) *
-              n_splits_t > 65535 ||
-      x_p == nullptr || g_p == nullptr || acts_p == nullptr ||
-      part_bias == nullptr || ws == nullptr ||
-      (pad && (w_in_p == nullptr || w_rs_p == nullptr || dg_p == nullptr)))
-    return cudaErrorInvalidValue;
-  const WeightTiles wt = weight_tiles(C, K, last);
-  BwdArgs a;
+  if (db_rs == nullptr) return cudaErrorInvalidValue;
+  BwdArgs a{};
   a.x = x;
   a.cond = static_cast<const bf16*>(cond);
   a.w_in = static_cast<const bf16*>(w_in);
   a.b_in = b_in;
   a.w_rs = static_cast<const bf16*>(w_rs);
   a.dx_next = dx_next;
-  a.dskip = dskip;
+  a.drs_a = dx_next;
+  a.drs_b = dskip;
+  a.drs_ld = C;
   a.valid_t = valid_t;
   a.dx = dx;
   a.dcond = static_cast<bf16*>(dcond);
@@ -1101,90 +1274,76 @@ cudaError_t wn_layer_backward_any_bf16(
   a.x_p = static_cast<bf16*>(x_p);
   a.g_p = static_cast<bf16*>(g_p);
   a.acts_p = static_cast<bf16*>(acts_p);
-  a.dg_p = pad ? static_cast<bf16*>(dg_p) : a.dcond;
+  a.dg_p = static_cast<bf16*>(dg_p);
   a.w_in_p = static_cast<bf16*>(w_in_p);
   a.w_rs_p = static_cast<bf16*>(w_rs_p);
-  a.w_in_k = pad ? a.w_in_p : a.w_in;
-  a.w_rs_k = pad ? a.w_rs_p : a.w_rs;
   a.part_bias = part_bias;
   a.ws = ws;
-  a.batch = batch;
-  a.T = T;
-  a.C = C;
-  a.K = K;
-  a.dilation = dilation;
-  a.last = last;
-  a.rows = static_cast<int>(rows);
-  a.cp = cp;
-  a.n_rs = last ? C : 2 * C;
-  a.n_rsp = last ? cp : 2 * cp;
-  a.pad = pad;
-  a.tiles_t = (T + kTile - 1) / kTile;
-  a.passes = cp / kPass;
-  a.dx_n = dx_tile(cp);
-  a.w_n = wt.n;
-  a.in_mt = wt.in_mt;
-  a.in_nt = wt.in_nt;
-  a.rs_mt = wt.rs_mt;
-  a.rs_nt = wt.rs_nt;
-  a.n_splits_t = n_splits_t;
-  a.split_rows = split_rows;
-  a.split_batches = split_batches;
-  a.div_passes = fast_div(a.passes);
-  a.div_t = fast_div(T);
+  return launch(a, batch, T, C, C, K, dilation, last, n_splits_t, split_rows,
+                split_batches, stream);
+}
 
-  cudaError_t err;
-  if (pad) {
-    wn_bwd_any_pad_kernel<<<K * cp + cp, kThreads, 0, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  wn_bwd_any_prep_kernel<<<dim3(a.tiles_t, batch), kThreads, 0, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = opt_in_smem(wn_bwd_any_rows_kernel, kRowsSmem, &g_opted_in[0]);
-  if (err != cudaSuccess) return err;
-  wn_bwd_any_rows_kernel<<<dim3(a.tiles_t * a.passes, batch), kThreads,
-                           kRowsSmem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  // both opted in at the most bytes of any N, launched with their own N's
-  err = opt_in_smem(wn_bwd_any_dx_kernel, kSmemMax, &g_opted_in[1]);
-  if (err != cudaSuccess) return err;
-  wn_bwd_any_dx_kernel<<<dim3((a.rows + kTile - 1) / kTile, cp / a.dx_n),
-                         kThreads, nt_smem(a.dx_n), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = opt_in_smem(wn_bwd_any_weights_kernel, kSmemMax, &g_opted_in[2]);
-  if (err != cudaSuccess) return err;
-  const int ranges =
-      (batch + split_batches - 1) / split_batches * n_splits_t;
-  wn_bwd_any_weights_kernel<<<dim3(wt.count(), ranges), kThreads,
-                              nt_smem(wt.n), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int n_bias = 2 * C + a.n_rs;
-  const int n_w = K * C * 2 * C + C * a.n_rs;
-  const int blocks = (n_bias + kBiasCols - 1) / kBiasCols +
-                     (n_w + kThreads - 1) / kThreads;
-  wn_bwd_any_reduce_kernel<<<blocks, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+// The bf16 backward of one model rank's share of a layer at gate width G
+// (1 <= G <= C; wn_layer_any.cu's partial mode): the whole layer's kernels
+// with g [batch, T, n_rs] f32, the cotangent of the rank's partial, as drs
+// (no mask), nothing added to dx and no db_rs. Inputs: x [batch, T, C] f32;
+// cond_s [batch, T, 2G], w_in_s [K*C, 2G], w_rs_s [G, n_rs] bf16; b_in_s
+// [2G] f32. Outputs: dx [batch, T, C] f32 (the rank's partial dx), dcond
+// bf16 like cond_s, dw_in / dw_rs bf16 like the weights, db_in [2G] f32.
+// Scratch as wn_layer_backward_any_bf16's with Gp = G rounded up to 64 for
+// the gate's Cp: acts_p [R, Gp]; part_bias [tiles, 2Gp + n_rsp]; ws
+// [ranges, K*Cp*2Gp + Gp*n_rsp]; w_in_p [K*Cp, 2Gp] and w_rs_p [Gp, n_rsp]
+// where C != Cp or G != Gp, dg_p [R, 2Gp] where G != Gp (else null).
+cudaError_t wn_layer_shard_backward_any_bf16(
+    const float* x, const void* cond_s, const void* w_in_s,
+    const float* b_in_s, const void* w_rs_s, const float* g, float* dx,
+    void* dcond, void* dw_in, float* db_in, void* dw_rs, void* x_p,
+    void* g_p, void* w_in_p, void* w_rs_p, void* acts_p, void* dg_p,
+    float* part_bias, float* ws, int batch, int T, int C, int G, int K,
+    int dilation, int last, int n_splits_t, int split_rows,
+    int split_batches, cudaStream_t stream) {
+  if (g == nullptr) return cudaErrorInvalidValue;
+  BwdArgs a{};
+  a.x = x;
+  a.cond = static_cast<const bf16*>(cond_s);
+  a.w_in = static_cast<const bf16*>(w_in_s);
+  a.b_in = b_in_s;
+  a.w_rs = static_cast<const bf16*>(w_rs_s);
+  a.dx_next = nullptr;
+  a.drs_a = last ? nullptr : g;
+  a.drs_b = last ? g : g + C;
+  a.drs_ld = last ? C : 2 * C;
+  a.valid_t = nullptr;
+  a.dx = dx;
+  a.dcond = static_cast<bf16*>(dcond);
+  a.dw_in = static_cast<bf16*>(dw_in);
+  a.db_in = db_in;
+  a.dw_rs = static_cast<bf16*>(dw_rs);
+  a.db_rs = nullptr;
+  a.x_p = static_cast<bf16*>(x_p);
+  a.g_p = static_cast<bf16*>(g_p);
+  a.acts_p = static_cast<bf16*>(acts_p);
+  a.dg_p = static_cast<bf16*>(dg_p);
+  a.w_in_p = static_cast<bf16*>(w_in_p);
+  a.w_rs_p = static_cast<bf16*>(w_rs_p);
+  a.part_bias = part_bias;
+  a.ws = ws;
+  return launch(a, batch, T, C, G, K, dilation, last, n_splits_t, split_rows,
+                split_batches, stream);
 }
 
 // What the loaded build of kernel `which` (0 rows, 1 dx, 2 weights, 3
 // reduce, 4 prep, 5 pad) uses, from the CUDA runtime: registers and local
 // (spill) bytes per thread, static shared bytes, and the dynamic shared
-// bytes its launcher passes at width C.
-cudaError_t wn_layer_bwd_any_kernel_info(int which, int C, int* registers,
-                                         int* local_bytes,
-                                         int* static_smem_bytes,
-                                         int* dynamic_smem_bytes) {
-  if (C <= 0 || C % 2 != 0 || C > kMaxC) return cudaErrorInvalidValue;
-  const void* kernel = kernel_for(which, C, dynamic_smem_bytes);
+// bytes its launcher passes at width C and gate width G (G = C: the whole
+// layer's).
+cudaError_t wn_layer_shard_bwd_any_kernel_info(int which, int C, int G,
+                                               int* registers,
+                                               int* local_bytes,
+                                               int* static_smem_bytes,
+                                               int* dynamic_smem_bytes) {
+  if (bad_shape(C, G, 1)) return cudaErrorInvalidValue;
+  const void* kernel = kernel_for(which, C, G, dynamic_smem_bytes);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -1193,6 +1352,16 @@ cudaError_t wn_layer_bwd_any_kernel_info(int which, int C, int* registers,
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *static_smem_bytes = static_cast<int>(attr.sharedSizeBytes);
   return cudaSuccess;
+}
+
+// The whole layer's (G = C).
+cudaError_t wn_layer_bwd_any_kernel_info(int which, int C, int* registers,
+                                         int* local_bytes,
+                                         int* static_smem_bytes,
+                                         int* dynamic_smem_bytes) {
+  return wn_layer_shard_bwd_any_kernel_info(which, C, C, registers,
+                                            local_bytes, static_smem_bytes,
+                                            dynamic_smem_bytes);
 }
 
 }  // extern "C"

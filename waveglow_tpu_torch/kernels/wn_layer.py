@@ -30,21 +30,26 @@ launches the specialised kernels of ``csrc/wn_layer.cu`` (counted in
 ``LAUNCHES``), at every other shape (any even C up to ``ANY_MAX_C``, any
 odd K) the shape-generic kernel of ``csrc/wn_layer_any.cu`` through
 ``wn_layer_any`` (counted in ``ANY_LAUNCHES``); ``specialised`` is the
-choice. The specialised backward and the shard kernel are built for the
-widths ``kernel_widths()`` at K = 3 (the shard kernel for
-``shard_pairs()``), and ``check_width`` refuses any other on the card; the
-shape-generic backward takes every shape the generic forward takes.
+choice. The specialised backward and the shard kernels are built for the
+widths ``kernel_widths()`` at K = 3 (the shard kernels for
+``shard_pairs()``), and ``check_width`` refuses any other when they are
+called directly; the shape-generic backward takes every shape the generic
+forward takes.
 
 ``wn_layer_shard`` is one model rank's share of a layer on a ``model``
-mesh axis (in f32 ``csrc/wn_layer_shard.cu``; in bf16 the wgmma kernels of
-``csrc/wn_layer.cu``: below C = 512 the one rank kernel, at (256, 128) and
-C = 512 a gate and a res/skip kernel, at C = 512 after its rounding of x;
-all built into the same library): the same conv, gate and res/skip
-product over C' = C / model of the gate channels, giving the rank's
-partial res/skip sum without b_rs and the residual, which
-``models.wn.wn_forward_tp`` adds after the ranks' reduce.
-It runs ``wn_layer_shard_plain`` for CPU tensors and the kernel, or
-raises, for CUDA tensors; ``SHARD_LAUNCHES`` counts its launches.
+mesh axis: the same conv, gate and res/skip product over C' = C / model
+of the gate channels, giving the rank's partial res/skip sum without b_rs
+and the residual, which ``models.wn.wn_forward_tp`` adds after the ranks'
+reduce. At K = 3 and a pair of ``shard_pairs()`` (``shard_specialised``)
+it launches the specialised rank kernels (in f32 ``csrc/wn_layer_shard.cu``;
+in bf16 the wgmma kernels of ``csrc/wn_layer.cu``: below C = 512 the one
+rank kernel, at (256, 128) and C = 512 a gate and a res/skip kernel, at
+C = 512 after its rounding of x; counted in ``SHARD_LAUNCHES``), at every
+other shape (any odd K, any even C up to ``ANY_MAX_C``, any C') the
+shape-generic kernels of ``csrc/wn_layer_any.cu`` in partial mode through
+``wn_layer_shard_any`` (counted in ``ANY_SHARD_LAUNCHES``). It runs
+``wn_layer_shard_plain`` for CPU tensors and a kernel, or raises, for
+CUDA tensors.
 
 ``wn_layer_trainable`` is the differentiable layer (counterpart of the JAX
 package's custom-VJP ``wn_layer_trainable``): its forward is
@@ -64,9 +69,11 @@ CPU by ``wn_layer_backward``, which is also both bf16 backwards' yardstick.
 ``model`` mesh axis: its forward is ``wn_layer_shard``; its backward gives
 the rank's adjoints and its partial dx, in bf16 on the card by the four
 kernels of ``csrc/wn_layer_bwd.cu`` (``wn_layer_shard_backward_fused``,
-counted in ``SHARD_BWD_LAUNCHES``), otherwise by torch ops
-(``wn_layer_shard_backward``, the CPU path, the f32 route and the kernel's
-yardstick).
+counted in ``SHARD_BWD_LAUNCHES``) where ``shard_specialised`` holds and
+by those of ``csrc/wn_layer_bwd_any.cu`` at the rank's gate width
+(``wn_layer_shard_backward_any``, counted in ``ANY_SHARD_BWD_LAUNCHES``)
+at every other shape, otherwise by torch ops (``wn_layer_shard_backward``,
+the CPU path, the f32 route and both kernels' yardstick).
 """
 
 from __future__ import annotations
@@ -92,6 +99,8 @@ SHARD_LAUNCHES = 0
 SHARD_BWD_LAUNCHES = 0
 ANY_LAUNCHES = 0
 ANY_BWD_LAUNCHES = 0
+ANY_SHARD_LAUNCHES = 0
+ANY_SHARD_BWD_LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "wn_layer.cu", CSRC / "wn_layer_bwd.cu",
@@ -140,6 +149,16 @@ def specialised(c: int, k: int) -> bool:
   kernels of ``csrc/wn_layer.cu`` (K = 3 at a width of ``kernel_widths()``)
   rather than the shape-generic one of ``csrc/wn_layer_any.cu``."""
   return k == 3 and c in _WIDTHS
+
+
+def shard_specialised(c: int, cp: int, k: int) -> bool:
+  """Whether a model rank's share at width ``c``, ``cp`` gate channels and
+  ``k`` taps runs the specialised rank kernels (``csrc/wn_layer_shard.cu``
+  in f32, the wgmma kernels of ``csrc/wn_layer.cu`` in bf16, the rank's
+  backward of ``csrc/wn_layer_bwd.cu``: K = 3 at a pair of
+  ``shard_pairs()``) rather than the shape-generic ones of
+  ``csrc/wn_layer_any.cu`` and ``csrc/wn_layer_bwd_any.cu``."""
+  return k == 3 and (c, cp) in shard_pairs()
 
 
 def check_width(c: int, cp: Optional[int] = None) -> None:
@@ -273,6 +292,12 @@ SIGNATURES = {
     "wn_layer_backward_any_bf16": [_P] * 22 + [_I] * 9 + [_P],
     "wn_layer_bwd_any_kernel_info": [_I] * 2 + [_IP] * 4,
     "wn_layer_bwd_any_weight_tiles": [_I] * 3,
+    "wn_layer_shard_any_forward": [_P] * 10 + [_I] * 8 + [_P],
+    "wn_layer_shard_any_schedule": [_I] * 6 + [_IP] * 4,
+    "wn_layer_shard_any_kernel_info": [_I] * 5 + [_IP] * 4,
+    "wn_layer_shard_backward_any_bf16": [_P] * 19 + [_I] * 10 + [_P],
+    "wn_layer_shard_bwd_any_kernel_info": [_I] * 3 + [_IP] * 4,
+    "wn_layer_shard_bwd_any_weight_tiles": [_I] * 4,
 }
 
 
@@ -323,13 +348,17 @@ ANY_FWD_KERNELS = ("layer", "gate", "prep")
 
 
 def any_kernel_info(bf16: bool, last: bool, channels: int = 256,
-                    kernel: str = "layer") -> dict:
+                    kernel: str = "layer", cp: Optional[int] = None) -> dict:
   """:func:`kernel_info` for one kernel of ``ANY_FWD_KERNELS`` of the
   shape-generic forward (``csrc/wn_layer_any.cu``) in one mode (f32 has no
   "gate"), its dynamic shared bytes those its launcher passes at width
-  ``channels``."""
-  return _info(_library().wn_layer_any_kernel_info, channels, int(bf16),
-               ANY_FWD_KERNELS.index(kernel), int(last))
+  ``channels``; with ``cp``, of a model rank's call holding ``cp`` gate
+  channels (its "layer" kernel the partial-mode instance)."""
+  if cp is None:
+    return _info(_library().wn_layer_any_kernel_info, channels, int(bf16),
+                 ANY_FWD_KERNELS.index(kernel), int(last))
+  return _info(_library().wn_layer_shard_any_kernel_info, channels, cp,
+               int(bf16), ANY_FWD_KERNELS.index(kernel), int(last))
 
 
 # The shape-generic bf16 backward's kernels (``csrc/wn_layer_bwd_any.cu``),
@@ -338,13 +367,18 @@ def any_kernel_info(bf16: bool, last: bool, channels: int = 256,
 ANY_BWD_KERNELS = ("rows", "dx", "weights", "reduce", "prep", "pad")
 
 
-def any_bwd_kernel_info(kernel: str, channels: int = 256) -> dict:
+def any_bwd_kernel_info(kernel: str, channels: int = 256,
+                        cp: Optional[int] = None) -> dict:
   """:func:`kernel_info` for one kernel of ``ANY_BWD_KERNELS`` of the
   shape-generic bf16 backward, its dynamic shared bytes those its launcher
   passes at width ``channels`` (the dx and weights kernels' rings hold
-  tiles :func:`any_bwd_dx_tile` and :func:`any_bwd_n_tile` wide)."""
-  return _info(_library().wn_layer_bwd_any_kernel_info,
-               ANY_BWD_KERNELS.index(kernel), channels)
+  tiles :func:`any_bwd_dx_tile` and :func:`any_bwd_n_tile` wide); with
+  ``cp``, at a model rank's ``cp`` gate channels (the same kernels)."""
+  if cp is None:
+    return _info(_library().wn_layer_bwd_any_kernel_info,
+                 ANY_BWD_KERNELS.index(kernel), channels)
+  return _info(_library().wn_layer_shard_bwd_any_kernel_info,
+               ANY_BWD_KERNELS.index(kernel), channels, cp)
 
 
 def f32_rest_kernel_info(last: bool) -> dict:
@@ -718,14 +752,18 @@ def wn_layer_fused(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
 
 
 # The shape-generic forward's plan (csrc/wn_layer_any.cu): operands padded
-# to Cp = C rounded up to ANY_PAD channels; channels in passes of ANY_PASS
-# (the last one ANY_PAD when Cp is not a multiple of ANY_PASS); the bf16
+# to Cp = C rounded up to ANY_PAD channels (and a model rank's C' gate
+# channels to Gp, likewise); channels in passes of ANY_PASS
+# (the last one ANY_PAD when Cp is not a multiple of ANY_PASS): the gate's
+# over Gp, the res/skip product's over Cp; the bf16
 # gate and res/skip kernels' units of ANY_TILE_ROWS flat rows (AnyWide::
 # kTile); the f32 layer kernel's tiles of ANY_F32_TILE_ROWS (AnyF32::
-# kTileRows; twice that at Cp = ANY_PAD, where a pass is ANY_PAD channels)
-# over a block's share of the rows, a multiple of F32_ROW_QUANTUM, a last
-# tile of ANY_REST_ROWS rows or fewer running its passes at once where
-# there are ANY_REST_PASSES of them (AnyF32::kRestRows, kRestPasses).
+# kTileRows; twice that, in passes of ANY_PAD channels, at Gp = ANY_PAD:
+# any_f32_two)
+# over a block's share of the rows, a multiple of F32_ROW_QUANTUM, the
+# whole layer's last tile of ANY_REST_ROWS rows or fewer running its passes
+# at once where there are ANY_REST_PASSES of them (AnyF32::kRestRows,
+# kRestPasses).
 ANY_PAD = 64
 ANY_PASS = 128
 ANY_TILE_ROWS = 128
@@ -745,87 +783,126 @@ def any_passes(c: int) -> int:
   return -(-any_cp(c) // ANY_PASS)
 
 
-def any_f32_tiles(n: int, c: int) -> list:
+def any_f32_two(c: int, cp: Optional[int] = None) -> bool:
+  """Whether an f32 generic call at width ``c`` (a rank's: ``cp`` gate
+  channels) runs the instance with tiles of twice ANY_F32_TILE_ROWS and
+  passes of ANY_PAD channels: at Gp = ANY_PAD (Gp: C' or C rounded up)."""
+  return any_cp(c if cp is None else cp) == ANY_PAD
+
+
+def any_f32_tiles(n: int, c: int, cp: Optional[int] = None) -> list:
   """The tiles of an f32 generic block holding ``n`` flat rows at width
-  ``c``, as (first row, rows, passes run at once), in the order they run:
-  tiles of ANY_F32_TILE_ROWS (twice that at Cp = ANY_PAD; the last one
-  short), their passes one after another, except a last tile of
-  ANY_REST_ROWS rows or fewer at ANY_REST_PASSES passes, which runs them
-  at once (a "rest tile")."""
-  size = ANY_F32_TILE_ROWS * (2 if any_cp(c) == ANY_PAD else 1)
+  ``c`` (a rank's ``cp`` gate channels; None: the whole layer), as (first
+  row, rows, passes run at once), in the order they run: tiles of
+  ANY_F32_TILE_ROWS (twice that where :func:`any_f32_two`; the last one
+  short), their passes one after another, except, in the whole layer, a
+  last tile of ANY_REST_ROWS rows or fewer at ANY_REST_PASSES passes,
+  which runs them at once (a "rest tile"; a rank's gate and res/skip
+  product have two passes each only at C' = C, and its instance takes
+  none)."""
+  size = ANY_F32_TILE_ROWS * (2 if any_f32_two(c, cp) else 1)
   passes = any_passes(c)
   out = [(r, min(size, n - r), 1) for r in range(0, n, size)]
   first, rows, _ = out[-1]
-  if passes == ANY_REST_PASSES and rows <= ANY_REST_ROWS:
+  if cp is None and passes == ANY_REST_PASSES and rows <= ANY_REST_ROWS:
     out[-1] = (first, rows, passes)
   return out
 
 
-def any_kernels(bf16: bool, c: int) -> Tuple[str, ...]:
-  """The kernels a generic forward call at width ``c`` launches, in order:
-  "prep" (in bf16 always: x rounded once; in f32 where C is not a multiple
-  of ANY_PAD), then "gate" and "layer" (the res/skip kernel) in bf16, or
-  "layer" (the whole layer) in f32."""
+def any_kernels(bf16: bool, c: int, cp: Optional[int] = None
+                ) -> Tuple[str, ...]:
+  """The kernels a generic forward call at width ``c`` (a rank's ``cp``
+  gate channels) launches, in order: "prep" (in bf16 always: x rounded
+  once; in f32 where C or C' is not a multiple of ANY_PAD), then "gate"
+  and "layer" (the res/skip kernel) in bf16, or "layer" (the whole layer,
+  or the rank's share) in f32."""
   if bf16:
     return ("prep", "gate", "layer")
-  return (("prep",) if c % ANY_PAD else ()) + ("layer",)
+  pad = c % ANY_PAD or (cp is not None and cp % ANY_PAD)
+  return (("prep",) if pad else ()) + ("layer",)
 
 
-def any_grid(batch: int, t: int, c: int, bf16: bool, slots: int) -> dict:
+def any_grid(batch: int, t: int, c: int, bf16: bool, slots: int,
+             cp: Optional[int] = None) -> dict:
   """The grid of a generic forward call for ``batch`` x ``t`` rows at width
-  ``c`` on a device holding ``slots`` blocks of its product kernels at
-  once, as the launcher picks it. bf16: the flat B*T rows in ``tiles`` of
-  ANY_TILE_ROWS (the last one short); a unit is (tile, pass), unit u =
-  tile * passes + pass; the gate and res/skip kernels each run
-  min(units, slots) blocks, block b taking units b, b + blocks, ...
-  (:func:`block_units`). f32: one wave, block b taking the flat rows
-  [b * rows_per_block, (b + 1) * rows_per_block), an equal share rounded up
-  to F32_ROW_QUANTUM, in the tiles of :func:`any_f32_tiles`."""
-  rows, passes = batch * t, any_passes(c)
+  ``c`` (a rank's: ``cp`` gate channels) on a device holding ``slots``
+  blocks of its product kernels at once, as the launcher picks it. bf16:
+  the flat B*T rows in ``tiles`` of ANY_TILE_ROWS (the last one short); a
+  unit is (tile, pass), unit u = tile * passes + pass; the res/skip kernel
+  runs min(units, slots) blocks over its ``passes`` of the Cp output
+  channels, the gate kernel min(gate_units, slots) over its
+  ``gate_passes`` of the Gp gate channels, block b taking units b, b +
+  blocks, ... (:func:`block_units`). f32: one wave, block b taking the flat
+  rows [b * rows_per_block, (b + 1) * rows_per_block), an equal share
+  rounded up to F32_ROW_QUANTUM, in the tiles of :func:`any_f32_tiles`;
+  where :func:`any_f32_two` its passes are ANY_PAD channels."""
+  gate = c if cp is None else cp
+  rows, passes, gate_passes = batch * t, any_passes(c), any_passes(gate)
+  if not bf16 and any_f32_two(c, cp):
+    passes = any_cp(c) // ANY_PAD
   out = {"slots": slots, "cp": any_cp(c), "passes": passes}
+  if cp is not None:
+    out.update(gp=any_cp(cp), gate_passes=gate_passes)
   if bf16:
     tiles = -(-rows // ANY_TILE_ROWS)
+    if cp is not None:
+      out.update(gate_units=tiles * gate_passes,
+                 gate_blocks=min(tiles * gate_passes, slots))
     return {**out, "tiles": tiles, "units": tiles * passes,
             "blocks": min(tiles * passes, slots),
             "rows_per_block": ANY_TILE_ROWS}
   per = -(-(-(-rows // slots)) // F32_ROW_QUANTUM) * F32_ROW_QUANTUM
-  tiles = any_f32_tiles(per, c)
+  tiles = any_f32_tiles(per, c, cp)
   return {**out, "rows_per_block": per, "blocks": -(-rows // per),
           "tiles_per_block": len(tiles), "rest_tile": tiles[-1][2] > 1}
 
 
 def any_schedule(batch: int, t: int, c: int, bf16: bool,
-                 last: bool = False) -> dict:
+                 last: bool = False, cp: Optional[int] = None) -> dict:
   """:func:`any_grid`'s slots, blocks and rows a block as the loaded
   library computes them on the current card (slots from the occupancy
-  API)."""
-  vals = [ctypes.c_int() for _ in range(3)]
-  err = _library().wn_layer_any_schedule(c, batch, t, int(bf16), int(last),
-                                         *[ctypes.byref(v) for v in vals])
+  API); with ``cp``, a rank's, its gate kernel's blocks apart."""
+  lib = _library()
+  if cp is None:
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = lib.wn_layer_any_schedule(c, batch, t, int(bf16), int(last),
+                                    *[ctypes.byref(v) for v in vals])
+  else:
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.wn_layer_shard_any_schedule(c, cp, batch, t, int(bf16),
+                                          int(last),
+                                          *[ctypes.byref(v) for v in vals])
   if err != 0:
-    raise RuntimeError(f"the generic schedule of C={c} failed: "
+    raise RuntimeError(f"the generic schedule of C={c}, C'={cp} failed: "
                        f"cudaError {err}")
-  slots, blocks, per = (v.value for v in vals)
-  return {"slots": slots, "blocks": blocks, "rows_per_block": per}
+  if cp is None:
+    slots, blocks, per = (v.value for v in vals)
+    return {"slots": slots, "blocks": blocks, "rows_per_block": per}
+  slots, gate_blocks, blocks, per = (v.value for v in vals)
+  return {"slots": slots, "gate_blocks": gate_blocks, "blocks": blocks,
+          "rows_per_block": per}
 
 
 def any_scratch(batch: int, t: int, c: int, k: int, last: bool,
-                bf16: bool) -> dict:
+                bf16: bool, cp: Optional[int] = None) -> dict:
   """The generic forward's scratch as one allocation, in the compute
-  dtype's element (bf16, or f32): the acts [R, Cp], which the gate writes
+  dtype's element (bf16, or f32): the acts [R, Gp] (Gp: a rank's ``cp``
+  gate channels, else C, rounded up to ANY_PAD), which the gate writes
   and the res/skip product reads; x_p [R, Cp] (the taps' operand: x
   rounded in bf16, x padded in f32) in bf16 or where C is not a multiple
-  of ANY_PAD; and there the padded weights w_in_p [K*Cp, 2Cp] and w_rs_p
-  [Cp, n_rsp] (n_rsp = 2Cp, the last layer's Cp). Byte ``offsets`` (each
-  256-byte aligned), ``sizes`` and the total ``bytes``. R = B*T."""
-  cp, rows, size = any_cp(c), batch * t, 2 if bf16 else 4
-  pad = cp != c
-  sizes = {"acts": rows * cp * size}
-  if bf16 or pad:
-    sizes["x_p"] = rows * cp * size
-  if pad:
-    sizes["w_in_p"] = k * cp * 2 * cp * size
-    sizes["w_rs_p"] = cp * (cp if last else 2 * cp) * size
+  of ANY_PAD; and where C or C' is not, the padded weights w_in_p [K*Cp,
+  2Gp] and w_rs_p [Gp, n_rsp] (n_rsp = 2Cp, the last layer's Cp). Byte
+  ``offsets`` (each 256-byte aligned), ``sizes`` and the total ``bytes``.
+  R = B*T."""
+  gate = c if cp is None else cp
+  cpad, gp, rows, size = any_cp(c), any_cp(gate), batch * t, 2 if bf16 else 4
+  pad_x = cpad != c
+  sizes = {"acts": rows * gp * size}
+  if bf16 or pad_x:
+    sizes["x_p"] = rows * cpad * size
+  if pad_x or gp != gate:
+    sizes["w_in_p"] = k * cpad * 2 * gp * size
+    sizes["w_rs_p"] = gp * (cpad if last else 2 * cpad) * size
   offsets, end = {}, 0
   for name, n in sizes.items():
     offsets[name] = end
@@ -910,26 +987,29 @@ def wn_layer_shard_plain(x: torch.Tensor, cond_s: torch.Tensor,
   the shard kernel's yardstick.
 
   x [B, T, C] f32 (every input channel); cond_s [B, T, 2C'] (bias added);
-  w_in_s [3, C, 2C'] (or [3, C, 2, C']), tanh columns of the rank's C'
-  channels then sigmoid columns; b_in_s [2C']; w_rs_s [C', 2C] or [C', C]
-  (last layer). Returns the f32 partial ``acts @ w_rs_s`` [B, T, 2C] (or
-  [B, T, C]): no ``b_rs``, no residual, no row mask; summed over the ranks
-  it is the full layer's ``rs - b_rs``. ``compute_dtype=torch.bfloat16``
-  rounds the same operands as :func:`wn_layer_plain` does. f64 inputs stay
-  f64 (``torch.autograd.gradcheck``).
+  w_in_s [K, C, 2C'] (or [K, C, 2, C'], or [K*C, 2C']) for any odd K, tanh
+  columns of the rank's C' channels then sigmoid columns; b_in_s [2C'];
+  w_rs_s [C', 2C] or [C', C] (last layer). Returns the f32 partial ``acts
+  @ w_rs_s`` [B, T, 2C] (or [B, T, C]): no ``b_rs``, no residual, no row
+  mask; summed over the ranks it is the full layer's ``rs - b_rs``.
+  ``compute_dtype=torch.bfloat16`` rounds the same operands as
+  :func:`wn_layer_plain` does. f64 inputs stay f64
+  (``torch.autograd.gradcheck``).
   """
   batch, t, c = x.shape
   cp = b_in_s.numel() // 2
+  k = w_in_s.numel() // (c * 2 * cp)
   wide = _wide(x)
 
   def operand(v):
     return v.to(wide) if compute_dtype is None else v.to(compute_dtype).float()
 
   xm = operand(x)
-  w_in_s = operand(w_in_s).reshape(3, c, 2 * cp)
+  w_in_s = operand(w_in_s).reshape(k, c, 2 * cp)
   pre = None
-  for tap in range(3):
-    term = torch.matmul(shift_time(xm, (tap - 1) * dilation), w_in_s[tap])
+  for tap in range(k):
+    term = torch.matmul(shift_time(xm, (tap - k // 2) * dilation),
+                        w_in_s[tap])
     pre = term if pre is None else pre + term
   gates = (pre + b_in_s.reshape(-1).to(wide)
            + operand(cond_s).reshape(batch, t, 2 * cp))
@@ -942,6 +1022,37 @@ def _wide(x: torch.Tensor) -> torch.dtype:
   return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def _shard_shape(x: torch.Tensor, w_in_s: torch.Tensor,
+                 b_in_s: torch.Tensor) -> Tuple[int, int, int]:
+  """(C, C', K) of a rank's share on the card: x [B, T, C] on a CUDA
+  device, b_in_s [2C'], w_in_s [K*C, 2C'] (any view); raises on any
+  other device or rank of x."""
+  if x.device.type != "cuda":
+    raise ValueError(f"the shard kernels need CUDA tensors, got {x.device}")
+  if x.dim() != 3:
+    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
+  c, cp = x.shape[-1], b_in_s.numel() // 2
+  return c, cp, w_in_s.numel() // max(c * 2 * cp, 1)
+
+
+def _check_shard_any(c: int, cp: int, k: int, w_in_s: torch.Tensor,
+                     wdt) -> None:
+  """Raise ``ValueError`` unless the generic rank kernels take the shape:
+  C even and at most ``ANY_MAX_C[wdt]``, 1 <= C' <= C, w_in_s [K*C, 2C']
+  for an odd K."""
+  if wdt not in ANY_MAX_C:
+    raise ValueError(f"unsupported compute dtype {wdt}")
+  if c % 2 or not 0 < c <= ANY_MAX_C[wdt]:
+    raise ValueError(f"the shape-generic rank kernels take an even C of at "
+                     f"most {ANY_MAX_C[wdt]} in {wdt}, got C = {c}")
+  if not 0 < cp <= c:
+    raise ValueError(f"a rank holds 1 to C = {c} gate channels, got "
+                     f"C' = {cp}")
+  if k % 2 != 1 or w_in_s.numel() != k * c * 2 * cp:
+    raise ValueError(f"w_in_s: {tuple(w_in_s.shape)} is not [K*{c}, "
+                     f"{2 * cp}] for an odd K")
+
+
 def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
                    w_in_s: torch.Tensor, b_in_s: torch.Tensor,
                    w_rs_s: torch.Tensor, dilation: int,
@@ -949,27 +1060,27 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   """One model rank's share of a layer; same contract as
   :func:`wn_layer_shard_plain`.
 
-  CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
-  shard kernels (in f32 the FFMA kernel of ``csrc/wn_layer_shard.cu``; in
-  bf16 the wgmma kernels of ``csrc/wn_layer.cu`` at gate width C',
-  :func:`wide_kernels`), which take: x f32 [B, T, C];
-  cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when None); b_in_s
-  f32; (C, C') one of ``shard_pairs()``. Anything else raises; it never
-  falls back to the plain version. ``SHARD_LAUNCHES`` counts the calls
-  that launched.
+  CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch a
+  kernel: at K = 3 and a pair of ``shard_pairs()``
+  (:func:`shard_specialised`) the specialised shard kernels (in f32 the
+  FFMA kernel of ``csrc/wn_layer_shard.cu``; in bf16 the wgmma kernels of
+  ``csrc/wn_layer.cu`` at gate width C', :func:`wide_kernels`), which
+  take: x f32 [B, T, C]; cond_s, w_in_s [3*C, 2C'], w_rs_s in
+  ``compute_dtype`` (f32 when None); b_in_s f32. Every other shape goes
+  to :func:`wn_layer_shard_any`. Anything else raises; it never falls
+  back to the plain version. ``SHARD_LAUNCHES`` counts the calls that
+  launched the specialised kernels.
   """
   global SHARD_LAUNCHES
   if x.device.type == "cpu":
     return wn_layer_shard_plain(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
                                 compute_dtype=compute_dtype)
-  if x.device.type != "cuda":
-    raise ValueError(f"unsupported device {x.device}")
+  c, cp, k = _shard_shape(x, w_in_s, b_in_s)
+  if not shard_specialised(c, cp, k):
+    return wn_layer_shard_any(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+                              compute_dtype=compute_dtype)
   dev = x.device
-  if x.dim() != 3:
-    raise ValueError(f"x: expected [B, T, C], got {tuple(x.shape)}")
-  batch, t, c = x.shape
-  cp = b_in_s.numel() // 2
-  check_width(c, cp)
+  batch, t, _ = x.shape
   last = w_rs_s.numel() == cp * c
   n_rs = c if last else 2 * c
   wdt = compute_dtype or torch.float32
@@ -1004,6 +1115,69 @@ def wn_layer_shard(x: torch.Tensor, cond_s: torch.Tensor,
   if err != 0:
     raise RuntimeError(f"wn_layer shard kernel launch failed: cudaError {err}")
   SHARD_LAUNCHES += 1
+  return out
+
+
+def wn_layer_shard_any(x: torch.Tensor, cond_s: torch.Tensor,
+                       w_in_s: torch.Tensor, b_in_s: torch.Tensor,
+                       w_rs_s: torch.Tensor, dilation: int,
+                       compute_dtype=None) -> torch.Tensor:
+  """One model rank's share of a layer at any shape, through the
+  shape-generic kernels of ``csrc/wn_layer_any.cu`` in partial mode; same
+  contract as :func:`wn_layer_shard_plain`.
+
+  CPU tensors run :func:`wn_layer_shard_plain`. CUDA tensors launch the
+  kernels of :func:`any_kernels` at the rank's gate width, which take: x
+  f32 [B, T, C] with C even and at most ``ANY_MAX_C[compute dtype]``;
+  1 <= C' <= C gate channels; w_in_s [K*C, 2C'] (any view) for any odd K;
+  cond_s, w_in_s, w_rs_s in ``compute_dtype`` (f32 when None); b_in_s f32.
+  Anything else raises; it never falls back to the plain version. The
+  scratch (:func:`any_scratch` at ``cp``) is allocated here.
+  :func:`wn_layer_shard` calls it at every shape but the specialised
+  kernels'; called directly it runs those too. ``ANY_SHARD_LAUNCHES``
+  counts its calls, one a call whatever the kernels it launches.
+  """
+  global ANY_SHARD_LAUNCHES
+  if x.device.type == "cpu":
+    return wn_layer_shard_plain(x, cond_s, w_in_s, b_in_s, w_rs_s, dilation,
+                                compute_dtype=compute_dtype)
+  c, cp, k = _shard_shape(x, w_in_s, b_in_s)
+  wdt = compute_dtype or torch.float32
+  _check_shard_any(c, cp, k, w_in_s, wdt)
+  if dilation < 0:
+    raise ValueError(f"dilation must be >= 0, got {dilation}")
+  batch, t, _ = x.shape
+  if batch * t >= 2 ** 31:
+    raise ValueError(f"the kernels take B*T < 2**31 rows, got {batch * t}")
+  dev = x.device
+  last = w_rs_s.numel() == cp * c
+  n_rs = c if last else 2 * c
+  _check("x", x, torch.float32, (batch, t, c), dev)
+  _check("cond_s", cond_s, wdt, (batch, t, 2 * cp), dev)
+  _check("w_in_s", w_in_s, wdt, (k * c, 2 * cp), dev)
+  _check("b_in_s", b_in_s, torch.float32, (2 * cp,), dev)
+  _check("w_rs_s", w_rs_s, wdt, (cp * n_rs,), dev)
+  bf16 = wdt == torch.bfloat16
+  out = torch.empty((batch, t, n_rs), dtype=torch.float32, device=dev)
+  plan = any_scratch(batch, t, c, k, last, bf16, cp)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+
+  def part(name):
+    off = plan["offsets"].get(name)
+    return None if off is None else scratch.data_ptr() + off
+
+  lib = _library()
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_shard_any_forward(
+        x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+        b_in_s.data_ptr(), w_rs_s.data_ptr(), out.data_ptr(), part("acts"),
+        part("x_p"), part("w_in_p"), part("w_rs_p"), batch, t, c, cp, k,
+        int(dilation), int(bf16), int(last),
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer_shard_any kernel launch failed: "
+                       f"cudaError {err}")
+  ANY_SHARD_LAUNCHES += 1
   return out
 
 
@@ -1215,12 +1389,13 @@ ANY_BWD_TILE_ROWS = 128
 ANY_BWD_PASS = 64
 
 
-def any_bwd_kernels(c: int) -> Tuple[str, ...]:
-  """The kernels a generic backward call at width ``c`` launches, in order:
-  "pad" where C is not a multiple of ANY_PAD (elsewhere the weights and
-  dcond are read as they lie), then "prep", "rows", "dx", "weights",
-  "reduce"."""
-  return (("pad",) if c % ANY_PAD else ()) + (
+def any_bwd_kernels(c: int, cp: Optional[int] = None) -> Tuple[str, ...]:
+  """The kernels a generic backward call at width ``c`` (a rank's: ``cp``
+  gate channels) launches, in order: "pad" where C or C' is not a
+  multiple of ANY_PAD (elsewhere the weights and dcond are read as they
+  lie), then "prep", "rows", "dx", "weights", "reduce"."""
+  pad = c % ANY_PAD or (cp is not None and cp % ANY_PAD)
+  return (("pad",) if pad else ()) + (
       "prep", "rows", "dx", "weights", "reduce")
 
 
@@ -1239,16 +1414,21 @@ def any_bwd_dx_tile(c: int) -> int:
   return next(n for n in (192, 128, 64) if cp % n == 0)
 
 
-def any_bwd_weight_tiles(c: int, k: int, last: bool) -> int:
+def any_bwd_weight_tiles(c: int, k: int, last: bool,
+                         cp: Optional[int] = None) -> int:
   """The output tiles of the generic backward's weights kernel, as the
-  library's ``wn_layer_bwd_any_weight_tiles`` counts them: dw_in_p [K*Cp,
-  2Cp] in tiles of ANY_BWD_TILE_ROWS rows (the last one short where K*Cp
-  is an odd number of 64s) x :func:`any_bwd_n_tile` columns, then dw_rs_p^T
-  [n_rsp, Cp] likewise (n_rsp = 2Cp, the last layer's Cp)."""
-  cp, n = any_cp(c), any_bwd_n_tile(c)
-  n_rsp = cp if last else 2 * cp
+  library's ``wn_layer_bwd_any_weight_tiles`` (a rank's:
+  ``wn_layer_shard_bwd_any_weight_tiles``) counts them: dw_in_p [K*Cp,
+  2Gp] in tiles of ANY_BWD_TILE_ROWS rows (the last one short where K*Cp
+  is an odd number of 64s) x :func:`any_bwd_n_tile` (of Gp) columns, then
+  dw_rs_p^T [n_rsp, Gp] likewise (n_rsp = 2Cp, the last layer's Cp; Gp a
+  rank's ``cp`` gate channels, else C, rounded up to ANY_PAD)."""
+  cpad = any_cp(c)
+  gp = any_cp(c if cp is None else cp)
+  n = any_bwd_n_tile(gp)
+  n_rsp = cpad if last else 2 * cpad
   m = ANY_BWD_TILE_ROWS
-  return -(-k * cp // m) * (2 * cp // n) + -(-n_rsp // m) * (cp // n)
+  return -(-k * cpad // m) * (2 * gp // n) + -(-n_rsp // m) * (gp // n)
 
 
 def any_bwd_splits(batch: int, t: int, tiles: int,
@@ -1275,27 +1455,31 @@ def any_bwd_ranges(batch: int, split_batches: int, n_splits_t: int) -> int:
 
 
 def any_bwd_scratch(batch: int, t: int, c: int, k: int, last: bool,
-                    ranges: int) -> dict:
+                    ranges: int, cp: Optional[int] = None) -> dict:
   """The shape-generic backward's scratch as one allocation: byte
   ``offsets`` (each 256-byte aligned), ``sizes`` and the total ``bytes`` of
-  its operands in layouts padded to Cp = C rounded up to 64 channels (zero
-  past C): bf16 x_p [R, Cp], g_p (drs) [R, n_rsp] and acts_p [R, Cp]; the
-  f32 column sums of each 128-row tile, part_bias [B*tiles, 2Cp + n_rsp]
+  its operands in layouts padded to Cp = C rounded up to 64 channels and
+  Gp (a rank's ``cp`` gate channels, else C) likewise, zero past C and C':
+  bf16 x_p [R, Cp], g_p (drs) [R, n_rsp] and acts_p [R, Gp]; the f32
+  column sums of each 128-row tile, part_bias [B*tiles, 2Gp + n_rsp]
   (dgates', then drs'); the weights kernel's f32 partials ws [ranges,
-  K*Cp*2Cp + Cp*n_rsp], a slot a range of its cut (:func:`any_bwd_splits`);
-  and where C is not a multiple of 64 the padded w_in_p [K*Cp, 2Cp], w_rs_p
-  [Cp, n_rsp] and dgates dg_p [R, 2Cp] (elsewhere the kernels read w_in,
-  w_rs and dcond as they lie). R = B*T; n_rsp = 2Cp, the last layer's Cp."""
-  cp = any_cp(c)
-  n_rsp = cp if last else 2 * cp
+  K*Cp*2Gp + Gp*n_rsp], a slot a range of its cut (:func:`any_bwd_splits`);
+  where C or C' is not a multiple of 64 the padded w_in_p [K*Cp, 2Gp] and
+  w_rs_p [Gp, n_rsp], and where C' is not the dgates dg_p [R, 2Gp]
+  (elsewhere the kernels read w_in, w_rs and dcond as they lie). R = B*T;
+  n_rsp = 2Cp, the last layer's Cp."""
+  gate = c if cp is None else cp
+  cpad, gp = any_cp(c), any_cp(gate)
+  n_rsp = cpad if last else 2 * cpad
   rows = batch * t
   tiles = batch * -(-t // ANY_BWD_TILE_ROWS)
-  sizes = {"x_p": rows * cp * 2, "g_p": rows * n_rsp * 2,
-           "acts_p": rows * cp * 2, "part_bias": tiles * (2 * cp + n_rsp) * 4,
-           "ws": ranges * (k * cp * 2 * cp + cp * n_rsp) * 4}
-  if cp != c:
-    sizes.update(w_in_p=k * cp * 2 * cp * 2, w_rs_p=cp * n_rsp * 2,
-                 dg_p=rows * 2 * cp * 2)
+  sizes = {"x_p": rows * cpad * 2, "g_p": rows * n_rsp * 2,
+           "acts_p": rows * gp * 2, "part_bias": tiles * (2 * gp + n_rsp) * 4,
+           "ws": ranges * (k * cpad * 2 * gp + gp * n_rsp) * 4}
+  if cpad != c or gp != gate:
+    sizes.update(w_in_p=k * cpad * 2 * gp * 2, w_rs_p=gp * n_rsp * 2)
+  if gp != gate:
+    sizes.update(dg_p=rows * 2 * gp * 2)
   offsets, end = {}, 0
   for name, size in sizes.items():
     offsets[name] = end
@@ -1305,17 +1489,21 @@ def any_bwd_scratch(batch: int, t: int, c: int, k: int, last: bool,
 
 @functools.lru_cache(maxsize=None)
 def _any_bwd_plan(batch: int, t: int, c: int, k: int, last: bool,
-                  dev: torch.device) -> dict:
-  """The shape-generic backward's launch plan at one shape and card: the
-  weights kernel's cut (:func:`any_bwd_splits` over its output tiles, read
-  from the library) and the scratch layout."""
+                  dev: torch.device, cp: Optional[int] = None) -> dict:
+  """The shape-generic backward's launch plan at one shape and card (a
+  rank's at ``cp`` gate channels): the weights kernel's cut
+  (:func:`any_bwd_splits` over its output tiles, read from the library)
+  and the scratch layout."""
+  lib = _library()
+  tiles = (lib.wn_layer_bwd_any_weight_tiles(c, k, int(last)) if cp is None
+           else lib.wn_layer_shard_bwd_any_weight_tiles(c, cp, k, int(last)))
   split_batches, n_splits_t, split_rows = any_bwd_splits(
-      batch, t, _library().wn_layer_bwd_any_weight_tiles(c, k, int(last)),
+      batch, t, tiles,
       torch.cuda.get_device_properties(dev).multi_processor_count)
   ranges = any_bwd_ranges(batch, split_batches, n_splits_t)
   return {"split_batches": split_batches, "n_splits_t": n_splits_t,
           "split_rows": split_rows, "ranges": ranges,
-          **any_bwd_scratch(batch, t, c, k, last, ranges)}
+          **any_bwd_scratch(batch, t, c, k, last, ranges, cp)}
 
 
 def wn_layer_backward_any(saved: Tuple[torch.Tensor, ...],
@@ -1544,6 +1732,66 @@ def _bwd_plan(batch: int, t: int, c: int, cp: int, last: bool,
                         lib.wn_layer_bwd_tile_rows(c, cp))}
 
 
+def wn_layer_shard_backward_any(saved: Tuple[torch.Tensor, ...],
+                                g: Optional[torch.Tensor], dilation: int
+                                ) -> Tuple[torch.Tensor, ...]:
+  """:func:`wn_layer_shard_backward` with ``compute_dtype=torch.bfloat16``
+  on the card at any shape: the kernels of ``csrc/wn_layer_bwd_any.cu`` at
+  the rank's gate width (:func:`any_bwd_kernels`; one call, counted once in
+  ``ANY_SHARD_BWD_LAUNCHES``). Inputs as :func:`wn_layer_shard_any` takes
+  them in bf16 (x, b_in_s f32; cond_s, w_in_s [K*C, 2C'], w_rs_s bf16; C
+  even and at most ``ANY_MAX_C[torch.bfloat16]``, 1 <= C' <= C, K odd); g
+  f32 [B, T, n_rs] or None (zero: every gradient is zero and nothing is
+  launched). Anything else raises; it never falls back to the plain
+  version. :class:`WNLayerShardTrainable` calls it at every shape but the
+  specialised kernels' (:func:`shard_specialised`); called directly it
+  runs those too."""
+  global ANY_SHARD_BWD_LAUNCHES
+  x, cond_s, w_in_s, b_in_s, w_rs_s = saved
+  c, cp, k = _shard_shape(x, w_in_s, b_in_s)
+  bf16 = torch.bfloat16
+  _check_shard_any(c, cp, k, w_in_s, bf16)
+  if dilation < 0:
+    raise ValueError(f"dilation must be >= 0, got {dilation}")
+  dev = x.device
+  batch, t, _ = x.shape
+  if batch > 65535:
+    raise ValueError(f"the kernels' grids take B <= 65535, got {batch}")
+  last = w_rs_s.numel() == cp * c
+  n_rs = c if last else 2 * c
+  _check("x", x, torch.float32, (batch, t, c), dev)
+  _check("cond_s", cond_s, bf16, (batch, t, 2 * cp), dev)
+  _check("w_in_s", w_in_s, bf16, (k * c, 2 * cp), dev)
+  _check("b_in_s", b_in_s, torch.float32, (2 * cp,), dev)
+  _check("w_rs_s", w_rs_s, bf16, (cp * n_rs,), dev)
+  if g is None:
+    return tuple(torch.zeros_like(v) for v in saved)
+  g = g.contiguous()  # autograd may hand an expanded view
+  _check("g", g, torch.float32, (batch, t, n_rs), dev)
+
+  lib = _library()
+  plan = _any_bwd_plan(batch, t, c, k, last, dev, cp)
+  # each gradient has its input's shape and dtype
+  dx, dcond, dw_in, db_in, dw_rs = (torch.empty_like(v) for v in saved)
+  scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dev)
+  at = {n: scratch.data_ptr() + off for n, off in plan["offsets"].items()}
+  with torch.cuda.device(dev):  # the launcher reads the current device
+    err = lib.wn_layer_shard_backward_any_bf16(
+        x.data_ptr(), cond_s.data_ptr(), w_in_s.data_ptr(),
+        b_in_s.data_ptr(), w_rs_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dcond.data_ptr(), dw_in.data_ptr(), db_in.data_ptr(),
+        dw_rs.data_ptr(), at["x_p"], at["g_p"], at.get("w_in_p"),
+        at.get("w_rs_p"), at["acts_p"], at.get("dg_p"), at["part_bias"],
+        at["ws"], batch, t, c, cp, k, int(dilation), int(last),
+        plan["n_splits_t"], plan["split_rows"], plan["split_batches"],
+        torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"wn_layer_shard_backward_any kernels failed to "
+                       f"launch: cudaError {err}")
+  ANY_SHARD_BWD_LAUNCHES += 1
+  return dx, dcond, dw_in, db_in, dw_rs
+
+
 def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
                                   g: Optional[torch.Tensor], dilation: int
                                   ) -> Tuple[torch.Tensor, ...]:
@@ -1601,8 +1849,10 @@ def wn_layer_shard_backward_fused(saved: Tuple[torch.Tensor, ...],
 
 
 class WNLayerShardTrainable(torch.autograd.Function):
-  """Forward: :func:`wn_layer_shard` (the shard kernel on the card); backward:
-  :func:`wn_layer_shard_backward_fused` for bf16 on the card, else
+  """Forward: :func:`wn_layer_shard` (the shard kernels on the card);
+  backward, in bf16 on the card: :func:`wn_layer_shard_backward_fused`
+  where :func:`shard_specialised` holds, else
+  :func:`wn_layer_shard_backward_any`; otherwise
   :func:`wn_layer_shard_backward`. Saves the five inputs, as
   :class:`WNLayerTrainable` does (nothing of the kernel's intermediates)."""
 
@@ -1620,7 +1870,11 @@ class WNLayerShardTrainable(torch.autograd.Function):
   def backward(ctx, g):
     saved = ctx.saved_tensors
     if saved[0].device.type == "cuda" and ctx.compute_dtype is not None:
-      grads = wn_layer_shard_backward_fused(saved, g, ctx.dilation)
+      kernels = (wn_layer_shard_backward_fused
+                 if shard_specialised(*_shard_shape(saved[0], saved[2],
+                                                    saved[3]))
+                 else wn_layer_shard_backward_any)
+      grads = kernels(saved, g, ctx.dilation)
     else:
       # CPU tensors, and f32 on the card (parity mode's torch-ops route)
       grads = wn_layer_shard_backward(saved, g, ctx.dilation,
@@ -1634,8 +1888,9 @@ def wn_layer_shard_trainable(x: torch.Tensor, cond_s: torch.Tensor,
                              compute_dtype=None) -> torch.Tensor:
   """Differentiable :func:`wn_layer_shard`: the rank's f32 partial res/skip
   sum, with gradients for its five tensor inputs. On CUDA tensors the
-  forward is the shard kernel (inputs as ``wn_layer_shard`` takes them, or
-  it raises); on CPU tensors the plain version. Its plain counterpart is
+  forward is the shard kernels (inputs as ``wn_layer_shard`` takes them:
+  any odd K, any even C up to ``ANY_MAX_C`` and 1 <= C' <= C; else it
+  raises); on CPU tensors the plain version. Its plain counterpart is
   ``torch.autograd`` through :func:`wn_layer_shard_plain`."""
   return WNLayerShardTrainable.apply(x, cond_s, w_in_s, b_in_s, w_rs_s,
                                      dilation, compute_dtype)

@@ -16,11 +16,11 @@ Every layer body runs through the fused WN-layer kernel wrapper (CUDA kernel
 on the card, plain torch on the CPU); the per-layer conditioning product
 stays ``torch.matmul``. Synthesis (``wn_forward``) and training
 (``wn_forward_train``) take every shape the JAX package's ``wn_forward``
-takes: any odd ``kernel_size`` and any even ``n_channels``. Only the model
-axis (``wn_forward_tp``, ``wn_forward_train_tp``) takes ``kernel_size`` 3
-alone (and on the card the widths its kernels are built for). The residual
-stream and the skip sum are float32 in both modes; in synthesis the skip
-sum is accumulated inside the kernel, in training outside it.
+takes: any odd ``kernel_size`` and any even ``n_channels``; so does the
+model axis (``wn_forward_tp``, ``wn_forward_train_tp``) at any model
+count that divides ``n_channels``, as the JAX package's sharding does. The
+residual stream and the skip sum are float32 in both modes; in synthesis
+the skip sum is accumulated inside the kernel, in training outside it.
 
 ``wn_forward_tp`` is the stack on a ``model`` mesh axis (the JAX package's
 tensor-parallel contract, ``waveglow_tpu/models/wn.py``): each rank holds a
@@ -37,8 +37,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from waveglow_tpu_torch.kernels.wn_layer import (kernel_widths,
-                                                 wn_layer_fused,
+from waveglow_tpu_torch.kernels.wn_layer import (wn_layer_fused,
                                                  wn_layer_shard,
                                                  wn_layer_shard_trainable,
                                                  wn_layer_trainable)
@@ -134,14 +133,6 @@ def wn_forward(params: Dict, audio0: torch.Tensor, spect: torch.Tensor,
                  compute_dtype=compute_dtype, out_dtype=torch.float32)
 
 
-def _check_kernel_size(entry: str, kernel_size: int) -> None:
-  if kernel_size != 3:
-    raise ValueError(
-        f"{entry} takes kernel_size 3 only (on the card at n_channels in "
-        f"{kernel_widths()}), got kernel_size {kernel_size}; synthesis and "
-        "training without a model mesh take any odd kernel_size")
-
-
 def _row_keep(valid_t: torch.Tensor, t: int) -> torch.Tensor:
   return (torch.arange(t, device=valid_t.device)[None, :]
           < valid_t.reshape(-1, 1))[..., None]
@@ -167,9 +158,11 @@ def wn_forward_tp(shards: Sequence[Dict], audio0: torch.Tensor,
   (``parallel.mesh.reduce_partials``); then b_rs, the residual add and the
   ``valid_t`` row mask run on each rank (the same bits on each) and the
   skip is added to the sum once. The work of every rank is enqueued
-  before any is waited for. Takes ``kernel_size`` 3 only.
+  before any is waited for. Takes any odd ``kernel_size`` and any
+  C' = C / model (on the card the shard kernel's dispatch,
+  :func:`kernels.wn_layer.shard_specialised`, picks the specialised or the
+  shape-generic rank kernels).
   """
-  _check_kernel_size("wn_forward_tp (a model mesh)", kernel_size)
   c = n_channels
   batch, t, _ = audio0.shape
   x = conv1x1(audio0, shards[0]["start"]["w"], shards[0]["start"]["b"],
@@ -189,7 +182,7 @@ def wn_forward_tp(shards: Sequence[Dict], audio0: torch.Tensor,
       cond_i = cond_i + shard["cond"]["b"][i].reshape(-1).to(cond_i.dtype)
       in_layer = shard["in_layers"][i]
       partials.append(wn_layer_shard(
-          x_r, cond_i, in_layer["w"].reshape(3, c, 2 * cp),
+          x_r, cond_i, in_layer["w"].reshape(kernel_size, c, 2 * cp),
           in_layer["b"].reshape(-1), shard["res_skip"][i]["w"].reshape(cp, -1),
           2 ** i, compute_dtype=compute_dtype))
     sums = reduce_partials(partials)
@@ -266,11 +259,9 @@ def wn_forward_train_tp(shards: Sequence[Dict], audio0: torch.Tensor,
   added once. The ``res_skip`` weight norm sums over the cut axis
   (``materialize_row_parallel``). So every gradient sum across ranks runs
   in rank order: the partial dx's and d(spect)'s in ``copy_to_model_ranks``'
-  backward, the replicated ``res_skip`` ``g``'s in the norm's. Takes
-  ``kernel_size`` 3 only.
+  backward, the replicated ``res_skip`` ``g``'s in the norm's. Takes any
+  odd ``kernel_size`` and any C' = C / model, as :func:`wn_forward_tp`.
   """
-  _check_kernel_size("wn_forward_train_tp (training on a model mesh)",
-                     kernel_size)
   dtype = compute_dtype or torch.float32
   c = n_channels
   head = shards[0]
@@ -292,7 +283,8 @@ def wn_forward_train_tp(shards: Sequence[Dict], audio0: torch.Tensor,
       cond_i = cond_i + shard["cond"]["b"][i].reshape(-1).to(cond_i.dtype)
       in_layer = shard["in_layers"][i]
       partials.append(wn_layer_shard_trainable(
-          x_r, cond_i, materialize(in_layer).reshape(3 * c, 2 * cp).to(dtype),
+          x_r, cond_i,
+          materialize(in_layer).reshape(kernel_size * c, 2 * cp).to(dtype),
           in_layer["b"].float().reshape(-1),
           w_rs.reshape(cp, -1).to(dtype), 2 ** i,
           compute_dtype=compute_dtype))
